@@ -54,8 +54,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
         capture_output=True, text=True, timeout=120, check=True,
     )
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "tpu_pipelines_torch.serving.server" in report["imported"]
-    assert "tpu_pipelines_torch.ops.flash_attention" in report["imported"]
+    for module in ("serving.server", "ops.flash_attention",
+                   "trainer.train_loop", "trainer.fn_args",
+                   "observability.health", "examples.bert_module"):
+        assert f"tpu_pipelines_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["modules"]
     leaked = [m for m in report["modules"] if _forbidden(m)]
     assert leaked == []

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_pipelines_torch.models.transformer import (
+    Dropout,
     LayerNorm,
     TransformerBlock,
     _dense,
@@ -50,7 +51,7 @@ class BertEncoder(nn.Module):
         self.pos_embed = nn.Embedding(max_len, d_model)
         self.type_embed = nn.Embedding(type_vocab_size, d_model)
         self.embed_norm = LayerNorm(d_model, dtype)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         self.layers = nn.ModuleList(
             TransformerBlock(
                 d_model, n_heads, d_model // n_heads, d_ff,
@@ -66,6 +67,7 @@ class BertEncoder(nn.Module):
         *,
         token_type_ids: Optional[torch.Tensor] = None,
         attention_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         ids = input_ids.long()
         l = ids.shape[1]
@@ -75,22 +77,31 @@ class BertEncoder(nn.Module):
         types = (torch.zeros_like(ids) if token_type_ids is None
                  else token_type_ids.long())
         x = x + self.type_embed(types).to(self.dtype)
-        x = self.dropout(self.embed_norm(x))
+        x = self.dropout(self.embed_norm(x), generator)
         for layer in self.layers:
-            x = layer(x, attention_mask)
+            x = layer(x, attention_mask, generator)
         return x
 
 
-def _encode(encoder: BertEncoder, batch: Dict[str, Any]) -> torch.Tensor:
+def _encode(
+    encoder: BertEncoder,
+    batch: Dict[str, Any],
+    generator: Optional[torch.Generator],
+) -> torch.Tensor:
     return encoder(
         batch["input_ids"],
         token_type_ids=batch.get("token_type_ids"),
         attention_mask=batch.get("attention_mask"),
+        generator=generator,
     )
 
 
 class BertClassifier(nn.Module):
-    """[CLS]-pooled sequence classification (the fine-tune workload)."""
+    """[CLS]-pooled sequence classification (the fine-tune workload).
+
+    ``model(batch, generator=g)``: ``g`` feeds every dropout site in
+    ``train()`` mode (flax ``rngs={"dropout": rng}``); serving runs in
+    ``eval()`` mode and needs none."""
 
     def __init__(
         self, encoder: BertEncoder, num_classes: int = 2,
@@ -101,12 +112,16 @@ class BertClassifier(nn.Module):
         d_model = encoder.embed.embedding_dim
         self.pooler = nn.Linear(d_model, d_model)
         self.head = nn.Linear(d_model, num_classes)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
-    def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
-        x = _encode(self.encoder, batch)
+    def forward(
+        self,
+        batch: Dict[str, Any],
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        x = _encode(self.encoder, batch, generator)
         pooled = torch.tanh(_dense(x[:, 0].float(), self.pooler, torch.float32))
-        pooled = self.dropout(pooled)
+        pooled = self.dropout(pooled, generator)
         return _dense(pooled, self.head, torch.float32)
 
 
@@ -121,8 +136,12 @@ class BertMLMHead(nn.Module):
         self.mlm_norm = LayerNorm(d_model, encoder.dtype)
         self.mlm_head = nn.Linear(d_model, encoder.vocab_size)
 
-    def forward(self, batch: Dict[str, Any]) -> torch.Tensor:
-        x = _encode(self.encoder, batch)
+    def forward(
+        self,
+        batch: Dict[str, Any],
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        x = _encode(self.encoder, batch, generator)
         x = F.gelu(_dense(x, self.mlm_dense, x.dtype), approximate="tanh")
         x = self.mlm_norm(x)
         return _dense(x, self.mlm_head, torch.float32)

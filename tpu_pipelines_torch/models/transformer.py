@@ -10,9 +10,12 @@ The numbers follow the flax modules:
     dtype, returning that dtype;
   - ``gelu`` is the tanh approximation (flax ``nn.gelu``);
   - dropout follows ``nn.Module.train()`` / ``eval()`` where flax takes
-    ``deterministic``.
+    ``deterministic``, and draws its masks from the ``torch.Generator``
+    handed down the forward where flax takes ``rngs={"dropout": rng}``
+    (:class:`Dropout`).
 
-``MultiHeadAttention`` runs ``dense`` or ``flash`` attention; ``auto``
+``MultiHeadAttention`` runs ``dense`` or ``flash`` attention (both
+differentiable); ``auto``
 means dense wherever its score temporaries fit in device memory
 (:func:`choose_attn_impl`).  The measured flash-vs-dense crossover waits for
 the autotune port; decode-cache attention, cross-attention, ring/Ulysses
@@ -107,6 +110,36 @@ class LayerNorm(nn.LayerNorm):
         ).to(self.dtype)
 
 
+class Dropout(nn.Module):
+    """flax ``nn.Dropout`` with its rng made explicit.
+
+    Active only in ``train()`` mode, where the keep-mask is drawn from
+    ``generator`` (on the input's device) and kept values are scaled by
+    ``1 / (1 - rate)`` in the input dtype.  A training forward with
+    ``rate > 0`` and no generator raises: there is no hidden global
+    stream, so a step's masks follow from the seed its caller derived."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if generator is None:
+            raise ValueError(
+                f"dropout rate {self.rate} in train() mode needs a "
+                "torch.Generator: call model(batch, generator=g), or eval()"
+            )
+        keep = 1.0 - self.rate
+        if keep <= 0.0:
+            return torch.zeros_like(x)
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
 class MlpBlock(nn.Module):
     """``wi`` -> tanh-gelu -> ``wo``, dropout on the output (BERT's site;
     T5's hidden-site dropout waits for the T5 slice)."""
@@ -123,11 +156,13 @@ class MlpBlock(nn.Module):
         self.dtype = dtype
         self.wi = nn.Linear(d_model, d_ff)
         self.wo = nn.Linear(d_ff, d_model)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
         h = F.gelu(_dense(x, self.wi, self.dtype), approximate="tanh")
-        return self.dropout(_dense(h, self.wo, self.dtype))
+        return self.dropout(_dense(h, self.wo, self.dtype), generator)
 
 
 class MultiHeadAttention(nn.Module):
@@ -164,10 +199,13 @@ class MultiHeadAttention(nn.Module):
         self.key = nn.Linear(d_model, inner)
         self.value = nn.Linear(d_model, inner)
         self.out = nn.Linear(inner, d_model)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     def forward(
-        self, x: torch.Tensor, kv_mask: Optional[torch.Tensor] = None
+        self,
+        x: torch.Tensor,
+        kv_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         b, l, _ = x.shape
         heads = (b, l, self.n_heads, self.head_dim)
@@ -184,7 +222,7 @@ class MultiHeadAttention(nn.Module):
         else:
             out = dense_attention(q, k, v, causal=self.causal, kv_mask=kv_mask)
         out = _dense(out.reshape(b, l, -1), self.out, self.dtype)
-        return self.dropout(out)
+        return self.dropout(out, generator)
 
 
 class TransformerBlock(nn.Module):
@@ -217,10 +255,13 @@ class TransformerBlock(nn.Module):
         self.mlp_norm = LayerNorm(d_model, dtype)
 
     def forward(
-        self, x: torch.Tensor, kv_mask: Optional[torch.Tensor] = None
+        self,
+        x: torch.Tensor,
+        kv_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         if self.prenorm:
-            x = x + self.attn(self.attn_norm(x), kv_mask)
-            return x + self.mlp(self.mlp_norm(x))
-        x = self.attn_norm(x + self.attn(x, kv_mask))
-        return self.mlp_norm(x + self.mlp(x))
+            x = x + self.attn(self.attn_norm(x), kv_mask, generator)
+            return x + self.mlp(self.mlp_norm(x), generator)
+        x = self.attn_norm(x + self.attn(x, kv_mask, generator))
+        return self.mlp_norm(x + self.mlp(x, generator))

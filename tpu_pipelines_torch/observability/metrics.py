@@ -2,7 +2,8 @@
 
 The port's copy of ``Counter``, ``Gauge``, ``Histogram`` and
 ``MetricsRegistry`` from ``tpu_pipelines/observability/metrics.py``: what
-the model server's ``GET /metrics`` route and the micro-batcher publish.
+the model server's ``GET /metrics`` route, the micro-batcher and the train
+loop publish (the loop into :func:`default_registry`).
 Stdlib only; one registry lock serializes every update and the
 exposition snapshot; exposition follows the Prometheus text format
 v0.0.4.  The standalone metrics server, fork-pool snapshot/merge and
@@ -20,6 +21,7 @@ __all__ = [
     "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "default_registry",
     "latency_buckets",
 ]
 
@@ -386,3 +388,11 @@ class MetricsRegistry:
                             f"{name}{suffix} {_fmt_value(value)}"
                         )
         return "\n".join(lines) + "\n"
+
+
+_DEFAULT = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    """The process-wide registry every layer publishes into by default."""
+    return _DEFAULT

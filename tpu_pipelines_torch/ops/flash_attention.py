@@ -1,28 +1,42 @@
-"""Flash attention forward: a CUDA kernel for Hopper and its plain version.
+"""Flash attention: CUDA kernels for Hopper and their plain versions.
 
-The counterpart of ``tpu_pipelines/ops/flash_attention.py`` (forward
-only).  :func:`flash_attention_forward` computes blockwise online-softmax
-self-attention over ``[batch, len, heads, head_dim]`` tensors and returns
-the output with the per-row log-sum-exp the backward kernels will read:
+The counterpart of ``tpu_pipelines/ops/flash_attention.py``.
+:func:`flash_attention` is blockwise online-softmax self-attention over
+``[batch, len, heads, head_dim]`` tensors, differentiable through
+:class:`FlashAttentionFunction` (the reference's ``_flash`` custom_vjp):
 
-  - on a CUDA tensor it launches the kernel in ``csrc/flash_attention.cu``
-    (built at first use by ``ops/_build.py``); a build or launch failure
-    raises;
-  - on a CPU tensor it runs :func:`flash_attention_reference`, the plain
-    version of the same function (f32 math, the kernel's masking, scale
-    placement, zeros for rows with no allowed key, and LSE);
+  - the forward (:func:`flash_attention_forward`) returns the output and
+    the per-row log-sum-exp, and the Function saves
+    ``(q, k, v, mask, out, lse)``;
+  - the backward (:func:`flash_attention_backward`) computes
+    ``Dvec = rowsum(dO * O)`` and from it ``dq`` (:func:`flash_bwd_dq`)
+    and ``dk``, ``dv`` (:func:`flash_bwd_dkv`), recomputing the
+    probabilities from the saved LSE.
+
+Each entry point dispatches on the device of its tensors:
+
+  - on a CUDA tensor it launches the kernels in ``csrc/flash_attention.cu``
+    and ``csrc/flash_attention_bwd.cu`` (built at first use by
+    ``ops/_build.py``); a build or launch failure raises;
+  - on a CPU tensor it runs the plain version of the same function
+    (:func:`flash_attention_reference`, :func:`flash_bwd_dq_reference`,
+    :func:`flash_bwd_dkv_reference`: f32 math, the kernels' masking,
+    scale placement, zeros for rows with no allowed key, and LSE);
   - any other device raises.
 
-Semantics kept from the TPU kernel: q is scaled by ``head_dim ** -0.5`` in
-f32 before the product, masked scores are ``NEG_INF`` (-1e30), a row whose
-allowed key set is empty outputs 0 (dense attention would spread it
-uniformly) with ``lse = -1e30``, ``out`` has the input dtype and ``lse`` is
-f32 laid out ``[batch * heads, len]``.  The kernel's blocks are fixed
-(``BLOCK_Q`` x ``BLOCK_K``) and ragged lengths are masked inside it, so
-there is no divisibility rule.
+Semantics kept from the TPU kernels: the forward scales q by
+``head_dim ** -0.5`` in f32 before the product and the backward scales the
+product, masked scores are ``NEG_INF`` (-1e30), a row whose allowed key set
+is empty outputs 0 (dense attention would spread it uniformly) with
+``lse = -1e30``, gets a zero ``dq`` and adds nothing to ``dk``/``dv``;
+outputs and gradients have the input dtype and ``lse`` is f32 laid out
+``[batch * heads, len]``.  The kernels' blocks are fixed (``BLOCK_Q`` x
+``BLOCK_K``) and ragged lengths are masked inside them, so there is no
+divisibility rule.
 
-``launches`` counts kernel launches (never plain-version calls), so a run
-can show that its attention went through the kernel.
+``launches``, ``dq_launches`` and ``dkv_launches`` count kernel launches
+(never plain-version calls), so a run can show that its attention went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -49,9 +63,28 @@ _PROTOTYPES = {
         + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
     ),
 }
+# tpp_flash_bwd_dq(q, k, v, dout, mask, lse, dvec, dq, dtype, b, l, h, d,
+#                  strides[12], causal, scale, stream) -> cudaError_t;
+# tpp_flash_bwd_dkv takes dk, dv in place of dq.
+_STRIDES = ctypes.c_int64 * 12
+_BWD_PROTOTYPES = {
+    "tpp_flash_bwd_dq": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        + [_STRIDES, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+    ),
+    "tpp_flash_bwd_dkv": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+        + [_STRIDES, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+    ),
+}
 
-# Kernel launches since the process started (or since a caller reset it).
+# Kernel launches since the process started (or since a caller reset
+# them): flash_fwd, flash_bwd_dq, flash_bwd_dkv.
 launches = 0
+dq_launches = 0
+dkv_launches = 0
 _launch_lock = threading.Lock()
 
 
@@ -104,6 +137,19 @@ def _check(q, k, v, kv_mask, block_q, block_k) -> None:
             )
 
 
+def _allowed(b: int, l: int, device, causal: bool,
+             kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """[b, 1, l, l] or [b, 1, 1, l] bool: the (query, key) pairs a row may
+    attend to."""
+    allowed = torch.ones((b, 1, 1, l), dtype=torch.bool, device=device)
+    if kv_mask is not None:
+        allowed = kv_mask.reshape(b, 1, 1, l) > 0
+    if causal:
+        pos = torch.arange(l, device=device)
+        allowed = allowed & (pos[:, None] >= pos[None, :])
+    return allowed
+
+
 def flash_attention_reference(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -112,7 +158,8 @@ def flash_attention_reference(
     causal: bool = False,
     kv_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel: ``(out, lse)`` in f32 math.
+    """Plain PyTorch version of the forward kernel: ``(out, lse)`` in f32
+    math.
 
     Unblocked (one softmax over the whole row), which equals the kernel's
     online recurrence up to the order of f32 sums."""
@@ -120,12 +167,7 @@ def flash_attention_reference(
     s = torch.einsum(
         "bqhd,bkhd->bhqk", q.float() * d ** -0.5, k.float()
     )
-    allowed = torch.ones((b, 1, 1, l), dtype=torch.bool, device=q.device)
-    if kv_mask is not None:
-        allowed = kv_mask.reshape(b, 1, 1, l) > 0
-    if causal:
-        pos = torch.arange(l, device=q.device)
-        allowed = allowed & (pos[:, None] >= pos[None, :])
+    allowed = _allowed(b, l, q.device, causal, kv_mask)
     s = torch.where(allowed, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(allowed, torch.exp(s - m), 0.0)
@@ -134,6 +176,68 @@ def flash_attention_reference(
     out = out / denom.permute(0, 2, 1, 3)
     lse = (m + torch.log(denom)).reshape(b * h, l)
     return out.to(q.dtype), lse
+
+
+def _dvec(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``Dvec = rowsum(dO * O)`` in f32, laid out ``[b * h, l]`` like lse."""
+    b, l, h, _ = out.shape
+    dvec = (dout.float() * out.float()).sum(dim=-1)           # [b, l, h]
+    return dvec.permute(0, 2, 1).reshape(b * h, l).contiguous()
+
+
+def _probs(q, k, v, dout, lse, dvec, causal, kv_mask):
+    """The backward's recomputed ``p`` and ``dS``, f32 ``[b, h, lq, lk]``,
+    and the scale."""
+    b, l, h, d = q.shape
+    scale = d ** -0.5
+    s = scale * torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    allowed = _allowed(b, l, q.device, causal, kv_mask)
+    # A select, never a product: an all-masked row has lse = -1e30 and
+    # exp(s - lse) overflows there.
+    p = torch.where(allowed, torch.exp(s - lse.reshape(b, h, l, 1)), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    return p, p * (dp - dvec.reshape(b, h, l, 1)), scale
+
+
+def flash_bwd_dq_reference(q, k, v, dout, lse, dvec, *, causal=False,
+                           kv_mask=None) -> torch.Tensor:
+    """Plain PyTorch version of the ``flash_bwd_dq`` kernel:
+    ``dq = scale * dS k`` with ``dS = p * (dO v^T - Dvec)`` and
+    ``p = allowed ? exp(scale * q k^T - lse) : 0``, f32 math, q's dtype."""
+    _, ds, scale = _probs(q, k, v, dout, lse, dvec, causal, kv_mask)
+    return (scale * torch.einsum("bhqk,bkhd->bqhd", ds, k.float())).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, dout, lse, dvec, *, causal=False,
+                            kv_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the ``flash_bwd_dkv`` kernel:
+    ``dk = scale * dS^T q`` and ``dv = p^T dO``, f32 math, q's dtype."""
+    p, ds, scale = _probs(q, k, v, dout, lse, dvec, causal, kv_mask)
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def flash_attention_backward_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = False,
+    kv_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the whole backward: ``(dq, dk, dv)`` in the
+    input dtype, f32 math, the reference's formula over whole rows
+    (``_flash_backward``)."""
+    dvec = _dvec(out, dout)
+    dq = flash_bwd_dq_reference(q, k, v, dout, lse, dvec, causal=causal,
+                                kv_mask=kv_mask)
+    dk, dv = flash_bwd_dkv_reference(q, k, v, dout, lse, dvec, causal=causal,
+                                     kv_mask=kv_mask)
+    return dq, dk, dv
 
 
 def _launch(q, k, v, kv_mask, causal) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -191,6 +295,147 @@ def flash_attention_forward(
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
+def _launch_bwd(name, q, k, v, dout, lse, dvec, kv_mask, causal, n_out):
+    """Launch ``tpp_flash_bwd_<name>`` into ``n_out`` new gradient tensors."""
+    global dq_launches, dkv_launches
+    from tpu_pipelines_torch.ops import _build
+
+    fn = getattr(_build.load("flash_attention_bwd", _BWD_PROTOTYPES),
+                 f"tpp_flash_bwd_{name}")
+    b, l, h, d = q.shape
+    mask = None
+    if kv_mask is not None:
+        mask = kv_mask.to(torch.int32).contiguous()
+    strides = _STRIDES(*(s for t in (q, k, v, dout) for s in t.stride()[:3]))
+    grads = [torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
+             for _ in range(n_out)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            None if mask is None else mask.data_ptr(), lse.data_ptr(),
+            dvec.data_ptr(), *(g.data_ptr() for g in grads),
+            _DTYPE_CODES[q.dtype], b, l, h, d, strides, int(causal),
+            d ** -0.5, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention: CUDA kernel flash_bwd_{name} launch failed "
+            f"with cudaError {err} (shape {tuple(q.shape)}, {q.dtype}, "
+            f"{q.device})"
+        )
+    with _launch_lock:
+        if name == "dq":
+            dq_launches += 1
+        else:
+            dkv_launches += 1
+    return grads
+
+
+def _check_bwd(q, k, v, dout, lse, dvec, kv_mask) -> None:
+    _check(q, k, v, kv_mask, None, None)
+    b, l, h, _ = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
+        raise ValueError(
+            f"flash_attention backward: dout {dout.dtype} "
+            f"{tuple(dout.shape)} on {dout.device} must match q {q.dtype} "
+            f"{tuple(q.shape)} on {q.device}"
+        )
+    if dout.stride(-1) != 1:
+        raise ValueError("flash_attention backward: dout's head_dim must be "
+                         "contiguous")
+    for name, t in (("lse", lse), ("dvec", dvec)):
+        if (tuple(t.shape) != (b * h, l) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(
+                f"flash_attention backward: {name} must be a contiguous "
+                f"float32 [{b * h}, {l}] tensor on {q.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}"
+            )
+
+
+def flash_bwd_dq(q, k, v, dout, lse, dvec, *, causal=False,
+                 kv_mask=None) -> torch.Tensor:
+    """``dq`` from the saved ``lse`` and ``dvec = rowsum(dO * O)``: the
+    ``flash_bwd_dq`` kernel on CUDA tensors, its plain version on CPU
+    tensors."""
+    _check_bwd(q, k, v, dout, lse, dvec, kv_mask)
+    if q.device.type == "cuda":
+        return _launch_bwd("dq", q, k, v, dout, lse, dvec, kv_mask, causal, 1)[0]
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, dout, lse, dvec, causal=causal,
+                                      kv_mask=kv_mask)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, dvec, *, causal=False,
+                  kv_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)`` from the saved ``lse`` and ``dvec``: the
+    ``flash_bwd_dkv`` kernel on CUDA tensors, its plain version on CPU
+    tensors."""
+    _check_bwd(q, k, v, dout, lse, dvec, kv_mask)
+    if q.device.type == "cuda":
+        dk, dv = _launch_bwd("dkv", q, k, v, dout, lse, dvec, kv_mask, causal, 2)
+        return dk, dv
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, dout, lse, dvec, causal=causal,
+                                       kv_mask=kv_mask)
+    raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+def flash_attention_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    lse: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool = False,
+    kv_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention_forward` for the output
+    cotangent ``dout``, from the forward's ``out`` and ``lse``:
+    ``Dvec = rowsum(dO * O)`` (a plain f32 reduction), then
+    :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`."""
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.device != q.device:
+            raise ValueError(
+                f"flash_attention backward: {name} {tuple(t.shape)} on "
+                f"{t.device} must match q {tuple(q.shape)} on {q.device}"
+            )
+    if dout.stride(-1) != 1:
+        dout = dout.contiguous()
+    dvec = _dvec(out, dout)
+    dq = flash_bwd_dq(q, k, v, dout, lse, dvec, causal=causal, kv_mask=kv_mask)
+    dk, dv = flash_bwd_dkv(q, k, v, dout, lse, dvec, causal=causal,
+                           kv_mask=kv_mask)
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The reference's ``_flash`` custom_vjp: the forward saves
+    ``(q, k, v, mask, out, lse)``; the backward returns ``(dq, dk, dv)``
+    and no gradient for the mask or the causal flag."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, causal):
+        out, lse = flash_attention_forward(
+            q, k, v, causal=causal, kv_mask=kv_mask
+        )
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, out, lse, dout, causal=ctx.causal, kv_mask=kv_mask
+        )
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -201,9 +446,8 @@ def flash_attention(
     block_q: Optional[int] = None,
     block_k: Optional[int] = None,
 ) -> torch.Tensor:
-    """Self-attention over ``[batch, len, heads, head_dim]``; see
-    :func:`flash_attention_forward`."""
-    return flash_attention_forward(
-        q, k, v, causal=causal, kv_mask=kv_mask,
-        block_q=block_q, block_k=block_k,
-    )[0]
+    """Differentiable self-attention over ``[batch, len, heads, head_dim]``;
+    see :func:`flash_attention_forward` and
+    :func:`flash_attention_backward`."""
+    _check(q, k, v, kv_mask, block_q, block_k)
+    return FlashAttentionFunction.apply(q, k, v, kv_mask, causal)
