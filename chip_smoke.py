@@ -2,6 +2,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check what comes out.
 
     python3 chip_smoke.py [--seed N] [--requests N] [--train-steps N]
+                          [--generate-requests N]
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -10,18 +11,34 @@ Phases (any failure raises and the script exits non-zero):
      started together) and print the build times;
   2. kernels — hold each kernel against its plain PyTorch version on the
      card at its main path's shapes and at edge cases (ragged length,
-     causal, an all-masked batch row, fp16/f32, strided inputs), and time
-     it beside its plain version, the one-call PyTorch yardstick and its
-     bound (the forward at the serving shape, the backward kernels at the
-     training shape); hold the attention's gradients against autograd
-     through dense attention in f32;
+     causal, an all-masked batch row, fp16/f32, strided inputs, the decode
+     kernel's arena slices, L = 1 and a 4096-key cache), and time it beside
+     its plain version, the one-call PyTorch yardstick and its bound (the
+     forward at the serving shape, the backward kernels at the training
+     shape, the decode kernel at the beam-served and the long-cache
+     shapes); hold the attention's gradients against autograd through
+     dense attention in f32;
   3. serving — export a BERT-base payload (full width, random weights from
      ``--seed``) with flash attention, serve it with ``ModelServer`` on the
      card with micro-batching, send concurrent REST ``:predict`` requests,
      and check every reply against the same weights served with dense
      attention (and that a wrong key mask would fail that check), and that
      every device batch launched the flash kernel once per layer;
-  4. training — fine-tune BERT-base (full width, bf16, dropout 0.1, random
+  4. generate — export a T5-small payload (full width, random weights from
+     ``--seed``, flash decode, beam 4, 128 decode steps, eos 3), serve it
+     with ``ModelServer`` on the card, send ``:generate`` requests of 1-4
+     rows from 8 concurrent clients: every reply 200 with [rows, 128] ids,
+     the decode kernel launched once per decoder layer and pass, the
+     teacher-forced logits of the served tokens against dense decode
+     attention (and two controls around the kernel outside that
+     tolerance); report latency, tokens/s and a profiled decode step;
+  5. engine — the continuous-batching ``GenerativeEngine`` over the same
+     payload (batch 8, pages of 32), warmed, then 24 sequences with ragged
+     prompts and budgets from threads: every stream ends at EOS or its
+     budget, one kernel launch per layer per prefill and step, no bucket
+     first run after warm(); report steps/s, tokens/s, occupancy and how
+     many streams equal the isolated greedy decode;
+  6. training — fine-tune BERT-base (full width, bf16, dropout 0.1, random
      init from ``--seed``) through ``train_loop`` at batch 256 x 128 with
      ragged lengths: every loss finite, each of the three attention kernels
      launched once per layer and step, the first step's q/k/v projection
@@ -47,12 +64,16 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from tpu_pipelines_torch.examples import bert_module
+from tpu_pipelines_torch.models import t5 as t5m
+from tpu_pipelines_torch.models import transformer as tfm
 from tpu_pipelines_torch.models.bert import (
     DEFAULT_HPARAMS,
     build_bert_model,
@@ -61,6 +82,7 @@ from tpu_pipelines_torch.models.bert import (
 from tpu_pipelines_torch.ops import _build
 from tpu_pipelines_torch.ops import flash_attention as fa
 from tpu_pipelines_torch.parallel.ring_attention import dense_attention
+from tpu_pipelines_torch.serving.generative import GenerativeEngine
 from tpu_pipelines_torch.serving.server import ModelServer
 from tpu_pipelines_torch.trainer import TrainLoopConfig, train_loop
 from tpu_pipelines_torch.trainer.export import export_model, load_exported_model
@@ -71,6 +93,7 @@ from tpu_pipelines_torch.trainer.train_loop import (
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BERT_MODULE = os.path.join(REPO, "tpu_pipelines_torch", "examples", "bert_module.py")
+T5_MODULE = os.path.join(REPO, "tpu_pipelines_torch", "examples", "t5_module.py")
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
 # operations/s by input type (bf16/fp16 on the tensor cores, f32 on the
@@ -125,12 +148,25 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
-    """Mean ms per call on the current stream, by CUDA events."""
+    """Mean device ms per call on the current stream, by CUDA events.
+
+    The timed launches queue behind a device-side sleep sized to outlast
+    their host enqueue time (twice the warm-up's enqueue time, in cycles of
+    a 2 GHz clock, above the H100's top SM clock, so the sleep lasts at
+    least that long), so the events bracket back-to-back device work: a
+    wrapper whose Python costs more than its kernel does not inflate the
+    kernel's time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    host_s = (time.perf_counter() - t0) / warmup
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * iters * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -417,6 +453,133 @@ def training_shape_timing(q, k, v, dout, out, lse, dvec, mask):
     return records
 
 
+# (name, batch, cache len, heads, head_dim, dtype, validity, bias, arena)
+# for the decode kernel.  "served" is the beam-served step (4 rows x 4
+# beams, every row at one position, T5's broadcast bias), "engine" an engine
+# bucket (a [:b, :kv] slice of an arena, ragged positions, per-row bias),
+# "long_cache" the shape whose bound is the k/v bytes alone.  Validity:
+# "pos" keys <= L/2 in every row, "ragged" keys <= a random position per
+# row, "empty_row" ragged with row 1 all masked, "full" every key.
+DECODE_CASES = [
+    ("served", 16, 128, 8, 64, torch.bfloat16, "pos", "broadcast", False),
+    ("engine", 8, 64, 8, 64, torch.bfloat16, "ragged", "per_row", True),
+    ("len_1", 4, 1, 8, 64, torch.bfloat16, "pos", "broadcast", False),
+    ("len_100", 4, 100, 8, 64, torch.bfloat16, "ragged", "per_row", False),
+    ("empty_row", 4, 128, 8, 64, torch.bfloat16, "empty_row", "per_row", False),
+    ("no_bias", 4, 128, 8, 64, torch.bfloat16, "ragged", "none", False),
+    ("fp16", 4, 100, 8, 64, torch.float16, "ragged", "per_row", True),
+    ("f32", 4, 100, 8, 64, torch.float32, "ragged", "broadcast", False),
+    ("d16", 4, 100, 8, 16, torch.bfloat16, "ragged", "per_row", False),
+    ("d32", 4, 100, 8, 32, torch.bfloat16, "ragged", "broadcast", False),
+    ("d128", 4, 100, 8, 128, torch.bfloat16, "ragged", "per_row", True),
+    ("long_cache", 32, 4096, 8, 64, torch.bfloat16, "full", "broadcast", False),
+]
+
+
+def decode_inputs(gen, b, l, h, d, dtype, validity, bias_kind, arena):
+    dev = "cuda"
+    q = torch.randn(b, 1, h, d, generator=gen).to(dev, dtype)
+    if arena:  # [:b, :l] slices of a larger [B, L, 2, H, D] cache
+        cache = torch.randn(b + 2, l + 32, 2, h, d, generator=gen).to(dev, dtype)
+        k, v = cache[:b, :l, 0], cache[:b, :l, 1]
+    else:
+        k, v = (torch.randn(b, l, h, d, generator=gen).to(dev, dtype)
+                for _ in range(2))
+    if validity == "full":
+        pos = torch.full((b,), l - 1)
+    elif validity == "pos":
+        pos = torch.full((b,), l // 2)
+    else:
+        pos = torch.randint(0, l, (b,), generator=gen)
+    mask = torch.arange(l)[None, :] <= pos[:, None]
+    if validity == "empty_row":
+        mask[1] = False
+    bias = None
+    if bias_kind != "none":
+        rows = 1 if bias_kind == "broadcast" else b
+        bias = torch.randn(rows, h, 1, l, generator=gen).to(dev)
+    return q, k, v, mask.to(dev, torch.int32), bias
+
+
+def decode_kernel_phase(gen):
+    """Every decode case within one output ulp of the plain version; returns
+    the flash_decode record (without launches), timed at the served and the
+    long-cache shapes."""
+    max_err = 0.0
+    timings = {}
+    for name, b, l, h, d, dtype, validity, bias_kind, arena in DECODE_CASES:
+        q, k, v, mask, bias = decode_inputs(gen, b, l, h, d, dtype, validity,
+                                            bias_kind, arena)
+        out = fa.flash_decode_attention(q, k, v, kv_mask=mask, bias=bias)
+        torch.cuda.synchronize()
+        ref = fa.flash_decode_attention_reference(q, k, v, kv_mask=mask,
+                                                  bias=bias)
+        err = (out.float() - ref.float()).abs().max().item()
+        ratio = tol_ratio(out, ref, OUT_TOL[dtype])
+        ok = torch.isfinite(out.float()).all().item() and ratio <= 1.0
+        if validity == "empty_row":
+            ok = ok and out[1].abs().max().item() == 0.0
+        print(f"kernel flash_decode {name}: B={b} L={l} H={h} D={d} {dtype} "
+              f"validity={validity} bias={bias_kind} arena={arena} "
+              f"max|out-ref|={err:.3e} ({ratio:.3f} of tol "
+              f"{OUT_TOL[dtype][1]:g} + {OUT_TOL[dtype][0]:g}*|ref|)", flush=True)
+        if not ok:
+            raise AssertionError(f"flash_decode {name}: kernel disagrees with "
+                                 "its plain version")
+        max_err = max(max_err, err)
+        if name in ("served", "long_cache"):
+            timings[name] = decode_timing(name, q, k, v, mask, bias)
+    return {
+        "name": "flash_decode",
+        "route": "cuda",
+        "source": "tpu_pipelines_torch/csrc/flash_decode.cu",
+        "replaces": "tpu_pipelines/ops/flash_attention.py:325",
+        "tpu_kernel": "_decode_kernel",
+        **timings["served"],
+        "long_cache": timings["long_cache"],
+        "max_abs_err": max_err,
+    }
+
+
+def decode_timing(name, q, k, v, mask, bias):
+    b, l, h, d = k.shape
+    item = q.element_size()
+    iters = 200 if l <= 1024 else 50
+    ms = time_ms(lambda: fa.flash_decode_attention(q, k, v, kv_mask=mask,
+                                                   bias=bias), iters=iters)
+    plain_ms = time_ms(lambda: fa.flash_decode_attention_reference(
+        q, k, v, kv_mask=mask, bias=bias), iters=20, warmup=3)
+    # Yardstick only: SDPA with the bias and the validity folded into one
+    # float mask, built outside the timed region (no row here is empty).
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    float_mask = torch.where((mask > 0)[:, None, None, :],
+                             bias.expand(b, h, 1, l), float("-inf"))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=float_mask), iters=iters)
+    # Least time for the same work: q read and out written once, k and v
+    # read at the allowed keys only, the [B, L] int32 mask and the f32 bias
+    # read once; about 4*D operations per (head, allowed key).
+    allowed = int((mask > 0).sum().item())
+    bytes_moved = (2 * q.numel() * item + 2 * allowed * h * d * item
+                   + mask.numel() * 4 + bias.numel() * 4)
+    ops = 4 * d * h * allowed
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[q.dtype]
+    bound_ms = max(t_bytes, t_ops) * 1e3
+    print(f"kernel flash_decode {name} shape: {ms:.4f} ms (plain {plain_ms:.4f} "
+          f"ms, sdpa {library_ms:.4f} ms); bound {bound_ms:.4f} ms "
+          f"({bytes_moved} bytes, {ops} ops)", flush=True)
+    return {
+        "shape": f"B={b} L={l} H={h} D={d} {str(q.dtype).replace('torch.', '')}",
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+        "library": "scaled_dot_product_attention with a float mask",
+    }
+
+
 # ------------------------------------------------------------------ serving
 
 def make_requests(rng, n_requests, vocab):
@@ -462,21 +625,21 @@ N_CLIENT_PROCS = 4
 CLIENT_THREADS = 16
 
 
-def run_clients(url, requests):
-    """POST every request from N_CLIENT_PROCS processes of CLIENT_THREADS
-    threads each; returns ([(code, reply, seconds)] in request order, wall
-    seconds from the first request sent to the last reply)."""
+def run_clients(url, requests, n_procs=N_CLIENT_PROCS, threads=CLIENT_THREADS):
+    """POST every request from ``n_procs`` processes of ``threads`` threads
+    each; returns ([(code, reply, seconds)] in request order, wall seconds
+    from the first request sent to the last reply)."""
     procs = []
     try:
-        for c in range(N_CLIENT_PROCS):
+        for c in range(n_procs):
             proc = subprocess.Popen(
                 [sys.executable, "-c", CLIENT], stdin=subprocess.PIPE,
                 stdout=subprocess.PIPE, text=True,
             )
             procs.append(proc)
-            job = {"url": url, "threads": CLIENT_THREADS, "requests": [
+            job = {"url": url, "threads": threads, "requests": [
                 [i, requests[i]]
-                for i in range(c, len(requests), N_CLIENT_PROCS)]}
+                for i in range(c, len(requests), n_procs)]}
             proc.stdin.write(json.dumps(job))
             proc.stdin.close()
         outs = []
@@ -736,8 +899,6 @@ def train_step_breakdown(hp, seed, batch, iters=3):
     """Host wall of one fine-tune step (forward, backward, AdamW; ends in a
     synchronize) and, from torch.profiler, its device time: (wall_ms,
     profiled wall_ms, busy_ms, {kernel: ms}, kernels per step)."""
-    from torch.profiler import ProfilerActivity, profile
-
     model = bert_module.init_params_fn(
         torch.Generator().manual_seed(seed), batch, hyperparameters=hp)
     model.to(DEVICE).train()
@@ -752,32 +913,7 @@ def train_step_breakdown(hp, seed, batch, iters=3):
         opt.step()
         torch.cuda.synchronize()
 
-    for i in range(2):
-        step(i)
-    t0 = time.perf_counter()
-    for i in range(iters):
-        step(i)
-    wall_ms = (time.perf_counter() - t0) / iters * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for i in range(iters):
-            step(i)
-        profiled_ms = (time.perf_counter() - t0) / iters * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    # Device busy = the union of kernel intervals (overlaps counted once),
-    # against the host wall of the same profiled steps: tracing lengthens
-    # both, so the idle share compares like with like.
-    busy_us, end = 0.0, float("-inf")
-    for start, stop in sorted((e.time_range.start, e.time_range.end)
-                              for e in kernels):
-        if stop > end:
-            busy_us += stop - max(start, end)
-            end = stop
-    busy_ms = busy_us / iters / 1e3
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    wall_ms, profiled_ms, busy_ms, by_name, n_kernels = profiled(step, iters)
     by_kernel = {
         name: sum(us for kernel, us in by_name.items()
                   if f"{name}_kernel" in kernel) / iters / 1e3
@@ -787,7 +923,7 @@ def train_step_breakdown(hp, seed, batch, iters=3):
     for kernel, us in top:
         print(f"training step top kernel: {us / iters / 1e3:.3f} ms/step "
               f"{kernel[:110]}", flush=True)
-    return wall_ms, profiled_ms, busy_ms, by_kernel, len(kernels) / iters
+    return wall_ms, profiled_ms, busy_ms, by_kernel, n_kernels
 
 
 def training_phase(seed, n_steps, card):
@@ -901,6 +1037,339 @@ def training_phase(seed, n_steps, card):
     return launches
 
 
+# --------------------------------------------------------- generative serving
+
+T5_LAYERS = t5m.DEFAULT_HPARAMS["n_layers"]
+DECODE_LEN = 128
+BEAM = 4
+EOS_ID = 3
+MAX_INPUT_LEN = 64
+# Teacher-forced decoder logits, the served payload (flash decode) against
+# the same weights with dense decode attention, bf16 compute: dense rounds
+# the softmax probabilities to bf16 before P.V, the kernel keeps them in
+# f32.  Two controls (the kernel handed the validity one position short, or
+# the bias row of the next position) must land above it.  Set near the
+# geometric mean of the sound gap and the smaller control, measured on an
+# H100 80GB HBM3 (700 W) at --seed 0: sound 2.2e-3, controls 1.9e-1 (one
+# short) and 6.5e-2 (next bias row); at random init the logits' scale is
+# about 0.04.
+DECODE_LOGIT_TOL = 1.2e-2
+
+
+def t5_hparams(attn_impl):
+    return {**t5m.DEFAULT_HPARAMS, "attn_impl": attn_impl, "beam_size": BEAM,
+            "max_decode_len": DECODE_LEN, "eos_id": EOS_ID,
+            "max_input_len": MAX_INPUT_LEN}
+
+
+def t5_requests(rng, n_requests, vocab):
+    """``:generate`` bodies of 1-4 rows, real input lengths 8..64, padded to
+    MAX_INPUT_LEN behind an input_mask."""
+    requests = []
+    for _ in range(n_requests):
+        rows = int(rng.integers(1, 5))
+        lengths = rng.integers(8, MAX_INPUT_LEN + 1, size=rows)
+        mask = np.arange(MAX_INPUT_LEN)[None, :] < lengths[:, None]
+        ids = np.where(mask, rng.integers(4, vocab, size=(rows, MAX_INPUT_LEN)), 0)
+        requests.append({"inputs": {"inputs": ids.tolist(),
+                                    "input_mask": mask.astype(np.int32).tolist()}})
+    return requests
+
+
+def generated_tokens(tokens):
+    """Tokens emitted per row: up to and including the first EOS."""
+    out = 0
+    for row in tokens:
+        row = list(row)
+        out += row.index(EOS_ID) + 1 if EOS_ID in row else len(row)
+    return out
+
+
+def validity_one_short(q, k, v, *, kv_mask, bias=None, block_k=None):
+    """Control: the kernel loses the current token's own K/V."""
+    short = kv_mask.clone()
+    last = short.to(torch.int32).sum(dim=1) - 1
+    rows = torch.arange(short.shape[0], device=short.device)
+    short[rows, last.clamp_min(0)] = False
+    return fa.flash_decode_attention(q, k, v, kv_mask=short, bias=bias,
+                                     block_k=block_k)
+
+
+def next_position_bias(rel_pos):
+    """Control: the kernel gets the bias row of the next position."""
+    def wrapper(q, k, v, *, kv_mask, bias=None, block_k=None):
+        length = k.shape[1]
+        pos = int(kv_mask[0].sum().item()) - 1    # every row at one position
+        nxt = rel_pos(length + 1, length + 1, row=pos + 1)[..., :length]
+        return fa.flash_decode_attention(q, k, v, kv_mask=kv_mask,
+                                         bias=nxt.contiguous(), block_k=block_k)
+    return wrapper
+
+
+def kernel_as(wrapper):
+    """Within the block the decoder's decode attention calls ``wrapper`` (a
+    control around the kernel), or the kernel's own wrapper for None."""
+    return mock.patch.object(tfm, "flash_decode_attention",
+                             wrapper or fa.flash_decode_attention)
+
+
+def teacher_forced_gaps(flash, dense, ids, mask, tokens):
+    """Feed ``tokens`` (the served output) step by step through the flash
+    payload, the dense one and the flash one under each control; returns
+    {run: max |logits - dense logits| over every step}."""
+    runs = {
+        "sound": None,
+        "validity one short": validity_one_short,
+        "bias of the next position": next_position_bias(
+            flash.model.decoder.rel_pos),
+    }
+    ids = torch.as_tensor(ids, device=DEVICE)
+    mask = torch.as_tensor(mask, device=DEVICE, dtype=torch.int32)
+    tokens = torch.as_tensor(tokens, device=DEVICE).long()
+    gaps = dict.fromkeys(runs, 0.0)
+    with torch.inference_mode():
+        states = {}
+        for name, wrapper in [("dense", None), *runs.items()]:
+            loaded = dense if name == "dense" else flash
+            with kernel_as(wrapper):
+                cache, encoded, logits = t5m.prefill_decode(
+                    loaded.model, loaded.params, ids, mask, DECODE_LEN)
+            states[name] = (loaded, wrapper, cache, encoded, logits)
+        for t in range(DECODE_LEN):
+            want = states["dense"][4]
+            for name in runs:
+                gaps[name] = max(gaps[name], (states[name][4] - want).abs()
+                                 .max().item())
+            if t + 1 == DECODE_LEN:
+                break
+            for name, (loaded, wrapper, cache, encoded, _) in states.items():
+                with kernel_as(wrapper):
+                    cache, logits = t5m._decode_one(
+                        loaded.model, loaded.params, cache, tokens[:, t],
+                        encoded, mask, t + 1, DECODE_LEN)
+                states[name] = (loaded, wrapper, cache, encoded, logits)
+    return gaps
+
+
+def profiled(step, iters):
+    """Host wall of ``step`` (which ends in a synchronize) and, from
+    torch.profiler, the device time of the same steps: (wall_ms, profiled
+    wall_ms, busy_ms, {kernel name: us summed})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(2):
+        step(i)
+    t0 = time.perf_counter()
+    for i in range(iters):
+        step(i)
+    wall_ms = (time.perf_counter() - t0) / iters * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(iters):
+            step(i)
+        profiled_ms = (time.perf_counter() - t0) / iters * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # Device busy = the union of kernel intervals (overlaps counted once),
+    # against the host wall of the same profiled steps: tracing lengthens
+    # both, so the idle share compares like with like.
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in kernels):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return wall_ms, profiled_ms, busy_us / iters / 1e3, by_name, len(kernels) / iters
+
+
+def decode_step_breakdown(loaded, ids, mask, card):
+    """One beam decode step at the served shape (4 rows x 4 beams, cache
+    DECODE_LEN, position DECODE_LEN / 2), profiled."""
+    ids = torch.as_tensor(ids[:4], device=DEVICE).repeat_interleave(BEAM, 0)
+    mask = torch.as_tensor(mask[:4], device=DEVICE,
+                           dtype=torch.int32).repeat_interleave(BEAM, 0)
+    tok = torch.full((ids.shape[0],), 7, dtype=torch.long, device=DEVICE)
+    with torch.inference_mode():
+        cache, encoded, _ = t5m.prefill_decode(loaded.model, loaded.params, ids,
+                                               mask, DECODE_LEN)
+
+        def step(_):
+            t5m._decode_one(loaded.model, loaded.params, cache, tok, encoded,
+                            mask, DECODE_LEN // 2, DECODE_LEN)
+            torch.cuda.synchronize()
+
+        wall_ms, profiled_ms, busy_ms, by_name, n_kernels = profiled(step, 20)
+    decode_ms = sum(us for name, us in by_name.items()
+                    if "flash_decode_kernel" in name) / 20 / 1e3
+    print(f"generate step [{card}] beam decode step, {ids.shape[0]} rows, cache "
+          f"{DECODE_LEN}, position {DECODE_LEN // 2}: host wall {wall_ms:.3f} ms "
+          f"({profiled_ms:.3f} ms traced), device busy {busy_ms:.3f} ms traced "
+          f"(idle share {1 - busy_ms / profiled_ms:.3f}), flash_decode "
+          f"{decode_ms:.4f} ms, {n_kernels:.0f} kernels per step", flush=True)
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"generate step top kernel: {us / 20 / 1e3:.4f} ms/step "
+              f"{name[:110]}", flush=True)
+
+
+def generate_phase(seed, n_requests, card, workdir):
+    """T5-small beam search through ModelServer's :generate on the card.
+    Returns (flash_decode launches over the served requests, the flash
+    payload, every served row's (ids, mask) for the engine phase)."""
+    hp = t5_hparams("flash")
+    model = t5m.init_t5_weights(t5m.build_t5_model(hp),
+                                torch.Generator().manual_seed(seed))
+    state = model.state_dict()
+    base = os.path.join(workdir, "t5")
+    export_model(serving_model_dir=os.path.join(base, "1"), params=state,
+                 module_file=T5_MODULE, hyperparameters=hp)
+    dense_dir = os.path.join(workdir, "t5_dense", "1")
+    export_model(serving_model_dir=dense_dir, params=state,
+                 module_file=T5_MODULE, hyperparameters=t5_hparams("dense"))
+    del model, state
+
+    requests = t5_requests(np.random.default_rng(seed + 3), n_requests,
+                           hp["vocab_size"])
+    server = ModelServer("t5", base, device="cuda")
+    try:
+        url = f"http://127.0.0.1:{server.start(port=0)}/v1/models/t5:generate"
+        warm, _ = run_clients(url, requests[:1], n_procs=1, threads=1)
+        if warm[0][0] != 200:
+            raise AssertionError(f"warm-up request answered {warm[0][0]}")
+        fa.decode_launches = 0
+        results, wall_s = run_clients(url, requests, n_procs=2, threads=4)
+        launches = fa.decode_launches
+    finally:
+        server.stop()
+
+    codes = [c for c, _, _ in results]
+    if any(c != 200 for c in codes):
+        raise AssertionError(f"non-200 :generate replies: {sorted(set(codes))}")
+    outputs = []
+    for payload, (_, reply, _) in zip(requests, results):
+        got = np.asarray(reply["outputs"])
+        rows = len(payload["inputs"]["inputs"])
+        if got.shape != (rows, DECODE_LEN) or got.dtype.kind != "i":
+            raise AssertionError(f":generate reply shape {got.shape} {got.dtype}")
+        outputs.append(got)
+    tokens = np.concatenate(outputs)
+    ids = np.concatenate([np.asarray(p["inputs"]["inputs"]) for p in requests])
+    mask = np.concatenate([np.asarray(p["inputs"]["input_mask"])
+                           for p in requests])
+    # Each request runs DECODE_LEN decoder passes (the step-0 pass of
+    # prefill_decode, then DECODE_LEN - 1 beam steps), each launching the
+    # kernel once per decoder layer.
+    expected = T5_LAYERS * DECODE_LEN * n_requests
+    flash = load_exported_model(os.path.join(base, "1"), device="cuda")
+    dense = load_exported_model(dense_dir, device="cuda")
+    gaps = teacher_forced_gaps(flash, dense, ids, mask, tokens)
+    lat_ms = np.array([t for _, _, t in results]) * 1e3
+    n_tokens = generated_tokens(tokens)
+    print(f"generate [{card}]: T5-small (d_model {hp['d_model']}, "
+          f"{hp['n_layers']} + {hp['n_layers']} layers, {hp['n_heads']} heads, "
+          f"vocab {hp['vocab_size']}) bf16, beam {BEAM}, max_decode_len "
+          f"{DECODE_LEN}, flash decode, 8 concurrent clients: {n_requests} "
+          f"requests ({tokens.shape[0]} rows, {n_tokens} generated tokens) in "
+          f"{wall_s:.2f} s; p50 {np.percentile(lat_ms, 50):.1f} ms, p99 "
+          f"{np.percentile(lat_ms, 99):.1f} ms; {n_tokens / wall_s:.1f} "
+          f"generated tokens/s (the warm-up request, alone and first: "
+          f"{warm[0][2] * 1e3:.1f} ms)", flush=True)
+    print(f"generate: flash_decode launches {launches} = {T5_LAYERS} layers x "
+          f"{DECODE_LEN} passes x {n_requests} requests expected", flush=True)
+    print(f"generate: teacher-forced max |flash - dense| logit over "
+          f"{DECODE_LEN} steps = {gaps['sound']:.3e} (tol "
+          f"{DECODE_LOGIT_TOL:g})", flush=True)
+    controls = {name: gap for name, gap in gaps.items() if name != "sound"}
+    for name, gap in controls.items():
+        print(f"generate control, {name}: max |flash - dense| logit = "
+              f"{gap:.3e} (must exceed tol {DECODE_LOGIT_TOL:g})", flush=True)
+    decode_step_breakdown(flash, ids, mask, card)
+    if launches != expected:
+        raise AssertionError(f"flash_decode launched {launches} times, "
+                             f"expected {expected}")
+    if gaps["sound"] > DECODE_LOGIT_TOL:
+        raise AssertionError("flash-decoded logits disagree with dense")
+    if min(controls.values()) <= DECODE_LOGIT_TOL:
+        raise AssertionError(
+            "a control stays within DECODE_LOGIT_TOL: the decode check cannot "
+            "tell a faulty kernel")
+    del dense
+    return launches, flash
+
+
+N_ENGINE_SEQS = 24
+
+
+def engine_phase(loaded, seed, card):
+    """The continuous-batching engine over the served payload's decode
+    contract: 24 sequences with ragged prompts and budgets submitted from
+    threads.  Returns the flash_decode launches of that traffic."""
+    rng = np.random.default_rng(seed + 4)
+    vocab = loaded.model.shared.num_embeddings
+    prompts = [rng.integers(4, vocab, size=int(rng.integers(8, MAX_INPUT_LEN + 1)))
+               for _ in range(N_ENGINE_SEQS)]
+    budgets = [int(m) for m in rng.integers(DECODE_LEN // 8, DECODE_LEN + 1,
+                                            size=N_ENGINE_SEQS)]
+    engine = GenerativeEngine(loaded.decode_fns, loaded.params, device="cuda",
+                              max_batch_size=8, page_size=DECODE_LEN // 4)
+    try:
+        engine.warm()
+        fa.decode_launches = 0
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            streams = list(pool.map(
+                lambda i: engine.submit(prompts[i], max_new_tokens=budgets[i],
+                                        timeout_s=600),
+                range(N_ENGINE_SEQS)))
+        wall_s = time.perf_counter() - t0
+        launches = fa.decode_launches
+        steps, prefills = engine.steps_run, engine.prefills_run
+        compiles = engine.compiles_after_warm
+        occupancy = engine.live_rows_total / max(1, engine.bucket_rows_total)
+        buckets = sorted(engine._buckets_run)
+    finally:
+        engine.close()
+
+    ended = all(
+        (len(s) == m and EOS_ID not in s[:-1])
+        or (len(s) <= m and s[-1] == EOS_ID and EOS_ID not in s[:-1])
+        for s, m in zip((list(x) for x in streams), budgets))
+    # Isolated greedy decodes of the same prompts (padded as the engine
+    # pads them), each with its own budget.
+    same = 0
+    with torch.inference_mode():
+        for prompt, budget, stream in zip(prompts, budgets, streams):
+            ids = np.zeros((1, MAX_INPUT_LEN), np.int64)
+            ids[0, :len(prompt)] = prompt
+            greedy = t5m.make_greedy_generate(loaded.model, max_decode_len=budget,
+                                              eos_id=EOS_ID)
+            toks, _ = greedy(loaded.params, torch.as_tensor(ids, device=DEVICE),
+                             torch.as_tensor(ids > 0, device=DEVICE).to(torch.int32))
+            same += toks[0, :len(stream)].cpu().tolist() == stream.tolist()
+    n_tokens = sum(len(s) for s in streams)
+    print(f"engine [{card}]: GenerativeEngine, max_batch_size 8, page_size "
+          f"{engine.page_size}, "
+          f"{N_ENGINE_SEQS} sequences (prompts 8..{MAX_INPUT_LEN}, budgets "
+          f"{min(budgets)}..{max(budgets)}) from 8 threads: {prefills} prefills, "
+          f"{steps} steps in {wall_s:.2f} s; {steps / wall_s:.1f} steps/s, "
+          f"{n_tokens / wall_s:.1f} tokens/s, mean occupancy {occupancy:.3f}; "
+          f"buckets run {buckets}; compiles after warm {compiles}", flush=True)
+    print(f"engine: {same} of {N_ENGINE_SEQS} streams equal the isolated greedy "
+          f"decode (reported only: cuBLAS may pick other kernels at another "
+          f"batch size); flash_decode launches {launches} = {T5_LAYERS} x "
+          f"({prefills} prefills + {steps} steps) expected", flush=True)
+    if not ended:
+        raise AssertionError("an engine stream did not end at EOS or its budget")
+    if prefills != N_ENGINE_SEQS or launches != T5_LAYERS * (prefills + steps):
+        raise AssertionError(f"engine launched flash_decode {launches} times "
+                             f"for {prefills} prefills and {steps} steps")
+    if compiles != 0:
+        raise AssertionError(f"{compiles} engine buckets first ran after warm()")
+    return launches
+
+
 def build_kernels():
     """Build every CUDA source, one nvcc each, all started together."""
     seconds, errors = {}, {}
@@ -912,7 +1381,8 @@ def build_kernels():
             errors[name] = e
 
     threads = [threading.Thread(target=build, args=(name,))
-               for name in ("flash_attention", "flash_attention_bwd")]
+               for name in ("flash_attention", "flash_attention_bwd",
+                            "flash_decode")]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -931,6 +1401,7 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--requests", type=int, default=128)
     parser.add_argument("--train-steps", type=int, default=12)
+    parser.add_argument("--generate-requests", type=int, default=16)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -945,19 +1416,40 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    clock = [time.perf_counter()]
+
+    def phase_done(name):
+        now = time.perf_counter()
+        print(f"phase {name}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
     build_kernels()
+    phase_done("build")
     gen = torch.Generator().manual_seed(args.seed)
     fwd = kernel_phase(gen)
     bwd = bwd_kernel_phase(gen)
+    decode = decode_kernel_phase(gen)
+    phase_done("kernels")
 
     with tempfile.TemporaryDirectory() as workdir:
         served = serving_phase(args.seed, args.requests, card, workdir)
+        phase_done("serving")
+        generated, t5_payload = generate_phase(args.seed, args.generate_requests,
+                                               card, workdir)
+        phase_done("generate")
+    engine = engine_phase(t5_payload, args.seed, card)
+    del t5_payload
+    phase_done("engine")
     trained = training_phase(args.seed, args.train_steps, card)
-    # launches: the count in this slice's main path (training); the serving
-    # path's flash_fwd count stands beside it.
+    phase_done("training")
+    # launches: each kernel's count in its own paths' runs: training for the
+    # three flash-attention kernels (the serving path's flash_fwd count
+    # stands beside it), :generate plus the engine for flash_decode.
     fwd["launches_by_path"] = {"serving": served,
                                "training": trained["flash_fwd"]}
-    records = [fwd, *bwd]
+    decode["launches_by_path"] = {"serving": generated, "engine": engine}
+    trained["flash_decode"] = generated + engine
+    records = [fwd, *bwd, decode]
     for record in records:
         record["launches"] = trained[record["name"]]
         record["max_err"] = record["max_abs_err"]

@@ -56,7 +56,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     for module in ("serving.server", "ops.flash_attention",
                    "trainer.train_loop", "trainer.fn_args",
-                   "observability.health", "examples.bert_module"):
+                   "observability.health", "examples.bert_module",
+                   "models.t5", "serving.generative", "examples.t5_module"):
         assert f"tpu_pipelines_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["modules"]
     leaked = [m for m in report["modules"] if _forbidden(m)]

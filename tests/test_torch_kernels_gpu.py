@@ -184,6 +184,70 @@ def test_attention_gradients_match_autograd_through_dense(cuda, causal):
         assert _within(got, want, (1e-5, 2e-5))
 
 
+def _decode_inputs(b, l, h, d, dtype, device, seed, arena=False):
+    """q [b, 1, h, d] and k, v [b, l, h, d]; ``arena``: k and v are the
+    ``[:b, :l]`` slices of a larger cache, as the engine hands them over."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, 1, h, d, generator=gen).to(device, dtype)
+    if arena:
+        cache = torch.randn(b + 3, l + 40, 2, h, d, generator=gen).to(device, dtype)
+        k, v = cache[:b, :l, 0], cache[:b, :l, 1]
+    else:
+        k, v = (torch.randn(b, l, h, d, generator=gen).to(device, dtype)
+                for _ in range(2))
+    return q, k, v, gen
+
+
+@pytest.mark.parametrize(
+    "b,l,h,d,dtype,bias_kind,arena",
+    [
+        (16, 128, 8, 64, torch.bfloat16, "broadcast", False),  # served beam
+        (8, 64, 8, 64, torch.bfloat16, "per_row", True),       # engine bucket
+        (3, 1, 2, 64, torch.bfloat16, "broadcast", False),     # L = 1
+        (3, 100, 2, 64, torch.bfloat16, "per_row", False),     # ragged L
+        (4, 96, 2, 32, torch.float16, "none", False),
+        (2, 70, 3, 128, torch.float32, "per_row", True),
+        (5, 33, 4, 16, torch.bfloat16, "broadcast", False),
+    ],
+)
+def test_decode_kernel_matches_plain_version(cuda, b, l, h, d, dtype,
+                                             bias_kind, arena):
+    q, k, v, gen = _decode_inputs(b, l, h, d, dtype, cuda, seed=l + d,
+                                  arena=arena)
+    pos = torch.randint(0, l, (b,), generator=gen)
+    mask = (torch.arange(l)[None, :] <= pos[:, None]).to(cuda, torch.int32)
+    mask[-1] = 0                                   # an all-masked row
+    bias = None
+    if bias_kind != "none":
+        rows = 1 if bias_kind == "broadcast" else b
+        bias = torch.randn(rows, h, 1, l, generator=gen).to(cuda)
+    before = fa.decode_launches
+    out = fa.flash_decode_attention(q, k, v, kv_mask=mask, bias=bias)
+    torch.cuda.synchronize()
+    assert fa.decode_launches == before + 1
+    ref = fa.flash_decode_attention_reference(q, k, v, kv_mask=mask, bias=bias)
+    assert out.dtype == dtype and out.shape == (b, 1, h, d)
+    assert _within(out, ref, OUT_TOL[dtype])
+    assert out[-1].abs().max().item() == 0.0
+    # A bool mask is the same mask; no mask attends to every key.
+    assert torch.equal(fa.flash_decode_attention(q, k, v, kv_mask=mask > 0,
+                                                 bias=bias), out)
+    full = fa.flash_decode_attention(q, k, v, bias=bias)
+    assert _within(full, fa.flash_decode_attention_reference(q, k, v, bias=bias),
+                   OUT_TOL[dtype])
+
+
+def test_decode_wrapper_raises_on_cuda_for_what_the_kernel_does_not_take(cuda):
+    q, k, v, _ = _decode_inputs(2, 16, 2, 64, torch.bfloat16, cuda, seed=0)
+    with pytest.raises(ValueError, match="block_k"):
+        fa.flash_decode_attention(q, k, v, block_k=128)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_decode_attention(q[..., 1:33], k[..., 1:33], v[..., 1:33])
+    with pytest.raises(ValueError, match="kv_mask on"):
+        fa.flash_decode_attention(q, k, v,
+                                  kv_mask=torch.ones(2, 16, dtype=torch.int32))
+
+
 def test_backward_wrapper_raises_on_cuda_for_bad_saved_tensors(cuda):
     q = torch.zeros(1, 8, 1, 64, device=cuda)
     lse = torch.zeros(1, 8, device=cuda)

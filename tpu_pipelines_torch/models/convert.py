@@ -1,15 +1,17 @@
-"""Weight carrier: a flax BERT params tree as the port's ``state_dict``.
+"""Weight carrier: a flax params tree as the port's ``state_dict``.
 
-``bert_state_dict_from_flax`` maps the nested dict of numpy arrays that
-``tpu_pipelines.models.bert`` trains (``model.init(...)["params"]``) onto
-the modules of ``tpu_pipelines_torch.models.bert``.  Values are copied
-bit for bit (bfloat16 leaves included); only layouts change:
+``bert_state_dict_from_flax`` and ``t5_state_dict_from_flax`` map the
+nested dict of numpy arrays that ``tpu_pipelines.models.bert`` / ``.t5``
+train (``model.init(...)["params"]``) onto the modules of
+``tpu_pipelines_torch.models.bert`` / ``.t5``.  Values are copied bit for
+bit (bfloat16 leaves included); only layouts change:
 
   - ``Dense`` kernel ``[in, out]`` -> ``Linear.weight`` ``[out, in]``;
   - ``DenseGeneral`` q/k/v kernel ``[d_model, H, Dh]`` and bias ``[H, Dh]``
     -> ``Linear(d_model, H*Dh)``; out kernel ``[H, Dh, d_model]`` ->
     ``Linear(H*Dh, d_model)``;
-  - ``LayerNorm`` scale/bias -> weight/bias; ``Embed`` embedding -> weight.
+  - ``LayerNorm`` scale/bias -> weight/bias; ``RMSNorm`` scale -> weight;
+    ``Embed`` embedding -> weight; T5's ``rel_embedding`` keeps its name.
 """
 
 from __future__ import annotations
@@ -89,4 +91,45 @@ def bert_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tens
             put(name, _linear(params[name]))
     if "mlm_norm" in params:
         put("mlm_norm", _norm(params["mlm_norm"]))
+    return out
+
+
+def _rms(node: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {"weight": _tensor(node["scale"])}
+
+
+def t5_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``state_dict`` for ``tpu_pipelines_torch.models.t5.T5`` from the flax
+    params tree of the same geometry: ``shared``, each stack's
+    ``rel_pos/rel_embedding``, its layers' self-attention, the decoder's
+    cross-attention, the MLP, the ``*_norm/scale`` RMSNorm scales and
+    ``final_norm``."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(prefix: str, tensors: Dict[str, torch.Tensor]) -> None:
+        for name, t in tensors.items():
+            out[f"{prefix}.{name}"] = t
+
+    put("shared", _embed(params["shared"]))
+    for stack in ("encoder", "decoder"):
+        tree = params[stack]
+        out[f"{stack}.rel_pos.rel_embedding"] = _tensor(
+            tree["rel_pos"]["rel_embedding"]
+        )
+        n_layers = sum(1 for key in tree if key.startswith("layer_"))
+        for i in range(n_layers):
+            layer = tree[f"layer_{i}"]
+            prefix = f"{stack}.layers.{i}"
+            for attn in ("attn", "cross"):
+                if attn not in layer:
+                    continue
+                for proj in ("query", "key", "value"):
+                    put(f"{prefix}.{attn}.{proj}",
+                        _linear_in_heads(layer[attn][proj]))
+                put(f"{prefix}.{attn}.out", _linear_out_heads(layer[attn]["out"]))
+                put(f"{prefix}.{attn}_norm", _rms(layer[f"{attn}_norm"]))
+            put(f"{prefix}.mlp.wi", _linear(layer["mlp"]["wi"]))
+            put(f"{prefix}.mlp.wo", _linear(layer["mlp"]["wo"]))
+            put(f"{prefix}.mlp_norm", _rms(layer["mlp_norm"]))
+        put(f"{stack}.final_norm", _rms(tree["final_norm"]))
     return out

@@ -22,6 +22,7 @@ __all__ = [
     "Histogram",
     "MetricsRegistry",
     "default_registry",
+    "fine_latency_buckets",
     "latency_buckets",
 ]
 
@@ -38,6 +39,17 @@ def latency_buckets(
     FIXED ladder means two runs' histograms are always mergeable and
     diffable bucket-by-bucket.
     """
+    return [round(start_s * factor**i, 10) for i in range(count)]
+
+
+def fine_latency_buckets(
+    start_s: float = 2.5e-5, factor: float = 2.0 ** 0.5, count: int = 32
+) -> List[float]:
+    """Finer ladder for decode-scale latencies: 25µs … ~1.6s at sqrt(2).
+
+    A per-token decode latency lives below the default ladder's first
+    bucket; sqrt(2) spacing from 25µs resolves it.  Fixed, like
+    :func:`latency_buckets`, so two runs' histograms always merge."""
     return [round(start_s * factor**i, 10) for i in range(count)]
 
 

@@ -13,15 +13,20 @@ The counterpart of ``tpu_pipelines/ops/flash_attention.py``.
     and ``dk``, ``dv`` (:func:`flash_bwd_dkv`), recomputing the
     probabilities from the saved LSE.
 
+:func:`flash_decode_attention` is the decode regime: one query per
+(batch, head) against a padded KV cache with key validity and an additive
+bias, inference only (the reference's ``flash_decode_attention``).
+
 Each entry point dispatches on the device of its tensors:
 
-  - on a CUDA tensor it launches the kernels in ``csrc/flash_attention.cu``
-    and ``csrc/flash_attention_bwd.cu`` (built at first use by
-    ``ops/_build.py``); a build or launch failure raises;
+  - on a CUDA tensor it launches the kernels in ``csrc/flash_attention.cu``,
+    ``csrc/flash_attention_bwd.cu`` and ``csrc/flash_decode.cu`` (built at
+    first use by ``ops/_build.py``); a build or launch failure raises;
   - on a CPU tensor it runs the plain version of the same function
     (:func:`flash_attention_reference`, :func:`flash_bwd_dq_reference`,
-    :func:`flash_bwd_dkv_reference`: f32 math, the kernels' masking,
-    scale placement, zeros for rows with no allowed key, and LSE);
+    :func:`flash_bwd_dkv_reference`, :func:`flash_decode_attention_reference`:
+    f32 math, the kernels' masking, scale placement, zeros for rows with no
+    allowed key, and LSE);
   - any other device raises.
 
 Semantics kept from the TPU kernels: the forward scales q by
@@ -34,9 +39,9 @@ outputs and gradients have the input dtype and ``lse`` is f32 laid out
 ``BLOCK_K``) and ragged lengths are masked inside them, so there is no
 divisibility rule.
 
-``launches``, ``dq_launches`` and ``dkv_launches`` count kernel launches
-(never plain-version calls), so a run can show that its attention went
-through the kernels.
+``launches``, ``dq_launches``, ``dkv_launches`` and ``decode_launches``
+count kernel launches (never plain-version calls), so a run can show that
+its attention went through the kernels.
 """
 
 from __future__ import annotations
@@ -80,11 +85,26 @@ _BWD_PROTOTYPES = {
     ),
 }
 
+# tpp_flash_decode(q, k, v, mask, bias, out, dtype, b, l, h, d, strides[13],
+#                  scale, stream) -> cudaError_t
+_DECODE_STRIDES = ctypes.c_int64 * 13
+_DECODE_PROTOTYPES = {
+    "tpp_flash_decode": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        + [_DECODE_STRIDES, ctypes.c_float, ctypes.c_void_p],
+    ),
+}
+# Keys per block of the decode kernel's walk over the cache (fixed: the
+# port has no autotune table).
+DECODE_BLOCK_K = 64
+
 # Kernel launches since the process started (or since a caller reset
-# them): flash_fwd, flash_bwd_dq, flash_bwd_dkv.
+# them): flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_decode.
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+decode_launches = 0
 _launch_lock = threading.Lock()
 
 
@@ -451,3 +471,185 @@ def flash_attention(
     :func:`flash_attention_backward`."""
     _check(q, k, v, kv_mask, block_q, block_k)
     return FlashAttentionFunction.apply(q, k, v, kv_mask, causal)
+
+
+# ------------------------------------------------------------------ decode
+
+def _check_decode(q, k, v, kv_mask, bias, block_k) -> None:
+    if k.dim() != 4 or q.dim() != 4:
+        raise ValueError(
+            "flash_decode_attention: q must be [batch, 1, heads, head_dim] and "
+            f"k, v [batch, len, heads, head_dim]; got {tuple(q.shape)}, "
+            f"{tuple(k.shape)}"
+        )
+    b, l, h, d = k.shape
+    if v.shape != k.shape or tuple(q.shape) != (b, 1, h, d):
+        raise ValueError(
+            "flash_decode_attention: q must be [batch, 1, heads, head_dim] "
+            "against k, v of one [batch, len, heads, head_dim] shape; got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
+        raise TypeError(
+            "flash_decode_attention: q, k, v must share one of float32, "
+            f"float16, bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if not (q.device == k.device == v.device):
+        raise ValueError(
+            f"flash_decode_attention: q, k, v on {q.device}, {k.device}, "
+            f"{v.device}"
+        )
+    if d not in HEAD_DIMS:
+        raise ValueError(
+            f"flash_decode_attention: head_dim {d} not supported (one of "
+            f"{HEAD_DIMS})"
+        )
+    if l == 0 or b == 0:
+        raise ValueError(f"flash_decode_attention: empty cache {tuple(k.shape)}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_decode_attention: head_dim must be contiguous")
+    if kv_mask is not None:
+        if tuple(kv_mask.shape) != (b, l):
+            raise ValueError(
+                f"flash_decode_attention: kv_mask must be [{b}, {l}], got "
+                f"{tuple(kv_mask.shape)}"
+            )
+        if kv_mask.dtype not in (torch.int32, torch.bool):
+            raise TypeError(
+                f"flash_decode_attention: kv_mask must be int32 or bool, got "
+                f"{kv_mask.dtype}"
+            )
+        if kv_mask.device != q.device:
+            raise ValueError(
+                f"flash_decode_attention: kv_mask on {kv_mask.device}, q on "
+                f"{q.device}"
+            )
+    if bias is not None:
+        if tuple(bias.shape) not in ((1, h, 1, l), (b, h, 1, l)):
+            raise ValueError(
+                f"flash_decode_attention: bias must be [1|{b}, {h}, 1, {l}], "
+                f"got {tuple(bias.shape)}"
+            )
+        if bias.dtype != torch.float32:
+            raise TypeError(
+                f"flash_decode_attention: bias must be float32, got {bias.dtype}"
+            )
+        if bias.device != q.device:
+            raise ValueError(
+                f"flash_decode_attention: bias on {bias.device}, q on {q.device}"
+            )
+    if block_k is not None and int(block_k) != DECODE_BLOCK_K:
+        raise ValueError(
+            f"flash_decode_attention: block_k={block_k}; the kernel's block is "
+            f"fixed at {DECODE_BLOCK_K}"
+        )
+
+
+def flash_decode_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kv_mask: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the decode kernel, f32 math, q's dtype:
+    ``s = (q * D^-0.5) k^T + bias``, masked keys ``NEG_INF``, ``p = allowed
+    ? exp(s - m) : 0``, ``out = p v / max(sum p, 1e-30)`` (a row with no
+    allowed key gives 0)."""
+    b, l, h, d = k.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * d ** -0.5, k.float())
+    if bias is not None:
+        s = s + bias.float()
+    allowed = torch.ones((b, 1, 1, l), dtype=torch.bool, device=q.device)
+    if kv_mask is not None:
+        allowed = kv_mask.reshape(b, 1, 1, l) > 0
+    s = torch.where(allowed, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(allowed, torch.exp(s - m), 0.0)
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)    # [b, h, 1, 1]
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    return (out / denom.permute(0, 2, 1, 3)).to(q.dtype)
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    """Every row the decode kernel reads with 16-byte loads starts on a
+    16-byte boundary."""
+    item = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        (stride * item) % 16 == 0
+        for size, stride in zip(t.shape[:3], t.stride()[:3]) if size > 1
+    )
+
+
+def _launch_decode(q, k, v, kv_mask, bias) -> torch.Tensor:
+    global decode_launches
+    from tpu_pipelines_torch.ops import _build
+
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not _aligned16(t):
+            raise ValueError(
+                f"flash_decode_attention: {name}'s rows must start on 16-byte "
+                f"boundaries (data_ptr {t.data_ptr()}, strides {t.stride()})"
+            )
+    fn = _build.load("flash_decode", _DECODE_PROTOTYPES).tpp_flash_decode
+    b, l, h, d = k.shape
+    out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
+    mask = None
+    mask_strides = (0, 0)
+    if kv_mask is not None:
+        mask = kv_mask if kv_mask.dtype == torch.int32 else kv_mask.to(torch.int32)
+        mask_strides = mask.stride()
+    bias_strides = (0, 0, 0)
+    if bias is not None:
+        # A leading dim of 1 broadcasts over the batch: batch stride 0.
+        bias_strides = (bias.stride(0) if bias.shape[0] > 1 else 0,
+                        bias.stride(1), bias.stride(3))
+    strides = _DECODE_STRIDES(q.stride(0), q.stride(2), *k.stride()[:3],
+                              *v.stride()[:3], *mask_strides, *bias_strides)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if mask is None else mask.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, l, h, d, strides, d ** -0.5, stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_decode_attention: CUDA kernel launch failed with cudaError "
+            f"{err} (cache {tuple(k.shape)}, {q.dtype}, {q.device})"
+        )
+    with _launch_lock:
+        decode_launches += 1
+    return out
+
+
+def flash_decode_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    kv_mask: Optional[torch.Tensor] = None,
+    bias: Optional[torch.Tensor] = None,
+    block_k: Optional[int] = None,
+) -> torch.Tensor:
+    """Single-query attention against a KV cache (the decode regime).
+
+    ``q``: [batch, 1, heads, head_dim], this step's one token per row.
+    ``k``/``v``: [batch, kv_len, heads, head_dim], the padded cache, read
+    through its strides (a slice of a larger arena is read in place).
+    ``kv_mask``: [batch, kv_len] validity, int32 or bool (> 0 = attend;
+    None: every key).  ``bias``: additive f32 [1|batch, heads, 1, kv_len]
+    score term (T5 relative positions), broadcast over the batch when its
+    leading dim is 1.  Returns [batch, 1, heads, head_dim] in q's dtype.
+    Inference only (no gradient).  ``block_k`` may only name the kernel's
+    fixed block (``DECODE_BLOCK_K``)."""
+    _check_decode(q, k, v, kv_mask, bias, block_k)
+    if q.device.type == "cuda":
+        return _launch_decode(q, k, v, kv_mask, bias)
+    if q.device.type == "cpu":
+        return flash_decode_attention_reference(
+            q, k, v, kv_mask=kv_mask, bias=bias
+        )
+    raise ValueError(f"flash_decode_attention: no kernel for device {q.device}")

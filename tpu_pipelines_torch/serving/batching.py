@@ -1,7 +1,8 @@
 """Request micro-batching for the serving path.
 
-The port of ``bucket_sizes``, ``pad_to_bucket`` and ``RequestBatcher``
-from ``tpu_pipelines/serving/batching.py``:
+The port of ``bucket_sizes``, ``pad_to_bucket``,
+``validate_generation_params`` and ``RequestBatcher`` from
+``tpu_pipelines/serving/batching.py``:
 
   - concurrent requests coalesce into one device call (per-call launch
     and host overhead amortized, bigger matmuls on the card);
@@ -23,7 +24,7 @@ import queue
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, Callable, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -56,6 +57,40 @@ def pad_to_bucket(batch: Batch, n_rows: int, buckets: Sequence[int]) -> Batch:
         return np.concatenate([v, reps], axis=0)
 
     return {k: _pad(np.asarray(v)) for k, v in batch.items()}
+
+
+# The generate-request parameter surface, validated at submit time so that
+# a malformed request is refused with a caller-classified error (HTTP 400)
+# instead of failing inside a decode step shared with other sequences.
+GENERATION_PARAM_KEYS = frozenset({"max_new_tokens"})
+
+
+def validate_generation_params(
+    raw: Optional[Dict[str, Any]], *, max_decode_len: int
+) -> Dict[str, int]:
+    """Validate and normalize a generate request's parameters.
+
+    Raises ``ValueError`` for unknown keys and for a non-integer or
+    out-of-range ``max_new_tokens``.  Returns ``{"max_new_tokens": int}``
+    with the default (the model's full decode budget) filled in."""
+    raw = dict(raw or {})
+    unknown = sorted(set(raw) - GENERATION_PARAM_KEYS)
+    if unknown:
+        raise ValueError(
+            f"unknown generation parameter(s) {unknown}; "
+            f"supported: {sorted(GENERATION_PARAM_KEYS)}"
+        )
+    m = raw.get("max_new_tokens", max_decode_len)
+    if isinstance(m, bool) or not isinstance(m, (int, np.integer)):
+        raise ValueError(
+            f"max_new_tokens must be an integer, got {type(m).__name__}"
+        )
+    m = int(m)
+    if not 1 <= m <= int(max_decode_len):
+        raise ValueError(
+            f"max_new_tokens must be in [1, {max_decode_len}], got {m}"
+        )
+    return {"max_new_tokens": m}
 
 
 class RequestBatcher:

@@ -10,6 +10,8 @@ REST shapes:
     POST /v1/models/<name>:predict    -> {"predictions": [...]}
          body: {"instances": [{feature: value, ...}, ...]}
          or    {"inputs": {feature: [values...], ...}}
+    POST /v1/models/<name>:generate   -> {"outputs": [[token ids...], ...]}
+         same bodies; the payload's generate hook (whole-request decode)
     POST /v1/models/<name>:reload     -> {"version": "..."} (rescan and
          hot-swap to the newest version)
 
@@ -17,9 +19,11 @@ The model runs on ``device`` (CUDA unless the caller asks for the CPU).
 Concurrent requests are safe and, with ``batching=True``, coalesce through
 the micro-batcher into padded bucket-sized device calls.  Admission control
 (``max_queue_depth``) refuses work past its bound with 429 + Retry-After.
-The fleet (replicas, resident versions, SLO deadlines), generative
-serving, gRPC, request tracing, the SLO monitor, drift sampling, metric
-federation and fault hooks wait for later slices of the port.
+The fleet (replicas, resident versions, SLO deadlines) and with it the
+continuous-batching route of ``:generate`` (generation ``params`` such as
+``max_new_tokens``), gRPC, request tracing, the SLO monitor, drift
+sampling, metric federation and fault hooks wait for later slices of the
+port.
 """
 
 from __future__ import annotations
@@ -57,6 +61,11 @@ class ServerOverloaded(RuntimeError):
     retry_after_s = 1
 
 
+class GenerateUnsupported(ValueError):
+    """This server or payload cannot decode (the payload's module has no
+    generate hook).  A ValueError, so REST answers 400."""
+
+
 def latest_version_dir(base_dir: str) -> Optional[str]:
     """Highest numeric subdirectory — the TF Serving version convention."""
     if not os.path.isdir(base_dir):
@@ -92,6 +101,8 @@ class ModelServer:
         # Serializes reload(); never held while answering requests, so a
         # reload drains naturally onto whichever model is current.
         self._reload_lock = threading.Lock()
+        # Whole-request decodes run one at a time (see generate_batch).
+        self._generate_lock = threading.Lock()
         self._loaded: Optional[LoadedModel] = None
         self._loaded_version: Optional[str] = None
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -243,6 +254,55 @@ class ModelServer:
             return {"predictions": []}
         return {"predictions": self.predict_batch(batch).tolist()}
 
+    # ------------------------------------------------------------ generate
+
+    def _generate_fn(self):
+        """The loaded model's generate callable; raises GenerateUnsupported
+        when the payload cannot decode."""
+        loaded = self._current_model()
+        if loaded.generate is None:
+            raise GenerateUnsupported(
+                f"model {self.model_name!r} does not support generate "
+                "(exported module has no make_generate_step or legacy "
+                "make_generate_fn)"
+            )
+        return loaded.generate
+
+    def generate_batch(
+        self,
+        batch: Dict[str, Any],
+        gen_params: Optional[Dict[str, Any]] = None,
+    ) -> np.ndarray:
+        """Seq2seq decoding of a columnar feature batch through the
+        payload's whole-request decode.  Generation ``params`` need the
+        generative fleet (ROADMAP A8) and are refused here."""
+        if gen_params:
+            raise ValueError(
+                "generation params require a generative model type (the "
+                f"serving fleet, not ported yet); got {sorted(gen_params)}"
+            )
+        generate = self._generate_fn()
+        # One decode at a time, as the device runs the reference's compiled
+        # decode programs in turn: the port's is an eager loop of small
+        # launches driven from the host, and loops running side by side
+        # only contend for the interpreter lock.
+        with self._generate_lock:
+            return np.asarray(generate(batch))
+
+    def generate(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        gen_params = payload.get("params")
+        if gen_params is not None and not isinstance(gen_params, dict):
+            raise ValueError(
+                f"'params' must be an object, got {type(gen_params).__name__}"
+            )
+        # Capability check before parsing: an empty request to a server
+        # that cannot generate must fail, not answer 200 [].
+        self._generate_fn()
+        batch = self._payload_to_batch(payload)
+        if batch is None:
+            return {"outputs": []}
+        return {"outputs": self.generate_batch(batch, gen_params).tolist()}
+
     # -------------------------------------------------------------- health
 
     def health(self) -> Dict[str, Any]:
@@ -332,6 +392,8 @@ class ModelServer:
                 routes = {
                     f"/v1/models/{server.model_name}:predict":
                         ("predict", server.predict),
+                    f"/v1/models/{server.model_name}:generate":
+                        ("generate", server.generate),
                     # Management op: rescan base_dir and hot-swap to the
                     # newest version.  Never admission-controlled.
                     f"/v1/models/{server.model_name}:reload":

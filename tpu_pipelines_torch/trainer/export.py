@@ -9,9 +9,13 @@ Same layout as ``tpu_pipelines/trainer/export.py``, with its own format tag:
 
 Loading builds the module's model on the requested device (CUDA unless
 the caller asks for the CPU) and returns ``predict(batch)`` that runs the
-forward pass under ``torch.inference_mode()`` and returns numpy.  Payloads
-that embed a transform graph, quantized payloads, ahead-of-time dispatch
-and generate/decode hooks wait for later slices of the port.
+forward pass under ``torch.inference_mode()`` and returns numpy.  A module
+that defines ``make_generate_step(model, hp) -> fn(params, batch)`` (or the
+legacy ``make_generate_fn(model, params, hp) -> fn(batch)``) gets
+``LoadedModel.generate``; one that defines ``make_decode_fns(model, hp)``
+gets ``LoadedModel.decode_fns``, the continuous-batching engine's contract.
+Payloads that embed a transform graph, quantized payloads and ahead-of-time
+dispatch wait for later slices of the port.
 """
 
 from __future__ import annotations
@@ -104,6 +108,10 @@ class LoadedModel:
     device: torch.device
     dtype: str = "float32"
     params_bytes: int = 0
+    # generate(batch) -> numpy token ids, from the module's generate hook.
+    generate: Optional[Callable[[Dict[str, Any]], np.ndarray]] = None
+    # The continuous-batching decode contract (serving/generative.py).
+    decode_fns: Any = None
 
 
 def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
@@ -152,6 +160,25 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
     def predict(batch: Dict[str, Any]) -> np.ndarray:
         return _to_numpy(forward_step(params, batch))
 
+    # Generate hooks: make_generate_step keeps params an argument of every
+    # call; the legacy make_generate_fn closes over them.
+    device_generate = None
+    step_builder = getattr(module, "make_generate_step", None)
+    gen_builder = getattr(module, "make_generate_fn", None)
+    if step_builder is not None:
+        generate_step = step_builder(model, hp)
+        device_generate = lambda b: generate_step(params, b)  # noqa: E731
+    elif gen_builder is not None:
+        device_generate = gen_builder(model, params, hp)
+    generate = None
+    if device_generate is not None:
+        def generate(batch: Dict[str, Any]) -> np.ndarray:
+            with torch.inference_mode():
+                return _to_numpy(torch.as_tensor(device_generate(batch)))
+
+    decode_builder = getattr(module, "make_decode_fns", None)
+    decode_fns = None if decode_builder is None else decode_builder(model, hp)
+
     return LoadedModel(
         params=params,
         model=model,
@@ -162,4 +189,6 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
         device=dev,
         dtype=dtype,
         params_bytes=qz.params_nbytes(params),
+        generate=generate,
+        decode_fns=decode_fns,
     )
