@@ -11,13 +11,16 @@ Phases (any failure raises and the script exits non-zero):
      started together) and print the build times;
   2. kernels — hold each kernel against its plain PyTorch version on the
      card at its main path's shapes and at edge cases (ragged length,
-     causal, an all-masked batch row, fp16/f32, strided inputs, the decode
-     kernel's arena slices, L = 1 and a 4096-key cache), and time it beside
-     its plain version, the one-call PyTorch yardstick and its bound (the
-     forward at the serving shape, the backward kernels at the training
-     shape, the decode kernel at the beam-served and the long-cache
-     shapes); hold the attention's gradients against autograd through
-     dense attention in f32;
+     causal, an all-masked batch row, a masked 64-key block inside a row,
+     fp16/f32, strided inputs, the decode kernel's arena slices, L = 1 and
+     a 4096-key cache), and time it beside its plain version, the one-call
+     PyTorch yardstick and its bound (the forward at the serving shape,
+     the backward kernels and Dvec at the training shape, the decode kernel
+     at the beam-served and the long-cache shapes); the backward kernels
+     also against a control (fed the mask shifted by one key) that must
+     miss, and repeated bit for bit; print each backward kernel's
+     registers, spills and shared memory; hold the attention's gradients
+     against autograd through dense attention in f32;
   3. serving — export a BERT-base payload (full width, random weights from
      ``--seed``) with flash attention, serve it with ``ModelServer`` on the
      card with micro-batching, send concurrent REST ``:predict`` requests,
@@ -40,16 +43,16 @@ Phases (any failure raises and the script exits non-zero):
      many streams equal the isolated greedy decode;
   6. training — fine-tune BERT-base (full width, bf16, dropout 0.1, random
      init from ``--seed``) through ``train_loop`` at batch 256 x 128 with
-     ragged lengths: every loss finite, each of the three attention kernels
-     launched once per layer and step, the first step's q/k/v projection
+     ragged lengths: every loss finite, each of the four attention kernels
+     (forward, Dvec, dq, dk/dv) launched once per layer and step, the first step's q/k/v projection
      gradients, the loop's AdamW first moment of those weights after its
      last step, and every step's loss within tolerance of the same run
      with dense attention (and two wrong-mask controls outside each);
      report examples/s/chip, MFU, peak memory and a profiled step.
 
-The line before the last is the ``kernels`` JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Without CUDA the script exits 2 before
-printing any result.
+The last three lines are the ``kernels`` JSON record, the card's name and
+power limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
+{...}}``.  Without CUDA the script exits 2 before printing any result.
 """
 
 from __future__ import annotations
@@ -123,12 +126,23 @@ LSE_TOL = (1e-6, 1e-5)
 LOGIT_TOL = 4e-2
 N_LAYERS = DEFAULT_HPARAMS["n_layers"]
 SEQ_LEN = 128
-# Backward kernels vs their plain versions: the same f32 math from the same
-# q, k, v, dO, lse and Dvec, differing only in the order of f32 sums.  Each
-# gradient element may land one rounding step of the output dtype away
-# (OUT_TOL's rtol), plus an absolute term for elements that cancel: two
-# orders of a sum of L terms differ by at most about L * 2^-24 of the sum of
-# |terms|, taken as L * 2^-24 * max|ref| of the tensor.
+# Backward kernels vs their plain versions, from the same q, k, v, dO, lse
+# and Dvec.  Each gradient element may land one rounding step of the output
+# dtype away (OUT_TOL's rtol), plus an absolute term for elements that
+# cancel: two orders of a sum of L terms differ by at most about L * 2^-24
+# of the sum of |terms|, taken as L * 2^-24 * max|ref| of the tensor.  The
+# f32 kernels differ from the plain version only in that order.  The bf16
+# and fp16 kernels also round p and dS to the input dtype before the second
+# products (dV = p^T dO, dK = scale dS^T q, dq = scale dS k), as SDPA and
+# dense bf16 attention do, while the plain version keeps them in f32: that
+# moves each element by at most u = fa.BWD_UNIT_ROUNDOFF (2^-8 bf16, 2^-11
+# fp16) times its sum of |terms| (fa.bwd_rounding_terms: |p|^T |dO|,
+# scale |dS|^T |q|, scale |dS| |k|).  So per element
+#   |got - ref| <= u * term + L * 2^-24 * max|ref| + rtol * |ref|,
+# and a control (the kernels fed the mask shifted by one key) must land
+# above that bound, or it could hide a fault.  Dvec: two orders of a sum of
+# D f32 products differ by at most 2 * D * 2^-24 of the row's sum of
+# |dO * O|.
 F32_EPS = 2.0 ** -24
 # The attention's gradients (forward and backward kernels through the
 # autograd Function) vs autograd through dense attention, f32: two formulas
@@ -208,6 +222,10 @@ def kernel_inputs(gen, b, l, h, d, dtype, mask_kind, strided, n=3):
                    for _ in range(n)]
     if mask_kind == "none":
         return (*tensors, None)
+    if mask_kind == "hole":  # keys 64..127 masked in every row, the rest allowed
+        mask = torch.ones(b, l, dtype=torch.int32)
+        mask[:, 64:128] = 0
+        return (*tensors, mask.to(dev))
     lengths = torch.randint(1, l + 1, (b,), generator=gen)
     mask = (torch.arange(l)[None, :] < lengths[:, None]).to(torch.int32)
     if mask_kind == "empty_row":
@@ -298,7 +316,8 @@ def serving_shape_timing(q, k, v, mask, causal):
 
 
 # (name, batch, len, heads, head_dim, dtype, causal, mask, strided inputs)
-# for the backward kernels; "training" is the fine-tune phase's shape.
+# for the backward kernels; "training" is the fine-tune phase's shape,
+# "hole" masks one whole interior 64-key block of every row.
 BWD_CASES = [
     ("training", TRAIN_BATCH, SEQ_LEN, 12, 64, torch.bfloat16, False, "ragged", False),
     ("ragged_len", 2, 200, 4, 64, torch.bfloat16, False, "ragged", False),
@@ -307,52 +326,114 @@ BWD_CASES = [
     ("fp16_d128_strided", 2, 130, 3, 128, torch.float16, False, "ragged", True),
     ("f32_d16", 3, 96, 2, 16, torch.float32, False, "ragged", False),
     ("no_mask_causal", 2, 77, 2, 64, torch.bfloat16, True, "none", False),
+    ("hole", 2, 200, 4, 64, torch.bfloat16, False, "hole", False),
+    ("bf16_d16_causal", 3, 96, 2, 16, torch.bfloat16, True, "ragged", False),
 ]
 
 
+def bwd_ratio(got, want, term, dtype, l):
+    """max |got - want| over the per-element backward bound (see F32_EPS):
+    at most 1 within tolerance."""
+    want = want.double()
+    bound = (fa.BWD_UNIT_ROUNDOFF[dtype] * term.double()
+             + l * F32_EPS * want.abs().max() + OUT_TOL[dtype][0] * want.abs())
+    err = (got.double() - want).abs()
+    return torch.where(err == 0, 0.0, err / bound).max().item()
+
+
+def bwd_resources():
+    """Print each backward kernel's registers, local memory and dynamic
+    shared memory (at L = SEQ_LEN) for every dtype and head dim; returns
+    them for the training instantiation (bf16, D = 64)."""
+    for dtype in (torch.float32, torch.float16, torch.bfloat16):
+        for d in fa.HEAD_DIMS:
+            parts = []
+            for kernel in ("dq", "dkv"):
+                info = fa.bwd_kernel_info(kernel, dtype, d, SEQ_LEN)
+                parts.append(f"{kernel} {info['registers']} registers, "
+                             f"{info['local_bytes']} B local, "
+                             f"{info['shared_bytes']} B shared")
+            print(f"kernel flash_bwd resources {dtype} D={d}: "
+                  + "; ".join(parts), flush=True)
+    return {kernel: fa.bwd_kernel_info(kernel, torch.bfloat16, 64, SEQ_LEN)
+            for kernel in ("dq", "dkv")}
+
+
 def bwd_kernel_phase(gen):
-    """Every backward case within tolerance, the gradients against dense
-    attention; returns the flash_bwd_dq and flash_bwd_dkv records (without
-    launches) measured at the training shape."""
-    max_err = {"dq": 0.0, "dkv": 0.0}
+    """Every backward case within tolerance, its shifted-mask control above
+    it, repeats bit for bit, masked keys and rows exact zeros, Dvec within
+    its bound, the gradients against dense attention; returns the
+    flash_bwd_dq and flash_bwd_dkv records (without launches) measured at
+    the training shape."""
+    resources = bwd_resources()
+    max_err = {"dq": 0.0, "dkv": 0.0, "dvec": 0.0}
     records = None
     for name, b, l, h, d, dtype, causal, mask_kind, strided in BWD_CASES:
         q, k, v, dout, mask = kernel_inputs(gen, b, l, h, d, dtype, mask_kind,
                                             strided, n=4)
         out, lse = fa.flash_attention_forward(q, k, v, causal=causal, kv_mask=mask)
-        dvec = fa._dvec(out, dout)
+        dvec = fa.flash_bwd_dvec(out, dout)
         args = (q, k, v, dout, lse, dvec)
-        dq = fa.flash_bwd_dq(*args, causal=causal, kv_mask=mask)
-        dk, dv = fa.flash_bwd_dkv(*args, causal=causal, kv_mask=mask)
+
+        def kernels(kv_mask):
+            return (fa.flash_bwd_dq(*args, causal=causal, kv_mask=kv_mask),
+                    *fa.flash_bwd_dkv(*args, causal=causal, kv_mask=kv_mask))
+
+        grads = kernels(mask)
+        again = kernels(mask)
         torch.cuda.synchronize()
-        ref_dq = fa.flash_bwd_dq_reference(*args, causal=causal, kv_mask=mask)
-        ref_dk, ref_dv = fa.flash_bwd_dkv_reference(*args, causal=causal,
-                                                    kv_mask=mask)
-        parts = []
-        ok = True
-        for grad, got, want, kernel in (("dq", dq, ref_dq, "dq"),
-                                        ("dk", dk, ref_dk, "dkv"),
-                                        ("dv", dv, ref_dv, "dkv")):
-            scale = want.double().abs().max().item()
-            tol = (OUT_TOL[dtype][0], l * F32_EPS * scale)
-            err = (got.double() - want.double()).abs().max().item()
-            ratio = tol_ratio(got, want, tol)
-            ok = ok and torch.isfinite(got.float()).all().item() and ratio <= 1.0
-            if mask_kind == "empty_row":  # the all-masked batch row
-                ok = ok and got[1].abs().max().item() == 0.0
-            max_err[kernel] = max(max_err[kernel], err)
-            parts.append(f"{grad} max|err|={err:.3e} ({ratio:.3f} of tol "
-                         f"{tol[1]:.2e} + {tol[0]:g}*|ref|)")
+        ref_dvec = fa._dvec(out, dout)
+        dvec_bound = 2 * d * F32_EPS * (dout.float() * out.float()).abs().sum(-1)
+        dvec_bound = dvec_bound.permute(0, 2, 1).reshape(b * h, l)
+        dvec_err = (dvec - ref_dvec).abs()
+        dvec_ratio = torch.where(dvec_err == 0, 0.0,
+                                 dvec_err / dvec_bound).max().item()
+        max_err["dvec"] = max(max_err["dvec"], dvec_err.max().item())
+        refs = (fa.flash_bwd_dq_reference(*args, causal=causal, kv_mask=mask),
+                *fa.flash_bwd_dkv_reference(*args, causal=causal, kv_mask=mask))
+        terms = fa.bwd_rounding_terms(*args, causal=causal, kv_mask=mask)
+        ratios = [bwd_ratio(got, want, term, dtype, l)
+                  for got, want, term in zip(grads, refs, terms)]
+        ok = (all(torch.isfinite(g.float()).all().item() for g in grads)
+              and max(ratios) <= 1.0 and dvec_ratio <= 1.0)
+        repeat = all(torch.equal(g, r) for g, r in zip(grads, again))
+        zeros = ""
+        if mask_kind == "empty_row":  # the all-masked batch row
+            zero = all(g[1].abs().max().item() == 0.0 for g in grads)
+            zeros = f"; all-masked row exactly 0: {zero}"
+            ok = ok and zero
+        if mask_kind == "hole":  # the masked block's keys get nothing
+            zero = all(g[:, 64:128].abs().max().item() == 0.0 for g in grads[1:])
+            zeros = f"; masked key block's dk, dv exactly 0: {zero}"
+            ok = ok and zero
+        controls = []
+        if mask is not None:
+            shifted = kernels(torch.roll(mask, 1, dims=1))
+            controls = [bwd_ratio(got, want, term, dtype, l)
+                        for got, want, term in zip(shifted, refs, terms)]
+            ok = ok and min(controls) > 1.0
+        for kernel, got, want in zip(("dq", "dkv", "dkv"), grads, refs):
+            max_err[kernel] = max(max_err[kernel], (got.double() - want.double())
+                                  .abs().max().item())
         print(f"kernel flash_bwd {name}: B={b} L={l} H={h} D={d} {dtype} "
-              f"causal={causal} mask={mask_kind} strided={strided} "
-              + " ".join(parts), flush=True)
-        if not ok:
+              f"causal={causal} mask={mask_kind} strided={strided}: "
+              + ", ".join(f"{g} {r:.3f}" for g, r in zip(("dq", "dk", "dv"), ratios))
+              + f" of the bound (u {fa.BWD_UNIT_ROUNDOFF[dtype]:g}); Dvec "
+              f"{dvec_ratio:.3f} of its bound; shifted-mask control "
+              + (", ".join(f"{g} {r:.3g}" for g, r in zip(("dq", "dk", "dv"), controls))
+                 or "n/a (no mask)")
+              + f" (each must exceed 1); repeat bit for bit: {repeat}{zeros}",
+              flush=True)
+        if not (ok and repeat):
             raise AssertionError(f"flash_bwd {name}: kernels disagree with "
-                                 "their plain versions")
+                                 "their plain versions, a control stays "
+                                 "within the bound, or a repeat differs")
         if name == "training":
             records = training_shape_timing(q, k, v, dout, out, lse, dvec, mask)
     for kernel, record in zip(("dq", "dkv"), records):
         record["max_abs_err"] = max_err[kernel]
+        record.update(resources[kernel])
+    records[0]["dvec_max_abs_err"] = max_err["dvec"]
     dense_gradient_check(gen)
     return records
 
@@ -385,8 +466,8 @@ def training_shape_timing(q, k, v, dout, out, lse, dvec, mask):
     item = q.element_size()
     args = (q, k, v, dout, lse, dvec)
     ms = {
-        "dq": time_ms(lambda: fa.flash_bwd_dq(*args, kv_mask=mask), iters=50),
-        "dkv": time_ms(lambda: fa.flash_bwd_dkv(*args, kv_mask=mask), iters=50),
+        "dq": time_ms(lambda: fa.flash_bwd_dq(*args, kv_mask=mask)),
+        "dkv": time_ms(lambda: fa.flash_bwd_dkv(*args, kv_mask=mask)),
     }
     plain_ms = {
         "dq": time_ms(lambda: fa.flash_bwd_dq_reference(*args, kv_mask=mask),
@@ -394,9 +475,10 @@ def training_shape_timing(q, k, v, dout, out, lse, dvec, mask):
         "dkv": time_ms(lambda: fa.flash_bwd_dkv_reference(*args, kv_mask=mask),
                        iters=10, warmup=2),
     }
-    dvec_ms = time_ms(lambda: fa._dvec(out, dout), iters=50)
+    dvec_ms = time_ms(lambda: fa.flash_bwd_dvec(out, dout))
+    dvec_plain_ms = time_ms(lambda: fa._dvec(out, dout), iters=50)
     total_ms = time_ms(lambda: fa.flash_attention_backward(
-        q, k, v, out, lse, dout, kv_mask=mask), iters=50)
+        q, k, v, out, lse, dout, kv_mask=mask))
     # Yardstick only: SDPA's backward (dq, dk and dv in one call), timed
     # alone at the same shape and mask (no row of this case is empty).
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -447,9 +529,22 @@ def training_shape_timing(q, k, v, dout, out, lse, dvec, mask):
             "library_ms": library_ms,
             "library": "scaled_dot_product_attention backward (dq, dk, dv together)",
         })
+    # Dvec: O and dO read once, the f32 [B*H, L] written once; 2 f32
+    # operations per element on the FMA units.
+    dvec_bytes = 2 * b * l * h * d * item + b * h * l * 4
+    dvec_bound_ms = max(dvec_bytes / HBM_BYTES_PER_S,
+                        2 * b * l * h * d / PEAK_OPS_PER_S[torch.float32]) * 1e3
+    records[0].update({"dvec_ms": dvec_ms, "dvec_plain_ms": dvec_plain_ms,
+                       "dvec_bound_ms": dvec_bound_ms,
+                       "backward_ms": total_ms})
+    print(f"kernel flash_bwd_dvec training shape: {dvec_ms:.4f} ms (plain "
+          f"{dvec_plain_ms:.4f} ms); bound {dvec_bound_ms:.4f} ms "
+          f"({dvec_bytes} bytes)", flush=True)
     print(f"kernel flash backward training shape: Dvec {dvec_ms:.4f} ms + dq "
-          f"{ms['dq']:.4f} ms + dkv {ms['dkv']:.4f} ms; whole backward "
-          f"{total_ms:.4f} ms; sdpa backward {library_ms:.4f} ms", flush=True)
+          f"{ms['dq']:.4f} ms + dkv {ms['dkv']:.4f} ms = "
+          f"{dvec_ms + ms['dq'] + ms['dkv']:.4f} ms; whole backward "
+          f"(flash_attention_backward) {total_ms:.4f} ms; sdpa backward "
+          f"{library_ms:.4f} ms", flush=True)
     return records
 
 
@@ -916,8 +1011,9 @@ def train_step_breakdown(hp, seed, batch, iters=3):
     wall_ms, profiled_ms, busy_ms, by_name, n_kernels = profiled(step, iters)
     by_kernel = {
         name: sum(us for kernel, us in by_name.items()
-                  if f"{name}_kernel" in kernel) / iters / 1e3
-        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+                  if re.search(rf"\b{name}(_mma)?_kernel\b", kernel)) / iters / 1e3
+        for name in ("flash_fwd", "flash_bwd_dvec", "flash_bwd_dq",
+                     "flash_bwd_dkv")
     }
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for kernel, us in top:
@@ -928,15 +1024,16 @@ def train_step_breakdown(hp, seed, batch, iters=3):
 
 def training_phase(seed, n_steps, card):
     """The slice's main path: BERT-base fine-tuning through train_loop with
-    flash attention.  Returns the three kernels' launches in that run."""
+    flash attention.  Returns the four kernels' launches in that run."""
     hp = {**DEFAULT_HPARAMS, "attn_impl": "flash", "max_len": SEQ_LEN,
           "num_classes": 2}
     batches = training_batches(seed, hp["vocab_size"], n_steps)
 
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    fa.launches = fa.dq_launches = fa.dkv_launches = fa.dvec_launches = 0
     model, result, losses, moments = run_training(hp, seed, batches)
-    launches = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+    launches = {"flash_fwd": fa.launches, "flash_bwd_dvec": fa.dvec_launches,
+                "flash_bwd_dq": fa.dq_launches,
                 "flash_bwd_dkv": fa.dkv_launches}
     peak_bytes = torch.cuda.max_memory_allocated()
     matmul_params = sum(
@@ -1443,13 +1540,14 @@ def main(argv=None) -> int:
     trained = training_phase(args.seed, args.train_steps, card)
     phase_done("training")
     # launches: each kernel's count in its own paths' runs: training for the
-    # three flash-attention kernels (the serving path's flash_fwd count
+    # four flash-attention kernels (Dvec's count on the dq record) (the serving path's flash_fwd count
     # stands beside it), :generate plus the engine for flash_decode.
     fwd["launches_by_path"] = {"serving": served,
                                "training": trained["flash_fwd"]}
     decode["launches_by_path"] = {"serving": generated, "engine": engine}
     trained["flash_decode"] = generated + engine
     records = [fwd, *bwd, decode]
+    bwd[0]["dvec_launches"] = trained["flash_bwd_dvec"]
     for record in records:
         record["launches"] = trained[record["name"]]
         record["max_err"] = record["max_abs_err"]

@@ -15,6 +15,13 @@ is a sum of at most L=64 products (D=16 for the recomputed scores), and two
 summation orders differ by at most about L * 2^-24 ~ 3.8e-6 of the sum of
 |terms|, which is O(1) here (the largest gradients are ~4): the tolerance
 leaves a factor of ~5 on that worst case.  Measured: <= 1.1e-6.
+
+The bf16/fp16 CUDA kernels round p and dS to the input dtype before their
+second products; the card-side checks hold them to the plain version by a
+per-element bound built from ``fa.bwd_rounding_terms``.  The last test
+validates that bound here: the plain formula with that rounding emulated
+stays inside it, and the same emulation fed the mask shifted by one key
+lands outside it.
 """
 
 import jax.numpy as jnp
@@ -126,3 +133,67 @@ def test_backward_wrapper_rejects_what_the_kernels_do_not_take():
         fa.flash_attention_backward(
             m, m, m, m, torch.empty(B * H, L, device="meta"), m
         )
+
+
+OUT_RTOL = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}
+
+
+def _emulated_kernel_rounding(q, k, v, dout, lse, dvec, dtype, causal, mask):
+    """The 16-bit backward kernels' arithmetic: the plain formula in f32
+    with p and dS rounded to ``dtype`` before the second products and the
+    gradients written in ``dtype``."""
+    p, ds, scale = fa._probs(q, k, v, dout, lse, dvec, causal, mask)
+    p, ds = p.to(dtype).float(), ds.to(dtype).float()
+    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype)
+
+
+def _bound_ratio(got, want, term, dtype, u=None):
+    """max |got - want| / (u * term + L * 2^-24 * max|want| + rtol * |want|),
+    u the dtype's ``BWD_UNIT_ROUNDOFF`` unless given."""
+    want = want.double()
+    u = fa.BWD_UNIT_ROUNDOFF[dtype] if u is None else u
+    bound = (u * term.double()
+             + L * 2.0 ** -24 * want.abs().max() + OUT_RTOL[dtype] * want.abs())
+    err = (got.double() - want).abs()
+    return torch.where(err == 0, 0.0, err / bound).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "padding"])
+def test_rounding_bound_holds_for_the_kernels_rounding_and_not_a_shifted_mask(
+    dtype, causal
+):
+    q, k, v, g = (_t(a).to(dtype) for a in _arrays(seed=8))
+    mask = _t(_mask("padding", seed=9))
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal, kv_mask=mask)
+    args = (q, k, v, g, lse, fa.flash_bwd_dvec(out, g))
+    refs = (fa.flash_bwd_dq_reference(*args, causal=causal, kv_mask=mask),
+            *fa.flash_bwd_dkv_reference(*args, causal=causal, kv_mask=mask))
+    terms = fa.bwd_rounding_terms(*args, causal=causal, kv_mask=mask)
+    sound = _emulated_kernel_rounding(*args, dtype, causal, mask)
+    shifted = _emulated_kernel_rounding(*args, dtype, causal,
+                                        torch.roll(mask, 1, dims=1))
+    for name, got, wrong, want, term in zip(("dq", "dk", "dv"), sound, shifted,
+                                            refs, terms):
+        assert _bound_ratio(got, want, term, dtype) <= 1.0, name
+        assert _bound_ratio(wrong, want, term, dtype) > 1.0, name
+    # Without the rounding term (the f32 kernels' bound) the same rounding
+    # does not fit: the term is needed, not a loosening for its own sake.
+    assert max(_bound_ratio(got, want, term, dtype, u=0.0)
+               for got, want, term in zip(sound, refs, terms)) > 1.0
+
+
+def test_dvec_wrapper_runs_the_plain_version_on_cpu_and_checks_its_inputs():
+    out, g = (_t(a) for a in _arrays(seed=10, n=2))
+    assert torch.equal(fa.flash_bwd_dvec(out, g), fa._dvec(out, g))
+    assert fa.flash_bwd_dvec(out, g).shape == (B * H, L)
+    with pytest.raises(ValueError, match="dout"):
+        fa.flash_bwd_dvec(out, g[:, :-1])
+    with pytest.raises(ValueError, match="head_dim 12"):
+        fa.flash_bwd_dvec(out[..., :12], g[..., :12])
+    m = torch.empty(B, L, H, D, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        fa.flash_bwd_dvec(m, m)

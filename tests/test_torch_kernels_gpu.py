@@ -12,9 +12,15 @@ rounding step (ulp) of the output dtype:
 fp16 (2^-10, 1e-6), f32 (1e-6, 1e-6); the f32 LSE to (1e-6, 1e-5).  The
 backward kernels' gradients take the same rtol and, for elements that
 cancel, atol = L * 2^-24 * max|ref| (two orders of a sum of L terms differ
-by at most about L * 2^-24 of the sum of |terms|).  Gradients through the
-autograd Function against autograd through dense attention, f32: (1e-5,
-2e-5) — two formulas (softmax vs the saved LSE), f32 sums over <= 100 keys.
+by at most about L * 2^-24 of the sum of |terms|); the bf16 and fp16
+kernels round p and dS to the input dtype before their second products
+(the plain versions keep them in f32), which adds u times
+``fa.bwd_rounding_terms`` per element, u = ``fa.BWD_UNIT_ROUNDOFF`` (2^-8
+bf16, 2^-11 fp16, 0 for the f32 FMA kernels).  Dvec: two orders of a sum
+of D f32 products, 2 * D * 2^-24 of the row's sum of |dO * O|.  Gradients
+through the autograd Function against autograd through dense attention,
+f32: (1e-5, 2e-5) — two formulas (softmax vs the saved LSE), f32 sums over
+<= 100 keys.
 """
 
 import pytest
@@ -120,6 +126,37 @@ def test_flash_attention_layer_matches_dense_on_the_card(cuda):
     assert (got.float() - want.float()).abs().max().item() <= 5e-2
 
 
+def _bwd_inputs(b, l, h, d, dtype, device, seed, mask_kind="ragged",
+                strided=False):
+    """q, k, v, dO and the key mask: "ragged" lengths, "empty_row" (row 1
+    all masked), "hole" (keys 64..127 masked in every row) or "none"."""
+    gen = torch.Generator().manual_seed(seed)
+    if strided:  # q, k, v, dO as slices of one packed tensor
+        packed = torch.randn(b, l, 4, h, d, generator=gen).to(device, dtype)
+        q, k, v, dout = (packed[:, :, i] for i in range(4))
+    else:
+        q, k, v, dout = (torch.randn(b, l, h, d, generator=gen).to(device, dtype)
+                         for _ in range(4))
+    mask = None
+    if mask_kind == "hole":
+        mask = torch.ones(b, l, dtype=torch.int32)
+        mask[:, 64:128] = 0
+    elif mask_kind != "none":
+        lengths = torch.randint(1, l + 1, (b,), generator=gen)
+        mask = (torch.arange(l)[None, :] < lengths[:, None]).to(torch.int32)
+        if mask_kind == "empty_row":
+            mask[1] = 0
+    return q, k, v, dout, None if mask is None else mask.to(device)
+
+
+def _within_bwd_bound(got, want, term, dtype, l):
+    """|got - want| <= u * term + L * 2^-24 * max|want| + rtol * |want|."""
+    want = want.double()
+    bound = (fa.BWD_UNIT_ROUNDOFF[dtype] * term.double()
+             + l * 2.0 ** -24 * want.abs().max() + OUT_TOL[dtype][0] * want.abs())
+    return bool(((got.double() - want).abs() <= bound).all())
+
+
 @pytest.mark.parametrize(
     "b,l,h,d,dtype,causal,mask_kind,strided",
     [
@@ -130,42 +167,107 @@ def test_flash_attention_layer_matches_dense_on_the_card(cuda):
         (2, 130, 3, 128, torch.float16, False, "ragged", True),
         (3, 96, 2, 16, torch.float32, False, "ragged", False),
         (2, 77, 2, 64, torch.bfloat16, True, "none", False),
+        (2, 200, 4, 64, torch.bfloat16, False, "hole", False),
+        (3, 96, 2, 16, torch.bfloat16, True, "ragged", False),
     ],
 )
 def test_backward_kernels_match_plain_versions(
     cuda, b, l, h, d, dtype, causal, mask_kind, strided
 ):
-    gen = torch.Generator().manual_seed(l + d)
-    if strided:  # q, k, v, dO as slices of one packed tensor
-        packed = torch.randn(b, l, 4, h, d, generator=gen).to(cuda, dtype)
-        q, k, v, dout = (packed[:, :, i] for i in range(4))
-    else:
-        q, k, v, dout = (torch.randn(b, l, h, d, generator=gen).to(cuda, dtype)
-                         for _ in range(4))
-    mask = None
-    if mask_kind != "none":
-        lengths = torch.randint(1, l + 1, (b,), generator=gen)
-        mask = (torch.arange(l)[None, :] < lengths[:, None]).to(torch.int32)
-        if mask_kind == "empty_row":
-            mask[1] = 0
-        mask = mask.to(cuda)
+    q, k, v, dout, mask = _bwd_inputs(b, l, h, d, dtype, cuda, l + d, mask_kind,
+                                      strided)
     out, lse = fa.flash_attention_forward(q, k, v, causal=causal, kv_mask=mask)
-    dvec = fa._dvec(out, dout)
+    before = (fa.dvec_launches, fa.dq_launches, fa.dkv_launches)
+    dvec = fa.flash_bwd_dvec(out, dout)
     args = (q, k, v, dout, lse, dvec)
-    before = (fa.dq_launches, fa.dkv_launches)
     dq = fa.flash_bwd_dq(*args, causal=causal, kv_mask=mask)
     dk, dv = fa.flash_bwd_dkv(*args, causal=causal, kv_mask=mask)
     torch.cuda.synchronize()
-    assert (fa.dq_launches, fa.dkv_launches) == (before[0] + 1, before[1] + 1)
-    ref_dq = fa.flash_bwd_dq_reference(*args, causal=causal, kv_mask=mask)
-    ref_dk, ref_dv = fa.flash_bwd_dkv_reference(*args, causal=causal,
-                                                kv_mask=mask)
-    for got, want in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+    assert (fa.dvec_launches, fa.dq_launches, fa.dkv_launches) == tuple(
+        n + 1 for n in before)
+    refs = (fa.flash_bwd_dq_reference(*args, causal=causal, kv_mask=mask),
+            *fa.flash_bwd_dkv_reference(*args, causal=causal, kv_mask=mask))
+    terms = fa.bwd_rounding_terms(*args, causal=causal, kv_mask=mask)
+    for got, want, term in zip((dq, dk, dv), refs, terms):
         assert got.dtype == dtype and got.shape == q.shape
-        atol = l * 2.0 ** -24 * want.double().abs().max().item()
-        assert _within(got, want, (OUT_TOL[dtype][0], atol))
+        assert _within_bwd_bound(got, want, term, dtype, l)
         if mask_kind == "empty_row":
             assert got[1].abs().max().item() == 0.0
+    if mask_kind == "hole":  # the masked 64-key block gets nothing
+        assert dk[:, 64:128].abs().max().item() == 0.0
+        assert dv[:, 64:128].abs().max().item() == 0.0
+    if mask is not None:  # the mask shifted by one key must fail the bound
+        shifted = torch.roll(mask, 1, dims=1)
+        wrong = (fa.flash_bwd_dq(*args, causal=causal, kv_mask=shifted),
+                 *fa.flash_bwd_dkv(*args, causal=causal, kv_mask=shifted))
+        for got, want, term in zip(wrong, refs, terms):
+            assert not _within_bwd_bound(got, want, term, dtype, l)
+
+
+@pytest.mark.parametrize("dtype,d,causal", [(torch.bfloat16, 64, False),
+                                            (torch.float16, 128, True),
+                                            (torch.float32, 32, False)])
+def test_backward_kernels_repeat_bit_for_bit(cuda, dtype, d, causal):
+    q, k, v, dout, mask = _bwd_inputs(8, 200, 4, d, dtype, cuda, seed=3)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal, kv_mask=mask)
+    runs = [fa.flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                        kv_mask=mask) for _ in range(3)]
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+
+
+def test_f32_backward_runs_the_fma_kernels_within_the_f32_bound(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, dout, mask = _bwd_inputs(3, 96, 2, 16, torch.float32, cuda, seed=5)
+    out, lse = fa.flash_attention_forward(q, k, v, kv_mask=mask)
+    dvec = fa.flash_bwd_dvec(out, dout)
+    args = (q, k, v, dout, lse, dvec)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        grads = (fa.flash_bwd_dq(*args, kv_mask=mask),
+                 *fa.flash_bwd_dkv(*args, kv_mask=mask))
+        torch.cuda.synchronize()
+    names = " ".join(e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert "flash_bwd_dq_kernel<float" in names
+    assert "flash_bwd_dkv_kernel<float" in names
+    assert "_mma_kernel" not in names
+    refs = (fa.flash_bwd_dq_reference(*args, kv_mask=mask),
+            *fa.flash_bwd_dkv_reference(*args, kv_mask=mask))
+    for got, want in zip(grads, refs):
+        atol = 96 * 2.0 ** -24 * want.double().abs().max().item()
+        assert _within(got, want, (OUT_TOL[torch.float32][0], atol))
+
+
+def test_backward_wrapper_raises_on_misaligned_16bit_rows(cuda):
+    gen = torch.Generator().manual_seed(0)
+    wide = torch.randn(2, 16, 2, 72, generator=gen).to(cuda, torch.bfloat16)
+    q = wide[..., 1:65]  # rows 2 bytes past a 16-byte boundary
+    good = wide[..., :64].contiguous()
+    lse = torch.zeros(4, 16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_bwd_dq(q, good, good, good, lse, lse)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_bwd_dkv(good, good, good, q, lse, lse)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_bwd_dvec(q, good)
+
+
+@pytest.mark.parametrize("dtype,d,strided", [(torch.bfloat16, 64, False),
+                                             (torch.float16, 128, True),
+                                             (torch.bfloat16, 16, True),
+                                             (torch.float32, 32, False)])
+def test_dvec_kernel_matches_plain_version(cuda, dtype, d, strided):
+    out, _, _, dout, _ = _bwd_inputs(5, 77, 3, d, dtype, cuda, seed=d,
+                                     strided=strided)
+    before = fa.dvec_launches
+    dvec = fa.flash_bwd_dvec(out, dout)
+    torch.cuda.synchronize()
+    assert fa.dvec_launches == before + 1
+    ref = fa._dvec(out, dout)
+    assert dvec.dtype == torch.float32 and dvec.shape == ref.shape
+    bound = 2 * d * 2.0 ** -24 * (dout.float() * out.float()).abs().sum(-1)
+    assert bool(((dvec - ref).abs() <= bound.permute(0, 2, 1).reshape(-1, 77)).all())
 
 
 @pytest.mark.parametrize("causal", [False, True])

@@ -9,9 +9,9 @@ The counterpart of ``tpu_pipelines/ops/flash_attention.py``.
     the per-row log-sum-exp, and the Function saves
     ``(q, k, v, mask, out, lse)``;
   - the backward (:func:`flash_attention_backward`) computes
-    ``Dvec = rowsum(dO * O)`` and from it ``dq`` (:func:`flash_bwd_dq`)
-    and ``dk``, ``dv`` (:func:`flash_bwd_dkv`), recomputing the
-    probabilities from the saved LSE.
+    ``Dvec = rowsum(dO * O)`` (:func:`flash_bwd_dvec`) and from it ``dq``
+    (:func:`flash_bwd_dq`) and ``dk``, ``dv`` (:func:`flash_bwd_dkv`),
+    recomputing the probabilities from the saved LSE.
 
 :func:`flash_decode_attention` is the decode regime: one query per
 (batch, head) against a padded KV cache with key validity and an additive
@@ -23,10 +23,10 @@ Each entry point dispatches on the device of its tensors:
     ``csrc/flash_attention_bwd.cu`` and ``csrc/flash_decode.cu`` (built at
     first use by ``ops/_build.py``); a build or launch failure raises;
   - on a CPU tensor it runs the plain version of the same function
-    (:func:`flash_attention_reference`, :func:`flash_bwd_dq_reference`,
-    :func:`flash_bwd_dkv_reference`, :func:`flash_decode_attention_reference`:
-    f32 math, the kernels' masking, scale placement, zeros for rows with no
-    allowed key, and LSE);
+    (:func:`flash_attention_reference`, :func:`_dvec`,
+    :func:`flash_bwd_dq_reference`, :func:`flash_bwd_dkv_reference`,
+    :func:`flash_decode_attention_reference`: f32 math, the kernels'
+    masking, scale placement, zeros for rows with no allowed key, and LSE);
   - any other device raises.
 
 Semantics kept from the TPU kernels: the forward scales q by
@@ -39,9 +39,17 @@ outputs and gradients have the input dtype and ``lse`` is f32 laid out
 ``BLOCK_K``) and ragged lengths are masked inside them, so there is no
 divisibility rule.
 
-``launches``, ``dq_launches``, ``dkv_launches`` and ``decode_launches``
-count kernel launches (never plain-version calls), so a run can show that
-its attention went through the kernels.
+The backward kernels for bf16 and fp16 run their products on the tensor
+cores and round ``p`` and ``dS`` to the input dtype before the second
+products (``dV = p^T dO``, ``dK = dS^T q``, ``dq = dS k``), as SDPA and
+dense bf16 attention do; their plain versions keep both in f32.
+:func:`bwd_rounding_terms` gives the per-element sums that bound the
+difference (see ``BWD_UNIT_ROUNDOFF``).  f32 runs on FMA kernels with
+every product in f32.
+
+``launches``, ``dq_launches``, ``dkv_launches``, ``dvec_launches`` and
+``decode_launches`` count kernel launches (never plain-version calls), so a
+run can show that its attention went through the kernels.
 """
 
 from __future__ import annotations
@@ -70,8 +78,10 @@ _PROTOTYPES = {
 }
 # tpp_flash_bwd_dq(q, k, v, dout, mask, lse, dvec, dq, dtype, b, l, h, d,
 #                  strides[12], causal, scale, stream) -> cudaError_t;
-# tpp_flash_bwd_dkv takes dk, dv in place of dq.
+# tpp_flash_bwd_dkv takes dk, dv in place of dq;
+# tpp_flash_bwd_dvec(out, dout, dvec, dtype, b, l, h, d, strides[6], stream).
 _STRIDES = ctypes.c_int64 * 12
+_DVEC_STRIDES = ctypes.c_int64 * 6
 _BWD_PROTOTYPES = {
     "tpp_flash_bwd_dq": (
         ctypes.c_int,
@@ -83,6 +93,21 @@ _BWD_PROTOTYPES = {
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
         + [_STRIDES, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
     ),
+    "tpp_flash_bwd_dvec": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+        + [_DVEC_STRIDES, ctypes.c_void_p],
+    ),
+    # (which, dtype, d, l, int[3] out) -> cudaError_t
+    "tpp_flash_bwd_kernel_info": (
+        ctypes.c_int, [ctypes.c_int] * 4 + [ctypes.c_int * 3],
+    ),
+}
+# Unit roundoff of the dtype the backward kernels round p and dS to before
+# their second products: bf16 (8 significant bits) 2^-8, fp16 (11) 2^-11;
+# the f32 kernels round neither.
+BWD_UNIT_ROUNDOFF = {
+    torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11, torch.float32: 0.0,
 }
 
 # tpp_flash_decode(q, k, v, mask, bias, out, dtype, b, l, h, d, strides[13],
@@ -100,10 +125,12 @@ _DECODE_PROTOTYPES = {
 DECODE_BLOCK_K = 64
 
 # Kernel launches since the process started (or since a caller reset
-# them): flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_decode.
+# them): flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_bwd_dvec,
+# flash_decode.
 launches = 0
 dq_launches = 0
 dkv_launches = 0
+dvec_launches = 0
 decode_launches = 0
 _launch_lock = threading.Lock()
 
@@ -157,6 +184,26 @@ def _check(q, k, v, kv_mask, block_q, block_k) -> None:
             )
 
 
+def _aligned16(t: torch.Tensor) -> bool:
+    """Every [.., head_dim] row of ``t`` (read with 16-byte loads by the
+    decode, Dvec and 16-bit backward kernels) starts on a 16-byte
+    boundary."""
+    item = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        (stride * item) % 16 == 0
+        for size, stride in zip(t.shape[:3], t.stride()[:3]) if size > 1
+    )
+
+
+def _require_aligned16(op: str, **tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if not _aligned16(t):
+            raise ValueError(
+                f"{op}: {name}'s rows must start on 16-byte boundaries "
+                f"(data_ptr {t.data_ptr()}, strides {t.stride()})"
+            )
+
+
 def _allowed(b: int, l: int, device, causal: bool,
              kv_mask: Optional[torch.Tensor]) -> torch.Tensor:
     """[b, 1, l, l] or [b, 1, 1, l] bool: the (query, key) pairs a row may
@@ -199,7 +246,8 @@ def flash_attention_reference(
 
 
 def _dvec(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
-    """``Dvec = rowsum(dO * O)`` in f32, laid out ``[b * h, l]`` like lse."""
+    """Plain PyTorch version of the ``flash_bwd_dvec`` kernel:
+    ``Dvec = rowsum(dO * O)`` in f32, laid out ``[b * h, l]`` like lse."""
     b, l, h, _ = out.shape
     dvec = (dout.float() * out.float()).sum(dim=-1)           # [b, l, h]
     return dvec.permute(0, 2, 1).reshape(b * h, l).contiguous()
@@ -217,6 +265,25 @@ def _probs(q, k, v, dout, lse, dvec, causal, kv_mask):
     p = torch.where(allowed, torch.exp(s - lse.reshape(b, h, l, 1)), 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
     return p, p * (dp - dvec.reshape(b, h, l, 1)), scale
+
+
+def bwd_rounding_terms(q, k, v, dout, lse, dvec, *, causal=False,
+                       kv_mask=None):
+    """``(scale |dS| |k|, scale |dS|^T |q|, |p|^T |dO|)``, f32
+    ``[b, l, h, d]``, from the plain version's f32 ``p`` and ``dS``.
+
+    The 16-bit backward kernels round each ``p`` and ``dS`` to the input
+    dtype (relative error at most ``u = BWD_UNIT_ROUNDOFF[dtype]``) before
+    ``dq = scale dS k``, ``dk = scale dS^T q`` and ``dv = p^T dO``, so each
+    gradient element moves by at most ``u`` times its term from that
+    rounding; the order of f32 sums and the output's own rounding come on
+    top."""
+    p, ds, scale = _probs(q, k, v, dout, lse, dvec, causal, kv_mask)
+    ds = ds.abs()
+    t_dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds, k.float().abs())
+    t_dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.float().abs())
+    t_dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float().abs())
+    return t_dq, t_dk, t_dv
 
 
 def flash_bwd_dq_reference(q, k, v, dout, lse, dvec, *, causal=False,
@@ -320,6 +387,8 @@ def _launch_bwd(name, q, k, v, dout, lse, dvec, kv_mask, causal, n_out):
     global dq_launches, dkv_launches
     from tpu_pipelines_torch.ops import _build
 
+    if q.dtype != torch.float32:  # the tensor-core kernels' cp.async copies
+        _require_aligned16("flash_attention backward", q=q, k=k, v=v, dout=dout)
     fn = getattr(_build.load("flash_attention_bwd", _BWD_PROTOTYPES),
                  f"tpp_flash_bwd_{name}")
     b, l, h, d = q.shape
@@ -403,6 +472,76 @@ def flash_bwd_dkv(q, k, v, dout, lse, dvec, *, causal=False,
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
+def _launch_dvec(out, dout) -> torch.Tensor:
+    global dvec_launches
+    from tpu_pipelines_torch.ops import _build
+
+    _require_aligned16("flash_attention backward", out=out, dout=dout)
+    fn = _build.load("flash_attention_bwd", _BWD_PROTOTYPES).tpp_flash_bwd_dvec
+    b, l, h, d = out.shape
+    dvec = torch.empty((b * h, l), dtype=torch.float32, device=out.device)
+    strides = _DVEC_STRIDES(*out.stride()[:3], *dout.stride()[:3])
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream(out.device).cuda_stream
+        err = fn(out.data_ptr(), dout.data_ptr(), dvec.data_ptr(),
+                 _DTYPE_CODES[out.dtype], b, l, h, d, strides, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention: CUDA kernel flash_bwd_dvec launch failed with "
+            f"cudaError {err} (shape {tuple(out.shape)}, {out.dtype}, "
+            f"{out.device})"
+        )
+    with _launch_lock:
+        dvec_launches += 1
+    return dvec
+
+
+def bwd_kernel_info(name: str, dtype: torch.dtype, head_dim: int,
+                    length: int) -> dict:
+    """Registers and local memory (spill) bytes a thread of the CUDA kernel
+    ``flash_bwd_<name>`` (``"dq"`` or ``"dkv"``) takes for ``dtype`` and
+    ``head_dim``, and its dynamic shared memory at ``length``; builds the
+    library if needed."""
+    from tpu_pipelines_torch.ops import _build
+
+    fn = _build.load("flash_attention_bwd",
+                     _BWD_PROTOTYPES).tpp_flash_bwd_kernel_info
+    info = (ctypes.c_int * 3)()
+    err = fn({"dq": 0, "dkv": 1}[name], _DTYPE_CODES[dtype], head_dim, length,
+             info)
+    if err != 0:
+        raise RuntimeError(f"flash_attention: kernel info for flash_bwd_{name} "
+                           f"failed with cudaError {err}")
+    return {"registers": info[0], "local_bytes": info[1],
+            "shared_bytes": info[2]}
+
+
+def flash_bwd_dvec(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``Dvec = rowsum(dO * O)``, f32 ``[b * h, l]``: the ``flash_bwd_dvec``
+    kernel on CUDA tensors, its plain version (:func:`_dvec`) on CPU
+    tensors."""
+    if (out.dim() != 4 or dout.shape != out.shape or dout.dtype != out.dtype
+            or dout.device != out.device):
+        raise ValueError(
+            f"flash_attention backward: dout {dout.dtype} {tuple(dout.shape)} "
+            f"on {dout.device} must match out {out.dtype} {tuple(out.shape)} "
+            f"on {out.device}, [batch, len, heads, head_dim]"
+        )
+    if out.dtype not in _DTYPE_CODES or out.shape[-1] not in HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention backward: out {out.dtype} with head_dim "
+            f"{out.shape[-1]} (one of {HEAD_DIMS}) not supported"
+        )
+    if out.stride(-1) != 1 or dout.stride(-1) != 1:
+        raise ValueError("flash_attention backward: out's and dout's head_dim "
+                         "must be contiguous")
+    if out.device.type == "cuda":
+        return _launch_dvec(out, dout)
+    if out.device.type == "cpu":
+        return _dvec(out, dout)
+    raise ValueError(f"flash_attention: no kernel for device {out.device}")
+
+
 def flash_attention_backward(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -416,17 +555,20 @@ def flash_attention_backward(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`flash_attention_forward` for the output
     cotangent ``dout``, from the forward's ``out`` and ``lse``:
-    ``Dvec = rowsum(dO * O)`` (a plain f32 reduction), then
-    :func:`flash_bwd_dq` and :func:`flash_bwd_dkv`."""
+    :func:`flash_bwd_dvec`, then :func:`flash_bwd_dq` and
+    :func:`flash_bwd_dkv`.  A ``dout`` whose rows the kernels cannot read
+    with 16-byte loads (a strided last dim, a misaligned view) is copied
+    into a contiguous tensor first."""
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.device != q.device:
             raise ValueError(
                 f"flash_attention backward: {name} {tuple(t.shape)} on "
                 f"{t.device} must match q {tuple(q.shape)} on {q.device}"
             )
-    if dout.stride(-1) != 1:
-        dout = dout.contiguous()
-    dvec = _dvec(out, dout)
+    if dout.stride(-1) != 1 or (dout.device.type == "cuda"
+                                and not _aligned16(dout)):
+        dout = dout.clone(memory_format=torch.contiguous_format)
+    dvec = flash_bwd_dvec(out, dout)
     dq = flash_bwd_dq(q, k, v, dout, lse, dvec, causal=causal, kv_mask=kv_mask)
     dk, dv = flash_bwd_dkv(q, k, v, dout, lse, dvec, causal=causal,
                            kv_mask=kv_mask)
@@ -572,26 +714,11 @@ def flash_decode_attention_reference(
     return (out / denom.permute(0, 2, 1, 3)).to(q.dtype)
 
 
-def _aligned16(t: torch.Tensor) -> bool:
-    """Every row the decode kernel reads with 16-byte loads starts on a
-    16-byte boundary."""
-    item = t.element_size()
-    return t.data_ptr() % 16 == 0 and all(
-        (stride * item) % 16 == 0
-        for size, stride in zip(t.shape[:3], t.stride()[:3]) if size > 1
-    )
-
-
 def _launch_decode(q, k, v, kv_mask, bias) -> torch.Tensor:
     global decode_launches
     from tpu_pipelines_torch.ops import _build
 
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if not _aligned16(t):
-            raise ValueError(
-                f"flash_decode_attention: {name}'s rows must start on 16-byte "
-                f"boundaries (data_ptr {t.data_ptr()}, strides {t.stride()})"
-            )
+    _require_aligned16("flash_decode_attention", q=q, k=k, v=v)
     fn = _build.load("flash_decode", _DECODE_PROTOTYPES).tpp_flash_decode
     b, l, h, d = k.shape
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
