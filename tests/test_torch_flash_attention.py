@@ -10,6 +10,13 @@ in f32, so they agree to the reference suite's own f32 forward tolerance
 The forward parity test also holds each side to a float64 evaluation of
 the same function (``_attention_f64``), so a miss names the side that moved
 (see ``test_reference_matches_jax_flash_forward``).
+
+The bf16/fp16 CUDA forward kernel rounds p to the input dtype before
+``O = p v``; the card-side checks hold it to the plain version by a
+per-element bound built from ``fa.fwd_rounding_terms``.  The last tests
+validate that bound here: the plain formula with that rounding emulated
+stays inside it, the same emulation fed the mask shifted by one key lands
+outside it, and the terms match a float64 evaluation.
 """
 
 import jax.numpy as jnp
@@ -245,3 +252,65 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="no kernel for device meta"):
         m = torch.empty(B, L, H, D, device="meta")
         fa.flash_attention(m, m, m)
+
+
+# The forward's card-side tolerance (chip_smoke.py's OUT_TOL): one rounding
+# step of the output dtype relative, and a small atol.
+OUT_TOL = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float16: (2.0 ** -10, 1e-6)}
+
+
+def _emulated_kernel_rounding(q, k, v, dtype, causal, mask):
+    """The 16-bit forward kernel's arithmetic: the plain formula in f32
+    with p rounded to ``dtype`` before ``O = p v``, l summed from the
+    unrounded p, and the output written in ``dtype``."""
+    p, _, denom = fa._fwd_probs(q, k, causal, mask)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(dtype).float(), v.float())
+    return (out / denom.permute(0, 2, 1, 3)).to(dtype)
+
+
+def _fwd_bound_ratio(got, want, term, dtype, u=None):
+    """max |got - want| / (u * term + L * 2^-24 * max|want| + rtol * |want|
+    + atol), u the dtype's ``UNIT_ROUNDOFF`` unless given."""
+    want = want.double()
+    u = fa.UNIT_ROUNDOFF[dtype] if u is None else u
+    rtol, atol = OUT_TOL[dtype]
+    bound = (u * term.double() + L * U * want.abs().max()
+             + rtol * want.abs() + atol)
+    err = (got.double() - want).abs()
+    return torch.where(err == 0, 0.0, err / bound).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "padding"])
+def test_forward_rounding_bound_holds_for_the_kernels_rounding_and_not_a_shifted_mask(
+    dtype, causal
+):
+    q, k, v = (t.to(dtype) for t in _torch(*_qkv(seed=11)))
+    (mask,) = _torch(_mask("padding", seed=12))
+    want, _ = fa.flash_attention_reference(q, k, v, causal=causal, kv_mask=mask)
+    term = fa.fwd_rounding_terms(q, k, v, causal=causal, kv_mask=mask)
+    sound = _emulated_kernel_rounding(q, k, v, dtype, causal, mask)
+    shifted = _emulated_kernel_rounding(q, k, v, dtype, causal,
+                                        torch.roll(mask, 1, dims=1))
+    assert _fwd_bound_ratio(sound, want, term, dtype) <= 1.0
+    assert _fwd_bound_ratio(shifted, want, term, dtype) > 1.0
+    # Without the rounding term (the f32 kernel's bound) the same rounding
+    # does not fit: the term is needed, not a loosening for its own sake.
+    assert _fwd_bound_ratio(sound, want, term, dtype, u=0.0) > 1.0
+
+
+def test_fwd_rounding_terms_match_float64_and_are_zero_on_an_all_masked_row():
+    q, k, v = _qkv(seed=13)
+    mask = _mask("empty_row", seed=14)
+    term = fa.fwd_rounding_terms(*_torch(q, k, v), kv_mask=_torch(mask)[0])
+    assert term.dtype == torch.float32 and term.shape == (B, L, H, D)
+    assert torch.all(term[1] == 0.0)             # the all-masked batch row
+    qd, kd, vd = (x.astype(np.float64) for x in (q, k, v))
+    s = np.einsum("bqhd,bkhd->bhqk", qd * D ** -0.5, kd)
+    allowed = np.broadcast_to(mask[:, None, None, :] > 0, s.shape)
+    s = np.where(allowed, s, fa.NEG_INF)
+    p = np.where(allowed, np.exp(s - s.max(-1, keepdims=True)), 0.0)
+    p = p / np.maximum(p.sum(-1, keepdims=True), 1e-30)
+    want = np.einsum("bhqk,bkhd->bqhd", p, np.abs(vd))
+    np.testing.assert_allclose(term.numpy(), want, rtol=0,
+                               atol=(L + D) * U * np.abs(v).max())

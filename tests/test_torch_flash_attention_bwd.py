@@ -152,9 +152,9 @@ def _emulated_kernel_rounding(q, k, v, dout, lse, dvec, dtype, causal, mask):
 
 def _bound_ratio(got, want, term, dtype, u=None):
     """max |got - want| / (u * term + L * 2^-24 * max|want| + rtol * |want|),
-    u the dtype's ``BWD_UNIT_ROUNDOFF`` unless given."""
+    u the dtype's ``UNIT_ROUNDOFF`` unless given."""
     want = want.double()
-    u = fa.BWD_UNIT_ROUNDOFF[dtype] if u is None else u
+    u = fa.UNIT_ROUNDOFF[dtype] if u is None else u
     bound = (u * term.double()
              + L * 2.0 ** -24 * want.abs().max() + OUT_RTOL[dtype] * want.abs())
     err = (got.double() - want).abs()

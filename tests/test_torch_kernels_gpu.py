@@ -9,14 +9,19 @@ Tolerances: each kernel and its plain version compute in f32 and differ
 only in the order of f32 sums, so each output element agrees to one
 rounding step (ulp) of the output dtype:
 |out - ref| <= atol + rtol * |ref| with (rtol, atol) = bf16 (2^-7, 1e-5),
-fp16 (2^-10, 1e-6), f32 (1e-6, 1e-6); the f32 LSE to (1e-6, 1e-5).  The
-backward kernels' gradients take the same rtol and, for elements that
-cancel, atol = L * 2^-24 * max|ref| (two orders of a sum of L terms differ
-by at most about L * 2^-24 of the sum of |terms|); the bf16 and fp16
-kernels round p and dS to the input dtype before their second products
-(the plain versions keep them in f32), which adds u times
-``fa.bwd_rounding_terms`` per element, u = ``fa.BWD_UNIT_ROUNDOFF`` (2^-8
-bf16, 2^-11 fp16, 0 for the f32 FMA kernels).  Dvec: two orders of a sum
+fp16 (2^-10, 1e-6), f32 (1e-6, 1e-6); the f32 LSE to (1e-6, 1e-5).  That
+holds for the decode kernel and the f32 forward.  The bf16 and fp16
+forward kernel rounds p to the input dtype before O = p v (the plain
+version keeps it in f32), which adds u times ``fa.fwd_rounding_terms``
+and, for the order of the L-term f32 sums, L * 2^-24 * max|ref| per
+element, u = ``fa.UNIT_ROUNDOFF`` (2^-8 bf16, 2^-11 fp16).  The backward
+kernels' gradients take the same rtol and, for elements that cancel,
+atol = L * 2^-24 * max|ref| (two orders of a sum of L terms differ by at
+most about L * 2^-24 of the sum of |terms|); the bf16 and fp16 kernels
+round p and dS to the input dtype before their second products, which
+adds u times ``fa.bwd_rounding_terms`` per element (u = 0 for the f32
+FMA kernels).  A kernel fed the key mask shifted by one key must miss
+each bound.  Dvec: two orders of a sum
 of D f32 products, 2 * D * 2^-24 of the row's sum of |dO * O|.  Gradients
 through the autograd Function against autograd through dense attention,
 f32: (1e-5, 2e-5) — two formulas (softmax vs the saved LSE), f32 sums over
@@ -54,31 +59,52 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(b, l, h, d, dtype, device, seed, empty_row=False):
+def _inputs(b, l, h, d, dtype, device, seed, mask_kind="ragged"):
+    """q, k, v and the key mask: "ragged" lengths, "empty_row" (the last
+    row all masked) or "hole" (keys 64..127 masked in every row)."""
     gen = torch.Generator().manual_seed(seed)
     q, k, v = (torch.randn(b, l, h, d, generator=gen).to(device, dtype)
                for _ in range(3))
     lengths = torch.randint(1, l + 1, (b,), generator=gen)
     mask = (torch.arange(l)[None, :] < lengths[:, None]).to(torch.int32)
-    if empty_row:
+    if mask_kind == "empty_row":
         mask[-1] = 0
+    if mask_kind == "hole":
+        mask = torch.ones(b, l, dtype=torch.int32)
+        mask[:, 64:128] = 0
     return q, k, v, mask.to(device)
 
 
+def _within_fwd_bound(out, ref, term, dtype, l):
+    """f32: OUT_TOL; bf16 and fp16: |out - ref| <= u * term +
+    L * 2^-24 * max|ref| + rtol * |ref| + atol."""
+    if dtype == torch.float32:
+        return _within(out, ref, OUT_TOL[dtype])
+    ref = ref.double()
+    rtol, atol = OUT_TOL[dtype]
+    bound = (fa.UNIT_ROUNDOFF[dtype] * term.double()
+             + l * 2.0 ** -24 * ref.abs().max() + rtol * ref.abs() + atol)
+    return bool(((out.double() - ref).abs() <= bound).all())
+
+
 @pytest.mark.parametrize(
-    "b,l,h,d,dtype,causal,empty_row",
+    "b,l,h,d,dtype,causal,mask_kind",
     [
-        (32, 128, 12, 64, torch.bfloat16, False, False),   # BERT-base serving
-        (2, 200, 4, 64, torch.bfloat16, False, False),     # ragged L
-        (2, 200, 4, 32, torch.bfloat16, True, False),      # causal
-        (3, 128, 2, 64, torch.bfloat16, False, True),      # all-masked row
-        (2, 130, 3, 128, torch.float16, True, False),
-        (3, 96, 2, 16, torch.float32, False, False),
-        (1, 1, 1, 64, torch.float32, False, False),        # one token
+        (32, 128, 12, 64, torch.bfloat16, False, "ragged"),   # BERT-base serving
+        (256, 128, 12, 64, torch.bfloat16, False, "ragged"),  # BERT-base training
+        (2, 200, 4, 64, torch.bfloat16, False, "ragged"),     # ragged L
+        (2, 200, 4, 32, torch.bfloat16, True, "ragged"),      # causal
+        (3, 128, 2, 64, torch.bfloat16, False, "empty_row"),  # all-masked row
+        (2, 200, 4, 64, torch.bfloat16, False, "hole"),       # masked 64-key block
+        (2, 130, 3, 128, torch.float16, True, "ragged"),
+        (3, 96, 2, 16, torch.bfloat16, True, "ragged"),
+        (3, 96, 2, 16, torch.float32, False, "ragged"),
+        (1, 1, 1, 64, torch.float32, False, "ragged"),        # one token
+        (1, 1, 1, 64, torch.bfloat16, False, "ragged"),
     ],
 )
-def test_kernel_matches_plain_version(cuda, b, l, h, d, dtype, causal, empty_row):
-    q, k, v, mask = _inputs(b, l, h, d, dtype, cuda, seed=l + d, empty_row=empty_row)
+def test_kernel_matches_plain_version(cuda, b, l, h, d, dtype, causal, mask_kind):
+    q, k, v, mask = _inputs(b, l, h, d, dtype, cuda, seed=l + d, mask_kind=mask_kind)
     before = fa.launches
     out, lse = fa.flash_attention_forward(q, k, v, causal=causal, kv_mask=mask)
     torch.cuda.synchronize()
@@ -86,12 +112,18 @@ def test_kernel_matches_plain_version(cuda, b, l, h, d, dtype, causal, empty_row
     ref_out, ref_lse = fa.flash_attention_reference(
         q, k, v, causal=causal, kv_mask=mask
     )
+    term = fa.fwd_rounding_terms(q, k, v, causal=causal, kv_mask=mask)
     assert out.dtype == dtype and lse.shape == (b * h, l)
-    assert _within(out, ref_out, OUT_TOL[dtype])
+    assert _within_fwd_bound(out, ref_out, term, dtype, l)
     assert _within(lse, ref_lse, LSE_TOL)
-    if empty_row:
+    if mask_kind == "empty_row":
         assert out[-1].abs().max().item() == 0.0
         assert bool((lse.view(b, h, l)[-1] == fa.NEG_INF).all())
+    if l > 1:  # the mask shifted by one key must fail both checks
+        wrong_out, wrong_lse = fa.flash_attention_forward(
+            q, k, v, causal=causal, kv_mask=torch.roll(mask, 1, dims=1))
+        assert not _within_fwd_bound(wrong_out, ref_out, term, dtype, l)
+        assert not _within(wrong_lse, ref_lse, LSE_TOL)
 
 
 def test_kernel_reads_strided_inputs_and_no_mask(cuda):
@@ -100,8 +132,60 @@ def test_kernel_reads_strided_inputs_and_no_mask(cuda):
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     out, lse = fa.flash_attention_forward(q, k, v, causal=True)
     ref_out, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
-    assert _within(out, ref_out, OUT_TOL[torch.bfloat16])
+    term = fa.fwd_rounding_terms(q, k, v, causal=True)
+    assert _within_fwd_bound(out, ref_out, term, torch.bfloat16, 70)
     assert _within(lse, ref_lse, LSE_TOL)
+
+
+@pytest.mark.parametrize("dtype,d,causal", [(torch.bfloat16, 64, False),
+                                            (torch.float16, 128, True),
+                                            (torch.float32, 32, False)])
+def test_forward_kernel_repeats_bit_for_bit(cuda, dtype, d, causal):
+    q, k, v, mask = _inputs(8, 200, 4, d, dtype, cuda, seed=4)
+    runs = [fa.flash_attention_forward(q, k, v, causal=causal, kv_mask=mask)
+            for _ in range(3)]
+    for out, lse in runs[1:]:
+        assert torch.equal(out, runs[0][0]) and torch.equal(lse, runs[0][1])
+
+
+def test_forward_runs_the_fma_kernel_for_f32_and_the_tensor_cores_for_bf16(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, mask = _inputs(3, 96, 2, 32, torch.float32, cuda, seed=6)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, lse = fa.flash_attention_forward(q, k, v, kv_mask=mask)
+        fa.flash_attention_forward(*(t.to(torch.bfloat16) for t in (q, k, v)),
+                                   kv_mask=mask)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("flash_fwd_kernel<float" in n for n in names) == 1
+    assert sum("flash_fwd_mma_kernel<__nv_bfloat16" in n for n in names) == 1
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, kv_mask=mask)
+    assert _within(out, ref_out, OUT_TOL[torch.float32])
+    assert _within(lse, ref_lse, LSE_TOL)
+
+
+def test_forward_wrapper_raises_on_misaligned_16bit_rows(cuda):
+    gen = torch.Generator().manual_seed(0)
+    wide = torch.randn(2, 16, 2, 72, generator=gen).to(cuda, torch.bfloat16)
+    q = wide[..., 1:65]  # rows 2 bytes past a 16-byte boundary
+    good = wide[..., :64].contiguous()
+    before = fa.launches
+    for args in ((q, good, good), (good, q, good), (good, good, q)):
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention_forward(*args)
+    assert fa.launches == before
+
+
+def test_forward_kernel_info_reports_no_spills_at_head_dims_up_to_64(cuda):
+    for dtype in (torch.bfloat16, torch.float16):
+        for d in (16, 32, 64):
+            info = fa.fwd_kernel_info(dtype, d, 128)
+            assert info["local_bytes"] == 0, (dtype, d, info)
+            assert 0 < info["registers"] <= 128, (dtype, d, info)
+            # Q and two stages of K and V (64 rows each), the mask's bits.
+            assert info["shared_bytes"] == 5 * 64 * d * 2 + 4 * 4
 
 
 def test_wrapper_raises_on_cuda_for_what_the_kernel_does_not_take(cuda):
@@ -152,7 +236,7 @@ def _bwd_inputs(b, l, h, d, dtype, device, seed, mask_kind="ragged",
 def _within_bwd_bound(got, want, term, dtype, l):
     """|got - want| <= u * term + L * 2^-24 * max|want| + rtol * |want|."""
     want = want.double()
-    bound = (fa.BWD_UNIT_ROUNDOFF[dtype] * term.double()
+    bound = (fa.UNIT_ROUNDOFF[dtype] * term.double()
              + l * 2.0 ** -24 * want.abs().max() + OUT_TOL[dtype][0] * want.abs())
     return bool(((got.double() - want).abs() <= bound).all())
 

@@ -39,13 +39,14 @@ outputs and gradients have the input dtype and ``lse`` is f32 laid out
 ``BLOCK_K``) and ragged lengths are masked inside them, so there is no
 divisibility rule.
 
-The backward kernels for bf16 and fp16 run their products on the tensor
-cores and round ``p`` and ``dS`` to the input dtype before the second
-products (``dV = p^T dO``, ``dK = dS^T q``, ``dq = dS k``), as SDPA and
-dense bf16 attention do; their plain versions keep both in f32.
-:func:`bwd_rounding_terms` gives the per-element sums that bound the
-difference (see ``BWD_UNIT_ROUNDOFF``).  f32 runs on FMA kernels with
-every product in f32.
+The forward and backward kernels for bf16 and fp16 run their products on
+the tensor cores and round ``p`` (and, in the backward, ``dS``) to the
+input dtype before the second products (``O = p v``; ``dV = p^T dO``,
+``dK = dS^T q``, ``dq = dS k``), as SDPA and dense bf16 attention do;
+their plain versions keep both in f32.  :func:`fwd_rounding_terms` and
+:func:`bwd_rounding_terms` give the per-element sums that bound the
+difference (see ``UNIT_ROUNDOFF``).  f32 runs on FMA kernels with every
+product in f32.
 
 ``launches``, ``dq_launches``, ``dkv_launches``, ``dvec_launches`` and
 ``decode_launches`` count kernel launches (never plain-version calls), so a
@@ -75,6 +76,10 @@ _PROTOTYPES = {
         + [ctypes.c_int64] * 9
         + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
     ),
+    # (dtype, d, l, int[3] out) -> cudaError_t
+    "tpp_flash_fwd_kernel_info": (
+        ctypes.c_int, [ctypes.c_int] * 3 + [ctypes.c_int * 3],
+    ),
 }
 # tpp_flash_bwd_dq(q, k, v, dout, mask, lse, dvec, dq, dtype, b, l, h, d,
 #                  strides[12], causal, scale, stream) -> cudaError_t;
@@ -103,10 +108,10 @@ _BWD_PROTOTYPES = {
         ctypes.c_int, [ctypes.c_int] * 4 + [ctypes.c_int * 3],
     ),
 }
-# Unit roundoff of the dtype the backward kernels round p and dS to before
+# Unit roundoff of the dtype the 16-bit kernels round p (and dS) to before
 # their second products: bf16 (8 significant bits) 2^-8, fp16 (11) 2^-11;
 # the f32 kernels round neither.
-BWD_UNIT_ROUNDOFF = {
+UNIT_ROUNDOFF = {
     torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11, torch.float32: 0.0,
 }
 
@@ -186,8 +191,8 @@ def _check(q, k, v, kv_mask, block_q, block_k) -> None:
 
 def _aligned16(t: torch.Tensor) -> bool:
     """Every [.., head_dim] row of ``t`` (read with 16-byte loads by the
-    decode, Dvec and 16-bit backward kernels) starts on a 16-byte
-    boundary."""
+    decode, Dvec and 16-bit forward and backward kernels) starts on a
+    16-byte boundary."""
     item = t.element_size()
     return t.data_ptr() % 16 == 0 and all(
         (stride * item) % 16 == 0
@@ -229,8 +234,21 @@ def flash_attention_reference(
     math.
 
     Unblocked (one softmax over the whole row), which equals the kernel's
-    online recurrence up to the order of f32 sums."""
-    b, l, h, d = q.shape
+    online recurrence up to the order of f32 sums (and, for bf16 and fp16,
+    the kernel's rounding of p: :func:`fwd_rounding_terms`)."""
+    b, l, h, _ = q.shape
+    p, m, denom = _fwd_probs(q, k, causal, kv_mask)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+    out = out / denom.permute(0, 2, 1, 3)
+    lse = (m + torch.log(denom)).reshape(b * h, l)
+    return out.to(q.dtype), lse
+
+
+def _fwd_probs(q, k, causal, kv_mask):
+    """The forward's unnormalised ``p`` (f32 ``[b, h, lq, lk]``, 0 at
+    disallowed keys), the row max ``m`` and ``denom = max(sum p, 1e-30)``
+    (``[b, h, lq, 1]``)."""
+    b, l, _, d = q.shape
     s = torch.einsum(
         "bqhd,bkhd->bhqk", q.float() * d ** -0.5, k.float()
     )
@@ -239,10 +257,21 @@ def flash_attention_reference(
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(allowed, torch.exp(s - m), 0.0)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)    # [b, h, q, 1]
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
-    out = out / denom.permute(0, 2, 1, 3)
-    lse = (m + torch.log(denom)).reshape(b * h, l)
-    return out.to(q.dtype), lse
+    return p, m, denom
+
+
+def fwd_rounding_terms(q, k, v, *, causal=False, kv_mask=None):
+    """``sum_k (p_k / l) |v_k|``, f32 ``[b, l, h, d]``, from the plain
+    version's f32 normalised probabilities (0 on a row with no allowed
+    key).
+
+    The 16-bit forward kernel rounds each ``p`` to the input dtype
+    (relative error at most ``u = UNIT_ROUNDOFF[dtype]``) before
+    ``O = p v`` and sums ``l`` from the unrounded ``p``, so each output
+    element moves by at most ``u`` times its term from that rounding; the
+    order of f32 sums and the output's own rounding come on top."""
+    p, _, denom = _fwd_probs(q, k, causal, kv_mask)
+    return torch.einsum("bhqk,bkhd->bqhd", p / denom, v.float().abs())
 
 
 def _dvec(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -273,7 +302,7 @@ def bwd_rounding_terms(q, k, v, dout, lse, dvec, *, causal=False,
     ``[b, l, h, d]``, from the plain version's f32 ``p`` and ``dS``.
 
     The 16-bit backward kernels round each ``p`` and ``dS`` to the input
-    dtype (relative error at most ``u = BWD_UNIT_ROUNDOFF[dtype]``) before
+    dtype (relative error at most ``u = UNIT_ROUNDOFF[dtype]``) before
     ``dq = scale dS k``, ``dk = scale dS^T q`` and ``dv = p^T dO``, so each
     gradient element moves by at most ``u`` times its term from that
     rounding; the order of f32 sums and the output's own rounding come on
@@ -331,6 +360,8 @@ def _launch(q, k, v, kv_mask, causal) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
     from tpu_pipelines_torch.ops import _build
 
+    if q.dtype != torch.float32:  # the tensor-core kernel's cp.async copies
+        _require_aligned16("flash_attention", q=q, k=k, v=v)
     fn = _build.load("flash_attention", _PROTOTYPES).tpp_flash_fwd
     b, l, h, d = q.shape
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
@@ -494,6 +525,23 @@ def _launch_dvec(out, dout) -> torch.Tensor:
     with _launch_lock:
         dvec_launches += 1
     return dvec
+
+
+def fwd_kernel_info(dtype: torch.dtype, head_dim: int, length: int) -> dict:
+    """Registers and local memory (spill) bytes a thread of the CUDA
+    forward kernel takes for ``dtype`` and ``head_dim`` (the FMA kernel for
+    f32, the tensor-core kernel for bf16 and fp16), and its dynamic shared
+    memory at ``length``; builds the library if needed."""
+    from tpu_pipelines_torch.ops import _build
+
+    fn = _build.load("flash_attention", _PROTOTYPES).tpp_flash_fwd_kernel_info
+    info = (ctypes.c_int * 3)()
+    err = fn(_DTYPE_CODES[dtype], head_dim, length, info)
+    if err != 0:
+        raise RuntimeError(f"flash_attention: kernel info for flash_fwd failed "
+                           f"with cudaError {err}")
+    return {"registers": info[0], "local_bytes": info[1],
+            "shared_bytes": info[2]}
 
 
 def bwd_kernel_info(name: str, dtype: torch.dtype, head_dim: int,

@@ -346,6 +346,10 @@ class ModelServer:
                 retry_after_s: int = 0,
             ) -> None:
                 body = json.dumps(obj).encode("utf-8")
+                # Counted before the reply goes out: a client that scrapes
+                # /metrics after its reply must find its request counted.
+                if endpoint:
+                    server._m_requests.labels(endpoint, code).inc()
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(body)))
@@ -353,8 +357,6 @@ class ModelServer:
                     self.send_header("Retry-After", str(retry_after_s))
                 self.end_headers()
                 self.wfile.write(body)
-                if endpoint:
-                    server._m_requests.labels(endpoint, code).inc()
 
             def do_GET(self):
                 if self.path == "/metrics":
