@@ -9,19 +9,24 @@ Phases (any failure raises and the script exits non-zero):
   1. setup — print the card and its power limit, turn TF32 off, build the
      CUDA sources from ``tpu_pipelines_torch/csrc`` (one nvcc each, all
      started together) and print the build times;
-  2. kernels — print the forward and backward kernels' registers, spills
-     and shared memory per instantiation; hold each kernel against its
-     plain PyTorch version on the card at its main path's shapes and at
-     edge cases (ragged length, causal, an all-masked batch row, a masked
-     64-key block inside a row, fp16/f32, strided inputs, the decode
-     kernel's arena slices, L = 1 and a 4096-key cache), and time it beside
-     its plain version, the one-call PyTorch yardstick and its bound (the
-     forward at the serving and the training shapes, the backward kernels
-     and Dvec at the training shape, the decode kernel at the beam-served
-     and the long-cache shapes); the forward and backward kernels also
-     against a control (fed the mask shifted by one key) that must miss,
-     and repeated bit for bit; hold the attention's gradients against
-     autograd through dense attention in f32;
+  2. kernels — print the forward, backward and decode kernels' registers,
+     spills and shared memory per instantiation (the decode kernel's also
+     at each timed shape: its splits S, the cluster size and the clusters
+     the card holds at once); hold each kernel against its plain PyTorch
+     version on the card at its main path's shapes and at edge cases
+     (ragged length, causal, an all-masked batch row, a masked 64-key block
+     inside a row, fp16/f32, strided inputs, the decode kernel's arena
+     slices, int32, bool and batch-stride-0 bool masks, L = 1, split-KV
+     shapes with uneven spans, all-masked splits and clusters of 2 to 8,
+     and a 4096-key cache), and time it beside its plain version, the
+     one-call PyTorch yardstick and its bound (the forward at the serving
+     and the training shapes, the backward kernels and Dvec at the training
+     shape, the decode kernel at the beam-served, the long-cache (B=32 and
+     B=4, L=4096) and the long engine bucket's shapes); the forward and
+     backward kernels also against a control (fed the mask shifted by one
+     key) that must miss; every kernel repeated bit for bit; hold the
+     attention's gradients against autograd through dense attention in
+     f32;
   3. serving — export a BERT-base payload (full width, random weights from
      ``--seed``) with flash attention, serve it with ``ModelServer`` on the
      card with micro-batching, send concurrent REST ``:predict`` requests,
@@ -42,7 +47,20 @@ Phases (any failure raises and the script exits non-zero):
      budget, one kernel launch per layer per prefill and step, no bucket
      first run after warm(); report steps/s, tokens/s, occupancy and how
      many streams equal the isolated greedy decode;
-  6. training — fine-tune BERT-base (full width, bf16, dropout 0.1, random
+  6. engine_long — the engine over the same weights at a 2048-key cache
+     (kv buckets 256/512/1024/2048), 8 sequences with budgets of 1100-1400
+     tokens from threads, submitted LONG_STAGGER steps apart: every stream
+     ends, one kernel launch per layer per prefill and step, the 2048
+     bucket runs, no bucket first run after warm(); one step of the 2048
+     bucket (its deepest row past 1024 keys, the rows at ragged positions)
+     is replayed from a copy of its inputs with dense decode attention (its
+     logits within DECODE_LOGIT_TOL of the kernel's step), with each decode
+     call held against the plain version (within OUT_TOL), and under two
+     controls around the kernel (the validity one short; the split that
+     holds the current position lost), each of which must miss OUT_TOL at
+     the attention output (the split lost also DECODE_LOGIT_TOL at the
+     logits); report steps/s and tokens/s;
+  7. training — fine-tune BERT-base (full width, bf16, dropout 0.1, random
      init from ``--seed``) through ``train_loop`` at batch 256 x 128 with
      ragged lengths: every loss finite, each of the four attention kernels
      (forward, Dvec, dq, dk/dv) launched once per layer and step, the first step's q/k/v projection
@@ -51,7 +69,8 @@ Phases (any failure raises and the script exits non-zero):
      with dense attention (and two wrong-mask controls outside each);
      report examples/s/chip, MFU, peak memory and a profiled step.
 
-The last three lines are the ``kernels`` JSON record, the card's name and
+After the last phase it prints the whole script's seconds.  The last
+three lines are the ``kernels`` JSON record, the card's name and
 power limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
 {...}}``.  Without CUDA the script exits 2 before printing any result.
 """
@@ -75,7 +94,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpu_pipelines_torch.examples import bert_module
+from tpu_pipelines_torch.examples import bert_module, t5_module
 from tpu_pipelines_torch.models import t5 as t5m
 from tpu_pipelines_torch.models import transformer as tfm
 from tpu_pipelines_torch.models.bert import (
@@ -620,30 +639,73 @@ def training_shape_timing(q, k, v, dout, out, lse, dvec, mask):
     return records
 
 
-# (name, batch, cache len, heads, head_dim, dtype, validity, bias, arena)
-# for the decode kernel.  "served" is the beam-served step (4 rows x 4
-# beams, every row at one position, T5's broadcast bias), "engine" an engine
-# bucket (a [:b, :kv] slice of an arena, ragged positions, per-row bias),
-# "long_cache" the shape whose bound is the k/v bytes alone.  Validity:
-# "pos" keys <= L/2 in every row, "ragged" keys <= a random position per
-# row, "empty_row" ragged with row 1 all masked, "full" every key.
+# (name, batch, cache len, heads, head_dim, dtype, validity, bias, arena,
+# mask) for the decode kernel.  "served" is the beam-served step (4 rows x 4
+# beams, every row at one position, T5's broadcast bias, the expanded bool
+# mask of a scalar position), "engine" an engine bucket (a [:b, :kv] slice
+# of an arena, ragged positions, per-row bias, a bool mask), "long_cache"
+# the shape whose bound is the k/v bytes alone, "long_cache_b4" a one-row
+# beam request at that cache, "engine_long" the long-cache engine run's
+# 2048 bucket.  Validity: "pos" keys <= L/2 in every row, "ragged" keys <=
+# a random position per row, "ragged_1500" the same with positions < 1500,
+# "eighth" positions < L/8 (every split past the first holds no allowed
+# key), "hole" ragged with keys 300..699 masked, "empty_row" ragged with
+# row 1 all masked, "full" every key.  Mask: "int32", "bool", or
+# "bool_expanded" (one bool row expanded over the batch, batch stride 0;
+# needs "pos" or "full" validity).  The kernel takes S =
+# fa.decode_splits(B, H, L, SMs) CTAs per (batch, head): the split_* cases
+# cover uneven spans with L not a multiple of 64, masked splits, an empty
+# row across splits, clusters of 3 and 7, f32 and D=128 (on an H100 SXM's
+# 132 SMs "long_cache" runs 2, "engine_long" 5, "long_cache_b4" 8);
+# "chunks" (S = 1, L = 4500) walks
+# three 2048-key mask chunks; the cases with L <= 256 (4 blocks) run S = 1
+# without a cluster.
 DECODE_CASES = [
-    ("served", 16, 128, 8, 64, torch.bfloat16, "pos", "broadcast", False),
-    ("engine", 8, 64, 8, 64, torch.bfloat16, "ragged", "per_row", True),
-    ("len_1", 4, 1, 8, 64, torch.bfloat16, "pos", "broadcast", False),
-    ("len_100", 4, 100, 8, 64, torch.bfloat16, "ragged", "per_row", False),
-    ("empty_row", 4, 128, 8, 64, torch.bfloat16, "empty_row", "per_row", False),
-    ("no_bias", 4, 128, 8, 64, torch.bfloat16, "ragged", "none", False),
-    ("fp16", 4, 100, 8, 64, torch.float16, "ragged", "per_row", True),
-    ("f32", 4, 100, 8, 64, torch.float32, "ragged", "broadcast", False),
-    ("d16", 4, 100, 8, 16, torch.bfloat16, "ragged", "per_row", False),
-    ("d32", 4, 100, 8, 32, torch.bfloat16, "ragged", "broadcast", False),
-    ("d128", 4, 100, 8, 128, torch.bfloat16, "ragged", "per_row", True),
-    ("long_cache", 32, 4096, 8, 64, torch.bfloat16, "full", "broadcast", False),
+    ("served", 16, 128, 8, 64, torch.bfloat16, "pos", "broadcast", False,
+     "bool_expanded"),
+    ("engine", 8, 64, 8, 64, torch.bfloat16, "ragged", "per_row", True, "bool"),
+    ("len_1", 4, 1, 8, 64, torch.bfloat16, "pos", "broadcast", False, "int32"),
+    ("len_100", 4, 100, 8, 64, torch.bfloat16, "ragged", "per_row", False,
+     "int32"),
+    ("empty_row", 4, 128, 8, 64, torch.bfloat16, "empty_row", "per_row", False,
+     "int32"),
+    ("no_bias", 4, 128, 8, 64, torch.bfloat16, "ragged", "none", False, "int32"),
+    ("fp16", 4, 100, 8, 64, torch.float16, "ragged", "per_row", True, "int32"),
+    ("f32", 4, 100, 8, 64, torch.float32, "ragged", "broadcast", False, "int32"),
+    ("d16", 4, 100, 8, 16, torch.bfloat16, "ragged", "per_row", False, "int32"),
+    ("d32", 4, 100, 8, 32, torch.bfloat16, "ragged", "broadcast", False, "bool"),
+    ("d128", 4, 100, 8, 128, torch.bfloat16, "ragged", "per_row", True, "int32"),
+    ("split_ragged_len", 4, 1100, 8, 64, torch.bfloat16, "ragged", "per_row",
+     False, "int32"),
+    ("split_masked", 4, 2048, 8, 64, torch.bfloat16, "eighth", "broadcast",
+     False, "bool"),
+    ("split_empty_row", 4, 2048, 8, 64, torch.bfloat16, "empty_row", "per_row",
+     False, "int32"),
+    ("split_hole", 4, 1100, 8, 64, torch.bfloat16, "hole", "per_row", True,
+     "bool"),
+    ("split_bool_expanded", 4, 1000, 8, 64, torch.bfloat16, "pos", "broadcast",
+     False, "bool_expanded"),
+    ("split_f32", 4, 1100, 8, 64, torch.float32, "ragged", "per_row", True,
+     "int32"),
+    ("split_d128", 4, 2048, 8, 128, torch.bfloat16, "ragged", "per_row", True,
+     "bool"),
+    ("split_s3", 11, 1000, 8, 64, torch.bfloat16, "ragged", "broadcast", False,
+     "int32"),
+    ("split_s7", 5, 1000, 8, 64, torch.float16, "ragged", "per_row", False,
+     "bool"),
+    ("chunks", 34, 4500, 8, 64, torch.bfloat16, "ragged", "per_row", False,
+     "int32"),
+    ("long_cache", 32, 4096, 8, 64, torch.bfloat16, "full", "broadcast", False,
+     "int32"),
+    ("long_cache_b4", 4, 4096, 8, 64, torch.bfloat16, "full", "broadcast",
+     False, "bool_expanded"),
+    ("engine_long", 8, 2048, 8, 64, torch.bfloat16, "ragged_1500", "per_row",
+     True, "bool"),
 ]
+DECODE_TIMED = ("served", "long_cache", "long_cache_b4", "engine_long")
 
 
-def decode_inputs(gen, b, l, h, d, dtype, validity, bias_kind, arena):
+def decode_inputs(gen, b, l, h, d, dtype, validity, bias_kind, arena, mask_kind):
     dev = "cuda"
     q = torch.randn(b, 1, h, d, generator=gen).to(dev, dtype)
     if arena:  # [:b, :l] slices of a larger [B, L, 2, H, D] cache
@@ -656,46 +718,97 @@ def decode_inputs(gen, b, l, h, d, dtype, validity, bias_kind, arena):
         pos = torch.full((b,), l - 1)
     elif validity == "pos":
         pos = torch.full((b,), l // 2)
+    elif validity == "eighth":
+        pos = torch.randint(0, l // 8, (b,), generator=gen)
+    elif validity == "ragged_1500":
+        pos = torch.randint(0, 1500, (b,), generator=gen)
     else:
         pos = torch.randint(0, l, (b,), generator=gen)
     mask = torch.arange(l)[None, :] <= pos[:, None]
     if validity == "empty_row":
         mask[1] = False
+    if validity == "hole":
+        mask[:, 300:700] = False
     bias = None
     if bias_kind != "none":
         rows = 1 if bias_kind == "broadcast" else b
         bias = torch.randn(rows, h, 1, l, generator=gen).to(dev)
-    return q, k, v, mask.to(dev, torch.int32), bias
+    if mask_kind == "bool_expanded":
+        assert validity in ("pos", "full")   # every row the same
+        return q, k, v, mask[:1].to(dev).expand(b, l), bias
+    return q, k, v, mask.to(dev, torch.int32 if mask_kind == "int32"
+                            else torch.bool), bias
+
+
+def decode_resources(shapes):
+    """The decode kernel's registers, spills, shared memory and CTAs per SM
+    per instantiation, and at each timed shape its splits S (the cluster
+    size) and how many such clusters the card runs at once."""
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        cells = []
+        for d in fa.HEAD_DIMS:
+            info = fa.decode_kernel_info(dtype, d, 1)
+            cells.append(f"D={d} {info['registers']} regs / "
+                         f"{info['local_bytes']} B spill / "
+                         f"{info['shared_bytes']} B smem / "
+                         f"{info['ctas_per_sm']} CTAs per SM")
+        print(f"kernel flash_decode resources {str(dtype).replace('torch.', '')}: "
+              + "; ".join(cells), flush=True)
+    out = {}
+    for name, (b, l, h, d, dtype) in shapes.items():
+        splits = fa.decode_splits(b, h, l, fa.sm_count("cuda"))
+        info = fa.decode_kernel_info(dtype, d, splits)
+        print(f"kernel flash_decode resources {name} (B={b} L={l} H={h} D={d}): "
+              f"S={splits}, cluster size {splits}, {splits * b * h} CTAs, "
+              f"{info['registers']} registers, {info['local_bytes']} B spill, "
+              f"{info['shared_bytes']} B shared memory, at most "
+              f"{info['max_active_clusters']} clusters at once", flush=True)
+        out[name] = {"splits": splits, "registers": info["registers"],
+                     "spill_bytes": info["local_bytes"],
+                     "shared_bytes": info["shared_bytes"],
+                     "max_active_clusters": info["max_active_clusters"]}
+    return out
 
 
 def decode_kernel_phase(gen):
-    """Every decode case within one output ulp of the plain version; returns
-    the flash_decode record (without launches), timed at the served and the
-    long-cache shapes."""
+    """Every decode case within one output ulp of the plain version and
+    repeated bit for bit; returns the flash_decode record (without
+    launches), timed at the DECODE_TIMED shapes."""
     max_err = 0.0
     timings = {}
-    for name, b, l, h, d, dtype, validity, bias_kind, arena in DECODE_CASES:
+    for (name, b, l, h, d, dtype, validity, bias_kind, arena,
+         mask_kind) in DECODE_CASES:
         q, k, v, mask, bias = decode_inputs(gen, b, l, h, d, dtype, validity,
-                                            bias_kind, arena)
+                                            bias_kind, arena, mask_kind)
         out = fa.flash_decode_attention(q, k, v, kv_mask=mask, bias=bias)
+        again = fa.flash_decode_attention(q, k, v, kv_mask=mask, bias=bias)
         torch.cuda.synchronize()
         ref = fa.flash_decode_attention_reference(q, k, v, kv_mask=mask,
                                                   bias=bias)
         err = (out.float() - ref.float()).abs().max().item()
         ratio = tol_ratio(out, ref, OUT_TOL[dtype])
         ok = torch.isfinite(out.float()).all().item() and ratio <= 1.0
+        repeats = torch.equal(out, again)
         if validity == "empty_row":
             ok = ok and out[1].abs().max().item() == 0.0
         print(f"kernel flash_decode {name}: B={b} L={l} H={h} D={d} {dtype} "
-              f"validity={validity} bias={bias_kind} arena={arena} "
+              f"S={fa.decode_splits(b, h, l, fa.sm_count('cuda'))} "
+              f"validity={validity} "
+              f"bias={bias_kind} arena={arena} mask={mask_kind} "
               f"max|out-ref|={err:.3e} ({ratio:.3f} of tol "
-              f"{OUT_TOL[dtype][1]:g} + {OUT_TOL[dtype][0]:g}*|ref|)", flush=True)
-        if not ok:
+              f"{OUT_TOL[dtype][1]:g} + {OUT_TOL[dtype][0]:g}*|ref|); repeat "
+              f"bit for bit {repeats}", flush=True)
+        if not ok or not repeats:
             raise AssertionError(f"flash_decode {name}: kernel disagrees with "
-                                 "its plain version")
+                                 "its plain version or with itself")
         max_err = max(max_err, err)
-        if name in ("served", "long_cache"):
+        if name in DECODE_TIMED:
             timings[name] = decode_timing(name, q, k, v, mask, bias)
+    resources = decode_resources({
+        name: (b, l, h, d, dtype) for (name, b, l, h, d, dtype, *_)
+        in DECODE_CASES if name in DECODE_TIMED})
+    for name, res in resources.items():
+        timings[name].update(res)
     return {
         "name": "flash_decode",
         "route": "cuda",
@@ -703,7 +816,7 @@ def decode_kernel_phase(gen):
         "replaces": "tpu_pipelines/ops/flash_attention.py:325",
         "tpu_kernel": "_decode_kernel",
         **timings["served"],
-        "long_cache": timings["long_cache"],
+        **{name: timings[name] for name in DECODE_TIMED if name != "served"},
         "max_abs_err": max_err,
     }
 
@@ -712,30 +825,44 @@ def decode_timing(name, q, k, v, mask, bias):
     b, l, h, d = k.shape
     item = q.element_size()
     iters = 200 if l <= 1024 else 50
-    ms = time_ms(lambda: fa.flash_decode_attention(q, k, v, kv_mask=mask,
-                                                   bias=bias), iters=iters)
-    plain_ms = time_ms(lambda: fa.flash_decode_attention_reference(
-        q, k, v, kv_mask=mask, bias=bias), iters=20, warmup=3)
     # Yardstick only: SDPA with the bias and the validity folded into one
     # float mask, built outside the timed region (no row here is empty).
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     float_mask = torch.where((mask > 0)[:, None, None, :],
                              bias.expand(b, h, 1, l), float("-inf"))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=float_mask), iters=iters)
+    # Kernel and SDPA in turns, twice, each keeping its faster run: the
+    # card idles while the inputs are made on the host, and the first
+    # timing after an idle gap runs at lower clocks.
+    runs = {"kernel": [], "sdpa": []}
+    for _ in range(2):
+        runs["kernel"].append(time_ms(lambda: fa.flash_decode_attention(
+            q, k, v, kv_mask=mask, bias=bias), iters=iters))
+        runs["sdpa"].append(time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=float_mask), iters=iters))
+    ms, library_ms = min(runs["kernel"]), min(runs["sdpa"])
+    plain_ms = time_ms(lambda: fa.flash_decode_attention_reference(
+        q, k, v, kv_mask=mask, bias=bias), iters=20, warmup=3)
     # Least time for the same work: q read and out written once, k and v
-    # read at the allowed keys only, the [B, L] int32 mask and the f32 bias
-    # read once; about 4*D operations per (head, allowed key).
-    allowed = int((mask > 0).sum().item())
+    # read at the allowed keys only, the [B, L] mask (at its own element
+    # size, once: an expanded mask is one row), the f32 bias at the allowed
+    # keys only (a broadcast bias once for each key that any row allows);
+    # about 4*D operations per (head, allowed key).
+    allowed_keys = mask > 0
+    allowed = int(allowed_keys.sum().item())
+    mask_bytes = (mask.numel() if mask.stride(0) else l) * mask.element_size()
+    bias_keys = (int(allowed_keys.any(dim=0).sum().item())
+                 if bias.shape[0] == 1 else allowed)
     bytes_moved = (2 * q.numel() * item + 2 * allowed * h * d * item
-                   + mask.numel() * 4 + bias.numel() * 4)
+                   + mask_bytes + bias_keys * h * 4)
     ops = 4 * d * h * allowed
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[q.dtype]
     bound_ms = max(t_bytes, t_ops) * 1e3
-    print(f"kernel flash_decode {name} shape: {ms:.4f} ms (plain {plain_ms:.4f} "
-          f"ms, sdpa {library_ms:.4f} ms); bound {bound_ms:.4f} ms "
-          f"({bytes_moved} bytes, {ops} ops)", flush=True)
+    print(f"kernel flash_decode {name} shape [{card_line()}]: {ms:.4f} ms "
+          f"(plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; in turns "
+          f"kernel {runs['kernel'][0]:.4f} / {runs['kernel'][1]:.4f}, sdpa "
+          f"{runs['sdpa'][0]:.4f} / {runs['sdpa'][1]:.4f}); bound "
+          f"{bound_ms:.4f} ms ({bytes_moved} bytes, {ops} ops)", flush=True)
     return {
         "shape": f"B={b} L={l} H={h} D={d} {str(q.dtype).replace('torch.', '')}",
         "ms": ms,
@@ -1540,6 +1667,200 @@ def engine_phase(loaded, seed, card):
     return launches
 
 
+# The long-cache engine run: T5-small's decode contract at a 2048-key cache
+# (kv buckets 256/512/1024/2048), 8 sequences with budgets past 1024
+# tokens, so the decode kernel runs with up to S = 8 splits per (row, head)
+# and the last bucket reads more than 1024 keys per row.  Sequence i is
+# submitted once the engine has run i * LONG_STAGGER steps, so the rows'
+# positions are ragged (about 48 keys apart, across a split boundary at
+# the 2048 bucket).
+LONG_DECODE_LEN = 2048
+LONG_PAGE = 256
+N_LONG_SEQS = 8
+LONG_BUDGETS = (1100, 1400)
+LONG_STAGGER = 48
+
+
+def split_lost(q, k, v, *, kv_mask, bias=None, block_k=None):
+    """Control: the kernel loses the keys of the split that holds each
+    row's current position (a merge that drops a rank)."""
+    b, l, h, _ = k.shape
+    ranges = fa.decode_split_ranges(
+        l, fa.decode_splits(b, h, l, fa.sm_count(q.device)))
+    short = kv_mask.clone()
+    for row, last in enumerate((short.to(torch.int32).sum(dim=1) - 1).tolist()):
+        lo, hi = next(r for r in ranges if r[0] <= last < r[1])
+        short[row, lo:hi] = False
+    return fa.flash_decode_attention(q, k, v, kv_mask=short, bias=bias,
+                                     block_k=block_k)
+
+
+def dense_decode(q, k, v, *, kv_mask, bias=None, block_k=None):
+    """The decoder's dense decode attention, in the kernel's place."""
+    return dense_attention(q, k, v, kv_mask=kv_mask, bias=bias)
+
+
+def held(inner, ratios):
+    """``inner`` (the kernel or a control around it) in the kernel's place,
+    each call's output held against the plain version on the decoder's own
+    inputs: ``ratios`` gets each call's max |out - ref| / OUT_TOL."""
+    def wrapper(q, k, v, *, kv_mask, bias=None, block_k=None):
+        out = inner(q, k, v, kv_mask=kv_mask, bias=bias, block_k=block_k)
+        ref = fa.flash_decode_attention_reference(q, k, v, kv_mask=kv_mask,
+                                                  bias=bias)
+        ratios.append(tol_ratio(out, ref, OUT_TOL[q.dtype]))
+        return out
+    return wrapper
+
+
+def engine_long_phase(loaded, seed, card):
+    """The engine over the payload's weights at a 2048-key cache: 8
+    sequences with budgets of 1100-1400 tokens from threads.  Every stream
+    ends, launches = layers x (prefills + steps), the 2048 bucket runs, no
+    bucket first runs after warm(); one step of the 2048 bucket whose
+    deepest row is past 1024 keys (the rows at ragged positions) is
+    replayed from a copy of its inputs with dense decode attention (its
+    logits within DECODE_LOGIT_TOL of the kernel's), with the kernel held
+    call by call against its plain version (within OUT_TOL), and under two
+    controls that must miss OUT_TOL.  Returns the flash_decode launches of
+    the traffic."""
+    hp = loaded.spec["hyperparameters"]
+    fns = t5_module.make_decode_fns(loaded.model,
+                                    {**hp, "max_decode_len": LONG_DECODE_LEN})
+    run_step = fns.step
+    captured = {}
+
+    def step(params, cache, tok, pos, encoded, enc_mask, klen):
+        # The first traffic step of the last bucket (its deepest row is past
+        # 1024 keys, or a smaller bucket would do): copy its inputs before it
+        # writes this step's K/V into the arena.
+        if (captured.get("armed") and "inputs" not in captured
+                and klen == LONG_DECODE_LEN):
+            captured["inputs"] = ({n: c.clone() for n, c in cache.items()},
+                                  tok.clone(), pos.clone(), encoded.clone(),
+                                  enc_mask.clone())
+            new, logits = run_step(params, cache, tok, pos, encoded, enc_mask,
+                                   klen)
+            captured["flash"] = logits.float().clone()
+            return new, logits
+        return run_step(params, cache, tok, pos, encoded, enc_mask, klen)
+
+    fns.step = step
+    rng = np.random.default_rng(seed + 5)
+    vocab = loaded.model.shared.num_embeddings
+    prompts = [rng.integers(4, vocab, size=int(rng.integers(8, MAX_INPUT_LEN + 1)))
+               for _ in range(N_LONG_SEQS)]
+    budgets = [int(m) for m in rng.integers(LONG_BUDGETS[0], LONG_BUDGETS[1] + 1,
+                                            size=N_LONG_SEQS)]
+    engine = GenerativeEngine(fns, loaded.params, device="cuda",
+                              max_batch_size=8, page_size=LONG_PAGE)
+    try:
+        engine.warm()
+        captured["armed"] = True
+        fa.decode_launches = 0
+        t0 = time.perf_counter()
+
+        def submit(i):
+            while engine.steps_run < i * LONG_STAGGER:
+                time.sleep(0.001)
+            return engine.submit(prompts[i], max_new_tokens=budgets[i],
+                                 timeout_s=600)
+
+        with ThreadPoolExecutor(N_LONG_SEQS) as pool:
+            streams = list(pool.map(submit, range(N_LONG_SEQS)))
+        wall_s = time.perf_counter() - t0
+        launches = fa.decode_launches
+        steps, prefills = engine.steps_run, engine.prefills_run
+        compiles = engine.compiles_after_warm
+        occupancy = engine.live_rows_total / max(1, engine.bucket_rows_total)
+        buckets = sorted(engine._buckets_run)
+        kv_buckets = engine.kv_buckets
+    finally:
+        engine.close()
+
+    ended = all(
+        (len(s) == m and EOS_ID not in s[:-1])
+        or (len(s) <= m and s[-1] == EOS_ID and EOS_ID not in s[:-1])
+        for s, m in zip((list(x) for x in streams), budgets))
+    n_tokens = sum(len(s) for s in streams)
+    if "inputs" not in captured:
+        raise AssertionError("no traffic step ran the 2048-key bucket")
+    cache, tok, pos, encoded, enc_mask = captured["inputs"]
+    b = tok.shape[0]
+
+    def replay(wrapper):
+        with kernel_as(wrapper), torch.inference_mode():
+            _, logits = run_step(loaded.params,
+                                 {n: c.clone() for n, c in cache.items()}, tok,
+                                 pos, encoded, enc_mask, LONG_DECODE_LEN)
+        return logits.float()
+
+    dense = replay(dense_decode)
+    sound = (captured["flash"] - dense).abs().max().item()
+    ratios = {name: [] for name in ("kernel", "validity one short",
+                                    "split lost")}
+    replay(held(fa.flash_decode_attention, ratios["kernel"]))
+    controls = {name: (replay(held(wrapper, ratios[name])) - dense)
+                .abs().max().item()
+                for name, wrapper in (("validity one short", validity_one_short),
+                                      ("split lost", split_lost))}
+    worst = {name: max(r) for name, r in ratios.items()}
+    print(f"engine_long [{card}]: GenerativeEngine, max_batch_size 8, "
+          f"max_decode_len {LONG_DECODE_LEN}, page_size {LONG_PAGE} (kv buckets "
+          f"{kv_buckets}), {N_LONG_SEQS} sequences (budgets {min(budgets)}.."
+          f"{max(budgets)}) from {N_LONG_SEQS} threads: {prefills} prefills, "
+          f"{steps} steps in {wall_s:.2f} s; {steps / wall_s:.1f} steps/s, "
+          f"{n_tokens / wall_s:.1f} tokens/s, mean occupancy {occupancy:.3f}; "
+          f"buckets run {buckets}; compiles after warm {compiles}", flush=True)
+    splits = fa.decode_splits(b, int(hp["n_heads"]), LONG_DECODE_LEN,
+                              fa.sm_count("cuda"))
+    print(f"engine_long: flash_decode launches {launches} = {T5_LAYERS} x "
+          f"({prefills} prefills + {steps} steps) expected; splits at the "
+          f"{LONG_DECODE_LEN} bucket S={splits}", flush=True)
+    print(f"engine_long: replayed step at positions {pos.tolist()} (batch {b}, "
+          f"kv {LONG_DECODE_LEN}): max |flash - dense| logit = {sound:.3e} (tol "
+          f"{DECODE_LOGIT_TOL:g})", flush=True)
+    print(f"engine_long: replayed step, each of its {len(ratios['kernel'])} "
+          f"decode calls held against the plain version: worst "
+          f"{worst['kernel']:.3f} of OUT_TOL (at most 1)", flush=True)
+    for name, gap in controls.items():
+        must = "must exceed" if name == "split lost" else "reported"
+        print(f"engine_long control, {name}: worst {worst[name]:.3f} of "
+              f"OUT_TOL at the attention output (must exceed 1); max "
+              f"|control - dense| logit = {gap:.3e} ({must} tol "
+              f"{DECODE_LOGIT_TOL:g})", flush=True)
+    if not ended:
+        raise AssertionError("a long-cache stream did not end at EOS or its "
+                             "budget")
+    if prefills != N_LONG_SEQS or launches != T5_LAYERS * (prefills + steps):
+        raise AssertionError(f"long-cache engine launched flash_decode "
+                             f"{launches} times for {prefills} prefills and "
+                             f"{steps} steps")
+    if not any(kv == LONG_DECODE_LEN for _, kv in buckets):
+        raise AssertionError(f"the {LONG_DECODE_LEN}-key bucket never ran")
+    if compiles != 0:
+        raise AssertionError(f"{compiles} long-cache buckets first ran after "
+                             "warm()")
+    if len(set(pos.tolist())) < 2:
+        raise AssertionError("the replayed long-cache step has no ragged "
+                             "positions")
+    if worst["kernel"] > 1.0:
+        raise AssertionError("the kernel disagrees with its plain version in "
+                             "the replayed long-cache step")
+    if sound > DECODE_LOGIT_TOL:
+        raise AssertionError("long-cache flash-decoded logits disagree with "
+                             "dense")
+    for name in ("validity one short", "split lost"):
+        if worst[name] <= 1.0:
+            raise AssertionError(f"the {name} control stays within OUT_TOL: "
+                                 "the long-cache check cannot tell it")
+    if controls["split lost"] <= DECODE_LOGIT_TOL:
+        raise AssertionError("the split-lost control stays within "
+                             "DECODE_LOGIT_TOL: the long-cache check cannot "
+                             "tell a faulty merge")
+    return launches
+
+
 def build_kernels():
     """Build every CUDA source, one nvcc each, all started together."""
     seconds, errors = {}, {}
@@ -1587,6 +1908,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     clock = [time.perf_counter()]
+    started = clock[0]
 
     def phase_done(name):
         now = time.perf_counter()
@@ -1608,17 +1930,22 @@ def main(argv=None) -> int:
                                                card, workdir)
         phase_done("generate")
     engine = engine_phase(t5_payload, args.seed, card)
-    del t5_payload
     phase_done("engine")
+    engine_long = engine_long_phase(t5_payload, args.seed, card)
+    del t5_payload
+    phase_done("engine_long")
     trained = training_phase(args.seed, args.train_steps, card)
     phase_done("training")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s",
+          flush=True)
     # launches: each kernel's count in its own paths' runs: training for the
     # four flash-attention kernels (Dvec's count on the dq record) (the serving path's flash_fwd count
-    # stands beside it), :generate plus the engine for flash_decode.
+    # stands beside it), :generate plus both engine runs for flash_decode.
     fwd["launches_by_path"] = {"serving": served,
                                "training": trained["flash_fwd"]}
-    decode["launches_by_path"] = {"serving": generated, "engine": engine}
-    trained["flash_decode"] = generated + engine
+    decode["launches_by_path"] = {"serving": generated, "engine": engine,
+                                  "engine_long": engine_long}
+    trained["flash_decode"] = generated + engine + engine_long
     records = [fwd, *bwd, decode]
     bwd[0]["dvec_launches"] = trained["flash_bwd_dvec"]
     for record in records:

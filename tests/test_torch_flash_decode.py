@@ -12,6 +12,12 @@ bf16 inputs one bf16 ulp, |got - want| <= 2^-7 |want| + 1e-5 (both sides
 compute in f32 from the same bf16 values and round once to bf16, so they
 part by at most one rounding step).  A row whose keys are all masked is 0
 on both sides, exactly.
+
+The CUDA kernel splits each row's keys across the CTAs of a cluster
+(``fa.decode_splits``, ``fa.decode_split_ranges``) and merges the splits'
+partial (m, l, acc) in rank order; ``_split_merge`` below emulates that in
+f32 torch, and is held to the same f32 tolerance against the plain version
+and the Pallas kernel at split boundaries.
 """
 
 import jax.numpy as jnp
@@ -26,6 +32,9 @@ from tpu_pipelines.ops.flash_attention import (
 from tpu_pipelines_torch.ops import flash_attention as fa
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
+# SMs of the card the split rule plans for: an H100 SXM's 132 unless a case
+# names another (an H100 PCIe has 114).
+SMS = 132
 BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
 
 
@@ -204,3 +213,147 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case, error):
         v = torch.zeros(b, 0, h, d)
     with pytest.raises(error):
         fa.flash_decode_attention(q, k, v, **kw)
+
+
+# ------------------------------------------------------------ split-KV rule
+
+@pytest.mark.parametrize(
+    "b, h, l, sms, want",
+    [
+        (32, 8, 4096, SMS, 2),    # long cache: 512 CTAs
+        (4, 8, 4096, SMS, 8),     # one-row beam request: capped at 8
+        (8, 8, 2048, SMS, 5),     # engine's long bucket
+        (8, 8, 512, SMS, 4),      # 8 blocks: at least 2 a split
+        (1, 1, 320, SMS, 2),      # 5 blocks
+        (16, 8, 128, SMS, 1),     # served beam step: 2 blocks, not split
+        (8, 8, 256, SMS, 1),      # 4 blocks, not split
+        (64, 8, 4096, SMS, 1),    # B*H alone fills the card
+        (1, 1, 64, SMS, 1),       # one block
+        (4, 8, 1, SMS, 1),        # L = 1
+        (1, 1, 100000, SMS, 8),
+        (8, 8, 2048, 114, 4),     # fewer SMs, fewer splits
+        (32, 8, 4096, 114, 1),    # 256 CTAs fill 114 SMs twice
+    ],
+)
+def test_decode_splits_rule(b, h, l, sms, want):
+    s = fa.decode_splits(b, h, l, sms)
+    assert s == want
+    blocks = -(-l // fa.DECODE_BLOCK_K)
+    assert 1 <= s <= fa.DECODE_MAX_SPLITS
+    if blocks <= fa.DECODE_UNSPLIT_BLOCKS:
+        assert s == 1
+    else:
+        assert s <= blocks // fa.DECODE_SPLIT_BLOCKS
+        # Enough CTAs to fill the card unless a cap binds.
+        if s < min(fa.DECODE_MAX_SPLITS, blocks // fa.DECODE_SPLIT_BLOCKS):
+            assert s * b * h >= fa.DECODE_CTAS_PER_SM * sms
+
+
+@pytest.mark.parametrize("l", [1, 63, 64, 65, 128, 1000, 1088, 2048, 4096])
+def test_decode_splits_take_whole_blocks(l):
+    for b, h in [(1, 1), (4, 8), (32, 8), (300, 8)]:
+        s = fa.decode_splits(b, h, l, SMS)
+        if l <= fa.DECODE_BLOCK_K:
+            assert s == 1
+        ranges = fa.decode_split_ranges(l, s)
+        assert len(ranges) == s and ranges[0][0] == 0 and ranges[-1][1] == l
+        for (lo, hi), (nxt, _) in zip(ranges, ranges[1:] + [(l, l)]):
+            assert lo % fa.DECODE_BLOCK_K == 0 and hi == nxt
+            assert hi == l or hi % fa.DECODE_BLOCK_K == 0
+            # At least DECODE_SPLIT_BLOCKS whole blocks (the last may be cut
+            # at l) when split.
+            if s > 1:
+                assert hi - lo > (fa.DECODE_SPLIT_BLOCKS - 1) * fa.DECODE_BLOCK_K
+
+
+def _split_merge(q, k, v, mask, bias):
+    """f32 emulation of the kernel's split-and-merge: each split's partial
+    (m, l, acc) over its own keys, then the partials merged in rank order
+    by the max/denominator rule; out = acc / max(l, 1e-30).  Returns (out,
+    the partials)."""
+    b, l, h, d = k.shape
+    qs = q[:, 0].float() * d ** -0.5                        # [b, h, d]
+    allowed_all = (mask > 0) if mask is not None else torch.ones(b, l, dtype=torch.bool)
+    partials = []
+    for lo, hi in fa.decode_split_ranges(l, fa.decode_splits(b, h, l, SMS)):
+        s = torch.einsum("bhd,bkhd->bhk", qs, k[:, lo:hi].float())
+        if bias is not None:
+            s = s + bias[:, :, 0, lo:hi].float()
+        allowed = allowed_all[:, None, lo:hi].expand_as(s)
+        m = torch.where(allowed, s, fa.NEG_INF).amax(dim=-1)    # [b, h]
+        p = torch.where(allowed, torch.exp(s - m[..., None]), 0.0)
+        acc = torch.einsum("bhk,bkhd->bhd", p, v[:, lo:hi].float())
+        partials.append((m, p.sum(dim=-1), acc))
+    gm = torch.full_like(partials[0][0], fa.NEG_INF)
+    for m, _, _ in partials:
+        gm = torch.maximum(gm, m)
+    den = torch.zeros_like(gm)
+    out = torch.zeros_like(partials[0][2])
+    for m, l_r, acc in partials:
+        c = torch.exp(m - gm)
+        den = den + l_r * c
+        out = out + acc * c[..., None]
+    out = out / den.clamp_min(1e-30)[..., None]
+    return out[:, None].to(q.dtype), partials
+
+
+@pytest.mark.parametrize("l, block_k", [(1088, 64), (1000, 1000)])
+def test_split_merge_matches_plain_version_and_jax_at_split_boundaries(l, block_k):
+    b, h, d = 4, 2, 16
+    q, k, v, rng = _inputs(b, l, h, d, seed=6)
+    s = fa.decode_splits(b, h, l, SMS)
+    ranges = fa.decode_split_ranges(l, s)
+    assert s == 8
+    # Rows that end just before, at and just after a split boundary, and
+    # one that runs to the end.
+    edge = ranges[3][0]
+    pos = np.array([edge - 1, edge, edge + 1, l - 1])
+    mask = (np.arange(l)[None, :] <= pos[:, None]).astype(np.int32)
+    bias = rng.standard_normal((b, h, 1, l)).astype(np.float32)
+    got, _ = _split_merge(_torch(q), _torch(k), _torch(v), torch.from_numpy(mask),
+                          torch.from_numpy(bias))
+    want = _port(q, k, v, mask, bias)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), _jax(q, k, v, mask, bias, block_k),
+                               **F32_TOL)
+
+
+def test_empty_splits_add_nothing_and_an_all_masked_row_is_exact_zero():
+    b, h, d, l = 3, 2, 32, 2048
+    q, k, v, rng = _inputs(b, l, h, d, seed=7)
+    pos = np.array([l // 8 - 1, 10, 0])
+    mask = (np.arange(l)[None, :] <= pos[:, None]).astype(np.int32)
+    mask[2] = 0                                   # an all-masked row
+    bias = rng.standard_normal((1, h, 1, l)).astype(np.float32)
+    got, partials = _split_merge(_torch(q), _torch(k), _torch(v),
+                                 torch.from_numpy(mask), torch.from_numpy(bias))
+    assert len(partials) == 8
+    for m, l_r, acc in partials[1:]:              # splits past L/8: no key
+        assert torch.all(m == fa.NEG_INF)
+        assert torch.all(l_r == 0) and torch.all(acc == 0)
+    assert torch.all(got[2] == 0.0)
+    want = _port(q, k, v, mask, bias)
+    assert np.all(want[2] == 0.0)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), _jax(q, k, v, mask, bias, 64),
+                               **F32_TOL)
+
+
+def test_bool_stride0_mask_equals_its_int32_copy():
+    """The scalar-position decode step hands the kernel an expanded bool
+    mask (batch stride 0); it is read in place and means what its int32
+    copy means."""
+    b, l, h, d = 4, 200, 2, 16
+    q, k, v, rng = _inputs(b, l, h, d, seed=8)
+    row = torch.arange(l) <= 150
+    expanded = row[None, :].expand(b, l)
+    assert expanded.stride() == (0, 1) and expanded.dtype == torch.bool
+    bias = torch.from_numpy(rng.standard_normal((1, h, 1, l)).astype(np.float32))
+    got = fa.flash_decode_attention(_torch(q), _torch(k), _torch(v),
+                                    kv_mask=expanded, bias=bias)
+    want = fa.flash_decode_attention(_torch(q), _torch(k), _torch(v),
+                                     kv_mask=expanded.to(torch.int32).contiguous(),
+                                     bias=bias)
+    assert torch.equal(got, want)
+    split, _ = _split_merge(_torch(q), _torch(k), _torch(v), expanded, bias)
+    np.testing.assert_allclose(split.numpy(), want.numpy(), **F32_TOL)

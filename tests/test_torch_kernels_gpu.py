@@ -394,6 +394,14 @@ def _decode_inputs(b, l, h, d, dtype, device, seed, arena=False):
         (4, 96, 2, 32, torch.float16, "none", False),
         (2, 70, 3, 128, torch.float32, "per_row", True),
         (5, 33, 4, 16, torch.bfloat16, "broadcast", False),
+        # Split-KV shapes (B*H < the SMs, so S = fa.decode_splits > 1): a long
+        # cache, uneven spans with L not a multiple of 64, f32 and D=128,
+        # clusters of 8, 3 and 5.
+        (4, 4096, 8, 64, torch.bfloat16, "broadcast", False),
+        (2, 1100, 4, 64, torch.float32, "per_row", True),
+        (3, 2048, 8, 128, torch.bfloat16, "per_row", True),
+        (11, 1000, 8, 64, torch.float16, "broadcast", False),
+        (8, 2048, 8, 64, torch.bfloat16, "per_row", True),
     ],
 )
 def test_decode_kernel_matches_plain_version(cuda, b, l, h, d, dtype,
@@ -421,6 +429,53 @@ def test_decode_kernel_matches_plain_version(cuda, b, l, h, d, dtype,
     full = fa.flash_decode_attention(q, k, v, bias=bias)
     assert _within(full, fa.flash_decode_attention_reference(q, k, v, bias=bias),
                    OUT_TOL[dtype])
+    # Two launches agree bit for bit (the splits merge in rank order).
+    assert torch.equal(fa.flash_decode_attention(q, k, v, kv_mask=mask,
+                                                 bias=bias), out)
+
+
+@pytest.mark.parametrize("b,l", [(16, 128), (4, 4096), (2, 1000), (4, 1)])
+def test_decode_kernel_reads_a_bool_stride0_mask_in_place(cuda, b, l):
+    """The scalar-position decode step's mask: one bool row expanded over
+    the batch (batch stride 0), read in place, equal to its int32 copy."""
+    h, d = 8, 64
+    q, k, v, gen = _decode_inputs(b, l, h, d, torch.bfloat16, cuda, seed=b + l)
+    expanded = (torch.arange(l, device=cuda) <= l // 2)[None, :].expand(b, l)
+    assert expanded.stride() == (0, 1)
+    bias = torch.randn(1, h, 1, l, generator=gen).to(cuda)
+    out = fa.flash_decode_attention(q, k, v, kv_mask=expanded, bias=bias)
+    copy = expanded.to(torch.int32).contiguous()
+    assert torch.equal(fa.flash_decode_attention(q, k, v, kv_mask=copy,
+                                                 bias=bias), out)
+    ref = fa.flash_decode_attention_reference(q, k, v, kv_mask=copy, bias=bias)
+    assert _within(out, ref, OUT_TOL[torch.bfloat16])
+    assert torch.equal(fa.flash_decode_attention(q, k, v, kv_mask=expanded,
+                                                 bias=bias), out)
+
+
+def test_decode_all_masked_splits_and_rows_are_exact_zero(cuda):
+    """Validity below L/8 leaves every split past the first with no allowed
+    key; a row with no allowed key at all outputs exact 0."""
+    b, l, h, d = 4, 2048, 8, 64
+    q, k, v, gen = _decode_inputs(b, l, h, d, torch.bfloat16, cuda, seed=11)
+    assert fa.decode_splits(b, h, l, fa.sm_count(cuda)) == 8
+    pos = torch.randint(0, l // 8, (b,), generator=gen)
+    mask = (torch.arange(l)[None, :] <= pos[:, None]).to(cuda)
+    mask[2] = False
+    bias = torch.randn(b, h, 1, l, generator=gen).to(cuda)
+    out = fa.flash_decode_attention(q, k, v, kv_mask=mask, bias=bias)
+    ref = fa.flash_decode_attention_reference(q, k, v, kv_mask=mask, bias=bias)
+    assert _within(out, ref, OUT_TOL[torch.bfloat16])
+    assert out[2].abs().max().item() == 0.0
+
+
+def test_decode_kernel_info_reports_no_spills_and_clusters_fit(cuda):
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        for d in fa.HEAD_DIMS:
+            info = fa.decode_kernel_info(dtype, d, fa.DECODE_MAX_SPLITS)
+            assert info["local_bytes"] == 0, (dtype, d, info)
+            assert info["ctas_per_sm"] >= 4, (dtype, d, info)
+            assert info["max_active_clusters"] >= 1, (dtype, d, info)
 
 
 def test_decode_wrapper_raises_on_cuda_for_what_the_kernel_does_not_take(cuda):

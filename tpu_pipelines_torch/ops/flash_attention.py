@@ -15,7 +15,10 @@ The counterpart of ``tpu_pipelines/ops/flash_attention.py``.
 
 :func:`flash_decode_attention` is the decode regime: one query per
 (batch, head) against a padded KV cache with key validity and an additive
-bias, inference only (the reference's ``flash_decode_attention``).
+bias, inference only (the reference's ``flash_decode_attention``).  Its
+CUDA kernel splits each row's keys across the CTAs of a thread-block
+cluster (:func:`decode_splits`, :func:`decode_split_ranges`) and merges
+the splits in the same launch.
 
 Each entry point dispatches on the device of its tensors:
 
@@ -56,6 +59,7 @@ run can show that its attention went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Optional, Tuple
 
@@ -115,19 +119,34 @@ UNIT_ROUNDOFF = {
     torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11, torch.float32: 0.0,
 }
 
-# tpp_flash_decode(q, k, v, mask, bias, out, dtype, b, l, h, d, strides[13],
-#                  scale, stream) -> cudaError_t
+# tpp_flash_decode(q, k, v, mask, bias, out, dtype, mask_code, b, l, h, d,
+#                  splits, strides[13], scale, stream) -> cudaError_t
 _DECODE_STRIDES = ctypes.c_int64 * 13
 _DECODE_PROTOTYPES = {
     "tpp_flash_decode": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
         + [_DECODE_STRIDES, ctypes.c_float, ctypes.c_void_p],
     ),
+    # (dtype, d, splits, int[5] out) -> cudaError_t
+    "tpp_flash_decode_kernel_info": (
+        ctypes.c_int, [ctypes.c_int] * 3 + [ctypes.c_int * 5],
+    ),
 }
+# The decode kernel's mask codes: no mask, int32, bool.
+_DECODE_MASK_CODES = {None: 0, torch.int32: 1, torch.bool: 2}
 # Keys per block of the decode kernel's walk over the cache (fixed: the
-# port has no autotune table).
+# port has no autotune table); a split is a run of whole blocks.
 DECODE_BLOCK_K = 64
+# Split rule of the decode kernel: about DECODE_CTAS_PER_SM CTAs on each of
+# the card's SMs, at most DECODE_MAX_SPLITS (the portable cluster size), at
+# least DECODE_SPLIT_BLOCKS blocks per split, and no split of a cache of at
+# most DECODE_UNSPLIT_BLOCKS blocks (there the cluster's merge costs more
+# than the walk it shortens).
+DECODE_CTAS_PER_SM = 2
+DECODE_MAX_SPLITS = 8
+DECODE_SPLIT_BLOCKS = 2
+DECODE_UNSPLIT_BLOCKS = 4
 
 # Kernel launches since the process started (or since a caller reset
 # them): flash_fwd, flash_bwd_dq, flash_bwd_dkv, flash_bwd_dvec,
@@ -762,6 +781,56 @@ def flash_decode_attention_reference(
     return (out / denom.permute(0, 2, 1, 3)).to(q.dtype)
 
 
+def decode_splits(b: int, h: int, l: int, sms: int) -> int:
+    """Splits S of the decode kernel's KV range for a [b, l, h, d] cache on
+    a card of ``sms`` SMs: enough CTAs (S * b * h) to fill the card, about
+    ``DECODE_CTAS_PER_SM * sms``, at most ``DECODE_MAX_SPLITS``, at most one
+    per ``DECODE_SPLIT_BLOCKS`` 64-key blocks, and 1 for a cache of at most
+    ``DECODE_UNSPLIT_BLOCKS`` blocks.  The S CTAs of one (batch, head) form
+    one cluster."""
+    blocks = -(-l // DECODE_BLOCK_K)
+    if blocks <= DECODE_UNSPLIT_BLOCKS:
+        return 1
+    want = -(-DECODE_CTAS_PER_SM * sms // (b * h))
+    return min(want, DECODE_MAX_SPLITS, blocks // DECODE_SPLIT_BLOCKS)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """SMs of the CUDA card ``device`` (read once per card)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def decode_split_ranges(l: int, splits: int):
+    """The key range [begin, end) of each split, in rank order: split r
+    takes whole 64-key blocks ``[r * nb // S, (r + 1) * nb // S)`` of the
+    ``nb`` blocks (the last one cut at ``l``), as the kernel does."""
+    nb = -(-l // DECODE_BLOCK_K)
+    return [(r * nb // splits * DECODE_BLOCK_K,
+             min(l, (r + 1) * nb // splits * DECODE_BLOCK_K))
+            for r in range(splits)]
+
+
+def decode_kernel_info(dtype: torch.dtype, head_dim: int, splits: int) -> dict:
+    """Registers and local memory (spill) bytes a thread of the CUDA decode
+    kernel takes for ``dtype`` and ``head_dim``, its static shared memory,
+    the CTAs an SM holds and the clusters of ``splits`` CTAs the card runs
+    at once (``cudaOccupancyMaxActiveClusters``); builds the library if
+    needed."""
+    from tpu_pipelines_torch.ops import _build
+
+    fn = _build.load("flash_decode",
+                     _DECODE_PROTOTYPES).tpp_flash_decode_kernel_info
+    info = (ctypes.c_int * 5)()
+    err = fn(_DTYPE_CODES[dtype], head_dim, splits, info)
+    if err != 0:
+        raise RuntimeError(f"flash_decode_attention: kernel info failed with "
+                           f"cudaError {err}")
+    return {"registers": info[0], "local_bytes": info[1],
+            "shared_bytes": info[2], "ctas_per_sm": info[3],
+            "max_active_clusters": info[4]}
+
+
 def _launch_decode(q, k, v, kv_mask, bias) -> torch.Tensor:
     global decode_launches
     from tpu_pipelines_torch.ops import _build
@@ -770,11 +839,9 @@ def _launch_decode(q, k, v, kv_mask, bias) -> torch.Tensor:
     fn = _build.load("flash_decode", _DECODE_PROTOTYPES).tpp_flash_decode
     b, l, h, d = k.shape
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
-    mask = None
-    mask_strides = (0, 0)
-    if kv_mask is not None:
-        mask = kv_mask if kv_mask.dtype == torch.int32 else kv_mask.to(torch.int32)
-        mask_strides = mask.stride()
+    # The mask is read in place, int32 or bool, through its strides (an
+    # expanded [b, l] view has batch stride 0).
+    mask_strides = (0, 0) if kv_mask is None else kv_mask.stride()
     bias_strides = (0, 0, 0)
     if bias is not None:
         # A leading dim of 1 broadcasts over the batch: batch stride 0.
@@ -786,9 +853,12 @@ def _launch_decode(q, k, v, kv_mask, bias) -> torch.Tensor:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if mask is None else mask.data_ptr(),
+            None if kv_mask is None else kv_mask.data_ptr(),
             None if bias is None else bias.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, l, h, d, strides, d ** -0.5, stream,
+            _DTYPE_CODES[q.dtype],
+            _DECODE_MASK_CODES[None if kv_mask is None else kv_mask.dtype],
+            b, l, h, d, decode_splits(b, h, l, sm_count(q.device)), strides,
+            d ** -0.5, stream,
         )
     if err != 0:
         raise RuntimeError(
