@@ -62,12 +62,21 @@ Phases (any failure raises and the script exits non-zero):
      logits); report steps/s and tokens/s;
   7. training — fine-tune BERT-base (full width, bf16, dropout 0.1, random
      init from ``--seed``) through ``train_loop`` at batch 256 x 128 with
-     ragged lengths: every loss finite, each of the four attention kernels
-     (forward, Dvec, dq, dk/dv) launched once per layer and step, the first step's q/k/v projection
-     gradients, the loop's AdamW first moment of those weights after its
-     last step, and every step's loss within tolerance of the same run
-     with dense attention (and two wrong-mask controls outside each);
-     report examples/s/chip, MFU, peak memory and a profiled step.
+     ragged lengths, the first step eager and every later one a replay of
+     one captured CUDA graph: every loss finite, each of the four
+     attention kernels (forward, Dvec, dq, dk/dv) launched once per layer
+     and step (counted at replay), one capture and a replay for every
+     step after the first, no compile after warm-up; the losses and final
+     q/k/v weights equal, bit for bit, to the same steps run eagerly (and
+     a control re-seeded with the previous step's seed that differs); a
+     last batch of another size captured once more (one compile after
+     warm-up); the first step's q/k/v projection gradients, the loop's
+     AdamW first moment of those weights after its last step, and every
+     step's loss within tolerance of the same run with dense attention
+     (and two wrong-mask controls outside each); report examples/s/chip
+     of two graph runs and the eager steps, MFU, peak memory of graph and
+     eager, the captured AdamW update fused and foreach, and a profiled
+     step, eager and replayed.
 
 After the last phase it prints the whole script's seconds.  The last
 three lines are the ``kernels`` JSON record, the card's name and
@@ -102,6 +111,7 @@ from tpu_pipelines_torch.models.bert import (
     build_bert_model,
     init_bert_weights,
 )
+from tpu_pipelines_torch.observability.metrics import default_registry
 from tpu_pipelines_torch.ops import _build
 from tpu_pipelines_torch.ops import flash_attention as fa
 from tpu_pipelines_torch.parallel.ring_attention import dense_attention
@@ -110,7 +120,10 @@ from tpu_pipelines_torch.serving.server import ModelServer
 from tpu_pipelines_torch.trainer import TrainLoopConfig, train_loop
 from tpu_pipelines_torch.trainer.export import export_model, load_exported_model
 from tpu_pipelines_torch.trainer.train_loop import (
+    TrainState,
     _peak_flops_per_chip,
+    _step_seed,
+    _TrainStep,
     step_generator,
 )
 
@@ -1122,15 +1135,15 @@ LOSS_TOL = 1e-2
 DEVICE = "cuda"
 
 
-def training_batches(seed, vocab, n):
-    """``n`` batches of TRAIN_BATCH x SEQ_LEN with ragged real lengths
+def training_batches(seed, vocab, n, batch=TRAIN_BATCH):
+    """``n`` batches of ``batch`` x SEQ_LEN with ragged real lengths
     (8..SEQ_LEN), pad id 0 behind them, and bench.py's label rule."""
     rng = np.random.default_rng(seed + 1)
     batches = []
     for _ in range(n):
-        lengths = rng.integers(8, SEQ_LEN + 1, size=TRAIN_BATCH)
+        lengths = rng.integers(8, SEQ_LEN + 1, size=batch)
         mask = np.arange(SEQ_LEN)[None, :] < lengths[:, None]
-        ids = np.where(mask, rng.integers(4, vocab, size=(TRAIN_BATCH, SEQ_LEN)), 0)
+        ids = np.where(mask, rng.integers(4, vocab, size=(batch, SEQ_LEN)), 0)
         batches.append({
             "input_ids": ids.astype(np.int32),
             "attention_mask": mask.astype(np.int32),
@@ -1144,30 +1157,131 @@ QKV_WEIGHT = re.compile(r"\.attn\.(query|key|value)\.weight$")
 
 def run_training(hp, seed, batches):
     """train_loop over ``batches``; returns (model, result, per-step losses,
-    {q/k/v projection weight: AdamW's first moment after the run})."""
+    {q/k/v projection weight: AdamW's first moment after the run}, {calls
+    of loss_fn, graph captures, graph replays in the run}, the run's
+    capture seconds from train_compile_seconds_total)."""
     losses, optimizers = [], []
+    calls = {"loss_fn": 0, "captures": 0, "replays": 0}
+    capture_s = default_registry().counter(
+        "train_compile_seconds_total", labels=("when",))
+    capture_s0 = sum(capture_s.labels(w).get() for w in ("warmup", "steady"))
 
     def optimizer(params):
         optimizers.append(bert_module.adamw(TRAIN_LR)(params))
         return optimizers[-1]
 
-    model, result = train_loop(
-        loss_fn=bert_module.loss_fn,
-        init_params_fn=functools.partial(bert_module.init_params_fn,
-                                         hyperparameters=hp),
-        optimizer=optimizer,
-        train_iter=iter(batches),
-        config=TrainLoopConfig(
-            train_steps=len(batches), batch_size=TRAIN_BATCH, log_every=1,
-            window_steps=TRAIN_WINDOW, anchor_every=TRAIN_WINDOW, seed=seed,
-        ),
-        metrics_cb=lambda step, m: losses.append(m["loss"]),
-        device=DEVICE,
-    )
+    def loss_fn(*args):
+        calls["loss_fn"] += 1
+        return bert_module.loss_fn(*args)
+
+    def counted(name, method):
+        def wrapper(self, *args, **kwargs):
+            calls[name] += 1
+            return method(self, *args, **kwargs)
+        return wrapper
+
+    graph = torch.cuda.CUDAGraph
+    with mock.patch.object(graph, "replay", counted("replays", graph.replay)), \
+            mock.patch.object(graph, "capture_begin",
+                              counted("captures", graph.capture_begin)):
+        model, result = train_loop(
+            loss_fn=loss_fn,
+            init_params_fn=functools.partial(bert_module.init_params_fn,
+                                             hyperparameters=hp),
+            optimizer=optimizer,
+            train_iter=iter(batches),
+            config=TrainLoopConfig(
+                train_steps=len(batches), batch_size=TRAIN_BATCH, log_every=1,
+                window_steps=TRAIN_WINDOW, anchor_every=TRAIN_WINDOW, seed=seed,
+            ),
+            metrics_cb=lambda step, m: losses.append(m["loss"]),
+            device=DEVICE,
+        )
     moments = {name: optimizers[0].state[p]["exp_avg"]
                for name, p in model.named_parameters()
                if QKV_WEIGHT.search(name)}
-    return model, result, losses, moments
+    seconds = sum(capture_s.labels(w).get() for w in ("warmup", "steady"))
+    return model, result, losses, moments, calls, seconds - capture_s0
+
+
+def eager_training(hp, seed, batches):
+    """The same steps as ``run_training`` written out eagerly: the loop's
+    init, the capturable AdamW, ``step_generator(seed, s)``, a synchronous
+    copy of each batch.  Returns (per-step losses, the model, examples/s
+    over the steps after the first TRAIN_WINDOW, peak device bytes)."""
+    torch.cuda.reset_peak_memory_stats()
+    model = bert_module.init_params_fn(
+        torch.Generator().manual_seed(seed), batches[0], hyperparameters=hp)
+    model.to(DEVICE).train()
+    opt = bert_module.adamw(TRAIN_LR)(model.parameters())
+    losses = []
+    for s, batch in enumerate(batches):
+        if s == TRAIN_WINDOW:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        dev_batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+        loss, _ = bert_module.loss_fn(model, dev_batch,
+                                      step_generator(seed, s, DEVICE))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    eps = (len(batches) - TRAIN_WINDOW) * TRAIN_BATCH / (time.perf_counter() - t0)
+    return ([x.item() for x in losses], model, eps,
+            torch.cuda.max_memory_allocated())
+
+
+def replay_step_breakdown(hp, seed, batch, iters=3):
+    """The train loop's step object on one batch: the first step (eager,
+    then the capture), then windows of TRAIN_WINDOW replays back to back
+    with one synchronize each, as the loop runs them, profiled like
+    train_step_breakdown and given per step: (wall_ms, profiled wall_ms,
+    busy_ms, kernels per step)."""
+    model = bert_module.init_params_fn(
+        torch.Generator().manual_seed(seed), batch, hyperparameters=hp)
+    model.to(DEVICE).train()
+    state = TrainState(step=0, model=model, seed=seed,
+                       optimizer=bert_module.adamw(TRAIN_LR)(model.parameters()))
+    runner = _TrainStep(state, bert_module.loss_fn, torch.device(DEVICE))
+    dev_batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+    runner.run(dev_batch, 0)
+
+    def window(i):
+        for j in range(TRAIN_WINDOW):
+            runner.run(dev_batch, 1 + i * TRAIN_WINDOW + j)
+        torch.cuda.synchronize()
+
+    wall_ms, profiled_ms, busy_ms, _, n_kernels = profiled(window, iters)
+    return (wall_ms / TRAIN_WINDOW, profiled_ms / TRAIN_WINDOW,
+            busy_ms / TRAIN_WINDOW, n_kernels / TRAIN_WINDOW)
+
+
+def adamw_timing(model):
+    """Device ms of one captured AdamW update of ``model``'s parameters,
+    capturable foreach against capturable fused (optax's defaults, the
+    learning rate of the run), each replayed from its own CUDA graph."""
+    times = {}
+    for fused in (False, True):
+        params = [p.detach().clone().requires_grad_() for p in model.parameters()]
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        for p in params:
+            p.grad = torch.randn(p.shape, generator=gen, device=DEVICE) * 1e-3
+        opt = torch.optim.AdamW(params, lr=TRAIN_LR, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=1e-4, capturable=True,
+                                fused=fused)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            opt.step()                       # builds the state
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            opt.step()
+        times["fused" if fused else "foreach"] = time_ms(graph.replay, iters=20,
+                                                         warmup=3)
+        del opt, params, graph
+    return times
 
 
 def first_step_grads(hp, seed, batch):
@@ -1231,7 +1345,8 @@ def training_phase(seed, n_steps, card):
 
     torch.cuda.reset_peak_memory_stats()
     fa.launches = fa.dq_launches = fa.dkv_launches = fa.dvec_launches = 0
-    model, result, losses, moments = run_training(hp, seed, batches)
+    model, result, losses, moments, calls, capture_s = run_training(
+        hp, seed, batches)
     launches = {"flash_fwd": fa.launches, "flash_bwd_dvec": fa.dvec_launches,
                 "flash_bwd_dq": fa.dq_launches,
                 "flash_bwd_dkv": fa.dkv_launches}
@@ -1239,8 +1354,31 @@ def training_phase(seed, n_steps, card):
     matmul_params = sum(
         p.numel() for name, p in model.named_parameters()
         if not re.search(r"(embed|pos_embed|type_embed)\.weight$", name))
+    qkv = {name: p.detach().clone() for name, p in model.named_parameters()
+           if QKV_WEIGHT.search(name)}
+    adamw_ms = adamw_timing(model)
     del model
-    _, dense_result, dense_losses, want_moments = run_training(
+
+    # The graph run against the same steps written out eagerly (bit for
+    # bit), a control re-seeded with the previous step's seed (must
+    # differ), and a run whose last batch has another size (one capture
+    # after warm-up).
+    eager_losses, eager_model, eager_eps, eager_peak = eager_training(
+        hp, seed, batches)
+    qkv_equal = all(torch.equal(p, qkv[name])
+                    for name, p in eager_model.named_parameters() if name in qkv)
+    del eager_model
+    with mock.patch("tpu_pipelines_torch.trainer.train_loop._step_seed",
+                    lambda sd, st: _step_seed(sd, st - 1)):
+        _, reseeded_result, reseeded_losses, _, _, _ = run_training(
+            hp, seed, batches)
+    reseeded_gap = max(abs(a - b) / abs(b)
+                       for a, b in zip(reseeded_losses, eager_losses))
+    odd = training_batches(seed + 7, hp["vocab_size"], 1, batch=TRAIN_BATCH // 2)
+    _, tail_result, tail_losses, _, tail_calls, tail_capture_s = run_training(
+        hp, seed, batches[:TRAIN_WINDOW] + odd)
+
+    _, dense_result, dense_losses, want_moments, _, _ = run_training(
         {**hp, "attn_impl": "dense"}, seed, batches)
     moment_err = rel_l2(moments, want_moments)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, dense_losses))
@@ -1259,7 +1397,7 @@ def training_phase(seed, n_steps, card):
         loss, grads = first_step_grads(hp, seed, fed[0])
         control_err[name] = max(rel_l2(grads, want).values())
         control_loss[name] = abs(loss - want_loss) / abs(want_loss)
-        _, _, run_losses, got_moments = run_training(hp, seed, fed)
+        _, _, run_losses, got_moments, _, _ = run_training(hp, seed, fed)
         control_moment[name] = max(rel_l2(got_moments, want_moments).values())
         control_run_loss[name] = max(
             abs(a - b) / abs(b) for a, b in zip(run_losses, dense_losses))
@@ -1273,6 +1411,8 @@ def training_phase(seed, n_steps, card):
     eps = result.anchored_examples_per_sec_per_chip
     mfu = flops_per_step * eps / TRAIN_BATCH / peak if peak else None
     wall_ms, profiled_ms, busy_ms, by_kernel, n_kernels = train_step_breakdown(
+        hp, seed, batches[0])
+    r_wall_ms, r_profiled_ms, r_busy_ms, r_kernels = replay_step_breakdown(
         hp, seed, batches[0])
 
     print(f"training [{card}]: BERT-base (d_model {hp['d_model']}, "
@@ -1293,7 +1433,28 @@ def training_phase(seed, n_steps, card):
           f"({flops_per_step} analytic FLOP/step against {peak:g} FLOP/s); "
           f"peak device memory {peak_bytes} bytes", flush=True)
     print(f"training: launches {launches} = {N_LAYERS} x {len(losses)} steps "
-          "expected for each", flush=True)
+          "expected for each, counted at replay", flush=True)
+    print(f"training graph: {calls['captures']} capture, {calls['replays']} "
+          f"replays, loss_fn called {calls['loss_fn']} times (the eager first "
+          f"step and the capture), capture {capture_s:.3f} s, compiles after "
+          f"warm {result.compiles_after_warm}; against the same steps run eagerly: "
+          f"losses {'equal' if losses == eager_losses else 'DIFFER'} bit for "
+          f"bit, final q/k/v weights {'equal' if qkv_equal else 'DIFFER'} bit "
+          f"for bit; control re-seeded with step s-1's seed: max rel loss gap "
+          f"{reseeded_gap:.3e} (must exceed 0)", flush=True)
+    print(f"training graph, last batch of {TRAIN_BATCH // 2} rows after "
+          f"{TRAIN_WINDOW} of {TRAIN_BATCH}: {tail_calls['captures']} captures, "
+          f"{tail_calls['replays']} replays, captures {tail_capture_s:.3f} s, "
+          f"compiles after warm {tail_result.compiles_after_warm}, losses "
+          + " ".join(f"{x:.5f}" for x in tail_losses), flush=True)
+    print(f"training throughput [{card}]: graph "
+          f"{result.anchored_examples_per_sec_per_chip} and "
+          f"{reseeded_result.anchored_examples_per_sec_per_chip} "
+          f"examples/s/chip anchored (two runs of the same work), eager "
+          f"{eager_eps:.2f} over the same steps; peak device memory graph "
+          f"{peak_bytes} bytes, eager {eager_peak} bytes; AdamW update, "
+          f"captured: foreach {adamw_ms['foreach']:.4f} ms, fused "
+          f"{adamw_ms['fused']:.4f} ms (the loop's: fused)", flush=True)
     for name, err in sound.items():
         print(f"training grad {name}: rel L2 |flash - dense| = {err:.3e}")
     print(f"training: max rel L2 |flash - dense| q/k/v weight grad = "
@@ -1314,7 +1475,13 @@ def training_phase(seed, n_steps, card):
           f"traced), device busy {busy_ms:.3f} ms traced (idle share "
           f"{1 - busy_ms / profiled_ms:.3f}), "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in by_kernel.items())
-          + f", {n_kernels:.0f} kernels per step", flush=True)
+          + f", {n_kernels:.0f} kernels per step (eager)", flush=True)
+    print(f"training step [{card}] graph replay, batch {TRAIN_BATCH} x "
+          f"{SEQ_LEN}, windows of {TRAIN_WINDOW} replays: host wall "
+          f"{r_wall_ms:.3f} ms ({r_profiled_ms:.3f} ms traced), device busy "
+          f"{r_busy_ms:.3f} ms traced (idle share "
+          f"{1 - r_busy_ms / r_profiled_ms:.3f}), {r_kernels:.0f} kernels per "
+          "step", flush=True)
 
     if len(losses) != n_steps or not all(np.isfinite(losses)):
         raise AssertionError(f"training losses not all finite: {losses}")
@@ -1322,6 +1489,25 @@ def training_phase(seed, n_steps, card):
     if any(n != expected for n in launches.values()):
         raise AssertionError(f"training launches {launches}, expected "
                              f"{expected} each")
+    if (calls != {"loss_fn": 2, "captures": 1, "replays": n_steps - 1}
+            or result.compiles_after_warm != 0):
+        raise AssertionError(f"training: every step after the first must be a "
+                             f"replay of one capture: {calls}, compiles after "
+                             f"warm {result.compiles_after_warm}")
+    if losses != eager_losses or not qkv_equal:
+        raise AssertionError("training: the graph run differs from the same "
+                             "steps run eagerly")
+    if not reseeded_gap > 0:
+        raise AssertionError("training: re-seeding the dropout generator with "
+                             "the previous step's seed changes no loss: the "
+                             "eager check cannot tell the masks")
+    if (tail_result.compiles_after_warm != 1
+            or tail_calls != {"loss_fn": 3, "captures": 2,
+                              "replays": TRAIN_WINDOW}
+            or not all(np.isfinite(tail_losses))):
+        raise AssertionError(f"training: a last batch of another size must be "
+                             f"captured once more: {tail_calls}, compiles "
+                             f"after warm {tail_result.compiles_after_warm}")
     if (max(sound.values()) > GRAD_TOL
             or max(moment_err.values()) > MOMENT_TOL or loss_err > LOSS_TOL):
         raise AssertionError("flash-attention training disagrees with dense")

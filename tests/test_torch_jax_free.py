@@ -57,7 +57,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
     for module in ("serving.server", "ops.flash_attention",
                    "trainer.train_loop", "trainer.fn_args",
                    "observability.health", "examples.bert_module",
-                   "models.t5", "serving.generative", "examples.t5_module"):
+                   "models.t5", "serving.generative", "examples.t5_module",
+                   "data.input_pipeline"):
         assert f"tpu_pipelines_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["modules"]
     leaked = [m for m in report["modules"] if _forbidden(m)]

@@ -26,6 +26,13 @@ of D f32 products, 2 * D * 2^-24 of the row's sum of |dO * O|.  Gradients
 through the autograd Function against autograd through dense attention,
 f32: (1e-5, 2e-5) — two formulas (softmax vs the saved LSE), f32 sums over
 <= 100 keys.
+
+The last tests drive ``train_loop`` on the card with a tiny BERT (flash
+attention, dropout 0.1): its CUDA-graph steps equal the same steps run
+eagerly bit for bit (losses and parameters), the four attention counters
+read layers x steps (counted at replay), and a capture that cannot
+succeed raises instead of running the step eagerly (kept last: a failed
+capture is the one test here that leaves the context in an unusual state).
 """
 
 import pytest
@@ -496,3 +503,97 @@ def test_backward_wrapper_raises_on_cuda_for_bad_saved_tensors(cuda):
         fa.flash_bwd_dq(q, q, q, q, lse, lse[:, :4])
     with pytest.raises(ValueError, match="lse"):
         fa.flash_bwd_dkv(q, q, q, q, lse.double(), lse)
+
+
+# ---- the captured training step (train_loop on CUDA)
+
+# A tiny BERT with the kernels' head_dim 64, dropout on, bf16 compute.
+TINY_TRAIN = {"vocab_size": 128, "d_model": 128, "n_layers": 2, "n_heads": 2,
+              "d_ff": 256, "max_len": 64, "dropout_rate": 0.1,
+              "num_classes": 2, "attn_impl": "flash"}
+
+
+def _train_batches(n, b=8, l=64, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        lengths = torch.randint(4, l + 1, (b,), generator=gen)
+        mask = (torch.arange(l)[None, :] < lengths[:, None]).to(torch.int32)
+        ids = torch.randint(1, TINY_TRAIN["vocab_size"], (b, l), generator=gen)
+        out.append({"input_ids": (ids * mask).to(torch.int32).numpy(),
+                    "attention_mask": mask.numpy(),
+                    "label": (ids[:, 0] % 2).to(torch.int32).numpy()})
+    return out
+
+
+def _graph_train(batches, loss_fn=None, seed=3, window=4):
+    import functools
+
+    from tpu_pipelines_torch.examples import bert_module
+    from tpu_pipelines_torch.trainer import TrainLoopConfig, train_loop
+
+    losses = []
+    model, result = train_loop(
+        loss_fn=loss_fn or bert_module.loss_fn,
+        init_params_fn=functools.partial(bert_module.init_params_fn,
+                                         hyperparameters=TINY_TRAIN),
+        optimizer=bert_module.adamw(1e-3),
+        train_iter=iter(batches),
+        config=TrainLoopConfig(train_steps=len(batches), batch_size=8,
+                               log_every=1, window_steps=window, seed=seed),
+        metrics_cb=lambda s, m: losses.append(m["loss"]),
+        device="cuda",
+    )
+    return model, result, losses
+
+
+def test_graph_train_loop_equals_eager_steps_and_counts_launches_at_replay(cuda):
+    from tpu_pipelines_torch.examples import bert_module
+    from tpu_pipelines_torch.trainer.train_loop import step_generator
+
+    batches = _train_batches(12)
+    saved = {name: getattr(fa, name) for name in fa.COUNTERS}
+    try:
+        for name in fa.COUNTERS:
+            setattr(fa, name, 0)
+        model, result, losses = _graph_train(batches)
+        counts = {name: getattr(fa, name) for name in fa.COUNTERS}
+    finally:
+        for name, value in saved.items():
+            setattr(fa, name, value)
+    want = TINY_TRAIN["n_layers"] * len(batches)
+    assert counts == {"launches": want, "dq_launches": want, "dkv_launches": want,
+                      "dvec_launches": want, "decode_launches": 0}
+    assert result.compiles_after_warm == 0
+
+    eager = bert_module.init_params_fn(torch.Generator().manual_seed(3),
+                                       batches[0], TINY_TRAIN).to(cuda).train()
+    opt = bert_module.adamw(1e-3)(eager.parameters())
+    eager_losses = []
+    for s, b in enumerate(batches):
+        loss, _ = bert_module.loss_fn(
+            eager, {k: torch.as_tensor(v, device=cuda) for k, v in b.items()},
+            step_generator(3, s, cuda))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        eager_losses.append(loss.item())
+    assert losses == eager_losses
+    for (name, p), q in zip(model.named_parameters(), eager.parameters()):
+        assert torch.equal(p, q), name
+
+
+def test_a_capture_that_cannot_succeed_raises_instead_of_running_eagerly(cuda):
+    from tpu_pipelines_torch.examples import bert_module
+
+    calls = []
+
+    def syncing_loss_fn(model, batch, generator):
+        loss, metrics = bert_module.loss_fn(model, batch, generator)
+        calls.append(loss.item())      # a host sync: no capture can hold it
+        return loss, metrics
+
+    with pytest.raises(RuntimeError,
+                       match=r"capturing the training step .* step 1 .*input_ids"):
+        _graph_train(_train_batches(4), loss_fn=syncing_loss_fn)
+    assert len(calls) == 1             # the eager first step, then no other

@@ -232,6 +232,31 @@ def test_model_server_sheds_load_and_classifies_errors(tmp_path):
         server.stop()
 
 
+def test_admission_slot_is_free_when_the_reply_arrives(tmp_path):
+    """A client that sends its next request as soon as a reply arrives
+    must not be shed: the handler releases its admission slot before the
+    reply goes out (a release slowed by 0.2 s shows the order)."""
+    payload = _port_payload(tmp_path / "p")
+    server = ModelServer("bert", payload, max_queue_depth=1, device="cpu")
+    release = server._release
+
+    def slow_release():
+        time.sleep(0.2)
+        release()
+
+    server._release = slow_release
+    try:
+        url = f"http://127.0.0.1:{server.start(port=0)}/v1/models/bert:predict"
+        for body in ({"instances": []}, {"rows": []}, {"instances": []}):
+            try:
+                code = _post(url, body)[0]
+            except urllib.error.HTTPError as e:
+                code = e.code
+            assert code == (400 if "rows" in body else 200)
+    finally:
+        server.stop()
+
+
 def test_serving_cli_serves_a_version_dir_on_cpu(tmp_path):
     base = tmp_path / "served"
     _port_payload(base / "3")

@@ -156,7 +156,12 @@ class Dropout(nn.Module):
     ``generator`` (on the input's device) and kept values are scaled by
     ``1 / (1 - rate)`` in the input dtype.  A training forward with
     ``rate > 0`` and no generator raises: there is no hidden global
-    stream, so a step's masks follow from the seed its caller derived."""
+    stream, so a step's masks follow from the seed its caller derived.
+    Inside a CUDA graph the draw reads the generator's seed and offset at
+    replay, so a generator registered with the graph
+    (``CUDAGraph.register_generator_state``) and re-seeded before each
+    replay draws what an eager step with a generator of that seed draws
+    (the train loop does this)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()

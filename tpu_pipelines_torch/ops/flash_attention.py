@@ -52,16 +52,21 @@ difference (see ``UNIT_ROUNDOFF``).  f32 runs on FMA kernels with every
 product in f32.
 
 ``launches``, ``dq_launches``, ``dkv_launches``, ``dvec_launches`` and
-``decode_launches`` count kernel launches (never plain-version calls), so a
-run can show that its attention went through the kernels.
+``decode_launches`` count kernel launches that ran (never plain-version
+calls), so a run can show that its attention went through the kernels.  A
+wrapper called while its stream captures a CUDA graph launches nothing: it
+records into the open :func:`launch_tally` instead, and whoever replays
+the graph adds that tally to the counters once per replay
+(:func:`credit`).  A capture with no tally open raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
-from typing import Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -156,7 +161,53 @@ dq_launches = 0
 dkv_launches = 0
 dvec_launches = 0
 decode_launches = 0
+COUNTERS = ("launches", "dq_launches", "dkv_launches", "dvec_launches",
+            "decode_launches")
 _launch_lock = threading.Lock()
+# The tally of the graph capture under way, if any (module-wide, not per
+# thread: autograd runs a captured backward on its own device thread).
+_capture_tally: Optional[Dict[str, int]] = None
+
+
+def _count(name: str, capturing: bool) -> None:
+    """One launch of the kernel counted by ``name``: onto its counter, or,
+    while the launching stream captures a graph, into the open tally."""
+    with _launch_lock:
+        if not capturing:
+            globals()[name] += 1
+        elif _capture_tally is None:
+            raise RuntimeError(
+                f"flash_attention: a kernel ({name}) was captured into a CUDA "
+                "graph with no launch tally open; capture inside "
+                "fa.launch_tally() and credit() the tally at each replay"
+            )
+        else:
+            _capture_tally[name] += 1
+
+
+@contextlib.contextmanager
+def launch_tally() -> Iterator[Dict[str, int]]:
+    """Open the tally that kernels captured into a CUDA graph record into
+    (one per capture; counters keyed as :data:`COUNTERS`)."""
+    global _capture_tally
+    tally = dict.fromkeys(COUNTERS, 0)
+    with _launch_lock:
+        if _capture_tally is not None:
+            raise RuntimeError("flash_attention: a launch tally is already open")
+        _capture_tally = tally
+    try:
+        yield tally
+    finally:
+        with _launch_lock:
+            _capture_tally = None
+
+
+def credit(tally: Dict[str, int], replays: int = 1) -> None:
+    """Add a captured graph's ``tally`` to the counters for ``replays``
+    replays of it."""
+    with _launch_lock:
+        for name, n in tally.items():
+            globals()[name] += n * replays
 
 
 def _check(q, k, v, kv_mask, block_q, block_k) -> None:
@@ -376,7 +427,6 @@ def flash_attention_backward_reference(
 
 
 def _launch(q, k, v, kv_mask, causal) -> Tuple[torch.Tensor, torch.Tensor]:
-    global launches
     from tpu_pipelines_torch.ops import _build
 
     if q.dtype != torch.float32:  # the tensor-core kernel's cp.async copies
@@ -391,6 +441,7 @@ def _launch(q, k, v, kv_mask, causal) -> Tuple[torch.Tensor, torch.Tensor]:
     strides = [s for t in (q, k, v) for s in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(),
@@ -403,8 +454,7 @@ def _launch(q, k, v, kv_mask, causal) -> Tuple[torch.Tensor, torch.Tensor]:
             f"flash_attention: CUDA kernel launch failed with cudaError {err} "
             f"(shape {tuple(q.shape)}, {q.dtype}, {q.device})"
         )
-    with _launch_lock:
-        launches += 1
+    _count("launches", capturing)
     return out, lse
 
 
@@ -434,7 +484,6 @@ def flash_attention_forward(
 
 def _launch_bwd(name, q, k, v, dout, lse, dvec, kv_mask, causal, n_out):
     """Launch ``tpp_flash_bwd_<name>`` into ``n_out`` new gradient tensors."""
-    global dq_launches, dkv_launches
     from tpu_pipelines_torch.ops import _build
 
     if q.dtype != torch.float32:  # the tensor-core kernels' cp.async copies
@@ -450,6 +499,7 @@ def _launch_bwd(name, q, k, v, dout, lse, dvec, kv_mask, causal, n_out):
              for _ in range(n_out)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             None if mask is None else mask.data_ptr(), lse.data_ptr(),
@@ -463,11 +513,7 @@ def _launch_bwd(name, q, k, v, dout, lse, dvec, kv_mask, causal, n_out):
             f"with cudaError {err} (shape {tuple(q.shape)}, {q.dtype}, "
             f"{q.device})"
         )
-    with _launch_lock:
-        if name == "dq":
-            dq_launches += 1
-        else:
-            dkv_launches += 1
+    _count(f"{name}_launches", capturing)
     return grads
 
 
@@ -523,7 +569,6 @@ def flash_bwd_dkv(q, k, v, dout, lse, dvec, *, causal=False,
 
 
 def _launch_dvec(out, dout) -> torch.Tensor:
-    global dvec_launches
     from tpu_pipelines_torch.ops import _build
 
     _require_aligned16("flash_attention backward", out=out, dout=dout)
@@ -533,6 +578,7 @@ def _launch_dvec(out, dout) -> torch.Tensor:
     strides = _DVEC_STRIDES(*out.stride()[:3], *dout.stride()[:3])
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream(out.device).cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
         err = fn(out.data_ptr(), dout.data_ptr(), dvec.data_ptr(),
                  _DTYPE_CODES[out.dtype], b, l, h, d, strides, stream)
     if err != 0:
@@ -541,8 +587,7 @@ def _launch_dvec(out, dout) -> torch.Tensor:
             f"cudaError {err} (shape {tuple(out.shape)}, {out.dtype}, "
             f"{out.device})"
         )
-    with _launch_lock:
-        dvec_launches += 1
+    _count("dvec_launches", capturing)
     return dvec
 
 
@@ -832,7 +877,6 @@ def decode_kernel_info(dtype: torch.dtype, head_dim: int, splits: int) -> dict:
 
 
 def _launch_decode(q, k, v, kv_mask, bias) -> torch.Tensor:
-    global decode_launches
     from tpu_pipelines_torch.ops import _build
 
     _require_aligned16("flash_decode_attention", q=q, k=k, v=v)
@@ -851,6 +895,7 @@ def _launch_decode(q, k, v, kv_mask, bias) -> torch.Tensor:
                               *v.stride()[:3], *mask_strides, *bias_strides)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        capturing = torch.cuda.is_current_stream_capturing()
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if kv_mask is None else kv_mask.data_ptr(),
@@ -865,8 +910,7 @@ def _launch_decode(q, k, v, kv_mask, bias) -> torch.Tensor:
             f"flash_decode_attention: CUDA kernel launch failed with cudaError "
             f"{err} (cache {tuple(k.shape)}, {q.dtype}, {q.device})"
         )
-    with _launch_lock:
-        decode_launches += 1
+    _count("decode_launches", capturing)
     return out
 
 

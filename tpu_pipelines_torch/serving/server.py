@@ -420,13 +420,10 @@ class ModelServer:
                         admitted = True
                     n = int(self.headers.get("Content-Length", "0"))
                     payload = json.loads(self.rfile.read(n) or b"{}")
-                    self._reply(200, handler(payload), endpoint=endpoint)
+                    code, obj, retry = 200, handler(payload), 0
                 except ServerOverloaded as e:
-                    self._reply(
-                        429, {"error": f"overloaded: {e}"},
-                        endpoint=endpoint,
-                        retry_after_s=ServerOverloaded.retry_after_s,
-                    )
+                    code, obj = 429, {"error": f"overloaded: {e}"}
+                    retry = ServerOverloaded.retry_after_s
                 except Exception as e:  # noqa: BLE001 — classify, then reply
                     # Caller mistakes are 4xx, not-ready is a retriable 503,
                     # everything else is an honest 500.
@@ -440,16 +437,17 @@ class ModelServer:
                             "%s: internal error serving %s",
                             server.model_name, endpoint,
                         )
-                    self._reply(
-                        code, {"error": f"{type(e).__name__}: {e}"},
-                        endpoint=endpoint, retry_after_s=retry,
-                    )
+                    obj = {"error": f"{type(e).__name__}: {e}"}
                 finally:
+                    # Released before the reply goes out: a client that
+                    # sends its next request on the reply must find the
+                    # slot free (the reference releases after the reply).
                     if admitted:
                         server._release()
-                    server._m_latency.labels(endpoint).observe(
-                        time.perf_counter() - t0
-                    )
+                self._reply(code, obj, endpoint=endpoint, retry_after_s=retry)
+                server._m_latency.labels(endpoint).observe(
+                    time.perf_counter() - t0
+                )
 
         class Httpd(ThreadingHTTPServer):
             # socketserver's default listen backlog is 5; a concurrent-client

@@ -8,27 +8,56 @@ The contract keeps the reference's shape in PyTorch idiom:
   - ``loss_fn(model, batch, generator) -> (loss, metrics)`` runs the
     forward in ``train()`` mode; ``generator`` lives on the training
     device and feeds every dropout site (flax ``rngs={"dropout": rng}``).
-    Each step's generator is seeded from ``(config.seed, step)``, as the
-    reference folds the step into its key, so a resumed run redraws the
-    same masks.  Eval calls ``loss_fn(model, batch, None)`` in ``eval()``
-    mode under ``torch.no_grad()``;
-  - ``optimizer`` is a factory ``params -> torch.optim.Optimizer``;
-  - batches are dicts of numpy arrays (or tensors), moved to the device
-    per step;
+    The loop owns that generator and seeds it before each step with
+    ``_step_seed(config.seed, step)``, as the reference folds the step
+    into its key, so step ``s`` draws the masks of
+    ``step_generator(config.seed, s, device)`` and a resumed run redraws
+    the same masks.  ``metrics`` are tensors.  Eval calls
+    ``loss_fn(model, batch, None)`` in ``eval()`` mode under
+    ``torch.no_grad()``;
+  - ``optimizer`` is a factory ``params -> torch.optim.Optimizer``; on
+    CUDA it must be capturable (``capturable=True``);
+  - batches are dicts of numpy arrays (or CPU tensors) of one shape per
+    window;
   - the loop returns ``(model, TrainResult)``.  It runs on ``device``,
     CUDA unless the caller asks for the CPU; without CUDA it raises,
     naming the device.
 
-The window (``window_steps``): the steps of a window run back to back with
-no host sync, their losses and metrics collect in one device tensor, and
-that tensor is fetched once per window.  Per-step values are rebuilt from
-it for ``log_every``, ``metrics_cb`` and the NaN/loss-spike watchdog, so a
-NaN in the middle of a window is reported at the boundary with its own
-step.  Windows shrink to land exactly on eval, checkpoint and
-``train_steps`` boundaries.  ``window_steps=1`` fetches every step; each
-step computes the same thing in either case, so the two agree bitwise.
-Every window end with ``window_steps > 1`` is a sync anchor; with
-``window_steps=1`` an anchor falls every ``anchor_every`` steps.
+The window (``window_steps``): the batches of a window are stacked and
+staged on the device one window ahead by ``data.input_pipeline``'s
+``windowed_infeed`` (pinned memory, an asynchronous copy on a stream of
+its own), the steps of a window run back to back with no host sync, their
+losses and metrics collect in one device tensor, and that tensor is
+fetched once per window.  Per-step values are rebuilt from it for
+``log_every``, ``metrics_cb`` and the NaN/loss-spike watchdog, so a NaN in
+the middle of a window is reported at the boundary with its own step.
+Windows shrink to land exactly on eval, checkpoint and ``train_steps``
+boundaries.  ``window_steps=1`` fetches every step; each step computes the
+same thing in either case, so the two agree bitwise.  Every window end
+with ``window_steps > 1`` is a sync anchor; with ``window_steps=1`` an
+anchor falls every ``anchor_every`` steps.
+
+The step on CUDA (the reference's jitted step and scanned window): the
+first step runs eagerly on a side stream, which builds the optimizer's
+state without an extra update; then forward, backward and
+``optimizer.step()`` are captured into one ``torch.cuda.CUDAGraph`` over
+static input buffers, with the loop's dropout generator registered with
+the graph.  Every later step copies its batch into those buffers,
+re-seeds the generator and replays the graph, which updates the
+parameters and the optimizer state in place: the counterpart of the
+reference's donated state.  A batch of a new signature (keys, shapes,
+dtypes, as ``AotDispatch.signature`` keys the reference's executables) is
+captured once, every capture sharing one memory pool; a capture after the
+first window is a compile after warm-up (``TrainResult.compiles_after_warm``,
+``train_compiles_after_warm_total``, ``train_compile_seconds_total``).  A
+capture that fails raises, naming the step and the signature.  The flash
+attention kernels' launch counters are credited at each replay
+(``ops.flash_attention.credit``).  On the CPU there are no graphs: the same
+step runs eagerly, and a new signature after the first window still counts
+as a compile after warm-up.  Checkpoints are restored before the first
+step; a parameter or optimizer tensor replaced after a capture would leave
+the graph writing the old one, so a restore after capture needs a new
+capture.
 
 Checkpoints are ``torch.save`` files ``<checkpoint_dir>/ckpt_<step>.pt``
 (model and optimizer state, written atomically, the newest
@@ -42,8 +71,8 @@ data-parallel collectives (A5), gradient accumulation (A5), models with
 mutable state (A7), the profiler, TensorBoard, cost analysis and the MFU
 that rests on it (A11): ``TrainResult.mfu`` stays None and the
 ``train_mfu`` gauge 0.  The reference's ``prng_impl`` (a JAX key
-implementation) and ``donate_state`` (XLA buffer donation) have no
-counterpart here: the fields do not exist.
+implementation) has no counterpart here, and ``donate_state`` none but
+the in-place replays above: the fields do not exist.
 """
 
 from __future__ import annotations
@@ -61,8 +90,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpu_pipelines_torch.data.input_pipeline import WindowStager, windowed_infeed
 from tpu_pipelines_torch.observability.health import HealthMonitor
 from tpu_pipelines_torch.observability.metrics import default_registry
+from tpu_pipelines_torch.ops import flash_attention as fa
 from tpu_pipelines_torch.trainer.export import resolve_device
 from tpu_pipelines_torch.trainer.fn_args import TrainResult
 
@@ -212,6 +243,108 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 def _to_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
             .to(device) for k, v in batch.items()}
+
+
+def batch_signature(batch: Dict[str, torch.Tensor]) -> tuple:
+    """``(key, shape, dtype name)`` of every feature, sorted: what a
+    captured step is keyed by (the reference's ``AotDispatch.signature``
+    of the same arrays)."""
+    return tuple(sorted(
+        (k, tuple(v.shape), str(v.dtype).removeprefix("torch."))
+        for k, v in batch.items()
+    ))
+
+
+@dataclasses.dataclass
+class _Captured:
+    """One captured training step: its graph, the static input buffers it
+    reads, the metric row it writes and the kernel launches it holds."""
+
+    graph: Any
+    inputs: Dict[str, torch.Tensor]
+    row: torch.Tensor
+    tally: Dict[str, int]
+
+
+class _TrainStep:
+    """Forward, backward and optimizer update of one step, its loss and
+    metrics stacked into one device row (see the module docstring).
+
+    ``run(batch, step)`` returns ``(row, capture_seconds)``, the second
+    None unless this step met a new batch signature (0.0 on the CPU,
+    which captures nothing)."""
+
+    def __init__(self, state: "TrainState", loss_fn: Callable, device: torch.device):
+        self.state = state
+        self.loss_fn = loss_fn
+        self.device = device
+        self.generator = torch.Generator(device=device)
+        self.keys: Optional[list] = None
+        self.signatures: set = set()
+        self.captured: Dict[tuple, _Captured] = {}
+        self.pool = None
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+
+    def _step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        loss, metrics = self.loss_fn(self.state.model, batch, self.generator)
+        self.state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.state.optimizer.step()
+        if self.keys is None:
+            self.keys = sorted(metrics)
+        return torch.stack([
+            torch.as_tensor(v, device=self.device).detach().float().reshape(())
+            for v in [loss, *(metrics[k] for k in self.keys)]
+        ])
+
+    def run(self, batch: Dict[str, torch.Tensor], step: int):
+        self.generator.manual_seed(_step_seed(self.state.seed, step))
+        sig = batch_signature(batch)
+        new = sig not in self.signatures
+        self.signatures.add(sig)
+        if self.stream is None:
+            return self._step(batch), (0.0 if new else None)
+        if not self.captured:
+            return self._first_step(batch, sig, step)
+        capture_s = self._capture(batch, sig, step) if new else None
+        captured = self.captured[sig]
+        for k, v in batch.items():
+            captured.inputs[k].copy_(v)
+        captured.graph.replay()
+        fa.credit(captured.tally)
+        return captured.row, capture_s
+
+    def _first_step(self, batch, sig, step):
+        """The run's first step, eagerly on the side stream (warm-up with
+        no extra update), then the capture of its signature."""
+        main = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            row = self._step(batch)
+        main.wait_stream(self.stream)
+        row.record_stream(main)
+        return row, self._capture(batch, sig, step)
+
+    def _capture(self, batch, sig, step) -> float:
+        t0 = time.perf_counter()
+        inputs = {k: v.clone() for k, v in batch.items()}
+        self.state.optimizer.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        try:
+            with fa.launch_tally() as tally, torch.cuda.graph(
+                    graph, pool=self.pool, stream=self.stream):
+                row = self._step(inputs)
+        except Exception as e:
+            raise RuntimeError(
+                f"train_loop: capturing the training step into a CUDA graph "
+                f"failed at step {step + 1} for batch signature {sig}: {e}"
+            ) from e
+        if self.pool is None:
+            self.pool = graph.pool()
+        self.captured[sig] = _Captured(graph, inputs, row, dict(tally))
+        return time.perf_counter() - t0
 
 
 # ---- checkpoints and the progress marker
@@ -391,7 +524,21 @@ def train_loop(
         "Per-device high-water mark of allocated bytes, at window cadence.",
         labels=("device",),
     )
+    c_compiles_warm = reg.counter(
+        "train_compiles_after_warm_total",
+        "Captures of the training step (CUDA graphs; new batch signatures "
+        "on the CPU) after the first window retired: each one is a mid-run "
+        "stall; steady state is 0.",
+    )
+    c_compile_s = reg.counter(
+        "train_compile_seconds_total",
+        "Cumulative capture wall-clock of the training step, split by when "
+        "it happened (warmup = before the first window retired, steady = "
+        "after).",
+        labels=("when",),
+    )
     g_mfu.set(0.0)
+    c_compiles_warm.inc(0)  # materialize the zero: absence is not proof
     tokens_per_example = max(
         (int(np.prod(np.asarray(v).shape[1:])) for v in first_batch.values()
          if np.asarray(v).dtype.kind in "iu" and np.asarray(v).ndim >= 2),
@@ -446,78 +593,83 @@ def train_loop(
             yield stop - s
             s = stop
 
-    batches = itertools.chain([first_batch], train_it)
-    for want in window_lengths(step):
-        t_in = time.perf_counter()
-        window = [_to_device(b, dev) for b in itertools.islice(batches, want)]
-        t_fetched = time.perf_counter()
-        infeed_s = t_fetched - t_in
-        if not window:
-            log.info("train iterator exhausted at step %d", step)
-            break
-        if t_start is not None:
-            input_wait_s += infeed_s
-        w = len(window)
-        rows = []
-        keys: Optional[list] = None
-        for i, batch in enumerate(window):
-            gen = step_generator(state.seed, step + i, dev)
-            loss, step_metrics = loss_fn(state.model, batch, gen)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            state.optimizer.step()
-            keys = keys if keys is not None else sorted(step_metrics)
-            rows.append(torch.stack([
-                torch.as_tensor(v, device=dev).detach().float().reshape(())
-                for v in [loss, *(step_metrics[k] for k in keys)]
-            ]))
-        # ONE device-to-host fetch per window: every step's loss is a data
-        # dependency of the stack, so the copy proves the window executed
-        # before the clock is read.
-        host = torch.stack(rows).cpu().numpy()
-        step += w
-        state.step = step
-        now = time.perf_counter()
-        if t_start is None:
-            t_start = now  # the first window absorbs warm-up
-            anchors.append((step, now))
-        else:
-            examples_after_t0 += w * config.batch_size
-            device_s = now - t_fetched
-            host_s = max(0.0, (now - window_anchor[1]) - infeed_s - device_s)
-            phases = {"infeed_wait": infeed_s, "device_compute": device_s,
-                      "device_collective": 0.0, "host": host_s}
-            for ph, secs in phases.items():
-                phase_totals[ph] += secs
-                c_phase.labels(ph).inc(secs)
-            if eff_window > 1 or (
-                config.anchor_every
-                and (step - anchors[0][0]) % config.anchor_every == 0
-            ):
+    runner = _TrainStep(state, loss_fn, dev)
+    compiles_after_warm = 0
+    infeed = windowed_infeed(itertools.chain([first_batch], train_it),
+                             window_lengths(step), WindowStager(dev))
+    try:
+        while step < config.train_steps:
+            t_in = time.perf_counter()
+            item = next(infeed, None)
+            t_fetched = time.perf_counter()
+            infeed_s = t_fetched - t_in
+            if item is None:
+                log.info("train iterator exhausted at step %d", step)
+                break
+            if t_start is not None:
+                input_wait_s += infeed_s
+            w, window = item
+            window.wait()
+            rows: Optional[torch.Tensor] = None
+            for i in range(w):
+                row, capture_s = runner.run(window.step(i), step + i)
+                if capture_s is not None:
+                    steady = t_start is not None
+                    c_compile_s.labels("steady" if steady else "warmup").inc(
+                        capture_s)
+                    if steady:
+                        compiles_after_warm += 1
+                        c_compiles_warm.inc()
+                if rows is None:
+                    rows = torch.empty((w, row.numel()), device=dev)
+                rows[i].copy_(row)
+            # ONE device-to-host fetch per window: every step's row is a data
+            # dependency of it, so the copy proves the window executed before
+            # the clock is read.
+            host = rows.cpu().numpy()
+            window.release()
+            step += w
+            state.step = step
+            now = time.perf_counter()
+            if t_start is None:
+                t_start = now  # the first window absorbs warm-up
                 anchors.append((step, now))
-        names = ["loss", *keys]
-        for i in range(w):
-            s_i = step - w + 1 + i
-            monitor.heartbeat(s_i, loss=float(host[i, 0]))
-            if config.log_every and s_i % config.log_every == 0:
-                host_metrics = {k: float(host[i, j]) for j, k in enumerate(names)}
-                if metrics_cb:
-                    metrics_cb(s_i, host_metrics)
-                log.info("step %d: %s", s_i, host_metrics)
-        metrics = {k: float(host[-1, j]) for j, k in enumerate(names)}
-        publish(step, step - window_anchor[0], now - window_anchor[1])
-        window_anchor = (step, now)
-        if checkpoint_dir:
-            _write_progress(checkpoint_dir, step)
-            if config.checkpoint_every and step % config.checkpoint_every == 0:
-                _save_checkpoint(checkpoint_dir, state, config.keep_checkpoints)
-                saved_step = step
-        if (eval_iter_fn is not None and config.eval_every
-                and step % config.eval_every == 0):
-            emit_eval(step)
-        if w < want:
-            log.info("train iterator exhausted at step %d", step)
-            break
+            else:
+                examples_after_t0 += w * config.batch_size
+                device_s = now - t_fetched
+                host_s = max(0.0, (now - window_anchor[1]) - infeed_s - device_s)
+                phases = {"infeed_wait": infeed_s, "device_compute": device_s,
+                          "device_collective": 0.0, "host": host_s}
+                for ph, secs in phases.items():
+                    phase_totals[ph] += secs
+                    c_phase.labels(ph).inc(secs)
+                if eff_window > 1 or (
+                    config.anchor_every
+                    and (step - anchors[0][0]) % config.anchor_every == 0
+                ):
+                    anchors.append((step, now))
+            names = ["loss", *runner.keys]
+            for i in range(w):
+                s_i = step - w + 1 + i
+                monitor.heartbeat(s_i, loss=float(host[i, 0]))
+                if config.log_every and s_i % config.log_every == 0:
+                    host_metrics = {k: float(host[i, j]) for j, k in enumerate(names)}
+                    if metrics_cb:
+                        metrics_cb(s_i, host_metrics)
+                    log.info("step %d: %s", s_i, host_metrics)
+            metrics = {k: float(host[-1, j]) for j, k in enumerate(names)}
+            publish(step, step - window_anchor[0], now - window_anchor[1])
+            window_anchor = (step, now)
+            if checkpoint_dir:
+                _write_progress(checkpoint_dir, step)
+                if config.checkpoint_every and step % config.checkpoint_every == 0:
+                    _save_checkpoint(checkpoint_dir, state, config.keep_checkpoints)
+                    saved_step = step
+            if (eval_iter_fn is not None and config.eval_every
+                    and step % config.eval_every == 0):
+                emit_eval(step)
+    finally:
+        infeed.close()  # stops the prefetch thread
 
     elapsed = max(1e-9, time.perf_counter() - (t_start or time.perf_counter()))
     eps = examples_after_t0 / elapsed if examples_after_t0 else 0.0
@@ -557,5 +709,6 @@ def train_loop(
             {k: round(v, 6) for k, v in phase_totals.items()}
             if eff_window > 1 else {}
         ),
+        compiles_after_warm=compiles_after_warm,
     )
     return state.model, result
