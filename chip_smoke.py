@@ -76,7 +76,25 @@ Phases (any failure raises and the script exits non-zero):
      (and two wrong-mask controls outside each); report examples/s/chip
      of two graph runs and the eager steps, MFU, peak memory of graph and
      eager, the captured AdamW update fused and foreach, and a profiled
-     step, eager and replayed.
+     step, eager and replayed;
+  8. taxi_dag — the Chicago-taxi DAG (all nine nodes of
+     ``tpu_pipelines_torch/examples/taxi_pipeline.py``) through
+     ``LocalDagRunner(device="cuda")`` over a CSV of TAXI_ROWS rows made
+     from ``--seed`` (the value ranges and categories of
+     tests/testdata/taxi_sample.csv, empty hour and company fields), 200
+     steps at batch 32: every node COMPLETE, the Evaluator and the
+     InfraValidator bless, the Pusher pushes; a rerun is all cache hits;
+     the Transform ran on the card, where the first chunk of each split
+     equals apply_host bit for bit but for log_fare_z (within its log1p
+     bound), and a graph with every z-score mean shifted by one std misses
+     that bound; the card's float64 analyzer states equal numpy's within
+     1e-12; the Trainer's losses are finite, its exported params were on
+     the card, no capture after warm-up; the pushed payload predicts raw
+     rows on the card within 1e-5 of the CPU, and the Evaluator's metrics
+     equal the same evaluation on the CPU within 1e-5; report each node's
+     wall time, Transform rows/s on the card and apply_host, a profiled
+     chunk's idle share, training and evaluation examples/s.  The DAG
+     launches none of the attention kernels.
 
 After the last phase it prints the whole script's seconds.  The last
 three lines are the ``kernels`` JSON record, the card's name and
@@ -2047,6 +2065,352 @@ def engine_long_phase(loaded, seed, card):
     return launches
 
 
+# ------------------------------------------------------------------ taxi DAG
+
+TAXI_ROWS = 1_000_000
+TAXI_SAMPLE = os.path.join(REPO, "tests", "testdata", "taxi_sample.csv")
+# Share of empty fields in the made CSV's trip_start_hour (a null int:
+# NaN after the read, bucketized past the last boundary) and company (an
+# empty string, a vocabulary term).  The reference preprocessing has no
+# fill_missing, so an empty miles, fare or tips field would reach the model
+# as NaN.
+TAXI_EMPTY = 0.01
+# Transform on the card vs apply_host, per output: the torch evaluator does
+# the same f32 ops as numpy (+ - * / with f32 scalar operands, clamp,
+# one-hot, the left-side search), so those outputs must be bit-equal.
+# log1p is the card's libdevice log1pf against numpy's: at most
+# TAXI_LOG1P_ULPS f32 ulps apart, and log_fare_z = (log1p(fare) - mean) /
+# std carries that difference through exactly-rounded ops, so per element
+# |card - host| <= TAXI_LOG1P_ULPS * ulp(log1p(fare)) / std + ulp(host).
+TAXI_LOG1P_ULPS = 2
+# The card's float64 analyzer states vs numpy's float64 (relative).
+TAXI_STATE_RTOL = 1e-12
+# The pushed payload's predictions (card vs CPU) and the Evaluator's
+# metrics (card vs the same evaluation on the CPU).
+TAXI_PRED_TOL = 1e-5
+
+
+def taxi_csv(path, seed, rows):
+    """A raw CSV with the taxi schema, ``rows`` rows made from ``seed``
+    with the value ranges and category sets of tests/testdata's sample,
+    with about TAXI_EMPTY empty fields in trip_start_hour and company."""
+    import csv as csv_mod
+
+    with open(TAXI_SAMPLE, newline="") as f:
+        sample = list(csv_mod.DictReader(f))
+    col = {k: [r[k] for r in sample] for k in sample[0]}
+    rng = np.random.default_rng(seed)
+    miles_hi = max(float(v) for v in col["trip_miles"])
+    payments = sorted(set(col["payment_type"]))
+    companies = sorted(set(col["company"]))
+    miles = rng.uniform(0.1, miles_hi, rows)
+    fare = 3.25 + 2.25 * miles + rng.uniform(0.0, 2.0, rows)
+    hour = rng.integers(0, 24, rows)
+    pay = rng.choice(payments, rows)
+    tips = np.where(pay == "Cash", 0.0,
+                    fare * rng.choice([0.0, 0.05, 0.15, 0.2], rows))
+    text = {
+        "trip_miles": np.char.mod("%.2f", miles),
+        "fare": np.char.mod("%.2f", fare),
+        "trip_start_hour": hour.astype("U"),
+        "payment_type": pay,
+        "company": rng.choice(companies, rows),
+        "tips": np.char.mod("%.2f", tips),
+    }
+    for name in ("trip_start_hour", "company"):
+        text[name] = np.where(rng.random(rows) < TAXI_EMPTY, "", text[name])
+    header = list(text)
+    lines = text[header[0]]
+    for name in header[1:]:
+        lines = np.char.add(np.char.add(lines, ","), text[name])
+    with open(path, "w") as f:
+        f.write(",".join(header) + "\n")
+        f.write("\n".join(lines.tolist()))
+        f.write("\n")
+
+
+def _f32_ulp(x):
+    x = np.abs(np.asarray(x, np.float32))
+    return np.spacing(x).astype(np.float64)
+
+
+def held_to_host(host, got, bound, what):
+    """``got`` (a Transform's outputs on the card) against ``host``
+    (apply_host): every output bit for bit, dtypes included, but
+    log_fare_z, held per element to ``bound``; returns log_fare_z's worst
+    share of its bound."""
+    ratio = None
+    for name in host:
+        a = np.asarray(host[name], np.float64)
+        b = np.asarray(got[name], np.float64)
+        if not np.array_equal(np.isnan(a), np.isnan(b)):
+            raise AssertionError(f"taxi_dag: {what} {name} NaNs differ")
+        diff = np.abs(np.nan_to_num(a) - np.nan_to_num(b))
+        if name == "log_fare_z":
+            ratio = float(np.nanmax(diff / bound))
+            if ratio > 1.0:
+                raise AssertionError(f"taxi_dag: {what} log_fare_z at "
+                                     f"{ratio:.3f} of its bound")
+        elif diff.max() != 0 or host[name].dtype != got[name].dtype:
+            raise AssertionError(
+                f"taxi_dag: {what} {name} not bit-equal to apply_host (max "
+                f"|diff| {diff.max():.3e}, dtypes {host[name].dtype}/"
+                f"{got[name].dtype})")
+    return ratio
+
+
+def transform_checks(graph_uri, raw_uri, materialized_uri, card):
+    """The Transform on the card: the first chunk of each split as the
+    Transform node materialized it, and as apply_device gives it now,
+    against apply_host of the same raw rows (and a shifted-mean control
+    that must miss); then the card's float64 analyzer states vs numpy's."""
+    from tpu_pipelines_torch.data import examples_io
+    from tpu_pipelines_torch.transform import graph as tg
+
+    graph = tg.TransformGraph.load(graph_uri)
+    zs = [n.id for n in graph.nodes if n.op == "z_score"]
+    log1p_z = graph.outputs["log_fare_z"]
+    for split in ("train", "eval"):
+        # Output shard i is input shard i, chunk for chunk.
+        chunk = next(examples_io.iter_column_chunks(raw_uri, split))
+        materialized = next(examples_io.iter_column_chunks(
+            materialized_uri, split))
+        host = graph.apply_host(chunk)
+        dev = graph.apply_device(chunk, "cuda")
+        if graph.device_apply_active is not True:
+            raise AssertionError("taxi_dag: the Transform graph did not run "
+                                 "on the card")
+        fare = np.asarray(chunk["fare"], np.float32)
+        l_host = np.log1p(fare)
+        l_dev = torch.log1p(torch.from_numpy(fare).cuda()).cpu().numpy()
+        ok = ~np.isnan(l_host)
+        ulps = np.abs(l_dev[ok].astype(np.float64) - l_host[ok]) / _f32_ulp(
+            l_host[ok])
+        if ulps.max() > TAXI_LOG1P_ULPS:
+            raise AssertionError(f"taxi_dag: log1p {ulps.max()} ulps apart")
+        std = float(graph.state[log1p_z]["std"])
+        bound = (TAXI_LOG1P_ULPS * _f32_ulp(l_host) / std
+                 + _f32_ulp(host["log_fare_z"]))
+        node_ratio = held_to_host(host, materialized, bound, "Transform node")
+        dev_ratio = held_to_host(host, dev, bound, "apply_device")
+        # Control: every z-score mean shifted by one std must miss.
+        shifted = tg.TransformGraph.load(graph_uri)
+        for nid in zs:
+            st = shifted.state[nid]
+            st["mean"] = float(st["mean"]) + float(st["std"])
+        ctl = shifted.apply_device(chunk, "cuda")
+        ctl_ratio = float(np.nanmax(np.abs(
+            np.asarray(ctl["log_fare_z"], np.float64)
+            - np.asarray(host["log_fare_z"], np.float64)) / bound))
+        ctl_miles = float(np.nanmax(np.abs(ctl["miles_z"] - host["miles_z"])))
+        if ctl_ratio <= 1.0 or ctl_miles == 0.0:
+            raise AssertionError("taxi_dag: the shifted-mean control did not "
+                                 "miss the bound")
+        print(f"taxi_dag transform [{card}] {split} chunk of "
+              f"{len(fare)} rows: the Transform node's output and "
+              f"apply_device == apply_host bit for bit on "
+              f"{sorted(n for n in host if n != 'log_fare_z')}; log1p at most "
+              f"{ulps.max():.0f} ulps apart, log_fare_z at {node_ratio:.3f} "
+              f"(node) / {dev_ratio:.3f} of its bound; shifted-mean control "
+              f"{ctl_ratio:.3e} of it (miles_z off by {ctl_miles:.3f})",
+              flush=True)
+
+    # The card's float64 analyzer states vs numpy float64 on the host.
+    host_graph = tg.TransformGraph(graph.nodes, graph.outputs)
+    host_graph.analyze_chunks(
+        lambda: examples_io.iter_column_chunks(raw_uri, "train"), device=None)
+    worst_rel = 0.0
+    for nid, st in graph.state.items():
+        for key, val in st.items():
+            if key.startswith("_"):
+                continue
+            want = host_graph.state[nid][key]
+            if key == "vocab":
+                if list(val) != list(want):
+                    raise AssertionError(f"taxi_dag: vocab #{nid} differs")
+                continue
+            a = np.asarray(val, np.float64)
+            b = np.asarray(want, np.float64)
+            rel = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-300))
+                        ) if a.size else 0.0
+            worst_rel = max(worst_rel, rel)
+            if a.shape != b.shape or rel > TAXI_STATE_RTOL:
+                raise AssertionError(
+                    f"taxi_dag: analyzer #{nid} {key} card {a} vs host {b}")
+    print(f"taxi_dag analyzers [{card}]: float64 states on the card vs numpy "
+          f"on the host, worst relative difference {worst_rel:.3e} (bound "
+          f"{TAXI_STATE_RTOL:g})", flush=True)
+    return graph
+
+
+def transform_rates(graph, raw_uri, card, n_chunks=16):
+    """Materialization rows/s over the train split's first chunks: the
+    torch evaluator on the card vs apply_host; and one profiled chunk."""
+    from tpu_pipelines_torch.data import examples_io
+
+    chunks = []
+    for chunk in examples_io.iter_column_chunks(raw_uri, "train"):
+        chunks.append(chunk)
+        if len(chunks) == n_chunks:
+            break
+    rows = sum(len(c["fare"]) for c in chunks)
+    graph.apply_device(chunks[0], "cuda")
+    rates = {}
+    for name, fn in (("card", lambda c: graph.apply_device(c, "cuda")),
+                     ("apply_host", graph.apply_host)):
+        t0 = time.perf_counter()
+        for c in chunks:
+            fn(c)
+        rates[name] = rows / (time.perf_counter() - t0)
+
+    def step(_):
+        graph.apply_device(chunks[0], "cuda")
+        torch.cuda.synchronize()
+
+    wall_ms, profiled_ms, busy_ms, by_name, n_kernels = profiled(step, 5)
+    print(f"taxi_dag transform rate [{card}]: {rates['card']:.0f} rows/s "
+          f"through the card, {rates['apply_host']:.0f} rows/s apply_host "
+          f"({n_chunks} chunks, {rows} rows); one chunk of "
+          f"{len(chunks[0]['fare'])} rows: host wall {wall_ms:.3f} ms "
+          f"({profiled_ms:.3f} ms traced), device busy {busy_ms:.4f} ms "
+          f"(idle share {1 - busy_ms / profiled_ms:.3f}), {n_kernels:.0f} "
+          f"kernels", flush=True)
+    return rates
+
+
+def taxi_dag_phase(seed, card, workdir, rows=TAXI_ROWS):
+    """The Chicago-taxi DAG on the card: all nine nodes through
+    LocalDagRunner(device="cuda"), cold then warm, with the Transform, the
+    Trainer and the served payload checked."""
+    from tpu_pipelines_torch import trainer as trainer_pkg
+    from tpu_pipelines_torch.components.evaluator import evaluate_payload
+    from tpu_pipelines_torch.data import examples_io
+    from tpu_pipelines_torch.evaluation.metrics import EvalOutcome
+    from tpu_pipelines_torch.examples.taxi_pipeline import create_pipeline
+    from tpu_pipelines_torch.metadata import open_store
+    from tpu_pipelines_torch.orchestration import LocalDagRunner
+
+    base = os.path.join(workdir, "taxi")
+    os.makedirs(base)
+    csv_path = os.path.join(base, "taxi.csv")
+    t0 = time.perf_counter()
+    taxi_csv(csv_path, seed, rows)
+    print(f"taxi_dag data: {rows} rows, {os.path.getsize(csv_path)} bytes of "
+          f"CSV made in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # The Trainer's run_fn calls train_loop and export_model through the
+    # trainer package: record its logged losses and the device of the
+    # exported params.
+    seen = {"losses": [], "param_devices": set()}
+    real_loop, real_export = trainer_pkg.train_loop, trainer_pkg.export_model
+
+    def loop(**kw):
+        def cb(step, metrics):
+            seen["losses"] += [v for k, v in metrics.items() if "loss" in k]
+        model, result = real_loop(metrics_cb=cb, **kw)
+        seen["result"] = result
+        return model, result
+
+    def export(**kw):
+        seen["param_devices"] |= {str(t.device) for t in kw["params"].values()}
+        return real_export(**kw)
+
+    with mock.patch.object(trainer_pkg, "train_loop", loop), \
+            mock.patch.object(trainer_pkg, "export_model", export):
+        t0 = time.perf_counter()
+        cold = LocalDagRunner(device="cuda").run(create_pipeline(base, csv_path))
+        cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = LocalDagRunner(device="cuda").run(create_pipeline(base, csv_path))
+    warm_s = time.perf_counter() - t0
+    statuses = {k: v.status for k, v in cold.nodes.items()}
+    if len(statuses) != 9 or set(statuses.values()) != {"COMPLETE"}:
+        raise AssertionError(f"taxi_dag: cold run {statuses}")
+    if {v.status for v in warm.nodes.values()} != {"CACHED"}:
+        raise AssertionError(
+            f"taxi_dag: warm run {({k: v.status for k, v in warm.nodes.items()})}")
+    print(f"taxi_dag nodes [{card}]: cold run {cold_s:.1f} s: " + ", ".join(
+        f"{k} {v.wall_clock_s:.2f} s" for k, v in cold.nodes.items())
+        + f"; warm run {warm_s:.2f} s, all 9 CACHED", flush=True)
+
+    store = open_store(os.path.join(base, "metadata.sqlite"))
+    try:
+        props = {
+            n: [e for e in store.get_executions(node_id=n)
+                if e.state.value == "COMPLETE"][-1].properties
+            for n in statuses
+        }
+    finally:
+        store.close()
+    out = {k: {key: arts[0].uri for key, arts in v.outputs.items()}
+           for k, v in cold.nodes.items()}
+    if not props["Evaluator"]["blessed"] or not props["InfraValidator"]["blessed"]:
+        raise AssertionError(f"taxi_dag: not blessed: {props['Evaluator']}")
+    if not props["Pusher"]["pushed"]:
+        raise AssertionError(f"taxi_dag: not pushed: {props['Pusher']}")
+    tprops = props["Transform"]
+    if not tprops["materialize_on_device"] or tprops["device"] != "cuda":
+        raise AssertionError(f"taxi_dag: Transform ran {tprops}")
+
+    # Trainer: finite losses, params on the card, no capture after warm-up.
+    result = seen["result"]
+    losses = seen["losses"] + [props["Trainer"]["final_loss"],
+                               props["Trainer"]["final_eval_loss"]]
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"taxi_dag: losses {losses}")
+    if seen["param_devices"] != {"cuda:0"}:
+        raise AssertionError(f"taxi_dag: exported params on "
+                             f"{seen['param_devices']}")
+    if result.compiles_after_warm != 0:
+        raise AssertionError(f"taxi_dag: {result.compiles_after_warm} "
+                             "captures after warm-up")
+    print(f"taxi_dag trainer [{card}]: {result.steps_completed} steps at "
+          f"batch 32, {result.examples_per_sec:.1f} examples/s, "
+          f"{len(losses)} logged losses finite (last {losses[-3]:.4f}), "
+          f"eval accuracy {props['Trainer']['final_eval_accuracy']:.4f}, "
+          f"compiles after warm-up 0, exported params on cuda:0", flush=True)
+
+    raw_uri = out["CsvExampleGen"]["examples"]
+    graph = transform_checks(out["Transform"]["transform_graph"], raw_uri,
+                             out["Transform"]["transformed_examples"], card)
+    transform_rates(graph, raw_uri, card)
+
+    # Served payload: the pushed version on the card vs on the CPU.
+    pushed = props["Pusher"]["destination"]
+    raw = next(examples_io.iter_column_chunks(raw_uri, "eval", rows=4096))
+    on_card = load_exported_model(pushed, device="cuda").predict(raw)
+    on_cpu = load_exported_model(pushed, device="cpu").predict(raw)
+    gap = float(np.max(np.abs(on_card - on_cpu)))
+    if on_card.shape != (len(raw["fare"]),) or gap > TAXI_PRED_TOL:
+        raise AssertionError(f"taxi_dag: served predictions card vs CPU {gap}")
+
+    # Evaluator: its metrics from the card vs the same evaluation on the CPU.
+    model_uri = out["Trainer"]["model"]
+    examples_uri = out["Transform"]["transformed_examples"]
+    eval_props = {"label_key": "label_big_tip", "eval_split": "eval",
+                  "batch_size": 512, "slice_columns": ["hour_bucket"],
+                  "problem": "binary_classification"}
+    card_metrics = EvalOutcome.load(out["Evaluator"]["evaluation"]).overall()
+    n_eval = card_metrics.num_examples
+    t0 = time.perf_counter()
+    evaluate_payload(model_uri, examples_uri, eval_props, "cuda")
+    eval_s = time.perf_counter() - t0
+    cpu_metrics = evaluate_payload(model_uri, examples_uri, eval_props,
+                                   "cpu").overall()
+    metric_gap = max(abs(card_metrics.metrics[k] - cpu_metrics.metrics[k])
+                     for k in card_metrics.metrics)
+    if metric_gap > TAXI_PRED_TOL or cpu_metrics.num_examples != n_eval:
+        raise AssertionError(f"taxi_dag: Evaluator card {card_metrics} vs "
+                             f"CPU {cpu_metrics}")
+    print(f"taxi_dag served [{card}]: pushed payload predicts {len(on_card)} "
+          f"raw rows on the card within {gap:.3e} of the CPU (bound "
+          f"{TAXI_PRED_TOL:g}); Evaluator accuracy "
+          f"{card_metrics.metrics['accuracy']:.4f}, auc "
+          f"{card_metrics.metrics['auc']:.4f} on {n_eval} examples, within "
+          f"{metric_gap:.3e} of the CPU; evaluation {n_eval / eval_s:.0f} "
+          f"examples/s on the card", flush=True)
+
+
 def build_kernels():
     """Build every CUDA source, one nvcc each, all started together."""
     seconds, errors = {}, {}
@@ -2122,6 +2486,17 @@ def main(argv=None) -> int:
     phase_done("engine_long")
     trained = training_phase(args.seed, args.train_steps, card)
     phase_done("training")
+    # The taxi DAG launches none of the attention kernels (its Transform
+    # and model are plain torch): the counters stay where training left
+    # them, and the phase checks so.
+    before = (fa.launches, fa.dq_launches, fa.dkv_launches, fa.dvec_launches,
+              fa.decode_launches)
+    with tempfile.TemporaryDirectory() as workdir:
+        taxi_dag_phase(args.seed, card, workdir)
+    if (fa.launches, fa.dq_launches, fa.dkv_launches, fa.dvec_launches,
+            fa.decode_launches) != before:
+        raise AssertionError("taxi_dag: an attention kernel launched")
+    phase_done("taxi_dag")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s",
           flush=True)
     # launches: each kernel's count in its own paths' runs: training for the

@@ -2,7 +2,9 @@
 
 ``tpu_pipelines_torch`` and ``chip_smoke.py`` must run on a machine with
 PyTorch and no JAX, so they import neither ``jax``/``flax``/``optax``/
-``orbax`` nor any ``tpu_pipelines`` module (jax-free ones included).  Two
+``orbax`` nor any ``tpu_pipelines`` module (jax-free ones included), nor
+``pyarrow``: the port's data plane is numpy's own ``.npz`` shards, so the
+card's machine needs no Parquet reader.  Two
 checks: a fresh interpreter imports every module of the port (and
 chip_smoke.py, without running it) and then finds none of those in
 ``sys.modules``; and a scan of every import statement in the port's source.
@@ -15,7 +17,8 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpu_pipelines")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpu_pipelines",
+             "pyarrow")
 
 
 def _forbidden(module_name):
@@ -58,7 +61,18 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
                    "trainer.train_loop", "trainer.fn_args",
                    "observability.health", "examples.bert_module",
                    "models.t5", "serving.generative", "examples.t5_module",
-                   "data.input_pipeline"):
+                   "data.input_pipeline", "data.examples_io",
+                   "data.statistics", "data.schema", "data.shard_plan",
+                   "dsl.compiler", "dsl.component", "metadata.store",
+                   "orchestration.local_runner", "transform.graph",
+                   "transform.expr", "components.example_gen",
+                   "components.statistics_gen", "components.schema_gen",
+                   "components.example_validator", "components.transform",
+                   "components.trainer", "components.evaluator",
+                   "components.infra_validator", "components.pusher",
+                   "evaluation.metrics", "models.taxi",
+                   "examples.taxi_module", "examples.taxi_pipeline",
+                   "examples.taxi_preprocessing"):
         assert f"tpu_pipelines_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["modules"]
     leaked = [m for m in report["modules"] if _forbidden(m)]

@@ -125,7 +125,9 @@ def test_payload_with_transform_graph_is_refused(tmp_path):
     spec = json.load(open(spec_path))
     spec["has_transform"] = True
     json.dump(spec, open(spec_path, "w"))
-    with pytest.raises(NotImplementedError, match="transform"):
+    # The port serves transform payloads now; one that claims a graph but
+    # carries none is refused at load.
+    with pytest.raises(FileNotFoundError, match="transform_graph"):
         load_exported_model(payload, device="cpu")
 
 

@@ -1,0 +1,216 @@
+"""Transform component: analyze once, materialize skew-free features.
+
+The port of ``tpu_pipelines/components/transform.py`` (TFX Transform): the
+user's ``preprocessing_fn(inputs, tft)`` (from ``module_file``) builds a
+column DAG; one full pass over the train split resolves the analyzers;
+every split is then materialized through the resolved graph, and the graph
+itself is the ``transform_graph`` artifact that Trainer, Evaluator and
+serving reuse.
+
+Where it runs: on the runner's device (``ctx.extras["device"]``).  The
+numeric analyzers reduce there in float64 and materialization goes through
+``graph.apply_device`` (host string ops, then the torch evaluator on the
+device).  A failure there raises: nothing gives way to host numpy.
+``materialize_on_device=False`` is the user's choice of host numpy
+(``apply_host``), and ``analyze_on_chip=False`` of numpy analyzers.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+import shutil
+
+from tpu_pipelines_torch.data import examples_io
+from tpu_pipelines_torch.data.schema import Schema
+from tpu_pipelines_torch.data.shard_plan import thread_map
+from tpu_pipelines_torch.dsl.component import Parameter, component
+from tpu_pipelines_torch.transform.expr import OPS
+from tpu_pipelines_torch.transform.graph import TransformGraph
+from tpu_pipelines_torch.utils.module_loader import load_fn
+
+MODULE_COPY = "module_file.py"
+
+
+@component(
+    inputs={"examples": "Examples", "schema": "Schema"},
+    outputs={
+        "transform_graph": "TransformGraph",
+        "transformed_examples": "Examples",
+    },
+    parameters={
+        "module_file": Parameter(type=str, required=True),
+        # Split used for the analysis full pass (TFX analyzes train).
+        "analyze_split": Parameter(type=str, default="train"),
+        # Pass through untransformed columns (e.g. raw label) verbatim.
+        "passthrough_columns": Parameter(type=list, default=None),
+        # Rows per streamed chunk for analysis + materialization; peak host
+        # memory is O(chunk), never O(split).
+        "chunk_rows": Parameter(type=int, default=0),  # 0 = row-group size
+        # Numeric analyzer reductions on the runner's device: None (auto)
+        # or True = on the device, False = numpy on the host.
+        "analyze_on_chip": Parameter(type=bool, default=None),
+        # Materialize through the torch evaluator on the runner's device:
+        # None (auto) or True = on the device, False = host numpy.
+        "materialize_on_device": Parameter(type=bool, default=None),
+    },
+    external_input_parameters=("module_file",),
+    resource_class="tpu",
+    lint_module_fns=("preprocessing_fn",),
+)
+def Transform(ctx):
+    from tpu_pipelines_torch.utils.device import resolve_device
+
+    device = resolve_device(ctx.extras.get("device", "cuda"))
+    module_file = ctx.exec_properties["module_file"]
+    preprocessing_fn = load_fn(module_file, "preprocessing_fn")
+    schema = Schema.load(ctx.input("schema").uri)
+    examples_uri = ctx.input("examples").uri
+
+    graph = TransformGraph.build(preprocessing_fn, schema)
+
+    analyze_split = ctx.exec_properties["analyze_split"]
+    splits = examples_io.split_names(examples_uri)
+    if analyze_split not in splits:
+        raise ValueError(
+            f"analyze_split {analyze_split!r} not in {splits}"
+        )
+    chunk_rows = (
+        ctx.exec_properties["chunk_rows"] or examples_io.DEFAULT_ROW_GROUP
+    )
+
+    analyze_rows = 0
+
+    def counted_chunks():
+        nonlocal analyze_rows
+        for chunk in examples_io.iter_column_chunks(
+            examples_uri, analyze_split, rows=chunk_rows
+        ):
+            if chunk:
+                analyze_rows += len(next(iter(chunk.values())))
+            yield chunk
+
+    t0 = time.perf_counter()
+    on_chip = ctx.exec_properties["analyze_on_chip"] is not False
+    graph.analyze_chunks(counted_chunks, device=device if on_chip else None)
+    analyze_s = time.perf_counter() - t0
+
+    graph_out = ctx.output("transform_graph")
+    graph.save(graph_out.uri)
+    # Record the user's module source next to the graph for lineage/debugging
+    # (the graph is self-contained; this copy is informational).
+    shutil.copyfile(module_file, os.path.join(graph_out.uri, MODULE_COPY))
+    graph_out.properties["output_features"] = graph.output_feature_names()
+
+    passthrough = ctx.exec_properties["passthrough_columns"] or []
+    transformed_out = ctx.output("transformed_examples")
+
+    on_device = ctx.exec_properties.get("materialize_on_device") is not False
+
+    def materialize_chunk(raw):
+        if on_device:
+            return graph.apply_device(raw, device)
+        return graph.apply_host(raw)
+
+    def materialize_shard(task):
+        """One shard in, one shard out: apply-fn over the shard's chunks
+        into this shard's writer.  Returns (rows, output schema or None)."""
+        split, shard, n_shards = task
+        writer = None
+        schema = None
+        n_rows = 0
+        try:
+            for raw in examples_io.iter_column_chunks(
+                examples_uri, split, rows=chunk_rows, shards=[shard]
+            ):
+                cols = materialize_chunk(raw)
+                for name in passthrough:
+                    if name in cols:
+                        raise ValueError(
+                            f"passthrough column {name!r} collides with a "
+                            "transform output"
+                        )
+                    cols[name] = raw[name]
+                table = examples_io.table_from_columns(cols)
+                if writer is None:
+                    schema = table
+                    writer = examples_io.open_split_writer(
+                        transformed_out.uri, split, schema,
+                        shard=shard, num_shards=n_shards,
+                    )
+                writer.write_table(table)
+                n_rows += table.num_rows
+        finally:
+            if writer is not None:
+                writer.close()
+        return n_rows, schema
+
+    counts = {}
+    split_wall = {}
+    shard_counts = {}
+    t0 = time.perf_counter()
+    for split in splits:
+        n_shards = examples_io.num_split_shards(examples_uri, split)
+        shard_counts[split] = n_shards
+        t_split = time.perf_counter()
+        # Output layout mirrors the input layout (shard i in -> shard i
+        # out), so per-shard row order — and the concatenated split order —
+        # is identical to the sequential single-writer materialization.
+        results = thread_map(
+            materialize_shard,
+            [(split, shard, n_shards) for shard in range(n_shards)],
+        )
+        schemas = [s for _, s in results if s is not None]
+        if schemas:
+            # Backfill empty shards (columns of no rows) so the shard set
+            # stays complete; a fully-empty split writes nothing.
+            for shard, (n, schema) in enumerate(results):
+                if schema is None:
+                    examples_io.open_split_writer(
+                        transformed_out.uri, split, schemas[0],
+                        shard=shard, num_shards=n_shards,
+                    ).close()
+        counts[split] = sum(n for n, _ in results)
+        split_wall[split] = round(time.perf_counter() - t_split, 4)
+    materialize_s = time.perf_counter() - t0
+    total_rows = sum(counts.values())
+    transformed_out.properties["split_names"] = sorted(counts)
+    transformed_out.properties["split_counts"] = counts
+    # Span lineage rides through: per-span transformed
+    # examples keep their span identity so the rolling-window resolver can
+    # window them exactly like raw Examples (output shard layout already
+    # mirrors the input's shard-for-shard).
+    for key in ("span", "version"):
+        if key in ctx.input("examples").properties:
+            transformed_out.properties[key] = (
+                ctx.input("examples").properties[key]
+            )
+    return {
+        "num_analyzers": sum(
+            1 for n in graph.nodes
+            if n.op in OPS and OPS[n.op].is_analyzer
+        ),
+        "output_features": graph.output_feature_names(),
+        # Host data-plane throughput: materialization covers the host
+        # string ops, the device evaluator and the shard writes.
+        "analyze_wall_s": round(analyze_s, 4),
+        # Full-pass analysis throughput.  The pass may run multiple phases
+        # over the split for nested analyzers, so rows here counts every
+        # streamed row, re-reads included.
+        "analyze_rows_per_sec": (
+            round(analyze_rows / analyze_s, 2) if analyze_s > 0 else 0.0
+        ),
+        "materialize_wall_s": round(materialize_s, 4),
+        "materialize_split_wall_s": split_wall,
+        "materialize_rows_per_sec": (
+            round(total_rows / materialize_s, 2) if materialize_s > 0 else 0.0
+        ),
+        # Input shard layout per split == output layout (shard i -> shard i).
+        "data_shards": shard_counts,
+        # True = every chunk went through the torch evaluator on the
+        # device (False: the user chose host numpy, or the graph's
+        # interface carries strings).
+        "materialize_on_device": bool(
+            on_device and graph.device_apply_active is not False),
+        "device": str(device),
+    }

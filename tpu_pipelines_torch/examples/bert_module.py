@@ -5,8 +5,9 @@ the serving hook routes the tokenized feature dict into the classifier,
 with ``attention_mask = input_ids > 0`` when the request carries none.
 ``loss_fn``, ``init_params_fn`` and ``adamw`` are the pieces its ``run_fn``
 hands to ``train_loop`` (softmax cross-entropy on integer labels plus
-accuracy; ``optax.adamw``).  ``run_fn`` itself reads the Examples artifact
-through the Parquet data plane and waits for it (``ROADMAP.md`` A4).
+accuracy; ``optax.adamw``).  ``run_fn`` itself, which reads the Examples
+artifact through ``BatchIterator``, waits for the BERT pipeline twin
+(``ROADMAP.md`` A15).
 """
 
 from typing import Any, Dict, Optional

@@ -13,9 +13,9 @@
 
 End-of-sequence defaults to the tokenizer's [SEP] (id 3), as in the
 reference module: its tokenizer emits "[CLS] ... [SEP]" with [PAD]=0
-[UNK]=1 [CLS]=2 [SEP]=3, so trained targets end with 3.  ``run_fn`` reads
-the Examples artifact through the Parquet data plane and waits for it
-(``ROADMAP.md`` A4), as the BERT module's does.
+[UNK]=1 [CLS]=2 [SEP]=3, so trained targets end with 3.  ``run_fn``, which
+reads the Examples artifact through ``BatchIterator``, waits for the T5
+pipeline twin (``ROADMAP.md`` A15), as the BERT module's does.
 """
 
 from typing import Any, Dict, Optional

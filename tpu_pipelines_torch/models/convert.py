@@ -1,6 +1,7 @@
 """Weight carrier: a flax params tree as the port's ``state_dict``.
 
-``bert_state_dict_from_flax`` and ``t5_state_dict_from_flax`` map the
+``bert_state_dict_from_flax``, ``t5_state_dict_from_flax`` and
+``taxi_state_dict_from_flax`` map the
 nested dict of numpy arrays that ``tpu_pipelines.models.bert`` / ``.t5``
 train (``model.init(...)["params"]``) onto the modules of
 ``tpu_pipelines_torch.models.bert`` / ``.t5``.  Values are copied bit for
@@ -132,4 +133,25 @@ def t5_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor
             put(f"{prefix}.mlp.wo", _linear(layer["mlp"]["wo"]))
             put(f"{prefix}.mlp_norm", _rms(layer["mlp_norm"]))
         put(f"{stack}.final_norm", _rms(tree["final_norm"]))
+    return out
+
+
+def taxi_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``tpu_pipelines.models.taxi`` ``WideAndDeep`` params ->
+    ``tpu_pipelines_torch.models.taxi`` state dict: ``embed_<name>`` tables
+    as they are, ``dense_<i>``, ``deep_head`` and ``wide_head`` kernels
+    transposed."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, node in params.items():
+        if key.startswith("embed_"):
+            prefix = f"embeds.{key}"
+            tensors = _embed(node)
+        elif key.startswith("dense_"):
+            prefix, tensors = f"dense.{key}", _linear(node)
+        elif key in ("deep_head", "wide_head"):
+            prefix, tensors = key, _linear(node)
+        else:
+            raise KeyError(f"unexpected taxi param {key!r}")
+        for name, t in tensors.items():
+            out[f"{prefix}.{name}"] = t
     return out

@@ -4,18 +4,24 @@ Same layout as ``tpu_pipelines/trainer/export.py``, with its own format tag:
 
     <uri>/checkpoint/state_dict.pt   torch.save'd {name: tensor}
     <uri>/module_copy.py             user module (defines build_model)
+    <uri>/transform_graph/           copy of the resolved TransformGraph
+                                     (optional)
     <uri>/model_spec.json            format, hyperparameters, has_transform,
                                      dtype, params_bytes
 
 Loading builds the module's model on the requested device (CUDA unless
-the caller asks for the CPU) and returns ``predict(batch)`` that runs the
-forward pass under ``torch.inference_mode()`` and returns numpy.  A module
+the caller asks for the CPU).  ``predict_transformed(batch)`` runs the
+forward pass under ``torch.inference_mode()`` and returns numpy;
+``predict(raw_batch)`` of a payload with a transform graph runs the
+graph's host stage in numpy, moves the interface to the device and runs
+the graph's torch evaluator and the forward pass in one
+``inference_mode`` call (without a graph it is ``predict_transformed``).  A module
 that defines ``make_generate_step(model, hp) -> fn(params, batch)`` (or the
 legacy ``make_generate_fn(model, params, hp) -> fn(batch)``) gets
 ``LoadedModel.generate``; one that defines ``make_decode_fns(model, hp)``
 gets ``LoadedModel.decode_fns``, the continuous-batching engine's contract.
-Payloads that embed a transform graph, quantized payloads and ahead-of-time
-dispatch wait for later slices of the port.
+Quantized payloads and ahead-of-time dispatch wait for later slices of the
+port (``ROADMAP.md`` A9, A14).
 """
 
 from __future__ import annotations
@@ -24,35 +30,23 @@ import dataclasses
 import json
 import os
 import shutil
-from typing import Any, Callable, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from tpu_pipelines_torch.trainer import quantize as qz
+from tpu_pipelines_torch.transform.graph import TransformGraph
+from tpu_pipelines_torch.utils.device import resolve_device  # noqa: F401  (re-exported)
 from tpu_pipelines_torch.utils.module_loader import load_fn, load_module
 
 SPEC_FILE = "model_spec.json"
 MODULE_COPY = "module_copy.py"
 CHECKPOINT_DIR = "checkpoint"
 STATE_FILE = "state_dict.pt"
+TRANSFORM_DIR = "transform_graph"
 FORMAT_VERSION = "tpu-pipelines-torch-model/v1"
-
-
-def resolve_device(device: Any) -> torch.device:
-    """``device`` as a ``torch.device``; a CUDA device without CUDA raises
-    (nothing falls back to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {str(device)!r} requested but CUDA is not available; "
-                "pass device='cpu' to run on the CPU"
-            )
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {str(device)!r} (cuda or cpu)")
-    return dev
 
 
 def export_model(
@@ -61,9 +55,12 @@ def export_model(
     params: Mapping[str, torch.Tensor],
     module_file: str,
     hyperparameters: Optional[Dict[str, Any]] = None,
+    transform_graph_uri: str = "",
+    extra_spec: Optional[Dict[str, Any]] = None,
 ) -> str:
-    """Write a self-contained payload of ``params`` (a state dict); returns
-    the dir."""
+    """Write a self-contained payload of ``params`` (a state dict), with a
+    copy of the TransformGraph at ``transform_graph_uri`` when given;
+    returns the dir.  ``extra_spec`` entries join the spec."""
     os.makedirs(serving_model_dir, exist_ok=True)
     ckpt = os.path.join(serving_model_dir, CHECKPOINT_DIR)
     if os.path.exists(ckpt):
@@ -72,12 +69,18 @@ def export_model(
     state = {name: t.detach().cpu() for name, t in params.items()}
     torch.save(state, os.path.join(ckpt, STATE_FILE))
     shutil.copyfile(module_file, os.path.join(serving_model_dir, MODULE_COPY))
+    if transform_graph_uri:
+        dst = os.path.join(serving_model_dir, TRANSFORM_DIR)
+        if os.path.exists(dst):
+            shutil.rmtree(dst)
+        shutil.copytree(transform_graph_uri, dst)
     spec = {
         "format": FORMAT_VERSION,
         "hyperparameters": hyperparameters or {},
-        "has_transform": False,
+        "has_transform": bool(transform_graph_uri),
         "dtype": qz.infer_dtype(state),
         "params_bytes": qz.params_nbytes(state),
+        **(extra_spec or {}),
     }
     with open(os.path.join(serving_model_dir, SPEC_FILE), "w") as f:
         json.dump(spec, f, indent=2, sort_keys=True, default=str)
@@ -100,6 +103,8 @@ class LoadedModel:
     params: Dict[str, torch.Tensor]   # the model's tensors, on ``device``
     model: nn.Module                  # from the payload's build_model, eval mode
     spec: Dict[str, Any]
+    # The payload's TransformGraph (None without one).
+    transform: Optional[TransformGraph]
     predict: Callable[[Dict[str, Any]], np.ndarray]
     predict_transformed: Callable[[Dict[str, Any]], np.ndarray]
     # apply_fn(model, params, batch) bound to the model, taking
@@ -124,11 +129,6 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
         raise ValueError(
             f"model at {uri!r} has format {spec.get('format')!r}, "
             f"expected {FORMAT_VERSION}"
-        )
-    if spec.get("has_transform"):
-        raise NotImplementedError(
-            f"model at {uri!r} embeds a transform graph; the port serves "
-            "such payloads once the transform slice (taxi DAG) lands"
         )
     dtype = str(spec.get("dtype") or qz.DTYPE_FLOAT32)
     if dtype == qz.DTYPE_AQT_INT8:
@@ -157,8 +157,22 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
         with torch.inference_mode():
             return apply_fn(model, p, batch)
 
-    def predict(batch: Dict[str, Any]) -> np.ndarray:
+    def predict_transformed(batch: Dict[str, Any]) -> np.ndarray:
         return _to_numpy(forward_step(params, batch))
+
+    transform = None
+    predict = predict_transformed
+    if spec.get("has_transform"):
+        transform = TransformGraph.load(os.path.join(uri, TRANSFORM_DIR))
+        host_fn, device_fn, _ = transform.split_host_device()
+
+        def predict(raw_batch: Dict[str, Any]) -> np.ndarray:
+            iface = {
+                k: torch.from_numpy(np.require(v, requirements=["C", "W"])).to(dev)
+                for k, v in host_fn(raw_batch).items()
+            }
+            with torch.inference_mode():
+                return _to_numpy(apply_fn(model, params, device_fn(iface)))
 
     # Generate hooks: make_generate_step keeps params an argument of every
     # call; the legacy make_generate_fn closes over them.
@@ -183,8 +197,9 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
         params=params,
         model=model,
         spec=spec,
+        transform=transform,
         predict=predict,
-        predict_transformed=predict,
+        predict_transformed=predict_transformed,
         forward_step=forward_step,
         device=dev,
         dtype=dtype,
@@ -192,3 +207,23 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
         generate=generate,
         decode_fns=decode_fns,
     )
+
+
+def model_input_columns(
+    loaded: LoadedModel, raw: bool
+) -> Optional[List[str]]:
+    """Columns the loaded model's predict path consumes, for column-projected
+    reads: ``raw=True`` the transform graph's input features (``predict``),
+    ``raw=False`` its output features (``predict_transformed``).  None (read
+    everything) when the payload carries no transform graph."""
+    if loaded.transform is None:
+        return None
+    cols = (
+        loaded.transform.input_feature_names() if raw
+        else loaded.transform.output_feature_names()
+    )
+    # Models may read declared feature lists beyond the transform surface.
+    extra = (loaded.spec.get("hyperparameters") or {}).get("features")
+    if isinstance(extra, (list, tuple)):
+        cols = sorted(set(cols) | {str(c) for c in extra})
+    return cols

@@ -2,9 +2,10 @@
 
 The port's copy of ``FnArgs`` and ``TrainResult`` from
 ``tpu_pipelines/trainer/fn_args.py`` (TFX's ``fn_args_utils.FnArgs``: data
-uris in, model dirs out).  The helpers that assemble ``FnArgs`` from a
-component's execution context wait for the component twins
-(``ROADMAP.md`` A4).
+uris in, model dirs out), with ``make_fn_args`` / ``resolve_fn_args``, which
+assemble it from a component's execution context.  The port's ``FnArgs``
+also carries ``device``: the runner's device (``ctx.extras["device"]``),
+where ``run_fn`` trains.
 """
 
 from __future__ import annotations
@@ -33,6 +34,81 @@ class FnArgs:
     mesh_config: Dict[str, int] = dataclasses.field(default_factory=dict)
     # Anything else the pipeline author wants to thread through.
     custom_config: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    # The device run_fn trains on (the runner's; CUDA unless it was asked
+    # for the CPU).
+    device: str = "cuda"
+
+
+def make_fn_args(
+    *,
+    examples_uri: str,
+    transform_graph_uri: str,
+    schema_uri: str,
+    serving_model_dir: str,
+    model_run_dir: str,
+    hyperparameters: Dict[str, Any],
+    train_steps: int,
+    eval_steps: int,
+    mesh: Optional[Dict[str, int]] = None,
+    custom_config: Optional[Dict[str, Any]] = None,
+    device: str = "cuda",
+) -> "FnArgs":
+    """The one place FnArgs fields are assembled."""
+    return FnArgs(
+        train_examples_uri=examples_uri,
+        eval_examples_uri=examples_uri,
+        transform_graph_uri=transform_graph_uri,
+        schema_uri=schema_uri,
+        serving_model_dir=serving_model_dir,
+        model_run_dir=model_run_dir,
+        train_steps=train_steps,
+        eval_steps=eval_steps,
+        hyperparameters=hyperparameters,
+        mesh_config=dict(mesh or {}),
+        custom_config=dict(custom_config or {}),
+        device=str(device),
+    )
+
+
+def ctx_data_uris(ctx) -> Dict[str, str]:
+    """Resolve the (examples, optional transform_graph/schema) input uris
+    from an executor context."""
+    return {
+        "examples_uri": ctx.input("examples").uri,
+        "transform_graph_uri": (
+            ctx.input("transform_graph").uri
+            if ctx.inputs.get("transform_graph") else ""
+        ),
+        "schema_uri": (
+            ctx.input("schema").uri if ctx.inputs.get("schema") else ""
+        ),
+    }
+
+
+def resolve_fn_args(
+    ctx,
+    *,
+    serving_model_dir: str,
+    model_run_dir: str,
+    hyperparameters: Dict[str, Any],
+    train_steps: int,
+    eval_steps: int,
+    mesh: Optional[Dict[str, int]] = None,
+    custom_config: Optional[Dict[str, Any]] = None,
+) -> "FnArgs":
+    """Build FnArgs from an executor context's resolved artifacts and the
+    runner's device (``ctx.extras["device"]``)."""
+    return make_fn_args(
+        **ctx_data_uris(ctx),
+        serving_model_dir=serving_model_dir,
+        model_run_dir=model_run_dir,
+        train_steps=train_steps,
+        eval_steps=eval_steps,
+        hyperparameters=hyperparameters,
+        mesh=mesh,
+        custom_config=custom_config,
+        device=str(ctx.extras.get("device", "cuda")),
+    )
 
 
 @dataclasses.dataclass

@@ -428,7 +428,10 @@ def _read_progress_step(checkpoint_dir: str) -> int:
 # ---- the loop
 
 def _run_eval(model, loss_fn, eval_iter_fn, config, device) -> Dict[str, float]:
-    totals: Dict[str, float] = {}
+    """Mean of each batch's loss and metrics over the eval batches.  The
+    per-batch values are summed in float64 on the device (the same sums as
+    adding their Python floats) and fetched once, not once a batch."""
+    totals: Dict[str, torch.Tensor] = {}
     n = 0
     model.eval()
     try:
@@ -438,11 +441,13 @@ def _run_eval(model, loss_fn, eval_iter_fn, config, device) -> Dict[str, float]:
                     break
                 loss, metrics = loss_fn(model, _to_device(batch, device), None)
                 for k, v in {"loss": loss, **metrics}.items():
-                    totals[k] = totals.get(k, 0.0) + float(v)
+                    v = torch.as_tensor(v, device=device).detach().double()
+                    totals[k] = v if k not in totals else totals[k] + v
                 n += 1
     finally:
         model.train()
-    return {k: v / max(1, n) for k, v in totals.items()}
+    fetched = {k: float(v) for k, v in totals.items()}
+    return {k: v / max(1, n) for k, v in fetched.items()}
 
 
 def train_loop(
