@@ -19,10 +19,11 @@ Phases (any failure raises and the script exits non-zero):
      slices, int32, bool and batch-stride-0 bool masks, L = 1, split-KV
      shapes with uneven spans, all-masked splits and clusters of 2 to 8,
      and a 4096-key cache), and time it beside its plain version, the
-     one-call PyTorch yardstick and its bound (the forward at the serving
-     and the training shapes, the backward kernels and Dvec at the training
-     shape, the decode kernel at the beam-served, the long-cache (B=32 and
-     B=4, L=4096) and the long engine bucket's shapes); the forward and
+     one-call PyTorch yardstick and its bound (the forward at the serving,
+     the training and the BERT DAG's shapes, the backward kernels and Dvec
+     at the training and the BERT DAG's shapes, the decode kernel at the
+     beam-served, the long-cache (B=32 and B=4, L=4096), the long engine
+     bucket's and the T5 DAG's BulkInferrer shapes); the forward and
      backward kernels also against a control (fed the mask shifted by one
      key) that must miss; every kernel repeated bit for bit; hold the
      attention's gradients against autograd through dense attention in
@@ -94,7 +95,38 @@ Phases (any failure raises and the script exits non-zero):
      equal the same evaluation on the CPU within 1e-5; report each node's
      wall time, Transform rows/s on the card and apply_host, a profiled
      chunk's idle share, training and evaluation examples/s.  The DAG
-     launches none of the attention kernels.
+     launches none of the attention kernels;
+  9. bert_dag — the BERT-base fine-tune DAG (the six nodes of
+     ``tpu_pipelines_torch/examples/bert_pipeline.py``: CsvExampleGen ->
+     StatisticsGen -> SchemaGen -> Transform (tokenize) -> Trainer ->
+     Evaluator) through ``LocalDagRunner(device="cuda")`` at BERT_BASE
+     (batch 256, lr 2e-5, sequences of the tokenizer's 64) with
+     ``attn_impl "flash"`` set in the Trainer's hyperparameters, 100
+     steps, over BERT_DAG_ROWS made-up reviews from ``--seed``: every node
+     COMPLETE, a rerun all cache hits with no launch; the counters, read
+     from inside the runner, hold each backward kernel at 12 x 100 and the
+     forward at 12 x (100 + the Trainer's eval batches + the Evaluator's);
+     one capture, a replay a step, no compile after warm-up; the
+     Transform's first chunk of each split on the card == apply_host bit
+     for bit; the payload's predict of raw rows == predict_transformed of
+     the materialized rows bit for bit; the Evaluator's logits, loss and
+     accuracy on two batches against the same payload with dense
+     attention (bounds from LOGIT_TOL), a shifted-mask control missing
+     it; report node seconds, tokenize rows/s, examples/s, checkpoint
+     seconds, evaluation examples/s and accuracy, a replayed step's idle
+     share;
+ 10. t5_dag — the T5-small seq2seq DAG (``examples/t5_pipeline.py``, its
+     BulkInferrer beam-decoding the raw eval split, beam 4, 32 steps,
+     batch 64) at T5_SMALL with flash decode attention, 100 steps, over
+     T5_DAG_PAIRS made-up pairs: every node COMPLETE, a rerun all cache
+     hits; the Trainer (dense: T5's self-attention carries a relative
+     bias) launches nothing, one capture, no compile after warm-up; one
+     prediction row of 32 ids per eval row, in the input's order; the
+     decode kernel launched 6 layers x 32 passes x batches; the first and
+     last batch decoded again from raw rows (the payload's embedded
+     transform) == from the materialized rows == the node's rows; the
+     first batch's teacher-forced logits against dense decode attention
+     within DECODE_LOGIT_TOL, the two controls outside it.
 
 After the last phase it prints the whole script's seconds.  The last
 three lines are the ``kernels`` JSON record, the card's name and
@@ -188,6 +220,8 @@ LSE_TOL = (1e-6, 1e-5)
 LOGIT_TOL = 4e-2
 N_LAYERS = DEFAULT_HPARAMS["n_layers"]
 SEQ_LEN = 128
+# The BERT DAG's sequence length: its tokenizer's MAX_LEN.
+PIPELINE_LEN = 64
 # Backward kernels vs their plain versions, from the same q, k, v, dO, lse
 # and Dvec.  Each gradient element may land one rounding step of the output
 # dtype away (OUT_TOL's rtol), plus an absolute term for elements that
@@ -254,12 +288,15 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
 # ------------------------------------------------------------------ kernels
 
 # name, batch, len, heads, head_dim, dtype, causal, mask, strided inputs;
-# "serving" and "training" are the BERT-base paths' shapes, "hole" masks
-# one whole interior 64-key block of every row.
+# "serving" and "training" are the BERT-base paths' shapes, "pipeline" the
+# BERT DAG's (its tokenizer's max_len), "hole" masks one whole interior
+# 64-key block of every row.
 KERNEL_CASES = [
     ("serving", 32, SEQ_LEN, 12, 64, torch.bfloat16, False, "ragged", False),
     ("training", TRAIN_BATCH, SEQ_LEN, 12, 64, torch.bfloat16, False, "ragged",
      False),
+    ("pipeline", TRAIN_BATCH, PIPELINE_LEN, 12, 64, torch.bfloat16, False,
+     "ragged", False),
     ("ragged_len", 2, 200, 4, 64, torch.bfloat16, False, "ragged", False),
     ("causal", 2, 200, 4, 32, torch.bfloat16, True, "ragged", False),
     ("empty_row", 4, SEQ_LEN, 2, 64, torch.bfloat16, False, "empty_row", False),
@@ -377,9 +414,8 @@ def kernel_phase(gen):
                                  "the bound, or a repeat differs")
         max_out_err = max(max_out_err, out_err)
         max_lse_err = max(max_lse_err, lse_err)
-        if name in ("serving", "training"):
+        if name in ("serving", "training", "pipeline"):
             timings[name] = fwd_timing(name, q, k, v, mask, causal)
-    training = timings["training"]
     return {
         "name": "flash_fwd",
         "route": "cuda",
@@ -387,11 +423,9 @@ def kernel_phase(gen):
         "replaces": "tpu_pipelines/ops/flash_attention.py:59",
         "tpu_kernel": "_fwd_kernel",
         **timings["serving"],
-        "training_shape": training["shape"],
-        "training_ms": training["ms"],
-        "training_plain_ms": training["plain_ms"],
-        "training_bound_ms": training["bound_ms"],
-        "training_library_ms": training["library_ms"],
+        **{f"{path}_{key}": timings[path][key]
+           for path in ("training", "pipeline")
+           for key in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")},
         "max_abs_err": max_out_err,
         "lse_max_abs_err": max_lse_err,
         **resources,
@@ -437,9 +471,12 @@ def fwd_timing(name, q, k, v, mask, causal):
 
 # (name, batch, len, heads, head_dim, dtype, causal, mask, strided inputs)
 # for the backward kernels; "training" is the fine-tune phase's shape,
-# "hole" masks one whole interior 64-key block of every row.
+# "pipeline" the BERT DAG's, "hole" masks one whole interior 64-key block
+# of every row.
 BWD_CASES = [
     ("training", TRAIN_BATCH, SEQ_LEN, 12, 64, torch.bfloat16, False, "ragged", False),
+    ("pipeline", TRAIN_BATCH, PIPELINE_LEN, 12, 64, torch.bfloat16, False,
+     "ragged", False),
     ("ragged_len", 2, 200, 4, 64, torch.bfloat16, False, "ragged", False),
     ("causal", 2, 200, 4, 32, torch.bfloat16, True, "ragged", False),
     ("empty_row", 4, SEQ_LEN, 2, 64, torch.bfloat16, False, "empty_row", False),
@@ -486,10 +523,10 @@ def bwd_kernel_phase(gen):
     it, repeats bit for bit, masked keys and rows exact zeros, Dvec within
     its bound, the gradients against dense attention; returns the
     flash_bwd_dq and flash_bwd_dkv records (without launches) measured at
-    the training shape."""
+    the training shape, with the BERT DAG's shape's times beside them."""
     resources = bwd_resources()
     max_err = {"dq": 0.0, "dkv": 0.0, "dvec": 0.0}
-    records = None
+    timed = {}
     for name, b, l, h, d, dtype, causal, mask_kind, strided in BWD_CASES:
         q, k, v, dout, mask = kernel_inputs(gen, b, l, h, d, dtype, mask_kind,
                                             strided, n=4)
@@ -550,8 +587,16 @@ def bwd_kernel_phase(gen):
             raise AssertionError(f"flash_bwd {name}: kernels disagree with "
                                  "their plain versions, a control stays "
                                  "within the bound, or a repeat differs")
-        if name == "training":
-            records = training_shape_timing(q, k, v, dout, out, lse, dvec, mask)
+        if name in ("training", "pipeline"):
+            timed[name] = bwd_timing(name, q, k, v, dout, out, lse, dvec, mask)
+    records = timed["training"]
+    for record, pipeline in zip(records, timed["pipeline"]):
+        record.update({f"pipeline_{key}": value for key, value in
+                       pipeline.items() if key in ("shape", "ms", "plain_ms",
+                                                   "bound_ms", "library_ms",
+                                                   "dvec_ms", "dvec_plain_ms",
+                                                   "dvec_bound_ms",
+                                                   "backward_ms")})
     for kernel, record in zip(("dq", "dkv"), records):
         record["max_abs_err"] = max_err[kernel]
         record.update(resources[kernel])
@@ -583,7 +628,7 @@ def dense_gradient_check(gen):
                                  "dense attention")
 
 
-def training_shape_timing(q, k, v, dout, out, lse, dvec, mask):
+def bwd_timing(label, q, k, v, dout, out, lse, dvec, mask):
     b, l, h, d = q.shape
     item = q.element_size()
     args = (q, k, v, dout, lse, dvec)
@@ -633,7 +678,7 @@ def training_shape_timing(q, k, v, dout, out, lse, dvec, mask):
         bytes_moved, ops = work[kernel]
         t_bytes = bytes_moved / HBM_BYTES_PER_S
         t_ops = ops / PEAK_OPS_PER_S[q.dtype]
-        print(f"kernel flash_bwd_{kernel} training shape: {ms[kernel]:.4f} ms "
+        print(f"kernel flash_bwd_{kernel} {label} shape: {ms[kernel]:.4f} ms "
               f"(plain {plain_ms[kernel]:.4f} ms); bound "
               f"{max(t_bytes, t_ops) * 1e3:.4f} ms ({bytes_moved} bytes, {ops} "
               f"ops)", flush=True)
@@ -659,10 +704,10 @@ def training_shape_timing(q, k, v, dout, out, lse, dvec, mask):
     records[0].update({"dvec_ms": dvec_ms, "dvec_plain_ms": dvec_plain_ms,
                        "dvec_bound_ms": dvec_bound_ms,
                        "backward_ms": total_ms})
-    print(f"kernel flash_bwd_dvec training shape: {dvec_ms:.4f} ms (plain "
+    print(f"kernel flash_bwd_dvec {label} shape: {dvec_ms:.4f} ms (plain "
           f"{dvec_plain_ms:.4f} ms); bound {dvec_bound_ms:.4f} ms "
           f"({dvec_bytes} bytes)", flush=True)
-    print(f"kernel flash backward training shape: Dvec {dvec_ms:.4f} ms + dq "
+    print(f"kernel flash backward {label} shape: Dvec {dvec_ms:.4f} ms + dq "
           f"{ms['dq']:.4f} ms + dkv {ms['dkv']:.4f} ms = "
           f"{dvec_ms + ms['dq'] + ms['dkv']:.4f} ms; whole backward "
           f"(flash_attention_backward) {total_ms:.4f} ms; sdpa backward "
@@ -677,10 +722,11 @@ def training_shape_timing(q, k, v, dout, out, lse, dvec, mask):
 # of an arena, ragged positions, per-row bias, a bool mask), "long_cache"
 # the shape whose bound is the k/v bytes alone, "long_cache_b4" a one-row
 # beam request at that cache, "engine_long" the long-cache engine run's
-# 2048 bucket.  Validity: "pos" keys <= L/2 in every row, "ragged" keys <=
-# a random position per row, "ragged_1500" the same with positions < 1500,
-# "eighth" positions < L/8 (every split past the first holds no allowed
-# key), "hole" ragged with keys 300..699 masked, "empty_row" ragged with
+# 2048 bucket, "bulk_infer" the T5 DAG's BulkInferrer beam step (64 rows x
+# 4 beams at its max_decode_len).  Validity: "pos" keys <= L/2 in every
+# row, "ragged" keys <= a random position per row, "ragged_1500" the same
+# with positions < 1500, "eighth" positions < L/8 (every split past the
+# first holds no allowed key), "hole" ragged with keys 300..699 masked, "empty_row" ragged with
 # row 1 all masked, "full" every key.  Mask: "int32", "bool", or
 # "bool_expanded" (one bool row expanded over the batch, batch stride 0;
 # needs "pos" or "full" validity).  The kernel takes S =
@@ -732,8 +778,11 @@ DECODE_CASES = [
      False, "bool_expanded"),
     ("engine_long", 8, 2048, 8, 64, torch.bfloat16, "ragged_1500", "per_row",
      True, "bool"),
+    ("bulk_infer", 4 * 64, 32, 8, 64, torch.bfloat16, "pos", "broadcast", False,
+     "bool_expanded"),
 ]
-DECODE_TIMED = ("served", "long_cache", "long_cache_b4", "engine_long")
+DECODE_TIMED = ("served", "long_cache", "long_cache_b4", "engine_long",
+                "bulk_infer")
 
 
 def decode_inputs(gen, b, l, h, d, dtype, validity, bias_kind, arena, mask_kind):
@@ -1614,7 +1663,8 @@ def kernel_as(wrapper):
                              wrapper or fa.flash_decode_attention)
 
 
-def teacher_forced_gaps(flash, dense, ids, mask, tokens):
+def teacher_forced_gaps(flash, dense, ids, mask, tokens,
+                        decode_len=DECODE_LEN):
     """Feed ``tokens`` (the served output) step by step through the flash
     payload, the dense one and the flash one under each control; returns
     {run: max |logits - dense logits| over every step}."""
@@ -1634,20 +1684,20 @@ def teacher_forced_gaps(flash, dense, ids, mask, tokens):
             loaded = dense if name == "dense" else flash
             with kernel_as(wrapper):
                 cache, encoded, logits = t5m.prefill_decode(
-                    loaded.model, loaded.params, ids, mask, DECODE_LEN)
+                    loaded.model, loaded.params, ids, mask, decode_len)
             states[name] = (loaded, wrapper, cache, encoded, logits)
-        for t in range(DECODE_LEN):
+        for t in range(decode_len):
             want = states["dense"][4]
             for name in runs:
                 gaps[name] = max(gaps[name], (states[name][4] - want).abs()
                                  .max().item())
-            if t + 1 == DECODE_LEN:
+            if t + 1 == decode_len:
                 break
             for name, (loaded, wrapper, cache, encoded, _) in states.items():
                 with kernel_as(wrapper):
                     cache, logits = t5m._decode_one(
                         loaded.model, loaded.params, cache, tokens[:, t],
-                        encoded, mask, t + 1, DECODE_LEN)
+                        encoded, mask, t + 1, decode_len)
                 states[name] = (loaded, wrapper, cache, encoded, logits)
     return gaps
 
@@ -2067,7 +2117,9 @@ def engine_long_phase(loaded, seed, card):
 
 # ------------------------------------------------------------------ taxi DAG
 
-TAXI_ROWS = 1_000_000
+# Cut from a deployment's months of trips so that the whole script, with
+# the two pipeline DAGs after this phase, stays near 330 s on an H100.
+TAXI_ROWS = 500_000
 TAXI_SAMPLE = os.path.join(REPO, "tests", "testdata", "taxi_sample.csv")
 # Share of empty fields in the made CSV's trip_start_hour (a null int:
 # NaN after the read, bucketized past the last boundary) and company (an
@@ -2138,22 +2190,23 @@ def held_to_host(host, got, bound, what):
     """``got`` (a Transform's outputs on the card) against ``host``
     (apply_host): every output bit for bit, dtypes included, but
     log_fare_z, held per element to ``bound``; returns log_fare_z's worst
-    share of its bound."""
+    share of its bound (None without it).  ``what`` names the phase and
+    the source in the messages."""
     ratio = None
     for name in host:
         a = np.asarray(host[name], np.float64)
         b = np.asarray(got[name], np.float64)
         if not np.array_equal(np.isnan(a), np.isnan(b)):
-            raise AssertionError(f"taxi_dag: {what} {name} NaNs differ")
+            raise AssertionError(f"{what} {name} NaNs differ")
         diff = np.abs(np.nan_to_num(a) - np.nan_to_num(b))
         if name == "log_fare_z":
             ratio = float(np.nanmax(diff / bound))
             if ratio > 1.0:
-                raise AssertionError(f"taxi_dag: {what} log_fare_z at "
+                raise AssertionError(f"{what} log_fare_z at "
                                      f"{ratio:.3f} of its bound")
         elif diff.max() != 0 or host[name].dtype != got[name].dtype:
             raise AssertionError(
-                f"taxi_dag: {what} {name} not bit-equal to apply_host (max "
+                f"{what} {name} not bit-equal to apply_host (max "
                 f"|diff| {diff.max():.3e}, dtypes {host[name].dtype}/"
                 f"{got[name].dtype})")
     return ratio
@@ -2191,8 +2244,9 @@ def transform_checks(graph_uri, raw_uri, materialized_uri, card):
         std = float(graph.state[log1p_z]["std"])
         bound = (TAXI_LOG1P_ULPS * _f32_ulp(l_host) / std
                  + _f32_ulp(host["log_fare_z"]))
-        node_ratio = held_to_host(host, materialized, bound, "Transform node")
-        dev_ratio = held_to_host(host, dev, bound, "apply_device")
+        node_ratio = held_to_host(host, materialized, bound,
+                                  "taxi_dag: Transform node")
+        dev_ratio = held_to_host(host, dev, bound, "taxi_dag: apply_device")
         # Control: every z-score mean shifted by one std must miss.
         shifted = tg.TransformGraph.load(graph_uri)
         for nid in zs:
@@ -2243,7 +2297,7 @@ def transform_checks(graph_uri, raw_uri, materialized_uri, card):
     return graph
 
 
-def transform_rates(graph, raw_uri, card, n_chunks=16):
+def transform_rates(graph, raw_uri, card, n_chunks=16, phase="taxi_dag"):
     """Materialization rows/s over the train split's first chunks: the
     torch evaluator on the card vs apply_host; and one profiled chunk."""
     from tpu_pipelines_torch.data import examples_io
@@ -2253,7 +2307,8 @@ def transform_rates(graph, raw_uri, card, n_chunks=16):
         chunks.append(chunk)
         if len(chunks) == n_chunks:
             break
-    rows = sum(len(c["fare"]) for c in chunks)
+    n_rows = [len(next(iter(c.values()))) for c in chunks]
+    rows = sum(n_rows)
     graph.apply_device(chunks[0], "cuda")
     rates = {}
     for name, fn in (("card", lambda c: graph.apply_device(c, "cuda")),
@@ -2268,10 +2323,10 @@ def transform_rates(graph, raw_uri, card, n_chunks=16):
         torch.cuda.synchronize()
 
     wall_ms, profiled_ms, busy_ms, by_name, n_kernels = profiled(step, 5)
-    print(f"taxi_dag transform rate [{card}]: {rates['card']:.0f} rows/s "
+    print(f"{phase} transform rate [{card}]: {rates['card']:.0f} rows/s "
           f"through the card, {rates['apply_host']:.0f} rows/s apply_host "
-          f"({n_chunks} chunks, {rows} rows); one chunk of "
-          f"{len(chunks[0]['fare'])} rows: host wall {wall_ms:.3f} ms "
+          f"({len(chunks)} chunks, {rows} rows); one chunk of "
+          f"{n_rows[0]} rows: host wall {wall_ms:.3f} ms "
           f"({profiled_ms:.3f} ms traced), device busy {busy_ms:.4f} ms "
           f"(idle share {1 - busy_ms / profiled_ms:.3f}), {n_kernels:.0f} "
           f"kernels", flush=True)
@@ -2411,6 +2466,519 @@ def taxi_dag_phase(seed, card, workdir, rows=TAXI_ROWS):
           f"examples/s on the card", flush=True)
 
 
+# ------------------------------------------------------------------ BERT DAG
+
+BERT_DAG_ROWS = 40_000
+BERT_DAG_STEPS = 100
+BERT_LEXICON = 3000
+# Label-bearing words per review, drawn from its label's 20 words.
+BERT_CUES = 3
+
+
+def counters():
+    return {name: getattr(fa, name) for name in fa.COUNTERS}
+
+
+def zero_counters():
+    for name in fa.COUNTERS:
+        setattr(fa, name, 0)
+
+
+def by_record(counts):
+    """Launch counters under the kernels' record names."""
+    return {"flash_fwd": counts["launches"],
+            "flash_bwd_dvec": counts["dvec_launches"],
+            "flash_bwd_dq": counts["dq_launches"],
+            "flash_bwd_dkv": counts["dkv_launches"],
+            "flash_decode": counts["decode_launches"]}
+
+
+def made_up_words(rng, n):
+    """``n`` distinct made-up words of 2-4 syllables, in a seeded order."""
+    syllables = [c + v for c in "bdfgklmnprstvz" for v in "aeiou"]
+    words = set()
+    while len(words) < n:
+        words.add("".join(rng.choice(syllables, int(rng.integers(2, 5)))))
+    return list(rng.permutation(sorted(words)))
+
+
+def quoted_text(i, text, lead):
+    """Every tenth field holds a comma and every thirteenth doubled quotes
+    after ``lead``, so the CSV's quoted fields are parsed, not split."""
+    if i % 10 == 0:
+        text = text.replace(" ", ", ", 1)
+    if i % 13 == 0:
+        text = f'{lead} ""{text}""'
+    return f'"{text}"'
+
+
+def reviews_csv(path, seed, rows):
+    """``text,label`` reviews made from ``seed``: 8-60 words from a made-up
+    lexicon of BERT_LEXICON words, BERT_CUES of them from the label's own 20
+    words (a real review corpus is not on the machine)."""
+    rng = np.random.default_rng(seed)
+    lexicon = made_up_words(rng, BERT_LEXICON)
+    cues = (np.asarray(lexicon[:20]), np.asarray(lexicon[20:40]))
+    filler = np.asarray(lexicon[40:])
+    labels = rng.integers(0, 2, rows)
+    lengths = rng.integers(8, 61, rows)
+    lines = ["text,label"]
+    for i in range(rows):
+        words = rng.choice(filler, lengths[i])
+        at = rng.choice(lengths[i], BERT_CUES, replace=False)
+        words[at] = rng.choice(cues[labels[i]], BERT_CUES)
+        lines.append(f"{quoted_text(i, ' '.join(words), 'she wrote')},"
+                     f"{labels[i]}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def payload_view(uri, dst, **hparams):
+    """A view of the payload at ``uri`` with ``hparams`` in its spec: its
+    files linked, its spec rewritten."""
+    os.makedirs(dst)
+    for name in os.listdir(uri):
+        if name != "model_spec.json":
+            os.symlink(os.path.join(uri, name), os.path.join(dst, name))
+    with open(os.path.join(uri, "model_spec.json")) as f:
+        spec = json.load(f)
+    spec["hyperparameters"].update(hparams)
+    with open(os.path.join(dst, "model_spec.json"), "w") as f:
+        json.dump(spec, f)
+    return dst
+
+
+def run_dag(name, create_pipeline, env, base, hparams, module_path):
+    """The pipeline from ``create_pipeline(base)`` under ``env``, its
+    Trainer's hyperparameters set to ``hparams``, through
+    LocalDagRunner on the card, cold then warm.  The kernels' counters
+    are set to 0 just before the cold run and read just after it; the warm
+    run must launch nothing.  Returns (cold, cold seconds, warm seconds,
+    launches, seen: the Trainer's result, logged losses,
+    checkpoint seconds, the counters when train_loop returned, CUDA graph
+    captures and replays)."""
+    import importlib
+
+    from tpu_pipelines_torch.orchestration import LocalDagRunner
+    from tpu_pipelines_torch.utils.module_loader import load_module
+
+    def pipeline():
+        with mock.patch.dict(os.environ, env):
+            pipe = create_pipeline(base)
+        trainer = next(c for c in pipe.components if c.id == "Trainer")
+        trainer.exec_properties["hyperparameters"] = hparams
+        return pipe
+
+    user = load_module(module_path)
+    loop_module = importlib.import_module("tpu_pipelines_torch.trainer.train_loop")
+    seen = {"losses": [], "checkpoint_s": [], "captures": 0, "replays": 0}
+    real_loop, real_save = user.train_loop, loop_module._save_checkpoint
+    graph = torch.cuda.CUDAGraph
+    real_replay, real_capture = graph.replay, graph.capture_begin
+
+    def loop(**kw):
+        def cb(step, metrics):
+            seen["losses"] += [v for k, v in metrics.items() if "loss" in k]
+        model, result = real_loop(metrics_cb=cb, **kw)
+        seen["result"], seen["after_trainer"] = result, counters()
+        return model, result
+
+    def save(*args, **kw):
+        t0 = time.perf_counter()
+        real_save(*args, **kw)
+        seen["checkpoint_s"].append(time.perf_counter() - t0)
+
+    def counted(key, method):
+        def wrapper(self, *args, **kwargs):
+            seen[key] += 1
+            return method(self, *args, **kwargs)
+        return wrapper
+
+    os.makedirs(base)
+    with mock.patch.object(user, "train_loop", loop), \
+            mock.patch.object(loop_module, "_save_checkpoint", save), \
+            mock.patch.object(graph, "replay", counted("replays", real_replay)), \
+            mock.patch.object(graph, "capture_begin",
+                              counted("captures", real_capture)):
+        zero_counters()
+        t0 = time.perf_counter()
+        cold = LocalDagRunner(device=DEVICE).run(pipeline())
+        cold_s = time.perf_counter() - t0
+        launches = counters()
+    t0 = time.perf_counter()
+    warm = LocalDagRunner(device=DEVICE).run(pipeline())
+    warm_s = time.perf_counter() - t0
+    statuses = {k: v.status for k, v in cold.nodes.items()}
+    if set(statuses.values()) != {"COMPLETE"}:
+        raise AssertionError(f"{name}: cold run {statuses} "
+                             + str({k: v.error[-2000:] for k, v in
+                                    cold.nodes.items() if v.error}))
+    if {v.status for v in warm.nodes.values()} != {"CACHED"}:
+        raise AssertionError(
+            f"{name}: warm run {({k: v.status for k, v in warm.nodes.items()})}")
+    if counters() != launches:
+        raise AssertionError(f"{name}: the warm run launched a kernel")
+    return cold, cold_s, warm_s, launches, seen
+
+
+def node_props(base, nodes):
+    from tpu_pipelines_torch.metadata import open_store
+
+    store = open_store(os.path.join(base, "metadata.sqlite"))
+    try:
+        return {n: [e for e in store.get_executions(node_id=n)
+                    if e.state.value == "COMPLETE"][-1].properties
+                for n in nodes}
+    finally:
+        store.close()
+
+
+def trainer_checks(name, seen, steps):
+    """The Trainer ran ``steps`` steps with finite losses, its first step
+    eager, one capture and a replay for every later step, and no capture
+    after warm-up."""
+    result = seen["result"]
+    if result.steps_completed != steps:
+        raise AssertionError(f"{name}: {result.steps_completed} steps")
+    if not seen["losses"] or not np.isfinite(seen["losses"]).all():
+        raise AssertionError(f"{name}: losses {seen['losses']}")
+    if (result.compiles_after_warm, seen["captures"], seen["replays"]) != (
+            0, 1, steps - 1):
+        raise AssertionError(
+            f"{name}: {result.compiles_after_warm} compiles after warm-up, "
+            f"{seen['captures']} captures, {seen['replays']} replays")
+
+
+def bert_dag_phase(seed, card, workdir):
+    """The BERT-base fine-tune DAG on the card (the north-star workload as
+    its users run it): all six nodes through LocalDagRunner(device="cuda")
+    at BERT_BASE with flash attention, cold then warm.  Returns each
+    kernel's launches in the cold run."""
+    from tpu_pipelines_torch.components.evaluator import evaluate_payload
+    from tpu_pipelines_torch.data import examples_io
+    from tpu_pipelines_torch.data.input_pipeline import BatchIterator, InputConfig
+    from tpu_pipelines_torch.evaluation.metrics import EvalOutcome
+    from tpu_pipelines_torch.examples import bert_pipeline
+    from tpu_pipelines_torch.transform.graph import TransformGraph
+
+    base = os.path.join(workdir, "bert")
+    csv_path = os.path.join(workdir, "reviews.csv")
+    t0 = time.perf_counter()
+    reviews_csv(csv_path, seed, BERT_DAG_ROWS)
+    print(f"bert_dag data: {BERT_DAG_ROWS} reviews, "
+          f"{os.path.getsize(csv_path)} bytes of CSV made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    hp = {**bert_pipeline.BERT_BASE, "attn_impl": "flash"}
+    cold, cold_s, warm_s, launches, seen = run_dag(
+        "bert_dag", bert_pipeline.create_pipeline,
+        {"BERT_DATA_CSV": csv_path, "BERT_TRAIN_STEPS": str(BERT_DAG_STEPS),
+         "BERT_TINY": ""}, base, hp,
+        os.path.join(bert_pipeline.HERE, "bert_module.py"))
+    print(f"bert_dag nodes [{card}]: cold run {cold_s:.1f} s: " + ", ".join(
+        f"{k} {v.wall_clock_s:.2f} s" for k, v in cold.nodes.items())
+        + f"; warm run {warm_s:.2f} s, all {len(cold.nodes)} CACHED, no "
+        "kernel launched", flush=True)
+    props = node_props(base, cold.nodes)
+    out = {k: {key: arts[0].uri for key, arts in v.outputs.items()}
+           for k, v in cold.nodes.items()}
+    raw_uri = out["CsvExampleGen"]["examples"]
+    examples_uri = out["Transform"]["transformed_examples"]
+    model_uri = out["Trainer"]["model"]
+    tprops = props["Transform"]
+    if not tprops["materialize_on_device"] or tprops["device"] != DEVICE:
+        raise AssertionError(f"bert_dag: Transform ran {tprops}")
+
+    # Launches from inside the runner: each step's four kernels (counted at
+    # replay), the Trainer's end-of-run eval (whole batches) and the
+    # Evaluator (every row) forward only.
+    trainer_checks("bert_dag", seen, BERT_DAG_STEPS)
+    n_eval = examples_io.num_rows(examples_uri, "eval")
+    batch = hp["batch_size"]
+    layers = DEFAULT_HPARAMS["n_layers"]
+    steps = layers * BERT_DAG_STEPS
+    trainer_fwd = steps + layers * (n_eval // batch)
+    want = {"launches": trainer_fwd + layers * -(-n_eval // batch),
+            "dvec_launches": steps, "dq_launches": steps,
+            "dkv_launches": steps, "decode_launches": 0}
+    want_trainer = {**want, "launches": trainer_fwd}
+    if launches != want or seen["after_trainer"] != want_trainer:
+        raise AssertionError(
+            f"bert_dag: launches {launches} (after the Trainer "
+            f"{seen['after_trainer']}), expected {want} ({want_trainer})")
+    result = seen["result"]
+    tr = props["Trainer"]
+    print(f"bert_dag launches: {launches} = {layers} layers x "
+          f"({BERT_DAG_STEPS} steps + {n_eval // batch} Trainer eval batches "
+          f"+ {-(-n_eval // batch)} Evaluator batches) forwards and {layers} "
+          f"x {BERT_DAG_STEPS} of each backward kernel; the Trainer's step 1 "
+          f"eager, {seen['captures']} capture, {seen['replays']} replays, "
+          f"compiles after warm-up {result.compiles_after_warm}", flush=True)
+    ckpt = seen["checkpoint_s"]
+    print(f"bert_dag trainer [{card}]: {result.steps_completed} steps at batch "
+          f"{batch} x {PIPELINE_LEN}, {result.examples_per_sec:.1f} "
+          f"examples/s, losses "
+          f"{seen['losses'][0]:.4f} -> {seen['losses'][-1]:.4f} "
+          f"({len(seen['losses'])} logged, finite), Trainer eval accuracy "
+          f"{tr['final_eval_accuracy']:.4f}; {len(ckpt)} checkpoints "
+          f"{', '.join(f'{x:.2f}' for x in ckpt)} s", flush=True)
+
+    # The Transform on the card: the first chunk of each split as the node
+    # materialized it and as apply_device gives it now, bit for bit equal
+    # to apply_host.
+    graph = TransformGraph.load(out["Transform"]["transform_graph"])
+    truncated = 0
+    for split in ("train", "eval"):
+        chunk = next(examples_io.iter_column_chunks(raw_uri, split))
+        materialized = next(examples_io.iter_column_chunks(examples_uri, split))
+        host = graph.apply_host(chunk)
+        dev = graph.apply_device(chunk, DEVICE)
+        if graph.device_apply_active is not True:
+            raise AssertionError("bert_dag: the Transform graph did not run "
+                                 "on the card")
+        held_to_host(host, materialized, None, "bert_dag: Transform node")
+        held_to_host(host, dev, None, "bert_dag: apply_device")
+        truncated += int((host["input_ids"][:, -1] != 0).sum())
+        print(f"bert_dag transform [{card}] {split} chunk of "
+              f"{len(chunk['text'])} rows: the Transform node's output and "
+              f"apply_device == apply_host bit for bit on {sorted(host)}",
+              flush=True)
+    vocab = graph.tokenizer_vocab_sizes()["input_ids"]
+    if not truncated or abs(vocab - BERT_LEXICON) > 64:
+        raise AssertionError(f"bert_dag: vocab {vocab}, {truncated} rows "
+                             "truncated")
+    rates = transform_rates(graph, raw_uri, card, n_chunks=4, phase="bert_dag")
+    print(f"bert_dag tokenize: learned vocabulary {vocab} (model vocab "
+          f"{-(-vocab // 64) * 64}), {truncated} rows of the first chunks "
+          f"truncated at {PIPELINE_LEN}; {rates['apply_host']:.0f} rows/s "
+          "through apply_host", flush=True)
+
+    # The payload: raw rows through its embedded graph == the materialized
+    # rows, bit for bit.
+    flash = load_exported_model(model_uri, device=DEVICE)
+    raw = next(examples_io.iter_column_chunks(raw_uri, "eval", rows=batch))
+    rows = next(examples_io.iter_column_chunks(examples_uri, "eval", rows=batch))
+    from_raw = flash.predict(raw)
+    if not np.array_equal(from_raw, flash.predict_transformed(rows)):
+        raise AssertionError("bert_dag: predict(raw) != predict_transformed")
+
+    # The Evaluator's metrics and logits against the same payload with dense
+    # attention on the first two eval batches: logits within LOGIT_TOL, the
+    # loss within 2 x LOGIT_TOL (cross-entropy moves by at most twice the
+    # largest logit change), accuracy only by rows whose dense margin is
+    # under 2 x LOGIT_TOL; the flash payload fed each row's mask shifted by
+    # one key must miss LOGIT_TOL.
+    dense_uri = payload_view(model_uri, os.path.join(workdir, "dense"),
+                             attn_impl="dense")
+    dense = load_exported_model(dense_uri, device=DEVICE)
+    eval_props = {"label_key": "label", "eval_split": "eval",
+                  "batch_size": batch, "slice_columns": None,
+                  "problem": "multiclass", "max_eval_examples": 2 * batch}
+    metrics = {name: evaluate_payload(uri, examples_uri, eval_props,
+                                      DEVICE).overall().metrics
+               for name, uri in (("flash", model_uri), ("dense", dense_uri))}
+    gap = control = 0.0
+    margins = []
+    for i, b in enumerate(BatchIterator(examples_uri, "eval", InputConfig(
+            batch_size=batch, shuffle=False, num_epochs=1,
+            drop_remainder=False))):
+        if i == 2:
+            break
+        want_logits = dense.predict_transformed(b)
+        gap = max(gap, float(np.abs(flash.predict_transformed(b)
+                                    - want_logits).max()))
+        shifted = {**b, "attention_mask": np.roll(b["attention_mask"], 1, 1)}
+        control = max(control, float(np.abs(flash.predict_transformed(shifted)
+                                            - want_logits).max()))
+        margins.append(np.abs(want_logits[:, 1] - want_logits[:, 0]))
+    margins = np.concatenate(margins)
+    near = int((margins < 2 * LOGIT_TOL).sum())
+    loss_gap = abs(metrics["flash"]["loss"] - metrics["dense"]["loss"])
+    acc_rows = abs(metrics["flash"]["accuracy"]
+                   - metrics["dense"]["accuracy"]) * len(margins)
+    print(f"bert_dag evaluator vs dense attention, first {len(margins)} eval "
+          f"rows: max |logit gap| {gap:.3e} (tol {LOGIT_TOL:g}); loss "
+          f"{metrics['flash']['loss']:.6f} vs {metrics['dense']['loss']:.6f} "
+          f"(gap {loss_gap:.3e}, bound {2 * LOGIT_TOL:g}), accuracy "
+          f"{metrics['flash']['accuracy']:.4f} vs "
+          f"{metrics['dense']['accuracy']:.4f} ({acc_rows:.0f} rows apart, "
+          f"{near} within the margin); shifted-mask control {control:.3e} "
+          f"(must exceed {LOGIT_TOL:g})", flush=True)
+    if gap > LOGIT_TOL or loss_gap > 2 * LOGIT_TOL or round(acc_rows) > near:
+        raise AssertionError("bert_dag: the Evaluator with flash attention "
+                             "disagrees with dense attention")
+    if control <= LOGIT_TOL:
+        raise AssertionError("bert_dag: the shifted-mask control stays within "
+                             "LOGIT_TOL")
+    del dense
+
+    # The Evaluator node's metrics == the same evaluation now; its rate.
+    node = EvalOutcome.load(out["Evaluator"]["evaluation"]).overall()
+    full_props = {**eval_props, "max_eval_examples": 0}
+    t0 = time.perf_counter()
+    again = evaluate_payload(model_uri, examples_uri, full_props, DEVICE).overall()
+    eval_s = time.perf_counter() - t0
+    if node.num_examples != n_eval or node.metrics != again.metrics:
+        raise AssertionError(f"bert_dag: Evaluator {node} vs now {again}")
+
+    # A replayed step at the DAG's shape, profiled.
+    hp_payload = flash.spec["hyperparameters"]
+    del flash
+    train_batch = next(examples_io.iter_column_chunks(examples_uri, "train",
+                                                      rows=batch))
+    wall_ms, profiled_ms, busy_ms, n_kernels = replay_step_breakdown(
+        hp_payload, seed, train_batch)
+    print(f"bert_dag evaluator [{card}]: accuracy "
+          f"{node.metrics['accuracy']:.4f}, loss {node.metrics['loss']:.4f} on "
+          f"{n_eval} eval rows, equal to the same evaluation now; "
+          f"{n_eval / eval_s:.0f} examples/s (load included); a replayed "
+          f"training step at batch {batch} x {PIPELINE_LEN}: host wall "
+          f"{wall_ms:.3f} ms ({profiled_ms:.3f} ms traced), device busy "
+          f"{busy_ms:.3f} ms (idle share {1 - busy_ms / profiled_ms:.3f}), "
+          f"{n_kernels:.0f} kernels", flush=True)
+    return by_record(launches)
+
+
+# ------------------------------------------------------------------ T5 DAG
+
+T5_DAG_PAIRS = 3072
+T5_DAG_STEPS = 100
+T5_LEXICON = 1500
+
+
+def pairs_csv(path, seed, rows):
+    """``source,target`` pairs made from ``seed``: sources of 4-60 words
+    from a made-up lexicon, the target the first 1-20 of them through a
+    fixed word-for-word dictionary into a second made-up lexicon."""
+    rng = np.random.default_rng(seed)
+    words = made_up_words(rng, 2 * T5_LEXICON)
+    source_words = np.asarray(words[:T5_LEXICON])
+    target_of = dict(zip(words[:T5_LEXICON], words[T5_LEXICON:]))
+    lengths = rng.integers(4, 61, rows)
+    lines = ["source,target"]
+    for i in range(rows):
+        source = rng.choice(source_words, lengths[i])
+        target = " ".join(target_of[w] for w in source[:20])
+        lines.append(f"{quoted_text(i, ' '.join(source), 'translate')},"
+                     f'"{target}"')
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def t5_dag_phase(seed, card, workdir):
+    """The T5-small seq2seq DAG on the card: all six nodes through
+    LocalDagRunner(device="cuda") at T5_SMALL with flash decode attention,
+    cold then warm; the BulkInferrer beam-decodes the raw eval split
+    through the payload's embedded transform.  Returns each kernel's
+    launches in the cold run."""
+    from tpu_pipelines_torch.components.bulk_inferrer import _shard_batches
+    from tpu_pipelines_torch.data import examples_io
+    from tpu_pipelines_torch.examples import t5_pipeline
+    from tpu_pipelines_torch.trainer.export import model_input_columns
+
+    base = os.path.join(workdir, "t5")
+    csv_path = os.path.join(workdir, "pairs.csv")
+    pairs_csv(csv_path, seed, T5_DAG_PAIRS)
+    hp = {**t5_pipeline.T5_SMALL, "attn_impl": "flash"}
+    module_path = os.path.join(t5_pipeline.HERE, "t5_module.py")
+    cold, cold_s, warm_s, launches, seen = run_dag(
+        "t5_dag", t5_pipeline.create_pipeline,
+        {"T5_DATA_CSV": csv_path, "T5_TRAIN_STEPS": str(T5_DAG_STEPS),
+         "T5_TINY": ""}, base, hp, module_path)
+    print(f"t5_dag nodes [{card}]: {T5_DAG_PAIRS} pairs; cold run "
+          f"{cold_s:.1f} s: " + ", ".join(
+              f"{k} {v.wall_clock_s:.2f} s" for k, v in cold.nodes.items())
+          + f"; warm run {warm_s:.2f} s, all {len(cold.nodes)} CACHED, no "
+          "kernel launched", flush=True)
+    out = {k: {key: arts[0].uri for key, arts in v.outputs.items()}
+           for k, v in cold.nodes.items()}
+    raw_uri = out["CsvExampleGen"]["examples"]
+    examples_uri = out["Transform"]["transformed_examples"]
+    model_uri = out["Trainer"]["model"]
+
+    # Training is dense (T5's self-attention carries a relative bias): no
+    # kernel moves until the BulkInferrer, whose beam search launches the
+    # decode kernel once per decoder layer and pass, max_decode_len passes
+    # a batch (the step-0 pass, then max_decode_len - 1 beam steps).
+    trainer_checks("t5_dag", seen, T5_DAG_STEPS)
+    if any(seen["after_trainer"].values()):
+        raise AssertionError(f"t5_dag: the Trainer launched {seen['after_trainer']}")
+    decode_len, batch = hp["max_decode_len"], 64
+    shard_rows = examples_io.shard_row_counts(raw_uri, "eval")
+    n_batches = sum(-(-r // batch) for r in shard_rows)
+    layers = t5m.DEFAULT_HPARAMS["n_layers"]
+    want = {**dict.fromkeys(fa.COUNTERS, 0),
+            "decode_launches": layers * decode_len * n_batches}
+    if launches != want:
+        raise AssertionError(f"t5_dag: launches {launches}, expected {want}")
+    result = seen["result"]
+    print(f"t5_dag trainer [{card}]: {result.steps_completed} steps at batch "
+          f"{hp['batch_size']}, {result.examples_per_sec:.1f} examples/s, "
+          f"losses {seen['losses'][0]:.4f} -> {seen['losses'][-1]:.4f} "
+          f"(finite), step 1 eager, {seen['captures']} capture, "
+          f"{seen['replays']} replays, compiles after warm-up 0, no attention "
+          f"kernel; {len(seen['checkpoint_s'])} checkpoints "
+          f"{sum(seen['checkpoint_s']):.2f} s", flush=True)
+
+    # One prediction row per eval row, in the input's order: the first
+    # batch of the first shard and the last batch of the last, decoded
+    # again here from the raw rows, and from the Transform's materialized
+    # rows with the payload's generate step alone.
+    rows = sum(shard_rows)
+    preds = examples_io.read_split(out["BulkInferrer"]["inference_result"],
+                                   "eval")["prediction"]
+    if preds.shape != (rows, decode_len) or preds.dtype.kind != "i":
+        raise AssertionError(f"t5_dag: predictions {preds.shape} {preds.dtype}")
+    loaded = load_exported_model(model_uri, device=DEVICE)
+    step = t5_module.make_generate_step(loaded.model,
+                                        loaded.spec["hyperparameters"])
+    columns = model_input_columns(loaded, raw=True)
+    last = max(i for i, r in enumerate(shard_rows) if r)
+    first_tokens = None
+    for shard, where in ((0, "first"), (last, "last")):
+        raw = list(_shard_batches(raw_uri, "eval", shard, batch, columns))
+        mat = list(_shard_batches(examples_uri, "eval", shard, batch, None))
+        raw, mat = (raw[0], mat[0]) if where == "first" else (raw[-1], mat[-1])
+        tokens = loaded.generate(raw)
+        with torch.inference_mode():
+            from_rows = step(loaded.params, mat).cpu().numpy()
+        n = len(tokens)
+        at = 0 if where == "first" else rows - n
+        if not (np.array_equal(tokens, from_rows)
+                and np.array_equal(tokens, preds[at:at + n])):
+            raise AssertionError(f"t5_dag: the {where} batch differs")
+        if where == "first":
+            first_tokens, first_rows = tokens, mat
+    print(f"t5_dag bulk inference [{card}]: {rows} eval rows in {n_batches} "
+          f"batches of up to {batch} x beam {hp['beam_size']}, predictions "
+          f"[{rows}, {decode_len}] int; the first and the last batch decoded "
+          f"again from raw rows == from the materialized rows == the node's "
+          f"rows; flash_decode launches {launches['decode_launches']} = "
+          f"{layers} layers x {decode_len} passes x {n_batches} batches; "
+          f"{rows / cold.nodes['BulkInferrer'].wall_clock_s:.1f} rows/s, "
+          f"{generated_tokens(preds) / cold.nodes['BulkInferrer'].wall_clock_s:.1f}"
+          f" generated tokens/s (node wall)", flush=True)
+
+    # Teacher-forced logits of the first batch's emitted tokens: the
+    # kernel against dense decode attention, and the two controls.
+    dense = load_exported_model(
+        payload_view(model_uri, os.path.join(workdir, "t5_dense"),
+                     attn_impl="dense"), device=DEVICE)
+    gaps = teacher_forced_gaps(loaded, dense, first_rows["inputs"],
+                               first_rows["input_mask"].astype(np.int32),
+                               first_tokens, decode_len=decode_len)
+    controls = {name: g for name, g in gaps.items() if name != "sound"}
+    print(f"t5_dag teacher-forced max |flash - dense| logit over {decode_len} "
+          f"steps, {len(first_tokens)} rows = {gaps['sound']:.3e} (tol "
+          f"{DECODE_LOGIT_TOL:g}); controls " + ", ".join(
+              f"{name} {g:.3e}" for name, g in controls.items())
+          + f" (each must exceed {DECODE_LOGIT_TOL:g})", flush=True)
+    if gaps["sound"] > DECODE_LOGIT_TOL:
+        raise AssertionError("t5_dag: flash-decoded logits disagree with dense")
+    if min(controls.values()) <= DECODE_LOGIT_TOL:
+        raise AssertionError("t5_dag: a control stays within DECODE_LOGIT_TOL")
+    return by_record(launches)
+
+
 def build_kernels():
     """Build every CUDA source, one nvcc each, all started together."""
     seconds, errors = {}, {}
@@ -2489,23 +3057,36 @@ def main(argv=None) -> int:
     # The taxi DAG launches none of the attention kernels (its Transform
     # and model are plain torch): the counters stay where training left
     # them, and the phase checks so.
-    before = (fa.launches, fa.dq_launches, fa.dkv_launches, fa.dvec_launches,
-              fa.decode_launches)
+    before = counters()
     with tempfile.TemporaryDirectory() as workdir:
         taxi_dag_phase(args.seed, card, workdir)
-    if (fa.launches, fa.dq_launches, fa.dkv_launches, fa.dvec_launches,
-            fa.decode_launches) != before:
+    if counters() != before:
         raise AssertionError("taxi_dag: an attention kernel launched")
     phase_done("taxi_dag")
+    with tempfile.TemporaryDirectory() as workdir:
+        bert_dag = bert_dag_phase(args.seed, card, workdir)
+    phase_done("bert_dag")
+    with tempfile.TemporaryDirectory() as workdir:
+        t5_dag = t5_dag_phase(args.seed, card, workdir)
+    phase_done("t5_dag")
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s",
           flush=True)
     # launches: each kernel's count in its own paths' runs: training for the
-    # four flash-attention kernels (Dvec's count on the dq record) (the serving path's flash_fwd count
-    # stands beside it), :generate plus both engine runs for flash_decode.
+    # four flash-attention kernels (Dvec's count on the dq record), :generate
+    # plus both engine runs for flash_decode; launches_by_path adds the
+    # serving path's flash_fwd count and each kernel's count in the two
+    # pipeline DAGs, each read from inside the runner.
     fwd["launches_by_path"] = {"serving": served,
                                "training": trained["flash_fwd"]}
     decode["launches_by_path"] = {"serving": generated, "engine": engine,
                                   "engine_long": engine_long}
+    for record in bwd:
+        record["launches_by_path"] = {"training": trained[record["name"]]}
+    bwd[0]["dvec_launches_by_path"] = {"training": trained["flash_bwd_dvec"]}
+    for path, counts in (("bert_dag", bert_dag), ("t5_dag", t5_dag)):
+        for record in (fwd, *bwd, decode):
+            record["launches_by_path"][path] = counts[record["name"]]
+        bwd[0]["dvec_launches_by_path"][path] = counts["flash_bwd_dvec"]
     trained["flash_decode"] = generated + engine + engine_long
     records = [fwd, *bwd, decode]
     bwd[0]["dvec_launches"] = trained["flash_bwd_dvec"]

@@ -99,6 +99,7 @@ def _within_fwd_bound(out, ref, term, dtype, l):
     [
         (32, 128, 12, 64, torch.bfloat16, False, "ragged"),   # BERT-base serving
         (256, 128, 12, 64, torch.bfloat16, False, "ragged"),  # BERT-base training
+        (256, 64, 12, 64, torch.bfloat16, False, "ragged"),   # the BERT DAG
         (2, 200, 4, 64, torch.bfloat16, False, "ragged"),     # ragged L
         (2, 200, 4, 32, torch.bfloat16, True, "ragged"),      # causal
         (3, 128, 2, 64, torch.bfloat16, False, "empty_row"),  # all-masked row
@@ -252,6 +253,7 @@ def _within_bwd_bound(got, want, term, dtype, l):
     "b,l,h,d,dtype,causal,mask_kind,strided",
     [
         (256, 128, 12, 64, torch.bfloat16, False, "ragged", False),  # training
+        (256, 64, 12, 64, torch.bfloat16, False, "ragged", False),   # BERT DAG
         (2, 200, 4, 64, torch.bfloat16, False, "ragged", False),
         (2, 200, 4, 32, torch.bfloat16, True, "ragged", False),
         (4, 128, 2, 64, torch.bfloat16, False, "empty_row", False),
@@ -395,6 +397,7 @@ def _decode_inputs(b, l, h, d, dtype, device, seed, arena=False):
     "b,l,h,d,dtype,bias_kind,arena",
     [
         (16, 128, 8, 64, torch.bfloat16, "broadcast", False),  # served beam
+        (256, 32, 8, 64, torch.bfloat16, "broadcast", False),  # T5 DAG's beam
         (8, 64, 8, 64, torch.bfloat16, "per_row", True),       # engine bucket
         (3, 1, 2, 64, torch.bfloat16, "broadcast", False),     # L = 1
         (3, 100, 2, 64, torch.bfloat16, "per_row", False),     # ragged L
@@ -441,7 +444,8 @@ def test_decode_kernel_matches_plain_version(cuda, b, l, h, d, dtype,
                                                  bias=bias), out)
 
 
-@pytest.mark.parametrize("b,l", [(16, 128), (4, 4096), (2, 1000), (4, 1)])
+@pytest.mark.parametrize("b,l", [(16, 128), (256, 32), (4, 4096), (2, 1000),
+                                 (4, 1)])
 def test_decode_kernel_reads_a_bool_stride0_mask_in_place(cuda, b, l):
     """The scalar-position decode step's mask: one bool row expanded over
     the batch (batch stride 0), read in place, equal to its int32 copy."""

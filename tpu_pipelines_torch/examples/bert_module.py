@@ -1,21 +1,42 @@
-"""BERT classifier user module for port payloads and fine-tuning.
+"""BERT fine-tune trainer module: the port of
+``examples/bert/bert_trainer_module.py``.
 
-``build_model`` / ``apply_fn`` mirror ``examples/bert/bert_trainer_module.py``:
-the serving hook routes the tokenized feature dict into the classifier,
-with ``attention_mask = input_ids > 0`` when the request carries none.
-``loss_fn``, ``init_params_fn`` and ``adamw`` are the pieces its ``run_fn``
-hands to ``train_loop`` (softmax cross-entropy on integer labels plus
-accuracy; ``optax.adamw``).  ``run_fn`` itself, which reads the Examples
-artifact through ``BatchIterator``, waits for the BERT pipeline twin
-(``ROADMAP.md`` A15).
+``build_model`` / ``apply_fn`` are the payload contract: the serving hook
+routes the tokenized feature dict into the classifier, with
+``attention_mask = input_ids > 0`` when the request carries none.
+``run_fn`` is the Trainer's contract: it sizes the embedding from the
+vocabulary the Transform's tokenizer learned (rounded up to a multiple of
+64) unless the hyperparameters pin ``vocab_size``, trains through the
+port's ``train_loop`` on ``fn_args.device`` (``loss_fn``: softmax
+cross-entropy on integer labels plus accuracy; ``adamw``: ``optax.adamw``),
+warm-starts from a wired base model (``warm_start_init``), checkpoints every
+quarter of the run and exports a payload with the transform graph.  A
+``mesh`` is passed through to ``train_loop``, which refuses it (multi-GPU
+training, ``ROADMAP.md`` A5).
 """
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
-from tpu_pipelines_torch.models.bert import build_bert_model, init_bert_weights
+from tpu_pipelines_torch.data.input_pipeline import (
+    BatchIterator,
+    InputConfig,
+    per_host_input_config,
+)
+from tpu_pipelines_torch.models.bert import (
+    DEFAULT_HPARAMS,
+    build_bert_model,
+    init_bert_weights,
+)
+from tpu_pipelines_torch.trainer import (
+    TrainLoopConfig,
+    export_model,
+    train_loop,
+    warm_start_init,
+)
 
 LABEL = "label"
 
@@ -76,3 +97,60 @@ def adamw(learning_rate: float):
             weight_decay=1e-4, capturable=on_cuda, fused=on_cuda,
         )
     return make
+
+
+def run_fn(fn_args):
+    hp = {**DEFAULT_HPARAMS, **fn_args.hyperparameters}
+    # Size the embedding from what the tokenizer learned (padded to a
+    # multiple of 64) unless the user pinned it.
+    if "vocab_size" not in fn_args.hyperparameters and fn_args.transform_graph_uri:
+        from tpu_pipelines_torch.transform.graph import TransformGraph
+
+        sizes = TransformGraph.load(
+            fn_args.transform_graph_uri
+        ).tokenizer_vocab_sizes()
+        if "input_ids" in sizes:
+            hp["vocab_size"] = -(-sizes["input_ids"] // 64) * 64
+    batch_size = int(hp["batch_size"])
+
+    train_iter = BatchIterator(
+        fn_args.train_examples_uri, "train",
+        per_host_input_config(
+            InputConfig(batch_size=batch_size, shuffle=True, seed=0)),
+    )
+
+    def eval_iter_fn():
+        return BatchIterator(
+            fn_args.eval_examples_uri, "eval",
+            InputConfig(batch_size=batch_size, shuffle=False, num_epochs=1,
+                        drop_remainder=True),
+        )
+
+    model, result = train_loop(
+        loss_fn=loss_fn,
+        init_params_fn=warm_start_init(
+            fn_args, functools.partial(init_params_fn, hyperparameters=hp)),
+        optimizer=adamw(hp["learning_rate"]),
+        train_iter=train_iter,
+        eval_iter_fn=eval_iter_fn,
+        config=TrainLoopConfig(
+            train_steps=fn_args.train_steps,
+            batch_size=batch_size,
+            eval_steps=fn_args.eval_steps,
+            checkpoint_every=max(1, fn_args.train_steps // 4),
+            log_every=max(1, fn_args.train_steps // 10),
+            mesh_config=fn_args.mesh_config or None,
+        ),
+        checkpoint_dir=fn_args.model_run_dir,
+        device=fn_args.device,
+    )
+
+    export_model(
+        serving_model_dir=fn_args.serving_model_dir,
+        params=model.state_dict(),
+        module_file=__file__,
+        hyperparameters=hp,
+        transform_graph_uri=fn_args.transform_graph_uri,
+        extra_spec={"label": LABEL},
+    )
+    return result

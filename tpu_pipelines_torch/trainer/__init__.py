@@ -10,4 +10,5 @@ from tpu_pipelines_torch.trainer.train_loop import (  # noqa: F401
 from tpu_pipelines_torch.trainer.export import (  # noqa: F401
     export_model,
     load_exported_model,
+    warm_start_init,
 )

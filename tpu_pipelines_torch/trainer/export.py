@@ -18,10 +18,12 @@ the graph's torch evaluator and the forward pass in one
 ``inference_mode`` call (without a graph it is ``predict_transformed``).  A module
 that defines ``make_generate_step(model, hp) -> fn(params, batch)`` (or the
 legacy ``make_generate_fn(model, params, hp) -> fn(batch)``) gets
-``LoadedModel.generate``; one that defines ``make_decode_fns(model, hp)``
+``LoadedModel.generate``, which likewise takes raw examples when the payload
+carries a graph; one that defines ``make_decode_fns(model, hp)``
 gets ``LoadedModel.decode_fns``, the continuous-batching engine's contract.
-Quantized payloads and ahead-of-time dispatch wait for later slices of the
-port (``ROADMAP.md`` A9, A14).
+``warm_start_init`` restores a payload's weights in place of a random
+init (TFX warm start).  Quantized payloads and ahead-of-time dispatch wait
+for later slices of the port (``ROADMAP.md`` A9, A14).
 """
 
 from __future__ import annotations
@@ -85,6 +87,55 @@ def export_model(
     with open(os.path.join(serving_model_dir, SPEC_FILE), "w") as f:
         json.dump(spec, f, indent=2, sort_keys=True, default=str)
     return serving_model_dir
+
+
+def warm_start_init(fn_args, init_params_fn):
+    """TFX warm-start semantics for ``run_fn`` modules.
+
+    When the Trainer received a ``base_model`` input,
+    ``fn_args.custom_config`` carries ``base_model_uri``; the returned init
+    fn then builds the module's model with ``init_params_fn`` and loads the
+    exported payload's state dict into it.  Without a base model it returns
+    ``init_params_fn`` unchanged, so modules can wrap unconditionally::
+
+        init_params_fn = warm_start_init(fn_args, init_params_fn)
+
+    The payload must match the fresh model exactly (keys, shapes, dtypes):
+    warm-starting across a change of architecture is a config error raised
+    with the offending paths (up to eight), not a silent partial load.
+    """
+    uri = (getattr(fn_args, "custom_config", None) or {}).get(
+        "base_model_uri", ""
+    )
+    if not uri:
+        return init_params_fn
+
+    def init(generator: torch.Generator, sample_batch: Dict[str, Any]) -> nn.Module:
+        model = init_params_fn(generator, sample_batch)
+        fresh = model.state_dict()
+        restored = torch.load(
+            os.path.join(uri, CHECKPOINT_DIR, STATE_FILE),
+            map_location="cpu", weights_only=True,
+        )
+        problems = []
+        for key in sorted(set(fresh) | set(restored)):
+            a, b = fresh.get(key), restored.get(key)
+            if a is None or b is None:
+                problems.append(
+                    f"{key}: only in {'base model' if a is None else 'init'}")
+            elif a.shape != b.shape or a.dtype != b.dtype:
+                problems.append(
+                    f"{key}: init {tuple(a.shape)}/{a.dtype} vs base model "
+                    f"{tuple(b.shape)}/{b.dtype}")
+        if problems:
+            raise ValueError(
+                f"warm-start base model at {uri!r} does not match this "
+                f"module's params: " + "; ".join(problems[:8])
+            )
+        model.load_state_dict(restored, strict=True)
+        return model
+
+    return init
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -162,17 +213,22 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
 
     transform = None
     predict = predict_transformed
+    transformed = None
     if spec.get("has_transform"):
         transform = TransformGraph.load(os.path.join(uri, TRANSFORM_DIR))
         host_fn, device_fn, _ = transform.split_host_device()
 
-        def predict(raw_batch: Dict[str, Any]) -> np.ndarray:
-            iface = {
+        def transformed(raw_batch: Dict[str, Any]) -> Dict[str, Any]:
+            """The graph's host stage in numpy, its interface moved to the
+            device, the torch evaluator there (call under inference_mode)."""
+            return device_fn({
                 k: torch.from_numpy(np.require(v, requirements=["C", "W"])).to(dev)
                 for k, v in host_fn(raw_batch).items()
-            }
+            })
+
+        def predict(raw_batch: Dict[str, Any]) -> np.ndarray:
             with torch.inference_mode():
-                return _to_numpy(apply_fn(model, params, device_fn(iface)))
+                return _to_numpy(apply_fn(model, params, transformed(raw_batch)))
 
     # Generate hooks: make_generate_step keeps params an argument of every
     # call; the legacy make_generate_fn closes over them.
@@ -186,8 +242,12 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
         device_generate = gen_builder(model, params, hp)
     generate = None
     if device_generate is not None:
+        # A payload with a transform graph decodes raw examples: the graph
+        # runs first, as in ``predict``.
         def generate(batch: Dict[str, Any]) -> np.ndarray:
             with torch.inference_mode():
+                if transformed is not None:
+                    batch = transformed(batch)
                 return _to_numpy(torch.as_tensor(device_generate(batch)))
 
     decode_builder = getattr(module, "make_decode_fns", None)
