@@ -42,13 +42,32 @@ Phases (any failure raises and the script exits non-zero):
      teacher-forced logits of the served tokens against dense decode
      attention (and two controls around the kernel outside that
      tolerance); report latency, tokens/s and a profiled decode step;
-  5. engine — the continuous-batching ``GenerativeEngine`` over the same
+  5. fleet — the serving fleet.  BERT-base (the serving phase's payload)
+     behind ``ModelServer(replicas=2, max_versions=2, slo_p99_ms=50,
+     max_batch_size=32)`` with the supervisor on: a pushed version's
+     canary and warm-up capture one CUDA graph per padded bucket (6, none
+     eager), each bucket's replay equal to the eager step bit for bit; a
+     client run whose replies sit within LOGIT_TOL of dense attention
+     (two wrong-mask controls above), flash_fwd launched 12 x device
+     batches (credited per replay), no compile after warm-up; a hot swap
+     under load with every reply 200, a push of NaN weights answered 409,
+     and KILL_REPLICA on replica 0, ejected and rebuilt while every reply
+     stays 200.  Then T5-small as the generative model type (2 replicas,
+     engine batch 8, pages of 32): every (batch, kv) bucket's step
+     captured at warm-up in each engine, ``:generate`` with
+     ``max_new_tokens`` from 8 clients all 200, flash_decode launched 6 x
+     (prefills + steps), no compile after warm-up, the captured engine's
+     streams equal to the eager engine's on one schedule, an over-budget
+     burst answered 429; report warm seconds, graph memory,
+     examples/s, p50/p99, steps/s and the idle share of a replayed
+     predict and engine step against the eager ones;
+  6. engine — the continuous-batching ``GenerativeEngine`` over the same
      payload (batch 8, pages of 32), warmed, then 24 sequences with ragged
      prompts and budgets from threads: every stream ends at EOS or its
      budget, one kernel launch per layer per prefill and step, no bucket
      first run after warm(); report steps/s, tokens/s, occupancy and how
      many streams equal the isolated greedy decode;
-  6. engine_long — the engine over the same weights at a 2048-key cache
+  7. engine_long — the engine over the same weights at a 2048-key cache
      (kv buckets 256/512/1024/2048), 8 sequences with budgets of 1100-1400
      tokens from threads, submitted LONG_STAGGER steps apart: every stream
      ends, one kernel launch per layer per prefill and step, the 2048
@@ -61,7 +80,7 @@ Phases (any failure raises and the script exits non-zero):
      holds the current position lost), each of which must miss OUT_TOL at
      the attention output (the split lost also DECODE_LOGIT_TOL at the
      logits); report steps/s and tokens/s;
-  7. training — fine-tune BERT-base (full width, bf16, dropout 0.1, random
+  8. training — fine-tune BERT-base (full width, bf16, dropout 0.1, random
      init from ``--seed``) through ``train_loop`` at batch 256 x 128 with
      ragged lengths, the first step eager and every later one a replay of
      one captured CUDA graph: every loss finite, each of the four
@@ -78,7 +97,7 @@ Phases (any failure raises and the script exits non-zero):
      of two graph runs and the eager steps, MFU, peak memory of graph and
      eager, the captured AdamW update fused and foreach, and a profiled
      step, eager and replayed;
-  8. taxi_dag — the Chicago-taxi DAG (all nine nodes of
+  9. taxi_dag — the Chicago-taxi DAG (all nine nodes of
      ``tpu_pipelines_torch/examples/taxi_pipeline.py``) through
      ``LocalDagRunner(device="cuda")`` over a CSV of TAXI_ROWS rows made
      from ``--seed`` (the value ranges and categories of
@@ -96,7 +115,7 @@ Phases (any failure raises and the script exits non-zero):
      wall time, Transform rows/s on the card and apply_host, a profiled
      chunk's idle share, training and evaluation examples/s.  The DAG
      launches none of the attention kernels;
-  9. bert_dag — the BERT-base fine-tune DAG (the six nodes of
+ 10. bert_dag — the BERT-base fine-tune DAG (the six nodes of
      ``tpu_pipelines_torch/examples/bert_pipeline.py``: CsvExampleGen ->
      StatisticsGen -> SchemaGen -> Transform (tokenize) -> Trainer ->
      Evaluator) through ``LocalDagRunner(device="cuda")`` at BERT_BASE
@@ -115,7 +134,7 @@ Phases (any failure raises and the script exits non-zero):
      it; report node seconds, tokenize rows/s, examples/s, checkpoint
      seconds, evaluation examples/s and accuracy, a replayed step's idle
      share;
- 10. t5_dag — the T5-small seq2seq DAG (``examples/t5_pipeline.py``, its
+ 11. t5_dag — the T5-small seq2seq DAG (``examples/t5_pipeline.py``, its
      BulkInferrer beam-decoding the raw eval split, beam 4, 32 steps,
      batch 64) at T5_SMALL with flash decode attention, 100 steps, over
      T5_DAG_PAIRS made-up pairs: every node COMPLETE, a rerun all cache
@@ -138,14 +157,18 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
@@ -1973,33 +1996,16 @@ def engine_long_phase(loaded, seed, card):
     ends, launches = layers x (prefills + steps), the 2048 bucket runs, no
     bucket first runs after warm(); one step of the 2048 bucket whose
     deepest row is past 1024 keys (the rows at ragged positions) is
-    replayed from a copy of its inputs with dense decode attention (its
-    logits within DECODE_LOGIT_TOL of the kernel's), with the kernel held
-    call by call against its plain version (within OUT_TOL), and under two
-    controls that must miss OUT_TOL.  Returns the flash_decode launches of
-    the traffic."""
+    replayed: the graph's own logits equal the same step run eagerly from a
+    copy of its inputs bit for bit (the kernel held call by call against its
+    plain version, within OUT_TOL) and sit within DECODE_LOGIT_TOL of dense
+    decode attention on that copy, and two controls must miss OUT_TOL.
+    Returns the flash_decode launches of the traffic."""
     hp = loaded.spec["hyperparameters"]
     fns = t5_module.make_decode_fns(loaded.model,
                                     {**hp, "max_decode_len": LONG_DECODE_LEN})
     run_step = fns.step
     captured = {}
-
-    def step(params, cache, tok, pos, encoded, enc_mask, klen):
-        # The first traffic step of the last bucket (its deepest row is past
-        # 1024 keys, or a smaller bucket would do): copy its inputs before it
-        # writes this step's K/V into the arena.
-        if (captured.get("armed") and "inputs" not in captured
-                and klen == LONG_DECODE_LEN):
-            captured["inputs"] = ({n: c.clone() for n, c in cache.items()},
-                                  tok.clone(), pos.clone(), encoded.clone(),
-                                  enc_mask.clone())
-            new, logits = run_step(params, cache, tok, pos, encoded, enc_mask,
-                                   klen)
-            captured["flash"] = logits.float().clone()
-            return new, logits
-        return run_step(params, cache, tok, pos, encoded, enc_mask, klen)
-
-    fns.step = step
     rng = np.random.default_rng(seed + 5)
     vocab = loaded.model.shared.num_embeddings
     prompts = [rng.integers(4, vocab, size=int(rng.integers(8, MAX_INPUT_LEN + 1)))
@@ -2008,6 +2014,32 @@ def engine_long_phase(loaded, seed, card):
                                             size=N_LONG_SEQS)]
     engine = GenerativeEngine(fns, loaded.params, device="cuda",
                               max_batch_size=8, page_size=LONG_PAGE)
+    bucket_step = engine._step
+
+    def step(b, kv):
+        # The first traffic step of the last bucket (its deepest row is past
+        # 1024 keys, or a smaller bucket would do) replays the bucket's
+        # graph: copy the arena rows it reads before it writes this step's
+        # K/V, and the tokens and logits the replay leaves in the graph's
+        # static outputs.
+        if (captured.get("armed") and "inputs" not in captured
+                and kv == LONG_DECODE_LEN):
+            cache, tok, pos, live, encoded, enc_mask = engine._arena
+            captured["inputs"] = (
+                {n: (a[:b] if "cached_enc" in n else a[:b, :kv]).clone()
+                 for n, a in cache.items()},
+                tok[:b].clone(), pos[:b].clone(), encoded[:b].clone(),
+                enc_mask[:b].clone())
+            captured["live"] = live[:b].clone()
+            nxt = bucket_step(b, kv)
+            captured["tokens"] = nxt.clone()
+            graph = engine._graphs.get((b, kv))
+            if graph is not None:
+                captured["logits"] = graph[2].float().clone()
+            return nxt
+        return bucket_step(b, kv)
+
+    engine._step = step
     try:
         engine.warm()
         captured["armed"] = True
@@ -2039,6 +2071,8 @@ def engine_long_phase(loaded, seed, card):
     n_tokens = sum(len(s) for s in streams)
     if "inputs" not in captured:
         raise AssertionError("no traffic step ran the 2048-key bucket")
+    if "logits" not in captured:
+        raise AssertionError("the 2048-key bucket ran without its graph")
     cache, tok, pos, encoded, enc_mask = captured["inputs"]
     b = tok.shape[0]
 
@@ -2050,10 +2084,17 @@ def engine_long_phase(loaded, seed, card):
         return logits.float()
 
     dense = replay(dense_decode)
-    sound = (captured["flash"] - dense).abs().max().item()
     ratios = {name: [] for name in ("kernel", "validity one short",
                                     "split lost")}
-    replay(held(fa.flash_decode_attention, ratios["kernel"]))
+    # The step run eagerly with the kernel on the copied rows: the graph's
+    # logits, and the tokens it emitted, must be that run's bit for bit.
+    flash = replay(held(fa.flash_decode_attention, ratios["kernel"]))
+    graph_logits = captured["logits"]
+    sound = (graph_logits - dense).abs().max().item()
+    emitted = torch.where(captured["live"], flash.argmax(dim=-1),
+                          engine.pad_id)
+    graph_equal = bool(torch.equal(graph_logits, flash)
+                       and torch.equal(emitted, captured["tokens"]))
     controls = {name: (replay(held(wrapper, ratios[name])) - dense)
                 .abs().max().item()
                 for name, wrapper in (("validity one short", validity_one_short),
@@ -2072,8 +2113,9 @@ def engine_long_phase(loaded, seed, card):
           f"({prefills} prefills + {steps} steps) expected; splits at the "
           f"{LONG_DECODE_LEN} bucket S={splits}", flush=True)
     print(f"engine_long: replayed step at positions {pos.tolist()} (batch {b}, "
-          f"kv {LONG_DECODE_LEN}): max |flash - dense| logit = {sound:.3e} (tol "
-          f"{DECODE_LOGIT_TOL:g})", flush=True)
+          f"kv {LONG_DECODE_LEN}): max |graph - dense| logit = {sound:.3e} "
+          f"(tol {DECODE_LOGIT_TOL:g}); the graph's logits and tokens == the "
+          f"eager step's bit for bit: {graph_equal}", flush=True)
     print(f"engine_long: replayed step, each of its {len(ratios['kernel'])} "
           f"decode calls held against the plain version: worst "
           f"{worst['kernel']:.3f} of OUT_TOL (at most 1)", flush=True)
@@ -2101,6 +2143,9 @@ def engine_long_phase(loaded, seed, card):
     if worst["kernel"] > 1.0:
         raise AssertionError("the kernel disagrees with its plain version in "
                              "the replayed long-cache step")
+    if not graph_equal:
+        raise AssertionError("the long-cache step's graph gave other logits or "
+                             "tokens than the same step run eagerly")
     if sound > DECODE_LOGIT_TOL:
         raise AssertionError("long-cache flash-decoded logits disagree with "
                              "dense")
@@ -2118,8 +2163,8 @@ def engine_long_phase(loaded, seed, card):
 # ------------------------------------------------------------------ taxi DAG
 
 # Cut from a deployment's months of trips so that the whole script, with
-# the two pipeline DAGs after this phase, stays near 330 s on an H100.
-TAXI_ROWS = 500_000
+# the fleet phase and the two pipeline DAGs, stays near 360 s on an H100.
+TAXI_ROWS = 250_000
 TAXI_SAMPLE = os.path.join(REPO, "tests", "testdata", "taxi_sample.csv")
 # Share of empty fields in the made CSV's trip_start_hour (a null int:
 # NaN after the read, bucketized past the last boundary) and company (an
@@ -2979,6 +3024,396 @@ def t5_dag_phase(seed, card, workdir):
     return by_record(launches)
 
 
+# -------------------------------------------------------------------- fleet
+
+# The serving fleet on the card: BERT-base behind ModelServer(replicas=2,
+# max_versions=2, slo_p99_ms=50) with every predict bucket captured as a
+# CUDA graph at the swap gate, and T5-small as the generative model type,
+# each replica's engine capturing its (batch, kv) step graphs at warm-up.
+FLEET_REPLICAS = 2
+FLEET_SLO_MS = 50.0
+FLEET_BATCH = 32
+FLEET_SUPERVISOR_S = 0.2
+FLEET_ENGINE_BATCH = 8
+FLEET_PAGE = DECODE_LEN // 4
+# Token admission bound of the generative fleet: above what 8 clients can
+# owe at once (8 x 4 rows x 128 tokens), far below the admission burst.
+FLEET_TOKENS = 6144
+FLEET_BURST = 32
+# Sequences run through two gated engines (captured and eager steps).
+FLEET_GATED = 16
+
+
+def payload_copy(src, dst):
+    """A pushed version: the payload's files hard-linked under ``dst``."""
+    shutil.copytree(src, dst, copy_function=os.link)
+
+
+def nan_payload(src, dst):
+    """A bad push: ``src``'s payload with its classifier weights NaN."""
+    payload_copy(src, dst)
+    ckpt = os.path.join(dst, "checkpoint", "state_dict.pt")
+    state = torch.load(ckpt, map_location="cpu", weights_only=True)
+    os.unlink(ckpt)
+    state["head.weight"] = torch.full_like(state["head.weight"], float("nan"))
+    torch.save(state, ckpt)
+
+
+def post_code(url, body=None):
+    req = urllib.request.Request(url, data=json.dumps(body or {}).encode(),
+                                 method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def wait_for(predicate, timeout_s, what):
+    deadline = time.monotonic() + timeout_s
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"fleet: timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def eager(loaded, batch):
+    """``loaded``'s device step run eagerly on ``batch`` (no graph)."""
+    from tpu_pipelines_torch.trainer.export import _to_numpy, on_device
+
+    with torch.inference_mode():
+        return _to_numpy(loaded.device_step(loaded.params,
+                                            on_device(batch, loaded.device)))
+
+
+def fleet_predict_phase(seed, n_requests, card, workdir):
+    """BERT-base through the predict fleet.  Returns the flash_fwd
+    launches of the main client run."""
+    from tpu_pipelines_torch.testing import faults
+
+    hp = {**DEFAULT_HPARAMS, "attn_impl": "flash"}
+    src = os.path.join(workdir, "bert", "1")
+    base = os.path.join(workdir, "fleet_bert")
+    payload_copy(src, os.path.join(base, "1"))
+    requests = make_requests(np.random.default_rng(seed + 11), n_requests,
+                             hp["vocab_size"])
+    server = ModelServer("bert", base, replicas=FLEET_REPLICAS,
+                         max_versions=2, slo_p99_ms=FLEET_SLO_MS,
+                         max_batch_size=FLEET_BATCH,
+                         supervisor_interval_s=FLEET_SUPERVISOR_S,
+                         device="cuda")
+    fleet = server._fleet
+    replicas = fleet.pool.replicas
+    try:
+        url = f"http://127.0.0.1:{server.start(port=0)}/v1/models/bert"
+        # Version 1 went active with nothing to warm from: its first batch
+        # is its warm-up, one graph per padded bucket captured before that
+        # batch is served.  Graph memory: what the card holds after that
+        # request beyond before it, each read after a collection with the
+        # allocator's free blocks released.
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        warm, _ = run_clients(f"{url}:predict", requests[:1], n_procs=1,
+                              threads=1)   # also the fleet's canary batch
+        if warm[0][0] != 200:
+            raise AssertionError(f"fleet: warm-up answered {warm[0][0]}")
+        warm1 = dict(fleet.last_warm or {})
+        loaded = fleet.active_loaded()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        graph_bytes = torch.cuda.memory_reserved() - reserved0
+        buckets = warm1.get("buckets", [])
+        rows = [r for p in requests for r in p["instances"]]
+        ids = np.asarray([r["input_ids"] for r in rows])
+        mask = np.asarray([r["attention_mask"] for r in rows])
+
+        def unequal_buckets(version):
+            """Buckets whose replay differs from the eager step."""
+            return [b for b in buckets if not np.array_equal(
+                version.predict({"input_ids": ids[:b],
+                                 "attention_mask": mask[:b]}),
+                eager(version, {"input_ids": ids[:b],
+                                "attention_mask": mask[:b]}))]
+
+        unequal = unequal_buckets(loaded)
+
+        zero_counters()
+        batches0 = sum(r.batcher.batches_run for r in replicas)
+        results, wall_s = run_clients(f"{url}:predict", requests)
+        launches = fa.launches
+        n_batches = sum(r.batcher.batches_run for r in replicas) - batches0
+        after_warm = loaded.aot.compiles_after_warm
+
+        # A hot swap under load: version 2 (the same weights) pushed while
+        # the clients run; the canary, then one graph per padded bucket,
+        # before it serves.
+        payload_copy(src, os.path.join(base, "2"))
+        swap = {}
+
+        def hammer():
+            swap["results"], _ = run_clients(f"{url}:predict",
+                                             requests[:n_requests // 2])
+
+        served0 = sum(r.latency.count for r in replicas)
+        clients = threading.Thread(target=hammer)
+        clients.start()
+        wait_for(lambda: sum(r.latency.count for r in replicas)
+                 >= served0 + n_requests // 8, 120, "the swap's traffic")
+        swap["reload"] = post_code(f"{url}:reload")
+        clients.join()
+        warm2 = dict(fleet.last_warm)
+        pushed = fleet.active_loaded()
+        unequal2 = unequal_buckets(pushed)
+        # A bad push: NaN weights, refused at the canary (409).
+        nan_payload(src, os.path.join(base, "3"))
+        bad = post_code(f"{url}:reload")
+
+        # KILL_REPLICA on replica 0 with the supervisor on.
+        plan = faults.FaultPlan({faults.REPLICA_KEY: faults.NodeFault(
+            faults.KILL_REPLICA, replica="0")})
+        with plan.activate():
+            killed, _ = run_clients(f"{url}:predict",
+                                    requests[:n_requests // 3])
+            wait_for(lambda: replicas[0].generation >= 1
+                     and fleet.supervisor.state(replicas[0]) == "healthy",
+                     30, "replica 0's rebuild")
+            healed, _ = run_clients(f"{url}:predict",
+                                    requests[:n_requests // 8])
+        health = server.health()
+        after_warm_total = server.metrics.get(
+            "serving_aot_compiles_after_warm_total").get()
+        active = fleet.active_version
+        batch32 = {"input_ids": ids[:FLEET_BATCH],
+                   "attention_mask": mask[:FLEET_BATCH]}
+        replay_ms = profiled(lambda i: loaded.predict(batch32), 20)
+        eager_ms = profiled(lambda i: eager(loaded, batch32), 20)
+    finally:
+        server.stop()
+
+    codes = [c for c, _, _ in results]
+    if any(c != 200 for c in codes):
+        raise AssertionError(f"fleet: non-200 replies {sorted(set(codes))}")
+    served = np.concatenate([np.asarray(reply["predictions"], np.float32)
+                             for _, reply, _ in results])
+    dense = load_exported_model(os.path.join(workdir, "bert_dense", "1"),
+                                device="cuda")
+
+    def predict(model, mask_rows):
+        return np.concatenate([
+            eager(model, {"input_ids": ids[i:i + 32],
+                          "attention_mask": mask_rows[i:i + 32]})
+            for i in range(0, len(rows), 32)])
+
+    want = predict(dense, mask)
+    max_err = float(np.abs(served - want).max())
+    # Controls: the served version's step fed a wrong key mask.
+    control_err = {
+        name: float(np.abs(predict(loaded, m) - want).max())
+        for name, m in (("mask dropped", np.ones_like(mask)),
+                        ("mask of the next row", np.roll(mask, 1, axis=0)))}
+    del dense, loaded, pushed
+    lat_ms = np.array([t for _, _, t in results]) * 1e3
+    swap_codes = sorted({c for c, _, _ in swap["results"]})
+    kill_codes = sorted({c for c, _, _ in killed + healed})
+    print(f"fleet [{card}]: BERT-base bf16 flash, {FLEET_REPLICAS} replicas, "
+          f"max_versions 2, slo_p99_ms {FLEET_SLO_MS:g}, buckets {buckets}: "
+          f"version 1's first batch captured {warm1.get('compiled')} graphs in "
+          f"{warm1.get('seconds', 0.0):.3f} s before it was served "
+          f"(fallback_warm {warm1.get('fallback_warm')}); graph memory "
+          f"{graph_bytes} bytes (reserved growth across that request)",
+          flush=True)
+    print(f"fleet [{card}]: {len(requests)} requests ({len(rows)} rows) in "
+          f"{n_batches} device batches, {N_CLIENT_PROCS * CLIENT_THREADS} "
+          f"concurrent clients; p50 {np.percentile(lat_ms, 50):.2f} ms, p99 "
+          f"{np.percentile(lat_ms, 99):.2f} ms; {len(rows) / wall_s:.1f} "
+          f"examples/s; flash_fwd launches {launches} = {N_LAYERS} x "
+          f"{n_batches} batches expected (credited per replay); compiles "
+          f"after warm {after_warm} (serving_aot_compiles_after_warm_total "
+          f"{after_warm_total:g})", flush=True)
+    print(f"fleet: replay == eager bit for bit at buckets "
+          f"{[b for b in buckets if b not in unequal]} of version 1 (unequal: "
+          f"{unequal}) and {[b for b in buckets if b not in unequal2]} of "
+          f"version 2 (unequal: {unequal2}); max |fleet - dense| logit = "
+          f"{max_err:.3e} (tol {LOGIT_TOL:g})", flush=True)
+    for name, err in control_err.items():
+        print(f"fleet control, {name}: max |flash - dense| logit = {err:.3e} "
+              f"(must exceed tol {LOGIT_TOL:g})", flush=True)
+    print(f"fleet [{card}]: hot swap to version 2 under load: reload answered "
+          f"{swap['reload'][0]}, replies {swap_codes}, the swap's warm-up "
+          f"{warm2['seconds']:.3f} s ({warm2['compiled']} graphs, fallback_warm "
+          f"{warm2['fallback_warm']}); bad push (NaN weights) answered "
+          f"{bad[0]}; active version {active}", flush=True)
+    print(f"fleet: KILL_REPLICA on replica 0 ({plan.log}): replies "
+          f"{kill_codes}, replica 0 rebuilt (generation "
+          f"{replicas[0].generation}), states {health['fleet']['replica_states']}",
+          flush=True)
+    for name, (wall, traced, busy, _, n_kernels) in (("replayed", replay_ms),
+                                                     ("eager", eager_ms)):
+        print(f"fleet step [{card}] {name} predict, batch {FLEET_BATCH} x "
+              f"{SEQ_LEN}: host wall {wall:.3f} ms ({traced:.3f} ms traced), "
+              f"device busy {busy:.3f} ms (idle share {1 - busy / traced:.3f}), "
+              f"{n_kernels:.0f} kernels per step", flush=True)
+    if (not buckets or warm1["compiled"] != len(buckets)
+            or warm1["fallback_warm"]):
+        raise AssertionError(f"fleet: version 1's warm-up {warm1}")
+    if unequal or unequal2:
+        raise AssertionError(f"fleet: replay != eager at buckets {unequal} "
+                             f"(version 1), {unequal2} (version 2)")
+    if n_batches < 1 or launches != N_LAYERS * n_batches:
+        raise AssertionError(
+            f"fleet: flash_fwd launched {launches} times for {n_batches} batches")
+    if after_warm != 0 or after_warm_total != 0:
+        raise AssertionError(f"fleet: {after_warm} compiles after warm")
+    if max_err > LOGIT_TOL:
+        raise AssertionError("fleet: flash-served logits disagree with dense")
+    if min(control_err.values()) <= LOGIT_TOL:
+        raise AssertionError("fleet: a wrong key mask stays within LOGIT_TOL")
+    if swap["reload"][0] != 200 or swap_codes != [200]:
+        raise AssertionError(f"fleet: hot swap {swap['reload']}, {swap_codes}")
+    if warm2["compiled"] != len(buckets) or warm2["fallback_warm"]:
+        raise AssertionError(f"fleet: version 2's warm-up {warm2}")
+    if bad[0] != 409 or active != "2":
+        raise AssertionError(f"fleet: bad push answered {bad}, active {active}")
+    if kill_codes != [200] or replicas[0].generation < 1:
+        raise AssertionError(f"fleet: killed replica: {kill_codes}")
+    return launches
+
+
+def gated_engine_streams(loaded, prompts, budgets, capture):
+    """The given sequences through a fresh engine on the card, all queued
+    before its first round (one schedule); ``capture`` False keeps every
+    step eager.  Returns (streams, the engine, still open)."""
+    gate = threading.Event()
+    engine = GenerativeEngine(loaded.decode_fns, loaded.params, device="cuda",
+                              max_batch_size=FLEET_ENGINE_BATCH,
+                              page_size=FLEET_PAGE,
+                              fault_hook=lambda: gate.wait(60))
+    if not capture:
+        engine._capture = lambda b, kv: None
+    engine.warm()
+    handles = [engine.submit_nowait(p, max_new_tokens=m)
+               for p, m in zip(prompts, budgets)]
+    gate.set()
+    return [h.wait(600).tolist() for h in handles], engine
+
+
+def fleet_generate_phase(seed, n_requests, card, workdir):
+    """T5-small as the generative model type.  Returns the flash_decode
+    launches of the main client run."""
+    src = os.path.join(workdir, "t5", "1")
+    base = os.path.join(workdir, "fleet_t5")
+    payload_copy(src, os.path.join(base, "1"))
+    rng = np.random.default_rng(seed + 12)
+    requests = t5_requests(rng, n_requests, t5m.DEFAULT_HPARAMS["vocab_size"])
+    for r in requests:
+        r["params"] = {"max_new_tokens": int(rng.integers(DECODE_LEN // 8,
+                                                          DECODE_LEN + 1))}
+    burst = [{"inputs": r["inputs"], "params": {"max_new_tokens": DECODE_LEN}}
+             for r in t5_requests(rng, FLEET_BURST,
+                                  t5m.DEFAULT_HPARAMS["vocab_size"])]
+    t0 = time.perf_counter()
+    server = ModelServer("t5", base, model_type="generative",
+                         replicas=FLEET_REPLICAS,
+                         max_batch_size=FLEET_ENGINE_BATCH,
+                         decode_page_size=FLEET_PAGE,
+                         max_queue_tokens=FLEET_TOKENS, device="cuda")
+    load_s = time.perf_counter() - t0
+    fleet = server._fleet
+    engines = [r._engines["1"] for r in fleet.pool.replicas]
+    try:
+        url = f"http://127.0.0.1:{server.start(port=0)}/v1/models/t5:generate"
+        graphs = [len(e._graphs) for e in engines]
+        zero_counters()
+        results, wall_s = run_clients(url, requests, n_procs=2, threads=4)
+        launches = fa.decode_launches
+        steps = sum(e.steps_run for e in engines)
+        prefills = sum(e.prefills_run for e in engines)
+        after_warm = sum(e.compiles_after_warm for e in engines)
+        burst_results, _ = run_clients(url, burst, n_procs=2,
+                                       threads=FLEET_BURST // 2)
+        loaded = fleet.active_loaded()
+    finally:
+        server.stop()
+    codes = sorted({c for c, _, _ in results})
+    burst_codes = [c for c, _, _ in burst_results]
+    n_buckets = len(engines[0].batch_buckets) * len(engines[0].kv_buckets)
+    served = [list(row) for _, reply, _ in results for row in reply["outputs"]]
+    # One schedule, two engines: captured steps against eager steps.
+    prompts, budgets = [], []
+    for r in requests:
+        for ids, m in zip(r["inputs"]["inputs"], r["inputs"]["input_mask"]):
+            prompts.append(np.asarray(ids)[:int(np.sum(m))])
+            budgets.append(r["params"]["max_new_tokens"])
+    prompts, budgets = prompts[:FLEET_GATED], budgets[:FLEET_GATED]
+    graph_streams, graph_engine = gated_engine_streams(loaded, prompts,
+                                                       budgets, True)
+    eager_streams, eager_engine = gated_engine_streams(loaded, prompts,
+                                                       budgets, False)
+    try:
+        kv = graph_engine.kv_buckets[-1]
+        with torch.inference_mode():
+            with torch.cuda.stream(graph_engine._stream):
+                replay_ms = profiled(lambda i: graph_engine._step(
+                    FLEET_ENGINE_BATCH, kv).cpu(), 20)
+            with torch.cuda.stream(eager_engine._stream):
+                eager_ms = profiled(lambda i: eager_engine._run_step(
+                    eager_engine._arena, FLEET_ENGINE_BATCH, kv)[0].cpu(), 20)
+    finally:
+        graph_engine.close()
+        eager_engine.close()
+    same_as_fleet = sum(
+        s[:len(g)] == g for s, g in zip(served, graph_streams))
+    n_tokens = sum(len(s) for s in graph_streams)
+    print(f"fleet generative [{card}]: T5-small bf16 flash decode, "
+          f"{FLEET_REPLICAS} replicas, engine batch {FLEET_ENGINE_BATCH}, pages "
+          f"of {FLEET_PAGE}: {graphs} step graphs captured at warm-up "
+          f"({n_buckets} (batch, kv) buckets per engine; load + warm "
+          f"{load_s:.2f} s); {len(requests)} :generate requests ({len(served)} "
+          f"rows) from 8 clients in {wall_s:.2f} s: {prefills} prefills, "
+          f"{steps} steps, {steps / wall_s:.1f} steps/s; replies {codes}; "
+          f"compiles after warm {after_warm}", flush=True)
+    print(f"fleet generative: flash_decode launches {launches} = {T5_LAYERS} x "
+          f"({prefills} prefills + {steps} steps credited per replay) "
+          f"expected; captured engine == eager engine on one schedule: "
+          f"{graph_streams == eager_streams} ({len(prompts)} streams, "
+          f"{n_tokens} tokens); {same_as_fleet} of {len(graph_streams)} fleet rows "
+          f"equal the gated engine's (reported only: another schedule); "
+          f"admission burst of {FLEET_BURST} x 4-row 128-token requests: "
+          f"{burst_codes.count(429)} answered 429, {burst_codes.count(200)} "
+          f"200", flush=True)
+    for name, (wall, traced, busy, _, n_kernels) in (("replayed", replay_ms),
+                                                     ("eager", eager_ms)):
+        print(f"fleet engine step [{card}] {name}, bucket "
+              f"({FLEET_ENGINE_BATCH}, {kv}): host wall {wall:.3f} ms "
+              f"({traced:.3f} ms traced), device busy {busy:.3f} ms (idle "
+              f"share {1 - busy / traced:.3f}), {n_kernels:.0f} kernels per "
+              f"step", flush=True)
+    if graphs != [n_buckets] * FLEET_REPLICAS:
+        raise AssertionError(f"fleet generative: graphs captured {graphs}")
+    if codes != [200]:
+        raise AssertionError(f"fleet generative: replies {codes}")
+    if after_warm != 0:
+        raise AssertionError(f"fleet generative: {after_warm} compiles after warm")
+    if steps < 1 or launches != T5_LAYERS * (prefills + steps):
+        raise AssertionError(f"fleet generative: flash_decode launched "
+                             f"{launches} times for {prefills} prefills and "
+                             f"{steps} steps")
+    if graph_streams != eager_streams:
+        raise AssertionError("fleet generative: captured engine streams != eager")
+    if 429 not in burst_codes or any(c >= 500 for c in burst_codes):
+        raise AssertionError(f"fleet generative: burst codes {sorted(set(burst_codes))}")
+    return launches
+
+
+def fleet_phase(seed, n_requests, n_generate, card, workdir):
+    return {"flash_fwd": fleet_predict_phase(seed, n_requests, card, workdir),
+            "flash_decode": fleet_generate_phase(seed, n_generate, card,
+                                                 workdir)}
+
+
 def build_kernels():
     """Build every CUDA source, one nvcc each, all started together."""
     seconds, errors = {}, {}
@@ -3047,6 +3482,9 @@ def main(argv=None) -> int:
         generated, t5_payload = generate_phase(args.seed, args.generate_requests,
                                                card, workdir)
         phase_done("generate")
+        fleet = fleet_phase(args.seed, args.requests, args.generate_requests,
+                            card, workdir)
+        phase_done("fleet")
     engine = engine_phase(t5_payload, args.seed, card)
     phase_done("engine")
     engine_long = engine_long_phase(t5_payload, args.seed, card)
@@ -3076,10 +3514,11 @@ def main(argv=None) -> int:
     # plus both engine runs for flash_decode; launches_by_path adds the
     # serving path's flash_fwd count and each kernel's count in the two
     # pipeline DAGs, each read from inside the runner.
-    fwd["launches_by_path"] = {"serving": served,
+    fwd["launches_by_path"] = {"serving": served, "fleet": fleet["flash_fwd"],
                                "training": trained["flash_fwd"]}
     decode["launches_by_path"] = {"serving": generated, "engine": engine,
-                                  "engine_long": engine_long}
+                                  "engine_long": engine_long,
+                                  "fleet": fleet["flash_decode"]}
     for record in bwd:
         record["launches_by_path"] = {"training": trained[record["name"]]}
     bwd[0]["dvec_launches_by_path"] = {"training": trained["flash_bwd_dvec"]}
@@ -3087,7 +3526,7 @@ def main(argv=None) -> int:
         for record in (fwd, *bwd, decode):
             record["launches_by_path"][path] = counts[record["name"]]
         bwd[0]["dvec_launches_by_path"][path] = counts["flash_bwd_dvec"]
-    trained["flash_decode"] = generated + engine + engine_long
+    trained["flash_decode"] = generated + engine + engine_long + fleet["flash_decode"]
     records = [fwd, *bwd, decode]
     bwd[0]["dvec_launches"] = trained["flash_bwd_dvec"]
     for record in records:

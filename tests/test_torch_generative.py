@@ -198,7 +198,7 @@ def test_token_admission_refuses_past_max_queue_tokens(flax_params):
     ("draft_fns", object()),
     ("slo_ms_per_token", 5.0),
     ("hard_deadline", True),
-    ("fault_hook", lambda: None),
+    ("draft_params", object()),
 ])
 def test_deferred_engine_options_raise_naming_a8(flax_params, option, value):
     model, params = tiny.port_model(flax_params)

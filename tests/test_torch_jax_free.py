@@ -72,7 +72,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
                    "components.infra_validator", "components.pusher",
                    "evaluation.metrics", "models.taxi",
                    "examples.taxi_module", "examples.taxi_pipeline",
-                   "examples.taxi_preprocessing"):
+                   "examples.taxi_preprocessing", "serving.aot",
+                   "serving.fleet", "serving.fleet.fleet",
+                   "serving.fleet.pool", "serving.fleet.replica",
+                   "serving.fleet.router", "serving.fleet.supervisor",
+                   "serving.fleet.versions", "testing.faults"):
         assert f"tpu_pipelines_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["modules"]
     leaked = [m for m in report["modules"] if _forbidden(m)]

@@ -509,6 +509,192 @@ def test_backward_wrapper_raises_on_cuda_for_bad_saved_tensors(cuda):
         fa.flash_bwd_dkv(q, q, q, q, lse.double(), lse)
 
 
+# ---- the serving fleet's captured steps (serving/aot.py, the engine)
+
+# A tiny BERT with the forward kernel's head_dim 64, bf16 compute.
+TINY_SERVE = {"vocab_size": 128, "d_model": 128, "n_layers": 2, "n_heads": 2,
+              "d_ff": 256, "max_len": 64, "dropout_rate": 0.0,
+              "num_classes": 3, "attn_impl": "flash"}
+
+
+def _served_bert(tmp_path, cuda):
+    import os
+
+    from tpu_pipelines_torch.examples import bert_module
+    from tpu_pipelines_torch.models.bert import build_bert_model, init_bert_weights
+    from tpu_pipelines_torch.trainer.export import export_model, load_exported_model
+
+    model = init_bert_weights(build_bert_model(TINY_SERVE),
+                              torch.Generator().manual_seed(0))
+    export_model(serving_model_dir=str(tmp_path / "1"),
+                 params=model.state_dict(),
+                 module_file=os.path.abspath(bert_module.__file__),
+                 hyperparameters=TINY_SERVE)
+    return load_exported_model(str(tmp_path / "1"), device=cuda)
+
+
+def _bert_rows(n, seed, l=48):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ids = np.zeros((n, l), np.int64)
+    for i in range(n):
+        k = int(rng.integers(4, l + 1))
+        ids[i, :k] = rng.integers(1, TINY_SERVE["vocab_size"], size=k)
+    return {"input_ids": ids, "attention_mask": (ids > 0).astype(np.int64)}
+
+
+def _eager(loaded, batch):
+    from tpu_pipelines_torch.trainer.export import on_device
+
+    return loaded.device_step(loaded.params, on_device(batch, loaded.device)) \
+        .float().cpu().numpy()
+
+
+def test_predict_bucket_graph_replay_equals_eager_bit_for_bit(cuda, tmp_path):
+    import numpy as np
+
+    from tpu_pipelines_torch.serving import aot
+
+    loaded = _served_bert(tmp_path, cuda)
+    stats = aot.warm_loaded(loaded, _bert_rows(1, 0), 8)
+    assert stats["buckets"] == [1, 2, 4, 8] and stats["compiled"] == 4
+    assert stats["fallback_warm"] is False and stats["cache_hits"] == 0
+    for b in stats["buckets"]:
+        batch = _bert_rows(b, seed=b)
+        assert loaded.aot.lookup("raw", batch) is not None
+        assert np.array_equal(loaded.predict(batch), _eager(loaded, batch))
+        assert np.array_equal(loaded.predict_transformed(batch),
+                              _eager(loaded, batch))
+    assert loaded.aot.compiles_after_warm == 0
+    # A shape no bucket holds runs eagerly and counts once per signature.
+    odd = _bert_rows(3, seed=9, l=40)
+    for _ in range(2):
+        assert np.array_equal(loaded.predict(odd), _eager(loaded, odd))
+    assert loaded.aot.compiles_after_warm == 1 and loaded.aot.fallbacks == 2
+
+
+def test_the_fleets_boot_version_serves_from_graphs_captured_on_its_first_batch(
+        cuda, tmp_path):
+    import numpy as np
+
+    from tpu_pipelines_torch.serving.fleet import ServingFleet
+
+    _served_bert(tmp_path, cuda)
+    fleet = ServingFleet("bert", str(tmp_path), replicas=2, max_versions=2,
+                         max_batch_size=8, device=cuda)
+    try:
+        fleet.reload()
+        loaded = fleet.active_loaded()
+        assert loaded.aot.entries == {} and fleet.last_warm is None
+        rows = _bert_rows(4, seed=7)
+        got = fleet.submit(rows, 4)
+        assert fleet.last_warm["compiled"] == len(fleet.last_warm["buckets"])
+        assert fleet.last_warm["fallback_warm"] is False
+        assert np.array_equal(got, _eager(loaded, rows))
+        for b in (1, 2, 5):
+            batch = _bert_rows(b, seed=20 + b)
+            fleet.submit(batch, b)
+        assert loaded.aot.compiles_after_warm == 0
+    finally:
+        fleet.close()
+
+
+def test_two_replica_threads_replaying_at_once_equal_sequential_eager(
+        cuda, tmp_path):
+    import threading
+
+    import numpy as np
+
+    from tpu_pipelines_torch.serving import aot
+
+    loaded = _served_bert(tmp_path, cuda)
+    aot.warm_loaded(loaded, _bert_rows(1, 0), 8)
+    batches = [_bert_rows([1, 2, 4, 8][i % 4], seed=100 + i) for i in range(32)]
+    want = [_eager(loaded, b) for b in batches]
+    got = [None] * len(batches)
+
+    def replica(offset):
+        stream = torch.cuda.Stream(cuda)
+        with torch.cuda.stream(stream):
+            for i in range(offset, len(batches), 2):
+                got[i] = loaded.predict(batches[i])
+
+    threads = [threading.Thread(target=replica, args=(r,)) for r in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert loaded.aot.compiles_after_warm == 0
+
+
+def test_capture_records_the_flash_launches_and_a_replay_credits_them(
+        cuda, tmp_path):
+    from tpu_pipelines_torch.serving import aot
+
+    loaded = _served_bert(tmp_path, cuda)
+    aot.warm_loaded(loaded, _bert_rows(1, 0), 4)
+    steps = [loaded.aot.lookup("raw", _bert_rows(b, 0)) for b in (1, 2, 4)]
+    assert all(s.tally["launches"] == TINY_SERVE["n_layers"] for s in steps)
+    before = fa.launches
+    for b in (1, 2, 4, 4, 2):
+        loaded.predict(_bert_rows(b, seed=b))
+    assert fa.launches - before == 5 * TINY_SERVE["n_layers"]
+
+
+def test_engine_graph_tokens_equal_the_eager_engine(cuda, monkeypatch):
+    """The engine's captured (batch, kv) steps emit the streams the same
+    engine emits stepping eagerly, on one schedule (every sequence queued
+    before the worker's first round), and credit the decode kernel per
+    replay."""
+    import threading
+
+    import numpy as np
+
+    from tpu_pipelines_torch.models import t5 as pt5
+    from tpu_pipelines_torch.serving.generative import GenerativeEngine
+
+    model = pt5.T5(vocab_size=64, d_model=32, n_layers=2, n_heads=2,
+                   head_dim=16, d_ff=64, dropout_rate=0.0, dtype=torch.float32,
+                   attn_impl="flash")
+    pt5.init_t5_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    params = dict(model.state_dict())
+    fns = pt5.make_continuous_decode_fns(model, max_decode_len=24, eos_id=1,
+                                         max_input_len=12)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, 64, size=int(rng.integers(3, 13)))
+               for _ in range(6)]
+    budgets = [int(m) for m in rng.integers(4, 24, size=6)]
+
+    def run(eager):
+        gate = threading.Event()
+        engine = GenerativeEngine(fns, params, device=cuda, max_batch_size=4,
+                                  page_size=8, fault_hook=lambda: gate.wait(30))
+        if eager:
+            monkeypatch.setattr(engine, "_capture", lambda b, kv: None)
+        try:
+            engine.warm()
+            assert len(engine._graphs) == (0 if eager else 3 * 3)
+            before = fa.decode_launches
+            handles = [engine.submit_nowait(p, max_new_tokens=m)
+                       for p, m in zip(prompts, budgets)]
+            gate.set()
+            streams = [h.wait(60).tolist() for h in handles]
+            launches = fa.decode_launches - before
+            return (streams, launches, engine.steps_run, engine.prefills_run,
+                    engine.compiles_after_warm)
+        finally:
+            engine.close()
+
+    graph, eager = run(False), run(True)
+    assert graph[0] == eager[0]
+    _, launches, steps, prefills, compiles = graph
+    assert compiles == 0 and prefills == 6
+    assert launches == 2 * (steps + prefills)
+
+
 # ---- the captured training step (train_loop on CUDA)
 
 # A tiny BERT with the kernels' head_dim 64, dropout on, bf16 compute.

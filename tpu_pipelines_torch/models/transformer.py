@@ -59,7 +59,9 @@ FALLBACK_DEVICE_MEMORY_BYTES = 16 * 1024**3
 
 def _device_memory_bytes(device: Optional[torch.device]) -> int:
     if device is not None and torch.device(device).type == "cuda":
-        return int(torch.cuda.mem_get_info(device)[1])
+        # The properties are read once and cached by torch: no device call,
+        # so an "auto" choice can sit inside a captured CUDA graph.
+        return int(torch.cuda.get_device_properties(device).total_memory)
     return FALLBACK_DEVICE_MEMORY_BYTES
 
 
@@ -81,7 +83,7 @@ def dense_attn_fits(
     device: Optional[torch.device] = None,
 ) -> bool:
     """True when dense attention's temporaries fit comfortably on
-    ``device`` (its total memory from ``torch.cuda.mem_get_info``)."""
+    ``device`` (its total memory from ``torch.cuda.get_device_properties``)."""
     temp = dense_attn_expected_temp_bytes(batch, heads, seq_q, seq_kv, itemsize)
     return temp <= DENSE_ATTN_HBM_FRACTION * _device_memory_bytes(device)
 

@@ -1,1 +1,2 @@
-"""Model server, micro-batcher and the serving CLI."""
+"""Model server, micro-batcher, serving fleet, captured serving steps and
+the serving CLI."""

@@ -8,6 +8,13 @@ and hot-swaps to the highest one.  The model runs on the card unless
 
     python -m tpu_pipelines_torch.serving \
         --model-name bert --base-dir /serving/bert --port 8501 --batching
+
+Fleet mode (replica batchers behind a latency-aware router, resident
+versions with canary-gated hot-swap, each version's buckets captured as
+CUDA graphs before it serves): add ``--replicas 2 --max-versions 2
+--slo-p99-ms 50``; ``--model-type generative`` serves ``:generate`` through
+per-replica continuous-batching engines.  ``/healthz`` then carries a
+``fleet`` block.
 """
 
 from __future__ import annotations
@@ -41,7 +48,32 @@ def main(argv=None) -> int:
     parser.add_argument("--max-queue-depth", type=int, default=0,
                         help="admission-control bound: refuse (429 + "
                              "Retry-After) predict requests once in-flight "
-                             "+ queued work reaches this; 0 = unbounded")
+                             "+ queued work reaches this; 0 = env "
+                             "TPP_SERVING_MAX_QUEUE, else unbounded")
+    parser.add_argument("--replicas", type=int, default=0,
+                        help="replica workers behind the latency-aware "
+                             "router (fleet mode when > 1; 0 = env "
+                             "TPP_SERVING_REPLICAS, else 1)")
+    parser.add_argument("--max-versions", type=int, default=0,
+                        help="model versions kept resident for instant "
+                             "rollback (fleet mode when > 1; 0 = env "
+                             "TPP_SERVING_MAX_VERSIONS, else 1)")
+    parser.add_argument("--slo-p99-ms", type=float, default=-1.0,
+                        help="p99 latency budget the SLO-driven batch "
+                             "deadline spends (0 = fixed window; -1 = env "
+                             "TPP_SERVING_SLO_P99_MS)")
+    parser.add_argument("--model-type", default="",
+                        choices=["", "predict", "generative"],
+                        help="'predict' or 'generative' (continuous-batching "
+                             ":generate through the fleet's engines; empty "
+                             "= env TPP_SERVING_MODEL_TYPE, else predict)")
+    parser.add_argument("--decode-page-size", type=int, default=0,
+                        help="generative KV-cache page (bucket) size; 0 = "
+                             "env TPP_SERVING_PAGE_SIZE, else one bucket")
+    parser.add_argument("--max-queue-tokens", type=int, default=0,
+                        help="generative admission bound in outstanding "
+                             "decode tokens (429 past it); 0 = env "
+                             "TPP_SERVING_MAX_TOKENS, else unbounded")
     parser.add_argument("--device", default="cuda",
                         help="torch device the model runs on (cuda, cuda:N "
                              "or cpu)")
@@ -58,6 +90,12 @@ def main(argv=None) -> int:
                 max_batch_size=args.max_batch_size,
                 batch_timeout_s=args.batch_timeout_ms / 1000.0,
                 max_queue_depth=args.max_queue_depth,
+                replicas=args.replicas,
+                max_versions=args.max_versions,
+                slo_p99_ms=args.slo_p99_ms,
+                model_type=args.model_type,
+                decode_page_size=args.decode_page_size,
+                max_queue_tokens=args.max_queue_tokens,
                 device=args.device,
             )
             break

@@ -12,10 +12,14 @@ The port of ``bucket_sizes``, ``pad_to_bucket``,
 
 Rows are padded with copies of the batch's first row (always a valid
 feature row) and the pad tail is sliced off before replies fan back out.
-The batch closes after a fixed gather window (``batch_timeout_s``, the
-TF-Serving ``batch_timeout_micros`` knob) or at ``max_batch_size`` rows.
-The SLO-driven gather deadline, request-trace spans and the fleet's
-two-phase close wait for the fleet slice.
+The batch closes after the gather window or at ``max_batch_size`` rows.
+The window is fixed (``batch_timeout_s``, the TF-Serving
+``batch_timeout_micros`` knob) or, with ``slo_p99_s``, derived from the p99
+budget minus the observed step time (``gather_window_s``).  The fleet's
+supervisor reads ``oldest_work_age_s`` as its wedge signal, and its pool
+closes every replica batcher in two phases (``request_close`` /
+``join_close``) against one deadline.  Request-trace spans wait for
+ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -98,11 +102,21 @@ class RequestBatcher:
 
     One daemon worker drains the queue: it blocks for the first pending
     request, then gathers more until the group's deadline (the oldest
-    request's enqueue time + ``batch_timeout_s``) or until
-    ``max_batch_size`` rows, concatenates, pads to a bucket, runs
+    request's enqueue time + the gather window, fixed or SLO-derived) or
+    until ``max_batch_size`` rows, concatenates, pads to a bucket, runs
     ``predict_fn`` ONCE, and distributes row slices back to each caller's
     future.  A request bigger than ``max_batch_size`` runs alone, unsplit.
     """
+
+    # The deadline budgets two step times: the request's own device call
+    # plus, worst case, the batch already in flight ahead of it.
+    SLO_STEP_BUDGET = 2.0
+    # Share of the p99 budget the gather window may spend; the rest is
+    # margin for latency the model does not see (transport, scheduling,
+    # the scrape histogram's bucket rounding of up to 2x).
+    SLO_WINDOW_FRAC = 0.35
+    # EWMA smoothing of the observed step time.
+    STEP_EWMA_ALPHA = 0.25
 
     def __init__(
         self,
@@ -110,6 +124,7 @@ class RequestBatcher:
         *,
         max_batch_size: int = 64,
         batch_timeout_s: float = 0.005,
+        slo_p99_s: float = 0.0,
         registry=None,
     ):
         if max_batch_size < 1:
@@ -117,17 +132,24 @@ class RequestBatcher:
         self.predict_fn = predict_fn
         self.max_batch_size = max_batch_size
         self.batch_timeout_s = batch_timeout_s
+        self.slo_p99_s = max(0.0, slo_p99_s)
+        self._step_ewma_s: Optional[float] = None
         self.buckets = bucket_sizes(max_batch_size)
         self.batches_run = 0          # device calls issued
+        self.requests_served = 0
         self._queue: "queue.Queue" = queue.Queue()
         self._closed = False
         self._close_lock = threading.Lock()
         # Futures of the group currently inside predict_fn: what close()
         # fails if the worker never comes back.  Written only by the worker.
         self._inflight: List["Future[np.ndarray]"] = []
+        # Enqueue instant of the oldest request of that group: the
+        # supervisor's wedge signal.  Written only by the worker.
+        self._inflight_since: Optional[float] = None
         self._m_batch_size = None
         self._m_batches = None
         self._m_requests = None
+        self._m_deadline = None
         self._m_step = None
         if registry is not None:
             registry.gauge(
@@ -146,12 +168,45 @@ class RequestBatcher:
                 "serving_batched_requests_total",
                 "Requests served through the micro-batcher.",
             )
+            self._m_deadline = registry.gauge(
+                "serving_batch_deadline_seconds",
+                "Effective batch-gather window (SLO-derived when "
+                "slo_p99_s is configured, else the fixed timeout).",
+            )
             self._m_step = registry.gauge(
                 "serving_model_step_seconds",
-                "Wall time of the most recent coalesced device call.",
+                "EWMA wall time of one coalesced device call.",
             )
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
+
+    # --------------------------------------------------- SLO batch window
+
+    def gather_window_s(self) -> float:
+        """The wait budget for coalescing the batch that opens now: with
+        ``slo_p99_s``, the spendable share of the p99 budget less
+        ``SLO_STEP_BUDGET`` observed step times; unconfigured (or before
+        the first step) the fixed ``batch_timeout_s``."""
+        if self.slo_p99_s <= 0 or self._step_ewma_s is None:
+            window = self.batch_timeout_s
+        else:
+            window = max(
+                0.0,
+                self.slo_p99_s * self.SLO_WINDOW_FRAC
+                - self.SLO_STEP_BUDGET * self._step_ewma_s,
+            )
+        if self._m_deadline is not None:
+            self._m_deadline.set(window)
+        return window
+
+    def _observe_step(self, step_s: float) -> None:
+        if self._step_ewma_s is None:
+            self._step_ewma_s = step_s
+        else:
+            a = self.STEP_EWMA_ALPHA
+            self._step_ewma_s = (1 - a) * self._step_ewma_s + a * step_s
+        if self._m_step is not None:
+            self._m_step.set(self._step_ewma_s)
 
     def queue_depth(self) -> int:
         return self._queue.qsize()
@@ -180,6 +235,22 @@ class RequestBatcher:
             self._queue.put((batch, n_rows, fut, time.monotonic()))
         return fut.result(timeout=timeout_s)
 
+    def oldest_work_age_s(self) -> float:
+        """Age of the oldest request this batcher owes an answer, queued or
+        inside the current device call: near the gather window when
+        healthy, growing without bound behind a wedged device call (the
+        supervisor's wedge signal)."""
+        oldest = self._inflight_since
+        with self._queue.mutex:
+            for item in self._queue.queue:
+                if item is not None:  # skip the close sentinel
+                    if oldest is None or item[3] < oldest:
+                        oldest = item[3]
+                    break  # FIFO: the first real entry is the oldest
+        if oldest is None:
+            return 0.0
+        return max(0.0, time.monotonic() - oldest)
+
     def close(self, timeout_s: float = 5.0) -> None:
         """Shut down: reject new submits, serve-or-fail everything queued.
 
@@ -187,11 +258,23 @@ class RequestBatcher:
         drains the queue ahead of the close sentinel) or gets a
         ``RuntimeError``.  If the worker does not come back within
         ``timeout_s`` (predict_fn wedged), the in-flight group's futures
-        are failed too."""
+        are failed too.  The fleet's pool runs the two halves,
+        :meth:`request_close` and :meth:`join_close`, over all replicas
+        against one deadline."""
+        self.request_close()
+        self.join_close(timeout_s)
+
+    def request_close(self) -> None:
+        """Phase 1 (non-blocking): reject new submits and sentinel the
+        worker so it starts draining.  Idempotent."""
         with self._close_lock:
             if not self._closed:
                 self._closed = True
                 self._queue.put(None)  # wake the worker
+
+    def join_close(self, timeout_s: float = 5.0) -> None:
+        """Phase 2: wait for the drain started by :meth:`request_close`;
+        past the deadline, fail the wedged in-flight futures."""
         self._worker.join(timeout=timeout_s)
         if self._worker.is_alive():
             for fut in list(self._inflight):
@@ -231,7 +314,7 @@ class RequestBatcher:
             # previous group counts against it (per-request wait stays
             # bounded by ~one window, not one per preceding group).  A
             # group whose window has already passed closes at once.
-            t_end = item[3] + self.batch_timeout_s
+            t_end = item[3] + self.gather_window_s()
             while rows < self.max_batch_size:
                 remaining = t_end - time.monotonic()
                 if remaining <= 0:
@@ -255,10 +338,12 @@ class RequestBatcher:
                 group.append(nxt)
                 rows += nxt[1]
             self._inflight = [entry[2] for entry in group]
+            self._inflight_since = group[0][3]
             try:
                 self._execute(group)
             finally:
                 self._inflight = []
+                self._inflight_since = None
 
     def _predict_group(self, group) -> None:
         merged = {
@@ -271,13 +356,13 @@ class RequestBatcher:
         padded = pad_to_bucket(merged, total, self.buckets)
         t0 = time.monotonic()
         preds = np.asarray(self.predict_fn(padded))[:total]
-        step_s = time.monotonic() - t0
+        self._observe_step(time.monotonic() - t0)
         self.batches_run += 1
+        self.requests_served += len(group)
         if self._m_batches is not None:
             self._m_batches.inc()
             self._m_requests.inc(len(group))
             self._m_batch_size.set(total)
-            self._m_step.set(step_s)
         offset = 0
         for _, n, fut, *_ in group:
             if not fut.done():  # close() may have failed a wedged group
@@ -302,10 +387,18 @@ class RequestBatcher:
                         entry[2].set_exception(e)
 
     def _drain_failures(self, msg: str) -> None:
+        sentinel = False
         while True:
             try:
                 item = self._queue.get_nowait()
             except queue.Empty:
-                return
-            if item is not None:
+                break
+            if item is None:
+                sentinel = True
+            else:
                 item[2].set_exception(RuntimeError(msg))
+        if sentinel:
+            # join_close drained the queue while a wedged worker was still
+            # inside predict_fn: it must find the sentinel when it returns,
+            # or it waits on the queue forever.
+            self._queue.put(None)

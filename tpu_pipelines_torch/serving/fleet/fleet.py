@@ -1,0 +1,481 @@
+"""ServingFleet: the facade ModelServer front-ends route through.
+
+The port of ``tpu_pipelines/serving/fleet/fleet.py``.  One fleet = one
+model name served by ``replicas`` workers (each its own micro-batcher and
+CUDA stream on the fleet's ``device``) over a shared
+:class:`ModelVersionManager`.  The REST surface stays on ``ModelServer``;
+in fleet mode its ``predict_batch`` / ``reload`` delegate here.
+
+Canary gating: the fleet remembers the first feature batch it serves and
+replays it against every later pushed version through the same check
+InfraValidator runs (``canary_check``: prediction count + finiteness)
+before the version becomes eligible; then ``_warm_buckets`` captures one
+CUDA graph per padded bucket of the new version (``serving/aot.py``).  A
+generative fleet's gate also builds every replica's engine for the version
+and captures its (batch, kv) step graphs.  A bad push, or a capture that
+fails, is refused (:class:`CanaryRefused`, HTTP 409) while the prior
+version keeps serving.
+
+A version that became active with no canary batch yet (the one the fleet
+boots with) has nothing to warm from at its gate: on CUDA the first batch
+it is given is its warm-up, and every bucket is captured from that batch's
+first row before the batch itself is served.  A capture that fails there
+fails that request and is tried again on the next; the version never
+serves eagerly.
+
+The drift sampler, metrics history and the SLO burn-rate rollback (with
+its version quarantine) wait for ROADMAP A8: their knobs raise
+``NotImplementedError`` when set.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from tpu_pipelines_torch.serving.fleet.pool import ReplicaPool
+from tpu_pipelines_torch.serving.fleet.replica import Replica
+from tpu_pipelines_torch.serving.fleet.versions import ModelVersionManager
+from tpu_pipelines_torch.utils.device import resolve_device
+
+log = logging.getLogger("tpu_pipelines_torch.serving")
+
+# The reference's knob for the metrics-history ring the fleet's monitors
+# write into; set, it raises until ROADMAP A8.
+ENV_METRICS_HISTORY = "TPP_METRICS_HISTORY"
+
+
+def _on_cuda(loaded) -> bool:
+    device = getattr(loaded, "device", None)
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def _deferred(knobs: Dict[str, Any]) -> None:
+    for name, value in knobs.items():
+        if value:
+            raise NotImplementedError(
+                f"ServingFleet({name}=...): waits for ROADMAP A8"
+            )
+
+
+class ServingFleet:
+    def __init__(
+        self,
+        model_name: str,
+        base_dir: str,
+        *,
+        replicas: int = 2,
+        raw: bool = True,
+        max_batch_size: int = 64,
+        batch_timeout_s: float = 0.005,
+        slo_p99_s: float = 0.0,
+        max_versions: int = 2,
+        model_type: str = "predict",
+        decode_page_size: int = 0,
+        max_queue_tokens: int = 0,
+        slo_ms_per_token: float = 0.0,
+        prefix_cache_entries: int = 0,
+        prefill_chunk_pages: int = 0,
+        spec_tokens: int = 0,
+        supervisor_interval_s: float = 0.0,
+        supervisor_queue_age_s: float = 0.0,
+        supervisor_breaker_failures: int = 3,
+        supervisor_breaker_open_s: float = 0.0,
+        monitor_sample_rate: float = 0.0,
+        monitor_window_s: float = 0.0,
+        registry=None,
+        loader: Optional[Callable[[str], Any]] = None,
+        device: Any = "cuda",
+    ):
+        if model_type not in ("predict", "generative"):
+            raise ValueError(
+                f"model_type must be 'predict' or 'generative', "
+                f"got {model_type!r}"
+            )
+        _deferred({
+            "slo_ms_per_token": slo_ms_per_token,
+            "prefix_cache_entries": prefix_cache_entries,
+            "prefill_chunk_pages": prefill_chunk_pages,
+            "spec_tokens": spec_tokens,
+            "monitor_sample_rate": monitor_sample_rate,
+            "monitor_window_s": monitor_window_s,
+            ENV_METRICS_HISTORY: os.environ.get(ENV_METRICS_HISTORY, "").strip(),
+        })
+        self.model_name = model_name
+        self.base_dir = base_dir
+        self.raw = raw
+        self.slo_p99_s = slo_p99_s
+        self.model_type = model_type
+        self.device = resolve_device(device)
+        self._max_batch_size = max_batch_size
+        self._canary_batch: Optional[Dict[str, Any]] = None
+        self._canary_lock = threading.Lock()
+        # Serializes the first-batch captures of a version that went active
+        # unwarmed (the replicas' first batches arrive together).
+        self._boot_warm_lock = threading.Lock()
+        # What the last swap's bucket warm-up did (aot.warm_loaded's stats).
+        self.last_warm: Optional[Dict[str, Any]] = None
+        self._m_warmup = self._m_aot_compiles = self._m_aot_after_warm = None
+        if registry is not None:
+            self._m_warmup = registry.gauge(
+                "serving_swap_warmup_seconds",
+                "Wall time of the last swap's bucket warm-up (one CUDA "
+                "graph captured per padded bucket, off the request path).",
+            )
+            self._m_aot_compiles = registry.counter(
+                "serving_aot_compiles_total",
+                "Bucket graphs captured at swap gates.",
+            )
+            self._m_aot_after_warm = registry.counter(
+                "serving_aot_compiles_after_warm_total",
+                "Predict-path shapes that missed the captured-step table "
+                "after warm-up (budget: zero; the predict twin of "
+                "serving_decode_compiles_after_warm_total).",
+            )
+        self.versions = ModelVersionManager(
+            model_name,
+            max_versions=max_versions,
+            loader=loader,
+            canary_fn=self._canary,
+            registry=registry,
+            device=self.device,
+        )
+        generative_cfg = None
+        if model_type == "generative":
+            # The engine arena is sized by the batcher's max_batch_size;
+            # the page size shapes the KV buckets.
+            generative_cfg = {
+                "versions": self.versions,
+                "engine_kwargs": {
+                    "max_batch_size": max_batch_size,
+                    "page_size": decode_page_size,
+                    "max_queue_tokens": max_queue_tokens,
+                },
+            }
+        supervised = supervisor_interval_s > 0
+        if generative_cfg is not None and supervised:
+            # Supervised fleets recover in-flight generations: a dying
+            # replica's decode failures surface as DecodeSessionLost.
+            generative_cfg["recover"] = True
+        self.pool = ReplicaPool([
+            Replica(
+                i,
+                self._leased_predict,
+                max_batch_size=max_batch_size,
+                batch_timeout_s=batch_timeout_s,
+                slo_p99_s=slo_p99_s,
+                device=self.device,
+                registry=registry,
+                generative_cfg=generative_cfg,
+            )
+            for i in range(max(1, int(replicas)))
+        ])
+        # Self-healing, opt-in via supervisor_interval_s: off leaves the
+        # router ungated, the pool without failover, and none of the
+        # supervisor's metric families registered.
+        self.supervisor = None
+        self._m_unavailable = self._m_sessions_recovered = None
+        if supervised:
+            from tpu_pipelines_torch.serving.fleet.supervisor import (
+                ReplicaSupervisor,
+            )
+
+            slo_age = 10.0 * slo_p99_s if slo_p99_s > 0 else 0.0
+            self.supervisor = ReplicaSupervisor(
+                self.pool,
+                interval_s=supervisor_interval_s,
+                queue_age_s=(
+                    supervisor_queue_age_s if supervisor_queue_age_s > 0
+                    else max(slo_age, 2.0)
+                ),
+                breaker_failures=supervisor_breaker_failures,
+                breaker_open_s=supervisor_breaker_open_s,
+                registry=registry,
+            )
+            self.pool.router.gate = self.supervisor.allow
+            self.pool.supervisor = self.supervisor
+            if registry is not None:
+                self.pool.on_failover = registry.counter(
+                    "serving_failovers_total",
+                    "Requests retried on a healthy replica after a "
+                    "transient failure on the routed one.",
+                ).inc
+                self._m_unavailable = registry.counter(
+                    "serving_fleet_unavailable_total",
+                    "Requests refused because every replica was ejected "
+                    "or breaker-open (HTTP 503 + Retry-After).",
+                )
+                self._m_sessions_recovered = registry.counter(
+                    "serving_decode_sessions_recovered_total",
+                    "In-flight generations re-prefilled onto a surviving "
+                    "replica after their replica died.",
+                )
+            self.supervisor.start()
+
+    @property
+    def generative(self) -> bool:
+        return self.model_type == "generative"
+
+    # ------------------------------------------------------------- predict
+
+    def _predict_callable(self, loaded):
+        return loaded.predict if self.raw else loaded.predict_transformed
+
+    def _leased_predict(self, batch: Dict[str, Any]) -> np.ndarray:
+        """Every device call runs under a version lease: a hot-swap during
+        the call cannot evict the version mid-predict, and the drain the
+        swap promises is the lease count reaching zero."""
+        with self.versions.lease() as (_version, loaded):
+            if self._uncaptured(loaded):
+                with self._boot_warm_lock:
+                    if self._uncaptured(loaded):
+                        self._capture_buckets(loaded, batch)
+            return np.asarray(self._predict_callable(loaded)(batch))
+
+    def _uncaptured(self, loaded) -> bool:
+        """A version on CUDA whose captured-step table is still empty: it
+        went active with no canary batch to warm from."""
+        if not _on_cuda(loaded):
+            return False
+        dispatch = getattr(loaded, "aot", None)
+        return dispatch is None or not dispatch.entries
+
+    def submit(
+        self, batch: Dict[str, Any], n_rows: int, timeout_s: float = 300.0,
+    ) -> np.ndarray:
+        try:
+            result = self.pool.submit(batch, n_rows, timeout_s=timeout_s)
+        except Exception as e:  # noqa: BLE001 — count + re-raise
+            self._note_unavailable(e)
+            raise
+        if self._canary_batch is None:
+            with self._canary_lock:
+                if self._canary_batch is None:
+                    # The first successfully served request becomes the
+                    # canary probe for later pushes (captured after the
+                    # predict returned, so a malformed first request never
+                    # becomes the probe).
+                    self._canary_batch = {
+                        k: np.asarray(v) for k, v in batch.items()
+                    }
+        return result
+
+    # ---------------------------------------------------------- generative
+
+    def generate_submit(
+        self,
+        batch: Dict[str, Any],
+        gen_params: Optional[Dict[str, Any]] = None,
+        timeout_s: float = 300.0,
+    ) -> np.ndarray:
+        """Continuous-batching generate for one request's rows: the router
+        picks one replica (token-aware cost) and every row joins its
+        engine as its own sequence.  Needs an ``inputs`` feature (token
+        ids); ``input_mask`` optional."""
+        if not self.generative:
+            raise RuntimeError("fleet is not generative")
+        if "inputs" not in batch:
+            raise ValueError(
+                "generative serving requires an 'inputs' feature "
+                "(token ids per row)"
+            )
+        inputs = np.asarray(batch["inputs"])
+        mask = batch.get("input_mask")
+        rows = []
+        for i in range(inputs.shape[0]):
+            row = {"inputs": inputs[i]}
+            if mask is not None:
+                row["input_mask"] = np.asarray(mask)[i]
+            rows.append(row)
+        try:
+            replica = self.pool.router.pick(self.pool.replicas)
+        except Exception as e:  # noqa: BLE001 — count + re-raise
+            self._note_unavailable(e)
+            raise
+        try:
+            return replica.decode_submit(
+                rows, dict(gen_params or {}), timeout_s=timeout_s
+            )
+        except Exception as e:  # noqa: BLE001 — classified below
+            from tpu_pipelines_torch.serving.generative import (
+                DecodeSessionLost,
+            )
+
+            if not isinstance(e, DecodeSessionLost):
+                raise
+            return self._recover_decode(
+                replica, e, rows, dict(gen_params or {}), timeout_s
+            )
+
+    def _recover_decode(self, dead, lost, rows, gen_params, timeout_s):
+        """The routed replica died with this request's generations in
+        flight: greedy decode is deterministic, so re-prefilling the
+        prompts onto a surviving replica gives the streams an
+        uninterrupted run would have.  One recovery per request."""
+        sup = self.supervisor
+        if sup is None:
+            raise lost.cause
+        sup.on_request_error(dead, lost.cause)
+        survivors = [
+            r for r in self.pool.replicas if r is not dead and sup.allow(r)
+        ]
+        if not survivors:
+            from tpu_pipelines_torch.serving.fleet.supervisor import (
+                FleetUnavailable,
+            )
+
+            err = FleetUnavailable(
+                "decode session lost and no healthy replica remains"
+            )
+            self._note_unavailable(err)
+            raise err from lost.cause
+        replica = self.pool.router.pick(survivors)
+        out = replica.decode_submit(rows, gen_params, timeout_s=timeout_s)
+        # Continuity audit: each recovered stream must extend the tokens
+        # the dead engine had committed.
+        for i, partial in enumerate(lost.partial_tokens[: len(out)]):
+            got = [int(t) for t in out[i][: len(partial)]]
+            if partial and got != partial:
+                log.warning(
+                    "fleet: %s recovered stream %d diverged from the "
+                    "accepted prefix (%r -> %r)",
+                    self.model_name, i, partial, got,
+                )
+        if self._m_sessions_recovered is not None:
+            self._m_sessions_recovered.inc(max(lost.unfinished, 1))
+        sup.on_request_success(replica)
+        return out
+
+    def _note_unavailable(self, exc: BaseException) -> None:
+        if self._m_unavailable is not None:
+            from tpu_pipelines_torch.serving.fleet.supervisor import (
+                FleetUnavailable,
+            )
+
+            if isinstance(exc, FleetUnavailable):
+                self._m_unavailable.inc()
+
+    def outstanding_tokens(self) -> int:
+        """Fleet-wide decode work owed (token-level admission input)."""
+        return sum(r.decode_outstanding_tokens() for r in self.pool.replicas)
+
+    # -------------------------------------------------------------- canary
+
+    def _canary(self, loaded, version: str) -> str:
+        from tpu_pipelines_torch.components.infra_validator import canary_check
+
+        if self.generative:
+            # Every replica's engine for this version is built here and
+            # captures its (batch, kv) step graphs before the version
+            # becomes eligible.
+            try:
+                for replica in self.pool.replicas:
+                    replica.prepare_engine(version, loaded)
+            except Exception as e:  # noqa: BLE001 — same verdict as canary
+                return f"generative warmup failed: {type(e).__name__}: {e}"
+        with self._canary_lock:
+            batch = self._canary_batch
+        if batch is None:
+            return ""  # nothing served yet: a loadable payload is eligible
+        error = canary_check(self._predict_callable(loaded), batch)
+        if error:
+            return error
+        return self._warm_buckets(loaded, batch)
+
+    def _warm_buckets(self, loaded, batch: Dict[str, Any]) -> str:
+        """Capture one graph per padded bucket shape the replica batchers
+        will pose, before the swap (``serving/aot.py``), outside every
+        serving lock.  A bucket the version cannot capture fails the gate:
+        it would fail in production."""
+        try:
+            self._capture_buckets(loaded, batch)
+        except Exception as e:  # noqa: BLE001 — same verdict as the canary
+            return f"bucket warmup failed: {type(e).__name__}: {e}"
+        return ""
+
+    def _capture_buckets(self, loaded, batch: Dict[str, Any]) -> None:
+        """``aot.warm_loaded`` on ``loaded`` from ``batch``'s first row;
+        on CUDA it raises unless every bucket was captured.  The wall time
+        lands in ``serving_swap_warmup_seconds``."""
+        from tpu_pipelines_torch.serving import aot
+
+        t0 = time.monotonic()
+        stats = aot.warm_loaded(
+            loaded, batch, self._max_batch_size, raw=self.raw
+        )
+        if _on_cuda(loaded) and stats.get("fallback_warm"):
+            raise RuntimeError(
+                "the bucket warm-up captured no graph on CUDA"
+            )
+        self.last_warm = stats
+        if self._m_warmup is not None:
+            self._m_warmup.set(time.monotonic() - t0)
+            self._m_aot_compiles.inc(stats.get("compiled", 0))
+        dispatch = getattr(loaded, "aot", None)
+        if dispatch is not None and self._m_aot_after_warm is not None:
+            dispatch.on_compile_after_warm = self._m_aot_after_warm.inc
+        log.info(
+            "fleet: %s bucket warmup %.3fs (%d captured%s)",
+            self.model_name, stats.get("seconds", 0.0),
+            stats.get("compiled", 0),
+            ", legacy warm-up" if stats.get("fallback_warm") else "",
+        )
+
+    # ----------------------------------------------------------- lifecycle
+
+    def load_version(self, version_dir: str) -> str:
+        return self.versions.load_version(version_dir)
+
+    def reload(self) -> str:
+        """Load-and-activate the newest version under ``base_dir``."""
+        from tpu_pipelines_torch.serving.server import latest_version_dir
+
+        vdir = latest_version_dir(self.base_dir)
+        if vdir is None:
+            raise FileNotFoundError(
+                f"no model versions under {self.base_dir!r}"
+            )
+        return self.load_version(vdir)
+
+    @property
+    def active_version(self) -> Optional[str]:
+        return self.versions.active_version
+
+    def active_loaded(self):
+        return self.versions.active_loaded()
+
+    def queue_depth(self) -> int:
+        return self.pool.queue_depth()
+
+    @property
+    def closed(self) -> bool:
+        return self.pool.closed
+
+    def health(self) -> Dict[str, Any]:
+        health = {
+            "replicas": len(self.pool),
+            "versions_resident": self.versions.resident_versions(),
+            "active_version": self.active_version,
+            "slo_p99_ms": (
+                round(self.slo_p99_s * 1e3, 3) if self.slo_p99_s else None
+            ),
+            "model_type": self.model_type,
+        }
+        if self.generative:
+            health["outstanding_decode_tokens"] = self.outstanding_tokens()
+        if self.supervisor is not None:
+            health["replica_states"] = {
+                r.name: self.supervisor.state(r) for r in self.pool.replicas
+            }
+        return health
+
+    def close(self, timeout_s: float = 5.0) -> None:
+        if self.supervisor is not None:
+            self.supervisor.stop()
+        self.pool.close(timeout_s=timeout_s)

@@ -18,9 +18,16 @@ exactly the sequences that still need tokens.
     page multiple covering the deepest live position): the decode contract
     gets ``arena[:b, :kv]`` views and writes this step's K/V through them.
     ``warm()`` runs every (batch, kv) bucket once before traffic, on a copy
-    of the arena, so that no step pays a first run (cuBLAS's kernel choice,
-    lazy module loading) mid-traffic; ``compiles_after_warm`` counts the
-    buckets whose first run came after ``warm()``.  Pages are the unit of
+    of the arena (kernel builds, cuBLAS handles, the model's cached index
+    tables), and on CUDA then captures each bucket's step into a
+    ``torch.cuda.CUDAGraph`` over the arena itself: capturing runs
+    nothing, so the arena is untouched, and each graph holds the arena's
+    pointers, the views' strides and the decode kernel's split count of
+    its kv bucket.  A step replays its bucket's graph (one pool for the
+    engine's graphs, which only the worker replays, one at a time) and
+    credits the graph's attention launches to the kernel counters.  A
+    bucket first met after ``warm()`` runs eagerly, is captured then and
+    counts in ``compiles_after_warm``.  Pages are the unit of
     ``serving_decode_cache_pages_in_use``.
   * **Identity.**  The per-row math is the scalar-position math greedy
     runs, and masked positions weigh exactly zero, so on the CPU a
@@ -31,10 +38,14 @@ exactly the sequences that still need tokens.
     remainders plus queued budgets; past the bound a submit raises
     ``EngineOverloaded``.
 
-Each of the reference's decode levers (``prefix_cache_entries``,
-``prefill_chunk_pages``, ``spec_tokens`` / ``draft_fns``, per-token SLO
-deadlines ``slo_ms_per_token`` / ``hard_deadline``, ``fault_hook``) raises
-``NotImplementedError`` naming ROADMAP A8, where they wait with the fleet.
+The fleet's supervision seam is ``fault_hook``, called once per worker
+round while work is live: an exception there kills the worker like a
+device fault.  The supervised fleet turns such a death into
+``DecodeSessionLost`` and re-prefills the streams onto a surviving
+replica.  Each of the reference's decode levers (``prefix_cache_entries``,
+``prefill_chunk_pages``, ``spec_tokens`` / ``draft_fns`` /
+``draft_params``, per-token SLO deadlines ``slo_ms_per_token`` /
+``hard_deadline``) raises ``NotImplementedError`` naming ROADMAP A8.
 """
 
 from __future__ import annotations
@@ -50,6 +61,8 @@ import numpy as np
 import torch
 
 from tpu_pipelines_torch.observability.metrics import fine_latency_buckets
+from tpu_pipelines_torch.ops import flash_attention as fa
+from tpu_pipelines_torch.serving.aot import capture
 from tpu_pipelines_torch.serving.batching import (
     bucket_sizes,
     validate_generation_params,
@@ -61,12 +74,31 @@ log = logging.getLogger("tpu_pipelines_torch.serving")
 
 class EngineOverloaded(RuntimeError):
     """Token-level admission control refused the sequence: outstanding
-    decode work (live + queued tokens) would exceed the configured bound
-    (an HTTP 429 once the generative fleet serves the engine, ROADMAP A8)."""
+    decode work (live + queued tokens) would exceed the configured bound.
+    HTTP 429 + Retry-After, like ``ServerOverloaded``."""
+
+    retry_after_s = 1
 
 
 class GenerationEvicted(RuntimeError):
-    """The sequence was evicted before finishing (the engine closed)."""
+    """The sequence was evicted before finishing (the engine closed): a
+    retriable 503."""
+
+
+class DecodeSessionLost(RuntimeError):
+    """A replica died with generations in flight.  Raised by the supervised
+    fleet's decode path instead of the raw worker-death error, carrying
+    each sequence's committed tokens so the fleet can re-prefill the
+    streams onto a surviving replica; greedy decode is deterministic, so
+    the recovered stream equals an uninterrupted one."""
+
+    def __init__(self, cause, partial_tokens=None, unfinished=0):
+        super().__init__(
+            f"decode session lost: {type(cause).__name__}: {cause}"
+        )
+        self.cause = cause
+        self.partial_tokens = list(partial_tokens or [])
+        self.unfinished = int(unfinished)
 
 
 @dataclass
@@ -151,7 +183,9 @@ class GenerativeEngine:
         prefill_chunk_pages: int = 0,
         spec_tokens: int = 0,
         draft_fns: Any = None,
+        draft_params: Any = None,
         device: Any = "cuda",
+        telemetry: Optional["DecodeTelemetry"] = None,
         registry=None,
         replica: str = "0",
         fault_hook: Any = None,
@@ -161,9 +195,9 @@ class GenerativeEngine:
             "prefill_chunk_pages": prefill_chunk_pages,
             "spec_tokens": spec_tokens,
             "draft_fns": draft_fns,
+            "draft_params": draft_params,
             "slo_ms_per_token": slo_ms_per_token,
             "hard_deadline": hard_deadline,
-            "fault_hook": fault_hook,
         }
         for name, value in deferred.items():
             if value:
@@ -196,7 +230,17 @@ class GenerativeEngine:
             self.page_size if 0 < self.page_size < self.max_decode_len
             else self.max_decode_len
         )
-        self.telemetry = DecodeTelemetry(registry, replica)
+        self.telemetry = telemetry or DecodeTelemetry(registry, replica)
+        # Supervision seam: called once per worker round while work is live.
+        self._fault_hook = fault_hook
+        # CUDA: the worker runs every step and arena copy on this stream;
+        # the captured steps, one per (batch, kv) bucket, share one pool.
+        self._stream = (torch.cuda.Stream(dev) if dev.type == "cuda"
+                        else None)
+        self._graphs: Dict[Tuple[int, int], Tuple[Any, torch.Tensor,
+                                                  torch.Tensor,
+                                                  Dict[str, int]]] = {}
+        self._pool = None
 
         self._lock = threading.Lock()
         self._cond = threading.Condition(self._lock)
@@ -260,9 +304,9 @@ class GenerativeEngine:
                            device=dev),
             )
 
-    def _run_step(self, arena, b: int, kv: int) -> torch.Tensor:
+    def _run_step(self, arena, b: int, kv: int):
         """One decode step of bucket (b, kv) on ``arena``, in place; returns
-        the next tokens [b] (pad for dead rows)."""
+        the next tokens [b] (pad for dead rows) and the step's logits."""
         cache, tok, pos, live, encoded, enc_mask = arena
         sub = {name: a[:b] if _is_enc_leaf(name) else a[:b, :kv]
                for name, a in cache.items()}
@@ -277,7 +321,7 @@ class GenerativeEngine:
         nxt = torch.where(live[:b], logits.argmax(dim=-1), self.pad_id)
         tok[:b] = nxt
         pos[:b] += live[:b].long()
-        return nxt
+        return nxt, logits
 
     def _note_bucket(self, b: int, kv: int) -> None:
         if (b, kv) in self._buckets_run:
@@ -290,10 +334,41 @@ class GenerativeEngine:
             log.warning("generative engine: first run of bucket (%d, %d) "
                         "AFTER warmup: bucket missed by warm()", b, kv)
 
+    def _capture(self, b: int, kv: int) -> None:
+        """Capture bucket (b, kv)'s step over the arena (nothing runs)."""
+        try:
+            graph, (nxt, logits), tally = capture(
+                lambda: self._run_step(self._arena, b, kv),
+                stream=self._stream, pool=self._pool)
+        except Exception as e:
+            raise RuntimeError(
+                f"generative engine: capturing the decode step of bucket "
+                f"({b}, {kv}) into a CUDA graph failed: {e}") from e
+        if self._pool is None:
+            self._pool = graph.pool()
+        # The logits stay referenced: their pool block is the graph's own,
+        # so each replay leaves the step's logits there to be read.
+        self._graphs[(b, kv)] = (graph, nxt, logits, tally)
+
+    def _step(self, b: int, kv: int) -> torch.Tensor:
+        """Bucket (b, kv)'s step on the arena: its graph's replay, or, for a
+        bucket not captured yet, an eager run (then its capture, on CUDA)."""
+        captured = self._graphs.get((b, kv))
+        if captured is not None:
+            graph, nxt, _, tally = captured
+            graph.replay()
+            fa.credit(tally)
+            return nxt
+        self._note_bucket(b, kv)
+        nxt, _ = self._run_step(self._arena, b, kv)
+        if self._stream is not None and self._warmed:
+            self._capture(b, kv)
+        return nxt
+
     def warm(self) -> None:
         """Run the prefill and every ``(batch_bucket, kv_bucket)`` step once
-        before traffic, on a copy of the arena (results discarded, the
-        arena untouched)."""
+        before traffic, on a copy of the arena (results discarded), then,
+        on CUDA, capture every bucket's step over the arena itself."""
         with torch.inference_mode():
             self._ensure_arena()
             zin = np.full((self.max_input_len,), self.pad_id, np.int32)
@@ -305,8 +380,12 @@ class GenerativeEngine:
                 for kv in self.kv_buckets:
                     self._note_bucket(b, kv)
                     self._run_step(scratch, b, kv)
-            if self.device.type == "cuda":
+            if self._stream is not None:
                 torch.cuda.synchronize(self.device)
+                del scratch
+                for b in self.batch_buckets:
+                    for kv in self.kv_buckets:
+                        self._capture(b, kv)
         self._warmed = True
 
     # ------------------------------------------------------------- client
@@ -388,9 +467,10 @@ class GenerativeEngine:
             inputs, max_new_tokens=max_new_tokens, input_mask=input_mask
         ).wait(timeout_s)
 
-    def close(self, timeout_s: float = 5.0) -> None:
+    def close(self, timeout_s: float = 5.0, *, final_error=None) -> None:
         """Reject new submits and fail everything unfinished with
-        ``GenerationEvicted``."""
+        ``GenerationEvicted``, or with ``final_error`` when given (the
+        supervised rebuild's verdict, so racing waiters recover)."""
         with self._cond:
             if self._closed:
                 return
@@ -405,13 +485,13 @@ class GenerativeEngine:
             self._n_live = 0
             self._slots = [None] * self.max_batch_size
         for seq in pending:
-            seq.finish(GenerationEvicted("engine closed"))
+            seq.finish(final_error or GenerationEvicted("engine closed"))
 
     # ------------------------------------------------------------- worker
 
     def _run(self) -> None:
         try:
-            with torch.inference_mode():
+            with torch.inference_mode(), torch.cuda.stream(self._stream):
                 while True:
                     with self._cond:
                         while (not self._closed and not self._queue
@@ -419,6 +499,8 @@ class GenerativeEngine:
                             self._cond.wait()
                         if self._closed:
                             return
+                    if self._fault_hook is not None:
+                        self._fault_hook()
                     self._admit()
                     if self._n_live:
                         self._step_once()
@@ -469,9 +551,8 @@ class GenerativeEngine:
             len(s.tokens) for s in self._slots[:n] if s is not None
         )
         kv = next(k for k in self.kv_buckets if k >= deepest + 1)
-        self._note_bucket(b, kv)
         t0 = time.perf_counter()
-        toks = self._run_step(self._arena, b, kv).cpu().numpy()  # the sync
+        toks = self._step(b, kv).cpu().numpy()  # the sync
         dt = time.perf_counter() - t0
         if self.step_ewma_s is None:
             self.step_ewma_s = dt

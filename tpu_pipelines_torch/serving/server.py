@@ -19,11 +19,19 @@ The model runs on ``device`` (CUDA unless the caller asks for the CPU).
 Concurrent requests are safe and, with ``batching=True``, coalesce through
 the micro-batcher into padded bucket-sized device calls.  Admission control
 (``max_queue_depth``) refuses work past its bound with 429 + Retry-After.
-The fleet (replicas, resident versions, SLO deadlines) and with it the
-continuous-batching route of ``:generate`` (generation ``params`` such as
-``max_new_tokens``), gRPC, request tracing, the SLO monitor, drift
-sampling, metric federation and fault hooks wait for later slices of the
-port.
+
+``replicas`` / ``max_versions`` > 1, or ``model_type="generative"``, put
+the same surface on the serving fleet (``serving/fleet/``): replica
+batchers behind a latency-aware router, resident versions with
+canary-gated hot-swap (a refused push answers 409), SLO-derived batch
+deadlines (``slo_p99_ms``), an opt-in supervisor (``supervisor_interval_s``;
+all replicas down answers 503 + Retry-After), and, for the generative
+type, ``:generate`` through per-replica continuous-batching engines with
+generation ``params`` and token admission (``max_queue_tokens``, 429).
+Each knob left at its default falls back to its ``TPP_SERVING_*``
+environment variable, as in the reference.  gRPC, request tracing, the SLO
+monitor, drift sampling, metric federation and the engine's decode levers
+wait for ROADMAP A8: setting their knobs raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from tpu_pipelines_torch.observability.metrics import (
     MetricsRegistry,
 )
 from tpu_pipelines_torch.serving.batching import RequestBatcher
+from tpu_pipelines_torch.testing import faults as _faults
 from tpu_pipelines_torch.trainer.export import (
     LoadedModel,
     load_exported_model,
@@ -50,6 +59,40 @@ from tpu_pipelines_torch.trainer.export import (
 )
 
 log = logging.getLogger("tpu_pipelines_torch.serving")
+
+# Knobs whose constructor default (0 / -1 / "") falls back to the
+# environment: the admission bound, the fleet's replica count, resident
+# versions and p99 budget (ms), the generative model type, its KV page
+# size and token admission bound, and the supervisor's probe interval and
+# wedge threshold (seconds).
+ENV_MAX_QUEUE = "TPP_SERVING_MAX_QUEUE"
+ENV_REPLICAS = "TPP_SERVING_REPLICAS"
+ENV_MAX_VERSIONS = "TPP_SERVING_MAX_VERSIONS"
+ENV_SLO_P99_MS = "TPP_SERVING_SLO_P99_MS"
+ENV_MODEL_TYPE = "TPP_SERVING_MODEL_TYPE"
+ENV_PAGE_SIZE = "TPP_SERVING_PAGE_SIZE"
+ENV_MAX_TOKENS = "TPP_SERVING_MAX_TOKENS"
+ENV_SUPERVISOR_S = "TPP_SERVING_SUPERVISOR_S"
+ENV_SUPERVISOR_QUEUE_AGE_S = "TPP_SERVING_SUPERVISOR_QUEUE_AGE_S"
+# The reference's knobs that wait for ROADMAP A8 (the engine's decode
+# levers, request tracing, the SLO monitor, drift sampling): set, they
+# raise.
+ENV_SLO_MS_PER_TOKEN = "TPP_SERVING_SLO_MS_PER_TOKEN"
+ENV_PREFIX_CACHE = "TPP_SERVING_PREFIX_CACHE"
+ENV_PREFILL_CHUNK = "TPP_SERVING_PREFILL_CHUNK"
+ENV_SPEC_TOKENS = "TPP_SERVING_SPEC_TOKENS"
+ENV_REQUEST_TRACE = "TPP_REQUEST_TRACE"
+ENV_REQUEST_TRACE_DIR = "TPP_REQUEST_TRACE_DIR"
+ENV_SLO_MONITOR = "TPP_SLO_MONITOR"
+ENV_MONITOR_SAMPLE = "TPP_SERVING_MONITOR_SAMPLE"
+ENV_MONITOR_WINDOW = "TPP_SERVING_MONITOR_WINDOW_S"
+
+
+def _env_number(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "").strip() or default)
+    except ValueError:
+        return default
 
 
 class ServerOverloaded(RuntimeError):
@@ -92,11 +135,80 @@ class ModelServer:
         max_batch_size: int = 64,
         batch_timeout_s: float = 0.005,
         max_queue_depth: int = 0,
+        replicas: int = 0,
+        max_versions: int = 0,
+        slo_p99_ms: float = -1.0,
+        model_type: str = "",
+        decode_page_size: int = 0,
+        max_queue_tokens: int = 0,
+        supervisor_interval_s: float = -1.0,
+        supervisor_queue_age_s: float = -1.0,
+        slo_ms_per_token: float = -1.0,
+        prefix_cache_entries: int = 0,
+        prefill_chunk_pages: int = 0,
+        spec_tokens: int = 0,
+        request_trace_mode: str = "",
+        trace_dir: str = "",
+        slo_monitor_interval_s: float = -1.0,
+        monitor_sample_rate: float = -1.0,
+        monitor_window_s: float = -1.0,
         device: Any = "cuda",
     ):
         self.model_name = model_name
         self.base_dir = base_dir
         self.device = resolve_device(device)
+        # Constructor wins; 0 / -1 / "" fall back to the environment, then
+        # to the single-server defaults.
+        if max_queue_depth <= 0:
+            max_queue_depth = int(_env_number(ENV_MAX_QUEUE, 0))
+        if replicas <= 0:
+            replicas = int(_env_number(ENV_REPLICAS, 1))
+        if max_versions <= 0:
+            max_versions = int(_env_number(ENV_MAX_VERSIONS, 1))
+        if slo_p99_ms < 0:
+            slo_p99_ms = _env_number(ENV_SLO_P99_MS, 0.0)
+        if not model_type:
+            model_type = os.environ.get(ENV_MODEL_TYPE, "").strip() or "predict"
+        if decode_page_size <= 0:
+            decode_page_size = int(_env_number(ENV_PAGE_SIZE, 0))
+        if max_queue_tokens <= 0:
+            max_queue_tokens = int(_env_number(ENV_MAX_TOKENS, 0))
+        if supervisor_interval_s < 0:
+            supervisor_interval_s = _env_number(ENV_SUPERVISOR_S, 0.0)
+        if supervisor_queue_age_s < 0:
+            supervisor_queue_age_s = _env_number(ENV_SUPERVISOR_QUEUE_AGE_S, 0.0)
+        deferred = {
+            "slo_ms_per_token": slo_ms_per_token if slo_ms_per_token >= 0
+            else _env_number(ENV_SLO_MS_PER_TOKEN, 0.0),
+            "prefix_cache_entries": prefix_cache_entries
+            or _env_number(ENV_PREFIX_CACHE, 0),
+            "prefill_chunk_pages": prefill_chunk_pages
+            or _env_number(ENV_PREFILL_CHUNK, 0),
+            "spec_tokens": spec_tokens or _env_number(ENV_SPEC_TOKENS, 0),
+            "request_trace_mode": request_trace_mode
+            or os.environ.get(ENV_REQUEST_TRACE, "").strip() not in ("", "off"),
+            "trace_dir": trace_dir
+            or os.environ.get(ENV_REQUEST_TRACE_DIR, "").strip(),
+            "slo_monitor_interval_s": slo_monitor_interval_s > 0
+            or _env_number(ENV_SLO_MONITOR, 0.0) > 0,
+            "monitor_sample_rate": monitor_sample_rate > 0
+            or _env_number(ENV_MONITOR_SAMPLE, 0.0) > 0,
+            "monitor_window_s": monitor_window_s > 0
+            or _env_number(ENV_MONITOR_WINDOW, 0.0) > 0,
+        }
+        for name, value in deferred.items():
+            if value:
+                raise NotImplementedError(
+                    f"ModelServer({name}=...): waits for ROADMAP A8"
+                )
+        self.replicas = max(1, replicas)
+        self.max_versions = max(1, max_versions)
+        self.slo_p99_ms = max(0.0, slo_p99_ms)
+        self.model_type = model_type
+        self.decode_page_size = max(0, decode_page_size)
+        self.max_queue_tokens = max(0, max_queue_tokens)
+        self.supervisor_interval_s = max(0.0, supervisor_interval_s)
+        self.supervisor_queue_age_s = max(0.0, supervisor_queue_age_s)
         self._lock = threading.Lock()
         # Serializes reload(); never held while answering requests, so a
         # reload drains naturally onto whichever model is current.
@@ -144,16 +256,47 @@ class ModelServer:
         )
         self._m_inflight.set_function(lambda: self._inflight)
         # The batcher resolves the current model at call time, so hot-swaps
-        # apply to queued requests.
+        # apply to queued requests.  Fleet mode moves batching into the
+        # replica workers behind the router; the REST surface, admission
+        # control and /metrics stay here.
         self._batcher: Optional[RequestBatcher] = None
-        if batching:
+        self._fleet = None
+        if (self.replicas > 1 or self.max_versions > 1
+                or self.model_type == "generative"):
+            # Generative serving is a fleet model type even at one
+            # replica: the engines, their per-version drain and their
+            # step-graph warm-up live behind the version manager.
+            from tpu_pipelines_torch.serving.fleet import ServingFleet
+
+            self._fleet = ServingFleet(
+                model_name,
+                base_dir,
+                replicas=self.replicas,
+                max_batch_size=max_batch_size,
+                batch_timeout_s=batch_timeout_s,
+                slo_p99_s=self.slo_p99_ms / 1e3,
+                max_versions=self.max_versions,
+                model_type=self.model_type,
+                decode_page_size=self.decode_page_size,
+                max_queue_tokens=self.max_queue_tokens,
+                supervisor_interval_s=self.supervisor_interval_s,
+                supervisor_queue_age_s=self.supervisor_queue_age_s,
+                registry=self.metrics,
+                device=self.device,
+            )
+        elif batching:
             self._batcher = RequestBatcher(
                 lambda b: self._current_model().predict(b),
                 max_batch_size=max_batch_size,
                 batch_timeout_s=batch_timeout_s,
+                slo_p99_s=self.slo_p99_ms / 1e3,
                 registry=self.metrics,
             )
-        self.reload()
+        try:
+            self.reload()
+        except BaseException:
+            self._close_workers()
+            raise
 
     # ----------------------------------------------------------- lifecycle
 
@@ -176,6 +319,15 @@ class ModelServer:
                         f"no model versions under {self.base_dir!r}"
                     )
             version = os.path.basename(vdir.rstrip("/"))
+            if self._fleet is not None:
+                # The version manager owns load-outside-lock, the canary
+                # gate (CanaryRefused propagates: the prior version keeps
+                # serving), swap, drain, eviction and serving_model_info.
+                if version == self._fleet.active_version:
+                    return version
+                self._fleet.load_version(vdir)
+                self._m_reloads.inc()
+                return version
             if version == self._loaded_version:
                 return version
             loaded = load_exported_model(vdir, device=self.device)
@@ -193,16 +345,32 @@ class ModelServer:
 
     @property
     def version(self) -> Optional[str]:
+        if self._fleet is not None:
+            return self._fleet.active_version
         return self._loaded_version
 
     # -------------------------------------------------- admission control
 
     def _admit(self, endpoint: str) -> None:
-        """Admission check + in-flight accounting (pair with _release)."""
+        """Admission check + in-flight accounting (pair with _release).
+        A generative fleet's ``:generate`` counts outstanding decode
+        tokens against ``max_queue_tokens`` (a queued 500-token generation
+        is 125x the work of a 4-token one)."""
         with self._inflight_lock:
+            if (endpoint == "generate" and self.max_queue_tokens > 0
+                    and self._fleet is not None and self._fleet.generative):
+                owed = self._fleet.outstanding_tokens()
+                if owed >= self.max_queue_tokens:
+                    self._m_shed.labels(endpoint).inc()
+                    raise ServerOverloaded(
+                        f"outstanding decode tokens {owed} >= bound "
+                        f"{self.max_queue_tokens}"
+                    )
             if self.max_queue_depth > 0:
                 depth = self._inflight
-                if self._batcher is not None:
+                if self._fleet is not None:
+                    depth += self._fleet.queue_depth()
+                elif self._batcher is not None:
                     depth += self._batcher.queue_depth()
                 if depth >= self.max_queue_depth:
                     self._m_shed.labels(endpoint).inc()
@@ -218,8 +386,11 @@ class ModelServer:
     # ------------------------------------------------------------- predict
 
     def _current_model(self) -> LoadedModel:
-        with self._lock:
-            loaded = self._loaded
+        if self._fleet is not None:
+            loaded = self._fleet.active_loaded()
+        else:
+            with self._lock:
+                loaded = self._loaded
         if loaded is None:
             raise RuntimeError("no model loaded")
         return loaded
@@ -228,6 +399,8 @@ class ModelServer:
         """Predict on a columnar feature batch — the shared entry for every
         surface, so all of them ride the same micro-batcher."""
         n_rows = len(next(iter(batch.values())))
+        if self._fleet is not None:
+            return self._fleet.submit(batch, n_rows)
         if self._batcher is not None:
             return self._batcher.submit(batch, n_rows)
         return self._current_model().predict(batch)
@@ -273,13 +446,19 @@ class ModelServer:
         batch: Dict[str, Any],
         gen_params: Optional[Dict[str, Any]] = None,
     ) -> np.ndarray:
-        """Seq2seq decoding of a columnar feature batch through the
-        payload's whole-request decode.  Generation ``params`` need the
-        generative fleet (ROADMAP A8) and are refused here."""
+        """Seq2seq decoding of a columnar feature batch.
+
+        ``model_type="generative"``: each row joins the fleet's
+        continuous-batching engines as its own sequence.  Otherwise the
+        payload's whole-request decode runs, and generation ``params``
+        (meaningful on the engine path only) are refused."""
+        if self._fleet is not None and self._fleet.generative:
+            return self._fleet.generate_submit(batch, gen_params)
         if gen_params:
             raise ValueError(
-                "generation params require a generative model type (the "
-                f"serving fleet, not ported yet); got {sorted(gen_params)}"
+                "generation params require a generative model type "
+                f"(server model_type={self.model_type!r}); "
+                f"got {sorted(gen_params)}"
             )
         generate = self._generate_fn()
         # One decode at a time, as the device runs the reference's compiled
@@ -297,7 +476,8 @@ class ModelServer:
             )
         # Capability check before parsing: an empty request to a server
         # that cannot generate must fail, not answer 200 [].
-        self._generate_fn()
+        if self._fleet is None or not self._fleet.generative:
+            self._generate_fn()
         batch = self._payload_to_batch(payload)
         if batch is None:
             return {"outputs": []}
@@ -309,15 +489,20 @@ class ModelServer:
         """The ``GET /healthz`` payload: liveness + which version serves.
         The probe never touches the device."""
         batcher_open = self._batcher is None or not self._batcher.closed
-        return {
-            "healthy": (
-                self._loaded is not None and batcher_open and not self._stopped
-            ),
+        loaded = self._loaded is not None
+        if self._fleet is not None:
+            batcher_open = not self._fleet.closed
+            loaded = self._fleet.active_loaded() is not None
+        health = {
+            "healthy": loaded and batcher_open and not self._stopped,
             "model": self.model_name,
             "version": self.version,
-            "batching": self._batcher is not None,
+            "batching": self._batcher is not None or self._fleet is not None,
             "device": str(self.device),
         }
+        if self._fleet is not None:
+            health["fleet"] = self._fleet.health()
+        return health
 
     # ---------------------------------------------------------------- HTTP
 
@@ -415,6 +600,9 @@ class ModelServer:
                 t0 = time.perf_counter()
                 admitted = False
                 try:
+                    # Fault hook (RELOAD_DURING_HAMMER): a no-op global
+                    # read unless a test plan is active.
+                    _faults.serving_request(server, endpoint)
                     if endpoint != "reload":
                         server._admit(endpoint)
                         admitted = True
@@ -425,9 +613,35 @@ class ModelServer:
                     code, obj = 429, {"error": f"overloaded: {e}"}
                     retry = ServerOverloaded.retry_after_s
                 except Exception as e:  # noqa: BLE001 — classify, then reply
-                    # Caller mistakes are 4xx, not-ready is a retriable 503,
-                    # everything else is an honest 500.
-                    if isinstance(e, (ValueError, KeyError, TypeError)):
+                    from tpu_pipelines_torch.serving.fleet.supervisor import (
+                        FleetUnavailable,
+                    )
+                    from tpu_pipelines_torch.serving.fleet.versions import (
+                        CanaryRefused,
+                    )
+                    from tpu_pipelines_torch.serving.generative import (
+                        EngineOverloaded,
+                        GenerationEvicted,
+                    )
+
+                    # Shed token work is a 429; an evicted generation or a
+                    # fleet with every replica down a retriable 503; a
+                    # refused push a 409 (the server is healthy, the
+                    # payload is not); caller mistakes are 4xx, not-ready
+                    # a retriable 503, everything else an honest 500.
+                    error = f"{type(e).__name__}: {e}"
+                    if isinstance(e, EngineOverloaded):
+                        code, retry = 429, EngineOverloaded.retry_after_s
+                        error = f"overloaded: {e}"
+                    elif isinstance(e, GenerationEvicted):
+                        code, retry = 503, ServerOverloaded.retry_after_s
+                        error = f"evicted: {e}"
+                    elif isinstance(e, FleetUnavailable):
+                        code, retry = 503, FleetUnavailable.retry_after_s
+                        error = f"fleet unavailable: {e}"
+                    elif isinstance(e, CanaryRefused):
+                        code, retry = 409, 0
+                    elif isinstance(e, (ValueError, KeyError, TypeError)):
                         code, retry = 400, 0
                     elif "no model loaded" in str(e):
                         code, retry = 503, ServerOverloaded.retry_after_s
@@ -437,7 +651,7 @@ class ModelServer:
                             "%s: internal error serving %s",
                             server.model_name, endpoint,
                         )
-                    obj = {"error": f"{type(e).__name__}: {e}"}
+                    obj = {"error": error}
                 finally:
                     # Released before the reply goes out: a client that
                     # sends its next request on the reply must find the
@@ -471,6 +685,13 @@ class ModelServer:
         if self._thread is not None:
             self._thread.join(timeout=5)
             self._thread = None
+        self._close_workers()
+
+    def _close_workers(self) -> None:
         if self._batcher is not None:
             self._batcher.close()
             self._batcher = None
+        if self._fleet is not None:
+            # Parallel drain of every replica: bounded by one timeout.
+            self._fleet.close()
+            self._fleet = None

@@ -22,8 +22,15 @@ legacy ``make_generate_fn(model, params, hp) -> fn(batch)``) gets
 carries a graph; one that defines ``make_decode_fns(model, hp)``
 gets ``LoadedModel.decode_fns``, the continuous-batching engine's contract.
 ``warm_start_init`` restores a payload's weights in place of a random
-init (TFX warm start).  Quantized payloads and ahead-of-time dispatch wait
-for later slices of the port (``ROADMAP.md`` A9, A14).
+init (TFX warm start).
+
+Both predict surfaces dispatch through ``LoadedModel.aot``, an
+:class:`AotDispatch` table of captured steps keyed by the padded batch's
+signature (``serving/aot.py`` fills it at the fleet's swap gate, one CUDA
+graph per bucket).  An empty table is a passthrough to the eager step; a
+miss after warm-up is counted once per signature and runs the eager step
+on the same device.  Quantized payloads wait for the Rewriter slice of
+the port (``ROADMAP.md`` A9).
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ import dataclasses
 import json
 import os
 import shutil
-from typing import Any, Callable, Dict, List, Mapping, Optional
+import threading
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -149,6 +157,71 @@ def _default_apply(model: nn.Module, params, batch):
     return torch.func.functional_call(model, params, (batch,))
 
 
+def _dtype_name(v: Any) -> str:
+    if isinstance(v, torch.Tensor):
+        return str(v.dtype).removeprefix("torch.")
+    return str(np.asarray(v).dtype)
+
+
+def on_device(batch: Dict[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    """Every feature of ``batch`` as a tensor on ``device`` (a tensor
+    already there is passed through)."""
+    return {
+        k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.require(v, requirements=["C", "W"]))).to(device)
+        for k, v in batch.items()
+    }
+
+
+class AotDispatch:
+    """Signature-keyed table of ahead-of-time prepared serving steps.
+
+    ``serving/aot.py`` fills it at the fleet's swap gate, one captured CUDA
+    graph per padded bucket; the loaded model's predict paths consult it
+    before running the eager step.  An empty table is a passthrough.  A
+    lookup miss after warm-up is a broken warm-up contract (the request
+    pays a first run mid-traffic): the first miss per (endpoint,
+    signature) adds one to ``compiles_after_warm`` and fires
+    ``on_compile_after_warm``, which the fleet wires to
+    ``serving_aot_compiles_after_warm_total`` (budget: zero)."""
+
+    def __init__(self):
+        self.entries: Dict[Tuple[str, tuple], Any] = {}
+        self.fallbacks = 0
+        self.compiles_after_warm = 0
+        self.on_compile_after_warm: Optional[Callable[[], None]] = None
+        self._fallback_sigs: set = set()
+        self._lock = threading.Lock()
+
+    @staticmethod
+    def signature(batch: Dict[str, Any]) -> tuple:
+        """``(key, shape, dtype name)`` of every feature, sorted (numpy
+        arrays or tensors)."""
+        return tuple(sorted(
+            (k, tuple(np.shape(v)), _dtype_name(v)) for k, v in batch.items()
+        ))
+
+    def lookup(self, endpoint: str, batch: Dict[str, Any]):
+        return self.entries.get((endpoint, self.signature(batch)))
+
+    def install(self, endpoint: str, sig: tuple, executable: Any) -> None:
+        with self._lock:
+            self.entries[(endpoint, sig)] = executable
+
+    def record_fallback(self, endpoint: str, batch: Dict[str, Any]) -> None:
+        sig = (endpoint, self.signature(batch))
+        fresh = False
+        with self._lock:
+            self.fallbacks += 1
+            if sig not in self._fallback_sigs:
+                self._fallback_sigs.add(sig)
+                self.compiles_after_warm += 1
+                fresh = True
+            cb = self.on_compile_after_warm
+        if fresh and cb is not None:
+            cb()
+
+
 @dataclasses.dataclass
 class LoadedModel:
     params: Dict[str, torch.Tensor]   # the model's tensors, on ``device``
@@ -168,6 +241,20 @@ class LoadedModel:
     generate: Optional[Callable[[Dict[str, Any]], np.ndarray]] = None
     # The continuous-batching decode contract (serving/generative.py).
     decode_fns: Any = None
+    # The speculative-decoding draft lane, read from a module's
+    # make_draft_decode_fns; None until the lever lands (ROADMAP A8).
+    draft_decode_fns: Any = None
+    draft_params: Any = None
+    # The two halves of ``predict``: the graph's host stage (numpy in and
+    # out; identity without a graph) and ``device_step(params, iface)``,
+    # the graph's torch evaluator fused with the forward pass (the forward
+    # alone without a graph), returning a tensor on ``device``.
+    host_preprocess: Callable[[Dict[str, Any]], Dict[str, Any]] = None
+    device_step: Callable[[Dict[str, torch.Tensor], Dict[str, Any]], Any] = None
+    # The payload directory ("" for hand-built instances).
+    uri: str = ""
+    # The captured-step table both predict surfaces consult.
+    aot: Optional[AotDispatch] = None
 
 
 def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
@@ -208,27 +295,43 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
         with torch.inference_mode():
             return apply_fn(model, p, batch)
 
+    # Filled per padded bucket by serving/aot.py at the fleet's swap gate;
+    # until then every lookup short-circuits on the empty table.
+    aot = AotDispatch()
+
+    def _dispatch(endpoint: str, step, batch) -> np.ndarray:
+        if aot.entries:
+            exe = aot.lookup(endpoint, batch)
+            if exe is not None:
+                return _to_numpy(exe(params, batch))
+            aot.record_fallback(endpoint, batch)
+        return _to_numpy(step(params, batch))
+
     def predict_transformed(batch: Dict[str, Any]) -> np.ndarray:
-        return _to_numpy(forward_step(params, batch))
+        return _dispatch("transformed", forward_step, batch)
 
     transform = None
-    predict = predict_transformed
     transformed = None
+    host_preprocess = lambda b: b  # noqa: E731
+    device_step = forward_step
     if spec.get("has_transform"):
         transform = TransformGraph.load(os.path.join(uri, TRANSFORM_DIR))
         host_fn, device_fn, _ = transform.split_host_device()
+        host_preprocess = host_fn
+
+        def device_step(p, iface: Dict[str, Any]):
+            """The graph's torch evaluator on the interface (moved to the
+            device) and the forward pass, in one inference_mode call."""
+            with torch.inference_mode():
+                return apply_fn(model, p, device_fn(on_device(iface, dev)))
 
         def transformed(raw_batch: Dict[str, Any]) -> Dict[str, Any]:
             """The graph's host stage in numpy, its interface moved to the
             device, the torch evaluator there (call under inference_mode)."""
-            return device_fn({
-                k: torch.from_numpy(np.require(v, requirements=["C", "W"])).to(dev)
-                for k, v in host_fn(raw_batch).items()
-            })
+            return device_fn(on_device(host_fn(raw_batch), dev))
 
-        def predict(raw_batch: Dict[str, Any]) -> np.ndarray:
-            with torch.inference_mode():
-                return _to_numpy(apply_fn(model, params, transformed(raw_batch)))
+    def predict(raw_batch: Dict[str, Any]) -> np.ndarray:
+        return _dispatch("raw", device_step, host_preprocess(raw_batch))
 
     # Generate hooks: make_generate_step keeps params an argument of every
     # call; the legacy make_generate_fn closes over them.
@@ -252,6 +355,12 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
 
     decode_builder = getattr(module, "make_decode_fns", None)
     decode_fns = None if decode_builder is None else decode_builder(model, hp)
+    # A payload may ship a draft lane; it is carried, unused, until the
+    # speculative lever lands (ROADMAP A8).
+    draft_decode_fns = draft_params = None
+    draft_builder = getattr(module, "make_draft_decode_fns", None)
+    if draft_builder is not None:
+        draft_decode_fns, draft_params = draft_builder(model, hp)
 
     return LoadedModel(
         params=params,
@@ -266,6 +375,12 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
         params_bytes=qz.params_nbytes(params),
         generate=generate,
         decode_fns=decode_fns,
+        draft_decode_fns=draft_decode_fns,
+        draft_params=draft_params,
+        host_preprocess=host_preprocess,
+        device_step=device_step,
+        uri=os.path.abspath(uri),
+        aot=aot,
     )
 
 
