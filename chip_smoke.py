@@ -2,7 +2,7 @@
 """Drive the PyTorch port on one NVIDIA GPU and check what comes out.
 
     python3 chip_smoke.py [--seed N] [--requests N] [--train-steps N]
-                          [--generate-requests N]
+                          [--generate-requests N] [--table-out PATH]
 
 Phases (any failure raises and the script exits non-zero):
 
@@ -28,6 +28,15 @@ Phases (any failure raises and the script exits non-zero):
      key) that must miss; every kernel repeated bit for bit; hold the
      attention's gradients against autograd through dense attention in
      f32;
+  2b. crossover — with ``TPP_AUTOTUNE_CACHE`` pointed at a directory of
+     the run's own, time the gradient of sum(attention) through the flash
+     kernels against the port's dense attention (B=8, H=12, D=64, bf16) at
+     L = 64, 128, 512, 2048, 8192 (flash alone where dense does not fit),
+     and the decode kernel against dense cache attention (B=32, H=8, D=64)
+     at 32, 128, 512, 2048, 8192 keys; print both tables and record each
+     crossover (the first length where flash is no slower) for this card,
+     which "auto" attention reads from here on (``--table-out`` writes
+     them as a committed-table file);
   3. serving — export a BERT-base payload (full width, random weights from
      ``--seed``) with flash attention, serve it with ``ModelServer`` on the
      card with micro-batching, send concurrent REST ``:predict`` requests,
@@ -118,34 +127,46 @@ Phases (any failure raises and the script exits non-zero):
  10. bert_dag — the BERT-base fine-tune DAG (the six nodes of
      ``tpu_pipelines_torch/examples/bert_pipeline.py``: CsvExampleGen ->
      StatisticsGen -> SchemaGen -> Transform (tokenize) -> Trainer ->
-     Evaluator) through ``LocalDagRunner(device="cuda")`` at BERT_BASE
-     (batch 256, lr 2e-5, sequences of the tokenizer's 64) with
-     ``attn_impl "flash"`` set in the Trainer's hyperparameters, 100
-     steps, over BERT_DAG_ROWS made-up reviews from ``--seed``: every node
-     COMPLETE, a rerun all cache hits with no launch; the counters, read
-     from inside the runner, hold each backward kernel at 12 x 100 and the
-     forward at 12 x (100 + the Trainer's eval batches + the Evaluator's);
-     one capture, a replay a step, no compile after warm-up; the
+     Evaluator) as a user runs it, ``python -m tpu_pipelines_torch run
+     --pipeline-module .../bert_pipeline.py`` (called in this process) at
+     BERT_BASE (batch 256, lr 2e-5, sequences of the tokenizer's 64), the
+     twin's own ``attn_impl "auto"`` deciding by the crossover just
+     measured, 100 steps, over BERT_DAG_ROWS made-up reviews from
+     ``--seed``: every node COMPLETE, a rerun all cache hits with no
+     launch; the counters, read from inside the runner, hold what the
+     crossover implies (flash: each backward kernel at 12 x 100 and the
+     forward at 12 x (100 + the Trainer's eval batches + the
+     Evaluator's); dense: none); the run telemetry server
+     (``TPP_METRICS_PORT``) scraped once during the cold run for the
+     ``pipeline_nodes_*`` gauges and ``pipeline_run_info``; ``trace
+     latest --json --perfetto --metrics`` after each run: a node span for
+     every node, a critical path, cache-hit ratio 0.0 cold and 1.0 warm,
+     the Trainer's goodput and telemetry summaries with no compile after
+     warm-up, both files parse; ``inspect runs --json`` lists both runs;
+     each checkpoint's seconds the loop was blocked and the thread's write
+     seconds; one capture, a replay a step, no compile after warm-up; the
      Transform's first chunk of each split on the card == apply_host bit
      for bit; the payload's predict of raw rows == predict_transformed of
      the materialized rows bit for bit; the Evaluator's logits, loss and
      accuracy on two batches against the same payload with dense
      attention (bounds from LOGIT_TOL), a shifted-mask control missing
-     it; report node seconds, tokenize rows/s, examples/s, checkpoint
-     seconds, evaluation examples/s and accuracy, a replayed step's idle
-     share;
+     it; report node seconds, the trace's critical path and the
+     recorder's cost, tokenize rows/s, examples/s over the run, evaluation
+     examples/s and accuracy, a replayed step's idle share;
  11. t5_dag — the T5-small seq2seq DAG (``examples/t5_pipeline.py``, its
      BulkInferrer beam-decoding the raw eval split, beam 4, 32 steps,
-     batch 64) at T5_SMALL with flash decode attention, 100 steps, over
+     batch 64) at T5_SMALL with ``attn_impl "auto"``, 100 steps, over
      T5_DAG_PAIRS made-up pairs: every node COMPLETE, a rerun all cache
      hits; the Trainer (dense: T5's self-attention carries a relative
      bias) launches nothing, one capture, no compile after warm-up; one
      prediction row of 32 ids per eval row, in the input's order; the
-     decode kernel launched 6 layers x 32 passes x batches; the first and
-     last batch decoded again from raw rows (the payload's embedded
-     transform) == from the materialized rows == the node's rows; the
-     first batch's teacher-forced logits against dense decode attention
-     within DECODE_LOGIT_TOL, the two controls outside it.
+     decode kernel launched as the decode crossover implies (flash: 6
+     layers x 32 passes x batches; dense: none); the first and last batch
+     decoded again from raw rows (the payload's embedded transform) ==
+     from the materialized rows == the node's rows; where the kernel
+     decodes, the first batch's teacher-forced logits against dense
+     decode attention within DECODE_LOGIT_TOL, the two controls outside
+     it.
 
 After the last phase it prints the whole script's seconds.  The last
 three lines are the ``kernels`` JSON record, the card's name and
@@ -975,6 +996,102 @@ def decode_timing(name, q, k, v, mask, bias):
         "library_ms": library_ms,
         "library": "scaled_dot_product_attention with a float mask",
     }
+
+
+# --------------------------------------------------------------- crossovers
+
+# The lengths the crossover phase times: the reference's flash_probe and
+# t5_decode lengths plus the port's own paths (the BERT DAG's 64 and the
+# serving and training 128; the T5 DAG's beam step at 32 keys, the served
+# step at 128).
+CROSS_TRAIN_LENS = (64, 128, 512, 2048, 8192)
+CROSS_TRAIN_GEOMETRY = {"batch": 8, "heads": 12, "head_dim": 64,
+                        "dtype": "bfloat16"}
+CROSS_DECODE_LENS = (32, 128, 512, 2048, 8192)
+CROSS_DECODE_GEOMETRY = {"batch": 32, "heads": 8, "head_dim": 64,
+                         "dtype": "bfloat16"}
+
+
+def crossover_phase(gen, card):
+    """Measure both crossovers "auto" attention reads and record them for
+    this card (in the cache ``TPP_AUTOTUNE_CACHE`` names).  Training
+    regime: the gradient of sum(attention(q, k, v)) through
+    ``FlashAttentionFunction`` against the port's ``dense_attention``
+    (B=8, H=12, D=64, bf16, no mask) at CROSS_TRAIN_LENS; where dense does
+    not fit, flash is the only implementation that runs.  Decode regime:
+    ``flash_decode_attention`` against dense cache attention (B=32, H=8,
+    D=64, bf16, every key valid) at CROSS_DECODE_LENS.  Each crossover is
+    the first length at which flash takes no longer than dense.  Returns
+    the table rows recorded."""
+    from tpu_pipelines_torch.ops import autotune
+
+    dev = torch.device("cuda")
+    kind = autotune.current_device_kind(dev)
+    g = CROSS_TRAIN_GEOMETRY
+    b, h, d = g["batch"], g["heads"], g["head_dim"]
+    per_len, crossover = {}, None
+    for l in CROSS_TRAIN_LENS:
+        q, k, v = (torch.randn(b, l, h, d, generator=gen).to(dev, torch.bfloat16)
+                   .requires_grad_() for _ in range(3))
+
+        def grad_of(attn):
+            return lambda: torch.autograd.grad(
+                attn(q, k, v).float().sum(), (q, k, v))
+
+        iters = 50 if l <= 2048 else 10
+        flash_ms = time_ms(grad_of(lambda q, k, v: fa.FlashAttentionFunction
+                                   .apply(q, k, v, None, False)),
+                           iters=iters, warmup=3)
+        fits = tfm.dense_attn_fits(b, h, l, l, 2, dev)
+        dense_ms = (time_ms(grad_of(dense_attention), iters=iters, warmup=3)
+                    if fits else None)
+        per_len[str(l)] = {"flash_ms": flash_ms, "dense_ms": dense_ms}
+        if crossover is None and (dense_ms is None or flash_ms <= dense_ms):
+            crossover = l
+        del q, k, v
+    train_geometry = {**g, "per_len": per_len, "card": card}
+    autotune.record_crossover(kind, crossover, geometry=train_geometry,
+                              source="chip_smoke.py crossover phase")
+
+    g = CROSS_DECODE_GEOMETRY
+    b, h, d = g["batch"], g["heads"], g["head_dim"]
+    per_kv, decode_crossover = {}, None
+    for l in CROSS_DECODE_LENS:
+        q = torch.randn(b, 1, h, d, generator=gen).to(dev, torch.bfloat16)
+        k, v = (torch.randn(b, l, h, d, generator=gen).to(dev, torch.bfloat16)
+                for _ in range(2))
+        valid = torch.ones(b, l, dtype=torch.bool, device=dev)
+        flash_ms = time_ms(lambda: fa.flash_decode_attention(q, k, v,
+                                                             kv_mask=valid))
+        dense_ms = time_ms(lambda: dense_attention(q, k, v, kv_mask=valid))
+        per_kv[str(l)] = {"flash_ms": flash_ms, "dense_ms": dense_ms}
+        if decode_crossover is None and flash_ms <= dense_ms:
+            decode_crossover = l
+    decode_geometry = {**g, "per_kv_len": per_kv, "card": card}
+    autotune.record_decode_crossover(kind, decode_crossover,
+                                     geometry=decode_geometry,
+                                     source="chip_smoke.py crossover phase")
+    autotune.clear_memo()
+    if (autotune.lookup_crossover(kind), autotune.lookup_decode_crossover(
+            kind)) != (crossover, decode_crossover):
+        raise AssertionError("crossover: the recorded table does not read "
+                             "back")
+    for regime, rows, got in (("training", per_len, crossover),
+                              ("decode", per_kv, decode_crossover)):
+        print(f"crossover {regime} [{card}] {kind}: " + "; ".join(
+            f"L={l} flash {r['flash_ms']:.4f} ms, dense "
+            + (f"{r['dense_ms']:.4f} ms" if r["dense_ms"] is not None
+               else "does not fit")
+            for l, r in rows.items()) + f" -> crossover {got}", flush=True)
+    return {"crossover": {kind: {"crossover_seq_len": crossover,
+                                 "geometry": train_geometry,
+                                 "source": "chip_smoke.py crossover phase"}},
+            "decode_crossover": {kind: {
+                "crossover_kv_len": decode_crossover,
+                "geometry": decode_geometry,
+                "source": "chip_smoke.py crossover phase"}}}
+
+
 
 
 # ------------------------------------------------------------------ serving
@@ -2593,45 +2710,48 @@ def payload_view(uri, dst, **hparams):
     return dst
 
 
-def run_dag(name, create_pipeline, env, base, hparams, module_path):
-    """The pipeline from ``create_pipeline(base)`` under ``env``, its
-    Trainer's hyperparameters set to ``hparams``, through
-    LocalDagRunner on the card, cold then warm.  The kernels' counters
-    are set to 0 just before the cold run and read just after it; the warm
-    run must launch nothing.  Returns (cold, cold seconds, warm seconds,
-    launches, seen: the Trainer's result, logged losses,
-    checkpoint seconds, the counters when train_loop returned, CUDA graph
-    captures and replays)."""
+def run_dag(name, run_once, module_path, during_trainer=None, after_run=None):
+    """The pipeline ``run_once()`` runs on the card, cold then warm (each
+    run's ``RunResult`` read off ``LocalDagRunner.run``).  The kernels'
+    counters are set to 0 just before the cold run and read just after it;
+    the warm run must launch nothing.  ``during_trainer()``, if given, is
+    called once inside the cold run's Trainer, ``after_run("cold")`` and
+    ``after_run("warm")`` after each run's clock stops.  Returns (cold, cold
+    seconds, warm, warm seconds, launches, seen: the Trainer's result,
+    logged losses, its checkpoint savers, what ``during_trainer``
+    returned, the counters when train_loop returned, CUDA graph captures
+    and replays)."""
     import importlib
 
     from tpu_pipelines_torch.orchestration import LocalDagRunner
     from tpu_pipelines_torch.utils.module_loader import load_module
 
-    def pipeline():
-        with mock.patch.dict(os.environ, env):
-            pipe = create_pipeline(base)
-        trainer = next(c for c in pipe.components if c.id == "Trainer")
-        trainer.exec_properties["hyperparameters"] = hparams
-        return pipe
-
     user = load_module(module_path)
     loop_module = importlib.import_module("tpu_pipelines_torch.trainer.train_loop")
-    seen = {"losses": [], "checkpoint_s": [], "captures": 0, "replays": 0}
-    real_loop, real_save = user.train_loop, loop_module._save_checkpoint
+    seen = {"losses": [], "savers": [], "captures": 0, "replays": 0}
+    results = []
+    real_loop, real_saver = user.train_loop, loop_module._AsyncCheckpointSaver
+    real_run = LocalDagRunner.run
     graph = torch.cuda.CUDAGraph
     real_replay, real_capture = graph.replay, graph.capture_begin
 
     def loop(**kw):
         def cb(step, metrics):
             seen["losses"] += [v for k, v in metrics.items() if "loss" in k]
+        if during_trainer is not None and "during" not in seen:
+            seen["during"] = during_trainer()
         model, result = real_loop(metrics_cb=cb, **kw)
         seen["result"], seen["after_trainer"] = result, counters()
         return model, result
 
-    def save(*args, **kw):
-        t0 = time.perf_counter()
-        real_save(*args, **kw)
-        seen["checkpoint_s"].append(time.perf_counter() - t0)
+    class Saver(real_saver):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            seen["savers"].append(self)
+
+    def run(self, *args, **kwargs):
+        results.append(real_run(self, *args, **kwargs))
+        return results[-1]
 
     def counted(key, method):
         def wrapper(self, *args, **kwargs):
@@ -2639,20 +2759,25 @@ def run_dag(name, create_pipeline, env, base, hparams, module_path):
             return method(self, *args, **kwargs)
         return wrapper
 
-    os.makedirs(base)
-    with mock.patch.object(user, "train_loop", loop), \
-            mock.patch.object(loop_module, "_save_checkpoint", save), \
-            mock.patch.object(graph, "replay", counted("replays", real_replay)), \
-            mock.patch.object(graph, "capture_begin",
-                              counted("captures", real_capture)):
-        zero_counters()
+    with mock.patch.object(LocalDagRunner, "run", run):
+        with mock.patch.object(user, "train_loop", loop), \
+                mock.patch.object(loop_module, "_AsyncCheckpointSaver", Saver), \
+                mock.patch.object(graph, "replay", counted("replays", real_replay)), \
+                mock.patch.object(graph, "capture_begin",
+                                  counted("captures", real_capture)):
+            zero_counters()
+            t0 = time.perf_counter()
+            run_once()
+            cold_s = time.perf_counter() - t0
+            launches = counters()
+        if after_run is not None:
+            after_run("cold")
         t0 = time.perf_counter()
-        cold = LocalDagRunner(device=DEVICE).run(pipeline())
-        cold_s = time.perf_counter() - t0
-        launches = counters()
-    t0 = time.perf_counter()
-    warm = LocalDagRunner(device=DEVICE).run(pipeline())
-    warm_s = time.perf_counter() - t0
+        run_once()
+        warm_s = time.perf_counter() - t0
+        if after_run is not None:
+            after_run("warm")
+    cold, warm = results
     statuses = {k: v.status for k, v in cold.nodes.items()}
     if set(statuses.values()) != {"COMPLETE"}:
         raise AssertionError(f"{name}: cold run {statuses} "
@@ -2663,7 +2788,22 @@ def run_dag(name, create_pipeline, env, base, hparams, module_path):
             f"{name}: warm run {({k: v.status for k, v in warm.nodes.items()})}")
     if counters() != launches:
         raise AssertionError(f"{name}: the warm run launched a kernel")
-    return cold, cold_s, warm_s, launches, seen
+    return cold, cold_s, warm, warm_s, launches, seen
+
+
+def save_seconds(name, seen, card):
+    """Each checkpoint's seconds: the loop blocked (snapshot and fence
+    wait) and the thread's write; every write finished."""
+    saves = [rec for saver in seen["savers"] for rec in saver.saves]
+    if not saves or any(rec["write_s"] is None for rec in saves):
+        raise AssertionError(f"{name}: checkpoint saves {saves}")
+    print(f"{name} checkpoints [{card}]: {len(saves)} saves written off the "
+          "loop; " + "; ".join(
+              f"step {rec['step']}: loop blocked {rec['blocked_s']:.4f} s, "
+              f"written {rec['write_s']:.3f} s" for rec in saves)
+          + f"; blocked {sum(r['blocked_s'] for r in saves):.4f} s in all",
+          flush=True)
+    return saves
 
 
 def node_props(base, nodes):
@@ -2694,11 +2834,95 @@ def trainer_checks(name, seen, steps):
             f"{seen['captures']} captures, {seen['replays']} replays")
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cli(argv):
+    """``python -m tpu_pipelines_torch`` in this process: (exit code,
+    standard output)."""
+    import contextlib
+    import io
+
+    from tpu_pipelines_torch.__main__ import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli_main(argv)
+    return code, out.getvalue()
+
+
+def scrape(port):
+    """The run telemetry server's /metrics and /healthz, once."""
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=10) as r:
+        text = r.read().decode()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                timeout=10) as r:
+        health = json.loads(r.read())
+    found = sorted({line.split("{")[0].split(" ")[0]
+                    for line in text.splitlines()
+                    if line.startswith(("pipeline_nodes_", "pipeline_run_info"))})
+    return found, health
+
+
+def traced_run(name, root, want_ratio, outdir, tag):
+    """``trace latest --json --perfetto --metrics`` of the newest run under
+    ``root``: a node span for every node, a critical path, the cache-hit
+    ratio ``want_ratio``, both files parse.  Returns the metrics."""
+    perfetto = os.path.join(outdir, f"{tag}_trace.json")
+    metrics_path = os.path.join(outdir, f"{tag}_metrics.json")
+    code, out = cli(["trace", "latest", "--pipeline-root", root, "--json",
+                     "--perfetto", perfetto, "--metrics", metrics_path])
+    if code != 0:
+        raise AssertionError(f"{name}: trace latest exited {code}")
+    metrics = json.loads(out)
+    with open(perfetto) as f:
+        timeline = json.load(f)["traceEvents"]
+    with open(metrics_path) as f:
+        if json.load(f)["per_node"] != metrics["per_node"]:
+            raise AssertionError(f"{name}: metrics.json differs from --json")
+    if (not metrics["critical_path_nodes"]
+            or metrics["cache_hit_ratio"] != want_ratio
+            or not timeline):
+        raise AssertionError(
+            f"{name} {tag}: critical path {metrics['critical_path_nodes']}, "
+            f"cache hit ratio {metrics['cache_hit_ratio']} (want "
+            f"{want_ratio}), {len(timeline)} timeline events")
+    return metrics
+
+
+def trace_overhead(events):
+    """Seconds the recorder spent writing ``events`` events, from the time
+    of 2000 writes of a node-span-sized event to a file here."""
+    from tpu_pipelines_torch.observability.trace import TraceRecorder
+
+    with tempfile.TemporaryDirectory() as d:
+        rec = TraceRecorder(d, "overhead")
+        t0 = time.perf_counter()
+        for i in range(2000):
+            rec.complete("node", "scheduler", "Trainer", time.time(),
+                         time.monotonic(), 0.5, args={
+                             "status": "COMPLETE", "execution_id": i,
+                             "retries": 0, "queue_wait_s": 0.0,
+                             "gate_wait_s": 0.0, "upstream": ["Transform"]})
+        per_event = (time.perf_counter() - t0) / 2000
+        rec.close()
+    return events * per_event, per_event
+
+
 def bert_dag_phase(seed, card, workdir):
-    """The BERT-base fine-tune DAG on the card (the north-star workload as
-    its users run it): all six nodes through LocalDagRunner(device="cuda")
-    at BERT_BASE with flash attention, cold then warm.  Returns each
-    kernel's launches in the cold run."""
+    """The BERT-base fine-tune DAG on the card as its users run it:
+    ``python -m tpu_pipelines_torch run --pipeline-module
+    tpu_pipelines_torch/examples/bert_pipeline.py`` (in this process) at
+    BERT_BASE, the Trainer's ``attn_impl "auto"`` choosing by the crossover
+    measured on this card, cold then warm, traced and read back with
+    ``trace latest`` and ``inspect runs``.  Returns each kernel's launches
+    in the cold run."""
     from tpu_pipelines_torch.components.evaluator import evaluate_payload
     from tpu_pipelines_torch.data import examples_io
     from tpu_pipelines_torch.data.input_pipeline import BatchIterator, InputConfig
@@ -2713,16 +2937,79 @@ def bert_dag_phase(seed, card, workdir):
     print(f"bert_dag data: {BERT_DAG_ROWS} reviews, "
           f"{os.path.getsize(csv_path)} bytes of CSV made in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    hp = {**bert_pipeline.BERT_BASE, "attn_impl": "flash"}
-    cold, cold_s, warm_s, launches, seen = run_dag(
-        "bert_dag", bert_pipeline.create_pipeline,
-        {"BERT_DATA_CSV": csv_path, "BERT_TRAIN_STEPS": str(BERT_DAG_STEPS),
-         "BERT_TINY": ""}, base, hp,
-        os.path.join(bert_pipeline.HERE, "bert_module.py"))
-    print(f"bert_dag nodes [{card}]: cold run {cold_s:.1f} s: " + ", ".join(
-        f"{k} {v.wall_clock_s:.2f} s" for k, v in cold.nodes.items())
-        + f"; warm run {warm_s:.2f} s, all {len(cold.nodes)} CACHED, no "
-        "kernel launched", flush=True)
+    hp = dict(bert_pipeline.BERT_BASE)
+    port = free_port()
+    env = {"TPP_PIPELINE_HOME": base, "BERT_DATA_CSV": csv_path,
+           "BERT_TRAIN_STEPS": str(BERT_DAG_STEPS), "BERT_TINY": "",
+           "TPP_METRICS_PORT": str(port)}
+    pipeline_module = os.path.join(bert_pipeline.HERE, "bert_pipeline.py")
+    root = os.path.join(base, "root")
+
+    def run_once():
+        with mock.patch.dict(os.environ, env):
+            code, out = cli(["run", "--pipeline-module", pipeline_module,
+                             "--device", DEVICE])
+        if code != 0:
+            raise AssertionError(f"bert_dag: run exited {code}: {out[-2000:]}")
+
+    os.makedirs(base)
+    traces = {}
+
+    def read_trace(tag):
+        traces[tag] = traced_run("bert_dag", root,
+                                 0.0 if tag == "cold" else 1.0, workdir, tag)
+
+    cold, cold_s, warm, warm_s, launches, seen = run_dag(
+        "bert_dag", run_once,
+        os.path.join(bert_pipeline.HERE, "bert_module.py"),
+        during_trainer=lambda: scrape(port), after_run=read_trace)
+    print(f"bert_dag nodes [{card}]: `python -m tpu_pipelines_torch run` "
+          f"cold {cold_s:.1f} s: " + ", ".join(
+              f"{k} {v.wall_clock_s:.2f} s" for k, v in cold.nodes.items())
+          + f"; warm run {warm_s:.2f} s, all {len(cold.nodes)} CACHED, no "
+          "kernel launched", flush=True)
+
+    # The run trace, read back by the CLI: a node span for every node, the
+    # critical path, cache hits 0.0 cold and 1.0 warm, the Trainer's
+    # summaries; the telemetry server scraped during the cold run; both
+    # runs listed by `inspect runs`.
+    found, health = seen["during"]
+    want_families = ["pipeline_nodes_done", "pipeline_nodes_failed",
+                     "pipeline_nodes_pending", "pipeline_nodes_running",
+                     "pipeline_run_info"]
+    if found != want_families or not health.get("healthy"):
+        raise AssertionError(f"bert_dag: TPP_METRICS_PORT scrape {found}, "
+                             f"healthz {health}")
+    tc = traces["cold"]
+    telemetry = tc["train_telemetry"] or {}
+    if (sorted(tc["per_node"]) != sorted(cold.nodes)
+            or sorted(traces["warm"]["per_node"]) != sorted(cold.nodes)
+            or tc["run_id"] != cold.run_id
+            or traces["warm"]["run_id"] != warm.run_id
+            or not tc["goodput"] or telemetry.get("compiles_after_warm") != 0
+            or not tc["run_succeeded"]):
+        raise AssertionError(f"bert_dag: cold trace {tc}")
+    code, out = cli(["inspect", "runs", "bert-finetune", "--metadata",
+                     os.path.join(base, "metadata.sqlite"), "--pipeline-root",
+                     root, "--json"])
+    listed = [r["run_id"] for r in json.loads(out)["runs"]]
+    if code != 0 or listed != [cold.run_id, warm.run_id]:
+        raise AssertionError(f"bert_dag: inspect runs {code} {listed}")
+    overhead_s, per_event = trace_overhead(tc["events"])
+    print(f"bert_dag trace [{card}]: cold {tc['events']} events, "
+          f"{len(tc['per_node'])} node spans, critical path "
+          f"{' -> '.join(tc['critical_path_nodes'])} "
+          f"{tc['critical_path_measured_s']} s of run wall {tc['run_wall_s']} "
+          f"s, cache hit ratio {tc['cache_hit_ratio']} cold, "
+          f"{traces['warm']['cache_hit_ratio']} warm; goodput "
+          f"{tc['goodput']['goodput']} ({tc['goodput']['source']}), "
+          f"compiles after warm {telemetry['compiles_after_warm']}; "
+          f"metadata ops {sum(o['count'] for o in tc['store_ops'].values())}; "
+          f"perfetto and metrics files parse; recorder writes "
+          f"{per_event * 1e6:.1f} us an event, {overhead_s * 1e3:.2f} ms "
+          f"({overhead_s / cold_s:.2e} of the cold wall); scraped "
+          f"{', '.join(found)} on :{port} during the run; inspect runs lists "
+          f"{listed}", flush=True)
     props = node_props(base, cold.nodes)
     out = {k: {key: arts[0].uri for key, arts in v.outputs.items()}
            for k, v in cold.nodes.items()}
@@ -2740,32 +3027,40 @@ def bert_dag_phase(seed, card, workdir):
     n_eval = examples_io.num_rows(examples_uri, "eval")
     batch = hp["batch_size"]
     layers = DEFAULT_HPARAMS["n_layers"]
-    steps = layers * BERT_DAG_STEPS
-    trainer_fwd = steps + layers * (n_eval // batch)
-    want = {"launches": trainer_fwd + layers * -(-n_eval // batch),
+    # "auto" at the DAG's shapes, by the crossover recorded for this card.
+    impl = tfm.choose_attn_impl(batch, DEFAULT_HPARAMS["n_heads"],
+                                PIPELINE_LEN, PIPELINE_LEN, 2, torch.device(DEVICE))
+    steps = layers * BERT_DAG_STEPS if impl == "flash" else 0
+    trainer_fwd = steps + layers * (n_eval // batch) * (impl == "flash")
+    want = {"launches": trainer_fwd
+            + layers * -(-n_eval // batch) * (impl == "flash"),
             "dvec_launches": steps, "dq_launches": steps,
             "dkv_launches": steps, "decode_launches": 0}
     want_trainer = {**want, "launches": trainer_fwd}
     if launches != want or seen["after_trainer"] != want_trainer:
         raise AssertionError(
             f"bert_dag: launches {launches} (after the Trainer "
-            f"{seen['after_trainer']}), expected {want} ({want_trainer})")
+            f"{seen['after_trainer']}), expected {want} ({want_trainer}) for "
+            f"auto = {impl}")
     result = seen["result"]
     tr = props["Trainer"]
-    print(f"bert_dag launches: {launches} = {layers} layers x "
-          f"({BERT_DAG_STEPS} steps + {n_eval // batch} Trainer eval batches "
-          f"+ {-(-n_eval // batch)} Evaluator batches) forwards and {layers} "
-          f"x {BERT_DAG_STEPS} of each backward kernel; the Trainer's step 1 "
-          f"eager, {seen['captures']} capture, {seen['replays']} replays, "
-          f"compiles after warm-up {result.compiles_after_warm}", flush=True)
-    ckpt = seen["checkpoint_s"]
+    print(f"bert_dag launches: attn_impl auto chose {impl} at B={batch} "
+          f"L={PIPELINE_LEN} (crossover {autotune_lookup()[0]}); {launches} = "
+          + (f"{layers} layers x ({BERT_DAG_STEPS} steps + {n_eval // batch} "
+             f"Trainer eval batches + {-(-n_eval // batch)} Evaluator "
+             f"batches) forwards and {layers} x {BERT_DAG_STEPS} of each "
+             "backward kernel" if impl == "flash" else "none: dense attention")
+          + f"; the Trainer's step 1 eager, {seen['captures']} capture, "
+          f"{seen['replays']} replays, compiles after warm-up "
+          f"{result.compiles_after_warm}", flush=True)
+    saves = save_seconds("bert_dag", seen, card)
     print(f"bert_dag trainer [{card}]: {result.steps_completed} steps at batch "
           f"{batch} x {PIPELINE_LEN}, {result.examples_per_sec:.1f} "
-          f"examples/s, losses "
+          f"examples/s over the run, losses "
           f"{seen['losses'][0]:.4f} -> {seen['losses'][-1]:.4f} "
           f"({len(seen['losses'])} logged, finite), Trainer eval accuracy "
-          f"{tr['final_eval_accuracy']:.4f}; {len(ckpt)} checkpoints "
-          f"{', '.join(f'{x:.2f}' for x in ckpt)} s", flush=True)
+          f"{tr['final_eval_accuracy']:.4f}; {len(saves)} checkpoints",
+          flush=True)
 
     # The Transform on the card: the first chunk of each split as the node
     # materialized it and as apply_device gives it now, bit for bit equal
@@ -2909,12 +3204,22 @@ def pairs_csv(path, seed, rows):
         f.write("\n".join(lines) + "\n")
 
 
+def autotune_lookup():
+    """(training, decode) crossovers recorded for this card."""
+    from tpu_pipelines_torch.ops import autotune
+
+    kind = autotune.current_device_kind(DEVICE)
+    return autotune.lookup_crossover(kind), autotune.lookup_decode_crossover(kind)
+
+
 def t5_dag_phase(seed, card, workdir):
     """The T5-small seq2seq DAG on the card: all six nodes through
-    LocalDagRunner(device="cuda") at T5_SMALL with flash decode attention,
-    cold then warm; the BulkInferrer beam-decodes the raw eval split
-    through the payload's embedded transform.  Returns each kernel's
-    launches in the cold run."""
+    LocalDagRunner(device="cuda") at T5_SMALL with ``attn_impl "auto"``
+    (the T5 twin's own default is dense, as the reference's), so the
+    decode crossover measured on this card decides the BulkInferrer's
+    decode attention; cold then warm; the BulkInferrer beam-decodes the
+    raw eval split through the payload's embedded transform.  Returns each
+    kernel's launches in the cold run."""
     from tpu_pipelines_torch.components.bulk_inferrer import _shard_batches
     from tpu_pipelines_torch.data import examples_io
     from tpu_pipelines_torch.examples import t5_pipeline
@@ -2923,12 +3228,23 @@ def t5_dag_phase(seed, card, workdir):
     base = os.path.join(workdir, "t5")
     csv_path = os.path.join(workdir, "pairs.csv")
     pairs_csv(csv_path, seed, T5_DAG_PAIRS)
-    hp = {**t5_pipeline.T5_SMALL, "attn_impl": "flash"}
+    hp = {**t5_pipeline.T5_SMALL, "attn_impl": "auto"}
     module_path = os.path.join(t5_pipeline.HERE, "t5_module.py")
-    cold, cold_s, warm_s, launches, seen = run_dag(
-        "t5_dag", t5_pipeline.create_pipeline,
-        {"T5_DATA_CSV": csv_path, "T5_TRAIN_STEPS": str(T5_DAG_STEPS),
-         "T5_TINY": ""}, base, hp, module_path)
+    env = {"T5_DATA_CSV": csv_path, "T5_TRAIN_STEPS": str(T5_DAG_STEPS),
+           "T5_TINY": ""}
+
+    def run_once():
+        from tpu_pipelines_torch.orchestration import LocalDagRunner
+
+        with mock.patch.dict(os.environ, env):
+            pipe = t5_pipeline.create_pipeline(base)
+        trainer = next(c for c in pipe.components if c.id == "Trainer")
+        trainer.exec_properties["hyperparameters"] = hp
+        LocalDagRunner(device=DEVICE).run(pipe)
+
+    os.makedirs(base)
+    cold, cold_s, _, warm_s, launches, seen = run_dag("t5_dag", run_once,
+                                                      module_path)
     print(f"t5_dag nodes [{card}]: {T5_DAG_PAIRS} pairs; cold run "
           f"{cold_s:.1f} s: " + ", ".join(
               f"{k} {v.wall_clock_s:.2f} s" for k, v in cold.nodes.items())
@@ -2951,18 +3267,27 @@ def t5_dag_phase(seed, card, workdir):
     shard_rows = examples_io.shard_row_counts(raw_uri, "eval")
     n_batches = sum(-(-r // batch) for r in shard_rows)
     layers = t5m.DEFAULT_HPARAMS["n_layers"]
+    # "auto" at the beam step's cache, by the decode crossover recorded for
+    # this card.
+    impl = tfm.choose_decode_impl(batch * hp["beam_size"],
+                                  t5m.DEFAULT_HPARAMS["n_heads"], decode_len,
+                                  t5m.DEFAULT_HPARAMS["head_dim"],
+                                  torch.device(DEVICE))
     want = {**dict.fromkeys(fa.COUNTERS, 0),
-            "decode_launches": layers * decode_len * n_batches}
+            "decode_launches": layers * decode_len * n_batches
+            * (impl == "flash")}
     if launches != want:
-        raise AssertionError(f"t5_dag: launches {launches}, expected {want}")
+        raise AssertionError(f"t5_dag: launches {launches}, expected {want} "
+                             f"for auto = {impl}")
     result = seen["result"]
     print(f"t5_dag trainer [{card}]: {result.steps_completed} steps at batch "
           f"{hp['batch_size']}, {result.examples_per_sec:.1f} examples/s, "
           f"losses {seen['losses'][0]:.4f} -> {seen['losses'][-1]:.4f} "
           f"(finite), step 1 eager, {seen['captures']} capture, "
           f"{seen['replays']} replays, compiles after warm-up 0, no attention "
-          f"kernel; {len(seen['checkpoint_s'])} checkpoints "
-          f"{sum(seen['checkpoint_s']):.2f} s", flush=True)
+          f"kernel; decode attn_impl auto chose {impl} at {decode_len} keys "
+          f"(decode crossover {autotune_lookup()[1]})", flush=True)
+    save_seconds("t5_dag", seen, card)
 
     # One prediction row per eval row, in the input's order: the first
     # batch of the first shard and the last batch of the last, decoded
@@ -2998,13 +3323,20 @@ def t5_dag_phase(seed, card, workdir):
           f"[{rows}, {decode_len}] int; the first and the last batch decoded "
           f"again from raw rows == from the materialized rows == the node's "
           f"rows; flash_decode launches {launches['decode_launches']} = "
-          f"{layers} layers x {decode_len} passes x {n_batches} batches; "
+          + (f"{layers} layers x {decode_len} passes x {n_batches} batches; "
+             if impl == "flash" else "none (auto chose dense); ")
+          + 
           f"{rows / cold.nodes['BulkInferrer'].wall_clock_s:.1f} rows/s, "
           f"{generated_tokens(preds) / cold.nodes['BulkInferrer'].wall_clock_s:.1f}"
           f" generated tokens/s (node wall)", flush=True)
 
     # Teacher-forced logits of the first batch's emitted tokens: the
-    # kernel against dense decode attention, and the two controls.
+    # kernel against dense decode attention, and the two controls (only
+    # where "auto" put the kernel on this path).
+    if impl != "flash":
+        print("t5_dag: the payload decodes with dense attention here, so "
+              "there is no kernel to hold against it", flush=True)
+        return by_record(launches)
     dense = load_exported_model(
         payload_view(model_uri, os.path.join(workdir, "t5_dense"),
                      attn_impl="dense"), device=DEVICE)
@@ -3446,6 +3778,10 @@ def main(argv=None) -> int:
     parser.add_argument("--requests", type=int, default=128)
     parser.add_argument("--train-steps", type=int, default=12)
     parser.add_argument("--generate-requests", type=int, default=16)
+    parser.add_argument("--table-out", default="",
+                        help="also write the crossovers measured in this run "
+                             "as an autotune table here (the format of "
+                             "tpu_pipelines_torch/ops/autotune_table.json)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs on an "
@@ -3475,6 +3811,18 @@ def main(argv=None) -> int:
     bwd = bwd_kernel_phase(gen)
     decode = decode_kernel_phase(gen)
     phase_done("kernels")
+    # The crossovers "auto" reads, measured here before any phase runs
+    # "auto", into a cache of this run's own (nothing recorded earlier on
+    # the machine is read).
+    cache = tempfile.TemporaryDirectory()
+    os.environ["TPP_AUTOTUNE_CACHE"] = cache.name
+    measured = crossover_phase(gen, card)
+    if args.table_out:
+        with open(args.table_out, "w") as f:
+            json.dump({"version": 1, "entries": {}, **measured}, f,
+                      indent=1, sort_keys=True)
+            f.write("\n")
+    phase_done("crossover")
 
     with tempfile.TemporaryDirectory() as workdir:
         served = serving_phase(args.seed, args.requests, card, workdir)
@@ -3507,6 +3855,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as workdir:
         t5_dag = t5_dag_phase(args.seed, card, workdir)
     phase_done("t5_dag")
+    cache.cleanup()
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s",
           flush=True)
     # launches: each kernel's count in its own paths' runs: training for the

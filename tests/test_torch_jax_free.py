@@ -76,7 +76,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
                    "serving.fleet", "serving.fleet.fleet",
                    "serving.fleet.pool", "serving.fleet.replica",
                    "serving.fleet.router", "serving.fleet.supervisor",
-                   "serving.fleet.versions", "testing.faults"):
+                   "serving.fleet.versions", "testing.faults",
+                   "__main__", "ops.autotune", "observability.trace",
+                   "observability.export", "observability.metrics"):
         assert f"tpu_pipelines_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["modules"]
     leaked = [m for m in report["modules"] if _forbidden(m)]

@@ -30,9 +30,14 @@ f32: (1e-5, 2e-5) — two formulas (softmax vs the saved LSE), f32 sums over
 The last tests drive ``train_loop`` on the card with a tiny BERT (flash
 attention, dropout 0.1): its CUDA-graph steps equal the same steps run
 eagerly bit for bit (losses and parameters), the four attention counters
-read layers x steps (counted at replay), and a capture that cannot
-succeed raises instead of running the step eagerly (kept last: a failed
-capture is the one test here that leaves the context in an unusual state).
+read layers x steps (counted at replay), each checkpoint the saver writes
+from its thread equals the eager run's model and optimizer state at its
+step bit for bit, and a capture that cannot succeed raises instead of
+running the step eagerly (kept last: a failed capture is the one test
+here that leaves the context in an unusual state).  Between them, the
+crossover measurement of ``chip_smoke.py`` records both crossovers for
+the card's name, and "auto" attention launches the kernels at or above a
+recorded crossover and nothing below it.
 """
 
 import pytest
@@ -716,7 +721,7 @@ def _train_batches(n, b=8, l=64, seed=0):
     return out
 
 
-def _graph_train(batches, loss_fn=None, seed=3, window=4):
+def _graph_train(batches, loss_fn=None, seed=3, window=4, **loop_kwargs):
     import functools
 
     from tpu_pipelines_torch.examples import bert_module
@@ -730,9 +735,12 @@ def _graph_train(batches, loss_fn=None, seed=3, window=4):
         optimizer=bert_module.adamw(1e-3),
         train_iter=iter(batches),
         config=TrainLoopConfig(train_steps=len(batches), batch_size=8,
-                               log_every=1, window_steps=window, seed=seed),
+                               log_every=1, window_steps=window, seed=seed,
+                               checkpoint_every=loop_kwargs.pop(
+                                   "checkpoint_every", 0)),
         metrics_cb=lambda s, m: losses.append(m["loss"]),
         device="cuda",
+        **loop_kwargs,
     )
     return model, result, losses
 
@@ -771,6 +779,97 @@ def test_graph_train_loop_equals_eager_steps_and_counts_launches_at_replay(cuda)
     assert losses == eager_losses
     for (name, p), q in zip(model.named_parameters(), eager.parameters()):
         assert torch.equal(p, q), name
+
+
+def test_async_checkpoints_equal_the_eager_state_at_their_step_under_replay(
+        cuda, tmp_path):
+    import threading
+
+    from tpu_pipelines_torch.examples import bert_module
+    from tpu_pipelines_torch.trainer.train_loop import step_generator
+
+    batches = _train_batches(12)
+    _graph_train(batches, checkpoint_dir=str(tmp_path), checkpoint_every=4)
+    assert not [t for t in threading.enumerate()
+                if t.name == "tpp-async-ckpt"]
+    eager = bert_module.init_params_fn(torch.Generator().manual_seed(3),
+                                       batches[0], TINY_TRAIN).to(cuda).train()
+    opt = bert_module.adamw(1e-3)(eager.parameters())
+    for s, b in enumerate(batches):
+        loss, _ = bert_module.loss_fn(
+            eager, {k: torch.as_tensor(v, device=cuda) for k, v in b.items()},
+            step_generator(3, s, cuda))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        if (s + 1) % 4:
+            continue
+        saved = torch.load(tmp_path / f"ckpt_{s + 1}.pt", map_location=cuda,
+                           weights_only=True)
+        assert saved["step"] == s + 1
+        for name, value in eager.state_dict().items():
+            assert torch.equal(saved["model"][name], value), (s + 1, name)
+        want = opt.state_dict()["state"]
+        assert sorted(saved["optimizer"]["state"]) == sorted(want)
+        for i, state in want.items():
+            for key, value in state.items():
+                assert torch.equal(saved["optimizer"]["state"][i][key].to(
+                    value.device), value), (s + 1, i, key)
+
+
+def test_crossover_measurement_records_both_for_the_card(cuda, tmp_path,
+                                                         monkeypatch):
+    import chip_smoke
+
+    from tpu_pipelines_torch.ops import autotune
+
+    monkeypatch.setenv("TPP_AUTOTUNE_CACHE", str(tmp_path))
+    autotune.clear_memo()
+    measured = chip_smoke.crossover_phase(torch.Generator().manual_seed(0),
+                                          "test")
+    kind = torch.cuda.get_device_name(0)
+    rec = measured["crossover"][kind]
+    drec = measured["decode_crossover"][kind]
+    assert autotune.lookup_crossover(kind) == rec["crossover_seq_len"]
+    assert autotune.lookup_decode_crossover(kind) == drec["crossover_kv_len"]
+    assert sorted(map(int, rec["geometry"]["per_len"])) == list(
+        chip_smoke.CROSS_TRAIN_LENS)
+    assert sorted(map(int, drec["geometry"]["per_kv_len"])) == list(
+        chip_smoke.CROSS_DECODE_LENS)
+    # 8192 keys: dense does not fit, so flash runs and the crossover exists.
+    assert rec["crossover_seq_len"] is not None
+    autotune.clear_memo()
+
+
+def test_auto_launches_the_kernels_at_or_above_a_crossover_and_not_below(
+        cuda, tmp_path, monkeypatch):
+    from tpu_pipelines_torch.ops import autotune
+
+    monkeypatch.setenv("TPP_AUTOTUNE_CACHE", str(tmp_path))
+    autotune.clear_memo()
+    kind = autotune.current_device_kind(cuda)
+    autotune.record_crossover(kind, 128, source="test")
+    autotune.record_decode_crossover(kind, 128, source="test")
+    torch.manual_seed(0)
+    layer = MultiHeadAttention(64, 2, 32, attn_impl="auto").to(cuda).eval()
+    saved = {name: getattr(fa, name) for name in fa.COUNTERS}
+    try:
+        for l, want in ((64, 0), (127, 0), (128, 1), (256, 1)):
+            fa.launches = 0
+            with torch.inference_mode():
+                layer(torch.randn(2, l, 64, device=cuda))
+            assert fa.launches == want, l
+        for kv, want in ((64, 0), (128, 1), (512, 1)):
+            fa.decode_launches = 0
+            cache = {}
+            with torch.inference_mode():
+                layer(torch.randn(2, 1, 64, device=cuda), decode_pos=0,
+                      max_decode_len=kv, cache=cache, cache_prefix="l0")
+            assert fa.decode_launches == want, kv
+    finally:
+        for name, value in saved.items():
+            setattr(fa, name, value)
+        autotune.clear_memo()
 
 
 def test_a_capture_that_cannot_succeed_raises_instead_of_running_eagerly(cuda):

@@ -1,0 +1,446 @@
+"""The port's CLI: ``python -m tpu_pipelines_torch {run,inspect,trace} ...``,
+the twin of ``python -m tpu_pipelines``.
+
+``run`` executes a pipeline module through the port's ``LocalDagRunner``,
+on the card unless ``--device cpu`` is given (without CUDA the default
+raises, naming the device):
+
+    python -m tpu_pipelines_torch run \
+        --pipeline-module tpu_pipelines_torch/examples/bert_pipeline.py
+    python -m tpu_pipelines_torch run --pipeline-module p.py --device cpu \
+        --param steps=500
+
+``inspect`` reads the metadata store back:
+
+    python -m tpu_pipelines_torch inspect runs <pipeline> --metadata md.sqlite
+    python -m tpu_pipelines_torch inspect lineage <artifact-id> --metadata md.sqlite
+    python -m tpu_pipelines_torch inspect artifacts [--type Model] --metadata md.sqlite
+
+``trace`` summarizes, exports and compares a run's trace
+(``<pipeline_root>/.runs/<run_id>/trace/events.jsonl``):
+
+    python -m tpu_pipelines_torch trace latest --pipeline-root /pipe/root
+    python -m tpu_pipelines_torch trace <run-id> --pipeline-root /pipe/root \
+        --perfetto trace.json --metrics metrics.json
+    python -m tpu_pipelines_torch trace diff <run-a> <run-b> \
+        --pipeline-root /pipe/root [--threshold 0.2]
+
+``trace diff`` exits 3 when a node or the critical path regressed past
+the threshold.  ``--json`` on ``trace``, ``trace diff`` and ``inspect
+runs`` prints one JSON object instead of the tables.
+
+Not ported yet; each prints the ``ROADMAP.md`` item it waits for and
+exits 2: ``run --from-node/--to-node/--resume-from`` (A22), ``run
+--lint`` and ``lint`` (A20), ``continuous`` (A23), ``drift`` (A8a) and
+``trace serve`` (A8b).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+from tpu_pipelines_torch.metadata.store import MetadataStore
+
+EXIT_UNPORTED = 2
+# Subcommands not ported yet: their ROADMAP.md item and what they do.
+_DEFERRED = {
+    "lint": ("A20", "static pipeline and executor analysis"),
+    "continuous": ("A23", "the continuous controller"),
+    "drift": ("A8a", "the live drift and skew report"),
+}
+
+
+def _unported(what: str, item: str) -> int:
+    print(f"{what} is not ported yet (ROADMAP.md {item})", file=sys.stderr)
+    return EXIT_UNPORTED
+
+
+def _fmt_props(props: dict, keys=None) -> str:
+    items = [
+        (k, v) for k, v in sorted(props.items())
+        if keys is None or k in keys
+    ]
+    return " ".join(f"{k}={v}" for k, v in items)
+
+
+def _run_trace_metrics(pipeline_root: str, run_id: str) -> dict:
+    """Per-node trace metrics for a run, {} when no trace exists."""
+    if not pipeline_root:
+        return {}
+    from tpu_pipelines_torch.observability import (
+        compute_metrics,
+        events_path,
+        read_events,
+    )
+
+    path = events_path(pipeline_root, run_id)
+    if not os.path.exists(path):
+        return {}
+    return compute_metrics(read_events(path))
+
+
+def cmd_runs(
+    store: MetadataStore,
+    pipeline: str,
+    pipeline_root: str = "",
+    as_json: bool = False,
+) -> int:
+    prefix = f"{pipeline}."
+    runs = [
+        c for c in store.get_contexts("pipeline_run")
+        if c.name.startswith(prefix)
+    ]
+    if not runs:
+        print(f"no runs recorded for pipeline {pipeline!r}", file=sys.stderr)
+        return 1
+    json_runs = []
+    for ctx in runs:
+        run_id = ctx.properties.get("run_id") or ctx.name[len(prefix):]
+        # Trace-derived per-node columns (queue wait) when the run's trace
+        # is reachable through --pipeline-root.
+        trace_nodes = _run_trace_metrics(pipeline_root, run_id).get(
+            "per_node", {}
+        )
+        if as_json:
+            json_runs.append({
+                "run_id": run_id,
+                "context_id": ctx.id,
+                "nodes": [
+                    {
+                        "node": ex.node_id or ex.type_name,
+                        "state": ex.state.value,
+                        "execution_id": ex.id,
+                        "properties": ex.properties,
+                        **(
+                            {"trace": trace_nodes[ex.node_id]}
+                            if ex.node_id in trace_nodes else {}
+                        ),
+                    }
+                    for ex in store.get_executions_by_context(ctx.id)
+                ],
+            })
+            continue
+        print(f"run {run_id}  (context #{ctx.id})")
+        header = f"  {'node':<24} {'state':<10} {'dur_s':>9}"
+        if trace_nodes:
+            header += f" {'queue_s':>8}"
+        print(header)
+        for ex in store.get_executions_by_context(ctx.id):
+            wall = ex.properties.get("wall_clock_s", "")
+            dur = f"{wall}s" if wall != "" else "-"
+            extra = _fmt_props(
+                ex.properties,
+                keys=(
+                    "examples_per_sec_per_chip", "retries", "cache_hit",
+                    "error",
+                ),
+            )
+            line = (
+                f"  {ex.node_id or ex.type_name:<24} "
+                f"{ex.state.value:<10} {dur:>9}"
+            )
+            if trace_nodes:
+                q = trace_nodes.get(ex.node_id, {}).get("queue_wait_s")
+                line += f" {q if q is not None else '-':>8}"
+            print(f"{line}  {extra}".rstrip())
+    if as_json:
+        print(json.dumps({"pipeline": pipeline, "runs": json_runs},
+                         indent=1, sort_keys=True, default=str))
+    return 0
+
+
+def _resolve_run_id(pipeline_root: str, run_id: str):
+    """Resolve 'latest' to the newest run dir; (run_id, error)."""
+    if run_id != "latest":
+        return run_id, None
+    runs_dir = os.path.join(pipeline_root, ".runs")
+    candidates = sorted(
+        (d for d in (os.listdir(runs_dir) if os.path.isdir(runs_dir)
+                     else [])
+         # "_"-prefixed dirs are cross-run stores, not runs.
+         if not d.startswith("_")
+         and os.path.isdir(os.path.join(runs_dir, d))),
+        key=lambda d: os.path.getmtime(os.path.join(runs_dir, d)),
+    )
+    if not candidates:
+        return None, f"no traced runs under {runs_dir}"
+    return candidates[-1], None
+
+
+def _load_run_metrics(pipeline_root: str, run_id: str):
+    """((run_id, events, metrics), error) for one traced run."""
+    from tpu_pipelines_torch.observability import (
+        compute_metrics,
+        events_path,
+        read_events,
+    )
+
+    run_id, err = _resolve_run_id(pipeline_root, run_id)
+    if err:
+        return None, err
+    events_file = events_path(pipeline_root, run_id)
+    if not os.path.exists(events_file):
+        return None, (
+            f"no trace event log at {events_file} (was the run traced? "
+            "TPP_TRACE=0 disables tracing)"
+        )
+    events = read_events(events_file)
+    if not events:
+        return None, f"trace event log {events_file} is empty"
+    return (run_id, events, compute_metrics(events)), None
+
+
+def cmd_trace(args) -> int:
+    from tpu_pipelines_torch.observability import (
+        export_metrics,
+        export_perfetto,
+        format_summary,
+    )
+
+    if args.run_id[0] == "diff":
+        return cmd_trace_diff(args)
+    if args.run_id[0] == "serve":
+        return _unported("trace serve (the serving tier's request traces)",
+                         "A8b")
+    if len(args.run_id) != 1:
+        print("trace takes one run id (or: trace diff <a> <b>)",
+              file=sys.stderr)
+        return 2
+    if not args.pipeline_root:
+        print("trace <run-id> requires --pipeline-root", file=sys.stderr)
+        return 2
+    loaded, err = _load_run_metrics(args.pipeline_root, args.run_id[0])
+    if err:
+        print(err, file=sys.stderr)
+        return 1
+    run_id, events, metrics = loaded
+    if args.json:
+        print(json.dumps(
+            {"run_id": run_id, "events": len(events), **metrics},
+            indent=1, sort_keys=True,
+        ))
+    else:
+        print(f"run {run_id}  ({len(events)} events)")
+        print(format_summary(metrics))
+    if args.perfetto:
+        path = export_perfetto(events, args.perfetto)
+        if not args.json:
+            print(
+                f"perfetto timeline: {path} "
+                "(load in https://ui.perfetto.dev)"
+            )
+    if args.metrics:
+        path = export_metrics(events, args.metrics)
+        if not args.json:
+            print(f"metrics summary: {path}")
+    return 0
+
+
+def cmd_trace_diff(args) -> int:
+    """``trace diff <run_a> <run_b>``: per-node deltas and regression
+    flags; exit 0 = clean, 3 = regressed past threshold, 1 = error."""
+    from tpu_pipelines_torch.observability import diff_metrics, format_diff
+
+    ids = args.run_id[1:]
+    if len(ids) != 2:
+        print("trace diff needs exactly two run ids: trace diff <a> <b>",
+              file=sys.stderr)
+        return 2
+    if not args.pipeline_root:
+        print("trace diff requires --pipeline-root", file=sys.stderr)
+        return 2
+    loaded = []
+    for rid in ids:
+        got, err = _load_run_metrics(args.pipeline_root, rid)
+        if err:
+            print(err, file=sys.stderr)
+            return 1
+        loaded.append(got)
+    (id_a, _, metrics_a), (id_b, _, metrics_b) = loaded
+    diff = diff_metrics(metrics_a, metrics_b, threshold=args.threshold)
+    if args.json:
+        print(json.dumps(
+            {"run_a": id_a, "run_b": id_b, **diff},
+            indent=1, sort_keys=True,
+        ))
+    else:
+        print(f"trace diff: {id_a} (baseline) -> {id_b}")
+        print(format_diff(diff))
+    return 3 if diff["regressed"] else 0
+
+
+def cmd_lineage(store: MetadataStore, artifact_id: int) -> int:
+    text = store.format_lineage(artifact_id)
+    print(text)
+    return 1 if text.startswith("<no artifact") else 0
+
+
+def cmd_artifacts(store: MetadataStore, type_name: str) -> int:
+    arts = store.get_artifacts(type_name=type_name or None)
+    if not arts:
+        print("no artifacts", file=sys.stderr)
+        return 1
+    for a in arts:
+        print(f"#{a.id:<5} {a.type_name:<16} [{a.state.value}] {a.uri}")
+    return 0
+
+
+def cmd_run(args) -> int:
+    import logging
+
+    from tpu_pipelines_torch.orchestration import LocalDagRunner
+    from tpu_pipelines_torch.utils.module_loader import load_fn
+
+    if args.from_node or args.to_node:
+        return _unported("run --from-node/--to-node (partial runs)", "A22")
+    if args.resume_from:
+        return _unported("run --resume-from", "A22")
+    if args.lint:
+        return _unported("run --lint (the lint pre-flight)", "A20")
+    logging.basicConfig(level=logging.INFO)
+    params = {}
+    for spec in args.param:
+        name, eq, raw = spec.partition("=")
+        if not eq:
+            print(f"--param needs NAME=VALUE, got {spec!r}")
+            return 2
+        try:
+            params[name] = json.loads(raw)
+        except json.JSONDecodeError:
+            params[name] = raw  # plain string value
+    runner = LocalDagRunner(
+        max_retries=args.max_retries,
+        max_parallel_nodes=args.max_parallel_nodes,
+        device=args.device,
+    )
+    pipeline = load_fn(args.pipeline_module, "create_pipeline")()
+    result = runner.run(
+        pipeline, runtime_parameters=params, raise_on_failure=False,
+    )
+    print(f"run {result.run_id}: "
+          f"{'OK' if result.succeeded else 'FAILED'}")
+    for node_id, nr in result.nodes.items():
+        mark = {"COMPLETE": "done", "CACHED": "cached"}.get(
+            nr.status, nr.status
+        )
+        wall = f" ({nr.wall_clock_s:.1f}s)" if nr.wall_clock_s else ""
+        err = f"  !! {nr.error}" if nr.error else ""
+        print(f"  {node_id}: {mark}{wall}{err}")
+    print(f"metadata: {pipeline.metadata_path}")
+    return 0 if result.succeeded else 1
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m tpu_pipelines_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    p_run = sub.add_parser("run", help="run a pipeline module locally")
+    p_run.add_argument("--pipeline-module", required=True,
+                       help="file defining create_pipeline() -> Pipeline")
+    p_run.add_argument("--param", action="append", default=[],
+                       metavar="NAME=VALUE",
+                       help="runtime parameter override (JSON value or "
+                            "string); repeatable")
+    p_run.add_argument("--max-retries", type=int, default=0)
+    p_run.add_argument("--max-parallel-nodes", type=int, default=None,
+                       help="scheduler worker-pool size (default: DAG root "
+                            "count, or TPP_MAX_PARALLEL_NODES; 1 = strict "
+                            "sequential)")
+    p_run.add_argument("--device", default="cuda",
+                       help="device the pipeline's device nodes run on "
+                            "(default cuda; cpu to run on the CPU)")
+    p_run.add_argument("--from-node", action="append", default=[],
+                       help="partial run (not ported yet: ROADMAP.md A22)")
+    p_run.add_argument("--to-node", action="append", default=[],
+                       help="partial run (not ported yet: ROADMAP.md A22)")
+    p_run.add_argument("--resume-from", default=None, metavar="RUN_ID",
+                       help="resume a crashed run (not ported yet: "
+                            "ROADMAP.md A22)")
+    p_run.add_argument("--lint", default=None, choices=["error", "warn", "off"],
+                       help="lint pre-flight (not ported yet: ROADMAP.md A20)")
+
+    for name, (item, what) in _DEFERRED.items():
+        sub.add_parser(name, help=f"{what} (not ported yet: ROADMAP.md {item})")
+
+    inspect = sub.add_parser("inspect", help="read the metadata store")
+    # On the parent AND each leaf, so both argument orders work.
+    inspect.add_argument("--metadata", default=None,
+                         help="path to the pipeline's metadata sqlite")
+    md_parent = argparse.ArgumentParser(add_help=False)
+    # SUPPRESS: a leaf parse without --metadata must not clobber the value
+    # the parent-level option already set.
+    md_parent.add_argument("--metadata", default=argparse.SUPPRESS)
+    isub = inspect.add_subparsers(dest="what", required=True)
+
+    p_runs = isub.add_parser("runs", parents=[md_parent],
+                             help="runs + per-node duration/state columns")
+    p_runs.add_argument("pipeline", help="pipeline name")
+    p_runs.add_argument("--pipeline-root", default="",
+                        help="pipeline root; adds trace-derived columns "
+                             "(queue wait) from <root>/.runs/<id>/trace")
+    p_runs.add_argument("--json", action="store_true",
+                        help="machine-readable output (one JSON object)")
+
+    p_lin = isub.add_parser("lineage", parents=[md_parent],
+                            help="provenance chain of an artifact")
+    p_lin.add_argument("artifact_id", type=int)
+
+    p_art = isub.add_parser("artifacts", parents=[md_parent],
+                            help="list artifacts")
+    p_art.add_argument("--type", default="", help="filter by artifact type")
+
+    p_trace = sub.add_parser(
+        "trace",
+        help="summarize/export a run's trace, or compare two runs "
+             "(trace diff <a> <b>)",
+    )
+    p_trace.add_argument(
+        "run_id", nargs="+",
+        help="run id or 'latest'; or: diff <run-a> <run-b>",
+    )
+    p_trace.add_argument("--pipeline-root", default="",
+                         help="pipeline root containing .runs/<run-id>/")
+    p_trace.add_argument("--perfetto", default="", metavar="OUT_JSON",
+                         help="write a Chrome/Perfetto trace.json here")
+    p_trace.add_argument("--metrics", default="", metavar="OUT_JSON",
+                         help="write the metrics.json summary here")
+    p_trace.add_argument("--json", action="store_true",
+                         help="machine-readable output (one JSON object)")
+    p_trace.add_argument(
+        "--threshold", type=float, default=0.2,
+        help="diff regression threshold as a fraction (default 0.2 = "
+             "20%% slower flags; exit code 3 on any flag)",
+    )
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in _DEFERRED:
+        return _unported(argv[0], _DEFERRED[argv[0]][0])
+    args = parser.parse_args(argv)
+    if args.cmd == "run":
+        return cmd_run(args)
+    if args.cmd == "trace":
+        return cmd_trace(args)
+    if not args.metadata:
+        inspect.error("the following arguments are required: --metadata")
+    store = MetadataStore(args.metadata)
+    try:
+        if args.what == "runs":
+            return cmd_runs(
+                store, args.pipeline, args.pipeline_root,
+                as_json=args.json,
+            )
+        if args.what == "lineage":
+            return cmd_lineage(store, args.artifact_id)
+        return cmd_artifacts(store, args.type)
+    finally:
+        store.close()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,9 @@ The port's trimmed copy of ``tpu_pipelines/data/shard_plan.py``:
     parameter wins, then the ``TPP_DATA_SHARDS`` env var, then ``host_cpus``
     (capped at ``MAX_DEFAULT_SHARDS``).
   * **How to run per-shard work?**  ``thread_map``: a thread pool, order
-    preserved (numpy reductions and file IO release the GIL).
+    preserved (numpy reductions and file IO release the GIL).  When a run
+    trace is active each task is one ``shard`` span (cat ``data``), which
+    ``compute_metrics`` reads as the pool's skew.
 
 The reference's process pools (``map_shards``, ``map_shards_resilient``
 with per-shard retry and quarantine), its fault hooks and its metric
@@ -19,6 +21,8 @@ import dataclasses
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence, TypeVar
+
+from tpu_pipelines_torch.observability import trace as _obs
 
 ENV_SHARDS = "TPP_DATA_SHARDS"
 # Worker-count override (testing / oversubscribed hosts).
@@ -71,6 +75,26 @@ def _pool_workers(n_tasks: int, workers: Optional[int]) -> int:
     return max(1, min(n_tasks, os.cpu_count() or 1))
 
 
+class _TracedShardFn:
+    """Per-shard wrapper: one ``data.shard`` span per task (applied only
+    when a recorder is active; the wrap is idempotent)."""
+
+    __slots__ = ("fn", "label", "pool")
+
+    def __init__(self, fn: Callable, label: str, pool: str):
+        self.fn = fn
+        self.label = label
+        self.pool = pool
+
+    def __call__(self, indexed):
+        i, task = indexed
+        with _obs.span(
+            "shard", cat="data",
+            args={"label": self.label, "shard": i, "pool": self.pool},
+        ):
+            return self.fn(task)
+
+
 def thread_map(
     fn: Callable[[T], R],
     tasks: Sequence[T],
@@ -78,6 +102,11 @@ def thread_map(
 ) -> List[R]:
     """``[fn(t) for t in tasks]`` through a thread pool, order preserved."""
     workers = _pool_workers(len(tasks), workers)
+    if _obs.active_recorder() is not None and not isinstance(
+        fn, _TracedShardFn
+    ):
+        fn = _TracedShardFn(fn, "thread_map", "thread")
+        tasks = list(enumerate(tasks))
     if len(tasks) <= 1 or workers <= 1:
         return [fn(t) for t in tasks]
     with ThreadPoolExecutor(max_workers=workers) as pool:

@@ -2,8 +2,11 @@
 
 The port's copy of ``tpu_pipelines/metadata/store.py`` (ml-metadata's
 ``MetadataStore``: artifacts, executions, contexts, events in embedded
-SQLite), without the run tracer's spans and the fault-injection hooks.
-The native (C++) backend waits (``ROADMAP.md`` A19).
+SQLite), with the run tracer's ``metadata`` spans around put, publish
+and cache lookups (``compute_metrics`` reads them as ``store_ops``) and
+the lineage queries the ``inspect lineage`` CLI prints; without the
+fault-injection hooks.  The native (C++) backend waits (``ROADMAP.md``
+A19).
 
 Multi-writer discipline: the store is
 crash-consistent and multi-process-safe, so concurrent runners and shard
@@ -51,7 +54,9 @@ from tpu_pipelines_torch.metadata.types import (
     EventType,
     Execution,
     ExecutionState,
+    LineageNode,
 )
+from tpu_pipelines_torch.observability import trace as _obs
 
 class StoreUnavailableError(RuntimeError):
     """The metadata backend cannot serve a request (build timeout, dead
@@ -276,7 +281,9 @@ class MetadataStore:
 
     def put_execution(self, execution: Execution) -> int:
         execution.update_time = time.time()
-        with self._lock, self._plock:
+        with _obs.span(
+            "put_execution", cat="metadata", node=execution.node_id
+        ), self._lock, self._plock:
             if execution.id:
                 self._conn.execute(
                     "UPDATE executions SET type_name=?, node_id=?, state=?, "
@@ -493,7 +500,10 @@ class MetadataStore:
             base_delay_s=self.PUBLISH_RETRY_BASE_S,
             max_delay_s=self.PUBLISH_RETRY_MAX_S,
         )
-        with self._lock:
+        with _obs.span(
+            "publish_execution", cat="metadata", node=execution.node_id,
+            args={"state": execution.state.value},
+        ), self._lock:
             saved_ex_id = execution.id
             saved_art_ids = [
                 (a, a.id)
@@ -583,25 +593,26 @@ class MetadataStore:
         """
         if not cache_key:
             return None
-        exec_id = self._latest_cached_execution_id(cache_key)
-        if not exec_id:
-            return None
-        outputs: Dict[str, List[Artifact]] = {}
-        for ev in self.get_events_by_execution(exec_id):
-            if ev.type != EventType.OUTPUT:
-                continue
-            art = self.get_artifact(ev.artifact_id)
-            if art is None or art.state != ArtifactState.LIVE:
+        with _obs.span("get_cached_outputs", cat="metadata"):
+            exec_id = self._latest_cached_execution_id(cache_key)
+            if not exec_id:
                 return None
-            outputs.setdefault(ev.path, []).append((ev.index, art))
-        if not outputs:
-            # A COMPLETE execution with no recorded outputs is corrupt
-            # state (interrupted legacy publish), never a usable hit.
-            return None
-        return {
-            path: [a for _, a in sorted(pairs, key=lambda p: p[0])]
-            for path, pairs in outputs.items()
-        }
+            outputs: Dict[str, List[Artifact]] = {}
+            for ev in self.get_events_by_execution(exec_id):
+                if ev.type != EventType.OUTPUT:
+                    continue
+                art = self.get_artifact(ev.artifact_id)
+                if art is None or art.state != ArtifactState.LIVE:
+                    return None
+                outputs.setdefault(ev.path, []).append((ev.index, art))
+            if not outputs:
+                # A COMPLETE execution with no recorded outputs is corrupt
+                # state (interrupted legacy publish), never a usable hit.
+                return None
+            return {
+                path: [a for _, a in sorted(pairs, key=lambda p: p[0])]
+                for path, pairs in outputs.items()
+            }
 
     def _latest_cached_execution_id(self, cache_key: str) -> int:
         """Id of the newest COMPLETE execution with this key; 0 = miss."""
@@ -611,3 +622,59 @@ class MetadataStore:
             (cache_key, ExecutionState.COMPLETE.value),
         ).fetchone()
         return row[0] if row else 0
+
+    # ------------------------------------------------------ lineage queries
+
+    def get_lineage(self, artifact_id: int, max_depth: int = 20) -> Optional[LineageNode]:
+        """Provenance tree: artifact <- producing execution <- its inputs <- ..."""
+        art = self.get_artifact(artifact_id)
+        if art is None:
+            return None
+        return self._lineage_node(art, max_depth, seen=set())
+
+    def _lineage_node(self, art: Artifact, depth: int, seen: set) -> LineageNode:
+        if depth <= 0 or art.id in seen:
+            return LineageNode(artifact=art, producer=None, parents=[])
+        seen = seen | {art.id}
+        producer: Optional[Execution] = None
+        parents: List[LineageNode] = []
+        for ev in self.get_events_by_artifact(art.id):
+            if ev.type != EventType.OUTPUT:
+                continue
+            producer = self.get_execution(ev.execution_id)
+            if producer is None:
+                continue
+            for pev in self.get_events_by_execution(producer.id):
+                if pev.type != EventType.INPUT:
+                    continue
+                parent_art = self.get_artifact(pev.artifact_id)
+                if parent_art is not None:
+                    parents.append(
+                        self._lineage_node(parent_art, depth - 1, seen)
+                    )
+            break  # one producer per artifact
+        return LineageNode(artifact=art, producer=producer, parents=parents)
+
+    def format_lineage(self, artifact_id: int) -> str:
+        """Human-readable provenance chain for the lineage CLI."""
+        root = self.get_lineage(artifact_id)
+        if root is None:
+            return f"<no artifact {artifact_id}>"
+        lines: List[str] = []
+
+        def walk(node: LineageNode, indent: int) -> None:
+            a = node.artifact
+            prod = (
+                f"  <- {node.producer.type_name}#{node.producer.id}"
+                f" [{node.producer.state.value}]"
+                if node.producer
+                else ""
+            )
+            lines.append(
+                "  " * indent + f"{a.type_name}#{a.id} @ {a.uri}{prod}"
+            )
+            for p in node.parents:
+                walk(p, indent + 1)
+
+        walk(root, 0)
+        return "\n".join(lines)

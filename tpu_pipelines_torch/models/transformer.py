@@ -16,8 +16,10 @@ The numbers follow the flax modules:
     (:class:`Dropout`).
 
 ``MultiHeadAttention`` runs self- or cross-attention, ``dense`` or
-``flash`` (both differentiable); ``auto`` means dense wherever its score
-temporaries fit in device memory (:func:`choose_attn_impl`).  With a
+``flash`` (both differentiable); ``auto`` means flash where dense
+attention's score temporaries do not fit in device memory or the length
+reaches the crossover measured on this card (:func:`choose_attn_impl`),
+dense otherwise.  With a
 ``decode_pos`` it runs one incremental decode step against a KV cache: a
 plain dict of tensors keyed like the flax ``"cache"`` collection
 (``decoder.layer_0.attn.cached_key``, ``...cross.cached_enc_key``), which
@@ -25,10 +27,12 @@ the step fills on its first call and then writes into IN PLACE at the
 step's position (no copy of the whole cache per layer per step; a write
 through a slice of a larger arena lands in the arena).  Its self-attention
 takes ``flash`` (the flash-decode kernel) or ``dense``; ``auto`` in the
-decode regime means dense until a crossover is measured on the card
-(:func:`choose_decode_impl`).  The measured training crossover waits for
-the autotune port; the speculative-verify window, ring/Ulysses attention
-and the mixture-of-experts MLP wait for their slices.
+decode regime means flash at or above the decode crossover measured on
+the card and dense otherwise (:func:`choose_decode_impl`).  Both rules
+read ``ops/autotune.py``'s table, keyed by the device's kind, with no
+device call, so they can sit inside a CUDA-graph capture.  The
+speculative-verify window, ring/Ulysses attention and the
+mixture-of-experts MLP wait for their slices.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_pipelines_torch.ops import autotune
 from tpu_pipelines_torch.ops.flash_attention import (
     flash_attention,
     flash_decode_attention,
@@ -96,22 +101,35 @@ def choose_attn_impl(
     itemsize: int = 2,
     device: Optional[torch.device] = None,
 ) -> str:
-    """The "auto" rule: "flash" when dense attention's temporaries do not
-    fit, else "dense".  (The reference also consults a measured crossover
-    from its autotune table; the port has none yet.)"""
+    """The "auto" rule, the reference's: "flash" when dense attention's
+    temporaries do not fit on ``device``; else "flash" at or above the
+    crossover measured for the device's kind
+    (``autotune.lookup_crossover``); else "dense" (never measured, or
+    measured none: the kernel must earn the hot path)."""
     if not dense_attn_fits(batch, heads, seq_q, seq_kv, itemsize, device):
+        return "flash"
+    crossover = autotune.lookup_crossover(autotune.current_device_kind(device))
+    if crossover is not None and max(seq_q, seq_kv) >= crossover:
         return "flash"
     return "dense"
 
 
 def choose_decode_impl(
-    batch: int, heads: int, kv_len: int, head_dim: int
+    batch: int,
+    heads: int,
+    kv_len: int,
+    head_dim: int,
+    device: Optional[torch.device] = None,
 ) -> str:
-    """The "auto" rule for the single-query decode regime.  The reference
-    picks flash at or above a crossover cache length measured on its device
-    and dense without one; no crossover has been measured on the card yet,
-    so this is "dense" (the kernel must earn the hot path)."""
-    del batch, heads, kv_len, head_dim
+    """The "auto" rule for the single-query decode regime: "flash" at or
+    above the decode crossover measured for the device's kind
+    (``autotune.lookup_decode_crossover``), "dense" below it or without
+    one.  A decode step's scores are tiny, so there is no memory guard."""
+    del batch, heads, head_dim  # keyed by device kind and cache length only
+    crossover = autotune.lookup_decode_crossover(
+        autotune.current_device_kind(device))
+    if crossover is not None and kv_len >= crossover:
+        return "flash"
     return "dense"
 
 
@@ -359,7 +377,8 @@ class MultiHeadAttention(nn.Module):
             valid = (positions <= pos)[None, :].expand(b, kv_len)
         impl = self.attn_impl
         if impl == "auto":
-            impl = choose_decode_impl(b, self.n_heads, kv_len, self.head_dim)
+            impl = choose_decode_impl(b, self.n_heads, kv_len, self.head_dim,
+                                      device=q.device)
         if impl == "flash":
             out = flash_decode_attention(q, ck, cv, kv_mask=valid, bias=bias)
         else:

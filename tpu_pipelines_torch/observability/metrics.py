@@ -6,12 +6,15 @@ the model server's ``GET /metrics`` route, the micro-batcher and the train
 loop publish (the loop into :func:`default_registry`).
 Stdlib only; one registry lock serializes every update and the
 exposition snapshot; exposition follows the Prometheus text format
-v0.0.4.  The standalone metrics server, fork-pool snapshot/merge and
-federation wait for later slices.
+v0.0.4.  :class:`MetricsServer` / :func:`start_http_server` serve a
+registry's ``GET /metrics`` and ``GET /healthz`` (the runner's opt-in
+``TPP_METRICS_PORT``).  Fork-pool snapshot/merge and federation wait for
+ROADMAP.md A8b.
 """
 
 from __future__ import annotations
 
+import json
 import math
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -21,9 +24,11 @@ __all__ = [
     "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "MetricsServer",
     "default_registry",
     "fine_latency_buckets",
     "latency_buckets",
+    "start_http_server",
 ]
 
 CONTENT_TYPE_LATEST = "text/plain; version=0.0.4; charset=utf-8"
@@ -408,3 +413,98 @@ _DEFAULT = MetricsRegistry()
 def default_registry() -> MetricsRegistry:
     """The process-wide registry every layer publishes into by default."""
     return _DEFAULT
+
+
+# --------------------------------------------------- the /metrics server
+
+
+class MetricsServer:
+    """Background stdlib HTTP server: ``GET /metrics`` (Prometheus text)
+    and ``GET /healthz`` (JSON from ``health_fn``, 503 when unhealthy).
+
+    Exists ONLY when explicitly started (the runner's opt-in
+    ``TPP_METRICS_PORT``); nothing in this module opens a socket
+    otherwise.
+    """
+
+    def __init__(
+        self,
+        registry: MetricsRegistry,
+        port: int = 0,
+        host: str = "127.0.0.1",
+        health_fn: Optional[Callable[[], Dict[str, Any]]] = None,
+    ):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        server = self
+        self.registry = registry
+        self.health_fn = health_fn
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):  # quiet: scrapes are chatty
+                pass
+
+            def _reply(self, code: int, body: bytes, ctype: str) -> None:
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/metrics":
+                    self._reply(
+                        200,
+                        server.registry.to_prometheus().encode("utf-8"),
+                        CONTENT_TYPE_LATEST,
+                    )
+                elif self.path == "/healthz":
+                    health = (
+                        server.health_fn() if server.health_fn
+                        else {"healthy": True}
+                    )
+                    code = 200 if health.get("healthy", True) else 503
+                    self._reply(
+                        code,
+                        json.dumps(health).encode("utf-8"),
+                        "application/json",
+                    )
+                else:
+                    self._reply(
+                        404,
+                        json.dumps(
+                            {"error": f"unknown path {self.path}"}
+                        ).encode("utf-8"),
+                        "application/json",
+                    )
+
+        class Httpd(ThreadingHTTPServer):
+            daemon_threads = True
+
+        self._httpd = Httpd((host, port), Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever,
+            name="tpp-metrics",
+            daemon=True,
+        )
+        self._thread.start()
+
+    def close(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=5)
+
+
+def start_http_server(
+    registry: Optional[MetricsRegistry] = None,
+    port: int = 0,
+    host: str = "127.0.0.1",
+    health_fn: Optional[Callable[[], Dict[str, Any]]] = None,
+) -> MetricsServer:
+    """Serve ``registry`` (default: the process registry) on ``port``
+    (0 = ephemeral; read the bound port off the returned server)."""
+    return MetricsServer(
+        registry or default_registry(), port=port, host=host,
+        health_fn=health_fn,
+    )

@@ -25,17 +25,30 @@ The device is resolved once, in the constructor (``device="cuda"`` unless
 the caller asks for the CPU; without CUDA it raises, naming the device),
 and reaches every executor as ``ctx.extras["device"]``.
 
+Every run is traced as the reference's is (``observability/trace.py``):
+``<pipeline_root>/.runs/<run_id>/trace/events.jsonl`` gets the run's
+``run_start`` / ``run_end``, a ``node`` span per node (status, queue and
+device-gate waits, upstreams, execution id), the ``driver``,
+``executor``, ``fingerprint`` and ``publish`` spans, ``cache_hit`` /
+``cache_miss`` and ``retry`` instants, the metadata store's spans, the
+data plane's shard spans and the train loop's summaries; ``TPP_TRACE=0``
+turns all of it off and creates no file.  Log records carry the run and
+node ids.  :class:`_RunTelemetry` publishes the ``pipeline_nodes_*``
+gauges, per-node heartbeats and ``pipeline_run_info`` into the process
+registry, and with ``TPP_METRICS_PORT`` serves ``/metrics`` and
+``/healthz`` for the run's length.
+
 Not ported, and refused with ``NotImplementedError`` naming the
 ``ROADMAP.md`` item: ``spmd_sync`` multi-process runs (A10); the XLA
 compile cache (no counterpart: the port's kernels build once per checkout);
-the run trace and the run-progress telemetry server (A17); the lint
-pre-flight (A20); Resolver nodes and Cond (A18); ``resume_from``, partial
-runs and node deadlines (A22); metric federation and fault injection (A10,
-A22).
+the lint pre-flight (A20); Resolver nodes and Cond (A18); ``resume_from``,
+partial runs and node deadlines (A22); metric federation (A8b) and fault
+injection (A10, A22).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -58,6 +71,7 @@ from tpu_pipelines_torch.dsl.component import ExecutorContext
 from tpu_pipelines_torch.dsl.pipeline import Pipeline
 from tpu_pipelines_torch.metadata import open_store
 from tpu_pipelines_torch.metadata.store import MetadataStore, StoreUnavailableError
+from tpu_pipelines_torch.observability import trace as _trace
 from tpu_pipelines_torch.metadata.types import (
     Artifact,
     Context,
@@ -84,6 +98,100 @@ class PipelineRunError(RuntimeError):
     def __init__(self, message: str, result: "RunResult"):
         super().__init__(message)
         self.result = result
+
+
+class _RunTelemetry:
+    """Live run-progress telemetry for one pipeline run.
+
+    Publishes nodes pending/running/done/failed gauges, per-node dispatch
+    heartbeats and a run info metric into the process metrics registry,
+    and with ``TPP_METRICS_PORT`` serves them (``/metrics`` and
+    ``/healthz``) for the run's length.  Best-effort: a taken port logs a
+    warning and the run proceeds unobserved.
+    """
+
+    def __init__(self, pipeline_name: str, run_id: str):
+        from tpu_pipelines_torch.observability.metrics import default_registry
+
+        reg = default_registry()
+        self._g_pending = reg.gauge(
+            "pipeline_nodes_pending", "Nodes not yet dispatched.",
+        )
+        self._g_running = reg.gauge(
+            "pipeline_nodes_running", "Nodes currently executing.",
+        )
+        self._g_done = reg.gauge(
+            "pipeline_nodes_done",
+            "Nodes settled successfully (COMPLETE/CACHED/skips).",
+        )
+        self._g_failed = reg.gauge(
+            "pipeline_nodes_failed", "Nodes settled FAILED.",
+        )
+        self._g_heartbeat = reg.gauge(
+            "pipeline_node_heartbeat_ts",
+            "Wall-clock (epoch s) of the node's last scheduler event "
+            "(dispatch or settle).",
+            labels=("node",),
+        )
+        self._c_dispatch = reg.counter(
+            "pipeline_node_dispatch_total",
+            "Executor dispatches per node (retries re-count).",
+            labels=("node",),
+        )
+        reg.gauge(
+            "pipeline_run_info",
+            "1 for the currently running pipeline run.",
+            labels=("pipeline", "run_id"),
+        ).labels(pipeline_name, run_id).set(1)
+        self._failed = 0
+        self._server = None
+        self._info = {"pipeline": pipeline_name, "run_id": run_id}
+        port = os.environ.get("TPP_METRICS_PORT", "").strip()
+        if port and port != "0":
+            from tpu_pipelines_torch.observability.metrics import (
+                start_http_server,
+            )
+
+            try:
+                self._server = start_http_server(
+                    reg, port=int(port), health_fn=self._health
+                )
+                log.info(
+                    "metrics server on :%d (/metrics, /healthz)",
+                    self._server.port,
+                )
+            except (OSError, ValueError) as e:
+                log.warning(
+                    "TPP_METRICS_PORT=%s: metrics server not started: %s",
+                    port, e,
+                )
+
+    def _health(self) -> Dict[str, Any]:
+        return {
+            "healthy": self._failed == 0,
+            **self._info,
+            "nodes_failed": self._failed,
+        }
+
+    def progress(self, pending: int, running: int, result: "RunResult") -> None:
+        failed = sum(
+            1 for nr in result.nodes.values() if nr.status == "FAILED"
+        )
+        self._failed = failed
+        self._g_pending.set(pending)
+        self._g_running.set(running)
+        self._g_done.set(len(result.nodes) - failed)
+        self._g_failed.set(failed)
+
+    def heartbeat(self, node_id: str, dispatched: bool = False) -> None:
+        self._g_heartbeat.labels(node_id).set(time.time())
+        if dispatched:
+            self._c_dispatch.labels(node_id).inc()
+
+    def close(self) -> None:
+        if self._server is not None:
+            self._server.close()
+            self._server = None
 
 
 @dataclasses.dataclass
@@ -196,25 +304,55 @@ class LocalDagRunner:
         store = open_store(pipeline.metadata_path)
         try:
             run_id = run_id or f"{pipeline.name}-{int(time.time() * 1000)}"
+            dag_fp = ir.fingerprint()
             pipeline_ctx = Context("pipeline", pipeline.name)
             run_ctx = Context(
                 "pipeline_run", f"{pipeline.name}.{run_id}",
-                properties={"run_id": run_id,
-                            "dag_fingerprint": ir.fingerprint()},
+                properties={"run_id": run_id, "dag_fingerprint": dag_fp},
             )
             store.put_context(pipeline_ctx)
             store.put_context(run_ctx)
+            _trace.install_log_correlation()
+            _trace.set_run_id(run_id)
+            recorder = _trace.TraceRecorder.maybe_create(
+                _trace.run_trace_dir(ir.pipeline_root, run_id), run_id
+            )
             result = RunResult(pipeline_name=pipeline.name, run_id=run_id)
             result.max_parallel_nodes = self._effective_parallelism(ir)
             node_extras = dict(extras or {})
             node_extras["device"] = str(self.device)
-            self._run_nodes(
-                store=store, ir=ir, executors=executors, result=result,
-                runtime_parameters=dict(runtime_parameters or {}),
-                contexts=[pipeline_ctx, run_ctx], extras=node_extras,
-                enable_cache=pipeline.enable_cache,
-                max_workers=result.max_parallel_nodes,
-            )
+            telemetry = _RunTelemetry(pipeline.name, run_id)
+            if recorder:
+                recorder.instant(
+                    "run_start", cat="run",
+                    args={
+                        "pipeline": pipeline.name,
+                        "max_parallel_nodes": result.max_parallel_nodes,
+                        "resume_from": "",
+                        "adopted": [],
+                        "dag_fingerprint": dag_fp,
+                    },
+                )
+            try:
+                with _trace.activate(recorder):
+                    self._run_nodes(
+                        store=store, ir=ir, executors=executors,
+                        result=result,
+                        runtime_parameters=dict(runtime_parameters or {}),
+                        contexts=[pipeline_ctx, run_ctx], extras=node_extras,
+                        enable_cache=pipeline.enable_cache,
+                        telemetry=telemetry,
+                        max_workers=result.max_parallel_nodes,
+                    )
+                if recorder:
+                    recorder.instant(
+                        "run_end", cat="run",
+                        args={"succeeded": result.succeeded},
+                    )
+            finally:
+                telemetry.close()
+                if recorder:
+                    recorder.close()
         finally:
             store.close()
         if raise_on_failure and not result.succeeded:
@@ -274,14 +412,16 @@ class LocalDagRunner:
 
     def _run_nodes(
         self, *, store, ir, executors, result, runtime_parameters, contexts,
-        extras, enable_cache, max_workers: int,
+        extras, enable_cache, telemetry, max_workers: int,
     ) -> None:
         """Ready-set scheduler: dispatch any node whose upstreams have all
         settled, lowest topo index first; executors run in a worker pool
         while the driver (and so execution-id/URI assignment) stays in this
         thread.  At most one "tpu" node is in flight at a time.  A failing
         node marks its descendants FAILED without cancelling in-flight or
-        independent work."""
+        independent work.  Each node's ``node`` span runs from its dispatch
+        to its settle; queue wait is dispatch less the moment it became
+        ready, gate wait the time it waited for the device."""
         publish_lock = threading.Lock()
         unprocessed = [n.id for n in ir.nodes]  # stays in topo order
         by_id = {n.id: n for n in ir.nodes}
@@ -291,6 +431,29 @@ class LocalDagRunner:
         in_flight: set = set()
         tpu_in_flight: Optional[str] = None
         done_q: "queue_mod.Queue" = queue_mod.Queue()
+        rec = _trace.active_recorder()
+        ready_at: Dict[str, tuple] = {}         # nid -> (wall, mono)
+        gate_blocked_at: Dict[str, float] = {}  # nid -> mono
+        dispatch_info: Dict[str, tuple] = {}    # nid -> (wall, mono, qw, gw)
+
+        def emit_node(nr: NodeResult, t0: tuple, queue_wait: float,
+                      gate_wait: float) -> None:
+            telemetry.heartbeat(nr.node_id)  # settle heartbeat
+            if rec is None:
+                return
+            wall0, mono0 = t0
+            rec.complete(
+                "node", "scheduler", nr.node_id, wall0, mono0,
+                time.monotonic() - mono0,
+                args={
+                    "status": nr.status,
+                    "execution_id": nr.execution_id,
+                    "retries": nr.retries,
+                    "queue_wait_s": round(queue_wait, 6),
+                    "gate_wait_s": round(gate_wait, 6),
+                    "upstream": list(by_id[nr.node_id].upstream),
+                },
+            )
 
         def settle(nr: NodeResult) -> None:
             result.nodes[nr.node_id] = nr
@@ -302,8 +465,13 @@ class LocalDagRunner:
 
         def worker(plan: _LaunchPlan) -> None:
             try:
-                nr = self._execute_and_publish(
-                    store, plan, extras, publish_lock)
+                # Worker threads have fresh contextvar contexts: stamp the
+                # run/node ids so this thread's log records are attributable.
+                with _trace.node_log_context(
+                    plan.node.id, rec.run_id if rec else ""
+                ):
+                    nr = self._execute_and_publish(
+                        store, plan, extras, publish_lock)
             except Exception:
                 # Runner-internal failure: settle the node as FAILED instead
                 # of deadlocking the scheduler on a completion that never
@@ -318,6 +486,7 @@ class LocalDagRunner:
             max_workers=max_workers, thread_name_prefix="tpp-node"
         ) as pool:
             while unprocessed or in_flight:
+                telemetry.progress(len(unprocessed), len(in_flight), result)
                 progressed = False
                 # With a single worker, hold back later nodes until the
                 # in-flight one settles (the sequential loop's order).
@@ -329,17 +498,29 @@ class LocalDagRunner:
                     node = by_id[nid]
                     if any(u not in settled for u in node.upstream):
                         continue
+                    if nid not in ready_at:
+                        ready_at[nid] = (time.time(), time.monotonic())
                     if any(u in failed for u in node.upstream):
-                        settle(NodeResult(
+                        nr = NodeResult(
                             node_id=nid, status="FAILED",
-                            error="upstream failure"))
+                            error="upstream failure")
+                        settle(nr)
                         unprocessed.remove(nid)
                         progressed = True
+                        emit_node(nr, ready_at[nid], 0.0, 0.0)
                         continue
                     if len(in_flight) >= max_workers:
                         continue
                     if node.resource_class == "tpu" and tpu_in_flight:
-                        continue  # the device is busy; host nodes may go
+                        # the device is busy; host nodes may go
+                        gate_blocked_at.setdefault(nid, time.monotonic())
+                        continue
+                    dispatch_wall, dispatch_mono = time.time(), time.monotonic()
+                    queue_wait = dispatch_mono - ready_at[nid][1]
+                    gate_wait = (
+                        dispatch_mono - gate_blocked_at.pop(nid)
+                        if nid in gate_blocked_at else 0.0
+                    )
                     try:
                         prepared = self._prepare_node(
                             store, ir, node, executors[nid], produced,
@@ -355,10 +536,16 @@ class LocalDagRunner:
                     progressed = True
                     if isinstance(prepared, NodeResult):
                         settle(prepared)  # cache hit or driver failure
+                        emit_node(prepared, (dispatch_wall, dispatch_mono),
+                                  queue_wait, gate_wait)
                         continue
                     in_flight.add(nid)
+                    dispatch_info[nid] = (
+                        dispatch_wall, dispatch_mono, queue_wait, gate_wait
+                    )
                     if node.resource_class == "tpu":
                         tpu_in_flight = nid
+                    telemetry.heartbeat(nid, dispatched=True)
                     pool.submit(worker, prepared)
                 if progressed:
                     continue
@@ -371,6 +558,9 @@ class LocalDagRunner:
                 if tpu_in_flight == nr.node_id:
                     tpu_in_flight = None
                 settle(nr)
+                dw, dm, qw, gw = dispatch_info.pop(nr.node_id)
+                emit_node(nr, (dw, dm), qw, gw)
+            telemetry.progress(len(unprocessed), len(in_flight), result)
 
     def _prepare_node(
         self,
@@ -387,8 +577,23 @@ class LocalDagRunner:
         """DRIVER phase: input resolution, cache check, and on a cache miss
         RUNNING-execution registration and output allocation.  Returns a
         NodeResult for nodes finished without an executor (cache hit,
-        driver failure), else a _LaunchPlan."""
+        driver failure), else a _LaunchPlan.  Traced as the ``driver``
+        span."""
         t0 = time.time()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_trace.node_log_context(node.id))
+            stack.enter_context(
+                _trace.span("driver", cat="scheduler", node=node.id)
+            )
+            return self._prepare_node_inner(
+                store, ir, node, component, produced, runtime_parameters,
+                contexts, enable_cache, publish_lock, t0,
+            )
+
+    def _prepare_node_inner(
+        self, store, ir, node, component, produced, runtime_parameters,
+        contexts, enable_cache, publish_lock, t0,
+    ):
         node_ctx = Context("node", f"{ir.name}.{node.id}")
         with publish_lock:
             store.put_context(node_ctx)
@@ -447,6 +652,10 @@ class LocalDagRunner:
             with publish_lock:
                 store.publish_execution(ex, inputs, cached, all_ctx)
             log.info("node %s: cache hit (execution %d)", node.id, ex.id)
+            _trace.instant(
+                "cache_hit", cat="scheduler", node=node.id,
+                args={"execution_id": ex.id},
+            )
             return NodeResult(
                 node_id=node.id,
                 status="CACHED",
@@ -455,6 +664,8 @@ class LocalDagRunner:
                 wall_clock_s=time.time() - t0,
             )
 
+        if enable_cache:
+            _trace.instant("cache_miss", cat="scheduler", node=node.id)
         ex = Execution(
             type_name=node.component_type,
             node_id=node.id,
@@ -521,7 +732,13 @@ class LocalDagRunner:
                         tmp_dir=tmp,
                         extras=dict(extras),
                     )
-                    extra_props = dict(executor(ctx) or {})
+                    with _trace.span(
+                        "executor", cat="executor", node=node.id,
+                        args={"attempt": attempts},
+                    ) as tsp:
+                        ret = executor(ctx)
+                        tsp["ok"] = True
+                    extra_props = dict(ret or {})
                     error = ""
                     break
                 except Exception as exc:
@@ -543,6 +760,14 @@ class LocalDagRunner:
                             break
                         delay = min(delay, remaining)
                     record_retry(f"node:{node.id}")
+                    _trace.instant(
+                        "retry", cat="executor", node=node.id,
+                        args={
+                            "attempt": attempts,
+                            "backoff_s": round(delay, 4),
+                            "error_kind": type(exc).__name__,
+                        },
+                    )
                     if delay > 0:
                         time.sleep(delay)
                     attempts += 1
@@ -564,12 +789,13 @@ class LocalDagRunner:
                 node_id=node.id, status="FAILED", execution_id=ex.id,
                 error=error, wall_clock_s=wall, retries=attempts - 1,
             )
-        for arts in outputs.values():
-            for a in arts:
-                a.fingerprint = (
-                    plan.external_fps.get(os.path.abspath(a.uri))
-                    or fingerprint_dir(a.uri)
-                )
+        with _trace.span("fingerprint", cat="executor", node=node.id):
+            for arts in outputs.values():
+                for a in arts:
+                    a.fingerprint = (
+                        plan.external_fps.get(os.path.abspath(a.uri))
+                        or fingerprint_dir(a.uri)
+                    )
         ex.state = ExecutionState.COMPLETE
         publish_err = self._publish(store, plan, publish_lock)
         if publish_err is not None:
@@ -592,7 +818,10 @@ class LocalDagRunner:
         """Publish the plan's execution; an error string when the store is
         unavailable (the caller records a node failure), else None."""
         try:
-            with publish_lock:
+            with _trace.span(
+                "publish", cat="executor", node=plan.node.id,
+                args={"state": plan.execution.state.value},
+            ), publish_lock:
                 store.publish_execution(
                     plan.execution, plan.inputs, plan.outputs, plan.all_ctx
                 )

@@ -1,5 +1,13 @@
-"""A cross-process writer lock (the port's copy of ``FileLock`` from
-``tpu_pipelines/robustness/atomic.py``).
+"""Crash-consistent file primitives (the port's copy of
+``tpu_pipelines/robustness/atomic.py``): atomic writes and a cross-process
+writer lock.
+
+:func:`atomic_write_bytes` / :func:`atomic_write_json` write to a temp file
+in the same directory, ``fsync`` it, then ``os.replace`` it over the
+destination: a reader sees the old file or the new one, never a torn one.
+:func:`load_json_tolerant` is the read side: None for a missing or torn
+file.  The autotune table (``ops/autotune.py``) is written and read with
+them.
 
 :class:`FileLock` is an ``fcntl.flock``-based inter-process mutex on an
 EXISTING path (the metadata SQLite file itself), so it adds no file: no
@@ -11,9 +19,72 @@ serialize their transactions instead of racing into ``SQLITE_BUSY``.
 
 from __future__ import annotations
 
+import json
 import os
+import tempfile
 import threading
-from typing import Optional
+from typing import Any, Optional
+
+
+def fsync_dir(path: str) -> None:
+    """Best-effort fsync of a directory (rename durability on POSIX)."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def atomic_write_bytes(path: str, data: bytes, do_fsync: bool = True) -> None:
+    """Write ``data`` to ``path`` atomically: temp file in the same
+    directory + fsync + rename."""
+    parent = os.path.dirname(os.path.abspath(path)) or "."
+    fd, tmp = tempfile.mkstemp(
+        prefix=f".{os.path.basename(path)}.", suffix=".tmp", dir=parent
+    )
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+            if do_fsync:
+                f.flush()
+                os.fsync(f.fileno())
+        os.replace(tmp, path)
+        if do_fsync:
+            fsync_dir(parent)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def atomic_write_json(path: str, obj: Any, do_fsync: bool = True) -> None:
+    atomic_write_bytes(
+        path,
+        (json.dumps(obj, sort_keys=True) + "\n").encode("utf-8"),
+        do_fsync=do_fsync,
+    )
+
+
+def load_json_tolerant(path: str) -> Optional[Any]:
+    """Parse a JSON control file; None for a missing, empty or torn one."""
+    try:
+        with open(path, "r", encoding="utf-8") as f:
+            raw = f.read()
+    except OSError:
+        return None
+    if not raw.strip():
+        return None
+    try:
+        return json.loads(raw)
+    except ValueError:
+        return None
 
 
 class FileLock:
