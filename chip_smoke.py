@@ -155,7 +155,7 @@ Phases (any failure raises and the script exits non-zero):
      examples/s and accuracy, a replayed step's idle share;
  11. t5_dag — the T5-small seq2seq DAG (``examples/t5_pipeline.py``, its
      BulkInferrer beam-decoding the raw eval split, beam 4, 32 steps,
-     batch 64) at T5_SMALL with ``attn_impl "auto"``, 100 steps, over
+     batch 64) at T5_SMALL with ``attn_impl "auto"``, T5_DAG_STEPS steps, over
      T5_DAG_PAIRS made-up pairs: every node COMPLETE, a rerun all cache
      hits; the Trainer (dense: T5's self-attention carries a relative
      bias) launches nothing, one capture, no compile after warm-up; one
@@ -166,7 +166,46 @@ Phases (any failure raises and the script exits non-zero):
      from the materialized rows == the node's rows; where the kernel
      decodes, the first batch's teacher-forced logits against dense
      decode attention within DECODE_LOGIT_TOL, the two controls outside
-     it.
+     it;
+ 12. retrain_dag — retraining against production at BERT_BASE through
+     the CLI: RETRAIN_PIPELINE (ImportExampleGen over TFRecord spans of
+     made-up reviews, ``{SPAN}``, every crc checked -> StatisticsGen ->
+     SchemaGen -> Transform with the production model's vocabulary; an
+     Importer of the bert_dag phase's model warm-starting the Trainer,
+     RETRAIN_STEPS steps; a latest-blessed Resolver as the Evaluator's
+     baseline; the Pusher inside ``Cond(deploy == True)``).  Run 1 (span
+     1, deploy): the Resolver resolves nothing, the Evaluator blesses on
+     its value threshold, the Trainer starts from the imported weights bit
+     for bit, the push carries ``training_statistics_uri``.  Run 2 (span 2
+     added, no deploy): re-ingested, run 1's model resolved by artifact
+     id and evaluated as the baseline, the Pusher COND_SKIPPED, nothing
+     pushed.  A warm rerun: every executor node a cache hit, no launch, the
+     Resolver run again, the skip replayed.  Launches read inside the
+     runner (12 x steps each backward kernel; 12 x (steps + the Trainer's
+     eval batches + the Evaluator's passes x batches) forwards), the
+     candidate's logits against dense attention with a shifted-mask
+     control; report node seconds, ingest rows/s, losses, accuracy;
+ 13. fleet_guard — the BERT fleet of phase 5 with the post-deploy guards
+     (SLO monitor every GUARD_MONITOR_S, every request sampled into
+     GUARD_WINDOW_S drift windows, TPP_SWAP_PROBATION_S=GUARD_PROBATION_S):
+     boots on the production model (its first batch captures its
+     buckets; flash_fwd 12 x batches), hot-swaps under load to run 1's
+     pushed payload (captured at its canary); a control window of unseen
+     reviews scores quiet against the payload's training statistics, a
+     flood of GUARD_CAMPAIGN texts breaches skew, ``python -m
+     tpu_pipelines_torch drift`` reports both; DEVICE_ERROR on every
+     replica makes the 5xx burn breach inside the probation window: the
+     fleet rolls back to the production model (its graphs replay, nothing
+     captured, each bucket == eager bit for bit), counts it, quarantines
+     the new version (``:reload`` 409, listed in ``health()``), and
+     ``clear_quarantine`` re-admits it; a breach after the re-admitting
+     swap's probation ran out rolls nothing back.  Every reply outside the
+     fault is 200 and within LOGIT_TOL of dense attention (a wrong-mask
+     control above); report the boot's p50, slowest reply and replies
+     over the SLO, the monitor's latency burn at the swap and at the
+     rollback, the seconds from the first bad reply to the rollback, and
+     served examples/s over alternating rounds with the sampler on and
+     off.
 
 After the last phase it prints the whole script's seconds.  The last
 three lines are the ``kernels`` JSON record, the card's name and
@@ -205,6 +244,7 @@ from tpu_pipelines_torch.models.bert import (
     build_bert_model,
     init_bert_weights,
 )
+from tpu_pipelines_torch.observability.drift import DEFAULT_DRIFT_THRESHOLD
 from tpu_pipelines_torch.observability.metrics import default_registry
 from tpu_pipelines_torch.ops import _build
 from tpu_pipelines_torch.ops import flash_attention as fa
@@ -2280,8 +2320,9 @@ def engine_long_phase(loaded, seed, card):
 # ------------------------------------------------------------------ taxi DAG
 
 # Cut from a deployment's months of trips so that the whole script, with
-# the fleet phase and the two pipeline DAGs, stays near 360 s on an H100.
-TAXI_ROWS = 250_000
+# the fleet phases and the pipeline DAGs, stays within about 330 s on an
+# H100 (250,000 rows until the retrain and fleet_guard phases came).
+TAXI_ROWS = 150_000
 TAXI_SAMPLE = os.path.join(REPO, "tests", "testdata", "taxi_sample.csv")
 # Share of empty fields in the made CSV's trip_start_hour (a null int:
 # NaN after the read, bucketized past the last boundary) and company (an
@@ -2664,33 +2705,48 @@ def made_up_words(rng, n):
     return list(rng.permutation(sorted(words)))
 
 
-def quoted_text(i, text, lead):
-    """Every tenth field holds a comma and every thirteenth doubled quotes
-    after ``lead``, so the CSV's quoted fields are parsed, not split."""
+def review_text(i, text, lead):
+    """Every tenth review holds a comma and every thirteenth a quotation
+    after ``lead``, so a CSV of them has quoted fields to parse."""
     if i % 10 == 0:
         text = text.replace(" ", ", ", 1)
     if i % 13 == 0:
-        text = f'{lead} ""{text}""'
-    return f'"{text}"'
+        text = f'{lead} "{text}"'
+    return text
+
+
+def quoted_text(i, text, lead):
+    """``review_text`` as a quoted CSV field (inner quotes doubled)."""
+    return '"' + review_text(i, text, lead).replace('"', '""') + '"'
+
+
+def review_rows(seed, rows, part=0, lexicon=BERT_LEXICON):
+    """``rows`` (text, label) reviews: 8-60 words from a made-up lexicon of
+    ``lexicon`` words, BERT_CUES of them from the label's own 20 words (a
+    real review corpus is not on the machine).  The lexicon comes from
+    ``seed``; ``part`` > 0 draws other rows over the same lexicon."""
+    rng = np.random.default_rng(seed)
+    words = made_up_words(rng, lexicon)
+    cues = (np.asarray(words[:20]), np.asarray(words[20:40]))
+    filler = np.asarray(words[40:])
+    if part:
+        rng = np.random.default_rng([seed, part])
+    labels = rng.integers(0, 2, rows)
+    lengths = rng.integers(8, 61, rows)
+    out = []
+    for i in range(rows):
+        picked = rng.choice(filler, lengths[i])
+        at = rng.choice(lengths[i], BERT_CUES, replace=False)
+        picked[at] = rng.choice(cues[labels[i]], BERT_CUES)
+        out.append((" ".join(picked), int(labels[i])))
+    return out
 
 
 def reviews_csv(path, seed, rows):
-    """``text,label`` reviews made from ``seed``: 8-60 words from a made-up
-    lexicon of BERT_LEXICON words, BERT_CUES of them from the label's own 20
-    words (a real review corpus is not on the machine)."""
-    rng = np.random.default_rng(seed)
-    lexicon = made_up_words(rng, BERT_LEXICON)
-    cues = (np.asarray(lexicon[:20]), np.asarray(lexicon[20:40]))
-    filler = np.asarray(lexicon[40:])
-    labels = rng.integers(0, 2, rows)
-    lengths = rng.integers(8, 61, rows)
+    """``text,label`` reviews made from ``seed`` (``review_rows``)."""
     lines = ["text,label"]
-    for i in range(rows):
-        words = rng.choice(filler, lengths[i])
-        at = rng.choice(lengths[i], BERT_CUES, replace=False)
-        words[at] = rng.choice(cues[labels[i]], BERT_CUES)
-        lines.append(f"{quoted_text(i, ' '.join(words), 'she wrote')},"
-                     f"{labels[i]}")
+    for i, (text, label) in enumerate(review_rows(seed, rows)):
+        lines.append(f"{quoted_text(i, text, 'she wrote')},{label}")
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
 
@@ -2806,14 +2862,16 @@ def save_seconds(name, seen, card):
     return saves
 
 
-def node_props(base, nodes):
+def node_props(base, result):
+    """Each node's execution properties in ``result`` (a RunResult), read
+    from the pipeline's store ({} for a node with no execution)."""
     from tpu_pipelines_torch.metadata import open_store
 
     store = open_store(os.path.join(base, "metadata.sqlite"))
     try:
-        return {n: [e for e in store.get_executions(node_id=n)
-                    if e.state.value == "COMPLETE"][-1].properties
-                for n in nodes}
+        return {n: (store.get_execution(nr.execution_id).properties
+                    if nr.execution_id else {})
+                for n, nr in result.nodes.items()}
     finally:
         store.close()
 
@@ -2922,7 +2980,7 @@ def bert_dag_phase(seed, card, workdir):
     BERT_BASE, the Trainer's ``attn_impl "auto"`` choosing by the crossover
     measured on this card, cold then warm, traced and read back with
     ``trace latest`` and ``inspect runs``.  Returns each kernel's launches
-    in the cold run."""
+    in the cold run and its Trainer's model."""
     from tpu_pipelines_torch.components.evaluator import evaluate_payload
     from tpu_pipelines_torch.data import examples_io
     from tpu_pipelines_torch.data.input_pipeline import BatchIterator, InputConfig
@@ -3010,7 +3068,7 @@ def bert_dag_phase(seed, card, workdir):
           f"({overhead_s / cold_s:.2e} of the cold wall); scraped "
           f"{', '.join(found)} on :{port} during the run; inspect runs lists "
           f"{listed}", flush=True)
-    props = node_props(base, cold.nodes)
+    props = node_props(base, cold)
     out = {k: {key: arts[0].uri for key, arts in v.outputs.items()}
            for k, v in cold.nodes.items()}
     raw_uri = out["CsvExampleGen"]["examples"]
@@ -3175,7 +3233,893 @@ def bert_dag_phase(seed, card, workdir):
           f"{wall_ms:.3f} ms ({profiled_ms:.3f} ms traced), device busy "
           f"{busy_ms:.3f} ms (idle share {1 - busy_ms / profiled_ms:.3f}), "
           f"{n_kernels:.0f} kernels", flush=True)
-    return by_record(launches)
+    return by_record(launches), model_uri
+
+
+# ------------------------------------------------------------- retrain DAG
+
+# Reviews per span (each span split 2:1 into train.tfrecord and
+# eval.tfrecord), the retrain's steps (cut from the bert_dag phase's 100),
+# the Evaluator's value threshold, and the change threshold run 2 is held
+# to: a retrained model must beat the production model's accuracy by this
+# much to be blessed, which keeps run 1's model the baseline through the
+# warm rerun.
+RETRAIN_ROWS = 6000
+RETRAIN_STEPS = 20
+RETRAIN_MIN_ACCURACY = 0.5
+RETRAIN_MIN_IMPROVEMENT = 0.5
+# The pipeline module users would write for the retrain-against-production
+# DAG (TFX's canonical wiring): it is written into the run's work directory
+# and run through the CLI.  ``{pkg}`` is the package the components come
+# from (the port here; its CPU parity test also fills in the reference).
+RETRAIN_PIPELINE = """\\
+import json
+import os
+
+from {pkg}.components import (
+    Evaluator, ImportExampleGen, Importer, Pusher, Resolver, SchemaGen,
+    StatisticsGen, Trainer, Transform,
+)
+from {pkg}.dsl import Cond, runtime_parameter
+from {pkg}.dsl.pipeline import Pipeline
+
+
+def create_pipeline():
+    env = os.environ
+    base = env["RETRAIN_HOME"]
+    hp = json.loads(env["RETRAIN_HPARAMS"])
+    gen = ImportExampleGen(input_path=env["RETRAIN_INPUT"])
+    stats = StatisticsGen(examples=gen.outputs["examples"])
+    schema = SchemaGen(statistics=stats.outputs["statistics"])
+    transform = Transform(
+        examples=gen.outputs["examples"], schema=schema.outputs["schema"],
+        module_file=env["RETRAIN_PREPROCESSING"],
+    )
+    production = Importer(source_uri=env["RETRAIN_BASE_MODEL"],
+                          artifact_type="Model")
+    trainer = Trainer(
+        examples=transform.outputs["transformed_examples"],
+        transform_graph=transform.outputs["transform_graph"],
+        base_model=production.outputs["result"],
+        module_file=env["RETRAIN_MODULE"],
+        train_steps=int(env["RETRAIN_STEPS"]),
+        hyperparameters=hp,
+    )
+    baseline = Resolver(strategy="latest_blessed_model")
+    evaluator = Evaluator(
+        examples=transform.outputs["transformed_examples"],
+        model=trainer.outputs["model"],
+        baseline_model=baseline.outputs["model"],
+        label_key="label", problem="multiclass",
+        batch_size=int(hp["batch_size"]),
+        value_thresholds={{"accuracy": {{
+            "lower_bound": float(env["RETRAIN_MIN_ACCURACY"])}}}},
+        change_thresholds={{"accuracy": {{
+            "min_improvement": float(env["RETRAIN_MIN_IMPROVEMENT"])}}}},
+    )
+    with Cond(runtime_parameter("deploy", default=False) == True):  # noqa: E712
+        pusher = Pusher(
+            model=trainer.outputs["model"],
+            blessing=evaluator.outputs["blessing"],
+            statistics=stats.outputs["statistics"],
+            push_destination=env["RETRAIN_PUSH"],
+        )
+    return Pipeline(
+        "bert-retrain",
+        [gen, stats, schema, transform, production, trainer, baseline,
+         evaluator, pusher],
+        pipeline_root=os.path.join(base, "root"),
+        metadata_path=os.path.join(base, "metadata.sqlite"),
+    )
+"""
+
+
+# The retrain's preprocessing: the twin's, with the production model's
+# vocabulary read from a file instead of learned again, so the warm-started
+# embeddings keep the token ids they were trained on (a vocabulary learned
+# from another sample orders its words differently).
+RETRAIN_PREPROCESSING = """\
+MAX_LEN = 64
+
+
+def preprocessing_fn(inputs, tft):
+    ids = tft.tokenize(inputs["text"], max_len=MAX_LEN,
+                       vocab_file={vocab_file!r})
+    return {{
+        "input_ids": ids,
+        "attention_mask": tft.greater(ids, 0),
+        "label": tft.cast(inputs["label"], "int32"),
+    }}
+"""
+
+
+def production_vocabulary(payload_uri, path):
+    """The tokenizer vocabulary of the payload's transform graph, one term
+    a line, written to ``path``."""
+    from tpu_pipelines_torch.trainer.export import TRANSFORM_DIR
+    from tpu_pipelines_torch.transform.graph import TransformGraph
+
+    graph = TransformGraph.load(os.path.join(payload_uri, TRANSFORM_DIR))
+    vocab = graph.state[graph.outputs["input_ids"]]["vocab"]
+    with open(path, "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    return len(vocab)
+
+
+def _varint(v):
+    v &= (1 << 64) - 1
+    out = bytearray()
+    while True:
+        b, v = v & 0x7F, v >> 7
+        out.append(b | (0x80 if v else 0))
+        if not v:
+            return bytes(out)
+
+
+def _field(num, wire, body):
+    """One protobuf field: a varint (wire 0), fixed32 (5) or
+    length-delimited (2) ``body`` under field number ``num``."""
+    key = _varint(num << 3 | wire)
+    return key + _varint(len(body)) + body if wire == 2 else key + body
+
+
+def _feature(value, packed):
+    """One tf.train.Feature: a list of bytes as bytes_list, a float array
+    as float_list, anything else as int64_list; repeated numbers packed
+    or one field each."""
+    import struct
+
+    if isinstance(value, (list, tuple)) and value and isinstance(value[0], bytes):
+        return _field(1, 2, b"".join(_field(1, 2, v) for v in value))
+    arr = np.asarray(value)
+    if arr.dtype.kind == "f":
+        vals = arr.astype("<f4").ravel()
+        body = (_field(1, 2, vals.tobytes()) if packed else b"".join(
+            _field(1, 5, struct.pack("<f", v)) for v in vals))
+        return _field(2, 2, body)
+    vals = [int(v) for v in arr.ravel()]
+    body = (_field(1, 2, b"".join(_varint(v) for v in vals)) if packed
+            else b"".join(_field(1, 0, _varint(v)) for v in vals))
+    return _field(3, 2, body)
+
+
+def encode_example(features, packed=True):
+    """``{name: list of bytes | float array | int array}`` as
+    tf.train.Example bytes (Example.features = 1, Features.feature = 1, a
+    map entry of key = 1 and value = 2)."""
+    return _field(1, 2, b"".join(
+        _field(1, 2, _field(1, 2, name.encode())
+               + _field(2, 2, _feature(v, packed)))
+        for name, v in features.items()))
+
+
+def frame(payload, masked_crc=None):
+    """One TFRecord: length, masked crc32c of the length, payload, masked
+    crc32c of the payload (the port's crc unless ``masked_crc`` is
+    given)."""
+    import struct
+
+    if masked_crc is None:
+        from tpu_pipelines_torch.data.record_io import _masked_crc32c
+
+        masked_crc = _masked_crc32c
+    length = struct.pack("<Q", len(payload))
+    return (length + struct.pack("<I", masked_crc(length)) + payload
+            + struct.pack("<I", masked_crc(payload)))
+
+
+def write_tfrecord(path, payloads, masked_crc=None):
+    with open(path, "wb") as f:
+        for p in payloads:
+            f.write(frame(p, masked_crc))
+
+
+def write_span(d, seed, span, rows, lexicon=BERT_LEXICON):
+    """``span``'s reviews as ``d/train.tfrecord`` and ``d/eval.tfrecord``
+    (every third review to eval); returns the row counts."""
+    os.makedirs(d)
+    reviews = review_rows(seed, rows, part=span, lexicon=lexicon)
+    splits = {"train": [], "eval": []}
+    for i, (text, label) in enumerate(reviews):
+        splits["eval" if i % 3 == 2 else "train"].append(
+            encode_example({"text": [review_text(i, text, "she wrote").encode()],
+                            "label": [label]}))
+    for split, payloads in splits.items():
+        write_tfrecord(os.path.join(d, f"{split}.tfrecord"), payloads)
+    return {k: len(v) for k, v in splits.items()}
+
+
+def retrain_env(base, data, base_model, push_dir, steps, hparams, module,
+                preprocessing, min_accuracy=RETRAIN_MIN_ACCURACY):
+    """The environment the retrain pipeline module reads."""
+    return {"RETRAIN_HOME": base, "RETRAIN_INPUT": data,
+            "RETRAIN_BASE_MODEL": base_model, "RETRAIN_PUSH": push_dir,
+            "RETRAIN_STEPS": str(steps), "RETRAIN_HPARAMS": json.dumps(hparams),
+            "RETRAIN_MODULE": module, "RETRAIN_PREPROCESSING": preprocessing,
+            "RETRAIN_MIN_ACCURACY": str(min_accuracy),
+            "RETRAIN_MIN_IMPROVEMENT": str(RETRAIN_MIN_IMPROVEMENT)}
+
+
+def retrain_dag_phase(seed, card, workdir, production_uri):
+    """The BERT-base retrain DAG on the card, through the port's CLI: spans
+    of TFRecord reviews in, ImportExampleGen -> StatisticsGen -> SchemaGen
+    -> Transform; an Importer of the production model (``production_uri``,
+    the bert_dag phase's Trainer model) warm-starting the Trainer; a
+    latest-blessed Resolver feeding the Evaluator's baseline; the Pusher
+    inside ``Cond(deploy == True)``.  Run 1 (span 1, deploy) pushes; run 2
+    (span 2 added, no deploy) evaluates against run 1's model and skips
+    the push; a warm rerun of run 2 is all cache hits but the Resolver.
+    Returns (each kernel's launches in run 2, the pushed payload)."""
+    from tpu_pipelines_torch.data import examples_io
+    from tpu_pipelines_torch.examples import bert_pipeline
+    from tpu_pipelines_torch.orchestration import LocalDagRunner
+    from tpu_pipelines_torch.utils.module_loader import load_module
+
+    base = os.path.join(workdir, "retrain")
+    data = os.path.join(base, "data")
+    push_dir = os.path.join(workdir, "pushed")
+    t0 = time.perf_counter()
+    rows1 = write_span(os.path.join(data, "span-1"), seed, 1, RETRAIN_ROWS)
+    hp = dict(bert_pipeline.BERT_BASE)
+    module_path = os.path.join(bert_pipeline.HERE, "bert_module.py")
+    pipeline_module = os.path.join(base, "retrain_pipeline.py")
+    with open(pipeline_module, "w") as f:
+        f.write(RETRAIN_PIPELINE.format(pkg="tpu_pipelines_torch"))
+    vocab_file = os.path.join(base, "vocab.txt")
+    n_vocab = production_vocabulary(production_uri, vocab_file)
+    preprocessing = os.path.join(base, "retrain_preprocessing.py")
+    with open(preprocessing, "w") as f:
+        f.write(RETRAIN_PREPROCESSING.format(vocab_file=vocab_file))
+    print(f"retrain_dag data: span 1 {rows1} reviews as TFRecords of "
+          f"tf.Example in {time.perf_counter() - t0:.2f} s; the production "
+          f"model's vocabulary of {n_vocab} terms as the tokenizer's file",
+          flush=True)
+    env = retrain_env(base, os.path.join(data, "span-{SPAN}"), production_uri,
+                      push_dir, RETRAIN_STEPS, hp, module_path, preprocessing)
+
+    user = load_module(module_path)
+    real_loop, real_run = user.train_loop, LocalDagRunner.run
+    seen = {}
+    results = []
+
+    def loop(**kw):
+        init = kw["init_params_fn"]
+
+        def recording(*args, **kwargs):
+            model = init(*args, **kwargs)
+            seen["init"] = {k: v.detach().cpu().clone()
+                            for k, v in model.state_dict().items()}
+            return model
+
+        losses = []
+
+        def cb(step, metrics):
+            losses.extend(v for k, v in metrics.items() if "loss" in k)
+        model, result = real_loop(metrics_cb=cb, **{**kw, "init_params_fn":
+                                                    recording})
+        seen["result"], seen["losses"] = result, losses
+        seen["after_trainer"] = counters()
+        return model, result
+
+    def run(self, *args, **kwargs):
+        results.append(real_run(self, *args, **kwargs))
+        return results[-1]
+
+    def run_once(deploy):
+        with mock.patch.dict(os.environ, env):
+            code, out = cli(["run", "--pipeline-module", pipeline_module,
+                             "--device", DEVICE, "--param",
+                             f"deploy={'true' if deploy else 'false'}"])
+        if code != 0:
+            raise AssertionError(f"retrain_dag: run exited {code}: {out[-3000:]}")
+
+    runs = []
+    with mock.patch.object(LocalDagRunner, "run", run), \
+            mock.patch.object(user, "train_loop", loop):
+        for tag, deploy in (("run 1", True), ("run 2", False),
+                            ("warm rerun", False)):
+            if tag == "run 2":
+                t0 = time.perf_counter()
+                rows2 = write_span(os.path.join(data, "span-2"), seed, 2,
+                                   RETRAIN_ROWS)
+                print(f"retrain_dag data: span 2 {rows2} reviews in "
+                      f"{time.perf_counter() - t0:.2f} s", flush=True)
+            seen.clear()
+            pushed_before = sorted(os.listdir(push_dir)) if os.path.isdir(
+                push_dir) else []
+            zero_counters()
+            t0 = time.perf_counter()
+            run_once(deploy)
+            wall = time.perf_counter() - t0
+            runs.append({"tag": tag, "result": results[-1], "wall": wall,
+                         "launches": counters(), "seen": dict(seen),
+                         "pushed_before": pushed_before,
+                         "pushed_after": sorted(os.listdir(push_dir))
+                         if os.path.isdir(push_dir) else []})
+    r1, r2, r3 = runs
+    props = {}
+    for r in runs:
+        props[r["tag"]] = node_props(base, r["result"])
+        print(f"retrain_dag {r['tag']} [{card}]: {r['wall']:.1f} s: " + ", ".join(
+            f"{k} {v.status} {v.wall_clock_s:.2f} s"
+            for k, v in r["result"].nodes.items()), flush=True)
+
+    # Run 1: the Resolver resolved nothing, the Evaluator blessed on its
+    # value threshold alone, the Trainer started from the production
+    # model's weights bit for bit, the Pusher pushed a payload carrying its
+    # training statistics.
+    s1 = {k: v.status for k, v in r1["result"].nodes.items()}
+    want1 = {"ImportExampleGen": "COMPLETE", "StatisticsGen": "COMPLETE",
+             "SchemaGen": "COMPLETE", "Transform": "COMPLETE",
+             "Importer.Model": "COMPLETE", "Trainer": "COMPLETE",
+             "Resolver": "COMPLETE", "Evaluator": "COMPLETE",
+             "Pusher": "COMPLETE"}
+    if s1 != want1:
+        raise AssertionError(f"retrain_dag run 1: {s1} " + str(
+            {k: v.error[-2000:] for k, v in r1["result"].nodes.items()
+             if v.error}))
+    p1 = props["run 1"]
+    if (p1["Resolver"]["resolved_artifact_ids"] != []
+            or not p1["Evaluator"]["blessed"]
+            or p1["Evaluator"]["baseline_model_uri"] != ""):
+        raise AssertionError(f"retrain_dag run 1: resolver "
+                             f"{p1['Resolver']}, evaluator {p1['Evaluator']}")
+    production = torch.load(os.path.join(production_uri, "checkpoint",
+                                          "state_dict.pt"),
+                            map_location="cpu", weights_only=True)
+    init = r1["seen"]["init"]
+    differ = [k for k in production
+              if not torch.equal(production[k], init[k])]
+    if sorted(init) != sorted(production) or differ:
+        raise AssertionError(f"retrain_dag: the Trainer's first-step weights "
+                             f"differ from the imported model at {differ[:8]}")
+    pushed = [v for v in r1["pushed_after"] if v not in r1["pushed_before"]]
+    if len(pushed) != 1 or not p1["Pusher"]["pushed"]:
+        raise AssertionError(f"retrain_dag run 1: pushed {pushed}, "
+                             f"{p1['Pusher']}")
+    pushed_uri = os.path.join(push_dir, pushed[0])
+    with open(os.path.join(pushed_uri, "model_spec.json")) as f:
+        stats_uri = json.load(f).get("training_statistics_uri", "")
+    stats_art = r1["result"].outputs_of("StatisticsGen", "statistics")[0]
+    if stats_uri != stats_art.uri:
+        raise AssertionError(f"retrain_dag: pushed spec statistics "
+                             f"{stats_uri!r}, StatisticsGen {stats_art.uri!r}")
+    model1 = r1["result"].outputs_of("Trainer", "model")[0]
+
+    # Run 2: span 2 re-ingested, the Resolver re-emitted run 1's model (its
+    # artifact id), the Evaluator evaluated candidate and baseline, the
+    # Pusher condition-skipped with the push directory unchanged.
+    s2 = {k: v.status for k, v in r2["result"].nodes.items()}
+    want2 = {**want1, "Importer.Model": "CACHED", "Pusher": "COND_SKIPPED"}
+    p2 = props["run 2"]
+    resolved = r2["result"].outputs_of("Resolver", "model")
+    gen2 = r2["result"].outputs_of("ImportExampleGen", "examples")[0]
+    if (s2 != want2 or not r2["result"].succeeded
+            or [a.id for a in resolved] != [model1.id]
+            or p2["Resolver"]["resolved_artifact_ids"] != [model1.id]
+            or p2["Evaluator"]["baseline_model_uri"] != model1.uri
+            or gen2.properties.get("span") != 2
+            or r2["pushed_after"] != r2["pushed_before"]):
+        raise AssertionError(
+            f"retrain_dag run 2: {s2}, resolved {[a.id for a in resolved]} "
+            f"(run 1's model {model1.id}), evaluator {p2['Evaluator']}, "
+            f"span {gen2.properties.get('span')}, pushed "
+            f"{r2['pushed_before']} -> {r2['pushed_after']}")
+    # The warm rerun: every executor node a cache hit, the Resolver run
+    # again (never cached) re-emitting the same artifact, the skip replayed.
+    s3 = {k: v.status for k, v in r3["result"].nodes.items()}
+    want3 = {k: "CACHED" for k in want1}
+    want3.update({"Resolver": "COMPLETE", "Pusher": "COND_SKIPPED"})
+    if (s3 != want3 or [a.id for a in r3["result"].outputs_of(
+            "Resolver", "model")] != [model1.id]
+            or any(r3["launches"].values())):
+        raise AssertionError(f"retrain_dag warm rerun: {s3}, launches "
+                             f"{r3['launches']}")
+
+    # Launches from inside the runner: run 1 one Evaluator pass, run 2 two
+    # (candidate and baseline); each run's Trainer steps.
+    layers = DEFAULT_HPARAMS["n_layers"]
+    batch = hp["batch_size"]
+    impl = tfm.choose_attn_impl(batch, DEFAULT_HPARAMS["n_heads"],
+                                PIPELINE_LEN, PIPELINE_LEN, 2,
+                                torch.device(DEVICE))
+    flash = impl == "flash"
+    for r, passes in ((r1, 1), (r2, 2)):
+        uri = r["result"].outputs_of("Transform", "transformed_examples")[0].uri
+        n_eval = examples_io.num_rows(uri, "eval")
+        steps = layers * RETRAIN_STEPS * flash
+        trainer_fwd = steps + layers * (n_eval // batch) * flash
+        want = {"launches": trainer_fwd + passes * layers * -(-n_eval // batch)
+                * flash, "dvec_launches": steps, "dq_launches": steps,
+                "dkv_launches": steps, "decode_launches": 0}
+        if r["launches"] != want or r["seen"]["after_trainer"] != {
+                **want, "launches": trainer_fwd}:
+            raise AssertionError(
+                f"retrain_dag {r['tag']}: launches {r['launches']} (after "
+                f"the Trainer {r['seen']['after_trainer']}), expected {want} "
+                f"for auto = {impl}")
+        res = r["seen"]["result"]
+        if (res.steps_completed != RETRAIN_STEPS
+                or not np.isfinite(r["seen"]["losses"]).all()
+                or res.compiles_after_warm != 0):
+            raise AssertionError(f"retrain_dag {r['tag']}: trainer {res}")
+        r["n_eval"] = n_eval
+    ig = p1["ImportExampleGen"]
+    print(f"retrain_dag ImportExampleGen [{card}]: span 1 "
+          f"{ig['num_examples']} rows at {ig['ingest_rows_per_sec']} rows/s "
+          f"with every record's crc verified; span 2 "
+          f"{p2['ImportExampleGen']['num_examples']} rows at "
+          f"{p2['ImportExampleGen']['ingest_rows_per_sec']} rows/s", flush=True)
+    for r, passes in ((r1, 1), (r2, 2)):
+        ev = props[r["tag"]]["Evaluator"]
+        res = r["seen"]["result"]
+        print(f"retrain_dag {r['tag']} [{card}]: Trainer warm-started from the "
+              f"production model, {res.steps_completed} steps at batch {batch} "
+              f"x {PIPELINE_LEN}, losses {r['seen']['losses'][0]:.4f} -> "
+              f"{r['seen']['losses'][-1]:.4f}, {res.examples_per_sec:.1f} "
+              f"examples/s over the run; Evaluator {passes} pass(es) over "
+              f"{r['n_eval']} eval rows in {r['result'].nodes['Evaluator'].wall_clock_s:.2f} s: "
+              f"accuracy {ev['overall_accuracy']:.4f}, blessed {ev['blessed']}"
+              + (f" ({'; '.join(ev['not_blessed_reasons'])})"
+                 if ev["not_blessed_reasons"] else "")
+              + f"; launches {r['launches']}", flush=True)
+    print(f"retrain_dag: run 1 resolved nothing (bootstrap, value threshold "
+          f"only), the Trainer's first-step weights == the imported model's "
+          f"bit for bit ({len(init)} tensors), pushed version {pushed[0]} with "
+          f"training_statistics_uri; run 2 resolved run 1's model (artifact "
+          f"{model1.id}), baseline evaluated, Pusher COND_SKIPPED, push "
+          f"directory unchanged; warm rerun {r3['wall']:.2f} s: "
+          f"{sum(v == 'CACHED' for v in s3.values())} CACHED, Resolver "
+          f"COMPLETE, Pusher COND_SKIPPED, no kernel launched", flush=True)
+
+    # The Evaluator's logits against dense attention on run 2's candidate,
+    # a shifted-mask control above the tolerance.
+    from tpu_pipelines_torch.data.input_pipeline import BatchIterator, InputConfig
+
+    model2 = r2["result"].outputs_of("Trainer", "model")[0].uri
+    examples2 = r2["result"].outputs_of("Transform", "transformed_examples")[0].uri
+    flash_model = load_exported_model(model2, device=DEVICE)
+    dense = load_exported_model(payload_view(
+        model2, os.path.join(workdir, "retrain_dense"), attn_impl="dense"),
+        device=DEVICE)
+    gap = control = 0.0
+    for i, b in enumerate(BatchIterator(examples2, "eval", InputConfig(
+            batch_size=batch, shuffle=False, num_epochs=1,
+            drop_remainder=False))):
+        if i == 2:
+            break
+        want_logits = dense.predict_transformed(b)
+        gap = max(gap, float(np.abs(flash_model.predict_transformed(b)
+                                    - want_logits).max()))
+        shifted = {**b, "attention_mask": np.roll(b["attention_mask"], 1, 1)}
+        control = max(control, float(np.abs(
+            flash_model.predict_transformed(shifted) - want_logits).max()))
+    del flash_model, dense
+    print(f"retrain_dag: run 2's candidate vs dense attention on two eval "
+          f"batches: max |logit gap| {gap:.3e} (tol {LOGIT_TOL:g}); "
+          f"shifted-mask control {control:.3e} (must exceed)", flush=True)
+    if gap > LOGIT_TOL or control <= LOGIT_TOL:
+        raise AssertionError("retrain_dag: flash logits vs dense attention")
+    return by_record(r2["launches"]), pushed_uri
+
+
+# ---------------------------------------------------------- fleet guard
+
+# The post-deploy guards on the BERT fleet: the SLO monitor's interval,
+# drift windows of GUARD_WINDOW_S over every request (sample rate 1), and
+# the post-swap probation window (TPP_SWAP_PROBATION_S) the rollback must
+# land in.  Traffic comes from GUARD_THREADS client threads.  The monitor
+# judges latency too (the share of requests over the 50 ms SLO), and a
+# latency breach inside the probation would roll the swap back before the
+# fault does: the phase prints that burn at the swap and at the rollback
+# beside the lines it pages at, and fails unless the one rollback is the
+# 5xx burn's.  The sampler's cost is read over GUARD_TPUT_ROUNDS rounds of
+# GUARD_REQUESTS requests, the sampler on and off in turn (on, off, off,
+# on, ...).
+GUARD_MONITOR_S = 0.5
+GUARD_WINDOW_S = 2.0
+GUARD_SAMPLE = 1.0
+GUARD_PROBATION_S = 10.0
+GUARD_REQUESTS = 64
+GUARD_THREADS = 4
+GUARD_TPUT_ROUNDS = 16
+# Distinct reviews in the shifted (skewed) window: a flood of a few texts
+# from the upper half of the lexicon.
+GUARD_CAMPAIGN = 2
+
+
+def review_requests(rng, reviews, n):
+    """``n`` :predict bodies of 1-2 rows each, drawn from ``reviews``."""
+    out = []
+    for _ in range(n):
+        picks = rng.integers(0, len(reviews), int(rng.integers(1, 3)))
+        out.append({"instances": [{"text": reviews[i][0],
+                                   "label": reviews[i][1]} for i in picks]})
+    return out
+
+
+def request_rows(requests):
+    rows = [r for req in requests for r in req["instances"]]
+    return {"text": np.asarray([r["text"] for r in rows], dtype=object),
+            "label": np.asarray([r["label"] for r in rows], np.int64)}
+
+
+def fleet_guard_phase(seed, card, workdir, production_uri, pushed_uri):
+    """The BERT fleet of the fleet phase with the post-deploy guards on:
+    boots on the production model (the bert_dag phase's, the retrain's
+    base), hot-swaps to the retrain's pushed payload under load, scores
+    drift windows against that payload's training statistics (a skewed
+    window breaches, a control window stays quiet, the CLI's ``drift``
+    reads both), rolls the new version back on a DEVICE_ERROR burst inside
+    its probation window (quarantined, 409 on :reload, re-admitted by
+    clear_quarantine), and leaves a version whose probation expired alone.
+    Returns the flash_fwd launches of the boot traffic."""
+    from tpu_pipelines_torch.testing import faults
+    from tpu_pipelines_torch.trainer.export import _to_numpy, on_device
+
+    base = os.path.join(workdir, "fleet_guard")
+    payload_copy(production_uri, os.path.join(base, "1"))
+    rng = np.random.default_rng(seed + 13)
+    unseen = [(review_text(i, t, "she wrote"), label) for i, (t, label) in
+              enumerate(review_rows(seed, 512, part=3))]
+    lexicon = made_up_words(np.random.default_rng(seed), BERT_LEXICON)
+    upper = np.asarray(lexicon[40:][(BERT_LEXICON - 40) // 2:])
+    campaign = [(" ".join(rng.choice(upper, 24)), int(rng.integers(0, 2)))
+                for _ in range(GUARD_CAMPAIGN)]
+    boot_reqs = review_requests(rng, unseen, GUARD_REQUESTS)
+    swap_reqs = review_requests(rng, unseen, GUARD_REQUESTS)
+    control_reqs = review_requests(rng, unseen, GUARD_REQUESTS)
+    shifted_reqs = review_requests(rng, campaign, GUARD_REQUESTS)
+    after_reqs = review_requests(rng, unseen, GUARD_REQUESTS // 2)
+    tput_reqs = review_requests(rng, unseen, GUARD_REQUESTS)
+
+    graph = torch.cuda.CUDAGraph
+    real_capture = graph.capture_begin
+    captures = [0]
+
+    def counted_capture(self, *args, **kwargs):
+        captures[0] += 1
+        return real_capture(self, *args, **kwargs)
+
+    with mock.patch.dict(os.environ, {"TPP_SWAP_PROBATION_S":
+                                      str(GUARD_PROBATION_S)}):
+        server = ModelServer(
+            "bert", base, replicas=FLEET_REPLICAS, max_versions=2,
+            slo_p99_ms=FLEET_SLO_MS, max_batch_size=FLEET_BATCH,
+            supervisor_interval_s=FLEET_SUPERVISOR_S,
+            slo_monitor_interval_s=GUARD_MONITOR_S,
+            monitor_sample_rate=GUARD_SAMPLE, monitor_window_s=GUARD_WINDOW_S,
+            device="cuda")
+    fleet = server._fleet
+    replicas = fleet.pool.replicas
+    windows, breaches = [], []
+    fleet.sampler.on_window = windows.append
+
+    def on_breach(breach):
+        breaches.append((time.monotonic(), breach, fleet.on_slo_breach(breach)))
+
+    server.slo_monitor.on_breach = on_breach
+    # Every evaluation the monitor makes, kept to read the latency burn.
+    evaluations = []
+    evaluate = server.slo_monitor.evaluate
+
+    def recorded(now=None):
+        result = evaluate(now)
+        evaluations.append((time.monotonic(), result))
+        return result
+
+    server.slo_monitor.evaluate = recorded
+    seen = {}
+    try:
+        with mock.patch.object(graph, "capture_begin", counted_capture):
+            url = f"http://127.0.0.1:{server.start(port=0)}/v1/models/bert"
+
+            def clients(reqs):
+                return run_clients(f"{url}:predict", reqs, n_procs=1,
+                                   threads=GUARD_THREADS)
+
+            def flushed(phase_rows):
+                """Every sampled row so far is in a closed window (the
+                sampler's queue and open window empty; rows counted as the
+                batcher padded them, so at least the rows sent)."""
+                sampler = fleet.sampler
+                wait_for(lambda: sampler._queue.qsize() == 0
+                         and not any(n for _, _, n in sampler._buckets.values())
+                         and sum(w.sampled for w in windows) >= phase_rows,
+                         4 * GUARD_WINDOW_S + 10, "the drift windows")
+
+            # 1. Boot on the production model: its first batch captures
+            # its buckets; the traffic's launches are counted.
+            warm, _ = clients(boot_reqs[:1])
+            zero_counters()
+            batches0 = sum(r.batcher.batches_run for r in replicas)
+            seen["boot"], boot_s = clients(boot_reqs[1:])
+            seen["boot_launches"] = fa.launches
+            seen["boot_batches"] = (sum(r.batcher.batches_run for r in replicas)
+                                    - batches0)
+            v1 = fleet.active_loaded()
+            warm1 = dict(fleet.last_warm or {})
+            sampled = sum(len(req["instances"]) for req in boot_reqs)
+            flushed(sampled)
+
+            # 2. The retrain's pushed payload, hot-swapped under load.
+            payload_copy(pushed_uri, os.path.join(base, "2"))
+            swap = {}
+
+            def hammer():
+                swap["results"], _ = clients(swap_reqs)
+
+            clients_thread = threading.Thread(target=hammer)
+            served0 = sum(r.latency.count for r in replicas)
+            clients_thread.start()
+            wait_for(lambda: sum(r.latency.count for r in replicas)
+                     >= served0 + 8, 120, "the swap's traffic")
+            swap["reload"] = post_code(f"{url}:reload")
+            clients_thread.join()
+            swap["done"] = time.monotonic()
+            sampled += sum(len(req["instances"]) for req in swap_reqs)
+            flushed(sampled)
+            v2 = fleet.active_loaded()
+            warm2 = dict(fleet.last_warm)
+            swap_mono = fleet.versions.last_swap()["mono"]
+
+            # 3. Drift against the pushed payload's training statistics: a
+            # control window of unseen reviews, then the campaign.
+            n_windows = len(windows)
+            seen["control"], _ = clients(control_reqs)
+            sampled += sum(len(req["instances"]) for req in control_reqs)
+            flushed(sampled)
+            control_windows = windows[n_windows:]
+            n_windows = len(windows)
+            seen["shifted"], _ = clients(shifted_reqs)
+            sampled += sum(len(req["instances"]) for req in shifted_reqs)
+            flushed(sampled)
+            shifted_windows = windows[n_windows:]
+            drift_code, drift_json = cli(["drift", "--url", url, "--json"])
+            _, drift_text = cli(["drift", "--url", url])
+
+            # 4. DEVICE_ERROR on every replica while version 2 serves, until
+            # the monitor's breach rolls back.
+            captures0 = captures[0]
+            fault_codes, first_bad = [], []
+            plan = faults.FaultPlan({faults.REPLICA_KEY: faults.NodeFault(
+                faults.DEVICE_ERROR, times=10 ** 6)})
+            stop = threading.Event()
+
+            def faulty_client(i):
+                body = after_reqs[i % len(after_reqs)]
+                while not stop.is_set():
+                    code, _ = post_code(f"{url}:predict", body)
+                    fault_codes.append(code)
+                    if code >= 500 and not first_bad:
+                        first_bad.append(time.monotonic())
+
+            with plan.activate():
+                threads = [threading.Thread(target=faulty_client, args=(i,))
+                           for i in range(GUARD_THREADS)]
+                for t in threads:
+                    t.start()
+                try:
+                    wait_for(lambda: fleet.active_version == "1", 60,
+                             "the rollback")
+                finally:
+                    stop.set()
+                    for t in threads:
+                        t.join()
+            rollback = fleet.versions.last_swap()
+            health = server.health()
+            rollbacks = server.metrics.get("serving_auto_rollbacks_total").get()
+            refused = post_code(f"{url}:reload")
+            wait_for(lambda: all(fleet.supervisor.state(r) == "healthy"
+                                 for r in replicas), 30, "the replicas' health")
+            seen["after"], _ = clients(after_reqs)
+            rollback_captures = captures[0] - captures0
+            after_warm = (v1.aot.compiles_after_warm, server.metrics.get(
+                "serving_aot_compiles_after_warm_total").get())
+
+            # 5. Re-admitted by clear_quarantine; its probation then runs
+            # out while the checks below run.
+            cleared = fleet.clear_quarantine()
+            readmit = post_code(f"{url}:reload")
+            readmit_mono = fleet.versions.last_swap()["mono"]
+            readmit_captures = captures[0] - captures0 - rollback_captures
+            t0 = time.perf_counter()
+            n_tput = sum(len(req["instances"]) for req in tput_reqs)
+            sampler, tput = fleet.sampler, {"on": [], "off": []}
+            for i in range(GUARD_TPUT_ROUNDS):
+                state = "on" if i % 4 in (0, 3) else "off"
+                fleet.sampler = sampler if state == "on" else None
+                _, round_s = clients(tput_reqs)
+                tput[state].append(n_tput / round_s)
+            fleet.sampler = sampler
+            tput_s = time.perf_counter() - t0
+
+            # Version 1's buckets replayed after the rollback == eager.
+            rows = request_rows(boot_reqs + swap_reqs)
+            buckets = warm1.get("buckets", [])
+            unequal = [b for b in buckets if not np.array_equal(
+                v1.predict({k: v[:b] for k, v in rows.items()}),
+                eager(v1, v1.host_preprocess(
+                    {k: v[:b] for k, v in rows.items()})))]
+            # While the re-admitting swap's probation runs out: replies
+            # against dense attention, each traffic against the version
+            # that served it (the swap's against either).
+            dense = {}
+            for v, uri in (("1", production_uri), ("2", pushed_uri)):
+                dense[v] = load_exported_model(payload_view(
+                    uri, os.path.join(workdir, f"guard_dense_{v}"),
+                    attn_impl="dense"), device="cuda")
+
+            def dense_gap(results, reqs, versions):
+                """Max over rows of the row's logit gap to the nearest of the
+                versions that may have served it."""
+                served = np.concatenate([
+                    np.asarray(reply["predictions"], np.float32)
+                    for _, reply, _ in results])
+                rows = request_rows(reqs)
+                per_version = [np.abs(served - np.concatenate([
+                    dense[v].predict({k: x[i:i + 32] for k, x in rows.items()})
+                    for i in range(0, len(rows["text"]), 32)])).max(axis=1)
+                    for v in versions]
+                return float(np.min(per_version, axis=0).max())
+
+            gaps = {}
+            for name, results, reqs, versions in (
+                    ("boot", seen["boot"], boot_reqs[1:], "1"),
+                    ("swap", swap["results"], swap_reqs, "12"),
+                    ("control", seen["control"], control_reqs, "2"),
+                    ("shifted", seen["shifted"], shifted_reqs, "2"),
+                    ("after rollback", seen["after"], after_reqs, "1")):
+                codes = sorted({c for c, _, _ in results})
+                if codes != [200]:
+                    raise AssertionError(
+                        f"fleet_guard {name}: replies {codes}")
+                gaps[name] = dense_gap(results, reqs, versions)
+            # Control: version 1's forward fed the mask of the next row.
+            def forward(loaded, feats):
+                with torch.inference_mode():
+                    return _to_numpy(loaded.forward_step(
+                        loaded.params, on_device(feats, loaded.device)))
+
+            host = v1.transform.apply_host({k: v[:32] for k, v in request_rows(
+                boot_reqs).items()})
+            feats = {k: host[k] for k in ("input_ids", "attention_mask")}
+            shifted = {**feats, "attention_mask": np.roll(
+                feats["attention_mask"], 1, axis=0)}
+            control = float(np.abs(forward(v1, shifted)
+                                   - forward(dense["1"], feats)).max())
+            del dense
+            wait_s = readmit_mono + GUARD_PROBATION_S + 0.5 - time.monotonic()
+            if wait_s > 0:
+                time.sleep(wait_s)
+            expired = fleet.on_slo_breach({"slo": "errors_5xx",
+                                           "trigger": "fast"})
+            expired_active = fleet.active_version
+            checks_s = time.perf_counter() - t0
+    finally:
+        server.stop()
+
+    def skew_alerts(ws):
+        return [s for w in ws if w.version == "2"
+                and w.sampled >= fleet.sampler.min_samples
+                for s in w.alerts if s.kind.startswith("skew")]
+
+    def latency_burn(evaluation):
+        """The latency_p99 burn per window (seconds) in ``evaluation``."""
+        return {int(w): v["burn"].get("latency_p99")
+                for w, v in evaluation["windows"].items()}
+
+    monitor = server.slo_monitor
+    at_swap = [r for t, r in evaluations if t <= swap["done"]]
+    at_rollback = [r for t, r in evaluations if t >= rollback["mono"]]
+    peak = max((b or 0.0 for t, r in evaluations if t <= rollback["mono"]
+                for b in latency_burn(r).values()), default=0.0)
+    report = json.loads(drift_json)
+    lat_ms = np.array([t for _, _, t in seen["boot"]]) * 1e3
+    fired = [(round(t - swap_mono, 3), b["slo"], did) for t, b, did in breaches]
+    rolled = [(t, b) for t, b, did in breaches if did]
+    print(f"fleet_guard [{card}]: BERT-base behind ModelServer(replicas="
+          f"{FLEET_REPLICAS}, max_versions=2, slo_p99_ms={FLEET_SLO_MS:g}, "
+          f"slo_monitor_interval_s={GUARD_MONITOR_S}, monitor_sample_rate="
+          f"{GUARD_SAMPLE}, monitor_window_s={GUARD_WINDOW_S}), "
+          f"TPP_SWAP_PROBATION_S={GUARD_PROBATION_S:g}: boot on the production "
+          f"model, {len(boot_reqs) - 1} requests in {seen['boot_batches']} "
+          f"device batches, {boot_s:.2f} s, p50 {np.percentile(lat_ms, 50):.2f} "
+          f"ms, slowest {lat_ms.max():.2f} ms, {int((lat_ms > FLEET_SLO_MS).sum())} "
+          f"of {len(lat_ms)} over the {FLEET_SLO_MS:g} ms SLO, flash_fwd launches "
+          f"{seen['boot_launches']} ({N_LAYERS} x batches expected); version 1 "
+          f"captured {warm1.get('compiled')} graphs on its first batch",
+          flush=True)
+    print(f"fleet_guard: hot swap to the retrain's payload under load: reload "
+          f"answered {swap['reload'][0]}, {warm2.get('compiled')} graphs "
+          f"captured at its gate in {warm2.get('seconds', 0.0):.3f} s; max "
+          f"|fleet - dense| logit per traffic {gaps} (tol {LOGIT_TOL:g}); "
+          f"mask-of-the-next-row control {control:.3e} (must exceed)",
+          flush=True)
+    for name, ws in (("control", control_windows), ("shifted", shifted_windows)):
+        for w in ws:
+            worst = sorted(w.scores, key=lambda s: -s.distance)[:3]
+            print(f"fleet_guard drift {name} window {w.index} (version "
+                  f"{w.version}, {w.sampled} rows, baseline {w.baseline_uri}): "
+                  + ", ".join(f"{s.feature} {s.kind} {s.distance:.4f}"
+                              for s in worst)
+                  + f"; alerts {[s.kind for s in w.alerts]}", flush=True)
+    print(f"fleet_guard `python -m tpu_pipelines_torch drift` (exit "
+          f"{drift_code}): max skew {report['max_skew']:.4f}, alerts "
+          f"{report['alerts_total']:g}, sampled {report['sampled_total']:g}, "
+          f"windows {report['windows_total']:g}, coverage "
+          f"{report['coverage_ratio']}\n" + drift_text.strip(), flush=True)
+    print(f"fleet_guard rollback [{card}]: DEVICE_ERROR on every replica "
+          f"({len(fault_codes)} replies {sorted(set(fault_codes))}); breaches "
+          f"(seconds after the swap, slo, rolled back): {fired}; rolled back "
+          f"{rollback['version']} <- {rollback['prior']} "
+          f"{rollback['mono'] - swap_mono:.3f} s after the swap, "
+          f"{rollback['mono'] - first_bad[0]:.3f} s after the first bad reply; "
+          f"serving_auto_rollbacks_total {rollbacks:g}; latency_p99 burn per "
+          f"window (s) at the swap's last evaluation "
+          f"{latency_burn(at_swap[-1]) if at_swap else None}, at the "
+          f"rollback's {latency_burn(at_rollback[0]) if at_rollback else None}"
+          f", peak before the rollback {peak:.3f} (pages at "
+          f"{monitor.fast_threshold:g} in every window of "
+          f"{[int(w) for w in monitor.fast_windows_s]} or "
+          f"{monitor.slow_threshold:g} in the others); :reload of the "
+          f"quarantined version answered {refused[0]}; health quarantined "
+          f"{health['fleet'].get('quarantined_versions')}; captures during "
+          f"the rollback {rollback_captures}, compiles after warm "
+          f"{after_warm}; version 1's buckets {buckets} replay == eager "
+          f"(unequal: {unequal}); after the rollback "
+          f"{len(seen['after'])} requests all 200", flush=True)
+    on, off = np.median(tput["on"]), np.median(tput["off"])
+    blocks = [sum(tput["on"][2 * b:2 * b + 2]) / sum(tput["off"][2 * b:2 * b + 2])
+              for b in range(GUARD_TPUT_ROUNDS // 4)]
+    print(f"fleet_guard [{card}]: clear_quarantine {cleared}, :reload "
+          f"{readmit[0]} (re-admitted, {readmit_captures} captures); served "
+          f"examples/s over {GUARD_TPUT_ROUNDS} rounds of {len(tput_reqs)} "
+          f"requests ({n_tput} rows) in {tput_s:.1f} s, the sampler on and "
+          f"off in turn: on median {on:.1f} (rounds "
+          f"{[round(x, 1) for x in tput['on']]}), off median {off:.1f} "
+          f"(rounds {[round(x, 1) for x in tput['off']]}), on/off "
+          f"{on / off:.3f}, per on-off-off-on block "
+          f"{[round(x, 3) for x in blocks]} (context, not a gain); a breach "
+          f"{GUARD_PROBATION_S:g}+ s after the re-admitting "
+          f"swap rolled back {expired}, active {expired_active} (checks and "
+          f"wait {checks_s:.1f} s)", flush=True)
+    if warm1.get("compiled") != len(buckets) or not buckets:
+        raise AssertionError(f"fleet_guard: version 1's warm-up {warm1}")
+    if seen["boot_launches"] != N_LAYERS * seen["boot_batches"]:
+        raise AssertionError(f"fleet_guard: {seen['boot_launches']} launches "
+                             f"for {seen['boot_batches']} batches")
+    if swap["reload"][0] != 200 or warm2.get("compiled") != len(buckets):
+        raise AssertionError(f"fleet_guard: swap {swap['reload']}, {warm2}")
+    if max(gaps.values()) > LOGIT_TOL or control <= LOGIT_TOL:
+        raise AssertionError(f"fleet_guard: dense gaps {gaps}, control {control}")
+    if (not control_windows or skew_alerts(control_windows)
+            or not skew_alerts(shifted_windows)):
+        raise AssertionError("fleet_guard: the control window alerted or the "
+                             "shifted window did not")
+    if drift_code != 0 or report["alerts_total"] < 1 or (
+            report["max_skew"] <= DEFAULT_DRIFT_THRESHOLD):
+        raise AssertionError(f"fleet_guard: drift report {report}")
+    if (len(rolled) != 1 or rolled[0][1]["slo"] != "errors_5xx"
+            or not first_bad or rollback["version"] != "1"
+            or not rollback["rollback"]
+            or rollback["mono"] - swap_mono > GUARD_PROBATION_S):
+        raise AssertionError(f"fleet_guard: rollback {rollback}, breaches "
+                             f"{fired}")
+    if (rollbacks != 1 or refused[0] != 409
+            or health["fleet"].get("quarantined_versions") != ["2"]):
+        raise AssertionError(f"fleet_guard: rollbacks {rollbacks}, reload "
+                             f"{refused}, health {health['fleet']}")
+    if rollback_captures or readmit_captures or after_warm != (0, 0) or unequal:
+        raise AssertionError(
+            f"fleet_guard: {rollback_captures} captures at the rollback, "
+            f"{readmit_captures} at the re-admission, compiles after warm "
+            f"{after_warm}, unequal buckets {unequal}")
+    if cleared != ["2"] or readmit[0] != 200 or expired or expired_active != "2":
+        raise AssertionError(f"fleet_guard: re-admission {cleared} "
+                             f"{readmit}, expired probation rolled back "
+                             f"{expired} ({expired_active})")
+    return seen["boot_launches"]
 
 
 # ------------------------------------------------------------------ T5 DAG
@@ -3850,8 +4794,13 @@ def main(argv=None) -> int:
         raise AssertionError("taxi_dag: an attention kernel launched")
     phase_done("taxi_dag")
     with tempfile.TemporaryDirectory() as workdir:
-        bert_dag = bert_dag_phase(args.seed, card, workdir)
-    phase_done("bert_dag")
+        bert_dag, production = bert_dag_phase(args.seed, card, workdir)
+        phase_done("bert_dag")
+        retrain, pushed = retrain_dag_phase(args.seed, card, workdir,
+                                            production)
+        phase_done("retrain_dag")
+        guard = fleet_guard_phase(args.seed, card, workdir, production, pushed)
+        phase_done("fleet_guard")
     with tempfile.TemporaryDirectory() as workdir:
         t5_dag = t5_dag_phase(args.seed, card, workdir)
     phase_done("t5_dag")
@@ -3871,7 +4820,9 @@ def main(argv=None) -> int:
     for record in bwd:
         record["launches_by_path"] = {"training": trained[record["name"]]}
     bwd[0]["dvec_launches_by_path"] = {"training": trained["flash_bwd_dvec"]}
-    for path, counts in (("bert_dag", bert_dag), ("t5_dag", t5_dag)):
+    fwd["launches_by_path"]["fleet_guard"] = guard
+    for path, counts in (("bert_dag", bert_dag), ("retrain_dag", retrain),
+                         ("t5_dag", t5_dag)):
         for record in (fwd, *bwd, decode):
             record["launches_by_path"][path] = counts[record["name"]]
         bwd[0]["dvec_launches_by_path"][path] = counts["flash_bwd_dvec"]

@@ -256,7 +256,6 @@ def test_run_defaults_to_the_card_and_raises_without_cuda(tmp_path, monkeypatch)
 @pytest.mark.parametrize("argv,item", [
     (["lint", "--pipeline-module", "p.py"], "A20"),
     (["continuous", "--pipeline-module", "p.py"], "A23"),
-    (["drift", "--url", "http://127.0.0.1:1"], "A8a"),
     (["trace", "serve", "/tmp/requests"], "A8b"),
     (["run", "--pipeline-module", "p.py", "--from-node", "Trainer"], "A22"),
     (["run", "--pipeline-module", "p.py", "--to-node", "Trainer"], "A22"),

@@ -524,8 +524,8 @@ def test_fleet_env_knobs(tmp_path, fake_loader, monkeypatch):
         assert server2._fleet is None
     finally:
         server2.stop()
-    # The reference's knobs that wait for ROADMAP A8 raise when set.
-    for env in ("TPP_SERVING_MONITOR_SAMPLE", "TPP_SLO_MONITOR",
+    # The reference's knobs that wait for ROADMAP A8b raise when set.
+    for env in ("TPP_SERVING_PREFIX_CACHE", "TPP_REQUEST_TRACE",
                 "TPP_SERVING_SPEC_TOKENS"):
         monkeypatch.setenv(env, "1")
         with pytest.raises(NotImplementedError, match="A8"):
@@ -620,6 +620,12 @@ def test_a_device_error_fails_over_and_a_wedged_replica_is_rebuilt(
             assert fut.result(timeout=30).tolist() == [[2.0]]
             wedge.release.set()
         assert wedged.generation == 1
+        # The old worker records its release from its own thread once the
+        # event wakes it: wait for that record (bounded), then hold it.
+        deadline = time.monotonic() + 10
+        while (("__replica__", "wedge_released") not in plan.log
+               and time.monotonic() < deadline):
+            time.sleep(0.01)
         assert ("__replica__", "wedge_released") in plan.log
     finally:
         server.stop()

@@ -730,8 +730,8 @@ def _graph_train(batches, loss_fn=None, seed=3, window=4, **loop_kwargs):
     losses = []
     model, result = train_loop(
         loss_fn=loss_fn or bert_module.loss_fn,
-        init_params_fn=functools.partial(bert_module.init_params_fn,
-                                         hyperparameters=TINY_TRAIN),
+        init_params_fn=loop_kwargs.pop("init_params_fn", functools.partial(
+            bert_module.init_params_fn, hyperparameters=TINY_TRAIN)),
         optimizer=bert_module.adamw(1e-3),
         train_iter=iter(batches),
         config=TrainLoopConfig(train_steps=len(batches), batch_size=8,
@@ -870,6 +870,141 @@ def test_auto_launches_the_kernels_at_or_above_a_crossover_and_not_below(
         for name, value in saved.items():
             setattr(fa, name, value)
         autotune.clear_memo()
+
+
+def test_a_pipeline_payloads_buckets_capture_with_its_transform(cuda, tmp_path):
+    """A payload exported with a transform graph (the BERT twin's
+    tokenizer and its device-side mask and label cast) captures every
+    bucket, its graph's constants made before the capture, and each
+    replay of raw text equals the eager step bit for bit."""
+    import os
+
+    import numpy as np
+
+    from tpu_pipelines_torch.data.schema import Feature, FeatureType, Schema
+    from tpu_pipelines_torch.examples import bert_module, bert_preprocessing
+    from tpu_pipelines_torch.models.bert import build_bert_model, init_bert_weights
+    from tpu_pipelines_torch.serving import aot
+    from tpu_pipelines_torch.trainer.export import export_model, load_exported_model
+    from tpu_pipelines_torch.transform.graph import TransformGraph
+
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(60)]
+    texts = np.asarray([" ".join(rng.choice(words, int(rng.integers(3, 30))))
+                        for _ in range(64)], dtype=object)
+    data = {"text": texts, "label": rng.integers(0, 2, 64)}
+    graph = TransformGraph.build(bert_preprocessing.preprocessing_fn, Schema({
+        "text": Feature("text", FeatureType.BYTES),
+        "label": Feature("label", FeatureType.INT)}))
+    graph.analyze_chunks(lambda: iter([data]), device="cpu")
+    graph.save(str(tmp_path / "graph"))
+    hp = {**TINY_SERVE, "num_classes": 2}
+    model = init_bert_weights(build_bert_model(hp),
+                              torch.Generator().manual_seed(0))
+    export_model(serving_model_dir=str(tmp_path / "1"),
+                 params=model.state_dict(),
+                 module_file=os.path.abspath(bert_module.__file__),
+                 hyperparameters=hp, transform_graph_uri=str(tmp_path / "graph"))
+    loaded = load_exported_model(str(tmp_path / "1"), device=cuda)
+
+    def rows(b, seed):
+        pick = np.random.default_rng(seed).integers(0, 64, b)
+        return {"text": texts[pick], "label": data["label"][pick]}
+
+    stats = aot.warm_loaded(loaded, rows(1, 0), 8)
+    assert stats["compiled"] == len(stats["buckets"]) and not stats["fallback_warm"]
+    for b in stats["buckets"]:
+        raw = rows(b, seed=b)
+        assert np.array_equal(loaded.predict(raw),
+                              _eager(loaded, loaded.host_preprocess(raw)))
+    assert loaded.aot.compiles_after_warm == 0
+
+
+def test_a_rollback_replays_the_resident_versions_graphs(cuda, tmp_path):
+    """The SLO rollback re-activates the prior resident version: its
+    graphs captured at boot replay, nothing is captured anew, and each
+    bucket's replay equals the eager step bit for bit."""
+    import shutil
+
+    import numpy as np
+
+    from tpu_pipelines_torch.serving.fleet import ServingFleet
+
+    _served_bert(tmp_path, cuda)
+    fleet = ServingFleet("bert", str(tmp_path), replicas=2, max_versions=2,
+                         max_batch_size=8, swap_probation_s=300.0, device=cuda)
+    captures = [0]
+    real = torch.cuda.CUDAGraph.capture_begin
+
+    def counted(self, *args, **kwargs):
+        captures[0] += 1
+        return real(self, *args, **kwargs)
+
+    try:
+        fleet.reload()
+        fleet.submit(_bert_rows(2, seed=1), 2)          # version 1 captures
+        v1 = fleet.active_loaded()
+        shutil.copytree(str(tmp_path / "1"), str(tmp_path / "2"))
+        fleet.reload()                                  # canary + capture
+        assert fleet.active_version == "2"
+        torch.cuda.CUDAGraph.capture_begin = counted
+        assert fleet.on_slo_breach({"slo": "errors_5xx"}) is True
+        assert fleet.active_version == "1" and fleet.active_loaded() is v1
+        for b in (1, 2, 3, 8):
+            batch = _bert_rows(b, seed=30 + b)
+            assert np.array_equal(fleet.submit(batch, b), _eager(v1, batch))
+        for b in fleet.last_warm["buckets"]:
+            batch = _bert_rows(b, seed=40 + b)
+            assert np.array_equal(v1.predict(batch), _eager(v1, batch))
+        assert captures[0] == 0 and v1.aot.compiles_after_warm == 0
+    finally:
+        torch.cuda.CUDAGraph.capture_begin = real
+        fleet.close()
+
+
+def test_a_warm_started_trainers_captured_steps_equal_its_eager_steps(
+        cuda, tmp_path):
+    """warm_start_init's restored weights are what the first (eager) step
+    and every captured step start from: the graph run's losses and final
+    weights equal the same steps run eagerly from the base payload."""
+    import functools
+    import os
+
+    from tpu_pipelines_torch.examples import bert_module
+    from tpu_pipelines_torch.models.bert import build_bert_model, init_bert_weights
+    from tpu_pipelines_torch.trainer.export import export_model, warm_start_init
+    from tpu_pipelines_torch.trainer.fn_args import FnArgs
+    from tpu_pipelines_torch.trainer.train_loop import step_generator
+
+    base = init_bert_weights(build_bert_model(TINY_TRAIN),
+                             torch.Generator().manual_seed(11))
+    uri = export_model(serving_model_dir=str(tmp_path / "base"),
+                       params=base.state_dict(),
+                       module_file=os.path.abspath(bert_module.__file__),
+                       hyperparameters=TINY_TRAIN)
+    init = warm_start_init(FnArgs(custom_config={"base_model_uri": uri}),
+                           functools.partial(bert_module.init_params_fn,
+                                             hyperparameters=TINY_TRAIN))
+    batches = _train_batches(6, seed=5)
+    model, result, losses = _graph_train(batches, init_params_fn=init,
+                                         window=2)
+    assert result.compiles_after_warm == 0
+    eager = init(torch.Generator().manual_seed(3), batches[0]).to(cuda).train()
+    for k, v in base.state_dict().items():
+        assert torch.equal(eager.state_dict()[k].cpu(), v), k
+    opt = bert_module.adamw(1e-3)(eager.parameters())
+    eager_losses = []
+    for s, b in enumerate(batches):
+        loss, _ = bert_module.loss_fn(
+            eager, {k: torch.as_tensor(v, device=cuda) for k, v in b.items()},
+            step_generator(3, s, cuda))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        eager_losses.append(loss.item())
+    assert losses == eager_losses
+    for (name, p), q in zip(model.named_parameters(), eager.parameters()):
+        assert torch.equal(p, q), name
 
 
 def test_a_capture_that_cannot_succeed_raises_instead_of_running_eagerly(cuda):

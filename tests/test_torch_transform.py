@@ -214,3 +214,19 @@ def test_a_string_interface_materializes_host_side_and_says_so():
     want = graph.apply_host(batch)
     assert got["raw_s"].tolist() == want["raw_s"].tolist()
     np.testing.assert_array_equal(got["x2"], want["x2"])
+
+
+def test_a_constant_operand_is_one_device_tensor_made_once():
+    """The torch evaluator's constants (``greater(ids, 0)``, a scale's
+    span) are 0-d f32 tensors on the operand's device, made once and
+    reused: a serving step captured as a CUDA graph may not copy them
+    from the host at capture."""
+    import torch
+
+    from tpu_pipelines_torch.transform import graph as g
+
+    x = torch.arange(4, dtype=torch.float32)
+    a = g._operand(0, x.device)
+    assert a is g._operand(0.0, x.device)
+    assert a.shape == () and a.dtype == torch.float32 and a.device == x.device
+    assert g._operand(x, x.device) is x

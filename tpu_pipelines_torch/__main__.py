@@ -1,4 +1,4 @@
-"""The port's CLI: ``python -m tpu_pipelines_torch {run,inspect,trace} ...``,
+"""The port's CLI: ``python -m tpu_pipelines_torch {run,inspect,trace,drift} ...``,
 the twin of ``python -m tpu_pipelines``.
 
 ``run`` executes a pipeline module through the port's ``LocalDagRunner``,
@@ -25,14 +25,20 @@ raises, naming the device):
     python -m tpu_pipelines_torch trace diff <run-a> <run-b> \
         --pipeline-root /pipe/root [--threshold 0.2]
 
+``drift`` reads a serving fleet's ``/metrics`` scrape and prints its live
+drift and skew report (exit 3 with ``--fail-on-alert`` once any alert
+counted):
+
+    python -m tpu_pipelines_torch drift --url http://127.0.0.1:8501/v1/models/bert
+
 ``trace diff`` exits 3 when a node or the critical path regressed past
 the threshold.  ``--json`` on ``trace``, ``trace diff`` and ``inspect
 runs`` prints one JSON object instead of the tables.
 
 Not ported yet; each prints the ``ROADMAP.md`` item it waits for and
 exits 2: ``run --from-node/--to-node/--resume-from`` (A22), ``run
---lint`` and ``lint`` (A20), ``continuous`` (A23), ``drift`` (A8a) and
-``trace serve`` (A8b).
+--lint`` and ``lint`` (A20), ``continuous`` (A23) and ``trace serve``
+(A8b).
 """
 
 from __future__ import annotations
@@ -45,11 +51,12 @@ import sys
 from tpu_pipelines_torch.metadata.store import MetadataStore
 
 EXIT_UNPORTED = 2
+# A gate that found something (``drift --fail-on-alert``).
+EXIT_GATED = 3
 # Subcommands not ported yet: their ROADMAP.md item and what they do.
 _DEFERRED = {
     "lint": ("A20", "static pipeline and executor analysis"),
     "continuous": ("A23", "the continuous controller"),
-    "drift": ("A8a", "the live drift and skew report"),
 }
 
 
@@ -288,6 +295,38 @@ def cmd_artifacts(store: MetadataStore, type_name: str) -> int:
     return 0
 
 
+def cmd_drift(args) -> int:
+    """``drift --url U [--json] [--fail-on-alert]``: scrape a live fleet's
+    /metrics and print the drift and skew report."""
+    import urllib.parse
+    import urllib.request
+
+    from tpu_pipelines_torch.observability.drift import (
+        format_drift_report,
+        parse_drift_scrape,
+    )
+
+    parts = urllib.parse.urlsplit(args.url)
+    url = urllib.parse.urlunsplit(
+        (parts.scheme, parts.netloc, "/metrics", "", "")
+    )
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            text = r.read().decode("utf-8", "replace")
+    except Exception as e:  # noqa: BLE001 — tool error, not a verdict
+        print(f"drift: cannot scrape {url}: {type(e).__name__}: {e}",
+              file=sys.stderr)
+        return 1
+    report = parse_drift_scrape(text)
+    if args.json:
+        print(json.dumps(report, indent=2, sort_keys=True))
+    else:
+        print(format_drift_report(report))
+    if args.fail_on_alert and report.get("alerts_total", 0) > 0:
+        return EXIT_GATED
+    return 0
+
+
 def cmd_run(args) -> int:
     import logging
 
@@ -418,6 +457,24 @@ def main(argv=None) -> int:
              "20%% slower flags; exit code 3 on any flag)",
     )
 
+    p_drift = sub.add_parser(
+        "drift",
+        help="live drift and skew report off a serving fleet's /metrics "
+             "scrape (observability/drift.py)",
+    )
+    p_drift.add_argument(
+        "--url", required=True,
+        help="serving base URL (the Pusher push-URL works, e.g. "
+             "http://127.0.0.1:8501/v1/models/bert — only scheme+host are "
+             "used; /metrics is derived)",
+    )
+    p_drift.add_argument("--json", action="store_true",
+                         help="machine-readable output (one JSON object)")
+    p_drift.add_argument(
+        "--fail-on-alert", action="store_true",
+        help="exit 3 when the fleet has counted any drift/skew alert",
+    )
+
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in _DEFERRED:
         return _unported(argv[0], _DEFERRED[argv[0]][0])
@@ -426,6 +483,8 @@ def main(argv=None) -> int:
         return cmd_run(args)
     if args.cmd == "trace":
         return cmd_trace(args)
+    if args.cmd == "drift":
+        return cmd_drift(args)
     if not args.metadata:
         inspect.error("the following arguments are required: --metadata")
     store = MetadataStore(args.metadata)

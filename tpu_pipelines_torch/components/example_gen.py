@@ -21,12 +21,18 @@ and reproduces what the reference's hash sees:
     hash with FNV-1a (``utils/hashing.py``), so a row lands in the same
     split in both packages.
 
-``ImportExampleGen`` is not ported yet (``ROADMAP.md`` A18).
+``ImportExampleGen`` imports TFRecord / ArrayRecord files of
+``tf.train.Example`` (parsed by ``data/record_io.py``) or an ``.npz`` of
+columns.  Its hash split prints each numpy column's values as the
+reference's Arrow column would (a float32 column in float32's shortest
+digits, a vector column as Python prints its row's list), so the two
+packages split the same rows alike.
 """
 
 from __future__ import annotations
 
 import csv
+import itertools
 import os
 import time
 from typing import Dict, Iterator, List, Optional, Tuple
@@ -132,15 +138,17 @@ def parse_column(raw: np.ndarray, kind: Optional[str] = None):
     )
 
 
-def _double_text(v: float) -> str:
-    """Arrow's text of one double: shortest round-trip digits, positional
-    for decimal exponents in [-6, 9], else exponent form."""
+def _double_text(v: float, shortest=repr) -> str:
+    """Arrow's text of one double (``shortest`` the digits of its type:
+    ``repr`` for a double, ``str(np.float32(.))`` for a float): shortest
+    round-trip digits, positional for decimal exponents in [-6, 9], else
+    exponent form."""
     if v != v:
         return "nan"
     if v in (float("inf"), float("-inf")):
         return "inf" if v > 0 else "-inf"
     sign = "-" if np.signbit(v) else ""
-    r = repr(abs(v))
+    r = shortest(abs(v))
     if "e" in r:
         mant, exp = r.split("e")
         e = int(exp)
@@ -166,11 +174,21 @@ def _double_text(v: float) -> str:
     return f"{sign}{mant}e{'+' if e > 0 else '-'}{abs(e)}"
 
 
+def _float32_digits(v: float) -> str:
+    return str(np.float32(v))
+
+
 def arrow_text(col: np.ndarray, null: Optional[np.ndarray], kind: str) -> np.ndarray:
     """Each value of a parsed column as Arrow's string cast prints it, null
     as ``""`` (a ``U`` array)."""
     if kind in ("string", "null"):
         text = np.asarray(col, dtype="U")
+    elif kind == "list":
+        # A list column hashes as Python prints each row's list.
+        text = np.asarray([str(row) for row in col.tolist()], dtype="U")
+    elif kind == "float":
+        text = np.asarray([_double_text(float(v), _float32_digits)
+                           for v in col], dtype="U")
     elif kind == "int64":
         text = col.astype("U")
     elif kind == "bool":
@@ -308,30 +326,37 @@ def _split_and_write(table: Table, kinds: Dict[str, str], uri: str,
     return counts
 
 
-def _split_and_write_streaming(blocks, uri: str, splits: Dict[str, int],
-                               kinds: Dict[str, str], num_shards: int,
-                               path: str) -> Dict[str, int]:
-    """Hash-split a stream of CSV blocks; block i goes to shard
-    i % num_shards of every split.  Column types are pinned from the first
-    block (Arrow's streaming reader does the same)."""
+def _parsed_blocks(blocks, kinds: Dict[str, str], path: str
+                   ) -> Iterator[Tuple[Table, Dict[str, str]]]:
+    """CSV blocks as ``(table, kinds)``; column types are pinned from the
+    first block (Arrow's streaming reader does the same)."""
+    for header, rows in blocks:
+        try:
+            table, block_kinds = _block_table(header, rows, kinds)
+        except ValueError as e:
+            raise ValueError(
+                f"streaming CSV ingest of {path!r} failed mid-stream: "
+                f"{e}\nThe streaming reader pins column types from the "
+                "first block. If a column's type shifts deeper in the "
+                "file (or across files), pin it explicitly via the "
+                "column_types parameter, e.g. column_types={'fare': "
+                "'float64'}; whole-file reads (below "
+                "streaming_threshold_bytes) infer from every row instead."
+            ) from e
+        kinds = block_kinds
+        yield table, kinds
+
+
+def _split_and_write_streaming(tables, uri: str, splits: Dict[str, int],
+                               num_shards: int) -> Dict[str, int]:
+    """Hash-split a stream of ``(table, kinds)`` chunks; chunk i goes to
+    shard i % num_shards of every split.  Every writer opens with the
+    first chunk, so empty splits and shards still materialize."""
     counts = {s: 0 for s in splits}
     writers = None
     try:
-        for i, (header, rows) in enumerate(blocks):
-            try:
-                table, block_kinds = _block_table(header, rows, kinds)
-            except ValueError as e:
-                raise ValueError(
-                    f"streaming CSV ingest of {path!r} failed mid-stream: "
-                    f"{e}\nThe streaming reader pins column types from the "
-                    "first block. If a column's type shifts deeper in the "
-                    "file (or across files), pin it explicitly via the "
-                    "column_types parameter, e.g. column_types={'fare': "
-                    "'float64'}; whole-file reads (below "
-                    "streaming_threshold_bytes) infer from every row instead."
-                ) from e
+        for i, (table, kinds) in enumerate(tables):
             if writers is None:
-                kinds = block_kinds
                 writers = {
                     split: [examples_io.open_split_writer(
                         uri, split, table, shard=w, num_shards=num_shards)
@@ -379,6 +404,35 @@ def read_csv(paths: List[str], column_types=None) -> Tuple[Table, Dict[str, str]
     return _block_table(header, rows, kinds)
 
 
+def _resolve_span(ctx):
+    """``input_path`` with ``{SPAN}`` / ``{VERSION}`` resolved
+    (``utils/span.py``), and the span and version chosen (None when the
+    path has no pattern)."""
+    from tpu_pipelines_torch.utils.span import (
+        has_span_pattern,
+        resolve_span_pattern,
+    )
+
+    path = ctx.exec_properties["input_path"]
+    if not has_span_pattern(path):
+        return path, None, None
+    return resolve_span_pattern(
+        path,
+        ctx.exec_properties.get("span"),
+        ctx.exec_properties.get("version"),
+    )
+
+
+def _stamp_span(out, props, span, version):
+    """The chosen span and version on the Examples artifact and on the
+    execution's properties; returns ``props``."""
+    for key, value in (("span", span), ("version", version)):
+        if value is not None:
+            out.properties[key] = value
+            props[key] = value
+    return props
+
+
 @component(
     outputs={"examples": "Examples"},
     parameters={
@@ -407,19 +461,7 @@ def read_csv(paths: List[str], column_types=None) -> Tuple[Table, Dict[str, str]
 def CsvExampleGen(ctx):
     """Read CSV file(s), hash-split, write ``.npz`` shards; streaming when
     large."""
-    from tpu_pipelines_torch.utils.span import (
-        has_span_pattern,
-        resolve_span_pattern,
-    )
-
-    path = ctx.exec_properties["input_path"]
-    span = version = None
-    if has_span_pattern(path):
-        path, span, version = resolve_span_pattern(
-            path,
-            ctx.exec_properties.get("span"),
-            ctx.exec_properties.get("version"),
-        )
+    path, span, version = _resolve_span(ctx)
     splits = ctx.exec_properties["splits"] or dict(DEFAULT_SPLITS)
     threshold = ctx.exec_properties["streaming_threshold_bytes"]
     plan = ShardPlan.resolve(ctx.exec_properties.get("num_shards"))
@@ -437,8 +479,9 @@ def CsvExampleGen(ctx):
     total_bytes = sum(os.path.getsize(f) for f in files)
     if total_bytes > threshold:
         counts = _split_and_write_streaming(
-            _blocks(files, STREAM_BLOCK_ROWS), out.uri, splits,
-            _pinned_kinds(column_types), plan.num_shards, path,
+            _parsed_blocks(_blocks(files, STREAM_BLOCK_ROWS),
+                           _pinned_kinds(column_types), path),
+            out.uri, splits, plan.num_shards,
         )
     else:
         table, kinds = read_csv(files, column_types)
@@ -448,10 +491,6 @@ def CsvExampleGen(ctx):
     out.properties["split_names"] = sorted(counts)
     out.properties["split_counts"] = counts
     out.properties["num_shards"] = plan.num_shards
-    if span is not None:
-        out.properties["span"] = span
-    if version is not None:
-        out.properties["version"] = version
     n = sum(counts.values())
     elapsed = max(1e-9, time.monotonic() - t0)
     props = {
@@ -461,15 +500,171 @@ def CsvExampleGen(ctx):
         "shard_plan_source": plan.source,
         **{f"rows_{k}": v for k, v in counts.items()},
     }
-    if span is not None:
-        props["span"] = span
-    if version is not None:
-        props["version"] = version
-    return props
+    return _stamp_span(out, props, span, version)
 
 
-def ImportExampleGen(*args, **kwargs):
-    raise NotImplementedError(
-        "ImportExampleGen is not ported yet (ROADMAP.md A18); use "
-        "CsvExampleGen"
+RECORD_SUFFIXES = (".tfrecord", ".tfrecords", ".array_record", ".arrayrecord")
+
+
+def column_kinds(table: Table) -> Dict[str, str]:
+    """The Arrow type each numpy column stands for, by dtype: what the
+    row hash needs to print its values as the reference's Arrow columns."""
+    kinds = {}
+    for name, col in table.columns.items():
+        if col.ndim > 1:
+            kinds[name] = "list"
+        elif col.dtype.kind in ("U", "S", "O"):
+            kinds[name] = "string"
+        elif col.dtype == np.float32:
+            kinds[name] = "float"
+        elif col.dtype.kind == "f":
+            kinds[name] = "double"
+        elif col.dtype == bool:
+            kinds[name] = "bool"
+        else:
+            kinds[name] = "int64"
+    return kinds
+
+
+def _record_reader(path: str, verify_crc: bool = True):
+    from tpu_pipelines_torch.data import record_io
+
+    if path.endswith((".array_record", ".arrayrecord")):
+        return record_io.iter_array_records(path)
+    return record_io.iter_tfrecords(path, verify_crc=verify_crc)
+
+
+def _import_record_files(files, out_uri: str, splits: Dict[str, int],
+                         per_split: bool, verify_crc: bool = True,
+                         num_shards: int = 1) -> Dict[str, int]:
+    """tf.train.Example record files -> ``.npz`` splits, O(chunk) memory.
+
+    ``per_split=True``: each file is a split (``<split>.tfrecord``), one
+    shard each.  Otherwise all files concatenate and hash-split row by row,
+    as the CSV path does."""
+    from tpu_pipelines_torch.data import record_io
+
+    def tables(path):
+        return record_io.tf_example_batches(_record_reader(path, verify_crc))
+
+    counts: Dict[str, int] = {}
+    if per_split:
+        stems = [os.path.splitext(os.path.basename(f))[0] for f in files]
+        dupes = sorted({s for s in stems if stems.count(s) > 1})
+        if dupes:
+            raise ValueError(
+                f"multiple record files map to the same split name(s) "
+                f"{dupes} (e.g. train.tfrecord + train.tfrecords); "
+                "one file per split"
+            )
+        for f, split in zip(files, stems):
+            writer = None
+            counts[split] = 0
+            try:
+                for table in tables(f):
+                    if writer is None:
+                        writer = examples_io.open_split_writer(
+                            out_uri, split, table)
+                    writer.write_table(table)
+                    counts[split] += table.num_rows
+            finally:
+                if writer is not None:
+                    writer.close()
+            if writer is None:
+                raise ValueError(f"record file {f!r} is empty")
+        return counts
+
+    stream = ((t, column_kinds(t)) for f in files for t in tables(f))
+    first = next(stream, None)
+    if first is None:
+        raise ValueError(f"no records in {files!r}")
+    return _split_and_write_streaming(
+        itertools.chain([first], stream), out_uri, splits, num_shards
     )
+
+
+@component(
+    outputs={"examples": "Examples"},
+    parameters={
+        # A directory of <split>.tfrecord / <split>.array_record files, a
+        # single record file, or an .npz file whose arrays are columns
+        # (dims beyond the second are flattened into fixed-length vector
+        # columns).  "{SPAN}" / "{VERSION}" resolve as in CsvExampleGen.
+        "input_path": Parameter(type=str, required=True),
+        "splits": Parameter(type=dict, default=None),
+        # TFRecord masked-crc32c verification (data/record_io.py).  False
+        # is the trusted-source opt-out, also the way past third-party
+        # writers that zero or mis-mask the crc fields.
+        "verify_record_crc": Parameter(type=bool, default=True),
+        # Shard files per split for the hash-split paths (ShardPlan
+        # precedence, see CsvExampleGen).  The split-per-file import keeps
+        # one file per split: the import is the layout there.
+        "num_shards": Parameter(type=int, default=None),
+        "span": Parameter(type=int, default=None),
+        "version": Parameter(type=int, default=None),
+    },
+    external_input_parameters=("input_path",),
+)
+def ImportExampleGen(ctx):
+    """Import already-materialized data as an Examples artifact.
+
+    Accepted layouts (the reference's, less Parquet):
+      - a directory of ``<split>.tfrecord`` / ``.array_record`` files of
+        ``tf.train.Example`` payloads: parsed split per file;
+      - a single record file: parsed, then hash-split like CsvExampleGen;
+      - a single ``.npz``: its columns hash-split like CsvExampleGen.
+    A directory of ``<split>.parquet`` files raises: the port's Examples
+    are ``.npz`` shards and it reads no Parquet (``ROADMAP.md`` C).
+    """
+    path, span, version = _resolve_span(ctx)
+    out = ctx.output("examples")
+    plan = ShardPlan.resolve(ctx.exec_properties.get("num_shards"))
+    verify_crc = ctx.exec_properties["verify_record_crc"]
+    splits = ctx.exec_properties["splits"] or dict(DEFAULT_SPLITS)
+    t0 = time.monotonic()
+    if os.path.isdir(path):
+        names = sorted(os.listdir(path))
+        if any(f.endswith(".parquet") for f in names):
+            raise NotImplementedError(
+                f"{path!r} holds .parquet files: the port's Examples are "
+                ".npz shards and it reads no Parquet (ROADMAP.md C, the "
+                "Examples format); import TFRecords or an .npz instead"
+            )
+        record_files = [f for f in names if f.endswith(RECORD_SUFFIXES)]
+        if not record_files:
+            raise ValueError(f"no record files under {path!r}")
+        counts = _import_record_files(
+            [os.path.join(path, f) for f in record_files], out.uri, {},
+            per_split=True, verify_crc=verify_crc,
+        )
+    elif path.endswith(RECORD_SUFFIXES):
+        counts = _import_record_files(
+            [path], out.uri, splits, per_split=False, verify_crc=verify_crc,
+            num_shards=plan.num_shards,
+        )
+    elif path.endswith(".npz"):
+        with np.load(path, allow_pickle=False) as data:
+            columns = {}
+            for name in data.files:
+                arr = data[name]
+                if arr.ndim > 2:
+                    arr = arr.reshape(arr.shape[0], -1)
+                columns[name] = arr
+        table = Table(columns)
+        counts = _split_and_write(
+            table, column_kinds(table), out.uri, splits, plan.num_shards
+        )
+    else:
+        raise ValueError(f"unsupported import source: {path!r}")
+    out.properties["split_names"] = sorted(counts)
+    out.properties["split_counts"] = counts
+    n = sum(counts.values())
+    props = {
+        "num_examples": n,
+        "ingest_rows_per_sec": round(
+            n / max(1e-9, time.monotonic() - t0), 1
+        ),
+        "data_shards": plan.num_shards,
+        "shard_plan_source": plan.source,
+    }
+    return _stamp_span(out, props, span, version)

@@ -17,4 +17,8 @@ from tpu_pipelines_torch.dsl.component import (  # noqa: F401
 )
 from tpu_pipelines_torch.dsl.pipeline import Pipeline  # noqa: F401
 from tpu_pipelines_torch.dsl.compiler import Compiler, PipelineIR  # noqa: F401
-from tpu_pipelines_torch.dsl.cond import Cond  # noqa: F401
+from tpu_pipelines_torch.dsl.cond import (  # noqa: F401
+    Cond,
+    artifact_property,
+    runtime_parameter,
+)

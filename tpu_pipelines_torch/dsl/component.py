@@ -3,8 +3,9 @@
 The port's copy of ``tpu_pipelines/dsl/component.py``.  ``resource_class``
 keeps the reference's spelling, ``host`` or ``tpu``, so a compiled IR reads
 the same in both packages: here ``tpu`` means "holds the accelerator" (the
-GPU), and the runner admits one such node at a time.  Conditions
-(``dsl/cond.py``) and lint suppressions wait (``ROADMAP.md`` A18, A20).
+GPU), and the runner admits one such node at a time.  Nodes built inside
+``with Cond(...)`` blocks carry their predicates (``dsl/cond.py``); lint
+suppressions wait (``ROADMAP.md`` A20).
 
 A component is (1) a declarative spec — typed input/output channels and
 exec-properties — and (2) an executor function invoked by a runner's launcher
@@ -258,8 +259,11 @@ class Component:
             for key, type_name in self.SPEC.outputs.items()
         }
 
-        # Conditions from `with Cond(...)` blocks wait (dsl/cond.py raises).
-        self.conditions: List[Any] = []
+        # Conditions from enclosing `with Cond(...)` blocks (dsl/cond.py):
+        # the runner only executes this node when every predicate holds.
+        from tpu_pipelines_torch.dsl.cond import active_predicates
+
+        self.conditions = active_predicates()
 
     @property
     def upstream(self) -> List["Component"]:

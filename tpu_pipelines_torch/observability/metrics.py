@@ -8,8 +8,9 @@ Stdlib only; one registry lock serializes every update and the
 exposition snapshot; exposition follows the Prometheus text format
 v0.0.4.  :class:`MetricsServer` / :func:`start_http_server` serve a
 registry's ``GET /metrics`` and ``GET /healthz`` (the runner's opt-in
-``TPP_METRICS_PORT``).  Fork-pool snapshot/merge and federation wait for
-ROADMAP.md A8b.
+``TPP_METRICS_PORT``).  ``MetricsRegistry.snapshot`` gives the SLO
+burn-rate monitor its cumulative readings; the fork-pool merge and
+federation wait for ROADMAP.md A8b.
 """
 
 from __future__ import annotations
@@ -137,6 +138,9 @@ class _Metric:
             )
         return ()
 
+    def _snapshot_series(self) -> Dict[Tuple[str, ...], Any]:
+        raise NotImplementedError
+
     def _samples(self) -> List[Tuple[str, Dict[str, str], float]]:
         """(suffix, labels, value) rows for exposition."""
         raise NotImplementedError
@@ -189,6 +193,9 @@ class Counter(_Metric):
     def _get(self, key: Tuple[str, ...]) -> float:
         with self._lock:
             return float(self._series.get(key, 0.0))
+
+    def _snapshot_series(self):
+        return dict(self._series)
 
     def _samples(self):
         return [
@@ -248,6 +255,12 @@ class Gauge(_Metric):
         except Exception:  # noqa: BLE001 — a dead provider reads as 0
             return 0.0
 
+    def _snapshot_series(self):
+        series = dict(self._series)
+        if self._fn is not None:
+            series[()] = self._eval_fn()
+        return series
+
     def _samples(self):
         series = dict(self._series)
         if self._fn is not None:
@@ -305,6 +318,16 @@ class Histogram(_Metric):
         with self._lock:
             state = self._series.get(key)
             return float(state["count"]) if state else 0.0
+
+    def _snapshot_series(self):
+        return {
+            key: {
+                "buckets": list(s["buckets"]),
+                "sum": s["sum"],
+                "count": s["count"],
+            }
+            for key, s in self._series.items()
+        }
 
     def _samples(self):
         rows: List[Tuple[str, Dict[str, str], float]] = []
@@ -378,6 +401,25 @@ class MetricsRegistry:
     def get(self, name: str) -> Optional[_Metric]:
         with self._lock:
             return self._metrics.get(name)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Plain-dict copy of every metric: its type, help, labels, bucket
+        bounds (histograms) and series — what the SLO monitor reads."""
+        with self._lock:
+            return {
+                name: {
+                    "type": m.type_name,
+                    "help": m.help_text,
+                    "labels": m.label_names,
+                    **(
+                        {"buckets": list(m.bucket_bounds)}
+                        if isinstance(m, Histogram)
+                        else {}
+                    ),
+                    "series": m._snapshot_series(),
+                }
+                for name, m in self._metrics.items()
+            }
 
     # -- exposition -------------------------------------------------------
 

@@ -38,12 +38,19 @@ gauges, per-node heartbeats and ``pipeline_run_info`` into the process
 registry, and with ``TPP_METRICS_PORT`` serves ``/metrics`` and
 ``/healthz`` for the run's length.
 
+Resolver nodes run in the driver with no executor and are never cached
+or retried: they query the store and publish an execution whose outputs
+are the existing artifacts (possibly none; an optional input wired to an
+empty output resolves to an empty list).  A node whose ``Cond`` predicate
+fails, or whose upstream was condition-skipped, settles ``COND_SKIPPED``
+with a CANCELED execution recording the verdict; the run still succeeds.
+
 Not ported, and refused with ``NotImplementedError`` naming the
 ``ROADMAP.md`` item: ``spmd_sync`` multi-process runs (A10); the XLA
 compile cache (no counterpart: the port's kernels build once per checkout);
-the lint pre-flight (A20); Resolver nodes and Cond (A18); ``resume_from``,
-partial runs and node deadlines (A22); metric federation (A8b) and fault
-injection (A10, A22).
+the lint pre-flight (A20); ``resume_from``, partial runs (with the replay
+of a recorded skip and of prior outputs into them) and node deadlines
+(A22); metric federation (A8b) and fault injection (A10, A22).
 """
 
 from __future__ import annotations
@@ -197,7 +204,7 @@ class _RunTelemetry:
 @dataclasses.dataclass
 class NodeResult:
     node_id: str
-    status: str   # COMPLETE | CACHED | FAILED
+    status: str   # COMPLETE | CACHED | FAILED | COND_SKIPPED
     execution_id: int = 0
     outputs: Dict[str, List[Artifact]] = dataclasses.field(default_factory=dict)
     error: str = ""
@@ -216,7 +223,8 @@ class RunResult:
     @property
     def succeeded(self) -> bool:
         return all(
-            n.status in ("COMPLETE", "CACHED") for n in self.nodes.values()
+            n.status in ("COMPLETE", "CACHED", "COND_SKIPPED")
+            for n in self.nodes.values()
         )
 
     def outputs_of(self, node_id: str, key: str) -> List[Artifact]:
@@ -296,8 +304,6 @@ class LocalDagRunner:
             raise _unported("the lint pre-flight", "A20")
         ir = Compiler().compile(pipeline)
         for node in ir.nodes:
-            if node.is_resolver:
-                raise _unported(f"Resolver node {node.id!r}", "A18")
             if self._node_timeout_s(node, ir) > 0:
                 raise _unported(f"node deadlines ({node.id!r})", "A22")
         executors = {c.id: c for c in pipeline.components}
@@ -410,6 +416,55 @@ class LocalDagRunner:
             )
         return policy
 
+    @staticmethod
+    def _cond_outcome(
+        store: MetadataStore,
+        node: NodeIR,
+        produced: Dict[str, Dict[str, List[Artifact]]],
+        cond_skipped: set,
+        runtime_parameters: Dict[str, Any],
+        contexts: List[Context],
+        publish_lock: threading.Lock,
+    ) -> Optional["NodeResult"]:
+        """Cond verdict for a node whose upstreams all settled without
+        failure: COND_SKIPPED when a predicate fails or an upstream was
+        condition-skipped (not a failure: the run still succeeds), FAILED
+        when a predicate cannot be evaluated, None to dispatch.  A skip is
+        recorded as a CANCELED execution carrying ``cond_skipped``, the
+        verdict a partial run replays (ROADMAP.md A22)."""
+        from tpu_pipelines_torch.dsl.cond import (
+            ConditionUnresolvedError,
+            evaluate_condition,
+        )
+
+        cascade = any(u in cond_skipped for u in node.upstream)
+        unmet: List[Any] = []
+        if node.conditions and not cascade:
+            try:
+                unmet = [
+                    c for c in node.conditions
+                    if not evaluate_condition(c, produced, runtime_parameters)
+                ]
+            except ConditionUnresolvedError as e:
+                return NodeResult(
+                    node_id=node.id, status="FAILED", error=str(e),
+                )
+        if not (cascade or unmet):
+            return None
+        log.info(
+            "node %s: condition not met%s; skipping",
+            node.id, "" if cascade else f" ({unmet})",
+        )
+        ex = Execution(
+            type_name=node.component_type,
+            node_id=node.id,
+            state=ExecutionState.CANCELED,
+            properties={"cond_skipped": True, "unmet_conditions": unmet},
+        )
+        with publish_lock:
+            store.publish_execution(ex, {}, {}, contexts)
+        return NodeResult(node_id=node.id, status="COND_SKIPPED")
+
     def _run_nodes(
         self, *, store, ir, executors, result, runtime_parameters, contexts,
         extras, enable_cache, telemetry, max_workers: int,
@@ -427,6 +482,7 @@ class LocalDagRunner:
         by_id = {n.id: n for n in ir.nodes}
         produced: Dict[str, Dict[str, List[Artifact]]] = {}
         failed: set = set()
+        cond_skipped: set = set()
         settled: set = set()
         in_flight: set = set()
         tpu_in_flight: Optional[str] = None
@@ -460,6 +516,9 @@ class LocalDagRunner:
             settled.add(nr.node_id)
             if nr.status in ("COMPLETE", "CACHED"):
                 produced[nr.node_id] = nr.outputs
+            elif nr.status == "COND_SKIPPED":
+                cond_skipped.add(nr.node_id)
+                produced[nr.node_id] = {}
             else:
                 failed.add(nr.node_id)
 
@@ -504,6 +563,18 @@ class LocalDagRunner:
                         nr = NodeResult(
                             node_id=nid, status="FAILED",
                             error="upstream failure")
+                    else:
+                        try:
+                            nr = self._cond_outcome(
+                                store, node, produced, cond_skipped,
+                                runtime_parameters, contexts, publish_lock,
+                            )
+                        except StoreUnavailableError as e:
+                            nr = NodeResult(
+                                node_id=nid, status="FAILED",
+                                error=f"metadata store unavailable: {e}",
+                            )
+                    if nr is not None:
                         settle(nr)
                         unprocessed.remove(nid)
                         progressed = True
@@ -598,6 +669,12 @@ class LocalDagRunner:
         with publish_lock:
             store.put_context(node_ctx)
         all_ctx = contexts + [node_ctx]
+
+        if node.is_resolver:
+            with publish_lock:
+                return self._run_resolver_node(
+                    store, ir, node, all_ctx, t0, runtime_parameters
+                )
 
         try:
             inputs = self._resolve_inputs(node, produced)
@@ -780,6 +857,12 @@ class LocalDagRunner:
             {"wall_clock_s": round(wall, 4), "retries": attempts - 1}
         )
         if error:
+            # The ABANDONED record points at the allocated dirs, never at a
+            # path the executor re-pointed an output to (an Importer's
+            # source): ABANDONED is what a collector may delete.
+            for arts in outputs.values():
+                for a in arts:
+                    a.uri = allocated_uris[id(a)]
             ex.state = ExecutionState.FAILED
             ex.properties["error"] = error.splitlines()[-1]
             publish_err = self._publish(store, plan, publish_lock)
@@ -834,6 +917,61 @@ class LocalDagRunner:
         return None
 
     @staticmethod
+    def _run_resolver_node(
+        store: MetadataStore,
+        ir: PipelineIR,
+        node: NodeIR,
+        all_ctx: List[Context],
+        t0: float,
+        runtime_parameters: Dict[str, Any],
+    ) -> NodeResult:
+        """Driver-level Resolver execution (TFX Resolver semantics): query
+        the store per the configured strategy and publish an execution
+        whose OUTPUT events reference the existing artifacts (same ids);
+        never cached, since the answer changes as runs accumulate."""
+        from tpu_pipelines_torch.components.resolver import resolve_artifacts
+
+        props = {
+            k: resolve_property(v, runtime_parameters)
+            for k, v in node.exec_properties.items()
+        }
+        try:
+            outputs = resolve_artifacts(
+                store,
+                strategy=props.get("strategy", "latest_blessed_model"),
+                pipeline_name=ir.name,
+                within_pipeline=bool(props.get("within_pipeline", True)),
+                # Strategy-specific knobs (rolling_window's span count and
+                # producer filters) ride the exec properties verbatim.
+                extra=props,
+            )
+        except Exception:
+            return NodeResult(
+                node_id=node.id, status="FAILED", error=traceback.format_exc()
+            )
+        resolved_ids = sorted(a.id for arts in outputs.values() for a in arts)
+        wall = time.time() - t0
+        ex = Execution(
+            type_name=node.component_type,
+            node_id=node.id,
+            state=ExecutionState.COMPLETE,
+            properties={
+                "strategy": props.get("strategy"),
+                "resolved_artifact_ids": resolved_ids,
+                "wall_clock_s": round(wall, 4),
+            },
+        )
+        store.publish_execution(ex, {}, outputs, all_ctx)
+        log.info(
+            "node %s: RESOLVED %s (execution %d)",
+            node.id, resolved_ids or "nothing", ex.id,
+        )
+        return NodeResult(
+            node_id=node.id, status="COMPLETE", execution_id=ex.id,
+            outputs=outputs, wall_clock_s=wall,
+        )
+
+    @staticmethod
     def _resolve_inputs(
         node: NodeIR, produced: Dict[str, Dict[str, List[Artifact]]]
     ) -> Dict[str, List[Artifact]]:
@@ -854,6 +992,11 @@ class LocalDagRunner:
                     )
                 got = up.get(ref.output_key)
                 if not got:
+                    # A Resolver that found nothing publishes an empty
+                    # output list; an optional input wired to it resolves
+                    # to an empty list, the key present, so the executor
+                    # tells wired-but-empty (the resolver's bootstrap) from
+                    # never-wired.  Anything else fails.
                     if key in node.optional_inputs:
                         continue
                     raise KeyError(

@@ -14,7 +14,11 @@ versions with canary-gated hot-swap, each version's buckets captured as
 CUDA graphs before it serves): add ``--replicas 2 --max-versions 2
 --slo-p99-ms 50``; ``--model-type generative`` serves ``:generate`` through
 per-replica continuous-batching engines.  ``/healthz`` then carries a
-``fleet`` block.
+``fleet`` block.  ``--slo-monitor 2`` evaluates SLO burn rates every 2 s and
+rolls a version that breaches inside the post-swap probation window
+(``TPP_SWAP_PROBATION_S``) back to the prior one; env
+``TPP_SERVING_MONITOR_SAMPLE`` samples traffic into drift windows (read
+with ``python -m tpu_pipelines_torch drift --url ...``).
 """
 
 from __future__ import annotations
@@ -74,6 +78,12 @@ def main(argv=None) -> int:
                         help="generative admission bound in outstanding "
                              "decode tokens (429 past it); 0 = env "
                              "TPP_SERVING_MAX_TOKENS, else unbounded")
+    parser.add_argument("--slo-monitor", type=float, default=-1.0,
+                        help="SLO burn-rate monitor evaluation interval "
+                             "(seconds; fleet mode with --slo-p99-ms): "
+                             "breaches inside the TPP_SWAP_PROBATION_S "
+                             "window roll back to the prior version; "
+                             "negative = env TPP_SLO_MONITOR, 0 = off")
     parser.add_argument("--device", default="cuda",
                         help="torch device the model runs on (cuda, cuda:N "
                              "or cpu)")
@@ -96,6 +106,7 @@ def main(argv=None) -> int:
                 model_type=args.model_type,
                 decode_page_size=args.decode_page_size,
                 max_queue_tokens=args.max_queue_tokens,
+                slo_monitor_interval_s=args.slo_monitor,
                 device=args.device,
             )
             break

@@ -23,8 +23,15 @@ first row before the batch itself is served.  A capture that fails there
 fails that request and is tried again on the next; the version never
 serves eagerly.
 
-The drift sampler, metrics history and the SLO burn-rate rollback (with
-its version quarantine) wait for ROADMAP A8: their knobs raise
+Post-deploy guards (opt-in): ``monitor_sample_rate`` starts a
+:class:`~tpu_pipelines_torch.observability.drift.TrafficSampler` fed from
+the leased predict path and scored against the version's training
+statistics; :meth:`on_slo_breach`, the callback the server's SLO monitor
+fires, rolls a version that burns its SLO inside the post-swap probation
+window (``swap_probation_s`` / ``TPP_SWAP_PROBATION_S``, default 120 s)
+back to the prior resident version, whose captured graphs replay as they
+are, and quarantines it.  The metrics history (``TPP_METRICS_HISTORY``)
+and the engine's decode levers wait for ROADMAP A8b: their knobs raise
 ``NotImplementedError`` when set.
 """
 
@@ -34,7 +41,7 @@ import logging
 import os
 import threading
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -47,8 +54,13 @@ from tpu_pipelines_torch.utils.device import resolve_device
 log = logging.getLogger("tpu_pipelines_torch.serving")
 
 # The reference's knob for the metrics-history ring the fleet's monitors
-# write into; set, it raises until ROADMAP A8.
+# write into; set, it raises until ROADMAP A8b.
 ENV_METRICS_HISTORY = "TPP_METRICS_HISTORY"
+# Post-swap probation window (seconds): an SLO burn-rate breach inside it
+# is attributed to the swap and rolls back to the prior resident version;
+# past it, breaches are the operator's page, not the fleet's trigger.
+ENV_SWAP_PROBATION = "TPP_SWAP_PROBATION_S"
+DEFAULT_SWAP_PROBATION_S = 120.0
 
 
 def _on_cuda(loaded) -> bool:
@@ -60,7 +72,7 @@ def _deferred(knobs: Dict[str, Any]) -> None:
     for name, value in knobs.items():
         if value:
             raise NotImplementedError(
-                f"ServingFleet({name}=...): waits for ROADMAP A8"
+                f"ServingFleet({name}=...): waits for ROADMAP A8b"
             )
 
 
@@ -83,6 +95,7 @@ class ServingFleet:
         prefix_cache_entries: int = 0,
         prefill_chunk_pages: int = 0,
         spec_tokens: int = 0,
+        swap_probation_s: float = -1.0,
         supervisor_interval_s: float = 0.0,
         supervisor_queue_age_s: float = 0.0,
         supervisor_breaker_failures: int = 3,
@@ -103,8 +116,6 @@ class ServingFleet:
             "prefix_cache_entries": prefix_cache_entries,
             "prefill_chunk_pages": prefill_chunk_pages,
             "spec_tokens": spec_tokens,
-            "monitor_sample_rate": monitor_sample_rate,
-            "monitor_window_s": monitor_window_s,
             ENV_METRICS_HISTORY: os.environ.get(ENV_METRICS_HISTORY, "").strip(),
         })
         self.model_name = model_name
@@ -113,6 +124,16 @@ class ServingFleet:
         self.slo_p99_s = slo_p99_s
         self.model_type = model_type
         self.device = resolve_device(device)
+        if swap_probation_s < 0:
+            try:
+                swap_probation_s = float(
+                    os.environ.get(ENV_SWAP_PROBATION, "").strip()
+                    or DEFAULT_SWAP_PROBATION_S
+                )
+            except ValueError:
+                swap_probation_s = DEFAULT_SWAP_PROBATION_S
+        self.swap_probation_s = max(0.0, swap_probation_s)
+        self._rollback_lock = threading.Lock()
         self._max_batch_size = max_batch_size
         self._canary_batch: Optional[Dict[str, Any]] = None
         self._canary_lock = threading.Lock()
@@ -122,7 +143,14 @@ class ServingFleet:
         # What the last swap's bucket warm-up did (aot.warm_loaded's stats).
         self.last_warm: Optional[Dict[str, Any]] = None
         self._m_warmup = self._m_aot_compiles = self._m_aot_after_warm = None
+        self._m_rollbacks = None
         if registry is not None:
+            self._m_rollbacks = registry.counter(
+                "serving_auto_rollbacks_total",
+                "Automatic activations of the prior resident version "
+                "after an SLO burn-rate breach inside the post-swap "
+                "probation window.",
+            )
             self._m_warmup = registry.gauge(
                 "serving_swap_warmup_seconds",
                 "Wall time of the last swap's bucket warm-up (one CUDA "
@@ -217,6 +245,27 @@ class ServingFleet:
                     "replica after their replica died.",
                 )
             self.supervisor.start()
+        # The live drift and skew plane, opt-in via monitor_sample_rate:
+        # off constructs no sampler (no thread, no queue, none of the
+        # serving_monitor_* / serving_drift_* families registered).
+        self.sampler = None
+        if monitor_sample_rate > 0:
+            from tpu_pipelines_torch.observability.drift import (
+                DEFAULT_WINDOW_S,
+                TrafficSampler,
+            )
+
+            self.sampler = TrafficSampler(
+                model_name,
+                sample_rate=monitor_sample_rate,
+                window_s=(
+                    monitor_window_s if monitor_window_s > 0
+                    else DEFAULT_WINDOW_S
+                ),
+                registry=registry,
+                baseline_for=self._drift_baseline,
+            )
+            self.sampler.start()
 
     @property
     def generative(self) -> bool:
@@ -231,12 +280,19 @@ class ServingFleet:
         """Every device call runs under a version lease: a hot-swap during
         the call cannot evict the version mid-predict, and the drain the
         swap promises is the lease count reaching zero."""
-        with self.versions.lease() as (_version, loaded):
+        with self.versions.lease() as (version, loaded):
             if self._uncaptured(loaded):
                 with self._boot_warm_lock:
                     if self._uncaptured(loaded):
                         self._capture_buckets(loaded, batch)
-            return np.asarray(self._predict_callable(loaded)(batch))
+            result = np.asarray(self._predict_callable(loaded)(batch))
+            if self.sampler is not None:
+                # Rate-gated, non-blocking handoff to the drift sampler: a
+                # full queue drops the sample (counted), never the predict.
+                # The lease still pins ``version``, so the sample is
+                # attributed to the version that served it.
+                self.sampler.offer(version, batch, result)
+            return result
 
     def _uncaptured(self, loaded) -> bool:
         """A version on CUDA whose captured-step table is still empty: it
@@ -427,6 +483,81 @@ class ServingFleet:
             ", legacy warm-up" if stats.get("fallback_warm") else "",
         )
 
+    # ---------------------------------------------------------- drift plane
+
+    def _drift_baseline(self, version: str):
+        """``(SplitStatistics, uri)`` of one resident version's training
+        statistics, from the ``training_statistics_uri`` the Pusher stamps
+        on the payload spec (its train split, else the first); None when
+        the payload has no lineage (drift against the previous window
+        still runs)."""
+        loaded = self.versions.loaded_for(version)
+        spec = getattr(loaded, "spec", None) or {}
+        uri = str(spec.get("training_statistics_uri") or "")
+        if not uri:
+            return None
+        from tpu_pipelines_torch.data.statistics import load_statistics
+
+        stats = load_statistics(uri)
+        baseline = stats.get("train")
+        if baseline is None and stats:
+            baseline = stats[sorted(stats)[0]]
+        if baseline is None:
+            return None
+        return baseline, uri
+
+    # -------------------------------------------------- SLO auto-rollback
+
+    def on_slo_breach(self, breach: Dict[str, Any]) -> bool:
+        """The default breach policy: a post-swap probation rollback.
+
+        An SLO burn-rate breach (``observability/slo.py``) inside
+        ``swap_probation_s`` of the last hot-swap is attributed to the
+        swap: the prior resident version is re-activated (it never left
+        the card, so its captured graphs replay and nothing is captured
+        anew), the new version is quarantined so a repeat ``:reload`` of
+        it answers 409 until :meth:`clear_quarantine`, and
+        ``serving_auto_rollbacks_total`` counts it.  Returns True when a
+        rollback happened; False for a drift breach (a property of the
+        data, not of the swap), no recent swap, an expired probation, a
+        prior version no longer resident, or a rollback already done."""
+        if breach.get("slo") == "drift":
+            return False
+        with self._rollback_lock:
+            swap = self.versions.last_swap()
+            if swap is None or self.swap_probation_s <= 0:
+                return False
+            if swap.get("rollback"):
+                return False    # our own rollback opened no probation
+            age_s = time.monotonic() - swap["mono"]
+            if age_s > self.swap_probation_s:
+                return False
+            bad, prior = swap["version"], swap["prior"]
+            if prior is None or self.versions.active_version != bad:
+                return False
+            if prior not in self.versions.resident_versions():
+                return False
+            self.versions.quarantine(
+                bad,
+                reason=(
+                    f"SLO breach ({breach.get('slo', '?')}) "
+                    f"{age_s:.1f}s after swap"
+                ),
+            )
+            self.versions.activate(prior, rollback=True)
+            if self._m_rollbacks is not None:
+                self._m_rollbacks.inc()
+            log.warning(
+                "fleet: %s auto-rollback %s -> %s (%s burn breach %.1fs "
+                "into the %.0fs probation window)",
+                self.model_name, bad, prior, breach.get("slo", "?"),
+                age_s, self.swap_probation_s,
+            )
+            return True
+
+    def clear_quarantine(self, version: Optional[str] = None) -> List[str]:
+        return self.versions.clear_quarantine(version)
+
     # ----------------------------------------------------------- lifecycle
 
     def load_version(self, version_dir: str) -> str:
@@ -467,15 +598,22 @@ class ServingFleet:
             ),
             "model_type": self.model_type,
         }
+        quarantined = self.versions.quarantined()
+        if quarantined:
+            health["quarantined_versions"] = sorted(quarantined)
         if self.generative:
             health["outstanding_decode_tokens"] = self.outstanding_tokens()
         if self.supervisor is not None:
             health["replica_states"] = {
                 r.name: self.supervisor.state(r) for r in self.pool.replicas
             }
+        if self.sampler is not None:
+            health["drift"] = self.sampler.summary()
         return health
 
     def close(self, timeout_s: float = 5.0) -> None:
+        if self.sampler is not None:
+            self.sampler.stop()
         if self.supervisor is not None:
             self.supervisor.stop()
         self.pool.close(timeout_s=timeout_s)

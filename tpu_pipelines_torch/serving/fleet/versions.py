@@ -24,6 +24,12 @@ The swap contract (the fleet half of docs/RECOVERY.md's zero-drop story):
      payload alive mid-predict regardless — the lease makes the drain
      *observable* (``serving_versions_resident``) and bounds resident
      memory deterministically instead of leaving it to GC timing.
+
+For the SLO auto-rollback (``ServingFleet.on_slo_breach``) the manager
+records the last swap (who replaced whom, when, and whether the swap was
+itself a rollback, which opens no probation window) and keeps a
+quarantine: a quarantined version answers load and activate with
+:class:`CanaryRefused` (HTTP 409) until ``clear_quarantine``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import contextlib
 import logging
 import os
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 log = logging.getLogger("tpu_pipelines_torch.serving")
@@ -82,6 +89,12 @@ class ModelVersionManager:
         self._dtypes: Dict[str, str] = {}    # for gauge zeroing at drop
         self._evict_pending: set = set()
         self._active: Optional[str] = None
+        # SLO auto-rollback state: the last swap bounds the probation
+        # window, and a quarantined version is refused until cleared — a
+        # burn-rate rollback must not be undone by the next :reload of the
+        # same bad payload.
+        self._last_swap: Optional[Dict[str, Any]] = None
+        self._quarantined: Dict[str, str] = {}
         self._m_swaps = self._m_evictions = self._m_canary = None
         self._m_resident = self._m_info = None
         self._m_memory = self._m_dtype = None
@@ -151,6 +164,54 @@ class ModelVersionManager:
         with self._lock:
             return self._leases.get(version, 0)
 
+    def last_swap(self) -> Optional[Dict[str, Any]]:
+        """``{"version", "prior", "mono", "rollback"}`` of the most recent
+        activation that changed the served version (None before the
+        second one)."""
+        with self._lock:
+            return dict(self._last_swap) if self._last_swap else None
+
+    def quarantined(self) -> Dict[str, str]:
+        with self._lock:
+            return dict(self._quarantined)
+
+    # -------------------------------------------------------- quarantine
+
+    def quarantine(self, version: str, reason: str = "") -> None:
+        """Refuse future ``load_version`` / ``activate`` of ``version``
+        with :class:`CanaryRefused` (HTTP 409 on ``:reload``) until
+        :meth:`clear_quarantine` — the half of an SLO auto-rollback that
+        keeps the next push of the same bad payload out."""
+        with self._lock:
+            self._quarantined[version] = reason or "quarantined"
+        log.warning(
+            "fleet: %s version %s quarantined (%s)",
+            self.model_name, version, reason,
+        )
+
+    def clear_quarantine(self, version: Optional[str] = None) -> List[str]:
+        """Lift the quarantine on ``version`` (None = all); returns the
+        versions cleared."""
+        with self._lock:
+            if version is None:
+                cleared = list(self._quarantined)
+                self._quarantined.clear()
+            else:
+                cleared = (
+                    [version] if self._quarantined.pop(version, None)
+                    is not None else []
+                )
+        return cleared
+
+    def _check_quarantine(self, version: str) -> None:
+        with self._lock:
+            reason = self._quarantined.get(version)
+        if reason is not None:
+            raise CanaryRefused(
+                f"version {version!r} of {self.model_name!r} is "
+                f"quarantined ({reason}); clear_quarantine() to re-admit"
+            )
+
     # ----------------------------------------------------------- lifecycle
 
     def load_version(self, version_dir: str) -> str:
@@ -162,6 +223,7 @@ class ModelVersionManager:
         changes in that case.
         """
         version = os.path.basename(version_dir.rstrip("/")) or version_dir
+        self._check_quarantine(version)
         with self._load_lock:
             with self._lock:
                 resident = (
@@ -200,12 +262,20 @@ class ModelVersionManager:
             self._activate(version)
             return version
 
-    def _activate(self, version: str) -> None:
+    def _activate(self, version: str, rollback: bool = False) -> None:
         with self._lock:
             prior = self._active
             if version not in self._versions:
                 raise KeyError(f"version {version!r} is not resident")
             self._active = version
+            if prior != version:
+                # ``rollback`` marks swaps the SLO policy itself made: they
+                # open no probation window (a breach after a rollback must
+                # not ping-pong back onto the bad version).
+                self._last_swap = {
+                    "version": version, "prior": prior,
+                    "mono": time.monotonic(), "rollback": rollback,
+                }
             self._evict_excess_locked()
         if self._m_info is not None:
             if prior is not None and prior != version:
@@ -220,9 +290,12 @@ class ModelVersionManager:
                 self.model_name, prior, version,
             )
 
-    def activate(self, version: str) -> str:
-        """Swap to an already-resident version (rollback without a load)."""
-        self._activate(version)
+    def activate(self, version: str, *, rollback: bool = False) -> str:
+        """Swap to an already-resident version (rollback without a load).
+        ``rollback=True`` (the SLO policy's own activation) opens no
+        probation window."""
+        self._check_quarantine(version)
+        self._activate(version, rollback=rollback)
         return version
 
     def _evict_excess_locked(self) -> None:

@@ -29,9 +29,20 @@ all replicas down answers 503 + Retry-After), and, for the generative
 type, ``:generate`` through per-replica continuous-batching engines with
 generation ``params`` and token admission (``max_queue_tokens``, 429).
 Each knob left at its default falls back to its ``TPP_SERVING_*``
-environment variable, as in the reference.  gRPC, request tracing, the SLO
-monitor, drift sampling, metric federation and the engine's decode levers
-wait for ROADMAP A8: setting their knobs raises ``NotImplementedError``.
+environment variable, as in the reference.
+
+Post-deploy guards (opt-in): ``slo_monitor_interval_s`` (``TPP_SLO_MONITOR``)
+runs an :class:`~tpu_pipelines_torch.observability.slo.SLOMonitor` over this
+server's registry while it serves, wired to the fleet's
+``on_slo_breach`` (a breach inside the post-swap probation window,
+``swap_probation_s`` / ``TPP_SWAP_PROBATION_S``, rolls back and quarantines
+the new version); ``monitor_sample_rate`` (``TPP_SERVING_MONITOR_SAMPLE``)
+and ``monitor_window_s`` (``TPP_SERVING_MONITOR_WINDOW_S``) sample the
+served traffic into drift windows scored against the version's training
+statistics (asking for it makes a single server a one-replica fleet).
+gRPC, request tracing, metric federation, the per-token SLO and the
+engine's decode levers wait for ROADMAP A8b: setting their knobs raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -74,18 +85,19 @@ ENV_PAGE_SIZE = "TPP_SERVING_PAGE_SIZE"
 ENV_MAX_TOKENS = "TPP_SERVING_MAX_TOKENS"
 ENV_SUPERVISOR_S = "TPP_SERVING_SUPERVISOR_S"
 ENV_SUPERVISOR_QUEUE_AGE_S = "TPP_SERVING_SUPERVISOR_QUEUE_AGE_S"
-# The reference's knobs that wait for ROADMAP A8 (the engine's decode
-# levers, request tracing, the SLO monitor, drift sampling): set, they
-# raise.
+# The SLO monitor's evaluation interval (seconds) and the drift sampler's
+# rate and window (seconds); unset, each is off.
+ENV_SLO_MONITOR = "TPP_SLO_MONITOR"
+ENV_MONITOR_SAMPLE = "TPP_SERVING_MONITOR_SAMPLE"
+ENV_MONITOR_WINDOW = "TPP_SERVING_MONITOR_WINDOW_S"
+# The reference's knobs that wait for ROADMAP A8b (the engine's decode
+# levers, the per-token SLO, request tracing): set, they raise.
 ENV_SLO_MS_PER_TOKEN = "TPP_SERVING_SLO_MS_PER_TOKEN"
 ENV_PREFIX_CACHE = "TPP_SERVING_PREFIX_CACHE"
 ENV_PREFILL_CHUNK = "TPP_SERVING_PREFILL_CHUNK"
 ENV_SPEC_TOKENS = "TPP_SERVING_SPEC_TOKENS"
 ENV_REQUEST_TRACE = "TPP_REQUEST_TRACE"
 ENV_REQUEST_TRACE_DIR = "TPP_REQUEST_TRACE_DIR"
-ENV_SLO_MONITOR = "TPP_SLO_MONITOR"
-ENV_MONITOR_SAMPLE = "TPP_SERVING_MONITOR_SAMPLE"
-ENV_MONITOR_WINDOW = "TPP_SERVING_MONITOR_WINDOW_S"
 
 
 def _env_number(name: str, default: float) -> float:
@@ -152,6 +164,7 @@ class ModelServer:
         slo_monitor_interval_s: float = -1.0,
         monitor_sample_rate: float = -1.0,
         monitor_window_s: float = -1.0,
+        swap_probation_s: float = -1.0,
         device: Any = "cuda",
     ):
         self.model_name = model_name
@@ -189,18 +202,22 @@ class ModelServer:
             or os.environ.get(ENV_REQUEST_TRACE, "").strip() not in ("", "off"),
             "trace_dir": trace_dir
             or os.environ.get(ENV_REQUEST_TRACE_DIR, "").strip(),
-            "slo_monitor_interval_s": slo_monitor_interval_s > 0
-            or _env_number(ENV_SLO_MONITOR, 0.0) > 0,
-            "monitor_sample_rate": monitor_sample_rate > 0
-            or _env_number(ENV_MONITOR_SAMPLE, 0.0) > 0,
-            "monitor_window_s": monitor_window_s > 0
-            or _env_number(ENV_MONITOR_WINDOW, 0.0) > 0,
         }
         for name, value in deferred.items():
             if value:
                 raise NotImplementedError(
-                    f"ModelServer({name}=...): waits for ROADMAP A8"
+                    f"ModelServer({name}=...): waits for ROADMAP A8b"
                 )
+        if slo_monitor_interval_s < 0:
+            slo_monitor_interval_s = _env_number(ENV_SLO_MONITOR, 0.0)
+        if monitor_sample_rate < 0:
+            monitor_sample_rate = _env_number(ENV_MONITOR_SAMPLE, 0.0)
+        if monitor_window_s < 0:
+            monitor_window_s = _env_number(ENV_MONITOR_WINDOW, 0.0)
+        self._slo_interval_s = max(0.0, slo_monitor_interval_s)
+        self.monitor_sample_rate = max(0.0, monitor_sample_rate)
+        self.monitor_window_s = max(0.0, monitor_window_s)
+        self.slo_monitor = None
         self.replicas = max(1, replicas)
         self.max_versions = max(1, max_versions)
         self.slo_p99_ms = max(0.0, slo_p99_ms)
@@ -262,10 +279,13 @@ class ModelServer:
         self._batcher: Optional[RequestBatcher] = None
         self._fleet = None
         if (self.replicas > 1 or self.max_versions > 1
-                or self.model_type == "generative"):
+                or self.model_type == "generative"
+                or self.monitor_sample_rate > 0):
             # Generative serving is a fleet model type even at one
             # replica: the engines, their per-version drain and their
-            # step-graph warm-up live behind the version manager.
+            # step-graph warm-up live behind the version manager.  The
+            # drift sampler hooks the fleet's leased predict path, so
+            # asking for it also makes a one-replica fleet.
             from tpu_pipelines_torch.serving.fleet import ServingFleet
 
             self._fleet = ServingFleet(
@@ -279,11 +299,33 @@ class ModelServer:
                 model_type=self.model_type,
                 decode_page_size=self.decode_page_size,
                 max_queue_tokens=self.max_queue_tokens,
+                swap_probation_s=swap_probation_s,
                 supervisor_interval_s=self.supervisor_interval_s,
                 supervisor_queue_age_s=self.supervisor_queue_age_s,
+                monitor_sample_rate=self.monitor_sample_rate,
+                monitor_window_s=self.monitor_window_s,
                 registry=self.metrics,
                 device=self.device,
             )
+            if self._slo_interval_s > 0:
+                # The SLO burn-rate monitor, wired to the fleet's breach
+                # policy (a breach inside the post-swap probation window
+                # rolls back).  With drift sampling on, the drift kind is
+                # watched too.
+                from tpu_pipelines_torch.observability.drift import (
+                    DEFAULT_DRIFT_THRESHOLD,
+                )
+                from tpu_pipelines_torch.observability.slo import SLOMonitor
+
+                self.slo_monitor = SLOMonitor(
+                    self.metrics,
+                    slo_p99_s=self.slo_p99_ms / 1e3,
+                    drift_threshold=(
+                        DEFAULT_DRIFT_THRESHOLD
+                        if self.monitor_sample_rate > 0 else 0.0
+                    ),
+                    on_breach=self._fleet.on_slo_breach,
+                )
         elif batching:
             self._batcher = RequestBatcher(
                 lambda b: self._current_model().predict(b),
@@ -674,10 +716,14 @@ class ModelServer:
             target=self._httpd.serve_forever, daemon=True
         )
         self._thread.start()
+        if self.slo_monitor is not None:
+            self.slo_monitor.start(self._slo_interval_s)
         return self._httpd.server_address[1]
 
     def stop(self) -> None:
         self._stopped = True
+        if self.slo_monitor is not None:
+            self.slo_monitor.stop()
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()

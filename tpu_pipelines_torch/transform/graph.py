@@ -970,10 +970,27 @@ def _device_of(args) -> torch.device:
     raise ValueError("device op without a tensor operand")
 
 
+# One f32 0-d tensor per (constant, device).  A constant operand stays a
+# device tensor (a CPU scalar would let PyTorch turn x / c into x * (1/c),
+# which is not numpy's f32 division), and it is made once: a serving step
+# is run eagerly before it is captured as a CUDA graph, and a capture may
+# not copy from the host.
+_CONSTANTS: Dict[Tuple[float, torch.device], torch.Tensor] = {}
+
+
+def _constant(value: float, dev: torch.device) -> torch.Tensor:
+    key = (float(value), torch.device(dev))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(key[0], dtype=torch.float32,
+                                           device=dev)
+    return t
+
+
 def _operand(a, dev: torch.device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return _f32(a)
-    return torch.tensor(float(a), dtype=torch.float32, device=dev)
+    return _constant(a, dev)
 
 
 def _t_add(a, b):
@@ -1070,8 +1087,7 @@ def _torch_analyzer(node: Node, state: Dict[str, Any], x) -> torch.Tensor:
         # (hi - lo) rounds in f32, as numpy's (x - lo) / (hi - lo) with
         # Python floats does not: take the numpy span, rounded once.
         span = float(state["max"]) - float(state["min"])
-        return (_f32(x) - lo) / torch.tensor(
-            span, dtype=torch.float32, device=dev)
+        return (_f32(x) - lo) / _constant(span, dev)
     if node.op == "bucketize":
         return torch.searchsorted(
             _state_tensor(state, "boundaries", dev), _f32(x).contiguous()
