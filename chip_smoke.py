@@ -205,7 +205,37 @@ Phases (any failure raises and the script exits non-zero):
      over the SLO, the monitor's latency burn at the swap and at the
      rollback, the seconds from the first bad reply to the rollback, and
      served examples/s over alternating rounds with the sampler on and
-     off.
+     off;
+ 14. continuous — the continuous controller (A23) in this process, from
+     CONTINUOUS_PIPELINE's ``create_continuous`` with a state dir: TFRecord
+     spans of CONT_ROWS reviews land under ``data/span-{SPAN}/v-{VERSION}``;
+     the span pipeline (ImportExampleGen -> StatisticsGen with its
+     accumulators, node deadlines) runs once per new span; the window
+     pipeline (RollingWindowResolver over CONT_WINDOW spans -> SpanWindow /
+     WindowStatisticsMerger -> SchemaGen -> Transform with the production
+     vocabulary -> Trainer at BERT_BASE, "auto" attention, CONT_STEPS steps
+     warm-started from an Importer of the bert_dag model -> Evaluator
+     against the resolver's baseline -> Pusher with the fleet's push URL)
+     deploys into a BERT fleet booted on production (replicas 2, versions
+     2, the SLO monitor, CONT_PROBATION_S probation).  Tick 1 (spans 1-2):
+     two span runs and a window run, version 2 through the canary and its
+     captured buckets, GUARD_REQUESTS requests all 200, a healthy
+     probation.  Tick 2: idle, no run, no launch.  Tick 3 (span 3): one
+     span run, work saved 0.5, window [2, 3], version 3 deployed, then
+     DEVICE_ERROR on every replica: rolled back to version 2 inside the
+     probation with no capture, the rollback observed, its blessing
+     un-blessed (markers rewritten), its model quarantined, latest blessed
+     = version 2's model.  The window [2, 3]'s merged stats.json == a cold
+     StatisticsGen's byte for byte.  A restarted controller reprocesses
+     nothing; a pending marker resumes the window run (same run id, every
+     node adopted, no deploy, no launch); a drift breach runs the window
+     out of cadence, all cache hits but the resolver, a drift_evidence
+     context recorded.  Every tick's launches are read inside the runner:
+     12 x steps each backward kernel, 12 x (steps + the Trainer's eval
+     batches + the Evaluator's passes x batches) forwards before the
+     deploy, the deploy's own, 12 x device batches of the traffic; report
+     each tick's wall time, nodes executed and cached, deploy_to_serving_s
+     and breach-to-rollback seconds.
 
 After the last phase it prints the whole script's seconds.  The last
 three lines are the ``kernels`` JSON record, the card's name and
@@ -4122,6 +4152,573 @@ def fleet_guard_phase(seed, card, workdir, production_uri, pushed_uri):
     return seen["boot_launches"]
 
 
+# ------------------------------------------------------- continuous (A23)
+
+# The continuous controller over TFRecord spans of CONT_ROWS reviews each
+# (cut from the retrain's 6000 for time): a window of CONT_WINDOW spans,
+# BERT-base retrained CONT_STEPS steps from the production model, pushed
+# into the guarded fleet (GUARD_* monitor, CONT_PROBATION_S probation).  A
+# retrain is blessed at accuracy >= RETRAIN_MIN_ACCURACY and no more than
+# CONT_MAX_DROP below its baseline's.
+CONT_ROWS = 4000
+CONT_STEPS = 20
+CONT_WINDOW = 2
+CONT_MAX_DROP = 0.05
+CONT_PROBATION_S = 10.0
+CONT_NODE_TIMEOUT_S = 900.0
+# The continuous deployment users would write (``create_continuous``), its
+# settings read from the environment ``continuous_env`` makes: a per-span
+# ingest pipeline and a window pipeline sharing one store.  The window's
+# Transform runs at window level, so the tokenizer (the production model's
+# vocabulary file) sees the whole window.
+CONTINUOUS_PIPELINE = """\\
+import json
+import os
+
+from tpu_pipelines_torch.components import (
+    Evaluator, ImportExampleGen, Importer, Pusher, RollingWindowResolver,
+    SchemaGen, StatisticsGen, Trainer, Transform,
+)
+from tpu_pipelines_torch.continuous import (
+    ContinuousConfig, SpanWindow, WindowStatisticsMerger,
+)
+from tpu_pipelines_torch.dsl.pipeline import Pipeline
+
+ENV = os.environ
+
+
+def _pipeline(name, components):
+    return Pipeline(
+        name, components,
+        pipeline_root=os.path.join(ENV["CONT_HOME"], name),
+        metadata_path=os.path.join(ENV["CONT_HOME"], "metadata.sqlite"),
+        node_timeout_s=float(ENV["CONT_NODE_TIMEOUT_S"]),
+    )
+
+
+def span_pipeline(span, version):
+    gen = ImportExampleGen(input_path=ENV["CONT_INPUT"], span=span,
+                           version=version)
+    stats = StatisticsGen(examples=gen.outputs["examples"],
+                          save_accumulators=True)
+    return _pipeline("bert-spans", [gen, stats])
+
+
+def window_pipeline():
+    hp = json.loads(ENV["CONT_HPARAMS"])
+    win = RollingWindowResolver(
+        window_spans=int(ENV["CONT_WINDOW"]), source_pipeline="bert-spans",
+        examples_producer="ImportExampleGen",
+        statistics_producer="StatisticsGen",
+    )
+    window = SpanWindow(examples=win.outputs["examples"])
+    merged = WindowStatisticsMerger(statistics=win.outputs["statistics"])
+    schema = SchemaGen(statistics=merged.outputs["statistics"])
+    transform = Transform(
+        examples=window.outputs["window"], schema=schema.outputs["schema"],
+        module_file=ENV["CONT_PREPROCESSING"],
+    )
+    production = Importer(source_uri=ENV["CONT_BASE_MODEL"],
+                          artifact_type="Model")
+    trainer = Trainer(
+        examples=transform.outputs["transformed_examples"],
+        transform_graph=transform.outputs["transform_graph"],
+        base_model=production.outputs["result"],
+        module_file=ENV["CONT_MODULE"],
+        train_steps=int(ENV["CONT_STEPS"]),
+        hyperparameters=hp,
+    )
+    evaluator = Evaluator(
+        examples=transform.outputs["transformed_examples"],
+        model=trainer.outputs["model"],
+        baseline_model=win.outputs["model"],
+        label_key="label", problem="multiclass",
+        batch_size=int(hp["batch_size"]),
+        value_thresholds={"accuracy": {
+            "lower_bound": float(ENV["CONT_MIN_ACCURACY"])}},
+        change_thresholds={"accuracy": {
+            "min_improvement": -float(ENV["CONT_MAX_DROP"])}},
+    )
+    pusher = Pusher(
+        model=trainer.outputs["model"],
+        blessing=evaluator.outputs["blessing"],
+        statistics=merged.outputs["statistics"],
+        push_destination=ENV["CONT_PUSH"],
+        serving_push_url=ENV["CONT_URL"],
+    )
+    return _pipeline("bert-window", [
+        win, window, merged, schema, transform, production, trainer,
+        evaluator, pusher])
+
+
+def create_continuous():
+    return ContinuousConfig(
+        input_pattern=ENV["CONT_INPUT"],
+        make_span_pipeline=span_pipeline,
+        make_window_pipeline=window_pipeline,
+        poll_interval_s=1.0,
+        serving_url=ENV["CONT_URL"],
+        probation_watch_s=float(ENV["CONT_PROBATION_S"]),
+        probation_poll_s=0.1,
+        state_dir=os.path.join(ENV["CONT_HOME"], "state"),
+        device=ENV["CONT_DEVICE"],
+    )
+"""
+
+
+def continuous_env(base, push_dir, url, production_uri, hparams, module,
+                   preprocessing):
+    """The environment the continuous module reads."""
+    return {"CONT_HOME": base,
+            "CONT_INPUT": os.path.join(base, "data", "span-{SPAN}",
+                                       "v-{VERSION}"),
+            "CONT_BASE_MODEL": production_uri, "CONT_PUSH": push_dir,
+            "CONT_URL": url, "CONT_STEPS": str(CONT_STEPS),
+            "CONT_HPARAMS": json.dumps(hparams), "CONT_MODULE": module,
+            "CONT_PREPROCESSING": preprocessing,
+            "CONT_WINDOW": str(CONT_WINDOW),
+            "CONT_MIN_ACCURACY": str(RETRAIN_MIN_ACCURACY),
+            "CONT_MAX_DROP": str(CONT_MAX_DROP),
+            "CONT_PROBATION_S": str(CONT_PROBATION_S),
+            "CONT_NODE_TIMEOUT_S": str(CONT_NODE_TIMEOUT_S),
+            "CONT_DEVICE": DEVICE}
+
+
+def minus(after, before):
+    return {k: after[k] - before[k] for k in after}
+
+
+def continuous_phase(seed, card, workdir, production_uri):
+    """The continuous controller on the card (ContinuousController from
+    CONTINUOUS_PIPELINE's ``create_continuous``, in this process, with a
+    state dir): spans of TFRecord reviews land under
+    ``data/span-{SPAN}/v-{VERSION}``; each new span runs the span pipeline
+    (ImportExampleGen -> StatisticsGen with accumulators), then the window
+    pipeline retrains BERT-base over the last CONT_WINDOW spans from the
+    production model and pushes into the guarded BERT fleet (booted on
+    production, probation CONT_PROBATION_S).  Ticks: spans 1-2 land (two
+    span runs, a window run, a deploy through the canary and its captured
+    buckets, a healthy probation under traffic); nothing new (an idle
+    tick, no run, no launch); span 3 lands (one span run, work saved 0.5,
+    window [2, 3], a deploy; DEVICE_ERROR on every replica once version 3
+    serves, rolled back to version 2 inside probation, observed, the
+    blessing un-blessed in the store); the merged statistics of [2, 3]
+    against a cold StatisticsGen byte for byte; a restarted controller
+    reprocesses nothing and a pending marker resumes the window run with
+    every node adopted and no deploy; a drift breach triggers an
+    out-of-cadence window run, all cache hits.  Launches are read inside
+    the runner each tick.  Returns each kernel's launches over the phase."""
+    import dataclasses
+
+    from tpu_pipelines_torch.components import Importer, StatisticsGen
+    from tpu_pipelines_torch.components import pusher as pusher_module
+    from tpu_pipelines_torch.components.resolver import resolve_artifacts
+    from tpu_pipelines_torch.continuous import ContinuousController
+    from tpu_pipelines_torch.data import examples_io
+    from tpu_pipelines_torch.dsl.pipeline import Pipeline
+    from tpu_pipelines_torch.examples import bert_pipeline
+    from tpu_pipelines_torch.metadata import open_store
+    from tpu_pipelines_torch.observability.metrics import MetricsRegistry
+    from tpu_pipelines_torch.orchestration import LocalDagRunner
+    from tpu_pipelines_torch.robustness.atomic import atomic_write_json
+    from tpu_pipelines_torch.testing import faults
+    from tpu_pipelines_torch.utils.module_loader import load_fn, load_module
+
+    base = os.path.join(workdir, "continuous")
+    fleet_dir = os.path.join(base, "fleet")
+    os.makedirs(base)
+    payload_copy(production_uri, os.path.join(fleet_dir, "1"))
+    vocab_file = os.path.join(base, "vocab.txt")
+    production_vocabulary(production_uri, vocab_file)
+    preprocessing = os.path.join(base, "preprocessing.py")
+    with open(preprocessing, "w") as f:
+        f.write(RETRAIN_PREPROCESSING.format(vocab_file=vocab_file))
+    module_path = os.path.join(base, "continuous_pipeline.py")
+    with open(module_path, "w") as f:
+        f.write(CONTINUOUS_PIPELINE)
+    hp = dict(bert_pipeline.BERT_BASE)
+    module_file = os.path.join(bert_pipeline.HERE, "bert_module.py")
+    batch = hp["batch_size"]
+    layers = DEFAULT_HPARAMS["n_layers"]
+    flash = tfm.choose_attn_impl(batch, DEFAULT_HPARAMS["n_heads"],
+                                 PIPELINE_LEN, PIPELINE_LEN, 2,
+                                 torch.device(DEVICE)) == "flash"
+    rng = np.random.default_rng(seed + 23)
+    unseen = [(review_text(i, t, "she wrote"), label) for i, (t, label) in
+              enumerate(review_rows(seed, 512, part=9))]
+
+    server = ModelServer(
+        "bert", fleet_dir, replicas=FLEET_REPLICAS, max_versions=2,
+        slo_p99_ms=FLEET_SLO_MS, max_batch_size=FLEET_BATCH,
+        supervisor_interval_s=FLEET_SUPERVISOR_S,
+        slo_monitor_interval_s=GUARD_MONITOR_S,
+        swap_probation_s=CONT_PROBATION_S, device=DEVICE)
+    fleet = server._fleet
+    replicas = fleet.pool.replicas
+    registry = MetricsRegistry()
+    user = load_module(module_file)
+    real_loop, real_run = user.train_loop, LocalDagRunner.run
+    real_notify = pusher_module.notify_serving
+    graph = torch.cuda.CUDAGraph
+    real_capture = graph.capture_begin
+    captures = [0]
+    tick = {}
+
+    def loop(**kw):
+        model, result = real_loop(**kw)
+        tick["after_trainer"], tick["train"] = counters(), result
+        return model, result
+
+    def run(self, *args, **kwargs):
+        tick.setdefault("runs", []).append(real_run(self, *args, **kwargs))
+        return tick["runs"][-1]
+
+    def counted_capture(self, *args, **kwargs):
+        captures[0] += 1
+        return real_capture(self, *args, **kwargs)
+
+    def traffic(url, fault):
+        """After a deploy: GUARD_REQUESTS requests served by the new
+        version (their launches and device batches counted); with
+        ``fault``, DEVICE_ERROR on every replica instead, from clients
+        that keep sending until the fleet rolls back."""
+        out = tick["traffic"] = {"version": fleet.active_version}
+        c0, b0 = counters(), sum(r.batcher.batches_run for r in replicas)
+        if not fault:
+            results, out["seconds"] = run_clients(
+                f"{url}:predict", review_requests(rng, unseen, GUARD_REQUESTS),
+                n_procs=1, threads=GUARD_THREADS)
+            out["codes"] = sorted({c for c, _, _ in results})
+            out["requests"] = len(results)
+            out["launches"] = minus(counters(), c0)
+            out["batches"] = (sum(r.batcher.batches_run for r in replicas)
+                              - b0)
+            return
+        plan = faults.FaultPlan({faults.REPLICA_KEY: faults.NodeFault(
+            faults.DEVICE_ERROR, times=10 ** 6)})
+        stop, codes, first_bad = threading.Event(), [], []
+        after = review_requests(rng, unseen, GUARD_REQUESTS // 2)
+
+        def faulty(i):
+            while not stop.is_set():
+                code, _ = post_code(f"{url}:predict", after[i % len(after)])
+                codes.append(code)
+                if code >= 500 and not first_bad:
+                    first_bad.append(time.monotonic())
+
+        captures0 = captures[0]
+        with plan.activate():
+            threads = [threading.Thread(target=faulty, args=(i,))
+                       for i in range(GUARD_THREADS)]
+            for t in threads:
+                t.start()
+            try:
+                wait_for(lambda: fleet.active_version != out["version"], 60,
+                         "the rollback")
+            finally:
+                stop.set()
+                for t in threads:
+                    t.join()
+        out.update(codes=sorted(set(codes)), n_faulty=len(codes),
+                   first_bad=first_bad[0] if first_bad else None,
+                   rollback=fleet.versions.last_swap(),
+                   captures=captures[0] - captures0,
+                   launches=minus(counters(), c0))
+
+    def notify(url, *args, **kwargs):
+        """The Pusher's :reload: the counters before it (the window run's
+        Trainer and Evaluator), the deploy's own launches, then the
+        traffic (and the fault) in a thread of its own."""
+        tick["before_notify"] = counters()
+        verdict = real_notify(url, *args, **kwargs)
+        tick["deploy"] = minus(counters(), tick["before_notify"])
+        tick["swap"] = fleet.versions.last_swap()
+        tick["traffic_thread"] = threading.Thread(
+            target=traffic, args=(url, tick["fault"]))
+        tick["traffic_thread"].start()
+        return verdict
+
+    def run_tick(name, controller, before=None, fault=False):
+        tick.clear()
+        tick["fault"] = fault
+        if before is not None:
+            before()
+        zero_counters()
+        t0 = time.perf_counter()
+        summary = controller.run_once()
+        wall = time.perf_counter() - t0
+        thread = tick.get("traffic_thread")
+        if thread is not None:
+            thread.join()
+        rec = {"name": name, "summary": summary, "wall": wall,
+               "launches": counters(), **tick}
+        print(f"continuous {name} [{card}]: {wall:.1f} s; "
+              f"deliveries {summary['deliveries']}, spans processed "
+              f"{summary['spans_processed']}, nodes executed "
+              f"{summary['nodes_executed']} / cached {summary['nodes_cached']},"
+              f" work saved {summary['work_saved_ratio']}, deployed "
+              f"{(summary['deployed'] or {}).get('version')}, rollback "
+              f"observed {summary.get('rollback_observed')}; launches "
+              f"{rec['launches']}", flush=True)
+        for r in tick.get("runs", []):
+            print(f"continuous {name} run {r.run_id}: " + ", ".join(
+                f"{k} {v.status}{' adopted' if v.adopted else ''} "
+                f"{v.wall_clock_s:.2f} s" for k, v in r.nodes.items()),
+                flush=True)
+        return rec
+
+    def landed(*spans):
+        """Write the spans' TFRecords; the monotonic time they landed."""
+        def write():
+            for span in spans:
+                write_span(os.path.join(base, "data", f"span-{span}", "v-1"),
+                           seed, span, CONT_ROWS)
+            tick["landed"] = time.monotonic()
+        return write
+
+    url = None
+    try:
+        with mock.patch.object(graph, "capture_begin", counted_capture), \
+                mock.patch.object(LocalDagRunner, "run", run), \
+                mock.patch.object(user, "train_loop", loop), \
+                mock.patch.object(pusher_module, "notify_serving", notify):
+            url = f"http://127.0.0.1:{server.start(port=0)}/v1/models/bert"
+            # Production serves traffic before the first deploy (its first
+            # batch captures its buckets), as a live fleet's would: the
+            # SLO monitor's windows judge each swap against it.
+            boot, boot_s = run_clients(
+                f"{url}:predict", review_requests(rng, unseen, GUARD_REQUESTS),
+                n_procs=1, threads=GUARD_THREADS)
+            if {c for c, _, _ in boot} != {200}:
+                raise AssertionError(f"continuous: production's replies "
+                                     f"{sorted({c for c, _, _ in boot})}")
+            print(f"continuous [{card}]: the fleet on production served "
+                  f"{len(boot)} requests in {boot_s:.2f} s before the first "
+                  f"span landed", flush=True)
+            env = continuous_env(base, fleet_dir, url, production_uri, hp,
+                                 module_file, preprocessing)
+            with mock.patch.dict(os.environ, env):
+                cfg = dataclasses.replace(
+                    load_fn(module_path, "create_continuous")(),
+                    registry=registry)
+                ctl = ContinuousController(cfg)
+                t1 = run_tick("tick 1 (spans 1-2 land)", ctl,
+                              before=landed(1, 2))
+                idle = run_tick("tick 2 (nothing new)", ctl)
+                t3 = run_tick("tick 3 (span 3 lands)", ctl,
+                              before=landed(3), fault=True)
+                # Restart: a new controller on the same state dir.
+                restarted = run_tick("restart", ContinuousController(cfg))
+                atomic_write_json(os.path.join(base, "state", "pending.json"),
+                                  {"pipeline": "bert-window",
+                                   "kind": "window"})
+                ctl2 = ContinuousController(cfg)
+                deploys0 = registry.get("continuous_deploys_total").get()
+                resumed = run_tick("crash marker", ctl2)
+                deploys1 = registry.get("continuous_deploys_total").get()
+                ctl2.notify_drift({"slo": "drift", "feature": "text",
+                                   "kind": "skew_linf", "distance": 0.5})
+                drift = run_tick("drift breach", ctl2)
+            # The window [2, 3]'s merged statistics against a cold pass.
+            store = open_store(os.path.join(base, "metadata.sqlite"))
+            try:
+                merged_art = max(
+                    (a for a in store.get_artifacts(
+                        type_name="ExampleStatistics")
+                     if a.properties.get("window_spans") == [2, 3]),
+                    key=lambda a: a.id)
+                window_art = max(
+                    (a for a in store.get_artifacts(type_name="Examples")
+                     if a.properties.get("window_spans") == [2, 3]),
+                    key=lambda a: a.id)
+                blessings = store.get_artifacts(type_name="ModelBlessing")
+                models = store.get_artifacts(type_name="Model")
+                baseline = resolve_artifacts(
+                    store, strategy="latest_blessed_model",
+                    pipeline_name="bert-window")["model"]
+                evidence = store.get_contexts("drift_evidence")
+            finally:
+                store.close()
+            imp = Importer(source_uri=window_art.uri, artifact_type="Examples")
+            cold_stats = StatisticsGen(examples=imp.outputs["result"])
+            t0 = time.perf_counter()
+            cold = real_run(LocalDagRunner(device=DEVICE), Pipeline(
+                "cold-window", [imp, cold_stats],
+                pipeline_root=os.path.join(base, "cold"),
+                metadata_path=os.path.join(base, "cold.sqlite")))
+            cold_s = time.perf_counter() - t0
+    finally:
+        server.stop()
+
+    with open(os.path.join(cold.outputs_of("StatisticsGen", "statistics")[0]
+                           .uri, "stats.json"), "rb") as f:
+        cold_bytes = f.read()
+    with open(os.path.join(merged_art.uri, "stats.json"), "rb") as f:
+        merged_bytes = f.read()
+
+    def window_run(rec):
+        (r,) = [r for r in rec["runs"] if r.pipeline_name == "bert-window"]
+        return r
+
+    # Launches inside the runner: the Trainer's steps and eval batches, the
+    # Evaluator's passes, then (after the Pusher's notify) the deploy and
+    # the traffic the new version served.
+    problems = []
+    for rec, passes in ((t1, 1), (t3, 2)):
+        if "traffic" not in rec:
+            problems.append(f"continuous {rec['name']}: no deploy")
+            continue
+        r = window_run(rec)
+        uri = r.outputs_of("Transform", "transformed_examples")[0].uri
+        n_eval = examples_io.num_rows(uri, "eval")
+        steps = layers * CONT_STEPS * flash
+        trainer_fwd = steps + layers * (n_eval // batch) * flash
+        want = {"launches": trainer_fwd + passes * layers * -(-n_eval // batch)
+                * flash, "dvec_launches": steps, "dq_launches": steps,
+                "dkv_launches": steps, "decode_launches": 0}
+        if (rec.get("before_notify") != want
+                or rec.get("after_trainer") != {**want,
+                                                "launches": trainer_fwd}):
+            problems.append(
+                f"continuous {rec['name']}: before the deploy "
+                f"{rec.get('before_notify')} (after the Trainer "
+                f"{rec.get('after_trainer')}), expected {want} (auto = "
+                f"{'flash' if flash else 'dense'})")
+        served = rec["traffic"]
+        traffic_l = served["launches"]
+        if (any(v for k, v in traffic_l.items() if k != "launches")
+                or any(v for k, v in rec["deploy"].items()
+                       if k != "launches")
+                or ("requests" in served and (
+                    served["codes"] != [200]
+                    or traffic_l["launches"] != layers * served["batches"]))):
+            problems.append(
+                f"continuous {rec['name']}: deploy {rec['deploy']}, traffic "
+                f"{traffic_l} over {served.get('batches')} batches, replies "
+                f"{served['codes']}")
+        total = {k: want[k] + rec["deploy"][k] + traffic_l[k] for k in want}
+        if rec["launches"] != total:
+            problems.append(f"continuous {rec['name']}: launches "
+                            f"{rec['launches']}, parts sum to {total}")
+        res = rec["train"]
+        spans = r.outputs_of("SpanWindow", "window")[0].properties[
+            "window_spans"]
+        print(f"continuous {rec['name']} [{card}]: window {spans}; Trainer "
+              f"{res.steps_completed} "
+              f"steps at batch {batch} x {PIPELINE_LEN} warm-started from "
+              f"production, {res.examples_per_sec:.1f} examples/s over the "
+              f"run, Evaluator {passes} pass(es) over {n_eval} eval rows; "
+              f"deploy: {rec['deploy']['launches']} flash_fwd launches at "
+              f"the canary; version {served['version']} then "
+              + (f"served {served['requests']} requests in "
+                 f"{served['batches']} device batches ({traffic_l['launches']}"
+                 f" launches) in {served['seconds']:.2f} s"
+                 if "requests" in served else
+                 f"took DEVICE_ERROR on every replica ({served['n_faulty']} "
+                 f"replies {served['codes']}, {traffic_l['launches']} "
+                 "launches)")
+              + "; deploy_to_serving_s "
+              f"{rec['swap']['mono'] - rec['landed']:.3f} (span files "
+              f"landed -> the fleet serves the retrain)", flush=True)
+
+    s1, s3 = t1["summary"], t3["summary"]
+    if (s1["spans_processed"] != 2 or s1["work_saved_ratio"] != 0.0
+            or (s1["deployed"] or {}).get("version") != "2"
+            or s1.get("rollback_observed") is not False
+            or t1["traffic"]["version"] != "2" or t1["swap"]["rollback"]
+            or len(t1["runs"]) != 3):
+        raise AssertionError(f"continuous tick 1: {s1}, swap {t1.get('swap')}"
+                             f", after the probation "
+                             f"{fleet.versions.last_swap()}")
+    if (idle["summary"]["nodes_executed"] or idle["summary"]["nodes_cached"]
+            or "runs" in idle or any(idle["launches"].values())):
+        raise AssertionError(f"continuous idle tick: {idle['summary']}, "
+                             f"launches {idle['launches']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    rb = t3["traffic"]
+    window3 = window_run(t3)
+    spans3 = window3.outputs_of("SpanWindow", "window")[0].properties[
+        "window_spans"]
+    if (s3["spans_processed"] != 1 or s3["work_saved_ratio"] != 0.5
+            or spans3 != [2, 3] or s3["deliveries"] != ["3:1"]
+            or (s3["deployed"] or {}).get("version") != "3"
+            or s3.get("rollback_observed") is not True
+            or rb["version"] != "3" or not rb["rollback"]["rollback"]
+            or rb["rollback"]["version"] != "2" or rb["first_bad"] is None
+            or rb["rollback"]["mono"] - t3["swap"]["mono"] > CONT_PROBATION_S
+            or rb["captures"]):
+        raise AssertionError(f"continuous tick 3: {s3}, window {spans3}, "
+                             f"swap {t3['swap']}, fault {rb}")
+    unblessed = [b for b in blessings if b.properties.get("blessed") is False]
+    bad = [m for m in models if m.properties.get("rollback_quarantined")]
+    model1 = window_run(t1).outputs_of("Trainer", "model")[0]
+    model3 = window3.outputs_of("Trainer", "model")[0]
+    if (len(unblessed) != 1
+            or "auto-rollback" not in unblessed[0].properties["unblessed_reason"]
+            or not os.path.exists(os.path.join(unblessed[0].uri,
+                                               "NOT_BLESSED"))
+            or os.path.exists(os.path.join(unblessed[0].uri, "BLESSED"))
+            or [m.id for m in bad] != [model3.id]
+            or [m.id for m in baseline] != [model1.id]
+            or registry.get("continuous_rollbacks_observed_total").get() != 1):
+        raise AssertionError(
+            f"continuous: store after the rollback: unblessed "
+            f"{[(b.id, b.properties) for b in unblessed]}, quarantined "
+            f"models {[m.id for m in bad]} (version 3's {model3.id}), "
+            f"latest blessed {[m.id for m in baseline]} (version 2's "
+            f"{model1.id})")
+    if merged_bytes != cold_bytes:
+        raise AssertionError("continuous: the window [2, 3]'s merged "
+                             "stats.json differs from a cold StatisticsGen's")
+    rs = restarted["summary"]
+    if rs["spans_processed"] or rs["nodes_executed"] or rs["nodes_cached"] \
+            or "runs" in restarted or any(restarted["launches"].values()):
+        raise AssertionError(f"continuous restart: {rs}")
+    (resumed_run,) = resumed["runs"]
+    if (resumed["summary"]["deployed"] is not None or deploys1 != deploys0
+            or deploys1 != 2
+            or not all(nr.adopted for nr in resumed_run.nodes.values())
+            or resumed_run.run_id != window3.run_id
+            or any(resumed["launches"].values())):
+        raise AssertionError(
+            f"continuous crash marker: {resumed['summary']}, deploys "
+            f"{deploys0} -> {deploys1}, run {resumed_run.run_id} (tick 3's "
+            f"{window3.run_id}), adopted "
+            f"{[k for k, v in resumed_run.nodes.items() if v.adopted]}")
+    (drift_run,) = drift["runs"]
+    statuses = {k: v.status for k, v in drift_run.nodes.items()}
+    want_statuses = {k: "CACHED" for k in statuses}
+    want_statuses["RollingWindowResolver"] = "COMPLETE"
+    if (statuses != want_statuses or not drift["summary"].get("drift_triggered")
+            or drift["summary"]["deployed"] is not None
+            or any(drift["launches"].values())
+            or registry.get("continuous_drift_triggered_runs_total").get() != 1
+            or [c.name for c in evidence] != [drift_run.run_id]):
+        raise AssertionError(f"continuous drift: {drift['summary']}, "
+                             f"{statuses}, evidence "
+                             f"{[c.name for c in evidence]}")
+    print(f"continuous [{card}]: rollback of version 3 -> 2 "
+          f"{rb['rollback']['mono'] - t3['swap']['mono']:.3f} s after its "
+          f"swap, breach-to-rollback {rb['rollback']['mono'] - rb['first_bad']:.3f}"
+          f" s (first 5xx reply -> the fleet serves version 2), "
+          f"{rb['n_faulty']} replies {rb['codes']} under DEVICE_ERROR, "
+          f"{rb['captures']} captures at the rollback; the blessing of "
+          f"version 3 un-blessed (NOT_BLESSED written), its model "
+          f"rollback_quarantined, latest blessed = version 2's model "
+          f"(artifact {model1.id}); window [2, 3] merged stats.json == a cold "
+          f"StatisticsGen's byte for byte ({len(merged_bytes)} bytes; cold "
+          f"run {cold_s:.2f} s); restart: idle; crash marker: run "
+          f"{resumed_run.run_id} resumed, {len(resumed_run.nodes)} nodes "
+          f"adopted, no deploy (continuous_deploys_total {deploys1:g}); "
+          f"drift breach: run {drift_run.run_id} all cache hits but the "
+          f"resolver, drift_evidence recorded", flush=True)
+    total = {k: sum(rec["launches"][k] for rec in
+                    (t1, idle, t3, restarted, resumed, drift))
+             for k in fa.COUNTERS}
+    return by_record(total)
+
+
 # ------------------------------------------------------------------ T5 DAG
 
 T5_DAG_PAIRS = 3072
@@ -4801,6 +5398,8 @@ def main(argv=None) -> int:
         phase_done("retrain_dag")
         guard = fleet_guard_phase(args.seed, card, workdir, production, pushed)
         phase_done("fleet_guard")
+        continuous = continuous_phase(args.seed, card, workdir, production)
+        phase_done("continuous")
     with tempfile.TemporaryDirectory() as workdir:
         t5_dag = t5_dag_phase(args.seed, card, workdir)
     phase_done("t5_dag")
@@ -4810,8 +5409,9 @@ def main(argv=None) -> int:
     # launches: each kernel's count in its own paths' runs: training for the
     # four flash-attention kernels (Dvec's count on the dq record), :generate
     # plus both engine runs for flash_decode; launches_by_path adds the
-    # serving path's flash_fwd count and each kernel's count in the two
-    # pipeline DAGs, each read from inside the runner.
+    # serving path's flash_fwd count and each kernel's count in the pipeline
+    # DAGs and the continuous controller's ticks, each read from inside the
+    # runner.
     fwd["launches_by_path"] = {"serving": served, "fleet": fleet["flash_fwd"],
                                "training": trained["flash_fwd"]}
     decode["launches_by_path"] = {"serving": generated, "engine": engine,
@@ -4822,7 +5422,7 @@ def main(argv=None) -> int:
     bwd[0]["dvec_launches_by_path"] = {"training": trained["flash_bwd_dvec"]}
     fwd["launches_by_path"]["fleet_guard"] = guard
     for path, counts in (("bert_dag", bert_dag), ("retrain_dag", retrain),
-                         ("t5_dag", t5_dag)):
+                         ("continuous", continuous), ("t5_dag", t5_dag)):
         for record in (fwd, *bwd, decode):
             record["launches_by_path"][path] = counts[record["name"]]
         bwd[0]["dvec_launches_by_path"][path] = counts["flash_bwd_dvec"]

@@ -9,11 +9,13 @@ exit codes, once what differs between two runs is masked: run ids, the
 directories the two sides write under, every decimal number (wall
 times) and the width of the padding beside them.  ``--json`` outputs carry the same keys and the same non-time
 values.  ``run`` defaults to the card and raises without CUDA, naming the
-device; every subcommand and flag not ported yet exits 2 naming its
-ROADMAP.md item.
+device; ``run --resume-from latest`` after a run killed at a node prints
+the reference's lines (adopted nodes marked); every subcommand and flag
+not ported yet exits 2 naming its ROADMAP.md item.
 """
 
 import contextlib
+import importlib
 import io
 import json
 import os
@@ -255,11 +257,12 @@ def test_run_defaults_to_the_card_and_raises_without_cuda(tmp_path, monkeypatch)
 
 @pytest.mark.parametrize("argv,item", [
     (["lint", "--pipeline-module", "p.py"], "A20"),
-    (["continuous", "--pipeline-module", "p.py"], "A23"),
+    (["continuous", "--pipeline-module", "p.py", "--lint", "error"], "A20"),
     (["trace", "serve", "/tmp/requests"], "A8b"),
     (["run", "--pipeline-module", "p.py", "--from-node", "Trainer"], "A22"),
     (["run", "--pipeline-module", "p.py", "--to-node", "Trainer"], "A22"),
-    (["run", "--pipeline-module", "p.py", "--resume-from", "latest"], "A22"),
+    (["run", "--pipeline-module", "p.py", "--from-node", "Trainer",
+      "--resume-from", "latest"], "A22"),
     (["run", "--pipeline-module", "p.py", "--lint", "error"], "A20"),
 ])
 def test_each_deferred_subcommand_or_flag_names_its_item(argv, item):
@@ -278,3 +281,33 @@ def test_the_module_entry_point_runs_in_a_subprocess(runs):
     )
     assert proc.returncode == 0, proc.stderr
     assert "SchemaGen" in proc.stdout and "CACHED" in proc.stdout
+
+
+def test_run_resume_from_latest_adopts_as_the_reference(tmp_path, monkeypatch):
+    """A run killed at SchemaGen's dispatch, then ``run --resume-from
+    latest``: both CLIs print the same lines, the two published nodes
+    adopted and SchemaGen run, exit 0."""
+    monkeypatch.delenv("TPP_TRACE", raising=False)
+    monkeypatch.setenv("TPP_DATA_POOL", "thread")  # no fork under JAX's threads
+    got = {}
+    for side, (pkg, main, extra) in SIDES.items():
+        base = str(tmp_path / side)
+        os.makedirs(base)
+        module = os.path.join(base, "pipe.py")
+        with open(module, "w") as f:
+            f.write(PIPELINE.format(pkg=pkg, csv=CSV))
+        monkeypatch.setenv("HOSTDAG_BASE", base)
+        faults = importlib.import_module(f"{pkg}.testing.faults")
+        plan = faults.FaultPlan({"SchemaGen": faults.NodeFault(
+            faults.KILL_ORCHESTRATOR)})
+        with plan.activate(), pytest.raises(faults.SimulatedCrash):
+            _call(main, ["run", "--pipeline-module", module, *extra])
+        code, out, _ = _call(main, ["run", "--pipeline-module", module,
+                                    "--resume-from", "latest", *extra])
+        got[side] = (code, _masked(out, base))
+    assert got["port"] == got["ref"]
+    code, out = got["port"]
+    assert code == 0
+    assert "CsvExampleGen: adopted (done)" in out
+    assert "StatisticsGen: adopted (done)" in out
+    assert "SchemaGen: done" in out

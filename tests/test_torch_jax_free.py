@@ -86,11 +86,13 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
                    "observability.export", "observability.metrics",
                    "data.record_io", "components.importer",
                    "components.resolver", "dsl.cond", "observability.slo",
-                   "observability.drift"):
+                   "observability.drift", "continuous",
+                   "continuous.controller", "continuous.watcher",
+                   "continuous.window"):
         assert f"tpu_pipelines_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["modules"]
     assert {"retrain_dag_phase", "fleet_guard_phase",
-            "bert_dag_phase"} <= set(report["phases"])
+            "bert_dag_phase", "continuous_phase"} <= set(report["phases"])
     leaked = [m for m in report["modules"]
               if _forbidden(m) or m.split(".")[0] in NOT_AT_IMPORT]
     assert leaked == []

@@ -36,8 +36,10 @@ step bit for bit, and a capture that cannot succeed raises instead of
 running the step eagerly (kept last: a failed capture is the one test
 here that leaves the context in an unusual state).  Between them, the
 crossover measurement of ``chip_smoke.py`` records both crossovers for
-the card's name, and "auto" attention launches the kernels at or above a
-recorded crossover and nothing below it.
+the card's name, "auto" attention launches the kernels at or above a
+recorded crossover and nothing below it, and a continuous controller's
+tick on the card launches every training kernel inside its window
+Trainer.
 """
 
 import pytest
@@ -781,6 +783,42 @@ def test_graph_train_loop_equals_eager_steps_and_counts_launches_at_replay(cuda)
         assert torch.equal(p, q), name
 
 
+def test_a_graph_train_loop_captures_while_another_thread_works_the_card(cuda):
+    """A serving fleet in the same process keeps launching and syncing on
+    its own streams while the train loop captures its step (the continuous
+    controller's window Trainer beside the fleet): the capture succeeds,
+    and the graph run's losses equal those of the same run with the card
+    otherwise idle, bit for bit."""
+    import threading
+
+    batches = _train_batches(6, seed=7)
+    _, quiet, quiet_losses = _graph_train(batches, window=2)
+    stop, errors, rounds = threading.Event(), [], [0]
+
+    def busy():
+        stream = torch.cuda.Stream(cuda)
+        x = torch.zeros(1024, device=cuda)
+        try:
+            while not stop.is_set():
+                with torch.cuda.stream(stream):
+                    x.add_(1.0)
+                stream.synchronize()
+                rounds[0] += 1
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    worker = threading.Thread(target=busy)
+    worker.start()
+    try:
+        _, result, losses = _graph_train(batches, window=2)
+    finally:
+        stop.set()
+        worker.join()
+    assert errors == [] and rounds[0] > 0
+    assert result.compiles_after_warm == quiet.compiles_after_warm == 0
+    assert losses == quiet_losses
+
+
 def test_async_checkpoints_equal_the_eager_state_at_their_step_under_replay(
         cuda, tmp_path):
     import threading
@@ -1005,6 +1043,105 @@ def test_a_warm_started_trainers_captured_steps_equal_its_eager_steps(
     assert losses == eager_losses
     for (name, p), q in zip(model.named_parameters(), eager.parameters()):
         assert torch.equal(p, q), name
+
+
+def test_a_continuous_controller_tick_launches_the_kernels_in_its_window_trainer(
+        cuda, tmp_path):
+    """Two spans land; one controller tick on the card runs both span
+    pipelines and the window pipeline (RollingWindowResolver -> SpanWindow
+    / WindowStatisticsMerger -> SchemaGen -> Transform -> Trainer with
+    flash attention at tiny widths): every kernel of the training step
+    launches inside the window Trainer, layers x steps each backward
+    kernel, and a second tick with nothing new runs nothing."""
+    import os
+
+    import numpy as np
+
+    from tpu_pipelines_torch.components import (
+        CsvExampleGen,
+        RollingWindowResolver,
+        SchemaGen,
+        StatisticsGen,
+        Trainer,
+        Transform,
+    )
+    from tpu_pipelines_torch.continuous import (
+        ContinuousConfig,
+        ContinuousController,
+        SpanWindow,
+        WindowStatisticsMerger,
+    )
+    from tpu_pipelines_torch.dsl.pipeline import Pipeline
+    from tpu_pipelines_torch.examples import bert_pipeline
+    from tpu_pipelines_torch.observability.metrics import MetricsRegistry
+
+    steps, layers = 4, 2
+    hp = {"d_model": 64, "n_layers": layers, "n_heads": 2, "d_ff": 128,
+          "max_len": 64, "dropout_rate": 0.0, "num_classes": 2,
+          "batch_size": 8, "learning_rate": 1e-3, "attn_impl": "flash"}
+    pattern = str(tmp_path / "data" / "span-{SPAN}" / "v-{VERSION}")
+    md = str(tmp_path / "md.sqlite")
+    rng = np.random.default_rng(0)
+    words = [f"w{i}" for i in range(40)]
+    for span in (1, 2):
+        d = tmp_path / "data" / f"span-{span}" / "v-1"
+        d.mkdir(parents=True)
+        rows = ["text,label"] + [
+            f'"{" ".join(rng.choice(words, int(rng.integers(3, 20))))}",'
+            f"{int(rng.integers(0, 2))}" for _ in range(96)]
+        (d / "data.csv").write_text("\n".join(rows) + "\n")
+
+    def span_pipeline(span, version):
+        gen = CsvExampleGen(input_path=pattern, span=span, version=version)
+        stats = StatisticsGen(examples=gen.outputs["examples"],
+                              save_accumulators=True)
+        return Pipeline("gpu-spans", [gen, stats],
+                        pipeline_root=str(tmp_path / "spans"),
+                        metadata_path=md, node_timeout_s=600)
+
+    def window_pipeline():
+        win = RollingWindowResolver(
+            window_spans=2, source_pipeline="gpu-spans",
+            examples_producer="CsvExampleGen",
+            statistics_producer="StatisticsGen")
+        window = SpanWindow(examples=win.outputs["examples"])
+        merged = WindowStatisticsMerger(statistics=win.outputs["statistics"])
+        schema = SchemaGen(statistics=merged.outputs["statistics"])
+        transform = Transform(
+            examples=window.outputs["window"], schema=schema.outputs["schema"],
+            module_file=os.path.join(bert_pipeline.HERE,
+                                     "bert_preprocessing.py"))
+        trainer = Trainer(
+            examples=transform.outputs["transformed_examples"],
+            transform_graph=transform.outputs["transform_graph"],
+            module_file=os.path.join(bert_pipeline.HERE, "bert_module.py"),
+            train_steps=steps, hyperparameters=hp)
+        return Pipeline("gpu-window",
+                        [win, window, merged, schema, transform, trainer],
+                        pipeline_root=str(tmp_path / "window"),
+                        metadata_path=md, node_timeout_s=600)
+
+    controller = ContinuousController(ContinuousConfig(
+        input_pattern=pattern, make_span_pipeline=span_pipeline,
+        make_window_pipeline=window_pipeline, registry=MetricsRegistry(),
+        state_dir=str(tmp_path / "state"), device=cuda))
+    saved = {name: getattr(fa, name) for name in fa.COUNTERS}
+    try:
+        for name in fa.COUNTERS:
+            setattr(fa, name, 0)
+        tick = controller.run_once()
+        assert tick["spans_processed"] == 2 and tick["work_saved_ratio"] == 0.0
+        assert tick["nodes_executed"] == 4 + 6
+        assert (fa.dvec_launches, fa.dq_launches, fa.dkv_launches) == (
+            layers * steps,) * 3
+        assert fa.launches >= layers * steps and fa.decode_launches == 0
+        launched = {name: getattr(fa, name) for name in fa.COUNTERS}
+        idle = controller.run_once()
+        assert idle["nodes_executed"] == idle["nodes_cached"] == 0
+        assert {name: getattr(fa, name) for name in fa.COUNTERS} == launched
+    finally:
+        for name, value in saved.items():
+            setattr(fa, name, value)
 
 
 def test_a_capture_that_cannot_succeed_raises_instead_of_running_eagerly(cuda):

@@ -278,7 +278,7 @@ def test_runner_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"resume_from": "latest"}, "A22"),
+    ({"to_nodes": ["Trainer"]}, "A22"),
     ({"from_nodes": ["Trainer"]}, "A22"),
     ({"lint": "error"}, "A20"),
 ])

@@ -1,14 +1,27 @@
-"""The port's CLI: ``python -m tpu_pipelines_torch {run,inspect,trace,drift} ...``,
-the twin of ``python -m tpu_pipelines``.
+"""The port's CLI: ``python -m tpu_pipelines_torch
+{run,continuous,inspect,trace,drift} ...``, the twin of ``python -m
+tpu_pipelines``.
 
 ``run`` executes a pipeline module through the port's ``LocalDagRunner``,
 on the card unless ``--device cpu`` is given (without CUDA the default
-raises, naming the device):
+raises, naming the device); ``--resume-from latest|RUN_ID`` continues a
+crashed run, adopting what it published:
 
     python -m tpu_pipelines_torch run \
         --pipeline-module tpu_pipelines_torch/examples/bert_pipeline.py
     python -m tpu_pipelines_torch run --pipeline-module p.py --device cpu \
         --param steps=500
+    python -m tpu_pipelines_torch run --pipeline-module p.py --resume-from latest
+
+``continuous`` runs the continuous controller over a module defining
+``create_continuous() -> ContinuousConfig``: watch a ``{SPAN}`` pattern,
+ingest new spans, retrain over a rolling window, deploy into the fleet.
+The first SIGINT or SIGTERM drains (the in-flight run finishes, state
+persists), a second aborts:
+
+    python -m tpu_pipelines_torch continuous --pipeline-module m.py \
+        [--poll-interval S] [--once | --max-iterations N] [--state-dir D] \
+        [--device cpu]
 
 ``inspect`` reads the metadata store back:
 
@@ -36,9 +49,8 @@ the threshold.  ``--json`` on ``trace``, ``trace diff`` and ``inspect
 runs`` prints one JSON object instead of the tables.
 
 Not ported yet; each prints the ``ROADMAP.md`` item it waits for and
-exits 2: ``run --from-node/--to-node/--resume-from`` (A22), ``run
---lint`` and ``lint`` (A20), ``continuous`` (A23) and ``trace serve``
-(A8b).
+exits 2: ``run --from-node/--to-node`` (A22), ``run --lint``, ``continuous
+--lint`` and ``lint`` (A20) and ``trace serve`` (A8b).
 """
 
 from __future__ import annotations
@@ -56,7 +68,6 @@ EXIT_GATED = 3
 # Subcommands not ported yet: their ROADMAP.md item and what they do.
 _DEFERRED = {
     "lint": ("A20", "static pipeline and executor analysis"),
-    "continuous": ("A23", "the continuous controller"),
 }
 
 
@@ -335,8 +346,6 @@ def cmd_run(args) -> int:
 
     if args.from_node or args.to_node:
         return _unported("run --from-node/--to-node (partial runs)", "A22")
-    if args.resume_from:
-        return _unported("run --resume-from", "A22")
     if args.lint:
         return _unported("run --lint (the lint pre-flight)", "A20")
     logging.basicConfig(level=logging.INFO)
@@ -358,6 +367,7 @@ def cmd_run(args) -> int:
     pipeline = load_fn(args.pipeline_module, "create_pipeline")()
     result = runner.run(
         pipeline, runtime_parameters=params, raise_on_failure=False,
+        resume_from=args.resume_from,
     )
     print(f"run {result.run_id}: "
           f"{'OK' if result.succeeded else 'FAILED'}")
@@ -365,11 +375,76 @@ def cmd_run(args) -> int:
         mark = {"COMPLETE": "done", "CACHED": "cached"}.get(
             nr.status, nr.status
         )
+        if nr.adopted:
+            mark = f"adopted ({mark})"
         wall = f" ({nr.wall_clock_s:.1f}s)" if nr.wall_clock_s else ""
         err = f"  !! {nr.error}" if nr.error else ""
         print(f"  {node_id}: {mark}{wall}{err}")
     print(f"metadata: {pipeline.metadata_path}")
     return 0 if result.succeeded else 1
+
+
+def cmd_continuous(args) -> int:
+    """``continuous --pipeline-module M``: the long-lived controller loop.
+    The first SIGINT/SIGTERM lets the in-flight pipeline run finish and
+    persists state before exiting (no half-acked span, no orphaned pending
+    marker); a second signal aborts through the default handler."""
+    import dataclasses
+    import logging
+    import signal
+    import threading
+
+    from tpu_pipelines_torch.continuous import ContinuousController
+    from tpu_pipelines_torch.utils.module_loader import load_fn
+
+    if args.lint not in (None, "off"):
+        return _unported("continuous --lint (the lint gate)", "A20")
+    logging.basicConfig(level=logging.INFO)
+    try:
+        cfg = load_fn(args.pipeline_module, "create_continuous")()
+    except Exception as e:  # noqa: BLE001 — tool error, not a verdict
+        print(f"continuous: cannot load {args.pipeline_module}: "
+              f"{type(e).__name__}: {e}", file=sys.stderr)
+        return 1
+    overrides = {}
+    for field, value in (("poll_interval_s", args.poll_interval),
+                         ("state_dir", args.state_dir),
+                         ("lint", args.lint), ("device", args.device)):
+        if value is not None:
+            overrides[field] = value
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+
+    stop = threading.Event()
+    default_handlers = {}
+
+    def on_signal(signum, frame):  # noqa: ARG001
+        print(
+            f"continuous: signal {signum} — draining (in-flight run "
+            "finishes, state persists; signal again to abort hard)",
+            file=sys.stderr,
+        )
+        stop.set()
+        # Re-arm the default handler: the second signal kills us.
+        for sig, handler in default_handlers.items():
+            signal.signal(sig, handler)
+
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        default_handlers[sig] = signal.getsignal(sig)
+        signal.signal(sig, on_signal)
+    try:
+        controller = ContinuousController(cfg)
+        controller.run(
+            stop_event=stop,
+            max_iterations=1 if args.once else args.max_iterations,
+        )
+    finally:
+        for sig, handler in default_handlers.items():
+            signal.signal(sig, handler)
+    status = controller.status()
+    print(f"continuous: stopped after {status['iterations']} iteration(s); "
+          f"spans seen: {status['spans_seen']}")
+    return 0
 
 
 def main(argv=None) -> int:
@@ -399,10 +474,40 @@ def main(argv=None) -> int:
     p_run.add_argument("--to-node", action="append", default=[],
                        help="partial run (not ported yet: ROADMAP.md A22)")
     p_run.add_argument("--resume-from", default=None, metavar="RUN_ID",
-                       help="resume a crashed run (not ported yet: "
-                            "ROADMAP.md A22)")
+                       help="resume a crashed run ('latest' or a run id): "
+                            "published nodes are adopted, orphaned ones "
+                            "fenced and re-run")
     p_run.add_argument("--lint", default=None, choices=["error", "warn", "off"],
                        help="lint pre-flight (not ported yet: ROADMAP.md A20)")
+
+    p_cont = sub.add_parser(
+        "continuous",
+        help="run the continuous controller: watch a {SPAN} pattern, "
+             "ingest new spans incrementally, retrain over a rolling "
+             "window, deploy blessed models into the serving fleet",
+    )
+    p_cont.add_argument("--pipeline-module", required=True,
+                        help="file defining create_continuous() -> "
+                             "ContinuousConfig")
+    p_cont.add_argument("--poll-interval", type=float, default=None,
+                        metavar="SECONDS",
+                        help="override the config's watcher poll interval")
+    p_cont.add_argument("--state-dir", default=None,
+                        help="override the config's controller state dir "
+                             "(watcher acks and the in-flight run marker; "
+                             "enables resume across restarts)")
+    p_cont.add_argument("--max-iterations", type=int, default=0,
+                        help="stop after N loop iterations (0 = run until "
+                             "signalled)")
+    p_cont.add_argument("--once", action="store_true",
+                        help="run exactly one iteration and exit")
+    p_cont.add_argument("--device", default=None,
+                        help="override the config's device (cuda unless "
+                             "the config says otherwise; cpu to run on the "
+                             "CPU)")
+    p_cont.add_argument("--lint", default=None,
+                        choices=["error", "warn", "off"],
+                        help="lint gate (not ported yet: ROADMAP.md A20)")
 
     for name, (item, what) in _DEFERRED.items():
         sub.add_parser(name, help=f"{what} (not ported yet: ROADMAP.md {item})")
@@ -481,6 +586,8 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.cmd == "run":
         return cmd_run(args)
+    if args.cmd == "continuous":
+        return cmd_continuous(args)
     if args.cmd == "trace":
         return cmd_trace(args)
     if args.cmd == "drift":

@@ -395,6 +395,25 @@ def save_split_accumulators(
     return path
 
 
+def load_split_accumulators(
+    uri: str,
+) -> Dict[str, List["SplitStatsAccumulator"]]:
+    """Load the per-shard accumulators a ``save_accumulators=True``
+    StatisticsGen persisted.  Raises FileNotFoundError with a pointed
+    message when the artifact was produced without them."""
+    import pickle
+
+    path = os.path.join(uri, ACCUMULATORS_FILE)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"no {ACCUMULATORS_FILE} under {uri!r}: the statistics "
+            "artifact was produced without save_accumulators=True, so "
+            "it cannot participate in an incremental window merge"
+        )
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
 def accumulate_split_shard(task) -> SplitStatsAccumulator:
     """One shard's accumulator — the process-pool worker of the sharded
     StatisticsGen (module-level and plain-data-argumented, so it crosses the

@@ -581,6 +581,33 @@ class MetadataStore:
                         self.attribute(ctx.id, art.id)
             return execution
 
+    # ------------------------------------------------------- crash fencing
+
+    def sweep_stale_executions(
+        self, run_context_id: int, reason: str = "orchestrator crash"
+    ) -> List[Execution]:
+        """Fence a crashed run's orphaned executions.
+
+        Every execution associated with the run context that is still
+        RUNNING was registered by an orchestrator that died before
+        publishing (the runner associates a RUNNING record with its
+        contexts at registration): its outputs may be half-written and must
+        never be adopted.  Marks each one ABANDONED (recording ``reason``)
+        and returns them, so the caller can reclaim their allocated but
+        unpublished output URIs.
+        """
+        fenced: List[Execution] = []
+        with _obs.span("sweep_stale_executions", cat="metadata"), \
+                self._lock, self._plock:
+            for ex in self.get_executions_by_context(run_context_id):
+                if ex.state != ExecutionState.RUNNING:
+                    continue
+                ex.state = ExecutionState.ABANDONED
+                ex.properties["abandoned_reason"] = reason
+                self.put_execution(ex)
+                fenced.append(ex)
+        return fenced
+
     # -------------------------------------------------------- cache queries
 
     def get_cached_outputs(

@@ -57,7 +57,9 @@ calls), so a run can show that its attention went through the kernels.  A
 wrapper called while its stream captures a CUDA graph launches nothing: it
 records into the open :func:`launch_tally` instead, and whoever replays
 the graph adds that tally to the counters once per replay
-(:func:`credit`).  A capture with no tally open raises.
+(:func:`credit`).  A capture with no tally open raises.  Captures take
+turns under :data:`capture_lock` (the serving warm-up's and the train
+loop's alike), since the tally is module-wide.
 """
 
 from __future__ import annotations
@@ -167,6 +169,9 @@ _launch_lock = threading.Lock()
 # The tally of the graph capture under way, if any (module-wide, not per
 # thread: autograd runs a captured backward on its own device thread).
 _capture_tally: Optional[Dict[str, int]] = None
+# One capture at a time in the process: two would interleave their records
+# in the module-wide tally.  Held around every CUDA-graph capture.
+capture_lock = threading.Lock()
 
 
 def _count(name: str, capturing: bool) -> None:

@@ -45,12 +45,33 @@ empty output resolves to an empty list).  A node whose ``Cond`` predicate
 fails, or whose upstream was condition-skipped, settles ``COND_SKIPPED``
 with a CANCELED execution recording the verdict; the run still succeeds.
 
+Crash safety, as the reference's:
+  - ``run(..., resume_from="latest"|run_id)`` rebuilds a prior run from
+    the metadata store: COMPLETE and CACHED executions are adopted as they
+    are (same execution ids, same artifact URIs), a Cond CANCELED record
+    as ``COND_SKIPPED``; executions still RUNNING at the crash are fenced
+    (ABANDONED, their allocated output dirs removed) and re-dispatched
+    with everything downstream.  The DAG fingerprint recorded on the run
+    context refuses a resume whose compiled IR changed; the run id
+    continues, so the run context is not forked.
+  - a node deadline (component ``execution_timeout_s`` >
+    ``Pipeline(node_timeout_s=...)`` > env ``TPP_NODE_TIMEOUT_S``) is
+    enforced by a watchdog in the scheduler thread: on expiry the node is
+    published FAILED with ``timeout``, its cancel event (handed to the
+    executor as ``ctx.extras["cancel_event"]``) is set, the device gate is
+    released and the run drains; the worker's late publish is fenced out.
+    An expiry is terminal: it uses up the node's retry budget.  A wedged
+    device node's thread cannot be reaped (nor its CUDA work): the node
+    admitted after it shares the card with it until it returns.
+  - fault hooks (``testing/faults.py``) sit at dispatch, in the executor
+    attempt and on both sides of the publisher; no-ops unless a test
+    installs a plan.
+
 Not ported, and refused with ``NotImplementedError`` naming the
 ``ROADMAP.md`` item: ``spmd_sync`` multi-process runs (A10); the XLA
 compile cache (no counterpart: the port's kernels build once per checkout);
-the lint pre-flight (A20); ``resume_from``, partial runs (with the replay
-of a recorded skip and of prior outputs into them) and node deadlines
-(A22); metric federation (A8b) and fault injection (A10, A22).
+the lint pre-flight (A20); partial runs, with the replay of a recorded
+skip and of prior outputs into them (A22); metric federation (A8b).
 """
 
 from __future__ import annotations
@@ -66,7 +87,7 @@ import threading
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from tpu_pipelines_torch.dsl.compiler import (
     Compiler,
@@ -81,7 +102,9 @@ from tpu_pipelines_torch.metadata.store import MetadataStore, StoreUnavailableEr
 from tpu_pipelines_torch.observability import trace as _trace
 from tpu_pipelines_torch.metadata.types import (
     Artifact,
+    ArtifactState,
     Context,
+    EventType,
     Execution,
     ExecutionState,
 )
@@ -91,6 +114,7 @@ from tpu_pipelines_torch.robustness import (
     classify_error,
     record_retry,
 )
+from tpu_pipelines_torch.testing import faults as _faults
 from tpu_pipelines_torch.utils.device import resolve_device
 from tpu_pipelines_torch.utils.fingerprint import (
     execution_cache_key,
@@ -210,6 +234,9 @@ class NodeResult:
     error: str = ""
     wall_clock_s: float = 0.0
     retries: int = 0
+    # True when resume_from stitched this node in from a prior run's
+    # published execution instead of executing it again.
+    adopted: bool = False
 
 
 @dataclasses.dataclass
@@ -246,7 +273,22 @@ class _LaunchPlan:
     outputs: Dict[str, List[Artifact]]
     all_ctx: List[Context]
     t0: float
+    # Deadline watchdog state (0 = no deadline).  ``cancel`` is handed to
+    # the executor (extras["cancel_event"]); ``fenced`` is set by the
+    # scheduler when the deadline expires (the worker must not publish
+    # afterwards); ``published`` by the worker under the publish lock (the
+    # scheduler must not fence afterwards): exactly one publish wins.
+    deadline_s: float = 0.0
     retry_policy: Optional[RetryPolicy] = None
+    cancel: threading.Event = dataclasses.field(
+        default_factory=threading.Event
+    )
+    fenced: threading.Event = dataclasses.field(
+        default_factory=threading.Event
+    )
+    published: threading.Event = dataclasses.field(
+        default_factory=threading.Event
+    )
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -295,22 +337,41 @@ class LocalDagRunner:
         resume_from: Optional[str] = None,
         lint: Optional[str] = None,
     ) -> RunResult:
-        """Execute the pipeline; every node runs (or is a cache hit)."""
+        """Execute the pipeline; every node runs (or is a cache hit).
+
+        ``resume_from`` ("latest" or a prior run id) continues a run whose
+        orchestrator died: published COMPLETE/CACHED executions are adopted
+        as they are, RUNNING-at-crash executions are fenced (ABANDONED,
+        orphan output dirs removed), and only unfinished nodes and their
+        descendants execute.  Refused when the compiled DAG's fingerprint no
+        longer matches the one recorded for that run.
+        """
+        if resume_from and (from_nodes or to_nodes):
+            raise ValueError(
+                "resume_from is incompatible with from_nodes/to_nodes: a "
+                "resume re-runs exactly the unfinished frontier of the "
+                "prior run"
+            )
+        if resume_from and run_id:
+            raise ValueError(
+                "pass either resume_from (continues the prior run's id) or "
+                "run_id, not both"
+            )
         if from_nodes or to_nodes:
             raise _unported("a partial run (from_nodes/to_nodes)", "A22")
-        if resume_from:
-            raise _unported("resume_from", "A22")
         if lint or os.environ.get("TPP_LINT", "off").strip() not in ("", "off"):
             raise _unported("the lint pre-flight", "A20")
         ir = Compiler().compile(pipeline)
-        for node in ir.nodes:
-            if self._node_timeout_s(node, ir) > 0:
-                raise _unported(f"node deadlines ({node.id!r})", "A22")
         executors = {c.id: c for c in pipeline.components}
         store = open_store(pipeline.metadata_path)
+        dag_fp = ir.fingerprint()
+        adopted: Dict[str, NodeResult] = {}
         try:
+            if resume_from:
+                run_id, adopted = self._prepare_resume(
+                    store, ir, pipeline.name, resume_from, dag_fp
+                )
             run_id = run_id or f"{pipeline.name}-{int(time.time() * 1000)}"
-            dag_fp = ir.fingerprint()
             pipeline_ctx = Context("pipeline", pipeline.name)
             run_ctx = Context(
                 "pipeline_run", f"{pipeline.name}.{run_id}",
@@ -324,6 +385,18 @@ class LocalDagRunner:
                 _trace.run_trace_dir(ir.pipeline_root, run_id), run_id
             )
             result = RunResult(pipeline_name=pipeline.name, run_id=run_id)
+            # The adopted nodes, in topo order; they settle before the first
+            # dispatch (_run_nodes).
+            for node in ir.nodes:
+                if node.id in adopted and recorder:
+                    nr = adopted[node.id]
+                    recorder.instant(
+                        "resume_adopt", cat="run", node=node.id,
+                        args={
+                            "status": nr.status,
+                            "execution_id": nr.execution_id,
+                        },
+                    )
             result.max_parallel_nodes = self._effective_parallelism(ir)
             node_extras = dict(extras or {})
             node_extras["device"] = str(self.device)
@@ -334,8 +407,8 @@ class LocalDagRunner:
                     args={
                         "pipeline": pipeline.name,
                         "max_parallel_nodes": result.max_parallel_nodes,
-                        "resume_from": "",
-                        "adopted": [],
+                        "resume_from": resume_from or "",
+                        "adopted": sorted(adopted),
                         "dag_fingerprint": dag_fp,
                     },
                 )
@@ -349,6 +422,7 @@ class LocalDagRunner:
                         enable_cache=pipeline.enable_cache,
                         telemetry=telemetry,
                         max_workers=result.max_parallel_nodes,
+                        adopted=adopted,
                     )
                 if recorder:
                     recorder.instant(
@@ -385,17 +459,19 @@ class LocalDagRunner:
 
     @staticmethod
     def _node_timeout_s(node: NodeIR, ir: PipelineIR) -> float:
-        """The deadline the reference would enforce (0 = none): component
-        override > pipeline default > env ``TPP_NODE_TIMEOUT_S``."""
+        """The node's execution deadline (0 = none): component override >
+        pipeline default > env ``TPP_NODE_TIMEOUT_S``."""
         if node.execution_timeout_s and node.execution_timeout_s > 0:
             return float(node.execution_timeout_s)
         if ir.default_node_timeout_s and ir.default_node_timeout_s > 0:
             return float(ir.default_node_timeout_s)
         env = os.environ.get("TPP_NODE_TIMEOUT_S", "")
-        try:
-            return max(0.0, float(env)) if env else 0.0
-        except ValueError:
-            return 0.0
+        if env:
+            try:
+                return max(0.0, float(env))
+            except ValueError:
+                log.warning("ignoring non-numeric TPP_NODE_TIMEOUT_S=%r", env)
+        return 0.0
 
     def _node_retry_policy(
         self, node: NodeIR, ir: PipelineIR
@@ -415,6 +491,136 @@ class LocalDagRunner:
                 jitter=False,
             )
         return policy
+
+    # -------------------------------------------------------------- resume
+
+    def _prepare_resume(
+        self,
+        store: MetadataStore,
+        ir: PipelineIR,
+        pipeline_name: str,
+        resume_from: str,
+        dag_fp: str,
+    ) -> Tuple[str, Dict[str, NodeResult]]:
+        """Rebuild a crashed run's state from the metadata store.
+
+        Returns ``(run_id, adopted)``: NodeResults for every node whose
+        prior execution can be trusted, COMPLETE/CACHED with every output
+        still LIVE (and every upstream itself adopted), or a Cond CANCELED
+        skip record.  First the stale-execution sweep fences everything
+        still RUNNING at the crash: ABANDONED in the store, its allocated
+        output dirs removed, so the re-dispatch starts from a clean slate.
+        """
+        prefix = f"{pipeline_name}."
+        candidates = [
+            c for c in store.get_contexts("pipeline_run")
+            if c.name.startswith(prefix)
+        ]
+        if resume_from != "latest":
+            candidates = [
+                c for c in candidates
+                if c.properties.get("run_id") == resume_from
+                or c.name == prefix + resume_from
+            ]
+        if not candidates:
+            raise ValueError(
+                f"resume_from={resume_from!r}: no prior run of pipeline "
+                f"{pipeline_name!r} in {store.db_path!r}"
+            )
+        run_ctx = max(candidates, key=lambda c: c.id)
+        prior_fp = run_ctx.properties.get("dag_fingerprint", "")
+        if prior_fp != dag_fp:
+            detail = (
+                "was recorded before DAG fingerprinting existed"
+                if not prior_fp
+                else "was compiled from a different DAG (nodes, wiring, "
+                     "exec-properties, or executor code changed)"
+            )
+            raise ValueError(
+                f"resume refused: run {run_ctx.name!r} {detail}; start a "
+                "fresh run instead (the execution cache still reuses any "
+                "node whose inputs and code are unchanged)"
+            )
+        run_id = run_ctx.properties.get("run_id") or run_ctx.name[len(prefix):]
+
+        by_id = {n.id: n for n in ir.nodes}
+        fenced = store.sweep_stale_executions(run_ctx.id)
+        for ex in fenced:
+            node = by_id.get(ex.node_id)
+            if node is None:
+                continue
+            for key in node.outputs:
+                stale = os.path.join(ir.pipeline_root, node.id, key, str(ex.id))
+                if os.path.isdir(stale):
+                    shutil.rmtree(stale)
+
+        # The newest decisive execution per node within the crashed run.
+        decisive: Dict[str, Execution] = {}
+        for ex in store.get_executions_by_context(run_ctx.id):  # id order
+            if ex.state in (
+                ExecutionState.COMPLETE, ExecutionState.CACHED,
+                ExecutionState.FAILED, ExecutionState.ABANDONED,
+            ) or (
+                ex.state == ExecutionState.CANCELED
+                and ex.properties.get("cond_skipped")
+            ):
+                decisive[ex.node_id] = ex
+
+        adopted: Dict[str, NodeResult] = {}
+        for node in ir.nodes:  # topo order: upstream adoption settles first
+            ex = decisive.get(node.id)
+            if ex is None or any(u not in adopted for u in node.upstream):
+                # Nothing decisive, or an upstream re-runs: its recorded
+                # outputs may not match what the re-run produces (the
+                # execution cache still short-circuits identical work).
+                continue
+            if ex.state in (ExecutionState.COMPLETE, ExecutionState.CACHED):
+                outputs = self._outputs_of_execution(store, node, ex)
+                if outputs is None:
+                    continue  # an output artifact went non-LIVE: re-run
+                adopted[node.id] = NodeResult(
+                    node_id=node.id, status=ex.state.value,
+                    execution_id=ex.id, outputs=outputs, adopted=True,
+                )
+            elif ex.state == ExecutionState.CANCELED:
+                adopted[node.id] = NodeResult(
+                    node_id=node.id, status="COND_SKIPPED", adopted=True
+                )
+            # FAILED / ABANDONED: re-dispatched.
+        rerun = sorted(n.id for n in ir.nodes if n.id not in adopted)
+        log.info(
+            "resume %s: adopting %d node(s), fenced %d stale execution(s), "
+            "re-running %s",
+            run_id, len(adopted), len(fenced), rerun or "nothing",
+        )
+        return run_id, adopted
+
+    @staticmethod
+    def _outputs_of_execution(
+        store: MetadataStore, node: NodeIR, ex: Execution
+    ) -> Optional[Dict[str, List[Artifact]]]:
+        """One execution's outputs in event-index order, or None when any
+        output artifact is no longer LIVE (adoption must be refused)."""
+        candidate: Dict[str, List[tuple]] = {}
+        for ev in store.get_events_by_execution(ex.id):
+            if ev.type != EventType.OUTPUT:
+                continue
+            art = store.get_artifact(ev.artifact_id)
+            if art is None or art.state != ArtifactState.LIVE:
+                return None
+            candidate.setdefault(ev.path, []).append((ev.index, art))
+        if not candidate and node.outputs and not node.is_resolver:
+            # Declared outputs but no OUTPUT events: corrupt state (an
+            # interrupted publish), the same rule as the cache lookup.
+            return None
+        outputs: Dict[str, List[Artifact]] = (
+            {key: [] for key in node.outputs} if node.is_resolver else {}
+        )
+        outputs.update({
+            path: [a for _, a in sorted(pairs, key=lambda p: p[0])]
+            for path, pairs in candidate.items()
+        })
+        return outputs
 
     @staticmethod
     def _cond_outcome(
@@ -468,6 +674,7 @@ class LocalDagRunner:
     def _run_nodes(
         self, *, store, ir, executors, result, runtime_parameters, contexts,
         extras, enable_cache, telemetry, max_workers: int,
+        adopted: Dict[str, NodeResult],
     ) -> None:
         """Ready-set scheduler: dispatch any node whose upstreams have all
         settled, lowest topo index first; executors run in a worker pool
@@ -476,21 +683,31 @@ class LocalDagRunner:
         node marks its descendants FAILED without cancelling in-flight or
         independent work.  Each node's ``node`` span runs from its dispatch
         to its settle; queue wait is dispatch less the moment it became
-        ready, gate wait the time it waited for the device."""
+        ready, gate wait the time it waited for the device.
+
+        The scheduler's wait is the deadline watchdog: it blocks until a
+        completion arrives or the nearest in-flight deadline expires; an
+        expired node settles FAILED at once and its worker's eventual
+        result is discarded (a zombie).  Adopted (resumed) nodes settle
+        before the first dispatch."""
         publish_lock = threading.Lock()
-        unprocessed = [n.id for n in ir.nodes]  # stays in topo order
         by_id = {n.id: n for n in ir.nodes}
         produced: Dict[str, Dict[str, List[Artifact]]] = {}
         failed: set = set()
         cond_skipped: set = set()
         settled: set = set()
         in_flight: set = set()
+        in_flight_plans: Dict[str, _LaunchPlan] = {}
         tpu_in_flight: Optional[str] = None
         done_q: "queue_mod.Queue" = queue_mod.Queue()
         rec = _trace.active_recorder()
         ready_at: Dict[str, tuple] = {}         # nid -> (wall, mono)
         gate_blocked_at: Dict[str, float] = {}  # nid -> mono
         dispatch_info: Dict[str, tuple] = {}    # nid -> (wall, mono, qw, gw)
+        # nid -> absolute monotonic deadline of an in-flight timed node.
+        deadlines: Dict[str, float] = {}
+        # Nodes settled FAILED(timeout) whose worker has not returned yet.
+        zombies: set = set()
 
         def emit_node(nr: NodeResult, t0: tuple, queue_wait: float,
                       gate_wait: float) -> None:
@@ -522,7 +739,19 @@ class LocalDagRunner:
             else:
                 failed.add(nr.node_id)
 
-        def worker(plan: _LaunchPlan) -> None:
+        def finish(nr: NodeResult) -> None:
+            """Settle an executed (or expired) node and emit its span."""
+            nonlocal tpu_in_flight
+            in_flight.discard(nr.node_id)
+            in_flight_plans.pop(nr.node_id, None)
+            deadlines.pop(nr.node_id, None)
+            if tpu_in_flight == nr.node_id:
+                tpu_in_flight = None  # release the device gate
+            settle(nr)
+            dw, dm, qw, gw = dispatch_info.pop(nr.node_id)
+            emit_node(nr, (dw, dm), qw, gw)
+
+        def worker(plan: _LaunchPlan, node_extras: Dict[str, Any]) -> None:
             try:
                 # Worker threads have fresh contextvar contexts: stamp the
                 # run/node ids so this thread's log records are attributable.
@@ -530,7 +759,12 @@ class LocalDagRunner:
                     plan.node.id, rec.run_id if rec else ""
                 ):
                     nr = self._execute_and_publish(
-                        store, plan, extras, publish_lock)
+                        store, plan, node_extras, publish_lock)
+            except _faults.SimulatedCrash as crash:
+                # Forward the injected orchestrator death to the scheduler
+                # thread, which re-raises it (the whole process "dies").
+                done_q.put(crash)
+                return
             except Exception:
                 # Runner-internal failure: settle the node as FAILED instead
                 # of deadlocking the scheduler on a completion that never
@@ -541,9 +775,14 @@ class LocalDagRunner:
                 )
             done_q.put(nr)
 
-        with ThreadPoolExecutor(
+        for node in ir.nodes:
+            if node.id in adopted:
+                settle(adopted[node.id])
+        unprocessed = [n.id for n in ir.nodes if n.id not in settled]
+        pool = ThreadPoolExecutor(
             max_workers=max_workers, thread_name_prefix="tpp-node"
-        ) as pool:
+        )
+        try:
             while unprocessed or in_flight:
                 telemetry.progress(len(unprocessed), len(in_flight), result)
                 progressed = False
@@ -611,27 +850,123 @@ class LocalDagRunner:
                                   queue_wait, gate_wait)
                         continue
                     in_flight.add(nid)
+                    in_flight_plans[nid] = prepared
                     dispatch_info[nid] = (
                         dispatch_wall, dispatch_mono, queue_wait, gate_wait
                     )
+                    if prepared.deadline_s > 0:
+                        deadlines[nid] = time.monotonic() + prepared.deadline_s
                     if node.resource_class == "tpu":
                         tpu_in_flight = nid
+                    node_extras = dict(extras)
+                    # Cooperative cancellation: set on deadline expiry and at
+                    # drain, so a long-running executor can abort.
+                    node_extras["cancel_event"] = prepared.cancel
                     telemetry.heartbeat(nid, dispatched=True)
-                    pool.submit(worker, prepared)
+                    pool.submit(worker, prepared, node_extras)
                 if progressed:
                     continue
                 if not in_flight:
                     raise RuntimeError(
                         f"scheduler stalled with pending nodes {unprocessed}"
                     )
-                nr = done_q.get()
-                in_flight.discard(nr.node_id)
-                if tpu_in_flight == nr.node_id:
-                    tpu_in_flight = None
-                settle(nr)
-                dw, dm, qw, gw = dispatch_info.pop(nr.node_id)
-                emit_node(nr, (dw, dm), qw, gw)
+                # Watchdog wait: a completion, or the nearest deadline.
+                wait_s = None
+                if deadlines:
+                    wait_s = max(0.0, min(deadlines.values()) - time.monotonic())
+                try:
+                    item = done_q.get(timeout=wait_s)
+                except queue_mod.Empty:
+                    now = time.monotonic()
+                    for nid in [n for n, d in deadlines.items() if d <= now]:
+                        expired = self._expire_deadline(
+                            store, in_flight_plans[nid], publish_lock
+                        )
+                        deadlines.pop(nid)
+                        if expired is None:
+                            continue  # published concurrently: result coming
+                        zombies.add(nid)
+                        finish(expired)
+                    continue
+                if isinstance(item, BaseException):
+                    raise item  # a forwarded SimulatedCrash
+                if item.node_id in zombies:
+                    # The timed-out worker finally returned (its publish was
+                    # fenced); the node is already settled FAILED(timeout).
+                    zombies.discard(item.node_id)
+                    continue
+                finish(item)
             telemetry.progress(len(unprocessed), len(in_flight), result)
+        finally:
+            # Release every cooperative hang, give timed-out workers a short
+            # grace to drain, then shut down without blocking on a wedged
+            # thread (it holds no lock and its publish is fenced).
+            for plan in in_flight_plans.values():
+                plan.cancel.set()
+            grace = time.monotonic() + 2.0
+            while zombies and time.monotonic() < grace:
+                try:
+                    item = done_q.get(timeout=0.1)
+                except queue_mod.Empty:
+                    continue
+                if isinstance(item, NodeResult):
+                    zombies.discard(item.node_id)
+            pool.shutdown(wait=not zombies)
+
+    def _expire_deadline(
+        self,
+        store: MetadataStore,
+        plan: _LaunchPlan,
+        publish_lock: threading.Lock,
+    ) -> Optional[NodeResult]:
+        """Watchdog expiry of one in-flight node: fence the worker's future
+        publish, record the FAILED(timeout) execution, and release the
+        (cooperative) executor through the cancel event.  None when the
+        worker's publish already won the race (its completion is on the
+        done queue), else the timeout NodeResult to settle.
+
+        An expiry is terminal: the hung attempt cannot be reaped, so a
+        clean-slate retry would race its writes; the timeout uses up the
+        node's retry budget.
+        """
+        node, ex = plan.node, plan.execution
+        with publish_lock:
+            if plan.published.is_set():
+                return None
+            plan.fenced.set()
+            plan.cancel.set()
+            wall = time.time() - plan.t0
+            error = (
+                f"execution timeout: node {node.id!r} exceeded its "
+                f"{plan.deadline_s:g}s deadline"
+            )
+            ex.state = ExecutionState.FAILED
+            ex.properties.update({
+                "wall_clock_s": round(wall, 4),
+                "timeout": True,
+                "error": error,
+            })
+            try:
+                # Outputs publish as ABANDONED at their allocated URIs; the
+                # wedged executor may still be writing under them, which is
+                # why they are never adopted or cached.
+                store.publish_execution(
+                    ex, plan.inputs, plan.outputs, plan.all_ctx
+                )
+            except StoreUnavailableError as e:
+                log.error(
+                    "node %s: metadata store unavailable while recording "
+                    "timeout: %s", node.id, e,
+                )
+        log.warning("node %s: %s", node.id, error)
+        _trace.instant(
+            "deadline_expired", cat="scheduler", node=node.id,
+            args={"deadline_s": plan.deadline_s, "execution_id": ex.id},
+        )
+        return NodeResult(
+            node_id=node.id, status="FAILED", execution_id=ex.id,
+            error=error, wall_clock_s=wall,
+        )
 
     def _prepare_node(
         self,
@@ -651,6 +986,9 @@ class LocalDagRunner:
         driver failure), else a _LaunchPlan.  Traced as the ``driver``
         span."""
         t0 = time.time()
+        # Fault hook: kill-orchestrator-at-node-N fires here, in the
+        # scheduler thread, before any state for this node is registered.
+        _faults.at_dispatch(node.id)
         with contextlib.ExitStack() as stack:
             stack.enter_context(_trace.node_log_context(node.id))
             stack.enter_context(
@@ -762,6 +1100,7 @@ class LocalDagRunner:
             node=node, component=component, inputs=inputs, props=props,
             external_fps=external_fps, execution=ex, outputs=outputs,
             all_ctx=all_ctx, t0=t0,
+            deadline_s=self._node_timeout_s(node, ir),
             retry_policy=self._node_retry_policy(node, ir),
         )
 
@@ -773,7 +1112,9 @@ class LocalDagRunner:
         publish_lock: threading.Lock,
     ) -> NodeResult:
         """LAUNCHER + PUBLISHER phases: run the executor (with per-node
-        retries), then fingerprint and publish under the publish lock."""
+        retries), then fingerprint and publish under the publish lock.  The
+        node deadline (enforced by the scheduler's watchdog) covers every
+        attempt and backoff; its cancel event stops the retries."""
         node, ex = plan.node, plan.execution
         inputs, props, outputs = plan.inputs, plan.props, plan.outputs
         error = ""
@@ -813,6 +1154,8 @@ class LocalDagRunner:
                         "executor", cat="executor", node=node.id,
                         args={"attempt": attempts},
                     ) as tsp:
+                        # Fault hook: raise-in-executor / cooperative hang.
+                        _faults.in_executor(node.id, plan.cancel)
                         ret = executor(ctx)
                         tsp["ok"] = True
                     extra_props = dict(ret or {})
@@ -836,6 +1179,8 @@ class LocalDagRunner:
                         if remaining <= 0:
                             break
                         delay = min(delay, remaining)
+                    if plan.cancel.is_set():
+                        break  # watchdog expiry or drain: stop retrying
                     record_retry(f"node:{node.id}")
                     _trace.instant(
                         "retry", cat="executor", node=node.id,
@@ -845,8 +1190,10 @@ class LocalDagRunner:
                             "error_kind": type(exc).__name__,
                         },
                     )
-                    if delay > 0:
-                        time.sleep(delay)
+                    # Backoff waits on the cancel event, so a draining run
+                    # (or the deadline watchdog) wakes it at once.
+                    if delay > 0 and plan.cancel.wait(delay):
+                        break
                     attempts += 1
                 finally:
                     shutil.rmtree(tmp, ignore_errors=True)
@@ -865,13 +1212,16 @@ class LocalDagRunner:
                     a.uri = allocated_uris[id(a)]
             ex.state = ExecutionState.FAILED
             ex.properties["error"] = error.splitlines()[-1]
-            publish_err = self._publish(store, plan, publish_lock)
+            publish_err = self._publish_fenced(store, plan, publish_lock)
             if publish_err:
                 error = f"{error}\n{publish_err}"
             return NodeResult(
                 node_id=node.id, status="FAILED", execution_id=ex.id,
                 error=error, wall_clock_s=wall, retries=attempts - 1,
             )
+        # Fault hook: crash after success, before publish (the state a
+        # resume must fence: a RUNNING execution and written payload dirs).
+        _faults.before_publish(node.id)
         with _trace.span("fingerprint", cat="executor", node=node.id):
             for arts in outputs.values():
                 for a in arts:
@@ -880,12 +1230,22 @@ class LocalDagRunner:
                         or fingerprint_dir(a.uri)
                     )
         ex.state = ExecutionState.COMPLETE
-        publish_err = self._publish(store, plan, publish_lock)
+        publish_err = self._publish_fenced(store, plan, publish_lock)
         if publish_err is not None:
             return NodeResult(
                 node_id=node.id, status="FAILED", execution_id=ex.id,
                 error=publish_err, wall_clock_s=wall, retries=attempts - 1,
             )
+        if plan.fenced.is_set():
+            # The watchdog expired this node while the executor finished:
+            # the scheduler already settled and published FAILED(timeout);
+            # this result is discarded as a zombie.
+            return NodeResult(
+                node_id=node.id, status="FAILED", execution_id=ex.id,
+                error="fenced by deadline watchdog", wall_clock_s=wall,
+            )
+        # Fault hook: crash right after publish (the state a resume adopts).
+        _faults.after_publish(node.id)
         log.info(
             "node %s: COMPLETE in %.2fs (execution %d)", node.id, wall, ex.id
         )
@@ -895,16 +1255,23 @@ class LocalDagRunner:
         )
 
     @staticmethod
-    def _publish(
+    def _publish_fenced(
         store: MetadataStore, plan: _LaunchPlan, publish_lock: threading.Lock,
     ) -> Optional[str]:
-        """Publish the plan's execution; an error string when the store is
-        unavailable (the caller records a node failure), else None."""
+        """Publish the plan's execution unless the deadline watchdog fenced
+        it first.  The fenced/published handshake runs under the publish
+        lock, so exactly one of the worker's publish and the watchdog's
+        FAILED(timeout) publish reaches the store.  An error string when
+        the store is unavailable (the caller records a node failure), else
+        None."""
         try:
             with _trace.span(
                 "publish", cat="executor", node=plan.node.id,
                 args={"state": plan.execution.state.value},
             ), publish_lock:
+                if plan.fenced.is_set():
+                    return None  # the watchdog published FAILED(timeout)
+                plan.published.set()
                 store.publish_execution(
                     plan.execution, plan.inputs, plan.outputs, plan.all_ctx
                 )

@@ -55,11 +55,6 @@ _PAYLOAD_ENTRIES = (
     "model_spec.json", "module_copy.py", "checkpoint", "transform_graph",
 )
 
-# One capture at a time in the process: the kernels' launch tally is
-# module-wide, and two captures would interleave their records.
-_CAPTURE_LOCK = threading.Lock()
-
-
 def payload_fingerprint(uri: str) -> str:
     """Content hash of the payload files that define the served program
     (byte-identical payloads key identically across processes)."""
@@ -101,7 +96,7 @@ def capture(fn: Callable[[], Any], *, stream: torch.cuda.Stream,
     this one captures (``thread_local`` capture mode); captures themselves
     take turns."""
     graph = torch.cuda.CUDAGraph()
-    with _CAPTURE_LOCK:
+    with fa.capture_lock:
         with fa.launch_tally() as tally, torch.cuda.graph(
                 graph, pool=pool, stream=stream,
                 capture_error_mode="thread_local"):

@@ -1,1 +1,1 @@
-"""Test seams of the port: the serving fleet's fault injection."""
+"""Test seams of the port: the runner's and the serving fleet's fault injection."""

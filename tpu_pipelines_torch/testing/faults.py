@@ -1,12 +1,25 @@
-"""Fault injection for the serving fleet: prove its failure semantics.
+"""Fault injection: prove the runner's and the serving fleet's failure
+semantics.
 
-The serving part of ``tpu_pipelines/testing/faults.py``: the faults the
-fleet's supervisor, failover and hot-swap paths must absorb, at the exact
-point where they occur.
+The port of ``tpu_pipelines/testing/faults.py``: the failure modes a
+preemptible fleet produces, injected at the exact point where they occur.
 
   ==================== =====================================================
   kind                 fires at
   ==================== =====================================================
+  RAISE                inside the executor attempt (a transient executor bug)
+  HANG                 inside the executor attempt; blocks on the runner's
+                       cancel event (a stuck ``urlopen``), released by the
+                       deadline watchdog, so a hang leaves no thread behind
+  CRASH_BEFORE_PUBLISH after the executor succeeded, before the publisher's
+                       store write (a RUNNING execution and written payload
+                       dirs left behind: the state a resume must fence)
+  CRASH_AFTER_PUBLISH  right after the COMPLETE publish landed (the state a
+                       resume must adopt as it is)
+  KILL_ORCHESTRATOR    at node dispatch, in the scheduler thread (eviction,
+                       OOM, Ctrl-C mid-run)
+  TRANSIENT_EXECUTOR_  inside the executor attempt: a ``TransientError``,
+  ERROR                ``times`` times, then clean (classified-retry bait)
   RELOAD_DURING_HAMMER per serving request (key ``SERVING_KEY``): after the
                        ``after``-th request, hot-reload the model in a
                        background thread mid-storm
@@ -19,11 +32,21 @@ point where they occur.
                        device error (failover bait)
   ==================== =====================================================
 
+The crash kinds raise :class:`SimulatedCrash`, a ``BaseException`` no
+``except Exception`` can swallow, so the metadata store is left as a
+SIGKILL would leave it.  Each node fault fires once per plan (``times``
+for the counted kinds), so the node runs clean on resume.  The reference's
+``STORE_CONTENTION`` (a store-write hook) and ``KILL_SHARD_WORKER`` (the
+process-pool shard map) wait for ``ROADMAP.md`` A21/A22: the port's store
+has no fault hook and its shard map runs on threads.
+
 Usage::
 
-    plan = FaultPlan({REPLICA_KEY: NodeFault(KILL_REPLICA, replica="0")})
+    plan = FaultPlan({"Trainer": NodeFault(CRASH_BEFORE_PUBLISH)})
     with plan.activate():
-        ...  # drive the fleet
+        with pytest.raises(SimulatedCrash):
+            LocalDagRunner(device="cpu").run(pipeline)
+    LocalDagRunner(device="cpu").run(pipeline, resume_from="latest")
 
 The hooks cost one module-global read when no plan is active.
 """
@@ -35,6 +58,12 @@ import threading
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 
+RAISE = "raise"
+HANG = "hang"
+CRASH_BEFORE_PUBLISH = "crash_before_publish"
+CRASH_AFTER_PUBLISH = "crash_after_publish"
+KILL_ORCHESTRATOR = "kill_orchestrator"
+TRANSIENT_EXECUTOR_ERROR = "transient_executor_error"  # classified-retry bait
 RELOAD_DURING_HAMMER = "reload_during_hammer"  # hot-swap mid-request-storm
 KILL_REPLICA = "kill_replica"      # latched death until rebuild (generation)
 WEDGE_PREDICT = "wedge_predict"    # predict parks, queue age grows
@@ -46,6 +75,12 @@ REPLICA_KEY = "__replica__"
 
 # kind -> the hook that triggers it.
 _KIND_TO_POINT = {
+    RAISE: "in_executor",
+    HANG: "in_executor",
+    TRANSIENT_EXECUTOR_ERROR: "in_executor",
+    CRASH_BEFORE_PUBLISH: "before_publish",
+    CRASH_AFTER_PUBLISH: "after_publish",
+    KILL_ORCHESTRATOR: "at_dispatch",
     RELOAD_DURING_HAMMER: "serving_request",
     KILL_REPLICA: "replica_predict",
     WEDGE_PREDICT: "replica_predict",
@@ -53,18 +88,31 @@ _KIND_TO_POINT = {
 }
 
 
+class SimulatedCrash(BaseException):
+    """Stand-in for orchestrator or process death at a precise runner
+    phase.  A ``BaseException`` on purpose: a real SIGKILL cannot be
+    caught, so no ``except Exception`` in an executor, worker or retry loop
+    may turn it into an ordinary node failure."""
+
+    def __init__(self, node_id: str, point: str):
+        super().__init__(f"simulated crash at {point} of node {node_id!r}")
+        self.node_id = node_id
+        self.point = point
+
+
 class InjectedFault(RuntimeError):
-    """The exception the replica faults surface."""
+    """The exception RAISE, HANG and the replica faults surface."""
 
 
 @dataclasses.dataclass
 class NodeFault:
     kind: str
     message: str = "injected fault"
-    # WEDGE_PREDICT safety ceiling: the wedge gives up after this long even
-    # if nothing releases it, so a test can never hang forever.
+    # HANG / WEDGE_PREDICT safety ceiling: the hang gives up after this
+    # long even if nothing releases it, so a test can never hang forever.
     max_hang_s: float = 60.0
-    # How many times WEDGE_PREDICT / DEVICE_ERROR fire before going inert.
+    # How many times the fault fires before going inert (RAISE /
+    # TRANSIENT_EXECUTOR_ERROR: fail N attempts, then succeed).
     times: int = 1
     # RELOAD_DURING_HAMMER / KILL_REPLICA: fire once the Nth request (call)
     # has arrived, so the traffic is demonstrably in flight.
@@ -88,8 +136,10 @@ class NodeFault:
 
 
 class FaultPlan:
-    """Faults by plan key, each fired at most ``times`` times.  ``log``
-    records ``(key, event)`` tuples for tests to assert on."""
+    """Faults by plan key (a node id, or one of the ``*_KEY`` sentinels),
+    each fired at most ``times`` times.  ``log`` records ``(key, event)``
+    tuples for tests to assert on: that a hang was released by the
+    watchdog's cancel event rather than by its ceiling, for one."""
 
     def __init__(self, faults: Dict[str, NodeFault]):
         self.faults = dict(faults)
@@ -133,6 +183,69 @@ class FaultPlan:
 
 
 _ACTIVE: Optional[FaultPlan] = None
+
+
+# ------------------------------------------------------------ runner hooks
+
+
+def at_dispatch(node_id: str) -> None:
+    """Scheduler thread, before the node's driver phase runs."""
+    plan = _ACTIVE
+    if plan is None:
+        return
+    if plan._take(node_id, "at_dispatch") is not None:
+        plan.record(node_id, "kill_orchestrator")
+        raise SimulatedCrash(node_id, "at_dispatch")
+
+
+def in_executor(node_id: str, cancel_event: Optional[threading.Event]) -> None:
+    """Worker thread, inside the executor attempt (before the real fn)."""
+    plan = _ACTIVE
+    if plan is None:
+        return
+    fault = plan._take(node_id, "in_executor")
+    if fault is None:
+        return
+    if fault.kind == TRANSIENT_EXECUTOR_ERROR:
+        from tpu_pipelines_torch.robustness.errors import TransientError
+
+        plan.record(node_id, "transient_executor_error")
+        raise TransientError(fault.message)
+    if fault.kind == RAISE:
+        plan.record(node_id, "raise")
+        raise InjectedFault(fault.message)
+    # HANG: parks until the deadline watchdog's cancel event (or the
+    # safety ceiling) releases it.
+    plan.record(node_id, "hang_start")
+    released = (cancel_event or threading.Event()).wait(fault.max_hang_s)
+    plan.record(node_id, "hang_released" if released else "hang_ceiling")
+    raise InjectedFault(
+        f"{fault.message} (hang "
+        f"{'cancelled by watchdog' if released else 'hit safety ceiling'})"
+    )
+
+
+def before_publish(node_id: str) -> None:
+    """Worker thread: the executor succeeded, the publisher has not written."""
+    plan = _ACTIVE
+    if plan is None:
+        return
+    if plan._take(node_id, "before_publish") is not None:
+        plan.record(node_id, "crash_before_publish")
+        raise SimulatedCrash(node_id, "before_publish")
+
+
+def after_publish(node_id: str) -> None:
+    """Worker thread: the COMPLETE publish committed."""
+    plan = _ACTIVE
+    if plan is None:
+        return
+    if plan._take(node_id, "after_publish") is not None:
+        plan.record(node_id, "crash_after_publish")
+        raise SimulatedCrash(node_id, "after_publish")
+
+
+# ----------------------------------------------------------- serving hooks
 
 
 def serving_request(server, endpoint: str) -> None:

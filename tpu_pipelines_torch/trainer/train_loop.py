@@ -352,8 +352,12 @@ class _TrainStep:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         try:
-            with fa.launch_tally() as tally, torch.cuda.graph(
-                    graph, pool=self.pool, stream=self.stream):
+            # Other threads may keep the card busy meanwhile (a serving
+            # fleet in the same process): ``thread_local`` confines the
+            # capture's restrictions to this thread; captures take turns.
+            with fa.capture_lock, fa.launch_tally() as tally, \
+                    torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                     capture_error_mode="thread_local"):
                 row = self._step(inputs)
         except Exception as e:
             raise RuntimeError(
