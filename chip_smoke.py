@@ -235,7 +235,27 @@ Phases (any failure raises and the script exits non-zero):
      batches + the Evaluator's passes x batches) forwards before the
      deploy, the deploy's own, 12 x device batches of the traffic; report
      each tick's wall time, nodes executed and cached, deploy_to_serving_s
-     and breach-to-rollback seconds.
+     and breach-to-rollback seconds;
+ 15. dag_machinery — in the workdir the bert_dag phase left (its store,
+     written by the Python backend, its artifacts and CSV), through
+     ``python -m tpu_pipelines_torch`` in this process: ``lint`` on the
+     taxi, BERT and T5 example pipelines exits 0 with no ERROR; a copy of
+     ``examples/bert_module.py`` with ``.item()`` inside ``loss_fn`` gets
+     TPP203 at ERROR on that line, and ``run --lint error`` refuses it
+     (exit 3, no launch, no execution written); with
+     ``TPP_METADATA_BACKEND=native`` and MACHINERY_STEPS steps, ``run
+     --from-node Trainer``: ingest through Transform SKIPPED with
+     bert_dag's artifact ids, the Trainer and the Evaluator executed on
+     the card, the runner's store the native class loaded from
+     ``_build/``, each backward kernel 12 x steps and the forward 12 x
+     (steps + the Trainer's eval batches + the Evaluator's), read inside
+     the runner, and ``inspect runs`` (the Python backend) lists the
+     partial run; ``run --to-node Transform`` all cache hits, no launch;
+     StatisticsGen over bert_dag's examples at MACHINERY_SHARDS shards on
+     fresh pipeline roots: the fork pool's stats.json == the thread
+     pool's byte for byte from child pids, a KILL_SHARD_WORKER run
+     replaced (the death counted) with the same bytes, and a shard cut
+     short quarantined under ``salvage_shards`` with the node COMPLETE.
 
 After the last phase it prints the whole script's seconds.  The last
 three lines are the ``kernels`` JSON record, the card's name and
@@ -246,6 +266,7 @@ power limit as ``nvidia-smi`` prints them, and ``{"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
@@ -4719,6 +4740,360 @@ def continuous_phase(seed, card, workdir, production_uri):
     return by_record(total)
 
 
+# ----------------------------------------------------------- DAG machinery
+
+# The partial rerun's Trainer steps (the bert_dag phase ran 100).
+MACHINERY_STEPS = 40
+# Shards of the StatisticsGen runs over the bert_dag phase's examples.
+MACHINERY_SHARDS = 4
+# The StatisticsGen runs' node deadline: its watchdog's cancel event kills
+# the fork pool's workers (a child wedged on a lock another thread held at
+# the fork).
+MACHINERY_NODE_TIMEOUT_S = 120
+ITEM_HAZARD = "    loss = F.cross_entropy(logits.float(), labels)\n"
+HAZARD_PIPELINE = """\
+import os
+
+from tpu_pipelines_torch.examples import bert_pipeline
+
+
+def create_pipeline():
+    pipeline = bert_pipeline.create_pipeline()
+    trainer = next(c for c in pipeline.components if c.id == "Trainer")
+    trainer.exec_properties["module_file"] = {module!r}
+    return pipeline
+"""
+STATS_PIPELINE = """\
+import os
+
+from tpu_pipelines_torch.components import StatisticsGen
+from tpu_pipelines_torch.components.importer import Importer
+from tpu_pipelines_torch.dsl.pipeline import Pipeline
+
+
+def create_pipeline():
+    base = os.environ["MACHINERY_STATS_BASE"]
+    examples = Importer(source_uri=os.environ["MACHINERY_EXAMPLES"],
+                        artifact_type="Examples")
+    stats = StatisticsGen(
+        examples=examples.outputs["result"],
+        salvage_shards=os.environ.get("MACHINERY_SALVAGE") == "1")
+    return Pipeline("stats-pool", [examples, stats],
+                    pipeline_root=os.path.join(base, "root"),
+                    metadata_path=os.path.join(base, "md.sqlite"))
+"""
+
+
+def store_executions(path):
+    """Every execution in the store at ``path`` (the Python backend)."""
+    from tpu_pipelines_torch.metadata.store import MetadataStore
+
+    store = MetadataStore(path)
+    try:
+        return store.get_executions()
+    finally:
+        store.close()
+
+
+def latest_outputs(path, node):
+    """Artifact ids of ``node``'s newest COMPLETE execution, by key."""
+    from tpu_pipelines_torch.metadata.store import MetadataStore
+    from tpu_pipelines_torch.metadata.types import EventType, ExecutionState
+
+    store = MetadataStore(path)
+    try:
+        ex = [e for e in store.get_executions(node_id=node)
+              if e.state == ExecutionState.COMPLETE][-1]
+        out = {}
+        for ev in store.get_events_by_execution(ex.id):
+            if ev.type == EventType.OUTPUT:
+                out.setdefault(ev.path, []).append(ev.artifact_id)
+        return out
+    finally:
+        store.close()
+
+
+def stats_run(workdir, tag, examples_uri, pool, salvage=False, plan=None):
+    """StatisticsGen over ``examples_uri`` through ``python -m
+    tpu_pipelines_torch run`` (in this process) on a fresh pipeline root,
+    with TPP_DATA_POOL=``pool`` and MACHINERY_SHARDS shards: (stats.json
+    bytes, the node's execution properties, the pids of its shard spans,
+    seconds)."""
+    from tpu_pipelines_torch.observability.export import read_events
+    from tpu_pipelines_torch.observability.trace import events_path
+
+    base = os.path.join(workdir, f"stats-{tag}")
+    module = os.path.join(workdir, "stats_pipeline.py")
+    if not os.path.exists(module):
+        with open(module, "w") as f:
+            f.write(STATS_PIPELINE)
+    env = {"MACHINERY_STATS_BASE": base, "MACHINERY_EXAMPLES": examples_uri,
+           "MACHINERY_SALVAGE": "1" if salvage else "0",
+           "TPP_DATA_POOL": pool, "TPP_DATA_SHARDS": str(MACHINERY_SHARDS),
+           "TPP_NODE_TIMEOUT_S": str(MACHINERY_NODE_TIMEOUT_S)}
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, env), (
+            plan.activate() if plan is not None else contextlib.nullcontext()):
+        code, out = cli(["run", "--pipeline-module", module,
+                         "--device", DEVICE])
+    seconds = time.perf_counter() - t0
+    if code != 0:
+        raise AssertionError(f"dag_machinery stats {tag}: exit {code}: "
+                             f"{out[-2000:]}")
+    run_id = re.search(r"run (stats-pool-\d+)", out).group(1)
+    execs = [e for e in store_executions(os.path.join(base, "md.sqlite"))
+             if e.node_id == "StatisticsGen"]
+    uri = os.path.join(base, "root", "StatisticsGen", "statistics",
+                       str(execs[-1].id))
+    with open(os.path.join(uri, "stats.json"), "rb") as f:
+        data = f.read()
+    events = read_events(events_path(os.path.join(base, "root"), run_id))
+    pids = sorted({e["pid"] for e in events
+                   if e.get("name") == "shard" and e.get("cat") == "data"})
+    return data, execs[-1].properties, pids, seconds
+
+
+def dag_machinery_phase(seed, card, workdir):
+    """Lint, a partial rerun on the native store, and the fork shard pool,
+    over what the bert_dag phase left in ``workdir``: its store
+    (``bert/metadata.sqlite``, written by the Python backend), its
+    artifacts and its CSV.  Returns each kernel's launches in the partial
+    rerun."""
+    del seed
+    from tpu_pipelines_torch.data import examples_io, shard_plan
+    from tpu_pipelines_torch.examples import bert_pipeline
+    from tpu_pipelines_torch.metadata import native_store
+    from tpu_pipelines_torch.orchestration import local_runner
+    from tpu_pipelines_torch.testing import faults
+    from tpu_pipelines_torch.utils.module_loader import load_module
+
+    base = os.path.join(workdir, "bert")
+    md = os.path.join(base, "metadata.sqlite")
+    bert_env = {"TPP_PIPELINE_HOME": base,
+                "BERT_DATA_CSV": os.path.join(workdir, "reviews.csv"),
+                "BERT_TINY": ""}
+    examples_dir = os.path.join(REPO, "tpu_pipelines_torch", "examples")
+
+    # 1. Each example pipeline lints clean at the error level.
+    t0 = time.perf_counter()
+    linted = {}
+    with mock.patch.dict(os.environ, {
+            "TPP_PIPELINE_HOME": os.path.join(workdir, "lint-home")}):
+        for name in ("taxi", "bert", "t5"):
+            code, out = cli(["lint", "--pipeline-module", os.path.join(
+                examples_dir, f"{name}_pipeline.py"), "--json"])
+            report = json.loads(out)
+            if code != 0 or report["errors"]:
+                raise AssertionError(f"dag_machinery lint {name}: exit "
+                                     f"{code}, {report}")
+            linted[name] = (report["errors"], report["warnings"])
+    lint_s = time.perf_counter() - t0
+
+    # 2. A module with a host sync inside the captured loss_fn: TPP203 at
+    #    ERROR, and `run --lint error` refuses before anything runs.
+    with open(os.path.join(examples_dir, "bert_module.py")) as f:
+        source = f.read()
+    if source.count(ITEM_HAZARD) != 1:
+        raise AssertionError("dag_machinery: bert_module.py's loss_fn moved")
+    hazard = os.path.join(workdir, "bert_module_item.py")
+    with open(hazard, "w") as f:
+        f.write(source.replace(ITEM_HAZARD, ITEM_HAZARD
+                               + "    print(\"loss\", loss.item())\n"))
+    hazard_pipeline = os.path.join(workdir, "hazard_pipeline.py")
+    with open(hazard_pipeline, "w") as f:
+        f.write(HAZARD_PIPELINE.format(module=hazard))
+    before = len(store_executions(md))
+    zero_counters()
+    with mock.patch.dict(os.environ, bert_env):
+        code, out = cli(["lint", "--pipeline-module", hazard_pipeline,
+                         "--json"])
+        found = [(f["rule"], f["severity"], f["node_id"], f["line"])
+                 for f in json.loads(out)["findings"] if f["rule"] == "TPP203"]
+        refused, _ = cli(["run", "--pipeline-module", hazard_pipeline,
+                          "--device", DEVICE, "--lint", "error"])
+    item_line = source.splitlines().index(ITEM_HAZARD.rstrip("\n")) + 2
+    if (code, refused) != (3, 3) or found != [
+            ("TPP203", "error", "Trainer", item_line)]:
+        raise AssertionError(f"dag_machinery: hazard lint exit {code} "
+                             f"{found}, run --lint error exit {refused}")
+    if any(counters().values()) or len(store_executions(md)) != before:
+        raise AssertionError("dag_machinery: a refused run launched a kernel "
+                             "or wrote the store")
+    print(f"dag_machinery lint [{card}]: taxi, bert, t5 example pipelines "
+          f"(errors, warnings) {linted} in {lint_s:.2f} s; bert_module with "
+          f".item() in loss_fn: {found[0][0]} {found[0][1]} at line "
+          f"{found[0][3]}, `run --lint error` exit 3 with no launch and "
+          f"{before} executions in the store before and after", flush=True)
+
+    # 3. `run --from-node Trainer` over bert_dag's store on the native
+    #    backend, 40 steps: ingest..Transform SKIPPED with bert_dag's
+    #    artifacts, Trainer and Evaluator executed on the card.
+    pipeline_module = os.path.join(examples_dir, "bert_pipeline.py")
+    skipped_nodes = ("CsvExampleGen", "StatisticsGen", "SchemaGen",
+                     "Transform")
+    prior = {n: latest_outputs(md, n) for n in skipped_nodes}
+    user = load_module(os.path.join(examples_dir, "bert_module.py"))
+    real_loop, real_open = user.train_loop, local_runner.open_store
+    real_run = local_runner.LocalDagRunner.run
+    seen = {"stores": [], "results": []}
+
+    def loop(**kw):
+        model, result = real_loop(**kw)
+        seen["after_trainer"], seen["train"] = counters(), result
+        return model, result
+
+    def opened(path, *args, **kwargs):
+        store = real_open(path, *args, **kwargs)
+        seen["stores"].append(type(store))
+        return store
+
+    def run(self, *args, **kwargs):
+        seen["results"].append(real_run(self, *args, **kwargs))
+        return seen["results"][-1]
+
+    env = {**bert_env, "TPP_METADATA_BACKEND": "native",
+           "BERT_TRAIN_STEPS": str(MACHINERY_STEPS)}
+    with mock.patch.dict(os.environ, env), \
+            mock.patch.object(user, "train_loop", loop), \
+            mock.patch.object(local_runner, "open_store", opened), \
+            mock.patch.object(local_runner.LocalDagRunner, "run", run):
+        zero_counters()
+        t0 = time.perf_counter()
+        code, out = cli(["run", "--pipeline-module", pipeline_module,
+                         "--device", DEVICE, "--from-node", "Trainer"])
+        partial_s = time.perf_counter() - t0
+        launches = counters()
+    if code != 0:
+        raise AssertionError(f"dag_machinery: partial rerun exit {code}: "
+                             f"{out[-2000:]}")
+    result = seen["results"][-1]
+    statuses = {k: v.status for k, v in result.nodes.items()}
+    want_statuses = {**{n: "SKIPPED" for n in skipped_nodes},
+                     "Trainer": "COMPLETE", "Evaluator": "COMPLETE"}
+    reused = {n: {k: [a.id for a in arts]
+                  for k, arts in result.nodes[n].outputs.items()}
+              for n in skipped_nodes}
+    if statuses != want_statuses or reused != prior:
+        raise AssertionError(f"dag_machinery: partial rerun {statuses}, "
+                             f"reused {reused}, bert_dag's {prior}")
+    lib = native_store.library_path()
+    if seen["stores"] != [native_store.NativeMetadataStore] or not lib.startswith(
+            os.path.join(REPO, "tpu_pipelines_torch", "_build") + os.sep):
+        raise AssertionError(f"dag_machinery: the run's stores {seen['stores']}"
+                             f" (library {lib})")
+    # Launches from inside the runner, as bert_dag's at 40 steps.
+    layers = DEFAULT_HPARAMS["n_layers"]
+    batch = bert_pipeline.BERT_BASE["batch_size"]
+    examples_uri = result.nodes["Transform"].outputs[
+        "transformed_examples"][0].uri
+    n_eval = examples_io.num_rows(examples_uri, "eval")
+    impl = tfm.choose_attn_impl(batch, DEFAULT_HPARAMS["n_heads"],
+                                PIPELINE_LEN, PIPELINE_LEN, 2,
+                                torch.device(DEVICE))
+    if impl != "flash":
+        raise AssertionError(f"dag_machinery: auto chose {impl}")
+    steps = layers * MACHINERY_STEPS
+    trainer_fwd = steps + layers * (n_eval // batch)
+    want = {"launches": trainer_fwd + layers * -(-n_eval // batch),
+            "dvec_launches": steps, "dq_launches": steps,
+            "dkv_launches": steps, "decode_launches": 0}
+    if (launches != want or seen["after_trainer"] != {
+            **want, "launches": trainer_fwd}
+            or seen["train"].steps_completed != MACHINERY_STEPS
+            or seen["train"].compiles_after_warm != 0):
+        raise AssertionError(f"dag_machinery: launches {launches} (after the "
+                             f"Trainer {seen['after_trainer']}), expected "
+                             f"{want}")
+    code, out = cli(["inspect", "runs", "bert-finetune", "--metadata", md,
+                     "--json"])
+    runs = json.loads(out)["runs"]
+    last = runs[-1]
+    listed = sorted((n["node"], n["state"]) for n in last["nodes"])
+    if code != 0 or last["run_id"] != result.run_id or listed != [
+            ("Evaluator", "COMPLETE"), ("Trainer", "COMPLETE")]:
+        raise AssertionError(f"dag_machinery: inspect runs {code} {last}")
+    print(f"dag_machinery partial rerun [{card}]: `run --from-node Trainer` "
+          f"on {seen['stores'][0].__name__} ({os.path.basename(lib)}) over "
+          f"the Python-written store, {partial_s:.1f} s: "
+          + ", ".join(f"{k} {v.status}"
+                      + (f" {v.wall_clock_s:.2f} s" if v.wall_clock_s else "")
+                      for k, v in result.nodes.items())
+          + f"; launches {by_record(launches)} = {layers} layers x "
+          f"({MACHINERY_STEPS} steps + {n_eval // batch} Trainer eval batches "
+          f"+ {-(-n_eval // batch)} Evaluator batches) forwards and {layers} x "
+          f"{MACHINERY_STEPS} of each backward kernel; `inspect runs` (Python "
+          f"backend) lists {len(runs)} runs, the last {last['run_id']} with "
+          f"{listed}", flush=True)
+
+    # 4. `run --to-node Transform`: every selected node a cache hit, the
+    #    rest SKIPPED, nothing launched.
+    with mock.patch.dict(os.environ, bert_env), \
+            mock.patch.object(local_runner.LocalDagRunner, "run", run):
+        zero_counters()
+        t0 = time.perf_counter()
+        code, out = cli(["run", "--pipeline-module", pipeline_module,
+                         "--device", DEVICE, "--to-node", "Transform"])
+        to_s = time.perf_counter() - t0
+    to = {k: v.status for k, v in seen["results"][-1].nodes.items()}
+    if code != 0 or any(counters().values()) or to != {
+            **{n: "CACHED" for n in skipped_nodes},
+            "Trainer": "SKIPPED", "Evaluator": "SKIPPED"}:
+        raise AssertionError(f"dag_machinery: --to-node Transform {code} {to} "
+                             f"{counters()}")
+    print(f"dag_machinery [{card}]: `run --to-node Transform` {to_s:.2f} s, "
+          f"{to}, no launch", flush=True)
+
+    # 5. StatisticsGen over bert_dag's examples through the fork pool, in
+    #    this process (which holds a CUDA context and has launched kernels).
+    raw_uri = result.nodes["CsvExampleGen"].outputs["examples"][0].uri
+    n_files = examples_io.num_split_shards(raw_uri, "train")
+    thread_bytes, _, thread_pids, thread_s = stats_run(
+        workdir, "thread", raw_uri, "thread")
+    proc_bytes, _, proc_pids, proc_s = stats_run(
+        workdir, "process", raw_uri, "process")
+    parent = os.getpid()
+    if (proc_bytes != thread_bytes or thread_pids != [parent]
+            or not proc_pids or parent in proc_pids):
+        raise AssertionError(f"dag_machinery: fork pool stats.json "
+                             f"{len(proc_bytes)} bytes == thread's "
+                             f"{proc_bytes == thread_bytes}; pids {proc_pids} "
+                             f"(parent {parent}), thread pids {thread_pids}")
+    deaths = shard_plan._worker_death_counter().labels("map_shards")
+    deaths0 = deaths.get()
+    plan = faults.FaultPlan({faults.SHARD_KEY: faults.NodeFault(
+        faults.KILL_SHARD_WORKER, shard=1)})
+    killed_bytes, _, killed_pids, killed_s = stats_run(
+        workdir, "killed", raw_uri, "process", plan=plan)
+    died = deaths.get() - deaths0
+    if killed_bytes != thread_bytes or died < 1:
+        raise AssertionError(f"dag_machinery: KILL_SHARD_WORKER: bytes equal "
+                             f"{killed_bytes == thread_bytes}, deaths {died}")
+    # One shard of a copy of the examples cut short: it fails on every
+    # attempt; with salvage_shards the node completes without it.
+    poisoned = os.path.join(workdir, "poisoned_examples")
+    shutil.copytree(raw_uri, poisoned)
+    victim = examples_io.split_shard_paths(poisoned, "train")[2]
+    with open(victim, "r+b") as f:
+        f.truncate(64)
+    _, salvage_props, _, salvage_s = stats_run(
+        workdir, "salvage", poisoned, "process", salvage=True)
+    struck = salvage_props.get("quarantined_shards", {})
+    if list(struck) != ["train"] or list(struck["train"]) != ["2"] or (
+            salvage_props.get("partial_statistics") is not True):
+        raise AssertionError(f"dag_machinery: salvage {salvage_props}")
+    print(f"dag_machinery shard pool [{card}]: StatisticsGen over bert_dag's "
+          f"examples ({n_files} train shard files, TPP_DATA_SHARDS="
+          f"{MACHINERY_SHARDS}): fork pool stats.json == thread pool's byte "
+          f"for byte ({len(proc_bytes)} bytes) from worker pids {proc_pids} "
+          f"(parent {parent}); thread {thread_s:.2f} s, process "
+          f"{proc_s:.2f} s; KILL_SHARD_WORKER on shard 1: pool replaced, "
+          f"{died:g} worker death counted, same bytes, {killed_s:.2f} s "
+          f"(pids {killed_pids}); shard 2 cut to 64 bytes with "
+          f"salvage_shards: node COMPLETE in {salvage_s:.2f} s, quarantined "
+          f"{struck}", flush=True)
+    return by_record(launches)
+
+
 # ------------------------------------------------------------------ T5 DAG
 
 T5_DAG_PAIRS = 3072
@@ -5400,6 +5775,8 @@ def main(argv=None) -> int:
         phase_done("fleet_guard")
         continuous = continuous_phase(args.seed, card, workdir, production)
         phase_done("continuous")
+        machinery = dag_machinery_phase(args.seed, card, workdir)
+        phase_done("dag_machinery")
     with tempfile.TemporaryDirectory() as workdir:
         t5_dag = t5_dag_phase(args.seed, card, workdir)
     phase_done("t5_dag")
@@ -5422,7 +5799,8 @@ def main(argv=None) -> int:
     bwd[0]["dvec_launches_by_path"] = {"training": trained["flash_bwd_dvec"]}
     fwd["launches_by_path"]["fleet_guard"] = guard
     for path, counts in (("bert_dag", bert_dag), ("retrain_dag", retrain),
-                         ("continuous", continuous), ("t5_dag", t5_dag)):
+                         ("continuous", continuous),
+                         ("dag_machinery", machinery), ("t5_dag", t5_dag)):
         for record in (fwd, *bwd, decode):
             record["launches_by_path"][path] = counts[record["name"]]
         bwd[0]["dvec_launches_by_path"][path] = counts["flash_bwd_dvec"]

@@ -10,8 +10,10 @@ directories the two sides write under, every decimal number (wall
 times) and the width of the padding beside them.  ``--json`` outputs carry the same keys and the same non-time
 values.  ``run`` defaults to the card and raises without CUDA, naming the
 device; ``run --resume-from latest`` after a run killed at a node prints
-the reference's lines (adopted nodes marked); every subcommand and flag
-not ported yet exits 2 naming its ROADMAP.md item.
+the reference's lines (adopted nodes marked); ``lint``, ``run --lint``,
+``run --from-node/--to-node`` and ``continuous --lint`` print the
+reference's lines with its exit codes; ``trace serve``, not ported yet,
+exits 2 naming its ROADMAP.md item.
 """
 
 import contextlib
@@ -113,14 +115,10 @@ def test_run_prints_the_reference_lines(runs):
 
 def _summary_lines(text):
     """The summary's lines in a fixed order (its node table is sorted by
-    measured wall time), without the shard-pool line: the reference's
-    StatisticsGen maps its shards through a process pool (its own label
-    and count, and a pool span the port's has no counterpart of: so the
-    event counts differ too), the port's through ``thread_map``
-    (ROADMAP.md A21)."""
+    measured wall time), the shard-pool line included: both StatisticsGens
+    map their shards through the resilient pool (threads here)."""
     return sorted(re.sub(r"\(\d+ events\)", "(<K> events)", line)
-                  for line in text.splitlines()
-                  if not line.startswith("shards["))
+                  for line in text.splitlines())
 
 
 @pytest.mark.parametrize("which", ["latest", "first"])
@@ -163,7 +161,7 @@ def test_trace_json_and_the_exported_files_match_the_reference(runs, tmp_path):
         assert port[key] == ref[key], key
     assert {n: (i["status"], i["upstream"]) for n, i in port["per_node"].items()} \
         == {n: (i["status"], i["upstream"]) for n, i in ref["per_node"].items()}
-    assert port_tl == ref_tl - {("map_shards", "data")}
+    assert port_tl == ref_tl
 
 
 def _fake_runs(info):
@@ -255,20 +253,103 @@ def test_run_defaults_to_the_card_and_raises_without_cuda(tmp_path, monkeypatch)
     assert not (tmp_path / "md.sqlite").exists()
 
 
+def _module(tmp_path, side, text=None):
+    """(main, extra argv, base, module path) of a fresh hostdag for one
+    side; the HOSTDAG_BASE env must be set by the caller."""
+    pkg, main, extra = SIDES[side]
+    base = str(tmp_path / side)
+    os.makedirs(base, exist_ok=True)
+    module = os.path.join(base, "pipe.py")
+    with open(module, "w") as f:
+        f.write(text.format(pkg=pkg, td=base) if text
+                else PIPELINE.format(pkg=pkg, csv=CSV))
+    return main, extra, base, module
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["lint", "--pipeline-module", "p.py"], "A20"),
-    (["continuous", "--pipeline-module", "p.py", "--lint", "error"], "A20"),
+    (["lint", "--pipeline-module", "p.py"], "lint"),
+    (["continuous", "--pipeline-module", "p.py", "--lint", "error"],
+     "continuous"),
     (["trace", "serve", "/tmp/requests"], "A8b"),
-    (["run", "--pipeline-module", "p.py", "--from-node", "Trainer"], "A22"),
-    (["run", "--pipeline-module", "p.py", "--to-node", "Trainer"], "A22"),
-    (["run", "--pipeline-module", "p.py", "--from-node", "Trainer",
-      "--resume-from", "latest"], "A22"),
-    (["run", "--pipeline-module", "p.py", "--lint", "error"], "A20"),
+    (["run", "--pipeline-module", "p.py", "--from-node", "StatisticsGen"],
+     "partial"),
+    (["run", "--pipeline-module", "p.py", "--to-node", "StatisticsGen"],
+     "partial"),
+    (["run", "--pipeline-module", "p.py", "--from-node", "StatisticsGen",
+      "--resume-from", "latest"], "refused"),
+    (["run", "--pipeline-module", "p.py", "--lint", "error"], "run-lint"),
 ])
-def test_each_deferred_subcommand_or_flag_names_its_item(argv, item):
-    code, out, err = _call(port_main, argv)
-    assert code == 2
-    assert f"ROADMAP.md {item}" in err and "not ported yet" in err
+def test_each_deferred_subcommand_or_flag_names_its_item(
+        argv, item, tmp_path, monkeypatch, capsys):
+    """Each subcommand and flag that once exited 2 naming its ROADMAP.md
+    item: ``trace serve`` still does (A8b); the rest print the reference
+    CLI's lines, with its exit codes, on the same host DAG.  ``run
+    --from-node`` with ``--resume-from`` is refused on both sides (the
+    reference raises its runner's ValueError, the port exits 2 with it)."""
+    if item == "A8b":
+        code, out, err = _call(port_main, argv)
+        assert code == 2
+        assert f"ROADMAP.md {item}" in err and "not ported yet" in err
+        return
+    monkeypatch.delenv("TPP_TRACE", raising=False)
+    monkeypatch.setenv("TPP_DATA_POOL", "thread")  # no fork under JAX's threads
+    got = {}
+    for side in SIDES:
+        if item == "continuous":
+            from test_torch_continuous import CONT_MODULE, _write_span
+
+            main, extra, base, module = _module(
+                tmp_path, side, CONT_MODULE)
+            _write_span(os.path.join(base, "data"), 1, 8)
+            code = main([*argv[:2], module, *argv[3:], "--once", *extra])
+            got[side] = (code, capsys.readouterr().out.splitlines()[-1])
+            continue
+        main, extra, base, module = _module(tmp_path, side)
+        monkeypatch.setenv("HOSTDAG_BASE", base)
+        args = [*argv[:2], module, *argv[3:]]
+        if item == "lint":
+            got[side] = [_call(main, args), _call(main, [*args, "--json"]),
+                         _call(main, [*args, "--fail-on", "warn"])]
+            continue
+        if item == "refused":
+            if side == "ref":
+                with pytest.raises(ValueError) as e:
+                    _call(main, [*args, *extra])
+                got[side] = (2, str(e.value))
+            else:
+                code, _, err = _call(main, [*args, *extra])
+                got[side] = (code, err.strip().removeprefix("run: "))
+            continue
+        if item == "partial" and "--from-node" in args:
+            _call(main, ["run", "--pipeline-module", module, *extra])
+        code, out, err = _call(main, [*args, *extra])
+        runs = [(code, _masked(out, base))]
+        if item == "run-lint":
+            args[-1] = "warn"
+            code, out, err = _call(main, [*args, *extra])
+            runs.append((code, _masked(out, base), _masked(err, base)))
+        got[side] = runs
+    assert got["port"] == got["ref"]
+    port = got["port"]
+    if item == "lint":
+        (code, out, _), (jcode, jout, _), (wcode, wout, _) = port
+        assert (code, jcode, wcode) == (0, 0, 3)
+        assert "TPP101" in out and json.loads(jout)["errors"] == 0
+    elif item == "continuous":
+        assert port == (0, "continuous: stopped after 1 iteration(s); "
+                           "spans seen: [1]")
+    elif item == "refused":
+        assert port[0] == 2 and "incompatible" in port[1]
+    elif item == "partial":
+        out = port[0][1]
+        assert port[0][0] == 0 and "SKIPPED" in out
+        if "--from-node" in argv:
+            assert "CsvExampleGen: SKIPPED" in out
+        else:
+            assert "SchemaGen: SKIPPED" in out
+    else:
+        assert port[0][0] == 0 and port[1][0] == 3
+        assert "TPP101" in port[1][2]
 
 
 def test_the_module_entry_point_runs_in_a_subprocess(runs):

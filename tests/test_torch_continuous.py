@@ -1066,24 +1066,53 @@ def test_drift_evidence_is_recorded_only_after_a_successful_window_run(
 
 
 def test_a_lint_gate_raises_naming_a20(tmp_path, monkeypatch):
-    """The port has no analyzer (ROADMAP.md A20): a gate asked for by the
-    config or by TPP_LINT raises before any run; "off" runs."""
-    ns = PKGS["port"]
-    for lint, env in (("error", None), ("warn", None), (None, "error")):
-        if env is None:
-            monkeypatch.delenv("TPP_LINT", raising=False)
-        else:
-            monkeypatch.setenv("TPP_LINT", env)
-        ctl, made, md, data = _drift_harness(
-            ns, str(tmp_path / f"{lint}-{env}"), lint=lint)
+    """The controller's lint gate, held against the reference's (it once
+    raised naming ROADMAP.md A20): a window pipeline with a sub-second
+    deadline on SchemaGen (TPP102, an ERROR) is refused by a gate asked
+    for by the config ("error", "warn") or by TPP_LINT, after the span run
+    and before the window run touches the store; "off" logs the findings
+    and runs.  Both packages refuse with the same findings; a "warn" gate
+    already trips on the span pipeline's warning."""
+    def bad_window(ns, p):
+        p.components[2].with_execution_timeout(0.5)
+
+    seen = {}
+    for side in SIDES:
+        ns = PKGS[side]
+        analysis = importlib.import_module(f"{ns.root}.analysis")
+        got = []
+        for lint, env in (("error", None), ("warn", None), (None, "error")):
+            if env is None:
+                monkeypatch.delenv("TPP_LINT", raising=False)
+            else:
+                monkeypatch.setenv("TPP_LINT", env)
+            ctl, made, md, data = _drift_harness(
+                ns, str(tmp_path / side / f"{lint}-{env}"), window=bad_window,
+                lint=lint)
+            _write_span(data, 1, 6)
+            with pytest.raises(analysis.LintGateError) as e:
+                ctl.run_once()
+            store = ns.open_store(md)
+            try:
+                nodes = sorted({x.node_id for x in store.get_executions()})
+            finally:
+                store.close()
+            got.append((sorted((f.rule, f.node_id, f.severity)
+                               for f in e.value.findings), nodes))
+        monkeypatch.delenv("TPP_LINT", raising=False)
+        ctl, _, _, data = _drift_harness(
+            ns, str(tmp_path / side / "off"), window=bad_window, lint="off")
         _write_span(data, 1, 6)
-        with pytest.raises(NotImplementedError, match="A20"):
-            ctl.run_once()
-        assert not os.path.exists(md)
-    monkeypatch.delenv("TPP_LINT", raising=False)
-    ctl, _, _, data = _drift_harness(ns, str(tmp_path / "off"), lint="off")
-    _write_span(data, 1, 6)
-    assert ctl.run_once()["spans_processed"] == 1
+        got.append(ctl.run_once()["spans_processed"])
+        seen[side] = got
+    assert seen["port"] == seen["ref"]
+    error, warn, env, off = seen["port"]
+    assert ("TPP102", "SchemaGen", "error") in error[0]
+    assert error[1] == ["CsvExampleGen", "StatisticsGen"]
+    # "warn" trips on the span pipeline's own TPP101 (its statistics feed
+    # no node of that pipeline), before any run.
+    assert warn == ([("TPP101", "StatisticsGen", "warn")], [])
+    assert env == error and off == 1
 
 
 def test_the_controller_defaults_to_the_card(tmp_path, monkeypatch):

@@ -4,10 +4,16 @@
 PyTorch and no JAX, so they import neither ``jax``/``flax``/``optax``/
 ``orbax`` nor any ``tpu_pipelines`` module (jax-free ones included), nor
 ``pyarrow``: the port's data plane is numpy's own ``.npz`` shards, so the
-card's machine needs no Parquet reader.  Two
+card's machine needs no Parquet reader.  Three
 checks: a fresh interpreter imports every module of the port (and
 chip_smoke.py, without running it) and then finds none of those in
-``sys.modules``; and a scan of every import statement in the port's source.
+``sys.modules``; a scan of every import statement in the port's source;
+and a scan of every string constant in the port's source (its C++ host
+core included) for a path into the JAX package's ``native/`` directory or
+a dotted ``tpu_pipelines.`` module name, which an ``importlib`` call or a
+build step could reach without an import statement (the analyzer's
+reference code names ``tpu_pipelines.ops.autotune`` and
+``tpu_pipelines.data.shard_plan``; the port's copy names its own).
 """
 
 import ast
@@ -88,11 +94,14 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
                    "components.resolver", "dsl.cond", "observability.slo",
                    "observability.drift", "continuous",
                    "continuous.controller", "continuous.watcher",
-                   "continuous.window"):
+                   "continuous.window", "analysis", "analysis.findings",
+                   "analysis.graph_rules", "analysis.code_rules",
+                   "metadata.native_store", "ops._build"):
         assert f"tpu_pipelines_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["modules"]
     assert {"retrain_dag_phase", "fleet_guard_phase",
-            "bert_dag_phase", "continuous_phase"} <= set(report["phases"])
+            "bert_dag_phase", "continuous_phase",
+            "dag_machinery_phase"} <= set(report["phases"])
     leaked = [m for m in report["modules"]
               if _forbidden(m) or m.split(".")[0] in NOT_AT_IMPORT]
     assert leaked == []
@@ -112,4 +121,37 @@ def test_no_port_source_imports_jax_or_the_reference():
             offenders += [(os.path.relpath(path, REPO), n)
                           for n in names if _forbidden(n)]
     assert len(_port_sources()) > 10
+    assert offenders == []
+
+
+def _reaches_the_reference(text):
+    """A string that names a JAX-package module or its native/ sources."""
+    if text.startswith("tpu_pipelines.") or text == "tpu_pipelines":
+        return True
+    parts = text.replace("\\", "/").split("/")
+    return "native" in parts[:-1] or text.startswith("native/") or any(
+        p in ("metadata_core.cc", "sqlite3_min.h", "libtppmeta.so",
+              "Makefile") and "native" in parts for p in parts)
+
+
+def test_no_port_source_reads_native_or_names_a_reference_module():
+    offenders = []
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                if _reaches_the_reference(node.value.strip()):
+                    offenders.append((os.path.relpath(path, REPO),
+                                      node.lineno, node.value[:60]))
+            elif isinstance(node, ast.Call) and (
+                getattr(node.func, "attr", "") == "join"
+                and any(isinstance(a, ast.Constant) and a.value == "native"
+                        for a in node.args)):
+                offenders.append((os.path.relpath(path, REPO), node.lineno,
+                                  "os.path.join(..., 'native')"))
+    host = os.path.join(REPO, "tpu_pipelines_torch", "csrc", "host")
+    for name in sorted(os.listdir(host)):
+        for i, line in enumerate(open(os.path.join(host, name)), 1):
+            if line.lstrip().startswith("#include") and "native/" in line:
+                offenders.append((f"csrc/host/{name}", i, line.strip()))
     assert offenders == []

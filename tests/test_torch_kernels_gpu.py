@@ -39,7 +39,9 @@ crossover measurement of ``chip_smoke.py`` records both crossovers for
 the card's name, "auto" attention launches the kernels at or above a
 recorded crossover and nothing below it, and a continuous controller's
 tick on the card launches every training kernel inside its window
-Trainer.
+Trainer, and StatisticsGen's fork shard pool, forked after a kernel
+launch, writes the thread pool's stats.json bytes (a killed worker
+replaced).
 """
 
 import pytest
@@ -1142,6 +1144,62 @@ def test_a_continuous_controller_tick_launches_the_kernels_in_its_window_trainer
     finally:
         for name, value in saved.items():
             setattr(fa, name, value)
+
+
+def test_the_fork_shard_pool_after_a_kernel_launch_gives_the_thread_bytes(
+        cuda, tmp_path, monkeypatch):
+    """A process that holds a CUDA context and has launched a kernel forks
+    StatisticsGen's shard pool: the children (numpy only) write the same
+    stats.json bytes as the thread pool, from pids other than this one,
+    and a killed worker is replaced with the same bytes again."""
+    import os
+
+    import numpy as np
+
+    from tpu_pipelines_torch.components import CsvExampleGen, StatisticsGen
+    from tpu_pipelines_torch.dsl.pipeline import Pipeline
+    from tpu_pipelines_torch.observability.export import read_events
+    from tpu_pipelines_torch.observability.trace import events_path
+    from tpu_pipelines_torch.orchestration import LocalDagRunner
+    from tpu_pipelines_torch.testing import faults
+
+    q = torch.randn(2, 64, 2, 64, device=cuda, dtype=torch.bfloat16)
+    mask = torch.ones(2, 64, dtype=torch.bool, device=cuda)
+    before = fa.launches
+    fa.flash_attention(q, q, q, kv_mask=mask)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    rng = np.random.default_rng(0)
+    csv = tmp_path / "d.csv"
+    csv.write_text("a,b,c\n" + "\n".join(
+        f"{rng.normal():.6f},{int(rng.integers(0, 50))},w{int(rng.integers(0, 9))}"
+        for _ in range(4000)) + "\n")
+    monkeypatch.setenv("TPP_DATA_SHARDS", "4")
+    monkeypatch.setenv("TPP_NODE_TIMEOUT_S", "120")
+    got = {}
+    for tag, pool, plan in (
+            ("thread", "thread", None), ("process", "process", None),
+            ("killed", "process", faults.FaultPlan({
+                faults.SHARD_KEY: faults.NodeFault(
+                    faults.KILL_SHARD_WORKER, shard=1)}))):
+        monkeypatch.setenv("TPP_DATA_POOL", pool)
+        gen = CsvExampleGen(input_path=str(csv))
+        stats = StatisticsGen(examples=gen.outputs["examples"])
+        root = str(tmp_path / tag / "root")
+        pipe = Pipeline("gpu-fork", [gen, stats], pipeline_root=root,
+                        metadata_path=str(tmp_path / tag / "md.sqlite"))
+        if plan is None:
+            result = LocalDagRunner(device=cuda).run(pipe)
+        else:
+            with plan.activate():
+                result = LocalDagRunner(device=cuda).run(pipe)
+        uri = result.nodes["StatisticsGen"].outputs["statistics"][0].uri
+        events = read_events(events_path(root, result.run_id))
+        pids = {e["pid"] for e in events if e.get("name") == "shard"}
+        got[tag] = (open(os.path.join(uri, "stats.json"), "rb").read(), pids)
+    assert got["process"][0] == got["thread"][0] == got["killed"][0]
+    assert got["thread"][1] == {os.getpid()}
+    assert got["process"][1] and os.getpid() not in got["process"][1]
 
 
 def test_a_capture_that_cannot_succeed_raises_instead_of_running_eagerly(cuda):

@@ -11,12 +11,10 @@ CPU.  Mirrors tests/test_observability.py.
   - a host-only DAG (CsvExampleGen -> StatisticsGen -> SchemaGen over
     tests/testdata/taxi_sample.csv) through both runners gives the same set
     of (cat, name, node) events, statuses, critical-path nodes and
-    cache-hit ratio, 0.0 cold and 1.0 warm.  One event of the reference
-    has no counterpart: the ``map_shards`` pool span of its resilient
-    shard map (the port's data plane maps shards with ``thread_map``; the
-    resilient pools are ROADMAP.md A21).  The reference runs its pool on
-    threads here (``TPP_DATA_POOL=thread``): a fork in a process where JAX
-    runs threads can deadlock;
+    cache-hit ratio, 0.0 cold and 1.0 warm, the ``map_shards`` span of
+    both resilient shard pools included.  Both run their pools on threads
+    here (``TPP_DATA_POOL=thread``): a fork in a process where JAX runs
+    threads can deadlock;
   - ``TPP_TRACE=0`` leaves no ``.runs/``;
   - ``TPP_METRICS_PORT`` serves the ``pipeline_nodes_*`` gauges and
     ``pipeline_run_info`` during a run, as the reference's runner does.
@@ -47,8 +45,6 @@ from tpu_pipelines_torch.orchestration import LocalDagRunner as PortRunner
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSV = os.path.join(REPO, "tests", "testdata", "taxi_sample.csv")
 CLOCKS = ("ts", "mono", "dur")
-# The reference's process-pool span (ROADMAP.md A21 in the port).
-REF_ONLY = {("data", "map_shards", "")}
 
 
 def _drive(recorder):
@@ -247,7 +243,7 @@ def test_the_host_dag_traces_as_the_reference(traced_runs, tag):
     assert {k: v.status for k, v in port_result.nodes.items()} == \
         {k: v.status for k, v in ref_result.nodes.items()}
     got = {(e["cat"], e["name"], e["node"]) for e in port_events}
-    want = {(e["cat"], e["name"], e["node"]) for e in ref_events} - REF_ONLY
+    want = {(e["cat"], e["name"], e["node"]) for e in ref_events}
     assert got == want
     port_m = port_export.compute_metrics(port_events)
     ref_m = ref_export.compute_metrics(ref_events)

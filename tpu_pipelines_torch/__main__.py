@@ -1,5 +1,5 @@
 """The port's CLI: ``python -m tpu_pipelines_torch
-{run,continuous,inspect,trace,drift} ...``, the twin of ``python -m
+{run,lint,continuous,inspect,trace,drift} ...``, the twin of ``python -m
 tpu_pipelines``.
 
 ``run`` executes a pipeline module through the port's ``LocalDagRunner``,
@@ -12,6 +12,18 @@ crashed run, adopting what it published:
     python -m tpu_pipelines_torch run --pipeline-module p.py --device cpu \
         --param steps=500
     python -m tpu_pipelines_torch run --pipeline-module p.py --resume-from latest
+    python -m tpu_pipelines_torch run --pipeline-module p.py \
+        --from-node Trainer          # partial run, upstream from the store
+    python -m tpu_pipelines_torch run --pipeline-module p.py --lint error
+
+``lint`` is the static pipeline and executor analysis (``analysis/``): it
+compiles the module's pipeline and runs the TPP1xx graph rules on the IR
+and the TPP2xx code rules on every executor and module-file entry point,
+without executing anything.  Exit 0 = clean at the ``--fail-on`` level
+(default error), 3 = blocking findings, 1 = the module failed to load:
+
+    python -m tpu_pipelines_torch lint --pipeline-module p.py [--json] \
+        [--fail-on warn] [--continuous] [--spmd-sync]
 
 ``continuous`` runs the continuous controller over a module defining
 ``create_continuous() -> ContinuousConfig``: watch a ``{SPAN}`` pattern,
@@ -21,7 +33,7 @@ persists), a second aborts:
 
     python -m tpu_pipelines_torch continuous --pipeline-module m.py \
         [--poll-interval S] [--once | --max-iterations N] [--state-dir D] \
-        [--device cpu]
+        [--device cpu] [--lint error|warn|off]
 
 ``inspect`` reads the metadata store back:
 
@@ -48,9 +60,8 @@ counted):
 the threshold.  ``--json`` on ``trace``, ``trace diff`` and ``inspect
 runs`` prints one JSON object instead of the tables.
 
-Not ported yet; each prints the ``ROADMAP.md`` item it waits for and
-exits 2: ``run --from-node/--to-node`` (A22), ``run --lint``, ``continuous
---lint`` and ``lint`` (A20) and ``trace serve`` (A8b).
+Not ported yet: ``trace serve`` prints the ``ROADMAP.md`` item it waits
+for (A8b) and exits 2.
 """
 
 from __future__ import annotations
@@ -65,10 +76,6 @@ from tpu_pipelines_torch.metadata.store import MetadataStore
 EXIT_UNPORTED = 2
 # A gate that found something (``drift --fail-on-alert``).
 EXIT_GATED = 3
-# Subcommands not ported yet: their ROADMAP.md item and what they do.
-_DEFERRED = {
-    "lint": ("A20", "static pipeline and executor analysis"),
-}
 
 
 def _unported(what: str, item: str) -> int:
@@ -344,10 +351,8 @@ def cmd_run(args) -> int:
     from tpu_pipelines_torch.orchestration import LocalDagRunner
     from tpu_pipelines_torch.utils.module_loader import load_fn
 
-    if args.from_node or args.to_node:
-        return _unported("run --from-node/--to-node (partial runs)", "A22")
-    if args.lint:
-        return _unported("run --lint (the lint pre-flight)", "A20")
+    from tpu_pipelines_torch.analysis import LintGateError
+
     logging.basicConfig(level=logging.INFO)
     params = {}
     for spec in args.param:
@@ -365,10 +370,21 @@ def cmd_run(args) -> int:
         device=args.device,
     )
     pipeline = load_fn(args.pipeline_module, "create_pipeline")()
-    result = runner.run(
-        pipeline, runtime_parameters=params, raise_on_failure=False,
-        resume_from=args.resume_from,
-    )
+    try:
+        result = runner.run(
+            pipeline, runtime_parameters=params, raise_on_failure=False,
+            from_nodes=args.from_node or None,
+            to_nodes=args.to_node or None,
+            resume_from=args.resume_from, lint=args.lint,
+        )
+    except LintGateError as e:
+        print(str(e), file=sys.stderr)
+        return EXIT_GATED
+    except ValueError as e:
+        # A refused combination or bound (resume with partial-run bounds,
+        # an unknown node, a changed DAG): a usage error, nothing ran.
+        print(f"run: {e}", file=sys.stderr)
+        return 2
     print(f"run {result.run_id}: "
           f"{'OK' if result.succeeded else 'FAILED'}")
     for node_id, nr in result.nodes.items():
@@ -384,6 +400,49 @@ def cmd_run(args) -> int:
     return 0 if result.succeeded else 1
 
 
+def cmd_lint(args) -> int:
+    """``lint --pipeline-module M [--json] [--fail-on error|warn]``."""
+    from tpu_pipelines_torch.analysis import (
+        analyze_pipeline,
+        check_metric_docs,
+        check_serving_metric_docs,
+        format_findings,
+        gated,
+        lint_report,
+        sort_findings,
+    )
+    from tpu_pipelines_torch.utils.module_loader import load_fn
+
+    try:
+        pipeline = load_fn(args.pipeline_module, "create_pipeline")()
+        findings = analyze_pipeline(
+            pipeline, spmd_sync=args.spmd_sync, continuous=args.continuous,
+        )
+        # TPP211/TPP214 are repo-scoped (metric emissions against the
+        # catalogs), not pipeline-scoped: they ride along with every lint.
+        findings = sort_findings(
+            list(findings)
+            + check_serving_metric_docs()
+            + check_metric_docs()
+        )
+    except Exception as e:  # noqa: BLE001 — a tool error (1), not a verdict
+        print(f"lint: cannot analyze {args.pipeline_module}: "
+              f"{type(e).__name__}: {e}", file=sys.stderr)
+        return 1
+    blocking = gated(findings, args.fail_on)
+    if args.json:
+        report = lint_report(findings)
+        report["fail_on"] = args.fail_on
+        report["gated"] = len(blocking)
+        print(json.dumps(report, indent=1, sort_keys=True))
+    else:
+        print(format_findings(findings))
+        if blocking:
+            print(f"lint: {len(blocking)} finding(s) at/above "
+                  f"--fail-on={args.fail_on}; refusing (exit {EXIT_GATED})")
+    return EXIT_GATED if blocking else 0
+
+
 def cmd_continuous(args) -> int:
     """``continuous --pipeline-module M``: the long-lived controller loop.
     The first SIGINT/SIGTERM lets the in-flight pipeline run finish and
@@ -397,8 +456,6 @@ def cmd_continuous(args) -> int:
     from tpu_pipelines_torch.continuous import ContinuousController
     from tpu_pipelines_torch.utils.module_loader import load_fn
 
-    if args.lint not in (None, "off"):
-        return _unported("continuous --lint (the lint gate)", "A20")
     logging.basicConfig(level=logging.INFO)
     try:
         cfg = load_fn(args.pipeline_module, "create_continuous")()
@@ -470,15 +527,40 @@ def main(argv=None) -> int:
                        help="device the pipeline's device nodes run on "
                             "(default cuda; cpu to run on the CPU)")
     p_run.add_argument("--from-node", action="append", default=[],
-                       help="partial run (not ported yet: ROADMAP.md A22)")
+                       help="partial run: start here, upstreams from store")
     p_run.add_argument("--to-node", action="append", default=[],
-                       help="partial run (not ported yet: ROADMAP.md A22)")
+                       help="partial run: stop here")
     p_run.add_argument("--resume-from", default=None, metavar="RUN_ID",
                        help="resume a crashed run ('latest' or a run id): "
                             "published nodes are adopted, orphaned ones "
                             "fenced and re-run")
     p_run.add_argument("--lint", default=None, choices=["error", "warn", "off"],
-                       help="lint pre-flight (not ported yet: ROADMAP.md A20)")
+                       help="pre-flight static analysis gate (default: env "
+                            "TPP_LINT, else off); 'error' refuses to run on "
+                            "ERROR findings, 'warn' on any finding")
+
+    p_lint = sub.add_parser(
+        "lint",
+        help="static pipeline + executor analysis; exit 0 clean, 3 on "
+             "blocking findings",
+    )
+    p_lint.add_argument("--pipeline-module", required=True,
+                        help="file defining create_pipeline() -> Pipeline")
+    p_lint.add_argument("--spmd-sync", action="store_true",
+                        help="lint as if running under the multi-host "
+                             "spmd runner (arms TPP108: in-runner retry "
+                             "policies are refused there)")
+    p_lint.add_argument("--continuous", action="store_true",
+                        help="lint as if handed to the continuous "
+                             "controller (arms TPP111: nodes with no "
+                             "deadline and no retry policy wedge the "
+                             "always-on loop)")
+    p_lint.add_argument("--json", action="store_true",
+                        help="machine-readable output (one JSON object)")
+    p_lint.add_argument("--fail-on", default="error",
+                        choices=["error", "warn"],
+                        help="findings at/above this severity exit 3 "
+                             "(default: error)")
 
     p_cont = sub.add_parser(
         "continuous",
@@ -507,10 +589,9 @@ def main(argv=None) -> int:
                              "CPU)")
     p_cont.add_argument("--lint", default=None,
                         choices=["error", "warn", "off"],
-                        help="lint gate (not ported yet: ROADMAP.md A20)")
-
-    for name, (item, what) in _DEFERRED.items():
-        sub.add_parser(name, help=f"{what} (not ported yet: ROADMAP.md {item})")
+                        help="lint gate level for handed pipelines "
+                             "(default: config, then env TPP_LINT); "
+                             "TPP111 is armed either way")
 
     inspect = sub.add_parser("inspect", help="read the metadata store")
     # On the parent AND each leaf, so both argument orders work.
@@ -580,12 +661,11 @@ def main(argv=None) -> int:
         help="exit 3 when the fleet has counted any drift/skew alert",
     )
 
-    argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in _DEFERRED:
-        return _unported(argv[0], _DEFERRED[argv[0]][0])
     args = parser.parse_args(argv)
     if args.cmd == "run":
         return cmd_run(args)
+    if args.cmd == "lint":
+        return cmd_lint(args)
     if args.cmd == "continuous":
         return cmd_continuous(args)
     if args.cmd == "trace":

@@ -441,7 +441,7 @@ def _stamp_span(out, props, span, version):
         "splits": Parameter(type=dict, default=None),
         # Files above this many bytes stream in blocks into per-split
         # writers instead of being read whole.  0 = always stream.
-        "streaming_threshold_bytes": Parameter(type=int, default=256 << 20),
+        "streaming_threshold_bytes": Parameter(type=int, default=256 << 20),  # tpp: disable=TPP214 (parameter)
         # Optional {column: type alias} (int64, float64, string, bool).
         # The streaming reader infers types from its FIRST block only, so
         # pin any column whose type could shift deeper into a large file.
@@ -463,7 +463,7 @@ def CsvExampleGen(ctx):
     large."""
     path, span, version = _resolve_span(ctx)
     splits = ctx.exec_properties["splits"] or dict(DEFAULT_SPLITS)
-    threshold = ctx.exec_properties["streaming_threshold_bytes"]
+    threshold = ctx.exec_properties["streaming_threshold_bytes"]  # tpp: disable=TPP214 (parameter)
     plan = ShardPlan.resolve(ctx.exec_properties.get("num_shards"))
     column_types = ctx.exec_properties["column_types"]
     if os.path.isdir(path):

@@ -2,18 +2,17 @@
 
 The port's copy of ``tpu_pipelines/components/statistics_gen.py`` (TFX
 StatisticsGen as numpy reductions).  Sharded splits accumulate per shard
-and merge in shard order, as the reference's do; merged output equals the
+in the resilient fork pool (``data/shard_plan.py``; ``TPP_DATA_POOL``
+picks threads or sequential instead) and merge in shard order, as the
+reference's do; merged output is identity-equal to the
 single-pass result (exact for counts/min/max/top-k, float-summation-order
-for mean/std, reservoir-exact while the split fits the reservoir).  The
-reference runs the shards in a resilient process pool with quarantine
-(``salvage_shards``); the port runs them in a thread pool and a failing
-shard fails the node (the process pool waits, ``ROADMAP.md`` A21).
+for mean/std, reservoir-exact while the split fits the reservoir).
 """
 
 from __future__ import annotations
 
 from tpu_pipelines_torch.data import examples_io
-from tpu_pipelines_torch.data.shard_plan import ShardPlan, thread_map
+from tpu_pipelines_torch.data.shard_plan import ShardPlan, map_shards_resilient
 from tpu_pipelines_torch.data.statistics import (
     SplitStatsAccumulator,
     accumulate_split_shard,
@@ -39,8 +38,14 @@ _RESERVOIR_SIZE = 1 << 17
         # comes from the artifact's shard layout; a single-file split always
         # takes the sequential path regardless of this value.
         "num_shards": Parameter(type=int, default=None),
-        # Partial-salvage mode (quarantine struck-out shards, merge the
-        # survivors): needs the resilient process pool; True raises.
+        # Partial-salvage mode: when a shard strikes
+        # out of the resilient pool (poisoned file, worker that dies on
+        # every retry), quarantine it and merge the SURVIVING shards —
+        # merged statistics stay exact over the rows actually read
+        # (SplitStatsAccumulator.merge is order-exact), and the
+        # quarantined shard ids land on the execution + artifact so the
+        # degradation is lineage-visible, never silent.  Off by default:
+        # a struck-out shard fails the node.
         "salvage_shards": Parameter(type=bool, default=False),
         # Persist the PRE-MERGE per-shard accumulators (accumulators.pkl)
         # alongside stats.json, making this artifact mergeable with other
@@ -60,30 +65,44 @@ def StatisticsGen(ctx):
     )
     plan = ShardPlan.resolve(ctx.exec_properties.get("num_shards"))
     salvage = bool(ctx.exec_properties.get("salvage_shards", False))
+    # The node's deadline watchdog (and the run's drain) sets this: the
+    # fork pool then kills its workers, and a cancelled shard is never
+    # salvaged away.
+    cancel = ctx.extras.get("cancel_event")
     keep_accs = bool(ctx.exec_properties.get("save_accumulators", False))
     stats = {}
     shard_accs = {}
     shard_counts = {}
+    quarantined = {}
     for split in splits:
         n_shards = examples_io.num_split_shards(examples.uri, split)
         shard_counts[split] = n_shards
         if n_shards > 1:
-            if salvage:
-                raise NotImplementedError(
-                    "salvage_shards needs the resilient process pool "
-                    "(ROADMAP.md A21)"
-                )
-            accs = thread_map(
+            res = map_shards_resilient(
                 accumulate_split_shard,
                 [
                     (examples.uri, split, i, chunk_rows, _RESERVOIR_SIZE)
                     for i in range(n_shards)
                 ],
                 workers=min(plan.num_shards, n_shards),
+                cancel=cancel,
             )
+            if res.errors and (
+                not salvage or (cancel is not None and cancel.is_set())
+            ):
+                res.raise_on_failure()
+            if res.errors:
+                if len(res.errors) == n_shards:
+                    # Nothing survived: "salvage" would fabricate an
+                    # empty-statistics artifact for a split that has rows.
+                    res.raise_on_failure()
+                quarantined[split] = res.failure_summary()
+            accs = [a for a in res.results if a is not None]
             if keep_accs:
                 # merge_accumulators folds IN PLACE into accs[0]; the
-                # persisted shard accumulators must stay pre-merge.
+                # persisted shard accumulators must stay pre-merge, so
+                # the merge runs on copies (identical values — merge is
+                # a pure function of the accumulator state).
                 import copy
 
                 shard_accs[split] = accs
@@ -120,4 +139,13 @@ def StatisticsGen(ctx):
         "shard_plan_source": plan.source,
         **{f"num_examples_{s}": stats[s].num_examples for s in splits},
     }
+    if quarantined:
+        # Lineage-visible degradation: which shards were salvaged away,
+        # and why — on the artifact (downstream consumers can refuse
+        # partial stats) and the execution record (audit trail).
+        out.properties["quarantined_shards"] = {
+            split: sorted(errs) for split, errs in quarantined.items()
+        }
+        props["quarantined_shards"] = quarantined
+        props["partial_statistics"] = True
     return props

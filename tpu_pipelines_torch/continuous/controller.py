@@ -32,10 +32,6 @@ a second signal aborts.
 
 Departures from the reference, stated in ``ROADMAP.md`` C:
 
-  * Lint (A20).  The reference analyzes every handed pipeline and logs its
-    findings.  The port has no analyzer: a gate asked for by ``cfg.lint``
-    or ``TPP_LINT`` raises ``NotImplementedError`` naming A20, as the
-    runner's does; otherwise nothing is analyzed.
   * Training telemetry (A8b).  The reference reads each window run's
     telemetry headline from the metrics-history ring
     (``TPP_METRICS_HISTORY``), which the port does not have, so a summary
@@ -98,8 +94,8 @@ class ContinuousConfig:
     # Directory for controller state (watcher acks, in-flight run marker);
     # "" = in memory only (no resume across controller restarts).
     state_dir: str = ""
-    # Lint gate level ("error"/"warn"; None = env TPP_LINT): the port has
-    # no analyzer yet, so asking for a gate raises (ROADMAP.md A20).
+    # Lint gate level ("error"/"warn"; None = env TPP_LINT); findings below
+    # the gate are logged, TPP111 armed either way.
     lint: Optional[str] = None
     # Metrics registry for the controller series (None = process default).
     registry: Any = None
@@ -142,6 +138,7 @@ class ContinuousController:
         # run succeeds and records them (a failed retrain keeps them armed
         # for the retry tick).
         self._drift_lock = threading.Lock()
+        self._linted: set = set()
         self._drift_pending: List[Dict[str, Any]] = []
         self._drift_evidence: List[Dict[str, Any]] = []
         self._last_drift_alerts: Optional[float] = None
@@ -203,18 +200,28 @@ class ContinuousController:
     # ---------------------------------------------------------------- lint
 
     def _lint_once(self, pipeline: Pipeline) -> None:
-        """The reference analyzes a handed pipeline here.  The port has no
-        analyzer (ROADMAP.md A20): a gate asked for by ``cfg.lint`` or
-        ``TPP_LINT`` raises, as the runner's pre-flight does; otherwise
-        nothing is analyzed."""
-        level = self.cfg.lint
-        if level is None:
-            level = os.environ.get("TPP_LINT", "")
-        if str(level).strip().lower() not in ("", "off"):
-            raise NotImplementedError(
-                f"continuous controller ({pipeline.name}): the lint gate "
-                f"{level!r} is not ported yet (ROADMAP.md A20)"
+        """Analyze a handed pipeline (continuous flag armed: TPP111); gate
+        at ``cfg.lint`` / env ``TPP_LINT`` level, log the findings
+        otherwise.  Once per pipeline name: the factories return fresh
+        equivalent objects on every call."""
+        if pipeline.name in self._linted:
+            return
+        from tpu_pipelines_torch.analysis import (
+            analyze_pipeline,
+            gate_or_raise,
+            resolve_lint_level,
+        )
+
+        findings = analyze_pipeline(pipeline, continuous=True)
+        level = resolve_lint_level(self.cfg.lint)
+        if level:
+            gate_or_raise(
+                findings, level,
+                f"continuous controller ({pipeline.name})",
             )
+        for f in findings:
+            log.warning("lint: %s", f.format())
+        self._linted.add(pipeline.name)
 
     # --------------------------------------------------------------- drift
 

@@ -4,8 +4,9 @@ The port's copy of ``tpu_pipelines/dsl/component.py``.  ``resource_class``
 keeps the reference's spelling, ``host`` or ``tpu``, so a compiled IR reads
 the same in both packages: here ``tpu`` means "holds the accelerator" (the
 GPU), and the runner admits one such node at a time.  Nodes built inside
-``with Cond(...)`` blocks carry their predicates (``dsl/cond.py``); lint
-suppressions wait (``ROADMAP.md`` A20).
+``with Cond(...)`` blocks carry their predicates (``dsl/cond.py``);
+``with_lint_suppressions`` compiles into ``NodeIR.lint_suppress``, which
+the analyzer (``analysis/``) reads.
 
 A component is (1) a declarative spec — typed input/output channels and
 exec-properties — and (2) an executor function invoked by a runner's launcher
@@ -185,7 +186,7 @@ class Component:
     IS_SINK: bool = False
     # Lint rule ids suppressed for every instance of this component
     # (per-instance: .with_lint_suppressions("TPP103")).  Compiled into
-    # NodeIR.lint_suppress; see docs/ANALYSIS.md.
+    # NodeIR.lint_suppress (read by analysis/).
     LINT_SUPPRESS: tuple = ()
     # Per-node retry policy (tpu_pipelines_torch.robustness.RetryPolicy or its
     # dict form; None = fall back to the pipeline default, then env
@@ -322,10 +323,17 @@ class Component:
         cannot silently disable nothing.  Suppressions compile into the IR
         and apply to both graph (TPP1xx) and code (TPP2xx) findings.
         """
-        raise NotImplementedError(
-            f"{self.id}: lint suppressions wait for the port's analyzer "
-            f"(ROADMAP.md A20); asked for {rules}"
-        )
+        from tpu_pipelines_torch.analysis.findings import RULES
+
+        for r in rules:
+            if r.upper() not in RULES:
+                raise ValueError(
+                    f"{self.id}: unknown lint rule {r!r}; known rules: "
+                    f"{sorted(RULES)}"
+                )
+            if r.upper() not in self.lint_suppress:
+                self.lint_suppress.append(r.upper())
+        return self
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}(id={self.id!r})"

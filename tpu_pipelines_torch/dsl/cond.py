@@ -190,7 +190,7 @@ class ConditionUnresolvedError(RuntimeError):
     """The predicate's producer has no published outputs at all.
 
     Distinct from an unmet predicate: when the producer never executed —
-    e.g. a partial run (``ROADMAP.md`` A22) whose range excludes it —
+    e.g. a partial run whose range excludes it and left no history —
     silently reporting the gated node as COND_SKIPPED would mask a
     configuration mistake as a legitimately unmet condition.  The runner
     surfaces this as a node FAILURE instead."""

@@ -4,9 +4,10 @@ The port's copy of ``tpu_pipelines/metadata/store.py`` (ml-metadata's
 ``MetadataStore``: artifacts, executions, contexts, events in embedded
 SQLite), with the run tracer's ``metadata`` spans around put, publish
 and cache lookups (``compute_metrics`` reads them as ``store_ops``) and
-the lineage queries the ``inspect lineage`` CLI prints; without the
-fault-injection hooks.  The native (C++) backend waits (``ROADMAP.md``
-A19).
+the lineage queries the ``inspect lineage`` CLI prints, and the
+``STORE_CONTENTION`` fault hook in the publish retry.  The native (C++)
+backend (``native_store.py``) overrides the primitives and inherits the
+composites.
 
 Multi-writer discipline: the store is
 crash-consistent and multi-process-safe, so concurrent runners and shard
@@ -494,6 +495,7 @@ class MetadataStore:
         UPDATE-ing rows the rollback erased.
         """
         from tpu_pipelines_torch.robustness import RetryPolicy, record_retry
+        from tpu_pipelines_torch.testing import faults as _faults
 
         policy = RetryPolicy(
             max_attempts=self.PUBLISH_RETRY_ATTEMPTS,
@@ -515,6 +517,9 @@ class MetadataStore:
             while True:
                 try:
                     with self._plock:
+                        # Fault hook: STORE_CONTENTION (testing/faults.py),
+                        # transient unavailability, N times.
+                        _faults.store_op("publish_execution")
                         self._in_tx = True
                         try:
                             self._tx_begin()

@@ -13,7 +13,9 @@ per line to ``<pipeline_root>/.runs/<run_id>/trace/events.jsonl``:
                driver phase, cache hit/miss
   executor     executor attempts, retries, output fingerprinting, publish
   metadata     MetadataStore op latencies (publish/put/cache lookup)
-  data         one span per ``thread_map`` shard task
+  data         one span per shard task (``thread_map`` and the resilient
+               pool, whose forked workers append with their own pid) and
+               one per resilient fan-out
   trainer      window breakdowns, goodput and telemetry summaries from
                the train loop
   ===========  ==========================================================
@@ -22,7 +24,9 @@ per line to ``<pipeline_root>/.runs/<run_id>/trace/events.jsonl``:
     (append mode).  A kill can truncate at most the final line; readers
     (:func:`tpu_pipelines_torch.observability.export.read_events`) skip
     unparsable lines.
-  * **Thread safety.**  One lock per recorder serializes writer threads.
+  * **Thread and fork safety.**  One lock per recorder serializes writer
+    threads; a forked shard-pool child reopens the file and takes a
+    fresh lock on its first event.
   * **Zero cost when off.**  ``TPP_TRACE=0`` disables tracing: no
     recorder, no ``.runs/`` directory, and every module-level helper is a
     null context costing one global read.  Tracing never touches the
@@ -62,8 +66,8 @@ class TraceRecorder:
     """Append-only JSONL span/event writer for one pipeline run.
 
     Construct via :meth:`maybe_create` (respects ``TPP_TRACE``) or
-    directly for tests.  Safe to share across the scheduler thread and
-    the worker pool.
+    directly for tests.  Safe to share across the scheduler thread, the
+    worker pool, and forked shard-pool processes.
     """
 
     def __init__(self, run_dir: str, run_id: str):
@@ -73,6 +77,7 @@ class TraceRecorder:
         self.events_path = os.path.join(self.trace_dir, "events.jsonl")
         os.makedirs(self.trace_dir, exist_ok=True)
         self._lock = threading.Lock()
+        self._pid = os.getpid()
         # A SIGKILLed writer can leave a torn final line with no newline;
         # a resumed run appends to the same file, so start it on a fresh
         # line or its first event would merge into (and die with) the
@@ -100,6 +105,15 @@ class TraceRecorder:
 
     def _write(self, record: Dict[str, Any]) -> None:
         line = json.dumps(record, separators=(",", ":"), default=str)
+        if os.getpid() != self._pid:
+            # Forked shard-pool child: the inherited handle shares the
+            # parent's userspace buffer, so reopen (its own O_APPEND
+            # descriptor: kernel-atomic line appends); and the inherited
+            # lock may have been held by a parent thread at the fork,
+            # which does not exist here to release it.
+            self._pid = os.getpid()
+            self._lock = threading.Lock()
+            self._fh = open(self.events_path, "a", encoding="utf-8")
         with self._lock:
             if self._closed:
                 return

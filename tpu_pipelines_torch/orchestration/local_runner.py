@@ -67,11 +67,24 @@ Crash safety, as the reference's:
     attempt and on both sides of the publisher; no-ops unless a test
     installs a plan.
 
+Partial runs (TFX's partial-run workflow): ``run(from_nodes=[...],
+to_nodes=[...])`` executes only the nodes between the bounds; every other
+node settles ``SKIPPED`` with its newest LIVE outputs from prior runs
+(``_resolve_prior_outputs``; a resolver's newest execution is
+authoritative even when it resolved nothing), or ``COND_SKIPPED`` when
+its newest decisive execution was a Cond skip (``_latest_is_cond_skip``).
+Unknown bounds raise ``ValueError``, and so do bounds with
+``resume_from``.
+
+The lint pre-flight (``run(lint="error"|"warn")`` or env ``TPP_LINT``)
+runs the port's analyzer (``analysis/``) on the compiled IR and every
+executor and module entry point before the metadata store is opened, so
+a refused run leaves nothing behind (``LintGateError``).
+
 Not ported, and refused with ``NotImplementedError`` naming the
 ``ROADMAP.md`` item: ``spmd_sync`` multi-process runs (A10); the XLA
 compile cache (no counterpart: the port's kernels build once per checkout);
-the lint pre-flight (A20); partial runs, with the replay of a recorded
-skip and of prior outputs into them (A22); metric federation (A8b).
+metric federation (A8b).
 """
 
 from __future__ import annotations
@@ -87,7 +100,7 @@ import threading
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from tpu_pipelines_torch.dsl.compiler import (
     Compiler,
@@ -228,7 +241,7 @@ class _RunTelemetry:
 @dataclasses.dataclass
 class NodeResult:
     node_id: str
-    status: str   # COMPLETE | CACHED | FAILED | COND_SKIPPED
+    status: str   # COMPLETE | CACHED | FAILED | SKIPPED | COND_SKIPPED
     execution_id: int = 0
     outputs: Dict[str, List[Artifact]] = dataclasses.field(default_factory=dict)
     error: str = ""
@@ -250,7 +263,7 @@ class RunResult:
     @property
     def succeeded(self) -> bool:
         return all(
-            n.status in ("COMPLETE", "CACHED", "COND_SKIPPED")
+            n.status in ("COMPLETE", "CACHED", "SKIPPED", "COND_SKIPPED")
             for n in self.nodes.values()
         )
 
@@ -332,12 +345,22 @@ class LocalDagRunner:
         run_id: Optional[str] = None,
         raise_on_failure: bool = True,
         extras: Optional[Dict[str, Any]] = None,
-        from_nodes=None,
-        to_nodes=None,
+        from_nodes: Optional[Sequence[str]] = None,
+        to_nodes: Optional[Sequence[str]] = None,
         resume_from: Optional[str] = None,
         lint: Optional[str] = None,
     ) -> RunResult:
-        """Execute the pipeline; every node runs (or is a cache hit).
+        """Execute the pipeline.
+
+        ``lint`` opts into the static-analysis pre-flight gate: "error"
+        refuses to run on any ERROR finding, "warn" on any finding at all;
+        env ``TPP_LINT`` is the default when the argument is None, and
+        "off" or unset skips the analyzer.  The gate runs before the
+        metadata store is opened, so a refused run leaves no trace.
+
+        ``from_nodes``/``to_nodes`` bound a partial run: nodes outside the
+        range are not executed; their outputs are resolved from the latest
+        LIVE artifacts already in the metadata store.
 
         ``resume_from`` ("latest" or a prior run id) continues a run whose
         orchestrator died: published COMPLETE/CACHED executions are adopted
@@ -357,11 +380,21 @@ class LocalDagRunner:
                 "pass either resume_from (continues the prior run's id) or "
                 "run_id, not both"
             )
-        if from_nodes or to_nodes:
-            raise _unported("a partial run (from_nodes/to_nodes)", "A22")
-        if lint or os.environ.get("TPP_LINT", "off").strip() not in ("", "off"):
-            raise _unported("the lint pre-flight", "A20")
         ir = Compiler().compile(pipeline)
+        from tpu_pipelines_torch.analysis import resolve_lint_level
+
+        lint_level = resolve_lint_level(lint)
+        if lint_level:
+            from tpu_pipelines_torch.analysis import (
+                analyze_pipeline,
+                gate_or_raise,
+            )
+
+            gate_or_raise(
+                analyze_pipeline(pipeline, ir=ir), lint_level,
+                f"LocalDagRunner pre-flight ({pipeline.name})",
+            )
+        selected = self._select_nodes(ir, from_nodes, to_nodes)
         executors = {c.id: c for c in pipeline.components}
         store = open_store(pipeline.metadata_path)
         dag_fp = ir.fingerprint()
@@ -422,7 +455,7 @@ class LocalDagRunner:
                         enable_cache=pipeline.enable_cache,
                         telemetry=telemetry,
                         max_workers=result.max_parallel_nodes,
-                        adopted=adopted,
+                        adopted=adopted, selected=selected,
                     )
                 if recorder:
                     recorder.instant(
@@ -622,6 +655,113 @@ class LocalDagRunner:
         })
         return outputs
 
+    # -------------------------------------------------------- partial runs
+
+    @staticmethod
+    def _select_nodes(
+        ir: PipelineIR,
+        from_nodes: Optional[Sequence[str]],
+        to_nodes: Optional[Sequence[str]],
+    ) -> set:
+        """The node ids a partial run executes: downstream of (or equal
+        to) any ``from_nodes`` and upstream of (or equal to) any
+        ``to_nodes``; every node when both are empty."""
+        all_ids = {n.id for n in ir.nodes}
+        for nid in list(from_nodes or []) + list(to_nodes or []):
+            if nid not in all_ids:
+                raise ValueError(f"Unknown node in partial-run bounds: {nid!r}")
+        selected = set(all_ids)
+        if from_nodes:
+            keep = set(from_nodes)
+            changed = True
+            while changed:
+                changed = False
+                for n in ir.nodes:
+                    if n.id not in keep and any(u in keep for u in n.upstream):
+                        keep.add(n.id)
+                        changed = True
+            selected &= keep
+        if to_nodes:
+            by_id = {n.id: n for n in ir.nodes}
+            keep = set()
+            stack = list(to_nodes)
+            while stack:
+                nid = stack.pop()
+                if nid in keep:
+                    continue
+                keep.add(nid)
+                stack.extend(by_id[nid].upstream)
+            selected &= keep
+        return selected
+
+    def _partial_run_outcome(
+        self, store: MetadataStore, node: NodeIR
+    ) -> "NodeResult":
+        """Verdict for a node outside a partial run's bounds: its newest
+        Cond skip replays as ``COND_SKIPPED`` (directly gated or cascaded:
+        both publish the CANCELED record), anything else settles
+        ``SKIPPED`` with its latest LIVE outputs from prior runs."""
+        if self._latest_is_cond_skip(store, node):
+            return NodeResult(node_id=node.id, status="COND_SKIPPED")
+        return NodeResult(
+            node_id=node.id, status="SKIPPED",
+            outputs=self._resolve_prior_outputs(store, node),
+        )
+
+    @staticmethod
+    def _latest_is_cond_skip(store: MetadataStore, node: NodeIR) -> bool:
+        """True when the node's newest decisive execution (COMPLETE,
+        CACHED, or a Cond CANCELED record) was a condition skip."""
+        for ex in reversed(store.get_executions(node_id=node.id)):
+            if ex.state in (ExecutionState.COMPLETE, ExecutionState.CACHED):
+                return False
+            if (
+                ex.state == ExecutionState.CANCELED
+                and ex.properties.get("cond_skipped")
+            ):
+                return True
+        return False
+
+    @staticmethod
+    def _resolve_prior_outputs(
+        store: MetadataStore, node: NodeIR
+    ) -> Dict[str, List[Artifact]]:
+        """Latest LIVE outputs of a node from prior runs, in event-index
+        order (the order a cache hit hands downstream)."""
+        outputs: Dict[str, List[Artifact]] = {}
+        for ex in reversed(store.get_executions(node_id=node.id)):
+            if ex.state not in (ExecutionState.COMPLETE, ExecutionState.CACHED):
+                continue
+            candidate: Dict[str, List[tuple]] = {}
+            live = True
+            for ev in store.get_events_by_execution(ex.id):
+                if ev.type != EventType.OUTPUT:
+                    continue
+                art = store.get_artifact(ev.artifact_id)
+                if art is None or art.state != ArtifactState.LIVE:
+                    live = False
+                    break
+                candidate.setdefault(ev.path, []).append((ev.index, art))
+            if node.is_resolver:
+                # The newest resolver execution is authoritative: resolved
+                # empty is a valid state, and a resolved artifact gone
+                # non-LIVE means empty now.  An older execution would
+                # resurrect a baseline the latest resolution rejected.
+                outputs = {key: [] for key in node.outputs}
+                if live:
+                    outputs.update({
+                        path: [a for _, a in sorted(pairs, key=lambda p: p[0])]
+                        for path, pairs in candidate.items()
+                    })
+                break
+            if live and candidate:
+                outputs = {
+                    path: [a for _, a in sorted(pairs, key=lambda p: p[0])]
+                    for path, pairs in candidate.items()
+                }
+                break
+        return outputs
+
     @staticmethod
     def _cond_outcome(
         store: MetadataStore,
@@ -637,7 +777,7 @@ class LocalDagRunner:
         condition-skipped (not a failure: the run still succeeds), FAILED
         when a predicate cannot be evaluated, None to dispatch.  A skip is
         recorded as a CANCELED execution carrying ``cond_skipped``, the
-        verdict a partial run replays (ROADMAP.md A22)."""
+        verdict a partial run replays (``_latest_is_cond_skip``)."""
         from tpu_pipelines_torch.dsl.cond import (
             ConditionUnresolvedError,
             evaluate_condition,
@@ -674,7 +814,7 @@ class LocalDagRunner:
     def _run_nodes(
         self, *, store, ir, executors, result, runtime_parameters, contexts,
         extras, enable_cache, telemetry, max_workers: int,
-        adopted: Dict[str, NodeResult],
+        adopted: Dict[str, NodeResult], selected: set,
     ) -> None:
         """Ready-set scheduler: dispatch any node whose upstreams have all
         settled, lowest topo index first; executors run in a worker pool
@@ -689,7 +829,8 @@ class LocalDagRunner:
         completion arrives or the nearest in-flight deadline expires; an
         expired node settles FAILED at once and its worker's eventual
         result is discarded (a zombie).  Adopted (resumed) nodes settle
-        before the first dispatch."""
+        before the first dispatch; a node outside a partial run's bounds
+        settles from the store (``_partial_run_outcome``)."""
         publish_lock = threading.Lock()
         by_id = {n.id: n for n in ir.nodes}
         produced: Dict[str, Dict[str, List[Artifact]]] = {}
@@ -731,7 +872,7 @@ class LocalDagRunner:
         def settle(nr: NodeResult) -> None:
             result.nodes[nr.node_id] = nr
             settled.add(nr.node_id)
-            if nr.status in ("COMPLETE", "CACHED"):
+            if nr.status in ("COMPLETE", "CACHED", "SKIPPED"):
                 produced[nr.node_id] = nr.outputs
             elif nr.status == "COND_SKIPPED":
                 cond_skipped.add(nr.node_id)
@@ -798,21 +939,23 @@ class LocalDagRunner:
                         continue
                     if nid not in ready_at:
                         ready_at[nid] = (time.time(), time.monotonic())
-                    if any(u in failed for u in node.upstream):
-                        nr = NodeResult(
-                            node_id=nid, status="FAILED",
-                            error="upstream failure")
-                    else:
-                        try:
+                    try:
+                        if nid not in selected:
+                            nr = self._partial_run_outcome(store, node)
+                        elif any(u in failed for u in node.upstream):
+                            nr = NodeResult(
+                                node_id=nid, status="FAILED",
+                                error="upstream failure")
+                        else:
                             nr = self._cond_outcome(
                                 store, node, produced, cond_skipped,
                                 runtime_parameters, contexts, publish_lock,
                             )
-                        except StoreUnavailableError as e:
-                            nr = NodeResult(
-                                node_id=nid, status="FAILED",
-                                error=f"metadata store unavailable: {e}",
-                            )
+                    except StoreUnavailableError as e:
+                        nr = NodeResult(
+                            node_id=nid, status="FAILED",
+                            error=f"metadata store unavailable: {e}",
+                        )
                     if nr is not None:
                         settle(nr)
                         unprocessed.remove(nid)

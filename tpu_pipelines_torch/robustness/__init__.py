@@ -36,6 +36,7 @@ from tpu_pipelines_torch.robustness.errors import (  # noqa: F401
     is_transient,
 )
 from tpu_pipelines_torch.robustness.retry import (  # noqa: F401
+    NO_RETRY,
     RetryPolicy,
     record_retry,
     retry_call,
@@ -43,6 +44,7 @@ from tpu_pipelines_torch.robustness.retry import (  # noqa: F401
 
 __all__ = [
     "FileLock",
+    "NO_RETRY",
     "PERMANENT",
     "PermanentError",
     "RetryPolicy",

@@ -150,6 +150,10 @@ class RetryPolicy:
         )
 
 
+# The single-attempt policy (no retries), the default of a shard fan-out.
+NO_RETRY = RetryPolicy(max_attempts=1, base_delay_s=0.0, jitter=False)
+
+
 def _retry_counter():
     from tpu_pipelines_torch.observability.metrics import default_registry
 

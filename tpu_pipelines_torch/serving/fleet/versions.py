@@ -254,7 +254,7 @@ class ModelVersionManager:
                 self._dtypes[version] = dtype
             if self._m_memory is not None:
                 self._m_memory.labels(self.model_name, version).set(
-                    int(getattr(loaded, "params_bytes", 0) or 0)
+                    int(getattr(loaded, "params_bytes", 0) or 0)  # tpp: disable=TPP214 (attr name)
                 )
                 self._m_dtype.labels(
                     self.model_name, version, dtype

@@ -20,6 +20,12 @@ preemptible fleet produces, injected at the exact point where they occur.
                        OOM, Ctrl-C mid-run)
   TRANSIENT_EXECUTOR_  inside the executor attempt: a ``TransientError``,
   ERROR                ``times`` times, then clean (classified-retry bait)
+  KILL_SHARD_WORKER    inside a shard-pool fork child (key ``SHARD_KEY``):
+                       ``os._exit``, the preempted-worker shape the pool's
+                       replacement-worker path must absorb
+  STORE_CONTENTION     inside a store write transaction (key
+                       ``STORE_KEY``): a transient StoreUnavailableError,
+                       ``times`` times (multi-writer SQLITE_BUSY shape)
   RELOAD_DURING_HAMMER per serving request (key ``SERVING_KEY``): after the
                        ``after``-th request, hot-reload the model in a
                        background thread mid-storm
@@ -35,10 +41,7 @@ preemptible fleet produces, injected at the exact point where they occur.
 The crash kinds raise :class:`SimulatedCrash`, a ``BaseException`` no
 ``except Exception`` can swallow, so the metadata store is left as a
 SIGKILL would leave it.  Each node fault fires once per plan (``times``
-for the counted kinds), so the node runs clean on resume.  The reference's
-``STORE_CONTENTION`` (a store-write hook) and ``KILL_SHARD_WORKER`` (the
-process-pool shard map) wait for ``ROADMAP.md`` A21/A22: the port's store
-has no fault hook and its shard map runs on threads.
+for the counted kinds), so the node runs clean on resume.
 
 Usage::
 
@@ -54,6 +57,8 @@ The hooks cost one module-global read when no plan is active.
 from __future__ import annotations
 
 import dataclasses
+import os
+import tempfile
 import threading
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
@@ -68,8 +73,12 @@ RELOAD_DURING_HAMMER = "reload_during_hammer"  # hot-swap mid-request-storm
 KILL_REPLICA = "kill_replica"      # latched death until rebuild (generation)
 WEDGE_PREDICT = "wedge_predict"    # predict parks, queue age grows
 DEVICE_ERROR = "device_error"      # transient device fault, `times` times
+KILL_SHARD_WORKER = "kill_shard_worker"    # SIGKILL-equivalent in a fork child
+STORE_CONTENTION = "store_contention"      # transient StoreUnavailableError
 
 # Plan keys of the faults, which are tied to no pipeline node.
+STORE_KEY = "__store__"
+SHARD_KEY = "__shards__"
 SERVING_KEY = "__serving__"
 REPLICA_KEY = "__replica__"
 
@@ -81,6 +90,8 @@ _KIND_TO_POINT = {
     CRASH_BEFORE_PUBLISH: "before_publish",
     CRASH_AFTER_PUBLISH: "after_publish",
     KILL_ORCHESTRATOR: "at_dispatch",
+    KILL_SHARD_WORKER: "in_shard",
+    STORE_CONTENTION: "store_op",
     RELOAD_DURING_HAMMER: "serving_request",
     KILL_REPLICA: "replica_predict",
     WEDGE_PREDICT: "replica_predict",
@@ -117,6 +128,8 @@ class NodeFault:
     # RELOAD_DURING_HAMMER / KILL_REPLICA: fire once the Nth request (call)
     # has arrived, so the traffic is demonstrably in flight.
     after: int = 1
+    # KILL_SHARD_WORKER: which shard index of the fanned-out pool dies.
+    shard: int = 0
     # Which replica name a replica fault applies to; "" = the first
     # replica the fault observes (then latched to it).
     replica: str = ""
@@ -124,6 +137,11 @@ class NodeFault:
     release: threading.Event = dataclasses.field(
         default_factory=threading.Event, compare=False
     )
+    # KILL_SHARD_WORKER cross-process once-token: fork children inherit a
+    # COPY of the plan's fired counts, so in-memory once-semantics cannot
+    # span the pool; the first child to create this file atomically is the
+    # one that dies.  Assigned at activate() when left empty.
+    once_file: str = ""
 
     def __post_init__(self):
         if self.kind not in _KIND_TO_POINT:
@@ -150,6 +168,7 @@ class FaultPlan:
         # Every call from that (replica, generation) fails; the rebuild
         # bumps the generation, so the rebuilt incarnation runs clean.
         self._killed: Dict[str, int] = {}
+        self._pid: Optional[int] = None  # set at activate(): spots fork children
         self._lock = threading.Lock()
         self.log: List[Tuple[str, str]] = []
 
@@ -175,11 +194,27 @@ class FaultPlan:
         """Install this plan for the duration of the block (test-only)."""
         global _ACTIVE
         prev = _ACTIVE
+        self._pid = os.getpid()
+        tokens: List[str] = []
+        for fault in self.faults.values():
+            if fault.kind == KILL_SHARD_WORKER and not fault.once_file:
+                # Reserve a name only: the first shard child to create it
+                # wins the kill; the parent removes it afterwards.
+                fault.once_file = os.path.join(
+                    tempfile.gettempdir(),
+                    f"tpp-fault-{os.getpid()}-{id(fault)}.token",
+                )
+                tokens.append(fault.once_file)
         _ACTIVE = self
         try:
             yield self
         finally:
             _ACTIVE = prev
+            for token in tokens:
+                try:
+                    os.unlink(token)
+                except OSError:
+                    pass
 
 
 _ACTIVE: Optional[FaultPlan] = None
@@ -243,6 +278,58 @@ def after_publish(node_id: str) -> None:
     if plan._take(node_id, "after_publish") is not None:
         plan.record(node_id, "crash_after_publish")
         raise SimulatedCrash(node_id, "after_publish")
+
+
+def in_shard(shard_index: int) -> None:
+    """Inside a shard-pool worker, before the real per-shard fn.
+
+    KILL_SHARD_WORKER (key ``SHARD_KEY``): the matching shard's worker
+    dies with ``os._exit``, a SIGKILL-equivalent the pool observes as
+    ``BrokenProcessPool``, forcing the replacement-worker path.  The
+    fault's ``once_file`` token carries the once-semantics across the
+    pool's processes.  In a same-process pool (threads or sequential) the
+    fault raises a ``TransientError`` instead: killing the interpreter
+    would take the whole run with it."""
+    plan = _ACTIVE
+    if plan is None:
+        return
+    fault = plan.faults.get(SHARD_KEY)
+    if fault is None or fault.kind != KILL_SHARD_WORKER:
+        return
+    if shard_index != fault.shard or not fault.once_file:
+        return
+    try:
+        fd = os.open(fault.once_file, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        os.close(fd)
+    except OSError:
+        return  # another worker (or an earlier attempt) already fired
+    if plan._pid is not None and os.getpid() != plan._pid:
+        os._exit(3)  # a fork child: die as a preempted worker does
+    from tpu_pipelines_torch.robustness.errors import TransientError
+
+    plan.record(SHARD_KEY, "kill_shard_worker_inline")
+    raise TransientError(
+        f"{fault.message} (same-process pool: raised instead of killed)"
+    )
+
+
+def store_op(op: str) -> None:
+    """Inside a MetadataStore write transaction, before the commit.
+
+    STORE_CONTENTION (key ``STORE_KEY``): raises a transient
+    ``StoreUnavailableError`` ``times`` times, the shape a contended
+    multi-writer store produces, which the store's publish retry must
+    absorb."""
+    plan = _ACTIVE
+    if plan is None:
+        return
+    fault = plan._take(STORE_KEY, "store_op")
+    if fault is None:
+        return
+    plan.record(STORE_KEY, f"store_contention:{op}")
+    from tpu_pipelines_torch.metadata.store import StoreUnavailableError
+
+    raise StoreUnavailableError(fault.message)
 
 
 # ----------------------------------------------------------- serving hooks

@@ -89,7 +89,7 @@ def export_model(
         "hyperparameters": hyperparameters or {},
         "has_transform": bool(transform_graph_uri),
         "dtype": qz.infer_dtype(state),
-        "params_bytes": qz.params_nbytes(state),
+        "params_bytes": qz.params_nbytes(state),  # tpp: disable=TPP214 (payload key)
         **(extra_spec or {}),
     }
     with open(os.path.join(serving_model_dir, SPEC_FILE), "w") as f:

@@ -30,7 +30,7 @@ import inspect
 import json
 import os
 import re
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Tuple
 
 # CPython reprs embed the object's address: `<Foo object at 0x7f3a...>`.
 # Anything matching this is nondeterministic across processes (and, with
@@ -121,6 +121,36 @@ def fingerprint_json(obj: Any) -> str:
     """Hash of a JSON-serializable object (sorted keys, stable encoding)."""
     return sha256_hex(canonical_json(obj).encode("utf-8"))
 
+
+def find_unjsonable(
+    obj: Any, _path: str = ""
+) -> List[Tuple[str, Any, bool]]:
+    """(path, value, embeds_address) for every non-JSON-native leaf.
+
+    The lint rule TPP104 (``analysis/graph_rules.py``) renders these; ``embeds_address`` distinguishes
+    the ERROR case (str() carries a memory address — key nondeterminism)
+    from the WARN case (deterministic but blind to the value's state)."""
+    out: List[Tuple[str, Any, bool]] = []
+    for path, value in _walk(obj, _path):
+        if isinstance(value, _JSON_NATIVE):
+            continue
+        try:
+            text = str(value)
+        except Exception:
+            text = "0xDEAD"  # unprintable: treat as address-bearing
+        out.append((path, value, bool(_ADDR_RE.search(text))))
+    return out
+
+
+def _walk(obj: Any, path: str) -> Iterator[Tuple[str, Any]]:
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            yield from _walk(v, f"{path}.{k}" if path else str(k))
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from _walk(v, f"{path}[{i}]")
+    else:
+        yield path or "<root>", obj
 
 # --------------------------------------------------------- callable versions
 
