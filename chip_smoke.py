@@ -255,7 +255,37 @@ Phases (any failure raises and the script exits non-zero):
      fresh pipeline roots: the fork pool's stats.json == the thread
      pool's byte for byte from child pids, a KILL_SHARD_WORKER run
      replaced (the death counted) with the same bytes, and a shard cut
-     short quarantined under ``salvage_shards`` with the node COMPLETE.
+     short quarantined under ``salvage_shards`` with the node COMPLETE;
+ 16. vision_train — ResNet-50 at full width (depth 50, width 64, 1000
+     classes, 224x224, batch 256, bf16, SGD-Nesterov 0.1/0.9: the ResNet
+     twin's ``EXAMPLE_DEFAULTS``) through ``train_loop(has_model_state=True)``,
+     ``--train-steps`` steps in windows of 4: one capture, a replay a step
+     after the first, no compile after warm-up; the same run with cuDNN held
+     to deterministic algorithms equals the steps written out eagerly bit for
+     bit (losses, every parameter, momentum buffer and running mean and
+     variance), the running statistics moved at every step (a ``bn_state``
+     metric summed inside the captured step, and each buffer of the eager
+     run); eval on the running averages against train-mode BatchNorm on the
+     same rows (the control, far apart); report examples/s (default and
+     deterministic cuDNN, eager), the idle share of a replayed step, the peak
+     memory and an MFU from the conv and dense layer shapes;
+ 17. vision_serving — that model exported, served by ``ModelServer(
+     replicas=1, max_versions=2, max_batch_size=8)``: its first request
+     captures one graph per padded bucket before it is served; 8 requests of
+     1-4 rows of 224*224*3 floats, every reply 200, within VISION_SERVE_TOL
+     of the payload's eager predict of the same rows, no compile after
+     warm-up; train-mode BatchNorm (batch statistics) misses by far;
+ 18. mnist_dag and 19. resnet_dag — the MNIST and ResNet twins
+     (ImportExampleGen over the npz -> Trainer -> Evaluator, multiclass)
+     through ``python -m tpu_pipelines_torch run --pipeline-module`` in this
+     process: MNIST at its defaults (4,096 rows, 100 steps of 128); ResNet
+     at depth 50 and 224x224 with the twin's 60 steps of 64 over its
+     synthetic images cut to RESNET_DAG_ROWS rows; every node COMPLETE, one
+     capture, no attention kernel; a warm rerun all cache hits with no
+     allocation on the card; the payload's 2 x 53 running buffers moved off
+     their init; the Evaluator's metrics.json keys the reference's; ``trace
+     latest`` read back cold (0.0) and warm (1.0); report each node's wall
+     and the ingest's rows/s.
 
 After the last phase it prints the whole script's seconds.  The last
 three lines are the ``kernels`` JSON record, the card's name and
@@ -287,13 +317,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpu_pipelines_torch.examples import bert_module, t5_module
+from tpu_pipelines_torch.examples import bert_module, resnet_module, t5_module
 from tpu_pipelines_torch.models import t5 as t5m
 from tpu_pipelines_torch.models import transformer as tfm
 from tpu_pipelines_torch.models.bert import (
     DEFAULT_HPARAMS,
     build_bert_model,
     init_bert_weights,
+)
+from tpu_pipelines_torch.models.resnet import (
+    Conv,
+    build_resnet_model,
+    init_resnet_weights,
 )
 from tpu_pipelines_torch.observability.drift import DEFAULT_DRIFT_THRESHOLD
 from tpu_pipelines_torch.observability.metrics import default_registry
@@ -5662,6 +5697,510 @@ def fleet_phase(seed, n_requests, n_generate, card, workdir):
                                                  workdir)}
 
 
+# ------------------------------------------------------------------- vision
+
+# ResNet-50 at full width (BASELINE configs[2]; resnet_module's
+# EXAMPLE_DEFAULTS): 224x224, 1000 classes, batch 256, SGD-Nesterov 0.1/0.9,
+# bf16 compute.
+VISION_HP = {**resnet_module.EXAMPLE_DEFAULTS}
+VISION_WINDOW = 4
+# Served logits against the payload's eager predict of the same rows: bf16
+# activations, and cuDNN picks its algorithms by batch size, so a served
+# bucket and an eager batch of a request's rows sum in other orders and
+# flip bf16 roundings now and then; bound relative to the largest logit.
+# The train-mode control (batch statistics for the running averages) must
+# land far above it.
+VISION_SERVE_TOL = 2e-2
+VISION_CONTROL_MIN = 0.1
+VISION_REQUESTS = 8
+VISION_MAX_BATCH = 8
+RESNET_MODULE = os.path.join(REPO, "tpu_pipelines_torch", "examples",
+                             "resnet_module.py")
+# The ResNet DAG's npz: the twin's synthetic images (resnet_pipeline's
+# _ensure_data at 224x224, 10 classes) cut from 2048 rows to this many:
+# the ingest's hash split prints every float of a row (150,528 a row) and
+# hashes the text column by column (PERF.md section 4).
+RESNET_DAG_ROWS = 256
+RESNET_DAG_SIZE = 224
+MNIST_DAG_STEPS = 100
+# The reference Evaluator's multiclass metrics.json: {"problem", "slices":
+# [{"slice_key", "num_examples", "metrics": {...}}]}.
+MULTICLASS_METRICS = ["accuracy", "loss", "macro_f1", "top5_accuracy"]
+
+
+# Kinds of kernel in a replayed ResNet step, by name (first match wins):
+# cuDNN's convolutions (forward, data and weight gradients), cuBLAS's head
+# GEMMs, reductions (BatchNorm statistics and their backward), elementwise
+# kernels (BatchNorm's normalization and its backward, the f32/bf16 casts,
+# ReLU, the residual adds, the SGD update), the max-pool.
+VISION_KERNEL_KINDS = (
+    ("conv", r"cudnn|cutlass|xmma|implicit_gemm|conv|wgrad|dgrad|fprop"),
+    ("gemm", r"gemm|cublas"),
+    ("reduce", r"reduce_kernel"),
+    ("elementwise", r"elementwise|foreach"),
+    ("max_pool", r"max_pool"),
+)
+
+
+def vision_batches(seed, n):
+    """``n`` batches of VISION_HP's NHWC f32 images and integer labels from
+    ``seed``."""
+    rng = np.random.default_rng(seed + 23)
+    batch, size = VISION_HP["batch_size"], VISION_HP["image_size"]
+    return [{"image": rng.standard_normal((batch, size, size, 3), np.float32),
+             "label": rng.integers(0, VISION_HP["num_classes"],
+                                   size=batch).astype(np.int64)}
+            for _ in range(n)]
+
+
+def bn_buffers(model):
+    return [b for name, b in model.named_buffers() if "running" in name]
+
+
+def bn_state_loss_fn(model, batch, generator):
+    """resnet_module.loss_fn plus one more metric, ``bn_state``: the sum of
+    every running mean and variance after the step's forward."""
+    loss, metrics = resnet_module.loss_fn(model, batch, generator)
+    state = torch.stack([b.sum() for b in bn_buffers(model)]).sum()
+    return loss, {**metrics, "bn_state": state}
+
+
+def vision_init(seed):
+    return init_resnet_weights(build_resnet_model(VISION_HP),
+                               torch.Generator().manual_seed(seed))
+
+
+def vision_run(seed, batches, loss_fn=resnet_module.loss_fn):
+    """train_loop(has_model_state=True) over ``batches``, windows of
+    VISION_WINDOW; returns (model, result, per-step metrics, the SGD,
+    {captures, replays}, peak device bytes)."""
+    metrics, optimizers = [], []
+    calls = {"captures": 0, "replays": 0}
+
+    def optimizer(params):
+        optimizers.append(resnet_module.sgd(VISION_HP["learning_rate"],
+                                            VISION_HP["momentum"])(params))
+        return optimizers[-1]
+
+    def counted(name, method):
+        def wrapper(self, *args, **kwargs):
+            calls[name] += 1
+            return method(self, *args, **kwargs)
+        return wrapper
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    graph = torch.cuda.CUDAGraph
+    with mock.patch.object(graph, "replay", counted("replays", graph.replay)), \
+            mock.patch.object(graph, "capture_begin",
+                              counted("captures", graph.capture_begin)):
+        model, result = train_loop(
+            loss_fn=loss_fn,
+            init_params_fn=lambda generator, sample: init_resnet_weights(
+                build_resnet_model(VISION_HP), generator),
+            optimizer=optimizer,
+            train_iter=iter(batches),
+            config=TrainLoopConfig(
+                train_steps=len(batches), batch_size=len(batches[0]["label"]),
+                log_every=1, window_steps=VISION_WINDOW,
+                anchor_every=VISION_WINDOW, seed=seed),
+            metrics_cb=lambda step, m: metrics.append(m),
+            has_model_state=True,
+            device=DEVICE,
+        )
+    torch.cuda.synchronize()
+    return (model, result, metrics, optimizers[0], calls,
+            torch.cuda.max_memory_allocated())
+
+
+def vision_eager(seed, batches):
+    """The steps of ``vision_run(seed, batches, bn_state_loss_fn)`` written
+    out eagerly: (model, SGD, per-step metrics,
+    steps at which some BatchNorm buffer did not move, examples/s after the
+    first window)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = vision_init(seed).to(DEVICE).train()
+    opt = resnet_module.sgd(VISION_HP["learning_rate"],
+                            VISION_HP["momentum"])(model.parameters())
+    metrics, unmoved = [], []
+    before = [b.clone() for b in bn_buffers(model)]
+    for s, batch in enumerate(batches):
+        if s == VISION_WINDOW:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        dev = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+        loss, m = bn_state_loss_fn(model, dev, None)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        metrics.append({"loss": loss.detach(), **m})
+        after = bn_buffers(model)
+        if any(torch.equal(a, b) for a, b in zip(after, before)):
+            unmoved.append(s + 1)
+        before = [b.clone() for b in after]
+    torch.cuda.synchronize()
+    eps = ((len(batches) - VISION_WINDOW) * len(batches[0]["label"])
+           / (time.perf_counter() - t0))
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    return model, opt, metrics, unmoved, eps
+
+
+def model_flops(model, size):
+    """Training FLOPs of one image from the layer shapes: 2 x the MACs of
+    every conv (out channels x out H x out W x in channels x k x k) and
+    dense layer (in x out), x 3 for the forward and the two backward
+    products."""
+    macs = []
+
+    def hook(module, inp, out):
+        if isinstance(module, torch.nn.Linear):
+            macs.append(module.in_features * module.out_features)
+        else:
+            w = module.weight
+            macs.append(out.shape[1] * out.shape[2] * out.shape[3]
+                        * w.shape[1] * w.shape[2] * w.shape[3])
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (Conv, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model.eval()(torch.zeros(1, size, size, 3, device=DEVICE))
+    finally:
+        for h in handles:
+            h.remove()
+        model.train()
+    return 3 * 2 * sum(macs), len(macs)
+
+
+def vision_replay_breakdown(seed, batch, iters=3):
+    """The train loop's step object on one batch (first step eager, the
+    capture, then windows of VISION_WINDOW replays, one synchronize each),
+    profiled: (wall_ms, profiled wall_ms, busy_ms, kernels) per step, the
+    ten kernels with the most device time, (name, ms per step), and the
+    device ms per step of each VISION_KERNEL_KINDS kind."""
+    model = vision_init(seed).to(DEVICE).train()
+    state = TrainState(step=0, model=model, seed=seed,
+                       optimizer=resnet_module.sgd(VISION_HP["learning_rate"])(
+                           model.parameters()))
+    runner = _TrainStep(state, resnet_module.loss_fn, torch.device(DEVICE))
+    dev = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+    runner.run(dev, 0)
+
+    def window(i):
+        for j in range(VISION_WINDOW):
+            runner.run(dev, 1 + i * VISION_WINDOW + j)
+        torch.cuda.synchronize()
+
+    wall_ms, profiled_ms, busy_ms, by_name, n_kernels = profiled(window, iters)
+    steps = iters * VISION_WINDOW
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    kinds = {}
+    for kernel, us in by_name.items():
+        kind = next((k for k, pattern in VISION_KERNEL_KINDS
+                     if re.search(pattern, kernel)), "other")
+        kinds[kind] = kinds.get(kind, 0.0) + us / steps / 1e3
+    return (wall_ms / VISION_WINDOW, profiled_ms / VISION_WINDOW,
+            busy_ms / VISION_WINDOW, n_kernels / VISION_WINDOW,
+            [(kernel, us / steps / 1e3) for kernel, us in top], kinds)
+
+
+def train_mode_logits(model, params, images):
+    """``model`` on ``images`` with train-mode BatchNorm (batch statistics)
+    and ``params``, its running buffers cloned so nothing moves."""
+    params = {k: (v.clone() if "running" in k else v) for k, v in params.items()}
+    model.train()
+    try:
+        with torch.no_grad():
+            return torch.func.functional_call(
+                model, params, (torch.as_tensor(images, device=DEVICE),))
+    finally:
+        model.eval()
+
+
+def vision_train_phase(seed, n_steps, card, workdir):
+    """ResNet-50 at full width through train_loop(has_model_state=True):
+    one capture, replay == eager bit for bit (parameters, momentum buffers,
+    running statistics), the statistics moving every step, eval on the
+    running averages against train-mode BatchNorm.  Exports the timed
+    run's model for vision_serving; returns the payload's directory."""
+    batches = vision_batches(seed, n_steps)
+    model, result, _, opt, calls, peak_bytes = vision_run(seed, batches)
+    flops, layers = model_flops(model, VISION_HP["image_size"])
+    payload = export_model(
+        serving_model_dir=os.path.join(workdir, "resnet", "1"),
+        params=model.state_dict(), module_file=RESNET_MODULE,
+        hyperparameters=VISION_HP, extra_spec={"label": "label"})
+    del model, opt
+
+    # Replay against eager, cuDNN held to deterministic algorithms on both
+    # sides (its default may pick one that adds with atomics).
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        g_model, g_result, g_metrics, g_opt, g_calls, _ = vision_run(
+            seed, batches, loss_fn=bn_state_loss_fn)
+        g_state = {k: v.clone() for k, v in g_model.state_dict().items()}
+        g_moms = [g_opt.state[p]["momentum_buffer"].clone()
+                  for p in g_model.parameters()]
+        images = batches[0]["image"][:32]
+        with torch.no_grad():
+            eval_logits = g_model.eval()(torch.as_tensor(images, device=DEVICE))
+        train_logits = train_mode_logits(g_model, dict(g_model.state_dict()),
+                                         images)
+        control = float((train_logits - eval_logits).abs().max()
+                        / eval_logits.abs().max())
+        del g_model, g_opt
+        e_model, e_opt, e_metrics, unmoved, eager_eps = vision_eager(seed, batches)
+        e_state = e_model.state_dict()
+        e_moms = [e_opt.state[p]["momentum_buffer"] for p in e_model.parameters()]
+        unequal = [k for k, v in e_state.items() if not torch.equal(v, g_state[k])]
+        moms_equal = all(torch.equal(a, b) for a, b in zip(g_moms, e_moms))
+        n_buffers = sum(1 for k in e_state if "running" in k)
+        del e_model, e_opt, e_state, e_moms, g_moms, g_state
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    states = [m["bn_state"] for m in g_metrics]
+    moved = all(a != b for a, b in zip(states, states[1:]))
+    losses = [m["loss"] for m in g_metrics]
+    metrics_equal = g_metrics == e_metrics
+    wall_ms, profiled_ms, busy_ms, n_kernels, top, kinds = (
+        vision_replay_breakdown(seed, batches[0]))
+    peak = _peak_flops_per_chip(DEVICE)
+    eps = result.anchored_examples_per_sec_per_chip
+    mfu = flops * eps / peak if peak else None
+
+    print(f"vision_train [{card}]: ResNet-{VISION_HP['depth']} (width "
+          f"{VISION_HP['width']}, {VISION_HP['num_classes']} classes, "
+          f"{VISION_HP['image_size']}x{VISION_HP['image_size']}) bf16, batch "
+          f"{VISION_HP['batch_size']}, SGD-Nesterov {VISION_HP['learning_rate']:g}"
+          f"/{VISION_HP['momentum']:g}, {result.steps_completed} steps in windows "
+          f"of {result.window_steps}: {calls['captures']} capture, "
+          f"{calls['replays']} replays, compiles after warm "
+          f"{result.compiles_after_warm}", flush=True)
+    print("vision_train losses: " + " ".join(f"{x:.5f}" for x in losses),
+          flush=True)
+    print(f"vision_train throughput [{card}]: {eps} examples/s/chip anchored over "
+          f"{result.anchor_windows} windows ({result.examples_per_sec_per_chip} "
+          f"whole-run; deterministic cuDNN "
+          f"{g_result.anchored_examples_per_sec_per_chip}; eager "
+          f"{eager_eps:.2f}); MFU "
+          f"{'not measured' if mfu is None else f'{mfu:.4f}'} ({flops} FLOP an "
+          f"example from {layers} conv and dense layer shapes, x3 for training, "
+          f"against {peak:g} FLOP/s); peak device memory {peak_bytes} bytes",
+          flush=True)
+    print(f"vision_train step [{card}] graph replay, batch "
+          f"{VISION_HP['batch_size']}, windows of {VISION_WINDOW} replays: host "
+          f"wall {wall_ms:.3f} ms ({profiled_ms:.3f} ms traced), device busy "
+          f"{busy_ms:.3f} ms traced (idle share {1 - busy_ms / profiled_ms:.3f}), "
+          f"{n_kernels:.0f} kernels per step; device ms per step by kind: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+              kinds.items(), key=lambda kv: -kv[1])), flush=True)
+    for kernel, ms in top:
+        print(f"vision_train step top kernel: {ms:.3f} ms/step {kernel[:110]}",
+              flush=True)
+    print(f"vision_train graph vs eager (deterministic cuDNN): losses and "
+          f"bn_state {'equal' if metrics_equal else 'DIFFER'} bit for bit; "
+          f"{len(unequal)} of the state dict's tensors differ (parameters and "
+          f"{n_buffers} running buffers); momentum buffers "
+          f"{'equal' if moms_equal else 'DIFFER'}; running statistics moved at "
+          f"every step: graph {moved}, eager unmoved at steps {unmoved}; control: "
+          f"train-mode BatchNorm vs eval on the running averages, max rel logit "
+          f"gap {control:.3e} (must exceed {VISION_CONTROL_MIN:g})", flush=True)
+
+    if (calls != {"captures": 1, "replays": n_steps - 1}
+            or result.compiles_after_warm != 0
+            or g_calls != calls or not np.isfinite(losses).all()):
+        raise AssertionError(f"vision_train: {calls}, {g_calls}, compiles after "
+                             f"warm {result.compiles_after_warm}, losses {losses}")
+    if not metrics_equal or unequal or not moms_equal:
+        raise AssertionError(f"vision_train: the graph run differs from eager: "
+                             f"{unequal[:8]}, momentum equal {moms_equal}")
+    if not moved or unmoved:
+        raise AssertionError(f"vision_train: running statistics did not move at "
+                             f"every step: {states}, eager unmoved {unmoved}")
+    if not control > VISION_CONTROL_MIN:
+        raise AssertionError("vision_train: eval on the running averages equals "
+                             "train-mode BatchNorm: the control cannot tell")
+    return payload
+
+
+def vision_serving_phase(seed, card, workdir, payload):
+    """The exported ResNet-50 served from its bucket graphs on the running
+    averages."""
+    base = os.path.dirname(payload)
+    size = VISION_HP["image_size"]
+    rng = np.random.default_rng(seed + 29)
+    requests = [{"instances": [
+        {"image": rng.standard_normal(size * size * 3).astype(np.float32).tolist()}
+        for _ in range(int(rng.integers(1, 5)))]} for _ in range(VISION_REQUESTS)]
+    server = ModelServer("resnet", base, replicas=1, max_versions=2,
+                         max_batch_size=VISION_MAX_BATCH, device=DEVICE)
+    fleet = server._fleet
+    try:
+        url = f"http://127.0.0.1:{server.start(port=0)}/v1/models/resnet:predict"
+        t0 = time.perf_counter()
+        first, _ = run_clients(url, requests[:1], n_procs=1, threads=1)
+        first_s = time.perf_counter() - t0
+        warm = dict(fleet.last_warm or {})
+        loaded = fleet.active_loaded()
+        entries_at_first = len(loaded.aot.entries)
+        results, wall_s = run_clients(url, requests, n_procs=2, threads=4)
+        after_warm = loaded.aot.compiles_after_warm
+    finally:
+        server.stop()
+    codes = [first[0][0]] + [c for c, _, _ in results]
+    if any(c != 200 for c in codes):
+        raise AssertionError(f"vision_serving: replies {codes}")
+    rows = [np.asarray([r["image"] for r in p["instances"]], np.float32)
+            for p in requests]
+    served = [np.asarray(reply["predictions"], np.float32)
+              for _, reply, _ in results]
+    want = [eager(loaded, {"image": r}) for r in rows]
+    scale = max(float(np.abs(w).max()) for w in want)
+    err = max(float(np.abs(s - w).max()) for s, w in zip(served, want)) / scale
+    control = max(float(np.abs(train_mode_logits(
+        loaded.model, loaded.params, r.reshape(-1, size, size, 3)
+    ).cpu().numpy() - w).max()) for r, w in zip(rows, want)) / scale
+    n_rows = sum(len(r) for r in rows)
+    lat_ms = np.array([t for _, _, t in results]) * 1e3
+    print(f"vision_serving [{card}]: ResNet-{VISION_HP['depth']} payload behind "
+          f"ModelServer(replicas=1, max_versions=2, max_batch_size="
+          f"{VISION_MAX_BATCH}); first request {first_s:.2f} s (canary and "
+          f"warm-up: {warm.get('compiled')} bucket graphs {warm.get('buckets')} "
+          f"captured before it was served, {entries_at_first} installed); "
+          f"{len(requests)} requests ({n_rows} rows of {size}x{size}x3) all 200 "
+          f"in {wall_s:.2f} s, p50 {np.percentile(lat_ms, 50):.1f} ms, slowest "
+          f"{lat_ms.max():.1f} ms, compiles after warm {after_warm}; max |served "
+          f"- eager| = {err:.3e} of the largest logit (tol {VISION_SERVE_TOL:g}); "
+          f"control, train-mode BatchNorm: {control:.3e} (must exceed "
+          f"{VISION_CONTROL_MIN:g})", flush=True)
+    buckets = warm.get("buckets") or []
+    if (not buckets or warm.get("compiled") != len(buckets)
+            or warm.get("fallback_warm") or entries_at_first < len(buckets)
+            or after_warm != 0):
+        raise AssertionError(f"vision_serving: warm-up {warm}, {entries_at_first} "
+                             f"entries, {after_warm} compiles after warm")
+    if any(s.shape != (len(r), VISION_HP["num_classes"]) or not np.isfinite(s).all()
+           for s, r in zip(served, rows)):
+        raise AssertionError("vision_serving: reply shapes or values")
+    if err > VISION_SERVE_TOL:
+        raise AssertionError("vision_serving: served logits disagree with eager")
+    if not control > VISION_CONTROL_MIN:
+        raise AssertionError("vision_serving: train-mode BatchNorm stays close: "
+                             "the check cannot tell the running averages")
+
+
+def resnet_npz(path, rows):
+    """The ResNet twin's synthetic npz at 224x224 and 10 classes (its
+    _ensure_data's draws), cut to its first ``rows`` rows."""
+    rng = np.random.default_rng(0)
+    n, classes = 2048, 10
+    labels = rng.integers(0, classes, size=n)[:rows]
+    # The generator fills row by row: the first rows of the twin's draw.
+    images = (labels[:, None, None, None] / classes + 0.1 * rng.normal(
+        size=(rows, RESNET_DAG_SIZE, RESNET_DAG_SIZE, 3))).astype(np.float32)
+    np.savez(path, image=images.reshape(rows, -1),
+             label=labels.astype(np.int64))
+    return path
+
+
+def vision_dag_phase(name, seed, card, workdir):
+    """The MNIST or ResNet twin through ``python -m tpu_pipelines_torch run
+    --pipeline-module`` (in this process), cold then warm, read back with
+    ``trace latest``.  Returns the node walls."""
+    from tpu_pipelines_torch.examples import mnist_pipeline, resnet_pipeline
+
+    twin = {"mnist": mnist_pipeline, "resnet": resnet_pipeline}[name]
+    base = os.path.join(workdir, name)
+    os.makedirs(base)
+    env = {"TPP_PIPELINE_HOME": base}
+    if name == "mnist":
+        env.update(MNIST_NPZ="", MNIST_TRAIN_STEPS=str(MNIST_DAG_STEPS))
+        steps = MNIST_DAG_STEPS
+    else:
+        t0 = time.perf_counter()
+        npz = resnet_npz(os.path.join(workdir, "images_224_c10.npz"),
+                         RESNET_DAG_ROWS)
+        print(f"resnet_dag data: {RESNET_DAG_ROWS} rows of "
+              f"{RESNET_DAG_SIZE * RESNET_DAG_SIZE * 3} float32 "
+              f"({os.path.getsize(npz)} bytes) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        env.update(RESNET_NPZ=npz, RESNET_DEPTH="50",
+                   RESNET_IMAGE_SIZE=str(RESNET_DAG_SIZE))
+        steps = 60  # the twin's defaults: 60 steps of 64, 10 classes
+    pipeline_module = os.path.join(twin.HERE, f"{name}_pipeline.py")
+    root = os.path.join(base, "root")
+    traces, allocs = {}, {}
+
+    def run_once():
+        with mock.patch.dict(os.environ, env):
+            code, out = cli(["run", "--pipeline-module", pipeline_module,
+                             "--device", DEVICE])
+        if code != 0:
+            raise AssertionError(f"{name}_dag: run exited {code}: {out[-2000:]}")
+
+    def after_run(tag):
+        # Allocations the card's caching allocator has served so far: a run
+        # with no device work adds none.
+        allocs[tag] = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+        traces[tag] = traced_run(f"{name}_dag", root,
+                                 0.0 if tag == "cold" else 1.0, workdir,
+                                 f"{name}_{tag}")
+
+    cold, cold_s, warm, warm_s, launches, seen = run_dag(
+        f"{name}_dag", run_once, os.path.join(twin.HERE, f"{name}_module.py"),
+        after_run=after_run)
+    trainer_checks(f"{name}_dag", seen, steps)
+    if any(launches.values()):
+        raise AssertionError(f"{name}_dag: an attention kernel launched {launches}")
+    if allocs["warm"] != allocs["cold"]:
+        raise AssertionError(f"{name}_dag: the warm run worked the card: "
+                             f"{allocs['warm'] - allocs['cold']} allocations")
+    out = {k: {key: arts[0].uri for key, arts in v.outputs.items()}
+           for k, v in cold.nodes.items()}
+    loaded = load_exported_model(out["Trainer"]["model"], device=DEVICE)
+    buffers = {k: v for k, v in loaded.params.items() if "running" in k}
+    if name == "resnet":
+        n_bn = sum(1 for m in loaded.model.modules()
+                   if type(m).__name__ == "BatchNorm")
+        still = [k for k, v in buffers.items() if torch.equal(
+            v, torch.zeros_like(v) if k.endswith("mean") else torch.ones_like(v))]
+        if len(buffers) != 2 * n_bn or still or n_bn != 53:
+            raise AssertionError(f"{name}_dag: payload buffers {len(buffers)} for "
+                                 f"{n_bn} BatchNorms, unmoved {still[:4]}")
+    with open(os.path.join(out["Evaluator"]["evaluation"], "metrics.json")) as f:
+        metrics = json.load(f)
+    keys = sorted(metrics["slices"][0]["metrics"])
+    if (sorted(metrics) != ["problem", "slices"]
+            or metrics["problem"] != "multiclass" or keys != MULTICLASS_METRICS):
+        raise AssertionError(f"{name}_dag: metrics.json {metrics}")
+    props = node_props(base, cold)
+    result = seen["result"]
+    ingest = props["ImportExampleGen"]
+    print(f"{name}_dag nodes [{card}]: `python -m tpu_pipelines_torch run` cold "
+          f"{cold_s:.1f} s: " + ", ".join(
+              f"{k} {v.wall_clock_s:.2f} s" for k, v in cold.nodes.items())
+          + f"; warm run {warm_s:.2f} s, all {len(cold.nodes)} CACHED, no "
+          f"allocation on the card; ingest {ingest.get('num_examples')} rows at "
+          f"{ingest.get('ingest_rows_per_sec')} rows/s", flush=True)
+    print(f"{name}_dag trainer [{card}]: {result.steps_completed} steps, "
+          f"{result.examples_per_sec:.1f} examples/s over the run, losses "
+          f"{seen['losses'][0]:.4f} -> {seen['losses'][-1]:.4f}, step 1 eager, "
+          f"{seen['captures']} capture, {seen['replays']} replays, compiles after "
+          f"warm-up 0; payload: {len(buffers)} running buffers; Evaluator "
+          f"{json.dumps(metrics['slices'][0]['metrics'])} over "
+          f"{metrics['slices'][0]['num_examples']} rows; trace: "
+          f"{len(traces['cold']['per_node'])} node spans, critical path "
+          f"{' -> '.join(traces['cold']['critical_path_nodes'])}, cache hit "
+          f"ratio {traces['cold']['cache_hit_ratio']} cold, "
+          f"{traces['warm']['cache_hit_ratio']} warm", flush=True)
+    save_seconds(f"{name}_dag", seen, card)
+    return {k: v.wall_clock_s for k, v in cold.nodes.items()}
+
+
+
 def build_kernels():
     """Build every CUDA source, one nvcc each, all started together."""
     seconds, errors = {}, {}
@@ -5780,6 +6319,21 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as workdir:
         t5_dag = t5_dag_phase(args.seed, card, workdir)
     phase_done("t5_dag")
+    # The vision workloads launch none of the attention kernels: the
+    # counters stay where t5_dag left them (each DAG phase also reads its
+    # own run's, zeroed just before it).
+    before = counters()
+    with tempfile.TemporaryDirectory() as workdir:
+        payload = vision_train_phase(args.seed, args.train_steps, card, workdir)
+        phase_done("vision_train")
+        vision_serving_phase(args.seed, card, workdir, payload)
+        phase_done("vision_serving")
+    if counters() != before:
+        raise AssertionError("vision phases: an attention kernel launched")
+    for name in ("mnist", "resnet"):
+        with tempfile.TemporaryDirectory() as workdir:
+            vision_dag_phase(name, args.seed, card, workdir)
+        phase_done(f"{name}_dag")
     cache.cleanup()
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s",
           flush=True)

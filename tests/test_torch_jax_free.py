@@ -96,12 +96,16 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
                    "continuous.controller", "continuous.watcher",
                    "continuous.window", "analysis", "analysis.findings",
                    "analysis.graph_rules", "analysis.code_rules",
-                   "metadata.native_store", "ops._build"):
+                   "metadata.native_store", "ops._build", "models.resnet",
+                   "models.mnist", "models.convert", "examples.mnist_module",
+                   "examples.mnist_pipeline", "examples.resnet_module",
+                   "examples.resnet_pipeline"):
         assert f"tpu_pipelines_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["modules"]
     assert {"retrain_dag_phase", "fleet_guard_phase",
             "bert_dag_phase", "continuous_phase",
-            "dag_machinery_phase"} <= set(report["phases"])
+            "dag_machinery_phase", "vision_train_phase",
+            "vision_serving_phase", "vision_dag_phase"} <= set(report["phases"])
     leaked = [m for m in report["modules"]
               if _forbidden(m) or m.split(".")[0] in NOT_AT_IMPORT]
     assert leaked == []

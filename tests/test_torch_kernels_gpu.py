@@ -32,9 +32,13 @@ attention, dropout 0.1): its CUDA-graph steps equal the same steps run
 eagerly bit for bit (losses and parameters), the four attention counters
 read layers x steps (counted at replay), each checkpoint the saver writes
 from its thread equals the eager run's model and optimizer state at its
-step bit for bit, and a capture that cannot succeed raises instead of
-running the step eagerly (kept last: a failed capture is the one test
-here that leaves the context in an unusual state).  Between them, the
+step bit for bit, a ResNet-18's captured steps equal its eager steps
+with their BatchNorm running statistics, and a capture that cannot
+succeed raises instead of running the step eagerly (kept last: a failed
+capture is the one test here that leaves the context in an unusual
+state).  Before them, a ResNet payload's bucket graphs replay its
+eval-mode step bit for bit and leave its running statistics as they
+were.  Between them, the
 crossover measurement of ``chip_smoke.py`` records both crossovers for
 the card's name, "auto" attention launches the kernels at or above a
 recorded crossover and nothing below it, and a continuous controller's
@@ -581,6 +585,43 @@ def test_predict_bucket_graph_replay_equals_eager_bit_for_bit(cuda, tmp_path):
     for _ in range(2):
         assert np.array_equal(loaded.predict(odd), _eager(loaded, odd))
     assert loaded.aot.compiles_after_warm == 1 and loaded.aot.fallbacks == 2
+
+
+def test_a_resnet_payloads_bucket_graphs_serve_the_running_averages(
+        cuda, tmp_path):
+    """A ResNet payload (BatchNorm buffers in its state dict) loads onto the
+    card, each padded bucket's graph replays the eval-mode step bit for bit,
+    and no replay moves the running statistics."""
+    import os
+
+    import numpy as np
+
+    from tpu_pipelines_torch.examples import resnet_module
+    from tpu_pipelines_torch.serving import aot
+    from tpu_pipelines_torch.trainer.export import export_model, load_exported_model
+
+    hp = {"depth": 18, "width": 16, "num_classes": 10, "image_size": 32}
+    model = resnet_module.build_model(hp).train()
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        model(torch.randn(16, 32, 32, 3, generator=gen))
+    export_model(serving_model_dir=str(tmp_path / "1"), params=model.state_dict(),
+                 module_file=os.path.abspath(resnet_module.__file__),
+                 hyperparameters=hp)
+    loaded = load_exported_model(str(tmp_path / "1"), device=cuda)
+    buffers = {k: v.clone() for k, v in loaded.params.items() if "running" in k}
+    assert buffers and all(v.device.type == "cuda" for v in buffers.values())
+    rows = lambda n: {"image": torch.randn(n, 32 * 32 * 3,  # noqa: E731
+                                           generator=gen).numpy()}
+    stats = aot.warm_loaded(loaded, rows(1), 8)
+    assert stats["compiled"] == 4 and not stats["fallback_warm"]
+    for b in stats["buckets"]:
+        batch = rows(b)
+        assert loaded.aot.lookup("raw", batch) is not None
+        assert np.array_equal(loaded.predict(batch), _eager(loaded, batch))
+    assert not loaded.model.training and loaded.aot.compiles_after_warm == 0
+    for k, v in buffers.items():
+        assert torch.equal(loaded.params[k], v), k
 
 
 def test_the_fleets_boot_version_serves_from_graphs_captured_on_its_first_batch(
@@ -1200,6 +1241,68 @@ def test_the_fork_shard_pool_after_a_kernel_launch_gives_the_thread_bytes(
     assert got["process"][0] == got["thread"][0] == got["killed"][0]
     assert got["thread"][1] == {os.getpid()}
     assert got["process"][1] and os.getpid() not in got["process"][1]
+
+
+def test_a_resnet_graph_train_loop_equals_eager_with_its_running_statistics(
+        cuda):
+    """A ResNet-18 (width 16, bf16, BatchNorm) through
+    ``train_loop(has_model_state=True)`` with the ResNet twin's SGD: the
+    captured steps equal the same steps run eagerly bit for bit, in the
+    losses, the parameters, the momentum buffers and every running mean and
+    variance, which moved off their init (cuDNN held to its deterministic
+    algorithms on both sides)."""
+    from tpu_pipelines_torch.examples import resnet_module
+    from tpu_pipelines_torch.models.resnet import ResNet, init_resnet_weights
+    from tpu_pipelines_torch.trainer import TrainLoopConfig, train_loop
+
+    gen = torch.Generator().manual_seed(0)
+    batches = [{"image": torch.randn(16, 32, 32, 3, generator=gen).numpy(),
+                "label": torch.randint(0, 10, (16,), generator=gen).numpy()}
+               for _ in range(6)]
+
+    def init(generator, sample):
+        return init_resnet_weights(ResNet(10, 18, 16), generator)
+
+    optimizers, losses = [], []
+
+    def optimizer(params):
+        optimizers.append(resnet_module.sgd(0.1)(params))
+        return optimizers[-1]
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model, result = train_loop(
+            loss_fn=resnet_module.loss_fn, init_params_fn=init,
+            optimizer=optimizer, train_iter=iter(batches),
+            config=TrainLoopConfig(train_steps=6, batch_size=16, log_every=1,
+                                   window_steps=3),
+            metrics_cb=lambda s, m: losses.append(m["loss"]),
+            has_model_state=True, device="cuda")
+        eager = init(torch.Generator().manual_seed(0), None).to(cuda).train()
+        opt = resnet_module.sgd(0.1)(eager.parameters())
+        eager_losses = []
+        for b in batches:
+            loss, _ = resnet_module.loss_fn(
+                eager, {k: torch.as_tensor(v, device=cuda) for k, v in b.items()},
+                None)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+            eager_losses.append(loss.item())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert result.compiles_after_warm == 0 and losses == eager_losses
+    for (name, t), e in zip(model.state_dict().items(),
+                            eager.state_dict().values()):
+        assert torch.equal(t, e), name
+    for p, q in zip(model.parameters(), eager.parameters()):
+        assert torch.equal(optimizers[0].state[p]["momentum_buffer"],
+                           opt.state[q]["momentum_buffer"])
+    fresh = init(torch.Generator().manual_seed(0), None).state_dict()
+    for name, t in model.state_dict().items():
+        if "running" in name:
+            assert not torch.equal(t.cpu(), fresh[name]), name
 
 
 def test_a_capture_that_cannot_succeed_raises_instead_of_running_eagerly(cuda):

@@ -375,7 +375,9 @@ def test_unported_config_field_raises(field, value, item):
 
 
 def test_unported_arguments_and_missing_cuda_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
+    # has_model_state is ported (the module's buffers are its state): a
+    # model without a floating-point buffer cannot hold any.
+    with pytest.raises(ValueError, match="no floating-point buffer"):
         _run(1, steps=2, log_every=0, has_model_state=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
         _run(1, steps=2, log_every=0, mesh=object())

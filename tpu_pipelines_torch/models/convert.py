@@ -1,23 +1,29 @@
 """Weight carrier: a flax params tree as the port's ``state_dict``.
 
-``bert_state_dict_from_flax``, ``t5_state_dict_from_flax`` and
-``taxi_state_dict_from_flax`` map the
-nested dict of numpy arrays that ``tpu_pipelines.models.bert`` / ``.t5``
-train (``model.init(...)["params"]``) onto the modules of
-``tpu_pipelines_torch.models.bert`` / ``.t5``.  Values are copied bit for
-bit (bfloat16 leaves included); only layouts change:
+``bert_state_dict_from_flax``, ``t5_state_dict_from_flax``,
+``taxi_state_dict_from_flax``, ``mnist_state_dict_from_flax`` and
+``resnet_state_dict_from_flax`` map the
+nested dict of numpy arrays that ``tpu_pipelines.models.bert`` / ``.t5`` /
+``.taxi`` / ``.mnist`` / ``.resnet`` train (``model.init(...)["params"]``;
+for ResNet the whole variables dict, ``batch_stats`` included) onto the
+modules of the same name in ``tpu_pipelines_torch.models``.  Values are
+copied bit for bit (bfloat16 leaves included); only layouts change:
 
   - ``Dense`` kernel ``[in, out]`` -> ``Linear.weight`` ``[out, in]``;
   - ``DenseGeneral`` q/k/v kernel ``[d_model, H, Dh]`` and bias ``[H, Dh]``
     -> ``Linear(d_model, H*Dh)``; out kernel ``[H, Dh, d_model]`` ->
     ``Linear(H*Dh, d_model)``;
   - ``LayerNorm`` scale/bias -> weight/bias; ``RMSNorm`` scale -> weight;
-    ``Embed`` embedding -> weight; T5's ``rel_embedding`` keeps its name.
+    ``Embed`` embedding -> weight; T5's ``rel_embedding`` keeps its name;
+  - ``Conv`` kernel ``[kh, kw, in, out]`` (HWIO) -> ``weight``
+    ``[out, in, kh, kw]`` (OIHW); ``BatchNorm`` scale/bias ->
+    weight/bias and its ``batch_stats`` mean/var -> the
+    ``running_mean`` / ``running_var`` buffers.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -154,4 +160,69 @@ def taxi_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tens
             raise KeyError(f"unexpected taxi param {key!r}")
         for name, t in tensors.items():
             out[f"{prefix}.{name}"] = t
+    return out
+
+
+def _conv(node: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    out = {"weight": _tensor(node["kernel"]).permute(3, 2, 0, 1).contiguous()}
+    if "bias" in node:
+        out["bias"] = _tensor(node["bias"])
+    return out
+
+
+def mnist_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``tpu_pipelines.models.mnist`` ``MnistCNN`` params ->
+    ``tpu_pipelines_torch.models.mnist`` state dict: ``conv_<i>`` kernels
+    to OIHW, ``dense_0`` and ``head`` transposed (the port flattens in
+    flax's (H, W, C) order, so ``dense_0``'s rows keep theirs)."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, node in params.items():
+        if key.startswith("conv_"):
+            prefix, tensors = f"convs.{key}", _conv(node)
+        elif key in ("dense_0", "head"):
+            prefix, tensors = key, _linear(node)
+        else:
+            raise KeyError(f"unexpected MNIST param {key!r}")
+        for name, t in tensors.items():
+            out[f"{prefix}.{name}"] = t
+    return out
+
+
+_RESNET_LAYER = {"Conv": "conv", "BatchNorm": "bn"}
+
+
+def resnet_state_dict_from_flax(variables: Mapping[str, Any]
+                                ) -> Dict[str, torch.Tensor]:
+    """``tpu_pipelines.models.resnet`` variables (``{"params": ...,
+    "batch_stats": ...}``) -> ``tpu_pipelines_torch.models.resnet`` state
+    dict: ``conv_init`` / ``bn_init`` / ``head`` as they are named,
+    ``stage{i}_block{j}`` under ``blocks.`` with flax's ``Conv_k`` /
+    ``BatchNorm_k`` as ``conv{k}`` / ``bn{k}`` (``proj`` / ``proj_bn``
+    kept)."""
+    params, stats = variables["params"], variables.get("batch_stats", {})
+    out: Dict[str, torch.Tensor] = {}
+
+    def layer(prefix: str, node: Mapping[str, Any],
+              stat: Optional[Mapping[str, Any]]) -> None:
+        if "kernel" in node and np.ndim(node["kernel"]) == 4:
+            tensors = _conv(node)
+        elif "kernel" in node:
+            tensors = _linear(node)
+        else:
+            tensors = _norm(node)
+            if stat is None:
+                raise KeyError(f"no batch_stats for BatchNorm {prefix!r}")
+            tensors["running_mean"] = _tensor(stat["mean"])
+            tensors["running_var"] = _tensor(stat["var"])
+        for name, t in tensors.items():
+            out[f"{prefix}.{name}"] = t
+
+    for key, node in params.items():
+        if key.startswith("stage"):
+            for sub, leaf in node.items():
+                kind, _, k = sub.partition("_")
+                name = f"{_RESNET_LAYER[kind]}{k}" if kind in _RESNET_LAYER else sub
+                layer(f"blocks.{key}.{name}", leaf, stats.get(key, {}).get(sub))
+        else:
+            layer(key, node, stats.get(key))
     return out

@@ -82,14 +82,30 @@ the reference's ``window_breakdown`` instant at each window end after the
 first, and ``goodput_summary`` and ``train_telemetry_summary`` at its
 end, all from host values already fetched.
 
+Models with state (the reference's ``has_model_state=True``, BatchNorm's
+running statistics): a module's buffers are its model state.
+``loss_fn(model, batch, generator)`` in ``train()`` mode updates them in
+place, so the eager first step and every replay of the captured step move
+them (a buffer rebound to a new tensor would leave the graph writing the
+old one); checkpoints and the asynchronous saver's snapshot carry them
+(``state_dict()``); eval runs ``loss_fn`` in ``eval()`` mode, on the
+running averages.  The flag switches no contract here, where the
+reference's switches both (its ``init_params_fn`` returns ``(params,
+model_state)`` and its ``loss_fn`` threads the state): the module is the
+state.  It declares that the model has state, and the loop refuses a model
+with no floating-point buffer under it.  The reference's ResNet
+``loss_fn`` applies ``train=True`` in its eval step too, so its eval
+metrics use batch statistics; the port's use the running averages, as the
+Evaluator and serving do in both packages.
+
 Not ported, and refused with ``NotImplementedError`` naming the
 ``ROADMAP.md`` item rather than ignored: meshes, partitions and
-data-parallel collectives (A5), gradient accumulation (A5), models with
-mutable state (A7), the profiler, TensorBoard, cost analysis and the MFU
-that rests on it (A11): ``TrainResult.mfu`` stays None and the
-``train_mfu`` gauge 0.  The reference's ``prng_impl`` (a JAX key
-implementation) has no counterpart here, and ``donate_state`` none but
-the in-place replays above: the fields do not exist.
+data-parallel collectives (A5), gradient accumulation (A5), the profiler,
+TensorBoard, cost analysis and the MFU that rests on it (A11):
+``TrainResult.mfu`` stays None and the ``train_mfu`` gauge 0.  The
+reference's ``prng_impl`` (a JAX key implementation) has no counterpart
+here, and ``donate_state`` none but the in-place replays above: the
+fields do not exist.
 """
 
 from __future__ import annotations
@@ -179,7 +195,7 @@ _UNPORTED = (
 )
 
 
-def _refuse_unported(config: TrainLoopConfig, mesh, has_model_state) -> None:
+def _refuse_unported(config: TrainLoopConfig, mesh) -> None:
     asked = [
         (name, getattr(config, name), item, what)
         for name, default, item, what in _UNPORTED
@@ -192,8 +208,6 @@ def _refuse_unported(config: TrainLoopConfig, mesh, has_model_state) -> None:
         asked.append((ENV_DP_COLLECTIVE, env_dp, "A5", "data-parallel collectives"))
     if mesh is not None:
         asked.append(("mesh", mesh, "A5", "multi-GPU meshes"))
-    if has_model_state:
-        asked.append(("has_model_state", True, "A7", "models with mutable state"))
     if asked:
         name, value, item, what = asked[0]
         raise NotImplementedError(
@@ -577,7 +591,7 @@ def train_loop(
 ) -> Tuple[nn.Module, TrainResult]:
     """Train on ``device``; returns ``(model, TrainResult)``.  See the
     module docstring for the contract."""
-    _refuse_unported(config, mesh, has_model_state)
+    _refuse_unported(config, mesh)
     dev = resolve_device(device)
 
     train_it = iter(train_iter)
@@ -586,6 +600,10 @@ def train_loop(
         torch.Generator().manual_seed(int(config.seed)), first_batch
     )
     model.to(dev).train()
+    if has_model_state and not any(b.is_floating_point() for b in model.buffers()):
+        raise ValueError(
+            "train_loop: has_model_state=True, but the model has no "
+            "floating-point buffer to hold its state")
     state = TrainState(
         step=0, model=model, optimizer=optimizer(model.parameters()),
         seed=int(config.seed),
