@@ -256,6 +256,37 @@ Phases (any failure raises and the script exits non-zero):
      pool's byte for byte from child pids, a KILL_SHARD_WORKER run
      replaced (the death counted) with the same bytes, and a shard cut
      short quarantined under ``salvage_shards`` with the node COMPLETE;
+ 15b. tune_rewrite — search, the trainer's extras and rewriting at BERT_BASE
+     over TUNE_ROWS seeded reviews, one DAG through ``python -m
+     tpu_pipelines_torch run`` in this process: CsvExampleGen ->
+     StatisticsGen -> SchemaGen -> Transform -> Tuner (successive halving
+     over TUNE_LRS, rungs TUNE_RUNGS, trials in-process) and TunerIsolated
+     (one rung of one trial, TUNE_LRS[0] at TUNE_RUNGS[0] steps, with
+     ``isolate_trials``: a ``tuner_trial`` child, its device in its spec)
+     -> Trainer (the
+     Tuner's best rate, TUNE_STEPS steps with ``profile_dir``,
+     ``tensorboard_dir``, ``collect_cost_analysis`` and ``stall_timeout_s``
+     through ``custom_config["train_loop"]``) -> Evaluator -> Rewriter
+     (bfloat16 and aqt_int8, the accuracy gate on the eval slice) -> Pusher
+     (``variant="aqt_int8"``): every node COMPLETE; the Trainer on the
+     best rate; each in-process trial's device memory back within
+     TUNE_MEM_MARGIN; MFU from the loop and counted FLOPs within
+     TUNE_FLOP_TOL of the analytic figure; the profile names each flash
+     kernel (profile_to - profile_from) x layers times; the event files
+     (read by this script) hold the loss at every log step; goodput in
+     (0, 1] from the tracker with its badput, the proxy beside it, no
+     stall alert; the Rewriter's latency, resident bytes and deltas, the
+     int8 variant at most INT8_BYTES_MAX of float32's bytes;
+     TunerIsolated's child trial gives the metrics of the in-process trial
+     of its rate and budget; the pushed int8 payload behind a fleet:
+     bucket graphs captured before its first reply, replay == eager,
+     logits within INT8_LOGIT_TOL of the float32 variant's (a mask-dropped
+     control above it), an unblessed copy 409 with version 1 serving on;
+     p50 of each variant behind a fleet of its own.  Launches: the DAG's
+     read inside the runner, the child trial's from its result file (in
+     trials.json), and each fleet's over its served requests alone (after
+     one warm-up request, before any check's own computation), where the
+     forward launched 12 x the device batches served and nothing else;
  16. vision_train — ResNet-50 at full width (depth 50, width 64, 1000
      classes, 224x224, batch 256, bf16, SGD-Nesterov 0.1/0.9: the ResNet
      twin's ``EXAMPLE_DEFAULTS``) through ``train_loop(has_model_state=True)``,
@@ -268,7 +299,9 @@ Phases (any failure raises and the script exits non-zero):
      run); eval on the running averages against train-mode BatchNorm on the
      same rows (the control, far apart); report examples/s (default and
      deterministic cuDNN, eager), the idle share of a replayed step, the peak
-     memory and an MFU from the conv and dense layer shapes;
+     memory and an MFU from the conv and dense layer shapes, and the loop's
+     own MFU (``collect_cost_analysis``), its counted FLOPs within
+     TUNE_FLOP_TOL of the layer-shape figure;
  17. vision_serving — that model exported, served by ``ModelServer(
      replicas=1, max_versions=2, max_batch_size=8)``: its first request
      captures one graph per padded bucket before it is served; 8 requests of
@@ -1576,7 +1609,8 @@ def replay_step_breakdown(hp, seed, batch, iters=3):
     model.to(DEVICE).train()
     state = TrainState(step=0, model=model, seed=seed,
                        optimizer=bert_module.adamw(TRAIN_LR)(model.parameters()))
-    runner = _TrainStep(state, bert_module.loss_fn, torch.device(DEVICE))
+    runner = _TrainStep(state, bert_module.loss_fn, torch.device(DEVICE),
+                        torch.cuda.Stream(DEVICE))
     dev_batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
     runner.run(dev_batch, 0)
 
@@ -1735,11 +1769,8 @@ def training_phase(seed, n_steps, card):
         control_run_loss[name] = max(
             abs(a - b) / abs(b) for a, b in zip(run_losses, dense_losses))
 
-    # bench.py's analytic FLOPs: 6 N T for the weight matmuls plus the
-    # attention score/value products (12 * layers * B * L^2 * d_model).
-    flops_per_step = (6 * matmul_params * TRAIN_BATCH * SEQ_LEN
-                      + 12 * hp["n_layers"] * TRAIN_BATCH * SEQ_LEN ** 2
-                      * hp["d_model"])
+    flops_per_step = bert_flops((matmul_params, hp["n_layers"], hp["d_model"]),
+                                TRAIN_BATCH, SEQ_LEN)
     peak = _peak_flops_per_chip(DEVICE)
     eps = result.anchored_examples_per_sec_per_chip
     mfu = flops_per_step * eps / TRAIN_BATCH / peak if peak else None
@@ -5770,9 +5801,10 @@ def vision_init(seed):
                                torch.Generator().manual_seed(seed))
 
 
-def vision_run(seed, batches, loss_fn=resnet_module.loss_fn):
+def vision_run(seed, batches, loss_fn=resnet_module.loss_fn, count=False):
     """train_loop(has_model_state=True) over ``batches``, windows of
-    VISION_WINDOW; returns (model, result, per-step metrics, the SGD,
+    VISION_WINDOW (with ``count``, the loop's counted FLOPs and MFU after
+    its timed steps); returns (model, result, per-step metrics, the SGD,
     {captures, replays}, peak device bytes)."""
     metrics, optimizers = [], []
     calls = {"captures": 0, "replays": 0}
@@ -5804,7 +5836,8 @@ def vision_run(seed, batches, loss_fn=resnet_module.loss_fn):
             config=TrainLoopConfig(
                 train_steps=len(batches), batch_size=len(batches[0]["label"]),
                 log_every=1, window_steps=VISION_WINDOW,
-                anchor_every=VISION_WINDOW, seed=seed),
+                anchor_every=VISION_WINDOW, seed=seed,
+                collect_cost_analysis=count),
             metrics_cb=lambda step, m: metrics.append(m),
             has_model_state=True,
             device=DEVICE,
@@ -5884,7 +5917,8 @@ def vision_replay_breakdown(seed, batch, iters=3):
     state = TrainState(step=0, model=model, seed=seed,
                        optimizer=resnet_module.sgd(VISION_HP["learning_rate"])(
                            model.parameters()))
-    runner = _TrainStep(state, resnet_module.loss_fn, torch.device(DEVICE))
+    runner = _TrainStep(state, resnet_module.loss_fn, torch.device(DEVICE),
+                        torch.cuda.Stream(DEVICE))
     dev = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
     runner.run(dev, 0)
 
@@ -5926,8 +5960,11 @@ def vision_train_phase(seed, n_steps, card, workdir):
     running averages against train-mode BatchNorm.  Exports the timed
     run's model for vision_serving; returns the payload's directory."""
     batches = vision_batches(seed, n_steps)
-    model, result, _, opt, calls, peak_bytes = vision_run(seed, batches)
+    model, result, _, opt, calls, peak_bytes = vision_run(seed, batches,
+                                                          count=True)
     flops, layers = model_flops(model, VISION_HP["image_size"])
+    counted_ratio = (result.cost_analysis_flops_per_step
+                     / (flops * VISION_HP["batch_size"]))
     payload = export_model(
         serving_model_dir=os.path.join(workdir, "resnet", "1"),
         params=model.state_dict(), module_file=RESNET_MODULE,
@@ -5988,8 +6025,10 @@ def vision_train_phase(seed, n_steps, card, workdir):
           f"{eager_eps:.2f}); MFU "
           f"{'not measured' if mfu is None else f'{mfu:.4f}'} ({flops} FLOP an "
           f"example from {layers} conv and dense layer shapes, x3 for training, "
-          f"against {peak:g} FLOP/s); peak device memory {peak_bytes} bytes",
-          flush=True)
+          f"against {peak:g} FLOP/s); MFU from the loop {result.mfu} (counted "
+          f"{result.cost_analysis_flops_per_step:.6g} FLOP a step, "
+          f"{counted_ratio:.4f} of the layer-shape figure); peak device "
+          f"memory {peak_bytes} bytes", flush=True)
     print(f"vision_train step [{card}] graph replay, batch "
           f"{VISION_HP['batch_size']}, windows of {VISION_WINDOW} replays: host "
           f"wall {wall_ms:.3f} ms ({profiled_ms:.3f} ms traced), device busy "
@@ -6023,6 +6062,9 @@ def vision_train_phase(seed, n_steps, card, workdir):
     if not control > VISION_CONTROL_MIN:
         raise AssertionError("vision_train: eval on the running averages equals "
                              "train-mode BatchNorm: the control cannot tell")
+    if result.mfu is None or abs(counted_ratio - 1) > TUNE_FLOP_TOL:
+        raise AssertionError(f"vision_train: MFU from the loop {result.mfu}, "
+                             f"counted/analytic FLOPs {counted_ratio}")
     return payload
 
 
@@ -6201,6 +6243,602 @@ def vision_dag_phase(name, seed, card, workdir):
 
 
 
+# ---- tune_rewrite: search, the trainer's extras, rewriting, the int8 fleet
+
+TUNE_ROWS = 8000
+TUNE_LRS = [1e-4, 5e-5, 3e-5, 1e-5]
+# Successive halving with eta 2: the four rates at 10 steps, the best two
+# at 20 (the full budget).
+TUNE_RUNGS = (10, 20)
+TUNE_STEPS = 40
+# Profiled steps [from, to) of the Trainer (the reference's defaults).
+TUNE_PROFILE = (2, 5)
+# Heartbeats land once per window: the timeout must exceed the first
+# window's wall, its capture included.
+TUNE_STALL_S = 300.0
+# An in-process trial returns the card's allocated bytes to within this of
+# their value before it (a kept graph pool would hold gigabytes).
+TUNE_MEM_MARGIN = 64 << 20
+# Counted FLOPs a step against the analytic figure (BERT-base and
+# ResNet-50): the analytic one counts the pooler and head at every token
+# and the first layer's input gradient, which the count does not.
+TUNE_FLOP_TOL = 0.05
+# The int8 payload's resident parameter bytes against the float32 one's.
+INT8_BYTES_MAX = 0.3
+# Logits of the int8 payload against the float32 payload's on the same
+# transformed rows, relative to the largest float32 logit (per-channel
+# weight-only int8); the control (the int8 payload with every attention
+# mask dropped) must miss it.
+INT8_LOGIT_TOL = 5e-2
+TUNE_REQUESTS = 32
+TUNE_PIPELINE = """\\
+import json
+import os
+
+from tpu_pipelines_torch.components import (
+    CsvExampleGen, Evaluator, Pusher, Rewriter, SchemaGen, StatisticsGen,
+    Trainer, Transform, Tuner,
+)
+from tpu_pipelines_torch.dsl.pipeline import Pipeline
+
+
+def create_pipeline():
+    env = os.environ
+    base = env["TUNE_HOME"]
+    hp = json.loads(env["TUNE_HPARAMS"])
+    rungs = json.loads(env["TUNE_RUNGS"])
+    lrs = json.loads(env["TUNE_LRS"])
+    gen = CsvExampleGen(input_path=env["TUNE_DATA"])
+    stats = StatisticsGen(examples=gen.outputs["examples"])
+    schema = SchemaGen(statistics=stats.outputs["statistics"])
+    transform = Transform(
+        examples=gen.outputs["examples"], schema=schema.outputs["schema"],
+        module_file=env["TUNE_PREPROCESSING"],
+    )
+    examples = transform.outputs["transformed_examples"]
+    graph = transform.outputs["transform_graph"]
+    tuner = Tuner(
+        examples=examples, transform_graph=graph,
+        module_file=env["TUNE_MODULE"],
+        search_space={"learning_rate": lrs}, algorithm="halving",
+        max_trials=len(lrs), halving_eta=2, min_train_steps=rungs[0],
+        train_steps=rungs[1], base_hyperparameters=hp,
+        custom_config={"train_loop": {"checkpoint_every": 0}},
+    )
+    # The same search machinery with its trial in a child process.
+    isolated = Tuner(
+        examples=examples, transform_graph=graph,
+        module_file=env["TUNE_MODULE"],
+        search_space={"learning_rate": lrs[:1]}, algorithm="halving",
+        max_trials=1, halving_eta=2, min_train_steps=rungs[0],
+        train_steps=rungs[0], base_hyperparameters=hp,
+        custom_config={"train_loop": {"checkpoint_every": 0}},
+        isolate_trials=True,
+    ).with_id("TunerIsolated")
+    trainer = Trainer(
+        examples=examples, transform_graph=graph,
+        hyperparameters=tuner.outputs["best_hyperparameters"],
+        module_file=env["TUNE_MODULE"], train_steps=int(env["TUNE_STEPS"]),
+        custom_config={"train_loop": json.loads(env["TUNE_LOOP"])},
+    )
+    evaluator = Evaluator(
+        examples=examples, model=trainer.outputs["model"],
+        label_key="label", problem="multiclass",
+        batch_size=int(hp["batch_size"]),
+    )
+    rewriter = Rewriter(
+        model=trainer.outputs["model"], examples=examples,
+        transform_graph=graph, variants=["bfloat16", "aqt_int8"],
+        quality_metrics=["accuracy"], label_key="label",
+        problem="multiclass", batch_size=int(hp["batch_size"]),
+        max_eval_examples=1024, latency_batch_size=32, latency_iters=20,
+    )
+    pusher = Pusher(
+        model=rewriter.outputs["model"], blessing=evaluator.outputs["blessing"],
+        push_destination=env["TUNE_PUSH"], variant="aqt_int8",
+    )
+    return Pipeline(
+        "bert-tune-rewrite",
+        [gen, stats, schema, transform, tuner, isolated, trainer, evaluator,
+         rewriter, pusher],
+        pipeline_root=os.path.join(base, "root"),
+        metadata_path=os.path.join(base, "metadata.sqlite"),
+    )
+"""
+
+
+def _varint_at(buf, i):
+    shift = value = 0
+    while True:
+        b = buf[i]
+        i += 1
+        value |= (b & 0x7F) << shift
+        shift += 7
+        if not b & 0x80:
+            return value, i
+
+
+def _fields(buf):
+    """(field number, wire type, value) of one protobuf message."""
+    import struct
+
+    i = 0
+    while i < len(buf):
+        key, i = _varint_at(buf, i)
+        num, wire = key >> 3, key & 7
+        if wire == 0:
+            value, i = _varint_at(buf, i)
+        elif wire == 1:
+            value, i = struct.unpack_from("<d", buf, i)[0], i + 8
+        elif wire == 5:
+            value, i = struct.unpack_from("<f", buf, i)[0], i + 4
+        elif wire == 2:
+            n, i = _varint_at(buf, i)
+            value, i = bytes(buf[i:i + n]), i + n
+        else:
+            raise ValueError(f"event file: wire type {wire}")
+        yield num, wire, value
+
+
+def read_event_scalars(logdir):
+    """``{tag: [(step, value)]}`` from every ``events.out.tfevents.*`` file
+    under ``logdir``: TFRecord framing (lengths and masked crcs not
+    checked here), ``Event{step = 2, summary = 5}``, ``Summary{value = 1}``,
+    ``Value{tag = 1, simple_value = 2}``; the card's machine has no
+    TensorBoard to read them."""
+    import struct
+
+    out = {}
+    for name in sorted(os.listdir(logdir)):
+        if not name.startswith("events.out.tfevents."):
+            continue
+        data = open(os.path.join(logdir, name), "rb").read()
+        i = 0
+        while i < len(data):
+            (n,) = struct.unpack_from("<Q", data, i)
+            record = data[i + 12:i + 12 + n]
+            i += 16 + n
+            step, values = 0, []
+            for num, _, value in _fields(record):
+                if num == 2:
+                    step = value
+                elif num == 5:
+                    for vnum, _, v in _fields(value):
+                        if vnum == 1:
+                            tag = val = None
+                            for fnum, _, x in _fields(v):
+                                if fnum == 1:
+                                    tag = x.decode()
+                                elif fnum == 2:
+                                    val = x
+                            values.append((tag, val))
+            for tag, val in values:
+                out.setdefault(tag, []).append((step, val))
+    return out
+
+
+def profile_kernel_counts(path, names):
+    """How many device kernels of each of ``names`` a Chrome trace holds."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {n: sum(n in k for k in kernels) for n in names}, len(kernels)
+
+
+def bert_shape(model):
+    """(matmul parameters, layers, d_model) of a BERT model."""
+    n = sum(p.numel() for name, p in model.named_parameters()
+            if not re.search(r"(embed|pos_embed|type_embed)\.weight$", name))
+    return n, len(model.encoder.layers), model.encoder.embed.weight.shape[1]
+
+
+def bert_flops(shape, batch, length):
+    """bench.py's analytic FLOPs of one BERT training step (the training
+    phase's): 6 N T over the matmul parameters plus the attention's
+    12 x layers x B x L^2 x d_model."""
+    n, layers, d = shape
+    return 6 * n * batch * length + 12 * layers * batch * length ** 2 * d
+
+
+def served_batches(fleet):
+    """Device batches the fleet's replicas have run."""
+    return sum(r.batcher.batches_run for r in fleet.pool.replicas)
+
+
+def served_p50(url, requests, fleet):
+    """Median client latency of ``requests`` posted one after another,
+    after one untimed request, and the attention launches and device
+    batches of the timed requests alone."""
+    def post(body):
+        req = urllib.request.Request(url, data=json.dumps(body).encode())
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            r.read()
+            if r.status != 200:
+                raise AssertionError(f"tune_rewrite: {url} answered {r.status}")
+        return (time.perf_counter() - t0) * 1e3
+
+    post(requests[0])
+    zero_counters()
+    batches0 = served_batches(fleet)
+    p50 = float(np.median([post(body) for body in requests]))
+    return p50, counters(), served_batches(fleet) - batches0
+
+
+def check_served_launches(name, launches, n_batches):
+    """A fleet's served requests launched the forward 12 x its device
+    batches (credited per replay) and no other kernel."""
+    want = {k: 0 for k in fa.COUNTERS}
+    want["launches"] = N_LAYERS * n_batches
+    if n_batches < 1 or launches != want:
+        raise AssertionError(f"tune_rewrite: the {name} fleet launched "
+                             f"{launches} for {n_batches} device batches")
+
+
+def tune_rewrite_phase(seed, card, workdir):
+    """A Tuner picks BERT-base's learning rate, the Trainer trains on it
+    with a profile, TensorBoard scalars, counted FLOPs, MFU, goodput and
+    a stall watchdog, the Rewriter emits bf16 and int8 variants behind its
+    quality gate, the Pusher pushes the int8 one, and a fleet serves it
+    from bucket graphs.  Returns each kernel's launches in the phase."""
+    import importlib
+
+    from tpu_pipelines_torch.components import tuner as tuner_mod
+    from tpu_pipelines_torch.components.rewriter import variant_dirs
+    from tpu_pipelines_torch.data.input_pipeline import BatchIterator, InputConfig
+    from tpu_pipelines_torch.examples import bert_pipeline
+    from tpu_pipelines_torch.trainer import goodput as gp
+    from tpu_pipelines_torch.trainer import quantize as qz
+    from tpu_pipelines_torch.utils.module_loader import load_module
+
+    base = os.path.join(workdir, "tune")
+    os.makedirs(base)
+    csv_path = os.path.join(workdir, "tune_reviews.csv")
+    reviews_csv(csv_path, seed, TUNE_ROWS)
+    module_path = os.path.join(bert_pipeline.HERE, "bert_module.py")
+    pipeline_path = os.path.join(workdir, "tune_pipeline.py")
+    with open(pipeline_path, "w") as f:
+        f.write(TUNE_PIPELINE)
+    hp = dict(bert_pipeline.BERT_BASE)
+    push = os.path.join(base, "push")
+    loop_options = {
+        "profile_dir": os.path.join(base, "profile"),
+        "profile_from": TUNE_PROFILE[0], "profile_to": TUNE_PROFILE[1],
+        "tensorboard_dir": os.path.join(base, "tensorboard"),
+        "collect_cost_analysis": True, "stall_timeout_s": TUNE_STALL_S,
+    }
+    env = {"TUNE_HOME": base, "TUNE_DATA": csv_path,
+           "TUNE_HPARAMS": json.dumps(hp), "TUNE_RUNGS": json.dumps(TUNE_RUNGS),
+           "TUNE_LRS": json.dumps(TUNE_LRS), "TUNE_STEPS": str(TUNE_STEPS),
+           "TUNE_MODULE": module_path, "TUNE_PUSH": push,
+           "TUNE_LOOP": json.dumps(loop_options),
+           "TUNE_PREPROCESSING": os.path.join(bert_pipeline.HERE,
+                                              "bert_preprocessing.py")}
+
+    # Each train_loop call of the module (the trials' and the Trainer's),
+    # and the wall of each step of the Trainer's (its windows are one step).
+    user = load_module(module_path)
+    loop_module = importlib.import_module("tpu_pipelines_torch.trainer.train_loop")
+    calls, step_walls = [], []
+    real_loop, real_run = user.train_loop, loop_module._TrainStep.run
+
+    def loop(**kw):
+        model, result = real_loop(**kw)
+        calls.append((kw["config"], result, bert_shape(model)))
+        return model, result
+
+    def timed_run(self, batch, step):
+        step_walls.append((step, time.perf_counter()))
+        return real_run(self, batch, step)
+
+    from tpu_pipelines_torch.orchestration import LocalDagRunner
+
+    runs = []
+    real_dag_run = LocalDagRunner.run
+
+    def dag_run(self, *args, **kwargs):
+        runs.append(real_dag_run(self, *args, **kwargs))
+        return runs[-1]
+
+    trial_walls = []
+    real_trial = tuner_mod.run_trial
+
+    def timed_trial(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return real_trial(*args, **kwargs)
+        finally:
+            trial_walls.append(time.perf_counter() - t)
+
+    alerts = default_registry().counter(
+        "watchdog_alerts_total", "Health watchdog alerts fired, by monitor "
+        "and kind.", labels=("monitor", "kind"))
+    stalls0 = alerts.labels("train_loop", "stall").get()
+    zero_counters()
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, env), \
+            mock.patch.object(LocalDagRunner, "run", dag_run), \
+            mock.patch.object(user, "train_loop", loop), \
+            mock.patch.object(tuner_mod, "run_trial", timed_trial), \
+            mock.patch.object(loop_module._TrainStep, "run", timed_run):
+        code, out = cli(["run", "--pipeline-module", pipeline_path,
+                         "--device", DEVICE])
+    dag_s = time.perf_counter() - t0
+    dag_launches = counters()
+    if code != 0 or len(runs) != 1:
+        raise AssertionError(f"tune_rewrite: run exited {code}: {out[-3000:]}")
+    run = runs[0]
+    states = {k: v.status for k, v in run.nodes.items()}
+    if set(states.values()) != {"COMPLETE"} or len(states) != 10:
+        raise AssertionError(f"tune_rewrite: nodes {states}")
+
+    def uri(node, key):
+        return run.outputs_of(node, key)[0].uri
+
+    # The search: two rungs, the Trainer on the best rate.
+    hp_uri = uri("Tuner", "best_hyperparameters")
+    best = json.load(open(os.path.join(hp_uri, "best_hyperparameters.json")))
+    trials = json.load(open(os.path.join(hp_uri, "trials.json")))
+    with open(os.path.join(uri("Trainer", "model"), "model_spec.json")) as f:
+        trainer_hp = json.load(f)["hyperparameters"]
+    budgets = [t["train_steps"] for t in trials]
+    deltas = [t["device_memory_delta_bytes"] for t in trials]
+    trial_eps = [round(c[1].examples_per_sec, 2) for c in calls[:-1]]
+    print(f"tune_rewrite DAG [{card}]: `python -m tpu_pipelines_torch run` "
+          f"{dag_s:.1f} s, 10 nodes COMPLETE: " + ", ".join(
+              f"{k} {v.wall_clock_s:.2f} s" for k, v in run.nodes.items()),
+          flush=True)
+    print(f"tune_rewrite Tuner [{card}]: successive halving over learning "
+          f"rates {TUNE_LRS}: " + "; ".join(
+              f"lr {t['hyperparameters']['learning_rate']:g} {t['train_steps']} "
+              f"steps {t['objective']} {t['score']:.5f} memory delta "
+              f"{t['device_memory_delta_bytes']} B" for t in trials)
+          + f"; best {best['learning_rate']:g}; trial walls "
+          f"{[round(w, 2) for w in trial_walls]} s (build, steps, eval, "
+          f"checkpoint, export), examples/s over each trial's timed steps "
+          f"{trial_eps}", flush=True)
+    print(f"tune_rewrite Tuner node [{card}]: {run.nodes['Tuner'].wall_clock_s:.2f} s "
+          f"for {len(trials)} in-process trials",
+          flush=True)
+    if (budgets != [TUNE_RUNGS[0]] * 4 + [TUNE_RUNGS[1]] * 2
+            or any(t["status"] != "ok" for t in trials)
+            or trainer_hp["learning_rate"] != best["learning_rate"]):
+        raise AssertionError(f"tune_rewrite: budgets {budgets}, best {best}, "
+                             f"Trainer {trainer_hp}")
+    if any(abs(d) > TUNE_MEM_MARGIN for d in deltas):
+        raise AssertionError(f"tune_rewrite: an in-process trial kept device "
+                             f"memory: deltas {deltas} (margin {TUNE_MEM_MARGIN})")
+
+    # The Trainer: MFU from the loop, the counted FLOPs, the profile, the
+    # TensorBoard scalars, goodput and the watchdog.
+    config, result, shape = calls[-1]
+    if config.profile_dir != loop_options["profile_dir"] or len(calls) != 7:
+        raise AssertionError(f"tune_rewrite: {len(calls)} train_loop calls")
+    length = next(iter(BatchIterator(
+        uri("Transform", "transformed_examples"), "train",
+        InputConfig(batch_size=2, shuffle=False, num_epochs=1))))["input_ids"].shape[1]
+    analytic = bert_flops(shape, hp["batch_size"], length)
+    counted = result.cost_analysis_flops_per_step
+    profiles = os.listdir(config.profile_dir)
+    kernels = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+               "flash_bwd_dkv_mma_kernel")
+    in_trace, n_kernels = profile_kernel_counts(
+        os.path.join(config.profile_dir, profiles[0]), kernels)
+    want_in_trace = (TUNE_PROFILE[1] - TUNE_PROFILE[0]) * DEFAULT_HPARAMS["n_layers"]
+    walls = {s: t for s, t in step_walls}
+    step_ms = {s: (walls[s + 1] - walls[s]) * 1e3 for s in walls if s + 1 in walls}
+    profiled = [step_ms[s] for s in range(*TUNE_PROFILE)]
+    plain = [ms for s, ms in step_ms.items()
+             if s >= TUNE_PROFILE[1] + 1]
+    scalars = read_event_scalars(config.tensorboard_dir)
+    log_every = max(1, TUNE_STEPS // 10)
+    stalls = alerts.labels("train_loop", "stall").get() - stalls0
+    print(f"tune_rewrite Trainer [{card}]: lr {best['learning_rate']:g}, "
+          f"{result.steps_completed} steps of {hp['batch_size']} x "
+          f"{length} (windows of {result.window_steps}: profile_dir "
+          f"forces 1), MFU from the loop {result.mfu} (counted "
+          f"{counted:.6g} FLOP a step, analytic {analytic:.6g}, ratio "
+          f"{counted / analytic:.4f}), {result.examples_per_sec_per_chip} "
+          f"examples/s/chip", flush=True)
+    print(f"tune_rewrite goodput [{card}]: {result.goodput} "
+          f"({result.goodput_source}), badput {result.badput}, proxy "
+          f"goodput_post_compile {result.goodput_post_compile}; stall alerts "
+          f"{stalls} (timeout {TUNE_STALL_S:g} s)", flush=True)
+    print(f"tune_rewrite profile [{card}]: {profiles} holds {n_kernels} "
+          f"kernels, {in_trace} of the flash kernels (want {want_in_trace} "
+          f"each); step wall profiled {[round(x, 3) for x in profiled]} ms "
+          f"(the last one includes the profiler's stop and the trace's "
+          f"export) against unprofiled median {np.median(plain):.3f} ms "
+          f"(ratio of the first two {np.mean(profiled[:2]) / np.median(plain):.3f})",
+          flush=True)
+    print(f"tune_rewrite tensorboard: tags {sorted(scalars)}, loss at steps "
+          f"{[s for s, _ in scalars.get('loss', [])]}", flush=True)
+    if (result.mfu is None or result.cost_analysis_source != "counted"
+            or abs(counted / analytic - 1) > TUNE_FLOP_TOL):
+        raise AssertionError(f"tune_rewrite: MFU {result.mfu}, counted "
+                             f"{counted} against analytic {analytic}")
+    if len(profiles) != 1 or any(v != want_in_trace for v in in_trace.values()):
+        raise AssertionError(f"tune_rewrite: profile {profiles}: {in_trace}")
+    if [s for s, _ in scalars.get("loss", [])] != list(
+            range(log_every, TUNE_STEPS + 1, log_every)) or "eval_loss" not in scalars:
+        raise AssertionError(f"tune_rewrite: tensorboard scalars {scalars}")
+    if (result.goodput_source != "goodput_tracker"
+            or not 0 < result.goodput <= 1 or not result.badput
+            or not set(result.badput) <= set(gp.BADPUT_KINDS)
+            or not 0 < result.goodput_post_compile <= 1 or stalls):
+        raise AssertionError(f"tune_rewrite: goodput {result}")
+
+    # The Rewriter's report and the push.
+    rewritten = uri("Rewriter", "model")
+    report = json.load(open(os.path.join(rewritten, "rewrite_report.json")))
+    variants = report["variants"]
+    for name, info in variants.items():
+        print(f"tune_rewrite Rewriter [{card}]: {name} latency "
+              f"{info.get('latency_ms')} ms (32 rows, host fetch included), "
+              f"resident {info['params_bytes']} B, accuracy delta "
+              f"{info['quality_deltas']}, blessed {info['blessed']}", flush=True)
+    print(f"tune_rewrite Rewriter: selected {report['selected_variant']}, "
+          f"speedup against float32 {report['speedup_vs_float']}", flush=True)
+    ratio = variants["aqt_int8"]["params_bytes"] / variants["float32"]["params_bytes"]
+    if (sorted(variants) != ["aqt_int8", "bfloat16", "float32"]
+            or any(info.get("latency_ms") is None for info in variants.values())
+            or not variants["aqt_int8"]["blessed"] or ratio > INT8_BYTES_MAX):
+        raise AssertionError(f"tune_rewrite: rewrite report {report}")
+    versions = [d for d in os.listdir(push) if d.isdigit()]
+    if len(versions) != 1:
+        raise AssertionError(f"tune_rewrite: pushed {versions}")
+    pushed = os.path.join(push, versions[0])
+    with open(os.path.join(pushed, "model_spec.json")) as f:
+        if json.load(f)["dtype"] != "aqt_int8":
+            raise AssertionError("tune_rewrite: the push is not the int8 variant")
+
+    # TunerIsolated's trial, run by the Tuner in a child process with the
+    # device in its spec: the metrics of the in-process trial of its rate
+    # and budget.
+    with open(os.path.join(uri("TunerIsolated", "best_hyperparameters"),
+                           "trials.json")) as f:
+        child_trials = json.load(f)
+    twin = [t for t in trials
+            if t["hyperparameters"] == {"learning_rate": TUNE_LRS[0]}
+            and t["train_steps"] == TUNE_RUNGS[0]]
+    child = child_trials[0]
+    child_launches = child.get("launches", {})
+    in_process_s = trial_walls[trials.index(twin[0])] if twin else None
+    print(f"tune_rewrite subprocess trial [{card}]: TunerIsolated "
+          f"{run.nodes['TunerIsolated'].wall_clock_s:.2f} s for its one child "
+          f"trial (process start included) against the in-process trial's "
+          f"{in_process_s} s at {TUNE_RUNGS[0]} steps of lr {TUNE_LRS[0]:g}; "
+          f"metrics {child.get('metrics')} vs "
+          f"{twin[0]['metrics'] if twin else None}; child launches "
+          f"{child_launches}", flush=True)
+    if (len(child_trials) != 1 or len(twin) != 1 or child["status"] != "ok"
+            or child["metrics"] != twin[0]["metrics"]
+            or not child_launches.get("launches")):
+        raise AssertionError(f"tune_rewrite: subprocess trial {child_trials}, "
+                             f"in-process {twin}")
+
+    # The pushed int8 payload served by a fleet: bucket graphs captured
+    # before it serves, a 409 for an unblessed copy; the launches of the
+    # served requests read before the checks' own computations (replay ==
+    # eager, logits against float32).
+    eval_rows = next(iter(BatchIterator(
+        uri("Transform", "transformed_examples"), "eval",
+        InputConfig(batch_size=TUNE_REQUESTS, shuffle=False, num_epochs=1))))
+    transformed = {k: eval_rows[k] for k in ("input_ids", "attention_mask")}
+    texts = [r[0] for r in review_rows(seed, TUNE_REQUESTS, part=7)]
+    # The payload's graph reads every raw feature, the label included.
+    requests = [{"instances": [{"text": t, "label": 0}]} for t in texts]
+    server = ModelServer("bert", push, replicas=1, max_versions=2,
+                         max_batch_size=8, device=DEVICE)
+    fleet = server._fleet
+    served = {}
+    try:
+        url = f"http://127.0.0.1:{server.start(port=0)}/v1/models/bert"
+        code0, first_reply = post_code(f"{url}:predict", requests[0])
+        loaded = fleet.active_loaded()
+        buckets = (fleet.last_warm or {}).get("buckets", [])
+        int8_p50, counts, n = served_p50(f"{url}:predict", requests, fleet)
+        served["aqt_int8"] = (counts, n)
+        # An unblessed copy of the int8 payload: 409, version 1 serving on.
+        bad = os.path.join(push, str(int(versions[0]) + 1))
+        payload_copy(pushed, bad)
+        spec_path = os.path.join(bad, "model_spec.json")
+        spec = json.load(open(spec_path))
+        spec["rewriter"] = {**spec.get("rewriter", {}), "blessed": False,
+                            "reason": "a copy refused for the check"}
+        os.unlink(spec_path)
+        with open(spec_path, "w") as f:
+            json.dump(spec, f)
+        zero_counters()
+        batches0 = served_batches(fleet)
+        refused = post_code(f"{url}:reload")
+        code1, after_reply = post_code(f"{url}:predict", requests[0])
+        served["aqt_int8 after the 409"] = (counters(),
+                                            served_batches(fleet) - batches0)
+        active = fleet.active_version
+
+        raw = {"text": np.asarray(texts, dtype=object),
+               "label": np.zeros(len(texts), np.int64)}
+
+        def rows(b):
+            return {k: v[:b] for k, v in raw.items()}
+
+        unequal = [b for b in buckets if not np.array_equal(
+            loaded.predict(rows(b)), eager(loaded, loaded.host_preprocess(rows(b))))]
+        int8_resident = qz.params_nbytes(loaded.params)
+        resident_int8 = sum(v.numel() for v in loaded.params.values()
+                            if v.dtype == torch.int8)
+        with torch.inference_mode():
+            got = loaded.predict_transformed(transformed)
+            control = loaded.predict_transformed(
+                {**transformed,
+                 "attention_mask": np.ones_like(transformed["attention_mask"])})
+        dense = load_exported_model(variant_dirs(rewritten)["float32"],
+                                    device=DEVICE)
+        want = dense.predict_transformed(transformed)
+        del dense
+        scale = float(np.abs(want).max())
+        gap = float(np.abs(got - want).max()) / scale
+        control_gap = float(np.abs(control - want).max()) / scale
+    finally:
+        server.stop()
+    print(f"tune_rewrite int8 fleet [{card}]: {len(buckets)} bucket graphs "
+          f"{buckets} captured before the first reply; replay != eager at "
+          f"{unequal}; p50 {int8_p50:.3f} ms over {TUNE_REQUESTS} requests; "
+          f"resident {int8_resident} B ({resident_int8} int8 values); logits "
+          f"vs float32 max gap {gap:.4e} of the largest (tolerance "
+          f"{INT8_LOGIT_TOL:g}), mask-dropped control {control_gap:.4e}; "
+          f"unblessed copy: {refused[0]} {str(refused[1])[:120]}; version "
+          f"{active} still serving", flush=True)
+    if code0 != 200 or not buckets or unequal:
+        raise AssertionError(f"tune_rewrite: int8 fleet warm-up {code0}, "
+                             f"buckets {buckets}, unequal {unequal}")
+    if not gap <= INT8_LOGIT_TOL < control_gap:
+        raise AssertionError(f"tune_rewrite: int8 logits gap {gap}, control "
+                             f"{control_gap}")
+    if (refused[0] != 409 or "NOT_BLESSED" not in str(refused[1])
+            or code1 != 200 or after_reply != first_reply
+            or active != versions[0]):
+        raise AssertionError(f"tune_rewrite: unblessed copy {refused}, then "
+                             f"{code1}, active {active}")
+
+    # p50 of each variant behind a fleet of its own.
+    p50 = {"aqt_int8": int8_p50}
+    for name in ("bfloat16", "float32"):
+        vbase = os.path.join(base, f"serve_{name}")
+        payload_copy(variant_dirs(rewritten)[name], os.path.join(vbase, "1"))
+        server = ModelServer("bert", vbase, replicas=1, max_versions=2,
+                             max_batch_size=8, device=DEVICE)
+        try:
+            vurl = f"http://127.0.0.1:{server.start(port=0)}/v1/models/bert"
+            p50[name], counts, n = served_p50(f"{vurl}:predict", requests,
+                                              server._fleet)
+            served[name] = (counts, n)
+        finally:
+            server.stop()
+    print(f"tune_rewrite fleet p50 [{card}]: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in p50.items()) + " (one row a request, "
+        "one after another, bucket graphs)", flush=True)
+    print(f"tune_rewrite fleet launches [{card}]: " + "; ".join(
+        f"{name} forward {counts['launches']} for {n} device batches"
+        for name, (counts, n) in served.items()) + f" ({N_LAYERS} x batches "
+        "expected, nothing else)", flush=True)
+    for name, (counts, n) in served.items():
+        check_served_launches(name, counts, n)
+    # The DAG's (the in-process trials, the Trainer, the Evaluator, the
+    # Rewriter), the child trial's and the fleets' served requests.
+    total = {k: dag_launches[k] + child_launches.get(k, 0)
+             + sum(counts[k] for counts, _ in served.values())
+             for k in fa.COUNTERS}
+    if total["decode_launches"] or not all(
+            total[k] for k in ("launches", "dq_launches", "dkv_launches",
+                               "dvec_launches")):
+        raise AssertionError(f"tune_rewrite: launches {total}")
+    print(f"tune_rewrite launches [{card}]: DAG {dag_launches}, child trial "
+          f"{child_launches}, total {total}", flush=True)
+    return by_record(total)
+
+
 def build_kernels():
     """Build every CUDA source, one nvcc each, all started together."""
     seconds, errors = {}, {}
@@ -6317,6 +6955,9 @@ def main(argv=None) -> int:
         machinery = dag_machinery_phase(args.seed, card, workdir)
         phase_done("dag_machinery")
     with tempfile.TemporaryDirectory() as workdir:
+        tuned = tune_rewrite_phase(args.seed, card, workdir)
+    phase_done("tune_rewrite")
+    with tempfile.TemporaryDirectory() as workdir:
         t5_dag = t5_dag_phase(args.seed, card, workdir)
     phase_done("t5_dag")
     # The vision workloads launch none of the attention kernels: the
@@ -6354,7 +6995,8 @@ def main(argv=None) -> int:
     fwd["launches_by_path"]["fleet_guard"] = guard
     for path, counts in (("bert_dag", bert_dag), ("retrain_dag", retrain),
                          ("continuous", continuous),
-                         ("dag_machinery", machinery), ("t5_dag", t5_dag)):
+                         ("dag_machinery", machinery), ("t5_dag", t5_dag),
+                         ("tune_rewrite", tuned)):
         for record in (fwd, *bwd, decode):
             record["launches_by_path"][path] = counts[record["name"]]
         bwd[0]["dvec_launches_by_path"][path] = counts["flash_bwd_dvec"]

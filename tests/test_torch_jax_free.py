@@ -28,6 +28,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpu_pipelines",
 # Optional fast paths the reference imports when present; the port runs
 # without them, so importing it must not load them.
 NOT_AT_IMPORT = ("google_crc32c", "array_record")
+# What the reference's trainer extras import (clu's TensorBoard writer,
+# which loads TensorFlow; the goodput library): the port writes its event
+# files and computes its badput itself, and the card's machine has none of
+# these.
+NOT_IN_PORT = ("tensorflow", "tensorboard", "clu", "ml_goodput_measurement")
 
 
 def _forbidden(module_name):
@@ -61,13 +66,45 @@ print(json.dumps({"imported": names, "modules": sorted(sys.modules),
 """
 
 
-def test_importing_the_port_loads_no_jax_and_no_reference_module():
+def _import_all():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", IMPORT_ALL], cwd=REPO, env={**env, "PYTHONPATH": REPO},
         capture_output=True, text=True, timeout=120, check=True,
     )
-    report = json.loads(out.stdout.strip().splitlines()[-1])
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def test_importing_the_port_loads_no_tensorflow_tensorboard_clu_or_goodput():
+    report = _import_all()
+    for module in ("trainer.goodput", "observability.summary_writer",
+                   "trainer.quantize", "components.rewriter",
+                   "components.tuner", "components.tuner_algorithms",
+                   "components.tuner_trial"):
+        assert f"tpu_pipelines_torch.{module}" in report["imported"]
+    assert "tune_rewrite_phase" in report["phases"]
+    leaked = [m for m in report["modules"] if m.split(".")[0] in NOT_IN_PORT]
+    assert leaked == []
+
+
+def test_no_port_source_imports_tensorflow_tensorboard_clu_or_goodput():
+    offenders = []
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [(os.path.relpath(path, REPO), n) for n in names
+                          if n.split(".")[0] in NOT_IN_PORT]
+    assert offenders == []
+
+
+def test_importing_the_port_loads_no_jax_and_no_reference_module():
+    report = _import_all()
     for module in ("serving.server", "ops.flash_attention",
                    "trainer.train_loop", "trainer.fn_args",
                    "observability.health", "examples.bert_module",

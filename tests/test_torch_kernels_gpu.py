@@ -29,7 +29,9 @@ f32: (1e-5, 2e-5) — two formulas (softmax vs the saved LSE), f32 sums over
 
 The last tests drive ``train_loop`` on the card with a tiny BERT (flash
 attention, dropout 0.1): its CUDA-graph steps equal the same steps run
-eagerly bit for bit (losses and parameters), the four attention counters
+eagerly bit for bit (losses and parameters), two loops at once on two
+threads hold side streams of their own and each equals its run alone,
+the four attention counters
 read layers x steps (counted at replay), each checkpoint the saver writes
 from its thread equals the eager run's model and optimizer state at its
 step bit for bit, a ResNet-18's captured steps equal its eager steps
@@ -587,6 +589,71 @@ def test_predict_bucket_graph_replay_equals_eager_bit_for_bit(cuda, tmp_path):
     assert loaded.aot.compiles_after_warm == 1 and loaded.aot.fallbacks == 2
 
 
+def test_an_int8_payloads_resident_bytes_and_bucket_graphs(cuda, tmp_path):
+    """An int8 payload stays int8 on the card: every quantized weight is an
+    int8 tensor plus its scales there, no float copy of it is resident (the
+    allocation the load adds is the payload's bytes, within 1 MiB of
+    allocator rounding), and each padded bucket's graph, which holds the
+    dequantization, replays the eager step bit for bit."""
+    import gc
+    import os
+
+    import numpy as np
+
+    from tpu_pipelines_torch.examples import bert_module
+    from tpu_pipelines_torch.models.bert import build_bert_model, init_bert_weights
+    from tpu_pipelines_torch.serving import aot
+    from tpu_pipelines_torch.trainer import quantize as qz
+    from tpu_pipelines_torch.trainer.export import export_model, load_exported_model
+
+    model = init_bert_weights(build_bert_model(TINY_SERVE),
+                              torch.Generator().manual_seed(0))
+    state, _ = qz.quantize_params(model.state_dict(), qz.channel_layouts(model))
+    export_model(serving_model_dir=str(tmp_path / "1"), params=state,
+                 module_file=os.path.abspath(bert_module.__file__),
+                 hyperparameters=TINY_SERVE, serving_dtype="aqt_int8")
+    gc.collect()
+    before = torch.cuda.memory_allocated(cuda)
+    loaded = load_exported_model(str(tmp_path / "1"), device=cuda)
+    added = torch.cuda.memory_allocated(cuda) - before
+    names = qz.quantized_names(state)
+    assert all(loaded.params[n + qz.QVALUE].dtype == torch.int8
+               and loaded.params[n + qz.QVALUE].is_cuda for n in names)
+    assert not set(names) & set(loaded.params)
+    assert loaded.params_bytes == qz.params_nbytes(state)
+    assert abs(added - loaded.params_bytes) <= 1 << 20
+    stats = aot.warm_loaded(loaded, _bert_rows(1, 0), 8)
+    assert stats["buckets"] == [1, 2, 4, 8] and stats["fallback_warm"] is False
+    for b in stats["buckets"]:
+        batch = _bert_rows(b, seed=b)
+        assert np.array_equal(loaded.predict(batch), _eager(loaded, batch))
+
+
+def test_a_counted_step_on_the_card_counts_the_cpus_flops(cuda):
+    """``count_step_flops`` of the same tiny BERT step (flash attention,
+    bf16) gives the same figure on the card, where the kernels cannot be
+    seen by ``FlopCounterMode``, as on the CPU, where the plain version's
+    products are kept out of it."""
+    import numpy as np
+
+    from tpu_pipelines_torch.examples import bert_module
+    from tpu_pipelines_torch.models.bert import build_bert_model, init_bert_weights
+    from tpu_pipelines_torch.trainer.train_loop import count_step_flops
+
+    rows = _bert_rows(4, seed=3)
+    rows["label"] = np.arange(4) % TINY_SERVE["num_classes"]
+    counts = {}
+    for device in ("cpu", cuda):
+        model = init_bert_weights(build_bert_model(TINY_SERVE),
+                                  torch.Generator().manual_seed(0)).to(device)
+        batch = {k: torch.as_tensor(v, device=device) for k, v in rows.items()}
+        before = fa.launches
+        counts[str(device)] = count_step_flops(model, bert_module.loss_fn, batch)
+        if str(device) != "cpu":
+            assert fa.launches - before == TINY_SERVE["n_layers"]
+    assert counts["cpu"] == counts["cuda"] > 0
+
+
 def test_a_resnet_payloads_bucket_graphs_serve_the_running_averages(
         cuda, tmp_path):
     """A ResNet payload (BatchNorm buffers in its state dict) loads onto the
@@ -860,6 +927,51 @@ def test_a_graph_train_loop_captures_while_another_thread_works_the_card(cuda):
     assert errors == [] and rounds[0] > 0
     assert result.compiles_after_warm == quiet.compiles_after_warm == 0
     assert losses == quiet_losses
+
+
+def test_two_graph_train_loops_at_once_hold_their_own_side_streams(
+        cuda, monkeypatch):
+    """Two train loops on two threads at once (a deadline-released Trainer
+    beside its successor): each takes a side stream of its own, so neither
+    loop's eager first step lands in the graph the other captures, and
+    each run's losses equal the same run alone, bit for bit.  A run after
+    them takes one of their streams back."""
+    import importlib
+    import threading
+
+    tl = importlib.import_module("tpu_pipelines_torch.trainer.train_loop")
+
+    runs = {"a": _train_batches(6, seed=11), "b": _train_batches(6, seed=12)}
+    alone = {k: _graph_train(b, window=2)[2] for k, b in runs.items()}
+    both = threading.Barrier(2, timeout=120)
+    taken, real_take = [], tl._take_side_stream
+
+    def take(device):
+        stream = real_take(device)
+        taken.append(stream)
+        if len(taken) <= 2:
+            both.wait()      # both loops hold their streams before either steps
+        return stream
+
+    monkeypatch.setattr(tl, "_take_side_stream", take)
+    got, errors = {}, []
+
+    def run(key):
+        try:
+            got[key] = _graph_train(runs[key], window=2)[2]
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in runs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert errors == []
+    assert taken[0] is not taken[1]
+    assert got == alone
+    _graph_train(runs["a"], window=2)
+    assert any(taken[2] is s for s in taken[:2])
 
 
 def test_async_checkpoints_equal_the_eager_state_at_their_step_under_replay(

@@ -26,6 +26,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import os
+
 import pytest
 import torch
 from torch import nn
@@ -369,9 +371,36 @@ def test_dropout_generator_is_required_in_training_and_seeds_by_step():
         ("peak_flops_per_chip", 989e12, "A11"),
     ],
 )
-def test_unported_config_field_raises(field, value, item):
-    with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP.md {item}"):
-        _run(1, steps=2, log_every=0, config={field: value})
+def test_unported_config_field_raises(field, value, item, tmp_path):
+    """A5's fields are refused, naming the item.  A11's fields were refused
+    the same way until the trainer extras were ported: each must now run
+    and take effect (tests/test_torch_train_extras.py holds them to the
+    reference)."""
+    if item == "A5":
+        with pytest.raises(NotImplementedError,
+                           match=f"{field}.*ROADMAP.md {item}"):
+            _run(1, steps=2, log_every=0, config={field: value})
+        return
+    if field.endswith("_dir"):
+        value = str(tmp_path / field)
+    config = TrainLoopConfig(train_steps=8, batch_size=BATCH, log_every=2,
+                             window_steps=4,
+                             **{"collect_cost_analysis": True, field: value})
+    _, result = train_loop(
+        loss_fn=lambda m, b, g: (((m(b["x"])[:, 0] - b["y"]) ** 2).mean(), {}),
+        init_params_fn=lambda g, s: nn.Linear(2, 1), optimizer=_adam,
+        train_iter=iter(_toy_batches(8)), config=config, device="cpu")
+    assert result.steps_completed == 8
+    # The linear layer's product and its weight gradient: 2 x 2·B·2·1.
+    assert result.cost_analysis_flops_per_step == 2 * 2 * BATCH * 2
+    assert result.cost_analysis_source == "counted"
+    if field == "profile_dir":
+        assert result.window_steps == 1
+        assert os.listdir(value) == ["train_steps_2-5.pt.trace.json"]
+    elif field == "tensorboard_dir":
+        assert os.listdir(value)[0].startswith("events.out.tfevents.")
+    elif field == "peak_flops_per_chip":
+        assert result.mfu is not None  # 64 FLOPs a step: rounds to 0
 
 
 def test_unported_arguments_and_missing_cuda_raise():

@@ -1,9 +1,9 @@
 """The port's components, each its copy of the ``tpu_pipelines/components``
 counterpart: the taxi DAG's ExampleGen -> StatisticsGen -> SchemaGen ->
 ExampleValidator -> Transform -> Trainer -> Evaluator -> InfraValidator ->
-Pusher, the T5 DAG's BulkInferrer, and the retrain DAG's ImportExampleGen,
-Importer, Resolver and RollingWindowResolver (``Cond`` is in ``dsl``).
-Tuner and Rewriter are not ported yet (``ROADMAP.md`` A9)."""
+Pusher, the T5 DAG's BulkInferrer, the retrain DAG's ImportExampleGen,
+Importer, Resolver and RollingWindowResolver (``Cond`` is in ``dsl``), and
+the search and rewrite stages, Tuner and Rewriter."""
 
 from tpu_pipelines_torch.components.example_gen import (  # noqa: F401
     CsvExampleGen,
@@ -23,3 +23,5 @@ from tpu_pipelines_torch.components.resolver import (  # noqa: F401
     Resolver,
     RollingWindowResolver,
 )
+from tpu_pipelines_torch.components.tuner import Tuner  # noqa: F401
+from tpu_pipelines_torch.components.rewriter import Rewriter  # noqa: F401

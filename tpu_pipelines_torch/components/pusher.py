@@ -1,7 +1,8 @@
 """Pusher: atomically publish a blessed model to the serving destination.
 
-The port's copy of ``tpu_pipelines/components/pusher.py`` (TFX Pusher;
-the Rewriter ``variant`` selection waits, ``ROADMAP.md`` A9): checks the
+The port's copy of ``tpu_pipelines/components/pusher.py`` (TFX Pusher,
+with the Rewriter's ``variant`` selection: the named payload of the
+artifact's ``variants/`` tree, an unblessed one skipped): checks the
 Evaluator's (and optionally InfraValidator's) blessing, then copies the model
 payload into a monotonically-versioned directory under ``push_destination``
 — staged to a temp dir and renamed, so a serving binary watching the
@@ -109,10 +110,27 @@ def Pusher(ctx):
     model_uri = ctx.input("model").uri
     variant = str(ctx.exec_properties.get("variant") or "").strip()
     if variant:
-        raise NotImplementedError(
-            f"Pusher: variant {variant!r} needs the Rewriter's payload "
-            "variants, which are not ported yet (ROADMAP.md A9)"
+        from tpu_pipelines_torch.components.rewriter import (
+            canonical_variant,
+            variant_blessed,
+            variant_dirs,
         )
+
+        variant = canonical_variant(variant)
+        dirs = variant_dirs(model_uri)
+        if variant not in dirs:
+            raise ValueError(
+                f"Pusher: variant {variant!r} not found under "
+                f"{model_uri!r} (have {sorted(dirs) or 'no variants/'}); "
+                "wire the Pusher to a Rewriter output"
+            )
+        if not variant_blessed(dirs[variant]):
+            skip = f"variant {variant} = NOT_BLESSED"
+            pushed_art.properties["pushed"] = False
+            pushed_art.properties["skip_reason"] = skip
+            return {"pushed": False, "skip_reason": skip}
+        model_uri = dirs[variant]
+        pushed_art.properties["variant"] = variant
 
     dest = ctx.exec_properties["push_destination"]
     os.makedirs(dest, exist_ok=True)

@@ -12,7 +12,11 @@ cross-entropy on integer labels plus accuracy; ``adamw``: ``optax.adamw``),
 warm-starts from a wired base model (``warm_start_init``), checkpoints every
 quarter of the run and exports a payload with the transform graph.  A
 ``mesh`` is passed through to ``train_loop``, which refuses it (multi-GPU
-training, ``ROADMAP.md`` A5).
+training, ``ROADMAP.md`` A5).  ``custom_config["train_loop"]``, a dict of
+``TrainLoopConfig`` fields, is laid over the module's own (the loop's
+extras, e.g. ``profile_dir``, ``tensorboard_dir``,
+``collect_cost_analysis``, ``stall_timeout_s``, or ``checkpoint_every``),
+so a pipeline turns them on without a module of its own.
 """
 
 import functools
@@ -133,14 +137,15 @@ def run_fn(fn_args):
         optimizer=adamw(hp["learning_rate"]),
         train_iter=train_iter,
         eval_iter_fn=eval_iter_fn,
-        config=TrainLoopConfig(
-            train_steps=fn_args.train_steps,
-            batch_size=batch_size,
-            eval_steps=fn_args.eval_steps,
-            checkpoint_every=max(1, fn_args.train_steps // 4),
-            log_every=max(1, fn_args.train_steps // 10),
-            mesh_config=fn_args.mesh_config or None,
-        ),
+        config=TrainLoopConfig(**{
+            "train_steps": fn_args.train_steps,
+            "batch_size": batch_size,
+            "eval_steps": fn_args.eval_steps,
+            "checkpoint_every": max(1, fn_args.train_steps // 4),
+            "log_every": max(1, fn_args.train_steps // 10),
+            "mesh_config": fn_args.mesh_config or None,
+            **((fn_args.custom_config or {}).get("train_loop") or {}),
+        }),
         checkpoint_dir=fn_args.model_run_dir,
         device=fn_args.device,
     )

@@ -7,10 +7,11 @@ wide-and-deep model on the Transform's examples through the port's
 Adam as ``optax.adam``: betas 0.9/0.999, eps 1e-8; ``capturable`` on CUDA,
 so the update joins the step's CUDA graph), checkpoints every quarter of
 the run, and exports a self-contained payload (state dict, this module,
-the transform graph).  The reference's TensorBoard directory is left out:
-the port's loop refuses ``tensorboard_dir`` (``ROADMAP.md`` A11).
+the transform graph), with TensorBoard scalars under
+``<model_run_dir>/tensorboard``.
 """
 
+import os
 from typing import Any, Dict
 
 import torch
@@ -105,6 +106,7 @@ def run_fn(fn_args):
             checkpoint_every=max(1, fn_args.train_steps // 4),
             log_every=max(1, fn_args.train_steps // 10),
             mesh_config=fn_args.mesh_config or None,
+            tensorboard_dir=os.path.join(fn_args.model_run_dir, "tensorboard"),
         ),
         checkpoint_dir=fn_args.model_run_dir,
         device=fn_args.device,

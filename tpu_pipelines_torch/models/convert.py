@@ -19,14 +19,24 @@ copied bit for bit (bfloat16 leaves included); only layouts change:
     ``[out, in, kh, kw]`` (OIHW); ``BatchNorm`` scale/bias ->
     weight/bias and its ``batch_stats`` mean/var -> the
     ``running_mean`` / ``running_var`` buffers.
+
+``int8_state_dict_from_flax`` carries a reference int8 tree (each
+quantized leaf a ``{QUANT_Q: int8, QUANT_S: f32 [d0, 1, ...]}`` subtree,
+``tpu_pipelines/trainer/quantize.py``) into the port's int8 state dict
+(``<name>.qvalue`` / ``<name>.scale``, ``trainer/quantize.py``) through any
+of the converters above.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+# The reference's markers of a quantized leaf (its payload format).
+QUANT_Q = "__aqt_int8_q__"
+QUANT_S = "__aqt_int8_s__"
 
 
 def _tensor(a: Any) -> torch.Tensor:
@@ -225,4 +235,38 @@ def resnet_state_dict_from_flax(variables: Mapping[str, Any]
                 layer(f"blocks.{key}.{name}", leaf, stats.get(key, {}).get(sub))
         else:
             layer(key, node, stats.get(key))
+    return out
+
+
+def int8_state_dict_from_flax(
+    tree: Mapping[str, Any],
+    convert: Callable[[Mapping[str, Any]], Dict[str, torch.Tensor]],
+    layouts: Mapping[str, Tuple[str, int]],
+) -> Dict[str, torch.Tensor]:
+    """The port's int8 state dict of a reference int8 ``tree``: the
+    converter ``convert`` (e.g. :func:`bert_state_dict_from_flax`) moves
+    each leaf's int8 values into the torch layout unchanged, and its
+    scales broadcast to the leaf's shape, which are then reduced to one a
+    channel along ``layouts`` (``trainer.quantize.channel_layouts`` of the
+    port's model)."""
+    from tpu_pipelines_torch.trainer.quantize import QVALUE, SCALE, compact_scale
+
+    def pick(node: Any, scales: bool) -> Any:
+        if isinstance(node, Mapping) and QUANT_Q in node:
+            q = np.asarray(node[QUANT_Q])
+            return (np.broadcast_to(np.asarray(node[QUANT_S], np.float32),
+                                    q.shape) if scales else q)
+        if isinstance(node, Mapping):
+            return {k: pick(v, scales) for k, v in node.items()}
+        return node
+
+    values = convert(pick(tree, False))
+    scales = convert(pick(tree, True))
+    out: Dict[str, torch.Tensor] = {}
+    for name, t in values.items():
+        if t.dtype == torch.int8:
+            out[name + QVALUE] = t
+            out[name + SCALE] = compact_scale(scales[name], layouts[name])
+        else:
+            out[name] = t
     return out

@@ -60,6 +60,20 @@ the graph adds that tally to the counters once per replay
 (:func:`credit`).  A capture with no tally open raises.  Captures take
 turns under :data:`capture_lock` (the serving warm-up's and the train
 loop's alike), since the tally is module-wide.
+
+FLOP accounting: ``FlopCounterMode`` cannot see a kernel launched
+through ``ctypes``, and on the CPU it would see the plain version's own
+products instead, so a naive count differs between the devices.  So
+:class:`FlashAttentionFunction` reaches the wrappers through two
+operators of their own, ``torch.ops.tpp_flash.fwd`` and ``bwd``, each
+with a FLOP formula registered with ``torch.utils.flop_counter``
+(forward ``4·B·H·Lq·Lk·D``, backward ``8·B·H·Lq·Lk·D``: the products of
+dense attention, with no recompute of the scores).  A counting mode sees
+the operator, counts it by formula and runs it below itself, so the
+plain version's matmuls are never counted a second time; the mode is the
+counting thread's own (autograd carries it into its backward thread), so
+attention run meanwhile on another thread is not counted.  The operators
+add nothing else: launches, captures and counters are as before.
 """
 
 from __future__ import annotations
@@ -71,6 +85,7 @@ import threading
 from typing import Dict, Iterator, Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 NEG_INF = -1e30
 BLOCK_Q = 64
@@ -699,9 +714,7 @@ class FlashAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask, causal):
-        out, lse = flash_attention_forward(
-            q, k, v, causal=causal, kv_mask=kv_mask
-        )
+        out, lse = torch.ops.tpp_flash.fwd(q, k, v, kv_mask, causal)
         ctx.save_for_backward(q, k, v, kv_mask, out, lse)
         ctx.causal = causal
         return out
@@ -709,10 +722,39 @@ class FlashAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, kv_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_backward(
-            q, k, v, out, lse, dout, causal=ctx.causal, kv_mask=kv_mask
-        )
+        dq, dk, dv = torch.ops.tpp_flash.bwd(
+            q, k, v, kv_mask, ctx.causal, out, lse, dout)
         return dq, dk, dv, None, None
+
+
+# The operators FlashAttentionFunction runs (see the module docstring).
+_ops = torch.library.Library("tpp_flash", "DEF")
+_ops.define("fwd(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, bool causal) "
+            "-> (Tensor, Tensor)")
+_ops.define("bwd(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, bool causal, "
+            "Tensor out, Tensor lse, Tensor dout) -> (Tensor, Tensor, Tensor)")
+_ops.impl("fwd", lambda q, k, v, kv_mask, causal: flash_attention_forward(
+    q, k, v, causal=causal, kv_mask=kv_mask), "CompositeExplicitAutograd")
+_ops.impl("bwd", lambda q, k, v, kv_mask, causal, out, lse, dout:
+          flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                   kv_mask=kv_mask),
+          "CompositeExplicitAutograd")
+
+
+def _products(q_shape, k_shape) -> int:
+    """``2·B·H·Lq·Lk·D``: one of attention's products."""
+    b, lq, h, d = q_shape
+    return 2 * b * h * lq * k_shape[1] * d
+
+
+@register_flop_formula(torch.ops.tpp_flash.fwd)
+def _fwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    return 2 * _products(q_shape, k_shape)
+
+
+@register_flop_formula(torch.ops.tpp_flash.bwd)
+def _bwd_flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    return 4 * _products(q_shape, k_shape)
 
 
 def flash_attention(

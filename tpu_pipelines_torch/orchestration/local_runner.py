@@ -211,11 +211,20 @@ class _RunTelemetry:
                 )
 
     def _health(self) -> Dict[str, Any]:
-        return {
-            "healthy": self._failed == 0,
-            **self._info,
-            "nodes_failed": self._failed,
-        }
+        """The run's health, with the status of every open
+        ``HealthMonitor`` (a training node's stall/NaN watchdogs) while one
+        is open: a stalled or NaN-seen monitor makes the run unhealthy
+        (503)."""
+        from tpu_pipelines_torch.observability.health import open_monitors
+
+        health = {"healthy": self._failed == 0, **self._info,
+                  "nodes_failed": self._failed}
+        monitors = [m.status() for m in open_monitors()]
+        if monitors:  # the reference's payload when no loop is training
+            health["monitors"] = monitors
+            health["healthy"] = health["healthy"] and all(
+                m["healthy"] for m in monitors)
+        return health
 
     def progress(self, pending: int, running: int, result: "RunResult") -> None:
         failed = sum(

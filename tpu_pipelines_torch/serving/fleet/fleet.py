@@ -426,6 +426,19 @@ class ServingFleet:
     def _canary(self, loaded, version: str) -> str:
         from tpu_pipelines_torch.components.infra_validator import canary_check
 
+        # Gate 2 of the Rewriter's double-gated deploy: a variant payload
+        # the quality gate refused carries spec["rewriter"]["blessed"] =
+        # false, and the fleet refuses to serve it however it reached the
+        # version directory (CanaryRefused, HTTP 409; the prior version
+        # keeps serving).
+        spec = getattr(loaded, "spec", None)
+        rewrite = spec.get("rewriter") if isinstance(spec, dict) else None
+        if isinstance(rewrite, dict) and rewrite.get("blessed") is False:
+            return (
+                f"rewriter variant {rewrite.get('variant', '?')!r} is "
+                f"NOT_BLESSED (quality gate): "
+                f"{rewrite.get('reason', 'outside quality_tolerance')}"
+            )
         if self.generative:
             # Every replica's engine for this version is built here and
             # captures its (batch, kv) step graphs before the version

@@ -29,8 +29,17 @@ Both predict surfaces dispatch through ``LoadedModel.aot``, an
 signature (``serving/aot.py`` fills it at the fleet's swap gate, one CUDA
 graph per bucket).  An empty table is a passthrough to the eager step; a
 miss after warm-up is counted once per signature and runs the eager step
-on the same device.  Quantized payloads wait for the Rewriter slice of
-the port (``ROADMAP.md`` A9).
+on the same device.
+
+An int8 payload (``dtype`` "aqt_int8", the Rewriter's ``aqt_int8``
+variant: ``<name>.qvalue`` / ``<name>.scale`` pairs, ``trainer/quantize.py``)
+stays int8 on the device: the model keeps no float copy of a quantized
+weight (its parameter is an empty placeholder), and the predict step
+dequantizes the pairs before the forward pass, as the reference
+dequantizes inside its jitted step, so every captured bucket graph holds
+the dequantization.  Generate and decode hooks were written against dense
+parameters, so an int8 payload serves the predict surfaces only (no
+``generate``, no ``decode_fns``), as in the reference.
 """
 
 from __future__ import annotations
@@ -67,10 +76,12 @@ def export_model(
     hyperparameters: Optional[Dict[str, Any]] = None,
     transform_graph_uri: str = "",
     extra_spec: Optional[Dict[str, Any]] = None,
+    serving_dtype: str = "",
 ) -> str:
     """Write a self-contained payload of ``params`` (a state dict), with a
     copy of the TransformGraph at ``transform_graph_uri`` when given;
-    returns the dir.  ``extra_spec`` entries join the spec."""
+    returns the dir.  ``extra_spec`` entries join the spec; the spec's
+    ``dtype`` is ``serving_dtype``, else inferred from the tensors."""
     os.makedirs(serving_model_dir, exist_ok=True)
     ckpt = os.path.join(serving_model_dir, CHECKPOINT_DIR)
     if os.path.exists(ckpt):
@@ -88,7 +99,7 @@ def export_model(
         "format": FORMAT_VERSION,
         "hyperparameters": hyperparameters or {},
         "has_transform": bool(transform_graph_uri),
-        "dtype": qz.infer_dtype(state),
+        "dtype": serving_dtype or qz.infer_dtype(state),
         "params_bytes": qz.params_nbytes(state),  # tpp: disable=TPP214 (payload key)
         **(extra_spec or {}),
     }
@@ -269,11 +280,6 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
             f"expected {FORMAT_VERSION}"
         )
     dtype = str(spec.get("dtype") or qz.DTYPE_FLOAT32)
-    if dtype == qz.DTYPE_AQT_INT8:
-        raise NotImplementedError(
-            f"model at {uri!r} is int8-quantized; quantized payloads wait "
-            "for the Rewriter slice of the port"
-        )
     module_copy = os.path.join(uri, MODULE_COPY)
     module = load_module(module_copy)
     hp = spec.get("hyperparameters", {})
@@ -284,12 +290,30 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
         os.path.join(uri, CHECKPOINT_DIR, STATE_FILE),
         map_location="cpu", weights_only=True,
     )
+    quantized = dtype == qz.DTYPE_AQT_INT8 or qz.tree_is_quantized(state)
     if dtype == qz.DTYPE_BFLOAT16:
         # One cast at load: the resident tensors hold half the bytes.
         state = qz.cast_params(state, torch.bfloat16)
-    model.load_state_dict(state, strict=True, assign=True)
+    int8 = {}
+    if quantized:
+        int8 = _install_int8(model, state, uri)
+        state = {k: v for k, v in state.items() if k not in int8}
+    loaded = model.load_state_dict(state, strict=not quantized, assign=True)
+    if quantized and (loaded.unexpected_keys or set(loaded.missing_keys)
+                      != set(qz.quantized_names(int8))):
+        raise ValueError(
+            f"int8 payload at {uri!r} does not match the module's model: "
+            f"missing {sorted(set(loaded.missing_keys) - set(qz.quantized_names(int8)))}, "
+            f"unexpected {loaded.unexpected_keys}")
     model.to(dev).eval()
-    params = dict(model.state_dict())
+    params = {k: v for k, v in model.state_dict().items()
+              if k not in qz.quantized_names(int8)}
+    params.update({k: v.to(dev) for k, v in int8.items()})
+    if quantized:
+        raw_apply = apply_fn
+
+        def apply_fn(model, p, batch, _apply=raw_apply):
+            return _apply(model, qz.dequantize_params(p), batch)
 
     def forward_step(p, batch):
         with torch.inference_mode():
@@ -338,6 +362,10 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
     device_generate = None
     step_builder = getattr(module, "make_generate_step", None)
     gen_builder = getattr(module, "make_generate_fn", None)
+    if quantized:
+        # Generate and decode hooks take the params verbatim and were
+        # written against dense ones: an int8 payload serves predict only.
+        step_builder = gen_builder = None
     if step_builder is not None:
         generate_step = step_builder(model, hp)
         device_generate = lambda b: generate_step(params, b)  # noqa: E731
@@ -353,12 +381,14 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
                     batch = transformed(batch)
                 return _to_numpy(torch.as_tensor(device_generate(batch)))
 
-    decode_builder = getattr(module, "make_decode_fns", None)
+    decode_builder = (None if quantized
+                      else getattr(module, "make_decode_fns", None))
     decode_fns = None if decode_builder is None else decode_builder(model, hp)
     # A payload may ship a draft lane; it is carried, unused, until the
     # speculative lever lands (ROADMAP A8).
     draft_decode_fns = draft_params = None
-    draft_builder = getattr(module, "make_draft_decode_fns", None)
+    draft_builder = (None if quantized
+                     else getattr(module, "make_draft_decode_fns", None))
     if draft_builder is not None:
         draft_decode_fns, draft_params = draft_builder(model, hp)
 
@@ -382,6 +412,26 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
         uri=os.path.abspath(uri),
         aot=aot,
     )
+
+
+def _install_int8(model: nn.Module, state: Dict[str, torch.Tensor],
+                  uri: str) -> Dict[str, torch.Tensor]:
+    """The ``.qvalue`` / ``.scale`` entries of ``state``; each quantized
+    weight's parameter in ``model`` becomes an empty placeholder, so no
+    float copy of it is resident."""
+    int8 = {k: v for k, v in state.items()
+            if k.endswith((qz.QVALUE, qz.SCALE))
+            and k.rsplit(".", 1)[0] + qz.QVALUE in state}
+    own = dict(model.named_parameters())
+    for name in qz.quantized_names(int8):
+        if name not in own:
+            raise ValueError(
+                f"int8 payload at {uri!r} quantizes {name!r}, which the "
+                "module's model does not have")
+        prefix, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(prefix), leaf,
+                nn.Parameter(torch.empty(0), requires_grad=False))
+    return int8
 
 
 def model_input_columns(

@@ -128,10 +128,12 @@ class TrainResult:
     anchor_windows: int = 0
     steps_completed: int = 0
     resumed_from_step: int = 0
-    # Productive fraction of job wall-clock.  Source "ml_goodput_measurement"
-    # = the real badput algebra (init/prep/compile count against it); source
-    # "host_input_wait_proxy" = 1 - host-input-wait/elapsed, a lower bound on
-    # device goodput (1.0 when the run was too short to measure).
+    # Productive fraction of job wall-clock.  Source "goodput_tracker" = the
+    # port's copy of ml_goodput_measurement's badput algebra
+    # (trainer/goodput.py; device init, preparation and the first step's
+    # capture count against it); source "host_input_wait_proxy" = 1 -
+    # host-input-wait/elapsed, reported only when the tracker could not
+    # compute a figure (1.0 when the run was too short to measure).
     goodput: float = 0.0
     goodput_source: str = "host_input_wait_proxy"
     # Goodput over the post-compile window only (1 - input-wait/elapsed,
@@ -140,14 +142,16 @@ class TrainResult:
     # steady-state number a long run would converge to.
     goodput_post_compile: float = 0.0
     # {badput_kind: fraction of job wall-clock}, e.g. {"tpu_initialization":
-    # 0.02, "training_prep": 0.01, "data_loading_sync": 0.05, "other": ...}.
+    # 0.02, "training_prep": 0.01, "data_loading_sync": 0.05, "other": ...};
+    # kinds with a zero share are left out ("tpu_initialization" is the
+    # device's initialization, under the library's name).
     badput: Dict[str, float] = dataclasses.field(default_factory=dict)
-    # XLA's own per-step FLOP count for the train step
-    # (TrainLoopConfig.collect_cost_analysis=True) — the auditable
-    # cross-check for analytic MFU numerators.  Source "compiled" = cost
-    # analysis of the optimized executable; "lowered" = HLO cost analysis
-    # of the unoptimized module (fallback when the backend's compiled
-    # analysis is unavailable).  None when collection was off or failed.
+    # The per-step FLOP count of the train step
+    # (TrainLoopConfig.collect_cost_analysis=True), the cross-check for
+    # analytic MFU numerators.  Source "counted" = FlopCounterMode over one
+    # eager forward and backward plus the attention kernels by formula (the
+    # reference's "compiled"/"lowered" are XLA's cost analyses).  None when
+    # collection was off.
     cost_analysis_flops_per_step: Optional[float] = None
     cost_analysis_source: str = ""
     # Effective device-resident multi-step window the loop ran with
@@ -164,9 +168,9 @@ class TrainResult:
     # "psum_bucketed" = chunked in-scan psums, "ordered" = fixed-block
     # mesh-size-invariant reduction (TrainLoopConfig.dp_collective).
     dp_collective: str = ""
-    # Model-FLOPs utilization.  Not computed by the port's train_loop
-    # yet: it needs a counted FLOP figure (ROADMAP.md A11), so it stays
-    # None and the train_mfu gauge 0.
+    # Model-FLOPs utilization: cost_analysis_flops_per_step x post-warmup
+    # steps / device-compute seconds / peak FLOP/s.  None without a counted
+    # figure or a known peak.
     mfu: Optional[float] = None
     # XLA backend compiles observed AFTER the first window retired —
     # the training twin of serving_aot_compiles_after_warm_total.  Every

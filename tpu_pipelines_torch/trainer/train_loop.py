@@ -79,8 +79,47 @@ replays.
 
 When a run trace is active (``observability/trace.py``) the loop emits
 the reference's ``window_breakdown`` instant at each window end after the
-first, and ``goodput_summary`` and ``train_telemetry_summary`` at its
-end, all from host values already fetched.
+first, and ``goodput_summary`` (with the badput breakdown) and
+``train_telemetry_summary`` at its end, all from host values already
+fetched.
+
+Telemetry (the reference's trainer extras):
+
+  - goodput: a ``trainer/goodput.py`` ``GoodputTracker`` records job
+    start and end, device init, training preparation, each window's data
+    load and each step's start, mirrored to
+    ``<checkpoint_dir>/goodput_log.jsonl``; ``TrainResult.goodput`` and
+    ``badput`` are its breakdown (``goodput_source`` "goodput_tracker"),
+    with the host-input-wait proxy beside them as ``goodput_post_compile``.
+    Each step's start is recorded when the step is dispatched (the
+    reference records one a window, so a windowed reference run has no
+    consecutive steps in its segments); the gaps between step starts sum
+    to the same productive time either way.
+  - ``stall_timeout_s``: the ``HealthMonitor``'s stall watchdog (None =
+    ``TPP_STALL_TIMEOUT_S``, 0 = no thread).  Heartbeats land once per
+    window, so the timeout must exceed a window's wall time.
+  - ``profile_dir``: ``torch.profiler`` over steps ``[profile_from,
+    profile_to)`` (counted from the run's first step), host and device,
+    written as a Chrome trace ``train_steps_<from>-<to>.pt.trace.json``
+    under ``profile_dir``; ``window_steps`` is forced to 1, so each
+    profiled step is one graph replay on the card.
+  - ``tensorboard_dir``: train metrics at ``log_every`` and eval metrics
+    as scalars (``observability/summary_writer.py``, flushed per write),
+    under the reference's tags and steps.
+  - ``collect_cost_analysis``: after the timed loop, one eager forward
+    and backward on a copy of the first batch under ``FlopCounterMode``,
+    with the attention kernels counted by their registered formulas
+    (``ops.flash_attention``'s ``tpp_flash`` operators): the counterpart of
+    the reference's XLA cost analysis (``cost_analysis_source``
+    "counted").  The backward takes gradients with ``torch.autograd.grad``
+    and the model's buffers are restored after it, so neither the
+    optimizer state, the gradients the graph writes nor BatchNorm's
+    running statistics move; on the card the step's kernel launches
+    count as launches.  The optimizer's update does no matmul and counts 0.
+  - MFU, as the reference computes it: counted FLOPs x post-warm-up steps
+    / the windows' ``device_compute`` seconds (wall time without windows)
+    / the peak (``peak_flops_per_chip``, else ``TPP_PEAK_FLOPS``, else the
+    card's entry in ``_PEAK_BF16_FLOPS``, else no MFU).
 
 Models with state (the reference's ``has_model_state=True``, BatchNorm's
 running statistics): a module's buffers are its model state.
@@ -100,9 +139,7 @@ Evaluator and serving do in both packages.
 
 Not ported, and refused with ``NotImplementedError`` naming the
 ``ROADMAP.md`` item rather than ignored: meshes, partitions and
-data-parallel collectives (A5), gradient accumulation (A5), the profiler,
-TensorBoard, cost analysis and the MFU that rests on it (A11):
-``TrainResult.mfu`` stays None and the ``train_mfu`` gauge 0.  The
+data-parallel collectives (A5) and gradient accumulation (A5).  The
 reference's ``prng_impl`` (a JAX key implementation) has no counterpart
 here, and ``donate_state`` none but the in-place replays above: the
 fields do not exist.
@@ -128,17 +165,21 @@ from tpu_pipelines_torch.data.input_pipeline import WindowStager, windowed_infee
 from tpu_pipelines_torch.observability import trace as _obs
 from tpu_pipelines_torch.observability.health import HealthMonitor
 from tpu_pipelines_torch.observability.metrics import default_registry
+from tpu_pipelines_torch.observability.summary_writer import SummaryWriter
 from tpu_pipelines_torch.ops import flash_attention as fa
 from tpu_pipelines_torch.trainer.export import resolve_device
 from tpu_pipelines_torch.trainer.fn_args import TrainResult
+from tpu_pipelines_torch.trainer.goodput import GoodputTracker
 
 log = logging.getLogger("tpu_pipelines_torch.trainer")
 
 # Peak per-chip dense bf16 FLOP/s by device name, the denominator of an
 # MFU figure; 0.0 for a card not in the table (an assumed denominator
 # would publish a made-up utilization).  H100 SXM: 989 TFLOP/s (NVIDIA
-# data sheet).
+# data sheet).  TrainLoopConfig.peak_flops_per_chip, then TPP_PEAK_FLOPS,
+# take precedence.
 _PEAK_BF16_FLOPS = [("h100", 989e12)]
+ENV_PEAK_FLOPS = "TPP_PEAK_FLOPS"
 ENV_WINDOW_STEPS = "TPP_WINDOW_STEPS"
 ENV_DP_COLLECTIVE = "TPP_DP_COLLECTIVE"
 _CKPT_RE = re.compile(r"^ckpt_(\d+)\.pt$")
@@ -162,9 +203,24 @@ class TrainLoopConfig:
     # previous anchor; the median examples/sec over these spans is the
     # figure async dispatch cannot inflate.  0 = whole-run timing only.
     anchor_every: int = 0
-    # Called as cb(kind, detail) when a watchdog fires ("nan",
+    # Called as cb(kind, detail) when a watchdog fires ("stall", "nan",
     # "loss_spike").
     health_alert_cb: Optional[Callable[[str, str], None]] = None
+    # Stall watchdog (see the module docstring): None = env
+    # TPP_STALL_TIMEOUT_S, 0 = no watchdog thread.
+    stall_timeout_s: Optional[float] = None
+    # torch.profiler over steps [profile_from, profile_to) of this run,
+    # written under profile_dir; forces window_steps to 1.
+    profile_dir: str = ""
+    profile_from: int = 2
+    profile_to: int = 5
+    # TensorBoard scalars (train at log_every, eval) under this dir.
+    tensorboard_dir: str = ""
+    # Count one step's FLOPs after the timed loop
+    # (TrainResult.cost_analysis_flops_per_step) and, with a peak, the MFU.
+    collect_cost_analysis: bool = False
+    # Peak per-chip FLOP/s; None = env TPP_PEAK_FLOPS, else the card table.
+    peak_flops_per_chip: Optional[float] = None
     # ---- not ported: a non-default value raises NotImplementedError.
     mesh_config: Optional[Any] = None
     param_partition: Optional[Any] = None
@@ -173,10 +229,6 @@ class TrainLoopConfig:
     collective_buckets: int = 2
     dp_grad_blocks: Optional[int] = None
     grad_accum_steps: int = 1
-    profile_dir: str = ""
-    tensorboard_dir: str = ""
-    collect_cost_analysis: bool = False
-    peak_flops_per_chip: Optional[float] = None
 
 
 # field, default, ROADMAP.md item, what it waits for
@@ -188,10 +240,6 @@ _UNPORTED = (
     ("collective_buckets", 2, "A5", "data-parallel collectives"),
     ("dp_grad_blocks", None, "A5", "data-parallel collectives"),
     ("grad_accum_steps", 1, "A5", "gradient accumulation"),
-    ("profile_dir", "", "A11", "profiler capture"),
-    ("tensorboard_dir", "", "A11", "the TensorBoard sink"),
-    ("collect_cost_analysis", False, "A11", "counted-FLOP cost analysis"),
-    ("peak_flops_per_chip", None, "A11", "MFU from a counted FLOP figure"),
 )
 
 
@@ -239,6 +287,45 @@ def _peak_flops_per_chip(device: Any) -> float:
     return 0.0
 
 
+def _peak_flops(config: "TrainLoopConfig", device: Any) -> float:
+    """The MFU denominator: ``config.peak_flops_per_chip``, else
+    ``TPP_PEAK_FLOPS``, else :func:`_peak_flops_per_chip`."""
+    if config.peak_flops_per_chip:
+        return float(config.peak_flops_per_chip)
+    env = os.environ.get(ENV_PEAK_FLOPS, "").strip()
+    if env:
+        try:
+            return float(env)
+        except ValueError:
+            log.warning("ignoring non-numeric %s=%r", ENV_PEAK_FLOPS, env)
+    return _peak_flops_per_chip(device)
+
+
+def count_step_flops(model: nn.Module, loss_fn: Callable,
+                     batch: Dict[str, torch.Tensor], seed: int = 0) -> float:
+    """FLOPs of one training step of ``model`` on ``batch`` (tensors on
+    the model's device): ``FlopCounterMode`` over an eager forward and a
+    backward to every trainable parameter, the attention kernels counted
+    by their registered formulas.  Gradients go through ``torch.autograd.grad`` (no
+    ``.grad`` is touched) and the model's buffers are restored after the
+    step."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    device = next(model.parameters()).device
+    saved = [b.detach().clone() for b in model.buffers()]
+    params = [p for p in model.parameters() if p.requires_grad]
+    generator = torch.Generator(device=device).manual_seed(_step_seed(seed, 0))
+    try:
+        with FlopCounterMode(display=False) as counter:
+            loss, _ = loss_fn(model, batch, generator)
+            torch.autograd.grad(loss, params, allow_unused=True)
+    finally:
+        with torch.no_grad():
+            for b, s in zip(model.buffers(), saved):
+                b.copy_(s)
+    return float(counter.get_total_flops())
+
+
 def _effective_window_steps(config: TrainLoopConfig) -> int:
     """Resolve the window length: explicit config > TPP_WINDOW_STEPS env >
     log_every; floor 1."""
@@ -252,7 +339,14 @@ def _effective_window_steps(config: TrainLoopConfig) -> int:
                 log.warning("ignoring non-integer %s=%r", ENV_WINDOW_STEPS, raw)
     if w is None:
         w = config.log_every
-    return max(1, int(w or 0))
+    w = max(1, int(w or 0))
+    if w > 1 and config.profile_dir:
+        log.info(
+            "window_steps=%d forced to 1: profile_dir is set and the "
+            "profiler needs per-step dispatch granularity", w,
+        )
+        return 1
+    return w
 
 
 _MASK64 = (1 << 64) - 1
@@ -288,6 +382,63 @@ def batch_signature(batch: Dict[str, torch.Tensor]) -> tuple:
     ))
 
 
+# The train loops' side streams (the first step and the captures run on
+# one), per CUDA device: a loop takes a free one for its run and gives it
+# back at its end, and a new stream is made only when every one is taken.
+# cuBLAS keeps a workspace for each stream it has run on, held for the
+# life of the process: a new stream a run left 64 MiB behind each run (a
+# Tuner's in-process trials grew the card's allocation by that much a
+# trial), so runs one after another reuse one stream.  Loops that run at
+# once (a deadline-released Trainer beside its successor) never share
+# one: work queued on a stream that captures joins the capture.
+_free_side_streams: Dict[int, list] = {}
+_side_streams_lock = threading.Lock()
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def _take_side_stream(device: torch.device):
+    """A side stream of ``device`` no running loop holds (None off CUDA)."""
+    if device.type != "cuda":
+        return None
+    with _side_streams_lock:
+        free = _free_side_streams.setdefault(_device_index(device), [])
+        if free:
+            return free.pop()
+    return torch.cuda.Stream(device)
+
+
+def _give_back_side_stream(device: torch.device, stream) -> None:
+    if stream is not None:
+        with _side_streams_lock:
+            _free_side_streams.setdefault(_device_index(device), []).append(stream)
+
+
+def warm_cublas(device: Any) -> None:
+    """Run one small matmul, forward and backward, on ``device``'s current
+    stream and on the side stream the next train loop of this thread will
+    take: cuBLAS then holds its workspaces for this thread, autograd's
+    device thread and both streams (made once, held for the process's
+    life), so an allocation read afterwards moves only with what a loop
+    keeps.  A no-op off CUDA."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return
+    stream = _take_side_stream(dev)
+    try:
+        for s in (torch.cuda.current_stream(dev), stream):
+            s.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(s):
+                x = torch.ones(16, 16, device=dev, requires_grad=True)
+                (x @ x).sum().backward()
+            torch.cuda.current_stream(dev).wait_stream(s)
+        torch.cuda.synchronize(dev)
+    finally:
+        _give_back_side_stream(dev, stream)
+
+
 @dataclasses.dataclass
 class _Captured:
     """One captured training step: its graph, the static input buffers it
@@ -307,7 +458,8 @@ class _TrainStep:
     None unless this step met a new batch signature (0.0 on the CPU,
     which captures nothing)."""
 
-    def __init__(self, state: "TrainState", loss_fn: Callable, device: torch.device):
+    def __init__(self, state: "TrainState", loss_fn: Callable,
+                 device: torch.device, stream: Any):
         self.state = state
         self.loss_fn = loss_fn
         self.device = device
@@ -316,8 +468,7 @@ class _TrainStep:
         self.signatures: set = set()
         self.captured: Dict[tuple, _Captured] = {}
         self.pool = None
-        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
-                       else None)
+        self.stream = stream
 
     def _step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         loss, metrics = self.loss_fn(self.state.model, batch, self.generator)
@@ -549,6 +700,35 @@ def _read_progress_step(checkpoint_dir: str) -> int:
         return 0
 
 
+# ---- the profiler
+
+def _start_profiler(device: torch.device):
+    """A started ``torch.profiler`` over the host and, on CUDA, the card."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
+def _stop_profiler(profiler, config: TrainLoopConfig, start_step: int) -> str:
+    """Stop ``profiler`` and write its Chrome trace under
+    ``config.profile_dir``; returns the path."""
+    profiler.stop()
+    os.makedirs(config.profile_dir, exist_ok=True)
+    path = os.path.join(
+        config.profile_dir,
+        f"train_steps_{start_step + config.profile_from}-"
+        f"{start_step + config.profile_to}.pt.trace.json",
+    )
+    profiler.export_chrome_trace(path)
+    log.info("profile of steps [%d, %d) written to %s",
+             start_step + config.profile_from,
+             start_step + config.profile_to, path)
+    return path
+
+
 # ---- the loop
 
 def _run_eval(model, loss_fn, eval_iter_fn, config, device) -> Dict[str, float]:
@@ -592,10 +772,23 @@ def train_loop(
     """Train on ``device``; returns ``(model, TrainResult)``.  See the
     module docstring for the contract."""
     _refuse_unported(config, mesh)
+    tracker = GoodputTracker(
+        job_name="train_loop",
+        jsonl_path=(os.path.join(checkpoint_dir, "goodput_log.jsonl")
+                    if checkpoint_dir else ""),
+    )
+    tracker.job_start()
+    tracker.tpu_init_start()
     dev = resolve_device(device)
+    tracker.tpu_init_end()
 
     train_it = iter(train_iter)
-    first_batch = next(train_it)
+    tracker.data_loading_start()
+    try:
+        first_batch = next(train_it)
+    finally:
+        tracker.data_loading_end()
+    tracker.training_prep_start()
     model = init_params_fn(
         torch.Generator().manual_seed(int(config.seed)), first_batch
     )
@@ -649,8 +842,9 @@ def train_loop(
     )
     g_mfu = reg.gauge(
         "train_mfu",
-        "Model-FLOPs utilization; 0 until measured (the port has no "
-        "counted-FLOP cost analysis yet).",
+        "Model-FLOPs utilization: counted FLOPs/step x post-warmup steps / "
+        "device-compute seconds / (peak chip FLOPs x chips); 0 until "
+        "measured (needs collect_cost_analysis and a known peak).",
     )
     g_dev_peak = reg.gauge(
         "device_memory_peak_bytes",
@@ -677,7 +871,20 @@ def train_loop(
          if np.asarray(v).dtype.kind in "iu" and np.asarray(v).ndim >= 2),
         default=0,
     )
-    monitor = HealthMonitor("train_loop", on_alert=config.health_alert_cb)
+    monitor = HealthMonitor(
+        "train_loop",
+        stall_timeout_s=config.stall_timeout_s,
+        on_alert=config.health_alert_cb,
+    )
+    tb_writer = (SummaryWriter(config.tensorboard_dir)
+                 if config.tensorboard_dir else None)
+    last_tb = {"train": -1, "eval": -1}
+
+    def tb_write(kind: str, at_step: int, scalars: Dict[str, float]) -> None:
+        if tb_writer is None or not scalars:
+            return
+        tb_writer.write_scalars(at_step, scalars)  # flushed per write
+        last_tb[kind] = at_step
 
     eff_window = _effective_window_steps(config)
     step = start_step
@@ -710,6 +917,7 @@ def train_loop(
         ev = _run_eval(state.model, loss_fn, eval_iter_fn, config, dev)
         if metrics_cb:
             metrics_cb(at_step, {f"eval_{k}": v for k, v in ev.items()})
+        tb_write("eval", at_step, {f"eval_{k}": v for k, v in ev.items()})
         log.info("step %d eval: %s", at_step, ev)
 
     def window_lengths(start: int):
@@ -726,17 +934,26 @@ def train_loop(
             yield stop - s
             s = stop
 
-    runner = _TrainStep(state, loss_fn, dev)
     compiles_after_warm = 0
     compile_seconds = 0.0
     saver = (_AsyncCheckpointSaver(checkpoint_dir, config.keep_checkpoints, dev)
              if checkpoint_dir else None)
     infeed = windowed_infeed(itertools.chain([first_batch], train_it),
                              window_lengths(step), WindowStager(dev))
+    profiler = None
+    tracker.training_prep_end()
+    runner = _TrainStep(state, loss_fn, dev, _take_side_stream(dev))
     try:
         while step < config.train_steps:
+            if (config.profile_dir and profiler is None
+                    and step - start_step == config.profile_from):
+                profiler = _start_profiler(dev)
             t_in = time.perf_counter()
-            item = next(infeed, None)
+            tracker.data_loading_start()
+            try:
+                item = next(infeed, None)
+            finally:
+                tracker.data_loading_end()
             t_fetched = time.perf_counter()
             infeed_s = t_fetched - t_in
             if item is None:
@@ -748,6 +965,7 @@ def train_loop(
             window.wait()
             rows: Optional[torch.Tensor] = None
             for i in range(w):
+                tracker.step_start(step + i)
                 row, capture_s = runner.run(window.step(i), step + i)
                 if capture_s is not None:
                     compile_seconds += capture_s
@@ -767,6 +985,10 @@ def train_loop(
             window.release()
             step += w
             state.step = step
+            if profiler is not None and step - start_step >= config.profile_to:
+                # The fetch above proved the profiled steps executed.
+                _stop_profiler(profiler, config, start_step)
+                profiler = None
             now = time.perf_counter()
             if t_start is None:
                 t_start = now  # the first window absorbs warm-up
@@ -800,6 +1022,7 @@ def train_loop(
                     host_metrics = {k: float(host[i, j]) for j, k in enumerate(names)}
                     if metrics_cb:
                         metrics_cb(s_i, host_metrics)
+                    tb_write("train", s_i, host_metrics)
                     log.info("step %d: %s", s_i, host_metrics)
             metrics = {k: float(host[-1, j]) for j, k in enumerate(names)}
             publish(step, step - window_anchor[0], now - window_anchor[1])
@@ -813,20 +1036,57 @@ def train_loop(
                     and step % config.eval_every == 0):
                 emit_eval(step)
 
+        if profiler is not None:
+            _stop_profiler(profiler, config, start_step)
+            profiler = None
         elapsed = max(1e-9, time.perf_counter() - (t_start or time.perf_counter()))
         final_metrics: Dict[str, float] = dict(metrics or {})
         if eval_iter_fn is not None:
             ev = _run_eval(state.model, loss_fn, eval_iter_fn, config, dev)
             final_metrics.update({f"eval_{k}": v for k, v in ev.items()})
+        if tb_writer is not None:
+            # Only what the in-loop cadence did not already write at this
+            # step: a same-tag, same-step rewrite doubles a point.
+            tail: Dict[str, float] = {}
+            if step != last_tb["train"]:
+                tail.update({k: v for k, v in final_metrics.items()
+                             if not k.startswith("eval_")})
+            if step != last_tb["eval"]:
+                tail.update({k: v for k, v in final_metrics.items()
+                             if k.startswith("eval_")})
+            tb_write("train", step, tail)
         if saver is not None:
             if saved_step != step:
                 saver.save(state)
             saver.fence()  # the final checkpoint is on disk before returning
             _write_progress(checkpoint_dir, step)
     finally:
+        _give_back_side_stream(dev, runner.stream)
         infeed.close()  # stops the prefetch thread
         if saver is not None:
             saver.join()  # no save thread outlives the loop, error or not
+        if profiler is not None:
+            profiler.stop()
+        monitor.close()
+        if tb_writer is not None:
+            tb_writer.close()
+
+    cost_flops = None
+    cost_source = ""
+    if config.collect_cost_analysis and metrics is not None:
+        # After the timed loop, so the count cannot touch the throughput.
+        cost_flops = count_step_flops(
+            state.model, loss_fn, _to_device(first_batch, dev), config.seed)
+        cost_source = "counted"
+    steps_measured = (examples_after_t0 / config.batch_size
+                      if config.batch_size else 0)
+    peak = _peak_flops(config, dev)
+    mfu = None
+    if cost_flops and peak and steps_measured > 0:
+        device_s = phase_totals["device_compute"] or elapsed
+        if device_s > 0:
+            mfu = cost_flops * steps_measured / device_s / peak
+            g_mfu.set(round(mfu, 4))
 
     eps = examples_after_t0 / elapsed if examples_after_t0 else 0.0
     window_rates = sorted(
@@ -835,19 +1095,25 @@ def train_loop(
     )
     anchored_eps = window_rates[len(window_rates) // 2] if window_rates else 0.0
 
-    goodput = (
+    tracker.job_end()
+    gsum = tracker.summary()
+    proxy_goodput = (
         round(max(0.0, 1.0 - input_wait_s / elapsed), 4)
         if examples_after_t0 else 1.0
     )
+    # The tracker's figure, where it could compute one; the proxy only
+    # when it could not, and then the source says so.
+    goodput = gsum.get("goodput", proxy_goodput)
+    goodput_source = "goodput_tracker" if gsum else "host_input_wait_proxy"
     window_phase_seconds = {k: round(v, 6) for k, v in phase_totals.items()}
     # The reference's trace summaries (no-ops outside a traced run).
     _obs.instant(
         "goodput_summary", cat="trainer",
         args={
             "goodput": goodput,
-            "source": "host_input_wait_proxy",
-            "badput": {},
-            "goodput_post_compile": goodput,
+            "source": goodput_source,
+            "badput": gsum.get("badput", {}),
+            "goodput_post_compile": proxy_goodput,
             "steps_completed": step,
             "replayed_steps": replayed_steps,
         },
@@ -859,7 +1125,7 @@ def train_loop(
             "compiles_after_warm": compiles_after_warm,
             "compile_seconds": round(compile_seconds, 6),
             "collective_fraction_est": 0.0,
-            "mfu": None,
+            "mfu": mfu,
             "window_steps": eff_window,
         },
     )
@@ -872,8 +1138,12 @@ def train_loop(
         steps_completed=step,
         resumed_from_step=start_step,
         goodput=goodput,
-        goodput_source="host_input_wait_proxy",
-        goodput_post_compile=goodput,
+        goodput_source=goodput_source,
+        goodput_post_compile=proxy_goodput,
+        badput=gsum.get("badput", {}),
+        cost_analysis_flops_per_step=cost_flops,
+        cost_analysis_source=cost_source,
+        mfu=round(mfu, 4) if mfu is not None else None,
         window_steps=eff_window,
         replayed_steps=replayed_steps,
         window_phase_seconds=window_phase_seconds if eff_window > 1 else {},
