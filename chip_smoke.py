@@ -106,6 +106,29 @@ Phases (any failure raises and the script exits non-zero):
      of two graph runs and the eager steps, MFU, peak memory of graph and
      eager, the captured AdamW update fused and foreach, and a profiled
      step, eager and replayed;
+  8b. dp_train — data-parallel training (A5).  (a) A world of one over
+     NCCL (a process group made here over a FileStore): BERT-base at full
+     width, batch DP_BATCH x SEQ_LEN, dropout 0, DP_STEPS steps in each of
+     the implicit mode, psum_bucketed at accumulation 1 and 2, ordered
+     (G = DP_BLOCKS, accumulation 2) and fsdp (every parameter sharded on
+     dim 0): one capture and a replay a step each, with collectives issued
+     inside the capture; the four attention kernels launched 12 x
+     forwards a step x steps; losses within DP_LOSS_TOL and parameter
+     changes within DP_CHANGE_TOL of the single-device loop's (a planted
+     fault, every second micro-batch's gradient dropped, must miss the
+     latter); ordered's replay == its eager steps bit for bit;
+     fsdp within DP_GRAD_TOL of psum; report examples/s per mode and the
+     collective share of profiled replays.  (c) ResNet-50, psum_bucketed,
+     accumulation 2, sync-BN: replay == eager bit for bit with the running
+     statistics.  (b) Two ranks on the one card over gloo (spawned; NCCL
+     refuses two ranks on one device, and gloo's steps run eagerly):
+     every mode equal on both ranks; the ordered run (DP_TWO_LAYERS
+     layers) equal bit for bit to a captured world of one over NCCL; the
+     two ranks stopped after 3 steps past their checkpoint at 2 and the
+     survivor resumed at a world of one, replaying 1 step, equal bit for
+     bit to the uninterrupted run; ResNet-50's BatchNorm buffers after a
+     step equal on both ranks and to the mean of each rank's own
+     statistics;
   9. taxi_dag — the Chicago-taxi DAG (all nine nodes of
      ``tpu_pipelines_torch/examples/taxi_pipeline.py``) through
      ``LocalDagRunner(device="cuda")`` over a CSV of TAXI_ROWS rows made
@@ -6865,6 +6888,658 @@ def build_kernels():
           flush=True)
 
 
+# ---- data-parallel training (A5)
+
+# The dp_train phase.  (a) A world of one over NCCL in this process (a
+# process group over a FileStore): BERT-base at full width, global batch
+# DP_BATCH x SEQ_LEN, dropout 0 (so steps split into micro-batches and
+# blocks compare with the single-device loop's), DP_STEPS steps in each
+# mode of DP_RUNS from one capture.  (b) Two ranks on the one card over
+# gloo, the backend the collectives' probe found carrying every collective
+# on CUDA tensors (NCCL refuses two ranks on one device): each mode eagerly
+# (gloo cannot be captured) at DP_TWO_LAYERS layers, dropout 0.1, and the
+# elastic resume onto a world of one over NCCL, captured.  (c) Sync-BN:
+# ResNet-50 at a world of one over NCCL, and BatchNorm buffers across (b)'s
+# two ranks.
+DP_BATCH = 64
+DP_STEPS = 6
+DP_BLOCKS = 8
+DP_LR = 2e-5
+# (mode, grad_accum_steps); "" is the implicit mode (one all-reduce).
+DP_RUNS = [("", 1), ("psum_bucketed", 1), ("psum_bucketed", 2),
+           ("ordered", 2), ("fsdp", 1)]
+DP_PROFILE = (4, 6)          # the profiled steps of each (a) run
+DP_TWO_LAYERS = 2
+DP_TWO_STEPS = 4
+DP_TWO_BACKEND = "gloo"
+DP_VISION_BATCH = 64
+DP_VISION_STEPS = 4
+# Each step's loss in a mode against the single-device loop's on the same
+# batches (relative): the implicit and psum modes at accumulation 1 run the
+# same products; accumulation and ordered's blocks run them on 32 and 8
+# rows instead of 64, so cuBLAS may pick other bf16 GEMMs whose sums round
+# otherwise.
+DP_LOSS_TOL = 1e-2
+# Each mode's parameter changes over the run against the single-device
+# loop's, as the relative L2 distance (param_change_gap).  On an H100:
+# about 1e-9 at accumulation 1 (the same products), 4.1e-2 and 4.2e-2 for
+# psum_bucketed and ordered at accumulation 2 (AdamW moves a parameter by
+# about lr whatever its gradient, so bf16 noise on small gradients shows
+# at full size).  A planted fault, psum_bucketed at accumulation 2 with
+# every second micro-batch's gradient dropped (its loss kept), read 0.97
+# and must land above the limit.
+DP_CHANGE_TOL = 0.2
+# fsdp against psum_bucketed at a world of one: the same values (the
+# gathers and the reduce-scatter copy at W = 1), held as the relative L2
+# distance of every parameter's change over the run.
+DP_GRAD_TOL = 1e-6
+DP_COLLECTIVES = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+
+
+def dp_hparams(layers=None, dropout=0.0):
+    hp = {**DEFAULT_HPARAMS, "attn_impl": "flash", "max_len": SEQ_LEN,
+          "num_classes": 2, "dropout_rate": dropout}
+    if layers is not None:
+        hp["n_layers"] = layers
+    return hp
+
+
+def dp_config(mode, accum, steps, seed, hp, batch_size=DP_BATCH, **kw):
+    """The loop's config of one data-parallel run.  fsdp gets a partition
+    sharding every parameter on dim 0 over 'data', so a world of one
+    gathers and reduce-scatters each (the default partition shards
+    nothing on one rank)."""
+    partition = None
+    if mode == "fsdp":
+        from tpu_pipelines_torch.parallel.partition import make_param_partition
+
+        with torch.device("meta"):
+            partition = make_param_partition(build_bert_model(hp),
+                                             [(r".", ("data",))])
+    return TrainLoopConfig(
+        train_steps=steps, batch_size=batch_size, log_every=1, seed=seed,
+        dp_collective=mode or None, collective_buckets=2,
+        dp_grad_blocks=DP_BLOCKS, grad_accum_steps=accum,
+        param_partition=partition, **kw)
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Count the collectives issued, and those issued inside a CUDA-graph
+    capture, by name."""
+    import torch.distributed as dist
+
+    counts = {"issued": {}, "captured": {}}
+    patches = []
+    for name in DP_COLLECTIVES:
+        real = getattr(dist, name)
+
+        def wrapper(*args, _real=real, _name=name, **kwargs):
+            counts["issued"][_name] = counts["issued"].get(_name, 0) + 1
+            if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+                counts["captured"][_name] = counts["captured"].get(_name, 0) + 1
+            return _real(*args, **kwargs)
+
+        patches.append(mock.patch.object(dist, name, wrapper))
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        yield counts
+
+
+def dp_run(hp, seed, batches, mode, accum, *, profile_dir="", ckpt="",
+           checkpoint_every=0, loss_fn=bert_module.loss_fn,
+           init=None, has_model_state=False, optimizer=None, window=1,
+           train_steps=None):
+    """train_loop over ``batches`` in ``mode`` (``train_steps``: the run's
+    last step, default the batches'); returns (model, result, per-step
+    losses, {captures, replays}, collectives counted)."""
+    losses = []
+    calls = {"captures": 0, "replays": 0}
+
+    def counted(name, method):
+        def wrapper(self, *args, **kwargs):
+            calls[name] += 1
+            return method(self, *args, **kwargs)
+        return wrapper
+
+    kw = {"window_steps": window, "anchor_every": 1}
+    if profile_dir:
+        kw.update(profile_dir=profile_dir, profile_from=DP_PROFILE[0],
+                  profile_to=DP_PROFILE[1])
+    graph = torch.cuda.CUDAGraph
+    with mock.patch.object(graph, "replay", counted("replays", graph.replay)), \
+            mock.patch.object(graph, "capture_begin",
+                              counted("captures", graph.capture_begin)), \
+            counted_collectives() as collectives:
+        model, result = train_loop(
+            loss_fn=loss_fn,
+            init_params_fn=init or functools.partial(
+                bert_module.init_params_fn, hyperparameters=hp),
+            optimizer=optimizer or bert_module.adamw(DP_LR),
+            train_iter=iter(batches),
+            config=dp_config(mode, accum, train_steps or len(batches), seed,
+                             hp, batch_size=len(next(iter(batches[0].values()))),
+                             checkpoint_every=checkpoint_every, **kw),
+            checkpoint_dir=ckpt, has_model_state=has_model_state,
+            metrics_cb=lambda step, m: losses.append(m["loss"]),
+            device=DEVICE,
+        )
+    return model, result, losses, calls, collectives
+
+
+def dp_eager(hp, seed, batches, mode, accum, mesh, *, loss_fn=bert_module.loss_fn,
+             init=None, has_model_state=False, optimizer=None):
+    """The steps of ``dp_run`` written out eagerly: the loop's init, the
+    mode's DataParallel step, ``_step_seed(seed, s)`` seeding its
+    generators, each rank's rows copied to the device.  Returns (model,
+    per-step losses)."""
+    from tpu_pipelines_torch.trainer.data_parallel import DataParallel
+
+    model = (init or functools.partial(bert_module.init_params_fn,
+                                       hyperparameters=hp))(
+        torch.Generator().manual_seed(seed), batches[0])
+    model.to(DEVICE).train()
+    config = dp_config(mode, accum, len(batches), seed, hp,
+                       batch_size=len(next(iter(batches[0].values()))))
+    dp = DataParallel.build(config, mesh, model, mode, has_model_state)
+    opt = (optimizer or bert_module.adamw(DP_LR))(dp.parameters(model))
+    dp.attach(model)
+    generators = [torch.Generator(device=DEVICE)
+                  for _ in range(dp.generator_count())]
+    losses = []
+    try:
+        for s, batch in enumerate(batches):
+            dp.seed_generators(generators, _step_seed(seed, s))
+            local = {k: torch.as_tensor(v, device=DEVICE)
+                     for k, v in dp.local_batch(batch).items()}
+            loss, _ = dp.step(model, loss_fn, local, generators, opt, None)
+            losses.append(float(loss))
+    finally:
+        dp.detach()
+    dp.unshard(model)
+    return model, losses
+
+
+def trace_kernels(path):
+    """(name, device µs) of every kernel and copy in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e.get("name", ""), float(e.get("dur", 0))) for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def collective_share(kernels):
+    """The collectives' device time in a profiled trace (NCCL's kernels,
+    and the copies: at a world of one NCCL reduces a collective to a copy
+    or to nothing) over all device time; (share, nccl kernel names)."""
+    total = sum(d for _, d in kernels) or 1.0
+    nccl = [(n, d) for n, d in kernels if "nccl" in n.lower()]
+    copies = [(n, d) for n, d in kernels
+              if "memcpy" in n.lower() and "nccl" not in n.lower()]
+    return (sum(d for _, d in nccl + copies) / total,
+            sorted({n.split("(")[0] for n, _ in nccl}))
+
+
+def dp_group(backend, world=1, rank=0):
+    """A process group over a FileStore in a temporary directory (world
+    of one: this process); returns the directory to clean up."""
+    import datetime
+
+    import torch.distributed as dist
+
+    tmp = tempfile.TemporaryDirectory()
+    store = dist.FileStore(os.path.join(tmp.name, "store"), world)
+    kwargs = {}
+    if backend == "nccl":
+        kwargs["device_id"] = torch.device(DEVICE, torch.cuda.current_device())
+    dist.init_process_group(backend, store=store, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=300), **kwargs)
+    return tmp
+
+
+def dropping_every_second_gradient():
+    """bert_module.loss_fn with the gradient of every second call dropped
+    and its loss kept: at accumulation 2 the eager first step and the
+    capture call it for micro-batch 0, then 1, so micro-batch 1 of each
+    step adds nothing to the update."""
+    calls = [0]
+
+    def loss_fn(model, batch, generator):
+        loss, metrics = bert_module.loss_fn(model, batch, generator)
+        calls[0] += 1
+        if calls[0] % 2 == 0:
+            loss = loss.detach() + 0.0 * loss
+        return loss, metrics
+
+    return loss_fn
+
+
+def param_change_gap(a, b, init):
+    """Relative L2 distance of two runs' parameter changes from ``init``."""
+    num = den = 0.0
+    for name, p in a.items():
+        da = p.float() - init[name].float()
+        db = b[name].float() - init[name].float()
+        num += float((da - db).pow(2).sum())
+        den += float(db.pow(2).sum())
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def dp_train_phase(seed, card):
+    """ROADMAP A5 on the card: (a) every mode at a world of one over NCCL
+    from one capture and (c) sync-BN, in a process of their own, so no
+    process group, NCCL state or profiler session of theirs reaches the
+    later phases; then (b) two ranks on the one card over gloo and the
+    elastic resume onto a world of one.  Returns the four attention
+    kernels' launches over (a)'s runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    one = dp_spawn(1, None, seed, [("one", "world_of_one", {"card": card})])[0]
+    launches, failures = one["one"]
+    failures = failures + dp_two_ranks_phase(seed, card)
+    if failures:
+        raise AssertionError("dp_train: " + "; ".join(failures))
+    return launches
+
+
+def dp_world_of_one(seed, card):
+    """(a) and (c) in this process: the single-device loop, then a process
+    group of one over NCCL and every mode of DP_RUNS, ordered's eager
+    steps, fsdp against psum, and ResNet-50's sync-BN.  Returns (the
+    attention kernels' launches over the modes' runs, failures)."""
+    import torch.distributed as dist
+
+    hp = dp_hparams()
+    batches = training_batches(seed, hp["vocab_size"], DP_STEPS, batch=DP_BATCH)
+    layers = hp["n_layers"]
+
+    # The single-device loop, before any process group exists.
+    zero_counters()
+    base_model, base_result, base_losses, base_calls, _ = dp_run(
+        hp, seed, batches, None, 1)
+    base_params = {n: p.detach().clone() for n, p in base_model.named_parameters()}
+    del base_model
+    init = {n: p.detach().to(DEVICE) for n, p in
+            bert_module.init_params_fn(torch.Generator().manual_seed(seed),
+                                       batches[0], hyperparameters=hp)
+            .named_parameters()}
+    failures = []
+    if base_result.step_capture != "cuda_graph":
+        failures.append(f"single-device loop {base_result.step_capture}")
+    print(f"dp_train [{card}] (a) single-device loop: BERT-base, batch "
+          f"{DP_BATCH} x {SEQ_LEN}, {DP_STEPS} steps: {base_calls}, "
+          f"{base_result.anchored_examples_per_sec_per_chip} examples/s/chip",
+          flush=True)
+    launches = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "flash_bwd_dvec": 0}
+    tmp = dp_group("nccl")
+    try:
+        print(f"dp_train [{card}] (a) world of one over {dist.get_backend()}, "
+              f"NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}", flush=True)
+        runs = {}
+        for mode, accum in DP_RUNS:
+            key = f"{mode or 'implicit'}/accum{accum}"
+            forwards = accum * (DP_BLOCKS if mode == "ordered" else 1)
+            with tempfile.TemporaryDirectory() as prof:
+                zero_counters()
+                model, result, losses, calls, coll = dp_run(
+                    hp, seed, batches, mode, accum, profile_dir=prof)
+                got = {"flash_fwd": fa.launches, "flash_bwd_dq": fa.dq_launches,
+                       "flash_bwd_dkv": fa.dkv_launches,
+                       "flash_bwd_dvec": fa.dvec_launches}
+                traces = [os.path.join(prof, f) for f in os.listdir(prof)]
+                kernels = trace_kernels(traces[0])
+            for name in launches:
+                launches[name] += got[name]
+            share, nccl_names = collective_share(kernels)
+            gap = max(abs(a - b) / abs(b) for a, b in zip(losses, base_losses))
+            want = layers * forwards * DP_STEPS
+            runs[key] = {"params": {n: p.detach().clone()
+                                    for n, p in model.named_parameters()},
+                         "losses": losses}
+            change = param_change_gap(runs[key]["params"], base_params, init)
+            del model
+            print(f"dp_train [{card}] (a) {key}: {calls}, {result.step_capture}, "
+                  f"compiles after warm {result.compiles_after_warm}; collectives "
+                  f"issued {coll['issued']}, inside the capture "
+                  f"{coll['captured']}; launches {got} (want {want} each: "
+                  f"{layers} layers x {forwards} forwards a step x {DP_STEPS} "
+                  f"steps); {result.anchored_examples_per_sec_per_chip} "
+                  f"examples/s/chip (single device "
+                  f"{base_result.anchored_examples_per_sec_per_chip}); profiled "
+                  f"replays: collective share {share:.4f}, NCCL kernels "
+                  f"{nccl_names or 'none'} of {len(kernels)} device events; "
+                  f"max rel loss gap to the single-device loop {gap:.3e}; "
+                  f"parameter changes' relative L2 gap to it {change:.3e}",
+                  flush=True)
+            print(f"dp_train (a) {key} losses: "
+                  + " ".join(f"{x:.6f}" for x in losses), flush=True)
+            if calls != {"captures": 1, "replays": DP_STEPS - 1}:
+                failures.append(f"{key}: {calls}")
+            if result.step_capture != "cuda_graph" or result.dp_collective != mode:
+                failures.append(f"{key}: {result.step_capture} {result.dp_collective}")
+            if not coll["captured"]:
+                failures.append(f"{key}: no collective inside the capture")
+            if any(v != want for v in got.values()):
+                failures.append(f"{key}: launches {got}, want {want}")
+            if not np.isfinite(losses).all() or gap > DP_LOSS_TOL:
+                failures.append(f"{key}: losses {losses}, gap {gap}")
+            if change > DP_CHANGE_TOL:
+                failures.append(f"{key}: parameter change gap {change}")
+
+        # The planted fault: every second micro-batch's gradient dropped.
+        model, _, losses, _, _ = dp_run(hp, seed, batches, "psum_bucketed", 2,
+                                        loss_fn=dropping_every_second_gradient())
+        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, base_losses))
+        change = param_change_gap({n: p.detach() for n, p in model.named_parameters()},
+                                  base_params, init)
+        del model
+        print(f"dp_train (a) planted fault, psum_bucketed/accum2 with every "
+              f"second micro-batch's gradient dropped: max rel loss gap "
+              f"{gap:.3e} (tolerance {DP_LOSS_TOL:g}); parameter changes' "
+              f"relative L2 gap {change:.3e} (tolerance {DP_CHANGE_TOL:g}, "
+              f"must be missed)", flush=True)
+        if change <= DP_CHANGE_TOL:
+            failures.append(f"planted fault within DP_CHANGE_TOL: {change}")
+
+        # ordered: replay == eager, bit for bit.
+        model, eager_losses = dp_eager(hp, seed, batches, "ordered", 2,
+                                       make_dp_mesh())
+        graph = runs["ordered/accum2"]
+        unequal = [n for n, p in model.named_parameters()
+                   if not torch.equal(p.detach(), graph["params"][n])]
+        print(f"dp_train (a) ordered replay vs eager: losses "
+              f"{'equal' if eager_losses == graph['losses'] else 'DIFFER'} bit "
+              f"for bit, {len(unequal)} parameters differ", flush=True)
+        if eager_losses != graph["losses"] or unequal:
+            failures.append(f"ordered replay != eager: {unequal[:4]}")
+        gap = param_change_gap(runs["fsdp/accum1"]["params"],
+                               runs["psum_bucketed/accum1"]["params"], init)
+        print(f"dp_train (a) fsdp vs psum_bucketed: relative L2 gap of the "
+              f"parameter changes {gap:.3e} (tolerance {DP_GRAD_TOL:g})", flush=True)
+        if gap > DP_GRAD_TOL:
+            failures.append(f"fsdp vs psum gap {gap}")
+        del model, runs, init, base_params
+
+        failures += dp_vision_phase(seed, card)
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+    return launches, failures
+
+
+def make_dp_mesh():
+    from tpu_pipelines_torch.parallel.mesh import make_mesh
+
+    return make_mesh(device=DEVICE)
+
+
+def dp_vision_phase(seed, card):
+    """(c) ResNet-50 at a world of one over NCCL, psum_bucketed, grad
+    accumulation 2, has_model_state: replay == eager bit for bit, running
+    statistics included (cuDNN deterministic on both sides)."""
+    hp = {**VISION_HP, "batch_size": DP_VISION_BATCH}
+    rng = np.random.default_rng(seed + 41)
+    size = hp["image_size"]
+    batches = [{"image": rng.standard_normal((DP_VISION_BATCH, size, size, 3),
+                                             np.float32),
+                "label": rng.integers(0, hp["num_classes"],
+                                      size=DP_VISION_BATCH).astype(np.int64)}
+               for _ in range(DP_VISION_STEPS)]
+    init = lambda generator, sample: vision_init(seed)
+    opt = resnet_module.sgd(hp["learning_rate"], hp["momentum"])
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    failures = []
+    try:
+        g_model, result, g_losses, calls, coll = dp_run(
+            None, seed, batches, "psum_bucketed", 2, loss_fn=resnet_module.loss_fn,
+            init=init, has_model_state=True, optimizer=opt)
+        g_state = {k: v.clone() for k, v in g_model.state_dict().items()}
+        del g_model
+        e_model, e_losses = dp_eager(
+            None, seed, batches, "psum_bucketed", 2, make_dp_mesh(),
+            loss_fn=resnet_module.loss_fn, init=init, has_model_state=True,
+            optimizer=opt)
+        e_state = e_model.state_dict()
+        unequal = [k for k, v in e_state.items() if not torch.equal(v, g_state[k])]
+        first = vision_init(seed).state_dict()
+        moved = sum(1 for k, v in g_state.items()
+                    if "running" in k and not torch.equal(v.cpu(), first[k]))
+        n_running = sum(1 for k in g_state if "running" in k)
+        del e_model, e_state, g_state
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"dp_train [{card}] (c) ResNet-{hp['depth']} {size}x{size}, batch "
+          f"{DP_VISION_BATCH}, psum_bucketed, grad_accum_steps 2, sync-BN: "
+          f"{calls}, {result.step_capture}, collectives inside the capture "
+          f"{coll['captured']}; replay vs eager: losses "
+          f"{'equal' if g_losses == e_losses else 'DIFFER'}, {len(unequal)} state "
+          f"tensors differ; {moved} of {n_running} running buffers moved",
+          flush=True)
+    if calls != {"captures": 1, "replays": DP_VISION_STEPS - 1}:
+        failures.append(f"vision {calls}")
+    if g_losses != e_losses or unequal or moved != n_running:
+        failures.append(f"vision replay != eager: {unequal[:4]}, moved {moved}")
+    return failures
+
+
+def _dp_rank_worker(rank, world, backend, init_file, out_dir, seed, jobs):
+    """One process of the dp_train phase on device 0: joins a ``backend``
+    group of ``world`` (none for None) and runs ``jobs`` (``[(name, kind,
+    kwargs)]``), saving what each gave to ``out_dir/<rank>.pt``."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        if backend is not None:
+            dist.init_process_group(
+                backend, init_method=f"file://{init_file}", world_size=world,
+                rank=rank, timeout=datetime.timedelta(seconds=300))
+        for name, kind, kwargs in jobs:
+            job = {"bert": _dp_bert_job, "bn": _dp_bn_job,
+                   "world_of_one": dp_world_of_one}[kind]
+            out[name] = job(seed, **kwargs)
+    except BaseException:  # noqa: BLE001 (reported by the parent)
+        out["error"] = traceback.format_exc()
+    torch.save(out, os.path.join(out_dir, f"{rank}.pt"))
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def _dp_bert_job(seed, *, mode, steps, first=0, ckpt="", checkpoint_every=0):
+    """BERT-base at DP_TWO_LAYERS layers, dropout 0.1, over batches
+    [first, steps) of the run's DP_TWO_STEPS."""
+    hp = dp_hparams(DP_TWO_LAYERS, dropout=0.1)
+    batches = training_batches(seed, hp["vocab_size"], DP_TWO_STEPS,
+                               batch=DP_BATCH)[first:steps]
+    model, result, losses, calls, coll = dp_run(
+        hp, seed, batches, mode, 1, ckpt=ckpt, checkpoint_every=checkpoint_every,
+        train_steps=steps)
+    return {"params": {n: p.detach().cpu() for n, p in model.named_parameters()},
+            "losses": losses, "calls": calls, "issued": coll["issued"],
+            "captured": coll["captured"], "step_capture": result.step_capture,
+            "dp_collective": result.dp_collective,
+            "resumed_from_step": result.resumed_from_step,
+            "replayed_steps": result.replayed_steps,
+            "steps_completed": result.steps_completed}
+
+
+def _dp_bn_job(seed):
+    """ResNet-50's BatchNorm buffers after one psum_bucketed step of
+    has_model_state training, and the mean of each rank's own statistics
+    (a train-mode forward of its rows from the same initial buffers,
+    gathered)."""
+    import torch.distributed as dist
+
+    from tpu_pipelines_torch.parallel.mesh import local_rows, make_mesh
+
+    hp = {**VISION_HP, "batch_size": DP_VISION_BATCH}
+    rng = np.random.default_rng(seed + 43)
+    size = hp["image_size"]
+    batch = {"image": rng.standard_normal((DP_VISION_BATCH, size, size, 3),
+                                          np.float32),
+             "label": rng.integers(0, hp["num_classes"],
+                                   size=DP_VISION_BATCH).astype(np.int64)}
+    model = vision_init(seed).to(DEVICE).train()
+    rows = local_rows(batch, make_mesh(device=DEVICE))
+    # The step's own forward (the loss_fn, gradients on) on this rank's
+    # rows, from the same initial buffers: the statistics before the sync.
+    resnet_module.loss_fn(model, {k: torch.as_tensor(v, device=DEVICE)
+                                  for k, v in rows.items()}, None)
+    own = [b.detach().clone() for b in bn_buffers(model)]
+    gathered = [[torch.empty_like(b) for _ in range(dist.get_world_size())]
+                for b in own]
+    for b, out in zip(own, gathered):
+        dist.all_gather(out, b)
+    want = [(g[0] + g[1]) * 0.5 for g in gathered]
+    trained, result, _, _, _ = dp_run(
+        None, seed, [batch], "psum_bucketed", 1, loss_fn=resnet_module.loss_fn,
+        init=lambda generator, sample: vision_init(seed), has_model_state=True,
+        optimizer=resnet_module.sgd(hp["learning_rate"], hp["momentum"]))
+    got = [b.detach() for b in bn_buffers(trained)]
+    return {"buffers": [b.cpu() for b in got],
+            "equal_to_mean": all(torch.equal(a, b) for a, b in zip(got, want)),
+            "max_gap": max(float((a - b).abs().max()) for a, b in zip(got, want)),
+            "moved": sum(not torch.equal(a, b) for a, b in zip(got, own)),
+            "step_capture": result.step_capture}
+
+
+def dp_spawn(world, backend, seed, jobs, timeout_s=600.0):
+    """``jobs`` on ``world`` spawned processes of device 0 (ranks of a
+    ``backend`` group, or no group for None); returns each one's results.
+    They are joined within ``timeout_s`` and killed past it."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_dp_rank_worker, args=(
+            r, world, backend, os.path.join(tmp, "init"), tmp, seed, jobs))
+            for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s
+        for p in procs:
+            p.join(max(0.1, deadline - time.monotonic()))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        out = []
+        for r in range(world):
+            path = os.path.join(tmp, f"{r}.pt")
+            if not os.path.exists(path):
+                raise AssertionError(f"dp_train: rank {r} of {world} over "
+                                     f"{backend} left no result")
+            res = torch.load(path, weights_only=False)
+            if "error" in res:
+                raise AssertionError(f"dp_train: rank {r} of {world} over "
+                                     f"{backend} failed:\n{res['error']}")
+            out.append(res)
+    return out
+
+
+def dp_two_ranks_phase(seed, card):
+    """(b) Two ranks on the one card over DP_TWO_BACKEND (NCCL refuses two
+    ranks on one device; gloo carries every collective on CUDA tensors, by
+    the probe), each mode eagerly, the ordered run held bit for bit
+    against a world of one over NCCL, captured; the elastic resume onto
+    that world; and BatchNorm's buffers synced across the two ranks.
+    Returns the failures."""
+    failures = []
+    ckpt = tempfile.mkdtemp()
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    # Deterministic cuBLAS in every rank and in the world of one, so the
+    # same GEMMs run wherever a block runs.
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        jobs = [("ordered", "bert", {"mode": "ordered", "steps": DP_TWO_STEPS}),
+                ("elastic", "bert", {"mode": "ordered", "steps": 3, "ckpt": ckpt,
+                                     "checkpoint_every": 2})]
+        jobs += [(mode or "implicit", "bert", {"mode": mode, "steps": 2})
+                 for mode in ("", "psum_bucketed", "fsdp")]
+        jobs.append(("bn", "bn", {}))
+        two = dp_spawn(2, DP_TWO_BACKEND, seed, jobs)
+        # The kill: the step-3 save never became durable.
+        os.unlink(os.path.join(ckpt, "ckpt_3.pt"))
+        one = dp_spawn(1, "nccl", seed, [
+            ("ordered", "bert", {"mode": "ordered", "steps": DP_TWO_STEPS}),
+            ("resumed", "bert", {"mode": "ordered", "steps": DP_TWO_STEPS,
+                                 "first": 2, "ckpt": ckpt,
+                                 "checkpoint_every": 2})])[0]
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+
+    def same(a, b):
+        return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+    for name in ("ordered", "elastic", "implicit", "psum_bucketed", "fsdp"):
+        r0, r1 = two[0][name], two[1][name]
+        print(f"dp_train [{card}] (b) two ranks on one card over "
+              f"{DP_TWO_BACKEND}, {name}: {r0['step_capture']}; collectives "
+              f"{r0['issued']}; ranks equal {same(r0['params'], r1['params'])}; "
+              f"losses " + " ".join(f"{x:.6f}" for x in r0["losses"]), flush=True)
+        if not same(r0["params"], r1["params"]) or r0["losses"] != r1["losses"]:
+            failures.append(f"two ranks disagree in {name}")
+        if r0["step_capture"] != f"eager: {DP_TWO_BACKEND} collectives cannot be captured":
+            failures.append(f"{name}: {r0['step_capture']}")
+        if not np.isfinite(r0["losses"]).all():
+            failures.append(f"{name}: losses {r0['losses']}")
+    print("dp_train (b) NCCL with two ranks on one device: not driven on one "
+          "card (NCCL refuses a second rank on a device: 'invalid usage'); "
+          "held by tier-1 over gloo", flush=True)
+    print("dp_train (b) a captured step over two ranks: not driven on one "
+          "card (gloo's collectives run on the host and cannot be captured); "
+          "held by (a) at a world of one and by tier-1 over gloo", flush=True)
+    w1, two_full = one["ordered"], two[0]["ordered"]
+    equal = same(w1["params"], two_full["params"]) and w1["losses"] == two_full["losses"]
+    print(f"dp_train (b) ordered, two ranks (eager, {DP_TWO_BACKEND}) vs a world "
+          f"of one ({w1['step_capture']}, nccl), {DP_TWO_LAYERS} layers, G "
+          f"{DP_BLOCKS}: {'equal' if equal else 'DIFFER'} bit for bit "
+          f"(parameters and losses)", flush=True)
+    if not equal or w1["step_capture"] != "cuda_graph":
+        failures.append("two-rank ordered != world of one")
+    resumed = one["resumed"]
+    elastic_equal = same(resumed["params"], w1["params"])
+    print(f"dp_train (b) elastic: two ranks ran 3 steps (durable checkpoint "
+          f"at 2, the step-3 save lost), the survivor resumed at a world of "
+          f"one over nccl ({resumed['step_capture']}) from step "
+          f"{resumed['resumed_from_step']}, replayed {resumed['replayed_steps']} "
+          f"step(s), finished at {resumed['steps_completed']}: "
+          f"{'equal' if elastic_equal else 'DIFFERS'} bit for bit to the "
+          f"uninterrupted world of one", flush=True)
+    if (not elastic_equal or resumed["replayed_steps"] != 1
+            or resumed["resumed_from_step"] != 2
+            or resumed["steps_completed"] != DP_TWO_STEPS
+            or resumed["step_capture"] != "cuda_graph"):
+        failures.append(f"elastic resume: {resumed['replayed_steps']} replayed, "
+                        f"equal {elastic_equal}")
+    b0, b1 = two[0]["bn"], two[1]["bn"]
+    bn_equal = all(torch.equal(a, b) for a, b in zip(b0["buffers"], b1["buffers"]))
+    print(f"dp_train (b) sync-BN, ResNet-{VISION_HP['depth']}, one psum_bucketed "
+          f"step of two ranks: buffers equal on both ranks {bn_equal}; equal to "
+          f"the mean of each rank's own statistics: rank 0 "
+          f"{b0['equal_to_mean']} (max gap {b0['max_gap']:.3e}), rank 1 "
+          f"{b1['equal_to_mean']}; {b0['moved']} of {len(b0['buffers'])} buffers "
+          f"moved", flush=True)
+    if not (bn_equal and b0["equal_to_mean"] and b1["equal_to_mean"]
+            and b0["moved"] == len(b0["buffers"])):
+        failures.append("two-rank sync-BN")
+    return failures
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6888,7 +7563,6 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
     clock = [time.perf_counter()]
     started = clock[0]
 
@@ -6933,6 +7607,8 @@ def main(argv=None) -> int:
     phase_done("engine_long")
     trained = training_phase(args.seed, args.train_steps, card)
     phase_done("training")
+    dp_trained = dp_train_phase(args.seed, card)
+    phase_done("dp_train")
     # The taxi DAG launches none of the attention kernels (its Transform
     # and model are plain torch): the counters stay where training left
     # them, and the phase checks so.
@@ -6991,7 +7667,10 @@ def main(argv=None) -> int:
                                   "fleet": fleet["flash_decode"]}
     for record in bwd:
         record["launches_by_path"] = {"training": trained[record["name"]]}
-    bwd[0]["dvec_launches_by_path"] = {"training": trained["flash_bwd_dvec"]}
+    bwd[0]["dvec_launches_by_path"] = {"training": trained["flash_bwd_dvec"],
+                                       "dp_train": dp_trained["flash_bwd_dvec"]}
+    for record in (fwd, *bwd):
+        record["launches_by_path"]["dp_train"] = dp_trained[record["name"]]
     fwd["launches_by_path"]["fleet_guard"] = guard
     for path, counts in (("bert_dag", bert_dag), ("retrain_dag", retrain),
                          ("continuous", continuous),

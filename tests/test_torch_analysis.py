@@ -1192,9 +1192,10 @@ def test_tpp215_unwatched_deploy(tmp_path):
 
 
 def test_tpp213_pinned_dp_mode_with_partition(tmp_path):
-    """Held as the reference holds it: the port refuses
-    ``param_partition`` and ``dp_collective`` (ROADMAP.md A5), so the
-    rule reads source that sets them."""
+    """Held as the reference holds it, on source that sets
+    ``param_partition`` and ``dp_collective``: since ROADMAP.md A5 the
+    port's train loop runs both, and refuses the pair the rule flags (a
+    partition beside psum_bucketed or ordered, ``DataParallel.build``)."""
     got = _code_case(tmp_path, "sharded", '''
         def pinned_psum(fn_args):
             from {pkg}.trainer import TrainLoopConfig
@@ -1272,8 +1273,9 @@ def test_tpp213_pinned_dp_mode_with_partition(tmp_path):
 
 
 def test_tpp210_mesh_without_per_host_input(tmp_path):
-    """Held as the reference holds it: the port refuses a mesh (ROADMAP.md
-    A5), so the rule reads source that configures one."""
+    """Held as the reference holds it, on source that configures a mesh:
+    since ROADMAP.md A5 the port's modules train on one, each rank
+    reading its shard through ``per_host_input_config``."""
     got = _code_case(tmp_path, "meshy", '''
         def mesh_and_full_iteration(fn_args):
             from {pkg}.data.input_pipeline import InputConfig

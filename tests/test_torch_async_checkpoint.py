@@ -84,7 +84,7 @@ class _SyncSaver:
     """The synchronous save the loop made before, behind the saver's
     interface."""
 
-    def __init__(self, checkpoint_dir, keep, device):
+    def __init__(self, checkpoint_dir, keep, device, dp=None, write=True):
         self.checkpoint_dir, self.keep = checkpoint_dir, keep
 
     def save(self, state):

@@ -136,16 +136,44 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
                    "metadata.native_store", "ops._build", "models.resnet",
                    "models.mnist", "models.convert", "examples.mnist_module",
                    "examples.mnist_pipeline", "examples.resnet_module",
-                   "examples.resnet_pipeline"):
+                   "examples.resnet_pipeline", "parallel.distributed",
+                   "parallel.mesh", "parallel.partition",
+                   "trainer.data_parallel"):
         assert f"tpu_pipelines_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["modules"]
     assert {"retrain_dag_phase", "fleet_guard_phase",
             "bert_dag_phase", "continuous_phase",
             "dag_machinery_phase", "vision_train_phase",
-            "vision_serving_phase", "vision_dag_phase"} <= set(report["phases"])
+            "vision_serving_phase", "vision_dag_phase",
+            "dp_train_phase"} <= set(report["phases"])
     leaked = [m for m in report["modules"]
               if _forbidden(m) or m.split(".")[0] in NOT_AT_IMPORT]
     assert leaked == []
+
+
+DISTRIBUTED = r"""
+import json, sys
+import torch.distributed as dist
+from tpu_pipelines_torch.parallel import distributed, mesh, partition
+from tpu_pipelines_torch.trainer import data_parallel
+m = mesh.make_mesh({"data": 1}, device="cpu")
+print(json.dumps({"modules": sorted(sys.modules), "size": m.size,
+                  "initialized": dist.is_initialized()}))
+"""
+
+
+def test_torch_distributed_and_the_parallel_modules_load_no_jax():
+    """A fresh interpreter imports ``torch.distributed`` and the data-
+    parallel modules and makes a mesh: nothing of JAX or the reference."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", DISTRIBUTED], cwd=REPO,
+        env={**env, "PYTHONPATH": REPO}, capture_output=True, text=True,
+        timeout=120, check=True)
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert report["size"] == 1 and not report["initialized"]
+    assert "torch.distributed" in report["modules"]
+    assert [m for m in report["modules"] if _forbidden(m)] == []
 
 
 def test_no_port_source_imports_jax_or_the_reference():

@@ -47,7 +47,10 @@ recorded crossover and nothing below it, and a continuous controller's
 tick on the card launches every training kernel inside its window
 Trainer, and StatisticsGen's fork shard pool, forked after a kernel
 launch, writes the thread pool's stats.json bytes (a killed worker
-replaced).
+replaced).  A world of one over NCCL captures the data-parallel
+psum_bucketed step with its all-reduces inside the graph, equal to its
+eager steps bit for bit; two ranks on the one card share every
+collective over gloo, and NCCL refuses them.
 """
 
 import pytest
@@ -1415,6 +1418,91 @@ def test_a_resnet_graph_train_loop_equals_eager_with_its_running_statistics(
     for name, t in model.state_dict().items():
         if "running" in name:
             assert not torch.equal(t.cpu(), fresh[name]), name
+
+
+def test_a_world_of_one_over_nccl_captures_the_psum_step_with_its_collective(
+        cuda, tmp_path):
+    """Data parallelism (A5) at a world of one over NCCL: the tiny BERT's
+    psum_bucketed step is captured with its bucketed all-reduces inside the
+    graph (issued while the stream captures), and the replays equal the
+    same steps run eagerly through the mode's step, bit for bit."""
+    import datetime
+    import functools
+    import os
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from tpu_pipelines_torch.examples import bert_module
+    from tpu_pipelines_torch.parallel.mesh import make_mesh
+    from tpu_pipelines_torch.trainer import TrainLoopConfig, train_loop
+    from tpu_pipelines_torch.trainer.data_parallel import DataParallel
+    from tpu_pipelines_torch.trainer.train_loop import _step_seed
+
+    batches = _train_batches(6)
+    init = functools.partial(bert_module.init_params_fn,
+                             hyperparameters=TINY_TRAIN)
+    config = TrainLoopConfig(train_steps=len(batches), batch_size=8,
+                             log_every=1, window_steps=2, seed=3,
+                             dp_collective="psum_bucketed")
+    captured, losses = [], []
+    real = dist.all_reduce
+
+    def counting(*args, **kwargs):
+        captured.append(torch.cuda.is_current_stream_capturing())
+        return real(*args, **kwargs)
+
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(tmp_path, "store"), 1),
+        world_size=1, rank=0, timeout=datetime.timedelta(seconds=120),
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        with mock.patch.object(dist, "all_reduce", counting):
+            model, result = train_loop(
+                loss_fn=bert_module.loss_fn, init_params_fn=init,
+                optimizer=bert_module.adamw(1e-3), train_iter=iter(batches),
+                config=config, metrics_cb=lambda s, m: losses.append(m["loss"]),
+                device="cuda")
+        eager = init(torch.Generator().manual_seed(3), batches[0]).to(cuda).train()
+        dp = DataParallel.build(config, make_mesh(device="cuda"), eager,
+                                "psum_bucketed", False)
+        opt = bert_module.adamw(1e-3)(dp.parameters(eager))
+        dp.attach(eager)
+        gens = [torch.Generator(device=cuda) for _ in range(dp.generator_count())]
+        eager_losses = []
+        for s, b in enumerate(batches):
+            dp.seed_generators(gens, _step_seed(3, s))
+            loss, _ = dp.step(eager, bert_module.loss_fn,
+                              {k: torch.as_tensor(v, device=cuda)
+                               for k, v in b.items()}, gens, opt, None)
+            eager_losses.append(loss.item())
+        dp.detach()
+    finally:
+        dist.destroy_process_group()
+    assert result.step_capture == "cuda_graph"
+    assert result.dp_collective == "psum_bucketed"
+    assert result.compiles_after_warm == 0
+    # The eager first step's 2 buckets and loss row, then the capture's.
+    assert captured[:3] == [False] * 3 and captured[3:] == [True] * 3
+    assert losses == eager_losses
+    for (name, p), q in zip(model.named_parameters(), eager.parameters()):
+        assert torch.equal(p, q), name
+
+
+def test_two_ranks_on_one_card_share_collectives_over_gloo_not_nccl(
+        cuda, tmp_path):
+    """What the two-rank part of chip_smoke's dp_train phase rests on: two
+    processes on the one card over gloo carry every collective of a
+    data-parallel step on CUDA tensors, with the right values; NCCL
+    refuses a second rank on the same device (NCCL 2.28.9 with torch
+    2.11.0+cu128).  Should NCCL ever carry them, this fails, and the phase
+    can move its two ranks to NCCL and capture them."""
+    import torch_dp_worker as w
+
+    gloo = w.probe("gloo", str(tmp_path / "gloo"))
+    assert gloo == [{name: "ok" for name in w.PROBE_OPS}] * 2, gloo
+    nccl = w.probe("nccl", str(tmp_path / "nccl"))
+    assert all("error" in rank for rank in nccl), nccl
 
 
 def test_a_capture_that_cannot_succeed_raises_instead_of_running_eagerly(cuda):

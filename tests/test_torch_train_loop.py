@@ -19,7 +19,8 @@
     8-device CPU mesh: 1e-5 relative);
   - the window contract of tests/test_train_window.py, on a toy model with
     a dropout site so the per-step generator matters;
-  - unported config fields raise, naming their ROADMAP.md item.
+  - the data-parallel fields (A5) run and take effect in one process (a
+    mesh of one); ``batch_partition`` alone is refused, naming A6.
 """
 
 import jax
@@ -45,7 +46,9 @@ from tpu_pipelines_torch.examples import bert_module
 from tpu_pipelines_torch.models.convert import bert_state_dict_from_flax
 from tpu_pipelines_torch.models.transformer import Dropout
 from tpu_pipelines_torch.observability.metrics import default_registry
+from tpu_pipelines_torch.parallel.mesh import make_mesh
 from tpu_pipelines_torch.trainer import TrainLoopConfig, train_loop
+from tpu_pipelines_torch.trainer.data_parallel import DataParallel
 from tpu_pipelines_torch.trainer.train_loop import (
     _checkpoints,
     _read_progress_step,
@@ -371,15 +374,53 @@ def test_dropout_generator_is_required_in_training_and_seeds_by_step():
         ("peak_flops_per_chip", 989e12, "A11"),
     ],
 )
-def test_unported_config_field_raises(field, value, item, tmp_path):
-    """A5's fields are refused, naming the item.  A11's fields were refused
-    the same way until the trainer extras were ported: each must now run
-    and take effect (tests/test_torch_train_extras.py holds them to the
-    reference)."""
+def test_unported_config_field_raises(field, value, item, tmp_path,
+                                     monkeypatch):
+    """A5's and A11's fields were refused, naming their item, until they
+    were ported: each must now run and take effect
+    (tests/test_torch_dp_window.py holds A5's to the reference over several
+    processes, tests/test_torch_train_extras.py A11's).  In one process a
+    mesh of two does not cover it (the reference's error), and
+    ``batch_partition`` (sequence-partitioned inputs) is refused, naming
+    ROADMAP.md A6."""
     if item == "A5":
-        with pytest.raises(NotImplementedError,
-                           match=f"{field}.*ROADMAP.md {item}"):
-            _run(1, steps=2, log_every=0, config={field: value})
+        if field == "batch_partition":
+            with pytest.raises(NotImplementedError,
+                               match=f"{field}.*ROADMAP.md A6"):
+                _run(1, steps=2, log_every=0, config={field: value})
+            return
+        if field == "mesh_config":
+            with pytest.raises(ValueError, match="does not cover 1 devices"):
+                _run(1, steps=2, log_every=0, config={field: value})
+            with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+                _run(1, steps=2, log_every=0, config={field: {"model": 2}})
+            return
+        mode = {"param_partition": "fsdp", "collective_buckets": "psum_bucketed",
+                "dp_grad_blocks": "ordered"}.get(field, "ordered")
+        calls, buckets = [0], []
+        attach = DataParallel.attach
+
+        def counting_attach(self, model):
+            attach(self, model)
+            buckets.append(len(self._bucket_params))
+
+        monkeypatch.setattr(DataParallel, "attach", counting_attach)
+
+        def loss_fn(*args):
+            calls[0] += 1
+            return _toy_loss(*args)
+
+        _, result = train_loop(
+            loss_fn=loss_fn, init_params_fn=_toy_init, optimizer=_adam,
+            train_iter=iter(_toy_batches(4)), device="cpu",
+            config=TrainLoopConfig(train_steps=4, batch_size=BATCH,
+                                   log_every=0, window_steps=2,
+                                   **{"dp_collective": mode, field: value}))
+        assert result.steps_completed == 4 and result.dp_collective == mode
+        # The effect: forwards a step (blocks x micro-batches), buckets.
+        per_step = {"dp_grad_blocks": 2, "grad_accum_steps": 2}.get(field, 1)
+        assert calls[0] == 4 * per_step
+        assert buckets == ([2] if field == "collective_buckets" else [0])
         return
     if field.endswith("_dir"):
         value = str(tmp_path / field)
@@ -408,8 +449,12 @@ def test_unported_arguments_and_missing_cuda_raise():
     # model without a floating-point buffer cannot hold any.
     with pytest.raises(ValueError, match="no floating-point buffer"):
         _run(1, steps=2, log_every=0, has_model_state=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        _run(1, steps=2, log_every=0, mesh=object())
+    # A mesh is ported (A5): one of two processes does not cover a run of
+    # one, and a model axis waits for ROADMAP.md A6.
+    with pytest.raises(ValueError, match="does not cover 1 devices"):
+        _run(1, steps=2, log_every=0, mesh=make_mesh({"data": 2}, device="cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+        _run(1, steps=2, log_every=0, mesh=make_mesh({"model": 2}, device="cpu"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="'cuda'"):
             train_loop(

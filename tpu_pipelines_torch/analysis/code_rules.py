@@ -876,7 +876,10 @@ def _check_pinned_dp_with_partition(
     ``dp_collective`` to a string constant outside {"fsdp", "auto"} while
     either partition marker appears anywhere in the module.  ``None`` /
     ``"auto"`` (implicit GSPMD honours the specs) and ``"fsdp"`` stay
-    silent, as do dynamic mode values."""
+    silent, as do dynamic mode values: the reference's findings.  The
+    port's implicit mode refuses a partition too (its data-axis specs
+    need ``"fsdp"``, its other axes ROADMAP.md A6), which the loop says
+    at startup."""
     if not _mentions(src.tree, _PARTITION_MARKERS):
         return []
     out: List[Finding] = []

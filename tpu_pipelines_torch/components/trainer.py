@@ -34,8 +34,9 @@ from tpu_pipelines_torch.utils.module_loader import load_fn
         "train_steps": Parameter(type=int, default=1000),
         "eval_steps": Parameter(type=int, default=0),
         "hyperparameters": Parameter(type=dict, default=None),
-        # Device meshes wait (ROADMAP.md A5); run_fn's train_loop refuses
-        # one.
+        # Mesh axis sizes, passed to run_fn as fn_args.mesh_config (the
+        # train loop's data-parallel mesh over the process group; axes
+        # other than 'data' wait for ROADMAP.md A6).
         "mesh": Parameter(type=dict, default=None),
         "custom_config": Parameter(type=dict, default=None),
     },

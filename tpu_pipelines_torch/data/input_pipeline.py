@@ -20,8 +20,9 @@ On the CPU a window is the plain stack, with no pinning and no stream.
 the reference's split reader: dict-of-numpy batches over one split of an
 Examples artifact (``data/examples_io.py``), with the same per-epoch
 shuffle (``np.random.default_rng((seed, epoch))``), ``drop_remainder``,
-``num_epochs``, ``columns`` projection, multi-host shard assignment and
-prefetch, so the same seed gives the same batches row for row.  The
+``num_epochs``, ``columns`` projection, multi-host shard assignment
+(``per_host_input_config``, from the process group) and prefetch, so the
+same seed gives the same batches row for row.  The
 reference's Grain backend is not ported.
 """
 
@@ -209,10 +210,33 @@ def assigned_shard_files(
     )
 
 
-def per_host_input_config(config: "InputConfig") -> "InputConfig":
-    """This host's shard of the input: the port runs one process, so the
-    identity (multi-process runs wait, ``ROADMAP.md`` A10)."""
-    return config
+def per_host_input_config(
+    config: "InputConfig",
+    *,
+    process_index: Optional[int] = None,
+    process_count: Optional[int] = None,
+) -> "InputConfig":
+    """This process's shard of the input: ``InputConfig`` with
+    ``shard_index`` / ``num_shards`` from the process group (rank, world
+    size), so every process reads only its own rows; over a sharded
+    Examples artifact whole shard files (``assigned_shard_files``).  A
+    config that already pins ``num_shards`` is returned unchanged, as is
+    everything in a run of one process.  Pass ``process_index`` /
+    ``process_count`` to derive for a topology without a process group.
+    ``batch_size`` is left as it is: a data-parallel ``run_fn`` reads
+    ``batch_size / W`` rows a process (``train_loop`` takes such a batch
+    as the rank's own)."""
+    if config.num_shards > 1:
+        return config
+    if process_count is None or process_index is None:
+        from tpu_pipelines_torch.parallel.distributed import process_topology
+
+        process_index, process_count = process_topology()
+    if process_count <= 1:
+        return config
+    return dataclasses.replace(
+        config, shard_index=int(process_index), num_shards=int(process_count)
+    )
 
 
 @dataclasses.dataclass

@@ -10,9 +10,13 @@ vocabulary the Transform's tokenizer learned (rounded up to a multiple of
 port's ``train_loop`` on ``fn_args.device`` (``loss_fn``: softmax
 cross-entropy on integer labels plus accuracy; ``adamw``: ``optax.adamw``),
 warm-starts from a wired base model (``warm_start_init``), checkpoints every
-quarter of the run and exports a payload with the transform graph.  A
-``mesh`` is passed through to ``train_loop``, which refuses it (multi-GPU
-training, ``ROADMAP.md`` A5).  ``custom_config["train_loop"]``, a dict of
+quarter of the run and exports a payload with the transform graph.  The
+Trainer's ``mesh`` is passed through to ``train_loop`` as its
+``mesh_config``: run under ``torchrun --nproc-per-node N`` (or the
+``TPP_*`` variables, ``parallel/distributed.py``), every process joins the
+process group, reads its own shard of the train split
+(``per_host_input_config``, ``batch_size / N`` rows a step) and trains
+data-parallel; rank 0 exports.  ``custom_config["train_loop"]``, a dict of
 ``TrainLoopConfig`` fields, is laid over the module's own (the loop's
 extras, e.g. ``profile_dir``, ``tensorboard_dir``,
 ``collect_cost_analysis``, ``stall_timeout_s``, or ``checkpoint_every``),
@@ -30,6 +34,7 @@ from tpu_pipelines_torch.data.input_pipeline import (
     InputConfig,
     per_host_input_config,
 )
+from tpu_pipelines_torch.parallel.distributed import maybe_join_process_group
 from tpu_pipelines_torch.models.bert import (
     DEFAULT_HPARAMS,
     build_bert_model,
@@ -116,11 +121,12 @@ def run_fn(fn_args):
         if "input_ids" in sizes:
             hp["vocab_size"] = -(-sizes["input_ids"] // 64) * 64
     batch_size = int(hp["batch_size"])
+    rank, world = maybe_join_process_group(fn_args.device)
 
     train_iter = BatchIterator(
         fn_args.train_examples_uri, "train",
         per_host_input_config(
-            InputConfig(batch_size=batch_size, shuffle=True, seed=0)),
+            InputConfig(batch_size=batch_size // world, shuffle=True, seed=0)),
     )
 
     def eval_iter_fn():
@@ -150,6 +156,8 @@ def run_fn(fn_args):
         device=fn_args.device,
     )
 
+    if rank:
+        return result  # rank 0 exports
     export_model(
         serving_model_dir=fn_args.serving_model_dir,
         params=model.state_dict(),

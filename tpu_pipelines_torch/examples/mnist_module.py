@@ -17,6 +17,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpu_pipelines_torch.parallel.distributed import maybe_join_process_group
 from tpu_pipelines_torch.data.input_pipeline import (
     BatchIterator,
     InputConfig,
@@ -71,6 +72,7 @@ def loss_fn(model, batch, generator):
 def run_fn(fn_args):
     hp = {**DEFAULT_HPARAMS, **fn_args.hyperparameters}
     batch_size = int(hp["batch_size"])
+    rank, world = maybe_join_process_group(fn_args.device)
 
     def with_images(it):
         for b in it:
@@ -79,7 +81,7 @@ def run_fn(fn_args):
     train_iter = with_images(BatchIterator(
         fn_args.train_examples_uri, "train",
         per_host_input_config(
-            InputConfig(batch_size=batch_size, shuffle=True, seed=0)),
+            InputConfig(batch_size=batch_size // world, shuffle=True, seed=0)),
     ))
 
     def eval_iter_fn():
@@ -110,6 +112,8 @@ def run_fn(fn_args):
         device=fn_args.device,
     )
 
+    if rank:
+        return result  # rank 0 exports
     export_model(
         serving_model_dir=fn_args.serving_model_dir,
         params=model.state_dict(),

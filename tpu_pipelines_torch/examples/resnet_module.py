@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpu_pipelines_torch.parallel.distributed import maybe_join_process_group
 from tpu_pipelines_torch.data.input_pipeline import (
     BatchIterator,
     InputConfig,
@@ -101,6 +102,7 @@ def sgd(learning_rate: float, momentum: float = 0.9):
 def run_fn(fn_args):
     hp = {**EXAMPLE_DEFAULTS, **fn_args.hyperparameters}
     batch_size = int(hp["batch_size"])
+    rank, world = maybe_join_process_group(fn_args.device)
     size = int(hp["image_size"])
 
     def with_images(it):
@@ -110,7 +112,7 @@ def run_fn(fn_args):
     train_iter = with_images(BatchIterator(
         fn_args.train_examples_uri, "train",
         per_host_input_config(
-            InputConfig(batch_size=batch_size, shuffle=True, seed=0)),
+            InputConfig(batch_size=batch_size // world, shuffle=True, seed=0)),
     ))
 
     def eval_iter_fn():
@@ -142,6 +144,8 @@ def run_fn(fn_args):
         device=fn_args.device,
     )
 
+    if rank:
+        return result  # rank 0 exports
     export_model(
         serving_model_dir=fn_args.serving_model_dir,
         # The whole state dict: apply_fn serves from the BatchNorm running

@@ -17,8 +17,10 @@
 ``optax.adam`` (``adam``), the vocabulary sized from the largest tokenize
 output unless pinned, through the port's ``train_loop`` on
 ``fn_args.device``; it exports a payload with the transform graph, so the
-payload's ``generate`` decodes raw examples.  A ``mesh`` is passed through
-to ``train_loop``, which refuses it (``ROADMAP.md`` A5).
+payload's ``generate`` decodes raw examples.  The Trainer's ``mesh`` is
+passed through to ``train_loop`` as its ``mesh_config``: under a process
+group every rank reads its shard of the train split
+(``per_host_input_config``) and trains data-parallel; rank 0 exports.
 
 End-of-sequence defaults to the tokenizer's [SEP] (id 3), as in the
 reference module: its tokenizer emits "[CLS] ... [SEP]" with [PAD]=0
@@ -31,6 +33,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from tpu_pipelines_torch.parallel.distributed import maybe_join_process_group
 from tpu_pipelines_torch.data.input_pipeline import (
     BatchIterator,
     InputConfig,
@@ -165,11 +168,12 @@ def run_fn(fn_args):
         if sizes:
             hp["vocab_size"] = -(-max(sizes.values()) // 64) * 64
     batch_size = int(hp["batch_size"])
+    rank, world = maybe_join_process_group(fn_args.device)
 
     train_iter = BatchIterator(
         fn_args.train_examples_uri, "train",
         per_host_input_config(
-            InputConfig(batch_size=batch_size, shuffle=True, seed=0)),
+            InputConfig(batch_size=batch_size // world, shuffle=True, seed=0)),
     )
 
     def eval_iter_fn():
@@ -198,6 +202,8 @@ def run_fn(fn_args):
         device=fn_args.device,
     )
 
+    if rank:
+        return result  # rank 0 exports
     export_model(
         serving_model_dir=fn_args.serving_model_dir,
         params=model.state_dict(),

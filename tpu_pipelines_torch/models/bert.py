@@ -3,9 +3,10 @@
 Post-LN, as the original BERT.  The three embeddings are gathered, cast to
 the compute dtype and summed in it; the pooler and the classifier head run
 in f32 on the [CLS] position.  Weights come from a flax tree through
-``models/convert.py`` or from :func:`init_bert_weights`.  Tensor-parallel
-partition rules wait for the parallel slice, and mixture-of-experts layers
-for the MoE port.
+``models/convert.py`` or from :func:`init_bert_weights`.  Its tensor-
+parallel partition rules are ``parallel/partition.py``'s
+``bert_partition_rules`` (refused by the train loop until ROADMAP.md A6),
+and mixture-of-experts layers wait for the MoE port.
 """
 
 from __future__ import annotations

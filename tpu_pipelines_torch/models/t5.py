@@ -14,7 +14,8 @@ in place, see ``models/transformer.py``).  Every entry point takes
 ``params`` (a state dict) as the reference's jitted functions do: the
 module's own tensors run the module as it is, any other dict runs it
 through ``torch.func.functional_call``.  The speculative ``verify`` program
-and ``t5_partition_rules`` wait for ROADMAP A8 and A5.
+waits for ROADMAP A8; ``t5_partition_rules`` is in ``parallel/partition.py``
+(its tensor-parallel specs wait for A6).
 """
 
 from __future__ import annotations

@@ -164,10 +164,20 @@ class TrainResult:
     # uninterrupted runs.  Replayed examples are accounted as lost work,
     # never as fresh progress.
     replayed_steps: int = 0
-    # Gradient-exchange mode the loop ran with: "" = implicit GSPMD,
-    # "psum_bucketed" = chunked in-scan psums, "ordered" = fixed-block
-    # mesh-size-invariant reduction (TrainLoopConfig.dp_collective).
+    # Gradient-exchange mode the loop ran with: "" = implicit (one
+    # all-reduce after the backward), "psum_bucketed" = bucketed
+    # all-reduces started from the backward, "ordered" = fixed-block
+    # W-invariant reduction, "fsdp" = sharded parameters
+    # (TrainLoopConfig.dp_collective).
     dp_collective: str = ""
+    # Estimated share of the device span the gradient exchange takes (the
+    # bytes proxy that splits window_phase_seconds' device phase); 0.0 on
+    # one rank.
+    collective_fraction_est: float = 0.0
+    # How the step ran: "cuda_graph" (captured once per batch signature,
+    # replayed), or "eager: <why>" (the CPU; collectives a CUDA graph
+    # cannot hold, gloo's).
+    step_capture: str = ""
     # Model-FLOPs utilization: cost_analysis_flops_per_step x post-warmup
     # steps / device-compute seconds / peak FLOP/s.  None without a counted
     # figure or a known peak.

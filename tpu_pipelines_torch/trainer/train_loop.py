@@ -1,5 +1,6 @@
-"""Training loop on one device: the port of
-``tpu_pipelines/trainer/train_loop.py`` (single-device path).
+"""Training loop: the port of ``tpu_pipelines/trainer/train_loop.py``,
+on one device or data-parallel over ``torch.distributed`` (one process per
+device, below).
 
 The contract keeps the reference's shape in PyTorch idiom:
 
@@ -100,6 +101,7 @@ Telemetry (the reference's trainer extras):
     window, so the timeout must exceed a window's wall time.
   - ``profile_dir``: ``torch.profiler`` over steps ``[profile_from,
     profile_to)`` (counted from the run's first step), host and device,
+    after one warm-up step of the tracer's own that the trace leaves out,
     written as a Chrome trace ``train_steps_<from>-<to>.pt.trace.json``
     under ``profile_dir``; ``window_steps`` is forced to 1, so each
     profiled step is one graph replay on the card.
@@ -137,9 +139,30 @@ with no floating-point buffer under it.  The reference's ResNet
 metrics use batch statistics; the port's use the running averages, as the
 Evaluator and serving do in both packages.
 
-Not ported, and refused with ``NotImplementedError`` naming the
-``ROADMAP.md`` item rather than ignored: meshes, partitions and
-data-parallel collectives (A5) and gradient accumulation (A5).  The
+Data parallelism (the reference's mesh, ``parallel/``): every step is
+``trainer/data_parallel.py``'s, over the ``mesh`` given
+(``parallel.mesh.make_mesh``), else one made from ``config.mesh_config``
+and the default process group.  A run of one process with no group is a
+mesh of one whose collectives are the identity, so its step is forward,
+backward and the optimizer update alone.  Every rank keeps its rows of
+the batch (a global batch of ``batch_size`` rows is cut to the rank's
+contiguous rows, a short tail padded with the validity mask; a batch of
+``batch_size / W`` rows is the rank's own, per-host input) and
+exchanges gradients in the mode's collectives (``""``, ``psum_bucketed``,
+``ordered``, ``fsdp``), with gradient accumulation and sync-BN inside the
+step.  The whole step, micro-batches, collectives and
+optimizer update, is the one graph the loop captures; every collective
+runs once in the eager first step, where NCCL makes its communicator.
+Over gloo (which cannot be captured) and on the CPU the step runs eagerly:
+the loop decides this from the group's backend before the first step,
+logs it and reports it as ``TrainResult.step_capture``.  Rank 0 alone
+writes checkpoints, the progress marker, TensorBoard and the goodput log;
+under fsdp a checkpoint holds the gathered full state, so it does not
+depend on W and a resume on a survivor world re-shards it.  Throughput per
+chip and MFU divide by W.
+
+Not ported: ``batch_partition`` (sequence-partitioned inputs, ``ROADMAP.md``
+A6), refused with ``NotImplementedError`` rather than ignored.  The
 reference's ``prng_impl`` (a JAX key implementation) has no counterpart
 here, and ``donate_state`` none but the in-place replays above: the
 fields do not exist.
@@ -167,6 +190,12 @@ from tpu_pipelines_torch.observability.health import HealthMonitor
 from tpu_pipelines_torch.observability.metrics import default_registry
 from tpu_pipelines_torch.observability.summary_writer import SummaryWriter
 from tpu_pipelines_torch.ops import flash_attention as fa
+from tpu_pipelines_torch.parallel.mesh import DeviceMesh, MeshConfig, make_mesh
+from tpu_pipelines_torch.trainer.data_parallel import (
+    DataParallel,
+    effective_dp_collective,
+)
+from tpu_pipelines_torch.trainer.data_parallel import step_seed as _step_seed
 from tpu_pipelines_torch.trainer.export import resolve_device
 from tpu_pipelines_torch.trainer.fn_args import TrainResult
 from tpu_pipelines_torch.trainer.goodput import GoodputTracker
@@ -181,7 +210,6 @@ log = logging.getLogger("tpu_pipelines_torch.trainer")
 _PEAK_BF16_FLOPS = [("h100", 989e12)]
 ENV_PEAK_FLOPS = "TPP_PEAK_FLOPS"
 ENV_WINDOW_STEPS = "TPP_WINDOW_STEPS"
-ENV_DP_COLLECTIVE = "TPP_DP_COLLECTIVE"
 _CKPT_RE = re.compile(r"^ckpt_(\d+)\.pt$")
 
 
@@ -221,47 +249,44 @@ class TrainLoopConfig:
     collect_cost_analysis: bool = False
     # Peak per-chip FLOP/s; None = env TPP_PEAK_FLOPS, else the card table.
     peak_flops_per_chip: Optional[float] = None
-    # ---- not ported: a non-default value raises NotImplementedError.
+    # ---- data parallelism (see the module docstring and
+    # trainer/data_parallel.py).  A MeshConfig or a dict of axis sizes;
+    # None = all processes of the default group on 'data'.
     mesh_config: Optional[Any] = None
+    # fsdp only: {parameter name: spec} over 'data' (parallel/partition.py);
+    # None = fsdp_param_partition's default.
     param_partition: Optional[Any] = None
+    # Not ported (sequence-partitioned inputs, ROADMAP.md A6).
     batch_partition: Optional[Dict[str, Any]] = None
+    # None/"auto" = the implicit mode (one all-reduce after the backward),
+    # else "psum_bucketed", "ordered" or "fsdp"; None reads
+    # TPP_DP_COLLECTIVE.
     dp_collective: Optional[str] = None
+    # psum_bucketed: all-reduce buckets (gradient leaves round-robined).
     collective_buckets: int = 2
+    # ordered: the fixed global gradient-block count; None = the data
+    # axis.  Pin it to the largest world you will resume across:
+    # trajectories are bitwise comparable only at one block count.
     dp_grad_blocks: Optional[int] = None
+    # Micro-batches per step (every a-th row of the local batch), gradients
+    # averaged, one optimizer update; composes with every mode.
     grad_accum_steps: int = 1
 
 
 # field, default, ROADMAP.md item, what it waits for
 _UNPORTED = (
-    ("mesh_config", None, "A5", "multi-GPU meshes"),
-    ("param_partition", None, "A5", "partitioned parameters"),
-    ("batch_partition", None, "A5", "partitioned batches"),
-    ("dp_collective", None, "A5", "data-parallel collectives"),
-    ("collective_buckets", 2, "A5", "data-parallel collectives"),
-    ("dp_grad_blocks", None, "A5", "data-parallel collectives"),
-    ("grad_accum_steps", 1, "A5", "gradient accumulation"),
+    ("batch_partition", None, "A6", "sequence-partitioned batches"),
 )
 
 
-def _refuse_unported(config: TrainLoopConfig, mesh) -> None:
-    asked = [
-        (name, getattr(config, name), item, what)
-        for name, default, item, what in _UNPORTED
-        if getattr(config, name) != default
-        and not (name == "dp_collective" and config.dp_collective == "auto")
-        and not (name == "grad_accum_steps" and config.grad_accum_steps <= 1)
-    ]
-    env_dp = os.environ.get(ENV_DP_COLLECTIVE, "").strip()
-    if env_dp not in ("", "auto"):
-        asked.append((ENV_DP_COLLECTIVE, env_dp, "A5", "data-parallel collectives"))
-    if mesh is not None:
-        asked.append(("mesh", mesh, "A5", "multi-GPU meshes"))
-    if asked:
-        name, value, item, what = asked[0]
-        raise NotImplementedError(
-            f"train_loop: {name}={value!r} is not ported yet ({what}, "
-            f"ROADMAP.md {item}); the port trains on one device"
-        )
+def _refuse_unported(config: TrainLoopConfig) -> None:
+    for name, default, item, what in _UNPORTED:
+        value = getattr(config, name)
+        if value != default:
+            raise NotImplementedError(
+                f"train_loop: {name}={value!r} is not ported yet ({what}, "
+                f"ROADMAP.md {item})"
+            )
 
 
 @dataclasses.dataclass
@@ -347,19 +372,6 @@ def _effective_window_steps(config: TrainLoopConfig) -> int:
         )
         return 1
     return w
-
-
-_MASK64 = (1 << 64) - 1
-
-
-def _step_seed(seed: int, step: int) -> int:
-    """The seed of step ``step``'s generator: a splitmix64 mix of
-    ``(seed, step)``, so neighbouring steps and seeds draw unrelated
-    streams."""
-    x = (int(seed) * 0x9E3779B97F4A7C15 + int(step) + 1) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (x ^ (x >> 31)) & ((1 << 63) - 1)
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -455,15 +467,25 @@ class _TrainStep:
     metrics stacked into one device row (see the module docstring).
 
     ``run(batch, step)`` returns ``(row, capture_seconds)``, the second
-    None unless this step met a new batch signature (0.0 on the CPU,
-    which captures nothing)."""
+    None unless this step met a new batch signature (0.0 when the step
+    runs eagerly: the CPU, or collectives that cannot be captured).  The
+    step is ``dp``'s (by default the step of one process with no group),
+    each micro-batch (and, in ordered, each block) drawing from a
+    generator of its own."""
 
     def __init__(self, state: "TrainState", loss_fn: Callable,
-                 device: torch.device, stream: Any):
+                 device: torch.device, stream: Any,
+                 dp: Optional[DataParallel] = None):
         self.state = state
         self.loss_fn = loss_fn
         self.device = device
-        self.generator = torch.Generator(device=device)
+        self.dp = dp or DataParallel.build(
+            TrainLoopConfig(train_steps=1), DeviceMesh(
+                group=None, rank=0, shape=MeshConfig().resolve(1), device=device),
+            state.model, "", False)
+        self.generators = [torch.Generator(device=device)
+                           for _ in range(self.dp.generator_count())]
+        self.generator = self.generators[0]
         self.keys: Optional[list] = None
         self.signatures: set = set()
         self.captured: Dict[tuple, _Captured] = {}
@@ -471,10 +493,9 @@ class _TrainStep:
         self.stream = stream
 
     def _step(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        loss, metrics = self.loss_fn(self.state.model, batch, self.generator)
-        self.state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.state.optimizer.step()
+        loss, metrics = self.dp.step(
+            self.state.model, self.loss_fn, batch, self.generators,
+            self.state.optimizer, self.keys)
         if self.keys is None:
             self.keys = sorted(metrics)
         return torch.stack([
@@ -483,7 +504,8 @@ class _TrainStep:
         ])
 
     def run(self, batch: Dict[str, torch.Tensor], step: int):
-        self.generator.manual_seed(_step_seed(self.state.seed, step))
+        self.dp.seed_generators(self.generators,
+                                _step_seed(self.state.seed, step))
         sig = batch_signature(batch)
         new = sig not in self.signatures
         self.signatures.add(sig)
@@ -515,7 +537,8 @@ class _TrainStep:
         inputs = {k: v.clone() for k, v in batch.items()}
         self.state.optimizer.zero_grad(set_to_none=True)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
+        for generator in self.generators:
+            graph.register_generator_state(generator)
         try:
             # Other threads may keep the card busy meanwhile (a serving
             # fleet in the same process): ``thread_local`` confines the
@@ -558,7 +581,10 @@ def _checkpoints(checkpoint_dir: str) -> Dict[int, str]:
     return found
 
 
-def _checkpoint_payload(state: TrainState) -> Dict[str, Any]:
+def _checkpoint_payload(state: TrainState,
+                        dp: Optional[DataParallel] = None) -> Dict[str, Any]:
+    if dp is not None and dp.gathers_checkpoint():  # fsdp: the full state
+        return dp.full_payload(state.step, state.model, state.optimizer)
     return {
         "step": state.step,
         "model": state.model.state_dict(),
@@ -598,12 +624,16 @@ class _AsyncCheckpointSaver:
 
     ``saves`` holds one record a save: its step, the seconds the loop was
     blocked (the fence wait plus the snapshot) and the seconds the thread
-    took to write the file."""
+    took to write the file.  Under data parallelism rank 0 alone writes
+    (``write``); the other ranks only join an fsdp save's gathers."""
 
-    def __init__(self, checkpoint_dir: str, keep: int, device: torch.device):
+    def __init__(self, checkpoint_dir: str, keep: int, device: torch.device,
+                 dp: Optional[DataParallel] = None, write: bool = True):
         self.checkpoint_dir = checkpoint_dir
         self.keep = keep
         self.device = device
+        self.dp = dp
+        self.write = write
         self.saves: list = []
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -612,8 +642,11 @@ class _AsyncCheckpointSaver:
 
     def save(self, state: TrainState) -> None:
         self.fence()
+        if not self.write:
+            _checkpoint_payload(state, self.dp)
+            return
         t0 = time.perf_counter()
-        payload = _snapshot(_checkpoint_payload(state))
+        payload = _snapshot(_checkpoint_payload(state, self.dp))
         event = None
         if self._stream is not None:
             event = torch.cuda.Event()
@@ -660,15 +693,15 @@ class _AsyncCheckpointSaver:
             raise err
 
 
-def _restore_latest(checkpoint_dir: str, state: TrainState) -> Optional[int]:
+def _restore_latest(checkpoint_dir: str, state: TrainState,
+                    dp: DataParallel) -> Optional[int]:
     found = _checkpoints(checkpoint_dir)
     if not found:
         return None
     latest = max(found)
     device = next(state.model.parameters()).device
     payload = torch.load(found[latest], map_location=device, weights_only=True)
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    dp.load_payload(state.model, state.optimizer, payload)  # fsdp: the shards
     state.step = int(payload["step"])
     return state.step
 
@@ -702,12 +735,19 @@ def _read_progress_step(checkpoint_dir: str) -> int:
 
 # ---- the profiler
 
-def _start_profiler(device: torch.device):
-    """A started ``torch.profiler`` over the host and, on CUDA, the card."""
+def _start_profiler(device: torch.device, warmup: int, active: int):
+    """A started ``torch.profiler`` over the host and, on CUDA, the card,
+    tracing ``active`` steps after ``warmup`` steps (``profiler.step()``
+    after each).  The tracer runs through the warm-up step and keeps none
+    of it: a trace opened just before a replay lost up to ~45 of its first
+    kernels on the H100."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    profiler = torch.profiler.profile(activities=activities)
+    profiler = torch.profiler.profile(
+        activities=activities,
+        schedule=torch.profiler.schedule(wait=0, warmup=warmup, active=active,
+                                         repeat=1))
     profiler.start()
     return profiler
 
@@ -769,17 +809,24 @@ def train_loop(
     has_model_state: bool = False,
     device: Any = "cuda",
 ) -> Tuple[nn.Module, TrainResult]:
-    """Train on ``device``; returns ``(model, TrainResult)``.  See the
-    module docstring for the contract."""
-    _refuse_unported(config, mesh)
+    """Train on ``device`` (under a mesh, the mesh's device); returns
+    ``(model, TrainResult)``.  See the module docstring for the contract."""
+    _refuse_unported(config)
+    dp_mode = effective_dp_collective(config)
+    grouped = torch.distributed.is_available() and torch.distributed.is_initialized()
+    rank = (mesh.rank if mesh is not None
+            else torch.distributed.get_rank() if grouped else 0)
+    writer = rank == 0  # rank 0's duties: checkpoints, logs, TensorBoard
     tracker = GoodputTracker(
         job_name="train_loop",
         jsonl_path=(os.path.join(checkpoint_dir, "goodput_log.jsonl")
-                    if checkpoint_dir else ""),
+                    if checkpoint_dir and writer else ""),
     )
     tracker.job_start()
     tracker.tpu_init_start()
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.device if mesh is not None else device)
+    if mesh is None:
+        mesh = make_mesh(config.mesh_config, device=dev)
     tracker.tpu_init_end()
 
     train_it = iter(train_iter)
@@ -797,14 +844,24 @@ def train_loop(
         raise ValueError(
             "train_loop: has_model_state=True, but the model has no "
             "floating-point buffer to hold its state")
-    state = TrainState(
-        step=0, model=model, optimizer=optimizer(model.parameters()),
-        seed=int(config.seed),
-    )
+    dp = DataParallel.build(config, mesh, model, dp_mode, has_model_state)
+    state = TrainState(step=0, model=model,
+                       optimizer=optimizer(dp.parameters(model)),
+                       seed=int(config.seed))
+    # A captured step needs collectives CUDA graphs can hold: NCCL's (or
+    # none); gloo's run on the host, so over gloo the step runs eagerly.
+    capture = dev.type == "cuda" and mesh.backend in ("", "nccl")
+    step_capture = ("cuda_graph" if capture else
+                    "eager: the CPU captures nothing" if dev.type != "cuda" else
+                    f"eager: {mesh.backend} collectives cannot be captured")
+    dp.attach(model)
+    log.info("train step: mode %r over %d rank(s) (%s), grad_accum_steps "
+             "%d; step %s", dp_mode, mesh.size, mesh.backend or "no group",
+             dp.accum, step_capture)
     start_step = 0
     replayed_steps = 0
     if checkpoint_dir:
-        restored = _restore_latest(checkpoint_dir, state)
+        restored = _restore_latest(checkpoint_dir, state, dp)
         if restored is not None:
             start_step = restored
             log.info("resumed from checkpoint step %d", start_step)
@@ -877,7 +934,7 @@ def train_loop(
         on_alert=config.health_alert_cb,
     )
     tb_writer = (SummaryWriter(config.tensorboard_dir)
-                 if config.tensorboard_dir else None)
+                 if config.tensorboard_dir and writer else None)
     last_tb = {"train": -1, "eval": -1}
 
     def tb_write(kind: str, at_step: int, scalars: Dict[str, float]) -> None:
@@ -936,18 +993,27 @@ def train_loop(
 
     compiles_after_warm = 0
     compile_seconds = 0.0
-    saver = (_AsyncCheckpointSaver(checkpoint_dir, config.keep_checkpoints, dev)
-             if checkpoint_dir else None)
-    infeed = windowed_infeed(itertools.chain([first_batch], train_it),
-                             window_lengths(step), WindowStager(dev))
+    saver = None
+    if checkpoint_dir:
+        saver = _AsyncCheckpointSaver(checkpoint_dir, config.keep_checkpoints,
+                                      dev, dp=dp, write=writer)
+    source = itertools.chain([first_batch], train_it)
+    source = map(dp.local_batch, source)
+    infeed = windowed_infeed(source, window_lengths(step), WindowStager(dev))
+    n_chips = mesh.size
+    coll_frac = dp.collective_fraction(model, sum(
+        np.asarray(v).nbytes for v in first_batch.values()) // n_chips)
     profiler = None
+    profile_warmup = min(1, config.profile_from)
     tracker.training_prep_end()
-    runner = _TrainStep(state, loss_fn, dev, _take_side_stream(dev))
+    runner = _TrainStep(state, loss_fn, dev,
+                        _take_side_stream(dev) if capture else None, dp)
     try:
         while step < config.train_steps:
             if (config.profile_dir and profiler is None
-                    and step - start_step == config.profile_from):
-                profiler = _start_profiler(dev)
+                    and step - start_step == config.profile_from - profile_warmup):
+                profiler = _start_profiler(
+                    dev, profile_warmup, config.profile_to - config.profile_from)
             t_in = time.perf_counter()
             tracker.data_loading_start()
             try:
@@ -985,6 +1051,8 @@ def train_loop(
             window.release()
             step += w
             state.step = step
+            if profiler is not None:
+                profiler.step()
             if profiler is not None and step - start_step >= config.profile_to:
                 # The fetch above proved the profiled steps executed.
                 _stop_profiler(profiler, config, start_step)
@@ -997,8 +1065,10 @@ def train_loop(
                 examples_after_t0 += w * config.batch_size
                 device_s = now - t_fetched
                 host_s = max(0.0, (now - window_anchor[1]) - infeed_s - device_s)
-                phases = {"infeed_wait": infeed_s, "device_compute": device_s,
-                          "device_collective": 0.0, "host": host_s}
+                phases = {"infeed_wait": infeed_s,
+                          "device_compute": device_s * (1.0 - coll_frac),
+                          "device_collective": device_s * coll_frac,
+                          "host": host_s}
                 for ph, secs in phases.items():
                     phase_totals[ph] += secs
                     c_phase.labels(ph).inc(secs)
@@ -1028,7 +1098,8 @@ def train_loop(
             publish(step, step - window_anchor[0], now - window_anchor[1])
             window_anchor = (step, now)
             if checkpoint_dir:
-                _write_progress(checkpoint_dir, step)
+                if writer:
+                    _write_progress(checkpoint_dir, step)
                 if config.checkpoint_every and step % config.checkpoint_every == 0:
                     saver.save(state)
                     saved_step = step
@@ -1059,8 +1130,10 @@ def train_loop(
             if saved_step != step:
                 saver.save(state)
             saver.fence()  # the final checkpoint is on disk before returning
-            _write_progress(checkpoint_dir, step)
+            if writer:
+                _write_progress(checkpoint_dir, step)
     finally:
+        dp.detach()
         _give_back_side_stream(dev, runner.stream)
         infeed.close()  # stops the prefetch thread
         if saver is not None:
@@ -1075,9 +1148,12 @@ def train_loop(
     cost_source = ""
     if config.collect_cost_analysis and metrics is not None:
         # After the timed loop, so the count cannot touch the throughput.
+        # One rank's step on its rows, times the ranks: the global step's.
+        sample = dp.local_batch(first_batch)
         cost_flops = count_step_flops(
-            state.model, loss_fn, _to_device(first_batch, dev), config.seed)
+            state.model, loss_fn, _to_device(sample, dev), config.seed) * n_chips
         cost_source = "counted"
+    dp.unshard(state.model)  # fsdp: the returned model is whole
     steps_measured = (examples_after_t0 / config.batch_size
                       if config.batch_size else 0)
     peak = _peak_flops(config, dev)
@@ -1085,7 +1161,7 @@ def train_loop(
     if cost_flops and peak and steps_measured > 0:
         device_s = phase_totals["device_compute"] or elapsed
         if device_s > 0:
-            mfu = cost_flops * steps_measured / device_s / peak
+            mfu = cost_flops * steps_measured / device_s / (peak * n_chips)
             g_mfu.set(round(mfu, 4))
 
     eps = examples_after_t0 / elapsed if examples_after_t0 else 0.0
@@ -1124,7 +1200,7 @@ def train_loop(
             "window_phase_seconds": window_phase_seconds,
             "compiles_after_warm": compiles_after_warm,
             "compile_seconds": round(compile_seconds, 6),
-            "collective_fraction_est": 0.0,
+            "collective_fraction_est": round(coll_frac, 6),
             "mfu": mfu,
             "window_steps": eff_window,
         },
@@ -1132,8 +1208,8 @@ def train_loop(
     result = TrainResult(
         final_metrics=final_metrics,
         examples_per_sec=round(eps, 2),
-        examples_per_sec_per_chip=round(eps, 2),
-        anchored_examples_per_sec_per_chip=round(anchored_eps, 2),
+        examples_per_sec_per_chip=round(eps / n_chips, 2),
+        anchored_examples_per_sec_per_chip=round(anchored_eps / n_chips, 2),
         anchor_windows=len(window_rates),
         steps_completed=step,
         resumed_from_step=start_step,
@@ -1148,5 +1224,8 @@ def train_loop(
         replayed_steps=replayed_steps,
         window_phase_seconds=window_phase_seconds if eff_window > 1 else {},
         compiles_after_warm=compiles_after_warm,
+        dp_collective=dp_mode,
+        collective_fraction_est=round(coll_frac, 6),
+        step_capture=step_capture,
     )
     return state.model, result
