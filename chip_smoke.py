@@ -89,6 +89,21 @@ Phases (any failure raises and the script exits non-zero):
      holds the current position lost), each of which must miss OUT_TOL at
      the attention output (the split lost also DECODE_LOGIT_TOL at the
      logits); report steps/s and tokens/s;
+  7b. engine_levers — the engine's decode levers on the same payload at
+     the engine phase's shapes, LEVER_SEQS sequences from 8 threads (the
+     last LEVER_REPEATS repeat earlier prompts): lever-off; the prefix
+     cache with chunked prefill (hits = the repeats, no prefill for a
+     hit); self-draft speculative decoding at k = LEVER_SPEC (the draft
+     lane's step graphs and the verify windows captured at warm-up); a
+     per-token SLO under hard_deadline at LEVER_TIGHT of the lever-off
+     step (streams evicted) and at LEVER_LOOSE times it (none evicted).
+     Every run: no compile after warm-up, every finished stream ends at
+     EOS or its budget, every emitted token the target's greedy choice
+     when the streams are fed back through the decode contract (within
+     DECODE_LOGIT_TOL; a swapped token above it), flash_decode launched
+     6 x (prefill passes + target and draft step replays), the verify
+     windows (dense) none; report tokens/s, per-token p50/p99,
+     acceptance, hits, evictions and the launches by program;
   8. training — fine-tune BERT-base (full width, bf16, dropout 0.1, random
      init from ``--seed``) through ``train_loop`` at batch 256 x 128 with
      ragged lengths, the first step eager and every later one a replay of
@@ -279,6 +294,27 @@ Phases (any failure raises and the script exits non-zero):
      pool's byte for byte from child pids, a KILL_SHARD_WORKER run
      replaced (the death counted) with the same bytes, and a shard cut
      short quarantined under ``salvage_shards`` with the node COMPLETE;
+ 15a. serving_surface — the rest of the serving surface on the bert_dag
+     phase's model (flash attention) and the engine_levers phase's T5:
+     BERT-base behind two replicas with request tracing "all", REST and
+     gRPC ``Predict`` on raw and (``raw=False``) on the Transform's
+     examples, every reply within LOGIT_TOL of the payload's eager
+     predict / predict_transformed, flash_fwd 12 x device batches (graph
+     replays), exemplars on /metrics; T5 as the generative type with every
+     engine lever on over REST ``:generate`` and gRPC ``Generate`` (equal,
+     every served token the target's greedy choice within
+     DECODE_LOGIT_TOL, a swapped token above it), ``GetModelStatus`` and
+     ``Reload`` to a version 2, each version's flash_decode over its
+     generates 6 x (prefill passes + target and draft step replays);
+     ``python -m tpu_pipelines_torch trace serve`` reads every request's
+     span chain back; the InfraValidator blesses over gRPC on the Transform's
+     examples (``raw_examples=False``); the payload's ``torch.export``
+     artifact on the card equals predict at two batch sizes, the forward
+     launched 12 times a call; the BERT DAG rerun at SURFACE_STEPS steps with
+     ``TPP_FEDERATION_DIR`` and ``TPP_METRICS_HISTORY``: the runner's
+     ``TPP_METRICS_PORT``, scraped once inside the Trainer, merges the
+     fleet's series, and ``trace`` fills the run's train_telemetry from
+     the metrics-history ring once its own summary is cut from the log;
  15b. tune_rewrite — search, the trainer's extras and rewriting at BERT_BASE
      over TUNE_ROWS seeded reviews, one DAG through ``python -m
      tpu_pipelines_torch run`` in this process: CsvExampleGen ->
@@ -2321,7 +2357,7 @@ def engine_long_phase(loaded, seed, card):
         # static outputs.
         if (captured.get("armed") and "inputs" not in captured
                 and kv == LONG_DECODE_LEN):
-            cache, tok, pos, live, encoded, enc_mask = engine._arena
+            cache, tok, pos, live, encoded, enc_mask = engine._target.arena
             captured["inputs"] = (
                 {n: (a[:b] if "cached_enc" in n else a[:b, :kv]).clone()
                  for n, a in cache.items()},
@@ -2330,7 +2366,7 @@ def engine_long_phase(loaded, seed, card):
             captured["live"] = live[:b].clone()
             nxt = bucket_step(b, kv)
             captured["tokens"] = nxt.clone()
-            graph = engine._graphs.get((b, kv))
+            graph = engine._target.graphs.get((b, kv))
             if graph is not None:
                 captured["logits"] = graph[2].float().clone()
             return nxt
@@ -2455,6 +2491,243 @@ def engine_long_phase(loaded, seed, card):
                              "DECODE_LOGIT_TOL: the long-cache check cannot "
                              "tell a faulty merge")
     return launches
+
+
+# ---------------------------------------------------- the engine's levers
+
+# The engine_levers phase: the engine phase's payload and shapes (batch 8,
+# pages of DECODE_LEN // 4, prompts 8..MAX_INPUT_LEN, budgets
+# DECODE_LEN // 8..DECODE_LEN), LEVER_SEQS sequences of which the last
+# LEVER_REPEATS repeat the first prompts (the prefix cache's hits).  The
+# tight per-token SLO is LEVER_TIGHT of the lever-off run's mean step, the
+# loose one LEVER_LOOSE times it: every sequence waits at most about three
+# batches' decodes (LEVER_SEQS / 8 - 1) before it joins, far inside a
+# budget of 16 or more tokens at LEVER_LOOSE steps a token.
+LEVER_SEQS = 32
+LEVER_REPEATS = 8
+LEVER_SPEC = 4
+LEVER_TIGHT = 0.5
+LEVER_LOOSE = 100.0
+
+
+def rescore(loaded, prompts, streams, replace=None):
+    """The target's own verdict on emitted streams: every stream fed back
+    through the decode contract in one batch (the prefill, then one step a
+    position with the stream's tokens), and at every emitted position the
+    greedy regret, max logit minus the emitted token's.  Returns the
+    largest.  ``replace(t)`` swaps each stream's middle token first (the
+    control: a stream that is not the target's greedy choice)."""
+    fns = loaded.decode_fns
+    n = len(streams)
+    ids = np.zeros((n, MAX_INPUT_LEN), np.int64)
+    width = max(len(s) for s in streams)
+    toks = np.zeros((n, width), np.int64)
+    valid = np.zeros((n, width), bool)
+    for i, (p, s) in enumerate(zip(prompts, streams)):
+        ids[i, :len(p)] = p
+        s = list(s)
+        if replace is not None:
+            s[len(s) // 2] = replace(s[len(s) // 2])
+        toks[i, :len(s)] = s
+        valid[i, :len(s)] = True
+    ids_t = torch.as_tensor(ids, device=DEVICE)
+    mask = (ids_t > 0).to(torch.int32)
+    toks_t = torch.as_tensor(toks, device=DEVICE)
+    valid_t = torch.as_tensor(valid, device=DEVICE)
+    worst = torch.zeros((), device=DEVICE)
+    with torch.inference_mode():
+        cache, encoded, logits = fns.prefill(loaded.params, ids_t, mask)
+        for t in range(width):
+            if t:
+                pos = torch.full((n,), t, dtype=torch.long, device=DEVICE)
+                cache, logits = fns.step(loaded.params, cache, toks_t[:, t - 1],
+                                         pos, encoded, mask, fns.max_decode_len)
+            lg = logits.float()
+            regret = lg.max(-1).values - lg.gather(1, toks_t[:, t:t + 1])[:, 0]
+            worst = torch.maximum(worst, torch.where(valid_t[:, t], regret, 0.0)
+                                  .max())
+    return float(worst)
+
+
+def lever_run(loaded, prompts, budgets, **levers):
+    """One engine (the engine phase's shapes) with ``levers``, warmed, then
+    every sequence submitted from 8 threads; returns what the phase checks
+    and reports."""
+    from tpu_pipelines_torch.observability.metrics import MetricsRegistry
+    from tpu_pipelines_torch.serving.generative import GenerationEvicted
+
+    registry = MetricsRegistry()
+    engine = GenerativeEngine(loaded.decode_fns, loaded.params, device=DEVICE,
+                              max_batch_size=8, page_size=DECODE_LEN // 4,
+                              registry=registry, **levers)
+
+    def one(i):
+        t0 = time.perf_counter()
+        try:
+            out = engine.submit(prompts[i], max_new_tokens=budgets[i],
+                                timeout_s=600)
+        except GenerationEvicted:
+            return None, None
+        return out.tolist(), (time.perf_counter() - t0) / len(out)
+
+    try:
+        t0 = time.perf_counter()
+        engine.warm()
+        warm_s = time.perf_counter() - t0
+        zero_counters()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            results = list(pool.map(one, range(len(prompts))))
+        wall_s = time.perf_counter() - t0
+        launches = fa.decode_launches
+        prefix = engine._prefix
+        run = {
+            "streams": [s for s, _ in results],
+            "per_token_ms": [t * 1e3 for _, t in results if t is not None],
+            "wall_s": wall_s, "warm_s": warm_s, "launches": launches,
+            "steps": engine.steps_run, "prefills": engine.prefills_run,
+            "runs": dict(engine.program_runs),
+            "replay_launches": dict(engine.replay_launches),
+            "compiles": engine.compiles_after_warm,
+            "evictions": engine.evictions,
+            "evicted_metric": registry.get(
+                "serving_decode_evicted_total").labels("0").get(),
+            "proposed": engine.spec_proposed, "accepted": engine.spec_accepted,
+            "hits": prefix.hits if prefix else 0,
+            "misses": prefix.misses if prefix else 0,
+            "step_ms": engine.step_ewma_s * 1e3,
+            "graphs": (len(engine._target.graphs)
+                       + len(engine._draft.graphs if engine._draft else {})
+                       + len(engine._verify_graphs)),
+        }
+    finally:
+        engine.close()
+    done = [s for s in run["streams"] if s is not None]
+    run["tokens"] = sum(len(s) for s in done)
+    run["ended"] = all(
+        (len(s) == m and EOS_ID not in s[:-1])
+        or (len(s) <= m and s[-1] == EOS_ID and EOS_ID not in s[:-1])
+        for s, m in zip(run["streams"], budgets) if s is not None)
+    return run
+
+
+def engine_levers_phase(loaded, seed, card, surface_dir):
+    """The engine's decode levers on T5-small's served payload, each run
+    against the lever-off run; exports the payload into ``surface_dir``
+    for the serving_surface phase.  Returns the flash_decode launches of
+    the lever runs (summed) and the split by program kind."""
+    rng = np.random.default_rng(seed + 17)
+    vocab = loaded.model.shared.num_embeddings
+    distinct = LEVER_SEQS - LEVER_REPEATS
+    prompts = [rng.integers(4, vocab, size=int(rng.integers(8, MAX_INPUT_LEN + 1)))
+               for _ in range(distinct)]
+    prompts += prompts[:LEVER_REPEATS]
+    budgets = [int(m) for m in rng.integers(DECODE_LEN // 8, DECODE_LEN + 1,
+                                            size=LEVER_SEQS)]
+    runs = {"off": lever_run(loaded, prompts, budgets)}
+    step_ms = runs["off"]["step_ms"]
+    runs["prefix_chunked"] = lever_run(
+        loaded, prompts, budgets, prefix_cache_entries=LEVER_SEQS,
+        prefill_chunk_pages=1)
+    runs["spec_self_draft"] = lever_run(loaded, prompts, budgets,
+                                        spec_tokens=LEVER_SPEC)
+    runs["deadline_tight"] = lever_run(
+        loaded, prompts, budgets, slo_ms_per_token=LEVER_TIGHT * step_ms,
+        hard_deadline=True)
+    runs["deadline_loose"] = lever_run(
+        loaded, prompts, budgets, slo_ms_per_token=LEVER_LOOSE * step_ms,
+        hard_deadline=True)
+    off = runs["off"]["streams"]
+    failures = []
+    totals = {"target": 0, "draft": 0, "verify": 0, "prefill": 0}
+    for name, run in runs.items():
+        done = [(p, s) for p, s in zip(prompts, run["streams"]) if s is not None]
+        regret, control = 0.0, float("inf")  # nothing emitted to rescore
+        if done:
+            regret = rescore(loaded, [p for p, _ in done], [s for _, s in done])
+            control = rescore(loaded, [p for p, _ in done],
+                              [s for _, s in done],
+                              replace=lambda t: (t + vocab // 2) % vocab)
+        same = sum(s == o for s, o in zip(run["streams"], off) if s is not None)
+        lat = np.array(run["per_token_ms"] or [np.nan])
+        spec = name.startswith("spec")
+        prefill_passes = run["prefills"] * (2 if spec else 1)
+        want = T5_LAYERS * (prefill_passes + run["runs"]["target"]
+                            + run["runs"]["draft"])
+        # The prefills' share is what the counter saw outside the replays;
+        # the checks below (the total == want, each replay kind == T5_LAYERS
+        # x its runs) hold it to T5_LAYERS x prefill_passes.
+        prefill_launches = run["launches"] - sum(run["replay_launches"].values())
+        for kind in totals:
+            totals[kind] += (prefill_launches if kind == "prefill"
+                             else run["replay_launches"][kind])
+        print(f"engine_levers [{card}] {name}: {len(done)} of {LEVER_SEQS} "
+              f"sequences done ({run['tokens']} tokens) in {run['wall_s']:.2f} "
+              f"s, {run['tokens'] / run['wall_s']:.1f} tokens/s, per-token "
+              f"latency p50 {np.percentile(lat, 50):.3f} ms p99 "
+              f"{np.percentile(lat, 99):.3f} ms; {run['steps']} rounds (mean "
+              f"step {run['step_ms']:.3f} ms), {run['prefills']} prefills, "
+              f"{run['graphs']} graphs captured in a {run['warm_s']:.2f} s "
+              f"warm-up, compiles after warm {run['compiles']}; prefix hits "
+              f"{run['hits']} misses {run['misses']}; speculative "
+              f"{run['accepted']}/{run['proposed']} accepted; evicted "
+              f"{run['evictions']}; {same} streams equal the lever-off run's "
+              f"(reported only: cuBLAS may pick other kernels at another "
+              f"batch); greedy regret {regret:.3e} (tol {DECODE_LOGIT_TOL:g}; "
+              f"a swapped middle token {control:.3e}); flash_decode "
+              f"{run['launches']} = {T5_LAYERS} x ({prefill_passes} prefill "
+              f"passes + {run['runs']['target']} target + "
+              f"{run['runs']['draft']} draft steps), outside the replays "
+              f"{prefill_launches}, from replays: target "
+              f"{run['replay_launches']['target']}, draft "
+              f"{run['replay_launches']['draft']}, verify "
+              f"{run['replay_launches']['verify']} (the window runs dense)",
+              flush=True)
+        if run["compiles"] != 0:
+            failures.append(f"{name}: {run['compiles']} compiles after warm")
+        if not run["ended"]:
+            failures.append(f"{name}: a stream did not end at EOS or budget")
+        if run["launches"] != want or run["replay_launches"]["verify"] != 0:
+            failures.append(f"{name}: launches {run['launches']} != {want}")
+        if (run["replay_launches"]["target"] != T5_LAYERS * run["runs"]["target"]
+                or run["replay_launches"]["draft"]
+                != T5_LAYERS * run["runs"]["draft"]):
+            failures.append(f"{name}: a step ran outside its graph")
+        if regret > DECODE_LOGIT_TOL:
+            failures.append(f"{name}: an emitted token {regret:.3e} below the "
+                            "target's greedy choice")
+        if control <= DECODE_LOGIT_TOL:
+            failures.append(f"{name}: the swapped-token control stays within "
+                            "DECODE_LOGIT_TOL")
+        if run["evicted_metric"] != run["evictions"]:
+            failures.append(f"{name}: serving_decode_evicted_total "
+                            f"{run['evicted_metric']}")
+    pc, sp = runs["prefix_chunked"], runs["spec_self_draft"]
+    if (pc["hits"], pc["misses"]) != (LEVER_REPEATS, LEVER_SEQS - LEVER_REPEATS):
+        failures.append(f"prefix cache {pc['hits']} hits {pc['misses']} misses")
+    if pc["prefills"] != LEVER_SEQS - LEVER_REPEATS:
+        failures.append(f"prefix cache: {pc['prefills']} prefills")
+    if not sp["proposed"] or not sp["replay_launches"]["draft"]:
+        failures.append("spec: no draft step replayed")
+    if not runs["off"]["replay_launches"]["target"]:
+        failures.append("off: no target step replayed")
+    if not runs["deadline_tight"]["evictions"]:
+        failures.append("tight deadline: nothing evicted")
+    if runs["deadline_loose"]["evictions"]:
+        failures.append("loose deadline: a stream evicted")
+    print(f"engine_levers: acceptance rate "
+          f"{sp['accepted'] / max(1, sp['proposed']):.4f} with self-draft at "
+          f"k = {LEVER_SPEC}; tight SLO {LEVER_TIGHT * step_ms:.3f} ms/token "
+          f"evicted {runs['deadline_tight']['evictions']}, loose "
+          f"{LEVER_LOOSE * step_ms:.3f} ms/token evicted "
+          f"{runs['deadline_loose']['evictions']}; flash_decode launches by "
+          f"program over the runs: {totals}", flush=True)
+    if failures:
+        raise AssertionError(f"engine_levers: {failures}")
+    export_model(serving_model_dir=os.path.join(surface_dir, "t5", "1"),
+                 params=loaded.model.state_dict(), module_file=T5_MODULE,
+                 hyperparameters=t5_hparams("flash"))
+    return sum(r["launches"] for r in runs.values()), totals
 
 
 # ------------------------------------------------------------------ taxi DAG
@@ -3211,6 +3484,7 @@ def bert_dag_phase(seed, card, workdir):
     props = node_props(base, cold)
     out = {k: {key: arts[0].uri for key, arts in v.outputs.items()}
            for k, v in cold.nodes.items()}
+    BERT_DAG_OUTPUTS.update(out)
     raw_uri = out["CsvExampleGen"]["examples"]
     examples_uri = out["Transform"]["transformed_examples"]
     model_uri = out["Trainer"]["model"]
@@ -3374,6 +3648,466 @@ def bert_dag_phase(seed, card, workdir):
           f"{busy_ms:.3f} ms (idle share {1 - busy_ms / profiled_ms:.3f}), "
           f"{n_kernels:.0f} kernels", flush=True)
     return by_record(launches), model_uri
+
+
+# ------------------------------------------------------ the serving surface
+
+# The serving_surface phase: SURFACE_REQUESTS :predict bodies of 1-2 rows
+# per surface (REST and gRPC, raw and transformed) against BERT-base behind
+# a two-replica fleet, each reply held against the payload's eager
+# predict / predict_transformed at LOGIT_TOL; the BERT DAG rerun whose
+# Trainer writes the metrics-history ring takes SURFACE_STEPS steps.
+SURFACE_REQUESTS = 24
+SURFACE_THREADS = 4
+SURFACE_STEPS = 8
+# Filled by bert_dag_phase: each node's outputs in its cold run.
+BERT_DAG_OUTPUTS = {}
+
+
+def grpc_clients(target, name, batches, threads=SURFACE_THREADS):
+    """``batches`` through gRPC Predict from ``threads`` threads: [(replies
+    in order, seconds each)], wall seconds."""
+    from tpu_pipelines_torch.serving.grpc_server import PredictionClient
+
+    client = PredictionClient(target)
+
+    def one(batch):
+        t0 = time.perf_counter()
+        preds, _ = client.predict(name, batch, timeout=120)
+        return preds, time.perf_counter() - t0
+
+    try:
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(threads) as pool:
+            out = list(pool.map(one, batches))
+        return out, time.perf_counter() - t0
+    finally:
+        client.close()
+
+
+def surface_requests(rng, rows, n):
+    """``n`` request batches of 1-2 rows drawn from the columnar ``rows``."""
+    count = len(next(iter(rows.values())))
+    out = []
+    for _ in range(n):
+        pick = rng.integers(0, count, int(rng.integers(1, 3)))
+        out.append({k: np.asarray(v)[pick] for k, v in rows.items()})
+    return out
+
+
+def as_rest(batch):
+    n = len(next(iter(batch.values())))
+    return {"instances": [{k: np.asarray(v[i]).tolist() for k, v in batch.items()}
+                          for i in range(n)]}
+
+
+def surface_predicts(card, name, base, loaded_fn, batches, trace_dir, **kwargs):
+    """One BERT fleet serving ``batches`` over REST and gRPC (after one
+    warm-up request that captures its buckets): replies held against
+    ``loaded_fn`` (the payload's eager predict or predict_transformed);
+    returns (failures, p50 ms by surface, launches, device batches)."""
+    from tpu_pipelines_torch.serving.grpc_server import start_grpc_server
+
+    server = ModelServer("bert", base, replicas=FLEET_REPLICAS, max_versions=2,
+                         max_batch_size=FLEET_BATCH, request_trace_mode="all",
+                         trace_dir=trace_dir, device=DEVICE, **kwargs)
+    fleet = server._fleet
+    failures = []
+    try:
+        url = f"http://127.0.0.1:{server.start(port=0)}/v1/models/bert:predict"
+        grpc_server, gport = start_grpc_server(server)
+        try:
+            warm, _ = run_clients(url, [as_rest(batches[0])], n_procs=1,
+                                  threads=1)
+            if warm[0][0] != 200:
+                raise AssertionError(f"{name}: warm-up answered {warm[0][0]}")
+            zero_counters()
+            batches0 = served_batches(fleet)
+            rest, rest_s = run_clients(url, [as_rest(b) for b in batches],
+                                       n_procs=1, threads=SURFACE_THREADS)
+            grpc_out, grpc_s = grpc_clients(f"127.0.0.1:{gport}", "bert",
+                                            batches)
+            launches, n_batches = counters(), served_batches(fleet) - batches0
+            text = server.metrics_text()
+        finally:
+            grpc_server.stop(grace=2)
+    finally:
+        server.stop()
+    gaps = {"rest": 0.0, "grpc": 0.0}
+    for b, (code, reply, _), (preds, _) in zip(batches, rest, grpc_out):
+        want = np.asarray(loaded_fn(b), np.float32)
+        if code != 200:
+            failures.append(f"{name}: REST answered {code}")
+            continue
+        gaps["rest"] = max(gaps["rest"], float(np.abs(
+            np.asarray(reply["predictions"], np.float32) - want).max()))
+        gaps["grpc"] = max(gaps["grpc"], float(np.abs(
+            np.asarray(preds, np.float32) - want).max()))
+    p50 = {"rest": float(np.median([t for _, _, t in rest])) * 1e3,
+           "grpc": float(np.median([t for _, t in grpc_out])) * 1e3}
+    rows = sum(len(next(iter(b.values()))) for b in batches)
+    print(f"serving_surface [{card}] {name}: BERT-base behind "
+          f"{FLEET_REPLICAS} replicas, {len(batches)} requests ({rows} rows) "
+          f"over REST and as many over gRPC from {SURFACE_THREADS} threads "
+          f"each: p50 REST {p50['rest']:.2f} ms, gRPC {p50['grpc']:.2f} ms; "
+          f"max |reply - eager| REST {gaps['rest']:.3e}, gRPC "
+          f"{gaps['grpc']:.3e} (tol {LOGIT_TOL:g}); {launches['launches']} "
+          f"flash_fwd launches over {n_batches} device batches", flush=True)
+    if max(gaps.values()) > LOGIT_TOL:
+        failures.append(f"{name}: replies {gaps} off the eager predict")
+    try:
+        check_served_launches(f"serving_surface {name}", launches, n_batches)
+    except AssertionError as e:
+        failures.append(str(e))
+    if "# exemplar serving_request_latency_seconds" not in text:
+        failures.append(f"{name}: no exemplar on /metrics")
+    return failures, p50, launches["launches"], n_batches
+
+
+def surface_generate(card, t5_base, trace_dir):
+    """T5-small as the generative model type with every engine lever on,
+    behind REST :generate and gRPC Generate / GetModelStatus / Reload.  The
+    served streams are rescored by the target (greedy regret within
+    DECODE_LOGIT_TOL, a swapped middle token outside it), and each
+    version's flash_decode launches, counted over its generates alone (the
+    counters zeroed after the Reload's warm-up), equal T5_LAYERS x (two
+    prefill passes a prefill + target and draft replays) of its engines."""
+    from tpu_pipelines_torch.serving.grpc_server import (
+        PredictionClient,
+        start_grpc_server,
+    )
+
+    with open(os.path.join(t5_base, "1", "model_spec.json")) as f:
+        vocab = json.load(f)["hyperparameters"]["vocab_size"]
+    rng = np.random.default_rng(7)
+    lengths = np.array([[12], [40], [MAX_INPUT_LEN]])
+    ids = np.where(np.arange(MAX_INPUT_LEN)[None, :] < lengths,
+                   rng.integers(4, vocab, size=(3, MAX_INPUT_LEN)), 0)
+    batch = {"inputs": ids, "input_mask": (ids > 0).astype(np.int32)}
+    server = ModelServer(
+        "t5", t5_base, model_type="generative", max_batch_size=8,
+        decode_page_size=DECODE_LEN // 4, spec_tokens=LEVER_SPEC,
+        prefix_cache_entries=16, prefill_chunk_pages=1,
+        slo_ms_per_token=60_000.0, hard_deadline=True,
+        request_trace_mode="all", trace_dir=trace_dir, device=DEVICE)
+
+    def counted(version):
+        """What the version's engines did since the counters were zeroed."""
+        engines = [r._engines[version] for r in server._fleet.pool.replicas
+                   if version in r._engines]
+        return {
+            "launches": fa.decode_launches,
+            "want": T5_LAYERS * sum(2 * e.prefills_run
+                                    + e.program_runs["target"]
+                                    + e.program_runs["draft"] for e in engines),
+            "compiles": sum(e.compiles_after_warm for e in engines),
+            "accepted": sum(e.spec_accepted for e in engines),
+            "proposed": sum(e.spec_proposed for e in engines),
+            "draft": sum(e.replay_launches["draft"] for e in engines),
+        }
+
+    failures = []
+    try:
+        url = f"http://127.0.0.1:{server.start(port=0)}/v1/models/t5:generate"
+        grpc_server, gport = start_grpc_server(server)
+        client = PredictionClient(f"127.0.0.1:{gport}")
+        try:
+            zero_counters()
+            results, _ = run_clients(
+                url, [{"inputs": {k: v.tolist() for k, v in batch.items()}}],
+                n_procs=1, threads=1)
+            (code, reply, rest_s), = results
+            t0 = time.perf_counter()
+            tokens, version = client.generate("t5", batch, timeout=300)
+            grpc_s = time.perf_counter() - t0
+            status = client.model_status("t5")
+            runs = {"1": counted("1")}
+            payload_copy(os.path.join(t5_base, "1"), os.path.join(t5_base, "2"))
+            reloaded = client.reload("t5", timeout=600)
+            after = client.model_status("t5")
+            zero_counters()
+            again, version2 = client.generate("t5", batch, timeout=300)
+            runs["2"] = counted("2")
+        finally:
+            client.close()
+            grpc_server.stop(grace=2)
+    finally:
+        server.stop()
+    rest_tokens = np.asarray(reply["outputs"]) if code == 200 else None
+    loaded = load_exported_model(os.path.join(t5_base, "1"), device=DEVICE)
+    prompts = [row[:n] for row, (n,) in zip(ids, lengths)]
+    streams = [row[:row.index(EOS_ID) + 1] if EOS_ID in row else row
+               for row in tokens.tolist()]
+    regret = rescore(loaded, prompts, streams)
+    control = rescore(loaded, prompts, streams,
+                      replace=lambda t: (t + vocab // 2) % vocab)
+    del loaded
+    total = {k: sum(r[k] for r in runs.values()) for k in runs["1"]}
+    print(f"serving_surface [{card}] t5 generative (spec_tokens {LEVER_SPEC}, "
+          f"prefix cache, chunked prefill, loose per-token SLO under "
+          f"hard_deadline): REST :generate {code} in {rest_s * 1e3:.1f} ms, "
+          f"gRPC Generate {tokens.shape} in {grpc_s * 1e3:.1f} ms, equal "
+          f"{rest_tokens is not None and np.array_equal(rest_tokens, tokens)}; "
+          f"GetModelStatus {status}; Reload {reloaded} -> status {after}; "
+          f"Generate on version {version2} equal "
+          f"{np.array_equal(again, tokens)}; greedy regret {regret:.3e} (tol "
+          f"{DECODE_LOGIT_TOL:g}; a swapped middle token {control:.3e}); "
+          f"acceptance {total['accepted']}/{total['proposed']}; flash_decode "
+          + ", ".join(f"version {v} {r['launches']} (want {r['want']}, draft "
+                      f"lane {r['draft']})" for v, r in runs.items())
+          + f"; compiles after warm {total['compiles']}", flush=True)
+    if code != 200 or not np.array_equal(rest_tokens, tokens):
+        failures.append("t5: REST :generate and gRPC Generate differ")
+    if status != {"version": "1", "state": "AVAILABLE"} or version != "1":
+        failures.append(f"t5: status {status}, version {version}")
+    if reloaded["version"] != "2" or after["version"] != "2" or version2 != "2":
+        failures.append(f"t5: reload {reloaded}, status {after}")
+    if not np.array_equal(again, tokens):
+        failures.append("t5: version 2 (the same weights) decoded otherwise")
+    if regret > DECODE_LOGIT_TOL:
+        failures.append(f"t5: a served token {regret:.3e} below the target's "
+                        "greedy choice")
+    if control <= DECODE_LOGIT_TOL:
+        failures.append("t5: the swapped-token control stays within "
+                        "DECODE_LOGIT_TOL")
+    for v, r in runs.items():
+        if r["launches"] != r["want"] or not r["draft"]:
+            failures.append(f"t5 version {v}: flash_decode {r['launches']} "
+                            f"!= {r['want']}, draft lane {r['draft']}")
+    if total["compiles"] or not total["proposed"]:
+        failures.append(f"t5: compiles {total['compiles']}, proposed "
+                        f"{total['proposed']}")
+    return failures, total["launches"]
+
+
+def surface_trace_serve(trace_dir, n_traced):
+    """``python -m tpu_pipelines_torch trace serve`` reads the traces back:
+    every traced request's chain complete."""
+    code, out = cli(["trace", "serve", trace_dir, "--json"])
+    doc = json.loads(out) if code == 0 else {}
+    traces = doc.get("traces", {}).values()
+    predict = [t for t in traces if t.get("endpoint") == "predict"]
+    generate = [t for t in traces if t.get("endpoint") == "generate"]
+    incomplete = []
+    for t in predict:
+        spans = {s["name"] for s in t["spans"]}
+        instants = {s["name"] for s in t["instants"]}
+        # REST requests pass admission control, gRPC calls go straight to
+        # the fleet (as in the reference).
+        want = {"admission", "route"} if t.get("code") == 200 else {"route"}
+        if (t.get("code") not in (200, "OK") or not {"batch.wait", "model.step"}
+                <= spans or not want <= instants or t.get("version") is None):
+            incomplete.append(t["trace_id"])
+    for t in generate:
+        spans = {s["name"] for s in t["spans"]}
+        if t.get("code") not in (200, "OK") or not {"decode", "decode.join"} <= spans:
+            incomplete.append(t["trace_id"])
+    print(f"serving_surface trace serve: exit {code}, "
+          f"{doc.get('trace_count')} traces ({len(predict)} predict, "
+          f"{len(generate)} generate; {len(doc.get('exemplars', []))} "
+          f"exemplars), {len(incomplete)} with a chain missing a span",
+          flush=True)
+    failures = []
+    if code != 0 or len(predict) != n_traced or incomplete or not generate:
+        failures.append(f"trace serve: exit {code}, {len(predict)} of "
+                        f"{n_traced} predict traces, incomplete {incomplete[:3]}")
+    return failures
+
+
+def surface_infra(card, model_uri, outputs, workdir):
+    """The InfraValidator over gRPC on the Transform's examples
+    (``raw_examples=False``); the CPU tests run every binary and both
+    example kinds."""
+    from tpu_pipelines_torch.components.infra_validator import InfraValidator
+    from tpu_pipelines_torch.dsl.component import ExecutorContext
+    from tpu_pipelines_torch.metadata.types import Artifact
+
+    params = {k: p.default for k, p in InfraValidator.SPEC.parameters.items()}
+    params.update(serving_binary="grpc", raw_examples=False)
+    out = tempfile.mkdtemp(dir=workdir)
+    ctx = ExecutorContext(
+        node_id="InfraValidator",
+        inputs={"model": [Artifact("Model", model_uri)],
+                "examples": [Artifact(
+                    "Examples", outputs["Transform"]["transformed_examples"])]},
+        outputs={"blessing": [Artifact(type_name="InfraBlessing", uri=out)]},
+        exec_properties=params, extras={"device": DEVICE})
+    props = InfraValidator.EXECUTOR(ctx)
+    print(f"serving_surface [{card}] InfraValidator binary grpc, "
+          f"raw_examples False: blessed {props['blessed']}, p50 "
+          f"{props.get('latency_p50_ms', float('nan')):.2f} ms, p95 "
+          f"{props.get('latency_p95_ms', float('nan')):.2f} ms", flush=True)
+    return [] if props["blessed"] else [f"InfraValidator grpc raw=False: {props}"]
+
+
+def surface_export(card, flash_uri, raw_rows, workdir):
+    """The payload's device step as a torch.export artifact, loaded and run
+    on the card at two batch sizes: equal to the payload's predict of the
+    same raw rows, launching the forward kernel once per layer a call."""
+    from tpu_pipelines_torch.serving.saved_model import (
+        export_saved_model,
+        load_saved_model,
+    )
+
+    loaded = load_exported_model(flash_uri, device=DEVICE)
+    t0 = time.perf_counter()
+    out = export_saved_model(flash_uri, os.path.join(workdir, "artifact"),
+                             {k: v[:4] for k, v in raw_rows.items()},
+                             device=DEVICE)
+    export_s = time.perf_counter() - t0
+    run = load_saved_model(out)
+    failures, gaps = [], {}
+    for n in (3, 32):
+        b = {k: v[:n] for k, v in raw_rows.items()}
+        iface = loaded.host_preprocess(b)
+        run(iface)  # first call: its own cuBLAS handles
+        zero_counters()
+        got = run(iface)
+        launched = fa.launches
+        gaps[n] = float(np.abs(got.float().cpu().numpy()
+                               - loaded.predict(b)).max())
+        if launched != N_LAYERS or gaps[n] > LOGIT_TOL:
+            failures.append(f"artifact at batch {n}: {launched} launches, "
+                            f"gap {gaps[n]:.3e}")
+    size = os.path.getsize(os.path.join(out, "model.pt2"))
+    print(f"serving_surface [{card}] torch.export artifact: exported in "
+          f"{export_s:.1f} s ({size} bytes), loaded and run on the card at "
+          f"batches 3 and 32: max |artifact - predict| {gaps} (tol "
+          f"{LOGIT_TOL:g}), flash_fwd {N_LAYERS} launches a call", flush=True)
+    return failures
+
+
+def surface_federation(card, workdir, spool, history_root_env):
+    """The BERT DAG rerun (SURFACE_STEPS steps: the Trainer and what follows
+    it run, the rest cached) with the runner's TPP_METRICS_PORT federated
+    over the spool the fleets published into, scraped once inside the
+    Trainer; then its Trainer's metrics-history ring fills ``trace``'s
+    train_telemetry once the run's own summary is cut from its log."""
+    from tpu_pipelines_torch.examples import bert_pipeline
+    from tpu_pipelines_torch.observability.metrics_history import MetricsHistory
+    from tpu_pipelines_torch.orchestration import LocalDagRunner
+    from tpu_pipelines_torch.utils.module_loader import load_module
+
+    base = os.path.join(workdir, "bert")
+    root = os.path.join(base, "root")
+    port = free_port()
+    env = {"TPP_PIPELINE_HOME": base,
+           "BERT_DATA_CSV": os.path.join(workdir, "reviews.csv"),
+           "BERT_TRAIN_STEPS": str(SURFACE_STEPS), "BERT_TINY": "",
+           "TPP_METRICS_PORT": str(port), **history_root_env}
+    user = load_module(os.path.join(bert_pipeline.HERE, "bert_module.py"))
+    real_loop, seen, results = user.train_loop, {}, []
+    real_run = LocalDagRunner.run
+
+    def loop(**kw):
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=10) as r:
+            seen["scrape"] = r.read().decode()
+        return real_loop(**kw)
+
+    def run(self, *args, **kwargs):
+        results.append(real_run(self, *args, **kwargs))
+        return results[-1]
+
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, env), \
+            mock.patch.object(user, "train_loop", loop), \
+            mock.patch.object(LocalDagRunner, "run", run):
+        code, out = cli(["run", "--pipeline-module",
+                         os.path.join(bert_pipeline.HERE, "bert_pipeline.py"),
+                         "--device", DEVICE])
+    run_s = time.perf_counter() - t0
+    failures = []
+    if code != 0:
+        return [f"federation: the DAG rerun exited {code}: {out[-1500:]}"]
+    result = results[-1]
+    statuses = {k: v.status for k, v in result.nodes.items()}
+    text = seen.get("scrape", "")
+    fed_lines = [line for line in text.splitlines()
+                 if line.startswith(("pipeline_nodes_running{",
+                                     "serving_requests_total{"))]
+    runner = [x for x in fed_lines if x.startswith("pipeline_nodes_running{")
+              and 'host="' in x]
+    fleet = [x for x in fed_lines if x.startswith("serving_requests_total{")
+             and 'replica="' in x and 'host="' in x]
+    sources = re.search(r"^federation_sources (\S+)$", text, re.M)
+    print(f"serving_surface [{card}] federation: the BERT DAG rerun "
+          f"({SURFACE_STEPS} steps) in {run_s:.1f} s, {statuses}; the "
+          f"runner's :{port} scraped once inside the Trainer: "
+          f"{len(runner)} runner and {len(fleet)} fleet series with "
+          f"federation labels, federation_sources "
+          f"{sources[1] if sources else None}; spool files "
+          f"{sorted(os.listdir(spool))}", flush=True)
+    if not runner or not fleet or not sources or float(sources[1]) < 2:
+        failures.append("federation: the runner's scrape did not merge the "
+                        "fleet's series")
+    ring = MetricsHistory.for_pipeline_root(root)
+    headline = ring.headline(result.run_id)
+    events = os.path.join(root, ".runs", result.run_id, "trace", "events.jsonl")
+    with open(events) as f:
+        kept = [line for line in f if "train_telemetry_summary" not in line]
+    with open(events, "w") as f:
+        f.writelines(kept)
+    code, out = cli(["trace", result.run_id, "--pipeline-root", root, "--json"])
+    backfilled = json.loads(out).get("train_telemetry") if code == 0 else None
+    print(f"serving_surface [{card}] metrics history: {len(ring.entries(result.run_id))} "
+          f"snapshots of run {result.run_id}; headline {headline}; trace "
+          f"(its summary cut from the log) backfilled train_telemetry "
+          f"{'equal to the ring' if backfilled == headline else backfilled}",
+          flush=True)
+    if not headline or headline.get("steps") != SURFACE_STEPS \
+            or backfilled != headline:
+        failures.append(f"metrics history: headline {headline}, trace "
+                        f"{backfilled}")
+    return failures
+
+
+def serving_surface_phase(seed, card, workdir, production_uri, surface_dir):
+    """The rest of the serving surface (A8b) on the card: BERT-base from the
+    bert_dag phase over REST and gRPC on raw and transformed examples with
+    request tracing, T5-small's engine levers over gRPC, the InfraValidator
+    over gRPC and on transformed examples, the torch.export artifact,
+    metric federation and the metrics history.  Returns the flash_fwd and
+    flash_decode launches of the served traffic."""
+    from tpu_pipelines_torch.data import examples_io
+
+    outputs = BERT_DAG_OUTPUTS
+    trace_dir = os.path.join(surface_dir, "requests")
+    spool = os.path.join(surface_dir, "spool")
+    base = os.path.join(surface_dir, "bert")
+    flash_uri = payload_view(production_uri, os.path.join(base, "1"),
+                             attn_impl="flash")
+    raw_rows = next(examples_io.iter_column_chunks(
+        outputs["CsvExampleGen"]["examples"], "eval", rows=64))
+    rows = next(examples_io.iter_column_chunks(
+        outputs["Transform"]["transformed_examples"], "eval", rows=64))
+    loaded = load_exported_model(flash_uri, device=DEVICE)
+    rng = np.random.default_rng(seed + 19)
+    raw_reqs = surface_requests(rng, raw_rows, SURFACE_REQUESTS)
+    tr_reqs = surface_requests(rng, rows, SURFACE_REQUESTS)
+    failures = []
+    history_env = {"TPP_FEDERATION_DIR": spool, "TPP_METRICS_HISTORY": "1"}
+    with mock.patch.dict(os.environ, history_env):
+        f, p50_raw, fwd_raw, _ = surface_predicts(
+            card, "raw", base, loaded.predict, raw_reqs, trace_dir)
+        failures += f
+        f, p50_tr, fwd_tr, _ = surface_predicts(
+            card, "transformed", base, loaded.predict_transformed, tr_reqs,
+            trace_dir, raw=False)
+        failures += f
+        f, decode = surface_generate(card, os.path.join(surface_dir, "t5"),
+                                     trace_dir)
+        failures += f
+    failures += surface_trace_serve(trace_dir, 4 * SURFACE_REQUESTS + 2)
+    failures += surface_infra(card, production_uri, outputs, workdir)
+    failures += surface_export(card, flash_uri, raw_rows, workdir)
+    failures += surface_federation(card, workdir, spool, history_env)
+    print(f"serving_surface: REST vs gRPC p50 raw {p50_raw['rest']:.2f} / "
+          f"{p50_raw['grpc']:.2f} ms, transformed {p50_tr['rest']:.2f} / "
+          f"{p50_tr['grpc']:.2f} ms", flush=True)
+    if failures:
+        raise AssertionError(f"serving_surface: {failures}")
+    return fwd_raw + fwd_tr, decode
 
 
 # ------------------------------------------------------------- retrain DAG
@@ -5629,7 +6363,7 @@ def gated_engine_streams(loaded, prompts, budgets, capture):
                               page_size=FLEET_PAGE,
                               fault_hook=lambda: gate.wait(60))
     if not capture:
-        engine._capture = lambda b, kv: None
+        engine._capture = lambda *a: None
     engine.warm()
     handles = [engine.submit_nowait(p, max_new_tokens=m)
                for p, m in zip(prompts, budgets)]
@@ -5662,7 +6396,7 @@ def fleet_generate_phase(seed, n_requests, card, workdir):
     engines = [r._engines["1"] for r in fleet.pool.replicas]
     try:
         url = f"http://127.0.0.1:{server.start(port=0)}/v1/models/t5:generate"
-        graphs = [len(e._graphs) for e in engines]
+        graphs = [len(e._target.graphs) for e in engines]
         zero_counters()
         results, wall_s = run_clients(url, requests, n_procs=2, threads=4)
         launches = fa.decode_launches
@@ -5697,7 +6431,7 @@ def fleet_generate_phase(seed, n_requests, card, workdir):
                     FLEET_ENGINE_BATCH, kv).cpu(), 20)
             with torch.cuda.stream(eager_engine._stream):
                 eager_ms = profiled(lambda i: eager_engine._run_step(
-                    eager_engine._arena, FLEET_ENGINE_BATCH, kv)[0].cpu(), 20)
+                    eager_engine._target.arena, FLEET_ENGINE_BATCH, kv)[0].cpu(), 20)
     finally:
         graph_engine.close()
         eager_engine.close()
@@ -5773,8 +6507,12 @@ RESNET_MODULE = os.path.join(REPO, "tpu_pipelines_torch", "examples",
 # The ResNet DAG's npz: the twin's synthetic images (resnet_pipeline's
 # _ensure_data at 224x224, 10 classes) cut from 2048 rows to this many:
 # the ingest's hash split prints every float of a row (150,528 a row) and
-# hashes the text column by column (PERF.md section 4).
-RESNET_DAG_ROWS = 256
+# hashes the text column by column, about 0.35 s a row (PERF.md section
+# 4).  The twin's batch is cut with them (RESNET_BATCH, 64 by default): the
+# hash split's eval share of 128 rows (33) must clear one eval batch under
+# drop_remainder.
+RESNET_DAG_ROWS = 128
+RESNET_DAG_BATCH = 32
 RESNET_DAG_SIZE = 224
 MNIST_DAG_STEPS = 100
 # The reference Evaluator's multiclass metrics.json: {"problem", "slices":
@@ -6193,8 +6931,9 @@ def vision_dag_phase(name, seed, card, workdir):
               f"({os.path.getsize(npz)} bytes) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         env.update(RESNET_NPZ=npz, RESNET_DEPTH="50",
-                   RESNET_IMAGE_SIZE=str(RESNET_DAG_SIZE))
-        steps = 60  # the twin's defaults: 60 steps of 64, 10 classes
+                   RESNET_IMAGE_SIZE=str(RESNET_DAG_SIZE),
+                   RESNET_BATCH=str(RESNET_DAG_BATCH))
+        steps = 60  # the twin's defaults: 60 steps, 10 classes
     pipeline_module = os.path.join(twin.HERE, f"{name}_pipeline.py")
     root = os.path.join(base, "root")
     traces, allocs = {}, {}
@@ -6269,7 +7008,7 @@ def vision_dag_phase(name, seed, card, workdir):
 # ---- tune_rewrite: search, the trainer's extras, rewriting, the int8 fleet
 
 TUNE_ROWS = 8000
-TUNE_LRS = [1e-4, 5e-5, 3e-5, 1e-5]
+TUNE_LRS = [1e-4, 1e-5]
 # Successive halving with eta 2: the four rates at 10 steps, the best two
 # at 20 (the full budget).
 TUNE_RUNGS = (10, 20)
@@ -6623,7 +7362,10 @@ def tune_rewrite_phase(seed, card, workdir):
     print(f"tune_rewrite Tuner node [{card}]: {run.nodes['Tuner'].wall_clock_s:.2f} s "
           f"for {len(trials)} in-process trials",
           flush=True)
-    if (budgets != [TUNE_RUNGS[0]] * 4 + [TUNE_RUNGS[1]] * 2
+    # Successive halving at eta 2: every rate at the first rung, the
+    # better half at the second.
+    if (budgets != [TUNE_RUNGS[0]] * len(TUNE_LRS)
+            + [TUNE_RUNGS[1]] * (len(TUNE_LRS) // 2)
             or any(t["status"] != "ok" for t in trials)
             or trainer_hp["learning_rate"] != best["learning_rate"]):
         raise AssertionError(f"tune_rewrite: budgets {budgets}, best {best}, "
@@ -6635,7 +7377,9 @@ def tune_rewrite_phase(seed, card, workdir):
     # The Trainer: MFU from the loop, the counted FLOPs, the profile, the
     # TensorBoard scalars, goodput and the watchdog.
     config, result, shape = calls[-1]
-    if config.profile_dir != loop_options["profile_dir"] or len(calls) != 7:
+    # One train_loop call per in-process trial, then the Trainer's.
+    if (config.profile_dir != loop_options["profile_dir"]
+            or len(calls) != len(trials) + 1):
         raise AssertionError(f"tune_rewrite: {len(calls)} train_loop calls")
     length = next(iter(BatchIterator(
         uri("Transform", "transformed_examples"), "train",
@@ -7545,7 +8289,7 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--requests", type=int, default=128)
     parser.add_argument("--train-steps", type=int, default=12)
-    parser.add_argument("--generate-requests", type=int, default=16)
+    parser.add_argument("--generate-requests", type=int, default=8)
     parser.add_argument("--table-out", default="",
                         help="also write the crossovers measured in this run "
                              "as an autotune table here (the format of "
@@ -7603,8 +8347,13 @@ def main(argv=None) -> int:
     engine = engine_phase(t5_payload, args.seed, card)
     phase_done("engine")
     engine_long = engine_long_phase(t5_payload, args.seed, card)
-    del t5_payload
     phase_done("engine_long")
+    # The serving_surface phase serves the T5 payload this phase exports.
+    surface = tempfile.TemporaryDirectory()
+    levers, levers_by_program = engine_levers_phase(t5_payload, args.seed, card,
+                                                    surface.name)
+    del t5_payload
+    phase_done("engine_levers")
     trained = training_phase(args.seed, args.train_steps, card)
     phase_done("training")
     dp_trained = dp_train_phase(args.seed, card)
@@ -7630,6 +8379,10 @@ def main(argv=None) -> int:
         phase_done("continuous")
         machinery = dag_machinery_phase(args.seed, card, workdir)
         phase_done("dag_machinery")
+        surface_fwd, surface_decode = serving_surface_phase(
+            args.seed, card, workdir, production, surface.name)
+        surface.cleanup()
+        phase_done("serving_surface")
     with tempfile.TemporaryDirectory() as workdir:
         tuned = tune_rewrite_phase(args.seed, card, workdir)
     phase_done("tune_rewrite")
@@ -7664,7 +8417,12 @@ def main(argv=None) -> int:
                                "training": trained["flash_fwd"]}
     decode["launches_by_path"] = {"serving": generated, "engine": engine,
                                   "engine_long": engine_long,
-                                  "fleet": fleet["flash_decode"]}
+                                  "fleet": fleet["flash_decode"],
+                                  "engine_levers": levers,
+                                  "serving_surface": surface_decode}
+    # The lever runs' launches by program: the target's and the draft
+    # lane's step replays, the verify windows (dense: none) and prefills.
+    decode["engine_levers_by_program"] = levers_by_program
     for record in bwd:
         record["launches_by_path"] = {"training": trained[record["name"]]}
     bwd[0]["dvec_launches_by_path"] = {"training": trained["flash_bwd_dvec"],
@@ -7672,6 +8430,7 @@ def main(argv=None) -> int:
     for record in (fwd, *bwd):
         record["launches_by_path"]["dp_train"] = dp_trained[record["name"]]
     fwd["launches_by_path"]["fleet_guard"] = guard
+    fwd["launches_by_path"]["serving_surface"] = surface_fwd
     for path, counts in (("bert_dag", bert_dag), ("retrain_dag", retrain),
                          ("continuous", continuous),
                          ("dag_machinery", machinery), ("t5_dag", t5_dag),
@@ -7679,7 +8438,8 @@ def main(argv=None) -> int:
         for record in (fwd, *bwd, decode):
             record["launches_by_path"][path] = counts[record["name"]]
         bwd[0]["dvec_launches_by_path"][path] = counts["flash_bwd_dvec"]
-    trained["flash_decode"] = generated + engine + engine_long + fleet["flash_decode"]
+    trained["flash_decode"] = (generated + engine + engine_long
+                               + fleet["flash_decode"] + levers + surface_decode)
     records = [fwd, *bwd, decode]
     bwd[0]["dvec_launches"] = trained["flash_bwd_dvec"]
     for record in records:

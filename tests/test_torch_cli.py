@@ -282,14 +282,25 @@ def _module(tmp_path, side, text=None):
 def test_each_deferred_subcommand_or_flag_names_its_item(
         argv, item, tmp_path, monkeypatch, capsys):
     """Each subcommand and flag that once exited 2 naming its ROADMAP.md
-    item: ``trace serve`` still does (A8b); the rest print the reference
-    CLI's lines, with its exit codes, on the same host DAG.  ``run
+    item.  Each now prints the reference CLI's lines, with its exit codes:
+    ``trace serve`` (A8b) on a request-trace file the reference's tracer
+    wrote, the rest on the same host DAG.  ``run
     --from-node`` with ``--resume-from`` is refused on both sides (the
     reference raises its runner's ValueError, the port exits 2 with it)."""
     if item == "A8b":
-        code, out, err = _call(port_main, argv)
-        assert code == 2
-        assert f"ROADMAP.md {item}" in err and "not ported yet" in err
+        from tpu_pipelines.observability.request_trace import RequestTracer
+
+        trace_dir = str(tmp_path / "requests")
+        tracer = RequestTracer("all", trace_dir=trace_dir, service="m")
+        ctx = tracer.start("predict")
+        ctx.instant("admission", depth=0, bound=0)
+        ctx.finish(200)
+        tracer.close()
+        outs = {side: _call(main, [*argv[:2], trace_dir])
+                for side, (_, main, _) in SIDES.items()}
+        assert outs["port"] == outs["ref"]
+        code, out, _ = outs["port"]
+        assert code == 0 and "serving traces: 1" in out
         return
     monkeypatch.delenv("TPP_TRACE", raising=False)
     monkeypatch.setenv("TPP_DATA_POOL", "thread")  # no fork under JAX's threads

@@ -21,8 +21,9 @@ stub-loader seam ``serving.fleet.versions._default_loader``):
     ``deploy_latency_s`` and run ids), the ``continuous_*`` series and the
     blessing and model properties in both stores.
 
-The port's departures are held here too: a lint gate raises naming A20,
-and no summary carries ``train_telemetry`` (A8b).
+The port's departures are held here too: a lint gate raises naming A20.
+With ``TPP_METRICS_HISTORY`` unset no summary carries ``train_telemetry``,
+as in the reference.
 """
 
 import importlib
@@ -621,7 +622,7 @@ def test_controller_incremental_iterations(tmp_path, fake_loader):
         assert it3["deployed"]["version"] == "3"
         assert seen["port"]["versions"] == ["2", "3"]
         assert seen["port"]["stats_runs"] == 3
-        assert "train_telemetry" not in it3  # no metrics-history ring (A8b)
+        assert "train_telemetry" not in it3  # TPP_METRICS_HISTORY unset
         reg = hs["port"].registry
         assert reg.get("continuous_deploys_total").get() == 2
         assert reg.get("continuous_spans_seen").get() == 3

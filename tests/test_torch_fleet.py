@@ -524,16 +524,22 @@ def test_fleet_env_knobs(tmp_path, fake_loader, monkeypatch):
         assert server2._fleet is None
     finally:
         server2.stop()
-    # The reference's knobs that wait for ROADMAP A8b raise when set.
-    for env in ("TPP_SERVING_PREFIX_CACHE", "TPP_REQUEST_TRACE",
-                "TPP_SERVING_SPEC_TOKENS"):
+    # The knobs that once raised naming A8b are read from the environment
+    # like the rest (TPP_REQUEST_TRACE=1 means "all").
+    for env, read in (
+            ("TPP_SERVING_PREFIX_CACHE", lambda s: s.prefix_cache_entries),
+            ("TPP_REQUEST_TRACE", lambda s: s.request_tracer.mode == "all"),
+            ("TPP_SERVING_SPEC_TOKENS", lambda s: s.spec_tokens)):
         monkeypatch.setenv(env, "1")
-        with pytest.raises(NotImplementedError, match="A8"):
-            ModelServer("toy", str(base), device="cpu")
+        server3 = ModelServer("toy", str(base), device="cpu")
+        try:
+            assert read(server3) == 1, env
+        finally:
+            server3.stop()
         monkeypatch.delenv(env)
     monkeypatch.setenv("TPP_METRICS_HISTORY", "1")
-    with pytest.raises(NotImplementedError, match="A8"):
-        ModelServer("toy", str(base), device="cpu")
+    server4 = ModelServer("toy", str(base), replicas=2, device="cpu")
+    server4.stop()
 
 
 # ------------------------------------------------------------ supervisor

@@ -201,10 +201,27 @@ def test_token_admission_refuses_past_max_queue_tokens(flax_params):
     ("draft_params", object()),
 ])
 def test_deferred_engine_options_raise_naming_a8(flax_params, option, value):
+    """The decode levers that once raised naming A8 are taken now: each
+    option lands on the engine (a draft lane's options only with
+    ``spec_tokens``; ``tests/test_torch_engine_levers.py`` drives them)."""
     model, params = tiny.port_model(flax_params)
     fns = pt5.make_continuous_decode_fns(model, max_decode_len=L)
-    with pytest.raises(NotImplementedError, match="A8"):
-        GenerativeEngine(fns, params, device="cpu", **{option: value})
+    engine = GenerativeEngine(fns, params, device="cpu", **{option: value})
+    try:
+        got = {
+            "prefix_cache_entries": lambda: engine._prefix.capacity,
+            "prefill_chunk_pages": lambda: engine.prefill_chunk_pages,
+            "spec_tokens": lambda: (engine.spec_tokens, engine._draft.fns),
+            "draft_fns": lambda: engine._draft,
+            "slo_ms_per_token": lambda: engine.slo_ms_per_token,
+            "hard_deadline": lambda: engine.hard_deadline,
+            "draft_params": lambda: engine._draft,
+        }[option]()
+        want = {"spec_tokens": (value, fns), "draft_fns": None,
+                "draft_params": None}.get(option, value)
+        assert got == want
+    finally:
+        engine.close()
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(flax_params,

@@ -193,10 +193,17 @@ def test_generative_env_knobs(tmp_path, flax_params, monkeypatch):
         assert engine.kv_buckets == [4, 8]
     finally:
         server.stop()
-    # The per-token SLO waits for ROADMAP A8.
+    # The per-token SLO is read from the environment too, and reaches the
+    # replicas' engines.
     monkeypatch.setenv("TPP_SERVING_SLO_MS_PER_TOKEN", "5")
-    with pytest.raises(NotImplementedError, match="A8"):
-        ModelServer("t5", str(tmp_path / "m"), device="cpu")
+    server = ModelServer("t5", str(tmp_path / "m"), max_batch_size=2,
+                         device="cpu")
+    try:
+        assert server.slo_ms_per_token == 5.0
+        engine = server._fleet.pool.replicas[0]._engines["1"]
+        assert engine.slo_ms_per_token == 5.0
+    finally:
+        server.stop()
 
 
 def test_a_payload_without_a_decode_contract_is_refused_at_the_canary(

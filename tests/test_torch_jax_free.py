@@ -138,14 +138,18 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
                    "examples.mnist_pipeline", "examples.resnet_module",
                    "examples.resnet_pipeline", "parallel.distributed",
                    "parallel.mesh", "parallel.partition",
-                   "trainer.data_parallel"):
+                   "trainer.data_parallel", "serving.batching",
+                   "observability.request_trace", "observability.federation",
+                   "observability.metrics_history", "serving.grpc_server",
+                   "serving.prediction_service_pb2", "serving.saved_model"):
         assert f"tpu_pipelines_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["modules"]
     assert {"retrain_dag_phase", "fleet_guard_phase",
             "bert_dag_phase", "continuous_phase",
             "dag_machinery_phase", "vision_train_phase",
             "vision_serving_phase", "vision_dag_phase",
-            "dp_train_phase"} <= set(report["phases"])
+            "dp_train_phase", "engine_levers_phase",
+            "serving_surface_phase"} <= set(report["phases"])
     leaked = [m for m in report["modules"]
               if _forbidden(m) or m.split(".")[0] in NOT_AT_IMPORT]
     assert leaked == []

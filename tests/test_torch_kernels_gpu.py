@@ -50,7 +50,10 @@ launch, writes the thread pool's stats.json bytes (a killed worker
 replaced).  A world of one over NCCL captures the data-parallel
 psum_bucketed step with its all-reduces inside the graph, equal to its
 eager steps bit for bit; two ranks on the one card share every
-collective over gloo, and NCCL refuses them.
+collective over gloo, and NCCL refuses them.  A speculating engine's
+draft-step and verify-window graphs replay as its eager programs, its
+arenas after the rejected-KV scrub equal the eager engine's bit for bit,
+and a payload's ``torch.export`` artifact launches the forward kernel.
 """
 
 import pytest
@@ -793,10 +796,10 @@ def test_engine_graph_tokens_equal_the_eager_engine(cuda, monkeypatch):
         engine = GenerativeEngine(fns, params, device=cuda, max_batch_size=4,
                                   page_size=8, fault_hook=lambda: gate.wait(30))
         if eager:
-            monkeypatch.setattr(engine, "_capture", lambda b, kv: None)
+            monkeypatch.setattr(engine, "_capture", lambda *a: None)
         try:
             engine.warm()
-            assert len(engine._graphs) == (0 if eager else 3 * 3)
+            assert len(engine._target.graphs) == (0 if eager else 3 * 3)
             before = fa.decode_launches
             handles = [engine.submit_nowait(p, max_new_tokens=m)
                        for p, m in zip(prompts, budgets)]
@@ -813,6 +816,194 @@ def test_engine_graph_tokens_equal_the_eager_engine(cuda, monkeypatch):
     _, launches, steps, prefills, compiles = graph
     assert compiles == 0 and prefills == 6
     assert launches == 2 * (steps + prefills)
+
+
+def _spec_engine(cuda, eager, monkeypatch, gate):
+    """A tiny f32 T5 engine speculating 3 tokens with a perturbed draft (so
+    rounds reject proposals), captured or (``eager``) stepping eagerly."""
+    import numpy as np
+
+    from tpu_pipelines_torch.models import t5 as pt5
+    from tpu_pipelines_torch.serving.generative import GenerativeEngine
+
+    model = pt5.T5(vocab_size=64, d_model=32, n_layers=2, n_heads=2,
+                   head_dim=16, d_ff=64, dropout_rate=0.0, dtype=torch.float32,
+                   attn_impl="flash")
+    pt5.init_t5_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(cuda).eval()
+    params = dict(model.state_dict())
+    g = torch.Generator().manual_seed(1)
+    draft = {n: t + 0.3 * torch.randn(t.shape, generator=g).to(cuda)
+             if t.is_floating_point() else t for n, t in params.items()}
+    fns = pt5.make_continuous_decode_fns(model, max_decode_len=24, eos_id=1,
+                                         max_input_len=12)
+    engine = GenerativeEngine(fns, params, device=cuda, max_batch_size=4,
+                              page_size=8, spec_tokens=3, draft_params=draft,
+                              fault_hook=lambda: gate.wait(30))
+    if eager:
+        monkeypatch.setattr(engine, "_capture", lambda *a: None)
+        monkeypatch.setattr(engine, "_capture_verify", lambda *a: None)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, 64, size=int(rng.integers(3, 13)))
+               for _ in range(6)]
+    budgets = [int(m) for m in rng.integers(6, 24, size=6)]
+    return engine, prompts, budgets
+
+
+def _spec_run(cuda, eager, monkeypatch):
+    import threading
+
+    gate = threading.Event()
+    engine, prompts, budgets = _spec_engine(cuda, eager, monkeypatch, gate)
+    try:
+        engine.warm()
+        before = fa.decode_launches
+        handles = [engine.submit_nowait(p, max_new_tokens=m)
+                   for p, m in zip(prompts, budgets)]
+        gate.set()
+        streams = [h.wait(60).tolist() for h in handles]
+        launches = fa.decode_launches - before
+    finally:
+        engine.close()
+    return engine, streams, launches
+
+
+def test_a_speculative_engines_graphs_replay_as_its_eager_steps(cuda,
+                                                                monkeypatch):
+    """Every (batch, kv) bucket's draft step and verify window is a CUDA
+    graph; on one schedule the captured engine emits the eager engine's
+    streams and acceptances, and one draft-step and one verify-window
+    replay each equal the same program run eagerly on the arena's state
+    bit for bit."""
+    graph, streams, launches = _spec_run(cuda, False, monkeypatch)
+    eager, e_streams, e_launches = _spec_run(cuda, True, monkeypatch)
+    assert streams == e_streams and launches == e_launches
+    assert (graph.spec_proposed, graph.spec_accepted) == (
+        eager.spec_proposed, eager.spec_accepted)
+    assert graph.spec_accepted < graph.spec_proposed  # the draft is wrong
+    assert graph.compiles_after_warm == 0
+    assert (len(graph._target.graphs), len(graph._draft.graphs),
+            len(graph._verify_graphs)) == (9, 9, 9)
+    runs = graph.program_runs
+    assert graph.replay_launches == {"target": 2 * runs["target"],
+                                     "draft": 2 * runs["draft"], "verify": 0}
+    assert launches == 2 * (2 * graph.prefills_run + runs["target"]
+                            + runs["draft"])
+
+    def state(lane):
+        cache, *rest = lane.arena
+        return ({n: a.clone() for n, a in cache.items()},
+                *(a.clone() for a in rest))
+
+    def restore(lane, saved):
+        cache, *rest = lane.arena
+        for n, a in cache.items():
+            a.copy_(saved[0][n])
+        for a, b in zip(rest, saved[1:]):
+            a.copy_(b)
+
+    def same(a, b):
+        return all(torch.equal(a[0][n], b[0][n]) for n in a[0]) and all(
+            torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
+
+    with torch.inference_mode():
+        for lane, key in ((graph._draft, (4, 16)), (graph._target, (2, 8))):
+            saved = state(lane)
+            lane.graphs[key][0].replay()
+            torch.cuda.synchronize(cuda)
+            replayed, nxt = state(lane), lane.graphs[key][1].clone()
+            restore(lane, saved)
+            want, _ = graph._run_step(lane.arena, *key, lane)
+            assert torch.equal(nxt, want) and same(replayed, state(lane))
+        graph._toks.copy_(torch.randint(2, 64, graph._toks.shape,
+                                        generator=torch.Generator().manual_seed(2))
+                          .to(cuda))
+        saved = state(graph._target)
+        graph._verify_graphs[(4, 24)][0].replay()
+        torch.cuda.synchronize(cuda)
+        replayed, g = state(graph._target), graph._verify_graphs[(4, 24)][1].clone()
+        restore(graph._target, saved)
+        want = graph._run_verify(graph._target.arena, graph._toks, 4, 24)
+        assert torch.equal(g, want) and same(replayed, state(graph._target))
+
+
+def test_the_rejected_kv_scrub_leaves_the_arena_as_eager_does(cuda,
+                                                              monkeypatch):
+    """With a draft the target rejects, the captured engine's arenas (the
+    target's and the draft lane's, after every accept's scrub) end equal to
+    the eager engine's bit for bit, and every self-attention position at or
+    past a live row's position is zero."""
+    graph, streams, _ = _spec_run(cuda, False, monkeypatch)
+    eager, e_streams, _ = _spec_run(cuda, True, monkeypatch)
+    assert streams == e_streams and graph.spec_accepted < graph.spec_proposed
+    for lane, e_lane in ((graph._target, eager._target),
+                         (graph._draft, eager._draft)):
+        for a, b in zip(lane.arena[1:], e_lane.arena[1:]):
+            assert torch.equal(a, b)
+        for name, a in lane.arena[0].items():
+            assert torch.equal(a, e_lane.arena[0][name]), (lane.name, name)
+    # A fresh accept on the captured engine scrubs past each new position.
+    import numpy as np
+
+    with torch.inference_mode():
+        new_pos = np.array([5, 0, 11, 24], np.int64)
+        graph._sync_lane(graph._draft, np.zeros(4, np.int64), new_pos)
+        for name, a in graph._draft.arena[0].items():
+            if "cached_enc" in name:
+                continue
+            for row, p in enumerate(new_pos):
+                assert not a[row, p:].any(), (name, row)
+
+
+def test_the_torch_export_artifact_launches_flash_fwd(cuda, tmp_path):
+    """A BERT payload's device step exported with a symbolic batch and
+    loaded again: on CUDA tensors it launches the forward kernel once per
+    layer per call and equals the payload's ``predict_transformed`` bit
+    for bit at two batch sizes."""
+    import numpy as np
+
+    from tpu_pipelines_torch.models.bert import build_bert_model, init_bert_weights
+    from tpu_pipelines_torch.serving.saved_model import (
+        export_saved_model,
+        load_saved_model,
+    )
+    from tpu_pipelines_torch.trainer.export import (
+        export_model,
+        load_exported_model,
+    )
+
+    import os
+
+    module = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                          "tpu_pipelines_torch", "examples", "bert_module.py")
+    hp = {**TINY_TRAIN, "dropout_rate": 0.0}
+    model = init_bert_weights(build_bert_model(hp),
+                              torch.Generator().manual_seed(0))
+    payload = export_model(serving_model_dir=str(tmp_path / "1"),
+                           params=model.state_dict(), module_file=module,
+                           hyperparameters=hp)
+
+    def batch(n, seed):
+        rng = np.random.default_rng(seed)
+        ids = np.zeros((n, 64), np.int64)
+        for i in range(n):
+            k = int(rng.integers(4, 65))
+            ids[i, :k] = rng.integers(1, hp["vocab_size"], size=k)
+        return {"input_ids": ids, "attention_mask": (ids > 0).astype(np.int32)}
+
+    out = export_saved_model(payload, str(tmp_path / "artifact"), batch(4, 0),
+                             device=cuda)
+    run = load_saved_model(out)
+    loaded = load_exported_model(payload, device=cuda)
+    for n in (3, 8):
+        b = batch(n, n)
+        before = fa.launches
+        got = run(b)
+        torch.cuda.synchronize(cuda)
+        assert fa.launches - before == hp["n_layers"]
+        assert got.device.type == "cuda"
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      loaded.predict_transformed(b))
 
 
 # ---- the captured training step (train_loop on CUDA)

@@ -50,6 +50,14 @@ persists), a second aborts:
     python -m tpu_pipelines_torch trace diff <run-a> <run-b> \
         --pipeline-root /pipe/root [--threshold 0.2]
 
+With ``TPP_METRICS_HISTORY`` set, a run whose trace carries no train
+telemetry has it filled in from the metrics-history ring
+(``<root>/.runs/_metrics/``).  ``trace serve`` reads the serving tier's
+request traces (``<trace_dir>/serving/events.jsonl``):
+
+    python -m tpu_pipelines_torch trace serve <trace_dir> [--trace-id ID] \
+        [--exemplars] [--perfetto requests.json] [--json]
+
 ``drift`` reads a serving fleet's ``/metrics`` scrape and prints its live
 drift and skew report (exit 3 with ``--fail-on-alert`` once any alert
 counted):
@@ -59,9 +67,6 @@ counted):
 ``trace diff`` exits 3 when a node or the critical path regressed past
 the threshold.  ``--json`` on ``trace``, ``trace diff`` and ``inspect
 runs`` prints one JSON object instead of the tables.
-
-Not ported yet: ``trace serve`` prints the ``ROADMAP.md`` item it waits
-for (A8b) and exits 2.
 """
 
 from __future__ import annotations
@@ -73,14 +78,8 @@ import sys
 
 from tpu_pipelines_torch.metadata.store import MetadataStore
 
-EXIT_UNPORTED = 2
 # A gate that found something (``drift --fail-on-alert``).
 EXIT_GATED = 3
-
-
-def _unported(what: str, item: str) -> int:
-    print(f"{what} is not ported yet (ROADMAP.md {item})", file=sys.stderr)
-    return EXIT_UNPORTED
 
 
 def _fmt_props(props: dict, keys=None) -> str:
@@ -218,6 +217,27 @@ def _load_run_metrics(pipeline_root: str, run_id: str):
     return (run_id, events, compute_metrics(events)), None
 
 
+def _attach_history_telemetry(
+    pipeline_root: str, run_id: str, metrics: dict
+) -> None:
+    """Fill ``metrics['train_telemetry']`` from the metrics-history ring
+    (``<root>/.runs/_metrics/``) when the trace recorded none: the ring
+    outlives the trainer process.  No ring, no change."""
+    if metrics.get("train_telemetry"):
+        return
+    from tpu_pipelines_torch.observability.metrics_history import (
+        MetricsHistory,
+    )
+
+    try:
+        headline = MetricsHistory.for_pipeline_root(
+            pipeline_root).headline(run_id)
+    except OSError:
+        return
+    if headline:
+        metrics["train_telemetry"] = headline
+
+
 def cmd_trace(args) -> int:
     from tpu_pipelines_torch.observability import (
         export_metrics,
@@ -228,11 +248,10 @@ def cmd_trace(args) -> int:
     if args.run_id[0] == "diff":
         return cmd_trace_diff(args)
     if args.run_id[0] == "serve":
-        return _unported("trace serve (the serving tier's request traces)",
-                         "A8b")
+        return cmd_trace_serve(args)
     if len(args.run_id) != 1:
-        print("trace takes one run id (or: trace diff <a> <b>)",
-              file=sys.stderr)
+        print("trace takes one run id (or: trace diff <a> <b>, "
+              "trace serve <trace_dir>)", file=sys.stderr)
         return 2
     if not args.pipeline_root:
         print("trace <run-id> requires --pipeline-root", file=sys.stderr)
@@ -242,6 +261,7 @@ def cmd_trace(args) -> int:
         print(err, file=sys.stderr)
         return 1
     run_id, events, metrics = loaded
+    _attach_history_telemetry(args.pipeline_root, run_id, metrics)
     if args.json:
         print(json.dumps(
             {"run_id": run_id, "events": len(events), **metrics},
@@ -285,6 +305,8 @@ def cmd_trace_diff(args) -> int:
             return 1
         loaded.append(got)
     (id_a, _, metrics_a), (id_b, _, metrics_b) = loaded
+    _attach_history_telemetry(args.pipeline_root, id_a, metrics_a)
+    _attach_history_telemetry(args.pipeline_root, id_b, metrics_b)
     diff = diff_metrics(metrics_a, metrics_b, threshold=args.threshold)
     if args.json:
         print(json.dumps(
@@ -295,6 +317,76 @@ def cmd_trace_diff(args) -> int:
         print(f"trace diff: {id_a} (baseline) -> {id_b}")
         print(format_diff(diff))
     return 3 if diff["regressed"] else 0
+
+
+def cmd_trace_serve(args) -> int:
+    """``trace serve <trace_dir>``: read, filter and export the serving
+    tier's request traces (``<trace_dir>/serving/events.jsonl``).
+    ``--trace-id`` narrows to one trace (the id a traceparent reply header
+    or a /metrics exemplar carries), ``--perfetto`` writes the replica and
+    batch-group timeline, ``--exemplars`` lists the exemplar links."""
+    from tpu_pipelines_torch.observability import read_events
+    from tpu_pipelines_torch.observability.export import (
+        export_perfetto_requests,
+        format_request_traces,
+        summarize_request_traces,
+    )
+
+    if len(args.run_id) != 2:
+        print("trace serve needs a trace dir: trace serve <trace_dir>",
+              file=sys.stderr)
+        return 2
+    trace_dir = args.run_id[1]
+    events_file = os.path.join(trace_dir, "serving", "events.jsonl")
+    if not os.path.exists(events_file):
+        # The serving/ dir, or the file itself, is accepted too.
+        for cand in (os.path.join(trace_dir, "events.jsonl"), trace_dir):
+            if os.path.isfile(cand):
+                events_file = cand
+                break
+        else:
+            print(
+                f"no serving trace log at {events_file} (was the server "
+                "started with TPP_REQUEST_TRACE=sample:N|all and a "
+                "TPP_REQUEST_TRACE_DIR?)", file=sys.stderr,
+            )
+            return 1
+    events = read_events(events_file)
+    if args.trace_id:
+        events = [
+            e for e in events
+            if e.get("trace") == args.trace_id
+            or (e.get("args") or {}).get("trace_id") == args.trace_id
+        ]
+        if not events:
+            print(f"no events for trace id {args.trace_id}", file=sys.stderr)
+            return 1
+    summary = summarize_request_traces(events)
+    if args.json:
+        print(json.dumps(
+            {"events": len(events), **summary}, indent=1, sort_keys=True,
+            default=str,
+        ))
+    else:
+        print(f"serving traces: {summary['trace_count']} "
+              f"({len(events)} events, {events_file})")
+        print(format_request_traces(summary))
+        if args.exemplars:
+            print("exemplars (slowest request per scrape interval):")
+            for ex in summary["exemplars"]:
+                print(
+                    f"  {ex['endpoint']:<9} "
+                    f"{(ex['latency_s'] or 0.0) * 1e3:>9.2f}ms  "
+                    f"trace {ex['trace_id']}"
+                )
+            if not summary["exemplars"]:
+                print("  <none recorded: /metrics scrapes drain them>")
+    if args.perfetto:
+        path = export_perfetto_requests(events, args.perfetto)
+        if not args.json:
+            print(f"perfetto timeline: {path} "
+                  "(one track per replica and batch group)")
+    return 0
 
 
 def cmd_lineage(store: MetadataStore, artifact_id: int) -> int:
@@ -622,15 +714,18 @@ def main(argv=None) -> int:
 
     p_trace = sub.add_parser(
         "trace",
-        help="summarize/export a run's trace, or compare two runs "
-             "(trace diff <a> <b>)",
+        help="summarize/export a run's trace, compare two runs (trace "
+             "diff <a> <b>), or read the serving tier's request traces "
+             "(trace serve <trace_dir>)",
     )
     p_trace.add_argument(
         "run_id", nargs="+",
-        help="run id or 'latest'; or: diff <run-a> <run-b>",
+        help="run id or 'latest'; or: diff <run-a> <run-b>; or: "
+             "serve <trace_dir>",
     )
     p_trace.add_argument("--pipeline-root", default="",
-                         help="pipeline root containing .runs/<run-id>/")
+                         help="pipeline root containing .runs/<run-id>/ "
+                              "(required except for trace serve)")
     p_trace.add_argument("--perfetto", default="", metavar="OUT_JSON",
                          help="write a Chrome/Perfetto trace.json here")
     p_trace.add_argument("--metrics", default="", metavar="OUT_JSON",
@@ -641,6 +736,16 @@ def main(argv=None) -> int:
         "--threshold", type=float, default=0.2,
         help="diff regression threshold as a fraction (default 0.2 = "
              "20%% slower flags; exit code 3 on any flag)",
+    )
+    p_trace.add_argument(
+        "--trace-id", default="",
+        help="trace serve: only this trace id (from a traceparent reply "
+             "header or a /metrics exemplar)",
+    )
+    p_trace.add_argument(
+        "--exemplars", action="store_true",
+        help="trace serve: list the slowest-request-per-scrape exemplar "
+             "links next to the trace table",
     )
 
     p_drift = sub.add_parser(

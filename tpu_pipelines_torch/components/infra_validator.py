@@ -5,8 +5,9 @@ InfraValidator): loads the exported payload the way serving does
 (``load_exported_model``, on the runner's device ``ctx.extras["device"]``),
 runs a smoke inference on a few real examples with latency probes, and
 emits an InfraBlessing that Pusher can require.  ``serving_binary="http"``
-canaries through the port's ``ModelServer`` on a loopback port; ``grpc``
-is not ported (``ROADMAP.md`` A8) and fails the canary.
+canaries through the port's ``ModelServer`` on a loopback port, ``"grpc"``
+through its gRPC surface (``serving/grpc_server.py``); ``raw_examples=False``
+serves ``predict_transformed`` on every binary.
 """
 
 from __future__ import annotations
@@ -121,8 +122,9 @@ def InfraValidator(ctx):
                 raw=ctx.exec_properties["raw_examples"], device=device,
             )
         elif binary == "grpc":
-            raise NotImplementedError(
-                "the gRPC serving surface is not ported yet (ROADMAP.md A8)"
+            predict = _grpc_canary(
+                ctx.input("model").uri,
+                raw=ctx.exec_properties["raw_examples"], device=device,
             )
         else:
             loaded = load_exported_model(ctx.input("model").uri, device=device)
@@ -211,18 +213,12 @@ def _http_canary(model_uri: str, raw: bool = True, device="cuda"):
     """A reusable predict(batch) callable through the REST surface on a
     loopback port; ``.close()`` stops the server.  Keeping one server alive
     across the latency probes means they measure steady-state request cost,
-    not model load.  The port's server answers ``:predict`` with the
-    payload's ``predict`` (raw examples); ``raw=False`` is not served."""
+    not model load."""
     import urllib.request
 
     from tpu_pipelines_torch.serving.server import ModelServer
 
-    if not raw:
-        raise NotImplementedError(
-            "the port's ModelServer serves raw examples only; the "
-            "transformed-example surface waits (ROADMAP.md A8)"
-        )
-    server = ModelServer("canary", model_uri, device=device)
+    server = ModelServer("canary", model_uri, raw=raw, device=device)
     port = server.start()
 
     def predict(batch) -> np.ndarray:
@@ -239,4 +235,29 @@ def _http_canary(model_uri: str, raw: bool = True, device="cuda"):
             return np.asarray(json.load(r)["predictions"])
 
     predict.close = server.stop
+    return predict
+
+
+def _grpc_canary(model_uri: str, raw: bool = True, device="cuda"):
+    """predict(batch) through the gRPC surface on a loopback port."""
+    from tpu_pipelines_torch.serving.grpc_server import (
+        PredictionClient,
+        start_grpc_server,
+    )
+    from tpu_pipelines_torch.serving.server import ModelServer
+
+    server = ModelServer("canary", model_uri, raw=raw, device=device)
+    grpc_server, port = start_grpc_server(server)
+    client = PredictionClient(f"127.0.0.1:{port}")
+
+    def predict(batch) -> np.ndarray:
+        preds, _ = client.predict("canary", batch)
+        return np.asarray(preds)
+
+    def close() -> None:
+        client.close()
+        grpc_server.stop(grace=2)
+        server.stop()
+
+    predict.close = close
     return predict

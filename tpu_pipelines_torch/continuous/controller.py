@@ -30,13 +30,11 @@ no new run starts, state is persisted.  The CLI (``python -m
 tpu_pipelines_torch continuous``) maps SIGINT/SIGTERM onto the stop event;
 a second signal aborts.
 
-Departures from the reference, stated in ``ROADMAP.md`` C:
-
-  * Training telemetry (A8b).  The reference reads each window run's
-    telemetry headline from the metrics-history ring
-    (``TPP_METRICS_HISTORY``), which the port does not have, so a summary
-    carries no ``train_telemetry`` key (what the reference gives with the
-    ring unset).
+Training telemetry: with ``TPP_METRICS_HISTORY`` set, each window run's
+Trainer writes the metrics-history ring, and the iteration's summary
+carries ``train_telemetry`` (the ring's headline for that run) and, when
+it regressed against the previous window's, ``train_telemetry_regressions``.
+With the ring unset a summary has neither key.
 """
 
 from __future__ import annotations
@@ -49,7 +47,7 @@ import threading
 import time
 import urllib.parse
 import urllib.request
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from tpu_pipelines_torch.continuous.watcher import SpanDelivery, SpanWatcher
 from tpu_pipelines_torch.dsl.pipeline import Pipeline
@@ -133,6 +131,9 @@ class ContinuousController:
         self.last_deploy: Optional[Dict[str, Any]] = None
         self.last_iteration: Dict[str, Any] = {}
         self._iterations = 0
+        # The previous window run's metrics-history headline: the baseline
+        # the next retrain's telemetry is compared against.
+        self._last_window_telemetry: Optional[Dict[str, Any]] = None
         # Drift-breach intake: callbacks land in _drift_pending under the
         # lock; consumed breaches move to _drift_evidence until a window
         # run succeeds and records them (a failed retrain keeps them armed
@@ -406,6 +407,8 @@ class ContinuousController:
         deployed: Optional[Dict[str, Any]] = None
         window_size = 0
         drift_recorded = 0
+        telemetry: Optional[Dict[str, Any]] = None
+        telemetry_flags: List[str] = []
         if (
             self._window_dirty
             and not stop.is_set()
@@ -428,6 +431,9 @@ class ContinuousController:
                 statuses.extend(nr.status for nr in result.nodes.values())
                 deployed = self._detect_deploy(result)
                 window_size = self._window_span_count(result)
+                telemetry, telemetry_flags = self._window_telemetry(
+                    window_pipeline.pipeline_root, result.run_id
+                )
             else:
                 # Survives a controller restart too: the marker re-arms
                 # _window_dirty in __init__.
@@ -461,6 +467,10 @@ class ContinuousController:
             "deployed": deployed,
             "wall_s": round(time.monotonic() - t0, 3),
         }
+        if telemetry is not None:
+            summary["train_telemetry"] = telemetry
+            if telemetry_flags:
+                summary["train_telemetry_regressions"] = telemetry_flags
         if drift_recorded:
             summary["drift_triggered"] = True
             summary["drift_breaches"] = drift_recorded
@@ -474,6 +484,38 @@ class ContinuousController:
         self.last_iteration = summary
         log.info("continuous iteration: %s", json.dumps(summary))
         return summary
+
+    def _window_telemetry(
+        self, pipeline_root: str, run_id: str
+    ) -> "Tuple[Optional[Dict[str, Any]], List[str]]":
+        """The finished window run's training-telemetry headline from the
+        metrics-history ring, and its regression flags against the previous
+        window's; ``(None, [])`` when the ring recorded nothing."""
+        from tpu_pipelines_torch.observability.export import diff_metrics
+        from tpu_pipelines_torch.observability.metrics_history import (
+            MetricsHistory,
+        )
+
+        if not pipeline_root:
+            return None, []
+        try:
+            headline = MetricsHistory.for_pipeline_root(
+                pipeline_root).headline(run_id)
+        except OSError:
+            return None, []
+        if not headline:
+            return None, []
+        flags: List[str] = []
+        prev = self._last_window_telemetry
+        if prev:
+            flags = diff_metrics(
+                {"train_telemetry": prev}, {"train_telemetry": headline},
+            )["regression_flags"]
+            if flags:
+                log.warning("window retrain %s telemetry regressed vs the "
+                            "previous window: %s", run_id, flags)
+        self._last_window_telemetry = headline
+        return headline, flags
 
     # ----------------------------------------------------------- pipelines
 

@@ -55,6 +55,7 @@ from typing import (
     TypeVar,
 )
 
+from tpu_pipelines_torch.observability import federation as _fed
 from tpu_pipelines_torch.observability import trace as _obs
 from tpu_pipelines_torch.robustness import (
     NO_RETRY,
@@ -169,28 +170,44 @@ class _TracedShardFn:
     the run trace with the CHILD's pid.  The span is a no-op null context
     when no recorder is active (the resilient pool always indexes its
     tasks); ``thread_map`` wraps only when a recorder is active and the
-    wrap is idempotent, so fallbacks never double-wrap.  (The reference's
-    wrapper also federates a child's metric deltas to the parent's
-    scrape; federation waits with ``ROADMAP.md`` A8b.)
+    wrap is idempotent, so fallbacks never double-wrap.  A fork-pool child
+    publishes its own metric deltas into the federation spool
+    (``TPP_FEDERATION_DIR``; a no-op when unset), against the baseline it
+    inherited at the fork, so the parent's counts are not counted twice.
     """
 
-    __slots__ = ("fn", "label", "pool")
+    __slots__ = ("fn", "label", "pool", "parent_pid")
 
     def __init__(self, fn: Callable, label: str, pool: str):
         self.fn = fn
         self.label = label
         self.pool = pool
+        # Taken in the parent: another pid in __call__ means a fork child.
+        self.parent_pid = os.getpid()
 
     def __call__(self, indexed):
         i, task = indexed
         # Fault hook (testing/faults.py KILL_SHARD_WORKER): one module-
         # global read when no plan is active.
         _faults.in_shard(i)
-        with _obs.span(
-            "shard", cat="data",
-            args={"label": self.label, "shard": i, "pool": self.pool},
-        ):
-            return self.fn(task)
+        in_child = os.getpid() != self.parent_pid
+        if in_child:
+            _fed.note_fork_baseline()
+        try:
+            with _obs.span(
+                "shard", cat="data",
+                args={"label": self.label, "shard": i, "pool": self.pool},
+            ):
+                return self.fn(task)
+        finally:
+            if in_child:
+                try:
+                    _fed.publish_fork_delta()
+                except OSError:
+                    log.warning(
+                        "federation publish failed for shard worker %d",
+                        os.getpid(), exc_info=True,
+                    )
 
 
 @dataclasses.dataclass

@@ -13,9 +13,10 @@ decoder pass per step against the decode cache (a dict of tensors written
 in place, see ``models/transformer.py``).  Every entry point takes
 ``params`` (a state dict) as the reference's jitted functions do: the
 module's own tensors run the module as it is, any other dict runs it
-through ``torch.func.functional_call``.  The speculative ``verify`` program
-waits for ROADMAP A8; ``t5_partition_rules`` is in ``parallel/partition.py``
-(its tensor-parallel specs wait for A6).
+through ``torch.func.functional_call``.  The decode contract's ``verify``
+scores a ``[b, q]`` window of fed tokens in one decoder pass (the
+speculative-decoding verify); ``t5_partition_rules`` is in
+``parallel/partition.py`` (its tensor-parallel specs wait for A6).
 """
 
 from __future__ import annotations
@@ -69,7 +70,9 @@ class RelativePositionBias(nn.Module):
     ``row`` None gives the full [1, h, q, k] bias; a scalar (incremental
     decode: every row at one position) the one bucket row [1, h, 1, k]; a
     [b] vector (continuous batching: each row at its own position) one
-    bucket row per sequence, [b, h, 1, k]."""
+    bucket row per sequence, [b, h, 1, k]; a [b, q] matrix (the speculative
+    verify window: query j of row i at ``row[i, j]``) one bucket row per
+    query, [b, h, q, k]."""
 
     def __init__(self, n_heads: int, bidirectional: bool, num_buckets: int = 32,
                  max_distance: int = 128):
@@ -96,11 +99,8 @@ class RelativePositionBias(nn.Module):
         buckets = self._buckets(qlen, klen, table.device)
         if row is None:
             return table[buckets].permute(2, 0, 1)[None]
-        if isinstance(row, torch.Tensor) and row.dim() > 1:
-            raise NotImplementedError(
-                "per-query positions (the speculative-verify window) wait for "
-                "ROADMAP A8"
-            )
+        if isinstance(row, torch.Tensor) and row.dim() == 2:
+            return table[buckets[row]].permute(0, 3, 1, 2)
         if isinstance(row, torch.Tensor) and row.dim() == 1:
             return table[buckets[row]].permute(0, 2, 1)[:, :, None, :]
         r = int(row)
@@ -143,7 +143,14 @@ class T5Stack(nn.Module):
             # One-token decode step: the bias is the row of the full
             # [max_decode_len, max_decode_len] matrix at this step's
             # position; the cache's <= pos validity gives the causality.
-            bias = self.rel_pos(max_decode_len, max_decode_len, row=decode_pos)
+            # A multi-token input with per-row positions is the verify
+            # window: query j of row i sits at decode_pos[i] + j.
+            row = decode_pos
+            if (isinstance(row, torch.Tensor) and row.dim() == 1
+                    and x.shape[1] > 1):
+                row = row[:, None] + torch.arange(
+                    x.shape[1], device=row.device)[None, :]
+            bias = self.rel_pos(max_decode_len, max_decode_len, row=row)
             kv_mask = None
         else:
             bias = self.rel_pos(x.shape[1], x.shape[1])
@@ -371,9 +378,12 @@ def make_continuous_decode_fns(
         -> ``(cache, logits [b, V])``: one decode step for rows at per-row
         positions ``pos`` over a cache of ``klen`` positions (the engine's
         arena slice; K/V are written into it in place);
-      - the geometry constants the engine sizes its arena from.
-
-    The speculative ``verify`` entry waits for ROADMAP A8."""
+      - ``verify(params, cache, toks [b, q], pos [b], encoded, enc_mask,
+        klen)`` -> ``(cache, logits [b, q, V])``: the speculative verify,
+        the q fed tokens of each row scored in one decoder pass at
+        positions ``pos .. pos + q - 1`` (their K/V written into the cache
+        in place);
+      - the geometry constants the engine sizes its arena from."""
 
     def prefill(params, inputs, input_mask=None):
         return prefill_decode(
@@ -387,9 +397,17 @@ def make_continuous_decode_fns(
         )
         return cache, logits[:, 0]
 
+    def verify(params, cache, toks, pos, encoded, enc_mask, klen: int):
+        logits = _apply(
+            model, params, "decode", toks, encoded, enc_mask=enc_mask,
+            decode_pos=pos, max_decode_len=klen, cache=cache,
+        )
+        return cache, logits
+
     return SimpleNamespace(
         prefill=prefill,
         step=step,
+        verify=verify,
         max_decode_len=int(max_decode_len),
         eos_id=int(eos_id),
         pad_id=int(pad_id),

@@ -30,8 +30,13 @@ takes ``flash`` (the flash-decode kernel) or ``dense``; ``auto`` in the
 decode regime means flash at or above the decode crossover measured on
 the card and dense otherwise (:func:`choose_decode_impl`).  Both rules
 read ``ops/autotune.py``'s table, keyed by the device's kind, with no
-device call, so they can sit inside a CUDA-graph capture.  The
-speculative-verify window, ring/Ulysses attention and the
+device call, so they can sit inside a CUDA-graph capture.  A decode step
+of ``q > 1`` tokens with a ``[b]`` position vector is the speculative-
+verify window: row i's q keys are written at ``pos[i] + arange(q)`` and
+query j sees the cache positions ``<= pos[i] + j`` through a ``[b, 1, q,
+kv]`` additive bias.  It runs dense, as the reference's does (the
+flash-decode kernel takes one query), and is built from device tensors
+only, so it can be captured.  Ring/Ulysses attention and the
 mixture-of-experts MLP wait for their slices.
 """
 
@@ -48,7 +53,7 @@ from tpu_pipelines_torch.ops.flash_attention import (
     flash_attention,
     flash_decode_attention,
 )
-from tpu_pipelines_torch.parallel.ring_attention import dense_attention
+from tpu_pipelines_torch.parallel.ring_attention import NEG_INF, dense_attention
 
 # Dense attention's O(L^2) temporaries, estimated as
 #   DENSE_ATTN_TEMP_FACTOR * B * H * Lq * Lkv * itemsize
@@ -346,12 +351,9 @@ class MultiHeadAttention(nn.Module):
                      prefix):
         """Self-attention of one decode step: this step's K/V are written
         into the cache in place at ``decode_pos``, then the query attends
-        over the positions <= its own (per row for a vector position)."""
-        if q.shape[1] != 1:
-            raise NotImplementedError(
-                "a multi-token decode step (the speculative-verify window) "
-                "waits for ROADMAP A8"
-            )
+        over the positions <= its own (per row for a vector position).  A
+        ``q > 1`` window with a vector position is the speculative verify
+        (see the module docstring)."""
         if max_decode_len is None:
             raise ValueError("decode_pos requires max_decode_len")
         b = q.shape[0]
@@ -365,17 +367,37 @@ class MultiHeadAttention(nn.Module):
         ck, cv = cache[ck_name], cache[cv_name]
         kv_len = ck.shape[1]
         positions = torch.arange(kv_len, device=q.device)
+        qlen = q.shape[1]
+        verify_window = False
         if isinstance(decode_pos, torch.Tensor) and decode_pos.dim() == 1:
             rows = torch.arange(b, device=q.device)
-            ck[rows, decode_pos] = k[:, 0]
-            cv[rows, decode_pos] = v[:, 0]
-            valid = positions[None, :] <= decode_pos[:, None]
+            if qlen == 1:
+                ck[rows, decode_pos] = k[:, 0]
+                cv[rows, decode_pos] = v[:, 0]
+                valid = positions[None, :] <= decode_pos[:, None]
+            else:
+                idx = (decode_pos[:, None]
+                       + torch.arange(qlen, device=q.device)[None, :])
+                ck.index_put_((rows[:, None], idx), k)
+                cv.index_put_((rows[:, None], idx), v)
+                # Per-query causality over the cache: dense_attention's
+                # kv_mask is per row, so the window goes into the bias
+                # with the same exact-zero weight.
+                win = positions[None, None, :] <= idx[:, :, None]
+                wbias = torch.where(win, 0.0, NEG_INF)[:, None]
+                bias = wbias if bias is None else bias + wbias
+                valid = None
+                verify_window = True
+        elif qlen != 1:
+            raise ValueError(
+                "a multi-token decode step needs a [b] position vector"
+            )
         else:
             pos = int(decode_pos)
             ck[:, pos] = k[:, 0]
             cv[:, pos] = v[:, 0]
             valid = (positions <= pos)[None, :].expand(b, kv_len)
-        impl = self.attn_impl
+        impl = "dense" if verify_window else self.attn_impl
         if impl == "auto":
             impl = choose_decode_impl(b, self.n_heads, kv_len, self.head_dim,
                                       device=q.device)

@@ -35,9 +35,12 @@ Zero footprint when off: with no ``monitor_sample_rate`` /
 ``TPP_SERVING_MONITOR_SAMPLE``, no sampler is constructed — no thread, no
 metric family.  When on, the predict path pays one counter bump and a
 ``put_nowait``: a wedged queue drops the sample (counted), never blocks a
-predict.  Alerts are instants in the active run trace
-(``observability/trace.py``); the reference's request tracer and the
-metrics-history ring are ``ROADMAP.md`` A8b.
+predict.  Alerts are ``drift/alert`` instants in the server's request
+tracer when one exists (``observability/request_trace.py``), else in the
+active run trace (``observability/trace.py``).  With ``history=`` (a
+:class:`~tpu_pipelines_torch.observability.metrics_history.MetricsHistory`,
+which the fleet passes when ``TPP_METRICS_HISTORY`` is set) every window
+appends the registry to the ring under run id ``serving-<model>``.
 """
 
 from __future__ import annotations
@@ -262,6 +265,8 @@ class TrafficSampler:
         js_threshold: float = DEFAULT_DRIFT_THRESHOLD,
         min_samples: int = DEFAULT_MIN_SAMPLES,
         queue_max: int = 256,
+        history=None,
+        tracer=None,
         on_alert: Optional[Callable[[Dict[str, Any]], Any]] = None,
         on_window: Optional[Callable[[DriftWindow], Any]] = None,
     ):
@@ -276,6 +281,8 @@ class TrafficSampler:
         self.js_threshold = float(js_threshold)
         self.min_samples = int(min_samples)
         self.baseline_for = baseline_for
+        self.history = history
+        self.tracer = tracer
         self.on_alert = on_alert
         self.on_window = on_window
         self._queue: "queue.Queue" = queue.Queue(maxsize=queue_max)
@@ -549,6 +556,16 @@ class TrafficSampler:
             self._g_pred_distance.labels(self.model_name, stat).set(
                 round(v, 6)
             )
+        if self.history is not None:
+            try:
+                self.history.append(
+                    self.registry,
+                    run_id=f"serving-{self.model_name}",
+                    step=window.index,
+                    labels={"version": window.version},
+                )
+            except OSError:
+                log.exception("drift window history append failed")
         alerts = window.alerts
         if window.sampled < self.min_samples:
             alerts = []          # thin window: score, never page
@@ -575,7 +592,10 @@ class TrafficSampler:
                 family, self.model_name, worst.feature, worst.distance,
                 worst.threshold, window.index, window.sampled,
             )
-            _trace.instant("drift/alert", cat="drift", args=info)
+            if self.tracer is not None:
+                self.tracer.instant("drift/alert", **info)
+            else:
+                _trace.instant("drift/alert", cat="drift", args=info)
             if self.on_alert is not None:
                 try:
                     self.on_alert(dict(

@@ -17,10 +17,17 @@ Consumers of ``events.jsonl`` (see trace.py for the event schema):
   * :func:`diff_metrics` / :func:`format_diff`: two runs node by node,
     with regression flags past a threshold (``trace diff``).
 
+The request-trace half reads the serving event log
+(``<trace_dir>/serving/events.jsonl``, observability/request_trace.py):
+
+  * :func:`to_perfetto_requests` / :func:`export_perfetto_requests`: one
+    process per replica (its batch groups as threads) and one frontend
+    process whose threads are the traced requests;
+  * :func:`summarize_request_traces` / :func:`format_request_traces`: the
+    ``trace serve`` payload and table, one entry per trace id.
+
 Readers are truncation-tolerant: :func:`read_events` skips anything that
-does not parse.  The request-trace half (``to_perfetto_requests``,
-``summarize_request_traces``) waits for the serving tier's request
-tracing (ROADMAP.md A8b).
+does not parse.
 """
 
 from __future__ import annotations
@@ -103,6 +110,185 @@ def export_perfetto(events: List[Dict[str, Any]], out_path: str) -> str:
     with open(out_path, "w", encoding="utf-8") as f:
         json.dump(doc, f)
     return out_path
+
+
+# ----------------------------------------------- request-trace exporters
+
+
+def to_perfetto_requests(events: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Chrome trace-event document for a serving request-trace event log
+    (observability/request_trace.py schema).
+
+    Track layout mirrors how serving time is actually spent: one process
+    group per REPLICA (its batch groups as threads — every coalesced
+    device call is its own track, so the gather window and the step are
+    visually adjacent), one "frontend" process whose threads are the
+    traced requests (root span + admission/route per trace).
+    """
+    trace_events: List[Dict[str, Any]] = []
+    FRONTEND_PID = 1
+    replica_pids: Dict[str, int] = {}
+    group_tids: Dict[tuple, int] = {}
+    trace_tids: Dict[str, int] = {}
+    named: set = set()
+
+    def _name(pid: int, tid: int, kind: str, label: str) -> None:
+        if (kind, pid, tid) in named:
+            return
+        named.add((kind, pid, tid))
+        trace_events.append({
+            "name": f"{kind}_name", "ph": "M", "pid": pid,
+            "tid": tid if kind == "thread" else 0,
+            "args": {"name": label},
+        })
+
+    def _replica_pid(replica: str) -> int:
+        pid = replica_pids.get(replica)
+        if pid is None:
+            pid = replica_pids[replica] = 100 + len(replica_pids)
+            _name(pid, 0, "process", f"replica {replica}")
+        return pid
+
+    _name(FRONTEND_PID, 0, "process", "serving frontend")
+    for e in events:
+        args = dict(e.get("args") or {})
+        trace_id = e.get("trace", "")
+        replica = str(args.get("replica", "")) if args.get(
+            "replica", ""
+        ) != "" else ""
+        group = args.get("group")
+        if replica and group is not None:
+            pid = _replica_pid(replica)
+            key = (replica, str(group))
+            tid = group_tids.get(key)
+            if tid is None:
+                tid = group_tids[key] = len(group_tids) + 1
+                _name(pid, tid, "thread", f"group {group}")
+        elif replica:
+            pid = _replica_pid(replica)
+            tid = 0
+            _name(pid, tid, "thread", "replica")
+        else:
+            pid = FRONTEND_PID
+            tid = trace_tids.get(trace_id)
+            if tid is None:
+                tid = trace_tids[trace_id] = len(trace_tids) + 1
+                _name(pid, tid, "thread", f"trace {trace_id[:8]}")
+        if trace_id:
+            args["trace"] = trace_id
+        base = {
+            "name": e.get("name", ""),
+            "cat": e.get("cat", "") or "request",
+            "pid": pid,
+            "tid": tid,
+            "ts": round(e.get("ts", 0.0) * 1e6, 1),
+            "args": args,
+        }
+        if e.get("ev") == "span":
+            base["ph"] = "X"
+            base["dur"] = round(e.get("dur", 0.0) * 1e6, 1)
+        else:
+            base["ph"] = "i"
+            base["s"] = "t"
+        trace_events.append(base)
+    return {"traceEvents": trace_events, "displayTimeUnit": "ms"}
+
+
+def export_perfetto_requests(
+    events: List[Dict[str, Any]], out_path: str
+) -> str:
+    doc = to_perfetto_requests(events)
+    parent = os.path.dirname(os.path.abspath(out_path))
+    os.makedirs(parent, exist_ok=True)
+    with open(out_path, "w", encoding="utf-8") as f:
+        json.dump(doc, f)
+    return out_path
+
+
+def summarize_request_traces(
+    events: List[Dict[str, Any]]
+) -> Dict[str, Any]:
+    """Per-trace summary of a serving event log: the ``trace serve`` CLI
+    payload.  One entry per trace id (root request span + its child
+    spans/instants folded in), plus the exemplar markers scrapes left."""
+    traces: Dict[str, Dict[str, Any]] = {}
+    exemplars: List[Dict[str, Any]] = []
+    for e in events:
+        trace_id = e.get("trace", "")
+        name = e.get("name", "")
+        args = dict(e.get("args") or {})
+        if name == "exemplar":
+            exemplars.append({
+                "trace_id": args.get("trace_id", trace_id),
+                "endpoint": args.get("endpoint", ""),
+                "latency_s": args.get("latency_s"),
+                "ts": e.get("ts"),
+            })
+            continue
+        if name == "slo/burn_alert":
+            continue
+        if not trace_id:
+            continue
+        t = traces.setdefault(trace_id, {
+            "trace_id": trace_id, "spans": [], "instants": [],
+        })
+
+        def _put(key: str, value: Any) -> None:
+            if value is not None and t.get(key) is None:
+                t[key] = value
+
+        if name == "request" and e.get("ev") == "span":
+            t["endpoint"] = args.get("endpoint", e.get("endpoint", ""))
+            t["code"] = args.get("code")
+            t["latency_s"] = e.get("dur")
+            t["start_ts"] = e.get("ts")
+            _put("version", args.get("version"))
+            _put("replica", args.get("replica"))
+        elif e.get("ev") == "span":
+            t["spans"].append({
+                "name": name, "dur_s": e.get("dur"), "ts": e.get("ts"),
+                **args,
+            })
+            if name == "model.step":
+                _put("version", args.get("version"))
+            _put("replica", args.get("replica"))
+            _put("group", args.get("group"))
+        else:
+            t["instants"].append({
+                "name": name, "ts": e.get("ts"), **args,
+            })
+            if name == "route":
+                _put("replica", args.get("replica"))
+    return {
+        "schema_version": 1,
+        "traces": traces,
+        "trace_count": len(traces),
+        "exemplars": exemplars,
+    }
+
+
+def format_request_traces(summary: Dict[str, Any]) -> str:
+    """Human-readable ``trace serve`` table (newest last)."""
+    lines: List[str] = []
+    lines.append(
+        f"{'trace':<34} {'endpoint':<9} {'code':>5} {'ms':>9} "
+        f"{'replica':>7} {'version':>8}  spans"
+    )
+    traces = sorted(
+        summary.get("traces", {}).values(),
+        key=lambda t: t.get("start_ts") or 0.0,
+    )
+    for t in traces:
+        dur = t.get("latency_s")
+        spans = ",".join(sorted({s["name"] for s in t.get("spans", [])}))
+        lines.append(
+            f"{t['trace_id']:<34} {t.get('endpoint', '') or '-':<9} "
+            f"{str(t.get('code', '-')):>5} "
+            f"{(dur * 1e3 if dur is not None else float('nan')):>9.2f} "
+            f"{str(t.get('replica', '-') or '-'):>7} "
+            f"{str(t.get('version', '-') or '-'):>8}  {spans}"
+        )
+    return "\n".join(lines)
 
 
 # -------------------------------------------------------------- metrics

@@ -9,8 +9,9 @@ exposition snapshot; exposition follows the Prometheus text format
 v0.0.4.  :class:`MetricsServer` / :func:`start_http_server` serve a
 registry's ``GET /metrics`` and ``GET /healthz`` (the runner's opt-in
 ``TPP_METRICS_PORT``).  ``MetricsRegistry.snapshot`` gives the SLO
-burn-rate monitor its cumulative readings; the fork-pool merge and
-federation wait for ROADMAP.md A8b.
+burn-rate monitor its cumulative readings; ``MetricsRegistry.merge`` folds
+a snapshot back in (counters and histograms add, gauges last-write-wins),
+the law ``observability/federation.py`` and ``metrics_history.py`` rely on.
 """
 
 from __future__ import annotations
@@ -141,6 +142,9 @@ class _Metric:
     def _snapshot_series(self) -> Dict[Tuple[str, ...], Any]:
         raise NotImplementedError
 
+    def _merge_series(self, series: Dict[Tuple[str, ...], Any]) -> None:
+        raise NotImplementedError
+
     def _samples(self) -> List[Tuple[str, Dict[str, str], float]]:
         """(suffix, labels, value) rows for exposition."""
         raise NotImplementedError
@@ -196,6 +200,10 @@ class Counter(_Metric):
 
     def _snapshot_series(self):
         return dict(self._series)
+
+    def _merge_series(self, series) -> None:
+        for key, v in series.items():
+            self._series[key] = self._series.get(key, 0.0) + float(v)
 
     def _samples(self):
         return [
@@ -260,6 +268,10 @@ class Gauge(_Metric):
         if self._fn is not None:
             series[()] = self._eval_fn()
         return series
+
+    def _merge_series(self, series) -> None:
+        # Last write wins.
+        self._series.update({key: float(v) for key, v in series.items()})
 
     def _samples(self):
         series = dict(self._series)
@@ -328,6 +340,21 @@ class Histogram(_Metric):
             }
             for key, s in self._series.items()
         }
+
+    def _merge_series(self, series) -> None:
+        for key, other in series.items():
+            state = self._series.get(key)
+            if state is None:
+                state = self._series[key] = self._new_state()
+            if len(other["buckets"]) != len(state["buckets"]):
+                raise ValueError(
+                    f"{self.name}: bucket ladder mismatch on merge"
+                )
+            state["buckets"] = [
+                a + b for a, b in zip(state["buckets"], other["buckets"])
+            ]
+            state["sum"] += float(other["sum"])
+            state["count"] += int(other["count"])
 
     def _samples(self):
         rows: List[Tuple[str, Dict[str, str], float]] = []
@@ -420,6 +447,25 @@ class MetricsRegistry:
                 }
                 for name, m in self._metrics.items()
             }
+
+    def merge(self, snapshot: Dict[str, Any]) -> None:
+        """Fold a snapshot in: counters and histograms add (each source
+        observed disjoint work), gauges last-write-wins."""
+        for name, payload in snapshot.items():
+            cls = {
+                "counter": Counter,
+                "gauge": Gauge,
+                "histogram": Histogram,
+            }[payload["type"]]
+            kwargs = (
+                {"buckets": payload["buckets"]}
+                if payload["type"] == "histogram" else {}
+            )
+            metric = self._register(
+                cls, name, payload["help"], tuple(payload["labels"]), **kwargs,
+            )
+            with self._lock:
+                metric._merge_series(payload["series"])
 
     # -- exposition -------------------------------------------------------
 

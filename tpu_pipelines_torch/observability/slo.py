@@ -41,8 +41,9 @@ constructed (``ModelServer(slo_monitor_interval_s=...)`` / env
 ``TPP_SLO_MONITOR``).  When wired it publishes
 ``serving_slo_burn_rate{window,slo}`` gauges and
 ``serving_slo_breaches_total{slo}``, and emits a ``slo/burn_alert``
-instant into the active run trace (``observability/trace.py``; the
-reference's request tracer is ``ROADMAP.md`` A8b).
+instant into the server's request tracer when one exists
+(``observability/request_trace.py``), else into the active run trace
+(``observability/trace.py``).
 
 Bucket-boundary honesty: "above ``slo_p99_s``" is judged from cumulative
 histogram buckets, so observations between the SLO and the enclosing
@@ -123,8 +124,10 @@ class SLOMonitor:
         slow_threshold: float = DEFAULT_SLOW_THRESHOLD,
         min_events: int = 20,
         on_breach: Optional[Callable[[Dict[str, Any]], Any]] = None,
+        tracer=None,
     ):
         self.registry = registry
+        self.tracer = tracer
         self.slo_p99_s = max(0.0, float(slo_p99_s))
         self.latency_target = float(latency_target)
         self.availability_target = float(availability_target)
@@ -192,8 +195,7 @@ class SLOMonitor:
                 "serving_decode_compiles_after_warm_total"
             ).values()
         )
-        # Decode-speed lever counters (informational, not burn inputs; the
-        # levers themselves are ROADMAP.md A8b, so these read 0 until then):
+        # Decode-speed lever counters (informational, not burn inputs):
         # windowed deltas of prefix hits and speculative acceptance, as
         # the reference's evaluate() table carries them.
         prefix_hits = sum(
@@ -385,7 +387,10 @@ class SLOMonitor:
             "SLO burn-rate breach: %s (%s windows) burn=%s",
             breach["slo"], breach["trigger"], breach["burn"],
         )
-        _trace.instant("slo/burn_alert", cat="slo", args=breach)
+        if self.tracer is not None:
+            self.tracer.instant("slo/burn_alert", **breach)
+        else:
+            _trace.instant("slo/burn_alert", cat="slo", args=breach)
         if self.on_breach is not None:
             try:
                 self.on_breach(breach)

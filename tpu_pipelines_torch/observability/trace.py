@@ -70,11 +70,20 @@ class TraceRecorder:
     worker pool, and forked shard-pool processes.
     """
 
-    def __init__(self, run_dir: str, run_id: str):
+    def __init__(
+        self, run_dir: str, run_id: str, *, events_path: Optional[str] = None
+    ):
         self.run_id = run_id
         self.run_dir = run_dir
-        self.trace_dir = os.path.join(run_dir, "trace")
-        self.events_path = os.path.join(self.trace_dir, "events.jsonl")
+        # events_path: the request tracer (observability/request_trace.py)
+        # reuses this crash-durable append for <trace_dir>/serving/
+        # events.jsonl instead of the run's trace/ layout.
+        if events_path is not None:
+            self.trace_dir = os.path.dirname(events_path)
+            self.events_path = events_path
+        else:
+            self.trace_dir = os.path.join(run_dir, "trace")
+            self.events_path = os.path.join(self.trace_dir, "events.jsonl")
         os.makedirs(self.trace_dir, exist_ok=True)
         self._lock = threading.Lock()
         self._pid = os.getpid()
@@ -121,6 +130,10 @@ class TraceRecorder:
             # that was emitted is on disk before the next statement runs.
             self._fh.write(line + "\n")
             self._fh.flush()
+
+    def emit(self, record: Dict[str, Any]) -> None:
+        """Append a caller-built record (the request tracer's)."""
+        self._write(record)
 
     def _base(self, ev: str, name: str, cat: str, node: str) -> Dict[str, Any]:
         t = threading.current_thread()

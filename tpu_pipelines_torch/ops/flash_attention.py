@@ -741,6 +741,28 @@ _ops.impl("bwd", lambda q, k, v, kv_mask, causal, out, lse, dout:
           "CompositeExplicitAutograd")
 
 
+# Shapes for tracing with fake tensors (torch.export, serving/saved_model.py):
+# the impls above launch through ctypes, which a fake tensor cannot run, so
+# a traced program keeps the operator and runs it when it is called.  These
+# also serve the meta device, which has no kernel: it is refused as before.
+def _no_meta(q):
+    if q.device.type == "meta":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+
+
+@torch.library.register_fake("tpp_flash::fwd")
+def _fwd_fake(q, k, v, kv_mask, causal):
+    _no_meta(q)
+    b, l, h, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b * h, l), dtype=torch.float32)
+
+
+@torch.library.register_fake("tpp_flash::bwd")
+def _bwd_fake(q, k, v, kv_mask, causal, out, lse, dout):
+    _no_meta(q)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
 def _products(q_shape, k_shape) -> int:
     """``2·B·H·Lq·Lk·D``: one of attention's products."""
     b, lq, h, d = q_shape

@@ -81,10 +81,15 @@ runs the port's analyzer (``analysis/``) on the compiled IR and every
 executor and module entry point before the metadata store is opened, so
 a refused run leaves nothing behind (``LintGateError``).
 
+With ``TPP_METRICS_PORT`` and ``TPP_FEDERATION_DIR`` both set, the runner's
+port serves the federated scrape: its own registry merged with every
+spooled snapshot (fork-pool workers, trainers, fleet replicas), labelled
+by host, replica and tenant (``observability/federation.py``).
+
 Not ported, and refused with ``NotImplementedError`` naming the
 ``ROADMAP.md`` item: ``spmd_sync`` multi-process runs (A10); the XLA
-compile cache (no counterpart: the port's kernels build once per checkout);
-metric federation (A8b).
+compile cache (no counterpart: the port's kernels build once per
+checkout).
 """
 
 from __future__ import annotations
@@ -192,13 +197,20 @@ class _RunTelemetry:
         self._info = {"pipeline": pipeline_name, "run_id": run_id}
         port = os.environ.get("TPP_METRICS_PORT", "").strip()
         if port and port != "0":
+            from tpu_pipelines_torch.observability.federation import (
+                FederatedRegistry,
+                federation_dir,
+            )
             from tpu_pipelines_torch.observability.metrics import (
                 start_http_server,
             )
 
+            # With TPP_FEDERATION_DIR set the port is the one federated
+            # scrape; without it, the plain process registry.
+            serve_reg = FederatedRegistry(reg) if federation_dir() else reg
             try:
                 self._server = start_http_server(
-                    reg, port=int(port), health_fn=self._health
+                    serve_reg, port=int(port), health_fn=self._health
                 )
                 log.info(
                     "metrics server on :%d (/metrics, /healthz)",

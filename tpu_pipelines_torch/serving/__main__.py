@@ -18,7 +18,12 @@ per-replica continuous-batching engines.  ``/healthz`` then carries a
 rolls a version that breaches inside the post-swap probation window
 (``TPP_SWAP_PROBATION_S``) back to the prior one; env
 ``TPP_SERVING_MONITOR_SAMPLE`` samples traffic into drift windows (read
-with ``python -m tpu_pipelines_torch drift --url ...``).
+with ``python -m tpu_pipelines_torch drift --url ...``).  ``--grpc-port``
+adds the gRPC surface (``serving/grpc_server.py``), ``--transformed-inputs``
+serves ``predict_transformed``, ``--request-trace all --trace-dir D``
+records request spans (read with ``python -m tpu_pipelines_torch trace
+serve D``), and ``--slo-ms-per-token`` prices each generation's per-token
+deadline.
 """
 
 from __future__ import annotations
@@ -42,6 +47,9 @@ def main(argv=None) -> int:
                         help="versioned model dir (Pusher destination)")
     parser.add_argument("--port", type=int, default=8501)
     parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--transformed-inputs", action="store_true",
+                        help="serve predict_transformed (callers send "
+                             "transformed features, not raw examples)")
     parser.add_argument("--batching", action="store_true",
                         help="micro-batch concurrent requests (bucketed "
                              "shapes, one device call per batch)")
@@ -78,6 +86,20 @@ def main(argv=None) -> int:
                         help="generative admission bound in outstanding "
                              "decode tokens (429 past it); 0 = env "
                              "TPP_SERVING_MAX_TOKENS, else unbounded")
+    parser.add_argument("--slo-ms-per-token", type=float, default=-1.0,
+                        help="per-token latency budget pricing each "
+                             "generation's deadline; negative = env "
+                             "TPP_SERVING_SLO_MS_PER_TOKEN, 0 = none")
+    parser.add_argument("--grpc-port", type=int, default=-1,
+                        help="also serve gRPC predict on this port "
+                             "(0 = ephemeral; -1 = REST only)")
+    parser.add_argument("--request-trace", default="",
+                        help="request tracing: off | sample:N | all (empty "
+                             "= env TPP_REQUEST_TRACE, else off)")
+    parser.add_argument("--trace-dir", default="",
+                        help="write request spans to "
+                             "<dir>/serving/events.jsonl; empty = env "
+                             "TPP_REQUEST_TRACE_DIR, else memory only")
     parser.add_argument("--slo-monitor", type=float, default=-1.0,
                         help="SLO burn-rate monitor evaluation interval "
                              "(seconds; fleet mode with --slo-p99-ms): "
@@ -96,6 +118,7 @@ def main(argv=None) -> int:
             server = ModelServer(
                 args.model_name,
                 args.base_dir,
+                raw=not args.transformed_inputs,
                 batching=args.batching,
                 max_batch_size=args.max_batch_size,
                 batch_timeout_s=args.batch_timeout_ms / 1000.0,
@@ -106,6 +129,9 @@ def main(argv=None) -> int:
                 model_type=args.model_type,
                 decode_page_size=args.decode_page_size,
                 max_queue_tokens=args.max_queue_tokens,
+                slo_ms_per_token=args.slo_ms_per_token,
+                request_trace_mode=args.request_trace,
+                trace_dir=args.trace_dir,
                 slo_monitor_interval_s=args.slo_monitor,
                 device=args.device,
             )
@@ -121,6 +147,14 @@ def main(argv=None) -> int:
         "serving %r (version %s) on %s:%d",
         args.model_name, server.version, args.host, port,
     )
+    grpc_server = None
+    if args.grpc_port >= 0:
+        from tpu_pipelines_torch.serving.grpc_server import start_grpc_server
+
+        grpc_server, grpc_port = start_grpc_server(
+            server, port=args.grpc_port, host=args.host
+        )
+        log.info("grpc predict on %s:%d", args.host, grpc_port)
 
     stop = threading.Event()
     for sig in (signal.SIGTERM, signal.SIGINT):
@@ -135,6 +169,8 @@ def main(argv=None) -> int:
             except Exception as e:  # noqa: BLE001 — keep serving old version
                 log.warning("version rescan failed: %s", e)
     finally:
+        if grpc_server is not None:
+            grpc_server.stop(grace=2)
         server.stop()
         log.info("server stopped")
     return 0

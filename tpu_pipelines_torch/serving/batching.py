@@ -1,8 +1,8 @@
 """Request micro-batching for the serving path.
 
 The port of ``bucket_sizes``, ``pad_to_bucket``,
-``validate_generation_params`` and ``RequestBatcher`` from
-``tpu_pipelines/serving/batching.py``:
+``validate_generation_params``, ``token_deadline_s`` and ``RequestBatcher``
+from ``tpu_pipelines/serving/batching.py``:
 
   - concurrent requests coalesce into one device call (per-call launch
     and host overhead amortized, bigger matmuls on the card);
@@ -18,8 +18,13 @@ The window is fixed (``batch_timeout_s``, the TF-Serving
 budget minus the observed step time (``gather_window_s``).  The fleet's
 supervisor reads ``oldest_work_age_s`` as its wedge signal, and its pool
 closes every replica batcher in two phases (``request_close`` /
-``join_close``) against one deadline.  Request-trace spans wait for
-ROADMAP A8.
+``join_close``) against one deadline.
+
+Request traces (``observability/request_trace.py``): ``submit`` takes the
+caller's trace context (or the calling thread's current one) onto the queue
+item, because the worker thread does not see the caller's contextvars; the
+worker emits each traced request's ``batch.wait`` and ``model.step`` spans
+for the group it rode (:meth:`RequestBatcher._emit_group_spans`).
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ from concurrent.futures import Future
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+
+from tpu_pipelines_torch.observability import request_trace
 
 Batch = Dict[str, np.ndarray]
 
@@ -97,6 +104,17 @@ def validate_generation_params(
     return {"max_new_tokens": m}
 
 
+def token_deadline_s(
+    arrival_s: float, max_new_tokens: int, slo_ms_per_token: float
+) -> Optional[float]:
+    """Per-token SLO deadline for one generation: a request decoding N
+    tokens earns N x the per-token budget from its arrival instant.  None
+    when no per-token SLO is configured."""
+    if slo_ms_per_token <= 0:
+        return None
+    return arrival_s + max_new_tokens * slo_ms_per_token / 1e3
+
+
 class RequestBatcher:
     """Coalesces concurrent ``submit`` calls into padded device batches.
 
@@ -126,6 +144,7 @@ class RequestBatcher:
         batch_timeout_s: float = 0.005,
         slo_p99_s: float = 0.0,
         registry=None,
+        name: str = "",
     ):
         if max_batch_size < 1:
             raise ValueError(f"max_batch_size must be >= 1, got {max_batch_size}")
@@ -133,6 +152,10 @@ class RequestBatcher:
         self.max_batch_size = max_batch_size
         self.batch_timeout_s = batch_timeout_s
         self.slo_p99_s = max(0.0, slo_p99_s)
+        # Names this batcher in request-trace spans (the replica's name in
+        # a fleet); group ids are "<name>-<batch index>".
+        self.name = name
+        self._last_window_s = batch_timeout_s
         self._step_ewma_s: Optional[float] = None
         self.buckets = bucket_sizes(max_batch_size)
         self.batches_run = 0          # device calls issued
@@ -195,6 +218,7 @@ class RequestBatcher:
                 self.slo_p99_s * self.SLO_WINDOW_FRAC
                 - self.SLO_STEP_BUDGET * self._step_ewma_s,
             )
+        self._last_window_s = window
         if self._m_deadline is not None:
             self._m_deadline.set(window)
         return window
@@ -218,12 +242,16 @@ class RequestBatcher:
     # ------------------------------------------------------------- client
 
     def submit(
-        self, batch: Batch, n_rows: int, timeout_s: float = 300.0
+        self, batch: Batch, n_rows: int, timeout_s: float = 300.0, ctx=None,
     ) -> np.ndarray:
         """Blocking predict for one request's feature batch (n_rows rows).
 
         ``timeout_s`` bounds the wait (a first call that builds kernels
-        fits with room to spare); a closed batcher raises immediately."""
+        fits with room to spare); a closed batcher raises immediately.
+        ``ctx`` is the request trace riding the queue item; None takes the
+        calling thread's current trace."""
+        if ctx is None:
+            ctx = request_trace.current()
         fut: "Future[np.ndarray]" = Future()
         with self._close_lock:
             # Checked under the close lock: a submit racing close() must
@@ -232,7 +260,7 @@ class RequestBatcher:
             if self._closed:
                 raise RuntimeError("batcher is closed")
             # The enqueue instant anchors the gather deadline.
-            self._queue.put((batch, n_rows, fut, time.monotonic()))
+            self._queue.put((batch, n_rows, fut, time.monotonic(), ctx))
         return fut.result(timeout=timeout_s)
 
     def oldest_work_age_s(self) -> float:
@@ -354,9 +382,13 @@ class RequestBatcher:
         }
         total = sum(n for _, n, *_ in group)
         padded = pad_to_bucket(merged, total, self.buckets)
+        group_id = f"{self.name or 'b'}-{self.batches_run}"
+        t0_wall = time.time()
         t0 = time.monotonic()
         preds = np.asarray(self.predict_fn(padded))[:total]
-        self._observe_step(time.monotonic() - t0)
+        step_s = time.monotonic() - t0
+        self._emit_group_spans(group, group_id, total, t0_wall, t0, step_s)
+        self._observe_step(step_s)
         self.batches_run += 1
         self.requests_served += len(group)
         if self._m_batches is not None:
@@ -371,6 +403,37 @@ class RequestBatcher:
                 except Exception:  # noqa: BLE001 — lost the close race
                     pass
             offset += n
+
+    def _emit_group_spans(
+        self, group, group_id: str, total: int,
+        t0_wall: float, t0_mono: float, step_s: float,
+    ) -> None:
+        """Each traced request's spans for one dispatched group: the gather
+        wait it paid (enqueue -> dispatch) and the shared device call, with
+        the version the fleet leased for it (``request_trace.note`` from
+        inside ``predict_fn``).  No-op for untraced requests."""
+        if not any(entry[4] is not None for entry in group):
+            if request_trace.tracing_active():
+                request_trace.take_notes()  # the leased version, now stale
+            return
+        notes = request_trace.take_notes()
+        for _batch, n, _fut, t_enq, ctx in group:
+            if ctx is None:
+                continue
+            wait_s = max(0.0, t0_mono - t_enq)
+            ctx.complete_span(
+                "batch.wait", t0_wall - wait_s, t_enq, wait_s,
+                group=group_id, replica=self.name,
+                window_s=round(self._last_window_s, 6),
+                requests=len(group),
+            )
+            ctx.complete_span(
+                "model.step", t0_wall, t0_mono, step_s,
+                group=group_id, replica=self.name, rows=total,
+                request_rows=n, **notes,
+            )
+            if notes:
+                ctx.annotate(**notes)
 
     def _execute(self, group) -> None:
         try:

@@ -30,9 +30,17 @@ statistics; :meth:`on_slo_breach`, the callback the server's SLO monitor
 fires, rolls a version that burns its SLO inside the post-swap probation
 window (``swap_probation_s`` / ``TPP_SWAP_PROBATION_S``, default 120 s)
 back to the prior resident version, whose captured graphs replay as they
-are, and quarantines it.  The metrics history (``TPP_METRICS_HISTORY``)
-and the engine's decode levers wait for ROADMAP A8b: their knobs raise
-``NotImplementedError`` when set.
+are, and quarantines it.  With ``TPP_METRICS_HISTORY`` set the sampler
+also appends each window's registry to the metrics-history ring under
+``base_dir``.
+
+A generative fleet passes the engine's decode levers through to every
+replica's engines: ``slo_ms_per_token`` (with ``hard_deadline``),
+``prefix_cache_entries``, ``prefill_chunk_pages`` and ``spec_tokens`` (the
+payload's draft lane when it exports one, else self-draft).  Request traces
+ride ``submit`` / ``generate_submit`` as ``ctx`` (the calling thread's
+current trace by default): the route decision, the leased version and the
+engine's decode spans land on the request's trace.
 """
 
 from __future__ import annotations
@@ -46,6 +54,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from tpu_pipelines_torch.observability import request_trace
 from tpu_pipelines_torch.serving.fleet.pool import ReplicaPool
 from tpu_pipelines_torch.serving.fleet.replica import Replica
 from tpu_pipelines_torch.serving.fleet.versions import ModelVersionManager
@@ -53,9 +62,6 @@ from tpu_pipelines_torch.utils.device import resolve_device
 
 log = logging.getLogger("tpu_pipelines_torch.serving")
 
-# The reference's knob for the metrics-history ring the fleet's monitors
-# write into; set, it raises until ROADMAP A8b.
-ENV_METRICS_HISTORY = "TPP_METRICS_HISTORY"
 # Post-swap probation window (seconds): an SLO burn-rate breach inside it
 # is attributed to the swap and rolls back to the prior resident version;
 # past it, breaches are the operator's page, not the fleet's trigger.
@@ -66,14 +72,6 @@ DEFAULT_SWAP_PROBATION_S = 120.0
 def _on_cuda(loaded) -> bool:
     device = getattr(loaded, "device", None)
     return device is not None and torch.device(device).type == "cuda"
-
-
-def _deferred(knobs: Dict[str, Any]) -> None:
-    for name, value in knobs.items():
-        if value:
-            raise NotImplementedError(
-                f"ServingFleet({name}=...): waits for ROADMAP A8b"
-            )
 
 
 class ServingFleet:
@@ -92,6 +90,7 @@ class ServingFleet:
         decode_page_size: int = 0,
         max_queue_tokens: int = 0,
         slo_ms_per_token: float = 0.0,
+        hard_deadline: bool = False,
         prefix_cache_entries: int = 0,
         prefill_chunk_pages: int = 0,
         spec_tokens: int = 0,
@@ -111,13 +110,6 @@ class ServingFleet:
                 f"model_type must be 'predict' or 'generative', "
                 f"got {model_type!r}"
             )
-        _deferred({
-            "slo_ms_per_token": slo_ms_per_token,
-            "prefix_cache_entries": prefix_cache_entries,
-            "prefill_chunk_pages": prefill_chunk_pages,
-            "spec_tokens": spec_tokens,
-            ENV_METRICS_HISTORY: os.environ.get(ENV_METRICS_HISTORY, "").strip(),
-        })
         self.model_name = model_name
         self.base_dir = base_dir
         self.raw = raw
@@ -184,6 +176,11 @@ class ServingFleet:
                     "max_batch_size": max_batch_size,
                     "page_size": decode_page_size,
                     "max_queue_tokens": max_queue_tokens,
+                    "slo_ms_per_token": slo_ms_per_token,
+                    "hard_deadline": hard_deadline,
+                    "prefix_cache_entries": prefix_cache_entries,
+                    "prefill_chunk_pages": prefill_chunk_pages,
+                    "spec_tokens": spec_tokens,
                 },
             }
         supervised = supervisor_interval_s > 0
@@ -254,6 +251,9 @@ class ServingFleet:
                 DEFAULT_WINDOW_S,
                 TrafficSampler,
             )
+            from tpu_pipelines_torch.observability.metrics_history import (
+                MetricsHistory,
+            )
 
             self.sampler = TrafficSampler(
                 model_name,
@@ -264,6 +264,8 @@ class ServingFleet:
                 ),
                 registry=registry,
                 baseline_for=self._drift_baseline,
+                # None unless TPP_METRICS_HISTORY is set.
+                history=MetricsHistory.from_env(base_dir),
             )
             self.sampler.start()
 
@@ -281,6 +283,10 @@ class ServingFleet:
         the call cannot evict the version mid-predict, and the drain the
         swap promises is the lease count reaching zero."""
         with self.versions.lease() as (version, loaded):
+            # Runs in the batcher's worker, below the span emitter: the
+            # thread-local note puts the leased version on the model.step
+            # span (one global int read when tracing is off).
+            request_trace.note("version", version)
             if self._uncaptured(loaded):
                 with self._boot_warm_lock:
                     if self._uncaptured(loaded):
@@ -304,9 +310,14 @@ class ServingFleet:
 
     def submit(
         self, batch: Dict[str, Any], n_rows: int, timeout_s: float = 300.0,
+        ctx=None,
     ) -> np.ndarray:
+        if ctx is None:
+            ctx = request_trace.current()
         try:
-            result = self.pool.submit(batch, n_rows, timeout_s=timeout_s)
+            result = self.pool.submit(
+                batch, n_rows, timeout_s=timeout_s, ctx=ctx
+            )
         except Exception as e:  # noqa: BLE001 — count + re-raise
             self._note_unavailable(e)
             raise
@@ -349,14 +360,21 @@ class ServingFleet:
             if mask is not None:
                 row["input_mask"] = np.asarray(mask)[i]
             rows.append(row)
+        ctx = request_trace.current()
         try:
-            replica = self.pool.router.pick(self.pool.replicas)
+            if ctx is None:
+                replica = self.pool.router.pick(self.pool.replicas)
+            else:
+                replica, costs = self.pool.router.pick_with_costs(
+                    self.pool.replicas
+                )
+                ctx.instant("route", replica=replica.name, costs=costs)
         except Exception as e:  # noqa: BLE001 — count + re-raise
             self._note_unavailable(e)
             raise
         try:
             return replica.decode_submit(
-                rows, dict(gen_params or {}), timeout_s=timeout_s
+                rows, dict(gen_params or {}), timeout_s=timeout_s, ctx=ctx
             )
         except Exception as e:  # noqa: BLE001 — classified below
             from tpu_pipelines_torch.serving.generative import (
@@ -366,10 +384,11 @@ class ServingFleet:
             if not isinstance(e, DecodeSessionLost):
                 raise
             return self._recover_decode(
-                replica, e, rows, dict(gen_params or {}), timeout_s
+                replica, e, rows, dict(gen_params or {}), timeout_s, ctx
             )
 
-    def _recover_decode(self, dead, lost, rows, gen_params, timeout_s):
+    def _recover_decode(self, dead, lost, rows, gen_params, timeout_s,
+                        ctx=None):
         """The routed replica died with this request's generations in
         flight: greedy decode is deterministic, so re-prefilling the
         prompts onto a surviving replica gives the streams an
@@ -392,7 +411,15 @@ class ServingFleet:
             self._note_unavailable(err)
             raise err from lost.cause
         replica = self.pool.router.pick(survivors)
-        out = replica.decode_submit(rows, gen_params, timeout_s=timeout_s)
+        if ctx is not None:
+            ctx.instant(
+                "decode_recover", from_replica=dead.name,
+                to_replica=replica.name, unfinished=lost.unfinished,
+                error=f"{type(lost.cause).__name__}: {lost.cause}",
+            )
+        out = replica.decode_submit(
+            rows, gen_params, timeout_s=timeout_s, ctx=ctx
+        )
         # Continuity audit: each recovered stream must extend the tokens
         # the dead engine had committed.
         for i, partial in enumerate(lost.partial_tokens[: len(out)]):

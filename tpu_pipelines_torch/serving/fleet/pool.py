@@ -41,13 +41,20 @@ class ReplicaPool:
 
     def submit(
         self, batch: Dict[str, Any], n_rows: int, timeout_s: float = 300.0,
+        ctx=None,
     ) -> np.ndarray:
-        replica = self.router.pick(self.replicas)
+        if ctx is None:
+            replica = self.router.pick(self.replicas)
+        else:
+            # A traced request records the route decision: the chosen
+            # replica and what every replica cost at that instant.
+            replica, costs = self.router.pick_with_costs(self.replicas)
+            ctx.instant("route", replica=replica.name, costs=costs)
         sup = self.supervisor
         if sup is None:
-            return replica.submit(batch, n_rows, timeout_s=timeout_s)
+            return replica.submit(batch, n_rows, timeout_s=timeout_s, ctx=ctx)
         try:
-            out = replica.submit(batch, n_rows, timeout_s=timeout_s)
+            out = replica.submit(batch, n_rows, timeout_s=timeout_s, ctx=ctx)
         except Exception as e:  # noqa: BLE001 — classified below
             sup.on_request_error(replica, e)
             if classify_error(e) == PERMANENT:
@@ -70,7 +77,12 @@ class ReplicaPool:
             retry = self.router.pick(survivors)
             if self.on_failover is not None:
                 self.on_failover()
-            out = retry.submit(batch, n_rows, timeout_s=timeout_s)
+            if ctx is not None:
+                ctx.instant(
+                    "failover", from_replica=replica.name,
+                    to_replica=retry.name, error=f"{type(e).__name__}: {e}",
+                )
+            out = retry.submit(batch, n_rows, timeout_s=timeout_s, ctx=ctx)
             sup.on_request_success(retry)
             return out
         sup.on_request_success(replica)

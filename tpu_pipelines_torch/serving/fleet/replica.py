@@ -146,7 +146,8 @@ class Replica:
         # Per-replica series below; the batcher's own unlabeled gauges
         # would collide across replicas.
         self.batcher = RequestBatcher(
-            self._predict_fn, registry=None, **self._batcher_kwargs,
+            self._predict_fn, registry=None, name=self.name,
+            **self._batcher_kwargs,
         )
         self._m_depth = self._m_p99 = self._m_ewma = self._m_requests = None
         self._m_deadline = self._m_step = self._m_latency_h = None
@@ -246,7 +247,8 @@ class Replica:
         old.join_close(timeout_s)
         self.generation += 1
         self.batcher = RequestBatcher(
-            self._predict_fn, registry=None, **self._batcher_kwargs,
+            self._predict_fn, registry=None, name=self.name,
+            **self._batcher_kwargs,
         )
         # Fresh latency window: the dead incarnation's tail must not deter
         # the router from the rebuilt replica.
@@ -271,7 +273,7 @@ class Replica:
 
     # ------------------------------------------------------------- serving
 
-    def submit(self, batch, n_rows: int, timeout_s: float = 300.0):
+    def submit(self, batch, n_rows: int, timeout_s: float = 300.0, ctx=None):
         with self._inflight_lock:
             self._inflight += 1
         if self._m_requests is not None:
@@ -279,7 +281,9 @@ class Replica:
             self._m_depth.set(self.queue_depth())
         t0 = time.perf_counter()
         try:
-            return self.batcher.submit(batch, n_rows, timeout_s=timeout_s)
+            return self.batcher.submit(
+                batch, n_rows, timeout_s=timeout_s, ctx=ctx
+            )
         finally:
             dt = time.perf_counter() - t0
             with self._inflight_lock:
@@ -320,13 +324,20 @@ class Replica:
             # decode rounds until the rebuild bumps the generation.
             _faults.replica_predict(_self.name, _self.generation)
 
+        kwargs = dict(self._generative_cfg.get("engine_kwargs", {}))
+        if int(kwargs.get("spec_tokens", 0) or 0) > 0:
+            # Speculative decoding drafts with the payload's exported draft
+            # lane (make_draft_decode_fns) when it ships one; otherwise the
+            # engine self-drafts (correct, speed-neutral).
+            kwargs["draft_fns"] = getattr(loaded, "draft_decode_fns", None)
+            kwargs["draft_params"] = getattr(loaded, "draft_params", None)
         engine = GenerativeEngine(
             fns,
             loaded.params,
             device=self.device,
             telemetry=self._decode_telemetry,
             fault_hook=_engine_fault_hook,
-            **self._generative_cfg.get("engine_kwargs", {}),
+            **kwargs,
         )
         try:
             engine.warm()
@@ -343,6 +354,7 @@ class Replica:
 
     def decode_submit(
         self, rows, gen_params: Dict[str, Any], timeout_s: float = 300.0,
+        ctx=None,
     ) -> np.ndarray:
         """Run one request's sequences through this replica's engine.
 
@@ -361,6 +373,10 @@ class Replica:
         t0 = time.perf_counter()
         try:
             with versions.lease() as (version, loaded):
+                if ctx is not None:
+                    # The lease pins this generation to ``version`` across
+                    # any hot-swap; the trace records the pin.
+                    ctx.annotate(version=version, replica=self.name)
                 engine = self.prepare_engine(version, loaded)
                 # Submit-time validation: a malformed request is its
                 # caller's 4xx here, before any sequence joins the engine.
@@ -374,6 +390,7 @@ class Replica:
                             row["inputs"],
                             input_mask=row.get("input_mask"),
                             max_new_tokens=gp["max_new_tokens"],
+                            ctx=ctx,
                         ))
                     outs = [h.wait(timeout_s) for h in handles]
                 except Exception as e:

@@ -1,8 +1,8 @@
 """REST model server over the port's exported model payloads.
 
-The single-server path of ``tpu_pipelines/serving/server.py``: Pusher-style
+The port of ``tpu_pipelines/serving/server.py``: Pusher-style
 ``<base>/<version>/`` payloads, the highest version served, TF-Serving
-REST shapes:
+REST shapes (the same surface over gRPC: ``serving/grpc_server.py``):
 
     GET  /healthz                     -> liveness + served version
     GET  /metrics                     -> Prometheus text exposition
@@ -16,6 +16,9 @@ REST shapes:
          hot-swap to the newest version)
 
 The model runs on ``device`` (CUDA unless the caller asks for the CPU).
+``raw=True`` (the default) serves ``LoadedModel.predict`` (the embedded
+transform applied to raw features); ``raw=False`` serves
+``predict_transformed`` for callers that send transformed features.
 Concurrent requests are safe and, with ``batching=True``, coalesce through
 the micro-batcher into padded bucket-sized device calls.  Admission control
 (``max_queue_depth``) refuses work past its bound with 429 + Retry-After.
@@ -27,7 +30,10 @@ canary-gated hot-swap (a refused push answers 409), SLO-derived batch
 deadlines (``slo_p99_ms``), an opt-in supervisor (``supervisor_interval_s``;
 all replicas down answers 503 + Retry-After), and, for the generative
 type, ``:generate`` through per-replica continuous-batching engines with
-generation ``params`` and token admission (``max_queue_tokens``, 429).
+generation ``params``, token admission (``max_queue_tokens``, 429) and the
+engine's decode levers: ``prefix_cache_entries``, ``prefill_chunk_pages``,
+``spec_tokens`` and the per-token SLO ``slo_ms_per_token`` (with
+``hard_deadline`` an evicted generation answers 503).
 Each knob left at its default falls back to its ``TPP_SERVING_*``
 environment variable, as in the reference.
 
@@ -40,9 +46,15 @@ the new version); ``monitor_sample_rate`` (``TPP_SERVING_MONITOR_SAMPLE``)
 and ``monitor_window_s`` (``TPP_SERVING_MONITOR_WINDOW_S``) sample the
 served traffic into drift windows scored against the version's training
 statistics (asking for it makes a single server a one-replica fleet).
-gRPC, request tracing, metric federation, the per-token SLO and the
-engine's decode levers wait for ROADMAP A8b: setting their knobs raises
-``NotImplementedError``.
+
+Observability (each off by default, and then absent from ``/metrics``):
+request tracing (``request_trace_mode`` / ``TPP_REQUEST_TRACE``, spans
+into ``trace_dir`` / ``TPP_REQUEST_TRACE_DIR``) takes or makes a W3C
+``traceparent`` at the front door, hands it back on the reply and appends
+exemplar comment lines to ``/metrics``; metric federation
+(``TPP_FEDERATION_DIR``) publishes this server's registry into the spool
+on each scrape and serves the merged, host/replica/tenant-labelled
+exposition.
 """
 
 from __future__ import annotations
@@ -57,10 +69,13 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from tpu_pipelines_torch.observability import federation as _fed
+from tpu_pipelines_torch.observability import request_trace
 from tpu_pipelines_torch.observability.metrics import (
     CONTENT_TYPE_LATEST,
     MetricsRegistry,
 )
+from tpu_pipelines_torch.observability.request_trace import RequestTracer
 from tpu_pipelines_torch.serving.batching import RequestBatcher
 from tpu_pipelines_torch.testing import faults as _faults
 from tpu_pipelines_torch.trainer.export import (
@@ -90,14 +105,16 @@ ENV_SUPERVISOR_QUEUE_AGE_S = "TPP_SERVING_SUPERVISOR_QUEUE_AGE_S"
 ENV_SLO_MONITOR = "TPP_SLO_MONITOR"
 ENV_MONITOR_SAMPLE = "TPP_SERVING_MONITOR_SAMPLE"
 ENV_MONITOR_WINDOW = "TPP_SERVING_MONITOR_WINDOW_S"
-# The reference's knobs that wait for ROADMAP A8b (the engine's decode
-# levers, the per-token SLO, request tracing): set, they raise.
+# The per-token SLO (ms) and the engine's decode levers: resident
+# prefix-cache entries, prefill pages admitted per decode round, and the
+# speculative window (0 = off each).
 ENV_SLO_MS_PER_TOKEN = "TPP_SERVING_SLO_MS_PER_TOKEN"
 ENV_PREFIX_CACHE = "TPP_SERVING_PREFIX_CACHE"
 ENV_PREFILL_CHUNK = "TPP_SERVING_PREFILL_CHUNK"
 ENV_SPEC_TOKENS = "TPP_SERVING_SPEC_TOKENS"
-ENV_REQUEST_TRACE = "TPP_REQUEST_TRACE"
-ENV_REQUEST_TRACE_DIR = "TPP_REQUEST_TRACE_DIR"
+# Request tracing: off | sample:N | all, and where the spans are written.
+ENV_REQUEST_TRACE = request_trace.ENV_REQUEST_TRACE
+ENV_REQUEST_TRACE_DIR = request_trace.ENV_REQUEST_TRACE_DIR
 
 
 def _env_number(name: str, default: float) -> float:
@@ -118,7 +135,8 @@ class ServerOverloaded(RuntimeError):
 
 class GenerateUnsupported(ValueError):
     """This server or payload cannot decode (the payload's module has no
-    generate hook).  A ValueError, so REST answers 400."""
+    generate hook, or ``raw=False`` with an embedded transform).  A
+    ValueError, so REST answers 400 (gRPC FAILED_PRECONDITION)."""
 
 
 def latest_version_dir(base_dir: str) -> Optional[str]:
@@ -136,13 +154,14 @@ def latest_version_dir(base_dir: str) -> Optional[str]:
 
 class ModelServer:
     """Serves one model name from a version-dir layout (or a flat payload)
-    on ``device``."""
+    on ``device``: raw features (``raw=True``) or transformed ones."""
 
     def __init__(
         self,
         model_name: str,
         base_dir: str,
         *,
+        raw: bool = True,
         batching: bool = False,
         max_batch_size: int = 64,
         batch_timeout_s: float = 0.005,
@@ -156,6 +175,7 @@ class ModelServer:
         supervisor_interval_s: float = -1.0,
         supervisor_queue_age_s: float = -1.0,
         slo_ms_per_token: float = -1.0,
+        hard_deadline: bool = False,
         prefix_cache_entries: int = 0,
         prefill_chunk_pages: int = 0,
         spec_tokens: int = 0,
@@ -169,6 +189,7 @@ class ModelServer:
     ):
         self.model_name = model_name
         self.base_dir = base_dir
+        self.raw = raw
         self.device = resolve_device(device)
         # Constructor wins; 0 / -1 / "" fall back to the environment, then
         # to the single-server defaults.
@@ -190,24 +211,19 @@ class ModelServer:
             supervisor_interval_s = _env_number(ENV_SUPERVISOR_S, 0.0)
         if supervisor_queue_age_s < 0:
             supervisor_queue_age_s = _env_number(ENV_SUPERVISOR_QUEUE_AGE_S, 0.0)
-        deferred = {
-            "slo_ms_per_token": slo_ms_per_token if slo_ms_per_token >= 0
-            else _env_number(ENV_SLO_MS_PER_TOKEN, 0.0),
-            "prefix_cache_entries": prefix_cache_entries
-            or _env_number(ENV_PREFIX_CACHE, 0),
-            "prefill_chunk_pages": prefill_chunk_pages
-            or _env_number(ENV_PREFILL_CHUNK, 0),
-            "spec_tokens": spec_tokens or _env_number(ENV_SPEC_TOKENS, 0),
-            "request_trace_mode": request_trace_mode
-            or os.environ.get(ENV_REQUEST_TRACE, "").strip() not in ("", "off"),
-            "trace_dir": trace_dir
-            or os.environ.get(ENV_REQUEST_TRACE_DIR, "").strip(),
-        }
-        for name, value in deferred.items():
-            if value:
-                raise NotImplementedError(
-                    f"ModelServer({name}=...): waits for ROADMAP A8b"
-                )
+        if slo_ms_per_token < 0:
+            slo_ms_per_token = _env_number(ENV_SLO_MS_PER_TOKEN, 0.0)
+        if prefix_cache_entries <= 0:
+            prefix_cache_entries = int(_env_number(ENV_PREFIX_CACHE, 0))
+        if prefill_chunk_pages <= 0:
+            prefill_chunk_pages = int(_env_number(ENV_PREFILL_CHUNK, 0))
+        if spec_tokens <= 0:
+            spec_tokens = int(_env_number(ENV_SPEC_TOKENS, 0))
+        self.slo_ms_per_token = max(0.0, slo_ms_per_token)
+        self.hard_deadline = bool(hard_deadline)
+        self.prefix_cache_entries = max(0, prefix_cache_entries)
+        self.prefill_chunk_pages = max(0, prefill_chunk_pages)
+        self.spec_tokens = max(0, spec_tokens)
         if slo_monitor_interval_s < 0:
             slo_monitor_interval_s = _env_number(ENV_SLO_MONITOR, 0.0)
         if monitor_sample_rate < 0:
@@ -272,6 +288,23 @@ class ModelServer:
             "Predict requests currently being served.",
         )
         self._m_inflight.set_function(lambda: self._inflight)
+        # Request tracing: constructor wins, else the environment; off (the
+        # default) makes no tracer, no file and no metric family.
+        self.request_tracer = RequestTracer.create(
+            request_trace_mode or os.environ.get(ENV_REQUEST_TRACE, ""),
+            trace_dir or os.environ.get(ENV_REQUEST_TRACE_DIR, ""),
+            service=model_name,
+            registry=self.metrics,
+        )
+        # Metric federation, opt-in through TPP_FEDERATION_DIR: each scrape
+        # publishes this server's registry into the spool, then serves the
+        # merged exposition.  The writer stamp keeps the merge from
+        # counting this server's own spool file twice.
+        self._federated = None
+        self._fed_source = ""
+        if _fed.federation_dir() is not None:
+            self._fed_source = f"serving-{model_name}-{os.getpid()}"
+            self._federated = _fed.FederatedRegistry(self.metrics)
         # The batcher resolves the current model at call time, so hot-swaps
         # apply to queued requests.  Fleet mode moves batching into the
         # replica workers behind the router; the REST surface, admission
@@ -292,6 +325,7 @@ class ModelServer:
                 model_name,
                 base_dir,
                 replicas=self.replicas,
+                raw=raw,
                 max_batch_size=max_batch_size,
                 batch_timeout_s=batch_timeout_s,
                 slo_p99_s=self.slo_p99_ms / 1e3,
@@ -299,6 +333,11 @@ class ModelServer:
                 model_type=self.model_type,
                 decode_page_size=self.decode_page_size,
                 max_queue_tokens=self.max_queue_tokens,
+                slo_ms_per_token=self.slo_ms_per_token,
+                hard_deadline=self.hard_deadline,
+                prefix_cache_entries=self.prefix_cache_entries,
+                prefill_chunk_pages=self.prefill_chunk_pages,
+                spec_tokens=self.spec_tokens,
                 swap_probation_s=swap_probation_s,
                 supervisor_interval_s=self.supervisor_interval_s,
                 supervisor_queue_age_s=self.supervisor_queue_age_s,
@@ -307,6 +346,10 @@ class ModelServer:
                 registry=self.metrics,
                 device=self.device,
             )
+            if self._fleet.sampler is not None:
+                # Drift alerts land in the request tracer's stream when
+                # there is one.
+                self._fleet.sampler.tracer = self.request_tracer
             if self._slo_interval_s > 0:
                 # The SLO burn-rate monitor, wired to the fleet's breach
                 # policy (a breach inside the post-swap probation window
@@ -325,14 +368,16 @@ class ModelServer:
                         if self.monitor_sample_rate > 0 else 0.0
                     ),
                     on_breach=self._fleet.on_slo_breach,
+                    tracer=self.request_tracer,
                 )
         elif batching:
             self._batcher = RequestBatcher(
-                lambda b: self._current_model().predict(b),
+                lambda b: np.asarray(self._predict_fn()(b)),
                 max_batch_size=max_batch_size,
                 batch_timeout_s=batch_timeout_s,
                 slo_p99_s=self.slo_p99_ms / 1e3,
                 registry=self.metrics,
+                name="server",
             )
         try:
             self.reload()
@@ -408,18 +453,23 @@ class ModelServer:
                         f"outstanding decode tokens {owed} >= bound "
                         f"{self.max_queue_tokens}"
                     )
-            if self.max_queue_depth > 0:
+            ctx = request_trace.current()
+            depth = None
+            if self.max_queue_depth > 0 or ctx is not None:
                 depth = self._inflight
                 if self._fleet is not None:
                     depth += self._fleet.queue_depth()
                 elif self._batcher is not None:
                     depth += self._batcher.queue_depth()
-                if depth >= self.max_queue_depth:
-                    self._m_shed.labels(endpoint).inc()
-                    raise ServerOverloaded(
-                        f"queue depth {depth} >= bound {self.max_queue_depth}"
-                    )
+            if self.max_queue_depth > 0 and depth >= self.max_queue_depth:
+                self._m_shed.labels(endpoint).inc()
+                raise ServerOverloaded(
+                    f"queue depth {depth} >= bound {self.max_queue_depth}"
+                )
             self._inflight += 1
+        if ctx is not None:
+            # What admission saw when it let the request in.
+            ctx.instant("admission", depth=depth, bound=self.max_queue_depth)
 
     def _release(self) -> None:
         with self._inflight_lock:
@@ -437,6 +487,10 @@ class ModelServer:
             raise RuntimeError("no model loaded")
         return loaded
 
+    def _predict_fn(self):
+        loaded = self._current_model()
+        return loaded.predict if self.raw else loaded.predict_transformed
+
     def predict_batch(self, batch: Dict[str, Any]) -> np.ndarray:
         """Predict on a columnar feature batch — the shared entry for every
         surface, so all of them ride the same micro-batcher."""
@@ -445,7 +499,7 @@ class ModelServer:
             return self._fleet.submit(batch, n_rows)
         if self._batcher is not None:
             return self._batcher.submit(batch, n_rows)
-        return self._current_model().predict(batch)
+        return np.asarray(self._predict_fn()(batch))
 
     @staticmethod
     def _payload_to_batch(payload: Dict[str, Any]) -> Optional[Dict[str, Any]]:
@@ -480,6 +534,14 @@ class ModelServer:
                 f"model {self.model_name!r} does not support generate "
                 "(exported module has no make_generate_step or legacy "
                 "make_generate_fn)"
+            )
+        if not self.raw and loaded.transform is not None:
+            # The payload's generate applies its embedded transform, so a
+            # raw=False server (callers send transformed features) would
+            # transform twice.
+            raise GenerateUnsupported(
+                "generate requires raw features (server is raw=False but "
+                "the payload embeds a transform)"
             )
         return loaded.generate
 
@@ -582,12 +644,18 @@ class ModelServer:
                 self.send_header("Content-Length", str(len(body)))
                 if retry_after_s > 0:
                     self.send_header("Retry-After", str(retry_after_s))
+                ctx = getattr(self, "_trace_ctx", None)
+                if ctx is not None:
+                    # The caller gets the trace id back; this request's
+                    # root span is the downstream parent.
+                    self.send_header("traceparent", ctx.traceparent())
+                    self._trace_code = code
                 self.end_headers()
                 self.wfile.write(body)
 
             def do_GET(self):
                 if self.path == "/metrics":
-                    body = server.metrics.to_prometheus().encode("utf-8")
+                    body = server.metrics_text().encode("utf-8")
                     self.send_response(200)
                     self.send_header("Content-Type", CONTENT_TYPE_LATEST)
                     self.send_header("Content-Length", str(len(body)))
@@ -641,6 +709,17 @@ class ModelServer:
                 endpoint, handler = route
                 t0 = time.perf_counter()
                 admitted = False
+                # The request trace's root: a traceparent header joins the
+                # caller's trace, its absence starts one; the sampling
+                # verdict made here holds for every span downstream.
+                ctx = trace_token = None
+                if server.request_tracer is not None:
+                    ctx = server.request_tracer.start(
+                        endpoint, self.headers.get("traceparent"))
+                    if ctx is not None:
+                        self._trace_ctx = ctx
+                        self._trace_code = 0
+                        trace_token = request_trace.push(ctx)
                 try:
                     # Fault hook (RELOAD_DURING_HAMMER): a no-op global
                     # read unless a test plan is active.
@@ -704,6 +783,10 @@ class ModelServer:
                 server._m_latency.labels(endpoint).observe(
                     time.perf_counter() - t0
                 )
+                if ctx is not None:
+                    request_trace.pop(trace_token)
+                    self._trace_ctx = None
+                    ctx.finish(self._trace_code or 0)
 
         class Httpd(ThreadingHTTPServer):
             # socketserver's default listen backlog is 5; a concurrent-client
@@ -732,6 +815,25 @@ class ModelServer:
             self._thread.join(timeout=5)
             self._thread = None
         self._close_workers()
+        if self.request_tracer is not None:
+            self.request_tracer.close()
+            self.request_tracer = None
+
+    def metrics_text(self) -> str:
+        """The ``/metrics`` exposition: this server's registry (merged with
+        the federation spool when ``TPP_FEDERATION_DIR`` is set), then, with
+        request tracing on, the exemplar comment lines."""
+        if self._federated is not None:
+            try:
+                _fed.publish_registry(self.metrics, source=self._fed_source)
+            except OSError:
+                pass  # an unwritable spool: still serve the local registry
+            text = self._federated.to_prometheus()
+        else:
+            text = self.metrics.to_prometheus()
+        if self.request_tracer is not None:
+            text += self.request_tracer.exemplar_exposition()
+        return text
 
     def _close_workers(self) -> None:
         if self._batcher is not None:

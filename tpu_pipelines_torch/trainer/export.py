@@ -252,8 +252,11 @@ class LoadedModel:
     generate: Optional[Callable[[Dict[str, Any]], np.ndarray]] = None
     # The continuous-batching decode contract (serving/generative.py).
     decode_fns: Any = None
-    # The speculative-decoding draft lane, read from a module's
-    # make_draft_decode_fns; None until the lever lands (ROADMAP A8).
+    # The speculative-decoding draft lane: a module's
+    # ``make_draft_decode_fns(model, hyperparameters)`` returns
+    # ``(draft_fns, draft_params)``, a smaller model speaking the same
+    # decode contract; the engine drafts with it when ``spec_tokens > 0``
+    # and self-drafts when the payload ships none.
     draft_decode_fns: Any = None
     draft_params: Any = None
     # The two halves of ``predict``: the graph's host stage (numpy in and
@@ -384,8 +387,8 @@ def load_exported_model(uri: str, device: Any = "cuda") -> LoadedModel:
     decode_builder = (None if quantized
                       else getattr(module, "make_decode_fns", None))
     decode_fns = None if decode_builder is None else decode_builder(model, hp)
-    # A payload may ship a draft lane; it is carried, unused, until the
-    # speculative lever lands (ROADMAP A8).
+    # A payload may ship a draft lane (the replica hands it to the engine
+    # when spec_tokens > 0).
     draft_decode_fns = draft_params = None
     draft_builder = (None if quantized
                      else getattr(module, "make_draft_decode_fns", None))

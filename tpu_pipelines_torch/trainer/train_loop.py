@@ -249,6 +249,12 @@ class TrainLoopConfig:
     collect_cost_analysis: bool = False
     # Peak per-chip FLOP/s; None = env TPP_PEAK_FLOPS, else the card table.
     peak_flops_per_chip: Optional[float] = None
+    # The metrics-history ring lives under <pipeline_root>/.runs/_metrics/
+    # <run_id>/ and is written only with TPP_METRICS_HISTORY set; "" takes
+    # both from the active run trace's recorder.  Federation publishing
+    # needs no config: TPP_FEDERATION_DIR alone turns it on.
+    pipeline_root: str = ""
+    run_id: str = ""
     # ---- data parallelism (see the module docstring and
     # trainer/data_parallel.py).  A MeshConfig or a dict of axis sizes;
     # None = all processes of the default group on 'data'.
@@ -310,6 +316,45 @@ def _peak_flops_per_chip(device: Any) -> float:
         if key in kind:
             return peak
     return 0.0
+
+
+def _telemetry_publisher(config: TrainLoopConfig, reg):
+    """``publish(at_step)``: the registry into the federation spool
+    (``TPP_FEDERATION_DIR``) and the metrics-history ring
+    (``TPP_METRICS_HISTORY``), each only when its knob is set."""
+    from tpu_pipelines_torch.observability import federation as _fed
+    from tpu_pipelines_torch.observability.metrics_history import (
+        MetricsHistory,
+    )
+
+    fed_source = None
+    if _fed.federation_dir() is not None:
+        rank = (torch.distributed.get_rank()
+                if torch.distributed.is_initialized() else 0)
+        fed_source = f"trainer-p{rank}-{os.getpid()}"
+    pipeline_root, run_id = config.pipeline_root, config.run_id
+    rec = _obs.active_recorder()
+    if rec is not None:
+        run_id = run_id or rec.run_id
+        # The recorder's run_dir is <pipeline_root>/.runs/<run_id>.
+        pipeline_root = pipeline_root or os.path.dirname(
+            os.path.dirname(rec.run_dir))
+    history = MetricsHistory.from_env(pipeline_root) if pipeline_root else None
+    run_id = run_id or "train"
+
+    def publish(at_step: int) -> None:
+        if fed_source is not None:
+            try:
+                _fed.publish_registry(reg, source=fed_source)
+            except OSError as e:
+                log.warning("federation publish failed: %s", e)
+        if history is not None:
+            try:
+                history.append(reg, run_id, step=at_step)
+            except OSError as e:
+                log.warning("metrics-history append failed: %s", e)
+
+    return publish
 
 
 def _peak_flops(config: "TrainLoopConfig", device: Any) -> float:
@@ -923,6 +968,7 @@ def train_loop(
     )
     g_mfu.set(0.0)
     c_compiles_warm.inc(0)  # materialize the zero: absence is not proof
+    publish_telemetry = _telemetry_publisher(config, reg)
     tokens_per_example = max(
         (int(np.prod(np.asarray(v).shape[1:])) for v in first_batch.values()
          if np.asarray(v).dtype.kind in "iu" and np.asarray(v).ndim >= 2),
@@ -969,6 +1015,7 @@ def train_loop(
             g_device_mem.set(float(torch.cuda.memory_allocated(dev)))
             g_dev_peak.labels(str(dev.index or 0)).set(
                 float(torch.cuda.max_memory_allocated(dev)))
+        publish_telemetry(at_step)
 
     def emit_eval(at_step: int) -> None:
         ev = _run_eval(state.model, loss_fn, eval_iter_fn, config, dev)
@@ -1163,6 +1210,8 @@ def train_loop(
         if device_s > 0:
             mfu = cost_flops * steps_measured / device_s / (peak * n_chips)
             g_mfu.set(round(mfu, 4))
+            # The gauge changed after the last window's publication.
+            publish_telemetry(step)
 
     eps = examples_after_t0 / elapsed if examples_after_t0 else 0.0
     window_rates = sorted(
