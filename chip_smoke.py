@@ -121,6 +121,28 @@ Phases (any failure raises and the script exits non-zero):
      of two graph runs and the eager steps, MFU, peak memory of graph and
      eager, the captured AdamW update fused and foreach, and a profiled
      step, eager and replayed;
+  8a. moe_train — BERT-base-MoE (the Switch-Base-8 layout: 8 experts on
+     the odd layers, capacity factor 1.25) fine-tunes as the training
+     phase does (batch 256 x 128 ragged, bf16, dropout 0.1, fused AdamW,
+     12 steps in windows of 4, the first eager, then one capture and
+     replays) with the reference's loss, task + 0.01 x the load-balancing
+     loss of ``apply_with_moe_aux``: finite losses, ``moe_aux`` >= 1, each
+     attention kernel launched 12 x steps (counted at replay), the graph
+     run's losses and expert weights equal to the same steps run eagerly
+     bit for bit; the trained layer-1 MoE block on the card against the
+     same block in f64 on the CPU (MOE_BLOCK_TOL; routing every token to
+     its second-best expert must miss it), its kept and dropped shares and
+     tokens per expert; report examples/s/chip, MFU from counted FLOPs,
+     peak memory and a replayed step's device ms by kind (GEMM, attention,
+     routing and other);
+  8a'. moe_serving — that payload exported through the BERT module and
+     served by ``ModelServer`` from the boot version's bucket graphs: each
+     bucket's replay == eager bit for bit, 12 forward launches a device
+     batch credited per replay, 0 compiles after warm-up; the eager flash
+     step within LOGIT_TOL of dense attention under the flash step's
+     routing (the two wrong-mask controls above it); every served row
+     within LOGIT_TOL of the eager flash step on its own input (the
+     replies shifted by one row must miss it);
   8b. dp_train — data-parallel training (A5).  (a) A world of one over
      NCCL (a process group made here over a FileStore): BERT-base at full
      width, batch DP_BATCH x SEQ_LEN, dropout 0, DP_STEPS steps in each of
@@ -144,6 +166,20 @@ Phases (any failure raises and the script exits non-zero):
      bit to the uninterrupted run; ResNet-50's BatchNorm buffers after a
      step equal on both ranks and to the mean of each rank's own
      statistics;
+  8c. seq_expert_two_ranks — sequence and expert parallelism (A6a) on two
+     gloo ranks of the one card (spawned; NCCL refuses two ranks on one
+     device, gloo carries ``all_to_all_single`` with uneven splits, by the
+     probe), deterministic cuBLAS, dropout 0, 3 SGD steps each, against
+     one process running the same steps: BERT-base at 4 x 2048 over seq =
+     2 with ``long_context_batch_partition``, ring and then Ulysses (f32
+     compute on both sides; one process runs flash), and BERT-base-MoE at
+     32 x 128 over expert = 2 (one process runs all 8 experts): losses and
+     parameter changes within SP_* / EP_* on both ranks, a control that
+     must miss the change tolerance (rank 0 drops the block of its last
+     ring hop; rank 1's partial output left out of the combine); both
+     ranks hold one model bit for bit (shared gradients averaged over
+     seq and expert); each rank's own launches, counted from zero a job:
+     none for ring and Ulysses, 12 x 3 of each training kernel for EP;
   9. taxi_dag — the Chicago-taxi DAG (all nine nodes of
      ``tpu_pipelines_torch/examples/taxi_pipeline.py``) through
      ``LocalDagRunner(device="cuda")`` over a CSV of TAXI_ROWS rows made
@@ -1560,15 +1596,15 @@ LOSS_TOL = 1e-2
 DEVICE = "cuda"
 
 
-def training_batches(seed, vocab, n, batch=TRAIN_BATCH):
-    """``n`` batches of ``batch`` x SEQ_LEN with ragged real lengths
-    (8..SEQ_LEN), pad id 0 behind them, and bench.py's label rule."""
+def training_batches(seed, vocab, n, batch=TRAIN_BATCH, length=SEQ_LEN):
+    """``n`` batches of ``batch`` x ``length`` with ragged real lengths
+    (8..length), pad id 0 behind them, and bench.py's label rule."""
     rng = np.random.default_rng(seed + 1)
     batches = []
     for _ in range(n):
-        lengths = rng.integers(8, SEQ_LEN + 1, size=batch)
-        mask = np.arange(SEQ_LEN)[None, :] < lengths[:, None]
-        ids = np.where(mask, rng.integers(4, vocab, size=(batch, SEQ_LEN)), 0)
+        lengths = rng.integers(8, length + 1, size=batch)
+        mask = np.arange(length)[None, :] < lengths[:, None]
+        ids = np.where(mask, rng.integers(4, vocab, size=(batch, length)), 0)
         batches.append({
             "input_ids": ids.astype(np.int32),
             "attention_mask": mask.astype(np.int32),
@@ -1605,10 +1641,21 @@ def run_training(hp, seed, batches):
             return method(self, *args, **kwargs)
         return wrapper
 
+    # The launches of the steps alone: read before the loop counts a step's
+    # FLOPs (an eager forward and backward of its own).
+    launches = {}
+    loop_module = sys.modules[train_loop.__module__]
+    real_count = loop_module.count_step_flops
+
+    def counting(*args, **kwargs):
+        launches.update(by_record(counters()))
+        return real_count(*args, **kwargs)
+
     graph = torch.cuda.CUDAGraph
     with mock.patch.object(graph, "replay", counted("replays", graph.replay)), \
             mock.patch.object(graph, "capture_begin",
-                              counted("captures", graph.capture_begin)):
+                              counted("captures", graph.capture_begin)), \
+            mock.patch.object(loop_module, "count_step_flops", counting):
         model, result = train_loop(
             loss_fn=loss_fn,
             init_params_fn=functools.partial(bert_module.init_params_fn,
@@ -5919,7 +5966,7 @@ def dag_machinery_phase(seed, card, workdir):
 
 # ------------------------------------------------------------------ T5 DAG
 
-T5_DAG_PAIRS = 3072
+T5_DAG_PAIRS = 1536
 T5_DAG_STEPS = 100
 T5_LEXICON = 1500
 
@@ -7233,8 +7280,8 @@ def check_served_launches(name, launches, n_batches):
     want = {k: 0 for k in fa.COUNTERS}
     want["launches"] = N_LAYERS * n_batches
     if n_batches < 1 or launches != want:
-        raise AssertionError(f"tune_rewrite: the {name} fleet launched "
-                             f"{launches} for {n_batches} device batches")
+        raise AssertionError(f"{name}: the fleet launched {launches} for "
+                             f"{n_batches} device batches")
 
 
 def tune_rewrite_phase(seed, card, workdir):
@@ -7652,7 +7699,7 @@ DP_LR = 2e-5
 # (mode, grad_accum_steps); "" is the implicit mode (one all-reduce).
 DP_RUNS = [("", 1), ("psum_bucketed", 1), ("psum_bucketed", 2),
            ("ordered", 2), ("fsdp", 1)]
-DP_PROFILE = (4, 6)          # the profiled steps of each (a) run
+DP_PROFILE = (4, 5)          # the profiled step of each (a) run
 DP_TWO_LAYERS = 2
 DP_TWO_STEPS = 4
 DP_TWO_BACKEND = "gloo"
@@ -8090,7 +8137,8 @@ def _dp_rank_worker(rank, world, backend, init_file, out_dir, seed, jobs):
                 rank=rank, timeout=datetime.timedelta(seconds=300))
         for name, kind, kwargs in jobs:
             job = {"bert": _dp_bert_job, "bn": _dp_bn_job,
-                   "world_of_one": dp_world_of_one}[kind]
+                   "world_of_one": dp_world_of_one, "sp": _sp_job,
+                   "ep": _ep_job}[kind]
             out[name] = job(seed, **kwargs)
     except BaseException:  # noqa: BLE001 (reported by the parent)
         out["error"] = traceback.format_exc()
@@ -8284,6 +8332,687 @@ def dp_two_ranks_phase(seed, card):
     return failures
 
 
+# ------------------------------------------ sequence and expert parallelism
+
+MOE_EXPERTS = 8              # Switch-Base-8: experts on the odd layers
+MOE_AUX_WEIGHT = 0.01        # the reference's loss: task + 0.01 x aux
+# One full-width MoE block on the card (bf16, the trained layer-1 block on
+# the input the training batch gives it) against the same block in f64 on
+# the CPU, over the first MOE_CHECK_ROWS rows (routing groups are rows, so
+# a row's output depends on its own tokens alone): the relative L2 error
+# of the output.  bf16 rounds the tokens, the weights and the expert
+# activations, about 2^-8 each; a token routed apart by a near-tie moves
+# its own row only.  A control routing each token to its second-best
+# expert must miss it.
+MOE_BLOCK_TOL = 3e-2
+MOE_CHECK_ROWS = 8
+MOE_SERVE_REQUESTS = 32
+LONG_SEQ = 2048              # bench.py's long-context leg
+LONG_BATCH = 4
+LONG_STEPS = 3
+LONG_LR = 1e-2               # SGD: a parameter's change is its gradients'
+EP_BATCH = 32
+# Two ranks against one process, SGD over LONG_STEPS steps, dropout 0:
+# the relative L2 distance of the parameter changes from the shared init,
+# and each step's relative loss gap, on both ranks.  The sequence runs
+# compute in f32 on both sides: in bf16 the two sides' GEMMs (a rank's
+# 1024-token blocks against the whole 2048) round apart by 3.9e-2, above
+# what dropping half the keys does at random init (attention near
+# uniform), so no control could be told.  Measured on one H100 80GB HBM3
+# (700 W) at --seed 0: ring 2.31e-5, Ulysses
+# 2.24e-5, the control (rank 0 drops the block of its last ring hop)
+# 2.17e-2, loss gaps 5.4e-7 and 8.3e-4; expert parallelism (bf16, one
+# nonzero expert output a token in each sum) 2.4e-7, its control (rank 1's
+# partial output left out of the combine) 0.365, loss gaps 0 and 6.8e-2.
+# Each tolerance sits near the geometric mean of the sound gap and the
+# control's.
+SP_CHANGE_TOL = 1e-3
+SP_LOSS_TOL = 1e-4
+EP_CHANGE_TOL = 1e-4
+EP_LOSS_TOL = 1e-4
+
+
+def moe_hparams(length=SEQ_LEN, dropout=0.1):
+    return {**DEFAULT_HPARAMS, "attn_impl": "flash", "max_len": length,
+            "num_classes": 2, "moe_experts": MOE_EXPERTS, "dropout_rate": dropout}
+
+
+def moe_loss_fn(model, batch, generator):
+    """The reference's MoE objective (tests/test_moe.py): cross-entropy
+    plus MOE_AUX_WEIGHT x the load-balancing loss of
+    ``apply_with_moe_aux``; ``moe_aux`` reported."""
+    features = {k: v for k, v in batch.items() if k != "label"}
+    logits, aux = tfm.apply_with_moe_aux(model, features, generator=generator)
+    loss = F.cross_entropy(logits.float(), batch["label"].long())
+    return loss + MOE_AUX_WEIGHT * aux, {"moe_aux": aux}
+
+
+def moe_run(hp, seed, batches, cost=False):
+    """train_loop over ``batches`` with ``moe_loss_fn`` and the fused AdamW;
+    returns (model, result, losses, moe_aux per step, {loss_fn calls,
+    captures, replays}, the attention launches of its steps)."""
+    losses, auxes = [], []
+    calls = {"loss_fn": 0, "captures": 0, "replays": 0}
+
+    def loss_fn(*args):
+        calls["loss_fn"] += 1
+        return moe_loss_fn(*args)
+
+    def counted(name, method):
+        def wrapper(self, *args, **kwargs):
+            calls[name] += 1
+            return method(self, *args, **kwargs)
+        return wrapper
+
+    def record(step, m):
+        losses.append(m["loss"])
+        auxes.append(m["moe_aux"])
+
+    # The launches of the steps alone: read before the loop counts a step's
+    # FLOPs (an eager forward and backward of its own).
+    launches = {}
+    loop_module = sys.modules[train_loop.__module__]
+    real_count = loop_module.count_step_flops
+
+    def counting(*args, **kwargs):
+        launches.update(by_record(counters()))
+        return real_count(*args, **kwargs)
+
+    graph = torch.cuda.CUDAGraph
+    with mock.patch.object(graph, "replay", counted("replays", graph.replay)), \
+            mock.patch.object(graph, "capture_begin",
+                              counted("captures", graph.capture_begin)), \
+            mock.patch.object(loop_module, "count_step_flops", counting):
+        model, result = train_loop(
+            loss_fn=loss_fn,
+            init_params_fn=functools.partial(bert_module.init_params_fn,
+                                             hyperparameters=hp),
+            optimizer=bert_module.adamw(TRAIN_LR), train_iter=iter(batches),
+            config=TrainLoopConfig(
+                train_steps=len(batches), batch_size=len(batches[0]["label"]),
+                log_every=1, window_steps=TRAIN_WINDOW, anchor_every=TRAIN_WINDOW,
+                seed=seed, collect_cost_analysis=cost),
+            metrics_cb=record, device=DEVICE)
+    if not cost:
+        launches.update(by_record(counters()))
+    return model, result, losses, auxes, calls, launches
+
+
+def moe_eager(hp, seed, batches):
+    """The steps of ``moe_run`` written out eagerly; (losses, model)."""
+    model = bert_module.init_params_fn(
+        torch.Generator().manual_seed(seed), batches[0], hyperparameters=hp)
+    model.to(DEVICE).train()
+    opt = bert_module.adamw(TRAIN_LR)(model.parameters())
+    losses = []
+    for s, batch in enumerate(batches):
+        dev_batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+        loss, _ = moe_loss_fn(model, dev_batch, step_generator(seed, s, DEVICE))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    return [x.item() for x in losses], model
+
+
+@contextlib.contextmanager
+def dense_in_place_of_flash():
+    """The port's attention layers run dense attention where they would
+    launch the flash kernel: the same weights, the reference's math."""
+    def dense(q, k, v, *, causal=False, kv_mask=None):
+        return dense_attention(q, k, v, causal=causal, kv_mask=kv_mask)
+
+    with mock.patch.object(tfm, "flash_attention", dense):
+        yield
+
+
+@contextlib.contextmanager
+def routing_recorded():
+    """Record every MoE layer's top-1 one-hot, in call order, into the
+    list this yields."""
+    chosen = []
+    real = tfm.MoEMlpBlock._route
+
+    def route(self, t):
+        out = real(self, t)
+        chosen.append(out[1])
+        return out
+
+    with mock.patch.object(tfm.MoEMlpBlock, "_route", route):
+        yield chosen
+
+
+@contextlib.contextmanager
+def routing_imposed(chosen):
+    """Every MoE layer routes as ``chosen`` (``routing_recorded``'s list,
+    in the same call order) says, with its own router probabilities for
+    the gates."""
+    real = tfm.MoEMlpBlock._route
+    queue = list(chosen)
+
+    def route(self, t):
+        probs, _, _, capacity = real(self, t)
+        sel = queue.pop(0)
+        place = (torch.cumsum(sel, dim=1) * sel).sum(dim=-1) - 1
+        return probs, sel, place, capacity
+
+    with mock.patch.object(tfm.MoEMlpBlock, "_route", route):
+        yield
+    if queue:
+        raise AssertionError(f"routing_imposed: {len(queue)} routings unused")
+
+
+def moe_block_f64(block, x, second_best=False):
+    """``block`` (an MoEMlpBlock) on ``x`` [b, l, d] in f64 on the CPU,
+    written out token by token: f32-free routing (the top expert, or the
+    second with ``second_best``), the capacity by queue position, the
+    gate-weighted tanh-gelu expert MLP."""
+    wr = block.router.weight.detach().double().cpu()
+    br = block.router.bias.detach().double().cpu()
+    wi = block.wi.detach().double().cpu()
+    wo = block.wo.detach().double().cpu()
+    t = x.detach().double().cpu()                       # one group a row
+    probs = torch.softmax(t @ wr.T + br, dim=-1)
+    expert = probs.argsort(dim=-1, descending=True)[..., 1 if second_best else 0]
+    gate = probs.gather(-1, expert[..., None])[..., 0]
+    e, l = probs.shape[-1], t.shape[1]
+    capacity = max(1, int(np.ceil(block.capacity_factor * l / e)))
+    sel = F.one_hot(expert, e)
+    place = (torch.cumsum(sel, dim=1) * sel).sum(-1) - 1
+    out = torch.zeros_like(t)
+    for j in range(e):
+        rows = (expert == j) & (place < capacity)
+        h = F.gelu(t[rows] @ wi[j], approximate="tanh")
+        out[rows] = gate[rows][:, None] * (h @ wo[j])
+    return out
+
+
+def moe_block_check(model, batch, card):
+    """The trained layer-1 MoE block on the card against ``moe_block_f64``
+    on the input the batch gives it (see MOE_BLOCK_TOL); its timing at the
+    main path's shape; the dispatch's kept share and tokens per expert."""
+    block = model.encoder.layers[1].moe
+    seen = {}
+    hook = block.register_forward_pre_hook(
+        lambda mod, args: seen.setdefault("x", args[0].detach().clone()))
+    model.eval()
+    with torch.no_grad():
+        bert_module.loss_fn(model, {k: torch.as_tensor(v, device=DEVICE)
+                                    for k, v in batch.items()}, None)
+    hook.remove()
+    x = seen["x"]
+    with torch.no_grad():
+        got = block(x).float().cpu()[:MOE_CHECK_ROWS]
+        ms = time_ms(lambda: block(x), iters=20, warmup=3)
+        routing = block.routing(x)
+    rows = x[:MOE_CHECK_ROWS]
+    want = moe_block_f64(block, rows)
+    err = float((got.double() - want).norm() / want.norm())
+    control = float((got.double() - moe_block_f64(block, rows, second_best=True)).norm()
+                    / want.norm())
+    per_expert = routing["tokens_per_expert"].cpu().tolist()
+    kept = float(routing["kept_share"])
+    print(f"moe_train block [{card}]: layer 1's MoE block ({MOE_EXPERTS} experts, "
+          f"capacity factor {block.capacity_factor}, bf16) on {tuple(x.shape)}: "
+          f"{ms:.3f} ms; rel L2 |card - f64 CPU| over {MOE_CHECK_ROWS} rows "
+          f"{err:.3e} (tol {MOE_BLOCK_TOL:g}); control, second-best expert: "
+          f"{control:.3e} (must exceed it); dispatch kept {kept:.4f}, dropped "
+          f"{1 - kept:.4f}; tokens per expert {per_expert}", flush=True)
+    if err > MOE_BLOCK_TOL:
+        raise AssertionError(f"moe_train: the MoE block on the card is {err:.3e} "
+                             "from its f64 version")
+    if control <= MOE_BLOCK_TOL:
+        raise AssertionError("moe_train: second-best routing stays within "
+                             "MOE_BLOCK_TOL: the block check cannot tell routing")
+
+
+def moe_replay_by_kind(model, seed, batch, iters=2):
+    """Device ms per replayed MoE step of ``model`` (a fresh AdamW) by kind
+    (GEMM, the attention kernels, routing and other elementwise work), from
+    torch.profiler over windows of TRAIN_WINDOW replays."""
+    model.train()
+    state = TrainState(step=0, model=model, seed=seed,
+                       optimizer=bert_module.adamw(TRAIN_LR)(model.parameters()))
+    runner = _TrainStep(state, moe_loss_fn, torch.device(DEVICE),
+                        torch.cuda.Stream(DEVICE))
+    dev_batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+    runner.run(dev_batch, 0)
+
+    def window(i):
+        for j in range(TRAIN_WINDOW):
+            runner.run(dev_batch, 1 + i * TRAIN_WINDOW + j)
+        torch.cuda.synchronize()
+
+    wall_ms, profiled_ms, busy_ms, by_name, _ = profiled(window, iters)
+    kinds = {"gemm": 0.0, "attention": 0.0, "routing and other": 0.0}
+    for name, us in by_name.items():
+        kind = ("attention" if re.search(r"flash_", name) else
+                "gemm" if re.search(r"gemm|nvjet|cutlass|xmma|cublas", name, re.I)
+                else "routing and other")
+        kinds[kind] += us / iters / TRAIN_WINDOW / 1e3
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"moe_train replay top kernel: "
+              f"{us / iters / TRAIN_WINDOW / 1e3:.3f} ms/step {name[:110]}",
+              flush=True)
+    return wall_ms / TRAIN_WINDOW, busy_ms / TRAIN_WINDOW, kinds
+
+
+def moe_train_phase(seed, n_steps, card):
+    """BERT-base-MoE (Switch-Base-8 layout) fine-tunes through train_loop,
+    one capture and replays.  Returns (the attention kernels' launches,
+    the trained state on the host)."""
+    hp = moe_hparams()
+    batches = training_batches(seed + 5, hp["vocab_size"], n_steps)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    model, result, losses, auxes, calls, launches = moe_run(hp, seed, batches,
+                                                            cost=True)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    experts = {n: p.detach().clone() for n, p in model.named_parameters()
+               if ".moe." in n}
+    eager_losses, eager_model = moe_eager(hp, seed, batches)
+    experts_equal = all(torch.equal(p, experts[n])
+                        for n, p in eager_model.named_parameters() if n in experts)
+    del eager_model
+    moe_block_check(model, batches[0], card)
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    wall_ms, busy_ms, kinds = moe_replay_by_kind(model, seed, batches[0])
+    del model
+    eps = result.anchored_examples_per_sec_per_chip
+    print(f"moe_train [{card}]: BERT-base-MoE ({MOE_EXPERTS} experts on the odd "
+          f"layers, capacity 1.25, d_model {hp['d_model']}, {hp['n_layers']} "
+          f"layers) bf16, dropout {hp['dropout_rate']}, flash attention, batch "
+          f"{TRAIN_BATCH} x {SEQ_LEN} ragged, fused AdamW {TRAIN_LR:g}, loss "
+          f"task + {MOE_AUX_WEIGHT:g} x aux, {result.steps_completed} steps in "
+          f"windows of {result.window_steps}", flush=True)
+    print("moe_train losses: " + " ".join(f"{x:.5f}" for x in losses), flush=True)
+    print("moe_train moe_aux: " + " ".join(f"{x:.4f}" for x in auxes), flush=True)
+    print(f"moe_train: {eps} examples/s/chip anchored over {result.anchor_windows} "
+          f"windows ({result.examples_per_sec_per_chip} whole-run); MFU "
+          f"{result.mfu} from counted FLOPs ({result.cost_analysis_flops_per_step} "
+          f"a step, {result.cost_analysis_source}); peak device memory "
+          f"{peak_bytes} bytes", flush=True)
+    print(f"moe_train: launches {launches} = {N_LAYERS} x {n_steps} steps "
+          f"expected for each, counted at replay; graph: {calls}, compiles "
+          f"after warm {result.compiles_after_warm}; against the same steps run "
+          f"eagerly: losses {'equal' if losses == eager_losses else 'DIFFER'} "
+          f"bit for bit, final expert weights "
+          f"{'equal' if experts_equal else 'DIFFER'} bit for bit", flush=True)
+    print(f"moe_train step [{card}] graph replay: host wall {wall_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms; device ms by kind: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in kinds.items()), flush=True)
+    if len(losses) != n_steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"moe_train: losses {losses}")
+    if min(auxes) < 1.0:
+        raise AssertionError(f"moe_train: moe_aux below 1: {auxes}")
+    want = {"flash_fwd": N_LAYERS * n_steps, "flash_bwd_dvec": N_LAYERS * n_steps,
+            "flash_bwd_dq": N_LAYERS * n_steps, "flash_bwd_dkv": N_LAYERS * n_steps,
+            "flash_decode": 0}
+    if launches != want:
+        raise AssertionError(f"moe_train: launches {launches}, want {want}")
+    if (calls != {"loss_fn": 3, "captures": 1, "replays": n_steps - 1}
+            or result.compiles_after_warm != 0):
+        raise AssertionError(f"moe_train: every step after the first must be a "
+                             f"replay of one capture: {calls}")
+    if losses != eager_losses or not experts_equal:
+        raise AssertionError("moe_train: the graph run differs from the same "
+                             "steps run eagerly")
+    return launches, state
+
+
+def moe_serving_phase(seed, card, workdir, state):
+    """The trained MoE payload exported through the BERT module and served
+    from the boot version's bucket graphs.  Returns the forward's
+    launches."""
+    hp = moe_hparams()
+    base = os.path.join(workdir, "bert_moe")
+    export_model(serving_model_dir=os.path.join(base, "1"), params=state,
+                 module_file=BERT_MODULE, hyperparameters=hp)
+    requests = make_requests(np.random.default_rng(seed + 23), MOE_SERVE_REQUESTS,
+                             hp["vocab_size"])
+    rows = [r for p in requests for r in p["instances"]]
+    ids = np.asarray([r["input_ids"] for r in rows])
+    mask = np.asarray([r["attention_mask"] for r in rows])
+    server = ModelServer("bert_moe", base, replicas=1, max_versions=2,
+                         max_batch_size=FLEET_BATCH, device="cuda")
+    fleet = server._fleet
+    try:
+        url = f"http://127.0.0.1:{server.start(port=0)}/v1/models/bert_moe:predict"
+        warm, _ = run_clients(url, requests[:1], n_procs=1, threads=1)
+        if warm[0][0] != 200:
+            raise AssertionError(f"moe_serving: warm-up answered {warm[0][0]}")
+        warm1 = dict(fleet.last_warm or {})
+        loaded = fleet.active_loaded()
+        buckets = warm1.get("buckets", [])
+        unequal = [b for b in buckets if not np.array_equal(
+            loaded.predict({"input_ids": ids[:b], "attention_mask": mask[:b]}),
+            eager(loaded, {"input_ids": ids[:b], "attention_mask": mask[:b]}))]
+        zero_counters()
+        batches0 = served_batches(fleet)
+        results, wall_s = run_clients(url, requests)
+        launches = counters()
+        n_batches = served_batches(fleet) - batches0
+        after_warm = loaded.aot.compiles_after_warm
+    finally:
+        server.stop()
+    if any(c != 200 for c, _, _ in results):
+        raise AssertionError("moe_serving: non-200 replies "
+                             f"{sorted({c for c, _, _ in results})}")
+    served = np.concatenate([np.asarray(reply["predictions"], np.float32)
+                             for _, reply, _ in results])
+
+    def predict(model, mask_rows):
+        return np.concatenate([
+            eager(model, {"input_ids": ids[i:i + 32],
+                          "attention_mask": mask_rows[i:i + 32]})
+            for i in range(0, len(rows), 32)])
+
+    # Dense attention under the flash step's routing: each MoE layer's
+    # top-1 choice recorded from the flash step and imposed on the dense
+    # one, so the comparison holds the attention kernel (a near-tie the
+    # two attentions round apart would send a token to another expert and
+    # move its row by far more than bf16 does).
+    with routing_recorded() as chosen:
+        flash_eager = predict(loaded, mask)
+    with routing_imposed(chosen), dense_in_place_of_flash():
+        want = predict(loaded, mask)
+    max_err = float(np.abs(flash_eager - want).max())
+    if served.shape != flash_eager.shape:
+        raise AssertionError(f"moe_serving: served {served.shape}, want "
+                             f"{flash_eager.shape}")
+    served_gap = np.abs(served - flash_eager).max(axis=-1)
+    shifted_gap = float(np.abs(served - np.roll(flash_eager, 1, axis=0)).max())
+    control_err = {
+        name: float(np.abs(predict(loaded, m) - want).max())
+        for name, m in (("mask dropped", np.ones_like(mask)),
+                        ("mask of the next row", np.roll(mask, 1, axis=0)))}
+    with dense_in_place_of_flash():
+        free = predict(loaded, mask)
+    free_err = float(np.abs(flash_eager - free).max())
+    del loaded
+    lat_ms = np.array([t for _, _, t in results]) * 1e3
+    print(f"moe_serving [{card}]: BERT-base-MoE payload through the BERT module, "
+          f"buckets {buckets} captured in {warm1.get('seconds', 0.0):.3f} s "
+          f"(fallback_warm {warm1.get('fallback_warm')}); each bucket's replay "
+          f"== eager bit for bit: {'yes' if not unequal else unequal}; "
+          f"{len(requests)} requests ({len(rows)} rows) in {n_batches} device "
+          f"batches, p50 {np.percentile(lat_ms, 50):.2f} ms, p99 "
+          f"{np.percentile(lat_ms, 99):.2f} ms, {len(rows) / wall_s:.1f} "
+          f"examples/s; launches {launches} ({N_LAYERS} x batches expected, "
+          f"credited per replay); compiles after warm {after_warm}", flush=True)
+    print(f"moe_serving: max |flash - dense| logit under the flash step's "
+          f"routing = {max_err:.3e} (tol {LOGIT_TOL:g}); controls: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in control_err.items())
+          + f" (each must exceed the tol); dense routing its own way: "
+          f"{free_err:.3e}; served replies against the eager flash step on "
+          f"32-row chunks: max {served_gap.max():.3e}, rows within "
+          f"{LOGIT_TOL:g}: {(served_gap <= LOGIT_TOL).mean():.4f} (every row "
+          f"must be); control, the replies shifted by one row: "
+          f"{shifted_gap:.3e} (must exceed the tol)", flush=True)
+    check_served_launches("moe_serving", launches, n_batches)
+    if unequal or after_warm != 0 or not buckets:
+        raise AssertionError(f"moe_serving: buckets {buckets}, unequal {unequal}, "
+                             f"compiles after warm {after_warm}")
+    if max_err > LOGIT_TOL or min(control_err.values()) <= LOGIT_TOL:
+        raise AssertionError("moe_serving: the served logits against dense "
+                             "attention (or a control) are off")
+    if served_gap.max() > LOGIT_TOL or shifted_gap <= LOGIT_TOL:
+        raise AssertionError(
+            f"moe_serving: served replies {served_gap.max():.3e} from the eager "
+            f"flash step (shifted control {shifted_gap:.3e}), tol {LOGIT_TOL:g}")
+    return launches["launches"]
+
+
+def long_hparams(impl):
+    return {**DEFAULT_HPARAMS, "attn_impl": impl, "max_len": LONG_SEQ,
+            "num_classes": 2, "dropout_rate": 0.0}
+
+
+def f32_compute(model):
+    """``model`` with every module's compute dtype f32 (its parameters are
+    f32 already)."""
+    for module in model.modules():
+        if isinstance(getattr(module, "dtype", None), torch.dtype):
+            module.dtype = torch.float32
+    return model
+
+
+def parallel_run(hp, seed, batches, mesh=None, batch_partition=None,
+                 loss_fn=bert_module.loss_fn, f32=False):
+    """train_loop with SGD (LONG_LR) over ``batches`` on ``mesh`` (in f32
+    compute with ``f32``); returns (the final whole model, per-step losses,
+    result, the initial parameters on the device; under expert parallelism
+    the rank's slice of the experts)."""
+    losses, start = [], {}
+    build = functools.partial(bert_module.init_params_fn, hyperparameters=hp,
+                              mesh=mesh)
+
+    def init(generator, batch):
+        model = build(generator, batch)
+        start.update({n: p.detach().to(DEVICE, copy=True)
+                      for n, p in model.named_parameters()})
+        return f32_compute(model) if f32 else model
+
+    model, result = train_loop(
+        loss_fn=loss_fn,
+        init_params_fn=init,
+        optimizer=lambda p: torch.optim.SGD(p, lr=LONG_LR),
+        train_iter=iter(batches),
+        config=TrainLoopConfig(train_steps=len(batches),
+                               batch_size=len(batches[0]["label"]), log_every=1,
+                               window_steps=1, seed=seed,
+                               batch_partition=batch_partition),
+        mesh=mesh, metrics_cb=lambda s, m: losses.append(m["loss"]), device=DEVICE)
+    return model, losses, result, start
+
+
+def change_gap(model, start, want_path):
+    """Relative L2 distance of ``model``'s parameter change from ``start``
+    to that of the state saved at ``want_path`` (the one-process run from
+    the same init), over every parameter, on the device.  An expert
+    parameter's start is the rank's slice: its whole init is the saved
+    run's own, gathered from its own rank's slices as the model is."""
+    want = torch.load(want_path, map_location=DEVICE, weights_only=True)
+    num = den = 0.0
+    for name, p in model.named_parameters():
+        base = start[name]
+        if base.shape != p.shape:   # an expert slice: gather the ranks' starts
+            from tpu_pipelines_torch.parallel.partition import all_gather_dim
+
+            base = all_gather_dim(base, 0, torch.distributed.group.WORLD)
+        d_got = (p.detach() - base).double()
+        d_want = (want[name] - base).double()
+        num += float((d_got - d_want).square().sum())
+        den += float(d_want.square().sum())
+    return (num / den) ** 0.5
+
+
+def _sums(model):
+    """Each parameter's f64 sum: two ranks holding the same model agree on
+    every one."""
+    return {n: float(p.detach().double().sum()) for n, p in model.named_parameters()}
+
+
+def long_batches(seed, n=LONG_STEPS):
+    return training_batches(seed + 29, DEFAULT_HPARAMS["vocab_size"], n,
+                            batch=LONG_BATCH, length=LONG_SEQ)
+
+
+def ep_batches(seed, n=LONG_STEPS):
+    return training_batches(seed + 31, DEFAULT_HPARAMS["vocab_size"], n,
+                            batch=EP_BATCH)
+
+
+def _sp_job(seed, *, impl, want_path, control=False):
+    """One rank of BERT-base at L = LONG_SEQ split over seq = 2
+    (``long_context_batch_partition``) with ``impl`` attention.  The
+    control: rank 0 drops the block of its last ring hop."""
+    import torch.distributed as dist
+
+    from tpu_pipelines_torch.parallel import ring_attention as ra
+    from tpu_pipelines_torch.parallel.mesh import make_mesh
+
+    zero_counters()
+    mesh = make_mesh({"data": 1, "seq": 2}, device=DEVICE)
+    hp = long_hparams(impl)
+    batches = long_batches(seed)
+    bp = ra.long_context_batch_partition(batches[0], mesh)
+    real = ra._scores
+
+    def dropping_last_hop(q, k, *, kv_offset, **kw):
+        s = real(q, k, kv_offset=kv_offset, **kw)
+        if dist.get_rank() == 0 and kv_offset == q.shape[1]:
+            # Still in the graph: every rank's received K/V block must take
+            # a gradient, or the ring's backward exchanges would part.
+            s = s.masked_fill(torch.ones_like(s, dtype=torch.bool), ra.NEG_INF)
+        return s
+
+    t0 = time.perf_counter()
+    with (mock.patch.object(ra, "_scores", dropping_last_hop) if control
+          else contextlib.nullcontext()):
+        model, losses, result, start = parallel_run(hp, seed, batches, mesh, bp,
+                                                    f32=True)
+    seconds = time.perf_counter() - t0
+    return {"losses": losses, "sums": _sums(model), "seconds": seconds,
+            "gap": change_gap(model, start, want_path),
+            "step_capture": result.step_capture, "batch_partition": bp,
+            "launches": by_record(counters())}
+
+
+def _ep_job(seed, *, want_path, control=False):
+    """One rank of BERT-base-MoE at L = SEQ_LEN over expert = 2 (4 of the
+    8 experts a rank).  The control: rank 1's partial output is left out
+    of the combine."""
+    import torch.distributed as dist
+
+    from tpu_pipelines_torch.parallel import collectives
+    from tpu_pipelines_torch.parallel.mesh import make_mesh
+
+    zero_counters()
+    mesh = make_mesh({"data": 1, "expert": 2}, device=DEVICE)
+    hp = moe_hparams(dropout=0.0)
+    batches = ep_batches(seed)
+    real = collectives.leave_partial
+
+    def leaving_rank_1_out(x, group):
+        return real(x * 0 if dist.get_rank() == 1 else x, group)
+
+    t0 = time.perf_counter()
+    with (mock.patch.object(collectives, "leave_partial", leaving_rank_1_out)
+          if control else contextlib.nullcontext()):
+        model, losses, result, start = parallel_run(hp, seed, batches, mesh,
+                                                    loss_fn=moe_loss_fn)
+    seconds = time.perf_counter() - t0
+    return {"losses": losses, "sums": _sums(model), "seconds": seconds,
+            "gap": change_gap(model, start, want_path),
+            "step_capture": result.step_capture, "launches": by_record(counters())}
+
+
+def seq_expert_two_ranks_phase(seed, card):
+    """(c) Two ranks on the one card over gloo (the probe's exchanges:
+    all_to_all_single with uneven splits; NCCL refuses two ranks on one
+    device), each held against one process running the same steps:
+    BERT-base at L = LONG_SEQ over seq = 2 with ring and with Ulysses
+    (against flash in one process), and BERT-base-MoE over expert = 2
+    (against all 8 experts in one process).  Each rank's job counts its
+    own launches from zero: none for ring and Ulysses (their blocks are
+    plain torch), 12 x LONG_STEPS of each training kernel for EP.
+    Returns (the two ranks' launches summed over the ring, Ulysses and EP
+    jobs, the failures)."""
+    failures = []
+    tmp = tempfile.mkdtemp()
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        zero_counters()
+        t0 = time.perf_counter()
+        one_long, long_losses, long_result, _ = parallel_run(
+            long_hparams("flash"), seed, long_batches(seed), f32=True)
+        long_path = os.path.join(tmp, "long.pt")
+        torch.save({n: p.detach().cpu() for n, p in one_long.named_parameters()},
+                   long_path)
+        del one_long
+        one_ep, ep_losses, ep_result, _ = parallel_run(
+            moe_hparams(dropout=0.0), seed, ep_batches(seed), loss_fn=moe_loss_fn)
+        ep_path = os.path.join(tmp, "ep.pt")
+        torch.save({n: p.detach().cpu() for n, p in one_ep.named_parameters()},
+                   ep_path)
+        del one_ep
+        one_launches = by_record(counters())
+        one_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        jobs = [("ring", "sp", {"impl": "ring", "want_path": long_path}),
+                ("ulysses", "sp", {"impl": "ulysses", "want_path": long_path}),
+                ("ring_control", "sp", {"impl": "ring", "want_path": long_path,
+                                        "control": True}),
+                ("ep", "ep", {"want_path": ep_path}),
+                ("ep_control", "ep", {"want_path": ep_path, "control": True})]
+        t1 = time.perf_counter()
+        two = dp_spawn(2, DP_TWO_BACKEND, seed, jobs)
+        two_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+
+    print(f"seq_expert_two_ranks [{card}]: one process (captured, "
+          f"{long_result.step_capture}): BERT-base flash (f32) at {LONG_BATCH} x "
+          f"{LONG_SEQ}, losses " + " ".join(f"{x:.6f}" for x in long_losses)
+          + f"; BERT-base-MoE at {EP_BATCH} x {SEQ_LEN}, losses "
+          + " ".join(f"{x:.6f}" for x in ep_losses)
+          + f"; {one_s:.1f} s; launches {one_launches} (the one-process "
+          "runs', not the ranks')", flush=True)
+    print(f"seq_expert_two_ranks: two ranks over {DP_TWO_BACKEND} "
+          f"({two[0]['ring']['step_capture']}), {two_s:.1f} s", flush=True)
+    for name, want, change_tol, loss_tol in (
+            ("ring", long_losses, SP_CHANGE_TOL, SP_LOSS_TOL),
+            ("ulysses", long_losses, SP_CHANGE_TOL, SP_LOSS_TOL),
+            ("ring_control", long_losses, SP_CHANGE_TOL, SP_LOSS_TOL),
+            ("ep", ep_losses, EP_CHANGE_TOL, EP_LOSS_TOL),
+            ("ep_control", ep_losses, EP_CHANGE_TOL, EP_LOSS_TOL)):
+        r0, r1 = two[0][name], two[1][name]
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], want))
+        # Every gradient but an expert's own is averaged over seq and
+        # expert, so the ranks hold one model bit for bit.
+        apart = [n for n in r0["sums"] if r0["sums"][n] != r1["sums"][n]]
+        gap = max(r0["gap"], r1["gap"])
+        control = name.endswith("control")
+        print(f"seq_expert_two_ranks {name}: {r0['seconds']:.1f} s; losses "
+              f"equal on both ranks {r0['losses'] == r1['losses']}, parameters "
+              f"apart {apart[:3]}{' ...' if len(apart) > 3 else ''} "
+              f"({len(apart)}); losses " + " ".join(f"{x:.6f}" for x in r0["losses"])
+              + f"; max rel loss gap {loss_gap:.3e} (tol {loss_tol:g}); rel L2 "
+              f"of the parameter change against one process {r0['gap']:.3e} "
+              f"(rank 1 {r1['gap']:.3e}) "
+              f"(tol {change_tol:g}{', must exceed it' if control else ''}); "
+              f"rank launches {r0['launches']}", flush=True)
+        if r0["losses"] != r1["losses"] or apart:
+            failures.append(f"{name}: the two ranks disagree")
+        per_run = N_LAYERS * LONG_STEPS if name.startswith("ep") else 0
+        want_launches = {k: per_run for k in r0["launches"]}
+        want_launches["flash_decode"] = 0
+        for r, rank in enumerate((r0, r1)):
+            if rank["launches"] != want_launches:
+                failures.append(f"{name}: rank {r} launched {rank['launches']}, "
+                                f"want {want_launches}")
+        if not np.isfinite(r0["losses"]).all():
+            failures.append(f"{name}: losses {r0['losses']}")
+        if control and min(r0["gap"], r1["gap"]) <= change_tol:
+            failures.append(f"{name}: the control stays within {change_tol:g}")
+        if not control and (gap > change_tol or loss_gap > loss_tol):
+            failures.append(f"{name}: gap {gap:.3e}, loss gap {loss_gap:.3e}")
+    if two[0]["ring"]["batch_partition"] != {"input_ids": ("data", "seq"),
+                                             "attention_mask": ("data", "seq")}:
+        failures.append(f"batch_partition {two[0]['ring']['batch_partition']}")
+    launches = {k: sum(rank[name]["launches"][k] for rank in two
+                       for name in ("ring", "ulysses", "ep"))
+                for k in two[0]["ep"]["launches"]}
+    return launches, failures
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -8356,8 +9085,18 @@ def main(argv=None) -> int:
     phase_done("engine_levers")
     trained = training_phase(args.seed, args.train_steps, card)
     phase_done("training")
+    moe_trained, moe_state = moe_train_phase(args.seed, args.train_steps, card)
+    phase_done("moe_train")
+    with tempfile.TemporaryDirectory() as workdir:
+        moe_served = moe_serving_phase(args.seed, card, workdir, moe_state)
+    del moe_state
+    phase_done("moe_serving")
     dp_trained = dp_train_phase(args.seed, card)
     phase_done("dp_train")
+    sp_launches, sp_failures = seq_expert_two_ranks_phase(args.seed, card)
+    if sp_failures:
+        raise AssertionError("seq_expert_two_ranks: " + "; ".join(sp_failures))
+    phase_done("seq_expert_two_ranks")
     # The taxi DAG launches none of the attention kernels (its Transform
     # and model are plain torch): the counters stay where training left
     # them, and the phase checks so.
@@ -8429,6 +9168,13 @@ def main(argv=None) -> int:
                                        "dp_train": dp_trained["flash_bwd_dvec"]}
     for record in (fwd, *bwd):
         record["launches_by_path"]["dp_train"] = dp_trained[record["name"]]
+        record["launches_by_path"]["moe_train"] = moe_trained[record["name"]]
+        record["launches_by_path"]["seq_expert_two_ranks"] = sp_launches[
+            record["name"]]
+    bwd[0]["dvec_launches_by_path"]["moe_train"] = moe_trained["flash_bwd_dvec"]
+    bwd[0]["dvec_launches_by_path"]["seq_expert_two_ranks"] = sp_launches[
+        "flash_bwd_dvec"]
+    fwd["launches_by_path"]["moe_serving"] = moe_served
     fwd["launches_by_path"]["fleet_guard"] = guard
     fwd["launches_by_path"]["serving_surface"] = surface_fwd
     for path, counts in (("bert_dag", bert_dag), ("retrain_dag", retrain),

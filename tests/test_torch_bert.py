@@ -199,7 +199,29 @@ def test_init_bert_weights_is_seeded():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ring"):
-        port_bert.build_bert_model({**TINY, "attn_impl": "ring"})
-    with pytest.raises(NotImplementedError, match="moe"):
-        port_bert.build_bert_model({**TINY, "moe_experts": 2})
+    """"ring", "ulysses" and ``moe_experts`` were refused until A6a: on a
+    mesh of one process ring and Ulysses are dense attention (the
+    reference's ``n == 1`` branch), bit for bit, and ``moe_experts`` puts
+    an MoE MLP on the odd layers.  T5 on a seq mesh waits for A6b, and an
+    unknown attention raises."""
+    from tpu_pipelines_torch.models.t5 import build_t5_model
+    from tpu_pipelines_torch.parallel.mesh import DeviceMesh, make_mesh
+
+    batch = _torch_batch(_batch())
+    mesh = make_mesh(device="cpu")
+    dense = port_bert.init_bert_weights(
+        port_bert.build_bert_model({**TINY, "attn_impl": "dense"}),
+        torch.Generator().manual_seed(7)).eval()
+    for impl in ("ring", "ulysses"):
+        model = port_bert.build_bert_model({**TINY, "attn_impl": impl}, mesh=mesh)
+        model.load_state_dict(dense.state_dict())
+        assert torch.equal(model.eval()(batch), dense(batch))
+    moe = port_bert.build_bert_model({**TINY, "moe_experts": 2})
+    assert hasattr(moe.encoder.layers[1], "moe") and hasattr(moe.encoder.layers[0], "mlp")
+    assert tuple(moe.encoder.layers[1].moe.wi.shape) == (2, TINY["d_model"], TINY["d_ff"])
+    seq2 = DeviceMesh(None, 0, {"data": 1, "model": 1, "seq": 2, "expert": 1,
+                                "pipe": 1}, torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="A6b"):
+        build_t5_model({}, mesh=seq2)
+    with pytest.raises(ValueError, match="attn_impl 'sparse'"):
+        port_bert.build_bert_model({**TINY, "attn_impl": "sparse"})

@@ -370,13 +370,19 @@ def test_a_mesh_is_refused_naming_its_item(port_runs, tmp_path):
         serving_model_dir=str(tmp_path / "model"),
         model_run_dir=str(tmp_path / "run"), train_steps=1,
         hyperparameters=HP, mesh_config={"data": 2}, device="cpu")
-    # A mesh is ported (A5): two ranks do not cover a run of one process
-    # (the reference's error), and a model axis waits for A6.
+    # A mesh is ported (A5, A6a): two ranks do not cover a run of one
+    # process (the reference's error), nor do two on 'seq' or 'expert';
+    # a model or pipe axis waits for A6b.
     with pytest.raises(ValueError, match="does not cover 1 devices"):
         bert_module.run_fn(fn_args)
-    fn_args.mesh_config = {"model": 2}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-        bert_module.run_fn(fn_args)
+    for axis in ("seq", "expert"):
+        fn_args.mesh_config = {"data": 1, axis: 2}
+        with pytest.raises(ValueError, match="does not cover 1 devices"):
+            bert_module.run_fn(fn_args)
+    for axis in ("model", "pipe"):
+        fn_args.mesh_config = {axis: 2}
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A6b"):
+            bert_module.run_fn(fn_args)
 
 
 def test_vocab_size_comes_from_the_tokenizer_unless_pinned(port_runs,

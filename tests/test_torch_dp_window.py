@@ -501,9 +501,11 @@ def test_dp_collective_validation_and_env(monkeypatch):
         _one_process(dp_collective="fsdp", param_partition={"w1": ("model",)})
     with pytest.raises(ValueError, match="not divisible by grad_accum_steps 3"):
         _one_process(dp_collective="psum_bucketed", grad_accum_steps=3)
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="rides the implicit"):
         _one_process(dp_collective="psum_bucketed",
                      batch_partition={"x": ("data", "seq")})
+    _, result = _one_process(batch_partition={"x": ("data", "seq")})
+    assert result.steps_completed == 4
 
     monkeypatch.setenv("TPP_DP_COLLECTIVE", "ordered")
     assert effective_dp_collective(TrainLoopConfig(train_steps=1)) == "ordered"

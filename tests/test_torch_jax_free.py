@@ -138,6 +138,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
                    "examples.mnist_pipeline", "examples.resnet_module",
                    "examples.resnet_pipeline", "parallel.distributed",
                    "parallel.mesh", "parallel.partition",
+                   "parallel.collectives", "parallel.ring_attention",
                    "trainer.data_parallel", "serving.batching",
                    "observability.request_trace", "observability.federation",
                    "observability.metrics_history", "serving.grpc_server",
@@ -149,7 +150,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
             "dag_machinery_phase", "vision_train_phase",
             "vision_serving_phase", "vision_dag_phase",
             "dp_train_phase", "engine_levers_phase",
-            "serving_surface_phase"} <= set(report["phases"])
+            "serving_surface_phase", "moe_train_phase", "moe_serving_phase",
+            "seq_expert_two_ranks_phase"} <= set(report["phases"])
     leaked = [m for m in report["modules"]
               if _forbidden(m) or m.split(".")[0] in NOT_AT_IMPORT]
     assert leaked == []
@@ -158,7 +160,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
 DISTRIBUTED = r"""
 import json, sys
 import torch.distributed as dist
-from tpu_pipelines_torch.parallel import distributed, mesh, partition
+from tpu_pipelines_torch.parallel import (
+    collectives, distributed, mesh, partition, ring_attention)
 from tpu_pipelines_torch.trainer import data_parallel
 m = mesh.make_mesh({"data": 1}, device="cpu")
 print(json.dumps({"modules": sorted(sys.modules), "size": m.size,
@@ -167,8 +170,9 @@ print(json.dumps({"modules": sorted(sys.modules), "size": m.size,
 
 
 def test_torch_distributed_and_the_parallel_modules_load_no_jax():
-    """A fresh interpreter imports ``torch.distributed`` and the data-
-    parallel modules and makes a mesh: nothing of JAX or the reference."""
+    """A fresh interpreter imports ``torch.distributed``, the data-,
+    sequence- and expert-parallel modules (``parallel/collectives.py``
+    among them) and makes a mesh: nothing of JAX or the reference."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", DISTRIBUTED], cwd=REPO,

@@ -41,6 +41,8 @@ capture is the one test here that leaves the context in an unusual
 state).  Before them, a ResNet payload's bucket graphs replay its
 eval-mode step bit for bit and leave its running statistics as they
 were.  Between them, the
+MoE BERT's captured train steps and its payload's bucket graphs
+equal their eager runs bit for bit.  The
 crossover measurement of ``chip_smoke.py`` records both crossovers for
 the card's name, "auto" attention launches the kernels at or above a
 recorded crossover and nothing below it, and a continuous controller's
@@ -1087,6 +1089,81 @@ def test_graph_train_loop_equals_eager_steps_and_counts_launches_at_replay(cuda)
         assert torch.equal(p, q), name
 
 
+TINY_MOE = {**TINY_TRAIN, "moe_experts": 4}
+
+
+def _moe_loss_fn(model, batch, generator):
+    """The reference's MoE objective (tests/test_moe.py): cross-entropy
+    plus 0.01 x the load-balancing loss."""
+    import torch.nn.functional as F
+
+    from tpu_pipelines_torch.models.transformer import apply_with_moe_aux
+
+    features = {k: v for k, v in batch.items() if k != "label"}
+    logits, aux = apply_with_moe_aux(model, features, generator=generator)
+    loss = F.cross_entropy(logits.float(), batch["label"].long()) + 0.01 * aux
+    return loss, {"moe_aux": aux}
+
+
+def test_an_moe_graph_train_loop_equals_eager_steps(cuda):
+    """BERT with experts on its odd layers: the routing (argmax, cumsum,
+    one-hots against arange) reads nothing on the host, so the step is
+    captured once and replayed, and the replays equal the same steps run
+    eagerly bit for bit (losses and parameters, experts included)."""
+    import functools
+
+    from tpu_pipelines_torch.examples import bert_module
+    from tpu_pipelines_torch.trainer.train_loop import step_generator
+
+    batches = _train_batches(8)
+    init = functools.partial(bert_module.init_params_fn, hyperparameters=TINY_MOE)
+    model, result, losses = _graph_train(batches, loss_fn=_moe_loss_fn,
+                                         init_params_fn=init)
+    assert result.step_capture == "cuda_graph" and result.compiles_after_warm == 0
+    eager = init(torch.Generator().manual_seed(3), batches[0]).to(cuda).train()
+    opt = bert_module.adamw(1e-3)(eager.parameters())
+    eager_losses = []
+    for s, b in enumerate(batches):
+        loss, _ = _moe_loss_fn(
+            eager, {k: torch.as_tensor(v, device=cuda) for k, v in b.items()},
+            step_generator(3, s, cuda))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        eager_losses.append(loss.item())
+    assert losses == eager_losses
+    for (name, p), q in zip(model.named_parameters(), eager.parameters()):
+        assert torch.equal(p, q), name
+    assert "encoder.layers.1.moe.wi" in dict(model.named_parameters())
+
+
+def test_an_moe_payloads_bucket_graphs_replay_as_eager(cuda, tmp_path):
+    """An MoE BERT payload's bucket graphs (batch 1..8) give its eager
+    step's logits bit for bit, with no compile after warm-up."""
+    import os
+
+    import numpy as np
+
+    from tpu_pipelines_torch.examples import bert_module
+    from tpu_pipelines_torch.models.bert import build_bert_model, init_bert_weights
+    from tpu_pipelines_torch.serving import aot
+    from tpu_pipelines_torch.trainer.export import export_model, load_exported_model
+
+    hp = {**TINY_SERVE, "moe_experts": 4}
+    model = init_bert_weights(build_bert_model(hp), torch.Generator().manual_seed(0))
+    export_model(serving_model_dir=str(tmp_path / "1"), params=model.state_dict(),
+                 module_file=os.path.abspath(bert_module.__file__),
+                 hyperparameters=hp)
+    loaded = load_exported_model(str(tmp_path / "1"), device=cuda)
+    stats = aot.warm_loaded(loaded, _bert_rows(1, 0), 8)
+    assert stats["buckets"] == [1, 2, 4, 8] and stats["compiled"] == 4
+    for b in stats["buckets"]:
+        batch = _bert_rows(b, seed=b)
+        assert loaded.aot.lookup("raw", batch) is not None
+        assert np.array_equal(loaded.predict(batch), _eager(loaded, batch))
+    assert loaded.aot.compiles_after_warm == 0
+
+
 def test_a_graph_train_loop_captures_while_another_thread_works_the_card(cuda):
     """A serving fleet in the same process keeps launching and syncing on
     its own streams while the train loop captures its step (the continuous
@@ -1694,6 +1771,28 @@ def test_two_ranks_on_one_card_share_collectives_over_gloo_not_nccl(
     assert gloo == [{name: "ok" for name in w.PROBE_OPS}] * 2, gloo
     nccl = w.probe("nccl", str(tmp_path / "nccl"))
     assert all("error" in rank for rank in nccl), nccl
+
+
+def test_two_ranks_on_one_card_carry_the_sequence_and_expert_exchanges(
+        cuda, tmp_path):
+    """What chip_smoke's seq_expert_two_ranks phase rests on: two gloo
+    processes on the one card carry ``all_to_all_single`` with uneven
+    splits (zero-sized ones included) on CUDA tensors, with the right
+    values; ``batch_isend_irecv`` they do not (gloo's point-to-point sends
+    read a device pointer on the host: "Bad address", torch 2.11.0+cu128).
+    ``parallel/collectives.py`` builds its ring hop and its all-to-all on
+    ``all_to_all_single``, which NCCL runs as grouped sends and receives.
+    Each exchange runs in processes of its own (a refused send can take
+    its process down)."""
+    import torch_dp_worker as w
+
+    found = {op: w.probe("gloo", str(tmp_path / op), ops=(op,))
+             for op in w.EXCHANGE_OPS}
+    print("gloo exchanges on CUDA tensors:", found)
+    for op in ("all_to_all_single_uneven", "all_to_all_single_ring"):
+        assert found[op] == [{op: "ok"}] * 2, found
+    assert all(rank.get("batch_isend_irecv") != "ok"
+               for rank in found["batch_isend_irecv"]), found
 
 
 def test_a_capture_that_cannot_succeed_raises_instead_of_running_eagerly(cuda):

@@ -81,11 +81,24 @@ def test_make_mesh_of_one_process_and_the_a6_refusal():
     assert (mesh.group, mesh.rank, mesh.size, mesh.backend) == (None, 0, 1, "")
     assert mesh.shape == {"data": 1, "model": 1, "seq": 1, "expert": 1, "pipe": 1}
     assert port_mesh.make_mesh({"data": 1}, device="cpu").shape["data"] == 1
+    assert port_mesh.make_mesh({"seq": 1, "expert": 1}, device="cpu").world == 1
     with pytest.raises(ValueError, match="does not cover 1 devices"):
         port_mesh.make_mesh({"data": 2}, device="cpu")
-    for axis in ("model", "seq", "expert", "pipe"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+    # seq and expert are ported (A6a): two of them do not cover one process
+    # (the reference's error); model and pipe wait for A6b.
+    for axis in ("seq", "expert"):
+        with pytest.raises(ValueError, match="does not cover 1 devices"):
+            port_mesh.make_mesh({"data": 1, axis: 2}, device="cpu")
+    for axis in ("model", "pipe"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A6b"):
             port_mesh.make_mesh({axis: 2}, device="cpu")
+    # Ranks map to coordinates as the reference reshapes its devices: AXES
+    # order, row-major, the last axis fastest.
+    sizes = {"data": 2, "model": 1, "seq": 2, "expert": 2, "pipe": 1}
+    devices = np.arange(8).reshape([sizes[a] for a in ref_mesh.AXES])
+    for rank in range(8):
+        coords = port_mesh.coords_of(rank, sizes)
+        assert devices[tuple(coords[a] for a in ref_mesh.AXES)] == rank
 
 
 def _batch(rows, seed=0):
@@ -219,17 +232,29 @@ def test_tensor_parallel_rules_name_the_reference_leaves_and_wait_for_a6():
     assert all("not divisible by mesh axes ('model',) (size 3)" in p
                for p in problems)
 
-    # The train loop refuses them: fsdp shards over 'data' only, and the
-    # other modes keep parameters replicated (A6 for model parallelism).
+    # On a model axis of 1 every spec is replicated and the implicit mode
+    # takes them; fsdp shards over 'data' only, psum keeps parameters
+    # replicated; a model axis above 1 waits for A6b.
     from tpu_pipelines_torch.trainer.data_parallel import DataParallel
     from tpu_pipelines_torch.trainer.train_loop import TrainLoopConfig
 
-    for mode, match in (("fsdp", "'data' axis only.*A6"), ("", "A6")):
+    def build(mode, mesh):
+        return DataParallel.build(
+            TrainLoopConfig(train_steps=1, batch_size=8, dp_collective=mode,
+                            param_partition=partition),
+            mesh, model, mode, False)
+
+    assert build("", _port_mesh(1)).expert_dims == {}
+    assert port_part.effective_partition(partition, _port_mesh(1)) == {
+        name: () for name in partition}
+    for mode, match in (("fsdp", "'data' axis only.*A6b"),
+                        ("psum_bucketed", "keeps params replicated")):
         with pytest.raises(ValueError, match=match):
-            DataParallel.build(
-                TrainLoopConfig(train_steps=1, batch_size=8, dp_collective=mode,
-                                param_partition=partition),
-                _port_mesh(1), model, mode, False)
+            build(mode, port_mesh.DeviceMesh(None, 0, {**three, "model": 2},
+                                             torch.device("cpu")))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6b"):
+        build("", port_mesh.DeviceMesh(None, 0, {**three, "model": 2},
+                                       torch.device("cpu")))
 
 
 def test_t5_rules_over_the_port_names():

@@ -380,20 +380,27 @@ def test_unported_config_field_raises(field, value, item, tmp_path,
     were ported: each must now run and take effect
     (tests/test_torch_dp_window.py holds A5's to the reference over several
     processes, tests/test_torch_train_extras.py A11's).  In one process a
-    mesh of two does not cover it (the reference's error), and
-    ``batch_partition`` (sequence-partitioned inputs) is refused, naming
-    ROADMAP.md A6."""
+    mesh of two does not cover it (the reference's error), and a model axis
+    waits for ROADMAP.md A6b.  ``batch_partition`` (sequence-partitioned
+    inputs, A6a) runs in the implicit mode (held over several processes by
+    tests/test_torch_seq_parallel.py) and raises the reference's errors for
+    an explicit mode and for a key the batch lacks."""
     if item == "A5":
         if field == "batch_partition":
-            with pytest.raises(NotImplementedError,
-                               match=f"{field}.*ROADMAP.md A6"):
-                _run(1, steps=2, log_every=0, config={field: value})
+            with pytest.raises(ValueError, match="rides the implicit"):
+                _run(1, steps=2, log_every=0,
+                     config={field: value, "dp_collective": "ordered"})
+            with pytest.raises(ValueError, match=r"keys \['z'\] not in batch"):
+                _run(1, steps=2, log_every=0, config={field: {"z": None}})
+            _, result, _ = _run(1, steps=2, log_every=0, config={field: value})
+            assert result.steps_completed == 2
             return
         if field == "mesh_config":
             with pytest.raises(ValueError, match="does not cover 1 devices"):
                 _run(1, steps=2, log_every=0, config={field: value})
-            with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
-                _run(1, steps=2, log_every=0, config={field: {"model": 2}})
+            for axis in ("model", "pipe"):
+                with pytest.raises(NotImplementedError, match="ROADMAP.md A6b"):
+                    _run(1, steps=2, log_every=0, config={field: {axis: 2}})
             return
         mode = {"param_partition": "fsdp", "collective_buckets": "psum_bucketed",
                 "dp_grad_blocks": "ordered"}.get(field, "ordered")
@@ -449,11 +456,13 @@ def test_unported_arguments_and_missing_cuda_raise():
     # model without a floating-point buffer cannot hold any.
     with pytest.raises(ValueError, match="no floating-point buffer"):
         _run(1, steps=2, log_every=0, has_model_state=True)
-    # A mesh is ported (A5): one of two processes does not cover a run of
-    # one, and a model axis waits for ROADMAP.md A6.
+    # A mesh is ported (A5, A6a): one of two processes does not cover a
+    # run of one, and a model axis waits for ROADMAP.md A6b.
     with pytest.raises(ValueError, match="does not cover 1 devices"):
         _run(1, steps=2, log_every=0, mesh=make_mesh({"data": 2}, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6"):
+    with pytest.raises(ValueError, match="does not cover 1 devices"):
+        _run(1, steps=2, log_every=0, mesh=make_mesh({"data": 1, "seq": 2}, device="cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6b"):
         _run(1, steps=2, log_every=0, mesh=make_mesh({"model": 2}, device="cpu"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="'cuda'"):

@@ -238,6 +238,17 @@ def _bert_run_fn(*, examples, base_model, out_dir, hp, steps):
 SCENARIOS = {"run": _run, "grads": _one_step_grads, "bert": _bert_run_fn}
 
 
+def _scenario(kind):
+    """A scenario by kind: one of SCENARIOS, or "module:function" of a
+    module beside this one (tests/torch_sp_worker.py's)."""
+    if ":" not in kind:
+        return SCENARIOS[kind]
+    import importlib
+
+    module, _, fn = kind.partition(":")
+    return getattr(importlib.import_module(module), fn)
+
+
 def _rank(rank, world, init_file, out_dir, scenarios):
     torch.set_num_threads(1)
     results = {}
@@ -248,7 +259,7 @@ def _rank(rank, world, init_file, out_dir, scenarios):
         for name, kind, kwargs in scenarios:
             if kind == "grads":
                 kwargs = {**kwargs, "world": world}
-            results[name] = SCENARIOS[kind](**kwargs)
+            results[name] = _scenario(kind)(**kwargs)
     except BaseException:  # noqa: BLE001 (reported to the parent)
         results["__error__"] = traceback.format_exc()
     torch.save(results, os.path.join(out_dir, f"{rank}.pt.tmp"))
@@ -259,7 +270,8 @@ def _rank(rank, world, init_file, out_dir, scenarios):
 
 
 def spawn(world, scenarios, out_dir, timeout_s=300.0):
-    """Run ``scenarios`` (``[(name, kind, kwargs), ...]``) on ``world``
+    """Run ``scenarios`` (``[(name, kind, kwargs), ...]``; a kind is a key
+    of SCENARIOS or "module:function") on ``world``
     spawned ranks; returns each rank's ``{name: result}``.  The ranks are
     joined within ``timeout_s`` and killed past it (a hung collective
     fails the test instead of the suite)."""
@@ -300,6 +312,12 @@ def spawn(world, scenarios, out_dir, timeout_s=300.0):
 
 PROBE_OPS = ("all_reduce", "all_gather_into_tensor", "all_gather",
              "reduce_scatter_tensor", "broadcast")
+# The exchanges of sequence and expert parallelism
+# (tpu_pipelines_torch/parallel/collectives.py): an all-to-all with uneven
+# splits (zero-sized ones included, as a ring hop built on it sends to one
+# rank alone) and grouped point-to-point sends and receives around a ring.
+EXCHANGE_OPS = ("all_to_all_single_uneven", "all_to_all_single_ring",
+                "batch_isend_irecv")
 
 
 def _probe_collective(name, world, rank, dev):
@@ -324,6 +342,31 @@ def _probe_collective(name, world, rank, dev):
         out = torch.empty(2, device=dev)
         dist.reduce_scatter_tensor(out, x.repeat(world)[:2 * world].contiguous())
         want = every.sum().expand(2)
+    elif name == "all_to_all_single_uneven":
+        # rank r sends r + j + 1 values of 10 r + j to rank j
+        ins = range(world)
+        inp = torch.cat([torch.full((rank + j + 1,), float(10 * rank + j),
+                                    device=dev) for j in ins])
+        out = torch.empty(sum(j + rank + 1 for j in ins), device=dev)
+        dist.all_to_all_single(out, inp,
+                               output_split_sizes=[j + rank + 1 for j in ins],
+                               input_split_sizes=[rank + j + 1 for j in ins])
+        want = torch.cat([torch.full((j + rank + 1,), float(10 * j + rank),
+                                     device=dev) for j in ins])
+    elif name == "all_to_all_single_ring":
+        nxt, prev = (rank + 1) % world, (rank - 1) % world
+        out = torch.empty(4, device=dev)
+        dist.all_to_all_single(
+            out, x, output_split_sizes=[4 if j == prev else 0 for j in range(world)],
+            input_split_sizes=[4 if j == nxt else 0 for j in range(world)])
+        want = torch.full((4,), float(prev + 1), device=dev)
+    elif name == "batch_isend_irecv":
+        nxt, prev = (rank + 1) % world, (rank - 1) % world
+        out = torch.empty(4, device=dev)
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, nxt),
+                                           dist.P2POp(dist.irecv, out, prev)]):
+            req.wait()
+        want = torch.full((4,), float(prev + 1), device=dev)
     else:
         dist.broadcast(x, src=0)
         out, want = x, torch.ones(4, device=dev)
@@ -331,9 +374,10 @@ def _probe_collective(name, world, rank, dev):
     return "ok" if torch.equal(out, want) else f"wrong values {out.tolist()}"
 
 
-def _probe_rank(rank, world, backend, init_file, out_dir):
+def _probe_rank(rank, world, backend, init_file, out_dir, ops=PROBE_OPS):
     """One rank on device 0: joins a ``backend`` group and runs each of
-    PROBE_OPS, saving "ok" or the error of each to ``<rank>.pt``."""
+    ``ops``, saving "ok" or the error of each to ``<rank>.pt`` (a refused
+    collective is recorded and the next one tried)."""
     import torch.distributed as dist
 
     dev = torch.device("cuda", 0)
@@ -343,25 +387,30 @@ def _probe_rank(rank, world, backend, init_file, out_dir):
         dist.init_process_group(
             backend, init_method=f"file://{init_file}", world_size=world,
             rank=rank, timeout=datetime.timedelta(seconds=60))
-        for name in PROBE_OPS:
-            found[name] = _probe_collective(name, world, rank, dev)
+        for name in ops:
+            try:
+                found[name] = _probe_collective(name, world, rank, dev)
+            except Exception as e:  # noqa: BLE001 (what the backend refused)
+                if name in PROBE_OPS:
+                    raise
+                found[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:240]}"
     except Exception as e:  # noqa: BLE001 (what the backend refused)
         found["error"] = f"{type(e).__name__}: {str(e).splitlines()[0][:240]}"
     torch.save(found, os.path.join(out_dir, f"{rank}.pt"))
     os._exit(0)  # a refused NCCL communicator may hang its teardown
 
 
-def probe(backend, out_dir, world=2, timeout_s=120.0):
-    """Each rank's findings for ``world`` ranks of ``backend`` on device 0,
-    joined within ``timeout_s`` and killed past it (a rank that left
-    nothing reads ``{"error": ...}``)."""
+def probe(backend, out_dir, world=2, timeout_s=120.0, ops=PROBE_OPS):
+    """Each rank's findings for ``world`` ranks of ``backend`` on device 0
+    running ``ops``, joined within ``timeout_s`` and killed past it (a rank
+    that left nothing reads ``{"error": ...}``)."""
     import multiprocessing as mp
     import time
 
     os.makedirs(out_dir, exist_ok=True)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_probe_rank, args=(
-        r, world, backend, os.path.join(out_dir, "init"), out_dir))
+        r, world, backend, os.path.join(out_dir, "init"), out_dir, ops))
         for r in range(world)]
     for p in procs:
         p.start()

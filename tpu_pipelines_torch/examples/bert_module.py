@@ -21,6 +21,15 @@ data-parallel; rank 0 exports.  ``custom_config["train_loop"]``, a dict of
 extras, e.g. ``profile_dir``, ``tensorboard_dir``,
 ``collect_cost_analysis``, ``stall_timeout_s``, or ``checkpoint_every``),
 so a pipeline turns them on without a module of its own.
+
+A ``mesh`` with ``seq`` or ``expert`` above 1 is made here, as the
+reference's module makes it, and handed to ``build_bert_model`` (ring or
+Ulysses attention over ``seq`` on whole rows, the rank's experts over
+``expert``; ``moe_experts`` comes from the hyperparameters) and to the
+loop, with ``bert_partition_rules()`` as the partition when ``model`` or
+``seq`` is above 1 (its specs over axes of 1 replicate).  The loss stays
+the reference module's: the MoE load-balancing loss is not added, as the
+reference module does not add it.
 """
 
 import functools
@@ -35,6 +44,11 @@ from tpu_pipelines_torch.data.input_pipeline import (
     per_host_input_config,
 )
 from tpu_pipelines_torch.parallel.distributed import maybe_join_process_group
+from tpu_pipelines_torch.parallel.mesh import as_mesh_config, make_mesh
+from tpu_pipelines_torch.parallel.partition import (
+    bert_partition_rules,
+    make_param_partition,
+)
 from tpu_pipelines_torch.models.bert import (
     DEFAULT_HPARAMS,
     build_bert_model,
@@ -46,6 +60,7 @@ from tpu_pipelines_torch.trainer import (
     train_loop,
     warm_start_init,
 )
+from tpu_pipelines_torch.trainer.export import resolve_device
 
 LABEL = "label"
 
@@ -69,10 +84,13 @@ def init_params_fn(
     generator: torch.Generator,
     sample_batch: Dict[str, Any],
     hyperparameters: Optional[Dict[str, Any]] = None,
+    mesh: Any = None,
 ) -> torch.nn.Module:
     """A BERT classifier with BERT's initialisation drawn from
-    ``generator`` (bind ``hyperparameters`` with ``functools.partial``)."""
-    return init_bert_weights(build_bert_model(hyperparameters), generator)
+    ``generator`` (bind ``hyperparameters`` and ``mesh`` with
+    ``functools.partial``)."""
+    return init_bert_weights(build_bert_model(hyperparameters, mesh=mesh),
+                             generator)
 
 
 def loss_fn(model, batch, generator):
@@ -122,12 +140,23 @@ def run_fn(fn_args):
             hp["vocab_size"] = -(-sizes["input_ids"] // 64) * 64
     batch_size = int(hp["batch_size"])
     rank, world = maybe_join_process_group(fn_args.device)
+    sizes = vars(as_mesh_config(fn_args.mesh_config or None))
+    mesh, param_partition = None, None
+    shard = per_host_input_config(
+        InputConfig(batch_size=batch_size // world, shuffle=True, seed=0))
+    if any(sizes[a] != 1 for a in ("model", "seq", "expert", "pipe")):
+        mesh = make_mesh(fn_args.mesh_config, device=resolve_device(fn_args.device))
+        # The rows are dealt over 'data' alone: the ranks of one data
+        # coordinate read the same shard.
+        shard = per_host_input_config(
+            InputConfig(batch_size=batch_size // mesh.size, shuffle=True, seed=0),
+            process_index=mesh.rank, process_count=mesh.size)
+    if mesh is not None and (sizes["model"] > 1 or sizes["seq"] > 1):
+        with torch.device("meta"):
+            param_partition = make_param_partition(build_bert_model(hp),
+                                                   bert_partition_rules())
 
-    train_iter = BatchIterator(
-        fn_args.train_examples_uri, "train",
-        per_host_input_config(
-            InputConfig(batch_size=batch_size // world, shuffle=True, seed=0)),
-    )
+    train_iter = BatchIterator(fn_args.train_examples_uri, "train", shard)
 
     def eval_iter_fn():
         return BatchIterator(
@@ -139,7 +168,8 @@ def run_fn(fn_args):
     model, result = train_loop(
         loss_fn=loss_fn,
         init_params_fn=warm_start_init(
-            fn_args, functools.partial(init_params_fn, hyperparameters=hp)),
+            fn_args, functools.partial(init_params_fn, hyperparameters=hp,
+                                       mesh=mesh)),
         optimizer=adamw(hp["learning_rate"]),
         train_iter=train_iter,
         eval_iter_fn=eval_iter_fn,
@@ -150,9 +180,11 @@ def run_fn(fn_args):
             "checkpoint_every": max(1, fn_args.train_steps // 4),
             "log_every": max(1, fn_args.train_steps // 10),
             "mesh_config": fn_args.mesh_config or None,
+            "param_partition": param_partition,
             **((fn_args.custom_config or {}).get("train_loop") or {}),
         }),
         checkpoint_dir=fn_args.model_run_dir,
+        mesh=mesh,
         device=fn_args.device,
     )
 

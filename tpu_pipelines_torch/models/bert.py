@@ -3,10 +3,28 @@
 Post-LN, as the original BERT.  The three embeddings are gathered, cast to
 the compute dtype and summed in it; the pooler and the classifier head run
 in f32 on the [CLS] position.  Weights come from a flax tree through
-``models/convert.py`` or from :func:`init_bert_weights`.  Its tensor-
-parallel partition rules are ``parallel/partition.py``'s
-``bert_partition_rules`` (refused by the train loop until ROADMAP.md A6),
-and mixture-of-experts layers wait for the MoE port.
+``models/convert.py`` or from :func:`init_bert_weights`.  Its partition
+rules are ``parallel/partition.py``'s ``bert_partition_rules`` (the
+``expert`` specs hold; the tensor-parallel ``model`` ones wait for
+ROADMAP.md A6b).
+
+``moe_experts > 0`` makes every odd layer (the Switch convention) a
+mixture-of-experts MLP (``models/transformer.py``'s ``MoEMlpBlock``),
+expert-parallel over the mesh ``expert`` axis; the forward takes a
+``losses`` list its load-balancing losses go to (``apply_with_moe_aux``).
+
+On a mesh whose ``seq`` axis is above 1 and whose ``seq_split`` is set
+(a ``batch_partition`` over ``seq``), a rank's tokens are its block of
+the sequence: ``pos_embed`` reads the
+block's global positions, and the [CLS] row, which only the first ``seq``
+rank holds, is broadcast over ``seq`` before the pooler.  Every rank then
+computes the same pooler, head and loss: the objective is their sum, the
+broadcast's backward brings the sum of their gradients home to the first
+rank, and the encoder's exchanges carry it to every block, so the train
+loop's mean over ``seq`` of each rank's gradient is the single-device
+gradient (the replicated tail's own gradient is the same on every rank,
+the encoder's the sum of each rank's share).  Unset, a rank holds
+whole rows.
 """
 
 from __future__ import annotations
@@ -20,9 +38,11 @@ from torch import nn
 from tpu_pipelines_torch.models.transformer import (
     Dropout,
     LayerNorm,
+    MoEMlpBlock,
     TransformerBlock,
     _dense,
 )
+from tpu_pipelines_torch.parallel import collectives
 
 
 class BertEncoder(nn.Module):
@@ -39,13 +59,10 @@ class BertEncoder(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         attn_impl: str = "dense",
         moe_experts: int = 0,
+        mesh: Any = None,
     ):
         super().__init__()
-        if moe_experts:
-            raise NotImplementedError(
-                "moe_experts > 0: the mixture-of-experts MLP waits for the "
-                "parallel slice of the port"
-            )
+        self.mesh = mesh
         self.vocab_size = vocab_size
         self.dtype = dtype
         self.embed = nn.Embedding(vocab_size, d_model)
@@ -58,8 +75,9 @@ class BertEncoder(nn.Module):
                 d_model, n_heads, d_model // n_heads, d_ff,
                 dropout_rate=dropout_rate, dtype=dtype, attn_impl=attn_impl,
                 causal=False, prenorm=False,
+                moe_experts=moe_experts if i % 2 == 1 else 0, mesh=mesh,
             )
-            for _ in range(n_layers)
+            for i in range(n_layers)
         )
 
     def forward(
@@ -69,31 +87,46 @@ class BertEncoder(nn.Module):
         token_type_ids: Optional[torch.Tensor] = None,
         attention_mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        losses: Optional[list] = None,
     ) -> torch.Tensor:
         ids = input_ids.long()
         l = ids.shape[1]
         x = self.embed(ids).to(self.dtype)
-        pos = torch.arange(l, device=ids.device)
+        start = self.mesh.axis_rank("seq") * l if self._split() else 0
+        pos = torch.arange(start, start + l, device=ids.device)
         x = x + self.pos_embed(pos)[None].to(self.dtype)
         types = (torch.zeros_like(ids) if token_type_ids is None
                  else token_type_ids.long())
         x = x + self.type_embed(types).to(self.dtype)
         x = self.dropout(self.embed_norm(x), generator)
         for layer in self.layers:
-            x = layer(x, attention_mask, generator)
+            x = layer(x, attention_mask, generator, losses=losses)
         return x
+
+    def _split(self) -> bool:
+        return (self.mesh is not None and self.mesh.seq_split
+                and self.mesh.axis_size("seq") > 1)
+
+    def cls(self, x: torch.Tensor) -> torch.Tensor:
+        """The [CLS] row of the encoder's output ``x``: on a split
+        sequence, the first ``seq`` rank's, broadcast over ``seq``."""
+        if not self._split():
+            return x[:, 0]
+        return collectives.broadcast(x[:, 0], 0, self.mesh.axis_group("seq"))
 
 
 def _encode(
     encoder: BertEncoder,
     batch: Dict[str, Any],
     generator: Optional[torch.Generator],
+    losses: Optional[list] = None,
 ) -> torch.Tensor:
     return encoder(
         batch["input_ids"],
         token_type_ids=batch.get("token_type_ids"),
         attention_mask=batch.get("attention_mask"),
         generator=generator,
+        losses=losses,
     )
 
 
@@ -102,7 +135,8 @@ class BertClassifier(nn.Module):
 
     ``model(batch, generator=g)``: ``g`` feeds every dropout site in
     ``train()`` mode (flax ``rngs={"dropout": rng}``); serving runs in
-    ``eval()`` mode and needs none."""
+    ``eval()`` mode and needs none.  ``losses``: see the module
+    docstring."""
 
     def __init__(
         self, encoder: BertEncoder, num_classes: int = 2,
@@ -119,9 +153,11 @@ class BertClassifier(nn.Module):
         self,
         batch: Dict[str, Any],
         generator: Optional[torch.Generator] = None,
+        losses: Optional[list] = None,
     ) -> torch.Tensor:
-        x = _encode(self.encoder, batch, generator)
-        pooled = torch.tanh(_dense(x[:, 0].float(), self.pooler, torch.float32))
+        x = _encode(self.encoder, batch, generator, losses)
+        cls = self.encoder.cls(x)
+        pooled = torch.tanh(_dense(cls.float(), self.pooler, torch.float32))
         pooled = self.dropout(pooled, generator)
         return _dense(pooled, self.head, torch.float32)
 
@@ -141,8 +177,9 @@ class BertMLMHead(nn.Module):
         self,
         batch: Dict[str, Any],
         generator: Optional[torch.Generator] = None,
+        losses: Optional[list] = None,
     ) -> torch.Tensor:
-        x = _encode(self.encoder, batch, generator)
+        x = _encode(self.encoder, batch, generator, losses)
         x = F.gelu(_dense(x, self.mlm_dense, x.dtype), approximate="tanh")
         x = self.mlm_norm(x)
         return _dense(x, self.mlm_head, torch.float32)
@@ -168,7 +205,10 @@ DEFAULT_HPARAMS = {
 }
 
 
-def build_bert_model(hparams: Optional[Dict] = None) -> nn.Module:
+def build_bert_model(hparams: Optional[Dict] = None, mesh: Any = None) -> nn.Module:
+    """The reference's ``build_bert_model``; ``mesh`` (a ``DeviceMesh``)
+    places ring/Ulysses attention on its ``seq`` axis and the experts on
+    its ``expert`` axis."""
     hp = {**DEFAULT_HPARAMS, **(hparams or {})}
     encoder = BertEncoder(
         vocab_size=int(hp["vocab_size"]),
@@ -181,6 +221,7 @@ def build_bert_model(hparams: Optional[Dict] = None) -> nn.Module:
         dropout_rate=float(hp["dropout_rate"]),
         attn_impl=str(hp["attn_impl"]),
         moe_experts=int(hp.get("moe_experts", 0)),
+        mesh=mesh,
     )
     if hp["head"] == "mlm":
         return BertMLMHead(encoder)
@@ -196,9 +237,13 @@ def init_bert_weights(
     model: nn.Module, generator: torch.Generator, std: float = 0.02
 ) -> nn.Module:
     """BERT's initialisation, drawn from ``generator``: normal(0, ``std``)
-    for every Linear and Embedding weight, zero biases, unit LayerNorm."""
+    for every Linear and Embedding weight, zero biases, unit LayerNorm;
+    an MoE layer's experts keep the reference's fan-in init, drawn from
+    ``generator`` too (every expert rank draws all E and keeps its own)."""
     for module in model.modules():
-        if isinstance(module, (nn.Linear, nn.Embedding)):
+        if isinstance(module, MoEMlpBlock):
+            module.reset_parameters(generator)
+        elif isinstance(module, (nn.Linear, nn.Embedding)):
             module.weight.normal_(0.0, std, generator=generator)
             if getattr(module, "bias", None) is not None:
                 module.bias.zero_()

@@ -81,7 +81,10 @@ def _embed(node: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def bert_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``state_dict`` for ``BertClassifier`` or ``BertMLMHead`` from the
-    flax params tree of the same geometry."""
+    flax params tree of the same geometry.  An MoE layer's
+    ``moe/{router,wi,wo}`` keep their names; ``wi`` ``[E, d, ff]`` and
+    ``wo`` ``[E, ff, d]`` keep the flax layout, all E experts (a rank on
+    an ``expert`` axis loads its slice: ``MoEMlpBlock``)."""
     out: Dict[str, torch.Tensor] = {}
 
     def put(prefix: str, tensors: Dict[str, torch.Tensor]) -> None:
@@ -100,8 +103,13 @@ def bert_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tens
             put(f"{prefix}.attn.{proj}", _linear_in_heads(layer["attn"][proj]))
         put(f"{prefix}.attn.out", _linear_out_heads(layer["attn"]["out"]))
         put(f"{prefix}.attn_norm", _norm(layer["attn_norm"]))
-        put(f"{prefix}.mlp.wi", _linear(layer["mlp"]["wi"]))
-        put(f"{prefix}.mlp.wo", _linear(layer["mlp"]["wo"]))
+        if "moe" in layer:
+            moe = layer["moe"]
+            put(f"{prefix}.moe.router", _linear(moe["router"]))
+            put(f"{prefix}.moe", {"wi": _tensor(moe["wi"]), "wo": _tensor(moe["wo"])})
+        else:
+            put(f"{prefix}.mlp.wi", _linear(layer["mlp"]["wi"]))
+            put(f"{prefix}.mlp.wo", _linear(layer["mlp"]["wo"]))
         put(f"{prefix}.mlp_norm", _norm(layer["mlp_norm"]))
     for name in ("pooler", "head", "mlm_dense", "mlm_head"):
         if name in params:

@@ -16,7 +16,8 @@ module's own tensors run the module as it is, any other dict runs it
 through ``torch.func.functional_call``.  The decode contract's ``verify``
 scores a ``[b, q]`` window of fed tokens in one decoder pass (the
 speculative-decoding verify); ``t5_partition_rules`` is in
-``parallel/partition.py`` (its tensor-parallel specs wait for A6).
+``parallel/partition.py`` (its tensor-parallel specs wait for A6b, and so
+does T5 on a ``seq`` or ``expert`` mesh: ``build_t5_model`` raises).
 """
 
 from __future__ import annotations
@@ -260,7 +261,14 @@ DEFAULT_HPARAMS = {
 }
 
 
-def build_t5_model(hparams: Optional[Dict] = None) -> T5:
+def build_t5_model(hparams: Optional[Dict] = None, mesh: Any = None) -> T5:
+    """The reference's ``build_t5_model``.  A ``mesh`` with any axis but
+    ``data`` above 1 raises ``NotImplementedError`` (ROADMAP.md A6b)."""
+    if mesh is not None:
+        others = {a: n for a, n in mesh.shape.items() if a != "data" and n > 1}
+        if others:
+            raise NotImplementedError(
+                f"T5 on mesh axes {others} is not ported yet (ROADMAP.md A6b)")
     hp = {**DEFAULT_HPARAMS, **(hparams or {})}
     return T5(
         vocab_size=int(hp["vocab_size"]),

@@ -36,13 +36,32 @@ verify window: row i's q keys are written at ``pos[i] + arange(q)`` and
 query j sees the cache positions ``<= pos[i] + j`` through a ``[b, 1, q,
 kv]`` additive bias.  It runs dense, as the reference's does (the
 flash-decode kernel takes one query), and is built from device tensors
-only, so it can be captured.  Ring/Ulysses attention and the
-mixture-of-experts MLP wait for their slices.
+only, so it can be captured.
+
+On a mesh whose ``seq`` axis is above 1, self-attention without a bias
+takes "ring" or "ulysses" (``parallel/ring_attention.py``), and "auto"
+picks the ring from ``RING_MIN_SEQ`` tokens on (:func:`choose_attn_impl`).
+Which tokens a rank holds is the mesh's ``seq_split``:
+
+  - set (a ``batch_partition`` over ``seq``, the long-context train
+    loop): a rank holds its block of the sequence; ring and Ulysses run
+    on the blocks, and "dense" or "flash" gather K, V and the key mask
+    over ``seq`` and attend globally, as XLA does for the reference;
+  - unset (the BERT Trainer module on a ``seq`` mesh): a rank holds
+    whole rows; ring and Ulysses take the rank's block of them and
+    gather the output over ``seq``, and "dense" or "flash" attend
+    locally.
+
+``MoEMlpBlock`` is the Switch mixture-of-experts MLP (top-1 routing with
+a capacity, the aux loss returned through the forward); on an ``expert``
+axis a rank holds its slice of the experts and the whole group's tokens.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import math
+import os
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -53,7 +72,14 @@ from tpu_pipelines_torch.ops.flash_attention import (
     flash_attention,
     flash_decode_attention,
 )
-from tpu_pipelines_torch.parallel.ring_attention import NEG_INF, dense_attention
+from tpu_pipelines_torch.parallel import collectives
+from tpu_pipelines_torch.parallel.ring_attention import (
+    NEG_INF,
+    check_divisible,
+    dense_attention,
+    ring_attention,
+    ulysses_attention,
+)
 
 # Dense attention's O(L^2) temporaries, estimated as
 #   DENSE_ATTN_TEMP_FACTOR * B * H * Lq * Lkv * itemsize
@@ -65,6 +91,10 @@ DENSE_ATTN_HBM_FRACTION = 0.4
 # Memory assumed for a device that reports none (the CPU), as the reference
 # assumes when its backend reports nothing.
 FALLBACK_DEVICE_MEMORY_BYTES = 16 * 1024**3
+# Long-context gate for "auto" on a mesh whose 'seq' axis is above 1:
+# self-attention at or above this length rides ring attention.  Override
+# per process with TPP_RING_MIN_SEQ.
+RING_MIN_SEQ = 2048
 
 
 def _device_memory_bytes(device: Optional[torch.device]) -> int:
@@ -105,12 +135,23 @@ def choose_attn_impl(
     seq_kv: int,
     itemsize: int = 2,
     device: Optional[torch.device] = None,
+    mesh: Any = None,
 ) -> str:
-    """The "auto" rule, the reference's: "flash" when dense attention's
-    temporaries do not fit on ``device``; else "flash" at or above the
-    crossover measured for the device's kind
-    (``autotune.lookup_crossover``); else "dense" (never measured, or
-    measured none: the kernel must earn the hot path)."""
+    """The "auto" rule, the reference's: 0. "ring" on a ``mesh`` whose
+    ``seq`` axis is above 1 for self-attention (``seq_q == seq_kv``, the
+    global length) at or above ``TPP_RING_MIN_SEQ`` (default
+    ``RING_MIN_SEQ``) or whose dense temporaries do not fit; 1. "flash"
+    when dense attention's temporaries do not fit on ``device``; 2.
+    "flash" at or above the crossover measured for the device's kind
+    (``autotune.lookup_crossover``); 3. "dense" (never measured, or
+    measured none: the kernel must earn the hot path).  ``batch`` is this
+    rank's rows."""
+    if (mesh is not None and mesh.axis_size("seq") > 1
+            and seq_q == seq_kv):
+        floor = int(os.environ.get("TPP_RING_MIN_SEQ", RING_MIN_SEQ))
+        if seq_q >= floor or not dense_attn_fits(
+                batch, heads, seq_q, seq_kv, itemsize, device):
+            return "ring"
     if not dense_attn_fits(batch, heads, seq_q, seq_kv, itemsize, device):
         return "flash"
     crossover = autotune.lookup_crossover(autotune.current_device_kind(device))
@@ -244,9 +285,177 @@ class MlpBlock(nn.Module):
         return out
 
 
+# The Switch experts' init: flax variance_scaling(1.0, "fan_in",
+# "truncated_normal") per expert slice; the truncated normal's std is
+# divided by the std of a unit normal truncated to [-2, 2].
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+class MoEMlpBlock(nn.Module):
+    """Switch-Transformer mixture-of-experts MLP, the reference's
+    ``MoEMlpBlock``: top-1 routing with a fixed per-expert capacity, as
+    dense dispatch and combine einsums over a ``[G, g, e, c]`` one-hot.
+
+    The router runs in f32 with a bias; the expert is the argmax of its
+    softmax (the first on ties); ``capacity = max(1, ceil(cf * g / e))``
+    for groups of ``g = group_size`` tokens (0: the sequence length); a
+    token's place in its expert's queue is a cumsum over the group, and
+    tokens past the capacity are dropped (output zero; the residual
+    outside carries them).  The load-balancing loss ``e * sum_e
+    (fraction of tokens * mean router probability)`` (1 at perfect
+    balance) is appended to ``losses`` when one is handed down.
+
+    ``wi`` ``[E, d_model, d_ff]`` and ``wo`` ``[E, d_ff, d_model]`` keep
+    the flax layout and init (fan-in per expert, :meth:`reset_parameters`);
+    on a ``mesh`` whose ``expert`` axis is n > 1 they hold this rank's
+    E/n experts (see the module docstring), and a state dict of all E
+    experts loads into the rank's slice."""
+
+    def __init__(
+        self,
+        d_model: int,
+        num_experts: int,
+        d_ff: int,
+        *,
+        capacity_factor: float = 1.25,
+        dropout_rate: float = 0.0,
+        dtype: torch.dtype = torch.bfloat16,
+        group_size: int = 0,
+        mesh: Any = None,
+    ):
+        super().__init__()
+        self.num_experts = num_experts
+        self.capacity_factor = float(capacity_factor)
+        self.group_size = int(group_size)
+        self.dtype = dtype
+        n = mesh.axis_size("expert") if mesh is not None else 1
+        if num_experts % n:
+            raise ValueError(f"{num_experts} experts not divisible by mesh axis "
+                             f"expert={n}")
+        self.group = mesh.axis_group("expert") if n > 1 else None
+        self.local_experts = num_experts // n
+        self.first_expert = (mesh.axis_rank("expert") if n > 1 else 0) * self.local_experts
+        self.router = nn.Linear(d_model, num_experts)
+        self.wi = nn.Parameter(torch.empty(self.local_experts, d_model, d_ff))
+        self.wo = nn.Parameter(torch.empty(self.local_experts, d_ff, d_model))
+        self.dropout = Dropout(dropout_rate)
+        self.reset_parameters()
+        self._register_load_state_dict_pre_hook(self._take_local_experts)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        """The experts' fan-in truncated-normal init, all E drawn from
+        ``generator`` (so every expert rank draws the same) and this
+        rank's slice kept."""
+        for p in (self.wi, self.wo):
+            full = torch.empty((self.num_experts, *p.shape[1:]))
+            std = (1.0 / p.shape[1]) ** 0.5 / TRUNCATED_NORMAL_STD
+            nn.init.trunc_normal_(full, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            p.copy_(full[self.first_expert:self.first_expert + self.local_experts])
+
+    @torch.no_grad()
+    def gather_experts(self) -> None:
+        """Make the block whole: every rank's experts gathered over the
+        ``expert`` axis (a collective on every expert rank), so it holds
+        all E and computes alone."""
+        if self.group is None:
+            return
+        from tpu_pipelines_torch.parallel.partition import all_gather_dim
+
+        for p in (self.wi, self.wo):
+            p.data = all_gather_dim(p.data, 0, self.group)
+        self.group, self.local_experts, self.first_expert = None, self.num_experts, 0
+
+    def _take_local_experts(self, state_dict, prefix, *args):
+        for name in ("wi", "wo"):
+            key = prefix + name
+            t = state_dict.get(key)
+            if (t is not None and self.local_experts != self.num_experts
+                    and t.shape[0] == self.num_experts):
+                state_dict[key] = t[self.first_expert:
+                                    self.first_expert + self.local_experts]
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+        losses: Optional[List[torch.Tensor]] = None,
+    ) -> torch.Tensor:
+        b, l, d = x.shape
+        n, e = b * l, self.num_experts
+        g_size = self.group_size or l
+        if n % g_size:
+            raise ValueError(f"{n} tokens not divisible by MoE group_size {g_size}")
+        t = x.reshape(n // g_size, g_size, d)
+        probs, sel, pos_in_expert, capacity = self._route(t)
+        expert_gate = (probs * sel).sum(dim=-1)                # the top-1 prob
+        keep = (pos_in_expert >= 0) & (pos_in_expert < capacity)
+        slot = torch.where(keep, pos_in_expert, capacity)
+        slots = (slot[..., None] == torch.arange(capacity, device=x.device))
+        dispatch = sel.to(self.dtype)[..., None] * slots.to(self.dtype)[:, :, None, :]
+        lo, hi = self.first_expert, self.first_expert + self.local_experts
+        dispatch = dispatch[:, :, lo:hi]                       # [G, g, e_local, c]
+        tokens = collectives.enter_partial(t.to(self.dtype), self.group)
+        gate_in = collectives.enter_partial(expert_gate, self.group)
+        expert_in = torch.einsum("gnec,gnd->gecd", dispatch, tokens)
+        h = F.gelu(torch.einsum("gecd,edf->gecf", expert_in, self.wi.to(self.dtype)),
+                   approximate="tanh")
+        expert_out = torch.einsum("gecf,efd->gecd", h, self.wo.to(self.dtype))
+        combine = dispatch * gate_in.to(self.dtype)[..., None, None]
+        out = torch.einsum("gnec,gecd->gnd", combine, expert_out)
+        out = collectives.leave_partial(out, self.group)
+        if losses is not None:
+            frac_tokens = sel.float().mean(dim=(0, 1))         # [e]
+            frac_probs = probs.mean(dim=(0, 1))                # [e]
+            losses.append(e * torch.sum(frac_tokens * frac_probs))
+        return self.dropout(out.reshape(b, l, d), generator)
+
+    def _route(self, t: torch.Tensor):
+        """Router probabilities ``[G, g, e]`` (f32), the top-1 one-hot
+        ``sel`` (int32), each token's 0-based place in its expert's queue
+        and the capacity."""
+        g_size, e = t.shape[1], self.num_experts
+        probs = torch.softmax(_dense(t, self.router, torch.float32), dim=-1)
+        expert = probs.argmax(dim=-1)                          # [G, g]
+        sel = (expert[..., None] == torch.arange(e, device=t.device)).to(torch.int32)
+        pos = torch.cumsum(sel, dim=1) * sel                   # 1-based where sel
+        capacity = max(1, math.ceil(self.capacity_factor * g_size / e))
+        return probs, sel, pos.sum(dim=-1) - 1, capacity
+
+    @torch.no_grad()
+    def routing(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """For reports: the tokens of ``x`` routed to each expert (before
+        the capacity) and the share the capacity keeps."""
+        b, l, d = x.shape
+        g_size = self.group_size or l
+        _, sel, pos, capacity = self._route(x.reshape(b * l // g_size, g_size, d))
+        return {"tokens_per_expert": sel.sum(dim=(0, 1)),
+                "kept_share": (pos < capacity).float().mean()}
+
+
+def apply_with_moe_aux(model: nn.Module, *args, **kwargs):
+    """``model(*args, **kwargs)`` and the sum of every MoE layer's
+    load-balancing loss (0.0 when the model has none): the reference's
+    ``apply_with_moe_aux``.  A loss function adds ``aux_weight * aux``:
+
+        logits, aux = apply_with_moe_aux(model, batch, generator=g)
+        loss = task_loss(logits) + 0.01 * aux
+    """
+    losses: List[torch.Tensor] = []
+    out = model(*args, losses=losses, **kwargs)
+    if losses:
+        return out, torch.stack(losses).sum()
+    return out, torch.zeros((), dtype=torch.float32, device=out.device)
+
+
+ATTN_IMPLS = ("dense", "flash", "ring", "ulysses", "auto")
+
+
 class MultiHeadAttention(nn.Module):
-    """Self- or cross-attention with ``attn_impl`` "dense", "flash" or
-    "auto".
+    """Self- or cross-attention with ``attn_impl`` "dense", "flash",
+    "ring", "ulysses" or "auto" (ring and Ulysses on a ``mesh`` whose
+    ``seq`` axis is above 1; see the module docstring).
 
     ``query``/``key``/``value`` hold the flax ``DenseGeneral`` kernels
     ``[d_model, H, Dh]`` as ``Linear(d_model, H*Dh)``; ``out`` holds
@@ -265,13 +474,12 @@ class MultiHeadAttention(nn.Module):
         dtype: torch.dtype = torch.bfloat16,
         attn_impl: str = "dense",
         causal: bool = False,
+        mesh: Any = None,
     ):
         super().__init__()
-        if attn_impl not in ("dense", "flash", "auto"):
-            raise NotImplementedError(
-                f"attn_impl {attn_impl!r}: the port has dense, flash and auto; "
-                "ring and ulysses wait for the parallel slice"
-            )
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {attn_impl!r}: one of {ATTN_IMPLS}")
+        self.mesh = mesh
         self.n_heads = n_heads
         self.head_dim = head_dim
         self.dtype = dtype
@@ -323,18 +531,62 @@ class MultiHeadAttention(nn.Module):
         src = x if is_self else x_kv
         k = self._heads(src, self.key)
         v = self._heads(src, self.value)
+        n_seq = self.mesh.axis_size("seq") if self.mesh is not None else 1
+        split = n_seq > 1 and is_self and self.mesh.seq_split
         impl = self.attn_impl
         if impl == "auto":
+            length = q.shape[1] * (n_seq if split else 1)
             impl = choose_attn_impl(
-                q.shape[0], self.n_heads, q.shape[1], k.shape[1],
-                q.element_size(), device=x.device,
+                q.shape[0], self.n_heads, length,
+                k.shape[1] * (n_seq if split else 1),
+                q.element_size(), device=x.device, mesh=self.mesh,
             )
-        if impl == "flash" and is_self and bias is None:
+        if impl in ("ring", "ulysses") and is_self and bias is None and n_seq > 1:
+            out = self._sequence_parallel(impl, q, k, v, kv_mask, split)
+        elif split:
+            out = self._split_global(impl, q, k, v, kv_mask, bias)
+        elif impl == "flash" and is_self and bias is None:
             out = flash_attention(q, k, v, causal=self.causal, kv_mask=kv_mask)
         else:
             out = dense_attention(q, k, v, causal=self.causal, kv_mask=kv_mask,
                                   bias=bias)
         return self.dropout(self._project_out(out), generator)
+
+    def _sequence_parallel(self, impl, q, k, v, kv_mask, split):
+        """Ring or Ulysses over ``seq``: on this rank's blocks when the
+        sequence is split, else on the rank's block of whole rows, the
+        output gathered over ``seq``."""
+        attend = ring_attention if impl == "ring" else ulysses_attention
+        mesh = self.mesh
+        if split:
+            return attend(q, k, v, mesh=mesh, causal=self.causal, kv_mask=kv_mask)
+        check_divisible(q.shape[1], mesh)
+        n, r = mesh.axis_size("seq"), mesh.axis_rank("seq")
+        blk = q.shape[1] // n
+
+        def block(t):
+            return None if t is None else t.narrow(1, r * blk, blk)
+
+        out = attend(block(q), block(k), block(v), mesh=mesh, causal=self.causal,
+                     kv_mask=block(kv_mask))
+        return collectives.all_gather(out, 1, mesh.axis_group("seq"))
+
+    def _split_global(self, impl, q, k, v, kv_mask, bias):
+        """"dense" or "flash" on a split sequence: q, k, v and the key mask
+        gathered over ``seq``, attention over the whole sequence, and this
+        rank's block of the output (the flash kernels take one length for
+        queries and keys)."""
+        if bias is not None:
+            raise NotImplementedError(
+                "an additive attention bias on a sequence split over 'seq'")
+        group = self.mesh.axis_group("seq")
+        blk, r = q.shape[1], self.mesh.axis_rank("seq")
+        q, k, v = (collectives.all_gather(t, 1, group) for t in (q, k, v))
+        if kv_mask is not None:
+            kv_mask = collectives.all_gather(kv_mask, 1, group)
+        attend = flash_attention if impl == "flash" else dense_attention
+        out = attend(q, k, v, causal=self.causal, kv_mask=kv_mask)
+        return out.narrow(1, r * blk, blk)
 
     def _decode_cross(self, q, x_kv, enc_mask, cache, prefix):
         """Cross-attention in a decode step: the encoder output is the same
@@ -409,8 +661,9 @@ class MultiHeadAttention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre- or post-norm block: self-attention [+ cross-attention] + MLP,
-    with LayerNorm (BERT) or RMSNorm (T5)."""
+    """Pre- or post-norm block: self-attention [+ cross-attention] + MLP
+    (an :class:`MoEMlpBlock` of ``moe_experts`` experts when above 0), with
+    LayerNorm (BERT) or RMSNorm (T5)."""
 
     def __init__(
         self,
@@ -427,6 +680,9 @@ class TransformerBlock(nn.Module):
         use_cross: bool = False,
         norm: str = "layernorm",
         mlp_dropout_site: str = "output",
+        moe_experts: int = 0,
+        moe_capacity_factor: float = 1.25,
+        mesh: Any = None,
     ):
         super().__init__()
         if norm not in ("layernorm", "rmsnorm"):
@@ -436,19 +692,26 @@ class TransformerBlock(nn.Module):
         self.use_cross = use_cross
         self.attn = MultiHeadAttention(
             d_model, n_heads, head_dim, dropout_rate=dropout_rate,
-            dtype=dtype, attn_impl=attn_impl, causal=causal,
+            dtype=dtype, attn_impl=attn_impl, causal=causal, mesh=mesh,
         )
         self.attn_norm = norm_cls(d_model, dtype)
         if use_cross:
             self.cross = MultiHeadAttention(
                 d_model, n_heads, head_dim, dropout_rate=dropout_rate,
-                dtype=dtype, attn_impl=attn_impl, causal=False,
+                dtype=dtype, attn_impl=attn_impl, causal=False, mesh=mesh,
             )
             self.cross_norm = norm_cls(d_model, dtype)
-        self.mlp = MlpBlock(
-            d_model, d_ff, dropout_rate=dropout_rate, dtype=dtype,
-            dropout_site=mlp_dropout_site,
-        )
+        if moe_experts > 0:
+            # The reference's module name: ``layer_i/moe``.
+            self.moe = MoEMlpBlock(
+                d_model, moe_experts, d_ff, capacity_factor=moe_capacity_factor,
+                dropout_rate=dropout_rate, dtype=dtype, mesh=mesh,
+            )
+        else:
+            self.mlp = MlpBlock(
+                d_model, d_ff, dropout_rate=dropout_rate, dtype=dtype,
+                dropout_site=mlp_dropout_site,
+            )
         self.mlp_norm = norm_cls(d_model, dtype)
 
     def _sub(self, x, norm, fn):
@@ -469,7 +732,9 @@ class TransformerBlock(nn.Module):
         max_decode_len: Optional[int] = None,
         cache: Optional[Dict[str, torch.Tensor]] = None,
         cache_prefix: str = "",
+        losses: Optional[List[torch.Tensor]] = None,
     ) -> torch.Tensor:
+        """``losses``: where an MoE MLP appends its load-balancing loss."""
         step = dict(decode_pos=decode_pos, cache=cache)
         x = self._sub(x, self.attn_norm, lambda h: self.attn(
             h, kv_mask, generator, bias=self_bias,
@@ -483,4 +748,7 @@ class TransformerBlock(nn.Module):
                 h, enc_mask, generator, x_kv=encoded,
                 cache_prefix=f"{cache_prefix}.cross", **step,
             ))
+        if hasattr(self, "moe"):
+            return self._sub(x, self.mlp_norm,
+                             lambda h: self.moe(h, generator, losses))
         return self._sub(x, self.mlp_norm, lambda h: self.mlp(h, generator))

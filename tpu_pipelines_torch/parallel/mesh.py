@@ -1,14 +1,21 @@
-"""The data-parallel mesh, the port of ``tpu_pipelines/parallel/mesh.py``.
+"""The mesh, the port of ``tpu_pipelines/parallel/mesh.py``.
 
-The reference's only scaling axis is synchronous data parallelism: batch
-rows sharded over the mesh's ``data`` axis, gradients reduced over it.
-Here the ``data`` axis is the ``torch.distributed`` process group, one
-process per device, and :func:`make_mesh` returns a :class:`DeviceMesh`:
-the group, this process's rank, the axis sizes and the device.  The other
-axes (``model``, ``seq``, ``expert``, ``pipe``) keep their names and
-default to 1; any of them above 1 raises ``NotImplementedError`` naming
-``ROADMAP.md`` A6, where tensor, sequence, expert and pipeline parallelism
-wait.
+One process per device.  :func:`make_mesh` lays the processes of the
+default group out on the reference's axes (``AXES``, row-major, the last
+axis fastest, as the reference reshapes its devices) and returns a
+:class:`DeviceMesh`: this process's coordinate on every axis, one process
+group per axis (the ranks that differ on that axis alone), the axis sizes
+and the device.  ``data`` shards batch rows (gradients averaged over it),
+``seq`` the sequence of a long-context batch (ring and Ulysses attention,
+``parallel/ring_attention.py``), ``expert`` the experts of a
+mixture-of-experts layer (``models/transformer.py``).  ``model`` and
+``pipe`` above 1 raise ``NotImplementedError`` naming ``ROADMAP.md`` A6b,
+where tensor and pipeline parallelism wait.
+
+Where a batch is sequence-split (``shard_batch`` with a partition naming
+``seq``, as the train loop does for ``batch_partition``), the mesh says so
+in ``DeviceMesh.seq_split``, which the model reads: set, a rank's token
+tensors hold its block of the sequence; unset (the default), whole rows.
 
 The reference's ``data_parallel_sharding`` and ``replicate`` have no
 counterpart: there are no global arrays to annotate.  Each process holds
@@ -24,6 +31,8 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from tpu_pipelines_torch.parallel.partition import spec_dim
 
 # Canonical axis names, in fixed order: data = batch/DP, model = tensor
 # parallelism, seq = sequence/context parallelism, expert = MoE expert
@@ -62,42 +71,79 @@ class MeshConfig:
 
 
 def refuse_unported_axes(sizes: Dict[str, int], what: str = "mesh") -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP.md A6 when an axis
-    other than ``data`` is above 1."""
-    others = {a: s for a, s in sizes.items() if a != "data" and s != 1}
+    """Raise ``NotImplementedError`` naming ROADMAP.md A6b when ``model``
+    or ``pipe`` is above 1."""
+    others = {a: s for a, s in sizes.items() if a in ("model", "pipe") and s != 1}
     if others:
         raise NotImplementedError(
-            f"{what} axes {others} are not ported yet (tensor, sequence, "
-            "expert and pipeline parallelism, ROADMAP.md A6); the port "
-            "shards the batch over 'data' only"
+            f"{what} axes {others} are not ported yet (tensor and pipeline "
+            "parallelism, ROADMAP.md A6b); the port shards over 'data', "
+            "'seq' and 'expert'"
         )
 
 
 @dataclasses.dataclass
 class DeviceMesh:
-    """The port's mesh: the process group over the ``data`` axis (None for
-    a run of one process with no group, whose collectives are the
-    identity), this process's rank in it, the axis sizes and this
-    process's device."""
+    """The port's mesh.  ``group`` and ``rank`` are the ``data`` axis's
+    process group (None where the axis holds this process alone and there
+    is no group, whose collectives are the identity) and this process's
+    coordinate on it; ``groups`` / ``coords`` hold every other axis's
+    group (None for an axis of 1) and coordinate; ``process_rank`` is the
+    rank in the default group.  ``seq_split``: the token tensors a model
+    sees hold this rank's block of the sequence (``shard_batch`` with a
+    partition naming ``seq``): positions are offset by the block's start,
+    the [CLS] row lives on the first ``seq`` rank, attention gathers or
+    rings its keys.  Unset, a rank holds whole rows.  The train loop sets
+    it for a run with a ``batch_partition`` over ``seq``."""
 
     group: Any
     rank: int
     shape: Dict[str, int]
     device: torch.device
+    groups: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    coords: Dict[str, int] = dataclasses.field(default_factory=dict)
+    process_rank: Optional[int] = None
+    seq_split: bool = False
 
     @property
     def size(self) -> int:
-        """The ``data`` axis: the number of processes."""
+        """The ``data`` axis: the number of processes a batch's rows are
+        dealt over."""
         return int(self.shape["data"])
 
     @property
-    def backend(self) -> str:
-        """The group's backend ("nccl", "gloo"), "" without a group."""
-        if self.group is None:
-            return ""
-        import torch.distributed as dist
+    def world(self) -> int:
+        """The number of processes of the mesh: every axis's size."""
+        return int(math.prod(int(v) for v in self.shape.values()))
 
-        return str(dist.get_backend(self.group))
+    def axis_size(self, axis: str) -> int:
+        return int(self.shape.get(axis, 1))
+
+    def axis_rank(self, axis: str) -> int:
+        """This process's coordinate on ``axis``."""
+        if axis == "data":
+            return self.rank
+        return int(self.coords.get(axis, 0))
+
+    def axis_group(self, axis: str) -> Any:
+        """The process group of ``axis`` (None: the identity)."""
+        if axis == "data":
+            return self.group
+        return self.groups.get(axis)
+
+    @property
+    def global_rank(self) -> int:
+        return self.rank if self.process_rank is None else self.process_rank
+
+    @property
+    def backend(self) -> str:
+        """The groups' backend ("nccl", "gloo"), "" without a group."""
+        for group in (self.group, *self.groups.values()):
+            if group is not None:
+                import torch.distributed as dist
+
+                return str(dist.get_backend(group))
+        return ""
 
 
 def as_mesh_config(config: Any) -> MeshConfig:
@@ -110,6 +156,50 @@ def as_mesh_config(config: Any) -> MeshConfig:
     return MeshConfig(**dict(config))
 
 
+def coords_of(rank: int, sizes: Dict[str, int]) -> Dict[str, int]:
+    """The coordinates of process ``rank`` on the axes: ``AXES`` order,
+    row-major, the last axis fastest (the reference's reshape)."""
+    out = {}
+    for axis in reversed(AXES):
+        n = int(sizes[axis])
+        out[axis] = rank % n
+        rank //= n
+    return {a: out[a] for a in AXES}
+
+
+def _axis_groups(sizes: Dict[str, int], rank: int, world_group: Any) -> Dict[str, Any]:
+    """One process group per axis above 1: the processes whose coordinates
+    differ on that axis alone.  ``dist.new_group`` is collective over the
+    default group, so every process creates every group, axis by axis in
+    ``AXES`` order and each axis's groups in rank order, and keeps its own;
+    an axis that spans every process is the default group itself."""
+    import torch.distributed as dist
+
+    world = math.prod(sizes.values())
+    every = [coords_of(r, sizes) for r in range(world)]
+    groups: Dict[str, Any] = {}
+    for axis in AXES:
+        n = int(sizes[axis])
+        if n == 1:
+            groups[axis] = None
+            continue
+        if n == world:
+            groups[axis] = world_group
+            continue
+        seen = []
+        for r in range(world):
+            key = tuple(v for a, v in every[r].items() if a != axis)
+            if key in seen:
+                continue
+            seen.append(key)
+            members = [q for q in range(world) if tuple(
+                v for a, v in every[q].items() if a != axis) == key]
+            group = dist.new_group(members)
+            if rank in members:
+                groups[axis] = group
+    return groups
+
+
 def make_mesh(config: Any = None, *, device: Any = "cuda",
               group: Any = None) -> DeviceMesh:
     """The mesh over ``group`` (default: the default process group when
@@ -117,9 +207,11 @@ def make_mesh(config: Any = None, *, device: Any = "cuda",
 
     ``device``: this process's device; a CUDA device without an index is
     the current one (``maybe_initialize_from_env`` set it to the local
-    rank's).  Raises ``NotImplementedError`` (ROADMAP.md A6) for an axis
-    other than ``data`` above 1, and the reference's ``ValueError`` when
-    the axes do not cover the processes."""
+    rank's).  Raises ``NotImplementedError`` (ROADMAP.md A6b) for ``model``
+    or ``pipe`` above 1, and the reference's ``ValueError`` when the axes
+    do not cover the processes.  Axes other than ``data`` above 1 need the
+    default group (their groups are made from it, collectively: every
+    process calls ``make_mesh`` with the same config)."""
     import torch.distributed as dist
 
     config = as_mesh_config(config)
@@ -134,7 +226,17 @@ def make_mesh(config: Any = None, *, device: Any = "cuda",
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return DeviceMesh(group=group, rank=rank, shape=sizes, device=dev)
+    if sizes["data"] == world:
+        return DeviceMesh(group=group, rank=rank, shape=sizes, device=dev,
+                          process_rank=rank)
+    if group is not dist.group.WORLD:
+        raise ValueError("a mesh with a 'seq' or 'expert' axis above 1 is "
+                         "made over the default process group")
+    groups = _axis_groups(sizes, rank, group)
+    coords = coords_of(rank, sizes)
+    return DeviceMesh(group=groups.pop("data"), rank=coords["data"],
+                      shape=sizes, device=dev, groups=groups, coords=coords,
+                      process_rank=rank)
 
 
 # Key under which shard_batch records row validity when it had to pad a
@@ -191,12 +293,45 @@ def local_rows(batch: Any, mesh: DeviceMesh, *, pad_to_mesh: bool = True) -> Any
     return rows(batch)
 
 
-def shard_batch(batch: Any, mesh: DeviceMesh, *, pad_to_mesh: bool = True) -> Any:
-    """This process's rows of a global host batch, as tensors on the
-    mesh's device: :func:`local_rows` (the reference's padding and mask),
-    then one copy to the device.  The processes' rows, concatenated in rank
-    order, are the reference's global (padded) arrays."""
+def sequence_block(batch: Dict[str, Any], mesh: DeviceMesh,
+                   partition: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """Each feature ``partition`` splits over ``seq`` cut to this rank's
+    contiguous block along that dim (host arrays or tensors); the others
+    whole.  The identity on a ``seq`` axis of 1."""
+    n = mesh.axis_size("seq")
+    if n == 1 or not partition:
+        return batch
+    r = mesh.axis_rank("seq")
+    out = dict(batch)
+    for key, spec in partition.items():
+        dim = spec_dim(tuple(spec or ()), "seq")
+        if dim is None or key not in out:
+            continue
+        x = out[key]
+        length = x.shape[dim]
+        if length % n:
+            raise ValueError(
+                f"batch feature {key!r}: dim {dim} of {tuple(x.shape)} not "
+                f"divisible by mesh axis seq={n}")
+        k = length // n
+        index = [slice(None)] * len(x.shape)
+        index[dim] = slice(r * k, (r + 1) * k)
+        out[key] = x[tuple(index)]
+    return out
+
+
+def shard_batch(batch: Any, mesh: DeviceMesh, *, pad_to_mesh: bool = True,
+                partition: Optional[Dict[str, Any]] = None) -> Any:
+    """This process's part of a global host batch, as tensors on the
+    mesh's device: its rows (:func:`local_rows`, the reference's padding
+    and mask), and, for the features ``partition`` (a ``batch_partition``:
+    key -> spec such as ``("data", "seq")``) splits over ``seq``, its
+    block of the sequence (:func:`sequence_block`); then one copy to the
+    device.  The processes' parts, concatenated in rank order along each
+    axis, are the reference's global (padded) arrays."""
     local = local_rows(batch, mesh, pad_to_mesh=pad_to_mesh)
+    if isinstance(local, dict):
+        local = sequence_block(local, mesh, partition)
 
     def put(x):
         return torch.from_numpy(np.ascontiguousarray(x)).to(mesh.device)

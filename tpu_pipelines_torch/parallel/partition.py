@@ -7,13 +7,19 @@ names), as the reference's ``PartitionSpec``; ``()`` is replicated.  Rule
 lists are ``(regex, spec)`` pairs, matched with ``re.search`` against the
 name, first match wins.
 
-The port shards over ``data`` only, for ``dp_collective="fsdp"``:
+Parameters are sharded over ``data`` for ``dp_collective="fsdp"``:
 :func:`gather_leaf` all-gathers a shard back to full size along its spec's
 dim inside the forward, and its backward is the reduce-scatter of the
-gradient (the transpose the reference gets from autodiff).  A spec naming
-another axis (the tensor-parallel rules :func:`bert_partition_rules` and
-:func:`t5_partition_rules`, over ``model``) waits for ``ROADMAP.md`` A6:
-the train loop refuses it.
+gradient (the transpose the reference gets from autodiff).  Over
+``expert`` the implicit mode takes the MoE rules (``moe.wi`` / ``moe.wo``
+over ``expert``): an MoE layer on an expert mesh holds its rank's experts
+already (``models/transformer.py``), and the train loop keeps their
+gradients on their rank and gathers them for checkpoints.  A spec entry
+naming an axis of size 1 is replicated (:func:`effective_spec`), so the
+reference's BERT module may pass :func:`bert_partition_rules` on a ``seq``
+mesh whose ``model`` axis is 1.  Specs over ``model`` or ``pipe`` above 1
+(tensor and pipeline parallelism) wait for ``ROADMAP.md`` A6b: the train
+loop refuses them (:func:`refuse_model_parallel`).
 """
 
 from __future__ import annotations
@@ -93,6 +99,32 @@ def fsdp_param_partition(params: Any, mesh, *, axis: str = "data") -> Dict[str, 
     return {name: spec_for(shape) for name, shape in _named_shapes(params).items()}
 
 
+def effective_spec(spec: Spec, mesh) -> Spec:
+    """``spec`` with every axis of size 1 on ``mesh`` dropped (replicated);
+    ``()`` when nothing is left."""
+    out = []
+    for entry in tuple(spec):
+        kept = tuple(a for a in _axes(entry) if int(mesh.shape.get(a, 1)) > 1)
+        out.append(None if not kept else kept[0] if len(kept) == 1 else kept)
+    return tuple(out) if any(e is not None for e in out) else ()
+
+
+def effective_partition(partition: Mapping[str, Spec], mesh) -> Dict[str, Spec]:
+    return {name: effective_spec(spec, mesh) for name, spec in partition.items()}
+
+
+def refuse_model_parallel(partition: Mapping[str, Spec]) -> None:
+    """``NotImplementedError`` naming ROADMAP.md A6b for specs (already
+    :func:`effective_spec`) over ``model`` or ``pipe``."""
+    bad = [f"{name}: {spec}" for name, spec in partition.items()
+           if any(a in ("model", "pipe") for e in spec for a in _axes(e))]
+    if bad:
+        raise NotImplementedError(
+            "param_partition specs over 'model' or 'pipe' above 1 are not "
+            "ported yet (tensor and pipeline parallelism, ROADMAP.md A6b):\n  "
+            + "\n  ".join(bad))
+
+
 def foreign_axis_paths(params: Any, partition: Mapping[str, Spec], *,
                        axis: str = "data") -> List[str]:
     """Parameter names whose spec names a mesh axis other than ``axis``:
@@ -154,8 +186,10 @@ def reduce_scatter_dim(full: torch.Tensor, dim: int, group) -> torch.Tensor:
     shape = list(full.shape)
     shape[dim] //= world
     if dim:
+        # [.., W, L/W, ..] -> [W * d0, ...]: rank blocks along dim 0, the
+        # layout gloo checks (NCCL reads only the element count).
         split = full.reshape(*shape[:dim], world, *shape[dim:])
-        full = split.movedim(dim, 0)
+        full = split.movedim(dim, 0).reshape(world * shape[0], *shape[1:])
     out = full.new_empty(shape)
     dist.reduce_scatter_tensor(out, full.contiguous(), group=group)
     return out
@@ -200,8 +234,15 @@ def shard_of(full: torch.Tensor, dim: Optional[int], mesh) -> torch.Tensor:
 
 # ---- rule tables over the port's names (the reference's
 # TRANSFORMER_PARTITION_RULES carried through models/convert.py's layouts:
-# a Linear weight is the flax kernel transposed, [out, in]).  Its MoE rules
-# have no port: the port has no MoE layer.
+# a Linear weight is the flax kernel transposed, [out, in]; the MoE
+# experts keep the flax layout, [E, d, ff] and [E, ff, d]).
+
+EXPERT_PARTITION_RULES: List[Tuple[str, Spec]] = [
+    # MoE experts over `expert` (EP), their ff dim over `model` (TP); the
+    # router replicates (tiny).
+    (r"\.moe\.wi$", ("expert", None, "model")),
+    (r"\.moe\.wo$", ("expert", "model", None)),
+]
 
 TRANSFORMER_PARTITION_RULES: List[Tuple[str, Spec]] = [
     (r"\.(query|key|value)\.weight$", ("model", None)),
@@ -209,15 +250,17 @@ TRANSFORMER_PARTITION_RULES: List[Tuple[str, Spec]] = [
     (r"\.cross\.out\.weight$", (None, "model")),
     (r"\.mlp\.wi\.weight$", ("model", None)),
     (r"\.mlp\.wo\.weight$", (None, "model")),
+    *EXPERT_PARTITION_RULES,
     # token embeddings only (vocab dim); positional/type tables replicate.
     (r"(^|\.)(embed|shared)\.weight$", ("model", None)),
 ]
 
 
 def bert_partition_rules() -> List[Tuple[str, Spec]]:
-    """Tensor-parallel rules of ``tpu_pipelines/models/bert.py`` over the
-    port's names (first match wins).  They name ``model``: the train loop
-    refuses them until ROADMAP.md A6."""
+    """The rules of ``tpu_pipelines/models/bert.py`` over the port's names
+    (first match wins).  Their ``expert`` specs hold; their ``model`` specs
+    are replicated on a ``model`` axis of 1 and refused above it
+    (ROADMAP.md A6b)."""
     return list(TRANSFORMER_PARTITION_RULES) + [
         (r"(^|\.)mlm_head\.weight$", ("model", None)),
     ]
@@ -225,7 +268,8 @@ def bert_partition_rules() -> List[Tuple[str, Spec]]:
 
 def t5_partition_rules() -> List[Tuple[str, Spec]]:
     """Tensor-parallel rules of ``tpu_pipelines/models/t5.py`` over the
-    port's names; refused like :func:`bert_partition_rules`."""
+    port's names; their ``model`` specs are refused above 1 like
+    :func:`bert_partition_rules`."""
     return list(TRANSFORMER_PARTITION_RULES) + [
         (r"\.rel_pos\.rel_embedding$", (None, "model")),
     ]

@@ -45,6 +45,26 @@ over ``data`` after the step (sync-BN) in ``""``, psum and fsdp; ordered
 runs each block from the micro-batch's starting state and averages the
 blocks' states in block order.  Integer buffers pass through.
 
+Sequence and expert parallelism ride the implicit mode (``""``), as in
+the reference.  A ``batch_partition`` splitting token features over
+``seq`` cuts each rank's rows to its block of the sequence
+(``parallel.mesh.sequence_block``) and sets ``seq_split`` on the loop's
+mesh and on every mesh the model holds, for the run; on a mesh whose
+``seq`` axis is above 1 every gradient is averaged over ``seq`` after
+``data`` (each rank's loss is one term of the objective, see
+``models/bert.py``), and so are the loss and metrics.  On an ``expert``
+axis an MoE layer holds its rank's experts (``param_partition``'s expert
+specs, by default ``EXPERT_PARTITION_RULES``).  The layer's exchanges
+leave every shared gradient whole on every rank, but each rank sums it
+in its own order (an embedding's backward adds without a fixed order on
+the card), so the shared gradients, the loss and the metrics are
+averaged over ``expert`` too: the ranks' copies of the shared parameters
+stay equal bit for bit and route every token alike.  An expert's own
+weights are never reduced over ``expert``.  A checkpoint gathers the
+experts (and their AdamW moments) over ``expert``, so it does not depend
+on the mesh.  The explicit modes exchange over ``data`` alone and refuse
+a ``seq`` or ``expert`` axis above 1.
+
 A mesh with no process group (one process, nothing initialised) runs every
 mode with the identity for each collective.
 """
@@ -60,12 +80,20 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpu_pipelines_torch.parallel.mesh import DeviceMesh, local_rows
+from tpu_pipelines_torch.parallel.mesh import (
+    DeviceMesh,
+    local_rows,
+    sequence_block,
+)
 from tpu_pipelines_torch.parallel.partition import (
+    EXPERT_PARTITION_RULES,
     GatherLeaf,
     all_gather_dim,
+    effective_partition,
     foreign_axis_paths,
     fsdp_param_partition,
+    make_param_partition,
+    refuse_model_parallel,
     shard_of,
     spec_dim,
     validate_partition,
@@ -149,6 +177,9 @@ class DataParallel:
         self.has_model_state = has_model_state
         self.batch_size = batch_size
         self.specs: Dict[str, Optional[int]] = {}   # fsdp: name -> dim
+        self.expert_dims: Dict[str, int] = {}       # name -> dim over expert
+        self.batch_partition: Dict[str, Any] = {}
+        self.splits_sequence = False
         self.canon_params: List[str] = []
         self.canon_keys: List[str] = []
         self._hooks: list = []
@@ -179,12 +210,25 @@ class DataParallel:
                     f"grad_accum_steps {accum} must divide the per-device "
                     f"batch ({config.batch_size} over data axis {n} = "
                     f"{config.batch_size // n} rows)")
-        if mode != "fsdp" and config.param_partition is not None:
+        bp = dict(config.batch_partition or {})
+        if mode and bp:
+            raise ValueError(
+                f"dp_collective={mode!r}: batch_partition (sequence-"
+                "sharded inputs for ring attention) rides the implicit-"
+                "GSPMD window — use dp_collective=None/'auto' for "
+                "long-context configs; explicit collective modes shard "
+                "the batch over 'data' only")
+        if mode and (mesh.axis_size("seq") > 1 or mesh.axis_size("expert") > 1):
+            raise ValueError(
+                f"dp_collective={mode!r} exchanges over the mesh 'data' axis "
+                "only; a mesh whose 'seq' or 'expert' axis is above 1 rides "
+                "the implicit mode (dp_collective=None/'auto')")
+        if mode in ("psum_bucketed", "ordered") and config.param_partition is not None:
             raise ValueError(
                 f"dp_collective={mode!r} keeps params replicated (pure data "
                 "parallelism); param_partition requires dp_collective='fsdp' "
-                "(params sharded over 'data'); model-parallel specs wait for "
-                "ROADMAP.md A6")
+                "(params sharded over 'data') or the implicit mode "
+                "(None/'auto') for expert-parallel specs")
         grad_blocks = int(config.dp_grad_blocks or n)
         if mode == "ordered" and (
                 grad_blocks % n or (config.batch_size // accum) % grad_blocks):
@@ -198,6 +242,12 @@ class DataParallel:
                  batch_size=config.batch_size)
         dp.canon_params = [name for name, _ in model.named_parameters()]
         dp.canon_keys = list(model.state_dict().keys())
+        dp.batch_partition = bp
+        dp.splits_sequence = mesh.axis_size("seq") > 1 and any(
+            spec_dim(tuple(spec or ()), "seq") is not None for spec in bp.values())
+        dp._set_seq_split(model, dp.splits_sequence)
+        if not mode:
+            dp._implicit_partition(config.param_partition, model)
         if mode == "fsdp":
             partition = (dict(config.param_partition)
                          if config.param_partition is not None
@@ -207,7 +257,8 @@ class DataParallel:
                 raise ValueError(
                     "dp_collective='fsdp' shards params over the mesh 'data' "
                     "axis only; these param_partition specs name other axes "
-                    "(model parallelism waits for ROADMAP.md A6):\n  "
+                    "(expert-parallel specs ride the implicit mode; model "
+                    "parallelism waits for ROADMAP.md A6b):\n  "
                     + "\n  ".join(foreign))
             problems = validate_partition(model, partition, mesh)
             if problems:
@@ -233,6 +284,47 @@ class DataParallel:
                     f"{sorted(map(str, dtypes))}")
         return dp
 
+    def _implicit_partition(self, partition, model: nn.Module) -> None:
+        """The implicit mode's ``param_partition``: specs over axes of 1
+        replicate, ``model``/``pipe`` above 1 raise (A6b), ``data`` above 1
+        needs fsdp, ``expert`` marks the parameters an MoE layer holds a
+        slice of (by default the MoE rules on an expert mesh)."""
+        n_exp = self.mesh.axis_size("expert")
+        if partition is None:
+            if n_exp == 1:
+                return
+            partition = make_param_partition(model, EXPERT_PARTITION_RULES)
+        problems = validate_partition(model, partition, self.mesh)
+        partition = effective_partition(partition, self.mesh)
+        refuse_model_parallel(partition)
+        over_data = [f"{n}: {s}" for n, s in partition.items()
+                     if spec_dim(s, "data") is not None]
+        if over_data:
+            raise ValueError(
+                "the implicit mode keeps params whole over 'data'; these "
+                "param_partition specs shard them over it and require "
+                "dp_collective='fsdp':\n  " + "\n  ".join(over_data))
+        modules = dict(model.named_modules())
+        params = dict(model.named_parameters())
+        for name, spec in partition.items():
+            dim = spec_dim(spec, "expert")
+            if dim is None:
+                continue
+            owner = modules.get(name.rpartition(".")[0])
+            held = getattr(owner, "local_experts", None)
+            if held is None or held * n_exp != getattr(owner, "num_experts", -1) \
+                    or params[name].shape[dim] != held:
+                problems.append(
+                    f"{name}: spec {spec} shards it over 'expert' "
+                    f"(size {n_exp}), but its module holds "
+                    f"{tuple(params[name].shape)} (build the model with the "
+                    "mesh, so each rank holds its experts)")
+            self.expert_dims[name] = dim
+        if problems:
+            raise ValueError(
+                "param_partition does not fit this mesh; fix these rules "
+                "first:\n  " + "\n  ".join(problems))
+
     def _shard(self, model: nn.Module) -> None:
         from torch.nn.utils import parametrize
 
@@ -243,6 +335,13 @@ class DataParallel:
             owner, _, leaf = name.rpartition(".")
             parametrize.register_parametrization(
                 modules[owner], leaf, _Sharded(dim, self.mesh), unsafe=True)
+
+    def _set_seq_split(self, model: nn.Module, on: bool) -> None:
+        """The token layout the model sees: on the loop's mesh and on every
+        mesh the model's modules hold (one built apart from the loop's)."""
+        meshes = [self.mesh] + [getattr(m, "mesh", None) for m in model.modules()]
+        for mesh in {id(m): m for m in meshes if isinstance(m, DeviceMesh)}.values():
+            mesh.seq_split = on
 
     def parameters(self, model: nn.Module) -> List[nn.Parameter]:
         """The model's parameters in the order of the unsharded model's
@@ -272,10 +371,17 @@ class DataParallel:
         self._hooks = []
 
     def unshard(self, model: nn.Module) -> None:
-        """fsdp: make every parameter whole again (a collective on every
-        rank), for the model ``train_loop`` returns."""
+        """Make every parameter whole again (a collective on every rank),
+        for the model ``train_loop`` returns: fsdp's shards, and the
+        experts of every MoE layer on an ``expert`` axis; its meshes go
+        back to whole rows, as its callers hold them."""
         from torch.nn.utils import parametrize
 
+        self._set_seq_split(model, False)
+        if self.expert_dims:
+            for module in model.modules():
+                if hasattr(module, "gather_experts"):
+                    module.gather_experts()
         if self.mode != "fsdp":
             return
         for module in list(model.modules()):
@@ -292,14 +398,18 @@ class DataParallel:
         is cut to its contiguous rows; a batch of ``batch_size / W`` rows
         is taken as this rank's own (per-host input,
         ``per_host_input_config``).  A world of one takes the batch as
-        it is."""
+        it is.  Features the ``batch_partition`` splits over ``seq`` are
+        then cut to this rank's block of the sequence."""
         n = self.mesh.size
-        if n == 1:
-            return batch
         rows = len(np.asarray(next(iter(batch.values()))))
-        if rows * n == self.batch_size:
-            return batch
-        return local_rows(batch, self.mesh)
+        if n > 1 and rows * n != self.batch_size:
+            batch = local_rows(batch, self.mesh)
+        return sequence_block(batch, self.mesh, self.batch_partition)
+
+    def eval_block(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """An eval batch (whole on every rank) cut to this rank's block of
+        the sequence, the layout of the step's batches."""
+        return sequence_block(batch, self.mesh, self.batch_partition)
 
     def generator_count(self) -> int:
         blocks = self.grad_blocks // self.mesh.size if self.mode == "ordered" else 1
@@ -331,10 +441,30 @@ class DataParallel:
             return t
         return all_gather_dim(t, 0, self.mesh.group)
 
-    def _mean(self, t: torch.Tensor) -> torch.Tensor:
-        if self.mesh.group is None:
-            return t
-        return self._all_reduce(t).mul_(1.0 / self.mesh.size)
+    def _groups(self, over_expert: bool = True) -> List[Tuple[Any, int]]:
+        """The groups a value is averaged over: ``data``, then ``seq``,
+        then ``expert`` unless it is an expert's own gradient."""
+        axes = ("data", "seq", "expert") if over_expert else ("data", "seq")
+        return [(g, self.mesh.axis_size(a)) for a in axes
+                if (g := self.mesh.axis_group(a)) is not None]
+
+    def seq_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` averaged over ``seq`` (the identity without its group)."""
+        group = self.mesh.axis_group("seq")
+        if group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(t, group=group)
+            t.mul_(1.0 / self.mesh.axis_size("seq"))
+        return t
+
+    def _mean(self, t: torch.Tensor, over_expert: bool = True) -> torch.Tensor:
+        import torch.distributed as dist
+
+        for group, n in self._groups(over_expert):
+            dist.all_reduce(t, group=group)
+            t.mul_(1.0 / n)
+        return t
 
     # ---- the step
 
@@ -403,7 +533,11 @@ class DataParallel:
             if replicated:
                 self._reduce([p for p in replicated if p.requires_grad])
         else:
-            self._reduce([p for p in params if p.requires_grad])
+            trained = [(n, p) for n, p in zip(self.canon_params, params)
+                       if p.requires_grad]
+            self._reduce([p for n, p in trained if n not in self.expert_dims])
+            self._reduce([p for n, p in trained if n in self.expert_dims],
+                         over_expert=False)
         keys = sorted(m_sum)
         row = self._mean(torch.stack([l_sum, *(m_sum[k] for k in keys)]))
         if self.has_model_state:
@@ -419,7 +553,7 @@ class DataParallel:
             self._reduce(self._bucket_params[i])
             self._reduced[i] = True
 
-    def _reduce(self, params: List[nn.Parameter]) -> None:
+    def _reduce(self, params: List[nn.Parameter], over_expert: bool = True) -> None:
         """One all-reduce of ``params``' gradients as a flat buffer, then
         the mean (scaled by 1/accum first, as the reference scales its
         accumulated sum), written back into ``.grad``.  Without a group
@@ -427,7 +561,7 @@ class DataParallel:
         stays None, so the optimizer skips its parameter)."""
         if not params:
             return
-        if self.mesh.group is None:
+        if not self._groups(over_expert):
             if self.accum > 1:
                 for p in params:
                     if p.grad is not None:
@@ -439,7 +573,7 @@ class DataParallel:
         flat = torch.cat([p.grad.reshape(-1) for p in params])
         if self.accum > 1:
             flat.mul_(1.0 / self.accum)
-        self._mean(flat)
+        self._mean(flat, over_expert)
         offset = 0
         for p in params:
             n = p.numel()
@@ -447,8 +581,9 @@ class DataParallel:
             offset += n
 
     def _sync_state(self, model: nn.Module) -> None:
-        """Sync-BN: the floating buffers' mean over ``data``."""
-        if self.mesh.group is None:
+        """Sync-BN: the floating buffers' mean over ``data`` (and ``seq``,
+        ``expert``)."""
+        if not self._groups():
             return
         groups: Dict[torch.dtype, list] = {}
         for b in model.buffers():
@@ -539,19 +674,30 @@ class DataParallel:
 
     # ---- checkpoints (W-independent: the full, unsharded state)
 
-    def _sharded_dims(self) -> Dict[str, int]:
-        if self.mode != "fsdp" or self.mesh.group is None:
-            return {}
-        return {n: d for n, d in self.specs.items() if d is not None}
+    def _sharded_dims(self) -> Dict[str, Tuple[int, Any, int, int]]:
+        """name -> (dim, group, axis size, axis rank) of every parameter a
+        rank holds a slice of: fsdp's shards over ``data``, the MoE
+        experts over ``expert``."""
+        out = {}
+        if self.mode == "fsdp" and self.mesh.group is not None:
+            out.update({n: (d, self.mesh.group, self.mesh.size, self.mesh.rank)
+                        for n, d in self.specs.items() if d is not None})
+        group = self.mesh.axis_group("expert")
+        if group is not None:
+            out.update({n: (d, group, self.mesh.axis_size("expert"),
+                            self.mesh.axis_rank("expert"))
+                        for n, d in self.expert_dims.items()})
+        return out
 
     def gathers_checkpoint(self) -> bool:
-        """Whether a checkpoint needs every rank (fsdp's gathers)."""
+        """Whether a checkpoint needs every rank (the gathers of fsdp's
+        shards or of the experts)."""
         return bool(self._sharded_dims())
 
     def full_payload(self, step: int, model: nn.Module, optimizer) -> Dict[str, Any]:
-        """The checkpoint payload of the unsharded model: under fsdp every
-        shard (parameters and optimizer moments) gathered, a collective
-        on every rank; otherwise the state as it is."""
+        """The checkpoint payload of the unsharded model: every slice
+        (parameters and optimizer moments) gathered, a collective on every
+        rank; otherwise the state as it is."""
         dims = self._sharded_dims()
         state = model.state_dict()
         opt = optimizer.state_dict()
@@ -562,31 +708,37 @@ class DataParallel:
         with torch.no_grad():
             for key in self.canon_keys:
                 v = by_canon[key]
-                full[key] = (all_gather_dim(v, dims[key], self.mesh.group)
+                full[key] = (all_gather_dim(v, dims[key][0], dims[key][1])
                              if key in dims else v)
             shards = self.parameters(model)
             for idx, slots in opt["state"].items():
-                dim = dims.get(self.canon_params[idx])
-                if dim is None:
+                name = self.canon_params[idx]
+                if name not in dims:
                     continue
+                dim, group = dims[name][:2]
                 shape = shards[idx].shape
                 opt["state"][idx] = {
-                    k: (all_gather_dim(v, dim, self.mesh.group)
+                    k: (all_gather_dim(v, dim, group)
                         if torch.is_tensor(v) and v.shape == shape else v)
                     for k, v in slots.items()}
         return {"step": step, "model": full, "optimizer": opt}
 
     def load_payload(self, model: nn.Module, optimizer, payload) -> None:
-        """Restore a full payload, cutting this rank's shards under fsdp."""
+        """Restore a full payload, cutting this rank's slices."""
         dims = self._sharded_dims()
         if not dims:
             model.load_state_dict(payload["model"])
             optimizer.load_state_dict(payload["optimizer"])
             return
+
+        def cut(name, v):
+            dim, _, n, rank = dims[name]
+            k = v.shape[dim] // n
+            return v.narrow(dim, rank * k, k).contiguous()
+
         keys = {_canonical(k): k for k in model.state_dict()}
         model.load_state_dict({
-            keys[name]: (shard_of(v, dims[name], self.mesh).contiguous()
-                         if name in dims else v)
+            keys[name]: cut(name, v) if name in dims else v
             for name, v in payload["model"].items()})
         opt = payload["optimizer"]
         for idx, slots in opt["state"].items():
@@ -594,7 +746,7 @@ class DataParallel:
             if name in dims:
                 full_shape = payload["model"][name].shape
                 opt["state"][idx] = {
-                    k: (shard_of(v, dims[name], self.mesh).contiguous()
+                    k: (cut(name, v)
                         if torch.is_tensor(v) and v.shape == full_shape else v)
                     for k, v in slots.items()}
         optimizer.load_state_dict(opt)
@@ -610,9 +762,9 @@ class DataParallel:
         n = self.mesh.size
         if n <= 1:
             return 0.0
+        dims = self._sharded_dims()
         param_bytes = sum(
-            p.numel() * p.element_size()
-            * (n if self._sharded_dims().get(name) is not None else 1)
+            p.numel() * p.element_size() * (dims[name][2] if name in dims else 1)
             for name, p in zip(self.canon_params, self.parameters(model)))
         if param_bytes <= 0:
             return 0.0

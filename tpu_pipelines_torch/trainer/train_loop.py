@@ -161,9 +161,19 @@ under fsdp a checkpoint holds the gathered full state, so it does not
 depend on W and a resume on a survivor world re-shards it.  Throughput per
 chip and MFU divide by W.
 
-Not ported: ``batch_partition`` (sequence-partitioned inputs, ``ROADMAP.md``
-A6), refused with ``NotImplementedError`` rather than ignored.  The
-reference's ``prng_impl`` (a JAX key implementation) has no counterpart
+Sequence and expert parallelism (a mesh whose ``seq`` or ``expert`` axis
+is above 1) ride the implicit mode: ``batch_partition`` (``{feature:
+spec}``, e.g. ``parallel.ring_attention.long_context_batch_partition``)
+cuts each rank's token features to its block of the sequence, the step's
+and the eval batches', and sets the mesh's ``seq_split`` for the run (the
+returned model's mesh holds whole rows again); ``param_partition``'s
+``expert`` specs mark the experts an MoE layer holds on its rank (see
+``trainer/data_parallel.py``).  An explicit ``dp_collective`` with a
+``batch_partition`` and a ``batch_partition`` key the batch lacks raise
+the reference's ``ValueError``; specs over ``model`` or ``pipe`` above 1
+raise ``NotImplementedError`` (ROADMAP.md A6b).  A rank's dropout masks
+are drawn for its own block, so a sequence-split run equals a run of one
+process at dropout 0.  The reference's ``prng_impl`` (a JAX key implementation) has no counterpart
 here, and ``donate_state`` none but the in-place replays above: the
 fields do not exist.
 """
@@ -190,7 +200,11 @@ from tpu_pipelines_torch.observability.health import HealthMonitor
 from tpu_pipelines_torch.observability.metrics import default_registry
 from tpu_pipelines_torch.observability.summary_writer import SummaryWriter
 from tpu_pipelines_torch.ops import flash_attention as fa
-from tpu_pipelines_torch.parallel.mesh import DeviceMesh, MeshConfig, make_mesh
+from tpu_pipelines_torch.parallel.mesh import (
+    DeviceMesh,
+    MeshConfig,
+    make_mesh,
+)
 from tpu_pipelines_torch.trainer.data_parallel import (
     DataParallel,
     effective_dp_collective,
@@ -262,7 +276,9 @@ class TrainLoopConfig:
     # fsdp only: {parameter name: spec} over 'data' (parallel/partition.py);
     # None = fsdp_param_partition's default.
     param_partition: Optional[Any] = None
-    # Not ported (sequence-partitioned inputs, ROADMAP.md A6).
+    # Implicit mode: {feature: spec} splitting token features over 'seq'
+    # (parallel.ring_attention.long_context_batch_partition); None = rows
+    # over 'data' only.
     batch_partition: Optional[Dict[str, Any]] = None
     # None/"auto" = the implicit mode (one all-reduce after the backward),
     # else "psum_bucketed", "ordered" or "fsdp"; None reads
@@ -277,22 +293,6 @@ class TrainLoopConfig:
     # Micro-batches per step (every a-th row of the local batch), gradients
     # averaged, one optimizer update; composes with every mode.
     grad_accum_steps: int = 1
-
-
-# field, default, ROADMAP.md item, what it waits for
-_UNPORTED = (
-    ("batch_partition", None, "A6", "sequence-partitioned batches"),
-)
-
-
-def _refuse_unported(config: TrainLoopConfig) -> None:
-    for name, default, item, what in _UNPORTED:
-        value = getattr(config, name)
-        if value != default:
-            raise NotImplementedError(
-                f"train_loop: {name}={value!r} is not ported yet ({what}, "
-                f"ROADMAP.md {item})"
-            )
 
 
 @dataclasses.dataclass
@@ -816,10 +816,13 @@ def _stop_profiler(profiler, config: TrainLoopConfig, start_step: int) -> str:
 
 # ---- the loop
 
-def _run_eval(model, loss_fn, eval_iter_fn, config, device) -> Dict[str, float]:
+def _run_eval(model, loss_fn, eval_iter_fn, config, device,
+              dp: DataParallel) -> Dict[str, float]:
     """Mean of each batch's loss and metrics over the eval batches.  The
     per-batch values are summed in float64 on the device (the same sums as
-    adding their Python floats) and fetched once, not once a batch."""
+    adding their Python floats) and fetched once, not once a batch.  On a
+    split sequence each rank evaluates its block of every batch (the
+    step's layout) and the sums are averaged over ``seq``."""
     totals: Dict[str, torch.Tensor] = {}
     n = 0
     model.eval()
@@ -828,13 +831,18 @@ def _run_eval(model, loss_fn, eval_iter_fn, config, device) -> Dict[str, float]:
             for i, batch in enumerate(eval_iter_fn()):
                 if config.eval_steps and i >= config.eval_steps:
                     break
-                loss, metrics = loss_fn(model, _to_device(batch, device), None)
+                loss, metrics = loss_fn(
+                    model, _to_device(dp.eval_block(batch), device), None)
                 for k, v in {"loss": loss, **metrics}.items():
                     v = torch.as_tensor(v, device=device).detach().double()
                     totals[k] = v if k not in totals else totals[k] + v
                 n += 1
     finally:
         model.train()
+    keys = sorted(totals)
+    if keys and dp.splits_sequence:
+        summed = dp.seq_mean(torch.stack([totals[k] for k in keys]))
+        totals = {k: summed[i] for i, k in enumerate(keys)}
     fetched = {k: float(v) for k, v in totals.items()}
     return {k: v / max(1, n) for k, v in fetched.items()}
 
@@ -856,10 +864,9 @@ def train_loop(
 ) -> Tuple[nn.Module, TrainResult]:
     """Train on ``device`` (under a mesh, the mesh's device); returns
     ``(model, TrainResult)``.  See the module docstring for the contract."""
-    _refuse_unported(config)
     dp_mode = effective_dp_collective(config)
     grouped = torch.distributed.is_available() and torch.distributed.is_initialized()
-    rank = (mesh.rank if mesh is not None
+    rank = (mesh.global_rank if mesh is not None
             else torch.distributed.get_rank() if grouped else 0)
     writer = rank == 0  # rank 0's duties: checkpoints, logs, TensorBoard
     tracker = GoodputTracker(
@@ -881,6 +888,11 @@ def train_loop(
     finally:
         tracker.data_loading_end()
     tracker.training_prep_start()
+    unknown = sorted(set(config.batch_partition or {}) - set(first_batch))
+    if unknown:
+        raise ValueError(
+            f"batch_partition keys {unknown} not in batch "
+            f"(has {sorted(first_batch)})")
     model = init_params_fn(
         torch.Generator().manual_seed(int(config.seed)), first_batch
     )
@@ -1018,7 +1030,7 @@ def train_loop(
         publish_telemetry(at_step)
 
     def emit_eval(at_step: int) -> None:
-        ev = _run_eval(state.model, loss_fn, eval_iter_fn, config, dev)
+        ev = _run_eval(state.model, loss_fn, eval_iter_fn, config, dev, dp)
         if metrics_cb:
             metrics_cb(at_step, {f"eval_{k}": v for k, v in ev.items()})
         tb_write("eval", at_step, {f"eval_{k}": v for k, v in ev.items()})
@@ -1047,7 +1059,7 @@ def train_loop(
     source = itertools.chain([first_batch], train_it)
     source = map(dp.local_batch, source)
     infeed = windowed_infeed(source, window_lengths(step), WindowStager(dev))
-    n_chips = mesh.size
+    n_chips = mesh.world
     coll_frac = dp.collective_fraction(model, sum(
         np.asarray(v).nbytes for v in first_batch.values()) // n_chips)
     profiler = None
@@ -1160,7 +1172,7 @@ def train_loop(
         elapsed = max(1e-9, time.perf_counter() - (t_start or time.perf_counter()))
         final_metrics: Dict[str, float] = dict(metrics or {})
         if eval_iter_fn is not None:
-            ev = _run_eval(state.model, loss_fn, eval_iter_fn, config, dev)
+            ev = _run_eval(state.model, loss_fn, eval_iter_fn, config, dev, dp)
             final_metrics.update({f"eval_{k}": v for k, v in ev.items()})
         if tb_writer is not None:
             # Only what the in-loop cadence did not already write at this
