@@ -145,11 +145,12 @@ Phases (any failure raises and the script exits non-zero):
      replies shifted by one row must miss it);
   8b. dp_train — data-parallel training (A5).  (a) A world of one over
      NCCL (a process group made here over a FileStore): BERT-base at full
-     width, batch DP_BATCH x SEQ_LEN, dropout 0, DP_STEPS steps in each of
-     the implicit mode, psum_bucketed at accumulation 1 and 2, ordered
+     width and DP_LAYERS layers, batch DP_BATCH x SEQ_LEN, dropout 0,
+     DP_STEPS steps in each of the implicit mode, psum_bucketed at
+     accumulation 1 and 2, ordered
      (G = DP_BLOCKS, accumulation 2) and fsdp (every parameter sharded on
      dim 0): one capture and a replay a step each, with collectives issued
-     inside the capture; the four attention kernels launched 12 x
+     inside the capture; the four attention kernels launched layers x
      forwards a step x steps; losses within DP_LOSS_TOL and parameter
      changes within DP_CHANGE_TOL of the single-device loop's (a planted
      fault, every second micro-batch's gradient dropped, must miss the
@@ -170,16 +171,38 @@ Phases (any failure raises and the script exits non-zero):
      gloo ranks of the one card (spawned; NCCL refuses two ranks on one
      device, gloo carries ``all_to_all_single`` with uneven splits, by the
      probe), deterministic cuBLAS, dropout 0, 3 SGD steps each, against
-     one process running the same steps: BERT-base at 4 x 2048 over seq =
-     2 with ``long_context_batch_partition``, ring and then Ulysses (f32
-     compute on both sides; one process runs flash), and BERT-base-MoE at
-     32 x 128 over expert = 2 (one process runs all 8 experts): losses and
+     one process running the same steps: BERT-base (SP_EP_LAYERS layers)
+     at 4 x 2048 over seq = 2 with ``long_context_batch_partition``, ring
+     and then Ulysses (f32 compute on both sides; one process runs flash),
+     and BERT-base-MoE (SP_EP_LAYERS layers) at 32 x 128 over expert = 2
+     (one process runs all 8 experts): losses and
      parameter changes within SP_* / EP_* on both ranks, a control that
      must miss the change tolerance (rank 0 drops the block of its last
      ring hop; rank 1's partial output left out of the combine); both
      ranks hold one model bit for bit (shared gradients averaged over
      seq and expert); each rank's own launches, counted from zero a job:
-     none for ring and Ulysses, 12 x 3 of each training kernel for EP;
+     none for ring and Ulysses, 6 x 3 of each training kernel for EP;
+  8d. tp_pp_two_ranks — tensor and pipeline parallelism (A6b) on two gloo
+     ranks of the one card (spawned, as 8c), deterministic cuBLAS, dropout
+     0, 3 SGD steps each against one process: BERT-base (vocabulary
+     30,522) at 32 x 128 over model = 2 with flash attention and
+     ``bert_partition_rules``, in f32 compute on both sides (TP_*
+     tolerances; a control leaving layer 0's attention-output reduction
+     out must miss the change tolerance) and in bf16 (the tensor-core
+     kernels' launches, the ranks equal); each rank launches
+     12 x 3 of each training kernel, holds half the heads, MLP columns and
+     vocabulary, and both ranks hold one model bit for bit;
+     ``bert_module.run_fn`` on that mesh at dropout 0.1 (the ranks equal,
+     rank 0's payload loaded with no mesh within LOGIT_TOL of the gathered
+     model); the staged classifier at BERT width (2 stages x 6 layers, 8
+     microbatches of 32, f32) over pipe = 2 against its stages in order in
+     one process (PP_* tolerances; a control handing stage 1 the previous
+     tick's microbatch must miss), each rank holding its stage, the
+     payload both and predicting within PP_LOGIT_TOL; report each step's
+     time over gloo against one process; then the staged DAG twin through
+     ``python -m tpu_pipelines_torch run`` at its defaults (one process:
+     the reference's fallback, the stages in order), every node COMPLETE,
+     a rerun all cache hits, no launch;
   9. taxi_dag — the Chicago-taxi DAG (all nine nodes of
      ``tpu_pipelines_torch/examples/taxi_pipeline.py``) through
      ``LocalDagRunner(device="cuda")`` over a CSV of TAXI_ROWS rows made
@@ -4643,7 +4666,7 @@ GUARD_SAMPLE = 1.0
 GUARD_PROBATION_S = 10.0
 GUARD_REQUESTS = 64
 GUARD_THREADS = 4
-GUARD_TPUT_ROUNDS = 16
+GUARD_TPUT_ROUNDS = 8
 # Distinct reviews in the shifted (skewed) window: a flood of a few texts
 # from the upper half of the lexicon.
 GUARD_CAMPAIGN = 2
@@ -4845,15 +4868,6 @@ def fleet_guard_phase(seed, card, workdir, production_uri, pushed_uri):
             readmit_mono = fleet.versions.last_swap()["mono"]
             readmit_captures = captures[0] - captures0 - rollback_captures
             t0 = time.perf_counter()
-            n_tput = sum(len(req["instances"]) for req in tput_reqs)
-            sampler, tput = fleet.sampler, {"on": [], "off": []}
-            for i in range(GUARD_TPUT_ROUNDS):
-                state = "on" if i % 4 in (0, 3) else "off"
-                fleet.sampler = sampler if state == "on" else None
-                _, round_s = clients(tput_reqs)
-                tput[state].append(n_tput / round_s)
-            fleet.sampler = sampler
-            tput_s = time.perf_counter() - t0
 
             # Version 1's buckets replayed after the rollback == eager.
             rows = request_rows(boot_reqs + swap_reqs)
@@ -4917,6 +4931,20 @@ def fleet_guard_phase(seed, card, workdir, production_uri, pushed_uri):
                                            "trigger": "fast"})
             expired_active = fleet.active_version
             checks_s = time.perf_counter() - t0
+
+            # The sampler's cost, after that probation ran out: the rounds'
+            # load must not page latency inside a probation (on a slow host
+            # it did, and rolled the re-admitted version back).
+            t1 = time.perf_counter()
+            n_tput = sum(len(req["instances"]) for req in tput_reqs)
+            sampler, tput = fleet.sampler, {"on": [], "off": []}
+            for i in range(GUARD_TPUT_ROUNDS):
+                state = "on" if i % 4 in (0, 3) else "off"
+                fleet.sampler = sampler if state == "on" else None
+                _, round_s = clients(tput_reqs)
+                tput[state].append(n_tput / round_s)
+            fleet.sampler = sampler
+            tput_s = time.perf_counter() - t1
     finally:
         server.stop()
 
@@ -7694,6 +7722,9 @@ def build_kernels():
 # two ranks.
 DP_BATCH = 64
 DP_STEPS = 6
+# (a)'s depth: BERT-base's width at 6 of its 12 layers (cut for the
+# script's time limit, PR 20).
+DP_LAYERS = 6
 DP_BLOCKS = 8
 DP_LR = 2e-5
 # (mode, grad_accum_steps); "" is the implicit mode (one all-reduce).
@@ -7941,7 +7972,7 @@ def dp_world_of_one(seed, card):
     attention kernels' launches over the modes' runs, failures)."""
     import torch.distributed as dist
 
-    hp = dp_hparams()
+    hp = dp_hparams(DP_LAYERS)
     batches = training_batches(seed, hp["vocab_size"], DP_STEPS, batch=DP_BATCH)
     layers = hp["n_layers"]
 
@@ -7958,7 +7989,8 @@ def dp_world_of_one(seed, card):
     failures = []
     if base_result.step_capture != "cuda_graph":
         failures.append(f"single-device loop {base_result.step_capture}")
-    print(f"dp_train [{card}] (a) single-device loop: BERT-base, batch "
+    print(f"dp_train [{card}] (a) single-device loop: BERT-base at {layers} "
+          f"layers, batch "
           f"{DP_BATCH} x {SEQ_LEN}, {DP_STEPS} steps: {base_calls}, "
           f"{base_result.anchored_examples_per_sec_per_chip} examples/s/chip",
           flush=True)
@@ -8138,7 +8170,8 @@ def _dp_rank_worker(rank, world, backend, init_file, out_dir, seed, jobs):
         for name, kind, kwargs in jobs:
             job = {"bert": _dp_bert_job, "bn": _dp_bn_job,
                    "world_of_one": dp_world_of_one, "sp": _sp_job,
-                   "ep": _ep_job}[kind]
+                   "ep": _ep_job, "tp": _tp_job, "tp_run_fn": _tp_run_fn_job,
+                   "pp": _pp_job}[kind]
             out[name] = job(seed, **kwargs)
     except BaseException:  # noqa: BLE001 (reported by the parent)
         out["error"] = traceback.format_exc()
@@ -8350,6 +8383,9 @@ MOE_SERVE_REQUESTS = 32
 LONG_SEQ = 2048              # bench.py's long-context leg
 LONG_BATCH = 4
 LONG_STEPS = 3
+# The two-rank sequence and expert runs' depth: BERT-base's width at 6 of
+# its 12 layers (cut for the script's time limit, PR 20).
+SP_EP_LAYERS = 6
 LONG_LR = 1e-2               # SGD: a parameter's change is its gradients'
 EP_BATCH = 32
 # Two ranks against one process, SGD over LONG_STEPS steps, dropout 0:
@@ -8372,9 +8408,10 @@ EP_CHANGE_TOL = 1e-4
 EP_LOSS_TOL = 1e-4
 
 
-def moe_hparams(length=SEQ_LEN, dropout=0.1):
+def moe_hparams(length=SEQ_LEN, dropout=0.1, layers=N_LAYERS):
     return {**DEFAULT_HPARAMS, "attn_impl": "flash", "max_len": length,
-            "num_classes": 2, "moe_experts": MOE_EXPERTS, "dropout_rate": dropout}
+            "num_classes": 2, "moe_experts": MOE_EXPERTS, "dropout_rate": dropout,
+            "n_layers": layers}
 
 
 def moe_loss_fn(model, batch, generator):
@@ -8765,7 +8802,7 @@ def moe_serving_phase(seed, card, workdir, state):
 
 def long_hparams(impl):
     return {**DEFAULT_HPARAMS, "attn_impl": impl, "max_len": LONG_SEQ,
-            "num_classes": 2, "dropout_rate": 0.0}
+            "num_classes": 2, "dropout_rate": 0.0, "n_layers": SP_EP_LAYERS}
 
 
 def f32_compute(model):
@@ -8778,20 +8815,37 @@ def f32_compute(model):
 
 
 def parallel_run(hp, seed, batches, mesh=None, batch_partition=None,
-                 loss_fn=bert_module.loss_fn, f32=False):
+                 loss_fn=bert_module.loss_fn, f32=False, param_partition=None,
+                 build=None, hook=None, step_times=None):
     """train_loop with SGD (LONG_LR) over ``batches`` on ``mesh`` (in f32
-    compute with ``f32``); returns (the final whole model, per-step losses,
-    result, the initial parameters on the device; under expert parallelism
-    the rank's slice of the experts)."""
+    compute with ``f32``; ``build(generator, batch)`` makes the model, by
+    default the BERT module's, and ``hook(model)`` sees it first); returns
+    (the final whole model, per-step losses, result, the initial
+    parameters on the device: whole, the slices a module holds over
+    ``model`` or ``pipe`` gathered; under expert parallelism the rank's
+    slice of the experts).  ``step_times`` collects each step's end on the
+    host clock."""
+    from tpu_pipelines_torch.parallel.partition import all_gather_dim, held_slice
+
     losses, start = [], {}
-    build = functools.partial(bert_module.init_params_fn, hyperparameters=hp,
-                              mesh=mesh)
+    build = build or functools.partial(bert_module.init_params_fn,
+                                       hyperparameters=hp, mesh=mesh)
 
     def init(generator, batch):
         model = build(generator, batch)
-        start.update({n: p.detach().to(DEVICE, copy=True)
-                      for n, p in model.named_parameters()})
+        if hook is not None:
+            hook(model)
+        for n, p in model.named_parameters():
+            held = held_slice(model, n)
+            whole = p.detach() if held is None else all_gather_dim(
+                p.detach(), held[0], held[1])
+            start[n] = whole.to(DEVICE, copy=True)
         return f32_compute(model) if f32 else model
+
+    def record(step, metrics):
+        losses.append(metrics["loss"])
+        if step_times is not None:
+            step_times.append(time.perf_counter())
 
     model, result = train_loop(
         loss_fn=loss_fn,
@@ -8801,8 +8855,9 @@ def parallel_run(hp, seed, batches, mesh=None, batch_partition=None,
         config=TrainLoopConfig(train_steps=len(batches),
                                batch_size=len(batches[0]["label"]), log_every=1,
                                window_steps=1, seed=seed,
-                               batch_partition=batch_partition),
-        mesh=mesh, metrics_cb=lambda s, m: losses.append(m["loss"]), device=DEVICE)
+                               batch_partition=batch_partition,
+                               param_partition=param_partition),
+        mesh=mesh, metrics_cb=record, device=DEVICE)
     return model, losses, result, start
 
 
@@ -8890,7 +8945,7 @@ def _ep_job(seed, *, want_path, control=False):
 
     zero_counters()
     mesh = make_mesh({"data": 1, "expert": 2}, device=DEVICE)
-    hp = moe_hparams(dropout=0.0)
+    hp = moe_hparams(dropout=0.0, layers=SP_EP_LAYERS)
     batches = ep_batches(seed)
     real = collectives.leave_partial
 
@@ -8908,61 +8963,55 @@ def _ep_job(seed, *, want_path, control=False):
             "step_capture": result.step_capture, "launches": by_record(counters())}
 
 
-def seq_expert_two_ranks_phase(seed, card):
-    """(c) Two ranks on the one card over gloo (the probe's exchanges:
-    all_to_all_single with uneven splits; NCCL refuses two ranks on one
-    device), each held against one process running the same steps:
-    BERT-base at L = LONG_SEQ over seq = 2 with ring and with Ulysses
-    (against flash in one process), and BERT-base-MoE over expert = 2
-    (against all 8 experts in one process).  Each rank's job counts its
-    own launches from zero: none for ring and Ulysses (their blocks are
-    plain torch), 12 x LONG_STEPS of each training kernel for EP.
-    Returns (the two ranks' launches summed over the ring, Ulysses and EP
-    jobs, the failures)."""
-    failures = []
-    tmp = tempfile.mkdtemp()
-    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    try:
-        zero_counters()
-        t0 = time.perf_counter()
-        one_long, long_losses, long_result, _ = parallel_run(
-            long_hparams("flash"), seed, long_batches(seed), f32=True)
-        long_path = os.path.join(tmp, "long.pt")
-        torch.save({n: p.detach().cpu() for n, p in one_long.named_parameters()},
-                   long_path)
-        del one_long
-        one_ep, ep_losses, ep_result, _ = parallel_run(
-            moe_hparams(dropout=0.0), seed, ep_batches(seed), loss_fn=moe_loss_fn)
-        ep_path = os.path.join(tmp, "ep.pt")
-        torch.save({n: p.detach().cpu() for n, p in one_ep.named_parameters()},
-                   ep_path)
-        del one_ep
-        one_launches = by_record(counters())
-        one_s = time.perf_counter() - t0
-        gc.collect()
-        torch.cuda.empty_cache()
-        jobs = [("ring", "sp", {"impl": "ring", "want_path": long_path}),
-                ("ulysses", "sp", {"impl": "ulysses", "want_path": long_path}),
-                ("ring_control", "sp", {"impl": "ring", "want_path": long_path,
-                                        "control": True}),
-                ("ep", "ep", {"want_path": ep_path}),
-                ("ep_control", "ep", {"want_path": ep_path, "control": True})]
-        t1 = time.perf_counter()
-        two = dp_spawn(2, DP_TWO_BACKEND, seed, jobs)
-        two_s = time.perf_counter() - t1
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-        if cublas is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+def seq_expert_setup(seed, card, tmp):
+    """(c) seq_expert_two_ranks: two ranks on the one card over gloo (the
+    probe's exchanges: all_to_all_single with uneven splits; NCCL refuses
+    two ranks on one device), each held against one process running the
+    same steps: BERT-base at L = LONG_SEQ over seq = 2 with ring and with
+    Ulysses (against flash in one process), and BERT-base-MoE over expert
+    = 2 (against all 8 experts in one process).  Each rank's job counts
+    its own launches from zero: none for ring and Ulysses (their blocks
+    are plain torch), SP_EP_LAYERS x LONG_STEPS of each training kernel
+    for EP.  Returns the one-process runs' rank jobs and ``finish(two,
+    seconds)`` -> (the two ranks' launches summed over the ring, Ulysses
+    and EP jobs, the failures); ``two_rank_jobs`` runs them."""
+    zero_counters()
+    t0 = time.perf_counter()
+    one_long, long_losses, long_result, _ = parallel_run(
+        long_hparams("flash"), seed, long_batches(seed), f32=True)
+    long_path = os.path.join(tmp, "long.pt")
+    torch.save({n: p.detach().cpu() for n, p in one_long.named_parameters()},
+               long_path)
+    del one_long
+    one_ep, ep_losses, ep_result, _ = parallel_run(
+        moe_hparams(dropout=0.0, layers=SP_EP_LAYERS), seed, ep_batches(seed),
+        loss_fn=moe_loss_fn)
+    ep_path = os.path.join(tmp, "ep.pt")
+    torch.save({n: p.detach().cpu() for n, p in one_ep.named_parameters()},
+               ep_path)
+    del one_ep
+    one_launches = by_record(counters())
+    one_s = time.perf_counter() - t0
+    jobs = [("ring", "sp", {"impl": "ring", "want_path": long_path}),
+            ("ulysses", "sp", {"impl": "ulysses", "want_path": long_path}),
+            ("ring_control", "sp", {"impl": "ring", "want_path": long_path,
+                                    "control": True}),
+            ("ep", "ep", {"want_path": ep_path}),
+            ("ep_control", "ep", {"want_path": ep_path, "control": True})]
+    return jobs, functools.partial(
+        _seq_expert_finish, card, long_losses, long_result, ep_losses,
+        one_launches, one_s)
 
+
+def _seq_expert_finish(card, long_losses, long_result, ep_losses, one_launches,
+                       one_s, two, two_s):
+    failures = []
     print(f"seq_expert_two_ranks [{card}]: one process (captured, "
-          f"{long_result.step_capture}): BERT-base flash (f32) at {LONG_BATCH} x "
-          f"{LONG_SEQ}, losses " + " ".join(f"{x:.6f}" for x in long_losses)
-          + f"; BERT-base-MoE at {EP_BATCH} x {SEQ_LEN}, losses "
-          + " ".join(f"{x:.6f}" for x in ep_losses)
+          f"{long_result.step_capture}): BERT-base at {SP_EP_LAYERS} layers, "
+          f"flash (f32) at {LONG_BATCH} x {LONG_SEQ}, losses "
+          + " ".join(f"{x:.6f}" for x in long_losses)
+          + f"; BERT-base-MoE at {SP_EP_LAYERS} layers, {EP_BATCH} x {SEQ_LEN}, "
+          "losses " + " ".join(f"{x:.6f}" for x in ep_losses)
           + f"; {one_s:.1f} s; launches {one_launches} (the one-process "
           "runs', not the ranks')", flush=True)
     print(f"seq_expert_two_ranks: two ranks over {DP_TWO_BACKEND} "
@@ -8991,7 +9040,7 @@ def seq_expert_two_ranks_phase(seed, card):
               f"rank launches {r0['launches']}", flush=True)
         if r0["losses"] != r1["losses"] or apart:
             failures.append(f"{name}: the two ranks disagree")
-        per_run = N_LAYERS * LONG_STEPS if name.startswith("ep") else 0
+        per_run = SP_EP_LAYERS * LONG_STEPS if name.startswith("ep") else 0
         want_launches = {k: per_run for k in r0["launches"]}
         want_launches["flash_decode"] = 0
         for r, rank in enumerate((r0, r1)):
@@ -9011,6 +9060,511 @@ def seq_expert_two_ranks_phase(seed, card):
                        for name in ("ring", "ulysses", "ep"))
                 for k in two[0]["ep"]["launches"]}
     return launches, failures
+
+
+# ---- 8d. tensor and pipeline parallelism on two gloo ranks (A6b)
+
+TP_VOCAB = 30522             # BASELINE configs[3]: BERT-base's own vocabulary
+TP_BATCH = 32
+TP_STEPS = 3
+TP_RUN_FN_ROWS = 128
+# The staged classifier at BERT width: 2 stages x 6 layers, 8 microbatches
+# of 32 at L = 128, f32 (the reference's staged dtype).
+PP_HP = {"vocab_size": TP_VOCAB, "d_model": 768, "n_heads": 12, "head_dim": 64,
+         "d_ff": 3072, "max_len": SEQ_LEN, "num_classes": 4, "n_stages": 2,
+         "layers_per_stage": 6, "num_microbatches": 8, "dtype": "float32",
+         "learning_rate": LONG_LR, "batch_size": 8 * 32}
+PP_STEPS = 3
+PP_PREDICT_ROWS = 16
+# Two ranks against one process, SGD (LONG_LR) over 3 steps, dropout 0:
+# the relative L2 distance of the parameter changes from the shared init,
+# and each step's relative loss gap, on both ranks (change_gap).  Tensor
+# parallelism is held in f32 compute on both sides, where a rank's partial
+# sums (half the heads of attention's output projection, half the MLP
+# columns) differ from one process's GEMMs in their order alone, and in
+# bf16 (BERT's own path: the tensor-core kernels, the bf16 casts of the
+# row-parallel products) against one process in bf16, each with a
+# control (rank-local partial products of layer 0's attention output,
+# its reduction over ``model`` left out) that must miss.  Predicted
+# before the first run on the card: f32 gaps near the sequence-parallel
+# runs' 2e-5, the control above 3e-3 (5.1e-3 on the CPU at a tiny width,
+# against 6.4e-7 sound).  The pipeline's sequential oracle runs the same
+# f32 math on the whole batch where the stages see microbatches of 32:
+# predicted gap 1e-6 to 1e-5, its control (stage 1 handed the previous
+# tick's microbatch) above 1e-1.  Each tolerance sits between.  Measured
+# on one H100 80GB HBM3 (700 W) at --seed 0: TP f32 1.080e-5, its control
+# 1.819e-1 (loss gaps 1.2e-7 and 1.8e-2); TP bf16 1.071e-2, its control
+# 1.830e-1 (loss gaps 1.16e-3 and 1.87e-2), from which the bf16
+# tolerances were set; PP 3.059e-6, its control 2.218e-1; the staged
+# payload 9.5e-7 from one process's logits.
+TP_LOSS_TOL = 1e-4
+TP_CHANGE_TOL = 3e-4
+TP_BF16_LOSS_TOL = 5e-3
+TP_BF16_CHANGE_TOL = 5e-2
+PP_LOSS_TOL = 1e-4
+PP_CHANGE_TOL = 1e-3
+# The exported staged payload (no mesh, the stages in order) against the
+# one-process model's logits: f32 on both sides, trained apart by the gaps
+# above.
+PP_LOGIT_TOL = 1e-3
+
+
+def tp_hparams(dropout=0.0):
+    return {**DEFAULT_HPARAMS, "vocab_size": TP_VOCAB, "attn_impl": "flash",
+            "max_len": SEQ_LEN, "num_classes": 2, "dropout_rate": dropout,
+            "batch_size": TP_BATCH}
+
+
+def tp_batches(seed, n=TP_STEPS):
+    return training_batches(seed + 37, TP_VOCAB, n, batch=TP_BATCH, length=SEQ_LEN)
+
+
+def tp_partition(hp):
+    from tpu_pipelines_torch.parallel.partition import (
+        bert_partition_rules,
+        make_param_partition,
+    )
+
+    with torch.device("meta"):
+        return make_param_partition(build_bert_model(hp), bert_partition_rules())
+
+
+def pp_batches(seed, n=PP_STEPS):
+    rng = np.random.default_rng(seed + 41)
+    out = []
+    for _ in range(n):
+        tokens = rng.integers(2, TP_VOCAB, size=(PP_HP["batch_size"], SEQ_LEN))
+        out.append({"tokens": tokens.astype(np.int64),
+                    "label": (tokens[:, 0] % PP_HP["num_classes"]).astype(np.int64)})
+    return out
+
+
+def pp_predict_tokens(seed):
+    rng = np.random.default_rng(seed + 43)
+    return rng.integers(2, TP_VOCAB, size=(PP_PREDICT_ROWS, SEQ_LEN)).astype(np.int64)
+
+
+def pp_build(mesh):
+    from tpu_pipelines_torch.models.staged import (
+        build_staged_model,
+        init_staged_weights,
+    )
+
+    return lambda generator, batch: init_staged_weights(
+        build_staged_model(PP_HP, mesh=mesh), generator)
+
+
+def pp_partition():
+    from tpu_pipelines_torch.models.staged import (
+        build_staged_model,
+        staged_partition_rules,
+    )
+    from tpu_pipelines_torch.parallel.partition import make_param_partition
+
+    with torch.device("meta"):
+        return make_param_partition(build_staged_model(PP_HP),
+                                    staged_partition_rules())
+
+
+def step_ms(times):
+    """The median host ms between consecutive step ends (the first step,
+    with its warm-up or capture, excluded)."""
+    gaps = np.diff(np.asarray(times)) * 1e3
+    return float(np.median(gaps)) if len(gaps) else float("nan")
+
+
+def leave_out_first_attention_reduction(model):
+    """The tensor-parallel control: layer 0's attention output is the
+    rank's partial product alone, its reduction over ``model`` left out."""
+    attn = model.encoder.layers[0].attn
+
+    def partial(out):
+        b, l = out.shape[:2]
+        return tfm._dense(out.reshape(b, l, -1), attn.out, attn.dtype)
+
+    attn._project_out = partial
+
+
+def _held_shapes(model, names):
+    return {n: tuple(p.shape) for n, p in model.named_parameters() if n in names}
+
+
+def _tp_job(seed, *, want_path, f32, control=False):
+    """One rank of BERT-base (12 x 64 heads, d_ff 3072, vocabulary 30,522)
+    at TP_BATCH x SEQ_LEN over data = 1 x model = 2 with flash attention,
+    dropout 0, TP_STEPS SGD steps through train_loop with
+    ``bert_partition_rules`` (f32 compute with ``f32``, else bf16).  The
+    control leaves layer 0's attention-output reduction out."""
+    from tpu_pipelines_torch.parallel.mesh import make_mesh
+
+    zero_counters()
+    mesh = make_mesh({"data": 1, "model": 2}, device=DEVICE)
+    hp = tp_hparams()
+    held = {}
+    names = ("encoder.embed.weight", "encoder.layers.0.attn.query.weight",
+             "encoder.layers.0.attn.out.weight", "encoder.layers.0.mlp.wi.weight")
+
+    def hook(model):
+        held.update(_held_shapes(model, names))
+        if control:
+            leave_out_first_attention_reduction(model)
+
+    times = []
+    t0 = time.perf_counter()
+    model, losses, result, start = parallel_run(
+        hp, seed, tp_batches(seed), mesh, f32=f32, param_partition=tp_partition(hp),
+        hook=hook, step_times=times)
+    seconds = time.perf_counter() - t0
+    return {"losses": losses, "sums": _sums(model), "seconds": seconds,
+            "gap": change_gap(model, start, want_path),
+            "held": held, "step_ms": step_ms(times),
+            "step_capture": result.step_capture, "launches": by_record(counters())}
+
+
+def _tp_run_fn_job(seed, *, examples, out_dir, batch):
+    """One rank of ``bert_module.run_fn`` at BERT-base (vocabulary 30,522,
+    flash, dropout 0.1) on ``mesh_config {"data": 1, "model": 2}``: the
+    losses, the returned (gathered) model's sums and its eval-mode logits
+    of ``batch``, and on rank 0 the exported payload's, loaded with no
+    mesh."""
+    from tpu_pipelines_torch.trainer.fn_args import FnArgs
+
+    zero_counters()
+    losses, seen = [], {}
+    real = bert_module.train_loop
+
+    def recording(**kwargs):
+        kwargs["metrics_cb"] = lambda s, m: losses.append(m["loss"])
+        seen["model"], result = real(**kwargs)
+        return seen["model"], result
+
+    serving = os.path.join(out_dir, "model")
+    with mock.patch.object(bert_module, "train_loop", recording):
+        result = bert_module.run_fn(FnArgs(
+            train_examples_uri=examples, eval_examples_uri=examples,
+            serving_model_dir=serving, model_run_dir=os.path.join(out_dir, "run"),
+            train_steps=TP_STEPS, hyperparameters=tp_hparams(dropout=0.1),
+            mesh_config={"data": 1, "model": 2},
+            custom_config={"train_loop": {"log_every": 1, "window_steps": 1}},
+            device=DEVICE))
+    model = seen["model"].eval()
+    features = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+    with torch.no_grad():
+        logits = model(features).float().cpu()
+    out = {"losses": losses, "sums": _sums(model), "logits": logits,
+           "steps_completed": result.steps_completed,
+           "launches": by_record(counters())}
+    if torch.distributed.get_rank() == 0:
+        loaded = load_exported_model(serving, device=DEVICE)
+        out["payload_logits"] = torch.as_tensor(loaded.predict(batch)).float()
+    return out
+
+
+def _stage_elements(model):
+    return sum(p.numel() for n, p in model.named_parameters() if n.startswith("stages."))
+
+
+def shifting_stage_1_by_a_microbatch():
+    """The pipeline control: pipe rank 1 is handed, at each tick, what
+    stage 0 sent the tick before (every rank still exchanges at every
+    tick, so the backward stays matched)."""
+    from tpu_pipelines_torch.parallel import collectives
+
+    real = collectives.ppermute
+    ticks = PP_HP["num_microbatches"] + PP_HP["n_stages"] - 2
+    held = {"calls": 0}
+
+    def shifted(x, perm, group):
+        got = real(x, perm, group)
+        if held["calls"] % ticks == 0:
+            held.pop("prev", None)
+        held["calls"] += 1
+        if torch.distributed.get_rank(group) != 1:
+            return got
+        prev = held.get("prev", got)
+        held["prev"] = got
+        # got stays in the graph (a zero gradient), so that this exchange's
+        # backward runs on this rank too.
+        return prev + 0 * got
+
+    return mock.patch.object(collectives, "ppermute", shifted)
+
+
+def _pp_job(seed, *, want_path, out_dir, control=False):
+    """One rank of the staged classifier at BERT width (PP_HP) over data =
+    1 x pipe = 2, PP_STEPS SGD steps through train_loop with
+    ``staged_partition_rules``: the stage shapes it held while training,
+    the losses and parameter change against the sequential run, and on
+    rank 0 the exported payload (no mesh): its stage dims and its
+    predictions of the PP_PREDICT_ROWS rows."""
+    from tpu_pipelines_torch.examples import staged_module
+    from tpu_pipelines_torch.parallel.mesh import make_mesh
+
+    zero_counters()
+    mesh = make_mesh({"data": 1, "pipe": 2}, device=DEVICE)
+    held = {}
+
+    def hook(model):
+        held["stages"] = sorted({tuple(p.shape)[0] for n, p in model.named_parameters()
+                                 if n.startswith("stages.")})
+        held["stage_elements"] = _stage_elements(model)
+
+    times = []
+    t0 = time.perf_counter()
+    with (shifting_stage_1_by_a_microbatch() if control
+          else contextlib.nullcontext()):
+        model, losses, result, start = parallel_run(
+            PP_HP, seed, pp_batches(seed), mesh, loss_fn=staged_module.loss_fn,
+            param_partition=pp_partition(), build=pp_build(mesh), hook=hook,
+            step_times=times)
+    seconds = time.perf_counter() - t0
+    out = {"losses": losses, "sums": _sums(model), "seconds": seconds,
+           "gap": change_gap(model, start, want_path), "held": held,
+           "whole_stage_elements": _stage_elements(model),
+           "step_ms": step_ms(times), "step_capture": result.step_capture,
+           "launches": by_record(counters())}
+    if torch.distributed.get_rank() == 0 and not control:
+        export_model(serving_model_dir=out_dir, params=model.state_dict(),
+                     module_file=staged_module.__file__, hyperparameters=PP_HP)
+        loaded = load_exported_model(out_dir, device=DEVICE)
+        out["payload_stages"] = sorted({tuple(v.shape)[0] for k, v in loaded.params.items()
+                                        if k.startswith("stages.")})
+        out["payload_logits"] = torch.as_tensor(
+            loaded.predict({"tokens": pp_predict_tokens(seed)})).float()
+    return out
+
+
+def tp_run_fn_examples(root, seed):
+    """A two-shard examples artifact of TP_RUN_FN_ROWS rows for the BERT
+    module (train and eval splits alike) and a batch of 8 of them."""
+    from tpu_pipelines_torch.data import examples_io
+
+    data = training_batches(seed + 47, TP_VOCAB, 1, batch=TP_RUN_FN_ROWS,
+                            length=SEQ_LEN)[0]
+    examples = os.path.join(root, "examples")
+    for split in ("train", "eval"):
+        examples_io.write_split(examples, split,
+                                examples_io.table_from_columns(data), num_shards=2)
+    return examples, {k: v[:8] for k, v in data.items() if k != "label"}
+
+
+def staged_dag_phase(card, workdir):
+    """(d) The staged DAG twin through ``python -m tpu_pipelines_torch run``
+    in this process at its defaults: one process is fewer than its data 2
+    x pipe 4, so the reference's fallback runs (plain data parallelism,
+    the stages in order); cold then warm, no attention kernel."""
+    from tpu_pipelines_torch.examples import staged_pipeline
+
+    base = os.path.join(workdir, "staged")
+    module = os.path.join(staged_pipeline.HERE, "staged_pipeline.py")
+
+    def run_once():
+        with mock.patch.dict(os.environ, {"TPP_PIPELINE_HOME": base}):
+            code, out = cli(["run", "--pipeline-module", module, "--device", DEVICE])
+        if code != 0:
+            raise AssertionError(f"staged_dag: run exited {code}: {out[-2000:]}")
+
+    cold, cold_s, warm, warm_s, launches, seen = run_dag(
+        "staged_dag", run_once, os.path.join(staged_pipeline.HERE, "staged_module.py"))
+    if any(launches.values()):
+        raise AssertionError(f"staged_dag: launches {launches}")
+    result = seen["result"]
+    if not np.isfinite(seen["losses"]).all() or result.steps_completed != 60:
+        raise AssertionError(f"staged_dag: {result.steps_completed} steps, losses "
+                             f"{seen['losses'][:3]} ...")
+    print(f"tp_pp_two_ranks (d) staged DAG [{card}]: `python -m "
+          f"tpu_pipelines_torch run` at its defaults (one process: the "
+          f"sequential fallback) cold {cold_s:.1f} s: " + ", ".join(
+              f"{k} {v.wall_clock_s:.2f} s" for k, v in cold.nodes.items())
+          + f"; {result.steps_completed} steps, losses {seen['losses'][0]:.4f} -> "
+          f"{seen['losses'][-1]:.4f}, {seen['captures']} capture, "
+          f"{seen['replays']} replays, {result.examples_per_sec:.1f} examples/s; "
+          f"warm run {warm_s:.2f} s, all {len(cold.nodes)} CACHED, no kernel "
+          "launched", flush=True)
+
+
+def two_rank_jobs(seed, card, setups):
+    """Each of ``setups`` (``setup(seed, card, tmp) -> (jobs, finish)``: its
+    one-process runs, then its jobs) in turn, deterministic cuBLAS, then
+    every job in one spawn of two gloo ranks of the card, one job at a
+    time; returns each ``finish(two, seconds)``."""
+    tmp = tempfile.mkdtemp()
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        made = [setup(seed, card, tmp) for setup in setups]
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        two = dp_spawn(2, DP_TWO_BACKEND, seed,
+                       [job for jobs, _ in made for job in jobs])
+        two_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if cublas is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    return [finish(two, two_s) for _, finish in made]
+
+
+def tp_pp_setup(seed, card, tmp):
+    """(8d) tp_pp_two_ranks: tensor and pipeline parallelism (A6b) on two
+    gloo ranks of the one card (NCCL refuses two ranks on one device;
+    gloo carries all_reduce, all_gather and all_to_all_single on CUDA
+    tensors), one job at a time, each job's launches counted from zero on
+    its ranks, each held against one process running the same steps: (a)
+    BERT-base over model = 2 in f32 and in bf16, each with a control; (b)
+    ``bert_module.run_fn`` on that mesh at dropout 0.1, its payload loaded
+    with no mesh; (c) the staged classifier at BERT width over pipe = 2
+    (parity, a control, the payload).  Returns the one-process runs' rank
+    jobs and ``finish(two, seconds)`` -> ({"tp": [rank 0's, rank 1's
+    launches of the bf16 run], "pp": [...]}, the failures);
+    ``two_rank_jobs`` runs them."""
+    zero_counters()
+    one, paths = {}, {}
+    for name, f32 in (("tp_f32", True), ("tp_bf16", False)):
+        times = []
+        t0 = time.perf_counter()
+        model, losses, result, _ = parallel_run(
+            tp_hparams(), seed, tp_batches(seed), step_times=times, f32=f32)
+        one[name] = {"losses": losses, "step_ms": step_ms(times),
+                     "seconds": time.perf_counter() - t0,
+                     "step_capture": result.step_capture}
+        paths[name] = os.path.join(tmp, f"{name}.pt")
+        torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+                   paths[name])
+        del model
+    from tpu_pipelines_torch.examples import staged_module
+
+    times = []
+    t0 = time.perf_counter()
+    model, losses, result, _ = parallel_run(
+        PP_HP, seed, pp_batches(seed), loss_fn=staged_module.loss_fn,
+        build=pp_build(None), step_times=times)
+    with torch.no_grad():
+        pp_logits = model.eval()(torch.as_tensor(pp_predict_tokens(seed),
+                                                 device=DEVICE)).float().cpu()
+    one["pp"] = {"losses": losses, "step_ms": step_ms(times),
+                 "seconds": time.perf_counter() - t0,
+                 "step_capture": result.step_capture}
+    paths["pp"] = os.path.join(tmp, "pp.pt")
+    torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+               paths["pp"])
+    del model
+    one_launches = by_record(counters())
+    examples, batch = tp_run_fn_examples(tmp, seed)
+    jobs = [("tp_f32", "tp", {"want_path": paths["tp_f32"], "f32": True}),
+            ("tp_f32_control", "tp", {"want_path": paths["tp_f32"], "f32": True,
+                                      "control": True}),
+            ("tp_bf16", "tp", {"want_path": paths["tp_bf16"], "f32": False}),
+            ("tp_bf16_control", "tp", {"want_path": paths["tp_bf16"], "f32": False,
+                                       "control": True}),
+            ("run_fn", "tp_run_fn", {"examples": examples, "batch": batch,
+                                     "out_dir": os.path.join(tmp, "run_fn")}),
+            ("pp", "pp", {"want_path": paths["pp"],
+                          "out_dir": os.path.join(tmp, "pp_model")}),
+            ("pp_control", "pp", {"want_path": paths["pp"], "control": True,
+                                  "out_dir": os.path.join(tmp, "pp_control")})]
+    return jobs, functools.partial(_tp_pp_finish, card, one, one_launches, pp_logits)
+
+
+def _tp_pp_finish(card, one, one_launches, pp_logits, two, two_s):
+    failures = []
+    print(f"tp_pp_two_ranks [{card}]: one process ({one['tp_f32']['step_capture']}): "
+          f"BERT-base (vocabulary {TP_VOCAB}) flash at {TP_BATCH} x {SEQ_LEN}, "
+          f"f32 losses " + " ".join(f"{x:.6f}" for x in one["tp_f32"]["losses"])
+          + f", step {one['tp_f32']['step_ms']:.1f} ms; bf16 losses "
+          + " ".join(f"{x:.6f}" for x in one["tp_bf16"]["losses"])
+          + f", step {one['tp_bf16']['step_ms']:.1f} ms; the staged classifier "
+          f"(d_model 768, 2 x 6 layers, batch {PP_HP['batch_size']}, f32) in "
+          "order, losses " + " ".join(f"{x:.6f}" for x in one["pp"]["losses"])
+          + f", step {one['pp']['step_ms']:.1f} ms; launches {one_launches} (the "
+          "one-process runs', not the ranks')", flush=True)
+    print(f"tp_pp_two_ranks: two ranks over {DP_TWO_BACKEND} on one card "
+          f"({two[0]['tp_f32']['step_capture']}), {two_s:.1f} s", flush=True)
+    per_run = {k: N_LAYERS * TP_STEPS for k in two[0]["tp_f32"]["launches"]}
+    per_run["flash_decode"] = 0
+    nothing = dict.fromkeys(per_run, 0)
+    d, ff = DEFAULT_HPARAMS["d_model"], DEFAULT_HPARAMS["d_ff"]
+    half = {"encoder.embed.weight": (TP_VOCAB // 2, d),
+            "encoder.layers.0.attn.query.weight": (d // 2, d),
+            "encoder.layers.0.attn.out.weight": (d, d // 2),
+            "encoder.layers.0.mlp.wi.weight": (ff // 2, d)}
+    for name, want, change_tol, loss_tol in (
+            ("tp_f32", one["tp_f32"], TP_CHANGE_TOL, TP_LOSS_TOL),
+            ("tp_f32_control", one["tp_f32"], TP_CHANGE_TOL, TP_LOSS_TOL),
+            ("tp_bf16", one["tp_bf16"], TP_BF16_CHANGE_TOL, TP_BF16_LOSS_TOL),
+            ("tp_bf16_control", one["tp_bf16"], TP_BF16_CHANGE_TOL,
+             TP_BF16_LOSS_TOL),
+            ("pp", one["pp"], PP_CHANGE_TOL, PP_LOSS_TOL),
+            ("pp_control", one["pp"], PP_CHANGE_TOL, PP_LOSS_TOL)):
+        r0, r1 = two[0][name], two[1][name]
+        apart = [n for n in r0["sums"] if r0["sums"][n] != r1["sums"][n]]
+        control = name.endswith("control")
+        held = (f"{r0['seconds']:.1f} s, step {r0['step_ms']:.1f} ms over gloo on "
+                f"one card; losses equal on both ranks {r0['losses'] == r1['losses']}, "
+                f"parameters apart {apart[:3]} ({len(apart)}); losses "
+                + " ".join(f"{x:.6f}" for x in r0["losses"]))
+        loss_gap = max(abs(a - b) / abs(b)
+                       for a, b in zip(r0["losses"], want["losses"]))
+        gap = max(r0["gap"], r1["gap"])
+        print(f"tp_pp_two_ranks {name}: {held} (one process step "
+              f"{want['step_ms']:.1f} ms); max rel loss gap {loss_gap:.3e} "
+              f"(tol {loss_tol:g}); rel L2 of the parameter change against "
+              f"one process {r0['gap']:.3e} (rank 1 {r1['gap']:.3e}) (tol "
+              f"{change_tol:g}" + (", must exceed it" if control else "")
+              + f"); held while training {r0['held']}; rank launches "
+              f"{r0['launches']} / {r1['launches']}", flush=True)
+        if r0["losses"] != r1["losses"] or apart:
+            failures.append(f"{name}: the two ranks disagree")
+        if not np.isfinite(r0["losses"]).all():
+            failures.append(f"{name}: losses {r0['losses']}")
+        want_launches = per_run if name.startswith("tp") else nothing
+        for r, rank in enumerate((r0, r1)):
+            if rank["launches"] != want_launches:
+                failures.append(f"{name}: rank {r} launched {rank['launches']}, "
+                                f"want {want_launches}")
+        if name.startswith("tp") and r0["held"] != half:
+            failures.append(f"{name}: rank 0 held {r0['held']}, want {half}")
+        if name.startswith("pp") and (
+                r0["held"]["stages"] != [1]
+                or 2 * r0["held"]["stage_elements"] != r0["whole_stage_elements"]):
+            failures.append(f"{name}: rank 0 held {r0['held']} of "
+                            f"{r0['whole_stage_elements']} stage elements")
+        if control and min(r0["gap"], r1["gap"]) <= change_tol:
+            failures.append(f"{name}: the control stays within {change_tol:g}")
+        if not control and (gap > change_tol or loss_gap > loss_tol):
+            failures.append(f"{name}: gap {gap:.3e}, loss gap {loss_gap:.3e}")
+
+    r0, r1 = two[0]["run_fn"], two[1]["run_fn"]
+    apart = [n for n in r0["sums"] if r0["sums"][n] != r1["sums"][n]]
+    payload_gap = float((r0["payload_logits"] - r0["logits"]).abs().max())
+    print(f"tp_pp_two_ranks (b) bert_module.run_fn on model = 2, dropout 0.1: "
+          f"{r0['steps_completed']} steps, losses equal on both ranks "
+          f"{r0['losses'] == r1['losses']} (" + " ".join(f"{x:.6f}" for x in r0["losses"])
+          + f"), parameters apart {len(apart)}, launches {r0['launches']} / "
+          f"{r1['launches']}; rank 0's payload (no mesh) against the gathered "
+          f"model's logits: max |diff| {payload_gap:.3e} (tol {LOGIT_TOL:g})",
+          flush=True)
+    if r0["losses"] != r1["losses"] or apart or r0["steps_completed"] != TP_STEPS:
+        failures.append("run_fn: the two ranks disagree")
+    if not torch.equal(r0["logits"], r1["logits"]) or payload_gap > LOGIT_TOL:
+        failures.append(f"run_fn: payload gap {payload_gap:.3e}")
+    for r, rank in enumerate((r0, r1)):
+        if rank["launches"]["flash_bwd_dq"] != N_LAYERS * TP_STEPS:
+            failures.append(f"run_fn: rank {r} launched {rank['launches']}")
+
+    pp = two[0]["pp"]
+    pred_gap = float((pp["payload_logits"] - pp_logits).abs().max())
+    print(f"tp_pp_two_ranks (c) rank 0's staged payload (no mesh): stages "
+          f"{pp['payload_stages']} a leading dim, predictions of "
+          f"{PP_PREDICT_ROWS} rows against the one-process model's: max |diff| "
+          f"{pred_gap:.3e} (tol {PP_LOGIT_TOL:g})", flush=True)
+    if pp["payload_stages"] != [PP_HP["n_stages"]] or pred_gap > PP_LOGIT_TOL:
+        failures.append(f"pp payload: stages {pp['payload_stages']}, gap {pred_gap:.3e}")
+    return ({"tp": [two[0]["tp_bf16"]["launches"], two[1]["tp_bf16"]["launches"]],
+             "pp": [two[0]["pp"]["launches"], two[1]["pp"]["launches"]]}, failures)
 
 
 def main(argv=None) -> int:
@@ -9093,10 +9647,18 @@ def main(argv=None) -> int:
     phase_done("moe_serving")
     dp_trained = dp_train_phase(args.seed, card)
     phase_done("dp_train")
-    sp_launches, sp_failures = seq_expert_two_ranks_phase(args.seed, card)
+    # seq_expert_two_ranks and tp_pp_two_ranks: their one-process runs,
+    # then every rank job of both in one spawn of two gloo ranks.
+    (sp_launches, sp_failures), (tp_pp_launches, tp_pp_failures) = two_rank_jobs(
+        args.seed, card, [seq_expert_setup, tp_pp_setup])
     if sp_failures:
         raise AssertionError("seq_expert_two_ranks: " + "; ".join(sp_failures))
-    phase_done("seq_expert_two_ranks")
+    if tp_pp_failures:
+        raise AssertionError("tp_pp_two_ranks: " + "; ".join(tp_pp_failures))
+    phase_done("seq_expert_two_ranks + tp_pp_two_ranks")
+    with tempfile.TemporaryDirectory() as workdir:
+        staged_dag_phase(card, workdir)
+    phase_done("staged_dag")
     # The taxi DAG launches none of the attention kernels (its Transform
     # and model are plain torch): the counters stay where training left
     # them, and the phase checks so.
@@ -9171,9 +9733,15 @@ def main(argv=None) -> int:
         record["launches_by_path"]["moe_train"] = moe_trained[record["name"]]
         record["launches_by_path"]["seq_expert_two_ranks"] = sp_launches[
             record["name"]]
+        record["launches_by_path"]["tp_pp_two_ranks"] = {
+            kind: [rank[record["name"]] for rank in ranks]
+            for kind, ranks in tp_pp_launches.items()}
     bwd[0]["dvec_launches_by_path"]["moe_train"] = moe_trained["flash_bwd_dvec"]
     bwd[0]["dvec_launches_by_path"]["seq_expert_two_ranks"] = sp_launches[
         "flash_bwd_dvec"]
+    bwd[0]["dvec_launches_by_path"]["tp_pp_two_ranks"] = {
+        kind: [rank["flash_bwd_dvec"] for rank in ranks]
+        for kind, ranks in tp_pp_launches.items()}
     fwd["launches_by_path"]["moe_serving"] = moe_served
     fwd["launches_by_path"]["fleet_guard"] = guard
     fwd["launches_by_path"]["serving_surface"] = surface_fwd

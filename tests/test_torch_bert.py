@@ -202,7 +202,7 @@ def test_unported_options_raise():
     """"ring", "ulysses" and ``moe_experts`` were refused until A6a: on a
     mesh of one process ring and Ulysses are dense attention (the
     reference's ``n == 1`` branch), bit for bit, and ``moe_experts`` puts
-    an MoE MLP on the odd layers.  T5 on a seq mesh waits for A6b, and an
+    an MoE MLP on the odd layers.  T5 on a seq mesh waits for A6c, and an
     unknown attention raises."""
     from tpu_pipelines_torch.models.t5 import build_t5_model
     from tpu_pipelines_torch.parallel.mesh import DeviceMesh, make_mesh
@@ -221,7 +221,7 @@ def test_unported_options_raise():
     assert tuple(moe.encoder.layers[1].moe.wi.shape) == (2, TINY["d_model"], TINY["d_ff"])
     seq2 = DeviceMesh(None, 0, {"data": 1, "model": 1, "seq": 2, "expert": 1,
                                 "pipe": 1}, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="A6b"):
+    with pytest.raises(NotImplementedError, match="A6c"):
         build_t5_model({}, mesh=seq2)
     with pytest.raises(ValueError, match="attn_impl 'sparse'"):
         port_bert.build_bert_model({**TINY, "attn_impl": "sparse"})

@@ -370,9 +370,9 @@ def test_a_mesh_is_refused_naming_its_item(port_runs, tmp_path):
         serving_model_dir=str(tmp_path / "model"),
         model_run_dir=str(tmp_path / "run"), train_steps=1,
         hyperparameters=HP, mesh_config={"data": 2}, device="cpu")
-    # A mesh is ported (A5, A6a): two ranks do not cover a run of one
-    # process (the reference's error), nor do two on 'seq' or 'expert';
-    # a model or pipe axis waits for A6b.
+    # A mesh is ported (A5, A6a, A6b): two ranks do not cover a run of one
+    # process (the reference's error), nor do two on 'seq', 'expert',
+    # 'model' or 'pipe'.
     with pytest.raises(ValueError, match="does not cover 1 devices"):
         bert_module.run_fn(fn_args)
     for axis in ("seq", "expert"):
@@ -380,8 +380,8 @@ def test_a_mesh_is_refused_naming_its_item(port_runs, tmp_path):
         with pytest.raises(ValueError, match="does not cover 1 devices"):
             bert_module.run_fn(fn_args)
     for axis in ("model", "pipe"):
-        fn_args.mesh_config = {axis: 2}
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A6b"):
+        fn_args.mesh_config = {"data": 1, axis: 2}
+        with pytest.raises(ValueError, match="does not cover 1 devices"):
             bert_module.run_fn(fn_args)
 
 

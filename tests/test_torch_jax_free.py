@@ -60,7 +60,7 @@ spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 module = importlib.util.module_from_spec(spec)
 sys.modules["chip_smoke"] = module
 spec.loader.exec_module(module)       # defines main(); does not run it
-phases = sorted(n for n in dir(module) if n.endswith("_phase"))
+phases = sorted(n for n in dir(module) if n.endswith(("_phase", "_setup")))
 print(json.dumps({"imported": names, "modules": sorted(sys.modules),
                   "phases": phases}))
 """
@@ -139,6 +139,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
                    "examples.resnet_pipeline", "parallel.distributed",
                    "parallel.mesh", "parallel.partition",
                    "parallel.collectives", "parallel.ring_attention",
+                   "parallel.pipeline_parallel", "models.staged",
+                   "examples.staged_module", "examples.staged_pipeline",
                    "trainer.data_parallel", "serving.batching",
                    "observability.request_trace", "observability.federation",
                    "observability.metrics_history", "serving.grpc_server",
@@ -151,7 +153,7 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
             "vision_serving_phase", "vision_dag_phase",
             "dp_train_phase", "engine_levers_phase",
             "serving_surface_phase", "moe_train_phase", "moe_serving_phase",
-            "seq_expert_two_ranks_phase"} <= set(report["phases"])
+            "seq_expert_setup", "tp_pp_setup"} <= set(report["phases"])
     leaked = [m for m in report["modules"]
               if _forbidden(m) or m.split(".")[0] in NOT_AT_IMPORT]
     assert leaked == []
@@ -161,7 +163,8 @@ DISTRIBUTED = r"""
 import json, sys
 import torch.distributed as dist
 from tpu_pipelines_torch.parallel import (
-    collectives, distributed, mesh, partition, ring_attention)
+    collectives, distributed, mesh, partition, pipeline_parallel, ring_attention)
+from tpu_pipelines_torch.models import staged
 from tpu_pipelines_torch.trainer import data_parallel
 m = mesh.make_mesh({"data": 1}, device="cpu")
 print(json.dumps({"modules": sorted(sys.modules), "size": m.size,
@@ -171,8 +174,10 @@ print(json.dumps({"modules": sorted(sys.modules), "size": m.size,
 
 def test_torch_distributed_and_the_parallel_modules_load_no_jax():
     """A fresh interpreter imports ``torch.distributed``, the data-,
-    sequence- and expert-parallel modules (``parallel/collectives.py``
-    among them) and makes a mesh: nothing of JAX or the reference."""
+    sequence-, expert-, tensor- and pipeline-parallel modules
+    (``parallel/collectives.py``, ``parallel/pipeline_parallel.py`` and
+    ``models/staged.py`` among them) and makes a mesh: nothing of JAX or
+    the reference."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
         [sys.executable, "-c", DISTRIBUTED], cwd=REPO,

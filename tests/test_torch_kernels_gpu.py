@@ -1795,6 +1795,26 @@ def test_two_ranks_on_one_card_carry_the_sequence_and_expert_exchanges(
                for rank in found["batch_isend_irecv"]), found
 
 
+def test_two_ranks_on_one_card_split_bert_heads_over_model(cuda, tmp_path):
+    """Tensor parallelism (A6b) on two gloo ranks of the card: BERT-base's
+    width at two layers over model = 2, one forward and backward; each
+    rank's attention holds 6 of the 12 heads and launches the forward,
+    Dvec, dq and dkv kernels once a layer on them; both ranks hold the
+    same logits, within LOGIT_TOL 4e-2 of one process's (bf16: the
+    ranks' partial sums round apart from one GEMM's)."""
+    import torch_dp_worker as w
+
+    got = [r["tp"] for r in w.spawn(2, [("tp", "torch_tp_worker:tp_card_step", {})],
+                                     str(tmp_path))]
+    for rank in got:
+        assert rank["heads"] == 6
+        assert rank["launches"] == {"launches": 2, "dvec_launches": 2,
+                                    "dq_launches": 2, "dkv_launches": 2,
+                                    "decode_launches": 0}, rank["launches"]
+    assert torch.equal(got[0]["logits"], got[1]["logits"])
+    assert float((got[0]["logits"] - got[0]["one_process"]).abs().max()) <= 4e-2
+
+
 def test_a_capture_that_cannot_succeed_raises_instead_of_running_eagerly(cuda):
     from tpu_pipelines_torch.examples import bert_module
 

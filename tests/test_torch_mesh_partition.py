@@ -14,7 +14,9 @@ and ``partition.py``, ROADMAP.md A5) against the reference's, on the CPU.
     a rank holds: exact;
   - ``foreign_axis_paths`` / ``validate_partition`` over the tensor-
     parallel rules, which name the same leaves as the reference's; the
-    rules on a ``model`` axis are refused, naming ROADMAP.md A6.
+    rules on a ``model`` axis take a model built on the mesh
+    (tests/test_torch_tensor_parallel.py), the MoE experts' ff dim over it
+    waits for ROADMAP.md A6c.
 """
 
 import jax
@@ -84,14 +86,13 @@ def test_make_mesh_of_one_process_and_the_a6_refusal():
     assert port_mesh.make_mesh({"seq": 1, "expert": 1}, device="cpu").world == 1
     with pytest.raises(ValueError, match="does not cover 1 devices"):
         port_mesh.make_mesh({"data": 2}, device="cpu")
-    # seq and expert are ported (A6a): two of them do not cover one process
-    # (the reference's error); model and pipe wait for A6b.
-    for axis in ("seq", "expert"):
+    # seq and expert (A6a), model and pipe (A6b) are ported: two of any of
+    # them do not cover one process (the reference's error), and an axis
+    # of 1 is a mesh of the one process.
+    for axis in ("seq", "expert", "model", "pipe"):
         with pytest.raises(ValueError, match="does not cover 1 devices"):
             port_mesh.make_mesh({"data": 1, axis: 2}, device="cpu")
-    for axis in ("model", "pipe"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A6b"):
-            port_mesh.make_mesh({axis: 2}, device="cpu")
+        assert port_mesh.make_mesh({axis: 1}, device="cpu").world == 1
     # Ranks map to coordinates as the reference reshapes its devices: AXES
     # order, row-major, the last axis fastest.
     sizes = {"data": 2, "model": 1, "seq": 2, "expert": 2, "pipe": 1}
@@ -233,8 +234,11 @@ def test_tensor_parallel_rules_name_the_reference_leaves_and_wait_for_a6():
                for p in problems)
 
     # On a model axis of 1 every spec is replicated and the implicit mode
-    # takes them; fsdp shards over 'data' only, psum keeps parameters
-    # replicated; a model axis above 1 waits for A6b.
+    # takes them; fsdp shards over 'data' only and the explicit modes
+    # exchange over it alone, psum keeps parameters replicated; above 1
+    # the implicit mode takes the specs of a model built on the mesh
+    # (tests/test_torch_tensor_parallel.py), not of one built whole, and
+    # the MoE experts' ff dim over 'model' waits for A6c.
     from tpu_pipelines_torch.trainer.data_parallel import DataParallel
     from tpu_pipelines_torch.trainer.train_loop import TrainLoopConfig
 
@@ -244,17 +248,24 @@ def test_tensor_parallel_rules_name_the_reference_leaves_and_wait_for_a6():
                             param_partition=partition),
             mesh, model, mode, False)
 
-    assert build("", _port_mesh(1)).expert_dims == {}
+    assert build("", _port_mesh(1)).held == {}
     assert port_part.effective_partition(partition, _port_mesh(1)) == {
         name: () for name in partition}
-    for mode, match in (("fsdp", "'data' axis only.*A6b"),
-                        ("psum_bucketed", "keeps params replicated")):
-        with pytest.raises(ValueError, match=match):
-            build(mode, port_mesh.DeviceMesh(None, 0, {**three, "model": 2},
-                                             torch.device("cpu")))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6b"):
-        build("", port_mesh.DeviceMesh(None, 0, {**three, "model": 2},
-                                       torch.device("cpu")))
+    two = port_mesh.DeviceMesh(None, 0, {**three, "model": 2}, torch.device("cpu"))
+    for mode in ("fsdp", "psum_bucketed"):
+        with pytest.raises(ValueError, match="'data' axis only"):
+            build(mode, two)
+    with pytest.raises(ValueError, match="keeps params replicated"):
+        build("psum_bucketed", _port_mesh(1))
+    with pytest.raises(ValueError, match="its module holds the whole"):
+        build("", two)
+    moe = build_bert_model({**BERT_SMALL, "moe_experts": 2})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A6c"):
+        DataParallel.build(
+            TrainLoopConfig(train_steps=1, batch_size=8, param_partition=
+                            port_part.make_param_partition(
+                                moe, port_part.bert_partition_rules())),
+            two, moe, "", False)
 
 
 def test_t5_rules_over_the_port_names():

@@ -386,8 +386,12 @@ def test_no_timeout_starts_no_thread_and_env_sets_one(monkeypatch):
     assert monitor._thread is None
     monitor.close()
     monkeypatch.setenv("TPP_STALL_TIMEOUT_S", "2.5")
-    assert HealthMonitor("env").stall_timeout_s == 2.5
-    assert RefMonitor("env").stall_timeout_s == 2.5
+    # Closed after: an open monitor stays in the process's /healthz list
+    # (open_monitors) for every later test.
+    for cls in (HealthMonitor, RefMonitor):
+        env = cls("env")
+        assert env.stall_timeout_s == 2.5
+        env.close()
 
 
 def test_status_alert_instant_and_the_runs_healthz(tmp_path):

@@ -380,8 +380,10 @@ def test_unported_config_field_raises(field, value, item, tmp_path,
     were ported: each must now run and take effect
     (tests/test_torch_dp_window.py holds A5's to the reference over several
     processes, tests/test_torch_train_extras.py A11's).  In one process a
-    mesh of two does not cover it (the reference's error), and a model axis
-    waits for ROADMAP.md A6b.  ``batch_partition`` (sequence-partitioned
+    mesh of two does not cover it (the reference's error), on any axis
+    (tensor and pipeline parallelism, A6b, run over several processes in
+    tests/test_torch_tensor_parallel.py and
+    tests/test_torch_pipeline_parallel.py).  ``batch_partition`` (sequence-partitioned
     inputs, A6a) runs in the implicit mode (held over several processes by
     tests/test_torch_seq_parallel.py) and raises the reference's errors for
     an explicit mode and for a key the batch lacks."""
@@ -399,8 +401,12 @@ def test_unported_config_field_raises(field, value, item, tmp_path,
             with pytest.raises(ValueError, match="does not cover 1 devices"):
                 _run(1, steps=2, log_every=0, config={field: value})
             for axis in ("model", "pipe"):
-                with pytest.raises(NotImplementedError, match="ROADMAP.md A6b"):
-                    _run(1, steps=2, log_every=0, config={field: {axis: 2}})
+                with pytest.raises(ValueError, match="does not cover 1 devices"):
+                    _run(1, steps=2, log_every=0,
+                         config={field: {"data": 1, axis: 2}})
+                _, result, _ = _run(1, steps=2, log_every=0,
+                                    config={field: {"data": 1, axis: 1}})
+                assert result.steps_completed == 2
             return
         mode = {"param_partition": "fsdp", "collective_buckets": "psum_bucketed",
                 "dp_grad_blocks": "ordered"}.get(field, "ordered")
@@ -456,14 +462,16 @@ def test_unported_arguments_and_missing_cuda_raise():
     # model without a floating-point buffer cannot hold any.
     with pytest.raises(ValueError, match="no floating-point buffer"):
         _run(1, steps=2, log_every=0, has_model_state=True)
-    # A mesh is ported (A5, A6a): one of two processes does not cover a
-    # run of one, and a model axis waits for ROADMAP.md A6b.
+    # A mesh is ported (A5, A6a, A6b): one of two processes does not cover
+    # a run of one, on any axis.
     with pytest.raises(ValueError, match="does not cover 1 devices"):
         _run(1, steps=2, log_every=0, mesh=make_mesh({"data": 2}, device="cpu"))
     with pytest.raises(ValueError, match="does not cover 1 devices"):
         _run(1, steps=2, log_every=0, mesh=make_mesh({"data": 1, "seq": 2}, device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6b"):
-        _run(1, steps=2, log_every=0, mesh=make_mesh({"model": 2}, device="cpu"))
+    for axis in ("model", "pipe"):
+        with pytest.raises(ValueError, match="does not cover 1 devices"):
+            _run(1, steps=2, log_every=0,
+                 mesh=make_mesh({"data": 1, axis: 2}, device="cpu"))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="'cuda'"):
             train_loop(

@@ -96,7 +96,7 @@ def moe_ep(state, x, capacity_factor, dtype="float32"):
     out.float().sum().backward()
     return {"out": out.detach(), "aux": losses[0].detach(), "dx": xs.grad,
             "grads": {n: p.grad for n, p in block.named_parameters()},
-            "first_expert": block.first_expert}
+            "first_expert": block.held_experts().start}
 
 
 # ---- BERT

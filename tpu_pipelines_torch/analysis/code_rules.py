@@ -877,9 +877,9 @@ def _check_pinned_dp_with_partition(
     either partition marker appears anywhere in the module.  ``None`` /
     ``"auto"`` (implicit GSPMD honours the specs) and ``"fsdp"`` stay
     silent, as do dynamic mode values: the reference's findings.  The
-    port's implicit mode takes ``expert`` specs and refuses data-axis
-    specs (they need ``"fsdp"``) and ``model``/``pipe`` specs (ROADMAP.md
-    A6b), which the loop says at startup."""
+    port's implicit mode takes ``expert``, ``model`` and ``pipe`` specs
+    (expert, tensor and pipeline parallelism) and refuses data-axis specs
+    (they need ``"fsdp"``), which the loop says at startup."""
     if not _mentions(src.tree, _PARTITION_MARKERS):
         return []
     out: List[Finding] = []

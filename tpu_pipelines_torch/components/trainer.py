@@ -35,8 +35,8 @@ from tpu_pipelines_torch.utils.module_loader import load_fn
         "eval_steps": Parameter(type=int, default=0),
         "hyperparameters": Parameter(type=dict, default=None),
         # Mesh axis sizes, passed to run_fn as fn_args.mesh_config (the
-        # train loop's mesh over the process group: 'data', 'seq' and
-        # 'expert'; 'model' and 'pipe' wait for ROADMAP.md A6b).
+        # train loop's mesh over the process group: 'data', 'model',
+        # 'seq', 'expert' and 'pipe').
         "mesh": Parameter(type=dict, default=None),
         "custom_config": Parameter(type=dict, default=None),
     },

@@ -22,12 +22,14 @@ extras, e.g. ``profile_dir``, ``tensorboard_dir``,
 ``collect_cost_analysis``, ``stall_timeout_s``, or ``checkpoint_every``),
 so a pipeline turns them on without a module of its own.
 
-A ``mesh`` with ``seq`` or ``expert`` above 1 is made here, as the
-reference's module makes it, and handed to ``build_bert_model`` (ring or
+A ``mesh`` with ``model``, ``seq`` or ``expert`` above 1 is made here, as
+the reference's module makes it, and handed to ``build_bert_model`` (the
+rank's heads, MLP columns and vocabulary rows over ``model``, ring or
 Ulysses attention over ``seq`` on whole rows, the rank's experts over
 ``expert``; ``moe_experts`` comes from the hyperparameters) and to the
 loop, with ``bert_partition_rules()`` as the partition when ``model`` or
-``seq`` is above 1 (its specs over axes of 1 replicate).  The loss stays
+``seq`` is above 1 (its specs over axes of 1 replicate).  Rank 0 exports
+the model the loop returns, gathered whole, which serves with no mesh.  The loss stays
 the reference module's: the MoE load-balancing loss is not added, as the
 reference module does not add it.
 """

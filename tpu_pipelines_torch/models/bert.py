@@ -4,9 +4,17 @@ Post-LN, as the original BERT.  The three embeddings are gathered, cast to
 the compute dtype and summed in it; the pooler and the classifier head run
 in f32 on the [CLS] position.  Weights come from a flax tree through
 ``models/convert.py`` or from :func:`init_bert_weights`.  Its partition
-rules are ``parallel/partition.py``'s ``bert_partition_rules`` (the
-``expert`` specs hold; the tensor-parallel ``model`` ones wait for
-ROADMAP.md A6b).
+rules are ``parallel/partition.py``'s ``bert_partition_rules``.
+
+On a mesh whose ``model`` axis is n > 1 (tensor parallelism) the blocks
+hold their rank's heads and MLP columns (``models/transformer.py``), the
+token embedding its V/n vocabulary rows (each rank looks up the ids it
+holds, zeroes the others, and the rows are summed over ``model`` by
+``leave_partial``: one process's lookup, bit for bit) and the MLM head its
+V/n logit columns, all-gathered by ``leave_split``; ``pos_embed``,
+``type_embed``, the norms, the pooler and the classifier replicate.
+:func:`init_bert_weights` draws every whole weight and keeps the rank's
+slice, so a tensor-parallel model starts from one process's weights.
 
 ``moe_experts > 0`` makes every odd layer (the Switch convention) a
 mixture-of-experts MLP (``models/transformer.py``'s ``MoEMlpBlock``),
@@ -41,8 +49,14 @@ from tpu_pipelines_torch.models.transformer import (
     MoEMlpBlock,
     TransformerBlock,
     _dense,
+    _model_split,
 )
 from tpu_pipelines_torch.parallel import collectives
+from tpu_pipelines_torch.parallel.partition import (
+    draw_whole,
+    hold_slices,
+    slice_group,
+)
 
 
 class BertEncoder(nn.Module):
@@ -65,7 +79,9 @@ class BertEncoder(nn.Module):
         self.mesh = mesh
         self.vocab_size = vocab_size
         self.dtype = dtype
-        self.embed = nn.Embedding(vocab_size, d_model)
+        n, group = _model_split(mesh, vocab_size, "vocabulary rows")
+        self.embed = nn.Embedding(vocab_size // n, d_model)
+        hold_slices(self.embed, {"weight": (0, group)})
         self.pos_embed = nn.Embedding(max_len, d_model)
         self.type_embed = nn.Embedding(type_vocab_size, d_model)
         self.embed_norm = LayerNorm(d_model, dtype)
@@ -91,7 +107,7 @@ class BertEncoder(nn.Module):
     ) -> torch.Tensor:
         ids = input_ids.long()
         l = ids.shape[1]
-        x = self.embed(ids).to(self.dtype)
+        x = self._token_embed(ids).to(self.dtype)
         start = self.mesh.axis_rank("seq") * l if self._split() else 0
         pos = torch.arange(start, start + l, device=ids.device)
         x = x + self.pos_embed(pos)[None].to(self.dtype)
@@ -102,6 +118,18 @@ class BertEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, attention_mask, generator, losses=losses)
         return x
+
+    def _token_embed(self, ids: torch.Tensor) -> torch.Tensor:
+        """The token embedding's rows of ``ids`` (vocabulary-parallel on a
+        ``model`` axis: see the module docstring)."""
+        group = slice_group(self.embed, "weight")
+        if group is None:
+            return self.embed(ids)
+        rows = self.embed.weight.shape[0]
+        local = ids - collectives.axis_rank(group) * rows
+        held = (local >= 0) & (local < rows)
+        x = F.embedding(torch.where(held, local, 0), self.embed.weight)
+        return collectives.leave_partial(x.masked_fill(~held[..., None], 0.0), group)
 
     def _split(self) -> bool:
         return (self.mesh is not None and self.mesh.seq_split
@@ -163,7 +191,8 @@ class BertClassifier(nn.Module):
 
 
 class BertMLMHead(nn.Module):
-    """Masked-LM logits over the vocab (pretraining-style objective)."""
+    """Masked-LM logits over the vocab (pretraining-style objective);
+    vocabulary-parallel on a ``model`` axis (the module docstring)."""
 
     def __init__(self, encoder: BertEncoder):
         super().__init__()
@@ -171,7 +200,10 @@ class BertMLMHead(nn.Module):
         d_model = encoder.embed.embedding_dim
         self.mlm_dense = nn.Linear(d_model, d_model)
         self.mlm_norm = LayerNorm(d_model, encoder.dtype)
-        self.mlm_head = nn.Linear(d_model, encoder.vocab_size)
+        n, group = _model_split(encoder.mesh, encoder.vocab_size,
+                                "vocabulary rows")
+        self.mlm_head = nn.Linear(d_model, encoder.vocab_size // n)
+        hold_slices(self.mlm_head, {"weight": (0, group), "bias": (0, group)})
 
     def forward(
         self,
@@ -182,7 +214,10 @@ class BertMLMHead(nn.Module):
         x = _encode(self.encoder, batch, generator, losses)
         x = F.gelu(_dense(x, self.mlm_dense, x.dtype), approximate="tanh")
         x = self.mlm_norm(x)
-        return _dense(x, self.mlm_head, torch.float32)
+        group = slice_group(self.mlm_head, "weight")
+        logits = _dense(collectives.enter_partial(x, group), self.mlm_head,
+                        torch.float32)
+        return collectives.leave_split(logits, -1, group)
 
 
 DEFAULT_HPARAMS = {
@@ -207,8 +242,9 @@ DEFAULT_HPARAMS = {
 
 def build_bert_model(hparams: Optional[Dict] = None, mesh: Any = None) -> nn.Module:
     """The reference's ``build_bert_model``; ``mesh`` (a ``DeviceMesh``)
-    places ring/Ulysses attention on its ``seq`` axis and the experts on
-    its ``expert`` axis."""
+    goes to every block: ring/Ulysses attention on its ``seq`` axis, the
+    experts on its ``expert`` axis, the heads, MLP columns and vocabulary
+    rows on its ``model`` axis."""
     hp = {**DEFAULT_HPARAMS, **(hparams or {})}
     encoder = BertEncoder(
         vocab_size=int(hp["vocab_size"]),
@@ -239,12 +275,14 @@ def init_bert_weights(
     """BERT's initialisation, drawn from ``generator``: normal(0, ``std``)
     for every Linear and Embedding weight, zero biases, unit LayerNorm;
     an MoE layer's experts keep the reference's fan-in init, drawn from
-    ``generator`` too (every expert rank draws all E and keeps its own)."""
+    ``generator`` too (every expert rank draws all E and keeps its own; a
+    tensor-parallel weight is drawn whole and sliced the same way)."""
     for module in model.modules():
         if isinstance(module, MoEMlpBlock):
             module.reset_parameters(generator)
         elif isinstance(module, (nn.Linear, nn.Embedding)):
-            module.weight.normal_(0.0, std, generator=generator)
+            draw_whole(module, "weight",
+                       lambda w: w.normal_(0.0, std, generator=generator))
             if getattr(module, "bias", None) is not None:
                 module.bias.zero_()
         elif isinstance(module, nn.LayerNorm):

@@ -20,6 +20,12 @@ copied bit for bit (bfloat16 leaves included); only layouts change:
     weight/bias and its ``batch_stats`` mean/var -> the
     ``running_mean`` / ``running_var`` buffers.
 
+``staged_state_dict_from_flax`` maps ``tpu_pipelines.models.staged``'s
+tree (``embed``, the ``stages`` stacked on a leading stage dim, ``head``)
+onto ``tpu_pipelines_torch.models.staged``, the stage dim kept in front.
+A model built on a mesh loads any of these whole state dicts into the
+slices its rank holds (``parallel.partition.hold_slices``).
+
 ``int8_state_dict_from_flax`` carries a reference int8 tree (each
 quantized leaf a ``{QUANT_Q: int8, QUANT_S: f32 [d0, 1, ...]}`` subtree,
 ``tpu_pipelines/trainer/quantize.py``) into the port's int8 state dict
@@ -79,6 +85,32 @@ def _embed(node: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return {"weight": _tensor(node["embedding"])}
 
 
+def block_state_dict_from_flax(layer: Mapping[str, Any], prefix: str = ""
+                               ) -> Dict[str, torch.Tensor]:
+    """A layernorm ``TransformerBlock``'s tensors (self-attention, the MLP
+    or its MoE, the two norms) under ``prefix``."""
+    out: Dict[str, torch.Tensor] = {}
+    lead = f"{prefix}." if prefix else ""
+
+    def put(sub: str, tensors: Dict[str, torch.Tensor]) -> None:
+        for name, t in tensors.items():
+            out[f"{lead}{sub}.{name}"] = t
+
+    for proj in ("query", "key", "value"):
+        put(f"attn.{proj}", _linear_in_heads(layer["attn"][proj]))
+    put("attn.out", _linear_out_heads(layer["attn"]["out"]))
+    put("attn_norm", _norm(layer["attn_norm"]))
+    if "moe" in layer:
+        moe = layer["moe"]
+        put("moe.router", _linear(moe["router"]))
+        put("moe", {"wi": _tensor(moe["wi"]), "wo": _tensor(moe["wo"])})
+    else:
+        put("mlp.wi", _linear(layer["mlp"]["wi"]))
+        put("mlp.wo", _linear(layer["mlp"]["wo"]))
+    put("mlp_norm", _norm(layer["mlp_norm"]))
+    return out
+
+
 def bert_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``state_dict`` for ``BertClassifier`` or ``BertMLMHead`` from the
     flax params tree of the same geometry.  An MoE layer's
@@ -97,26 +129,48 @@ def bert_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tens
     put("encoder.embed_norm", _norm(enc["embed_norm"]))
     n_layers = sum(1 for key in enc if key.startswith("layer_"))
     for i in range(n_layers):
-        layer = enc[f"layer_{i}"]
-        prefix = f"encoder.layers.{i}"
-        for proj in ("query", "key", "value"):
-            put(f"{prefix}.attn.{proj}", _linear_in_heads(layer["attn"][proj]))
-        put(f"{prefix}.attn.out", _linear_out_heads(layer["attn"]["out"]))
-        put(f"{prefix}.attn_norm", _norm(layer["attn_norm"]))
-        if "moe" in layer:
-            moe = layer["moe"]
-            put(f"{prefix}.moe.router", _linear(moe["router"]))
-            put(f"{prefix}.moe", {"wi": _tensor(moe["wi"]), "wo": _tensor(moe["wo"])})
-        else:
-            put(f"{prefix}.mlp.wi", _linear(layer["mlp"]["wi"]))
-            put(f"{prefix}.mlp.wo", _linear(layer["mlp"]["wo"]))
-        put(f"{prefix}.mlp_norm", _norm(layer["mlp_norm"]))
+        out.update(block_state_dict_from_flax(enc[f"layer_{i}"], f"encoder.layers.{i}"))
     for name in ("pooler", "head", "mlm_dense", "mlm_head"):
         if name in params:
             put(name, _linear(params[name]))
     if "mlm_norm" in params:
         put("mlm_norm", _norm(params["mlm_norm"]))
     return out
+
+
+def staged_state_dict_from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``state_dict`` for ``StagedClassifier`` from the reference's staged
+    tree: ``embed/token`` and ``embed/pos_embedding``, each ``stages``
+    leaf ``[S, ...]`` carried stage by stage through the block layouts and
+    stacked again on dim 0 (``stages.layers.{j}...``), ``head/final_norm``
+    and ``head/classifier``."""
+    out: Dict[str, torch.Tensor] = {
+        "embed.token.weight": _tensor(params["embed"]["token"]["embedding"]),
+        "embed.pos_embedding": _tensor(params["embed"]["pos_embedding"]),
+    }
+    stages = params["stages"]
+    n_stages = int(np.shape(stages["layer_0"]["attn_norm"]["scale"])[0])
+    per_stage = []
+    for s in range(n_stages):
+        one = {}
+        for key, layer in stages.items():
+            j = int(key.split("_")[1])
+            leaf = _map_tree(layer, lambda a: np.asarray(a)[s])
+            one.update(block_state_dict_from_flax(leaf, f"stages.layers.{j}"))
+        per_stage.append(one)
+    for name in per_stage[0]:
+        out[name] = torch.stack([one[name] for one in per_stage])
+    out.update({f"head.final_norm.{k}": v
+                for k, v in _norm(params["head"]["final_norm"]).items()})
+    out.update({f"head.classifier.{k}": v
+                for k, v in _linear(params["head"]["classifier"]).items()})
+    return out
+
+
+def _map_tree(node: Any, fn: Callable[[Any], Any]) -> Any:
+    if isinstance(node, Mapping):
+        return {k: _map_tree(v, fn) for k, v in node.items()}
+    return fn(node)
 
 
 def _rms(node: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

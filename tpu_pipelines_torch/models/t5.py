@@ -16,8 +16,9 @@ module's own tensors run the module as it is, any other dict runs it
 through ``torch.func.functional_call``.  The decode contract's ``verify``
 scores a ``[b, q]`` window of fed tokens in one decoder pass (the
 speculative-decoding verify); ``t5_partition_rules`` is in
-``parallel/partition.py`` (its tensor-parallel specs wait for A6b, and so
-does T5 on a ``seq`` or ``expert`` mesh: ``build_t5_model`` raises).
+``parallel/partition.py`` (its tensor-parallel specs wait for A6c, and so
+does T5 on a ``seq``, ``expert`` or ``pipe`` mesh: ``build_t5_model``
+raises).
 """
 
 from __future__ import annotations
@@ -263,12 +264,15 @@ DEFAULT_HPARAMS = {
 
 def build_t5_model(hparams: Optional[Dict] = None, mesh: Any = None) -> T5:
     """The reference's ``build_t5_model``.  A ``mesh`` with any axis but
-    ``data`` above 1 raises ``NotImplementedError`` (ROADMAP.md A6b)."""
+    ``data`` above 1 raises ``NotImplementedError`` (ROADMAP.md A6c: T5's
+    tensor-parallel rules, its relative-position table over heads and its
+    shared vocabulary-parallel embedding with the tied logits, and T5 on
+    ``seq``, ``expert`` or ``pipe``)."""
     if mesh is not None:
         others = {a: n for a, n in mesh.shape.items() if a != "data" and n > 1}
         if others:
             raise NotImplementedError(
-                f"T5 on mesh axes {others} is not ported yet (ROADMAP.md A6b)")
+                f"T5 on mesh axes {others} is not ported yet (ROADMAP.md A6c)")
     hp = {**DEFAULT_HPARAMS, **(hparams or {})}
     return T5(
         vocab_size=int(hp["vocab_size"]),

@@ -55,6 +55,19 @@ Which tokens a rank holds is the mesh's ``seq_split``:
 ``MoEMlpBlock`` is the Switch mixture-of-experts MLP (top-1 routing with
 a capacity, the aux loss returned through the forward); on an ``expert``
 axis a rank holds its slice of the experts and the whole group's tokens.
+
+On a mesh whose ``model`` axis is n > 1 (tensor parallelism, Megatron's
+split) attention holds H/n heads (``query``/``key``/``value``
+column-parallel, ``out`` row-parallel) and the MLP d_ff/n columns (``wi``
+column-parallel, ``wo`` row-parallel); every attention path (dense, flash,
+ring, Ulysses, decode) runs on the rank's heads.  A block's input enters
+through ``collectives.enter_partial`` (the all-reduce of its gradient)
+and each row-parallel product leaves through ``leave_partial`` (the
+all-reduce of the partial sums) before its bias, which is added once.
+The slices are marked with ``parallel.partition.hold_slices``: a whole
+state dict loads into them, ``gather_slices`` makes the module whole (its
+heads and group then follow), and at ``model`` = 1 every exchange is the
+identity and launches nothing.
 """
 
 from __future__ import annotations
@@ -73,6 +86,11 @@ from tpu_pipelines_torch.ops.flash_attention import (
     flash_decode_attention,
 )
 from tpu_pipelines_torch.parallel import collectives
+from tpu_pipelines_torch.parallel.partition import (
+    draw_whole,
+    hold_slices,
+    slice_group,
+)
 from tpu_pipelines_torch.parallel.ring_attention import (
     NEG_INF,
     check_divisible,
@@ -106,9 +124,15 @@ def _device_memory_bytes(device: Optional[torch.device]) -> int:
 
 
 def dense_attn_expected_temp_bytes(
-    batch: int, heads: int, seq_q: int, seq_kv: int, itemsize: int = 2
+    batch: int, heads: int, seq_q: int, seq_kv: int, itemsize: int = 2,
+    mesh: Any = None,
 ) -> int:
-    """Estimate of dense attention's O(L^2) temporaries in bytes."""
+    """Estimate of dense attention's O(L^2) temporaries in bytes (per rank
+    when a ``mesh`` divides the batch over ``data`` and the heads over
+    ``model``, as the reference's)."""
+    if mesh is not None:
+        batch = -(-batch // max(1, mesh.axis_size("data")))
+        heads = -(-heads // max(1, mesh.axis_size("model")))
     return int(
         DENSE_ATTN_TEMP_FACTOR * batch * heads * seq_q * seq_kv * itemsize
     )
@@ -184,6 +208,26 @@ def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+def _row_parallel(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype,
+                  group: Any) -> torch.Tensor:
+    """``layer`` on this rank's slice of its input features: the partial
+    products summed over ``group`` (``leave_partial``), then the bias,
+    once; :func:`_dense` without a group."""
+    if group is None:
+        return _dense(x, layer, dtype)
+    partial = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return collectives.leave_partial(partial, group) + layer.bias.to(dtype)
+
+
+def _model_split(mesh: Any, count: int, what: str):
+    """(the ``model`` axis's size, its group or None) for ``count`` items
+    split over it."""
+    n = mesh.axis_size("model") if mesh is not None else 1
+    if count % n:
+        raise ValueError(f"{count} {what} not divisible by mesh axis model={n}")
+    return n, (mesh.axis_group("model") if n > 1 else None)
+
+
 class LayerNorm(nn.LayerNorm):
     """flax ``LayerNorm``: eps 1e-6, statistics and affine in f32, output in
     the compute ``dtype``."""
@@ -253,7 +297,8 @@ class Dropout(nn.Module):
 class MlpBlock(nn.Module):
     """``wi`` -> tanh-gelu -> ``wo``, dropout at ``dropout_site``: "output"
     (BERT's d_model-wide projection) or "hidden" (T5's DenseReluDense drops
-    the d_ff-wide activation)."""
+    the d_ff-wide activation).  On a ``mesh`` whose ``model`` axis is n > 1
+    it holds d_ff/n columns (see the module docstring)."""
 
     def __init__(
         self,
@@ -263,23 +308,29 @@ class MlpBlock(nn.Module):
         dropout_rate: float = 0.0,
         dtype: torch.dtype = torch.bfloat16,
         dropout_site: str = "output",
+        mesh: Any = None,
     ):
         super().__init__()
         if dropout_site not in ("output", "hidden"):
             raise ValueError(f"dropout_site {dropout_site!r}: output or hidden")
+        n, group = _model_split(mesh, d_ff, "MLP columns")
         self.dtype = dtype
         self.dropout_site = dropout_site
-        self.wi = nn.Linear(d_model, d_ff)
-        self.wo = nn.Linear(d_ff, d_model)
+        self.wi = nn.Linear(d_model, d_ff // n)
+        self.wo = nn.Linear(d_ff // n, d_model)
+        hold_slices(self.wi, {"weight": (0, group), "bias": (0, group)})
+        hold_slices(self.wo, {"weight": (1, group)})
         self.dropout = Dropout(dropout_rate)
 
     def forward(
         self, x: torch.Tensor, generator: Optional[torch.Generator] = None
     ) -> torch.Tensor:
-        h = F.gelu(_dense(x, self.wi, self.dtype), approximate="tanh")
+        group = slice_group(self.wo, "weight")
+        h = F.gelu(_dense(collectives.enter_partial(x, group), self.wi, self.dtype),
+                   approximate="tanh")
         if self.dropout_site == "hidden":
             h = self.dropout(h, generator)
-        out = _dense(h, self.wo, self.dtype)
+        out = _row_parallel(h, self.wo, self.dtype, group)
         if self.dropout_site == "output":
             out = self.dropout(out, generator)
         return out
@@ -308,8 +359,8 @@ class MoEMlpBlock(nn.Module):
     ``wi`` ``[E, d_model, d_ff]`` and ``wo`` ``[E, d_ff, d_model]`` keep
     the flax layout and init (fan-in per expert, :meth:`reset_parameters`);
     on a ``mesh`` whose ``expert`` axis is n > 1 they hold this rank's
-    E/n experts (see the module docstring), and a state dict of all E
-    experts loads into the rank's slice."""
+    E/n experts (``hold_slices`` over ``expert``, :meth:`held_experts`),
+    and a state dict of all E experts loads into the rank's slice."""
 
     def __init__(
         self,
@@ -328,53 +379,38 @@ class MoEMlpBlock(nn.Module):
         self.capacity_factor = float(capacity_factor)
         self.group_size = int(group_size)
         self.dtype = dtype
+        if mesh is not None and mesh.axis_size("model") > 1:
+            raise NotImplementedError(
+                "an MoE layer on a 'model' axis above 1 (the experts' ff dim "
+                "split over it) is not ported yet (ROADMAP.md A6c)")
         n = mesh.axis_size("expert") if mesh is not None else 1
         if num_experts % n:
             raise ValueError(f"{num_experts} experts not divisible by mesh axis "
                              f"expert={n}")
-        self.group = mesh.axis_group("expert") if n > 1 else None
-        self.local_experts = num_experts // n
-        self.first_expert = (mesh.axis_rank("expert") if n > 1 else 0) * self.local_experts
+        group = mesh.axis_group("expert") if n > 1 else None
         self.router = nn.Linear(d_model, num_experts)
-        self.wi = nn.Parameter(torch.empty(self.local_experts, d_model, d_ff))
-        self.wo = nn.Parameter(torch.empty(self.local_experts, d_ff, d_model))
+        self.wi = nn.Parameter(torch.empty(num_experts // n, d_model, d_ff))
+        self.wo = nn.Parameter(torch.empty(num_experts // n, d_ff, d_model))
+        hold_slices(self, {"wi": (0, group), "wo": (0, group)}, axis="expert")
         self.dropout = Dropout(dropout_rate)
         self.reset_parameters()
-        self._register_load_state_dict_pre_hook(self._take_local_experts)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         """The experts' fan-in truncated-normal init, all E drawn from
         ``generator`` (so every expert rank draws the same) and this
         rank's slice kept."""
-        for p in (self.wi, self.wo):
-            full = torch.empty((self.num_experts, *p.shape[1:]))
-            std = (1.0 / p.shape[1]) ** 0.5 / TRUNCATED_NORMAL_STD
-            nn.init.trunc_normal_(full, 0.0, std, -2.0 * std, 2.0 * std,
-                                  generator=generator)
-            p.copy_(full[self.first_expert:self.first_expert + self.local_experts])
+        for leaf in ("wi", "wo"):
+            std = (1.0 / getattr(self, leaf).shape[1]) ** 0.5 / TRUNCATED_NORMAL_STD
+            draw_whole(self, leaf, lambda w: nn.init.trunc_normal_(
+                w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator))
 
-    @torch.no_grad()
-    def gather_experts(self) -> None:
-        """Make the block whole: every rank's experts gathered over the
-        ``expert`` axis (a collective on every expert rank), so it holds
-        all E and computes alone."""
-        if self.group is None:
-            return
-        from tpu_pipelines_torch.parallel.partition import all_gather_dim
-
-        for p in (self.wi, self.wo):
-            p.data = all_gather_dim(p.data, 0, self.group)
-        self.group, self.local_experts, self.first_expert = None, self.num_experts, 0
-
-    def _take_local_experts(self, state_dict, prefix, *args):
-        for name in ("wi", "wo"):
-            key = prefix + name
-            t = state_dict.get(key)
-            if (t is not None and self.local_experts != self.num_experts
-                    and t.shape[0] == self.num_experts):
-                state_dict[key] = t[self.first_expert:
-                                    self.first_expert + self.local_experts]
+    def held_experts(self) -> range:
+        """The experts this rank holds (all E once the block is whole)."""
+        group = slice_group(self, "wi", "expert")
+        k = self.wi.shape[0]
+        first = torch.distributed.get_rank(group) * k if group is not None else 0
+        return range(first, first + k)
 
     def forward(
         self,
@@ -394,17 +430,18 @@ class MoEMlpBlock(nn.Module):
         slot = torch.where(keep, pos_in_expert, capacity)
         slots = (slot[..., None] == torch.arange(capacity, device=x.device))
         dispatch = sel.to(self.dtype)[..., None] * slots.to(self.dtype)[:, :, None, :]
-        lo, hi = self.first_expert, self.first_expert + self.local_experts
-        dispatch = dispatch[:, :, lo:hi]                       # [G, g, e_local, c]
-        tokens = collectives.enter_partial(t.to(self.dtype), self.group)
-        gate_in = collectives.enter_partial(expert_gate, self.group)
+        held = self.held_experts()
+        dispatch = dispatch[:, :, held.start:held.stop]        # [G, g, e_local, c]
+        group = slice_group(self, "wi", "expert")
+        tokens = collectives.enter_partial(t.to(self.dtype), group)
+        gate_in = collectives.enter_partial(expert_gate, group)
         expert_in = torch.einsum("gnec,gnd->gecd", dispatch, tokens)
         h = F.gelu(torch.einsum("gecd,edf->gecf", expert_in, self.wi.to(self.dtype)),
                    approximate="tanh")
         expert_out = torch.einsum("gecf,efd->gecd", h, self.wo.to(self.dtype))
         combine = dispatch * gate_in.to(self.dtype)[..., None, None]
         out = torch.einsum("gnec,gecd->gnd", combine, expert_out)
-        out = collectives.leave_partial(out, self.group)
+        out = collectives.leave_partial(out, group)
         if losses is not None:
             frac_tokens = sel.float().mean(dim=(0, 1))         # [e]
             frac_probs = probs.mean(dim=(0, 1))                # [e]
@@ -462,7 +499,9 @@ class MultiHeadAttention(nn.Module):
     ``[H, Dh, d_model]`` as ``Linear(H*Dh, d_model)``.  Flash runs
     unbiased self-attention only: cross-attention and biased attention
     (T5's relative positions) take the dense path, except in a decode step,
-    whose self-attention runs the flash-decode kernel with the bias."""
+    whose self-attention runs the flash-decode kernel with the bias.  On a
+    ``mesh`` whose ``model`` axis is n > 1 it holds H/n heads
+    (``n_heads`` is the count held; see the module docstring)."""
 
     def __init__(
         self,
@@ -479,18 +518,26 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {attn_impl!r}: one of {ATTN_IMPLS}")
+        n, group = _model_split(mesh, n_heads, "heads")
         self.mesh = mesh
-        self.n_heads = n_heads
         self.head_dim = head_dim
         self.dtype = dtype
         self.attn_impl = attn_impl
         self.causal = causal
-        inner = n_heads * head_dim
+        inner = n_heads // n * head_dim
         self.query = nn.Linear(d_model, inner)
         self.key = nn.Linear(d_model, inner)
         self.value = nn.Linear(d_model, inner)
         self.out = nn.Linear(inner, d_model)
+        for layer in (self.query, self.key, self.value):
+            hold_slices(layer, {"weight": (0, group), "bias": (0, group)})
+        hold_slices(self.out, {"weight": (1, group)})
         self.dropout = Dropout(dropout_rate)
+
+    @property
+    def n_heads(self) -> int:
+        """The heads this module holds (all of them off a ``model`` axis)."""
+        return self.query.weight.shape[0] // self.head_dim
 
     def _heads(self, x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
         b, l, _ = x.shape
@@ -498,7 +545,8 @@ class MultiHeadAttention(nn.Module):
 
     def _project_out(self, out: torch.Tensor) -> torch.Tensor:
         b, l = out.shape[:2]
-        return _dense(out.reshape(b, l, -1), self.out, self.dtype)
+        return _row_parallel(out.reshape(b, l, -1), self.out, self.dtype,
+                             slice_group(self.out, "weight"))
 
     def forward(
         self,
@@ -519,6 +567,10 @@ class MultiHeadAttention(nn.Module):
         position, or a [b] vector of per-row positions) this is one decode
         step against ``cache`` (see the module docstring)."""
         is_self = x_kv is None
+        group = slice_group(self.out, "weight")
+        x = collectives.enter_partial(x, group)
+        if not is_self:
+            x_kv = collectives.enter_partial(x_kv, group)
         q = self._heads(x, self.query)
         if decode_pos is not None:
             if cache is None:
@@ -710,7 +762,7 @@ class TransformerBlock(nn.Module):
         else:
             self.mlp = MlpBlock(
                 d_model, d_ff, dropout_rate=dropout_rate, dtype=dtype,
-                dropout_site=mlp_dropout_site,
+                dropout_site=mlp_dropout_site, mesh=mesh,
             )
         self.mlp_norm = norm_cls(d_model, dtype)
 

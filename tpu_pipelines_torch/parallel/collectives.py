@@ -18,10 +18,15 @@ so gradients follow the reference's autodiff:
     Backward: the sum of the gradients, on the source (zero elsewhere).
   - :func:`enter_partial` / :func:`leave_partial` bracket a region whose
     ranks each compute a part of a replicated result (expert parallelism:
-    a rank's experts): identity forward with the all-reduce backward, and
-    the all-reduce forward with the identity backward.  A replicated loss
-    then gives every rank the whole gradient of the shared parameters,
-    and each part's own parameters their whole gradient on their rank.
+    a rank's experts; tensor parallelism: Megatron's *f* and *g* around a
+    rank's heads or MLP columns; a pipeline's stages): identity forward
+    with the all-reduce backward, and the all-reduce forward with the
+    identity backward.  A replicated loss then gives every rank the whole
+    gradient of the shared parameters, and each part's own parameters
+    their whole gradient on their rank.
+  - :func:`leave_split` is :func:`leave_partial` for a result split
+    along a dim rather than summed (vocabulary-parallel logits): the
+    all-gather forward, and this rank's block of the gradient backward.
 
 The point-to-point exchanges are built on ``dist.all_to_all_single``
 with per-rank split sizes (zero for ranks a tensor does not go to): gloo
@@ -63,12 +68,14 @@ def _send_recv(x: torch.Tensor, dst: Any, src: Any, group: Any) -> torch.Tensor:
     n = axis_world(group)
     numel = x.numel()
     flat = x.contiguous().reshape(-1)
-    out = flat.new_zeros(numel) if src is None else flat.new_empty(numel)
+    out = flat.new_empty(numel if src is not None else 0)
     dist.all_to_all_single(
         out, flat if dst is not None else flat[:0],
         output_split_sizes=[numel if j == src else 0 for j in range(n)],
         input_split_sizes=[numel if j == dst else 0 for j in range(n)],
         group=group)
+    if src is None:   # nothing arrives (the first rank of a shift)
+        return torch.zeros_like(x)
     return out.view(x.shape)
 
 
@@ -221,6 +228,27 @@ def leave_partial(x: torch.Tensor, group: Any) -> torch.Tensor:
     if group is None:
         return x
     return _LeavePartial.apply(x, group)
+
+
+class _LeaveSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group, ctx.size = dim, group, x.shape[dim]
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        k = ctx.size
+        return grad.narrow(ctx.dim, axis_rank(ctx.group) * k, k), None, None
+
+
+def leave_split(x: torch.Tensor, dim: int, group: Any) -> torch.Tensor:
+    """A rank's block of a replicated value, split along ``dim``, gathered
+    whole: all-gather forward, this rank's block of the gradient backward
+    (every rank holds the whole gradient of a replicated value)."""
+    if group is None:
+        return x
+    return _LeaveSplit.apply(x, dim % x.dim(), group)
 
 
 def ring_perm(n: int) -> List[Tuple[int, int]]:

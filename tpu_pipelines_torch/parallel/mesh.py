@@ -8,9 +8,12 @@ group per axis (the ranks that differ on that axis alone), the axis sizes
 and the device.  ``data`` shards batch rows (gradients averaged over it),
 ``seq`` the sequence of a long-context batch (ring and Ulysses attention,
 ``parallel/ring_attention.py``), ``expert`` the experts of a
-mixture-of-experts layer (``models/transformer.py``).  ``model`` and
-``pipe`` above 1 raise ``NotImplementedError`` naming ``ROADMAP.md`` A6b,
-where tensor and pipeline parallelism wait.
+mixture-of-experts layer (``models/transformer.py``), ``model`` the heads,
+MLP columns and vocabulary rows of a tensor-parallel model (Megatron's
+split, ``models/transformer.py`` and ``models/bert.py``), ``pipe`` the
+stages of a GPipe pipeline (``parallel/pipeline_parallel.py``).  Rows are
+dealt over ``data`` alone: ranks that differ only on the other axes read
+the same rows.
 
 Where a batch is sequence-split (``shard_batch`` with a partition naming
 ``seq``, as the train loop does for ``batch_partition``), the mesh says so
@@ -68,18 +71,6 @@ class MeshConfig:
                 f"mesh {sizes} does not cover {n_devices} devices"
             )
         return sizes
-
-
-def refuse_unported_axes(sizes: Dict[str, int], what: str = "mesh") -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP.md A6b when ``model``
-    or ``pipe`` is above 1."""
-    others = {a: s for a, s in sizes.items() if a in ("model", "pipe") and s != 1}
-    if others:
-        raise NotImplementedError(
-            f"{what} axes {others} are not ported yet (tensor and pipeline "
-            "parallelism, ROADMAP.md A6b); the port shards over 'data', "
-            "'seq' and 'expert'"
-        )
 
 
 @dataclasses.dataclass
@@ -207,15 +198,13 @@ def make_mesh(config: Any = None, *, device: Any = "cuda",
 
     ``device``: this process's device; a CUDA device without an index is
     the current one (``maybe_initialize_from_env`` set it to the local
-    rank's).  Raises ``NotImplementedError`` (ROADMAP.md A6b) for ``model``
-    or ``pipe`` above 1, and the reference's ``ValueError`` when the axes
-    do not cover the processes.  Axes other than ``data`` above 1 need the
+    rank's).  Raises the reference's ``ValueError`` when the axes do not
+    cover the processes.  Axes other than ``data`` above 1 need the
     default group (their groups are made from it, collectively: every
     process calls ``make_mesh`` with the same config)."""
     import torch.distributed as dist
 
     config = as_mesh_config(config)
-    refuse_unported_axes(dataclasses.asdict(config))
     if group is None and dist.is_available() and dist.is_initialized():
         group = dist.group.WORLD
     if group is not None:
@@ -230,7 +219,7 @@ def make_mesh(config: Any = None, *, device: Any = "cuda",
         return DeviceMesh(group=group, rank=rank, shape=sizes, device=dev,
                           process_rank=rank)
     if group is not dist.group.WORLD:
-        raise ValueError("a mesh with a 'seq' or 'expert' axis above 1 is "
+        raise ValueError("a mesh with an axis other than 'data' above 1 is "
                          "made over the default process group")
     groups = _axis_groups(sizes, rank, group)
     coords = coords_of(rank, sizes)

@@ -10,16 +10,20 @@ name, first match wins.
 Parameters are sharded over ``data`` for ``dp_collective="fsdp"``:
 :func:`gather_leaf` all-gathers a shard back to full size along its spec's
 dim inside the forward, and its backward is the reduce-scatter of the
-gradient (the transpose the reference gets from autodiff).  Over
-``expert`` the implicit mode takes the MoE rules (``moe.wi`` / ``moe.wo``
-over ``expert``): an MoE layer on an expert mesh holds its rank's experts
-already (``models/transformer.py``), and the train loop keeps their
-gradients on their rank and gathers them for checkpoints.  A spec entry
-naming an axis of size 1 is replicated (:func:`effective_spec`), so the
-reference's BERT module may pass :func:`bert_partition_rules` on a ``seq``
-mesh whose ``model`` axis is 1.  Specs over ``model`` or ``pipe`` above 1
-(tensor and pipeline parallelism) wait for ``ROADMAP.md`` A6b: the train
-loop refuses them (:func:`refuse_model_parallel`).
+gradient (the transpose the reference gets from autodiff).  Over the other
+axes a module built on the mesh holds its rank's slice already: an MoE
+layer its experts over ``expert``, attention its heads and the MLP its
+columns over ``model`` (``models/transformer.py``), BERT's token
+embedding and MLM head their vocabulary rows over ``model``
+(``models/bert.py``), the staged classifier its stage over ``pipe``
+(``models/staged.py``).  Such a module marks its slices
+(:func:`hold_slices`): a state dict of the whole parameter loads into the
+slice, :func:`draw_whole` initialises the whole and keeps the slice, and
+:func:`gather_slices` makes the module whole again.  The train loop keeps
+their gradients on their rank and gathers them for checkpoints.  A spec
+entry naming an axis of size 1 is replicated (:func:`effective_spec`), so
+:func:`bert_partition_rules` serve every mesh.  The experts' ff dim over
+``model`` waits for ``ROADMAP.md`` A6c (:func:`refuse_unported`).
 """
 
 from __future__ import annotations
@@ -43,10 +47,11 @@ def path_str(path) -> str:
 
 
 def _named_shapes(params: Any) -> Dict[str, Tuple[int, ...]]:
-    """name -> shape of a module's parameters or of a name -> tensor (or
-    shape) mapping."""
+    """name -> shape of a module's parameters (the whole parameter's where
+    the module holds a slice, :func:`hold_slices`) or of a name -> tensor
+    (or shape) mapping."""
     if isinstance(params, nn.Module):
-        params = dict(params.named_parameters())
+        return whole_shapes(params)
     out = {}
     for name, leaf in params.items():
         shape = getattr(leaf, "shape", leaf)
@@ -113,15 +118,16 @@ def effective_partition(partition: Mapping[str, Spec], mesh) -> Dict[str, Spec]:
     return {name: effective_spec(spec, mesh) for name, spec in partition.items()}
 
 
-def refuse_model_parallel(partition: Mapping[str, Spec]) -> None:
-    """``NotImplementedError`` naming ROADMAP.md A6b for specs (already
-    :func:`effective_spec`) over ``model`` or ``pipe``."""
+def refuse_unported(partition: Mapping[str, Spec]) -> None:
+    """``NotImplementedError`` naming ROADMAP.md A6c for specs (already
+    :func:`effective_spec`) that split an MoE expert's ff dim over
+    ``model``."""
     bad = [f"{name}: {spec}" for name, spec in partition.items()
-           if any(a in ("model", "pipe") for e in spec for a in _axes(e))]
+           if ".moe." in f".{name}" and spec_dim(spec, "model") is not None]
     if bad:
         raise NotImplementedError(
-            "param_partition specs over 'model' or 'pipe' above 1 are not "
-            "ported yet (tensor and pipeline parallelism, ROADMAP.md A6b):\n  "
+            "param_partition specs splitting the MoE experts' ff dim over "
+            "'model' are not ported yet (ROADMAP.md A6c):\n  "
             + "\n  ".join(bad))
 
 
@@ -223,13 +229,114 @@ def gather_leaf(x: torch.Tensor, spec: Spec, mesh, *, axis: str = "data"
     return GatherLeaf.apply(x, dim, mesh.group)
 
 
-def shard_of(full: torch.Tensor, dim: Optional[int], mesh) -> torch.Tensor:
-    """This rank's contiguous shard of ``full`` along ``dim`` (all of it
-    for None)."""
+def shard_of(full: torch.Tensor, dim: Optional[int], mesh, axis: str = "data"
+             ) -> torch.Tensor:
+    """This rank's contiguous shard of ``full`` along ``dim`` over mesh
+    axis ``axis`` (all of it for None)."""
     if dim is None:
         return full
-    k = full.shape[dim] // mesh.size
-    return full.narrow(dim, mesh.rank * k, k)
+    k = full.shape[dim] // mesh.axis_size(axis)
+    return full.narrow(dim, mesh.axis_rank(axis) * k, k)
+
+
+# ---- slices held by a module built on a mesh
+
+def _group_rank(group) -> Tuple[int, int]:
+    if group is None:
+        return 1, 0
+    import torch.distributed as dist
+
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
+def hold_slices(module: nn.Module, slices: Mapping[str, Tuple[int, Any]],
+                axis: str = "model") -> None:
+    """Mark ``module``'s parameters ``slices`` (leaf name -> (dim, group))
+    as this rank's contiguous block along ``dim`` of a parameter split
+    over mesh axis ``axis`` (``group``, its process group; None: whole).
+    A state dict holding the whole parameter then loads into the block."""
+    held = {leaf: (int(dim), group, axis) for leaf, (dim, group) in slices.items()
+            if group is not None}
+    if not held:
+        return
+    if not hasattr(module, "_slices"):
+        module._slices = {}
+        module._register_load_state_dict_pre_hook(_take_slices, with_module=True)
+    module._slices.update(held)
+
+
+def _take_slices(module, state_dict, prefix, *args):
+    for leaf, (dim, group, _) in getattr(module, "_slices", {}).items():
+        key = prefix + leaf
+        t = state_dict.get(key)
+        local = getattr(module, leaf)
+        n, rank = _group_rank(group)
+        if t is not None and t.dim() == local.dim() and t.shape[dim] == local.shape[dim] * n:
+            k = local.shape[dim]
+            state_dict[key] = t.narrow(dim, rank * k, k)
+
+
+def whole_shapes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """name -> the whole parameter's shape, for every parameter of
+    ``model`` (a held slice's dim times its axis size)."""
+    out, seen = {}, set()
+    for prefix, module in model.named_modules():
+        held = getattr(module, "_slices", {})
+        for leaf, p in module.named_parameters(recurse=False):
+            if id(p) in seen:
+                continue
+            seen.add(id(p))
+            shape = [int(d) for d in p.shape]
+            if leaf in held:
+                dim, group, _ = held[leaf]
+                shape[dim] *= _group_rank(group)[0]
+            out[f"{prefix}.{leaf}" if prefix else leaf] = tuple(shape)
+    return out
+
+
+def slice_group(module: nn.Module, leaf: str, axis: str = "model") -> Any:
+    """The group of ``axis`` where ``module.<leaf>`` is split over it, else
+    None."""
+    held = getattr(module, "_slices", {}).get(leaf)
+    return held[1] if held is not None and held[2] == axis else None
+
+
+def held_slice(model: nn.Module, name: str) -> Optional[Tuple[int, Any, str]]:
+    """(dim, group, axis) of parameter ``name`` where its module holds a
+    slice of it, else None."""
+    owner, _, leaf = name.rpartition(".")
+    module = model.get_submodule(owner) if owner else model
+    return getattr(module, "_slices", {}).get(leaf)
+
+
+@torch.no_grad()
+def draw_whole(module: nn.Module, leaf: str, draw) -> None:
+    """``draw`` (an in-place initialiser) applied to the whole parameter
+    ``leaf`` and this rank's block kept, so every rank draws what one
+    process draws; a whole parameter is drawn in place."""
+    p = getattr(module, leaf)
+    held = getattr(module, "_slices", {}).get(leaf)
+    if held is None:
+        draw(p)
+        return
+    dim, group, _ = held
+    n, rank = _group_rank(group)
+    shape = list(p.shape)
+    shape[dim] *= n
+    whole = p.new_empty(shape)
+    draw(whole)
+    k = p.shape[dim]
+    p.copy_(whole.narrow(dim, rank * k, k))
+
+
+@torch.no_grad()
+def gather_slices(module: nn.Module) -> None:
+    """Make ``module``'s held slices whole: each gathered over its axis (a
+    collective on every rank of it), so the module computes alone."""
+    for leaf, (dim, group, _) in getattr(module, "_slices", {}).items():
+        p = getattr(module, leaf)
+        p.data = all_gather_dim(p.data, dim, group)
+    module._slices = {}
 
 
 # ---- rule tables over the port's names (the reference's
@@ -258,9 +365,10 @@ TRANSFORMER_PARTITION_RULES: List[Tuple[str, Spec]] = [
 
 def bert_partition_rules() -> List[Tuple[str, Spec]]:
     """The rules of ``tpu_pipelines/models/bert.py`` over the port's names
-    (first match wins).  Their ``expert`` specs hold; their ``model`` specs
-    are replicated on a ``model`` axis of 1 and refused above it
-    (ROADMAP.md A6b)."""
+    (first match wins), on a ``model`` axis above 1 (Megatron's split:
+    q/k/v, MLP ``wi``, the token embedding and the MLM head
+    column-parallel, attention ``out`` and MLP ``wo`` row-parallel) and on
+    an ``expert`` axis; replicated on axes of 1."""
     return list(TRANSFORMER_PARTITION_RULES) + [
         (r"(^|\.)mlm_head\.weight$", ("model", None)),
     ]
@@ -268,8 +376,8 @@ def bert_partition_rules() -> List[Tuple[str, Spec]]:
 
 def t5_partition_rules() -> List[Tuple[str, Spec]]:
     """Tensor-parallel rules of ``tpu_pipelines/models/t5.py`` over the
-    port's names; their ``model`` specs are refused above 1 like
-    :func:`bert_partition_rules`."""
+    port's names; T5 on a ``model`` axis above 1 waits for ROADMAP.md A6c
+    (``models/t5.py`` refuses the mesh)."""
     return list(TRANSFORMER_PARTITION_RULES) + [
         (r"\.rel_pos\.rel_embedding$", (None, "model")),
     ]

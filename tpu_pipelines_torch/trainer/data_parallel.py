@@ -45,25 +45,34 @@ over ``data`` after the step (sync-BN) in ``""``, psum and fsdp; ordered
 runs each block from the micro-batch's starting state and averages the
 blocks' states in block order.  Integer buffers pass through.
 
-Sequence and expert parallelism ride the implicit mode (``""``), as in
-the reference.  A ``batch_partition`` splitting token features over
-``seq`` cuts each rank's rows to its block of the sequence
+Sequence, expert, tensor and pipeline parallelism ride the implicit mode
+(``""``), as in the reference.  A ``batch_partition`` splitting token
+features over ``seq`` cuts each rank's rows to its block of the sequence
 (``parallel.mesh.sequence_block``) and sets ``seq_split`` on the loop's
 mesh and on every mesh the model holds, for the run; on a mesh whose
 ``seq`` axis is above 1 every gradient is averaged over ``seq`` after
 ``data`` (each rank's loss is one term of the objective, see
-``models/bert.py``), and so are the loss and metrics.  On an ``expert``
-axis an MoE layer holds its rank's experts (``param_partition``'s expert
-specs, by default ``EXPERT_PARTITION_RULES``).  The layer's exchanges
-leave every shared gradient whole on every rank, but each rank sums it
-in its own order (an embedding's backward adds without a fixed order on
-the card), so the shared gradients, the loss and the metrics are
-averaged over ``expert`` too: the ranks' copies of the shared parameters
-stay equal bit for bit and route every token alike.  An expert's own
-weights are never reduced over ``expert``.  A checkpoint gathers the
-experts (and their AdamW moments) over ``expert``, so it does not depend
-on the mesh.  The explicit modes exchange over ``data`` alone and refuse
-a ``seq`` or ``expert`` axis above 1.
+``models/bert.py``), and so are the loss and metrics.  A
+``param_partition`` spec over ``expert``, ``model`` or ``pipe`` marks a
+parameter whose module holds this rank's slice (built on the mesh: an MoE
+layer its experts over ``expert``; attention its heads, the MLP its
+columns and BERT its vocabulary rows over ``model``; the staged
+classifier its stage over ``pipe``); ``held`` maps each parameter a
+module holds a slice of (``parallel.partition.hold_slices``, with a spec
+or without one) to the axes it is split over.  Over
+``expert``, ``model`` and ``pipe`` the model's exchanges
+(``parallel/collectives.py``) leave every replicated parameter's gradient
+whole on every rank and each slice's own gradient whole on its rank, so
+a slice is averaged over every axis above 1 but its own, and a replicated
+parameter over all of them: over ``model`` and ``pipe`` (and ``expert``)
+its copies' gradients are equal up to the order each rank summed them in
+(an embedding's backward adds without a fixed order on the card), and the
+mean keeps the copies equal bit for bit, so every rank computes one
+model.  The loss and metrics are averaged the same way.  A checkpoint
+gathers the slices (and their optimizer moments) over their axes, so it
+does not depend on the mesh, and the returned model is whole.  The
+explicit modes exchange over ``data`` alone and refuse a mesh with
+another axis above 1.
 
 A mesh with no process group (one process, nothing initialised) runs every
 mode with the identity for each collective.
@@ -86,18 +95,22 @@ from tpu_pipelines_torch.parallel.mesh import (
     sequence_block,
 )
 from tpu_pipelines_torch.parallel.partition import (
-    EXPERT_PARTITION_RULES,
     GatherLeaf,
     all_gather_dim,
     effective_partition,
     foreign_axis_paths,
     fsdp_param_partition,
-    make_param_partition,
-    refuse_model_parallel,
+    gather_slices,
+    held_slice,
+    refuse_unported,
     shard_of,
     spec_dim,
     validate_partition,
 )
+
+# The axes a parameter may be held in slices over by its module (data:
+# fsdp's shards, kept apart), in the order the loop averages and gathers.
+SLICE_AXES = ("expert", "model", "pipe")
 
 ENV_DP_COLLECTIVE = "TPP_DP_COLLECTIVE"
 DP_MODES = ("auto", "psum_bucketed", "ordered", "fsdp")
@@ -114,6 +127,19 @@ def effective_dp_collective(config) -> str:
     if mode not in DP_MODES:
         raise ValueError(f"dp_collective {mode!r}: expected one of {DP_MODES}")
     return mode
+
+
+def _holds(model: nn.Module, name: str, axis: str, dim: int, group: Any) -> bool:
+    """Whether ``name``'s module holds its slice along ``dim`` over
+    ``axis`` (``group``'s ranks)."""
+    held = held_slice(model, name)
+    if held is None or held[0] != dim or held[2] != axis or group is None:
+        return False
+    if held[1] is group:
+        return True
+    import torch.distributed as dist
+
+    return dist.get_process_group_ranks(held[1]) == dist.get_process_group_ranks(group)
 
 
 def jax_leaf_order(names: List[str]) -> List[str]:
@@ -177,7 +203,7 @@ class DataParallel:
         self.has_model_state = has_model_state
         self.batch_size = batch_size
         self.specs: Dict[str, Optional[int]] = {}   # fsdp: name -> dim
-        self.expert_dims: Dict[str, int] = {}       # name -> dim over expert
+        self.held: Dict[str, Dict[str, int]] = {}   # name -> {axis: dim}
         self.batch_partition: Dict[str, Any] = {}
         self.splits_sequence = False
         self.canon_params: List[str] = []
@@ -218,17 +244,19 @@ class DataParallel:
                 "GSPMD window — use dp_collective=None/'auto' for "
                 "long-context configs; explicit collective modes shard "
                 "the batch over 'data' only")
-        if mode and (mesh.axis_size("seq") > 1 or mesh.axis_size("expert") > 1):
+        others = {a: n for a, n in mesh.shape.items() if a != "data" and n > 1}
+        if mode and others:
             raise ValueError(
                 f"dp_collective={mode!r} exchanges over the mesh 'data' axis "
-                "only; a mesh whose 'seq' or 'expert' axis is above 1 rides "
-                "the implicit mode (dp_collective=None/'auto')")
+                f"only; a mesh with {others} rides the implicit mode "
+                "(dp_collective=None/'auto')")
         if mode in ("psum_bucketed", "ordered") and config.param_partition is not None:
             raise ValueError(
                 f"dp_collective={mode!r} keeps params replicated (pure data "
                 "parallelism); param_partition requires dp_collective='fsdp' "
                 "(params sharded over 'data') or the implicit mode "
-                "(None/'auto') for expert-parallel specs")
+                "(None/'auto') for expert-, tensor- and pipeline-parallel "
+                "specs")
         grad_blocks = int(config.dp_grad_blocks or n)
         if mode == "ordered" and (
                 grad_blocks % n or (config.batch_size // accum) % grad_blocks):
@@ -257,8 +285,8 @@ class DataParallel:
                 raise ValueError(
                     "dp_collective='fsdp' shards params over the mesh 'data' "
                     "axis only; these param_partition specs name other axes "
-                    "(expert-parallel specs ride the implicit mode; model "
-                    "parallelism waits for ROADMAP.md A6b):\n  "
+                    "(expert-, tensor- and pipeline-parallel specs ride the "
+                    "implicit mode, as in the reference):\n  "
                     + "\n  ".join(foreign))
             problems = validate_partition(model, partition, mesh)
             if problems:
@@ -286,17 +314,25 @@ class DataParallel:
 
     def _implicit_partition(self, partition, model: nn.Module) -> None:
         """The implicit mode's ``param_partition``: specs over axes of 1
-        replicate, ``model``/``pipe`` above 1 raise (A6b), ``data`` above 1
-        needs fsdp, ``expert`` marks the parameters an MoE layer holds a
-        slice of (by default the MoE rules on an expert mesh)."""
-        n_exp = self.mesh.axis_size("expert")
-        if partition is None:
-            if n_exp == 1:
-                return
-            partition = make_param_partition(model, EXPERT_PARTITION_RULES)
+        replicate, ``data`` above 1 needs fsdp, ``expert``, ``model`` and
+        ``pipe`` mark the parameters a module holds a slice of, which must
+        be the module's own slice (built on the mesh); the experts' ff dim
+        over ``model`` raises (A6c).  Every slice a module holds is
+        ``held`` whatever its spec, and with no partition at all: a
+        column-parallel layer's bias follows its weight (the reference's
+        rules name the kernels and leave the biases to XLA)."""
+        params = dict(model.named_parameters())
+        if partition is not None:
+            self._check_specs(partition, model, params)
+        for name in params:
+            held = held_slice(model, name)
+            if held is not None and self.mesh.axis_size(held[2]) > 1:
+                self.held.setdefault(name, {})[held[2]] = held[0]
+
+    def _check_specs(self, partition, model: nn.Module, params) -> None:
         problems = validate_partition(model, partition, self.mesh)
         partition = effective_partition(partition, self.mesh)
-        refuse_model_parallel(partition)
+        refuse_unported(partition)
         over_data = [f"{n}: {s}" for n, s in partition.items()
                      if spec_dim(s, "data") is not None]
         if over_data:
@@ -304,22 +340,18 @@ class DataParallel:
                 "the implicit mode keeps params whole over 'data'; these "
                 "param_partition specs shard them over it and require "
                 "dp_collective='fsdp':\n  " + "\n  ".join(over_data))
-        modules = dict(model.named_modules())
-        params = dict(model.named_parameters())
         for name, spec in partition.items():
-            dim = spec_dim(spec, "expert")
-            if dim is None:
+            axes = {a: d for a in SLICE_AXES if (d := spec_dim(spec, a)) is not None}
+            if not axes or name not in params:
                 continue
-            owner = modules.get(name.rpartition(".")[0])
-            held = getattr(owner, "local_experts", None)
-            if held is None or held * n_exp != getattr(owner, "num_experts", -1) \
-                    or params[name].shape[dim] != held:
-                problems.append(
-                    f"{name}: spec {spec} shards it over 'expert' "
-                    f"(size {n_exp}), but its module holds "
-                    f"{tuple(params[name].shape)} (build the model with the "
-                    "mesh, so each rank holds its experts)")
-            self.expert_dims[name] = dim
+            self.held[name] = axes
+            for axis, dim in axes.items():
+                if not _holds(model, name, axis, dim, self.mesh.axis_group(axis)):
+                    problems.append(
+                        f"{name}: spec {spec} shards it over {axis!r} (size "
+                        f"{self.mesh.axis_size(axis)}), but its module holds "
+                        f"the whole {tuple(params[name].shape)} (build the model "
+                        "with the mesh, so each rank holds its slice)")
         if problems:
             raise ValueError(
                 "param_partition does not fit this mesh; fix these rules "
@@ -372,16 +404,14 @@ class DataParallel:
 
     def unshard(self, model: nn.Module) -> None:
         """Make every parameter whole again (a collective on every rank),
-        for the model ``train_loop`` returns: fsdp's shards, and the
-        experts of every MoE layer on an ``expert`` axis; its meshes go
-        back to whole rows, as its callers hold them."""
+        for the model ``train_loop`` returns: fsdp's shards and every slice
+        a module holds over ``expert``, ``model`` or ``pipe``; its meshes go back to whole rows,
+        as its callers hold them."""
         from torch.nn.utils import parametrize
 
         self._set_seq_split(model, False)
-        if self.expert_dims:
-            for module in model.modules():
-                if hasattr(module, "gather_experts"):
-                    module.gather_experts()
+        for module in model.modules():
+            gather_slices(module)
         if self.mode != "fsdp":
             return
         for module in list(model.modules()):
@@ -441,12 +471,13 @@ class DataParallel:
             return t
         return all_gather_dim(t, 0, self.mesh.group)
 
-    def _groups(self, over_expert: bool = True) -> List[Tuple[Any, int]]:
-        """The groups a value is averaged over: ``data``, then ``seq``,
-        then ``expert`` unless it is an expert's own gradient."""
-        axes = ("data", "seq", "expert") if over_expert else ("data", "seq")
+    def _groups(self, held=()) -> List[Tuple[Any, int]]:
+        """The groups a value is averaged over: ``data``, ``seq``,
+        ``expert``, ``model``, ``pipe``, but the axes ``held`` (those a
+        slice's own gradient is split over)."""
+        axes = ("data", "seq", "expert", "model", "pipe")
         return [(g, self.mesh.axis_size(a)) for a in axes
-                if (g := self.mesh.axis_group(a)) is not None]
+                if a not in held and (g := self.mesh.axis_group(a)) is not None]
 
     def seq_mean(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` averaged over ``seq`` (the identity without its group)."""
@@ -458,10 +489,10 @@ class DataParallel:
             t.mul_(1.0 / self.mesh.axis_size("seq"))
         return t
 
-    def _mean(self, t: torch.Tensor, over_expert: bool = True) -> torch.Tensor:
+    def _mean(self, t: torch.Tensor, held=()) -> torch.Tensor:
         import torch.distributed as dist
 
-        for group, n in self._groups(over_expert):
+        for group, n in self._groups(held):
             dist.all_reduce(t, group=group)
             t.mul_(1.0 / n)
         return t
@@ -533,11 +564,14 @@ class DataParallel:
             if replicated:
                 self._reduce([p for p in replicated if p.requires_grad])
         else:
-            trained = [(n, p) for n, p in zip(self.canon_params, params)
-                       if p.requires_grad]
-            self._reduce([p for n, p in trained if n not in self.expert_dims])
-            self._reduce([p for n, p in trained if n in self.expert_dims],
-                         over_expert=False)
+            # Replicated parameters first, then each set of held axes in
+            # the order its first parameter comes.
+            by_axes: Dict[Tuple[str, ...], List[nn.Parameter]] = {(): []}
+            for n, p in zip(self.canon_params, params):
+                if p.requires_grad:
+                    by_axes.setdefault(tuple(self.held.get(n, ())), []).append(p)
+            for held, ps in by_axes.items():
+                self._reduce(ps, held)
         keys = sorted(m_sum)
         row = self._mean(torch.stack([l_sum, *(m_sum[k] for k in keys)]))
         if self.has_model_state:
@@ -553,7 +587,7 @@ class DataParallel:
             self._reduce(self._bucket_params[i])
             self._reduced[i] = True
 
-    def _reduce(self, params: List[nn.Parameter], over_expert: bool = True) -> None:
+    def _reduce(self, params: List[nn.Parameter], held=()) -> None:
         """One all-reduce of ``params``' gradients as a flat buffer, then
         the mean (scaled by 1/accum first, as the reference scales its
         accumulated sum), written back into ``.grad``.  Without a group
@@ -561,7 +595,7 @@ class DataParallel:
         stays None, so the optimizer skips its parameter)."""
         if not params:
             return
-        if not self._groups(over_expert):
+        if not self._groups(held):
             if self.accum > 1:
                 for p in params:
                     if p.grad is not None:
@@ -573,7 +607,7 @@ class DataParallel:
         flat = torch.cat([p.grad.reshape(-1) for p in params])
         if self.accum > 1:
             flat.mul_(1.0 / self.accum)
-        self._mean(flat, over_expert)
+        self._mean(flat, held)
         offset = 0
         for p in params:
             n = p.numel()
@@ -581,8 +615,8 @@ class DataParallel:
             offset += n
 
     def _sync_state(self, model: nn.Module) -> None:
-        """Sync-BN: the floating buffers' mean over ``data`` (and ``seq``,
-        ``expert``)."""
+        """Sync-BN: the floating buffers' mean over ``data`` (and every other
+        axis above 1)."""
         if not self._groups():
             return
         groups: Dict[torch.dtype, list] = {}
@@ -674,28 +708,31 @@ class DataParallel:
 
     # ---- checkpoints (W-independent: the full, unsharded state)
 
-    def _sharded_dims(self) -> Dict[str, Tuple[int, Any, int, int]]:
-        """name -> (dim, group, axis size, axis rank) of every parameter a
-        rank holds a slice of: fsdp's shards over ``data``, the MoE
-        experts over ``expert``."""
-        out = {}
+    def _sharded_dims(self) -> Dict[str, List[Tuple[int, Any, int, int]]]:
+        """name -> [(dim, group, axis size, axis rank), ...] of every
+        parameter a rank holds a slice of: fsdp's shards over ``data``,
+        then the slices over ``expert``, ``model`` and ``pipe``."""
+        out: Dict[str, List[Tuple[int, Any, int, int]]] = {}
         if self.mode == "fsdp" and self.mesh.group is not None:
-            out.update({n: (d, self.mesh.group, self.mesh.size, self.mesh.rank)
-                        for n, d in self.specs.items() if d is not None})
-        group = self.mesh.axis_group("expert")
-        if group is not None:
-            out.update({n: (d, group, self.mesh.axis_size("expert"),
-                            self.mesh.axis_rank("expert"))
-                        for n, d in self.expert_dims.items()})
+            for n, d in self.specs.items():
+                if d is not None:
+                    out[n] = [(d, self.mesh.group, self.mesh.size, self.mesh.rank)]
+        for name, axes in self.held.items():
+            for axis, dim in axes.items():
+                group = self.mesh.axis_group(axis)
+                if group is not None:
+                    out.setdefault(name, []).append(
+                        (dim, group, self.mesh.axis_size(axis),
+                         self.mesh.axis_rank(axis)))
         return out
 
     def gathers_checkpoint(self) -> bool:
         """Whether a checkpoint needs every rank (the gathers of fsdp's
-        shards or of the experts)."""
+        shards or of the slices)."""
         return bool(self._sharded_dims())
 
     def full_payload(self, step: int, model: nn.Module, optimizer) -> Dict[str, Any]:
-        """The checkpoint payload of the unsharded model: every slice
+        """The checkpoint payload of the whole model: every slice
         (parameters and optimizer moments) gathered, a collective on every
         rank; otherwise the state as it is."""
         dims = self._sharded_dims()
@@ -703,22 +740,26 @@ class DataParallel:
         opt = optimizer.state_dict()
         if not dims:
             return {"step": step, "model": state, "optimizer": opt}
+
+        def whole(name, v):
+            for dim, group, _, _ in dims[name]:
+                v = all_gather_dim(v, dim, group)
+            return v
+
         by_canon = {_canonical(k): v for k, v in state.items()}
         full = OrderedDict()
         with torch.no_grad():
             for key in self.canon_keys:
                 v = by_canon[key]
-                full[key] = (all_gather_dim(v, dims[key][0], dims[key][1])
-                             if key in dims else v)
+                full[key] = whole(key, v) if key in dims else v
             shards = self.parameters(model)
             for idx, slots in opt["state"].items():
                 name = self.canon_params[idx]
                 if name not in dims:
                     continue
-                dim, group = dims[name][:2]
                 shape = shards[idx].shape
                 opt["state"][idx] = {
-                    k: (all_gather_dim(v, dim, group)
+                    k: (whole(name, v)
                         if torch.is_tensor(v) and v.shape == shape else v)
                     for k, v in slots.items()}
         return {"step": step, "model": full, "optimizer": opt}
@@ -732,9 +773,10 @@ class DataParallel:
             return
 
         def cut(name, v):
-            dim, _, n, rank = dims[name]
-            k = v.shape[dim] // n
-            return v.narrow(dim, rank * k, k).contiguous()
+            for dim, _, n, rank in dims[name]:
+                k = v.shape[dim] // n
+                v = v.narrow(dim, rank * k, k)
+            return v.contiguous()
 
         keys = {_canonical(k): k for k in model.state_dict()}
         model.load_state_dict({
@@ -764,7 +806,8 @@ class DataParallel:
             return 0.0
         dims = self._sharded_dims()
         param_bytes = sum(
-            p.numel() * p.element_size() * (dims[name][2] if name in dims else 1)
+            p.numel() * p.element_size()
+            * int(np.prod([d[2] for d in dims.get(name, ())], dtype=np.int64))
             for name, p in zip(self.canon_params, self.parameters(model)))
         if param_bytes <= 0:
             return 0.0

@@ -161,19 +161,27 @@ under fsdp a checkpoint holds the gathered full state, so it does not
 depend on W and a resume on a survivor world re-shards it.  Throughput per
 chip and MFU divide by W.
 
-Sequence and expert parallelism (a mesh whose ``seq`` or ``expert`` axis
-is above 1) ride the implicit mode: ``batch_partition`` (``{feature:
-spec}``, e.g. ``parallel.ring_attention.long_context_batch_partition``)
-cuts each rank's token features to its block of the sequence, the step's
-and the eval batches', and sets the mesh's ``seq_split`` for the run (the
+Sequence, expert, tensor and pipeline parallelism (a mesh whose ``seq``,
+``expert``, ``model`` or ``pipe`` axis is above 1) ride the implicit mode:
+``batch_partition`` (``{feature: spec}``, e.g.
+``parallel.ring_attention.long_context_batch_partition``) cuts each
+rank's token features to its block of the sequence, the step's and the
+eval batches', and sets the mesh's ``seq_split`` for the run (the
 returned model's mesh holds whole rows again); ``param_partition``'s
-``expert`` specs mark the experts an MoE layer holds on its rank (see
-``trainer/data_parallel.py``).  An explicit ``dp_collective`` with a
-``batch_partition`` and a ``batch_partition`` key the batch lacks raise
-the reference's ``ValueError``; specs over ``model`` or ``pipe`` above 1
-raise ``NotImplementedError`` (ROADMAP.md A6b).  A rank's dropout masks
-are drawn for its own block, so a sequence-split run equals a run of one
-process at dropout 0.  The reference's ``prng_impl`` (a JAX key implementation) has no counterpart
+specs over ``expert``, ``model`` and ``pipe`` mark the slices a model
+built on the mesh holds on its rank (an MoE layer's experts; attention
+heads, MLP columns and vocabulary rows, ``bert_partition_rules``; a
+pipeline stage, ``models/staged.py``'s ``staged_partition_rules``; see
+``trainer/data_parallel.py``).  Checkpoints hold the slices gathered over
+their axes (rank 0 writes them), so they do not depend on the mesh, and
+the returned model is whole: it computes alone, with no mesh.  An
+explicit ``dp_collective`` with a ``batch_partition`` and a
+``batch_partition`` key the batch lacks raise the reference's
+``ValueError``; the MoE experts' ff dim over ``model`` raises
+``NotImplementedError`` (ROADMAP.md A6c).  A rank's dropout masks are
+drawn for its own block, so a sequence-split run equals a run of one
+process at dropout 0; the ``model`` ranks draw the same masks from the
+step's seed.  The reference's ``prng_impl`` (a JAX key implementation) has no counterpart
 here, and ``donate_state`` none but the in-place replays above: the
 fields do not exist.
 """
