@@ -181,7 +181,7 @@ Phases (any failure raises and the script exits non-zero):
      ring hop; rank 1's partial output left out of the combine); both
      ranks hold one model bit for bit (shared gradients averaged over
      seq and expert); each rank's own launches, counted from zero a job:
-     none for ring and Ulysses, 6 x 3 of each training kernel for EP;
+     none for ring and Ulysses, SP_EP_LAYERS x 3 of each training kernel for EP;
   8d. tp_pp_two_ranks — tensor and pipeline parallelism (A6b) on two gloo
      ranks of the one card (spawned, as 8c), deterministic cuBLAS, dropout
      0, 3 SGD steps each against one process: BERT-base (vocabulary
@@ -190,7 +190,7 @@ Phases (any failure raises and the script exits non-zero):
      tolerances; a control leaving layer 0's attention-output reduction
      out must miss the change tolerance) and in bf16 (the tensor-core
      kernels' launches, the ranks equal); each rank launches
-     12 x 3 of each training kernel, holds half the heads, MLP columns and
+     TP_LAYERS x 3 of each training kernel, holds half the heads, MLP columns and
      vocabulary, and both ranks hold one model bit for bit;
      ``bert_module.run_fn`` on that mesh at dropout 0.1 (the ranks equal,
      rank 0's payload loaded with no mesh within LOGIT_TOL of the gathered
@@ -203,6 +203,29 @@ Phases (any failure raises and the script exits non-zero):
      ``python -m tpu_pipelines_torch run`` at its defaults (one process:
      the reference's fallback, the stages in order), every node COMPLETE,
      a rerun all cache hits, no launch;
+  8e. t5_moe_two_ranks — T5 and the MoE experts on the other mesh axes
+     (A6c) in the same spawn of two gloo ranks, each job against one
+     process with a control that must miss: T5-small (vocabulary 32,128,
+     T5_TP_LAYERS + T5_TP_LAYERS layers, f32) at 32 x 128 over model = 2
+     with ``t5_partition_rules`` (T5_CHANGE_TOL and TP_LOSS_TOL, beside a
+     one-process f64 run as the witness of f32's own rounding; control:
+     layer 0's attention-output reduction left out), and at dropout 0.1
+     (the ranks draw one process's masks; control: each rank draws its
+     columns' mask alone); T5-small decoding over model = 2 in bf16
+     (T5_DECODE_LAYERS + T5_DECODE_LAYERS layers): greedy, 32 tokens for
+     8 prompts into a 2048-key cache, and beam 4 for 4 of them, each
+     step's logits (greedy) and log-probabilities (beam) within
+     DECODE_LOGIT_TOL of one process through a row's first parting step,
+     which must be a near-tie (control: the reduction left out, greedy
+     and beam each missing), each rank launching flash_decode on its 4
+     heads; T5-small at 4
+     x 1024 split over seq = 2 (SP_* tolerances; control: cross-
+     attention's gather over seq left out); BERT-base-MoE (SP_EP_LAYERS
+     layers, f32, flash) with its experts' d_ff over model = 2 (EP_*
+     tolerances; control: layer 1's expert-output reduction left out),
+     each rank launching SP_EP_LAYERS x 3 of each training kernel on its
+     6 heads; the T5 training jobs launch none (T5's biased attention is
+     dense, as the reference's);
   9. taxi_dag — the Chicago-taxi DAG (all nine nodes of
      ``tpu_pipelines_torch/examples/taxi_pipeline.py``) through
      ``LocalDagRunner(device="cuda")`` over a CSV of TAXI_ROWS rows made
@@ -1101,9 +1124,13 @@ DECODE_CASES = [
      True, "bool"),
     ("bulk_infer", 4 * 64, 32, 8, 64, torch.bfloat16, "pos", "broadcast", False,
      "bool_expanded"),
+    # A tensor-parallel T5-small rank's greedy step (A6c): 4 of the 8
+    # heads, a 2048-key cache half full, the rank's bias rows [1, 4, 1, L].
+    ("tp_rank", 8, 2048, 4, 64, torch.bfloat16, "pos", "broadcast", False,
+     "bool_expanded"),
 ]
 DECODE_TIMED = ("served", "long_cache", "long_cache_b4", "engine_long",
-                "bulk_infer")
+                "bulk_infer", "tp_rank")
 
 
 def decode_inputs(gen, b, l, h, d, dtype, validity, bias_kind, arena, mask_kind):
@@ -7722,9 +7749,9 @@ def build_kernels():
 # two ranks.
 DP_BATCH = 64
 DP_STEPS = 6
-# (a)'s depth: BERT-base's width at 6 of its 12 layers (cut for the
-# script's time limit, PR 20).
-DP_LAYERS = 6
+# (a)'s depth: BERT-base's width at 3 of its 12 layers (cut for the
+# script's time limit: 6 in PR 20, 3 since PR 21).
+DP_LAYERS = 3
 DP_BLOCKS = 8
 DP_LR = 2e-5
 # (mode, grad_accum_steps); "" is the implicit mode (one all-reduce).
@@ -8171,8 +8198,12 @@ def _dp_rank_worker(rank, world, backend, init_file, out_dir, seed, jobs):
             job = {"bert": _dp_bert_job, "bn": _dp_bn_job,
                    "world_of_one": dp_world_of_one, "sp": _sp_job,
                    "ep": _ep_job, "tp": _tp_job, "tp_run_fn": _tp_run_fn_job,
-                   "pp": _pp_job}[kind]
+                   "pp": _pp_job, "t5_train": _t5_train_job,
+                   "t5_decode": _t5_decode_job, "moe_tp": _moe_tp_job}[kind]
+            t0 = time.perf_counter()
             out[name] = job(seed, **kwargs)
+            if isinstance(out[name], dict):
+                out[name]["wall_s"] = time.perf_counter() - t0
     except BaseException:  # noqa: BLE001 (reported by the parent)
         out["error"] = traceback.format_exc()
     torch.save(out, os.path.join(out_dir, f"{rank}.pt"))
@@ -8383,9 +8414,10 @@ MOE_SERVE_REQUESTS = 32
 LONG_SEQ = 2048              # bench.py's long-context leg
 LONG_BATCH = 4
 LONG_STEPS = 3
-# The two-rank sequence and expert runs' depth: BERT-base's width at 6 of
-# its 12 layers (cut for the script's time limit, PR 20).
-SP_EP_LAYERS = 6
+# The two-rank sequence, expert and MoE tensor-parallel runs' depth:
+# BERT-base's width at 2 of its 12 layers (cut for the script's time
+# limit: 6 in PR 20, 2 since PR 21).
+SP_EP_LAYERS = 2
 LONG_LR = 1e-2               # SGD: a parameter's change is its gradients'
 EP_BATCH = 32
 # Two ranks against one process, SGD over LONG_STEPS steps, dropout 0:
@@ -8805,27 +8837,27 @@ def long_hparams(impl):
             "num_classes": 2, "dropout_rate": 0.0, "n_layers": SP_EP_LAYERS}
 
 
-def f32_compute(model):
-    """``model`` with every module's compute dtype f32 (its parameters are
-    f32 already)."""
+def f32_compute(model, dtype=torch.float32):
+    """``model`` with every module's compute dtype ``dtype`` (f32: its
+    parameters are f32 already; f64: they are cast)."""
     for module in model.modules():
         if isinstance(getattr(module, "dtype", None), torch.dtype):
-            module.dtype = torch.float32
-    return model
+            module.dtype = dtype
+    return model if dtype == torch.float32 else model.to(dtype)
 
 
 def parallel_run(hp, seed, batches, mesh=None, batch_partition=None,
                  loss_fn=bert_module.loss_fn, f32=False, param_partition=None,
-                 build=None, hook=None, step_times=None):
+                 build=None, hook=None, step_times=None, f64=False):
     """train_loop with SGD (LONG_LR) over ``batches`` on ``mesh`` (in f32
-    compute with ``f32``; ``build(generator, batch)`` makes the model, by
+    compute with ``f32``, f64 with ``f64``; ``build(generator, batch)`` makes the model, by
     default the BERT module's, and ``hook(model)`` sees it first); returns
     (the final whole model, per-step losses, result, the initial
     parameters on the device: whole, the slices a module holds over
     ``model`` or ``pipe`` gathered; under expert parallelism the rank's
     slice of the experts).  ``step_times`` collects each step's end on the
     host clock."""
-    from tpu_pipelines_torch.parallel.partition import all_gather_dim, held_slice
+    from tpu_pipelines_torch.parallel.partition import gather_whole, held_slices
 
     losses, start = [], {}
     build = build or functools.partial(bert_module.init_params_fn,
@@ -8836,10 +8868,10 @@ def parallel_run(hp, seed, batches, mesh=None, batch_partition=None,
         if hook is not None:
             hook(model)
         for n, p in model.named_parameters():
-            held = held_slice(model, n)
-            whole = p.detach() if held is None else all_gather_dim(
-                p.detach(), held[0], held[1])
-            start[n] = whole.to(DEVICE, copy=True)
+            start[n] = gather_whole(p.detach(), held_slices(model, n)).to(
+                DEVICE, copy=True)
+        if f64:
+            return f32_compute(model, torch.float64)
         return f32_compute(model) if f32 else model
 
     def record(step, metrics):
@@ -8853,8 +8885,8 @@ def parallel_run(hp, seed, batches, mesh=None, batch_partition=None,
         optimizer=lambda p: torch.optim.SGD(p, lr=LONG_LR),
         train_iter=iter(batches),
         config=TrainLoopConfig(train_steps=len(batches),
-                               batch_size=len(batches[0]["label"]), log_every=1,
-                               window_steps=1, seed=seed,
+                               batch_size=len(next(iter(batches[0].values()))),
+                               log_every=1, window_steps=1, seed=seed,
                                batch_partition=batch_partition,
                                param_partition=param_partition),
         mesh=mesh, metrics_cb=record, device=DEVICE)
@@ -9065,6 +9097,9 @@ def _seq_expert_finish(card, long_losses, long_result, ep_losses, one_launches,
 # ---- 8d. tensor and pipeline parallelism on two gloo ranks (A6b)
 
 TP_VOCAB = 30522             # BASELINE configs[3]: BERT-base's own vocabulary
+# The tensor-parallel BERT-base runs' depth: 6 of its 12 layers (cut for
+# the script's time limit, PR 21).
+TP_LAYERS = 6
 TP_BATCH = 32
 TP_STEPS = 3
 TP_RUN_FN_ROWS = 128
@@ -9112,7 +9147,7 @@ PP_LOGIT_TOL = 1e-3
 def tp_hparams(dropout=0.0):
     return {**DEFAULT_HPARAMS, "vocab_size": TP_VOCAB, "attn_impl": "flash",
             "max_len": SEQ_LEN, "num_classes": 2, "dropout_rate": dropout,
-            "batch_size": TP_BATCH}
+            "batch_size": TP_BATCH, "n_layers": TP_LAYERS}
 
 
 def tp_batches(seed, n=TP_STEPS):
@@ -9190,8 +9225,9 @@ def _held_shapes(model, names):
 
 
 def _tp_job(seed, *, want_path, f32, control=False):
-    """One rank of BERT-base (12 x 64 heads, d_ff 3072, vocabulary 30,522)
-    at TP_BATCH x SEQ_LEN over data = 1 x model = 2 with flash attention,
+    """One rank of BERT-base (12 x 64 heads, d_ff 3072, vocabulary 30,522,
+    TP_LAYERS layers) at TP_BATCH x SEQ_LEN over data = 1 x model = 2 with
+    flash attention,
     dropout 0, TP_STEPS SGD steps through train_loop with
     ``bert_partition_rules`` (f32 compute with ``f32``, else bf16).  The
     control leaves layer 0's attention-output reduction out."""
@@ -9472,7 +9508,8 @@ def tp_pp_setup(seed, card, tmp):
 def _tp_pp_finish(card, one, one_launches, pp_logits, two, two_s):
     failures = []
     print(f"tp_pp_two_ranks [{card}]: one process ({one['tp_f32']['step_capture']}): "
-          f"BERT-base (vocabulary {TP_VOCAB}) flash at {TP_BATCH} x {SEQ_LEN}, "
+          f"BERT-base (vocabulary {TP_VOCAB}, {TP_LAYERS} layers) flash at "
+          f"{TP_BATCH} x {SEQ_LEN}, "
           f"f32 losses " + " ".join(f"{x:.6f}" for x in one["tp_f32"]["losses"])
           + f", step {one['tp_f32']['step_ms']:.1f} ms; bf16 losses "
           + " ".join(f"{x:.6f}" for x in one["tp_bf16"]["losses"])
@@ -9483,7 +9520,7 @@ def _tp_pp_finish(card, one, one_launches, pp_logits, two, two_s):
           "one-process runs', not the ranks')", flush=True)
     print(f"tp_pp_two_ranks: two ranks over {DP_TWO_BACKEND} on one card "
           f"({two[0]['tp_f32']['step_capture']}), {two_s:.1f} s", flush=True)
-    per_run = {k: N_LAYERS * TP_STEPS for k in two[0]["tp_f32"]["launches"]}
+    per_run = {k: TP_LAYERS * TP_STEPS for k in two[0]["tp_f32"]["launches"]}
     per_run["flash_decode"] = 0
     nothing = dict.fromkeys(per_run, 0)
     d, ff = DEFAULT_HPARAMS["d_model"], DEFAULT_HPARAMS["d_ff"]
@@ -9552,7 +9589,7 @@ def _tp_pp_finish(card, one, one_launches, pp_logits, two, two_s):
     if not torch.equal(r0["logits"], r1["logits"]) or payload_gap > LOGIT_TOL:
         failures.append(f"run_fn: payload gap {payload_gap:.3e}")
     for r, rank in enumerate((r0, r1)):
-        if rank["launches"]["flash_bwd_dq"] != N_LAYERS * TP_STEPS:
+        if rank["launches"]["flash_bwd_dq"] != TP_LAYERS * TP_STEPS:
             failures.append(f"run_fn: rank {r} launched {rank['launches']}")
 
     pp = two[0]["pp"]
@@ -9565,6 +9602,609 @@ def _tp_pp_finish(card, one, one_launches, pp_logits, two, two_s):
         failures.append(f"pp payload: stages {pp['payload_stages']}, gap {pred_gap:.3e}")
     return ({"tp": [two[0]["tp_bf16"]["launches"], two[1]["tp_bf16"]["launches"]],
              "pp": [two[0]["pp"]["launches"], two[1]["pp"]["launches"]]}, failures)
+
+
+# ---- 8e. T5 and the MoE experts on the other mesh axes (A6c)
+
+# T5-small (configs[4]'s geometry: d_model 512, 8 x 64 heads, d_ff 2048,
+# vocabulary 32,128) trained over model = 2 and on a split sequence, and
+# decoded over model = 2; BERT-base-MoE with its experts' ff dim over
+# model = 2.  Depths cut for the script's time (PERF.md section 4).
+T5_TP_LAYERS = 2             # encoder and decoder layers of the training jobs
+T5_TP_BATCH = 32
+T5_TP_LEN = 128
+T5_SP_LEN = 1024
+T5_SP_BATCH = 4
+# The decoding job's depth: 2 + 2 of T5-small's 6 + 6 layers (cut for the
+# script's time limit, PR 21; a rank's decode step is gloo's latency).
+T5_DECODE_LAYERS = 2
+T5_DECODE_ROWS = 8
+T5_DECODE_STEPS = 32
+T5_DECODE_CACHE = 2048
+T5_BEAM_ROWS = 4
+T5_BEAM_STEPS = 32
+# The T5 training jobs' parameter-change limit over model = 2.  T5's f32
+# runs read 10x BERT's (1.3e-4 against 1.1e-5): its change is small beside
+# its unit-scale embedding, so f32's grid rounds the change coarsely (the
+# one-process f64 run printed beside the reading is the witness: the f32
+# change is about 8e-3 from it, NVIDIA H100 80GB HBM3, 700.00 W), and two
+# f32 runs, which share that grid, part where a last bit flips.  The limit
+# sits between the sound readings and the controls' (above 0.2).
+T5_CHANGE_TOL = 1e-3
+
+
+def t5_two_rank_hparams(dropout=0.0, layers=T5_TP_LAYERS):
+    return {**t5m.DEFAULT_HPARAMS, "n_layers": layers, "dropout_rate": dropout,
+            "attn_impl": "flash", "batch_size": T5_TP_BATCH}
+
+
+def t5_batches(seed, n, batch, length):
+    """``n`` T5 batches: inputs and targets of ``length`` with ragged real
+    lengths (pad 0 behind), the input mask."""
+    rng = np.random.default_rng(seed + 53)
+    vocab = t5m.DEFAULT_HPARAMS["vocab_size"]
+    out = []
+    for _ in range(n):
+        ids = []
+        for _ in range(2):
+            lengths = rng.integers(8, length + 1, size=batch)
+            mask = np.arange(length)[None, :] < lengths[:, None]
+            ids.append(np.where(mask, rng.integers(2, vocab, size=(batch, length)), 0))
+        out.append({"inputs": ids[0].astype(np.int32),
+                    "targets": ids[1].astype(np.int32),
+                    "input_mask": (ids[0] > 0).astype(np.int32)})
+    return out
+
+
+def from_saved_init(make, path):
+    """A ``build(generator, batch)`` for ``parallel_run``: ``make()`` (a
+    model, built on a mesh or not) holding the whole initial state saved
+    at ``path`` (its rank's slices of it), drawn once for every run of a
+    job and its one-process baseline."""
+    def build(generator, batch):
+        model = make()
+        model.load_state_dict(torch.load(path, weights_only=True))
+        return model
+
+    return build
+
+
+def save_init(model, path):
+    torch.save(model.state_dict(), path)
+    return path
+
+
+def cross_attending_the_own_block():
+    """The split-sequence control: cross-attention's gather of the encoder
+    output over seq is left out (each rank's queries see its own block of
+    the encoder, repeated to the whole length; the exchange still runs and
+    stays in the graph)."""
+    from tpu_pipelines_torch.parallel import collectives
+
+    real_forward, real_gather = tfm.MultiHeadAttention.forward, collectives.all_gather
+    cross = {"on": False}
+
+    def forward(self, x, *args, x_kv=None, **kwargs):
+        cross["on"] = x_kv is not None
+        try:
+            return real_forward(self, x, *args, x_kv=x_kv, **kwargs)
+        finally:
+            cross["on"] = False
+
+    def gather(x, dim, group):
+        got = real_gather(x, dim, group)
+        if not cross["on"]:
+            return got
+        own = torch.cat([x] * (got.shape[dim] // x.shape[dim]), dim=dim)
+        return own + 0 * got if got.is_floating_point() else own
+
+    return [mock.patch.object(tfm.MultiHeadAttention, "forward", forward),
+            mock.patch.object(collectives, "all_gather", gather)]
+
+
+def leave_out_first_moe_reduction(model):
+    """The MoE control: layer 1's expert output leaves without its
+    reduction over ``model`` (each rank keeps its columns' partial sum)."""
+    from tpu_pipelines_torch.parallel import collectives
+    from tpu_pipelines_torch.parallel.partition import slice_group
+
+    moe = model.encoder.layers[1].moe
+    group, real, forward = slice_group(moe, "wi"), collectives.leave_partial, moe.forward
+
+    def partial(x, g):
+        return x if g is group else real(x, g)
+
+    def patched(*args, **kwargs):
+        with mock.patch.object(collectives, "leave_partial", partial):
+            return forward(*args, **kwargs)
+
+    moe.forward = patched
+
+
+def draw_own_columns(model):
+    """The dropout control: each rank draws the mask of its own d_ff
+    columns alone (the hidden site forgets its split), so the ranks draw
+    the same numbers for different columns."""
+    for module in model.modules():
+        if isinstance(module, tfm.Dropout):
+            module.columns = None
+
+
+def _t5_train_job(seed, *, want_path, init_path, mesh_config, split=False,
+                  dropout=0.0, control=None, f64_path=None):
+    """One rank of T5-small (T5_TP_LAYERS + T5_TP_LAYERS layers, f32, 3 SGD
+    steps through train_loop with ``t5_module.loss_fn``) on
+    ``mesh_config``: over model with ``t5_partition_rules`` at 32 x 128,
+    or on seq with its inputs and targets split (``split``) at 4 x 1024,
+    from the initial weights at ``init_path``; with ``f64_path``, also
+    its distance from the one-process f64 run saved there.
+    ``control``: "reduction" (layer 0's attention-output reduction left
+    out), "cross" (cross-attention's gather left out) or "draw" (each
+    rank draws its columns' dropout mask alone)."""
+    from tpu_pipelines_torch.parallel.mesh import make_mesh
+    from tpu_pipelines_torch.parallel.partition import (
+        make_param_partition,
+        t5_partition_rules,
+    )
+    from tpu_pipelines_torch.parallel.ring_attention import (
+        long_context_batch_partition,
+    )
+
+    zero_counters()
+    mesh = make_mesh(mesh_config, device=DEVICE)
+    hp = t5_two_rank_hparams(dropout)
+    batches = (t5_batches(seed, LONG_STEPS, T5_SP_BATCH, T5_SP_LEN) if split
+               else t5_batches(seed, TP_STEPS, T5_TP_BATCH, T5_TP_LEN))
+    bp = long_context_batch_partition(batches[0], mesh) if split else None
+    with torch.device("meta"):
+        partition = make_param_partition(t5m.build_t5_model(hp), t5_partition_rules())
+    held = {}
+    names = ("shared.weight", "encoder.rel_pos.rel_embedding",
+             "decoder.layers.0.cross.query.weight", "encoder.layers.0.mlp.wi.weight")
+
+    def hook(model):
+        held.update(_held_shapes(model, names))
+        if control == "reduction":
+            leave_out_first_attention_reduction(model)
+        if control == "draw":
+            draw_own_columns(model)
+
+    patches = cross_attending_the_own_block() if control == "cross" else []
+    times = []
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        model, losses, result, start = parallel_run(
+            hp, seed, batches, mesh, batch_partition=bp, loss_fn=t5_module.loss_fn,
+            f32=True, param_partition=partition, hook=hook, step_times=times,
+            build=from_saved_init(lambda: t5m.build_t5_model(hp, mesh=mesh), init_path))
+    seconds = time.perf_counter() - t0
+    return {"losses": losses, "sums": _sums(model), "seconds": seconds,
+            "gap": change_gap(model, start, want_path), "held": held,
+            "gap_f64": change_gap(model, start, f64_path) if f64_path else None,
+            "step_ms": step_ms(times), "step_capture": result.step_capture,
+            "batch_partition": bp, "launches": by_record(counters())}
+
+
+T5_DECODE_HP = {"n_layers": T5_DECODE_LAYERS, "attn_impl": "flash",
+                "dropout_rate": 0.0}
+
+
+def t5_decode_model(init_path, mesh):
+    """T5-small at T5_DECODE_LAYERS + T5_DECODE_LAYERS layers, bf16, flash
+    decode, holding the random weights saved at ``init_path``, on the
+    card, eval mode."""
+    hp = {**t5m.DEFAULT_HPARAMS, **T5_DECODE_HP}
+    model = from_saved_init(lambda: t5m.build_t5_model(hp, mesh=mesh), init_path)(
+        None, None)
+    return model.to(DEVICE).eval()
+
+
+def t5_decode_prompts(seed):
+    rng = np.random.default_rng(seed + 61)
+    vocab = t5m.DEFAULT_HPARAMS["vocab_size"]
+    lengths = rng.integers(16, T5_TP_LEN + 1, size=T5_DECODE_ROWS)
+    mask = np.arange(T5_TP_LEN)[None, :] < lengths[:, None]
+    inputs = np.where(mask, rng.integers(2, vocab, size=(T5_DECODE_ROWS, T5_TP_LEN)), 0)
+    return (torch.as_tensor(inputs, device=DEVICE),
+            torch.as_tensor(mask.astype(np.int32), device=DEVICE))
+
+
+@torch.no_grad()
+def t5_decode_run(model, inputs, mask, beam=True):
+    """Greedy, T5_DECODE_STEPS tokens for every prompt into a
+    T5_DECODE_CACHE-key cache (the greedy step: one position for every
+    row, the bias row [1, H, 1, L]), its logits at every step; and, with
+    ``beam``, beam T5_BEAM_STEPS x 4 for the first T5_BEAM_ROWS prompts,
+    with each step's top-k as the search took it (``beam_steps``: its
+    candidates' scores, the chosen scores and indices; step 0's
+    candidates are the first log-probabilities)."""
+    params = dict(model.state_dict())
+    cache, encoded, logits = t5m.prefill_decode(model, params, inputs, mask,
+                                                T5_DECODE_CACHE)
+    toks, steps = [], [logits.float()]
+    tok = logits.argmax(dim=-1)
+    for t in range(1, T5_DECODE_STEPS):
+        toks.append(tok)
+        cache, logits = t5m._decode_one(model, params, cache, tok, encoded, mask, t,
+                                        T5_DECODE_CACHE)
+        steps.append(logits.float())
+        tok = logits.argmax(dim=-1)
+    toks.append(tok)
+    key = "decoder.layer_0.attn.cached_key"
+    out = {"tokens": torch.stack(toks, 1).cpu(), "logits": torch.stack(steps, 1).cpu(),
+           "heads": int(cache[key].shape[2]), "keys": int(cache[key].shape[1])}
+    if beam:
+        seen, real_topk = [], torch.topk
+
+        def topk(x, k):
+            got = real_topk(x, k)
+            seen.append((x.float().cpu(), got.values.float().cpu(), got.indices.cpu()))
+            return got
+
+        with mock.patch.object(torch, "topk", topk):
+            tokens, score = t5m.make_beam_generate(
+                model, beam_size=BEAM, max_decode_len=T5_BEAM_STEPS, eos_id=EOS_ID)(
+                    params, inputs[:T5_BEAM_ROWS], mask[:T5_BEAM_ROWS])
+        out.update(beam=tokens.cpu(), score=score.float().cpu(), beam_steps=seen)
+    return out
+
+
+def decode_parity(got, want):
+    """Greedy against one process: (ok, max |logit diff| through each
+    row's first parting step, rows parted).  Tokens equal ``want``'s, or
+    where a row parts, the one-process logits' top-2 gap at that step is
+    under DECODE_LOGIT_TOL; the logits through the first parting step
+    (all steps where none) within DECODE_LOGIT_TOL."""
+    ok, worst, parted = True, 0.0, 0
+    for r in range(want["tokens"].shape[0]):
+        apart = (got["tokens"][r] != want["tokens"][r]).nonzero()
+        last = int(apart[0]) if len(apart) else want["tokens"].shape[1] - 1
+        diff = float((got["logits"][r, :last + 1]
+                      - want["logits"][r, :last + 1]).abs().max())
+        worst = max(worst, diff)
+        ok = ok and diff <= DECODE_LOGIT_TOL
+        if len(apart):
+            parted += 1
+            top2 = want["logits"][r, last].topk(2).values
+            ok = ok and float(top2[0] - top2[1]) <= DECODE_LOGIT_TOL
+    return ok, worst, parted
+
+
+def beam_parity(got, want):
+    """Beam search against one process, held as greedy is: (ok, max
+    |log-prob diff| through each row's first parting step, rows parted,
+    the largest near-tie gap at a parting step).  A row parts at the
+    first step whose top-k picks other candidates than ``want``'s.
+    Through that step the row's beams saw the same prefixes, so each
+    step's log-probabilities (a candidate's score less its beam's score
+    before the step; 0 apart for a finished beam, which may only pad)
+    must be within DECODE_LOGIT_TOL; at it, the first differing pick
+    must score within DECODE_LOGIT_TOL of ``want``'s pick among
+    ``want``'s candidates (a near-tie).  A row that never parts holds
+    ``want``'s tokens."""
+    ok, worst, parted, tie = True, 0.0, 0, 0.0
+    steps = list(zip(got["beam_steps"], want["beam_steps"]))
+    for r in range(want["beam"].shape[0]):
+        for t, ((g_x, _, g_i), (w_x, _, w_i)) in enumerate(steps):
+            g_lp, w_lp = g_x[r], w_x[r]
+            if t:
+                g_lp = g_lp.view(BEAM, -1) - steps[t - 1][0][1][r][:, None]
+                w_lp = w_lp.view(BEAM, -1) - steps[t - 1][1][1][r][:, None]
+            diff = float((g_lp - w_lp).abs().max())
+            worst = max(worst, diff)
+            ok = ok and diff <= DECODE_LOGIT_TOL
+            apart = (g_i[r] != w_i[r]).nonzero()
+            if len(apart):
+                j = int(apart[0])
+                gap = float(w_x[r][w_i[r][j]] - w_x[r][g_i[r][j]])
+                parted, tie = parted + 1, max(tie, gap)
+                ok = ok and gap <= DECODE_LOGIT_TOL
+                break
+        else:
+            ok = ok and torch.equal(got["beam"][r], want["beam"][r])
+    return ok, worst, parted, tie
+
+
+def _t5_decode_job(seed, *, want_path, init_path, control=False):
+    """One rank of T5-small decoding over data = 1 x model = 2 (4 of the 8
+    heads a rank, flash decode on them with the rank's bias rows), greedy
+    and beam; the control leaves layer 0's attention-output reduction
+    out."""
+    from tpu_pipelines_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh({"data": 1, "model": 2}, device=DEVICE)
+    model = t5_decode_model(init_path, mesh)
+    if control:
+        leave_out_first_attention_reduction(model)
+    inputs, mask = t5_decode_prompts(seed)
+    zero_counters()
+    t0 = time.perf_counter()
+    got = t5_decode_run(model, inputs, mask)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    want = torch.load(want_path, weights_only=True)
+    ok, worst, parted = decode_parity(got, want)
+    beam_ok, beam_worst, beam_parted, tie = beam_parity(got, want)
+    return {"ok": ok, "worst": worst, "parted": parted, "beam_ok": beam_ok,
+            "beam_worst": beam_worst, "beam_parted": beam_parted, "tie": tie,
+            "beam": got["beam"], "seconds": seconds,
+            "heads": got["heads"], "keys": got["keys"],
+            "logits": got["logits"], "tokens": got["tokens"],
+            "launches": by_record(counters())}
+
+
+def _moe_tp_job(seed, *, want_path, init_path, control=False):
+    """One rank of BERT-base-MoE (8 experts on the odd layers) at
+    SP_EP_LAYERS layers over data = 1 x model = 2 (the experts' d_ff and
+    the heads halved), f32, flash, 3 SGD steps with ``bert_partition_rules``;
+    the control leaves layer 1's expert-output reduction out."""
+    from tpu_pipelines_torch.parallel.mesh import make_mesh
+
+    zero_counters()
+    mesh = make_mesh({"data": 1, "model": 2}, device=DEVICE)
+    hp = moe_hparams(dropout=0.0, layers=SP_EP_LAYERS)
+    held = {}
+
+    def hook(model):
+        held.update(_held_shapes(model, ("encoder.layers.1.moe.wi",
+                                         "encoder.layers.1.moe.wo",
+                                         "encoder.layers.0.attn.query.weight")))
+        held["heads"] = model.encoder.layers[0].attn.n_heads
+        if control:
+            leave_out_first_moe_reduction(model)
+
+    times = []
+    t0 = time.perf_counter()
+    model, losses, result, start = parallel_run(
+        hp, seed, ep_batches(seed), mesh, loss_fn=moe_loss_fn, f32=True,
+        param_partition=tp_partition(hp), hook=hook, step_times=times,
+        build=from_saved_init(lambda: build_bert_model(hp, mesh=mesh), init_path))
+    seconds = time.perf_counter() - t0
+    return {"losses": losses, "sums": _sums(model), "seconds": seconds,
+            "gap": change_gap(model, start, want_path), "held": held,
+            "step_ms": step_ms(times), "step_capture": result.step_capture,
+            "launches": by_record(counters())}
+
+
+def t5_moe_setup(seed, card, tmp):
+    """(8e) t5_moe_two_ranks: A6c on two gloo ranks of the one card, each
+    job held against one process running the same work, each with a
+    control that must miss: (a) T5-small over model = 2 (f32, 3 SGD steps,
+    beside a one-process f64 run; control: layer 0's attention-output
+    reduction left out); (b) the same at dropout 0.1 (the whole-shape
+    draw; control: each rank draws its columns' mask alone); (c) T5-small
+    decoding over model = 2 in bf16, greedy into a 2048-key cache and
+    beam 4 (control: the reduction left out, which greedy and beam must
+    each miss); (d) T5-small on a split sequence, seq = 2 (control:
+    cross-attention's gather left out); (e) BERT-base-MoE over model = 2
+    (control: layer 1's expert-output reduction left out).  Returns the
+    rank jobs and ``finish(two, seconds)``; ``two_rank_jobs`` runs them in
+    the shared spawn."""
+    zero_counters()
+    t0 = time.perf_counter()
+    one, paths = {}, {}
+    t5_hp, moe_hp = t5_two_rank_hparams(), moe_hparams(dropout=0.0, layers=SP_EP_LAYERS)
+    inits = {
+        "t5": save_init(t5m.init_t5_weights(t5m.build_t5_model(t5_hp),
+                                            torch.Generator().manual_seed(seed)),
+                        os.path.join(tmp, "t5_init.pt")),
+        "moe_tp": save_init(init_bert_weights(build_bert_model(moe_hp),
+                                              torch.Generator().manual_seed(seed)),
+                            os.path.join(tmp, "moe_init.pt")),
+        "t5_decode": save_init(t5m.init_t5_weights(
+            t5m.build_t5_model({**t5m.DEFAULT_HPARAMS, **T5_DECODE_HP}),
+            torch.Generator().manual_seed(seed + 59)), os.path.join(tmp, "t5_decode_init.pt"))}
+    runs = {
+        "t5_tp": (t5_two_rank_hparams(), t5_batches(seed, TP_STEPS, T5_TP_BATCH,
+                                                    T5_TP_LEN), t5_module.loss_fn),
+        "t5_tp_dropout": (t5_two_rank_hparams(0.1), t5_batches(
+            seed, TP_STEPS, T5_TP_BATCH, T5_TP_LEN), t5_module.loss_fn),
+        "t5_sp": (t5_two_rank_hparams(), t5_batches(seed, LONG_STEPS, T5_SP_BATCH,
+                                                    T5_SP_LEN), t5_module.loss_fn),
+        "moe_tp": (moe_hp, ep_batches(seed), moe_loss_fn),
+    }
+    # The witness of f32's own rounding in T5's change: (a) in one process
+    # in f64 (the cross-entropy and the norms' statistics stay f32), from
+    # which the one-process f32 run's distance is read below.
+    t1, times = time.perf_counter(), []
+    model, losses, _, _ = parallel_run(
+        t5_hp, seed, runs["t5_tp"][1], loss_fn=t5_module.loss_fn, f64=True,
+        build=from_saved_init(lambda: t5m.build_t5_model(t5_hp), inits["t5"]),
+        step_times=times)
+    paths["t5_tp_f64"] = os.path.join(tmp, "t5_tp_f64.pt")
+    torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+               paths["t5_tp_f64"])
+    one["t5_tp_f64"] = {"losses": losses, "seconds": time.perf_counter() - t1,
+                        "step_ms": step_ms(times)}
+    del model
+    for name, (hp, batches, loss_fn) in runs.items():
+        times = []
+        t1 = time.perf_counter()
+        if name == "moe_tp":
+            build = from_saved_init(lambda: build_bert_model(moe_hp), inits["moe_tp"])
+        else:
+            build = from_saved_init(lambda hp=hp: t5m.build_t5_model(hp), inits["t5"])
+        model, losses, result, start = parallel_run(hp, seed, batches, loss_fn=loss_fn,
+                                                    f32=True, build=build,
+                                                    step_times=times)
+        one[name] = {"losses": losses, "step_ms": step_ms(times),
+                     "seconds": time.perf_counter() - t1,
+                     "step_capture": result.step_capture}
+        paths[name] = os.path.join(tmp, f"{name}.pt")
+        torch.save({n: p.detach().cpu() for n, p in model.named_parameters()},
+                   paths[name])
+        if name == "t5_tp":
+            one["t5_tp_f64"]["gap_f32"] = change_gap(model, start, paths["t5_tp_f64"])
+        del model
+    model = t5_decode_model(inits["t5_decode"], None)
+    t1 = time.perf_counter()
+    decoded = t5_decode_run(model, *t5_decode_prompts(seed))
+    one["t5_decode"] = {"seconds": time.perf_counter() - t1, "heads": decoded["heads"]}
+    paths["t5_decode"] = os.path.join(tmp, "t5_decode.pt")
+    torch.save(decoded, paths["t5_decode"])
+    del model
+    one_launches = by_record(counters())
+    one_s = time.perf_counter() - t0
+    tp, sp = {"data": 1, "model": 2}, {"data": 1, "seq": 2}
+    t5, t5_sp = {"init_path": inits["t5"], "mesh_config": tp}, {
+        "init_path": inits["t5"], "mesh_config": sp, "split": True}
+    decode = {"want_path": paths["t5_decode"], "init_path": inits["t5_decode"]}
+    moe = {"want_path": paths["moe_tp"], "init_path": inits["moe_tp"]}
+    dropout = {"want_path": paths["t5_tp_dropout"], **t5, "dropout": 0.1}
+    jobs = [("t5_tp", "t5_train", {"want_path": paths["t5_tp"], **t5,
+                                   "f64_path": paths["t5_tp_f64"]}),
+            ("t5_tp_control", "t5_train", {"want_path": paths["t5_tp"], **t5,
+                                           "control": "reduction"}),
+            ("t5_tp_dropout", "t5_train", dropout),
+            ("t5_tp_dropout_control", "t5_train", {**dropout, "control": "draw"}),
+            ("t5_decode", "t5_decode", decode),
+            ("t5_decode_control", "t5_decode", {**decode, "control": True}),
+            ("t5_sp", "t5_train", {"want_path": paths["t5_sp"], **t5_sp}),
+            ("t5_sp_control", "t5_train", {"want_path": paths["t5_sp"], **t5_sp,
+                                           "control": "cross"}),
+            ("moe_tp", "moe_tp", moe),
+            ("moe_tp_control", "moe_tp", {**moe, "control": True})]
+    return jobs, functools.partial(_t5_moe_finish, card, one, one_launches, one_s)
+
+
+def _t5_moe_finish(card, one, one_launches, one_s, two, two_s):
+    failures = []
+    print(f"t5_moe_two_ranks [{card}]: one process ({one['t5_tp']['step_capture']}), "
+          f"{one_s:.1f} s: T5-small {T5_TP_LAYERS} + {T5_TP_LAYERS} layers f32 at "
+          f"{T5_TP_BATCH} x {T5_TP_LEN}, losses "
+          + " ".join(f"{x:.6f}" for x in one["t5_tp"]["losses"])
+          + f", step {one['t5_tp']['step_ms']:.1f} ms; at dropout 0.1 "
+          + " ".join(f"{x:.6f}" for x in one["t5_tp_dropout"]["losses"])
+          + f"; at {T5_SP_BATCH} x {T5_SP_LEN} "
+          + " ".join(f"{x:.6f}" for x in one["t5_sp"]["losses"])
+          + f", step {one['t5_sp']['step_ms']:.1f} ms; BERT-base-MoE "
+          f"{SP_EP_LAYERS} layers f32 " + " ".join(
+              f"{x:.6f}" for x in one["moe_tp"]["losses"])
+          + f", step {one['moe_tp']['step_ms']:.1f} ms; T5-small {T5_DECODE_LAYERS} "
+          f"+ {T5_DECODE_LAYERS} bf16 decoding {one['t5_decode']['seconds']:.1f} s; "
+          f"launches {one_launches} (the one-process runs', not the ranks')",
+          flush=True)
+    witness = one["t5_tp_f64"]
+    print(f"t5_moe_two_ranks t5_tp_f64: T5-small's 3 SGD steps in one process in "
+          f"f64 ({witness['seconds']:.1f} s, step {witness['step_ms']:.1f} ms), losses "
+          + " ".join(f"{x:.6f}" for x in witness["losses"])
+          + f"; the one-process f32 run's rel L2 parameter-change distance from "
+          f"it {witness['gap_f32']:.3e} (f32's own rounding)", flush=True)
+    jobs_s = sum(two[0][name].get("wall_s", 0.0) for name in two[0] if name.startswith(
+        ("t5_", "moe_tp")))
+    print(f"t5_moe_two_ranks: two ranks over {DP_TWO_BACKEND} on one card, the "
+          f"shared spawn {two_s:.1f} s, of which this phase's jobs {jobs_s:.1f} s "
+          f"(rank 0's walls); the phase's work {one_s + jobs_s:.1f} s with its "
+          f"one-process runs", flush=True)
+    t5_hp, heads = t5_two_rank_hparams(), t5m.DEFAULT_HPARAMS["n_heads"] // 2
+    v, d, ff, h = (t5_hp[k] for k in ("vocab_size", "d_model", "d_ff", "n_heads"))
+    bd, bff, bh = (DEFAULT_HPARAMS[k] for k in ("d_model", "d_ff", "n_heads"))
+
+    def t5_shapes(n):
+        return {"shared.weight": (v // n, d),
+                "encoder.rel_pos.rel_embedding": (32, h // n),
+                "decoder.layers.0.cross.query.weight": (d // n, d),
+                "encoder.layers.0.mlp.wi.weight": (ff // n, d)}
+
+    want_held = {
+        "t5": t5_shapes(2), "t5_sp": t5_shapes(1),
+        "moe": {"encoder.layers.1.moe.wi": (MOE_EXPERTS, bd, bff // 2),
+                "encoder.layers.1.moe.wo": (MOE_EXPERTS, bff // 2, bd),
+                "encoder.layers.0.attn.query.weight": (bd // 2, bd),
+                "heads": bh // 2}}
+    trains = {"flash_fwd": 0, "flash_bwd_dvec": 0, "flash_bwd_dq": 0,
+              "flash_bwd_dkv": 0, "flash_decode": 0}
+    moe_runs = {**{k: SP_EP_LAYERS * LONG_STEPS for k in trains}, "flash_decode": 0}
+    for name, want, change_tol, loss_tol in (
+            ("t5_tp", one["t5_tp"], T5_CHANGE_TOL, TP_LOSS_TOL),
+            ("t5_tp_control", one["t5_tp"], T5_CHANGE_TOL, TP_LOSS_TOL),
+            ("t5_tp_dropout", one["t5_tp_dropout"], T5_CHANGE_TOL, TP_LOSS_TOL),
+            ("t5_tp_dropout_control", one["t5_tp_dropout"], T5_CHANGE_TOL, TP_LOSS_TOL),
+            ("t5_sp", one["t5_sp"], SP_CHANGE_TOL, SP_LOSS_TOL),
+            ("t5_sp_control", one["t5_sp"], SP_CHANGE_TOL, SP_LOSS_TOL),
+            ("moe_tp", one["moe_tp"], EP_CHANGE_TOL, EP_LOSS_TOL),
+            ("moe_tp_control", one["moe_tp"], EP_CHANGE_TOL, EP_LOSS_TOL)):
+        r0, r1 = two[0][name], two[1][name]
+        apart = [n for n in r0["sums"] if r0["sums"][n] != r1["sums"][n]]
+        control = name.endswith("control")
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], want["losses"]))
+        gap = max(r0["gap"], r1["gap"])
+        print(f"t5_moe_two_ranks {name}: {r0['seconds']:.1f} s, step "
+              f"{r0['step_ms']:.1f} ms over gloo (one process {want['step_ms']:.1f} "
+              f"ms); losses equal on both ranks {r0['losses'] == r1['losses']}, "
+              f"parameters apart {apart[:3]} ({len(apart)}); losses "
+              + " ".join(f"{x:.6f}" for x in r0["losses"])
+              + f"; max rel loss gap {loss_gap:.3e} (tol {loss_tol:g}); rel L2 of "
+              f"the parameter change against one process {r0['gap']:.3e} (rank 1 "
+              f"{r1['gap']:.3e}) (tol {change_tol:g}"
+              + (", must exceed it" if control else "") + ")"
+              + ("" if r0.get("gap_f64") is None else
+                 f"; from the one-process f64 run {r0['gap_f64']:.3e} (the "
+                 f"one-process f32 run {one['t5_tp_f64']['gap_f32']:.3e})")
+              + f"; held {r0['held']}; "
+              f"rank launches {r0['launches']} / {r1['launches']}", flush=True)
+        if r0["losses"] != r1["losses"] or apart:
+            failures.append(f"{name}: the two ranks disagree")
+        if not np.isfinite(r0["losses"]).all():
+            failures.append(f"{name}: losses {r0['losses']}")
+        kind = ("moe" if name.startswith("moe") else
+                "t5_sp" if name.startswith("t5_sp") else "t5")
+        want_launches = moe_runs if kind == "moe" else trains
+        for r, rank in enumerate((r0, r1)):
+            if rank["launches"] != want_launches:
+                failures.append(f"{name}: rank {r} launched {rank['launches']}, "
+                                f"want {want_launches}")
+        if r0["held"] != want_held[kind]:
+            failures.append(f"{name}: rank 0 held {r0['held']}, want {want_held[kind]}")
+        if kind == "t5_sp" and set(r0["batch_partition"]) != {
+                "inputs", "targets", "input_mask"}:
+            failures.append(f"{name}: batch_partition {r0['batch_partition']}")
+        if control and min(r0["gap"], r1["gap"]) <= change_tol:
+            failures.append(f"{name}: the control stays within {change_tol:g}")
+        if not control and (gap > change_tol or loss_gap > loss_tol):
+            failures.append(f"{name}: gap {gap:.3e}, loss gap {loss_gap:.3e}")
+    for name in ("t5_decode", "t5_decode_control"):
+        r0, r1 = two[0][name], two[1][name]
+        control = name.endswith("control")
+        decode_runs = (T5_DECODE_STEPS + T5_BEAM_STEPS) * T5_DECODE_LAYERS
+        must = ", must exceed it" if control else ""
+        print(f"t5_moe_two_ranks {name}: {r0['seconds']:.1f} s over gloo (one "
+              f"process {one['t5_decode']['seconds']:.1f} s); greedy "
+              f"{T5_DECODE_STEPS} tokens x {T5_DECODE_ROWS} prompts into a "
+              f"{r0['keys']}-key cache, beam {BEAM} x {T5_BEAM_ROWS}; {r0['heads']} "
+              f"heads a rank; greedy: rows parted from one process {r0['parted']} / "
+              f"{r1['parted']}, max |logit diff| through the first parting step "
+              f"{r0['worst']:.3e} / {r1['worst']:.3e} (tol {DECODE_LOGIT_TOL:g}{must}), "
+              f"parity {r0['ok']} / {r1['ok']}; beam: rows parted "
+              f"{r0['beam_parted']} / {r1['beam_parted']}, max |log-prob diff| "
+              f"through the first parting step {r0['beam_worst']:.3e} / "
+              f"{r1['beam_worst']:.3e} (tol {DECODE_LOGIT_TOL:g}{must}), the largest "
+              f"near-tie gap at a parting step {r0['tie']:.3e} (tol "
+              f"{DECODE_LOGIT_TOL:g}), parity {r0['beam_ok']} / {r1['beam_ok']}; "
+              f"ranks' tokens equal {torch.equal(r0['tokens'], r1['tokens'])} / "
+              f"{torch.equal(r0['beam'], r1['beam'])}; rank launches "
+              f"{r0['launches']} / {r1['launches']}", flush=True)
+        if not torch.equal(r0["tokens"], r1["tokens"]) or not torch.equal(
+                r0["logits"], r1["logits"]) or not torch.equal(r0["beam"], r1["beam"]):
+            failures.append(f"{name}: the two ranks decode apart")
+        for kind, ok in (("greedy", "ok"), ("beam", "beam_ok")):
+            if control and (r0[ok] or r1[ok]):
+                failures.append(f"{name}: the {kind} control stays within "
+                                "DECODE_LOGIT_TOL")
+            if not control and not (r0[ok] and r1[ok]):
+                failures.append(f"{name}: {kind} parity failed (greedy worst "
+                                f"{r0['worst']:.3e}, beam worst {r0['beam_worst']:.3e}, "
+                                f"near-tie {r0['tie']:.3e})")
+        for r, rank in enumerate((r0, r1)):
+            want = {**trains, "flash_decode": decode_runs}
+            if rank["launches"] != want or rank["heads"] != heads:
+                failures.append(f"{name}: rank {r} launched {rank['launches']} on "
+                                f"{rank['heads']} heads, want {want} on {heads}")
+    launches = {k: [two[r]["moe_tp"]["launches"][k] + two[r]["t5_decode"]["launches"][k]
+                    for r in range(2)] for k in trains}
+    return launches, failures
 
 
 def main(argv=None) -> int:
@@ -9647,15 +10287,19 @@ def main(argv=None) -> int:
     phase_done("moe_serving")
     dp_trained = dp_train_phase(args.seed, card)
     phase_done("dp_train")
-    # seq_expert_two_ranks and tp_pp_two_ranks: their one-process runs,
-    # then every rank job of both in one spawn of two gloo ranks.
-    (sp_launches, sp_failures), (tp_pp_launches, tp_pp_failures) = two_rank_jobs(
-        args.seed, card, [seq_expert_setup, tp_pp_setup])
+    # seq_expert_two_ranks, tp_pp_two_ranks and t5_moe_two_ranks: their
+    # one-process runs, then every rank job of all three in one spawn of
+    # two gloo ranks.
+    ((sp_launches, sp_failures), (tp_pp_launches, tp_pp_failures),
+     (t5_moe_launches, t5_moe_failures)) = two_rank_jobs(
+        args.seed, card, [seq_expert_setup, tp_pp_setup, t5_moe_setup])
     if sp_failures:
         raise AssertionError("seq_expert_two_ranks: " + "; ".join(sp_failures))
     if tp_pp_failures:
         raise AssertionError("tp_pp_two_ranks: " + "; ".join(tp_pp_failures))
-    phase_done("seq_expert_two_ranks + tp_pp_two_ranks")
+    if t5_moe_failures:
+        raise AssertionError("t5_moe_two_ranks: " + "; ".join(t5_moe_failures))
+    phase_done("seq_expert_two_ranks + tp_pp_two_ranks + t5_moe_two_ranks")
     with tempfile.TemporaryDirectory() as workdir:
         staged_dag_phase(card, workdir)
     phase_done("staged_dag")
@@ -9742,6 +10386,13 @@ def main(argv=None) -> int:
     bwd[0]["dvec_launches_by_path"]["tp_pp_two_ranks"] = {
         kind: [rank["flash_bwd_dvec"] for rank in ranks]
         for kind, ranks in tp_pp_launches.items()}
+    # t5_moe_two_ranks: each rank's own, the MoE job's training kernels
+    # and the decoding job's flash_decode.
+    for record in (fwd, *bwd, decode):
+        record["launches_by_path"]["t5_moe_two_ranks"] = t5_moe_launches[
+            record["name"]]
+    bwd[0]["dvec_launches_by_path"]["t5_moe_two_ranks"] = t5_moe_launches[
+        "flash_bwd_dvec"]
     fwd["launches_by_path"]["moe_serving"] = moe_served
     fwd["launches_by_path"]["fleet_guard"] = guard
     fwd["launches_by_path"]["serving_surface"] = surface_fwd

@@ -202,8 +202,10 @@ def test_unported_options_raise():
     """"ring", "ulysses" and ``moe_experts`` were refused until A6a: on a
     mesh of one process ring and Ulysses are dense attention (the
     reference's ``n == 1`` branch), bit for bit, and ``moe_experts`` puts
-    an MoE MLP on the odd layers.  T5 on a seq mesh waits for A6c, and an
-    unknown attention raises."""
+    an MoE MLP on the odd layers.  T5 on a seq mesh, refused until A6c,
+    builds, and without a split sequence it computes what one process
+    computes (tests/test_torch_t5_parallel.py trains it on two ranks).
+    An unknown attention raises."""
     from tpu_pipelines_torch.models.t5 import build_t5_model
     from tpu_pipelines_torch.parallel.mesh import DeviceMesh, make_mesh
 
@@ -221,7 +223,16 @@ def test_unported_options_raise():
     assert tuple(moe.encoder.layers[1].moe.wi.shape) == (2, TINY["d_model"], TINY["d_ff"])
     seq2 = DeviceMesh(None, 0, {"data": 1, "model": 1, "seq": 2, "expert": 1,
                                 "pipe": 1}, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="A6c"):
-        build_t5_model({}, mesh=seq2)
+    from tpu_pipelines_torch.models.t5 import init_t5_weights
+
+    t5_hp = {"vocab_size": 48, "d_model": 16, "n_layers": 1, "n_heads": 2,
+             "head_dim": 8, "d_ff": 32, "dropout_rate": 0.0}
+    whole = init_t5_weights(build_t5_model(t5_hp), torch.Generator().manual_seed(3))
+    on_seq = build_t5_model(t5_hp, mesh=seq2)
+    on_seq.load_state_dict(whole.state_dict())
+    t5_batch = {"inputs": torch.arange(2, 14).reshape(2, 6),
+                "targets": torch.arange(3, 13).reshape(2, 5)}
+    with torch.no_grad():
+        assert torch.equal(on_seq.eval()(t5_batch), whole.eval()(t5_batch))
     with pytest.raises(ValueError, match="attn_impl 'sparse'"):
         port_bert.build_bert_model({**TINY, "attn_impl": "sparse"})

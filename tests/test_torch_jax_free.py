@@ -153,7 +153,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
             "vision_serving_phase", "vision_dag_phase",
             "dp_train_phase", "engine_levers_phase",
             "serving_surface_phase", "moe_train_phase", "moe_serving_phase",
-            "seq_expert_setup", "tp_pp_setup"} <= set(report["phases"])
+            "seq_expert_setup", "tp_pp_setup",
+            "t5_moe_setup"} <= set(report["phases"])
     leaked = [m for m in report["modules"]
               if _forbidden(m) or m.split(".")[0] in NOT_AT_IMPORT]
     assert leaked == []

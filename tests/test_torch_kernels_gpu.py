@@ -56,6 +56,9 @@ collective over gloo, and NCCL refuses them.  A speculating engine's
 draft-step and verify-window graphs replay as its eager programs, its
 arenas after the rejected-KV scrub equal the eager engine's bit for bit,
 and a payload's ``torch.export`` artifact launches the forward kernel.
+The decode kernel runs at a tensor-parallel T5 rank's shape (4 heads,
+a 2048-key cache, the rank's bias rows), and a rank's whole-shape
+dropout draw replays in a captured graph as the eager draw of its seed.
 """
 
 import pytest
@@ -1813,6 +1816,60 @@ def test_two_ranks_on_one_card_split_bert_heads_over_model(cuda, tmp_path):
                                     "decode_launches": 0}, rank["launches"]
     assert torch.equal(got[0]["logits"], got[1]["logits"])
     assert float((got[0]["logits"] - got[0]["one_process"]).abs().max()) <= 4e-2
+
+
+def test_decode_kernel_at_a_tensor_parallel_ranks_shape(cuda):
+    """T5-small decoding over model = 2 (A6c): a rank's 4 of the 8 heads
+    against a 2048-key cache, batch 8, with its rows of the relative-
+    position bias [1, 4, 1, L] and the greedy step's expanded bool mask:
+    the kernel within one bf16 ulp of its plain version, and one launch."""
+    b, l, h, d = 8, 2048, 4, 64
+    q, k, v, gen = _decode_inputs(b, l, h, d, torch.bfloat16, cuda, seed=21)
+    mask = (torch.arange(l) <= 1023)[None, :].to(cuda).expand(b, l)
+    bias = torch.randn(1, h, 1, l, generator=gen).to(cuda)
+    before = fa.decode_launches
+    out = fa.flash_decode_attention(q, k, v, kv_mask=mask, bias=bias)
+    torch.cuda.synchronize()
+    assert fa.decode_launches == before + 1
+    ref = fa.flash_decode_attention_reference(q, k, v, kv_mask=mask, bias=bias)
+    assert out.shape == (b, 1, h, d)
+    assert _within(out, ref, OUT_TOL[torch.bfloat16])
+
+
+def test_a_whole_shape_dropout_draw_replays_as_the_eager_draw(cuda, monkeypatch):
+    """A rank's dropout on its block of a split activation draws the whole
+    shape's mask from the registered generator and keeps its block: inside
+    a captured graph, re-seeded before each replay, that equals an eager
+    whole-shape draw of the same seed, sliced (here rank 1 of 2 on the
+    last dim, the hidden site's split over model; the group is a stand-in
+    the collectives' size and rank read)."""
+    from tpu_pipelines_torch.models.transformer import Dropout
+    from tpu_pipelines_torch.parallel import collectives
+
+    group = object()
+    monkeypatch.setattr(collectives, "axis_world", lambda g: 2 if g is group else 1)
+    monkeypatch.setattr(collectives, "axis_rank", lambda g: 1 if g is group else 0)
+    dropout = Dropout(0.25, columns=(192, group)).train()
+    x = torch.randn(4, 16, 96, device=cuda)
+    generator = torch.Generator(device=cuda)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    generator.manual_seed(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dropout(x, generator)                                # warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out = dropout(x, generator)
+    for seed in (5, 6):
+        generator.manual_seed(seed)
+        graph.replay()
+        torch.cuda.synchronize()
+        eager = torch.Generator(device=cuda).manual_seed(seed)
+        u = torch.rand((4, 16, 192), generator=eager, device=cuda)[..., 96:]
+        want = torch.where(u < 0.75, x / 0.75, torch.zeros_like(x))
+        assert torch.equal(out, want), seed
 
 
 def test_a_capture_that_cannot_succeed_raises_instead_of_running_eagerly(cuda):

@@ -237,8 +237,7 @@ def test_tensor_parallel_rules_name_the_reference_leaves_and_wait_for_a6():
     # takes them; fsdp shards over 'data' only and the explicit modes
     # exchange over it alone, psum keeps parameters replicated; above 1
     # the implicit mode takes the specs of a model built on the mesh
-    # (tests/test_torch_tensor_parallel.py), not of one built whole, and
-    # the MoE experts' ff dim over 'model' waits for A6c.
+    # (tests/test_torch_tensor_parallel.py), not of one built whole.
     from tpu_pipelines_torch.trainer.data_parallel import DataParallel
     from tpu_pipelines_torch.trainer.train_loop import TrainLoopConfig
 
@@ -259,13 +258,24 @@ def test_tensor_parallel_rules_name_the_reference_leaves_and_wait_for_a6():
         build("psum_bucketed", _port_mesh(1))
     with pytest.raises(ValueError, match="its module holds the whole"):
         build("", two)
+    # The MoE experts' ff dim over 'model' is a spec like the dense ones
+    # (tests/test_torch_moe_tensor_parallel.py trains it on four ranks): a
+    # model built whole is refused for holding the experts whole, and on a
+    # model axis of 1 the experts' specs replicate.
     moe = build_bert_model({**BERT_SMALL, "moe_experts": 2})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A6c"):
-        DataParallel.build(
-            TrainLoopConfig(train_steps=1, batch_size=8, param_partition=
-                            port_part.make_param_partition(
-                                moe, port_part.bert_partition_rules())),
-            two, moe, "", False)
+    moe_partition = port_part.make_param_partition(moe, port_part.bert_partition_rules())
+    assert moe_partition["encoder.layers.1.moe.wi"] == ("expert", None, "model")
+    assert moe_partition["encoder.layers.1.moe.wo"] == ("expert", "model", None)
+
+    def build_moe(mesh):
+        return DataParallel.build(
+            TrainLoopConfig(train_steps=1, batch_size=8,
+                            param_partition=moe_partition), mesh, moe, "", False)
+
+    with pytest.raises(ValueError, match=r"layers\.1\.moe\.wi: spec \(None, None, "
+                       r"'model'\) shards it over 'model'"):
+        build_moe(two)
+    assert build_moe(_port_mesh(1)).held == {}
 
 
 def test_t5_rules_over_the_port_names():

@@ -23,7 +23,8 @@ on its virtual 8-device CPU mesh and against one process.
     reference's test_bert_ring_attention_matches_dense tolerance 2e-2;
   - at dropout 0.1 the ranks report the same losses and hold every
     replicated parameter bit for bit;
-  - the divisibility problems and the A6c refusals, in one process.
+  - the divisibility problems, and the shapes an MoE layer and T5 hold
+    on the axes A6c ported, in one process.
 """
 
 import os
@@ -310,7 +311,8 @@ def test_divisibility_problems_and_unported_axes_in_one_process():
     """BERT's vocabulary of 30,522 splits over model = 2 and not over 4,
     as the reference says; dense attention's temporaries divide heads by
     ``model`` and rows by ``data`` as the reference's; an MoE layer on a
-    model axis and T5 on any axis but data wait for ROADMAP.md A6c."""
+    model axis holds its experts' halves of d_ff and T5 builds on every
+    axis (ROADMAP.md A6c)."""
     hp = {**TINY, "vocab_size": 30522}
     tokens = np.ones((2, 8), np.int32)
     shapes = jax.eval_shape(lambda: ref_bert.build_bert_model(
@@ -337,11 +339,23 @@ def test_divisibility_problems_and_unported_axes_in_one_process():
     for args in ((8, 12, 128, 128), (7, 3, 64, 32)):
         assert port_tf.dense_attn_expected_temp_bytes(*args, mesh=mesh) == \
             ref_tf.dense_attn_expected_temp_bytes(*args, mesh=ref_mesh)
-    with pytest.raises(NotImplementedError, match="A6c"):
-        build_bert_model({**TINY, "moe_experts": 2}, mesh=mesh)
+    # Refused until A6c: an MoE layer on a model axis holds its experts'
+    # d_ff/2 columns, and T5 builds on every axis (its heads, columns,
+    # relative-position tables and shared vocabulary halved over model;
+    # tests/test_torch_moe_tensor_parallel.py and
+    # tests/test_torch_t5_parallel.py train both on gloo ranks).
+    moe = build_bert_model({**TINY, "moe_experts": 2}, mesh=mesh)
+    assert tuple(moe.encoder.layers[1].moe.wi.shape) == (2, TINY["d_model"],
+                                                         TINY["d_ff"] // 2)
+    assert tuple(moe.encoder.layers[1].moe.wo.shape) == (2, TINY["d_ff"] // 2,
+                                                         TINY["d_model"])
     from tpu_pipelines_torch.models.t5 import build_t5_model
 
     for axis in ("model", "pipe", "seq", "expert"):
         sizes = {"data": 1, "model": 1, "seq": 1, "expert": 1, "pipe": 1, axis: 2}
-        with pytest.raises(NotImplementedError, match="A6c"):
-            build_t5_model({}, mesh=DeviceMesh(None, 0, sizes, torch.device("cpu")))
+        with torch.device("meta"):
+            t5 = build_t5_model({}, mesh=DeviceMesh(None, 0, sizes, torch.device("cpu")))
+        n = 2 if axis == "model" else 1
+        assert tuple(t5.shared.weight.shape) == (32128 // n, 512)
+        assert tuple(t5.encoder.rel_pos.rel_embedding.shape) == (32, 8 // n)
+        assert tuple(t5.decoder.layers[0].cross.query.weight.shape) == (512 // n, 512)

@@ -194,7 +194,7 @@ def bert_tp_train(hp, state, batches, steps, lr, opt="adam", head="classifier",
     from tpu_pipelines_torch.parallel.mesh import make_mesh
     from tpu_pipelines_torch.parallel.partition import (
         bert_partition_rules,
-        held_slice,
+        held_slices,
         make_param_partition,
     )
     from tpu_pipelines_torch.trainer import TrainLoopConfig, train_loop
@@ -242,7 +242,7 @@ def bert_tp_train(hp, state, batches, steps, lr, opt="adam", head="classifier",
                                 self_opt[0].state[p].items() if torch.is_tensor(v)}
             moments["replicated"] = {n: q.detach().clone()
                                      for n, q in model.named_parameters()
-                                     if held_slice(model, n) is None}
+                                     if not held_slices(model, n)}
             return real_unshard(self, model)
 
         data_parallel.DataParallel.unshard = unshard

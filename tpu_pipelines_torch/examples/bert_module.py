@@ -46,7 +46,7 @@ from tpu_pipelines_torch.data.input_pipeline import (
     per_host_input_config,
 )
 from tpu_pipelines_torch.parallel.distributed import maybe_join_process_group
-from tpu_pipelines_torch.parallel.mesh import as_mesh_config, make_mesh
+from tpu_pipelines_torch.parallel.mesh import as_mesh_config, data_coordinate, make_mesh
 from tpu_pipelines_torch.parallel.partition import (
     bert_partition_rules,
     make_param_partition,
@@ -144,15 +144,12 @@ def run_fn(fn_args):
     rank, world = maybe_join_process_group(fn_args.device)
     sizes = vars(as_mesh_config(fn_args.mesh_config or None))
     mesh, param_partition = None, None
-    shard = per_host_input_config(
-        InputConfig(batch_size=batch_size // world, shuffle=True, seed=0))
     if any(sizes[a] != 1 for a in ("model", "seq", "expert", "pipe")):
         mesh = make_mesh(fn_args.mesh_config, device=resolve_device(fn_args.device))
-        # The rows are dealt over 'data' alone: the ranks of one data
-        # coordinate read the same shard.
-        shard = per_host_input_config(
-            InputConfig(batch_size=batch_size // mesh.size, shuffle=True, seed=0),
-            process_index=mesh.rank, process_count=mesh.size)
+    index, count = data_coordinate(mesh)
+    shard = per_host_input_config(
+        InputConfig(batch_size=batch_size // count, shuffle=True, seed=0),
+        process_index=index, process_count=count)
     if mesh is not None and (sizes["model"] > 1 or sizes["seq"] > 1):
         with torch.device("meta"):
             param_partition = make_param_partition(build_bert_model(hp),

@@ -18,9 +18,13 @@
 output unless pinned, through the port's ``train_loop`` on
 ``fn_args.device``; it exports a payload with the transform graph, so the
 payload's ``generate`` decodes raw examples.  The Trainer's ``mesh`` is
-passed through to ``train_loop`` as its ``mesh_config``: under a process
-group every rank reads its shard of the train split
-(``per_host_input_config``) and trains data-parallel; rank 0 exports.
+built into the run's mesh under a process group: the rows are dealt
+over the ``data`` axis alone, as the reference shards its batch over
+``data`` (the ranks of one data coordinate read the same shard of the
+train split, ``data_coordinate``), the loss is one masked mean
+over the whole batch (``loss_fn``), and T5 is built without a mesh, as
+the reference's ``run_fn`` builds it: replicated on every other axis;
+rank 0 exports.
 
 End-of-sequence defaults to the tokenizer's [SEP] (id 3), as in the
 reference module: its tokenizer emits "[CLS] ... [SEP]" with [PAD]=0
@@ -33,12 +37,15 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from tpu_pipelines_torch.parallel import collectives
 from tpu_pipelines_torch.parallel.distributed import maybe_join_process_group
+from tpu_pipelines_torch.parallel.mesh import data_coordinate, make_mesh
 from tpu_pipelines_torch.data.input_pipeline import (
     BatchIterator,
     InputConfig,
     per_host_input_config,
 )
+from tpu_pipelines_torch.models.transformer import batch_groups
 from tpu_pipelines_torch.models.t5 import (
     DEFAULT_HPARAMS,
     build_t5_model,
@@ -52,6 +59,7 @@ from tpu_pipelines_torch.trainer import (
     train_loop,
     warm_start_init,
 )
+from tpu_pipelines_torch.trainer.export import resolve_device
 
 EOS_ID = 3
 
@@ -121,15 +129,29 @@ def init_params_fn(
     generator: torch.Generator,
     sample_batch: Dict[str, Any],
     hyperparameters: Optional[Dict[str, Any]] = None,
+    mesh: Any = None,
 ) -> torch.nn.Module:
     """A T5 with the flax initialisers' scales drawn from ``generator``
-    (bind ``hyperparameters`` with ``functools.partial``)."""
-    return init_t5_weights(build_t5_model(hyperparameters), generator)
+    (bind ``hyperparameters`` and ``mesh`` with ``functools.partial``)."""
+    return init_t5_weights(build_t5_model(hyperparameters, mesh=mesh), generator)
 
 
-def loss_fn(model, batch, generator):
+def loss_fn(model, batch, generator, mesh=None):
     """Teacher-forced softmax cross-entropy, masked by ``target_mask``
-    (else ``targets > 0``) and divided by ``max(mask.sum(), 1)``."""
+    (else ``targets > 0``) and divided by ``max(mask.sum(), 1)``: the
+    reference's masked mean over the batch's tokens.
+
+    Where a rank holds a share of the batch (``batch_groups`` of ``mesh``,
+    else of the model's: its rows over ``data`` in the train loop's
+    implicit mode, its block of the sequence on a split ``seq``), the
+    loop averages each rank's loss and gradients over those axes.  A mean
+    of per-rank masked means is not the masked mean when the ranks'
+    counts differ, so the rank returns n x (its masked sum) / (the whole
+    batch's count), and the loop's mean over the n ranks is the masked
+    mean, its gradient one process's.  The count is summed here, in the
+    loss, because it is the objective's denominator: the model's logits
+    are right as they are, and the mask belongs to the batch the loss
+    reads."""
     logits = model(batch, generator=generator)
     targets = batch["targets"].long()
     mask = batch.get("target_mask")
@@ -138,7 +160,11 @@ def loss_fn(model, batch, generator):
     per_tok = F.cross_entropy(
         logits.float().flatten(0, 1), targets.flatten(), reduction="none",
     ).view_as(mask)
-    return (per_tok * mask).sum() / mask.sum().clamp_min(1.0), {}
+    total, count = (per_tok * mask).sum(), mask.sum()
+    for group, n in batch_groups(mesh or getattr(model, "mesh", None)):
+        count = collectives.leave_partial(count, group)
+        total = total * n
+    return total / count.clamp_min(1.0), {}
 
 
 def adam(learning_rate: float):
@@ -169,11 +195,17 @@ def run_fn(fn_args):
             hp["vocab_size"] = -(-max(sizes.values()) // 64) * 64
     batch_size = int(hp["batch_size"])
     rank, world = maybe_join_process_group(fn_args.device)
+    # The mesh deals the rows and gives the loss its axes; T5 itself is
+    # built without it.
+    mesh = (make_mesh(fn_args.mesh_config, device=resolve_device(fn_args.device))
+            if world > 1 else None)
 
+    index, count = data_coordinate(mesh)
     train_iter = BatchIterator(
         fn_args.train_examples_uri, "train",
         per_host_input_config(
-            InputConfig(batch_size=batch_size // world, shuffle=True, seed=0)),
+            InputConfig(batch_size=batch_size // count, shuffle=True, seed=0),
+            process_index=index, process_count=count),
     )
 
     def eval_iter_fn():
@@ -184,7 +216,7 @@ def run_fn(fn_args):
         )
 
     model, result = train_loop(
-        loss_fn=loss_fn,
+        loss_fn=functools.partial(loss_fn, mesh=mesh),
         init_params_fn=warm_start_init(
             fn_args, functools.partial(init_params_fn, hyperparameters=hp)),
         optimizer=adam(hp["learning_rate"]),
@@ -199,6 +231,7 @@ def run_fn(fn_args):
             mesh_config=fn_args.mesh_config or None,
         ),
         checkpoint_dir=fn_args.model_run_dir,
+        mesh=mesh,
         device=fn_args.device,
     )
 

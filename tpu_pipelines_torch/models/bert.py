@@ -31,8 +31,9 @@ broadcast's backward brings the sum of their gradients home to the first
 rank, and the encoder's exchanges carry it to every block, so the train
 loop's mean over ``seq`` of each rank's gradient is the single-device
 gradient (the replicated tail's own gradient is the same on every rank,
-the encoder's the sum of each rank's share).  Unset, a rank holds
-whole rows.
+the encoder's the sum of each rank's share).  Each dropout site draws
+the whole sequence's mask and keeps the rank's block (``Dropout``), so a
+split run draws one process's masks.  Unset, a rank holds whole rows.
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ from tpu_pipelines_torch.models.transformer import (
     TransformerBlock,
     _dense,
     _model_split,
+    _seq_split,
+    vocab_parallel_lookup,
 )
 from tpu_pipelines_torch.parallel import collectives
 from tpu_pipelines_torch.parallel.partition import (
@@ -85,7 +88,7 @@ class BertEncoder(nn.Module):
         self.pos_embed = nn.Embedding(max_len, d_model)
         self.type_embed = nn.Embedding(type_vocab_size, d_model)
         self.embed_norm = LayerNorm(d_model, dtype)
-        self.dropout = Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate, mesh)
         self.layers = nn.ModuleList(
             TransformerBlock(
                 d_model, n_heads, d_model // n_heads, d_ff,
@@ -108,7 +111,7 @@ class BertEncoder(nn.Module):
         ids = input_ids.long()
         l = ids.shape[1]
         x = self._token_embed(ids).to(self.dtype)
-        start = self.mesh.axis_rank("seq") * l if self._split() else 0
+        start = self.mesh.axis_rank("seq") * l if _seq_split(self.mesh) else 0
         pos = torch.arange(start, start + l, device=ids.device)
         x = x + self.pos_embed(pos)[None].to(self.dtype)
         types = (torch.zeros_like(ids) if token_type_ids is None
@@ -122,23 +125,13 @@ class BertEncoder(nn.Module):
     def _token_embed(self, ids: torch.Tensor) -> torch.Tensor:
         """The token embedding's rows of ``ids`` (vocabulary-parallel on a
         ``model`` axis: see the module docstring)."""
-        group = slice_group(self.embed, "weight")
-        if group is None:
-            return self.embed(ids)
-        rows = self.embed.weight.shape[0]
-        local = ids - collectives.axis_rank(group) * rows
-        held = (local >= 0) & (local < rows)
-        x = F.embedding(torch.where(held, local, 0), self.embed.weight)
-        return collectives.leave_partial(x.masked_fill(~held[..., None], 0.0), group)
-
-    def _split(self) -> bool:
-        return (self.mesh is not None and self.mesh.seq_split
-                and self.mesh.axis_size("seq") > 1)
+        return vocab_parallel_lookup(ids, self.embed.weight,
+                                     slice_group(self.embed, "weight"))
 
     def cls(self, x: torch.Tensor) -> torch.Tensor:
         """The [CLS] row of the encoder's output ``x``: on a split
         sequence, the first ``seq`` rank's, broadcast over ``seq``."""
-        if not self._split():
+        if not _seq_split(self.mesh):
             return x[:, 0]
         return collectives.broadcast(x[:, 0], 0, self.mesh.axis_group("seq"))
 

@@ -16,9 +16,24 @@ module's own tensors run the module as it is, any other dict runs it
 through ``torch.func.functional_call``.  The decode contract's ``verify``
 scores a ``[b, q]`` window of fed tokens in one decoder pass (the
 speculative-decoding verify); ``t5_partition_rules`` is in
-``parallel/partition.py`` (its tensor-parallel specs wait for A6c, and so
-does T5 on a ``seq``, ``expert`` or ``pipe`` mesh: ``build_t5_model``
-raises).
+``parallel/partition.py``.
+
+A ``mesh`` goes to every block, as the reference's.  On a ``model`` axis
+n > 1 the blocks hold their rank's heads and MLP columns, each stack's
+relative-position table its rank's H/n heads (so the bias lines up with
+the heads in every branch: full, decode row, per-row vector, verify
+window), and ``shared`` its V/n vocabulary rows: the lookup is BERT's
+(``vocab_parallel_lookup``) and the tied logits are the rank's V/n
+columns, gathered by ``leave_split``, so every rank holds the full
+logits and makes the same greedy and beam choices.  The decode caches
+hold the rank's heads.  On a ``seq`` axis whose ``seq_split`` is set (a
+``batch_partition`` over ``seq``) a rank holds its block of ``inputs``
+and ``targets``: the bias is built for the whole length, self-attention
+gathers its keys and attends globally (biased attention is dense, as the
+reference's), cross-attention gathers the encoder's output, and the
+right shift of the decoder's inputs takes the previous rank's last
+target.  Unsplit (``seq``, ``expert`` or ``pipe`` without a
+``batch_partition``) T5 is replicated, as the reference replicates it.
 """
 
 from __future__ import annotations
@@ -33,7 +48,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from tpu_pipelines_torch.models.transformer import RMSNorm, TransformerBlock
+from tpu_pipelines_torch.models.transformer import (
+    RMSNorm,
+    TransformerBlock,
+    _model_split,
+    _seq_split,
+    vocab_parallel_lookup,
+)
+from tpu_pipelines_torch.parallel import collectives
+from tpu_pipelines_torch.parallel.partition import (
+    draw_whole,
+    hold_slices,
+    slice_group,
+)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -74,15 +101,18 @@ class RelativePositionBias(nn.Module):
     [b] vector (continuous batching: each row at its own position) one
     bucket row per sequence, [b, h, 1, k]; a [b, q] matrix (the speculative
     verify window: query j of row i at ``row[i, j]``) one bucket row per
-    query, [b, h, q, k]."""
+    query, [b, h, q, k].  On a ``mesh`` whose ``model`` axis is n > 1 the
+    table holds the rank's H/n heads and ``h`` is theirs."""
 
     def __init__(self, n_heads: int, bidirectional: bool, num_buckets: int = 32,
-                 max_distance: int = 128):
+                 max_distance: int = 128, mesh: Any = None):
         super().__init__()
         self.bidirectional = bidirectional
         self.num_buckets = num_buckets
         self.max_distance = max_distance
-        self.rel_embedding = nn.Parameter(torch.zeros(num_buckets, n_heads))
+        n, group = _model_split(mesh, n_heads, "heads")
+        self.rel_embedding = nn.Parameter(torch.zeros(num_buckets, n_heads // n))
+        hold_slices(self, {"rel_embedding": (1, group)})
         self._tables: Dict[Any, torch.Tensor] = {}
 
     def _buckets(self, qlen: int, klen: int, device) -> torch.Tensor:
@@ -115,15 +145,19 @@ class T5Stack(nn.Module):
 
     def __init__(self, name: str, *, d_model: int, n_layers: int, n_heads: int,
                  head_dim: int, d_ff: int, dropout_rate: float,
-                 dtype: torch.dtype, causal: bool, attn_impl: str = "dense"):
+                 dtype: torch.dtype, causal: bool, attn_impl: str = "dense",
+                 mesh: Any = None):
         super().__init__()
         self.cache_name = name
-        self.rel_pos = RelativePositionBias(n_heads, bidirectional=not causal)
+        self.mesh = mesh
+        self.rel_pos = RelativePositionBias(n_heads, bidirectional=not causal,
+                                            mesh=mesh)
         self.layers = nn.ModuleList(
             TransformerBlock(
                 d_model, n_heads, head_dim, d_ff, dropout_rate=dropout_rate,
                 dtype=dtype, attn_impl=attn_impl, causal=causal, prenorm=True,
                 use_cross=causal, norm="rmsnorm", mlp_dropout_site="hidden",
+                mesh=mesh,
             )
             for _ in range(n_layers)
         )
@@ -155,7 +189,11 @@ class T5Stack(nn.Module):
             bias = self.rel_pos(max_decode_len, max_decode_len, row=row)
             kv_mask = None
         else:
-            bias = self.rel_pos(x.shape[1], x.shape[1])
+            # On a split sequence x is this rank's block: the bias spans
+            # the whole sequence, which self-attention gathers.
+            length = x.shape[1] * (self.mesh.axis_size("seq")
+                                   if _seq_split(self.mesh) else 1)
+            bias = self.rel_pos(length, length)
         for i, layer in enumerate(self.layers):
             x = layer(
                 x, kv_mask, generator, encoded=encoded, enc_mask=enc_mask,
@@ -170,7 +208,7 @@ class T5(nn.Module):
     """batch {inputs, targets [, input_mask, target_mask]} -> vocab logits.
 
     ``targets`` are teacher-forcing decoder inputs shifted right inside
-    (BOS = 0, the T5 convention)."""
+    (BOS = 0, the T5 convention).  ``mesh``: see the module docstring."""
 
     def __init__(
         self,
@@ -183,20 +221,26 @@ class T5(nn.Module):
         dropout_rate: float = 0.1,
         dtype: torch.dtype = torch.bfloat16,
         attn_impl: str = "dense",
+        mesh: Any = None,
     ):
         super().__init__()
         self.d_model = d_model
         self.dtype = dtype
-        self.shared = nn.Embedding(vocab_size, d_model)
+        self.mesh = mesh
+        n, group = _model_split(mesh, vocab_size, "vocabulary rows")
+        self.shared = nn.Embedding(vocab_size // n, d_model)
+        hold_slices(self.shared, {"weight": (0, group)})
         common = dict(d_model=d_model, n_layers=n_layers, n_heads=n_heads,
                       head_dim=head_dim, d_ff=d_ff, dropout_rate=dropout_rate,
-                      dtype=dtype, attn_impl=attn_impl)
+                      dtype=dtype, attn_impl=attn_impl, mesh=mesh)
         self.encoder = T5Stack("encoder", causal=False, **common)
         self.decoder = T5Stack("decoder", causal=True, **common)
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         # flax Embed(dtype=...): the gathered rows in the compute dtype.
-        return self.shared(ids.long()).to(self.dtype)
+        return vocab_parallel_lookup(ids.long(), self.shared.weight,
+                                     slice_group(self.shared, "weight")
+                                     ).to(self.dtype)
 
     def encode(self, inputs, input_mask=None, generator=None) -> torch.Tensor:
         return self.encoder(self._embed(inputs), kv_mask=input_mask,
@@ -222,9 +266,12 @@ class T5(nn.Module):
             decode_pos=decode_pos, max_decode_len=max_decode_len, cache=cache,
         )
         # The tied embedding as the output projection, T5's 1/sqrt(d)
-        # scaling; logits in f32.
-        y = y * (self.d_model ** -0.5)
-        return torch.einsum("bld,vd->blv", y.float(), self.shared.weight.float())
+        # scaling; logits in f32 (vocabulary-parallel on a model axis: the
+        # rank's columns, gathered).
+        group = slice_group(self.shared, "weight")
+        y = collectives.enter_partial(y * (self.d_model ** -0.5), group)
+        logits = torch.einsum("bld,vd->blv", y.float(), self.shared.weight.float())
+        return collectives.leave_split(logits, -1, group)
 
     def forward(self, *args, method: Optional[str] = None, **kwargs):
         """Teacher-forced logits: ``model(batch, generator=None)``.
@@ -241,6 +288,14 @@ class T5(nn.Module):
         targets = torch.as_tensor(batch["targets"])
         input_mask = batch.get("input_mask")
         decoder_inputs = F.pad(targets, (1, 0))[:, :-1]
+        if _seq_split(self.mesh):
+            # The shift crosses blocks: a rank's first decoder input is
+            # the previous rank's last target (the first rank's is BOS).
+            n = self.mesh.axis_size("seq")
+            prev = collectives.ppermute(
+                targets[:, -1:], [(i, i + 1) for i in range(n - 1)],
+                self.mesh.axis_group("seq"))
+            decoder_inputs = torch.cat([prev, targets[:, :-1]], dim=1)
         encoded = self.encode(inputs, input_mask, generator)
         return self.decode(
             decoder_inputs, encoded, target_mask=batch.get("target_mask"),
@@ -263,16 +318,10 @@ DEFAULT_HPARAMS = {
 
 
 def build_t5_model(hparams: Optional[Dict] = None, mesh: Any = None) -> T5:
-    """The reference's ``build_t5_model``.  A ``mesh`` with any axis but
-    ``data`` above 1 raises ``NotImplementedError`` (ROADMAP.md A6c: T5's
-    tensor-parallel rules, its relative-position table over heads and its
-    shared vocabulary-parallel embedding with the tied logits, and T5 on
-    ``seq``, ``expert`` or ``pipe``)."""
-    if mesh is not None:
-        others = {a: n for a, n in mesh.shape.items() if a != "data" and n > 1}
-        if others:
-            raise NotImplementedError(
-                f"T5 on mesh axes {others} is not ported yet (ROADMAP.md A6c)")
+    """The reference's ``build_t5_model``; ``mesh`` (a ``DeviceMesh``)
+    goes to every block (see the module docstring).  A vocabulary or a
+    head count that a ``model`` axis does not divide raises the
+    reference's ``ValueError``."""
     hp = {**DEFAULT_HPARAMS, **(hparams or {})}
     return T5(
         vocab_size=int(hp["vocab_size"]),
@@ -283,6 +332,7 @@ def build_t5_model(hparams: Optional[Dict] = None, mesh: Any = None) -> T5:
         d_ff=int(hp["d_ff"]),
         dropout_rate=float(hp["dropout_rate"]),
         attn_impl=str(hp.get("attn_impl", "dense")),
+        mesh=mesh,
     )
 
 
@@ -292,18 +342,24 @@ def init_t5_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     DenseGeneral kernels lecun-normal (truncated at 2 sigma, std
     sqrt(1 / fan_in) / 0.8796), zero biases, the embedding normal with std
     sqrt(1 / d_model), the relative-position tables normal(0, 1), unit
-    norm scales."""
+    norm scales.  A weight a rank holds a slice of is drawn whole and
+    sliced (``draw_whole``), so a model built on a mesh starts from one
+    process's weights."""
+
+    def lecun(w):
+        std = math.sqrt(1.0 / w.shape[1]) / 0.87962566103423978
+        nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
     for name, module in model.named_modules():
         if isinstance(module, nn.Linear):
-            std = math.sqrt(1.0 / module.in_features) / 0.87962566103423978
-            nn.init.trunc_normal_(module.weight, 0.0, std, -2 * std, 2 * std,
-                                  generator=generator)
+            draw_whole(module, "weight", lecun)
             module.bias.zero_()
         elif isinstance(module, nn.Embedding):
-            module.weight.normal_(0.0, module.embedding_dim ** -0.5,
-                                  generator=generator)
+            draw_whole(module, "weight", lambda w: w.normal_(
+                0.0, module.embedding_dim ** -0.5, generator=generator))
         elif isinstance(module, RelativePositionBias):
-            module.rel_embedding.normal_(0.0, 1.0, generator=generator)
+            draw_whole(module, "rel_embedding",
+                       lambda w: w.normal_(0.0, 1.0, generator=generator))
         elif isinstance(module, RMSNorm):
             module.weight.fill_(1.0)
     return model

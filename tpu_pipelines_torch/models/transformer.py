@@ -54,7 +54,15 @@ Which tokens a rank holds is the mesh's ``seq_split``:
 
 ``MoEMlpBlock`` is the Switch mixture-of-experts MLP (top-1 routing with
 a capacity, the aux loss returned through the forward); on an ``expert``
-axis a rank holds its slice of the experts and the whole group's tokens.
+axis a rank holds its slice of the experts and the whole group's tokens,
+and on a ``model`` axis its experts' slice of d_ff.
+
+On a split sequence each dropout site draws the whole sequence's mask and
+keeps the rank's block, and T5's hidden site the whole d_ff's on a
+``model`` axis (:class:`Dropout`), so the ranks draw one process's masks.
+Cross-attention on a split sequence gathers its keys over ``seq``, and a
+biased self-attention (T5's relative positions, built for the whole
+length) attends globally on the dense path.
 
 On a mesh whose ``model`` axis is n > 1 (tensor parallelism, Megatron's
 split) attention holds H/n heads (``query``/``key``/``value``
@@ -74,7 +82,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -219,6 +227,22 @@ def _row_parallel(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype,
     return collectives.leave_partial(partial, group) + layer.bias.to(dtype)
 
 
+def vocab_parallel_lookup(ids: torch.Tensor, weight: torch.Tensor,
+                          group: Any) -> torch.Tensor:
+    """The rows of ``ids`` from an embedding table of which this rank
+    holds the contiguous block ``weight`` of vocabulary rows over
+    ``group`` (the whole table without one): each rank looks up the ids
+    it holds, zeroes the others, and ``leave_partial`` sums the rows over
+    the group, one process's lookup bit for bit."""
+    if group is None:
+        return F.embedding(ids, weight)
+    rows = weight.shape[0]
+    local = ids - collectives.axis_rank(group) * rows
+    held = (local >= 0) & (local < rows)
+    x = F.embedding(torch.where(held, local, 0), weight)
+    return collectives.leave_partial(x.masked_fill(~held[..., None], 0.0), group)
+
+
 def _model_split(mesh: Any, count: int, what: str):
     """(the ``model`` axis's size, its group or None) for ``count`` items
     split over it."""
@@ -271,11 +295,24 @@ class Dropout(nn.Module):
     replay, so a generator registered with the graph
     (``CUDAGraph.register_generator_state``) and re-seeded before each
     replay draws what an eager step with a generator of that seed draws
-    (the train loop does this)."""
+    (the train loop does this).
 
-    def __init__(self, rate: float = 0.0):
+    A rank that holds a block of the activation draws the mask of the
+    whole activation and keeps its block, so the ranks together draw one
+    process's mask and their generators advance alike.  Both blocks are
+    fixed when the layer is built: its block of the sequence (dim 1) on a
+    ``mesh`` whose ``seq_split`` is set, and, given ``columns = (width,
+    group)`` (T5's hidden site, d_ff split over ``model``), its block of
+    the last dim while that dim is narrower than ``width`` (a module made
+    whole by ``gather_slices`` draws the whole width).  Those sites draw n
+    times the numbers."""
+
+    def __init__(self, rate: float = 0.0, mesh: Any = None,
+                 columns: Optional[Tuple[int, Any]] = None):
         super().__init__()
         self.rate = float(rate)
+        self.mesh = mesh
+        self.columns = columns if columns is not None and columns[1] is not None else None
 
     def forward(
         self, x: torch.Tensor, generator: Optional[torch.Generator] = None
@@ -290,8 +327,41 @@ class Dropout(nn.Module):
         keep = 1.0 - self.rate
         if keep <= 0.0:
             return torch.zeros_like(x)
-        u = torch.rand(x.shape, generator=generator, device=x.device)
+        blocks = []
+        if self.columns is not None and x.shape[-1] != self.columns[0]:
+            blocks.append((x.dim() - 1, self.columns[1]))
+        if _seq_split(self.mesh):
+            blocks.append((1, self.mesh.axis_group("seq")))
+        shape = list(x.shape)
+        for dim, group in blocks:
+            shape[dim] *= collectives.axis_world(group)
+        u = torch.rand(shape, generator=generator, device=x.device)
+        for dim, group in blocks:
+            k = x.shape[dim]
+            u = u.narrow(dim, collectives.axis_rank(group) * k, k)
         return torch.where(u < keep, x / keep, torch.zeros_like(x))
+
+
+def _seq_split(mesh: Any) -> bool:
+    """Whether a rank's token tensors hold its block of the sequence."""
+    return mesh is not None and mesh.seq_split and mesh.axis_size("seq") > 1
+
+
+def batch_groups(mesh: Any) -> List[Tuple[Any, int]]:
+    """(group, size) of each axis a batch's tokens are dealt over, for a
+    statistic of the whole batch: ``data`` where the mesh's
+    ``whole_batch`` is set (the train loop's implicit mode, whose loss is
+    the reference's over the global batch) and ``seq`` on a split
+    sequence.  The loop averages a rank's loss and gradients over each,
+    so a rank's share of the whole batch's loss is n times its own terms
+    over the whole batch's count (``t5_module.loss_fn``,
+    ``MoEMlpBlock``'s aux loss)."""
+    out = []
+    if mesh is not None and mesh.whole_batch and mesh.size > 1:
+        out.append((mesh.group, mesh.size))
+    if _seq_split(mesh):
+        out.append((mesh.axis_group("seq"), mesh.axis_size("seq")))
+    return out
 
 
 class MlpBlock(nn.Module):
@@ -320,7 +390,8 @@ class MlpBlock(nn.Module):
         self.wo = nn.Linear(d_ff // n, d_model)
         hold_slices(self.wi, {"weight": (0, group), "bias": (0, group)})
         hold_slices(self.wo, {"weight": (1, group)})
-        self.dropout = Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate, mesh, columns=(
+            (d_ff, group) if dropout_site == "hidden" else None))
 
     def forward(
         self, x: torch.Tensor, generator: Optional[torch.Generator] = None
@@ -358,9 +429,16 @@ class MoEMlpBlock(nn.Module):
 
     ``wi`` ``[E, d_model, d_ff]`` and ``wo`` ``[E, d_ff, d_model]`` keep
     the flax layout and init (fan-in per expert, :meth:`reset_parameters`);
-    on a ``mesh`` whose ``expert`` axis is n > 1 they hold this rank's
-    E/n experts (``hold_slices`` over ``expert``, :meth:`held_experts`),
-    and a state dict of all E experts loads into the rank's slice."""
+    on a ``mesh`` whose ``expert`` axis is e > 1 they hold this rank's
+    E/e experts (``hold_slices`` over ``expert``, :meth:`held_experts`),
+    and on one whose ``model`` axis is m > 1 their d_ff/m columns (``wi``
+    column-parallel, ``wo`` row-parallel, as the dense MLP's): a rank
+    holds ``wi [E/e, d, ff/m]`` and ``wo [E/e, ff/m, d]``, and a state
+    dict of the whole experts loads into the rank's slice.  The router
+    replicates.  The tokens and the gates enter through ``enter_partial``
+    over both axes, and the combined output, a partial sum over the
+    rank's experts and columns, leaves through ``leave_partial`` over
+    ``model`` and then ``expert``."""
 
     def __init__(
         self,
@@ -379,20 +457,19 @@ class MoEMlpBlock(nn.Module):
         self.capacity_factor = float(capacity_factor)
         self.group_size = int(group_size)
         self.dtype = dtype
-        if mesh is not None and mesh.axis_size("model") > 1:
-            raise NotImplementedError(
-                "an MoE layer on a 'model' axis above 1 (the experts' ff dim "
-                "split over it) is not ported yet (ROADMAP.md A6c)")
         n = mesh.axis_size("expert") if mesh is not None else 1
         if num_experts % n:
             raise ValueError(f"{num_experts} experts not divisible by mesh axis "
                              f"expert={n}")
         group = mesh.axis_group("expert") if n > 1 else None
+        m, model_group = _model_split(mesh, d_ff, "MoE expert columns")
+        self.mesh = mesh
         self.router = nn.Linear(d_model, num_experts)
-        self.wi = nn.Parameter(torch.empty(num_experts // n, d_model, d_ff))
-        self.wo = nn.Parameter(torch.empty(num_experts // n, d_ff, d_model))
+        self.wi = nn.Parameter(torch.empty(num_experts // n, d_model, d_ff // m))
+        self.wo = nn.Parameter(torch.empty(num_experts // n, d_ff // m, d_model))
         hold_slices(self, {"wi": (0, group), "wo": (0, group)}, axis="expert")
-        self.dropout = Dropout(dropout_rate)
+        hold_slices(self, {"wi": (2, model_group), "wo": (1, model_group)})
+        self.dropout = Dropout(dropout_rate, mesh)
         self.reset_parameters()
 
     @torch.no_grad()
@@ -401,9 +478,12 @@ class MoEMlpBlock(nn.Module):
         ``generator`` (so every expert rank draws the same) and this
         rank's slice kept."""
         for leaf in ("wi", "wo"):
-            std = (1.0 / getattr(self, leaf).shape[1]) ** 0.5 / TRUNCATED_NORMAL_STD
-            draw_whole(self, leaf, lambda w: nn.init.trunc_normal_(
-                w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator))
+            def draw(w):
+                std = (1.0 / w.shape[1]) ** 0.5 / TRUNCATED_NORMAL_STD
+                nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                      generator=generator)
+
+            draw_whole(self, leaf, draw)
 
     def held_experts(self) -> range:
         """The experts this rank holds (all E once the block is whole)."""
@@ -432,19 +512,29 @@ class MoEMlpBlock(nn.Module):
         dispatch = sel.to(self.dtype)[..., None] * slots.to(self.dtype)[:, :, None, :]
         held = self.held_experts()
         dispatch = dispatch[:, :, held.start:held.stop]        # [G, g, e_local, c]
-        group = slice_group(self, "wi", "expert")
-        tokens = collectives.enter_partial(t.to(self.dtype), group)
-        gate_in = collectives.enter_partial(expert_gate, group)
+        groups = (slice_group(self, "wi", "expert"), slice_group(self, "wi"))
+        tokens, gate_in = t.to(self.dtype), expert_gate
+        for group in groups:
+            tokens = collectives.enter_partial(tokens, group)
+            gate_in = collectives.enter_partial(gate_in, group)
         expert_in = torch.einsum("gnec,gnd->gecd", dispatch, tokens)
         h = F.gelu(torch.einsum("gecd,edf->gecf", expert_in, self.wi.to(self.dtype)),
                    approximate="tanh")
         expert_out = torch.einsum("gecf,efd->gecd", h, self.wo.to(self.dtype))
         combine = dispatch * gate_in.to(self.dtype)[..., None, None]
         out = torch.einsum("gnec,gecd->gnd", combine, expert_out)
-        out = collectives.leave_partial(out, group)
+        for group in reversed(groups):
+            out = collectives.leave_partial(out, group)
         if losses is not None:
             frac_tokens = sel.float().mean(dim=(0, 1))         # [e]
             frac_probs = probs.mean(dim=(0, 1))                # [e]
+            # The whole batch's means (the ranks hold equal token counts);
+            # frac_probs keeps its own gradient, n times its share, as the
+            # loop averages a rank's gradients over the group.
+            for group, n in batch_groups(self.mesh):
+                frac_tokens = collectives.leave_partial(frac_tokens, group) / n
+                whole = collectives.leave_partial(frac_probs.detach(), group) / n
+                frac_probs = frac_probs + (whole - frac_probs.detach())
             losses.append(e * torch.sum(frac_tokens * frac_probs))
         return self.dropout(out.reshape(b, l, d), generator)
 
@@ -532,7 +622,7 @@ class MultiHeadAttention(nn.Module):
         for layer in (self.query, self.key, self.value):
             hold_slices(layer, {"weight": (0, group), "bias": (0, group)})
         hold_slices(self.out, {"weight": (1, group)})
-        self.dropout = Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate, mesh)
 
     @property
     def n_heads(self) -> int:
@@ -584,7 +674,15 @@ class MultiHeadAttention(nn.Module):
         k = self._heads(src, self.key)
         v = self._heads(src, self.value)
         n_seq = self.mesh.axis_size("seq") if self.mesh is not None else 1
-        split = n_seq > 1 and is_self and self.mesh.seq_split
+        split = _seq_split(self.mesh)
+        if split and not is_self:
+            # Cross-attention on a split sequence: this rank's block of
+            # queries attends to the whole source, gathered over seq.
+            group = self.mesh.axis_group("seq")
+            k, v = (collectives.all_gather(t, 1, group) for t in (k, v))
+            if kv_mask is not None:
+                kv_mask = collectives.all_gather(kv_mask, 1, group)
+            split = False
         impl = self.attn_impl
         if impl == "auto":
             length = q.shape[1] * (n_seq if split else 1)
@@ -627,17 +725,18 @@ class MultiHeadAttention(nn.Module):
         """"dense" or "flash" on a split sequence: q, k, v and the key mask
         gathered over ``seq``, attention over the whole sequence, and this
         rank's block of the output (the flash kernels take one length for
-        queries and keys)."""
-        if bias is not None:
-            raise NotImplementedError(
-                "an additive attention bias on a sequence split over 'seq'")
+        queries and keys).  A ``bias`` (T5's relative positions, built for
+        the whole length) takes the dense path, as the reference's."""
         group = self.mesh.axis_group("seq")
         blk, r = q.shape[1], self.mesh.axis_rank("seq")
         q, k, v = (collectives.all_gather(t, 1, group) for t in (q, k, v))
         if kv_mask is not None:
             kv_mask = collectives.all_gather(kv_mask, 1, group)
-        attend = flash_attention if impl == "flash" else dense_attention
-        out = attend(q, k, v, causal=self.causal, kv_mask=kv_mask)
+        if impl == "flash" and bias is None:
+            out = flash_attention(q, k, v, causal=self.causal, kv_mask=kv_mask)
+        else:
+            out = dense_attention(q, k, v, causal=self.causal, kv_mask=kv_mask,
+                                  bias=bias)
         return out.narrow(1, r * blk, blk)
 
     def _decode_cross(self, q, x_kv, enc_mask, cache, prefix):

@@ -73,6 +73,19 @@ class MeshConfig:
         return sizes
 
 
+def data_coordinate(mesh: Optional["DeviceMesh"] = None) -> "tuple[int, int]":
+    """(this process's coordinate on ``data``, the axis's size): what a
+    ``run_fn`` deals its train rows over, as the reference shards its
+    batch over ``data`` alone, so the ranks that differ only on the other
+    axes read the same rows.  Without a mesh every process of the group is
+    a data coordinate of its own."""
+    if mesh is None:
+        from tpu_pipelines_torch.parallel.distributed import process_topology
+
+        return process_topology()
+    return mesh.rank, mesh.size
+
+
 @dataclasses.dataclass
 class DeviceMesh:
     """The port's mesh.  ``group`` and ``rank`` are the ``data`` axis's
@@ -85,7 +98,13 @@ class DeviceMesh:
     partition naming ``seq``): positions are offset by the block's start,
     the [CLS] row lives on the first ``seq`` rank, attention gathers or
     rings its keys.  Unset, a rank holds whole rows.  The train loop sets
-    it for a run with a ``batch_partition`` over ``seq``."""
+    it for a run with a ``batch_partition`` over ``seq``.  ``whole_batch``:
+    a rank's loss is its share of one loss over the whole batch, as the
+    reference's implicit (GSPMD) mode computes it, so a statistic over the
+    batch's tokens (a masked mean's count, the MoE aux loss's means) is
+    summed over ``data`` (``models.transformer.batch_groups``).  The train
+    loop sets it in its implicit mode; the explicit modes average the
+    ranks' own losses, as the reference's do."""
 
     group: Any
     rank: int
@@ -95,6 +114,7 @@ class DeviceMesh:
     coords: Dict[str, int] = dataclasses.field(default_factory=dict)
     process_rank: Optional[int] = None
     seq_split: bool = False
+    whole_batch: bool = False
 
     @property
     def size(self) -> int:

@@ -14,16 +14,19 @@ gradient (the transpose the reference gets from autodiff).  Over the other
 axes a module built on the mesh holds its rank's slice already: an MoE
 layer its experts over ``expert``, attention its heads and the MLP its
 columns over ``model`` (``models/transformer.py``), BERT's token
-embedding and MLM head their vocabulary rows over ``model``
-(``models/bert.py``), the staged classifier its stage over ``pipe``
+embedding and MLM head and T5's shared embedding their vocabulary rows
+and T5's relative-position tables their heads over ``model``
+(``models/bert.py``, ``models/t5.py``), the staged classifier its stage over ``pipe``
 (``models/staged.py``).  Such a module marks its slices
 (:func:`hold_slices`): a state dict of the whole parameter loads into the
 slice, :func:`draw_whole` initialises the whole and keeps the slice, and
 :func:`gather_slices` makes the module whole again.  The train loop keeps
 their gradients on their rank and gathers them for checkpoints.  A spec
 entry naming an axis of size 1 is replicated (:func:`effective_spec`), so
-:func:`bert_partition_rules` serve every mesh.  The experts' ff dim over
-``model`` waits for ``ROADMAP.md`` A6c (:func:`refuse_unported`).
+:func:`bert_partition_rules` and :func:`t5_partition_rules` serve every
+mesh.  A parameter may be held in slices over two axes at once: an MoE
+expert weight holds its experts over ``expert`` and its ff columns over
+``model``.
 """
 
 from __future__ import annotations
@@ -116,19 +119,6 @@ def effective_spec(spec: Spec, mesh) -> Spec:
 
 def effective_partition(partition: Mapping[str, Spec], mesh) -> Dict[str, Spec]:
     return {name: effective_spec(spec, mesh) for name, spec in partition.items()}
-
-
-def refuse_unported(partition: Mapping[str, Spec]) -> None:
-    """``NotImplementedError`` naming ROADMAP.md A6c for specs (already
-    :func:`effective_spec`) that split an MoE expert's ff dim over
-    ``model``."""
-    bad = [f"{name}: {spec}" for name, spec in partition.items()
-           if ".moe." in f".{name}" and spec_dim(spec, "model") is not None]
-    if bad:
-        raise NotImplementedError(
-            "param_partition specs splitting the MoE experts' ff dim over "
-            "'model' are not ported yet (ROADMAP.md A6c):\n  "
-            + "\n  ".join(bad))
 
 
 def foreign_axis_paths(params: Any, partition: Mapping[str, Spec], *,
@@ -240,6 +230,11 @@ def shard_of(full: torch.Tensor, dim: Optional[int], mesh, axis: str = "data"
 
 
 # ---- slices held by a module built on a mesh
+#
+# ``module._slices`` maps a leaf name to {axis: (dim, group)}: the leaf is
+# this rank's contiguous block along ``dim`` over each axis it is split
+# over (an MoE expert weight: its experts over ``expert`` and its ff
+# columns over ``model``).
 
 def _group_rank(group) -> Tuple[int, int]:
     if group is None:
@@ -254,31 +249,37 @@ def hold_slices(module: nn.Module, slices: Mapping[str, Tuple[int, Any]],
     """Mark ``module``'s parameters ``slices`` (leaf name -> (dim, group))
     as this rank's contiguous block along ``dim`` of a parameter split
     over mesh axis ``axis`` (``group``, its process group; None: whole).
-    A state dict holding the whole parameter then loads into the block."""
-    held = {leaf: (int(dim), group, axis) for leaf, (dim, group) in slices.items()
+    A leaf may be marked over several axes, each along its own dim.  A
+    state dict holding the whole parameter then loads into the block."""
+    held = {leaf: (int(dim), group) for leaf, (dim, group) in slices.items()
             if group is not None}
     if not held:
         return
     if not hasattr(module, "_slices"):
         module._slices = {}
         module._register_load_state_dict_pre_hook(_take_slices, with_module=True)
-    module._slices.update(held)
+    for leaf, entry in held.items():
+        module._slices.setdefault(leaf, {})[axis] = entry
 
 
 def _take_slices(module, state_dict, prefix, *args):
-    for leaf, (dim, group, _) in getattr(module, "_slices", {}).items():
+    for leaf, axes in getattr(module, "_slices", {}).items():
         key = prefix + leaf
         t = state_dict.get(key)
         local = getattr(module, leaf)
-        n, rank = _group_rank(group)
-        if t is not None and t.dim() == local.dim() and t.shape[dim] == local.shape[dim] * n:
+        if t is None or t.dim() != local.dim():
+            continue
+        for dim, group in axes.values():
+            n, rank = _group_rank(group)
             k = local.shape[dim]
-            state_dict[key] = t.narrow(dim, rank * k, k)
+            if t.shape[dim] == k * n:
+                t = t.narrow(dim, rank * k, k)
+        state_dict[key] = t
 
 
 def whole_shapes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
     """name -> the whole parameter's shape, for every parameter of
-    ``model`` (a held slice's dim times its axis size)."""
+    ``model`` (a held slice's dims times their axes' sizes)."""
     out, seen = {}, set()
     for prefix, module in model.named_modules():
         held = getattr(module, "_slices", {})
@@ -287,8 +288,7 @@ def whole_shapes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
                 continue
             seen.add(id(p))
             shape = [int(d) for d in p.shape]
-            if leaf in held:
-                dim, group, _ = held[leaf]
+            for dim, group in held.get(leaf, {}).values():
                 shape[dim] *= _group_rank(group)[0]
             out[f"{prefix}.{leaf}" if prefix else leaf] = tuple(shape)
     return out
@@ -297,16 +297,25 @@ def whole_shapes(model: nn.Module) -> Dict[str, Tuple[int, ...]]:
 def slice_group(module: nn.Module, leaf: str, axis: str = "model") -> Any:
     """The group of ``axis`` where ``module.<leaf>`` is split over it, else
     None."""
-    held = getattr(module, "_slices", {}).get(leaf)
-    return held[1] if held is not None and held[2] == axis else None
+    held = getattr(module, "_slices", {}).get(leaf, {}).get(axis)
+    return held[1] if held is not None else None
 
 
-def held_slice(model: nn.Module, name: str) -> Optional[Tuple[int, Any, str]]:
-    """(dim, group, axis) of parameter ``name`` where its module holds a
-    slice of it, else None."""
+def held_slices(model: nn.Module, name: str) -> Dict[str, Tuple[int, Any]]:
+    """{axis: (dim, group)} of parameter ``name`` for every axis its
+    module holds a slice of it over ({} for a whole parameter)."""
     owner, _, leaf = name.rpartition(".")
     module = model.get_submodule(owner) if owner else model
-    return getattr(module, "_slices", {}).get(leaf)
+    return dict(getattr(module, "_slices", {}).get(leaf, {}))
+
+
+def gather_whole(t: torch.Tensor, held: Mapping[str, Tuple[int, Any]]
+                 ) -> torch.Tensor:
+    """``t`` (a slice as :func:`held_slices` describes it) gathered whole
+    over each of its axes: a collective on every rank of them."""
+    for dim, group in held.values():
+        t = all_gather_dim(t, dim, group)
+    return t
 
 
 @torch.no_grad()
@@ -316,26 +325,27 @@ def draw_whole(module: nn.Module, leaf: str, draw) -> None:
     process draws; a whole parameter is drawn in place."""
     p = getattr(module, leaf)
     held = getattr(module, "_slices", {}).get(leaf)
-    if held is None:
+    if not held:
         draw(p)
         return
-    dim, group, _ = held
-    n, rank = _group_rank(group)
     shape = list(p.shape)
-    shape[dim] *= n
+    for dim, group in held.values():
+        shape[dim] *= _group_rank(group)[0]
     whole = p.new_empty(shape)
     draw(whole)
-    k = p.shape[dim]
-    p.copy_(whole.narrow(dim, rank * k, k))
+    for dim, group in held.values():
+        k = p.shape[dim]
+        whole = whole.narrow(dim, _group_rank(group)[1] * k, k)
+    p.copy_(whole)
 
 
 @torch.no_grad()
 def gather_slices(module: nn.Module) -> None:
-    """Make ``module``'s held slices whole: each gathered over its axis (a
-    collective on every rank of it), so the module computes alone."""
-    for leaf, (dim, group, _) in getattr(module, "_slices", {}).items():
+    """Make ``module``'s held slices whole: each gathered over its axes (a
+    collective on every rank of them), so the module computes alone."""
+    for leaf, axes in getattr(module, "_slices", {}).items():
         p = getattr(module, leaf)
-        p.data = all_gather_dim(p.data, dim, group)
+        p.data = gather_whole(p.data, axes)
     module._slices = {}
 
 
@@ -375,9 +385,11 @@ def bert_partition_rules() -> List[Tuple[str, Spec]]:
 
 
 def t5_partition_rules() -> List[Tuple[str, Spec]]:
-    """Tensor-parallel rules of ``tpu_pipelines/models/t5.py`` over the
-    port's names; T5 on a ``model`` axis above 1 waits for ROADMAP.md A6c
-    (``models/t5.py`` refuses the mesh)."""
+    """The rules of ``tpu_pipelines/models/t5.py`` over the port's names:
+    the transformer blocks' Megatron split, the shared embedding (with the
+    tied logits) over its vocabulary rows and each stack's
+    relative-position table over its heads, on a ``model`` axis above 1;
+    replicated on axes of 1."""
     return list(TRANSFORMER_PARTITION_RULES) + [
         (r"\.rel_pos\.rel_embedding$", (None, "model")),
     ]

@@ -52,12 +52,18 @@ features over ``seq`` cuts each rank's rows to its block of the sequence
 mesh and on every mesh the model holds, for the run; on a mesh whose
 ``seq`` axis is above 1 every gradient is averaged over ``seq`` after
 ``data`` (each rank's loss is one term of the objective, see
-``models/bert.py``), and so are the loss and metrics.  A
+``models/bert.py``), and so are the loss and metrics.  The implicit mode
+also sets ``whole_batch`` on those meshes: a rank's loss is then its share
+of the whole batch's, as the reference's GSPMD loss is one over the global
+batch (a masked mean's count and the MoE aux loss's token means are summed
+over ``data``, ``models.transformer.batch_groups``).  A
 ``param_partition`` spec over ``expert``, ``model`` or ``pipe`` marks a
 parameter whose module holds this rank's slice (built on the mesh: an MoE
-layer its experts over ``expert``; attention its heads, the MLP its
-columns and BERT its vocabulary rows over ``model``; the staged
-classifier its stage over ``pipe``); ``held`` maps each parameter a
+layer its experts over ``expert`` and their ff columns over ``model``;
+attention its heads, the MLP its columns, BERT's and T5's embeddings
+their vocabulary rows and T5's relative-position tables their heads over
+``model``; the staged classifier its stage over ``pipe``); ``held`` maps
+each parameter a
 module holds a slice of (``parallel.partition.hold_slices``, with a spec
 or without one) to the axes it is split over.  Over
 ``expert``, ``model`` and ``pipe`` the model's exchanges
@@ -101,8 +107,7 @@ from tpu_pipelines_torch.parallel.partition import (
     foreign_axis_paths,
     fsdp_param_partition,
     gather_slices,
-    held_slice,
-    refuse_unported,
+    held_slices,
     shard_of,
     spec_dim,
     validate_partition,
@@ -132,8 +137,8 @@ def effective_dp_collective(config) -> str:
 def _holds(model: nn.Module, name: str, axis: str, dim: int, group: Any) -> bool:
     """Whether ``name``'s module holds its slice along ``dim`` over
     ``axis`` (``group``'s ranks)."""
-    held = held_slice(model, name)
-    if held is None or held[0] != dim or held[2] != axis or group is None:
+    held = held_slices(model, name).get(axis)
+    if held is None or held[0] != dim or group is None:
         return False
     if held[1] is group:
         return True
@@ -273,7 +278,7 @@ class DataParallel:
         dp.batch_partition = bp
         dp.splits_sequence = mesh.axis_size("seq") > 1 and any(
             spec_dim(tuple(spec or ()), "seq") is not None for spec in bp.values())
-        dp._set_seq_split(model, dp.splits_sequence)
+        dp._set_layout(model, dp.splits_sequence, whole_batch=not mode)
         if not mode:
             dp._implicit_partition(config.param_partition, model)
         if mode == "fsdp":
@@ -316,8 +321,9 @@ class DataParallel:
         """The implicit mode's ``param_partition``: specs over axes of 1
         replicate, ``data`` above 1 needs fsdp, ``expert``, ``model`` and
         ``pipe`` mark the parameters a module holds a slice of, which must
-        be the module's own slice (built on the mesh); the experts' ff dim
-        over ``model`` raises (A6c).  Every slice a module holds is
+        be the module's own slice (built on the mesh), over one axis or
+        several (an MoE expert weight over ``expert`` and ``model``).
+        Every slice a module holds is
         ``held`` whatever its spec, and with no partition at all: a
         column-parallel layer's bias follows its weight (the reference's
         rules name the kernels and leave the biases to XLA)."""
@@ -325,14 +331,13 @@ class DataParallel:
         if partition is not None:
             self._check_specs(partition, model, params)
         for name in params:
-            held = held_slice(model, name)
-            if held is not None and self.mesh.axis_size(held[2]) > 1:
-                self.held.setdefault(name, {})[held[2]] = held[0]
+            for axis, (dim, _) in held_slices(model, name).items():
+                if self.mesh.axis_size(axis) > 1:
+                    self.held.setdefault(name, {})[axis] = dim
 
     def _check_specs(self, partition, model: nn.Module, params) -> None:
         problems = validate_partition(model, partition, self.mesh)
         partition = effective_partition(partition, self.mesh)
-        refuse_unported(partition)
         over_data = [f"{n}: {s}" for n, s in partition.items()
                      if spec_dim(s, "data") is not None]
         if over_data:
@@ -368,12 +373,15 @@ class DataParallel:
             parametrize.register_parametrization(
                 modules[owner], leaf, _Sharded(dim, self.mesh), unsafe=True)
 
-    def _set_seq_split(self, model: nn.Module, on: bool) -> None:
-        """The token layout the model sees: on the loop's mesh and on every
-        mesh the model's modules hold (one built apart from the loop's)."""
+    def _set_layout(self, model: nn.Module, seq_split: bool,
+                    whole_batch: bool) -> None:
+        """The token layout the model sees (``seq_split``) and whether a
+        rank's loss is its share of the whole batch's (``whole_batch``):
+        on the loop's mesh and on every mesh the model's modules hold (one
+        built apart from the loop's)."""
         meshes = [self.mesh] + [getattr(m, "mesh", None) for m in model.modules()]
         for mesh in {id(m): m for m in meshes if isinstance(m, DeviceMesh)}.values():
-            mesh.seq_split = on
+            mesh.seq_split, mesh.whole_batch = seq_split, whole_batch
 
     def parameters(self, model: nn.Module) -> List[nn.Parameter]:
         """The model's parameters in the order of the unsharded model's
@@ -409,7 +417,7 @@ class DataParallel:
         as its callers hold them."""
         from torch.nn.utils import parametrize
 
-        self._set_seq_split(model, False)
+        self._set_layout(model, False, whole_batch=False)
         for module in model.modules():
             gather_slices(module)
         if self.mode != "fsdp":

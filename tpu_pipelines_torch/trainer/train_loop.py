@@ -169,19 +169,19 @@ rank's token features to its block of the sequence, the step's and the
 eval batches', and sets the mesh's ``seq_split`` for the run (the
 returned model's mesh holds whole rows again); ``param_partition``'s
 specs over ``expert``, ``model`` and ``pipe`` mark the slices a model
-built on the mesh holds on its rank (an MoE layer's experts; attention
-heads, MLP columns and vocabulary rows, ``bert_partition_rules``; a
-pipeline stage, ``models/staged.py``'s ``staged_partition_rules``; see
-``trainer/data_parallel.py``).  Checkpoints hold the slices gathered over
+built on the mesh holds on its rank (an MoE layer's experts and their
+ff columns; attention heads, MLP columns, vocabulary rows and T5's
+relative-position heads, ``bert_partition_rules`` and
+``t5_partition_rules``; a pipeline stage, ``models/staged.py``'s
+``staged_partition_rules``; see ``trainer/data_parallel.py``).  Checkpoints hold the slices gathered over
 their axes (rank 0 writes them), so they do not depend on the mesh, and
 the returned model is whole: it computes alone, with no mesh.  An
 explicit ``dp_collective`` with a ``batch_partition`` and a
 ``batch_partition`` key the batch lacks raise the reference's
-``ValueError``; the MoE experts' ff dim over ``model`` raises
-``NotImplementedError`` (ROADMAP.md A6c).  A rank's dropout masks are
-drawn for its own block, so a sequence-split run equals a run of one
-process at dropout 0; the ``model`` ranks draw the same masks from the
-step's seed.  The reference's ``prng_impl`` (a JAX key implementation) has no counterpart
+``ValueError``.  A rank draws the dropout mask of a whole activation and
+keeps its block of it (``models/transformer.py``'s ``Dropout``), so a
+run split over ``seq`` or ``model`` draws one process's masks.  The
+reference's ``prng_impl`` (a JAX key implementation) has no counterpart
 here, and ``donate_state`` none but the in-place replays above: the
 fields do not exist.
 """
