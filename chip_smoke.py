@@ -9,6 +9,15 @@ Phases (any failure raises and the script exits non-zero):
   1. setup — print the card and its power limit, turn TF32 off, build the
      CUDA sources from ``tpu_pipelines_torch/csrc`` (one nvcc each, all
      started together) and print the build times;
+  1a. native_cores — build the host cores ``csrc/host/record_core.cc``
+     and ``tokenizer_core.cc`` (one g++ each, started together), hold the
+     C crc32c against the table version on CRC_BYTES seeded bytes and the
+     check value crc32c(b"123456789") = 0xE3069283, and print both rates;
+     parse a seeded stream of PARSE_CHUNKS record chunks, the first in
+     Python (it pins the schema) and the rest by the core, against the
+     Python parse of every chunk; the bert_dag and retrain_dag phases then
+     read the cores' counters (``check_host_cores``): every crc through C,
+     no record chunk refused by the core, every review row encoded by it;
   2. kernels — print the forward, backward and decode kernels' registers,
      spills and shared memory per instantiation (the decode kernel's also
      at each timed shape: its splits S, the cluster size and the clusters
@@ -226,6 +235,24 @@ Phases (any failure raises and the script exits non-zero):
      each rank launching SP_EP_LAYERS x 3 of each training kernel on its
      6 heads; the T5 training jobs launch none (T5's biased attention is
      dense, as the reference's);
+  8f. spmd_dag — multi-process runs (A10) in the same spawn: a BERT-base
+     DAG (SPMD_PIPELINE: CsvExampleGen -> StatisticsGen -> SchemaGen ->
+     Transform -> Trainer, ``bert_module.run_fn`` at BERT-base's width,
+     DP_TWO_LAYERS layers, its own vocabulary, flash, ``mesh {"data": 2}``)
+     whose manifests ``GPUJobRunner`` emits (one host of two GPUs); the
+     upstream nodes run through ``run_node.main`` with their container
+     templates' argv, one partial run each; the Trainer once in this
+     process at a world of one on a copy of the root and store, then on
+     the two ranks with its JobSet container's argv and env (the
+     completion index and torchrun's variables filled in), three times:
+     (i) a failure planted in rank 1's attempt after its collectives
+     fails the node on both within SPMD_FAIL_S, one FAILED execution, no
+     cache entry; (ii) the retry executes: one COMPLETE execution
+     published by rank 0, one shared model dir with the payload, each
+     rank DP_TWO_LAYERS x SPMD_STEPS launches of every training kernel,
+     the ranks one model bit for bit, losses within DP_LOSS_TOL and
+     changes within DP_CHANGE_TOL of one process, the payload's logits the
+     trained model's; (iii) CACHED on both with no launch;
   9. taxi_dag — the Chicago-taxi DAG (all nine nodes of
      ``tpu_pipelines_torch/examples/taxi_pipeline.py``) through
      ``LocalDagRunner(device="cuda")`` over a CSV of TAXI_ROWS rows made
@@ -8199,7 +8226,8 @@ def _dp_rank_worker(rank, world, backend, init_file, out_dir, seed, jobs):
                    "world_of_one": dp_world_of_one, "sp": _sp_job,
                    "ep": _ep_job, "tp": _tp_job, "tp_run_fn": _tp_run_fn_job,
                    "pp": _pp_job, "t5_train": _t5_train_job,
-                   "t5_decode": _t5_decode_job, "moe_tp": _moe_tp_job}[kind]
+                   "t5_decode": _t5_decode_job, "moe_tp": _moe_tp_job,
+                   "spmd_node": _spmd_node_job}[kind]
             t0 = time.perf_counter()
             out[name] = job(seed, **kwargs)
             if isinstance(out[name], dict):
@@ -10207,6 +10235,629 @@ def _t5_moe_finish(card, one, one_launches, one_s, two, two_s):
     return launches, failures
 
 
+# ---- spmd_dag: a BERT-base DAG node by node through run_node (A10)
+
+# The DAG's reviews: candidates made up from the seed, of which the first
+# SPMD_SPLIT_ROWS whose content hash sends them to train and as many sent
+# to eval make its CSV.  With 64 train rows in two shard files of 32, each
+# of the two ranks reads its 32 rows every step and the one process all 64:
+# both runs train on the same global batch of DP_BATCH rows, in another
+# order, so their losses and changes are comparable.
+SPMD_CANDIDATES = 400
+SPMD_SPLIT_ROWS = DP_BATCH
+SPMD_STEPS = 3
+SPMD_EVAL_STEPS = 1
+# Run (i)'s planted failure must fail the node on both ranks this fast.
+SPMD_FAIL_S = 120.0
+# The runner collectives each rank issues in a run of the Trainer node: a
+# broadcast of the replayed Cond skip for each of the 4 upstream nodes, the
+# inputs' flag and their JSON (a length and the bytes), the cache verdict
+# and, when the node executes, the execution id; the status all-gather
+# after the executor; run_node's final barrier.
+SPMD_EXECUTED_COLLECTIVES = {"broadcast": 9, "allgather": 1, "barrier": 1}
+SPMD_CACHED_COLLECTIVES = {"broadcast": 8, "allgather": 0, "barrier": 1}
+SPMD_PIPELINE = """\\
+import json
+import os
+
+from tpu_pipelines_torch.components import (
+    CsvExampleGen, SchemaGen, StatisticsGen, Trainer, Transform,
+)
+from tpu_pipelines_torch.dsl.pipeline import Pipeline
+
+
+def create_pipeline():
+    env = os.environ
+    home = env["SPMD_DAG_HOME"]
+    gen = CsvExampleGen(input_path=env["SPMD_DAG_CSV"], num_shards=2)
+    stats = StatisticsGen(examples=gen.outputs["examples"])
+    schema = SchemaGen(statistics=stats.outputs["statistics"])
+    transform = Transform(examples=gen.outputs["examples"],
+                          schema=schema.outputs["schema"],
+                          module_file=env["SPMD_DAG_PREPROCESSING"])
+    trainer = Trainer(
+        examples=transform.outputs["transformed_examples"],
+        transform_graph=transform.outputs["transform_graph"],
+        module_file=env["SPMD_DAG_MODULE"],
+        train_steps=int(env["SPMD_DAG_STEPS"]),
+        eval_steps=int(env["SPMD_DAG_EVAL_STEPS"]),
+        hyperparameters=json.loads(env["SPMD_DAG_HPARAMS"]),
+        mesh=json.loads(env["SPMD_DAG_MESH"]),
+        custom_config={"train_loop": {"checkpoint_every": 0, "log_every": 1}})
+    return Pipeline("spmd-bert", [trainer],
+                    pipeline_root=os.path.join(home, "root"),
+                    metadata_path=os.path.join(home, "metadata.sqlite"))
+"""
+SPMD_PREPROCESSING = """\\
+def preprocessing_fn(inputs, tft):
+    ids = tft.tokenize(inputs["text"], max_len={max_len}, vocab_size={vocab})
+    return {{"input_ids": ids, "attention_mask": tft.greater(ids, 0),
+            "label": tft.cast(inputs["label"], "int32")}}
+"""
+
+
+def spmd_hparams():
+    """BERT-base's width at DP_TWO_LAYERS layers, its own vocabulary,
+    flash attention, dropout 0, the DP phases' batch and rate."""
+    return {"n_layers": DP_TWO_LAYERS, "attn_impl": "flash",
+            "vocab_size": TP_VOCAB, "max_len": SEQ_LEN, "num_classes": 2,
+            "dropout_rate": 0.0, "batch_size": DP_BATCH,
+            "learning_rate": DP_LR}
+
+
+def spmd_env(home, csv_path, mesh):
+    from tpu_pipelines_torch.examples import bert_pipeline
+
+    return {"SPMD_DAG_HOME": home, "SPMD_DAG_CSV": csv_path,
+            "SPMD_DAG_PREPROCESSING": os.path.join(home, "preprocessing.py"),
+            "SPMD_DAG_MODULE": os.path.join(bert_pipeline.HERE, "bert_module.py"),
+            "SPMD_DAG_STEPS": str(SPMD_STEPS),
+            "SPMD_DAG_EVAL_STEPS": str(SPMD_EVAL_STEPS),
+            "SPMD_DAG_HPARAMS": json.dumps(spmd_hparams()),
+            "SPMD_DAG_MESH": json.dumps(mesh)}
+
+
+def spmd_reviews_csv(path, seed):
+    """SPMD_SPLIT_ROWS reviews the hash split sends to train and as many to
+    eval, from SPMD_CANDIDATES made-up ones; returns the split counts."""
+    from tpu_pipelines_torch.components import example_gen
+
+    lines = [quoted_text(i, text, "she wrote") + f",{label}" for i, (text, label)
+             in enumerate(review_rows(seed + 61, SPMD_CANDIDATES))]
+    with open(path, "w") as f:
+        f.write("\n".join(["text,label"] + lines) + "\n")
+    table, kinds = example_gen.read_csv([path])
+    masks = example_gen._split_masks(example_gen._row_hash_buckets(
+        table, kinds, sum(example_gen.DEFAULT_SPLITS.values())),
+        example_gen.DEFAULT_SPLITS)
+    keep = sorted(i for split in ("train", "eval")
+                  for i in np.flatnonzero(masks[split])[:SPMD_SPLIT_ROWS])
+    with open(path, "w") as f:
+        f.write("\n".join(["text,label"] + [lines[i] for i in keep]) + "\n")
+    return {split: int(min(SPMD_SPLIT_ROWS, masks[split].sum()))
+            for split in ("train", "eval")}
+
+
+@contextlib.contextmanager
+def root_logging_kept():
+    """``run_node.main`` sets up INFO logging for its process; the root
+    logger is put back as it was when the call returns."""
+    import logging
+
+    root = logging.getLogger()
+    handlers, level = list(root.handlers), root.level
+    try:
+        yield
+    finally:
+        for h in list(root.handlers):
+            if h not in handlers:
+                root.removeHandler(h)
+        root.setLevel(level)
+
+
+@contextlib.contextmanager
+def spmd_recording(module_path):
+    """The BERT module's train loop and run_fn as the Trainer calls them:
+    yields ``seen`` with the initial and trained models' parameters (CPU),
+    the logged losses, the TrainResult, the loop's seconds and the
+    run_fn's output dirs."""
+    from tpu_pipelines_torch.utils.module_loader import load_module
+
+    user = load_module(module_path)
+    real_loop, real_run_fn = user.train_loop, user.run_fn
+    seen = {"losses": []}
+
+    def loop(**kw):
+        real_init = kw["init_params_fn"]
+
+        def init(*args, **kwargs):
+            model = real_init(*args, **kwargs)
+            seen["init"] = {n: p.detach().cpu().clone()
+                            for n, p in model.named_parameters()}
+            return model
+
+        def cb(step, metrics):
+            seen["losses"] += [float(v) for k, v in metrics.items() if k == "loss"]
+
+        t0 = time.perf_counter()
+        model, result = real_loop(**{**kw, "init_params_fn": init,
+                                     "metrics_cb": cb})
+        seen["loop_s"] = time.perf_counter() - t0
+        seen["model"], seen["result"] = model, result
+        return model, result
+
+    def run_fn(fn_args):
+        seen["model_dir"] = fn_args.serving_model_dir
+        seen["eval_uri"] = fn_args.eval_examples_uri
+        return real_run_fn(fn_args)
+
+    with mock.patch.object(user, "train_loop", loop), \
+            mock.patch.object(user, "run_fn", run_fn):
+        yield seen
+
+
+def param_digests(params):
+    import hashlib
+
+    return {n: hashlib.sha256(p.float().numpy().tobytes()).hexdigest()
+            for n, p in params.items()}
+
+
+def store_states(path, node):
+    from tpu_pipelines_torch.metadata import open_store
+
+    store = open_store(path)
+    try:
+        return [ex.state.value for ex in store.get_executions(node_id=node)]
+    finally:
+        store.close()
+
+
+def spmd_dag_setup(seed, card, tmp):
+    """spmd_dag: the BERT DAG of SPMD_PIPELINE (CsvExampleGen ->
+    StatisticsGen -> SchemaGen -> Transform, the native tokenizer's ->
+    Trainer, ``examples/bert_module.py``'s run_fn at BERT-base's width on
+    ``mesh {"data": 2}``) as a cluster runs it.  ``GPUJobRunner`` emits its
+    manifests for one host of two GPUs; each upstream node runs through
+    ``run_node.main`` with the argv of its container template, one partial
+    run each; the Trainer runs through ``run_node.main`` once in this
+    process on a copy of the root and store taken after Transform, at a
+    world of one (the baseline), and on the two ranks with the argv and env
+    of its JobSet's container (``_spmd_node_job``).  Returns the rank jobs
+    and ``finish(two, seconds)`` -> (launches, failures)."""
+    from tpu_pipelines_torch import run_node
+    from tpu_pipelines_torch.orchestration import GPUJobRunner, GPUJobRunnerConfig
+    from tpu_pipelines_torch.orchestration.cluster_runner import k8s_name
+    from tpu_pipelines_torch.transform import native_tokenizer
+    from tpu_pipelines_torch.utils.module_loader import load_fn
+
+    t_setup = time.perf_counter()
+    home = os.path.join(tmp, "spmd_dag")
+    os.makedirs(home)
+    csv_path = os.path.join(home, "reviews.csv")
+    split_rows = spmd_reviews_csv(csv_path, seed)
+    if split_rows != {"train": SPMD_SPLIT_ROWS, "eval": SPMD_SPLIT_ROWS}:
+        raise AssertionError(f"spmd_dag: split rows {split_rows}")
+    with open(os.path.join(home, "preprocessing.py"), "w") as f:
+        f.write(SPMD_PREPROCESSING.format(max_len=SEQ_LEN, vocab=TP_VOCAB))
+    module = os.path.join(home, "spmd_pipeline.py")
+    with open(module, "w") as f:
+        f.write(SPMD_PIPELINE)
+    env = spmd_env(home, csv_path, {"data": 2})
+    with mock.patch.dict(os.environ, env):
+        pipeline = load_fn(module, "create_pipeline")()
+    out = GPUJobRunner(GPUJobRunnerConfig(
+        image="tpu-pipelines-torch:chip-smoke", pipeline_module=module,
+        output_dir=os.path.join(home, "manifests"), num_hosts=1,
+        gpus_per_host=2)).run(pipeline)
+    with open(out["workflow"]) as f:
+        workflow = json.load(f)
+    with open(out["jobset_Trainer"]) as f:
+        jobset = json.load(f)
+    templates = {t["name"]: t for t in workflow["spec"]["templates"]}
+    if "resource" not in templates["trainer"] or sorted(out) != [
+            "jobset_Trainer", "pipeline_ir", "workflow"]:
+        raise AssertionError(f"spmd_dag: manifests {sorted(out)}")
+
+    native_tokenizer.reset_counters()
+    walls = {}
+    for node in ("CsvExampleGen", "StatisticsGen", "SchemaGen", "Transform"):
+        cmd = templates[k8s_name(node)]["container"]["command"]
+        if cmd[:3] != ["python", "-m", "tpu_pipelines_torch.run_node"]:
+            raise AssertionError(f"spmd_dag: {node}'s command {cmd}")
+        t0 = time.perf_counter()
+        with mock.patch.dict(os.environ, env), root_logging_kept():
+            code = run_node.main(cmd[3:])
+        walls[node] = time.perf_counter() - t0
+        if code != 0:
+            raise AssertionError(f"spmd_dag: {node} exited {code}")
+    tokenized = native_tokenizer.counters()
+    if (tokenized["native_rows"] != 2 * SPMD_SPLIT_ROWS
+            or tokenized["python_rows"] or tokenized["count_python_rows"]):
+        raise AssertionError(f"spmd_dag: Transform's tokenizer {tokenized}")
+
+    # The Trainer's pod: torchrun over run_node, the argv after its module.
+    container = jobset["spec"]["replicatedJobs"][0]["template"]["spec"][
+        "template"]["spec"]["containers"][0]
+    cmd = container["command"]
+    at = cmd.index("-m")
+    launcher = dict(zip(cmd[1:at:2], cmd[2:at:2]))
+    if (cmd[0] != "torchrun" or cmd[at + 1] != "tpu_pipelines_torch.run_node"
+            or launcher["--nnodes"] != "1" or launcher["--nproc-per-node"] != "2"):
+        raise AssertionError(f"spmd_dag: the Trainer pod's command {cmd}")
+    argv = cmd[at + 2:]
+    # The pod's env as the Job controller fills it (the completion index)
+    # and torchrun's per process (filled in each rank's job).
+    pod_env = {e["name"]: e.get("value", "0") for e in container["env"]}
+
+    # The baseline: a copy of the root and store after Transform, the
+    # Trainer at a world of one on the same global batch.
+    one_home = os.path.join(tmp, "spmd_dag_one")
+    shutil.copytree(home, one_home)
+    one_env = spmd_env(one_home, csv_path, {"data": 1})
+    zero_counters()
+    t0 = time.perf_counter()
+    with mock.patch.dict(os.environ, one_env), root_logging_kept(), \
+            spmd_recording(env["SPMD_DAG_MODULE"]) as one:
+        code = run_node.main(argv)
+    one_s = time.perf_counter() - t0
+    one_launches = by_record(counters())
+    if code != 0:
+        raise AssertionError(f"spmd_dag: the one-process Trainer exited {code}")
+    # Read by finish, after two_rank_jobs has removed ``tmp``.
+    keep = tempfile.mkdtemp()
+    paths = {"one_init": os.path.join(keep, "one_init.pt"),
+             "one_final": os.path.join(keep, "one_final.pt"),
+             "two_final": os.path.join(keep, "two_final.pt")}
+    torch.save(one["init"], paths["one_init"])
+    torch.save({n: p.detach().cpu() for n, p in one["model"].named_parameters()},
+               paths["one_final"])
+    baseline = {"losses": one["losses"], "loop_s": one["loop_s"],
+                "steps": one["result"].steps_completed,
+                "eps": one["result"].examples_per_sec, "seconds": one_s,
+                "launches": one_launches, "walls": walls,
+                "setup_s": time.perf_counter() - t_setup}
+    del one
+    jobs = [("spmd_node", "spmd_node", {
+        "argv": argv, "env": {**env, **pod_env}, "home": home,
+        "out_path": paths["two_final"]})]
+    return jobs, functools.partial(_spmd_dag_finish, card, baseline, keep, paths)
+
+
+def _spmd_node_job(seed, *, argv, env, home, out_path):
+    """One rank of the Trainer's pod: ``run_node.main(argv)`` three times
+    with the env torchrun gives rank r of a world of two: (i) a failure
+    planted in rank 1's executor attempt, after its collectives
+    (``faults.RAISE_AFTER``); (ii) the node again, as the substrate's retry
+    would run it; (iii) a third time.  Each run's exit code, wall,
+    launches, runner collectives and the output dirs; for (ii) the losses,
+    the trained and initial parameters' digests (rank 0 saves the trained
+    ones to ``out_path``), and on rank 0 the payload's logits against the
+    trained model's and the store's executions."""
+    import torch.distributed as dist
+
+    from tpu_pipelines_torch import run_node
+    from tpu_pipelines_torch.parallel import distributed
+    from tpu_pipelines_torch.testing import faults
+
+    rank = dist.get_rank()
+    rank_env = {**env, "RANK": str(rank), "LOCAL_RANK": str(rank),
+                "WORLD_SIZE": "2", "LOCAL_WORLD_SIZE": "2", "GROUP_RANK": "0",
+                "MASTER_ADDR": "localhost", "MASTER_PORT": "29500"}
+    out = {}
+    for tag in ("fail", "retry", "cached"):
+        zero_counters()
+        distributed.reset_collectives_issued()
+        plan = (faults.FaultPlan({"Trainer": faults.NodeFault(faults.RAISE_AFTER)})
+                if tag == "fail" and rank == 1 else None)
+        t0 = time.perf_counter()
+        with mock.patch.dict(os.environ, rank_env), root_logging_kept(), \
+                spmd_recording(env["SPMD_DAG_MODULE"]) as seen, \
+                (plan.activate() if plan else contextlib.nullcontext()):
+            code = run_node.main(argv)
+        run = {"code": code, "wall_s": time.perf_counter() - t0,
+               "launches": by_record(counters()),
+               "issued": distributed.collectives_issued(),
+               "model_dir": seen.get("model_dir")}
+        if tag == "retry":
+            params = {n: p.detach().cpu() for n, p in seen["model"].named_parameters()}
+            run.update(losses=seen["losses"], loop_s=seen["loop_s"],
+                       steps=seen["result"].steps_completed,
+                       eps=seen["result"].examples_per_sec,
+                       digests=param_digests(params),
+                       init_digests=param_digests(seen["init"]))
+            if rank == 0:
+                torch.save(params, out_path)
+                run["payload_gap"] = _spmd_payload_gap(seen)
+            run["files"] = sorted(os.listdir(seen["model_dir"]))
+        if rank == 0:
+            run["executions"] = store_states(
+                os.path.join(home, "metadata.sqlite"), "Trainer")
+        out[tag] = run
+        dist.barrier()
+    return out
+
+
+def _spmd_payload_gap(seen, rows=8):
+    """The exported payload, loaded on the card, against the trained
+    model's logits on ``rows`` transformed eval rows: the max |diff|."""
+    from tpu_pipelines_torch.data import examples_io
+
+    data = examples_io.read_split(seen["eval_uri"], "eval")
+    batch = {k: np.asarray(v[:rows]) for k, v in data.items() if k != "label"}
+    model = seen["model"].eval()
+    with torch.no_grad():
+        want = model({k: torch.as_tensor(v, device=DEVICE)
+                      for k, v in batch.items()}).float().cpu()
+    loaded = load_exported_model(seen["model_dir"], device=DEVICE)
+    got = torch.as_tensor(loaded.predict_transformed(batch)).float().cpu()
+    return float((got - want).abs().max())
+
+
+def _spmd_dag_finish(card, one, keep, paths, two, two_s):
+    """spmd_dag's checks on the two ranks' runs: (i) failed on both within
+    SPMD_FAIL_S, one FAILED execution and no cache entry; (ii) executed,
+    one COMPLETE execution, one output dir with the payload, each rank's
+    training launches DP_TWO_LAYERS x SPMD_STEPS of every attention kernel,
+    the ranks one model bit for bit, losses within DP_LOSS_TOL and the
+    parameter changes within DP_CHANGE_TOL of the one process, the payload's
+    logits the trained model's; (iii) CACHED on both with no launch."""
+    try:
+        return _spmd_dag_checks(card, one, paths, two, two_s)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+
+
+def _spmd_dag_checks(card, one, paths, two, two_s):
+    failures = []
+    r0, r1 = (two[r]["spmd_node"] for r in range(2))
+    fail, retry, cached = ([r[t] for r in (r0, r1)]
+                           for t in ("fail", "retry", "cached"))
+    train = DP_TWO_LAYERS * SPMD_STEPS
+    if [r["code"] for r in fail] != [1, 1] or max(
+            r["wall_s"] for r in fail) > SPMD_FAIL_S:
+        failures.append(f"(i) exit codes {[r['code'] for r in fail]} in "
+                        f"{[round(r['wall_s'], 1) for r in fail]} s")
+    if r0["fail"]["executions"] != ["FAILED"]:
+        failures.append(f"(i) the store holds {r0['fail']['executions']}")
+    if [r["code"] for r in retry] != [0, 0] or r0["retry"]["executions"] != [
+            "FAILED", "COMPLETE"]:
+        failures.append(f"(ii) exit codes {[r['code'] for r in retry]}, the "
+                        f"store holds {r0['retry']['executions']} (a cache "
+                        "entry from (i) would make it CACHED)")
+    if retry[0]["model_dir"] != retry[1]["model_dir"] or not {
+            "model_spec.json"} <= set(retry[0]["files"]):
+        failures.append(f"(ii) output dirs {retry[0]['model_dir']} / "
+                        f"{retry[1]['model_dir']}, files {retry[0]['files']}")
+    evals = []
+    for r, run in enumerate(retry):
+        got = run["launches"]
+        evals.append(got["flash_fwd"] - train)
+        if (got["flash_bwd_dq"], got["flash_bwd_dkv"], got["flash_bwd_dvec"]) != (
+                train, train, train) or evals[-1] < 0 or got["flash_decode"]:
+            failures.append(f"(ii) rank {r} launched {got}, want {train} of "
+                            "each training kernel")
+    if retry[0]["digests"] != retry[1]["digests"]:
+        apart = sum(retry[0]["digests"][n] != retry[1]["digests"][n]
+                    for n in retry[0]["digests"])
+        failures.append(f"(ii) the ranks hold {apart} parameters apart")
+    one_init = torch.load(paths["one_init"])
+    if retry[0]["init_digests"] != param_digests(one_init):
+        failures.append("(ii) the ranks started from another model than the "
+                        "one process")
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(retry[0]["losses"],
+                                                        one["losses"]))
+    change_gap = param_change_gap(torch.load(paths["two_final"]),
+                                  torch.load(paths["one_final"]), one_init)
+    if (len(retry[0]["losses"]) != SPMD_STEPS or retry[0]["losses"] != retry[1][
+            "losses"] or loss_gap > DP_LOSS_TOL or change_gap > DP_CHANGE_TOL):
+        failures.append(f"(ii) losses {retry[0]['losses']} / {retry[1]['losses']} "
+                        f"against {one['losses']}: gap {loss_gap:.3e}, changes "
+                        f"{change_gap:.3e}")
+    if retry[0]["payload_gap"] > LOGIT_TOL:
+        failures.append(f"(ii) payload logits {retry[0]['payload_gap']:.3e} off")
+    if [r["code"] for r in cached] != [0, 0] or r0["cached"]["executions"] != [
+            "FAILED", "COMPLETE", "CACHED"] or any(
+                any(r["launches"].values()) for r in cached):
+        failures.append(f"(iii) exit codes {[r['code'] for r in cached]}, the "
+                        f"store {r0['cached']['executions']}, launches "
+                        f"{[r['launches'] for r in cached]}")
+    for tag, runs, want in (("(i)", fail, SPMD_EXECUTED_COLLECTIVES),
+                            ("(ii)", retry, SPMD_EXECUTED_COLLECTIVES),
+                            ("(iii)", cached, SPMD_CACHED_COLLECTIVES)):
+        if [r["issued"] for r in runs] != [want, want]:
+            failures.append(f"{tag} runner collectives "
+                            f"{[r['issued'] for r in runs]}, want {want} a rank")
+    one_step = 1e3 * DP_BATCH / max(one["eps"], 1e-9)
+    two_step = 1e3 * DP_BATCH / max(retry[0]["eps"], 1e-9)
+    print(f"spmd_dag [{card}]: BERT-base width, {DP_TWO_LAYERS} layers, "
+          f"vocabulary {TP_VOCAB}, {SPMD_STEPS} steps at {DP_BATCH} x {SEQ_LEN}; "
+          "upstream nodes through run_node.main: " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in one["walls"].items())
+          + f"; one process (world 1) {one['seconds']:.1f} s, losses "
+          + " ".join(f"{x:.6f}" for x in one["losses"])
+          + f", launches {one['launches']}; setup {one['setup_s']:.1f} s",
+          flush=True)
+    print(f"spmd_dag runs [{card}]: (i) failure planted in rank 1 after its "
+          f"collectives: exit {[r['code'] for r in fail]} in "
+          f"{[round(r['wall_s'], 1) for r in fail]} s, store "
+          f"{r0['fail']['executions']}; (ii) exit {[r['code'] for r in retry]} "
+          f"in {[round(r['wall_s'], 1) for r in retry]} s, store "
+          f"{r0['retry']['executions']}, one model dir {retry[0]['model_dir']}, "
+          f"launches {[r['launches'] for r in retry]} ({train} training a kernel, "
+          f"eval forwards {evals}), losses " + " ".join(
+              f"{x:.6f}" for x in retry[0]["losses"])
+          + f", loss gap {loss_gap:.3e} (tol {DP_LOSS_TOL:g}), change gap "
+          f"{change_gap:.3e} (tol {DP_CHANGE_TOL:g}), ranks one model bit for "
+          f"bit {retry[0]['digests'] == retry[1]['digests']}, payload logits "
+          f"{retry[0]['payload_gap']:.3e} (tol {LOGIT_TOL:g}); step "
+          f"{two_step:.1f} ms on two ranks against {one_step:.1f} ms in one "
+          f"process; (iii) exit {[r['code'] for r in cached]} in "
+          f"{[round(r['wall_s'], 1) for r in cached]} s, store "
+          f"{r0['cached']['executions']}, launches 0; runner collectives a "
+          f"run and rank: {[r['issued'] for r in fail + retry + cached]}; "
+          f"spawn {two_s:.1f} s", flush=True)
+    launches = {name: [run["launches"][name] for run in retry]
+                for name in retry[0]["launches"]}
+    return launches, failures
+
+
+# ---- native_cores: the record and tokenizer cores (A24)
+
+# ImportExampleGen's seconds for the ResNet DAG's RESNET_DAG_ROWS rows
+# before the host cores (NVIDIA H100 80GB HBM3, 700.00 W), printed beside
+# this run's.
+RESNET_INGEST_BEFORE_S = 41.71
+CRC_BYTES = 1 << 20
+# native_cores' parse: PARSE_CHUNKS chunks of PARSE_CHUNK_ROWS records.
+PARSE_CHUNK_ROWS, PARSE_CHUNKS = 2048, 3
+
+
+def native_cores_phase(seed, card):
+    """Build both host cores (one g++ each, started together), hold the C
+    crc32c against the table version on CRC_BYTES seeded bytes and on the
+    check value crc32c(b"123456789") = 0xE3069283, and time both; then
+    parse PARSE_CHUNKS seeded record chunks through ``tf_example_batches``
+    (the first in Python, the rest by the core) against the Python parse of
+    every chunk, column for column."""
+    from tpu_pipelines_torch.data import native_record, record_io
+    from tpu_pipelines_torch.transform import native_tokenizer
+
+    seconds, errors = {}, {}
+
+    def build(name, core):
+        try:
+            seconds[name] = core.build_seconds()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors[name] = e
+
+    threads = [threading.Thread(target=build, args=args) for args in (
+        ("record_core", native_record), ("tokenizer_core", native_tokenizer))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise RuntimeError(f"host core build failed: {errors}")
+    wall = time.perf_counter() - t0
+    data = np.random.default_rng(seed + 67).integers(
+        0, 256, CRC_BYTES, dtype=np.uint8).tobytes()
+    native_record.crc32c(data)  # loads the library
+    reps = 50
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        got = native_record.crc32c(data)
+    c_s = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    want = record_io._crc32c_py(data)
+    table_s = time.perf_counter() - t0
+    check = native_record.crc32c(b"123456789")
+    if got != want or check != 0xE3069283:
+        raise AssertionError(f"native_cores: crc32c {got:#x} against the table "
+                             f"version's {want:#x}, check value {check:#x}")
+    out = {"build_s": seconds, "crc_MBps": CRC_BYTES / c_s / 1e6,
+           "table_MBps": CRC_BYTES / table_s / 1e6}
+    out.update(_native_parse_check(seed))
+    print(f"native_cores [{card}]: g++ record_core {seconds['record_core']:.1f} s, "
+          f"tokenizer_core {seconds['tokenizer_core']:.1f} s (0.0: already "
+          f"built), wall {wall:.1f} s; crc32c of {CRC_BYTES} seeded bytes "
+          f"{got:#010x} == the table version's, crc32c(b'123456789') = "
+          f"{check:#x}; C {out['crc_MBps']:.1f} MB/s (mean of {reps}), table "
+          f"version {out['table_MBps']:.2f} MB/s; {PARSE_CHUNKS} chunks of "
+          f"{PARSE_CHUNK_ROWS} records == the Python parse's, {out['native_chunks']} "
+          f"by the core ({out['native_records']} records, 0 refused): "
+          f"{out['parse_s']:.3f} s against {out['python_parse_s']:.3f} s all in "
+          "Python", flush=True)
+    return out
+
+
+def _native_parse_check(seed):
+    """PARSE_CHUNKS chunks of seeded records through ``tf_example_batches``
+    and through the Python parse alone; raises unless every column is
+    equal and every chunk after the first went through the core."""
+    from tpu_pipelines_torch.data import native_record, record_io
+
+    rng = np.random.default_rng(seed + 68)
+    n = PARSE_CHUNK_ROWS * PARSE_CHUNKS
+    recs = [encode_example({
+        "name": [f"row-{i}".encode()],
+        "fare": np.asarray([rng.normal()], np.float32),
+        "count": np.asarray([int(rng.integers(-10**12, 10**12))]),
+        "vec": rng.normal(size=3).astype(np.float32)}) for i in range(n)]
+    native_record.reset_counters()
+    t0 = time.perf_counter()
+    got = list(record_io.tf_example_batches(iter(recs),
+                                            batch_rows=PARSE_CHUNK_ROWS))
+    parse_s = time.perf_counter() - t0
+    seen = native_record.counters()
+    pins, order = {}, []
+    t0 = time.perf_counter()
+    want = [record_io._chunk(recs[i:i + PARSE_CHUNK_ROWS], pins, order)
+            for i in range(0, n, PARSE_CHUNK_ROWS)]
+    python_s = time.perf_counter() - t0
+    equal = len(got) == len(want) and all(
+        list(a.columns) == list(b.columns) and all(
+            a.columns[k].dtype == b.columns[k].dtype
+            and np.array_equal(a.columns[k], b.columns[k]) for k in b.columns)
+        for a, b in zip(got, want))
+    if not equal or seen["native_chunks"] != PARSE_CHUNKS - 1 or seen[
+            "python_chunks"] or seen["pin_chunks"] != 1:
+        raise AssertionError(f"native_cores: the parse through the core equal "
+                             f"to the Python parse: {equal}, counters {seen}")
+    return {"parse_s": parse_s, "python_parse_s": python_s,
+            "native_chunks": seen["native_chunks"],
+            "native_records": seen["native_records"]}
+
+
+@contextlib.contextmanager
+def host_cores_counted():
+    """The record and tokenizer cores' counters from 0 and every call of
+    the table crc counted; yields a dict filled with all of them on exit."""
+    from tpu_pipelines_torch.data import native_record, record_io
+    from tpu_pipelines_torch.transform import native_tokenizer
+
+    native_record.reset_counters()
+    native_tokenizer.reset_counters()
+    seen = {"table_crc_calls": 0}
+    real = record_io._crc32c_py
+
+    def counted(data):
+        seen["table_crc_calls"] += 1
+        return real(data)
+
+    with mock.patch.object(record_io, "_crc32c_py", counted):
+        yield seen
+    seen.update(native_record.counters())
+    seen.update(native_tokenizer.counters())
+
+
+def check_host_cores(name, seen, card, records=False, rows=0):
+    """Every crc through C (the table version never called), no record
+    chunk refused by the record core (``records``: at least one record
+    read), and ``rows`` or more rows encoded by the tokenizer core with
+    none by the Python engine.  A stream's first chunk is parsed in Python
+    (it pins the schema), so a record file of one chunk never reaches the
+    core's parse; native_cores holds the parse on a longer stream."""
+    read = seen["native_records"] + seen["pin_records"]
+    bad = seen["table_crc_calls"] or seen["python_chunks"] or (
+        seen["crc_calls"] < 2 * read) or seen["python_rows"] \
+        or seen["count_python_rows"] or seen["native_rows"] < rows or (
+            records and not read)
+    print(f"{name} host cores [{card}]: records parsed natively "
+          f"{seen['native_records']} in {seen['native_chunks']} chunks, in "
+          f"Python to pin the schema {seen['pin_records']} in "
+          f"{seen['pin_chunks']} chunks, chunks refused by the core and "
+          f"re-parsed in Python {seen['python_chunks']}, C crc {seen['crc_calls']} "
+          f"calls over {seen['crc_nbytes']} bytes, table crc calls "
+          f"{seen['table_crc_calls']}; rows encoded natively "
+          f"{seen['native_rows']}, by the Python engine {seen['python_rows']}; "
+          f"rows counted natively {seen['count_native_rows']}, in Python "
+          f"{seen['count_python_rows']}", flush=True)
+    if bad:
+        raise AssertionError(f"{name}: a path left the host cores: {seen}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -10240,6 +10891,8 @@ def main(argv=None) -> int:
 
     build_kernels()
     phase_done("build")
+    native_cores_phase(args.seed, card)
+    phase_done("native_cores")
     gen = torch.Generator().manual_seed(args.seed)
     fwd = kernel_phase(gen)
     bwd = bwd_kernel_phase(gen)
@@ -10287,19 +10940,24 @@ def main(argv=None) -> int:
     phase_done("moe_serving")
     dp_trained = dp_train_phase(args.seed, card)
     phase_done("dp_train")
-    # seq_expert_two_ranks, tp_pp_two_ranks and t5_moe_two_ranks: their
-    # one-process runs, then every rank job of all three in one spawn of
-    # two gloo ranks.
+    # seq_expert_two_ranks, tp_pp_two_ranks, t5_moe_two_ranks and
+    # spmd_dag: their one-process runs, then every rank job of all four in
+    # one spawn of two gloo ranks.
     ((sp_launches, sp_failures), (tp_pp_launches, tp_pp_failures),
-     (t5_moe_launches, t5_moe_failures)) = two_rank_jobs(
-        args.seed, card, [seq_expert_setup, tp_pp_setup, t5_moe_setup])
+     (t5_moe_launches, t5_moe_failures),
+     (spmd_launches, spmd_failures)) = two_rank_jobs(
+        args.seed, card,
+        [seq_expert_setup, tp_pp_setup, t5_moe_setup, spmd_dag_setup])
     if sp_failures:
         raise AssertionError("seq_expert_two_ranks: " + "; ".join(sp_failures))
     if tp_pp_failures:
         raise AssertionError("tp_pp_two_ranks: " + "; ".join(tp_pp_failures))
     if t5_moe_failures:
         raise AssertionError("t5_moe_two_ranks: " + "; ".join(t5_moe_failures))
-    phase_done("seq_expert_two_ranks + tp_pp_two_ranks + t5_moe_two_ranks")
+    if spmd_failures:
+        raise AssertionError("spmd_dag: " + "; ".join(spmd_failures))
+    phase_done("seq_expert_two_ranks + tp_pp_two_ranks + t5_moe_two_ranks "
+               "+ spmd_dag")
     with tempfile.TemporaryDirectory() as workdir:
         staged_dag_phase(card, workdir)
     phase_done("staged_dag")
@@ -10313,10 +10971,14 @@ def main(argv=None) -> int:
         raise AssertionError("taxi_dag: an attention kernel launched")
     phase_done("taxi_dag")
     with tempfile.TemporaryDirectory() as workdir:
-        bert_dag, production = bert_dag_phase(args.seed, card, workdir)
+        with host_cores_counted() as cores:
+            bert_dag, production = bert_dag_phase(args.seed, card, workdir)
+        check_host_cores("bert_dag", cores, card, rows=BERT_DAG_ROWS)
         phase_done("bert_dag")
-        retrain, pushed = retrain_dag_phase(args.seed, card, workdir,
-                                            production)
+        with host_cores_counted() as cores:
+            retrain, pushed = retrain_dag_phase(args.seed, card, workdir,
+                                                production)
+        check_host_cores("retrain_dag", cores, card, records=True)
         phase_done("retrain_dag")
         guard = fleet_guard_phase(args.seed, card, workdir, production, pushed)
         phase_done("fleet_guard")
@@ -10347,7 +11009,15 @@ def main(argv=None) -> int:
         raise AssertionError("vision phases: an attention kernel launched")
     for name in ("mnist", "resnet"):
         with tempfile.TemporaryDirectory() as workdir:
-            vision_dag_phase(name, args.seed, card, workdir)
+            walls = vision_dag_phase(name, args.seed, card, workdir)
+        if name == "resnet":
+            # The twin imports an .npz (no TFRecord, so no crc): its ingest
+            # is the npz hash split's.
+            print(f"resnet_dag ImportExampleGen [{card}]: "
+                  f"{walls['ImportExampleGen']:.2f} s for {RESNET_DAG_ROWS} rows "
+                  f"({RESNET_DAG_ROWS / walls['ImportExampleGen']:.1f} rows/s); "
+                  f"{RESNET_INGEST_BEFORE_S} s before the host cores "
+                  "(NVIDIA H100 80GB HBM3, 700.00 W)", flush=True)
         phase_done(f"{name}_dag")
     cache.cleanup()
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s",
@@ -10393,6 +11063,11 @@ def main(argv=None) -> int:
             record["name"]]
     bwd[0]["dvec_launches_by_path"]["t5_moe_two_ranks"] = t5_moe_launches[
         "flash_bwd_dvec"]
+    # spmd_dag: each rank's launches in run (ii), the Trainer node under
+    # spmd_sync (its eval forwards on the forward's count).
+    for record in (fwd, *bwd, decode):
+        record["launches_by_path"]["spmd_dag"] = spmd_launches[record["name"]]
+    bwd[0]["dvec_launches_by_path"]["spmd_dag"] = spmd_launches["flash_bwd_dvec"]
     fwd["launches_by_path"]["moe_serving"] = moe_served
     fwd["launches_by_path"]["fleet_guard"] = guard
     fwd["launches_by_path"]["serving_surface"] = surface_fwd

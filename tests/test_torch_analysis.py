@@ -333,8 +333,8 @@ def test_tpp107_duplicate_node_ids(tmp_path):
 
 
 def test_tpp108_retry_policy_under_spmd(tmp_path):
-    """The port's runner still refuses spmd_sync (ROADMAP.md A10); the
-    rule is held on an IR stamped as ``lint --spmd-sync`` stamps it."""
+    """The rule on an IR stamped as ``lint --spmd-sync`` (and the runner
+    under spmd_sync) stamps it."""
     def run(ns, tmp):
         gen = _gen(ns).with_retry_policy(max_attempts=3, base_delay_s=0.1)
         pipeline = _pipeline(ns, [gen, _consumer(ns, gen, name="S",
@@ -362,19 +362,19 @@ def test_tpp108_pipeline_default_policy_flags_every_node(tmp_path):
     got = _both(run, tmp_path)
     assert got["port"] == got["ref"]
     assert {n for _, n, _ in got["port"]} == {"Gen", "S"}
-    # The runtime mirror: the reference's spmd runner refuses the policy;
-    # the port's refuses spmd_sync itself (multi-process runs, A10).
+    # The runtime mirror: both packages' spmd runners refuse the policy.
     from tpu_pipelines.orchestration import LocalDagRunner as RefRunner
     from tpu_pipelines_torch.orchestration import LocalDagRunner
 
-    ns = PKGS["ref"]
-    gen = _gen(ns)
-    with pytest.raises(ValueError, match="spmd_sync is incompatible"):
-        RefRunner(spmd_sync=True).run(_pipeline(
-            ns, [gen, _consumer(ns, gen, name="S", outs={})], tmp_path,
-            retry_policy={"max_attempts": 2, "base_delay_s": 0.1}))
-    with pytest.raises(NotImplementedError, match="A10"):
-        LocalDagRunner(device="cpu", spmd_sync=True)
+    for ns, runner in ((PKGS["ref"], RefRunner(spmd_sync=True)),
+                       (PKGS["port"], LocalDagRunner(device="cpu",
+                                                     spmd_sync=True))):
+        gen = _gen(ns)
+        with pytest.raises(ValueError, match="spmd_sync is incompatible"):
+            runner.run(_pipeline(
+                ns, [gen, _consumer(ns, gen, name="S", outs={})],
+                tmp_path / ns.root,
+                retry_policy={"max_attempts": 2, "base_delay_s": 0.1}))
 
 
 _CLI_PRELUDE = '''
@@ -1548,10 +1548,8 @@ def test_runner_gate_env_var(tmp_path, monkeypatch):
 
 def test_cluster_runner_refuses_before_emitting(tmp_path, monkeypatch):
     """The reference's cluster runner refuses to emit manifests for a
-    pipeline with an ERROR; the port has no cluster runner yet (ROADMAP.md
-    A10), and its gate before anything is emitted is the continuous
-    controller's, which refuses the same pipeline with the same findings
-    before its store exists."""
+    pipeline with an ERROR; the port's refuses it with the same findings,
+    as does the continuous controller's gate, before its store exists."""
     from tpu_pipelines.orchestration import TPUJobRunner, TPUJobRunnerConfig
     from tpu_pipelines_torch.continuous import (
         ContinuousConfig,
@@ -1574,6 +1572,18 @@ def test_cluster_runner_refuses_before_emitting(tmp_path, monkeypatch):
         controller._lint_once(pipeline)
     assert _key(port_err.value.findings) == _key(ref_err.value.findings)
     assert not os.path.exists(pipeline.metadata_path)
+    from tpu_pipelines_torch.orchestration import (
+        GPUJobRunner,
+        GPUJobRunnerConfig,
+    )
+
+    port_out = tmp_path / "port_specs"
+    with pytest.raises(port.A.LintGateError) as gpu_err:
+        GPUJobRunner(GPUJobRunnerConfig(
+            image="img", pipeline_module="/app/p.py",
+            output_dir=str(port_out))).run(pipeline)
+    assert "cluster compile" in str(gpu_err.value) and not port_out.exists()
+    assert _key(gpu_err.value.findings) == _key(ref_err.value.findings)
 
 
 _BAD_MODULE = '''

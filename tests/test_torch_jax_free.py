@@ -25,9 +25,11 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tpu_pipelines",
              "pyarrow")
-# Optional fast paths the reference imports when present; the port runs
-# without them, so importing it must not load them.
-NOT_AT_IMPORT = ("google_crc32c", "array_record")
+# Optional fast paths the reference imports when present, and the YAML
+# library its cluster runner writes manifests with: the port runs without
+# them (its crc32c is its record core's, its manifests JSON text), so
+# importing it must not load them.
+NOT_AT_IMPORT = ("google_crc32c", "array_record", "yaml")
 # What the reference's trainer extras import (clu's TensorBoard writer,
 # which loads TensorFlow; the goodput library): the port writes its event
 # files and computes its badput itself, and the card's machine has none of
@@ -144,7 +146,9 @@ def test_importing_the_port_loads_no_jax_and_no_reference_module():
                    "trainer.data_parallel", "serving.batching",
                    "observability.request_trace", "observability.federation",
                    "observability.metrics_history", "serving.grpc_server",
-                   "serving.prediction_service_pb2", "serving.saved_model"):
+                   "serving.prediction_service_pb2", "serving.saved_model",
+                   "data.native_record", "transform.native_tokenizer",
+                   "run_node", "orchestration.cluster_runner"):
         assert f"tpu_pipelines_torch.{module}" in report["imported"]
     assert "chip_smoke" in report["modules"]
     assert {"retrain_dag_phase", "fleet_guard_phase",
@@ -171,6 +175,25 @@ m = mesh.make_mesh({"data": 1}, device="cpu")
 print(json.dumps({"modules": sorted(sys.modules), "size": m.size,
                   "initialized": dist.is_initialized()}))
 """
+
+
+def test_no_port_source_imports_yaml_or_google_crc32c():
+    """Neither the port nor chip_smoke.py imports the YAML library (the
+    card's machine has none) or the reference's crc32c extension, at import
+    time or inside a function."""
+    offenders = []
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [(os.path.relpath(path, REPO), n) for n in names
+                          if n.split(".")[0] in ("yaml", "google_crc32c")]
+    assert offenders == []
 
 
 def test_torch_distributed_and_the_parallel_modules_load_no_jax():

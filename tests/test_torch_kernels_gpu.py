@@ -1886,3 +1886,45 @@ def test_a_capture_that_cannot_succeed_raises_instead_of_running_eagerly(cuda):
                        match=r"capturing the training step .* step 1 .*input_ids"):
         _graph_train(_train_batches(4), loss_fn=syncing_loss_fn)
     assert len(calls) == 1             # the eager first step, then no other
+
+
+def test_the_host_cores_build_on_the_cards_host_and_the_c_crc_agrees(cuda):
+    """The record and tokenizer cores build with the card host's g++; the C
+    crc32c equals the table version on seeded bytes and the check value."""
+    import numpy as np
+
+    from tpu_pipelines_torch.data import native_record, record_io
+    from tpu_pipelines_torch.transform import native_tokenizer
+
+    native_record.build_seconds()
+    native_tokenizer.build_seconds()
+    data = np.random.default_rng(0).integers(0, 256, 1 << 16,
+                                             dtype=np.uint8).tobytes()
+    for off in range(4):
+        assert record_io._crc32c(data[off:]) == record_io._crc32c_py(data[off:])
+    assert native_record.crc32c(b"123456789") == 0xE3069283
+    ids = native_tokenizer.NativeTokenizer(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "cat"], True).encode_ascii_rows(
+            [b"Cat dog"], 4)
+    assert ids.tolist() == [[2, 4, 1, 3]]
+
+
+def test_two_gloo_ranks_on_the_card_run_one_spmd_node_through_run_node(
+        cuda, tmp_path):
+    """``run_node`` under spmd_sync on the card (A10): two gloo ranks of the
+    one card run one node through ``run_node.main`` on cuda, write into
+    one output dir under process 0's execution id, and process 0
+    publishes one execution."""
+    import torch_dp_worker as w
+
+    got = [r["node"] for r in w.spawn(
+        2, [("node", "torch_spmd_worker:card_run_node",
+             {"home": str(tmp_path / "home")})], str(tmp_path / "out"),
+        timeout_s=120.0)]
+    assert [g["code"] for g in got] == [0, 0]
+    assert got[0]["dirs"] == got[1]["dirs"]
+    assert list(got[0]["dirs"].values()) == [
+        ["device_0", "device_1", "seen_0", "seen_1"]]
+    assert got[0]["executions"] == ["COMPLETE"]
+    assert got[0]["device"] == "cuda 2.0"
+

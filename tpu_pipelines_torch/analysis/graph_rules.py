@@ -2,9 +2,8 @@
 
 The port's copy of ``tpu_pipelines/analysis/graph_rules.py``, over the
 port's IR (the same fields, so both packages give the same findings for
-the same pipeline).  TPP108 reads ``PipelineIR.spmd_sync``, which only a
-caller stamps (``lint --spmd-sync``): the port's runner still refuses
-multi-process runs.
+the same pipeline).  TPP108 reads ``PipelineIR.spmd_sync``, which the
+runner stamps under ``spmd_sync`` and ``lint --spmd-sync`` stamps by hand.
 
 These run in milliseconds on the same IR every runner consumes, so the
 CLI gate, the LocalDagRunner pre-flight, and the cluster runner's

@@ -27,8 +27,9 @@ Trial execution modes:
     another process are not on this process's counters.
   - shard results: ``tuner_trial shard --shard i/k`` writes
     ``shard_i_of_k.json`` under a shard dir, and a Tuner run with
-    ``TPP_TUNER_SHARD_DIR`` set reuses the matching scores.  The cluster
-    runner's pod fan-out is not ported (ROADMAP.md A10).
+    ``TPP_TUNER_SHARD_DIR`` set reuses the matching scores; the cluster
+    runner (``orchestration/cluster_runner.py``) emits one pod per shard
+    between the Tuner's upstreams and the Tuner.
 
 Only rank 0 (``RANK``, default 0) writes the result files; subprocess
 trials are refused when ``WORLD_SIZE`` > 1.
@@ -447,8 +448,8 @@ def load_shard_results(
         "parallel_trials": Parameter(type=int, default=1),
         # Subprocess-isolate even when sequential (crash tolerance).
         "isolate_trials": Parameter(type=bool, default=False),
-        # Shard fan-out degree (0 = none): the executor consumes matching
-        # shard files; the cluster runner's pod fan-out is ROADMAP.md A10.
+        # Shard fan-out degree (0 = none): the cluster runner emits one
+        # trial pod per shard; the executor consumes their shard files.
         "trial_shards": Parameter(type=int, default=0),
     },
     external_input_parameters=("module_file",),

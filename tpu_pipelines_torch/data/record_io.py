@@ -16,13 +16,19 @@ fixed-length multi-value feature a 2-D column; the value count and kind are
 pinned by the first chunk, as in the reference.  A bytes feature that is not
 UTF-8 raises: the ``.npz`` shards keep strings as ``U`` arrays
 (``allow_pickle=False``) and have no binary column (``ROADMAP.md`` C, the
-Examples format).  Every record is parsed in Python; the reference's native
-chunk parser is ``ROADMAP.md`` A24.
+Examples format).
+
+The first chunk of a stream is parsed in Python and pins the schema; each
+later chunk is parsed by the native core (``data/native_record.py`` over
+``csrc/host/record_core.cc``) against those pins, and a chunk the core
+refuses is re-parsed in Python, whose output and errors are the semantics
+(the reference's per-chunk contract).
 
 CRC verification: both masked crc32c fields of every record are verified
-by default (``verify_crc=False`` opts out for trusted re-reads).  The crc32c
-is table-based Python; the reference's ``google_crc32c`` C extension is not
-imported, so the port reads the same on a machine without it.
+by default (``verify_crc=False`` opts out for trusted re-reads), and the
+writers frame with the same function.  The crc32c is the record core's C
+loop (slicing by 8); ``_crc32c_py``, table-driven Python, is its plain
+version.  The reference's ``google_crc32c`` extension is not imported.
 """
 
 from __future__ import annotations
@@ -54,13 +60,21 @@ def _crc32c_table() -> List[int]:
 _CRC32C_TABLE = _crc32c_table()
 
 
-def _crc32c(data: bytes) -> int:
-    """CRC-32C (Castagnoli), reflected, table-driven."""
+def _crc32c_py(data: bytes) -> int:
+    """CRC-32C (Castagnoli), reflected, table-driven: the plain version of
+    the record core's ``rec_crc32c``."""
     table = _CRC32C_TABLE
     crc = 0xFFFFFFFF
     for byte in data:
         crc = (crc >> 8) ^ table[(crc ^ byte) & 0xFF]
     return crc ^ 0xFFFFFFFF
+
+
+def _crc32c(data: bytes) -> int:
+    """CRC-32C (Castagnoli) through the record core (built at first use)."""
+    from tpu_pipelines_torch.data import native_record
+
+    return native_record.crc32c(data)
 
 
 def _masked_crc32c(data: bytes) -> int:
@@ -328,6 +342,7 @@ def _column(values: list, name: str, pins: Dict[str, dict]) -> np.ndarray:
 
 
 def _chunk(raw: List[bytes], pins: Dict[str, dict], order: List[str]) -> Table:
+    """The Python decode: per-record wire parse, then ``_column``."""
     rows = [parse_tf_example(rec) for rec in raw]
     if not order:
         order.extend(rows[0])
@@ -342,18 +357,64 @@ def _chunk(raw: List[bytes], pins: Dict[str, dict], order: List[str]) -> Table:
     })
 
 
+def _native_chunk(raw: List[bytes], pins: Dict[str, dict],
+                  order: List[str]) -> Optional[Table]:
+    """The record core's parse against the pinned schema; None on any
+    deviation, and the caller re-parses the chunk in Python.  A bytes
+    feature becomes a ``U`` column; bytes that are not UTF-8 give None, so
+    the Python parse raises its contextual error."""
+    from tpu_pipelines_torch.data import native_record
+
+    schema = [(name, pins[name]["kind"], pins[name]["n"]) for name in order]
+    parsed = native_record.parse_chunk(raw, schema)
+    if parsed is None:
+        return None
+    cols: Dict[str, np.ndarray] = {}
+    for name, kind, n in schema:
+        if kind == 0:
+            bdata, boffsets = parsed[name]
+            buf = bdata.tobytes()
+            bounds = boffsets.tolist()
+            try:
+                col = np.asarray(
+                    [buf[lo:hi].decode("utf-8")
+                     for lo, hi in zip(bounds[:-1], bounds[1:])], dtype="U")
+            except UnicodeDecodeError:
+                return None
+        else:
+            col = parsed[name].reshape(-1)
+        cols[name] = col if n == 1 else col.reshape(len(raw), n)
+    native_record._count(native_records=len(raw), native_chunks=1)
+    return Table(cols)
+
+
 def tf_example_batches(
     records: Iterable[bytes], batch_rows: int = 8192
 ) -> Iterator[Table]:
     """Parse a record stream into tables of at most ``batch_rows`` rows.
-    The first chunk pins the schema (feature kinds and value counts)."""
+    The first chunk is parsed in Python and pins the schema (feature kinds
+    and value counts); each later chunk goes through the record core, and
+    one it refuses is parsed in Python."""
+    from tpu_pipelines_torch.data import native_record
+
     pins: Dict[str, dict] = {}
     order: List[str] = []
     raw: List[bytes] = []
+
+    def flush() -> Table:
+        if not order:
+            native_record._count(pin_chunks=1, pin_records=len(raw))
+            return _chunk(raw, pins, order)
+        table = _native_chunk(raw, pins, order)
+        if table is None:
+            native_record._count(python_chunks=1)
+            table = _chunk(raw, pins, order)
+        return table
+
     for rec in records:
         raw.append(rec)
         if len(raw) >= batch_rows:
-            yield _chunk(raw, pins, order)
+            yield flush()
             raw = []
     if raw:
-        yield _chunk(raw, pins, order)
+        yield flush()

@@ -1,6 +1,10 @@
-"""Orchestration: the local DAG runner (``local_runner.py``).  The cluster
-runner is not ported yet (``ROADMAP.md`` A10)."""
+"""Orchestration: the local DAG runner (``local_runner.py``) and the
+compile-only cluster runner (``cluster_runner.py``, GPU manifests)."""
 
+from tpu_pipelines_torch.orchestration.cluster_runner import (  # noqa: F401
+    GPUJobRunner,
+    GPUJobRunnerConfig,
+)
 from tpu_pipelines_torch.orchestration.local_runner import (  # noqa: F401
     LocalDagRunner,
     NodeResult,

@@ -86,10 +86,21 @@ port serves the federated scrape: its own registry merged with every
 spooled snapshot (fork-pool workers, trainers, fleet replicas), labelled
 by host, replica and tenant (``observability/federation.py``).
 
-Not ported, and refused with ``NotImplementedError`` naming the
-``ROADMAP.md`` item: ``spmd_sync`` multi-process runs (A10); the XLA
-compile cache (no counterpart: the port's kernels build once per
-checkout).
+Multi-process runs (``spmd_sync=True``, what ``run_node`` uses when the env
+describes a process group): every process runs the one selected node, and
+each store-derived decision is process 0's, broadcast over the default
+process group (``parallel/distributed.py``): input resolution, the cache
+verdict, a replayed or fresh Cond verdict, a resolver's answer and the
+execution id in the output URIs (process 0 wipes stale output dirs before
+that broadcast).  After the executor a status all-gather is the barrier
+before process 0 fingerprints and publishes; a failure on any process fails
+the node on every process, and the workers return without publishing (their
+store is a scratch copy).  Under ``spmd_sync`` the runner refuses in-runner
+retries (``max_retries``, IR-carried policies), ``resume_from`` and a
+selection of more than one node, runs no lint pre-flight and no run trace,
+keeps one worker and enforces no deadline (the substrate's does).  "Process
+0" is the global rank 0 of the default group.  The reference's XLA compile
+cache has no counterpart: the port's kernels build once per checkout.
 """
 
 from __future__ import annotations
@@ -118,6 +129,7 @@ from tpu_pipelines_torch.dsl.pipeline import Pipeline
 from tpu_pipelines_torch.metadata import open_store
 from tpu_pipelines_torch.metadata.store import MetadataStore, StoreUnavailableError
 from tpu_pipelines_torch.observability import trace as _trace
+from tpu_pipelines_torch.parallel import distributed as _dist
 from tpu_pipelines_torch.metadata.types import (
     Artifact,
     ArtifactState,
@@ -325,10 +337,43 @@ class _LaunchPlan:
     )
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"LocalDagRunner: {what} is not ported yet (ROADMAP.md {item})"
-    )
+def _spmd_sync_inputs(
+    inputs: Dict[str, List[Artifact]],
+) -> Dict[str, List[Artifact]]:
+    """Every process's resolved inputs replaced by process 0's.
+
+    Input resolution reads the metadata store, and workers hold a
+    point-in-time snapshot of it: an upstream published between the
+    snapshot and process 0's read would otherwise feed the processes
+    different artifact URIs for the same training step."""
+    payload = {
+        key: [
+            {
+                "type_name": a.type_name,
+                "uri": a.uri,
+                "id": a.id,
+                "fingerprint": a.fingerprint,
+                "properties": a.properties,
+            }
+            for a in arts
+        ]
+        for key, arts in inputs.items()
+    }
+    synced = _dist.broadcast_json(payload)
+    return {
+        key: [
+            Artifact(
+                type_name=d["type_name"],
+                uri=d["uri"],
+                id=d["id"],
+                state=ArtifactState.LIVE,
+                properties=d["properties"],
+                fingerprint=d["fingerprint"],
+            )
+            for d in arts
+        ]
+        for key, arts in synced.items()
+    }
 
 
 class LocalDagRunner:
@@ -344,6 +389,9 @@ class LocalDagRunner:
     ``max_parallel_nodes`` bounds the scheduler's worker pool: None = env
     ``TPP_MAX_PARALLEL_NODES`` if set, else the DAG's root count; "tpu"
     resource-class nodes are serialized against each other regardless.
+
+    ``spmd_sync`` runs one node on every process of the default process
+    group, with process 0's store-derived decisions (module docstring).
     """
 
     def __init__(
@@ -353,8 +401,14 @@ class LocalDagRunner:
         device: Any = "cuda",
         spmd_sync: bool = False,
     ):
-        if spmd_sync:
-            raise _unported("spmd_sync (multi-process runs)", "A10")
+        self.spmd_sync = spmd_sync
+        if spmd_sync and max_retries:
+            raise ValueError(
+                "spmd_sync is incompatible with in-runner retries: process 0's"
+                " clean-slate wipe would race workers still in the previous"
+                " attempt; use substrate-level retries (Argo retryStrategy /"
+                " JobSet restarts) instead"
+            )
         self.max_retries = max_retries
         self.max_parallel_nodes = max_parallel_nodes
         self.device = resolve_device(device)
@@ -390,6 +444,12 @@ class LocalDagRunner:
         descendants execute.  Refused when the compiled DAG's fingerprint no
         longer matches the one recorded for that run.
         """
+        if resume_from and self.spmd_sync:
+            raise ValueError(
+                "resume_from is incompatible with spmd_sync: resume "
+                "decisions are store-derived and per-process; use "
+                "substrate-level restart (Argo retry) for multi-process nodes"
+            )
         if resume_from and (from_nodes or to_nodes):
             raise ValueError(
                 "resume_from is incompatible with from_nodes/to_nodes: a "
@@ -402,9 +462,36 @@ class LocalDagRunner:
                 "run_id, not both"
             )
         ir = Compiler().compile(pipeline)
-        from tpu_pipelines_torch.analysis import resolve_lint_level
+        if self.spmd_sync:
+            # An in-runner retry would wipe the shared output dirs while
+            # peers are still inside the previous attempt's collectives
+            # (lint rule TPP108).  Only IR-carried policies are refused: the
+            # env rung is ignored under spmd_sync (_node_retry_policy).
+            ir.spmd_sync = True
+            retrying = sorted(
+                n.id for n in ir.nodes
+                if (
+                    p := RetryPolicy.from_json(
+                        getattr(n, "retry_policy", None)
+                    ) or RetryPolicy.from_json(
+                        getattr(ir, "default_retry_policy", None)
+                    )
+                ) is not None and p.max_attempts > 1 and not n.is_resolver
+            )
+            if retrying:
+                raise ValueError(
+                    f"spmd_sync is incompatible with in-runner retry "
+                    f"policies (configured on {retrying}); use "
+                    "substrate-level retries (Argo retryStrategy / JobSet "
+                    "restarts) instead"
+                )
+        lint_level = None
+        if not self.spmd_sync:
+            # Under spmd_sync every process would lint redundantly; the
+            # cluster runner gated the IR when it emitted the manifests.
+            from tpu_pipelines_torch.analysis import resolve_lint_level
 
-        lint_level = resolve_lint_level(lint)
+            lint_level = resolve_lint_level(lint)
         if lint_level:
             from tpu_pipelines_torch.analysis import (
                 analyze_pipeline,
@@ -416,6 +503,22 @@ class LocalDagRunner:
                 f"LocalDagRunner pre-flight ({pipeline.name})",
             )
         selected = self._select_nodes(ir, from_nodes, to_nodes)
+        if self.spmd_sync and len(selected) != 1:
+            # Every process must issue the same collectives in the same
+            # order; a failed-upstream skip issues none, so divergent
+            # outcomes over several nodes would leave peers waiting.
+            raise ValueError(
+                "spmd_sync requires a single-node partial run "
+                f"(from_nodes=to_nodes=[node]); selected {sorted(selected)}"
+            )
+        if self.spmd_sync and any(
+            self._node_timeout_s(n, ir) > 0 for n in ir.nodes
+        ):
+            log.warning(
+                "execution_timeout_s is not enforced under spmd_sync (the "
+                "schedule must stay collective-deterministic); rely on the "
+                "substrate deadline (activeDeadlineSeconds)"
+            )
         executors = {c.id: c for c in pipeline.components}
         store = open_store(pipeline.metadata_path)
         dag_fp = ir.fingerprint()
@@ -433,11 +536,15 @@ class LocalDagRunner:
             )
             store.put_context(pipeline_ctx)
             store.put_context(run_ctx)
-            _trace.install_log_correlation()
-            _trace.set_run_id(run_id)
-            recorder = _trace.TraceRecorder.maybe_create(
-                _trace.run_trace_dir(ir.pipeline_root, run_id), run_id
-            )
+            # No run trace under spmd_sync: every process would append to
+            # the same shared file.
+            recorder = None
+            if not self.spmd_sync:
+                _trace.install_log_correlation()
+                _trace.set_run_id(run_id)
+                recorder = _trace.TraceRecorder.maybe_create(
+                    _trace.run_trace_dir(ir.pipeline_root, run_id), run_id
+                )
             result = RunResult(pipeline_name=pipeline.name, run_id=run_id)
             # The adopted nodes, in topo order; they settle before the first
             # dispatch (_run_nodes).
@@ -503,7 +610,10 @@ class LocalDagRunner:
     # ------------------------------------------------------------ internals
 
     def _effective_parallelism(self, ir: PipelineIR) -> int:
-        """Scheduler pool size: explicit arg > env > DAG roots."""
+        """Scheduler pool size: explicit arg > env > DAG roots; always 1
+        under spmd_sync, whose schedule must not depend on local timing."""
+        if self.spmd_sync:
+            return 1
         if self.max_parallel_nodes is not None:
             return max(1, int(self.max_parallel_nodes))
         env = os.environ.get("TPP_MAX_PARALLEL_NODES", "")
@@ -530,7 +640,11 @@ class LocalDagRunner:
     def _node_retry_policy(
         self, node: NodeIR, ir: PipelineIR
     ) -> Optional[RetryPolicy]:
-        """Effective executor retry policy (None = single attempt)."""
+        """Effective executor retry policy (None = single attempt); never
+        one under spmd_sync, whose retries are the substrate's (an env
+        ``TPP_RETRY_*`` default must not arm one across processes)."""
+        if self.spmd_sync:
+            return None
         policy = RetryPolicy.from_json(getattr(node, "retry_policy", None))
         if policy is None:
             policy = RetryPolicy.from_json(
@@ -721,8 +835,12 @@ class LocalDagRunner:
         """Verdict for a node outside a partial run's bounds: its newest
         Cond skip replays as ``COND_SKIPPED`` (directly gated or cascaded:
         both publish the CANCELED record), anything else settles
-        ``SKIPPED`` with its latest LIVE outputs from prior runs."""
-        if self._latest_is_cond_skip(store, node):
+        ``SKIPPED`` with its latest LIVE outputs from prior runs.  Under
+        spmd_sync the replayed skip is process 0's."""
+        replay_skip = self._latest_is_cond_skip(store, node)
+        if self.spmd_sync:
+            replay_skip = bool(_dist.broadcast_int(1 if replay_skip else 0))
+        if replay_skip:
             return NodeResult(node_id=node.id, status="COND_SKIPPED")
         return NodeResult(
             node_id=node.id, status="SKIPPED",
@@ -792,6 +910,7 @@ class LocalDagRunner:
         runtime_parameters: Dict[str, Any],
         contexts: List[Context],
         publish_lock: threading.Lock,
+        spmd_sync: bool = False,
     ) -> Optional["NodeResult"]:
         """Cond verdict for a node whose upstreams all settled without
         failure: COND_SKIPPED when a predicate fails or an upstream was
@@ -806,6 +925,7 @@ class LocalDagRunner:
 
         cascade = any(u in cond_skipped for u in node.upstream)
         unmet: List[Any] = []
+        cond_error: Optional[str] = None
         if node.conditions and not cascade:
             try:
                 unmet = [
@@ -813,23 +933,38 @@ class LocalDagRunner:
                     if not evaluate_condition(c, produced, runtime_parameters)
                 ]
             except ConditionUnresolvedError as e:
-                return NodeResult(
-                    node_id=node.id, status="FAILED", error=str(e),
-                )
-        if not (cascade or unmet):
+                cond_error = str(e)
+        skip = cascade or bool(unmet)
+        if spmd_sync and (node.conditions or cascade):
+            # Process 0's verdict is authoritative, or divergent snapshots
+            # would leave some processes in the executor's collectives
+            # while others skipped.
+            verdict = _dist.broadcast_int(
+                2 if cond_error else (1 if skip else 0))
+            skip = verdict == 1
+            if verdict == 2 and cond_error is None:
+                cond_error = ("condition unresolved on process 0 (producer "
+                              "has no published outputs)")
+            elif verdict != 2:
+                cond_error = None
+        if cond_error:
+            return NodeResult(node_id=node.id, status="FAILED",
+                              error=cond_error)
+        if not skip:
             return None
         log.info(
             "node %s: condition not met%s; skipping",
             node.id, "" if cascade else f" ({unmet})",
         )
-        ex = Execution(
-            type_name=node.component_type,
-            node_id=node.id,
-            state=ExecutionState.CANCELED,
-            properties={"cond_skipped": True, "unmet_conditions": unmet},
-        )
-        with publish_lock:
-            store.publish_execution(ex, {}, {}, contexts)
+        if not spmd_sync or _dist.process_index() == 0:
+            ex = Execution(
+                type_name=node.component_type,
+                node_id=node.id,
+                state=ExecutionState.CANCELED,
+                properties={"cond_skipped": True, "unmet_conditions": unmet},
+            )
+            with publish_lock:
+                store.publish_execution(ex, {}, {}, contexts)
         return NodeResult(node_id=node.id, status="COND_SKIPPED")
 
     def _run_nodes(
@@ -971,6 +1106,7 @@ class LocalDagRunner:
                             nr = self._cond_outcome(
                                 store, node, produced, cond_skipped,
                                 runtime_parameters, contexts, publish_lock,
+                                spmd_sync=self.spmd_sync,
                             )
                     except StoreUnavailableError as e:
                         nr = NodeResult(
@@ -1028,6 +1164,12 @@ class LocalDagRunner:
                     node_extras["cancel_event"] = prepared.cancel
                     telemetry.heartbeat(nid, dispatched=True)
                     pool.submit(worker, prepared, node_extras)
+                    if self.spmd_sync:
+                        # The worker's collectives must not overlap this
+                        # thread's (a later node's store verdict): settle
+                        # nothing more until it returns, in topo order as
+                        # the reference's sequential loop.
+                        break
                 if progressed:
                     continue
                 if not in_flight:
@@ -1178,12 +1320,24 @@ class LocalDagRunner:
                     store, ir, node, all_ctx, t0, runtime_parameters
                 )
 
+        resolve_error = ""
         try:
             inputs = self._resolve_inputs(node, produced)
         except KeyError as e:
+            inputs = {}
+            resolve_error = f"input resolution failed: {e}"
+        if self.spmd_sync:
+            # Process 0's resolution is authoritative: a worker that failed
+            # (or resolved otherwise) against its snapshot takes process
+            # 0's artifacts; when process 0 failed, every process fails.
+            if _dist.broadcast_int(0 if resolve_error else 1):
+                inputs = _spmd_sync_inputs(inputs)
+                resolve_error = ""
+            elif not resolve_error:
+                resolve_error = "input resolution failed on process 0"
+        if resolve_error:
             return NodeResult(
-                node_id=node.id, status="FAILED",
-                error=f"input resolution failed: {e}",
+                node_id=node.id, status="FAILED", error=resolve_error,
             )
         props = {
             k: resolve_property(v, runtime_parameters)
@@ -1220,6 +1374,23 @@ class LocalDagRunner:
         )
 
         cached = store.get_cached_outputs(cache_key) if enable_cache else None
+        if self.spmd_sync:
+            # Every process takes process 0's cache verdict, so none
+            # executes (and waits in collectives) while process 0 takes the
+            # cached shortcut.  A worker's snapshot is a subset of the live
+            # store: a hit on process 0 alone is the case handled here.
+            hit = _dist.broadcast_int(1 if cached is not None else 0)
+            if hit and cached is None:
+                log.info(
+                    "node %s: process 0 reported a cache hit not in this "
+                    "worker's snapshot; skipping execution", node.id,
+                )
+                return NodeResult(
+                    node_id=node.id, status="CACHED",
+                    wall_clock_s=time.time() - t0,
+                )
+            if not hit:
+                cached = None
         if cached is not None:
             ex = Execution(
                 type_name=node.component_type,
@@ -1256,15 +1427,29 @@ class LocalDagRunner:
             store.put_execution(ex)
             for ctx in all_ctx:
                 store.associate(ctx.id, ex.id)
+        # Output URIs embed the execution id; under spmd_sync process 0's
+        # is authoritative, so every process writes one shared tree.
+        # Process 0 wipes a stale dir BEFORE the broadcast releases the
+        # workers: afterwards nobody may delete under the shared URIs.
+        uri_ex_id = ex.id
+        if self.spmd_sync:
+            if _dist.process_index() == 0:
+                for key in node.outputs:
+                    stale = os.path.join(
+                        ir.pipeline_root, node.id, key, str(ex.id))
+                    if os.path.isdir(stale):
+                        shutil.rmtree(stale)
+            uri_ex_id = _dist.broadcast_int(ex.id)
         outputs: Dict[str, List[Artifact]] = {}
         for key, type_name in node.outputs.items():
-            uri = os.path.join(ir.pipeline_root, node.id, key, str(ex.id))
+            uri = os.path.join(ir.pipeline_root, node.id, key, str(uri_ex_id))
             outputs[key] = [Artifact(type_name=type_name, uri=uri)]
         return _LaunchPlan(
             node=node, component=component, inputs=inputs, props=props,
             external_fps=external_fps, execution=ex, outputs=outputs,
             all_ctx=all_ctx, t0=t0,
-            deadline_s=self._node_timeout_s(node, ir),
+            # Under spmd_sync no watchdog: the substrate's deadline holds.
+            deadline_s=0.0 if self.spmd_sync else self._node_timeout_s(node, ir),
             retry_policy=self._node_retry_policy(node, ir),
         )
 
@@ -1303,7 +1488,10 @@ class LocalDagRunner:
                     for arts in outputs.values():
                         for a in arts:
                             a.uri = allocated_uris[id(a)]
-                            if os.path.isdir(a.uri):
+                            # spmd_sync: process 0 wiped the shared dirs
+                            # before the id broadcast; deleting here would
+                            # race the other processes.
+                            if not self.spmd_sync and os.path.isdir(a.uri):
                                 shutil.rmtree(a.uri)  # clean slate on retry
                             os.makedirs(a.uri, exist_ok=True)
                     ctx = ExecutorContext(
@@ -1321,6 +1509,7 @@ class LocalDagRunner:
                         # Fault hook: raise-in-executor / cooperative hang.
                         _faults.in_executor(node.id, plan.cancel)
                         ret = executor(ctx)
+                        _faults.after_executor(node.id)
                         tsp["ok"] = True
                     extra_props = dict(ret or {})
                     error = ""
@@ -1362,6 +1551,29 @@ class LocalDagRunner:
                 finally:
                     shutil.rmtree(tmp, ignore_errors=True)
 
+        if self.spmd_sync:
+            # The status all-gather is also the barrier that lands every
+            # process's writes before process 0 fingerprints the shared
+            # dirs.  A failure anywhere fails the node everywhere: else
+            # process 0 would publish COMPLETE (and a cache entry) over an
+            # output a worker never finished.
+            failed_on = [i for i, bad in enumerate(
+                _dist.allgather_int(1 if error else 0)) if bad]
+            if failed_on and not error:
+                error = f"executor failed on process(es) {failed_on}"
+            if _dist.process_index() != 0:
+                # A worker's store is a scratch copy: no fingerprint, no
+                # publish.
+                for arts in outputs.values():
+                    for a in arts:
+                        a.uri = allocated_uris[id(a)]
+                return NodeResult(
+                    node_id=node.id,
+                    status="FAILED" if error else "COMPLETE",
+                    outputs={} if error else outputs, error=error,
+                    wall_clock_s=time.time() - plan.t0,
+                    retries=attempts - 1,
+                )
         wall = time.time() - plan.t0
         ex.properties.update(extra_props)
         ex.properties.update(
@@ -1447,8 +1659,8 @@ class LocalDagRunner:
             return f"metadata store unavailable during publish: {e}"
         return None
 
-    @staticmethod
     def _run_resolver_node(
+        self,
         store: MetadataStore,
         ir: PipelineIR,
         node: NodeIR,
@@ -1466,6 +1678,8 @@ class LocalDagRunner:
             k: resolve_property(v, runtime_parameters)
             for k, v in node.exec_properties.items()
         }
+        error = ""
+        outputs: Dict[str, List[Artifact]] = {}
         try:
             outputs = resolve_artifacts(
                 store,
@@ -1477,9 +1691,16 @@ class LocalDagRunner:
                 extra=props,
             )
         except Exception:
-            return NodeResult(
-                node_id=node.id, status="FAILED", error=traceback.format_exc()
-            )
+            error = traceback.format_exc()
+        if self.spmd_sync:
+            # Process 0's store view is authoritative (snapshot skew).
+            if _dist.broadcast_int(0 if error else 1):
+                outputs = _spmd_sync_inputs(outputs)
+                error = ""
+            elif not error:
+                error = "resolver failed on process 0"
+        if error:
+            return NodeResult(node_id=node.id, status="FAILED", error=error)
         resolved_ids = sorted(a.id for arts in outputs.values() for a in arts)
         wall = time.time() - t0
         ex = Execution(
@@ -1492,13 +1713,19 @@ class LocalDagRunner:
                 "wall_clock_s": round(wall, 4),
             },
         )
-        store.publish_execution(ex, {}, outputs, all_ctx)
+        if not self.spmd_sync or _dist.process_index() == 0:
+            store.publish_execution(ex, {}, outputs, all_ctx)
+        ex_id = ex.id
+        if self.spmd_sync:
+            # Only process 0 published: its id is the one in the shared
+            # store, so every process's result carries it.
+            ex_id = _dist.broadcast_int(ex_id)
         log.info(
             "node %s: RESOLVED %s (execution %d)",
-            node.id, resolved_ids or "nothing", ex.id,
+            node.id, resolved_ids or "nothing", ex_id,
         )
         return NodeResult(
-            node_id=node.id, status="COMPLETE", execution_id=ex.id,
+            node_id=node.id, status="COMPLETE", execution_id=ex_id,
             outputs=outputs, wall_clock_s=wall,
         )
 

@@ -11,15 +11,27 @@ from the reference's environment variables (``TPP_COORDINATOR_ADDRESS``,
 ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) when the ``TPP_*`` ones
 are absent.  The reference's ``cpu_devices_per_process`` has no
 counterpart: one process is one device.
+
+The runner's collectives (``broadcast_int``, ``broadcast_json``,
+``allgather_int``, ``barrier``) are the counterparts of the reference's
+``multihost_utils`` calls under ``spmd_sync``: they run over the default
+process group, on CPU tensors for gloo and, for NCCL, on the card the
+process joined the group on (recorded then: the runner issues them from a
+worker thread, whose current device is not the process's).  One card runs
+two ranks over gloo only (NCCL refuses a second rank on a device), so the
+NCCL branch is held by reading and by a CPU test with a stand-in group,
+not by a run.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import json
 import logging
 import os
-from typing import Optional
+import threading
+from typing import Any, Dict, List, Optional
 
 log = logging.getLogger("tpu_pipelines_torch.distributed")
 
@@ -199,6 +211,7 @@ def maybe_initialize_from_env(
     import torch
     import torch.distributed as dist
 
+    global _JOINED_CUDA_INDEX
     on_cuda = torch.device(device).type == "cuda"
     if not dist.is_initialized():
         if on_cuda:
@@ -215,9 +228,123 @@ def maybe_initialize_from_env(
             f"distributed init: expected {cfg.num_processes} processes, "
             f"the process group has {dist.get_world_size()}"
         )
+    if dist.get_rank() != cfg.process_id:
+        raise RuntimeError(
+            f"distributed init: the env names rank {cfg.process_id}, the "
+            f"process group's rank is {dist.get_rank()}"
+        )
+    if on_cuda:
+        # The calling thread's device: the one set above, or the caller's
+        # when it made the group.  The runner's worker threads start on
+        # device 0, so the collectives read this and not theirs.
+        _JOINED_CUDA_INDEX = torch.cuda.current_device()
     log.info(
         "joined process group %s as rank %d/%d (%s)",
         cfg.coordinator_address, cfg.process_id, cfg.num_processes,
         dist.get_backend(),
     )
     return cfg
+
+
+# ---------------------------------------------------- runner collectives
+
+# The card this process drives, recorded when it joins the group on CUDA.
+_JOINED_CUDA_INDEX: Optional[int] = None
+
+_COLLECTIVES: Dict[str, int] = {"broadcast": 0, "allgather": 0, "barrier": 0}
+_COLLECTIVES_LOCK = threading.Lock()
+
+
+def _issued(kind: str) -> None:
+    with _COLLECTIVES_LOCK:
+        _COLLECTIVES[kind] += 1
+
+
+def collectives_issued() -> Dict[str, int]:
+    """The runner collectives this process issued since the last reset
+    (``broadcast_json`` is two broadcasts)."""
+    with _COLLECTIVES_LOCK:
+        return dict(_COLLECTIVES)
+
+
+def reset_collectives_issued() -> None:
+    with _COLLECTIVES_LOCK:
+        for kind in _COLLECTIVES:
+            _COLLECTIVES[kind] = 0
+
+
+def process_index() -> int:
+    """This process's global rank in the default group; 0 without one."""
+    return process_topology()[0]
+
+
+def _collective_device():
+    """Where the default group's backend takes its tensors: for NCCL the
+    card this process joined the group on (held by reading: one card runs
+    two ranks over gloo only), the CPU otherwise.  Not the calling thread's
+    current device: the runner issues its collectives from a worker thread,
+    which starts on device 0 whatever the process drives."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.get_backend() != "nccl":
+        return torch.device("cpu")
+    if _JOINED_CUDA_INDEX is not None:
+        return torch.device("cuda", _JOINED_CUDA_INDEX)
+    # A group the caller made without maybe_initialize_from_env: the env's
+    # local rank, else the rank modulo the host's cards.
+    local = os.environ.get(ENV_LOCAL_RANK)
+    return torch.device("cuda", int(local) if local is not None else
+                        dist.get_rank() % max(1, torch.cuda.device_count()))
+
+
+def broadcast_int(value: int) -> int:
+    """Process 0's ``value`` on every process (one broadcast)."""
+    import torch
+    import torch.distributed as dist
+
+    t = torch.tensor([int(value)], dtype=torch.int64,
+                     device=_collective_device())
+    dist.broadcast(t, src=0)
+    _issued("broadcast")
+    return int(t.item())
+
+
+def broadcast_json(obj: Any) -> Any:
+    """Process 0's JSON-serializable ``obj`` on every process: its length,
+    then the bytes padded to it (workers do not know the size up front)."""
+    import torch
+    import torch.distributed as dist
+
+    data = json.dumps(obj).encode()
+    n = broadcast_int(len(data))
+    buf = torch.zeros(n, dtype=torch.uint8)
+    own = torch.frombuffer(bytearray(data), dtype=torch.uint8) if data else buf
+    buf[: min(n, len(data))] = own[:n]
+    buf = buf.to(_collective_device())
+    dist.broadcast(buf, src=0)
+    _issued("broadcast")
+    return json.loads(bytes(buf.cpu().numpy()).decode())
+
+
+def allgather_int(value: int) -> List[int]:
+    """Every process's ``value``, in rank order."""
+    import torch
+    import torch.distributed as dist
+
+    device = _collective_device()
+    mine = torch.tensor([int(value)], dtype=torch.int64, device=device)
+    out = [torch.zeros_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(out, mine)
+    _issued("allgather")
+    return [int(t.item()) for t in out]
+
+
+def barrier() -> None:
+    """Every process of the default group reaches this point before any
+    leaves it (an all-reduce of one element, on the backend's device)."""
+    import torch
+    import torch.distributed as dist
+
+    dist.all_reduce(torch.zeros(1, device=_collective_device()))
+    _issued("barrier")

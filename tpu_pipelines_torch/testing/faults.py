@@ -8,6 +8,9 @@ preemptible fleet produces, injected at the exact point where they occur.
   kind                 fires at
   ==================== =====================================================
   RAISE                inside the executor attempt (a transient executor bug)
+  RAISE_AFTER          inside the executor attempt, once the executor
+                       returned (a process of a multi-process node that
+                       fails after its collectives, writing its outputs)
   HANG                 inside the executor attempt; blocks on the runner's
                        cancel event (a stuck ``urlopen``), released by the
                        deadline watchdog, so a hang leaves no thread behind
@@ -64,6 +67,7 @@ from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 
 RAISE = "raise"
+RAISE_AFTER = "raise_after"
 HANG = "hang"
 CRASH_BEFORE_PUBLISH = "crash_before_publish"
 CRASH_AFTER_PUBLISH = "crash_after_publish"
@@ -85,6 +89,7 @@ REPLICA_KEY = "__replica__"
 # kind -> the hook that triggers it.
 _KIND_TO_POINT = {
     RAISE: "in_executor",
+    RAISE_AFTER: "after_executor",
     HANG: "in_executor",
     TRANSIENT_EXECUTOR_ERROR: "in_executor",
     CRASH_BEFORE_PUBLISH: "before_publish",
@@ -258,6 +263,17 @@ def in_executor(node_id: str, cancel_event: Optional[threading.Event]) -> None:
         f"{fault.message} (hang "
         f"{'cancelled by watchdog' if released else 'hit safety ceiling'})"
     )
+
+
+def after_executor(node_id: str) -> None:
+    """Worker thread, inside the executor attempt, after the real fn."""
+    plan = _ACTIVE
+    if plan is None:
+        return
+    fault = plan._take(node_id, "after_executor")
+    if fault is not None:
+        plan.record(node_id, "raise_after")
+        raise InjectedFault(fault.message)
 
 
 def before_publish(node_id: str) -> None:

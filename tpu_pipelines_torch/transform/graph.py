@@ -23,8 +23,11 @@ The numeric analyzers (moments for ``z_score``, min/max for
 caller passes (``analyze_chunks(..., device=...)``), numpy float64 without
 one.  The reference reduced in f32 on a TPU, which has no f64; the H100
 has, so the card's states equal the host's up to the order of the sums
-(``ROADMAP.md`` C).  Tokenization runs the reference's Python engine (its
-native C++ counter and process pools are not ported).
+(``ROADMAP.md`` C).  Tokenization runs as the reference's: the native core
+(``transform/native_tokenizer.py`` over ``csrc/host/tokenizer_core.cc``)
+counts and encodes the ASCII rows, the Python engine the others, and a
+process pool of the Python engine takes a column whose rows are mostly not
+ASCII.
 """
 
 from __future__ import annotations
@@ -679,13 +682,62 @@ def _acc_update(
 
 
 def _count_pretokens_into(acc: Dict[str, Any], col, lowercase: bool) -> None:
-    """Accumulate the vocab-build token counts for one chunk (the
-    reference's Python engine; its native counter and process pool are not
-    ported)."""
+    """Accumulate the vocabulary-build token counts for one chunk: the
+    native counter for ASCII rows (the counts stay in its hash map until
+    finalize), Python's unicode-exact pretokenizer for the others.  The
+    reference's process pool of the Python counter serves a build without
+    the native core, which the port does not have (a failed build
+    raises)."""
+    from tpu_pipelines_torch.transform import native_tokenizer
+
+    native = acc.get("_native_counter")
+    if native is None:
+        native = acc["_native_counter"] = native_tokenizer.NativeTokenCounter(
+            lowercase)
+    strs = _tokenize_stringify(col)
+    # All-ASCII fast path: the U-dtype UCS4 buffer crosses the FFI as it is.
+    if native.add_unicode_array(strs):
+        return
+    ascii_rows, others = _split_ascii_rows(col, strs=strs)
+    native.add_ascii_rows(ascii_rows)
     counts = acc["counts"]
-    for text in col:
+    for text in others:
         for tok in _pretokenize(text, lowercase):
             counts[tok] = counts.get(tok, 0) + 1
+    native_tokenizer._count(count_python_rows=len(others))
+
+
+def _tokenize_stringify(col) -> np.ndarray:
+    """Per-element ``str(value)`` as a U-dtype array: the exact text the
+    per-row Python engine tokenizes (floats keep their decimal text, None
+    becomes "")."""
+    arr = np.asarray(col)
+    if arr.dtype == object:
+        # None pretokenizes to no tokens ("" in the Python engine).
+        mask = np.frompyfunc(lambda x: x is None, 1, 1)(arr).astype(bool)
+        if mask.any():
+            arr = arr.copy()
+            arr[mask] = ""
+    return np.asarray(arr.ravel(), dtype="U")
+
+
+def _split_ascii_rows(col, strs: Optional[np.ndarray] = None):
+    """(ascii_rows: List[bytes], other_texts: List[str]) for the native
+    routing: one vectorized encode for an all-ASCII column, row by row
+    otherwise."""
+    if strs is None:
+        strs = _tokenize_stringify(col)
+    try:
+        return [bytes(b) for b in np.char.encode(strs, "ascii")], []
+    except UnicodeEncodeError:
+        pass
+    ascii_rows, others = [], []
+    for s in strs:
+        try:
+            ascii_rows.append(str(s).encode("ascii"))
+        except UnicodeEncodeError:
+            others.append(str(s))
+    return ascii_rows, others
 
 
 def _acc_finalize(node: Node, acc: Dict[str, Any]) -> Dict[str, Any]:
@@ -729,6 +781,12 @@ def _acc_finalize(node: Node, acc: Dict[str, Any]) -> Dict[str, Any]:
         return {"boundaries": np.unique(boundaries)}
     if node.op == "tokenize":
         counts = acc["counts"]
+        native = acc.pop("_native_counter", None)
+        if native is not None:
+            # Drain the core's hash map once; merge with the Python-side
+            # counts of the rows that are not ASCII.
+            for tok, n in native.counts().items():
+                counts[tok] = counts.get(tok, 0) + n
         # descending frequency, then lexical — deterministic
         terms = sorted(counts, key=lambda t: (-counts[t], t))
         budget = max(0, int(p.get("vocab_size", 8000)) - len(SPECIAL_TOKENS))
@@ -822,8 +880,31 @@ def _tokenize_core(
     return out
 
 
+# A column of at least this many rows fans the Python engine out over a
+# process pool (the reference's thresholds).
+_TOK_MIN_PARALLEL_ROWS = 4096
+_TOK_MAX_WORKERS = 8
+_TOK_CTX = None
+
+
+def _tok_init(params: Dict[str, Any], vocab: List[str]) -> None:
+    global _TOK_CTX
+    table = {v: i for i, v in enumerate(vocab)}
+    _TOK_CTX = (params, table, any(v.startswith("##") for v in vocab))
+
+
+def _tok_chunk(rows) -> np.ndarray:
+    params, table, has_wordpiece = _TOK_CTX
+    return _tokenize_core(rows, params, table, has_wordpiece)
+
+
 def _apply_tokenize(node: Node, state: Dict[str, Any], col) -> np.ndarray:
-    """Tokenize a column with the reference's Python engine."""
+    """Tokenize a column: the native core first (its rows that are not
+    ASCII through the Python engine), then a process-pool fan-out of the
+    Python engine when more than ``_TOK_MIN_PARALLEL_ROWS`` rows are not
+    ASCII, then the engine inline for a small column."""
+    from tpu_pipelines_torch.transform import native_tokenizer
+
     p = node.params
     vocab = state["vocab"]
     # Memoized on the state dict: predict() re-enters here per batch.
@@ -831,7 +912,27 @@ def _apply_tokenize(node: Node, state: Dict[str, Any], col) -> np.ndarray:
     if table is None:
         table = state["_table"] = {v: i for i, v in enumerate(vocab)}
         state["_has_wordpiece"] = any(v.startswith("##") for v in vocab)
-    return _tokenize_core(col, p, table, state["_has_wordpiece"])
+    has_wordpiece = state["_has_wordpiece"]
+    native = native_tokenizer.encode_batch(
+        col, p, state,
+        lambda subset: _tokenize_core(subset, p, table, has_wordpiece),
+        max_python_rows=_TOK_MIN_PARALLEL_ROWS,
+    )
+    if native is not None:
+        return native
+    native_tokenizer._count(python_rows=len(col))
+    workers = min(os.cpu_count() or 1, _TOK_MAX_WORKERS)
+    if len(col) >= _TOK_MIN_PARALLEL_ROWS and workers > 1:
+        from concurrent.futures import ProcessPoolExecutor
+
+        chunks = [c for c in np.array_split(col, workers * 4) if len(c)]
+        with ProcessPoolExecutor(
+            max_workers=workers, initializer=_tok_init,
+            initargs=(dict(p), list(vocab)),
+        ) as ex:
+            parts = list(ex.map(_tok_chunk, chunks))
+        return np.concatenate(parts, axis=0)
+    return _tokenize_core(col, p, table, has_wordpiece)
 
 
 def _apply_analyzer(node: Node, state: Dict[str, Any], col):
