@@ -18,26 +18,7 @@ Phases (any failure raises and the script exits non-zero):
      Python parse of every chunk; the bert_dag and retrain_dag phases then
      read the cores' counters (``check_host_cores``): every crc through C,
      no record chunk refused by the core, every review row encoded by it;
-  2. kernels — print the forward, backward and decode kernels' registers,
-     spills and shared memory per instantiation (the decode kernel's also
-     at each timed shape: its splits S, the cluster size and the clusters
-     the card holds at once); hold each kernel against its plain PyTorch
-     version on the card at its main path's shapes and at edge cases
-     (ragged length, causal, an all-masked batch row, a masked 64-key block
-     inside a row, fp16/f32, strided inputs, the decode kernel's arena
-     slices, int32, bool and batch-stride-0 bool masks, L = 1, split-KV
-     shapes with uneven spans, all-masked splits and clusters of 2 to 8,
-     and a 4096-key cache), and time it beside its plain version, the
-     one-call PyTorch yardstick and its bound (the forward at the serving,
-     the training and the BERT DAG's shapes, the backward kernels and Dvec
-     at the training and the BERT DAG's shapes, the decode kernel at the
-     beam-served, the long-cache (B=32 and B=4, L=4096), the long engine
-     bucket's and the T5 DAG's BulkInferrer shapes); the forward and
-     backward kernels also against a control (fed the mask shifted by one
-     key) that must miss; every kernel repeated bit for bit; hold the
-     attention's gradients against autograd through dense attention in
-     f32;
-  2b. crossover — with ``TPP_AUTOTUNE_CACHE`` pointed at a directory of
+  2. crossover — with ``TPP_AUTOTUNE_CACHE`` pointed at a directory of
      the run's own, time the gradient of sum(attention) through the flash
      kernels against the port's dense attention (B=8, H=12, D=64, bf16) at
      L = 64, 128, 512, 2048, 8192 (flash alone where dense does not fit),
@@ -46,6 +27,39 @@ Phases (any failure raises and the script exits non-zero):
      crossover (the first length where flash is no slower) for this card,
      which "auto" attention reads from here on (``--table-out`` writes
      them as a committed-table file);
+  2b. autotune — in the same cache, with the committed table out of the
+     way and ``TPP_AUTOTUNE=sweep``, ``get_block_config`` at the main
+     paths' shapes (the forward and the backward at the fine-tune's 256 x
+     128, the fleet's 32 x 128 and the BERT DAG's 256 x 64; the decode
+     kernel's block_k at B=32 and B=4 with 4096 keys, the long engine
+     bucket and the bulk beam step): one miss and one sweep per op and
+     shape, every grid printed in ms, then a hit under cache-only and no
+     sweep while a stream captures; each winner timed against 64 x 64 in
+     turns with and without the masks the paths give the kernels, and
+     marked promotable (``--table-out`` writes it as an ``entries`` row)
+     only where it wins by more than its own spread on both; every later
+     phase runs on this run's winners (cache-only);
+  2c. kernels — print the forward, backward and decode kernels' registers,
+     spills and shared memory per instantiation and per block
+     configuration (the decode kernel's also at each timed shape: its
+     splits S, the cluster size and the clusters the card holds at once);
+     hold each kernel, at every block configuration built for the case's
+     dtype and head dim, against its plain PyTorch version on the card at
+     its main path's shapes and at edge cases (ragged length, causal, an
+     all-masked batch row, keys 64..127 masked inside a row, fp16/f32, D =
+     128, strided inputs, the decode kernel's arena slices, int32, bool and
+     batch-stride-0 bool masks, L = 1, split-KV shapes with uneven spans,
+     all-masked splits and clusters of 2 to 8, and a 4096-key cache), and
+     time it at the blocks its path resolves from this run's table, with
+     64 x 64 beside it, its plain version, the one-call PyTorch yardstick
+     and its bound (the forward at the serving, the training and the BERT
+     DAG's shapes, the backward kernels and Dvec at the training and the
+     BERT DAG's shapes, the decode kernel at the beam-served, the
+     long-cache (B=32 and B=4, L=4096), the long engine bucket's and the T5
+     DAG's BulkInferrer shapes); the forward and backward kernels also
+     against a control (fed the mask shifted by one key) that must miss;
+     every kernel repeated bit for bit; hold the attention's gradients
+     against autograd through dense attention in f32;
   3. serving — export a BERT-base payload (full width, random weights from
      ``--seed``) with flash attention, serve it with ``ModelServer`` on the
      card with micro-batching, send concurrent REST ``:predict`` requests,
@@ -55,7 +69,7 @@ Phases (any failure raises and the script exits non-zero):
   4. generate — export a T5-small payload (full width, random weights from
      ``--seed``, flash decode, beam 4, 128 decode steps, eos 3), serve it
      with ``ModelServer`` on the card, send ``:generate`` requests of 1-4
-     rows from 8 concurrent clients: every reply 200 with [rows, 128] ids,
+     rows (``--generate-requests``) from 8 concurrent clients: every reply 200 with [rows, 128] ids,
      the decode kernel launched once per decoder layer and pass, the
      teacher-forced logits of the served tokens against dense decode
      attention (and two controls around the kernel outside that
@@ -84,7 +98,8 @@ Phases (any failure raises and the script exits non-zero):
      prompts and budgets from threads: every stream ends at EOS or its
      budget, one kernel launch per layer per prefill and step, no bucket
      first run after warm(); report steps/s, tokens/s, occupancy and how
-     many streams equal the isolated greedy decode;
+     many of the first ENGINE_COMPARED streams equal the isolated greedy
+     decode;
   7. engine_long — the engine over the same weights at a 2048-key cache
      (kv buckets 256/512/1024/2048), 8 sequences with budgets of 1100-1400
      tokens from threads, submitted LONG_STAGGER steps apart: every stream
@@ -128,8 +143,9 @@ Phases (any failure raises and the script exits non-zero):
      step's loss within tolerance of the same run with dense attention
      (and two wrong-mask controls outside each); report examples/s/chip
      of two graph runs and the eager steps, MFU, peak memory of graph and
-     eager, the captured AdamW update fused and foreach, and a profiled
-     step, eager and replayed;
+     eager, the captured AdamW update fused and foreach, a profiled step,
+     eager and replayed, and the replayed step with the block table's
+     entries on (this run's winners) and off (64 x 64), in turns;
   8a. moe_train — BERT-base-MoE (the Switch-Base-8 layout: 8 experts on
      the odd layers, capacity factor 1.25) fine-tunes as the training
      phase does (batch 256 x 128 ragged, bf16, dropout 0.1, fused AdamW,
@@ -660,8 +676,11 @@ def time_ms(fn, iters: int = 200, warmup: int = 20) -> float:
 
 # name, batch, len, heads, head_dim, dtype, causal, mask, strided inputs;
 # "serving" and "training" are the BERT-base paths' shapes, "pipeline" the
-# BERT DAG's (its tokenizer's max_len), "hole" masks one whole interior
-# 64-key block of every row.
+# BERT DAG's (its tokenizer's max_len), "hole" masks keys 64..127 of every
+# row (a dead block at block_k 32 and 64, part of one at 128).  Each case
+# runs at every block pair the kernel is built for at its dtype and head
+# dim (fa.built_blocks: the six of fa.FLASH_BLOCKS for bf16 and fp16 at D =
+# 64 and 128, else 64 x 64); ragged lengths that no block divides.
 KERNEL_CASES = [
     ("serving", 32, SEQ_LEN, 12, 64, torch.bfloat16, False, "ragged", False),
     ("training", TRAIN_BATCH, SEQ_LEN, 12, 64, torch.bfloat16, False, "ragged",
@@ -675,7 +694,11 @@ KERNEL_CASES = [
     ("f32_d16", 3, 96, 2, 16, torch.float32, False, "ragged", False),
     ("no_mask_causal", 2, 77, 2, 64, torch.bfloat16, True, "none", False),
     ("hole", 2, 200, 4, 64, torch.bfloat16, False, "hole", False),
+    ("d64_causal", 2, 200, 4, 64, torch.bfloat16, True, "ragged", False),
+    ("d128_causal", 2, 130, 3, 128, torch.bfloat16, True, "ragged", False),
 ]
+# The cases timed at the pair their path resolves, with 64 x 64 beside.
+FWD_TIMED = ("serving", "training", "pipeline")
 
 
 def tol_ratio(got, want, rtol_atol) -> float:
@@ -690,10 +713,12 @@ def kernel_inputs(gen, b, l, h, d, dtype, mask_kind, strided, n=3):
     dO) and the key mask; strided: slices of one packed tensor."""
     dev = "cuda"
     if strided:  # slices of one packed [b, l, n, h, d] tensor
-        packed = torch.randn(b, l, n, h, d, generator=gen).to(dev, dtype)
+        packed = torch.randn(b, l, n, h, d, generator=gen,
+                             device=gen.device).to(dev, dtype)
         tensors = [packed[:, :, i] for i in range(n)]
     else:
-        tensors = [torch.randn(b, l, h, d, generator=gen).to(dev, dtype)
+        tensors = [torch.randn(b, l, h, d, generator=gen, device=gen.device)
+                   .to(dev, dtype)
                    for _ in range(n)]
     if mask_kind == "none":
         return (*tensors, None)
@@ -701,8 +726,9 @@ def kernel_inputs(gen, b, l, h, d, dtype, mask_kind, strided, n=3):
         mask = torch.ones(b, l, dtype=torch.int32)
         mask[:, 64:128] = 0
         return (*tensors, mask.to(dev))
-    lengths = torch.randint(1, l + 1, (b,), generator=gen)
-    mask = (torch.arange(l)[None, :] < lengths[:, None]).to(torch.int32)
+    lengths = torch.randint(1, l + 1, (b,), generator=gen, device=gen.device)
+    mask = (torch.arange(l, device=gen.device)[None, :]
+            < lengths[:, None]).to(torch.int32)
     if mask_kind == "empty_row":
         mask[1] = 0
     return (*tensors, mask.to(dev))
@@ -718,74 +744,115 @@ def fwd_ratio(out, ref, term, dtype, l):
 
 def fwd_resources():
     """Print the forward kernel's registers, local memory and dynamic
-    shared memory (at L = SEQ_LEN) for every dtype and head dim (f32: the
-    FMA kernel; bf16, fp16: the tensor-core kernel); returns them for the
-    main paths' instantiation (bf16, D = 64)."""
+    shared memory (at L = SEQ_LEN) for every dtype and head dim at 64 x 64
+    (f32: the FMA kernel; bf16, fp16: the tensor-core kernel) and, bf16 at
+    fa.BLOCK_HEAD_DIMS, at every built pair; returns (the main paths'
+    instantiation's (bf16, D = 64, 64 x 64), {(pair, D): info})."""
     for dtype in (torch.float32, torch.float16, torch.bfloat16):
         print(f"kernel flash_fwd resources {dtype}: " + "; ".join(
             "D={d} {registers} registers, {local_bytes} B local, "
             "{shared_bytes} B shared".format(
                 d=d, **fa.fwd_kernel_info(dtype, d, SEQ_LEN))
             for d in fa.HEAD_DIMS), flush=True)
-    return fa.fwd_kernel_info(torch.bfloat16, 64, SEQ_LEN)
+    by_pair = {}
+    for bq, bk in fa.FLASH_BLOCKS:
+        for d in fa.BLOCK_HEAD_DIMS:
+            by_pair[(bq, bk), d] = fa.fwd_kernel_info(torch.bfloat16, d, SEQ_LEN,
+                                                      bq, bk)
+        print(f"kernel flash_fwd resources bf16 blocks {bq}x{bk}: " + "; ".join(
+            f"D={d} {by_pair[(bq, bk), d]['registers']} registers, "
+            f"{by_pair[(bq, bk), d]['local_bytes']} B local, "
+            f"{by_pair[(bq, bk), d]['shared_bytes']} B shared"
+            for d in fa.BLOCK_HEAD_DIMS), flush=True)
+    return fa.fwd_kernel_info(torch.bfloat16, 64, SEQ_LEN), by_pair
+
+
+def configurations(checked, info, kernels):
+    """A kernel record's ``configurations``: each block pair's cases and
+    worst error (``checked[pair] = [cases, {kernel: max_abs_err}]``) and,
+    where printed, its bf16 resources at each of fa.BLOCK_HEAD_DIMS."""
+    rows = []
+    for kernel in kernels:
+        rows.append([{
+            "block_q": bq, "block_k": bk, "cases": cases,
+            "max_abs_err": errs[kernel],
+            **{f"d{d}_{key}": info[(bq, bk), d, kernel][key]
+               for d in fa.BLOCK_HEAD_DIMS if ((bq, bk), d, kernel) in info
+               for key in ("registers", "local_bytes", "shared_bytes")}}
+            for (bq, bk), (cases, errs) in sorted(checked.items())])
+    return rows
 
 
 def kernel_phase(gen):
-    """Every forward case within its bound, its shifted-mask control above
-    it on out and lse, repeats bit for bit, all-masked rows exact; returns
-    the flash_fwd record (without launches) measured at the serving shape,
-    with the training shape's times beside them."""
-    resources = fwd_resources()
+    """Every forward case at every block pair built for its dtype and head
+    dim: within its bound, its shifted-mask control above it on out and
+    lse, repeats bit for bit, all-masked rows exact.  The FWD_TIMED shapes
+    are timed at the pair their paths resolve (fa.resolve_blocks, this
+    run's table), 64 x 64 beside it.  Returns the flash_fwd record (without
+    launches) measured at the serving shape, the training and pipeline
+    shapes' times beside them, and every configuration checked."""
+    resources, by_pair = fwd_resources()
+    info = {(pair, d, "fwd"): i for (pair, d), i in by_pair.items()}
     max_out_err = max_lse_err = 0.0
+    checked = {}
     timings = {}
     for name, b, l, h, d, dtype, causal, mask_kind, strided in KERNEL_CASES:
         q, k, v, mask = kernel_inputs(gen, b, l, h, d, dtype, mask_kind, strided)
-        out, lse = fa.flash_attention_forward(q, k, v, causal=causal, kv_mask=mask)
-        again = fa.flash_attention_forward(q, k, v, causal=causal, kv_mask=mask)
-        torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_attention_reference(
             q, k, v, causal=causal, kv_mask=mask
         )
         term = fa.fwd_rounding_terms(q, k, v, causal=causal, kv_mask=mask)
-        out_err = (out.float() - ref_out.float()).abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
-        out_ratio = fwd_ratio(out, ref_out, term, dtype, l)
-        lse_ratio = tol_ratio(lse, ref_lse, LSE_TOL)
-        repeat = torch.equal(out, again[0]) and torch.equal(lse, again[1])
-        ok = (
-            torch.isfinite(out.float()).all().item()
-            and out_ratio <= 1.0 and lse_ratio <= 1.0 and repeat
-        )
-        exact = ""
-        if mask_kind == "empty_row":
-            zero = (out[1].abs().max().item() == 0.0
-                    and bool((lse.view(b, h, l)[1] == fa.NEG_INF).all().item()))
-            exact = f"; all-masked row out exactly 0, lse exactly -1e30: {zero}"
-            ok = ok and zero
-        control = "n/a (no mask)"
-        if mask is not None:
-            wrong_out, wrong_lse = fa.flash_attention_forward(
-                q, k, v, causal=causal, kv_mask=torch.roll(mask, 1, dims=1))
-            controls = (fwd_ratio(wrong_out, ref_out, term, dtype, l),
-                        tol_ratio(wrong_lse, ref_lse, LSE_TOL))
-            control = f"out {controls[0]:.3g}, lse {controls[1]:.3g}"
-            ok = ok and min(controls) > 1.0
-        bound = ("the f32 tol" if dtype == torch.float32
-                 else f"the bound (u {fa.UNIT_ROUNDOFF[dtype]:g})")
-        print(f"kernel flash_fwd {name}: B={b} L={l} H={h} D={d} {dtype} "
-              f"causal={causal} mask={mask_kind} strided={strided} "
-              f"max|out-ref|={out_err:.3e} ({out_ratio:.3f} of {bound}) "
-              f"max|lse-ref|={lse_err:.3e} ({lse_ratio:.3f} of tol "
-              f"{LSE_TOL[1]:g} + {LSE_TOL[0]:g}*|ref|); shifted-mask control "
-              f"{control} (each must exceed 1); repeat bit for bit: "
-              f"{repeat}{exact}", flush=True)
-        if not ok:
-            raise AssertionError(f"flash_fwd {name}: kernel disagrees with "
-                                 "its plain version, a control stays within "
-                                 "the bound, or a repeat differs")
-        max_out_err = max(max_out_err, out_err)
-        max_lse_err = max(max_lse_err, lse_err)
-        if name in ("serving", "training", "pipeline"):
+        for bq, bk in fa.built_blocks("flash_fwd", dtype, d):
+            blocks = {"block_q": bq, "block_k": bk}
+            out, lse = fa.flash_attention_forward(q, k, v, causal=causal,
+                                                  kv_mask=mask, **blocks)
+            again = fa.flash_attention_forward(q, k, v, causal=causal,
+                                               kv_mask=mask, **blocks)
+            torch.cuda.synchronize()
+            out_err = (out.float() - ref_out.float()).abs().max().item()
+            lse_err = (lse - ref_lse).abs().max().item()
+            out_ratio = fwd_ratio(out, ref_out, term, dtype, l)
+            lse_ratio = tol_ratio(lse, ref_lse, LSE_TOL)
+            repeat = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+            ok = (
+                torch.isfinite(out.float()).all().item()
+                and out_ratio <= 1.0 and lse_ratio <= 1.0 and repeat
+            )
+            exact = ""
+            if mask_kind == "empty_row":
+                zero = (out[1].abs().max().item() == 0.0
+                        and bool((lse.view(b, h, l)[1] == fa.NEG_INF).all().item()))
+                exact = f"; all-masked row out exactly 0, lse exactly -1e30: {zero}"
+                ok = ok and zero
+            control = "n/a (no mask)"
+            if mask is not None:
+                wrong_out, wrong_lse = fa.flash_attention_forward(
+                    q, k, v, causal=causal, kv_mask=torch.roll(mask, 1, dims=1),
+                    **blocks)
+                controls = (fwd_ratio(wrong_out, ref_out, term, dtype, l),
+                            tol_ratio(wrong_lse, ref_lse, LSE_TOL))
+                control = f"out {controls[0]:.3g}, lse {controls[1]:.3g}"
+                ok = ok and min(controls) > 1.0
+            bound = ("the f32 tol" if dtype == torch.float32
+                     else f"the bound (u {fa.UNIT_ROUNDOFF[dtype]:g})")
+            print(f"kernel flash_fwd {name} blocks {bq}x{bk}: B={b} L={l} H={h} "
+                  f"D={d} {dtype} causal={causal} mask={mask_kind} "
+                  f"strided={strided} max|out-ref|={out_err:.3e} "
+                  f"({out_ratio:.3f} of {bound}) max|lse-ref|={lse_err:.3e} "
+                  f"({lse_ratio:.3f} of tol {LSE_TOL[1]:g} + {LSE_TOL[0]:g}*|ref|);"
+                  f" shifted-mask control {control} (each must exceed 1); repeat "
+                  f"bit for bit: {repeat}{exact}", flush=True)
+            if not ok:
+                raise AssertionError(f"flash_fwd {name} blocks {bq}x{bk}: kernel "
+                                     "disagrees with its plain version, a "
+                                     "control stays within the bound, or a "
+                                     "repeat differs")
+            max_out_err = max(max_out_err, out_err)
+            max_lse_err = max(max_lse_err, lse_err)
+            row = checked.setdefault((bq, bk), [0, {"fwd": 0.0}])
+            row[0] += 1
+            row[1]["fwd"] = max(row[1]["fwd"], out_err)
+        if name in FWD_TIMED:
             timings[name] = fwd_timing(name, q, k, v, mask, causal)
     return {
         "name": "flash_fwd",
@@ -796,9 +863,11 @@ def kernel_phase(gen):
         **timings["serving"],
         **{f"{path}_{key}": timings[path][key]
            for path in ("training", "pipeline")
-           for key in ("shape", "ms", "plain_ms", "bound_ms", "library_ms")},
+           for key in ("shape", "blocks", "ms", "ms_64x64", "plain_ms",
+                       "bound_ms", "library_ms")},
         "max_abs_err": max_out_err,
         "lse_max_abs_err": max_lse_err,
+        "configurations": configurations(checked, info, ("fwd",))[0],
         **resources,
     }
 
@@ -806,8 +875,11 @@ def kernel_phase(gen):
 def fwd_timing(name, q, k, v, mask, causal):
     b, l, h, d = q.shape
     item = q.element_size()
-    ms = time_ms(lambda: fa.flash_attention_forward(
-        q, k, v, causal=causal, kv_mask=mask))
+    # The pair the path launches (this run's table), and 64 x 64.
+    path = fa.resolve_blocks(q, causal)[:2]
+    ms = {pair: time_ms(lambda: fa.flash_attention_forward(
+        q, k, v, causal=causal, kv_mask=mask, block_q=pair[0], block_k=pair[1]))
+        for pair in dict.fromkeys((path, (fa.BLOCK_Q, fa.BLOCK_K)))}
     plain_ms = time_ms(lambda: fa.flash_attention_reference(
         q, k, v, causal=causal, kv_mask=mask), iters=20, warmup=3)
     # Yardstick only: one PyTorch call computing the same function (no row
@@ -827,12 +899,17 @@ def fwd_timing(name, q, k, v, mask, causal):
     ops = 4 * h * d * l * allowed_keys
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[q.dtype]
-    print(f"kernel flash_fwd {name} shape: {ms:.4f} ms (plain {plain_ms:.4f} "
-          f"ms, sdpa {library_ms:.4f} ms); bound {max(t_bytes, t_ops)*1e3:.4f} "
-          f"ms ({bytes_moved} bytes, {ops} ops)", flush=True)
+    default = ms[(fa.BLOCK_Q, fa.BLOCK_K)]
+    print(f"kernel flash_fwd {name} shape: {ms[path]:.4f} ms at the path's "
+          f"blocks {path[0]}x{path[1]} (64x64 {default:.4f} ms; plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms); bound "
+          f"{max(t_bytes, t_ops)*1e3:.4f} ms ({bytes_moved} bytes, {ops} ops)",
+          flush=True)
     return {
         "shape": f"B={b} L={l} H={h} D={d} {str(q.dtype).replace('torch.', '')}",
-        "ms": ms,
+        "blocks": list(path),
+        "ms": ms[path],
+        "ms_64x64": default,
         "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -856,7 +933,10 @@ BWD_CASES = [
     ("no_mask_causal", 2, 77, 2, 64, torch.bfloat16, True, "none", False),
     ("hole", 2, 200, 4, 64, torch.bfloat16, False, "hole", False),
     ("bf16_d16_causal", 3, 96, 2, 16, torch.bfloat16, True, "ragged", False),
+    ("d64_causal", 2, 200, 4, 64, torch.bfloat16, True, "ragged", False),
+    ("d128_causal", 2, 130, 3, 128, torch.bfloat16, True, "ragged", False),
 ]
+BWD_TIMED = ("training", "pipeline")
 
 
 def rounding_ratio(got, want, term, dtype, l, atol=0.0):
@@ -873,30 +953,46 @@ def rounding_ratio(got, want, term, dtype, l, atol=0.0):
 
 def bwd_resources():
     """Print each backward kernel's registers, local memory and dynamic
-    shared memory (at L = SEQ_LEN) for every dtype and head dim; returns
-    them for the training instantiation (bf16, D = 64)."""
+    shared memory (at L = SEQ_LEN) for every dtype and head dim at 64 x 64
+    and, bf16 at fa.BLOCK_HEAD_DIMS, at every built pair; returns (the
+    training instantiation's (bf16, D = 64, 64 x 64), {(pair, D, kernel):
+    info})."""
+    def line(info):
+        return {kernel: f"{kernel} {i['registers']} registers, "
+                        f"{i['local_bytes']} B local, {i['shared_bytes']} B shared"
+                for kernel, i in info.items()}
+
     for dtype in (torch.float32, torch.float16, torch.bfloat16):
         for d in fa.HEAD_DIMS:
-            parts = []
-            for kernel in ("dq", "dkv"):
-                info = fa.bwd_kernel_info(kernel, dtype, d, SEQ_LEN)
-                parts.append(f"{kernel} {info['registers']} registers, "
-                             f"{info['local_bytes']} B local, "
-                             f"{info['shared_bytes']} B shared")
+            info = {kernel: fa.bwd_kernel_info(kernel, dtype, d, SEQ_LEN)
+                    for kernel in ("dq", "dkv")}
             print(f"kernel flash_bwd resources {dtype} D={d}: "
-                  + "; ".join(parts), flush=True)
-    return {kernel: fa.bwd_kernel_info(kernel, torch.bfloat16, 64, SEQ_LEN)
-            for kernel in ("dq", "dkv")}
+                  + "; ".join(line(info).values()), flush=True)
+    by_pair = {}
+    for pair in fa.FLASH_BLOCKS:
+        for d in fa.BLOCK_HEAD_DIMS:
+            info = {kernel: fa.bwd_kernel_info(kernel, torch.bfloat16, d, SEQ_LEN,
+                                               *pair)
+                    for kernel in ("dq", "dkv")}
+            by_pair.update({(pair, d, kernel): i for kernel, i in info.items()})
+            print(f"kernel flash_bwd resources bf16 D={d} blocks "
+                  f"{pair[0]}x{pair[1]}: " + "; ".join(line(info).values()),
+                  flush=True)
+    return ({kernel: fa.bwd_kernel_info(kernel, torch.bfloat16, 64, SEQ_LEN)
+             for kernel in ("dq", "dkv")}, by_pair)
 
 
 def bwd_kernel_phase(gen):
-    """Every backward case within tolerance, its shifted-mask control above
-    it, repeats bit for bit, masked keys and rows exact zeros, Dvec within
-    its bound, the gradients against dense attention; returns the
+    """Every backward case at every block pair built for its dtype and head
+    dim: within tolerance, its shifted-mask control above it, repeats bit
+    for bit, masked keys and rows exact zeros; Dvec within its bound; the
+    gradients against dense attention.  The BWD_TIMED shapes are timed at
+    the backward pair their path resolves, 64 x 64 beside it.  Returns the
     flash_bwd_dq and flash_bwd_dkv records (without launches) measured at
     the training shape, with the BERT DAG's shape's times beside them."""
-    resources = bwd_resources()
+    resources, info = bwd_resources()
     max_err = {"dq": 0.0, "dkv": 0.0, "dvec": 0.0}
+    checked = {}
     timed = {}
     for name, b, l, h, d, dtype, causal, mask_kind, strided in BWD_CASES:
         q, k, v, dout, mask = kernel_inputs(gen, b, l, h, d, dtype, mask_kind,
@@ -904,13 +1000,6 @@ def bwd_kernel_phase(gen):
         out, lse = fa.flash_attention_forward(q, k, v, causal=causal, kv_mask=mask)
         dvec = fa.flash_bwd_dvec(out, dout)
         args = (q, k, v, dout, lse, dvec)
-
-        def kernels(kv_mask):
-            return (fa.flash_bwd_dq(*args, causal=causal, kv_mask=kv_mask),
-                    *fa.flash_bwd_dkv(*args, causal=causal, kv_mask=kv_mask))
-
-        grads = kernels(mask)
-        again = kernels(mask)
         torch.cuda.synchronize()
         ref_dvec = fa._dvec(out, dout)
         dvec_bound = 2 * d * F32_EPS * (dout.float() * out.float()).abs().sum(-1)
@@ -922,54 +1011,76 @@ def bwd_kernel_phase(gen):
         refs = (fa.flash_bwd_dq_reference(*args, causal=causal, kv_mask=mask),
                 *fa.flash_bwd_dkv_reference(*args, causal=causal, kv_mask=mask))
         terms = fa.bwd_rounding_terms(*args, causal=causal, kv_mask=mask)
-        ratios = [rounding_ratio(got, want, term, dtype, l)
-                  for got, want, term in zip(grads, refs, terms)]
-        ok = (all(torch.isfinite(g.float()).all().item() for g in grads)
-              and max(ratios) <= 1.0 and dvec_ratio <= 1.0)
-        repeat = all(torch.equal(g, r) for g, r in zip(grads, again))
-        zeros = ""
-        if mask_kind == "empty_row":  # the all-masked batch row
-            zero = all(g[1].abs().max().item() == 0.0 for g in grads)
-            zeros = f"; all-masked row exactly 0: {zero}"
-            ok = ok and zero
-        if mask_kind == "hole":  # the masked block's keys get nothing
-            zero = all(g[:, 64:128].abs().max().item() == 0.0 for g in grads[1:])
-            zeros = f"; masked key block's dk, dv exactly 0: {zero}"
-            ok = ok and zero
-        controls = []
-        if mask is not None:
-            shifted = kernels(torch.roll(mask, 1, dims=1))
-            controls = [rounding_ratio(got, want, term, dtype, l)
-                        for got, want, term in zip(shifted, refs, terms)]
-            ok = ok and min(controls) > 1.0
-        for kernel, got, want in zip(("dq", "dkv", "dkv"), grads, refs):
-            max_err[kernel] = max(max_err[kernel], (got.double() - want.double())
-                                  .abs().max().item())
-        print(f"kernel flash_bwd {name}: B={b} L={l} H={h} D={d} {dtype} "
-              f"causal={causal} mask={mask_kind} strided={strided}: "
-              + ", ".join(f"{g} {r:.3f}" for g, r in zip(("dq", "dk", "dv"), ratios))
-              + f" of the bound (u {fa.UNIT_ROUNDOFF[dtype]:g}); Dvec "
-              f"{dvec_ratio:.3f} of its bound; shifted-mask control "
-              + (", ".join(f"{g} {r:.3g}" for g, r in zip(("dq", "dk", "dv"), controls))
-                 or "n/a (no mask)")
-              + f" (each must exceed 1); repeat bit for bit: {repeat}{zeros}",
-              flush=True)
-        if not (ok and repeat):
-            raise AssertionError(f"flash_bwd {name}: kernels disagree with "
-                                 "their plain versions, a control stays "
-                                 "within the bound, or a repeat differs")
-        if name in ("training", "pipeline"):
+        for bq, bk in fa.built_blocks("flash_bwd", dtype, d):
+
+            def kernels(kv_mask):
+                return (fa.flash_bwd_dq(*args, causal=causal, kv_mask=kv_mask,
+                                        block_q=bq, block_k=bk),
+                        *fa.flash_bwd_dkv(*args, causal=causal, kv_mask=kv_mask,
+                                          block_q=bq, block_k=bk))
+
+            grads = kernels(mask)
+            again = kernels(mask)
+            torch.cuda.synchronize()
+            ratios = [rounding_ratio(got, want, term, dtype, l)
+                      for got, want, term in zip(grads, refs, terms)]
+            ok = (all(torch.isfinite(g.float()).all().item() for g in grads)
+                  and max(ratios) <= 1.0 and dvec_ratio <= 1.0)
+            repeat = all(torch.equal(g, r) for g, r in zip(grads, again))
+            zeros = ""
+            if mask_kind == "empty_row":  # the all-masked batch row
+                zero = all(g[1].abs().max().item() == 0.0 for g in grads)
+                zeros = f"; all-masked row exactly 0: {zero}"
+                ok = ok and zero
+            if mask_kind == "hole":  # the masked keys get nothing
+                zero = all(g[:, 64:128].abs().max().item() == 0.0
+                           for g in grads[1:])
+                zeros = f"; masked keys' dk, dv exactly 0: {zero}"
+                ok = ok and zero
+            controls = []
+            if mask is not None:
+                shifted = kernels(torch.roll(mask, 1, dims=1))
+                controls = [rounding_ratio(got, want, term, dtype, l)
+                            for got, want, term in zip(shifted, refs, terms)]
+                ok = ok and min(controls) > 1.0
+            row = checked.setdefault((bq, bk), [0, {"dq": 0.0, "dkv": 0.0}])
+            row[0] += 1
+            for kernel, got, want in zip(("dq", "dkv", "dkv"), grads, refs):
+                gap = (got.double() - want.double()).abs().max().item()
+                max_err[kernel] = max(max_err[kernel], gap)
+                row[1][kernel] = max(row[1][kernel], gap)
+            print(f"kernel flash_bwd {name} blocks {bq}x{bk}: B={b} L={l} H={h} "
+                  f"D={d} {dtype} causal={causal} mask={mask_kind} "
+                  f"strided={strided}: "
+                  + ", ".join(f"{g} {r:.3f}" for g, r in zip(("dq", "dk", "dv"),
+                                                             ratios))
+                  + f" of the bound (u {fa.UNIT_ROUNDOFF[dtype]:g}); Dvec "
+                  f"{dvec_ratio:.3f} of its bound; shifted-mask control "
+                  + (", ".join(f"{g} {r:.3g}" for g, r in zip(("dq", "dk", "dv"),
+                                                              controls))
+                     or "n/a (no mask)")
+                  + f" (each must exceed 1); repeat bit for bit: {repeat}{zeros}",
+                  flush=True)
+            if not (ok and repeat):
+                raise AssertionError(f"flash_bwd {name} blocks {bq}x{bk}: kernels "
+                                     "disagree with their plain versions, a "
+                                     "control stays within the bound, or a "
+                                     "repeat differs")
+        if name in BWD_TIMED:
             timed[name] = bwd_timing(name, q, k, v, dout, out, lse, dvec, mask)
     records = timed["training"]
     for record, pipeline in zip(records, timed["pipeline"]):
         record.update({f"pipeline_{key}": value for key, value in
-                       pipeline.items() if key in ("shape", "ms", "plain_ms",
+                       pipeline.items() if key in ("shape", "blocks", "ms",
+                                                   "ms_64x64", "plain_ms",
                                                    "bound_ms", "library_ms",
                                                    "dvec_ms", "dvec_plain_ms",
                                                    "dvec_bound_ms",
                                                    "backward_ms")})
-    for kernel, record in zip(("dq", "dkv"), records):
+    for kernel, record, rows in zip(("dq", "dkv"), records, configurations(
+            checked, info, ("dq", "dkv"))):
         record["max_abs_err"] = max_err[kernel]
+        record["configurations"] = rows
         record.update(resources[kernel])
     records[0]["dvec_max_abs_err"] = max_err["dvec"]
     dense_gradient_check(gen)
@@ -1003,10 +1114,16 @@ def bwd_timing(label, q, k, v, dout, out, lse, dvec, mask):
     b, l, h, d = q.shape
     item = q.element_size()
     args = (q, k, v, dout, lse, dvec)
-    ms = {
-        "dq": time_ms(lambda: fa.flash_bwd_dq(*args, kv_mask=mask)),
-        "dkv": time_ms(lambda: fa.flash_bwd_dkv(*args, kv_mask=mask)),
-    }
+    # The backward pair the path launches (this run's table), and 64 x 64.
+    path = fa.resolve_blocks(q)[2:]
+    default = (fa.BLOCK_Q, fa.BLOCK_K)
+    by_pair = {pair: {
+        "dq": time_ms(lambda: fa.flash_bwd_dq(*args, kv_mask=mask,
+                                              block_q=pair[0], block_k=pair[1])),
+        "dkv": time_ms(lambda: fa.flash_bwd_dkv(*args, kv_mask=mask,
+                                                block_q=pair[0], block_k=pair[1])),
+    } for pair in dict.fromkeys((path, default))}
+    ms = by_pair[path]
     plain_ms = {
         "dq": time_ms(lambda: fa.flash_bwd_dq_reference(*args, kv_mask=mask),
                       iters=10, warmup=2),
@@ -1016,7 +1133,8 @@ def bwd_timing(label, q, k, v, dout, out, lse, dvec, mask):
     dvec_ms = time_ms(lambda: fa.flash_bwd_dvec(out, dout))
     dvec_plain_ms = time_ms(lambda: fa._dvec(out, dout), iters=50)
     total_ms = time_ms(lambda: fa.flash_attention_backward(
-        q, k, v, out, lse, dout, kv_mask=mask))
+        q, k, v, out, lse, dout, kv_mask=mask, block_q=path[0],
+        block_k=path[1]))
     # Yardstick only: SDPA's backward (dq, dk and dv in one call), timed
     # alone at the same shape and mask (no row of this case is empty).
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -1049,10 +1167,11 @@ def bwd_timing(label, q, k, v, dout, out, lse, dvec, mask):
         bytes_moved, ops = work[kernel]
         t_bytes = bytes_moved / HBM_BYTES_PER_S
         t_ops = ops / PEAK_OPS_PER_S[q.dtype]
-        print(f"kernel flash_bwd_{kernel} {label} shape: {ms[kernel]:.4f} ms "
-              f"(plain {plain_ms[kernel]:.4f} ms); bound "
-              f"{max(t_bytes, t_ops) * 1e3:.4f} ms ({bytes_moved} bytes, {ops} "
-              f"ops)", flush=True)
+        print(f"kernel flash_bwd_{kernel} {label} shape: {ms[kernel]:.4f} ms at "
+              f"the path's blocks {path[0]}x{path[1]} (64x64 "
+              f"{by_pair[default][kernel]:.4f} ms; plain {plain_ms[kernel]:.4f} "
+              f"ms); bound {max(t_bytes, t_ops) * 1e3:.4f} ms ({bytes_moved} "
+              f"bytes, {ops} ops)", flush=True)
         records.append({
             "name": f"flash_bwd_{kernel}",
             "route": "cuda",
@@ -1060,7 +1179,9 @@ def bwd_timing(label, q, k, v, dout, out, lse, dvec, mask):
             "replaces": replaces[kernel][1],
             "tpu_kernel": replaces[kernel][0],
             "shape": f"B={b} L={l} H={h} D={d} {str(q.dtype).replace('torch.', '')}",
+            "blocks": list(path),
             "ms": ms[kernel],
+            "ms_64x64": by_pair[default][kernel],
             "plain_ms": plain_ms[kernel],
             "bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1162,24 +1283,25 @@ DECODE_TIMED = ("served", "long_cache", "long_cache_b4", "engine_long",
 
 def decode_inputs(gen, b, l, h, d, dtype, validity, bias_kind, arena, mask_kind):
     dev = "cuda"
-    q = torch.randn(b, 1, h, d, generator=gen).to(dev, dtype)
+    q = torch.randn(b, 1, h, d, generator=gen, device=gen.device).to(dev, dtype)
     if arena:  # [:b, :l] slices of a larger [B, L, 2, H, D] cache
-        cache = torch.randn(b + 2, l + 32, 2, h, d, generator=gen).to(dev, dtype)
+        cache = torch.randn(b + 2, l + 32, 2, h, d, generator=gen,
+                            device=gen.device).to(dev, dtype)
         k, v = cache[:b, :l, 0], cache[:b, :l, 1]
     else:
-        k, v = (torch.randn(b, l, h, d, generator=gen).to(dev, dtype)
-                for _ in range(2))
+        k, v = (torch.randn(b, l, h, d, generator=gen, device=gen.device)
+                .to(dev, dtype) for _ in range(2))
     if validity == "full":
-        pos = torch.full((b,), l - 1)
+        pos = torch.full((b,), l - 1, device=gen.device)
     elif validity == "pos":
-        pos = torch.full((b,), l // 2)
+        pos = torch.full((b,), l // 2, device=gen.device)
     elif validity == "eighth":
-        pos = torch.randint(0, l // 8, (b,), generator=gen)
+        pos = torch.randint(0, l // 8, (b,), generator=gen, device=gen.device)
     elif validity == "ragged_1500":
-        pos = torch.randint(0, 1500, (b,), generator=gen)
+        pos = torch.randint(0, 1500, (b,), generator=gen, device=gen.device)
     else:
-        pos = torch.randint(0, l, (b,), generator=gen)
-    mask = torch.arange(l)[None, :] <= pos[:, None]
+        pos = torch.randint(0, l, (b,), generator=gen, device=gen.device)
+    mask = torch.arange(l, device=gen.device)[None, :] <= pos[:, None]
     if validity == "empty_row":
         mask[1] = False
     if validity == "hole":
@@ -1187,7 +1309,7 @@ def decode_inputs(gen, b, l, h, d, dtype, validity, bias_kind, arena, mask_kind)
     bias = None
     if bias_kind != "none":
         rows = 1 if bias_kind == "broadcast" else b
-        bias = torch.randn(rows, h, 1, l, generator=gen).to(dev)
+        bias = torch.randn(rows, h, 1, l, generator=gen, device=gen.device).to(dev)
     if mask_kind == "bool_expanded":
         assert validity in ("pos", "full")   # every row the same
         return q, k, v, mask[:1].to(dev).expand(b, l), bias
@@ -1197,8 +1319,10 @@ def decode_inputs(gen, b, l, h, d, dtype, validity, bias_kind, arena, mask_kind)
 
 def decode_resources(shapes):
     """The decode kernel's registers, spills, shared memory and CTAs per SM
-    per instantiation, and at each timed shape its splits S (the cluster
-    size) and how many such clusters the card runs at once."""
+    per instantiation (bf16 at fa.BLOCK_HEAD_DIMS: per built block_k), and
+    at each timed shape, at the block_k its path resolves, its splits S
+    (the cluster size) and how many such clusters the card runs at once.
+    Returns ({shape name: resources}, {(block_k, D): info})."""
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         cells = []
         for d in fa.HEAD_DIMS:
@@ -1209,59 +1333,78 @@ def decode_resources(shapes):
                          f"{info['ctas_per_sm']} CTAs per SM")
         print(f"kernel flash_decode resources {str(dtype).replace('torch.', '')}: "
               + "; ".join(cells), flush=True)
+    by_block = {}
+    for bk in fa.DECODE_BLOCKS:
+        for d in fa.BLOCK_HEAD_DIMS:
+            by_block[bk, d] = fa.decode_kernel_info(torch.bfloat16, d, 1, bk)
+        print(f"kernel flash_decode resources bf16 block_k {bk}: " + "; ".join(
+            f"D={d} {by_block[bk, d]['registers']} registers, "
+            f"{by_block[bk, d]['local_bytes']} B local, "
+            f"{by_block[bk, d]['ctas_per_sm']} CTAs per SM"
+            for d in fa.BLOCK_HEAD_DIMS), flush=True)
     out = {}
-    for name, (b, l, h, d, dtype) in shapes.items():
-        splits = fa.decode_splits(b, h, l, fa.sm_count("cuda"))
-        info = fa.decode_kernel_info(dtype, d, splits)
-        print(f"kernel flash_decode resources {name} (B={b} L={l} H={h} D={d}): "
-              f"S={splits}, cluster size {splits}, {splits * b * h} CTAs, "
-              f"{info['registers']} registers, {info['local_bytes']} B spill, "
-              f"{info['shared_bytes']} B shared memory, at most "
-              f"{info['max_active_clusters']} clusters at once", flush=True)
+    for name, (b, l, h, d, dtype, bk) in shapes.items():
+        splits = fa.decode_splits(b, h, l, fa.sm_count("cuda"), bk)
+        info = fa.decode_kernel_info(dtype, d, splits, bk)
+        print(f"kernel flash_decode resources {name} (B={b} L={l} H={h} D={d}, "
+              f"block_k {bk}): S={splits}, cluster size {splits}, "
+              f"{splits * b * h} CTAs, {info['registers']} registers, "
+              f"{info['local_bytes']} B spill, {info['shared_bytes']} B shared "
+              f"memory, at most {info['max_active_clusters']} clusters at once",
+              flush=True)
         out[name] = {"splits": splits, "registers": info["registers"],
                      "spill_bytes": info["local_bytes"],
                      "shared_bytes": info["shared_bytes"],
                      "max_active_clusters": info["max_active_clusters"]}
-    return out
+    return out, by_block
 
 
 def decode_kernel_phase(gen):
-    """Every decode case within one output ulp of the plain version and
-    repeated bit for bit; returns the flash_decode record (without
-    launches), timed at the DECODE_TIMED shapes."""
+    """Every decode case at every block_k built for its dtype and head dim
+    (fa.built_decode_blocks) within one output ulp of the plain version,
+    repeated bit for bit, an all-masked row exactly 0; the DECODE_TIMED
+    shapes timed at the block_k their paths resolve
+    (fa.resolve_decode_block, this run's table), 64 beside it.  Returns the
+    flash_decode record (without launches)."""
     max_err = 0.0
-    timings = {}
+    checked = {}
+    timings, timed_shapes = {}, {}
     for (name, b, l, h, d, dtype, validity, bias_kind, arena,
          mask_kind) in DECODE_CASES:
         q, k, v, mask, bias = decode_inputs(gen, b, l, h, d, dtype, validity,
                                             bias_kind, arena, mask_kind)
-        out = fa.flash_decode_attention(q, k, v, kv_mask=mask, bias=bias)
-        again = fa.flash_decode_attention(q, k, v, kv_mask=mask, bias=bias)
-        torch.cuda.synchronize()
         ref = fa.flash_decode_attention_reference(q, k, v, kv_mask=mask,
                                                   bias=bias)
-        err = (out.float() - ref.float()).abs().max().item()
-        ratio = tol_ratio(out, ref, OUT_TOL[dtype])
-        ok = torch.isfinite(out.float()).all().item() and ratio <= 1.0
-        repeats = torch.equal(out, again)
-        if validity == "empty_row":
-            ok = ok and out[1].abs().max().item() == 0.0
-        print(f"kernel flash_decode {name}: B={b} L={l} H={h} D={d} {dtype} "
-              f"S={fa.decode_splits(b, h, l, fa.sm_count('cuda'))} "
-              f"validity={validity} "
-              f"bias={bias_kind} arena={arena} mask={mask_kind} "
-              f"max|out-ref|={err:.3e} ({ratio:.3f} of tol "
-              f"{OUT_TOL[dtype][1]:g} + {OUT_TOL[dtype][0]:g}*|ref|); repeat "
-              f"bit for bit {repeats}", flush=True)
-        if not ok or not repeats:
-            raise AssertionError(f"flash_decode {name}: kernel disagrees with "
-                                 "its plain version or with itself")
-        max_err = max(max_err, err)
+        for bk in fa.built_decode_blocks(dtype, d):
+            out = fa.flash_decode_attention(q, k, v, kv_mask=mask, bias=bias,
+                                            block_k=bk)
+            again = fa.flash_decode_attention(q, k, v, kv_mask=mask, bias=bias,
+                                              block_k=bk)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            ratio = tol_ratio(out, ref, OUT_TOL[dtype])
+            ok = torch.isfinite(out.float()).all().item() and ratio <= 1.0
+            repeats = torch.equal(out, again)
+            if validity == "empty_row":
+                ok = ok and out[1].abs().max().item() == 0.0
+            print(f"kernel flash_decode {name} block_k {bk}: B={b} L={l} H={h} "
+                  f"D={d} {dtype} S={fa.decode_splits(b, h, l, fa.sm_count('cuda'), bk)} "
+                  f"validity={validity} bias={bias_kind} arena={arena} "
+                  f"mask={mask_kind} max|out-ref|={err:.3e} ({ratio:.3f} of tol "
+                  f"{OUT_TOL[dtype][1]:g} + {OUT_TOL[dtype][0]:g}*|ref|); repeat "
+                  f"bit for bit {repeats}", flush=True)
+            if not ok or not repeats:
+                raise AssertionError(f"flash_decode {name} block_k {bk}: kernel "
+                                     "disagrees with its plain version or with "
+                                     "itself")
+            max_err = max(max_err, err)
+            row = checked.setdefault(bk, [0, 0.0])
+            row[0] += 1
+            row[1] = max(row[1], err)
         if name in DECODE_TIMED:
             timings[name] = decode_timing(name, q, k, v, mask, bias)
-    resources = decode_resources({
-        name: (b, l, h, d, dtype) for (name, b, l, h, d, dtype, *_)
-        in DECODE_CASES if name in DECODE_TIMED})
+            timed_shapes[name] = (b, l, h, d, dtype, timings[name]["block_k"])
+    resources, by_block = decode_resources(timed_shapes)
     for name, res in resources.items():
         timings[name].update(res)
     return {
@@ -1273,6 +1416,11 @@ def decode_kernel_phase(gen):
         **timings["served"],
         **{name: timings[name] for name in DECODE_TIMED if name != "served"},
         "max_abs_err": max_err,
+        "configurations": [
+            {"block_k": bk, "cases": cases, "max_abs_err": err,
+             **{f"d{d}_{key}": by_block[bk, d][key] for d in fa.BLOCK_HEAD_DIMS
+                for key in ("registers", "local_bytes")}}
+            for bk, (cases, err) in sorted(checked.items())],
     }
 
 
@@ -1288,13 +1436,20 @@ def decode_timing(name, q, k, v, mask, bias):
     # Kernel and SDPA in turns, twice, each keeping its faster run: the
     # card idles while the inputs are made on the host, and the first
     # timing after an idle gap runs at lower clocks.
-    runs = {"kernel": [], "sdpa": []}
+    # The block_k the path launches (this run's table), and 64.
+    block_k = fa.resolve_decode_block(b, h, l, d, q.dtype, q.device)
+    runs = {"kernel": [], "sdpa": [], "64": []}
     for _ in range(2):
         runs["kernel"].append(time_ms(lambda: fa.flash_decode_attention(
-            q, k, v, kv_mask=mask, bias=bias), iters=iters))
+            q, k, v, kv_mask=mask, bias=bias, block_k=block_k), iters=iters))
         runs["sdpa"].append(time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=float_mask), iters=iters))
+        if block_k != fa.DECODE_BLOCK_K:
+            runs["64"].append(time_ms(lambda: fa.flash_decode_attention(
+                q, k, v, kv_mask=mask, bias=bias, block_k=fa.DECODE_BLOCK_K),
+                iters=iters))
     ms, library_ms = min(runs["kernel"]), min(runs["sdpa"])
+    ms_64 = min(runs["64"]) if runs["64"] else ms
     plain_ms = time_ms(lambda: fa.flash_decode_attention_reference(
         q, k, v, kv_mask=mask, bias=bias), iters=20, warmup=3)
     # Least time for the same work: q read and out written once, k and v
@@ -1313,14 +1468,17 @@ def decode_timing(name, q, k, v, mask, bias):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[q.dtype]
     bound_ms = max(t_bytes, t_ops) * 1e3
-    print(f"kernel flash_decode {name} shape [{card_line()}]: {ms:.4f} ms "
-          f"(plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; in turns "
+    print(f"kernel flash_decode {name} shape [{card_line()}]: {ms:.4f} ms at "
+          f"the path's block_k {block_k} (block_k 64 {ms_64:.4f} ms; plain "
+          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; in turns "
           f"kernel {runs['kernel'][0]:.4f} / {runs['kernel'][1]:.4f}, sdpa "
           f"{runs['sdpa'][0]:.4f} / {runs['sdpa'][1]:.4f}); bound "
           f"{bound_ms:.4f} ms ({bytes_moved} bytes, {ops} ops)", flush=True)
     return {
         "shape": f"B={b} L={l} H={h} D={d} {str(q.dtype).replace('torch.', '')}",
+        "block_k": block_k,
         "ms": ms,
+        "ms_block_k_64": ms_64,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1362,7 +1520,8 @@ def crossover_phase(gen, card):
     b, h, d = g["batch"], g["heads"], g["head_dim"]
     per_len, crossover = {}, None
     for l in CROSS_TRAIN_LENS:
-        q, k, v = (torch.randn(b, l, h, d, generator=gen).to(dev, torch.bfloat16)
+        q, k, v = (torch.randn(b, l, h, d, generator=gen, device=gen.device)
+                   .to(dev, torch.bfloat16)
                    .requires_grad_() for _ in range(3))
 
         def grad_of(attn):
@@ -1371,7 +1530,8 @@ def crossover_phase(gen, card):
 
         iters = 50 if l <= 2048 else 10
         flash_ms = time_ms(grad_of(lambda q, k, v: fa.FlashAttentionFunction
-                                   .apply(q, k, v, None, False)),
+                                   .apply(q, k, v, None, False, fa.BLOCK_Q,
+                                          fa.BLOCK_K, fa.BLOCK_Q, fa.BLOCK_K)),
                            iters=iters, warmup=3)
         fits = tfm.dense_attn_fits(b, h, l, l, 2, dev)
         dense_ms = (time_ms(grad_of(dense_attention), iters=iters, warmup=3)
@@ -1388,8 +1548,10 @@ def crossover_phase(gen, card):
     b, h, d = g["batch"], g["heads"], g["head_dim"]
     per_kv, decode_crossover = {}, None
     for l in CROSS_DECODE_LENS:
-        q = torch.randn(b, 1, h, d, generator=gen).to(dev, torch.bfloat16)
-        k, v = (torch.randn(b, l, h, d, generator=gen).to(dev, torch.bfloat16)
+        q = torch.randn(b, 1, h, d, generator=gen, device=gen.device).to(
+            dev, torch.bfloat16)
+        k, v = (torch.randn(b, l, h, d, generator=gen, device=gen.device).to(
+            dev, torch.bfloat16)
                 for _ in range(2))
         valid = torch.ones(b, l, dtype=torch.bool, device=dev)
         flash_ms = time_ms(lambda: fa.flash_decode_attention(q, k, v,
@@ -1422,6 +1584,216 @@ def crossover_phase(gen, card):
                 "geometry": decode_geometry,
                 "source": "chip_smoke.py crossover phase"}}}
 
+
+# ----------------------------------------------------------------- autotune
+
+# The main paths' shapes the autotune phase sweeps (bf16, not causal):
+# (name, batch, len, heads, head_dim) of flash_attention, the forward and
+# the backward tuned independently (the BERT-base fine-tune, the fleet's
+# batch-32 bucket, the BERT DAG's), and of the decode kernel (the timed
+# decode shapes: B=32 and B=4 at 4096 keys, the long engine bucket, the T5
+# DAG's bulk beam step).
+AUTOTUNE_FLASH_SHAPES = [
+    ("training", TRAIN_BATCH, SEQ_LEN, 12, 64),
+    ("fleet", 32, SEQ_LEN, 12, 64),
+    ("bert_dag", TRAIN_BATCH, PIPELINE_LEN, 12, 64),
+]
+AUTOTUNE_DECODE_SHAPES = [
+    ("long_cache", 32, 4096, 8, 64),
+    ("long_cache_b4", 4, 4096, 8, 64),
+    ("engine_long", 8, 2048, 8, 64),
+    ("bulk_infer", 4 * 64, 32, 8, 64),
+]
+# Launches timed per candidate (TPP_AUTOTUNE_ITERS), and the times the
+# winner and 64 x 64 are timed in turns after the sweep: a winner is
+# promoted only where it beats 64 x 64 by more than its own repeats'
+# spread.
+AUTOTUNE_ITERS = 50
+AUTOTUNE_REPEATS = 3
+
+
+def _metric_value(name, op):
+    metric = default_registry().get(name)
+    if metric is None:
+        return 0.0
+    return sum(float(v) for labels, v in metric._snapshot_series().items()
+               if op in labels)
+
+
+def _counts(op):
+    return tuple(_metric_value(f"autotune_{n}", op)
+                 for n in ("cache_misses_total", "sweeps_total", "cache_hits_total"))
+
+
+def _grid(swept):
+    return ", ".join(f"{r['block_q']}x{r['block_k']} "
+                     + (f"{r['ms']:.4f}" if "ms" in r else r.get("error", "?"))
+                     for r in swept)
+
+
+def autotune_phase(card):
+    """The block sweep on the card, at the main paths' shapes, into the
+    run's own cache (``TPP_AUTOTUNE_CACHE``), with the committed table out
+    of the way: under ``TPP_AUTOTUNE=sweep`` each shape's first lookup is
+    one miss and one sweep of each op (``flash_fwd`` sweeps the backward
+    too); a second lookup under ``cache-only`` is a hit with the recorded
+    winner; a lookup while the stream captures a CUDA graph sweeps nothing.
+    Prints every swept grid in ms.  Then times each winner and 64 x 64 in
+    turns (AUTOTUNE_REPEATS each) and marks a winner promotable where it
+    beats 64 x 64 by more than its own spread.  Leaves ``TPP_AUTOTUNE`` at
+    cache-only: every later phase runs on this run's winners.  Returns
+    ``(results, promotable table entries)``."""
+    from tpu_pipelines_torch.ops import autotune
+
+    kind = autotune.current_device_kind("cuda")
+    committed = autotune._COMMITTED_TABLE
+    autotune._COMMITTED_TABLE = os.path.join(autotune.cache_dir(), "none.json")
+    os.environ["TPP_AUTOTUNE"] = "sweep"
+    os.environ["TPP_AUTOTUNE_ITERS"] = str(AUTOTUNE_ITERS)
+    autotune.clear_memo()
+    lookups = ([("flash_fwd", ("flash_fwd", "flash_bwd"), s)
+                for s in AUTOTUNE_FLASH_SHAPES]
+               + [("flash_decode", ("flash_decode",), s)
+                  for s in AUTOTUNE_DECODE_SHAPES])
+    results = []
+    try:
+        for asked, ops, (name, b, l, h, d) in lookups:
+            before = {op: _counts(op) for op in ops}
+            t0 = time.perf_counter()
+            got = autotune.get_block_config(asked, b, h, l, d, torch.bfloat16,
+                                            False, device="cuda")
+            sweep_s = time.perf_counter() - t0
+            for op in ops:
+                misses, sweeps, hits = (a - z for a, z in zip(_counts(op), before[op]))
+                want_misses = 1 if op == asked else 0
+                if (misses, sweeps, hits) != (want_misses, 1, 0):
+                    raise AssertionError(
+                        f"autotune {name} {op}: {misses} misses, {sweeps} sweeps, "
+                        f"{hits} hits under sweep (want {want_misses}, 1, 0)")
+                key = autotune.make_key(op, b, h, l, d, torch.bfloat16, False, kind)
+                entry = autotune._lookup_entry(autotune.key_id(key), kind)
+                if entry is None:
+                    raise AssertionError(f"autotune {name} {op}: no entry recorded")
+                best = (entry["block_q"], entry["block_k"])
+                if op == asked and got != best:
+                    raise AssertionError(f"autotune {name}: {got} returned, {best} "
+                                         "recorded")
+                print(f"autotune {op} {name} (B={b} L={l} H={h} D={d} bf16) "
+                      f"[{card}]: {_grid(entry['swept'])} ms -> {best[0]}x{best[1]} "
+                      f"({sweep_s:.2f} s the sweep)", flush=True)
+                results.append({"op": op, "shape": name, "b": b, "l": l, "h": h,
+                                "d": d, "key": key, "entry": entry})
+        # A lookup while the stream captures a graph, for a shape never
+        # swept: a miss, no sweep.
+        before = _counts("flash_fwd")
+        graph, x = torch.cuda.CUDAGraph(), torch.zeros(1, device="cuda")
+        with torch.cuda.graph(graph):
+            x.add_(1)
+            captured = autotune.get_block_config("flash_fwd", 3, 5, 96, 64,
+                                                 torch.bfloat16, False,
+                                                 device="cuda")
+        misses, sweeps, _ = (a - z for a, z in zip(_counts("flash_fwd"), before))
+        if captured is not None or (misses, sweeps) != (1, 0):
+            raise AssertionError(f"autotune: a lookup while capturing returned "
+                                 f"{captured} with {sweeps} sweeps")
+    finally:
+        os.environ["TPP_AUTOTUNE"] = "cache-only"
+    autotune.clear_memo()
+    for r in results:
+        before = _counts(r["op"])
+        got = autotune.get_block_config(r["op"], r["b"], r["h"], r["l"], r["d"],
+                                        torch.bfloat16, False, device="cuda")
+        if got != (r["entry"]["block_q"], r["entry"]["block_k"]) or tuple(
+                a - z for a, z in zip(_counts(r["op"]), before)) != (0, 0, 1):
+            raise AssertionError(f"autotune {r['shape']} {r['op']}: not one hit "
+                                 "with the recorded winner under cache-only")
+    print(f"autotune: every lookup under cache-only a hit; 0 sweeps while "
+          f"capturing [{card}]", flush=True)
+    autotune._COMMITTED_TABLE = committed
+    return results, promotion(results, card)
+
+
+def promotion(results, card):
+    """Each winner and 64 x 64 timed in turns, AUTOTUNE_REPEATS each, on the
+    swept inputs (no mask) and on the masks the paths give the kernels (the
+    kernel phase's case of that shape: FWD_TIMED's ragged lengths, the
+    decode case's validity and bias); the entries whose winner beats 64 x
+    64 by more than the winner's own spread (max - min of its runs) on
+    both, as committed-table entries."""
+    from tpu_pipelines_torch.ops import autotune
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    when = time.strftime("%Y-%m-%dT%H:%MZ", time.gmtime())
+    promoted = {}
+    for r in results:
+        op, b, l, h, d = r["op"], r["b"], r["l"], r["h"], r["d"]
+        entry = r["entry"]
+        best = (entry["block_q"], entry["block_k"])
+        if op == "flash_decode":
+            default = (autotune.DECODE_BLOCK_Q, fa.DECODE_BLOCK_K)
+            case = next(c for c in DECODE_CASES if c[0] == r["shape"])
+            masked = decode_inputs(gen, *case[1:])
+            q, k, v, _, _ = decode_inputs(gen, b, l, h, d, torch.bfloat16, "full",
+                                          "none", False, "int32")
+            inputs = {"unmasked": (q, k, v, None, None), "masked": masked}
+
+            def run(blocks, q, k, v, mask, bias):
+                return lambda: fa.flash_decode_attention(
+                    q, k, v, kv_mask=mask, bias=bias, block_k=blocks[1])
+        else:
+            default = (fa.BLOCK_Q, fa.BLOCK_K)
+            inputs = {
+                kind: kernel_inputs(gen, b, l, h, d, torch.bfloat16, kind, False,
+                                    n=4)
+                for kind in ("none", "ragged")}
+            inputs = {"unmasked": inputs["none"], "masked": inputs["ragged"]}
+
+            def run(blocks, q, k, v, dout, mask):
+                if op == "flash_fwd":
+                    return lambda: fa.flash_attention_forward(
+                        q, k, v, kv_mask=mask, block_q=blocks[0],
+                        block_k=blocks[1])
+                out, lse = fa.flash_attention_forward(q, k, v, kv_mask=mask)
+                return lambda: fa.flash_attention_backward(
+                    q, k, v, out, lse, dout, kv_mask=mask, block_q=blocks[0],
+                    block_k=blocks[1])
+        verdicts = {}
+        for kind, args in inputs.items():
+            # In turns (a 64 x 64 winner is timed once a turn: it is its own
+            # yardstick).
+            times = {best: [], default: []}
+            for i in range(AUTOTUNE_REPEATS):
+                for blocks in dict.fromkeys((default, best) if i % 2 == 0
+                                            else (best, default)):
+                    times[blocks].append(autotune.time_launches(
+                        run(blocks, *args), AUTOTUNE_ITERS))
+            win, base = sorted(times[best]), sorted(times[default])
+            spread = win[-1] - win[0]
+            gain = base[len(base) // 2] - win[len(win) // 2]
+            verdicts[kind] = {"winner_ms": win, "default_ms": base,
+                              "spread_ms": spread, "gain_ms": gain,
+                              "wins": best != default and gain > spread}
+            print(f"autotune promotion {op} {r['shape']} {kind} [{card}]: "
+                  f"{best[0]}x{best[1]} {', '.join(f'{t:.4f}' for t in win)} ms "
+                  f"against {default[0]}x{default[1]} "
+                  f"{', '.join(f'{t:.4f}' for t in base)} ms (in turns): gain "
+                  f"{gain:.4f} ms, spread {spread:.4f} ms", flush=True)
+        promote = all(v["wins"] for v in verdicts.values())
+        r.update({**verdicts["unmasked"], "masked": verdicts["masked"],
+                  "promoted": promote})
+        print(f"autotune promotion {op} {r['shape']} [{card}]: {best[0]}x{best[1]} "
+              + ("promote (beats 64 x 64 by more than its spread with and "
+                 "without the path's masks)" if promote
+                 else "keep 64 x 64 (not promoted)"), flush=True)
+        if promote:
+            promoted[autotune.key_id(r["key"])] = {
+                **entry, "source": f"chip_smoke.py autotune phase, {card}, {when}",
+                "repeats": {key: verdicts[kind][f"{name}_ms"]
+                            for kind, prefix in (("unmasked", ""),
+                                                 ("masked", "masked_"))
+                            for name in ("winner", "default")
+                            for key in [f"{prefix}{name}_ms"]}}
+    return promoted
 
 
 
@@ -1807,6 +2179,54 @@ def replay_step_breakdown(hp, seed, batch, iters=3):
             busy_ms / TRAIN_WINDOW, n_kernels / TRAIN_WINDOW)
 
 
+def training_ab(hp, seed, batch, card, rounds=3, windows=2):
+    """The captured fine-tune step with the table's block entries on
+    (``TPP_AUTOTUNE=cache-only``: this run's winners, then the committed
+    table) and off (64 x 64 at every shape), each captured once, then
+    timed in turns: ``rounds`` times each, ``windows`` windows of
+    TRAIN_WINDOW replays with one synchronize each.  Returns {mode: ms a
+    step, sorted}."""
+    dev_batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+    runners = {}
+    for mode in ("cache-only", "off"):
+        with mock.patch.dict(os.environ, {"TPP_AUTOTUNE": mode}):
+            model = bert_module.init_params_fn(
+                torch.Generator().manual_seed(seed), batch, hyperparameters=hp)
+            model.to(DEVICE).train()
+            state = TrainState(step=0, model=model, seed=seed, optimizer=(
+                bert_module.adamw(TRAIN_LR)(model.parameters())))
+            runners[mode] = _TrainStep(state, bert_module.loss_fn,
+                                       torch.device(DEVICE),
+                                       torch.cuda.Stream(DEVICE))
+            runners[mode].run(dev_batch, 0)     # eager, then the capture
+    step = {mode: 1 for mode in runners}
+    ms = {mode: [] for mode in runners}
+    for i in range(rounds):
+        for mode in (("cache-only", "off") if i % 2 == 0 else ("off", "cache-only")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(windows):
+                for _ in range(TRAIN_WINDOW):
+                    runners[mode].run(dev_batch, step[mode])
+                    step[mode] += 1
+                torch.cuda.synchronize()
+            ms[mode].append((time.perf_counter() - t0) * 1e3
+                            / (windows * TRAIN_WINDOW))
+    del runners
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = {mode: sorted(t) for mode, t in ms.items()}
+    print(f"training A/B [{card}]: the replayed step at batch {TRAIN_BATCH} x "
+          f"{SEQ_LEN}, in turns, {rounds} x {windows * TRAIN_WINDOW} replays "
+          f"each: table entries on (cache-only) "
+          + ", ".join(f"{t:.3f}" for t in ms["cache-only"])
+          + " ms, off (64 x 64) " + ", ".join(f"{t:.3f}" for t in ms["off"])
+          + f" ms a step; {TRAIN_BATCH * 1e3 / ms['cache-only'][rounds // 2]:.2f} "
+          f"against {TRAIN_BATCH * 1e3 / ms['off'][rounds // 2]:.2f} examples/s "
+          "(medians)", flush=True)
+    return ms
+
+
 def adamw_timing(model):
     """Device ms of one captured AdamW update of ``model``'s parameters,
     capturable foreach against capturable fused (optax's defaults, the
@@ -1961,6 +2381,7 @@ def training_phase(seed, n_steps, card):
         hp, seed, batches[0])
     r_wall_ms, r_profiled_ms, r_busy_ms, r_kernels = replay_step_breakdown(
         hp, seed, batches[0])
+    training_ab(hp, seed, batches[0], card)
 
     print(f"training [{card}]: BERT-base (d_model {hp['d_model']}, "
           f"{hp['n_layers']} layers, {hp['n_heads']} heads, vocab "
@@ -2331,6 +2752,9 @@ def generate_phase(seed, n_requests, card, workdir):
 
 
 N_ENGINE_SEQS = 24
+# The streams held against their isolated greedy decode (reported only;
+# each is an eager decode, a few seconds on the host).
+ENGINE_COMPARED = 8
 
 
 def engine_phase(loaded, seed, card):
@@ -2371,7 +2795,8 @@ def engine_phase(loaded, seed, card):
     # pads them), each with its own budget.
     same = 0
     with torch.inference_mode():
-        for prompt, budget, stream in zip(prompts, budgets, streams):
+        for prompt, budget, stream in list(zip(prompts, budgets,
+                                               streams))[:ENGINE_COMPARED]:
             ids = np.zeros((1, MAX_INPUT_LEN), np.int64)
             ids[0, :len(prompt)] = prompt
             greedy = t5m.make_greedy_generate(loaded.model, max_decode_len=budget,
@@ -2387,7 +2812,8 @@ def engine_phase(loaded, seed, card):
           f"{steps} steps in {wall_s:.2f} s; {steps / wall_s:.1f} steps/s, "
           f"{n_tokens / wall_s:.1f} tokens/s, mean occupancy {occupancy:.3f}; "
           f"buckets run {buckets}; compiles after warm {compiles}", flush=True)
-    print(f"engine: {same} of {N_ENGINE_SEQS} streams equal the isolated greedy "
+    print(f"engine: {same} of the first {ENGINE_COMPARED} streams equal the "
+          f"isolated greedy "
           f"decode (reported only: cuBLAS may pick other kernels at another "
           f"batch size); flash_decode launches {launches} = {T5_LAYERS} x "
           f"({prefills} prefills + {steps} steps) expected", flush=True)
@@ -2418,9 +2844,10 @@ LONG_STAGGER = 48
 def split_lost(q, k, v, *, kv_mask, bias=None, block_k=None):
     """Control: the kernel loses the keys of the split that holds each
     row's current position (a merge that drops a rank)."""
-    b, l, h, _ = k.shape
+    b, l, h, d = k.shape
+    block_k = fa.resolve_decode_block(b, h, l, d, q.dtype, q.device, block_k)
     ranges = fa.decode_split_ranges(
-        l, fa.decode_splits(b, h, l, fa.sm_count(q.device)))
+        l, fa.decode_splits(b, h, l, fa.sm_count(q.device), block_k), block_k)
     short = kv_mask.clone()
     for row, last in enumerate((short.to(torch.int32).sum(dim=1) - 1).tolist()):
         lo, hi = next(r for r in ranges if r[0] <= last < r[1])
@@ -2564,11 +2991,14 @@ def engine_long_phase(loaded, seed, card):
           f"{steps} steps in {wall_s:.2f} s; {steps / wall_s:.1f} steps/s, "
           f"{n_tokens / wall_s:.1f} tokens/s, mean occupancy {occupancy:.3f}; "
           f"buckets run {buckets}; compiles after warm {compiles}", flush=True)
+    arena = next(c for n, c in cache.items() if "cached_enc" not in n)
+    block_k = fa.resolve_decode_block(b, int(hp["n_heads"]), LONG_DECODE_LEN,
+                                      int(hp["head_dim"]), arena.dtype, "cuda")
     splits = fa.decode_splits(b, int(hp["n_heads"]), LONG_DECODE_LEN,
-                              fa.sm_count("cuda"))
+                              fa.sm_count("cuda"), block_k)
     print(f"engine_long: flash_decode launches {launches} = {T5_LAYERS} x "
           f"({prefills} prefills + {steps} steps) expected; splits at the "
-          f"{LONG_DECODE_LEN} bucket S={splits}", flush=True)
+          f"{LONG_DECODE_LEN} bucket S={splits} (block_k {block_k})", flush=True)
     print(f"engine_long: replayed step at positions {pos.tolist()} (batch {b}, "
           f"kv {LONG_DECODE_LEN}): max |graph - dense| logit = {sound:.3e} "
           f"(tol {DECODE_LOGIT_TOL:g}); the graph's logits and tokens == the "
@@ -2627,8 +3057,8 @@ def engine_long_phase(loaded, seed, card):
 # loose one LEVER_LOOSE times it: every sequence waits at most about three
 # batches' decodes (LEVER_SEQS / 8 - 1) before it joins, far inside a
 # budget of 16 or more tokens at LEVER_LOOSE steps a token.
-LEVER_SEQS = 32
-LEVER_REPEATS = 8
+LEVER_SEQS = 16
+LEVER_REPEATS = 4
 LEVER_SPEC = 4
 LEVER_TIGHT = 0.5
 LEVER_LOOSE = 100.0
@@ -3781,7 +4211,7 @@ def bert_dag_phase(seed, card, workdir):
 # a two-replica fleet, each reply held against the payload's eager
 # predict / predict_transformed at LOGIT_TOL; the BERT DAG rerun whose
 # Trainer writes the metrics-history ring takes SURFACE_STEPS steps.
-SURFACE_REQUESTS = 24
+SURFACE_REQUESTS = 12
 SURFACE_THREADS = 4
 SURFACE_STEPS = 8
 # Filled by bert_dag_phase: each node's outputs in its cold run.
@@ -4720,7 +5150,7 @@ GUARD_SAMPLE = 1.0
 GUARD_PROBATION_S = 10.0
 GUARD_REQUESTS = 64
 GUARD_THREADS = 4
-GUARD_TPUT_ROUNDS = 8
+GUARD_TPUT_ROUNDS = 4
 # Distinct reviews in the shifted (skewed) window: a flood of a few texts
 # from the upper half of the lexicon.
 GUARD_CAMPAIGN = 2
@@ -5695,7 +6125,7 @@ def continuous_phase(seed, card, workdir, production_uri):
 # ----------------------------------------------------------- DAG machinery
 
 # The partial rerun's Trainer steps (the bert_dag phase ran 100).
-MACHINERY_STEPS = 40
+MACHINERY_STEPS = 20
 # Shards of the StatisticsGen runs over the bert_dag phase's examples.
 MACHINERY_SHARDS = 4
 # The StatisticsGen runs' node deadline: its watchdog's cancel event kills
@@ -5878,7 +6308,7 @@ def dag_machinery_phase(seed, card, workdir):
           f"{before} executions in the store before and after", flush=True)
 
     # 3. `run --from-node Trainer` over bert_dag's store on the native
-    #    backend, 40 steps: ingest..Transform SKIPPED with bert_dag's
+    #    backend, MACHINERY_STEPS steps: ingest..Transform SKIPPED with bert_dag's
     #    artifacts, Trainer and Evaluator executed on the card.
     pipeline_module = os.path.join(examples_dir, "bert_pipeline.py")
     skipped_nodes = ("CsvExampleGen", "StatisticsGen", "SchemaGen",
@@ -5933,7 +6363,7 @@ def dag_machinery_phase(seed, card, workdir):
             os.path.join(REPO, "tpu_pipelines_torch", "_build") + os.sep):
         raise AssertionError(f"dag_machinery: the run's stores {seen['stores']}"
                              f" (library {lib})")
-    # Launches from inside the runner, as bert_dag's at 40 steps.
+    # Launches from inside the runner, as bert_dag's at MACHINERY_STEPS steps.
     layers = DEFAULT_HPARAMS["n_layers"]
     batch = bert_pipeline.BERT_BASE["batch_size"]
     examples_uri = result.nodes["Transform"].outputs[
@@ -6637,11 +7067,11 @@ RESNET_MODULE = os.path.join(REPO, "tpu_pipelines_torch", "examples",
 # _ensure_data at 224x224, 10 classes) cut from 2048 rows to this many:
 # the ingest's hash split prints every float of a row (150,528 a row) and
 # hashes the text column by column, about 0.35 s a row (PERF.md section
-# 4).  The twin's batch is cut with them (RESNET_BATCH, 64 by default): the
-# hash split's eval share of 128 rows (33) must clear one eval batch under
-# drop_remainder.
-RESNET_DAG_ROWS = 128
-RESNET_DAG_BATCH = 32
+# 4).  The twin's
+# batch is cut with them (RESNET_BATCH, 64 by default): the hash split's
+# eval share of the rows must clear one eval batch under drop_remainder.
+RESNET_DAG_ROWS = 64
+RESNET_DAG_BATCH = 8
 RESNET_DAG_SIZE = 224
 MNIST_DAG_STEPS = 100
 # The reference Evaluator's multiclass metrics.json: {"problem", "slices":
@@ -6667,8 +7097,11 @@ def vision_batches(seed, n):
     """``n`` batches of VISION_HP's NHWC f32 images and integer labels from
     ``seed``."""
     rng = np.random.default_rng(seed + 23)
+    # The images are drawn on the card (a host draw takes seconds).
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 23)
     batch, size = VISION_HP["batch_size"], VISION_HP["image_size"]
-    return [{"image": rng.standard_normal((batch, size, size, 3), np.float32),
+    return [{"image": torch.randn((batch, size, size, 3), generator=gen,
+                                  device=DEVICE).cpu().numpy(),
              "label": rng.integers(0, VISION_HP["num_classes"],
                                    size=batch).astype(np.int64)}
             for _ in range(n)]
@@ -7735,30 +8168,43 @@ def tune_rewrite_phase(seed, card, workdir):
     return by_record(total)
 
 
+BUILD_NICENESS = 10
+
+
 def build_kernels():
-    """Build every CUDA source, one nvcc each, all started together."""
+    """Build every CUDA library (each source at each of its block
+    configurations, ``fa.kernel_builds()``), one nvcc each, all started
+    together; returns the wall seconds.  The 64 x 64 libraries hold every
+    dtype and head dim (the others bf16/fp16 at two head dims), so theirs
+    are the longest compiles: the others run at a lower CPU priority
+    (BUILD_NICENESS) and leave them the cores they need."""
     seconds, errors = {}, {}
 
-    def build(name):
+    def build(name, defines, niceness):
+        label = _build.variant(name, defines)
         try:
-            seconds[name] = _build.build(name)
+            seconds[label] = _build.build(name, defines, niceness)
         except Exception as e:  # noqa: BLE001 — re-raised below
-            errors[name] = e
+            errors[label] = e
 
-    threads = [threading.Thread(target=build, args=(name,))
-               for name in ("flash_attention", "flash_attention_bwd",
-                            "flash_decode")]
+    defaults = [fa._flash_defines(fa.BLOCK_Q, fa.BLOCK_K),
+                {"TPP_BLOCK_K": fa.DECODE_BLOCK_K}]
+    threads = [threading.Thread(target=build, args=(
+        name, defines, 0 if dict(defines) in defaults else BUILD_NICENESS))
+        for name, defines in fa.kernel_builds()]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
     for t in threads:
         t.join()
+    wall = time.perf_counter() - t0
     if errors:
         raise RuntimeError(f"kernel build failed: {errors}")
-    print("build: " + ", ".join(f"{name}.cu in {sec:.1f} s" for name, sec in
+    print("build: " + ", ".join(f"{label} {sec:.1f} s" for label, sec in
                                 seconds.items())
-          + f" (0.0: already built); wall {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          + f" (0.0: already built); {len(threads)} libraries, wall "
+          f"{wall:.1f} s", flush=True)
+    return wall
 
 
 # ---- data-parallel training (A5)
@@ -10704,10 +11150,11 @@ def _spmd_dag_checks(card, one, paths, two, two_s):
 
 # ---- native_cores: the record and tokenizer cores (A24)
 
-# ImportExampleGen's seconds for the ResNet DAG's RESNET_DAG_ROWS rows
-# before the host cores (NVIDIA H100 80GB HBM3, 700.00 W), printed beside
+# ImportExampleGen's seconds for the ResNet DAG's rows before the host
+# cores (128 rows then; NVIDIA H100 80GB HBM3, 700.00 W), printed beside
 # this run's.
 RESNET_INGEST_BEFORE_S = 41.71
+RESNET_INGEST_BEFORE_ROWS = 128
 CRC_BYTES = 1 << 20
 # native_cores' parse: PARSE_CHUNKS chunks of PARSE_CHUNK_ROWS records.
 PARSE_CHUNK_ROWS, PARSE_CHUNKS = 2048, 3
@@ -10863,10 +11310,12 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--requests", type=int, default=128)
     parser.add_argument("--train-steps", type=int, default=12)
-    parser.add_argument("--generate-requests", type=int, default=8)
+    parser.add_argument("--generate-requests", type=int, default=2)
     parser.add_argument("--table-out", default="",
-                        help="also write the crossovers measured in this run "
-                             "as an autotune table here (the format of "
+                        help="also write the crossovers measured in this run, "
+                             "and the autotune phase's winners that beat 64 x "
+                             "64 by more than their spread as its entries, as "
+                             "an autotune table here (the format of "
                              "tpu_pipelines_torch/ops/autotune_table.json)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -10889,27 +11338,35 @@ def main(argv=None) -> int:
         print(f"phase {name}: {now - clock[0]:.1f} s", flush=True)
         clock[0] = now
 
-    build_kernels()
+    build_wall = build_kernels()
     phase_done("build")
     native_cores_phase(args.seed, card)
     phase_done("native_cores")
-    gen = torch.Generator().manual_seed(args.seed)
-    fwd = kernel_phase(gen)
-    bwd = bwd_kernel_phase(gen)
-    decode = decode_kernel_phase(gen)
-    phase_done("kernels")
+    # Inputs are drawn on the card (a CPU draw of the training shapes' tensors
+    # took seconds a case).
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
     # The crossovers "auto" reads, measured here before any phase runs
     # "auto", into a cache of this run's own (nothing recorded earlier on
     # the machine is read).
     cache = tempfile.TemporaryDirectory()
     os.environ["TPP_AUTOTUNE_CACHE"] = cache.name
     measured = crossover_phase(gen, card)
+    phase_done("crossover")
+    # The block sweep at the main paths' shapes into the same cache; every
+    # later phase runs on its winners (TPP_AUTOTUNE=cache-only).
+    tuned_blocks, promoted = autotune_phase(card)
     if args.table_out:
         with open(args.table_out, "w") as f:
-            json.dump({"version": 1, "entries": {}, **measured}, f,
+            json.dump({"version": 1, "entries": promoted, **measured}, f,
                       indent=1, sort_keys=True)
             f.write("\n")
-    phase_done("crossover")
+    phase_done("autotune")
+    # Every built configuration held against the plain versions; the main
+    # paths' shapes timed at the blocks they resolve from this run's table.
+    fwd = kernel_phase(gen)
+    bwd = bwd_kernel_phase(gen)
+    decode = decode_kernel_phase(gen)
+    phase_done("kernels")
 
     with tempfile.TemporaryDirectory() as workdir:
         served = serving_phase(args.seed, args.requests, card, workdir)
@@ -11016,8 +11473,10 @@ def main(argv=None) -> int:
             print(f"resnet_dag ImportExampleGen [{card}]: "
                   f"{walls['ImportExampleGen']:.2f} s for {RESNET_DAG_ROWS} rows "
                   f"({RESNET_DAG_ROWS / walls['ImportExampleGen']:.1f} rows/s); "
-                  f"{RESNET_INGEST_BEFORE_S} s before the host cores "
-                  "(NVIDIA H100 80GB HBM3, 700.00 W)", flush=True)
+                  f"{RESNET_INGEST_BEFORE_S} s for {RESNET_INGEST_BEFORE_ROWS} "
+                  f"rows ({RESNET_INGEST_BEFORE_ROWS / RESNET_INGEST_BEFORE_S:.1f} "
+                  "rows/s) before the host cores (NVIDIA H100 80GB HBM3, "
+                  "700.00 W)", flush=True)
         phase_done(f"{name}_dag")
     cache.cleanup()
     print(f"chip_smoke: every phase passed in {time.perf_counter() - started:.1f} s",
@@ -11082,6 +11541,20 @@ def main(argv=None) -> int:
                                + fleet["flash_decode"] + levers + surface_decode)
     records = [fwd, *bwd, decode]
     bwd[0]["dvec_launches"] = trained["flash_bwd_dvec"]
+    # The sweep's winner at each swept shape beside 64 x 64, unmasked and on
+    # the path's masks (the backward's on the dq and dkv records).
+    for record in records:
+        op = {"flash_bwd_dq": "flash_bwd", "flash_bwd_dkv": "flash_bwd"}.get(
+            record["name"], record["name"])
+        record["autotune"] = [
+            {"shape": r["shape"], "winner": [r["entry"]["block_q"],
+                                             r["entry"]["block_k"]],
+             "winner_ms": r["winner_ms"], "default_ms": r["default_ms"],
+             "masked_winner_ms": r["masked"]["winner_ms"],
+             "masked_default_ms": r["masked"]["default_ms"],
+             "promoted": r["promoted"]}
+            for r in tuned_blocks if r["op"] == op]
+    decode["build_wall_s"] = build_wall
     for record in records:
         record["launches"] = trained[record["name"]]
         record["max_err"] = record["max_abs_err"]

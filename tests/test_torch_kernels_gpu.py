@@ -120,9 +120,18 @@ def _within_fwd_bound(out, ref, term, dtype, l):
     return bool(((out.double() - ref).abs() <= bound).all())
 
 
+def _at_every_built_pair(op, cases, d_at=3, dtype_at=4):
+    """Each case once per block pair its kernels are built for at its dtype
+    and head dim (``fa.built_blocks``; ``flash_decode``: each built
+    block_k), the pair last."""
+    return [(*case, pair) for case in cases for pair in (
+        fa.built_decode_blocks(case[dtype_at], case[d_at]) if op == "flash_decode"
+        else fa.built_blocks(op, case[dtype_at], case[d_at]))]
+
+
 @pytest.mark.parametrize(
-    "b,l,h,d,dtype,causal,mask_kind",
-    [
+    "b,l,h,d,dtype,causal,mask_kind,blocks",
+    _at_every_built_pair("flash_fwd", [
         (32, 128, 12, 64, torch.bfloat16, False, "ragged"),   # BERT-base serving
         (256, 128, 12, 64, torch.bfloat16, False, "ragged"),  # BERT-base training
         (256, 64, 12, 64, torch.bfloat16, False, "ragged"),   # the BERT DAG
@@ -135,12 +144,17 @@ def _within_fwd_bound(out, ref, term, dtype, l):
         (3, 96, 2, 16, torch.float32, False, "ragged"),
         (1, 1, 1, 64, torch.float32, False, "ragged"),        # one token
         (1, 1, 1, 64, torch.bfloat16, False, "ragged"),
-    ],
+        (2, 200, 4, 64, torch.bfloat16, True, "ragged"),
+        (2, 130, 3, 128, torch.bfloat16, True, "ragged"),
+    ]),
 )
-def test_kernel_matches_plain_version(cuda, b, l, h, d, dtype, causal, mask_kind):
+def test_kernel_matches_plain_version(cuda, b, l, h, d, dtype, causal, mask_kind,
+                                      blocks):
     q, k, v, mask = _inputs(b, l, h, d, dtype, cuda, seed=l + d, mask_kind=mask_kind)
+    pair = {"block_q": blocks[0], "block_k": blocks[1]}
     before = fa.launches
-    out, lse = fa.flash_attention_forward(q, k, v, causal=causal, kv_mask=mask)
+    out, lse = fa.flash_attention_forward(q, k, v, causal=causal, kv_mask=mask,
+                                          **pair)
     torch.cuda.synchronize()
     assert fa.launches == before + 1
     ref_out, ref_lse = fa.flash_attention_reference(
@@ -153,9 +167,11 @@ def test_kernel_matches_plain_version(cuda, b, l, h, d, dtype, causal, mask_kind
     if mask_kind == "empty_row":
         assert out[-1].abs().max().item() == 0.0
         assert bool((lse.view(b, h, l)[-1] == fa.NEG_INF).all())
+    assert torch.equal(fa.flash_attention_forward(
+        q, k, v, causal=causal, kv_mask=mask, **pair)[0], out)
     if l > 1:  # the mask shifted by one key must fail both checks
         wrong_out, wrong_lse = fa.flash_attention_forward(
-            q, k, v, causal=causal, kv_mask=torch.roll(mask, 1, dims=1))
+            q, k, v, causal=causal, kv_mask=torch.roll(mask, 1, dims=1), **pair)
         assert not _within_fwd_bound(wrong_out, ref_out, term, dtype, l)
         assert not _within(wrong_lse, ref_lse, LSE_TOL)
 
@@ -276,8 +292,8 @@ def _within_bwd_bound(got, want, term, dtype, l):
 
 
 @pytest.mark.parametrize(
-    "b,l,h,d,dtype,causal,mask_kind,strided",
-    [
+    "b,l,h,d,dtype,causal,mask_kind,strided,blocks",
+    _at_every_built_pair("flash_bwd", [
         (256, 128, 12, 64, torch.bfloat16, False, "ragged", False),  # training
         (256, 64, 12, 64, torch.bfloat16, False, "ragged", False),   # BERT DAG
         (2, 200, 4, 64, torch.bfloat16, False, "ragged", False),
@@ -288,19 +304,22 @@ def _within_bwd_bound(got, want, term, dtype, l):
         (2, 77, 2, 64, torch.bfloat16, True, "none", False),
         (2, 200, 4, 64, torch.bfloat16, False, "hole", False),
         (3, 96, 2, 16, torch.bfloat16, True, "ragged", False),
-    ],
+        (2, 200, 4, 64, torch.bfloat16, True, "ragged", False),
+        (2, 130, 3, 128, torch.bfloat16, True, "ragged", False),
+    ]),
 )
 def test_backward_kernels_match_plain_versions(
-    cuda, b, l, h, d, dtype, causal, mask_kind, strided
+    cuda, b, l, h, d, dtype, causal, mask_kind, strided, blocks
 ):
     q, k, v, dout, mask = _bwd_inputs(b, l, h, d, dtype, cuda, l + d, mask_kind,
                                       strided)
+    pair = {"block_q": blocks[0], "block_k": blocks[1]}
     out, lse = fa.flash_attention_forward(q, k, v, causal=causal, kv_mask=mask)
     before = (fa.dvec_launches, fa.dq_launches, fa.dkv_launches)
     dvec = fa.flash_bwd_dvec(out, dout)
     args = (q, k, v, dout, lse, dvec)
-    dq = fa.flash_bwd_dq(*args, causal=causal, kv_mask=mask)
-    dk, dv = fa.flash_bwd_dkv(*args, causal=causal, kv_mask=mask)
+    dq = fa.flash_bwd_dq(*args, causal=causal, kv_mask=mask, **pair)
+    dk, dv = fa.flash_bwd_dkv(*args, causal=causal, kv_mask=mask, **pair)
     torch.cuda.synchronize()
     assert (fa.dvec_launches, fa.dq_launches, fa.dkv_launches) == tuple(
         n + 1 for n in before)
@@ -315,10 +334,14 @@ def test_backward_kernels_match_plain_versions(
     if mask_kind == "hole":  # the masked 64-key block gets nothing
         assert dk[:, 64:128].abs().max().item() == 0.0
         assert dv[:, 64:128].abs().max().item() == 0.0
+    assert torch.equal(fa.flash_bwd_dq(*args, causal=causal, kv_mask=mask,
+                                       **pair), dq)
+    assert all(torch.equal(a, b) for a, b in zip(fa.flash_bwd_dkv(
+        *args, causal=causal, kv_mask=mask, **pair), (dk, dv)))
     if mask is not None:  # the mask shifted by one key must fail the bound
         shifted = torch.roll(mask, 1, dims=1)
-        wrong = (fa.flash_bwd_dq(*args, causal=causal, kv_mask=shifted),
-                 *fa.flash_bwd_dkv(*args, causal=causal, kv_mask=shifted))
+        wrong = (fa.flash_bwd_dq(*args, causal=causal, kv_mask=shifted, **pair),
+                 *fa.flash_bwd_dkv(*args, causal=causal, kv_mask=shifted, **pair))
         for got, want, term in zip(wrong, refs, terms):
             assert not _within_bwd_bound(got, want, term, dtype, l)
 
@@ -343,6 +366,11 @@ def test_f32_backward_runs_the_fma_kernels_within_the_f32_bound(cuda):
     dvec = fa.flash_bwd_dvec(out, dout)
     args = (q, k, v, dout, lse, dvec)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # A kernel of no interest first: the session's first device event
+        # can go unrecorded (seen on the card with only the dq kernel
+        # before dk/dv).
+        torch.zeros(1, device=cuda).add_(1)
+        torch.cuda.synchronize()
         grads = (fa.flash_bwd_dq(*args, kv_mask=mask),
                  *fa.flash_bwd_dkv(*args, kv_mask=mask))
         torch.cuda.synchronize()
@@ -420,8 +448,8 @@ def _decode_inputs(b, l, h, d, dtype, device, seed, arena=False):
 
 
 @pytest.mark.parametrize(
-    "b,l,h,d,dtype,bias_kind,arena",
-    [
+    "b,l,h,d,dtype,bias_kind,arena,block_k",
+    _at_every_built_pair("flash_decode", [
         (16, 128, 8, 64, torch.bfloat16, "broadcast", False),  # served beam
         (256, 32, 8, 64, torch.bfloat16, "broadcast", False),  # T5 DAG's beam
         (8, 64, 8, 64, torch.bfloat16, "per_row", True),       # engine bucket
@@ -438,10 +466,11 @@ def _decode_inputs(b, l, h, d, dtype, device, seed, arena=False):
         (3, 2048, 8, 128, torch.bfloat16, "per_row", True),
         (11, 1000, 8, 64, torch.float16, "broadcast", False),
         (8, 2048, 8, 64, torch.bfloat16, "per_row", True),
-    ],
+        (4, 2048, 8, 128, torch.float16, "per_row", False),
+    ]),
 )
 def test_decode_kernel_matches_plain_version(cuda, b, l, h, d, dtype,
-                                             bias_kind, arena):
+                                             bias_kind, arena, block_k):
     q, k, v, gen = _decode_inputs(b, l, h, d, dtype, cuda, seed=l + d,
                                   arena=arena)
     pos = torch.randint(0, l, (b,), generator=gen)
@@ -452,7 +481,8 @@ def test_decode_kernel_matches_plain_version(cuda, b, l, h, d, dtype,
         rows = 1 if bias_kind == "broadcast" else b
         bias = torch.randn(rows, h, 1, l, generator=gen).to(cuda)
     before = fa.decode_launches
-    out = fa.flash_decode_attention(q, k, v, kv_mask=mask, bias=bias)
+    out = fa.flash_decode_attention(q, k, v, kv_mask=mask, bias=bias,
+                                    block_k=block_k)
     torch.cuda.synchronize()
     assert fa.decode_launches == before + 1
     ref = fa.flash_decode_attention_reference(q, k, v, kv_mask=mask, bias=bias)
@@ -461,13 +491,13 @@ def test_decode_kernel_matches_plain_version(cuda, b, l, h, d, dtype,
     assert out[-1].abs().max().item() == 0.0
     # A bool mask is the same mask; no mask attends to every key.
     assert torch.equal(fa.flash_decode_attention(q, k, v, kv_mask=mask > 0,
-                                                 bias=bias), out)
-    full = fa.flash_decode_attention(q, k, v, bias=bias)
+                                                 bias=bias, block_k=block_k), out)
+    full = fa.flash_decode_attention(q, k, v, bias=bias, block_k=block_k)
     assert _within(full, fa.flash_decode_attention_reference(q, k, v, bias=bias),
                    OUT_TOL[dtype])
     # Two launches agree bit for bit (the splits merge in rank order).
     assert torch.equal(fa.flash_decode_attention(q, k, v, kv_mask=mask,
-                                                 bias=bias), out)
+                                                 bias=bias, block_k=block_k), out)
 
 
 @pytest.mark.parametrize("b,l", [(16, 128), (256, 32), (4, 4096), (2, 1000),
@@ -517,8 +547,8 @@ def test_decode_kernel_info_reports_no_spills_and_clusters_fit(cuda):
 
 def test_decode_wrapper_raises_on_cuda_for_what_the_kernel_does_not_take(cuda):
     q, k, v, _ = _decode_inputs(2, 16, 2, 64, torch.bfloat16, cuda, seed=0)
-    with pytest.raises(ValueError, match="block_k"):
-        fa.flash_decode_attention(q, k, v, block_k=128)
+    with pytest.raises(ValueError, match="block_k"):   # none built <= 16
+        fa.flash_decode_attention(q, k, v, block_k=16)
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_decode_attention(q[..., 1:33], k[..., 1:33], v[..., 1:33])
     with pytest.raises(ValueError, match="kv_mask on"):
@@ -541,6 +571,46 @@ def test_backward_wrapper_raises_on_cuda_for_bad_saved_tensors(cuda):
 TINY_SERVE = {"vocab_size": 128, "d_model": 128, "n_layers": 2, "n_heads": 2,
               "d_ff": 256, "max_len": 64, "dropout_rate": 0.0,
               "num_classes": 3, "attn_impl": "flash"}
+
+
+def test_each_configurations_resources_and_the_table_blocks_on_the_card(
+        cuda, tmp_path, monkeypatch):
+    from tpu_pipelines_torch.ops import _build, autotune
+
+    for bq, bk in fa.FLASH_BLOCKS:
+        for d in fa.BLOCK_HEAD_DIMS:
+            info = fa.fwd_kernel_info(torch.bfloat16, d, 128, bq, bk)
+            assert info["shared_bytes"] == fa.smem_bytes("fwd", bq, bk, d) + 16
+            for kernel in ("dq", "dkv"):
+                info = fa.bwd_kernel_info(kernel, torch.bfloat16, d, 128, bq, bk)
+                assert info["shared_bytes"] == fa.smem_bytes(kernel, bq, bk, d) + (
+                    16 if kernel == "dq" else 0)
+    for block_k in fa.DECODE_BLOCKS:
+        assert fa.decode_kernel_info(torch.bfloat16, 64, 8, block_k)[
+            "max_active_clusters"] >= 1
+    # A library refuses any pair but its own, and f32 outside 64 x 64.
+    lib = _build.load("flash_attention", fa._PROTOTYPES, {"TPP_BQ": 128, "TPP_BK": 64})
+    info = (fa.ctypes.c_int * 3)()
+    assert lib.tpp_flash_fwd_kernel_info(2, 64, 128, 64, 64, info) != 0
+    assert lib.tpp_flash_fwd_kernel_info(0, 64, 128, 128, 64, info) != 0
+    assert lib.tpp_flash_fwd_kernel_info(2, 32, 128, 128, 64, info) != 0
+    # A table entry's blocks launch on the card.
+    monkeypatch.setenv("TPP_AUTOTUNE_CACHE", str(tmp_path))
+    autotune.clear_memo()
+    kind = autotune.current_device_kind(cuda)
+    q, k, v, mask = _inputs(2, 200, 4, 64, torch.bfloat16, cuda, seed=9)
+    for op, blocks in (("flash_fwd", (128, 32)), ("flash_bwd", (64, 128))):
+        autotune.record_entry(autotune.make_key(op, 2, 4, 200, 64, torch.bfloat16,
+                                                False, kind), *blocks, ms=1.0)
+    seen = []
+    real = _build.load
+    monkeypatch.setattr(_build, "load", lambda name, protos, defines=(): (
+        seen.append((name, dict(defines))), real(name, protos, defines))[1])
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa.flash_attention(*leaves, kv_mask=mask).float().sum().backward()
+    assert ("flash_attention", {"TPP_BQ": 128, "TPP_BK": 32}) in seen
+    assert ("flash_attention_bwd", {"TPP_BQ": 64, "TPP_BK": 128}) in seen
+    autotune.clear_memo()
 
 
 def _served_bert(tmp_path, cuda):

@@ -238,9 +238,11 @@ def test_parameter_counts_and_init_mirror_flax():
     assert sum(p.numel() for p in mnist.build_mnist_model({}).parameters()) == \
         _count(jax.eval_shape(lambda: ref_mnist.MnistCNN().init(
             jax.random.key(0), jnp.zeros((1, 28, 28, 1))))["params"])
-    # flax: zero scale on each block's last BatchNorm, LeCun-normal kernels.
+    # flax: zero scale on each block's last BatchNorm, LeCun-normal kernels
+    # (drawn over the model just counted: a second ResNet-50 cost most of
+    # this test's time on a loaded host).
     g = torch.Generator().manual_seed(0)
-    port = resnet.init_resnet_weights(resnet.build_resnet_model({}), g)
+    port = resnet.init_resnet_weights(port, g)
     block = port.blocks.stage2_block3
     assert torch.count_nonzero(block.bn2.weight) == 0
     assert torch.equal(block.bn0.weight, torch.ones_like(block.bn0.weight))

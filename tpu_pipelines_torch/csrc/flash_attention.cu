@@ -17,9 +17,9 @@
 //   - q/k/v are read as [B, L, H, D] through their strides (last dim
 //     contiguous) instead of a transposed [B*H, L, D] copy, and the [B, L]
 //     mask is read directly instead of being repeated per head;
-//   - one CTA owns one (batch*head, 64-row q-block) pair and loops over
-//     64-key blocks (the TPU's sequential grid axis); blocks above the
-//     causal diagonal are skipped;
+//   - one CTA owns one (batch*head, q-block) pair and loops over key
+//     blocks (the TPU's sequential grid axis); blocks above the causal
+//     diagonal are skipped;
 //   - ragged L is masked inside the kernel, so there is no divisibility rule.
 //
 // What bounds it: at the BERT-base shapes (L=128, H=12, D=64, bf16; B=32
@@ -30,14 +30,23 @@
 // f32 FMA rate.  So the 16-bit route runs its products on the tensor cores
 // and is bound by bytes.
 //
-// bf16 and fp16: flash_fwd_mma_kernel.  4 warps; warp w owns q rows 16w ..
-// 16w+15 of the CTA's block, and the q-blocks of one batch*head run in
+// Block configurations.  The bf16 and fp16 kernel is built once per block
+// pair (BQ query rows, BK keys), each pair a translation unit and a library
+// of its own (-DTPP_BQ=.. -DTPP_BK=..; ops/_build.py, ops/flash_attention.py
+// FLASH_BLOCKS): BQ in {64, 128}, BK in {32, 64, 128}, at head dims 64 and
+// 128; the default 64 x 64 library also holds D = 16 and 32 and the f32
+// kernel, which keeps 64 x 64.  The C entries take the pair and refuse any
+// other than their library's.  The CTA has one warp per 16 query rows (8
+// warps at BQ = 128), each running the code below unchanged.
+//
+// bf16 and fp16: flash_fwd_mma_kernel.  BQ/16 warps; warp w owns q rows 16w
+// .. 16w+15 of the CTA's block, and the q-blocks of one batch*head run in
 // neighbouring CTAs so that K and V come from memory once.  Q comes in once
 // by cp.async into a swizzled tile and its A fragments stay in registers; K
-// and V stream in 64-key blocks through a two-stage ring of 16-byte
+// and V stream in BK-key blocks through a two-stage ring of 16-byte
 // cp.async.cg copies, so block j+1 is in flight while block j is computed.
 // The CTA reads its batch row of the mask once into a bit set (a warp ballot
-// per 32 keys) and skips every 64-key block with no allowed key, so the
+// per 32 keys) and skips every key block with no allowed key, so the
 // bytes of masked padding are never read; block 0 is asked for before the
 // mask is read (it is live for nearly every row), and dropped if it is dead.
 // S = Q K^T is mma.sync m16n8k16 with f32 accumulation, 32 keys at a time:
@@ -78,9 +87,24 @@
 
 #include "tc_sm90.cuh"
 
+#ifndef TPP_BQ
+#define TPP_BQ 64
+#endif
+#ifndef TPP_BK
+#define TPP_BK 64
+#endif
+
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+
+constexpr int BQ = TPP_BQ;  // query rows per block
+constexpr int BK = TPP_BK;  // keys per block
+static_assert((BQ == 64 || BQ == 128) && (BK == 32 || BK == 64 || BK == 128),
+              "block configuration");
+// The default configuration's library also builds D = 16 and 32 and the
+// f32 kernel; every other one builds the 16-bit kernel at D = 64 and 128.
+constexpr bool DEFAULT_BLOCKS = BQ == 64 && BK == 64;
 
 // ------------------------------------------------------------ f32: FMAs
 
@@ -275,29 +299,32 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ------------------------------------------------- bf16 / fp16: tensor cores
 
-// CTAs per SM the launch bounds ask registers for at D <= 64 (128
-// registers a thread); shared memory (five 64-row tiles, 40 KB at D = 64)
-// would let 5 fit, but at 96 registers a thread the kernel spills.
+// CTAs of 4 warps per SM the launch bounds ask registers for at D <= 64
+// (128 registers a thread); shared memory (five 64-row tiles, 40 KB at
+// D = 64) would let 5 fit, but at 96 registers a thread the kernel spills.
+// A CTA of 8 warps (BQ = 128) asks for half as many.
 constexpr int FWD_MIN_CTAS = 4;
+constexpr int FWD_THREADS = BQ / 16 * 32;
 // Keys per online-softmax step: with 64 (a whole ring block) S and P take
 // 48 registers a thread, and the kernel spilled at every D <= 64.
 constexpr int CK = 32;
 
 template <int D>
 constexpr int fwd_mma_smem_bytes() {
-  // sQ and two stages of sK, sV: five 64-row tiles; the mask bit set
+  // sQ (BQ rows) and two stages of sK, sV (BK rows each); the mask bit set
   // (ceil(L / 32) words) is added at launch.
-  return 5 * BQ * D * 2;
+  return (BQ + 4 * BK) * D * 2;
 }
 
 // Grid: one CTA per (batch*head, q-block), x = batch*head * n_q + q-block:
 // the q-blocks of one batch*head run next to each other, so the second
-// CTA to read a K/V block finds it in L2.  Block: NTHREADS.  Warp w owns
+// CTA to read a K/V block finds it in L2.  Block: FWD_THREADS.  Warp w owns
 // rows 16w .. 16w+15 of the q-block; in the m16n8 layouts a thread holds
 // rows g = lane/4 and g + 8 and columns 2*(lane%4) + {0, 1} of each
 // 8-column tile.
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS, D <= 64 ? FWD_MIN_CTAS : 1)
+__global__ void __launch_bounds__(FWD_THREADS,
+                                  D <= 64 ? FWD_MIN_CTAS * NTHREADS / FWD_THREADS : 1)
     flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const int32_t* __restrict__ mask,
                          T* __restrict__ out, float* __restrict__ lse,
@@ -307,11 +334,13 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? FWD_MIN_CTAS : 1)
                          int64_t v_sb, int64_t v_sl, int64_t v_sh,
                          int causal, float scale) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
-  constexpr int TILE = BQ * D * 2;
-  constexpr int KD = D / 16;  // k-steps over the head dim
+  constexpr int QTILE = BQ * D * 2;  // bytes of the Q tile
+  constexpr int KTILE = BK * D * 2;  // bytes of one K (V) tile
+  constexpr int KD = D / 16;         // k-steps over the head dim
+  constexpr int NT = FWD_THREADS;
   const uint32_t sbase = smem_u32(tc_smem);
   const uint32_t sQ = sbase;
-  unsigned* sBits = reinterpret_cast<unsigned*>(tc_smem + 5 * TILE);
+  unsigned* sBits = reinterpret_cast<unsigned*>(tc_smem + QTILE + 4 * KTILE);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -327,9 +356,9 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? FWD_MIN_CTAS : 1)
   const int32_t* mp = mask == nullptr ? nullptr : mask + static_cast<int64_t>(b) * L;
 
   auto load_kv = [&](int kb, int stage) {
-    const uint32_t sK = sbase + (1 + 2 * stage) * TILE;
-    load_tile<D, BK>(sK, kp, k_sl, kb * BK, L);
-    load_tile<D, BK>(sK + TILE, vp, v_sl, kb * BK, L);
+    const uint32_t sK = sbase + QTILE + 2 * stage * KTILE;
+    load_tile<D, BK, NT>(sK, kp, k_sl, kb * BK, L);
+    load_tile<D, BK, NT>(sK + KTILE, vp, v_sl, kb * BK, L);
     cp_async_commit();
   };
 
@@ -337,14 +366,14 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? FWD_MIN_CTAS : 1)
   // first K/V block, while the mask is read: block 0 is live for nearly
   // every row, and waiting for the mask before asking for it put a second
   // memory latency in front of every CTA.
-  load_tile<D, BQ>(sQ, qp, q_sl, q0, L);
+  load_tile<D, BQ, NT>(sQ, qp, q_sl, q0, L);
   cp_async_commit();
   load_kv(0, 0);
 
   // The batch row's allowed keys as a bit set (bit k%32 of word k/32); bits
-  // past L stay 0.  A 64-key block is live iff its two words are not 0.
+  // past L stay 0.  A key block is live iff one of its BK/32 words is not 0.
   const int nwords = (L + 31) / 32;
-  for (int base = warp * 32; base < L; base += NTHREADS) {
+  for (int base = warp * 32; base < L; base += NT) {
     const int key = base + lane;
     const bool ok = key < L && (mp == nullptr || mp[key] > 0);
     const unsigned bits = __ballot_sync(0xffffffffu, ok);
@@ -358,8 +387,14 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? FWD_MIN_CTAS : 1)
   }
   __syncthreads();
   auto word = [&](int w) { return w < nwords ? sBits[w] : 0u; };
+  auto live = [&](int kb) {
+    unsigned any = 0u;
+#pragma unroll
+    for (int i = 0; i < BK / 32; ++i) any |= word(kb * (BK / 32) + i);
+    return any != 0u;
+  };
   auto next_live = [&](int kb) {
-    while (kb < n_kv && (word(2 * kb) | word(2 * kb + 1)) == 0u) ++kb;
+    while (kb < n_kv && !live(kb)) ++kb;
     return kb;
   };
 
@@ -396,7 +431,7 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? FWD_MIN_CTAS : 1)
     __syncthreads();  // block kb landed; every warp is done with the other stage
     const int nxt = next_live(kb + 1);
     if (nxt < n_kv) load_kv(nxt, stage ^ 1);
-    const uint32_t sK = sbase + (1 + 2 * stage) * TILE, sV = sK + TILE;
+    const uint32_t sK = sbase + QTILE + 2 * stage * KTILE, sV = sK + KTILE;
 
     // The block in chunks of CK keys, each one step of the online softmax.
 #pragma unroll 1
@@ -530,7 +565,7 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? FWD_MIN_CTAS : 1)
             l[i] > 0.f ? m[i] * scale + logf(l[i]) : NEG_INF;
   }
   __syncthreads();
-  store_tile<D, BQ>(out, tc_smem, b, q0, L, H, h);
+  store_tile<D, BQ, NT>(out, tc_smem, b, q0, L, H, h);
 }
 
 // ------------------------------------------------------------- dispatch
@@ -540,21 +575,34 @@ using FwdKernel = void (*)(const T*, const T*, const T*, const int32_t*, T*, flo
                            int64_t, int64_t, int64_t, int64_t, int64_t, int64_t, int64_t,
                            int64_t, int64_t, int, float);
 
-// The kernel for (T, D) and its dynamic shared memory at length L: f32
-// takes the FMA kernel, bf16 and fp16 the tensor-core kernel.
+// The kernel for (T, D), its threads and its dynamic shared memory at
+// length L: f32 takes the FMA kernel, bf16 and fp16 the tensor-core kernel.
 template <typename T>
 struct Pick {
   FwdKernel<T> kernel;
+  int threads;
   size_t smem;
 };
 
 template <typename T, int D>
 Pick<T> pick(int L) {
   if constexpr (std::is_same<T, float>::value) {
-    return {flash_fwd_kernel<T, D>, smem_floats<D>() * sizeof(float)};
+    return {flash_fwd_kernel<T, D>, NTHREADS, smem_floats<D>() * sizeof(float)};
   } else {
-    return {flash_fwd_mma_kernel<T, D>,
+    return {flash_fwd_mma_kernel<T, D>, FWD_THREADS,
             fwd_mma_smem_bytes<D>() + static_cast<size_t>((L + 31) / 32) * sizeof(unsigned)};
+  }
+}
+
+// Whether this library builds (T, D): every dtype and head dim at 64 x 64;
+// bf16 and fp16 at D = 64 and 128 in the other configurations, where their
+// fixed tiles fit the shared memory a block may opt into.
+template <typename T, int D>
+constexpr bool built() {
+  if constexpr (std::is_same<T, float>::value) {
+    return DEFAULT_BLOCKS;
+  } else {
+    return (DEFAULT_BLOCKS || D >= 64) && fwd_mma_smem_bytes<D>() <= MAX_SMEM;
   }
 }
 
@@ -565,19 +613,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int32_t* m
                    int64_t k_sb, int64_t k_sl, int64_t k_sh,
                    int64_t v_sb, int64_t v_sl, int64_t v_sh,
                    int causal, float scale, cudaStream_t stream) {
-  const Pick<T> p = pick<T, D>(L);
-  // Above 48 KB of dynamic shared memory a kernel must opt in; set on every
-  // launch so that each device the caller uses gets the attribute.
-  cudaError_t err = cudaFuncSetAttribute(
-      p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
-  if (err != cudaSuccess) return err;
-  const int n_q = (L + BQ - 1) / BQ;
-  const dim3 grid = std::is_same<T, float>::value ? dim3(B * H, n_q) : dim3(B * H * n_q);
-  p.kernel<<<grid, NTHREADS, p.smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      mask, static_cast<T*>(out), lse, L, H,
-      q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, causal, scale);
-  return cudaGetLastError();
+  if constexpr (!built<T, D>()) {
+    return cudaErrorInvalidValue;
+  } else {
+    const Pick<T> p = pick<T, D>(L);
+    // Above 48 KB of dynamic shared memory a kernel must opt in; set on
+    // every launch so that each device the caller uses gets the attribute.
+    cudaError_t err = cudaFuncSetAttribute(
+        p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
+    if (err != cudaSuccess) return err;
+    const int n_q = (L + BQ - 1) / BQ;
+    const dim3 grid = std::is_same<T, float>::value ? dim3(B * H, n_q) : dim3(B * H * n_q);
+    p.kernel<<<grid, p.threads, p.smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        mask, static_cast<T*>(out), lse, L, H,
+        q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, causal, scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -608,13 +660,17 @@ cudaError_t launch_dtype(int D, const void* q, const void* k, const void* v,
 // would run for (T, D), and its dynamic shared memory at length L.
 template <typename T, int D>
 cudaError_t kernel_info(int L, int* info) {
-  const Pick<T> p = pick<T, D>(L);
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, p.kernel);
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  info[2] = static_cast<int>(p.smem);
-  return err;
+  if constexpr (!built<T, D>()) {
+    return cudaErrorInvalidValue;
+  } else {
+    const Pick<T> p = pick<T, D>(L);
+    cudaFuncAttributes attr;
+    const cudaError_t err = cudaFuncGetAttributes(&attr, p.kernel);
+    info[0] = attr.numRegs;
+    info[1] = static_cast<int>(attr.localSizeBytes);
+    info[2] = static_cast<int>(p.smem);
+    return err;
+  }
 }
 
 template <typename T>
@@ -635,7 +691,9 @@ cudaError_t info_dim(int D, int L, int* info) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16.  Strides are in elements;
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16.  block_q x block_k must be
+// this library's configuration (TPP_BQ x TPP_BK) and (dtype, D) built in it,
+// else cudaErrorInvalidValue.  Strides are in elements;
 // the last dimension of q/k/v must be contiguous, and for float16 /
 // bfloat16 every row must start on a 16-byte boundary.  mask is [B, L]
 // int32 or null (every key allowed).  out is a contiguous [B, L, H, D]
@@ -647,7 +705,9 @@ extern "C" int tpp_flash_fwd(const void* q, const void* k, const void* v,
                              int64_t q_sb, int64_t q_sl, int64_t q_sh,
                              int64_t k_sb, int64_t k_sl, int64_t k_sh,
                              int64_t v_sb, int64_t v_sl, int64_t v_sh,
-                             int causal, float scale, void* stream) {
+                             int causal, float scale, int block_q, int block_k,
+                             void* stream) {
+  if (block_q != BQ || block_k != BK) return cudaErrorInvalidValue;
   const int32_t* m = static_cast<const int32_t*>(mask);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -667,10 +727,13 @@ extern "C" int tpp_flash_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// Resources of the forward kernel for dtype and head dim D: info[0]
-// registers a thread, info[1] local memory bytes a thread (spills),
-// info[2] dynamic shared memory bytes at length L.
-extern "C" int tpp_flash_fwd_kernel_info(int dtype, int D, int L, int* info) {
+// Resources of the forward kernel for dtype, head dim D and block_q x
+// block_k (this library's configuration): info[0] registers a thread,
+// info[1] local memory bytes a thread (spills), info[2] dynamic shared
+// memory bytes at length L.
+extern "C" int tpp_flash_fwd_kernel_info(int dtype, int D, int L, int block_q,
+                                         int block_k, int* info) {
+  if (block_q != BQ || block_k != BK) return cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return info_dim<float>(D, L, info);

@@ -5,12 +5,12 @@
 // Two kernels for each route, as the TPU reference has (no atomics, so
 // every gradient is the same bit for bit from run to run):
 //   - dq replaces tpu_pipelines/ops/flash_attention.py:_dq_kernel.  One CTA
-//     per (batch*head, 64-row q-block) loops over 64-key blocks and
-//     accumulates dQ = scale * dS K, with
+//     per (batch*head, q-block) loops over key blocks and accumulates
+//     dQ = scale * dS K, with
 //       s  = scale * q k^T,
 //       p  = allowed ? exp(s - lse) : 0,
 //       dS = p * (dO v^T - Dvec);
-//   - dkv replaces _dkv_kernel.  One CTA per (batch*head, 64-key block)
+//   - dkv replaces _dkv_kernel.  One CTA per (batch*head, key block)
 //     keeps its K and V rows in shared memory, loops over q-blocks
 //     (streaming Q, dO, lse and Dvec) and accumulates dV = P^T dO and
 //     dK = scale * dS^T Q;
@@ -36,9 +36,19 @@
 // same and writes dk and dv.  Both are bound by bytes once their products
 // run on the tensor cores.
 //
+// Block configurations.  The bf16 and fp16 kernels are built once per block
+// pair (BQ query rows, BK keys; both kernels take the same pair, as the
+// reference's do), each pair a translation unit and a library of its own
+// (-DTPP_BQ=.. -DTPP_BK=..; ops/_build.py, ops/flash_attention.py
+// FLASH_BLOCKS): BQ in {64, 128}, BK in {32, 64, 128}, at head dims 64 and
+// 128; the default 64 x 64 library also holds D = 16 and 32, the f32
+// kernels (which keep 64 x 64) and Dvec.  The C entries take the pair and
+// refuse any other than their library's.
+//
 // bf16 and fp16: the tensor-core kernels (flash_bwd_dq_mma_kernel,
-// flash_bwd_dkv_mma_kernel).  4 warps, each owning 16 rows of the CTA's
-// block; every product is mma.sync m16n8k16 with f32 accumulation, its
+// flash_bwd_dkv_mma_kernel).  One warp per 16 rows of the CTA's block (the
+// q-block's rows for dq, BQ/16 warps; the key block's for dkv, BK/16
+// warps); every product is mma.sync m16n8k16 with f32 accumulation, its
 // operands read from shared memory by ldmatrix (.trans where the product
 // needs the tile transposed).  Tiles stay in the input dtype with an XOR
 // swizzle on 16-byte chunks, so ldmatrix and the cp.async writes are free
@@ -54,13 +64,14 @@
 // products, as SDPA and dense bf16 attention do (the plain versions keep
 // them in f32; the checks bound the difference per element).  Blocks are
 // skipped from the mask itself, not from a length: dq reads the CTA's
-// batch row of the mask once into a bit set and skips 64-key blocks with
-// no allowed key; a dkv CTA whose own 64 keys are all masked writes zeros
-// and returns.  Registers, not shared memory, limit how many CTAs share
-// an SM, so each 64-wide block is computed in chunks of 32 keys (dq) or
+// batch row of the mask once into a bit set and skips key blocks with no
+// allowed key; a dkv CTA whose own keys are all masked writes zeros and
+// returns.  Registers, not shared memory, limit how many CTAs share an
+// SM, so each block is computed in chunks of 32 keys (dq) or
 // queries (dkv; 16 at D = 128, where dK and dV alone take 128 registers a
 // thread): only one chunk's S, dP and A fragments are live at a time, and
-// the launch bounds ask for 4 (dq) and 3 (dkv) CTAs per SM at D <= 64.
+// the launch bounds ask for 4 (dq) and 3 (dkv) CTAs of 4 warps per SM at
+// D <= 64 (as many registers a thread for other warp counts).
 // exp is the SFU's ex2.approx on log2e-scaled scores.  mma.sync and
 // cp.async rather than wgmma and TMA: at the training shape the products
 // need ~20% of the tensor cores' peak to stay under the byte bound, and
@@ -82,7 +93,23 @@
 
 #include "tc_sm90.cuh"
 
+#ifndef TPP_BQ
+#define TPP_BQ 64
+#endif
+#ifndef TPP_BK
+#define TPP_BK 64
+#endif
+
 namespace {
+
+constexpr int BQ = TPP_BQ;  // query rows per block
+constexpr int BK = TPP_BK;  // keys per block
+static_assert((BQ == 64 || BQ == 128) && (BK == 32 || BK == 64 || BK == 128),
+              "block configuration");
+// The default configuration's library also builds D = 16 and 32, the f32
+// kernels and Dvec; every other one builds the 16-bit kernels at D = 64
+// and 128.
+constexpr bool DEFAULT_BLOCKS = BQ == 64 && BK == 64;
 
 // Everything both kernels read.  Strides are in elements, for dims
 // (batch, len, head) of q, k, v and dout; the last dim is contiguous.
@@ -416,33 +443,40 @@ __global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv_kernel(BwdArgs a) {
 
 // The helpers (Tc, ldmatrix, cp.async, swizzled tiles) are in tc_sm90.cuh.
 
-// CTAs per SM the launch bounds ask registers for at D <= 64: dq 4 (128
-// registers a thread), dk/dv 3 (168).  Left to itself the compiler takes
-// 180-200 registers, so only 2 CTAs (8 warps) share an SM to hide the
-// copies' latency, and both kernels ran slower on the card that way.
+// CTAs of 4 warps per SM the launch bounds ask registers for at D <= 64:
+// dq 4 (128 registers a thread), dk/dv 3 (168).  Left to itself the
+// compiler takes 180-200 registers, so only 2 CTAs (8 warps) share an SM to
+// hide the copies' latency, and both kernels ran slower on the card that
+// way.  A CTA of another warp count asks for the same registers a thread
+// (dk/dv at 8 warps: no bound, one such CTA an SM).
 constexpr int DQ_MIN_CTAS = 4;
 constexpr int DKV_MIN_CTAS = 3;
+constexpr int DQ_THREADS = BQ / 16 * 32;
+constexpr int DKV_THREADS = BK / 16 * 32;
 
 template <int D>
 constexpr int dq_mma_smem_bytes() {
-  // sQ, sdO and two stages of sK, sV: six 64-row tiles; the mask bit set
+  // sQ, sdO (BQ rows) and two stages of sK, sV (BK rows); the mask bit set
   // (ceil(L / 32) words) is added at launch.
-  return 6 * BQ * D * 2;
+  return (2 * BQ + 4 * BK) * D * 2;
 }
 
-// Grid: x = batch*head, y = q-block.  Block: NTHREADS.  Warp w owns rows
+// Grid: x = batch*head, y = q-block.  Block: DQ_THREADS.  Warp w owns rows
 // 16w .. 16w+15 of the q-block; in the m16n8 layouts a thread holds rows
 // g = lane/4 and g + 8 and columns 2*(lane%4) + {0, 1} of each 8-column
 // tile.
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS, D <= 64 ? DQ_MIN_CTAS : 1)
+__global__ void __launch_bounds__(DQ_THREADS,
+                                  D <= 64 ? DQ_MIN_CTAS * NTHREADS / DQ_THREADS : 1)
     flash_bwd_dq_mma_kernel(BwdArgs a) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
-  constexpr int TILE = BQ * D * 2;
-  constexpr int KD = D / 16;  // k-steps over the head dim
+  constexpr int QT = BQ * D * 2;  // bytes of the Q (dO) tile
+  constexpr int KT = BK * D * 2;  // bytes of one K (V) tile
+  constexpr int KD = D / 16;      // k-steps over the head dim
+  constexpr int NT = DQ_THREADS;
   const uint32_t sbase = smem_u32(tc_smem);
-  const uint32_t sQ = sbase, sdO = sbase + TILE;
-  unsigned* sBits = reinterpret_cast<unsigned*>(tc_smem + 6 * TILE);
+  const uint32_t sQ = sbase, sdO = sbase + QT;
+  unsigned* sBits = reinterpret_cast<unsigned*>(tc_smem + 2 * QT + 4 * KT);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -461,13 +495,13 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? DQ_MIN_CTAS : 1)
   const float* dp_vec = a.dvec + static_cast<int64_t>(bh) * L;
 
   // Q and dO start on their way while the mask is read.
-  load_tile<D, BQ>(sQ, qp, a.q_sl, q0, L);
-  load_tile<D, BQ>(sdO, op, a.o_sl, q0, L);
+  load_tile<D, BQ, NT>(sQ, qp, a.q_sl, q0, L);
+  load_tile<D, BQ, NT>(sdO, op, a.o_sl, q0, L);
 
   // The batch row's allowed keys as a bit set (bit k%32 of word k/32); bits
-  // past L stay 0.  A 64-key block is live iff its two words are not 0.
+  // past L stay 0.  A key block is live iff one of its BK/32 words is not 0.
   const int nwords = (L + 31) / 32;
-  for (int base = warp * 32; base < L; base += NTHREADS) {
+  for (int base = warp * 32; base < L; base += NT) {
     const int key = base + lane;
     const bool ok = key < L && (mp == nullptr || mp[key] > 0);
     const unsigned bits = __ballot_sync(0xffffffffu, ok);
@@ -481,14 +515,20 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? DQ_MIN_CTAS : 1)
   }
   __syncthreads();
   auto word = [&](int w) { return w < nwords ? sBits[w] : 0u; };
+  auto live = [&](int kb) {
+    unsigned any = 0u;
+#pragma unroll
+    for (int i = 0; i < BK / 32; ++i) any |= word(kb * (BK / 32) + i);
+    return any != 0u;
+  };
   auto next_live = [&](int kb) {
-    while (kb < n_kv && (word(2 * kb) | word(2 * kb + 1)) == 0u) ++kb;
+    while (kb < n_kv && !live(kb)) ++kb;
     return kb;
   };
   auto load_kv = [&](int kb, int stage) {
-    const uint32_t sK = sbase + (2 + 2 * stage) * TILE;
-    load_tile<D, BK>(sK, kp, a.k_sl, kb * BK, L);
-    load_tile<D, BK>(sK + TILE, vp, a.v_sl, kb * BK, L);
+    const uint32_t sK = sbase + 2 * QT + 2 * stage * KT;
+    load_tile<D, BK, NT>(sK, kp, a.k_sl, kb * BK, L);
+    load_tile<D, BK, NT>(sK + KT, vp, a.v_sl, kb * BK, L);
     cp_async_commit();
   };
 
@@ -517,9 +557,9 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? DQ_MIN_CTAS : 1)
     __syncthreads();  // block kb landed; every warp is done with the other stage
     const int nxt = next_live(kb + 1);
     if (nxt < n_kv) load_kv(nxt, stage ^ 1);
-    const uint32_t sK = sbase + (2 + 2 * stage) * TILE, sV = sK + TILE;
+    const uint32_t sK = sbase + 2 * QT + 2 * stage * KT, sV = sK + KT;
 
-    // The block in two chunks of 32 keys (one mask word each), so that a
+    // The block in chunks of 32 keys (one mask word each), so that a
     // chunk's S, dP and dS fragments are all a thread keeps live.
 #pragma unroll 1
     for (int ch = 0; ch < BK / 32; ++ch) {
@@ -592,7 +632,7 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? DQ_MIN_CTAS : 1)
   __syncthreads();
   acc_to_tile<T, D>(tc_smem, acc, warp * 16, a.scale);
   __syncthreads();
-  store_tile<D, BQ>(static_cast<T*>(a.dq), tc_smem, b, q0, L, a.H, h);
+  store_tile<D, BQ, NT>(static_cast<T*>(a.dq), tc_smem, b, q0, L, a.H, h);
 }
 
 template <int D>
@@ -601,10 +641,12 @@ constexpr int dkv_mma_smem_bytes() {
   return 2 * BK * D * 2 + 4 * BQ * D * 2 + 4 * BQ * 4;
 }
 
-// Grid: x = batch*head, y = kv-block.  Block: NTHREADS.  Warp w owns keys
-// 16w .. 16w+15 of the kv-block (the rows of S^T, dP^T, dK and dV).
+// Grid: x = batch*head, y = kv-block.  Block: DKV_THREADS.  Warp w owns
+// keys 16w .. 16w+15 of the kv-block (the rows of S^T, dP^T, dK and dV).
 template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS, D <= 64 ? DKV_MIN_CTAS : 1)
+__global__ void __launch_bounds__(
+    DKV_THREADS, D <= 64 && DKV_MIN_CTAS * NTHREADS / DKV_THREADS > 1
+                     ? DKV_MIN_CTAS * NTHREADS / DKV_THREADS : 1)
     flash_bwd_dkv_mma_kernel(BwdArgs a) {
   extern __shared__ __align__(128) unsigned char tc_smem[];
   constexpr int QB = BQ;
@@ -614,6 +656,7 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? DKV_MIN_CTAS : 1)
   constexpr int KT = BK * D * 2;  // bytes of the K (V) tile
   constexpr int QT = QB * D * 2;  // bytes of one Q (dO) tile
   constexpr int KD = D / 16;
+  constexpr int NT = DKV_THREADS;
   const uint32_t sbase = smem_u32(tc_smem);
   const uint32_t sK = sbase, sV = sbase + KT;
   float* sRow = reinterpret_cast<float*>(tc_smem + 2 * KT + 4 * QT);  // [2][lse, Dvec][QB]
@@ -641,7 +684,7 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? DKV_MIN_CTAS : 1)
   const bool mine = tid < BK && my_key < L && (mp == nullptr || mp[my_key] > 0);
   if (!__syncthreads_or(mine)) {
     constexpr int CH = D / 8;
-    for (int i = tid; i < BK * CH; i += NTHREADS) {
+    for (int i = tid; i < BK * CH; i += NT) {
       const int row = k0 + i / CH;
       if (row >= L) continue;
       const int64_t at = ((static_cast<int64_t>(b) * L + row) * a.H + h) * D + (i % CH) * 8;
@@ -651,15 +694,15 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? DKV_MIN_CTAS : 1)
     return;
   }
 
-  load_tile<D, BK>(sK, kp, a.k_sl, k0, L);
-  load_tile<D, BK>(sV, vp, a.v_sl, k0, L);
+  load_tile<D, BK, NT>(sK, kp, a.k_sl, k0, L);
+  load_tile<D, BK, NT>(sV, vp, a.v_sl, k0, L);
   auto load_q = [&](int qb, int stage) {
     const int q0 = qb * QB;
     const uint32_t sQ = sbase + 2 * KT + stage * 2 * QT;
-    load_tile<D, QB>(sQ, qp, a.q_sl, q0, L);
-    load_tile<D, QB>(sQ + QT, op, a.o_sl, q0, L);
+    load_tile<D, QB, NT>(sQ, qp, a.q_sl, q0, L);
+    load_tile<D, QB, NT>(sQ + QT, op, a.o_sl, q0, L);
     const uint32_t srow = smem_u32(sRow + stage * 2 * QB);
-    for (int i = tid; i < QB; i += NTHREADS) {
+    for (int i = tid; i < QB; i += NT) {
       const int row = q0 + i;
       const int at = row < L ? row : 0;
       cp_async4(srow + 4 * i, lp + at, row < L ? 4 : 0);
@@ -773,8 +816,8 @@ __global__ void __launch_bounds__(NTHREADS, D <= 64 ? DKV_MIN_CTAS : 1)
   acc_to_tile<T, D>(tc_smem, dk, warp * 16, a.scale);
   acc_to_tile<T, D>(tc_smem + KT, dv, warp * 16, 1.f);
   __syncthreads();
-  store_tile<D, BK>(dkp, tc_smem, b, k0, L, a.H, h);
-  store_tile<D, BK>(dvp, tc_smem + KT, b, k0, L, a.H, h);
+  store_tile<D, BK, NT>(dkp, tc_smem, b, k0, L, a.H, h);
+  store_tile<D, BK, NT>(dvp, tc_smem + KT, b, k0, L, a.H, h);
 }
 
 // Dvec = rowsum(dO * O), f32, out [B*H, L].  Each row of D elements is read
@@ -813,40 +856,53 @@ __global__ void __launch_bounds__(DVEC_THREADS)
 }
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, size_t smem, dim3 grid, const BwdArgs& a,
+cudaError_t launch(Kernel kernel, int threads, size_t smem, dim3 grid, const BwdArgs& a,
                    cudaStream_t stream) {
   // Above 48 KB of dynamic shared memory a kernel must opt in; set on every
   // launch so that each device the caller uses gets the attribute.
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, NTHREADS, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch_dq(const BwdArgs& a, int B, cudaStream_t stream) {
-  return launch(flash_bwd_dq_kernel<T, D>, dq_smem_floats<D>() * sizeof(float),
+  return launch(flash_bwd_dq_kernel<T, D>, NTHREADS, dq_smem_floats<D>() * sizeof(float),
                 dim3(B * a.H, (a.L + BQ - 1) / BQ), a, stream);
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv(const BwdArgs& a, int B, cudaStream_t stream) {
-  return launch(flash_bwd_dkv_kernel<T, D>, dkv_smem_floats<D>() * sizeof(float),
+  return launch(flash_bwd_dkv_kernel<T, D>, NTHREADS, dkv_smem_floats<D>() * sizeof(float),
                 dim3(B * a.H, (a.L + BK - 1) / BK), a, stream);
 }
 
 template <typename T, int D>
 cudaError_t launch_dq_mma(const BwdArgs& a, int B, cudaStream_t stream) {
   const size_t bits = static_cast<size_t>((a.L + 31) / 32) * sizeof(unsigned);
-  return launch(flash_bwd_dq_mma_kernel<T, D>, dq_mma_smem_bytes<D>() + bits,
+  return launch(flash_bwd_dq_mma_kernel<T, D>, DQ_THREADS, dq_mma_smem_bytes<D>() + bits,
                 dim3(B * a.H, (a.L + BQ - 1) / BQ), a, stream);
 }
 
 template <typename T, int D>
 cudaError_t launch_dkv_mma(const BwdArgs& a, int B, cudaStream_t stream) {
-  return launch(flash_bwd_dkv_mma_kernel<T, D>, dkv_mma_smem_bytes<D>(),
+  return launch(flash_bwd_dkv_mma_kernel<T, D>, DKV_THREADS, dkv_mma_smem_bytes<D>(),
                 dim3(B * a.H, (a.L + BK - 1) / BK), a, stream);
+}
+
+// Whether this library builds (T, D): every dtype and head dim at 64 x 64;
+// bf16 and fp16 at D = 64 and 128 in the other configurations, where both
+// kernels' fixed tiles fit the shared memory a block may opt into.
+template <typename T, int D>
+constexpr bool built() {
+  if constexpr (std::is_same<T, float>::value) {
+    return DEFAULT_BLOCKS;
+  } else {
+    return (DEFAULT_BLOCKS || D >= 64) && dq_mma_smem_bytes<D>() <= MAX_SMEM &&
+           dkv_mma_smem_bytes<D>() <= MAX_SMEM;
+  }
 }
 
 // One instantiation per (route, head dim); which = 0 for dq, 1 for dk/dv.
@@ -856,7 +912,9 @@ cudaError_t dispatch_dim(int which, int D, const BwdArgs& a, int B, cudaStream_t
   constexpr bool kFma = std::is_same<T, float>::value;
 #define TPP_BWD_CASE(DIM)                                                        \
   case DIM:                                                                      \
-    if constexpr (kFma) {                                                        \
+    if constexpr (!built<T, DIM>()) {                                            \
+      return cudaErrorInvalidValue;                                              \
+    } else if constexpr (kFma) {                                                 \
       return which == 0 ? launch_dq<T, DIM>(a, B, s) : launch_dkv<T, DIM>(a, B, s); \
     } else {                                                                     \
       return which == 0 ? launch_dq_mma<T, DIM>(a, B, s)                         \
@@ -891,23 +949,27 @@ int dispatch(int which, int dtype, int D, const BwdArgs& a, int B, void* stream)
 // dispatch_dim would launch, and its dynamic shared memory at length L.
 template <typename T, int D>
 cudaError_t kernel_info(int which, int L, int* info) {
-  cudaFuncAttributes attr;
-  cudaError_t err;
-  size_t smem;
-  if constexpr (std::is_same<T, float>::value) {
-    err = which == 0 ? cudaFuncGetAttributes(&attr, flash_bwd_dq_kernel<T, D>)
-                     : cudaFuncGetAttributes(&attr, flash_bwd_dkv_kernel<T, D>);
-    smem = (which == 0 ? dq_smem_floats<D>() : dkv_smem_floats<D>()) * sizeof(float);
+  if constexpr (!built<T, D>()) {
+    return cudaErrorInvalidValue;
   } else {
-    err = which == 0 ? cudaFuncGetAttributes(&attr, flash_bwd_dq_mma_kernel<T, D>)
-                     : cudaFuncGetAttributes(&attr, flash_bwd_dkv_mma_kernel<T, D>);
-    smem = which == 0 ? dq_mma_smem_bytes<D>() + ((L + 31) / 32) * sizeof(unsigned)
-                      : dkv_mma_smem_bytes<D>();
+    cudaFuncAttributes attr;
+    cudaError_t err;
+    size_t smem;
+    if constexpr (std::is_same<T, float>::value) {
+      err = which == 0 ? cudaFuncGetAttributes(&attr, flash_bwd_dq_kernel<T, D>)
+                       : cudaFuncGetAttributes(&attr, flash_bwd_dkv_kernel<T, D>);
+      smem = (which == 0 ? dq_smem_floats<D>() : dkv_smem_floats<D>()) * sizeof(float);
+    } else {
+      err = which == 0 ? cudaFuncGetAttributes(&attr, flash_bwd_dq_mma_kernel<T, D>)
+                       : cudaFuncGetAttributes(&attr, flash_bwd_dkv_mma_kernel<T, D>);
+      smem = which == 0 ? dq_mma_smem_bytes<D>() + ((L + 31) / 32) * sizeof(unsigned)
+                        : dkv_mma_smem_bytes<D>();
+    }
+    info[0] = attr.numRegs;
+    info[1] = static_cast<int>(attr.localSizeBytes);
+    info[2] = static_cast<int>(smem);
+    return err;
   }
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  info[2] = static_cast<int>(smem);
-  return err;
 }
 
 template <typename T>
@@ -929,13 +991,17 @@ cudaError_t info_dim(int which, int D, int L, int* info) {
 template <typename T, int D>
 cudaError_t launch_dvec(const void* o, const void* dout, void* dvec, int B, int L, int H,
                         const int64_t* st, cudaStream_t stream) {
-  constexpr int LANES = D * static_cast<int>(sizeof(T)) / 16;
-  const int64_t rows = static_cast<int64_t>(B) * L * H;
-  const int64_t blocks = (rows * LANES + DVEC_THREADS - 1) / DVEC_THREADS;
-  flash_bwd_dvec_kernel<T, D><<<static_cast<unsigned>(blocks), DVEC_THREADS, 0, stream>>>(
-      static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<float*>(dvec), L, H,
-      rows, st[0], st[1], st[2], st[3], st[4], st[5]);
-  return cudaGetLastError();
+  if constexpr (!DEFAULT_BLOCKS) {
+    return cudaErrorInvalidValue;  // Dvec is built in the 64 x 64 library only
+  } else {
+    constexpr int LANES = D * static_cast<int>(sizeof(T)) / 16;
+    const int64_t rows = static_cast<int64_t>(B) * L * H;
+    const int64_t blocks = (rows * LANES + DVEC_THREADS - 1) / DVEC_THREADS;
+    flash_bwd_dvec_kernel<T, D><<<static_cast<unsigned>(blocks), DVEC_THREADS, 0, stream>>>(
+        static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<float*>(dvec), L,
+        H, rows, st[0], st[1], st[2], st[3], st[4], st[5]);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -982,7 +1048,9 @@ BwdArgs pack(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = float16, 2 = bfloat16.  strides: 12 int64 in
+// dtype: 0 = float32, 1 = float16, 2 = bfloat16.  block_q x block_k must be
+// this library's configuration (TPP_BQ x TPP_BK) and (dtype, D) built in
+// it, else cudaErrorInvalidValue.  strides: 12 int64 in
 // elements, (batch, len, head) of q, k, v and dout in that order; the last
 // dimension of each must be contiguous, and for float16 / bfloat16 every
 // row must start on a 16-byte boundary.  mask is [B, L] int32 or null;
@@ -993,7 +1061,8 @@ extern "C" int tpp_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* mask, const void* lse,
                                 const void* dvec, void* dq, int dtype, int B, int L,
                                 int H, int D, const int64_t* strides, int causal,
-                                float scale, void* stream) {
+                                float scale, int block_q, int block_k, void* stream) {
+  if (block_q != BQ || block_k != BK) return cudaErrorInvalidValue;
   const BwdArgs a = pack(q, k, v, dout, mask, lse, dvec, dq, nullptr, nullptr, L, H,
                          strides, causal, scale);
   return dispatch(0, dtype, D, a, B, stream);
@@ -1003,14 +1072,16 @@ extern "C" int tpp_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* mask, const void* lse,
                                  const void* dvec, void* dk, void* dv, int dtype, int B,
                                  int L, int H, int D, const int64_t* strides, int causal,
-                                 float scale, void* stream) {
+                                 float scale, int block_q, int block_k, void* stream) {
+  if (block_q != BQ || block_k != BK) return cudaErrorInvalidValue;
   const BwdArgs a = pack(q, k, v, dout, mask, lse, dvec, nullptr, dk, dv, L, H,
                          strides, causal, scale);
   return dispatch(1, dtype, D, a, B, stream);
 }
 
 // Dvec of out and dout ([B, L, H, D] of one dtype, rows on 16-byte
-// boundaries, last dim contiguous) into a contiguous float32 [B*H, L].
+// boundaries, last dim contiguous) into a contiguous float32 [B*H, L]; in
+// the 64 x 64 library only.
 // strides: 6 int64 in elements, (batch, len, head) of out, then of dout.
 extern "C" int tpp_flash_bwd_dvec(const void* out, const void* dout, void* dvec, int dtype,
                                   int B, int L, int H, int D, const int64_t* strides,
@@ -1028,10 +1099,13 @@ extern "C" int tpp_flash_bwd_dvec(const void* out, const void* dout, void* dvec,
   }
 }
 
-// Resources of the dq (which = 0) or dk/dv (which = 1) kernel for dtype and
-// head dim D: info[0] registers a thread, info[1] local memory bytes a
-// thread (spills), info[2] dynamic shared memory bytes at length L.
-extern "C" int tpp_flash_bwd_kernel_info(int which, int dtype, int D, int L, int* info) {
+// Resources of the dq (which = 0) or dk/dv (which = 1) kernel for dtype,
+// head dim D and block_q x block_k (this library's configuration): info[0]
+// registers a thread, info[1] local memory bytes a thread (spills), info[2]
+// dynamic shared memory bytes at length L.
+extern "C" int tpp_flash_bwd_kernel_info(int which, int dtype, int D, int L, int block_q,
+                                         int block_k, int* info) {
+  if (block_q != BQ || block_k != BK) return cudaErrorInvalidValue;
   switch (dtype) {
     case 0:
       return info_dim<float>(which, D, L, info);

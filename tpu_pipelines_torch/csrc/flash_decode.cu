@@ -28,11 +28,17 @@
 //
 //   1. Enough CTAs.  The wrapper picks S splits (ops/flash_attention.py
 //      decode_splits: about 2 CTAs per SM over B*H, at most 8, at least two
-//      64-key blocks a split, none for a cache of at most 4 blocks, where
-//      the merge would cost more than the walk it shortens) and the grid
-//      has S*B*H CTAs.  Split r takes a contiguous run of whole 64-key
+//      BLOCK_K-key blocks a split, none for a cache of at most 4 blocks,
+//      where the merge would cost more than the walk it shortens) and the
+//      grid has S*B*H CTAs.  Split r takes a contiguous run of whole
 //      blocks, [r*nb/S, (r+1)*nb/S).  A one-row beam request (B=4, H=8) at
-//      a 4096-key cache runs 256 CTAs instead of 32.
+//      a 4096-key cache runs 256 CTAs instead of 32.  BLOCK_K is the
+//      library's block configuration (-DTPP_BLOCK_K=..; ops/_build.py,
+//      ops/flash_attention.py DECODE_BLOCKS): 32, 64 or 128 for bf16 and
+//      fp16 at head dims 64 and 128; the default 64 library also holds
+//      D = 16 and 32 and f32, which keeps 64.  It sets the split's grain
+//      and the split rule's counts; the walk's steps (2 keys a group) are
+//      the same in every built configuration.
 //   2. The validity mask off the critical path.  A CTA reads the mask of a
 //      chunk of up to 2048 of its keys in one pass (every load in flight at
 //      once, int32 or bool read in place through its strides, batch stride
@@ -84,13 +90,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
+
+#ifndef TPP_BLOCK_K
+#define TPP_BLOCK_K 64
+#endif
 
 namespace {
 
 constexpr int NTHREADS = 128;   // 4 warps
 constexpr int MIN_BLOCKS = 4;   // CTAs per SM the registers must allow
-constexpr int BLOCK_K = 64;     // keys per block; a split is whole blocks
+constexpr int BLOCK_K = TPP_BLOCK_K;  // keys per block; a split is whole blocks
+static_assert(BLOCK_K == 32 || BLOCK_K == 64 || BLOCK_K == 128, "block configuration");
+// The default configuration's library builds every dtype and head dim;
+// every other one bf16 and fp16 at D = 64 and 128.
+constexpr bool DEFAULT_BLOCK = BLOCK_K == 64;
 constexpr int MAX_UNROLL = 2;   // keys a group takes per step
 constexpr int MAX_SPLITS = 8;   // the portable cluster size
 constexpr int CHUNK = 2048;     // keys whose mask one pass reads into bits
@@ -220,7 +236,7 @@ flash_decode_kernel(const DecodeArgs a) {
   if (a.splits > 1)
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
-  // This split's keys: whole 64-key blocks [split*nb/S, (split+1)*nb/S).
+  // This split's keys: whole blocks [split*nb/S, (split+1)*nb/S).
   const int nb = (a.L + BLOCK_K - 1) / BLOCK_K;
   const int k_begin = split * nb / a.splits * BLOCK_K;
   const int k_end = min(a.L, (split + 1) * nb / a.splits * BLOCK_K);
@@ -388,14 +404,29 @@ flash_decode_kernel(const DecodeArgs a) {
 
 using KernelFn = void (*)(DecodeArgs);
 
+// Whether this library builds (T, D).
+template <typename T, int D>
+constexpr bool built() {
+  return DEFAULT_BLOCK || (!std::is_same<T, float>::value && D >= 64);
+}
+
+template <typename T, int D>
+KernelFn kernel_if_built() {
+  if constexpr (built<T, D>()) {
+    return flash_decode_kernel<T, D>;
+  } else {
+    return nullptr;
+  }
+}
+
 // The kernel for (dtype, D), or null.
 template <typename T>
 KernelFn kernel_for_dim(int D) {
   switch (D) {
-    case 16: return flash_decode_kernel<T, 16>;
-    case 32: return flash_decode_kernel<T, 32>;
-    case 64: return flash_decode_kernel<T, 64>;
-    case 128: return flash_decode_kernel<T, 128>;
+    case 16: return kernel_if_built<T, 16>();
+    case 32: return kernel_if_built<T, 32>();
+    case 64: return kernel_if_built<T, 64>();
+    case 128: return kernel_if_built<T, 128>();
     default: return nullptr;
   }
 }
@@ -436,13 +467,16 @@ struct ClusterLaunch {
 // dimension of q/k/v must be contiguous and every q/k/v row 16-byte
 // aligned.  bias is float32 or null (zero).  out is a contiguous
 // [B, 1, H, D] tensor of the input dtype.  splits: S in 1..8, the CTAs
-// (one cluster) per (batch, head).  Returns the cudaError_t of the launch.
+// (one cluster) per (batch, head).  block_k must be this library's block
+// (TPP_BLOCK_K) and (dtype, D) built in it, else cudaErrorInvalidValue.
+// Returns the cudaError_t of the launch.
 extern "C" int tpp_flash_decode(const void* q, const void* k, const void* v,
                                 const void* mask, const void* bias, void* out,
                                 int dtype, int mask_code, int B, int L, int H,
-                                int D, int splits, const int64_t* strides,
+                                int D, int splits, int block_k, const int64_t* strides,
                                 float scale, void* stream) {
-  if (splits < 1 || splits > MAX_SPLITS || mask_code < 0 || mask_code > 2)
+  if (splits < 1 || splits > MAX_SPLITS || mask_code < 0 || mask_code > 2 ||
+      block_k != BLOCK_K)
     return cudaErrorInvalidValue;
   DecodeArgs a;
   a.q = q;
@@ -477,14 +511,15 @@ extern "C" int tpp_flash_decode(const void* q, const void* k, const void* v,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// Resources of the kernel for (dtype, D) at S splits: info[0] registers a
-// thread, [1] local (spill) bytes a thread, [2] static shared memory bytes,
-// [3] CTAs an SM can hold, [4] clusters of S the card can run at once (S
-// CTAs each; for S = 1, the CTAs of the whole card).  Returns a cudaError_t.
-extern "C" int tpp_flash_decode_kernel_info(int dtype, int d, int splits,
+// Resources of the kernel for (dtype, D) at S splits and this library's
+// block_k: info[0] registers a thread, [1] local (spill) bytes a thread,
+// [2] static shared memory bytes, [3] CTAs an SM can hold, [4] clusters of S
+// the card can run at once (S CTAs each; for S = 1, the CTAs of the whole
+// card).  Returns a cudaError_t.
+extern "C" int tpp_flash_decode_kernel_info(int dtype, int d, int splits, int block_k,
                                             int* info) {
   const KernelFn fn = kernel_for(dtype, d);
-  if (fn == nullptr || splits < 1 || splits > MAX_SPLITS)
+  if (fn == nullptr || splits < 1 || splits > MAX_SPLITS || block_k != BLOCK_K)
     return cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);

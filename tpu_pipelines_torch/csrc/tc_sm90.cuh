@@ -1,11 +1,11 @@
-// Pieces shared by the flash-attention kernels for Hopper (sm_90a): the
-// block geometry, f32 conversions, and the tensor-core helpers of the
-// bf16/fp16 kernels (mma.sync m16n8k16 with f32 accumulation, ldmatrix,
-// 16-byte cp.async copies into XOR-swizzled 16-bit tiles).
+// Pieces shared by the flash-attention kernels for Hopper (sm_90a): f32
+// conversions, and the tensor-core helpers of the bf16/fp16 kernels
+// (mma.sync m16n8k16 with f32 accumulation, ldmatrix, 16-byte cp.async
+// copies into XOR-swizzled 16-bit tiles).
 //
 // Included by flash_attention.cu (forward) and flash_attention_bwd.cu
-// (backward).  Each source is built into a library of its own, so
-// everything here has internal linkage.
+// (backward).  Each source is built into a library of its own for each
+// block configuration, so everything here has internal linkage.
 
 #pragma once
 
@@ -16,9 +16,10 @@
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per block
-constexpr int NTHREADS = 128;  // 4 warps
+// The block of the f32 kernels (4 warps).  The 16-bit kernels take one
+// warp per 16 rows of their block (query rows in the forward and dq, keys
+// in dk/dv), so their thread count follows the block configuration.
+constexpr int NTHREADS = 128;
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -113,12 +114,13 @@ __device__ __forceinline__ uint32_t tile_off(int r, int c) {
 }
 
 // cp.async rows [row0, row0 + ROWS) of one head of x (row stride sl
-// elements) into a swizzled tile; rows past L are zero-filled.
-template <int D, int ROWS, typename T>
+// elements) into a swizzled tile, by a block of NT threads; rows past L are
+// zero-filled.
+template <int D, int ROWS, int NT, typename T>
 __device__ __forceinline__ void load_tile(uint32_t tile, const T* x, int64_t sl, int row0,
                                           int L) {
   constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += NTHREADS) {
+  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
     const int r = i / CH, c = i % CH;
     const int row = row0 + r;
     const T* src = x + static_cast<int64_t>(row < L ? row : 0) * sl + c * 8;
@@ -128,12 +130,13 @@ __device__ __forceinline__ void load_tile(uint32_t tile, const T* x, int64_t sl,
 
 // Rows [row0, row0 + ROWS) of a swizzled tile (already multiplied and
 // rounded into the input dtype) to head h of a contiguous [B, L, H, D]
-// output, 16 bytes a thread; rows past L are not written.
-template <int D, int ROWS, typename T>
+// output, 16 bytes a thread of a block of NT threads; rows past L are not
+// written.
+template <int D, int ROWS, int NT, typename T>
 __device__ __forceinline__ void store_tile(T* dst_base, const unsigned char* tile, int b,
                                            int row0, int L, int H, int h) {
   constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < ROWS * CH; i += NTHREADS) {
+  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
     const int r = i / CH, c = i % CH;
     const int row = row0 + r;
     if (row >= L) continue;
@@ -160,6 +163,10 @@ __device__ __forceinline__ void acc_to_tile(unsigned char* tile, const float (&a
 }
 
 constexpr float LOG2E = 1.4426950408889634f;
+
+// Dynamic shared memory a block may opt into on Hopper (227 KB); a block
+// configuration whose fixed tiles exceed it is not built for that head dim.
+constexpr int MAX_SMEM = 232448;
 
 // 2^x by the SFU (relative error about 2^-22, far below the rounding of p
 // to 16 bits that follows it).

@@ -7,6 +7,12 @@ flags, so an edited source gets a new library and a stale one is never
 loaded.  Nothing is built when a module is imported: the first kernel
 launch builds (or a caller runs :func:`build` ahead of it).
 
+A source built for one block configuration takes ``defines`` (e.g.
+``{"TPP_BQ": 128, "TPP_BK": 64}``, passed as ``-D`` flags): each
+configuration is a translation unit and a library of its own,
+``_build/<name>-bq128-bk64-<hash>.so``, so the configurations compile in
+parallel, one ``nvcc`` each.
+
 The host cores under ``csrc/host/`` (the metadata store's C++ engine) are
 built the same way by :func:`load_host`, with ``g++ -O2 -fPIC -std=c++17
 -shared``, into ``_build/<name>-<hash>.so``; the hash covers ``csrc/host/``,
@@ -41,6 +47,9 @@ Prototypes = Mapping[str, Tuple[object, Sequence[object]]]
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
+# -D name -> value of one build configuration of a source.
+Defines = Mapping[str, int]
+
 
 def nvcc_path() -> str:
     """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
@@ -71,31 +80,46 @@ def _source_digest() -> str:
     return h.hexdigest()[:16]
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_source_digest()}.so"
+def variant(name: str, defines: Defines = ()) -> str:
+    """The library's name for one build configuration: ``name`` followed by
+    each define, its ``TPP_`` prefix dropped, lower case
+    (``flash_attention-bq128-bk64``)."""
+    return name + "".join(f"-{key.lower().removeprefix('tpp_')}{value}"
+                          for key, value in dict(defines).items())
 
 
-def build(name: str) -> float:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
+def library_path(name: str, defines: Defines = ()) -> Path:
+    return BUILD_DIR / f"{variant(name, defines)}-{_source_digest()}.so"
+
+
+def build(name: str, defines: Defines = (), niceness: int = 0) -> float:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` for each of ``defines``)
+    unless an up-to-date library exists.  ``niceness`` > 0 runs nvcc at
+    that lower CPU priority (``nice``), so that compiles started beside it
+    leave the cores to a longer one.
 
     A failed compile raises with the compiler's output.  Returns the
     seconds the compile took (0.0 when the library was already built)."""
     src = CSRC_DIR / f"{name}.cu"
     if not src.is_file():
         raise FileNotFoundError(f"no CUDA source {src}")
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    flags = [f"-D{key}={value}" for key, value in dict(defines).items()]
     t0 = time.perf_counter()
+    nice = shutil.which("nice") if niceness > 0 else None
+    prefix = [nice, "-n", str(niceness)] if nice else []
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [*prefix, nvcc_path(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+        raise RuntimeError(
+            f"nvcc failed for {variant(name, defines)} ({name}.cu):\n{proc.stdout}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return time.perf_counter() - t0
 
@@ -116,10 +140,11 @@ def _load(key: str, build_fn, path_fn, prototypes: Prototypes) -> ctypes.CDLL:
         return lib
 
 
-def load(name: str, prototypes: Prototypes) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    return _load(name, lambda: build(name), lambda: library_path(name),
-                 prototypes)
+def load(name: str, prototypes: Prototypes, defines: Defines = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` in the build configuration
+    ``defines``, built first if needed."""
+    return _load(variant(name, defines), lambda: build(name, defines),
+                 lambda: library_path(name, defines), prototypes)
 
 
 # ------------------------------------------------------------- host cores

@@ -38,9 +38,27 @@ product, masked scores are ``NEG_INF`` (-1e30), a row whose allowed key set
 is empty outputs 0 (dense attention would spread it uniformly) with
 ``lse = -1e30``, gets a zero ``dq`` and adds nothing to ``dk``/``dv``;
 outputs and gradients have the input dtype and ``lse`` is f32 laid out
-``[batch * heads, len]``.  The kernels' blocks are fixed (``BLOCK_Q`` x
-``BLOCK_K``) and ragged lengths are masked inside them, so there is no
-divisibility rule.
+``[batch * heads, len]``.  Ragged lengths are masked inside the kernels, so
+there is no divisibility rule.
+
+Blocks.  The bf16 and fp16 kernels are built for every pair of
+:data:`FLASH_BLOCKS` (``block_q`` in {64, 128}, ``block_k`` in {32, 64,
+128}; the forward, dq and dk/dv take the same pairs) and the decode kernel
+for every ``block_k`` of :data:`DECODE_BLOCKS`, at head dims 64 and 128,
+where the fixed tiles fit the 227 KB of shared memory a block may opt into
+(:func:`built_blocks`, :func:`built_decode_blocks`); each configuration is
+a library of its own (``ops/_build.py``).  Head dims 16 and 32 and the f32
+kernels keep the default 64 x 64 (decode 64).  :func:`flash_attention`
+takes ``block_q``, ``block_k``, ``bwd_block_q`` and ``bwd_block_k`` with
+the reference's precedence (:func:`resolve_blocks`): explicit blocks win;
+else the autotune table's ``flash_fwd`` and ``flash_bwd`` entries for the
+shape (``ops/autotune.py``, ``TPP_AUTOTUNE``); else 64 x 64, the backward
+taking the forward's blocks.  :func:`flash_decode_attention` reads the
+``flash_decode`` entry for ``block_k`` (:func:`resolve_decode_block`), and
+its split rule counts in that block.  Every block is clamped to the
+largest built one at or below the request (``autotune.clamp_block``),
+which raises when there is none; on the CPU the blocks are validated by the
+same rules and the unblocked plain versions ignore them.
 
 The forward and backward kernels for bf16 and fp16 run their products on
 the tensor cores and round ``p`` (and, in the backward, ``dS``) to the
@@ -88,50 +106,65 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 NEG_INF = -1e30
+# The default block pair, built for every dtype and head dim (the f32
+# kernels and head dims 16 and 32 have no other).
 BLOCK_Q = 64
 BLOCK_K = 64
 HEAD_DIMS = (16, 32, 64, 128)
+# The (block_q, block_k) pairs the bf16 and fp16 forward, dq and dk/dv
+# kernels are built for at BLOCK_HEAD_DIMS: each a translation unit and a
+# library of its own (-DTPP_BQ, -DTPP_BK), built in parallel.
+FLASH_BLOCKS = ((64, 32), (64, 64), (64, 128), (128, 32), (128, 64), (128, 128))
+BLOCK_HEAD_DIMS = (64, 128)
+# Dynamic shared memory a block may opt into on Hopper (227 KB): a pair
+# whose fixed tiles exceed it at a head dim is not built there.
+MAX_SMEM_BYTES = 232448
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # tpp_flash_fwd(q, k, v, mask, out, lse, dtype, b, l, h, d, 9 strides,
-#               causal, scale, stream) -> cudaError_t
+#               causal, scale, block_q, block_k, stream) -> cudaError_t
 _PROTOTYPES = {
     "tpp_flash_fwd": (
         ctypes.c_int,
         [ctypes.c_void_p] * 6
         + [ctypes.c_int] * 5
         + [ctypes.c_int64] * 9
-        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+        + [ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p],
     ),
-    # (dtype, d, l, int[3] out) -> cudaError_t
+    # (dtype, d, l, block_q, block_k, int[3] out) -> cudaError_t
     "tpp_flash_fwd_kernel_info": (
-        ctypes.c_int, [ctypes.c_int] * 3 + [ctypes.c_int * 3],
+        ctypes.c_int, [ctypes.c_int] * 5 + [ctypes.c_int * 3],
     ),
 }
 # tpp_flash_bwd_dq(q, k, v, dout, mask, lse, dvec, dq, dtype, b, l, h, d,
-#                  strides[12], causal, scale, stream) -> cudaError_t;
+#                  strides[12], causal, scale, block_q, block_k, stream)
+#                  -> cudaError_t;
 # tpp_flash_bwd_dkv takes dk, dv in place of dq;
-# tpp_flash_bwd_dvec(out, dout, dvec, dtype, b, l, h, d, strides[6], stream).
+# tpp_flash_bwd_dvec(out, dout, dvec, dtype, b, l, h, d, strides[6], stream)
+# (in the 64 x 64 library).
 _STRIDES = ctypes.c_int64 * 12
 _DVEC_STRIDES = ctypes.c_int64 * 6
 _BWD_PROTOTYPES = {
     "tpp_flash_bwd_dq": (
         ctypes.c_int,
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-        + [_STRIDES, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+        + [_STRIDES, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p],
     ),
     "tpp_flash_bwd_dkv": (
         ctypes.c_int,
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-        + [_STRIDES, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
+        + [_STRIDES, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p],
     ),
     "tpp_flash_bwd_dvec": (
         ctypes.c_int,
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
         + [_DVEC_STRIDES, ctypes.c_void_p],
     ),
-    # (which, dtype, d, l, int[3] out) -> cudaError_t
+    # (which, dtype, d, l, block_q, block_k, int[3] out) -> cudaError_t
     "tpp_flash_bwd_kernel_info": (
-        ctypes.c_int, [ctypes.c_int] * 4 + [ctypes.c_int * 3],
+        ctypes.c_int, [ctypes.c_int] * 6 + [ctypes.c_int * 3],
     ),
 }
 # Unit roundoff of the dtype the 16-bit kernels round p (and dS) to before
@@ -142,24 +175,27 @@ UNIT_ROUNDOFF = {
 }
 
 # tpp_flash_decode(q, k, v, mask, bias, out, dtype, mask_code, b, l, h, d,
-#                  splits, strides[13], scale, stream) -> cudaError_t
+#                  splits, block_k, strides[13], scale, stream) -> cudaError_t
 _DECODE_STRIDES = ctypes.c_int64 * 13
 _DECODE_PROTOTYPES = {
     "tpp_flash_decode": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
         + [_DECODE_STRIDES, ctypes.c_float, ctypes.c_void_p],
     ),
-    # (dtype, d, splits, int[5] out) -> cudaError_t
+    # (dtype, d, splits, block_k, int[5] out) -> cudaError_t
     "tpp_flash_decode_kernel_info": (
-        ctypes.c_int, [ctypes.c_int] * 3 + [ctypes.c_int * 5],
+        ctypes.c_int, [ctypes.c_int] * 4 + [ctypes.c_int * 5],
     ),
 }
 # The decode kernel's mask codes: no mask, int32, bool.
 _DECODE_MASK_CODES = {None: 0, torch.int32: 1, torch.bool: 2}
-# Keys per block of the decode kernel's walk over the cache (fixed: the
-# port has no autotune table); a split is a run of whole blocks.
+# Keys per block of the decode kernel's walk over the cache: the default
+# (every dtype and head dim) and the blocks bf16 and fp16 are built for at
+# BLOCK_HEAD_DIMS, each a library of its own (-DTPP_BLOCK_K); a split is a
+# run of whole blocks.
 DECODE_BLOCK_K = 64
+DECODE_BLOCKS = (32, 64, 128)
 # Split rule of the decode kernel: about DECODE_CTAS_PER_SM CTAs on each of
 # the card's SMs, at most DECODE_MAX_SPLITS (the portable cluster size), at
 # least DECODE_SPLIT_BLOCKS blocks per split, and no split of a cache of at
@@ -230,7 +266,73 @@ def credit(tally: Dict[str, int], replays: int = 1) -> None:
             globals()[name] += n * replays
 
 
-def _check(q, k, v, kv_mask, block_q, block_k) -> None:
+def smem_bytes(kernel: str, block_q: int, block_k: int, head_dim: int) -> int:
+    """Fixed dynamic shared memory of the bf16/fp16 kernel ``kernel``
+    ("fwd", "dq" or "dkv") at one block pair and head dim, as its source
+    counts it (the forward's and dq's mask bit set, ``ceil(L / 32)`` words,
+    comes on top at launch)."""
+    tile = 2 * head_dim   # bytes of one 16-bit row
+    if kernel == "fwd":    # Q, two stages of K and V
+        return (block_q + 4 * block_k) * tile
+    if kernel == "dq":     # Q, dO, two stages of K and V
+        return (2 * block_q + 4 * block_k) * tile
+    # dkv: K, V, two stages of Q, dO and of the f32 lse and Dvec rows
+    return 2 * block_k * tile + 4 * block_q * tile + 4 * block_q * 4
+
+
+def built_blocks(op: str, dtype: torch.dtype, head_dim: int):
+    """The (block_q, block_k) pairs the kernels of ``op`` ("flash_fwd": the
+    forward; "flash_bwd": dq and dk/dv) are built for at ``dtype`` and
+    ``head_dim``: every pair of :data:`FLASH_BLOCKS` whose kernels' fixed
+    tiles fit :data:`MAX_SMEM_BYTES` for bf16 and fp16 at
+    :data:`BLOCK_HEAD_DIMS`, else the default pair alone."""
+    if dtype not in (torch.bfloat16, torch.float16) or head_dim not in BLOCK_HEAD_DIMS:
+        return [(BLOCK_Q, BLOCK_K)]
+    kernels = ("fwd",) if op == "flash_fwd" else ("dq", "dkv")
+    return [(bq, bk) for bq, bk in FLASH_BLOCKS
+            if all(smem_bytes(kern, bq, bk, head_dim) <= MAX_SMEM_BYTES
+                   for kern in kernels)]
+
+
+def built_decode_blocks(dtype: torch.dtype, head_dim: int):
+    """The ``block_k`` values the decode kernel is built for at ``dtype``
+    and ``head_dim`` (its shared memory does not depend on the block)."""
+    if dtype in (torch.bfloat16, torch.float16) and head_dim in BLOCK_HEAD_DIMS:
+        return list(DECODE_BLOCKS)
+    return [DECODE_BLOCK_K]
+
+
+def _flash_defines(block_q: int, block_k: int) -> Dict[str, int]:
+    return {"TPP_BQ": block_q, "TPP_BK": block_k}
+
+
+def kernel_builds():
+    """Every library the kernels are built into, as ``(source name,
+    defines)``: the forward and the backward at each pair of
+    :data:`FLASH_BLOCKS`, the decode kernel at each of
+    :data:`DECODE_BLOCKS` (``ops/_build.py build``)."""
+    return ([(name, _flash_defines(bq, bk))
+             for name in ("flash_attention", "flash_attention_bwd")
+             for bq, bk in FLASH_BLOCKS]
+            + [("flash_decode", {"TPP_BLOCK_K": bk}) for bk in DECODE_BLOCKS])
+
+
+def _blocks(op: str, q: torch.Tensor, block_q, block_k, names=("block_q", "block_k")):
+    """``(block_q, block_k)`` for the kernels of ``op`` on ``q``: each given
+    block (else the default) clamped to the largest built one at or below
+    it (``autotune.clamp_block``: raises when there is none)."""
+    from tpu_pipelines_torch.ops import autotune
+
+    d = q.shape[-1]
+    return (
+        autotune.clamp_block(op, q.dtype, d, BLOCK_Q if block_q is None else block_q,
+                             names[0]),
+        autotune.clamp_block(op, q.dtype, d, BLOCK_K if block_k is None else block_k,
+                             names[1]),
+    )
+
+
+def _check(q, k, v, kv_mask) -> None:
     if q.dim() != 4:
         raise ValueError(
             f"flash_attention: q must be [batch, len, heads, head_dim], got "
@@ -268,14 +370,6 @@ def _check(q, k, v, kv_mask, block_q, block_k) -> None:
         if kv_mask.device != q.device:
             raise ValueError(
                 f"flash_attention: kv_mask on {kv_mask.device}, q on {q.device}"
-            )
-    for name, given, fixed in (
-        ("block_q", block_q, BLOCK_Q), ("block_k", block_k, BLOCK_K)
-    ):
-        if given is not None and int(given) != fixed:
-            raise ValueError(
-                f"flash_attention: {name}={given}; the kernel's block is "
-                f"fixed at {fixed}"
             )
 
 
@@ -446,12 +540,14 @@ def flash_attention_backward_reference(
     return dq, dk, dv
 
 
-def _launch(q, k, v, kv_mask, causal) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(q, k, v, kv_mask, causal, block_q, block_k
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     from tpu_pipelines_torch.ops import _build
 
     if q.dtype != torch.float32:  # the tensor-core kernel's cp.async copies
         _require_aligned16("flash_attention", q=q, k=k, v=v)
-    fn = _build.load("flash_attention", _PROTOTYPES).tpp_flash_fwd
+    fn = _build.load("flash_attention", _PROTOTYPES,
+                     _flash_defines(block_q, block_k)).tpp_flash_fwd
     b, l, h, d = q.shape
     out = torch.empty((b, l, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, l), dtype=torch.float32, device=q.device)
@@ -467,12 +563,13 @@ def _launch(q, k, v, kv_mask, causal) -> Tuple[torch.Tensor, torch.Tensor]:
             None if mask is None else mask.data_ptr(),
             out.data_ptr(), lse.data_ptr(),
             _DTYPE_CODES[q.dtype], b, l, h, d,
-            *strides, int(causal), d ** -0.5, stream,
+            *strides, int(causal), d ** -0.5, block_q, block_k, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"flash_attention: CUDA kernel launch failed with cudaError {err} "
-            f"(shape {tuple(q.shape)}, {q.dtype}, {q.device})"
+            f"(shape {tuple(q.shape)}, {q.dtype}, blocks {block_q}x{block_k}, "
+            f"{q.device})"
         )
     _count("launches", capturing)
     return out, lse
@@ -491,10 +588,13 @@ def flash_attention_forward(
     """Self-attention ``(out [b, l, h, d], lse [b*h, l] f32)``.
 
     ``kv_mask``: ``[batch, len]`` key validity (> 0 = attend).
-    ``block_q`` / ``block_k`` may only name the kernel's fixed blocks."""
-    _check(q, k, v, kv_mask, block_q, block_k)
+    ``block_q`` / ``block_k``: the kernel's block pair (default 64 x 64, no
+    table: :func:`flash_attention` resolves the tuned one), each clamped to
+    the largest built block at or below it."""
+    _check(q, k, v, kv_mask)
+    block_q, block_k = _blocks("flash_fwd", q, block_q, block_k)
     if q.device.type == "cuda":
-        return _launch(q, k, v, kv_mask, causal)
+        return _launch(q, k, v, kv_mask, causal, block_q, block_k)
     if q.device.type == "cpu":
         return flash_attention_reference(
             q, k, v, causal=causal, kv_mask=kv_mask
@@ -502,13 +602,15 @@ def flash_attention_forward(
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
-def _launch_bwd(name, q, k, v, dout, lse, dvec, kv_mask, causal, n_out):
+def _launch_bwd(name, q, k, v, dout, lse, dvec, kv_mask, causal, n_out,
+                block_q, block_k):
     """Launch ``tpp_flash_bwd_<name>`` into ``n_out`` new gradient tensors."""
     from tpu_pipelines_torch.ops import _build
 
     if q.dtype != torch.float32:  # the tensor-core kernels' cp.async copies
         _require_aligned16("flash_attention backward", q=q, k=k, v=v, dout=dout)
-    fn = getattr(_build.load("flash_attention_bwd", _BWD_PROTOTYPES),
+    fn = getattr(_build.load("flash_attention_bwd", _BWD_PROTOTYPES,
+                             _flash_defines(block_q, block_k)),
                  f"tpp_flash_bwd_{name}")
     b, l, h, d = q.shape
     mask = None
@@ -525,20 +627,20 @@ def _launch_bwd(name, q, k, v, dout, lse, dvec, kv_mask, causal, n_out):
             None if mask is None else mask.data_ptr(), lse.data_ptr(),
             dvec.data_ptr(), *(g.data_ptr() for g in grads),
             _DTYPE_CODES[q.dtype], b, l, h, d, strides, int(causal),
-            d ** -0.5, stream,
+            d ** -0.5, block_q, block_k, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"flash_attention: CUDA kernel flash_bwd_{name} launch failed "
             f"with cudaError {err} (shape {tuple(q.shape)}, {q.dtype}, "
-            f"{q.device})"
+            f"blocks {block_q}x{block_k}, {q.device})"
         )
     _count(f"{name}_launches", capturing)
     return grads
 
 
 def _check_bwd(q, k, v, dout, lse, dvec, kv_mask) -> None:
-    _check(q, k, v, kv_mask, None, None)
+    _check(q, k, v, kv_mask)
     b, l, h, _ = q.shape
     if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device:
         raise ValueError(
@@ -559,28 +661,33 @@ def _check_bwd(q, k, v, dout, lse, dvec, kv_mask) -> None:
             )
 
 
-def flash_bwd_dq(q, k, v, dout, lse, dvec, *, causal=False,
-                 kv_mask=None) -> torch.Tensor:
+def flash_bwd_dq(q, k, v, dout, lse, dvec, *, causal=False, kv_mask=None,
+                 block_q=None, block_k=None) -> torch.Tensor:
     """``dq`` from the saved ``lse`` and ``dvec = rowsum(dO * O)``: the
-    ``flash_bwd_dq`` kernel on CUDA tensors, its plain version on CPU
-    tensors."""
+    ``flash_bwd_dq`` kernel on CUDA tensors (at the block pair ``block_q``
+    x ``block_k``, default 64 x 64, clamped as the forward's), its plain
+    version on CPU tensors."""
     _check_bwd(q, k, v, dout, lse, dvec, kv_mask)
+    blocks = _blocks("flash_bwd", q, block_q, block_k)
     if q.device.type == "cuda":
-        return _launch_bwd("dq", q, k, v, dout, lse, dvec, kv_mask, causal, 1)[0]
+        return _launch_bwd("dq", q, k, v, dout, lse, dvec, kv_mask, causal, 1,
+                           *blocks)[0]
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, dout, lse, dvec, causal=causal,
                                       kv_mask=kv_mask)
     raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
-def flash_bwd_dkv(q, k, v, dout, lse, dvec, *, causal=False,
-                  kv_mask=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_bwd_dkv(q, k, v, dout, lse, dvec, *, causal=False, kv_mask=None,
+                  block_q=None, block_k=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)`` from the saved ``lse`` and ``dvec``: the
-    ``flash_bwd_dkv`` kernel on CUDA tensors, its plain version on CPU
-    tensors."""
+    ``flash_bwd_dkv`` kernel on CUDA tensors (at the block pair, as
+    :func:`flash_bwd_dq`), its plain version on CPU tensors."""
     _check_bwd(q, k, v, dout, lse, dvec, kv_mask)
+    blocks = _blocks("flash_bwd", q, block_q, block_k)
     if q.device.type == "cuda":
-        dk, dv = _launch_bwd("dkv", q, k, v, dout, lse, dvec, kv_mask, causal, 2)
+        dk, dv = _launch_bwd("dkv", q, k, v, dout, lse, dvec, kv_mask, causal, 2,
+                             *blocks)
         return dk, dv
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, dout, lse, dvec, causal=causal,
@@ -592,7 +699,8 @@ def _launch_dvec(out, dout) -> torch.Tensor:
     from tpu_pipelines_torch.ops import _build
 
     _require_aligned16("flash_attention backward", out=out, dout=dout)
-    fn = _build.load("flash_attention_bwd", _BWD_PROTOTYPES).tpp_flash_bwd_dvec
+    fn = _build.load("flash_attention_bwd", _BWD_PROTOTYPES,
+                     _flash_defines(BLOCK_Q, BLOCK_K)).tpp_flash_bwd_dvec
     b, l, h, d = out.shape
     dvec = torch.empty((b * h, l), dtype=torch.float32, device=out.device)
     strides = _DVEC_STRIDES(*out.stride()[:3], *dout.stride()[:3])
@@ -611,16 +719,19 @@ def _launch_dvec(out, dout) -> torch.Tensor:
     return dvec
 
 
-def fwd_kernel_info(dtype: torch.dtype, head_dim: int, length: int) -> dict:
+def fwd_kernel_info(dtype: torch.dtype, head_dim: int, length: int,
+                    block_q: int = BLOCK_Q, block_k: int = BLOCK_K) -> dict:
     """Registers and local memory (spill) bytes a thread of the CUDA
-    forward kernel takes for ``dtype`` and ``head_dim`` (the FMA kernel for
-    f32, the tensor-core kernel for bf16 and fp16), and its dynamic shared
-    memory at ``length``; builds the library if needed."""
+    forward kernel takes for ``dtype``, ``head_dim`` and the block pair
+    (the FMA kernel for f32, the tensor-core kernel for bf16 and fp16), and
+    its dynamic shared memory at ``length``; builds the library if
+    needed."""
     from tpu_pipelines_torch.ops import _build
 
-    fn = _build.load("flash_attention", _PROTOTYPES).tpp_flash_fwd_kernel_info
+    fn = _build.load("flash_attention", _PROTOTYPES,
+                     _flash_defines(block_q, block_k)).tpp_flash_fwd_kernel_info
     info = (ctypes.c_int * 3)()
-    err = fn(_DTYPE_CODES[dtype], head_dim, length, info)
+    err = fn(_DTYPE_CODES[dtype], head_dim, length, block_q, block_k, info)
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel info for flash_fwd failed "
                            f"with cudaError {err}")
@@ -629,18 +740,19 @@ def fwd_kernel_info(dtype: torch.dtype, head_dim: int, length: int) -> dict:
 
 
 def bwd_kernel_info(name: str, dtype: torch.dtype, head_dim: int,
-                    length: int) -> dict:
+                    length: int, block_q: int = BLOCK_Q,
+                    block_k: int = BLOCK_K) -> dict:
     """Registers and local memory (spill) bytes a thread of the CUDA kernel
-    ``flash_bwd_<name>`` (``"dq"`` or ``"dkv"``) takes for ``dtype`` and
-    ``head_dim``, and its dynamic shared memory at ``length``; builds the
-    library if needed."""
+    ``flash_bwd_<name>`` (``"dq"`` or ``"dkv"``) takes for ``dtype``,
+    ``head_dim`` and the block pair, and its dynamic shared memory at
+    ``length``; builds the library if needed."""
     from tpu_pipelines_torch.ops import _build
 
-    fn = _build.load("flash_attention_bwd",
-                     _BWD_PROTOTYPES).tpp_flash_bwd_kernel_info
+    fn = _build.load("flash_attention_bwd", _BWD_PROTOTYPES,
+                     _flash_defines(block_q, block_k)).tpp_flash_bwd_kernel_info
     info = (ctypes.c_int * 3)()
     err = fn({"dq": 0, "dkv": 1}[name], _DTYPE_CODES[dtype], head_dim, length,
-             info)
+             block_q, block_k, info)
     if err != 0:
         raise RuntimeError(f"flash_attention: kernel info for flash_bwd_{name} "
                            f"failed with cudaError {err}")
@@ -684,13 +796,16 @@ def flash_attention_backward(
     *,
     causal: bool = False,
     kv_mask: Optional[torch.Tensor] = None,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`flash_attention_forward` for the output
     cotangent ``dout``, from the forward's ``out`` and ``lse``:
     :func:`flash_bwd_dvec`, then :func:`flash_bwd_dq` and
-    :func:`flash_bwd_dkv`.  A ``dout`` whose rows the kernels cannot read
-    with 16-byte loads (a strided last dim, a misaligned view) is copied
-    into a contiguous tensor first."""
+    :func:`flash_bwd_dkv` at the block pair ``block_q`` x ``block_k``.  A
+    ``dout`` whose rows the kernels cannot read with 16-byte loads (a
+    strided last dim, a misaligned view) is copied into a contiguous tensor
+    first."""
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.device != q.device:
             raise ValueError(
@@ -701,43 +816,53 @@ def flash_attention_backward(
                                 and not _aligned16(dout)):
         dout = dout.clone(memory_format=torch.contiguous_format)
     dvec = flash_bwd_dvec(out, dout)
-    dq = flash_bwd_dq(q, k, v, dout, lse, dvec, causal=causal, kv_mask=kv_mask)
+    dq = flash_bwd_dq(q, k, v, dout, lse, dvec, causal=causal, kv_mask=kv_mask,
+                      block_q=block_q, block_k=block_k)
     dk, dv = flash_bwd_dkv(q, k, v, dout, lse, dvec, causal=causal,
-                           kv_mask=kv_mask)
+                           kv_mask=kv_mask, block_q=block_q, block_k=block_k)
     return dq, dk, dv
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """The reference's ``_flash`` custom_vjp: the forward saves
-    ``(q, k, v, mask, out, lse)``; the backward returns ``(dq, dk, dv)``
-    and no gradient for the mask or the causal flag."""
+    """The reference's ``_flash`` custom_vjp: the forward (at ``block_q`` x
+    ``block_k``) saves ``(q, k, v, mask, out, lse)``; the backward (at
+    ``bwd_block_q`` x ``bwd_block_k``) returns ``(dq, dk, dv)`` and no
+    gradient for the mask, the causal flag or the blocks."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kv_mask, causal):
-        out, lse = torch.ops.tpp_flash.fwd(q, k, v, kv_mask, causal)
+    def forward(ctx, q, k, v, kv_mask, causal, block_q, block_k, bwd_block_q,
+                bwd_block_k):
+        out, lse = torch.ops.tpp_flash.fwd(q, k, v, kv_mask, causal, block_q,
+                                           block_k)
         ctx.save_for_backward(q, k, v, kv_mask, out, lse)
         ctx.causal = causal
+        ctx.bwd_blocks = (bwd_block_q, bwd_block_k)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, kv_mask, out, lse = ctx.saved_tensors
         dq, dk, dv = torch.ops.tpp_flash.bwd(
-            q, k, v, kv_mask, ctx.causal, out, lse, dout)
-        return dq, dk, dv, None, None
+            q, k, v, kv_mask, ctx.causal, out, lse, dout, *ctx.bwd_blocks)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 # The operators FlashAttentionFunction runs (see the module docstring).
 _ops = torch.library.Library("tpp_flash", "DEF")
-_ops.define("fwd(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, bool causal) "
-            "-> (Tensor, Tensor)")
+_ops.define("fwd(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, bool causal, "
+            "int block_q=64, int block_k=64) -> (Tensor, Tensor)")
 _ops.define("bwd(Tensor q, Tensor k, Tensor v, Tensor? kv_mask, bool causal, "
-            "Tensor out, Tensor lse, Tensor dout) -> (Tensor, Tensor, Tensor)")
-_ops.impl("fwd", lambda q, k, v, kv_mask, causal: flash_attention_forward(
-    q, k, v, causal=causal, kv_mask=kv_mask), "CompositeExplicitAutograd")
-_ops.impl("bwd", lambda q, k, v, kv_mask, causal, out, lse, dout:
+            "Tensor out, Tensor lse, Tensor dout, int block_q=64, "
+            "int block_k=64) -> (Tensor, Tensor, Tensor)")
+_ops.impl("fwd", lambda q, k, v, kv_mask, causal, block_q=BLOCK_Q,
+          block_k=BLOCK_K: flash_attention_forward(
+              q, k, v, causal=causal, kv_mask=kv_mask, block_q=block_q,
+              block_k=block_k), "CompositeExplicitAutograd")
+_ops.impl("bwd", lambda q, k, v, kv_mask, causal, out, lse, dout,
+          block_q=BLOCK_Q, block_k=BLOCK_K:
           flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
-                                   kv_mask=kv_mask),
+                                   kv_mask=kv_mask, block_q=block_q,
+                                   block_k=block_k),
           "CompositeExplicitAutograd")
 
 
@@ -751,14 +876,15 @@ def _no_meta(q):
 
 
 @torch.library.register_fake("tpp_flash::fwd")
-def _fwd_fake(q, k, v, kv_mask, causal):
+def _fwd_fake(q, k, v, kv_mask, causal, block_q=BLOCK_Q, block_k=BLOCK_K):
     _no_meta(q)
     b, l, h, _ = q.shape
     return torch.empty_like(q), q.new_empty((b * h, l), dtype=torch.float32)
 
 
 @torch.library.register_fake("tpp_flash::bwd")
-def _bwd_fake(q, k, v, kv_mask, causal, out, lse, dout):
+def _bwd_fake(q, k, v, kv_mask, causal, out, lse, dout, block_q=BLOCK_Q,
+              block_k=BLOCK_K):
     _no_meta(q)
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
@@ -788,17 +914,59 @@ def flash_attention(
     kv_mask: Optional[torch.Tensor] = None,
     block_q: Optional[int] = None,
     block_k: Optional[int] = None,
+    bwd_block_q: Optional[int] = None,
+    bwd_block_k: Optional[int] = None,
 ) -> torch.Tensor:
     """Differentiable self-attention over ``[batch, len, heads, head_dim]``;
     see :func:`flash_attention_forward` and
-    :func:`flash_attention_backward`."""
-    _check(q, k, v, kv_mask, block_q, block_k)
-    return FlashAttentionFunction.apply(q, k, v, kv_mask, causal)
+    :func:`flash_attention_backward`.  The forward's and the backward's
+    blocks are chosen as the reference's are (:func:`resolve_blocks`)."""
+    _check(q, k, v, kv_mask)
+    blocks = resolve_blocks(q, causal, block_q, block_k, bwd_block_q,
+                            bwd_block_k)
+    return FlashAttentionFunction.apply(q, k, v, kv_mask, causal, *blocks)
+
+
+def resolve_blocks(q, causal=False, block_q=None, block_k=None,
+                   bwd_block_q=None, bwd_block_k=None):
+    """``(block_q, block_k, bwd_block_q, bwd_block_k)`` for
+    :func:`flash_attention` on ``q`` (``[b, l, h, d]``), by the reference's
+    precedence: explicit forward blocks win, and then the backward takes
+    its own explicit blocks or else the forward's; with none given, the
+    autotune table's ``flash_fwd`` and ``flash_bwd`` entries for this shape
+    (``autotune.get_block_config``: ``TPP_AUTOTUNE``'s modes, the user
+    cache before the committed table, never a sweep while the stream
+    captures a graph), else 64 x 64.  Each block is clamped to the largest
+    built one at or below it."""
+    from tpu_pipelines_torch.ops import autotune
+
+    b, l, h, d = q.shape
+
+    def tuned(op):
+        return autotune.get_block_config(op, b, h, l, d, q.dtype, causal,
+                                         device=q.device)
+
+    explicit = block_q is not None or block_k is not None
+    if not explicit:
+        cfg = tuned("flash_fwd")
+        if cfg is not None:
+            block_q, block_k = cfg
+    block_q = BLOCK_Q if block_q is None else block_q
+    block_k = BLOCK_K if block_k is None else block_k
+    if not explicit and bwd_block_q is None and bwd_block_k is None:
+        cfg = tuned("flash_bwd")
+        if cfg is not None:
+            bwd_block_q, bwd_block_k = cfg
+    bwd_block_q = block_q if bwd_block_q is None else bwd_block_q
+    bwd_block_k = block_k if bwd_block_k is None else bwd_block_k
+    return (*_blocks("flash_fwd", q, block_q, block_k),
+            *_blocks("flash_bwd", q, bwd_block_q, bwd_block_k,
+                     ("bwd_block_q", "bwd_block_k")))
 
 
 # ------------------------------------------------------------------ decode
 
-def _check_decode(q, k, v, kv_mask, bias, block_k) -> None:
+def _check_decode(q, k, v, kv_mask, bias) -> None:
     if k.dim() != 4 or q.dim() != 4:
         raise ValueError(
             "flash_decode_attention: q must be [batch, 1, heads, head_dim] and "
@@ -861,11 +1029,6 @@ def _check_decode(q, k, v, kv_mask, bias, block_k) -> None:
             raise ValueError(
                 f"flash_decode_attention: bias on {bias.device}, q on {q.device}"
             )
-    if block_k is not None and int(block_k) != DECODE_BLOCK_K:
-        raise ValueError(
-            f"flash_decode_attention: block_k={block_k}; the kernel's block is "
-            f"fixed at {DECODE_BLOCK_K}"
-        )
 
 
 def flash_decode_attention_reference(
@@ -895,14 +1058,15 @@ def flash_decode_attention_reference(
     return (out / denom.permute(0, 2, 1, 3)).to(q.dtype)
 
 
-def decode_splits(b: int, h: int, l: int, sms: int) -> int:
+def decode_splits(b: int, h: int, l: int, sms: int,
+                  block_k: int = DECODE_BLOCK_K) -> int:
     """Splits S of the decode kernel's KV range for a [b, l, h, d] cache on
     a card of ``sms`` SMs: enough CTAs (S * b * h) to fill the card, about
     ``DECODE_CTAS_PER_SM * sms``, at most ``DECODE_MAX_SPLITS``, at most one
-    per ``DECODE_SPLIT_BLOCKS`` 64-key blocks, and 1 for a cache of at most
-    ``DECODE_UNSPLIT_BLOCKS`` blocks.  The S CTAs of one (batch, head) form
-    one cluster."""
-    blocks = -(-l // DECODE_BLOCK_K)
+    per ``DECODE_SPLIT_BLOCKS`` blocks of ``block_k`` keys, and 1 for a
+    cache of at most ``DECODE_UNSPLIT_BLOCKS`` blocks.  The S CTAs of one
+    (batch, head) form one cluster."""
+    blocks = -(-l // block_k)
     if blocks <= DECODE_UNSPLIT_BLOCKS:
         return 1
     want = -(-DECODE_CTAS_PER_SM * sms // (b * h))
@@ -915,28 +1079,29 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def decode_split_ranges(l: int, splits: int):
+def decode_split_ranges(l: int, splits: int, block_k: int = DECODE_BLOCK_K):
     """The key range [begin, end) of each split, in rank order: split r
-    takes whole 64-key blocks ``[r * nb // S, (r + 1) * nb // S)`` of the
-    ``nb`` blocks (the last one cut at ``l``), as the kernel does."""
-    nb = -(-l // DECODE_BLOCK_K)
-    return [(r * nb // splits * DECODE_BLOCK_K,
-             min(l, (r + 1) * nb // splits * DECODE_BLOCK_K))
+    takes whole blocks of ``block_k`` keys ``[r * nb // S, (r + 1) * nb //
+    S)`` of the ``nb`` blocks (the last one cut at ``l``), as the kernel
+    does."""
+    nb = -(-l // block_k)
+    return [(r * nb // splits * block_k, min(l, (r + 1) * nb // splits * block_k))
             for r in range(splits)]
 
 
-def decode_kernel_info(dtype: torch.dtype, head_dim: int, splits: int) -> dict:
+def decode_kernel_info(dtype: torch.dtype, head_dim: int, splits: int,
+                       block_k: int = DECODE_BLOCK_K) -> dict:
     """Registers and local memory (spill) bytes a thread of the CUDA decode
-    kernel takes for ``dtype`` and ``head_dim``, its static shared memory,
-    the CTAs an SM holds and the clusters of ``splits`` CTAs the card runs
-    at once (``cudaOccupancyMaxActiveClusters``); builds the library if
-    needed."""
+    kernel takes for ``dtype``, ``head_dim`` and ``block_k``, its static
+    shared memory, the CTAs an SM holds and the clusters of ``splits`` CTAs
+    the card runs at once (``cudaOccupancyMaxActiveClusters``); builds the
+    library if needed."""
     from tpu_pipelines_torch.ops import _build
 
-    fn = _build.load("flash_decode",
-                     _DECODE_PROTOTYPES).tpp_flash_decode_kernel_info
+    fn = _build.load("flash_decode", _DECODE_PROTOTYPES,
+                     {"TPP_BLOCK_K": block_k}).tpp_flash_decode_kernel_info
     info = (ctypes.c_int * 5)()
-    err = fn(_DTYPE_CODES[dtype], head_dim, splits, info)
+    err = fn(_DTYPE_CODES[dtype], head_dim, splits, block_k, info)
     if err != 0:
         raise RuntimeError(f"flash_decode_attention: kernel info failed with "
                            f"cudaError {err}")
@@ -945,11 +1110,12 @@ def decode_kernel_info(dtype: torch.dtype, head_dim: int, splits: int) -> dict:
             "max_active_clusters": info[4]}
 
 
-def _launch_decode(q, k, v, kv_mask, bias) -> torch.Tensor:
+def _launch_decode(q, k, v, kv_mask, bias, block_k) -> torch.Tensor:
     from tpu_pipelines_torch.ops import _build
 
     _require_aligned16("flash_decode_attention", q=q, k=k, v=v)
-    fn = _build.load("flash_decode", _DECODE_PROTOTYPES).tpp_flash_decode
+    fn = _build.load("flash_decode", _DECODE_PROTOTYPES,
+                     {"TPP_BLOCK_K": block_k}).tpp_flash_decode
     b, l, h, d = k.shape
     out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
     # The mask is read in place, int32 or bool, through its strides (an
@@ -971,13 +1137,14 @@ def _launch_decode(q, k, v, kv_mask, bias) -> torch.Tensor:
             None if bias is None else bias.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[q.dtype],
             _DECODE_MASK_CODES[None if kv_mask is None else kv_mask.dtype],
-            b, l, h, d, decode_splits(b, h, l, sm_count(q.device)), strides,
-            d ** -0.5, stream,
+            b, l, h, d, decode_splits(b, h, l, sm_count(q.device), block_k),
+            block_k, strides, d ** -0.5, stream,
         )
     if err != 0:
         raise RuntimeError(
             f"flash_decode_attention: CUDA kernel launch failed with cudaError "
-            f"{err} (cache {tuple(k.shape)}, {q.dtype}, {q.device})"
+            f"{err} (cache {tuple(k.shape)}, {q.dtype}, block_k {block_k}, "
+            f"{q.device})"
         )
     _count("decode_launches", capturing)
     return out
@@ -1001,13 +1168,35 @@ def flash_decode_attention(
     None: every key).  ``bias``: additive f32 [1|batch, heads, 1, kv_len]
     score term (T5 relative positions), broadcast over the batch when its
     leading dim is 1.  Returns [batch, 1, heads, head_dim] in q's dtype.
-    Inference only (no gradient).  ``block_k`` may only name the kernel's
-    fixed block (``DECODE_BLOCK_K``)."""
-    _check_decode(q, k, v, kv_mask, bias, block_k)
+    Inference only (no gradient).  ``block_k``: explicit, else the autotune
+    table's ``flash_decode`` entry for the shape, else ``DECODE_BLOCK_K``
+    (:func:`resolve_decode_block`)."""
+    _check_decode(q, k, v, kv_mask, bias)
+    b, l, h, d = k.shape
+    block_k = resolve_decode_block(b, h, l, d, q.dtype, q.device, block_k)
     if q.device.type == "cuda":
-        return _launch_decode(q, k, v, kv_mask, bias)
+        return _launch_decode(q, k, v, kv_mask, bias, block_k)
     if q.device.type == "cpu":
         return flash_decode_attention_reference(
             q, k, v, kv_mask=kv_mask, bias=bias
         )
     raise ValueError(f"flash_decode_attention: no kernel for device {q.device}")
+
+
+def resolve_decode_block(b: int, h: int, l: int, d: int, dtype: torch.dtype,
+                         device, block_k: Optional[int] = None) -> int:
+    """The decode kernel's ``block_k`` for a ``[b, l, h, d]`` cache of
+    ``dtype`` on ``device``, by the reference's precedence: explicit, else
+    the autotune table's ``flash_decode`` entry for the shape, else
+    ``DECODE_BLOCK_K``; clamped to the largest built block at or below
+    it."""
+    from tpu_pipelines_torch.ops import autotune
+
+    if block_k is None:
+        cfg = autotune.get_block_config("flash_decode", b, h, l, d, dtype,
+                                        False, device=device)
+        if cfg is not None:
+            block_k = cfg[1]
+    return autotune.clamp_block("flash_decode", dtype, d,
+                                DECODE_BLOCK_K if block_k is None else block_k,
+                                "block_k")

@@ -27,6 +27,8 @@ _FNV_OFFSET = FNV_OFFSET
 # Process strings in row chunks so the padded [rows, max_len] codepoint
 # matrix stays bounded even when one row is pathologically long.
 _CHUNK_ROWS = 65536
+# Code points widened to uint64 at a time by ``fnv1a_update`` (32 MB).
+_BLOCK_CODES = 1 << 22
 
 
 def _fnv1a_chunk(arr: np.ndarray) -> np.ndarray:
@@ -47,11 +49,21 @@ def fnv1a_update(h: np.ndarray, arr: np.ndarray) -> np.ndarray:
         arr.tobytes(), dtype=np.uint32
     ).reshape(n, max_len)
     h = np.array(h, np.uint64)
+    # Every row has its first ``common`` code points: those positions need
+    # no mask, and run as two in-place ufuncs a position over columns
+    # widened in blocks of at most _BLOCK_CODES codes (a few long rows,
+    # as a flattened image's text, spend their time here).
+    common, end = int(lengths.min()), int(lengths.max())
+    cols = max(1, _BLOCK_CODES // n)
     with np.errstate(over="ignore"):
-        for j in range(max_len):
+        for lo in range(0, common, cols):
+            block = np.ascontiguousarray(
+                codes[:, lo:min(common, lo + cols)].T, dtype=np.uint64)
+            for col in block:
+                np.bitwise_xor(h, col, out=h)
+                np.multiply(h, _FNV_PRIME, out=h)
+        for j in range(common, end):
             active = j < lengths
-            if not active.any():
-                break
             upd = (h ^ codes[:, j].astype(np.uint64)) * _FNV_PRIME
             h = np.where(active, upd, h)
     return h
